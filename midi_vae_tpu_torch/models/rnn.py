@@ -1,0 +1,104 @@
+"""Sequence RNN encoders and the autoregressive readout decode (inference).
+
+Counterpart of ``midi_vae_tpu/models/rnn.py`` on its inference branch:
+``encode_sequence``/``_scan_layer`` run each layer as one call of kernel A
+(``ops.gru_layer``) when the model's kernel switch is on, else the plain
+per-step cell scan; ``init_decoder_states`` is plain dense + activation;
+``decode_autoregressive`` is the plain readout loop that feeds each step's
+activated output back as the next input (heads that kernel B takes never
+reach it on the kernel path).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..ops.gru_layer import gru_layer
+from .cells import activation_fn, dense_apply, gate_activation_fn, get_cell, zero_states
+
+Params = dict[str, Any]
+
+
+def encode_sequence(layer_params, xs: torch.Tensor, cell_type: str, activation: str = "tanh",
+                    bidirectional: bool = False, kernels: bool = False,
+                    gate_activation: str = "sigmoid") -> torch.Tensor:
+    """Run a stacked RNN over (B, T, D); return the last layer's final h (B, H).
+
+    All layers but the last return sequences; ``bidirectional`` wraps the
+    non-final layers in forward + backward passes with concat merge."""
+    cell = get_cell(cell_type)
+    h = xs
+    n_layers = len(layer_params)
+    for i, p in enumerate(layer_params):
+        is_last = i == n_layers - 1
+        if bidirectional and not is_last:
+            fwd = _scan_layer(cell, p["fwd"], h, activation, True, kernels, gate_activation)
+            bwd = _scan_layer(cell, p["bwd"], h.flip(1), activation, True, kernels,
+                              gate_activation).flip(1)
+            h = torch.cat([fwd, bwd], dim=-1)
+        else:
+            h = _scan_layer(cell, p, h, activation, not is_last, kernels, gate_activation)
+    return h
+
+
+def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_sequences: bool,
+                kernels: bool = False, gate_activation: str = "sigmoid"):
+    """One RNN layer over (B, T, D): one kernel-A call when ``kernels`` (GRU
+    cells with sigmoid gates), else the plain cell scan."""
+    B, T, _ = xs.shape
+    hidden = p["u"].shape[0]
+    init = zero_states(cell, B, hidden, xs)
+    if kernels:
+        out = gru_layer(xs.transpose(0, 1).contiguous(), init[0], p["w"], p["b"], p["u"],
+                        activation, return_sequences)
+        return out.transpose(0, 1) if return_sequences else out
+
+    act = activation_fn(activation)
+    gact = gate_activation_fn(gate_activation)
+    xp = cell.x_proj(p, xs.reshape(B * T, -1)).reshape(B, T, -1)
+    states = init
+    outs = []
+    for t in range(T):
+        out, states = cell.step(p, xp[:, t], states, act, gact)
+        if return_sequences:
+            outs.append(out)
+    return torch.stack(outs, dim=1) if return_sequences else states[0]
+
+
+def init_decoder_states(init_dense, new_encoded: torch.Tensor, cell_type: str,
+                        state_activation: str) -> tuple[tuple, ...]:
+    """Per-layer initial states = act(Dense([z, history, ...])); ``init_dense``
+    is flat, num_layers * num_states dense params, layer-major."""
+    cell = get_cell(cell_type)
+    act = activation_fn(state_activation)
+    n_layers = len(init_dense) // cell.num_states
+    it = iter(init_dense)
+    return tuple(
+        tuple(act(dense_apply(next(it), new_encoded)) for _ in range(cell.num_states))
+        for _ in range(n_layers)
+    )
+
+
+def decode_autoregressive(cell_params, out_dense: Params, initial_states, start: torch.Tensor,
+                          output_length: int, cell_type: str, lstm_activation: str = "tanh",
+                          out_activation: str = "softmax", gate_activation: str = "sigmoid"):
+    """Plain readout loop: output_t feeds back as input_{t+1}.
+
+    Returns (probs, logits), both (B, T, out_dim)."""
+    cell = get_cell(cell_type)
+    act = activation_fn(lstm_activation)
+    gact = gate_activation_fn(gate_activation)
+    out_act = activation_fn(out_activation)
+    states = list(initial_states)
+    out = start
+    probs, logits = [], []
+    for _ in range(output_length):
+        for i, p in enumerate(cell_params):
+            out, states[i] = cell.step(p, cell.x_proj(p, out), states[i], act, gact)
+        lg = dense_apply(out_dense, out)
+        out = out_act(lg)
+        probs.append(out)
+        logits.append(lg)
+    return torch.stack(probs, dim=1), torch.stack(logits, dim=1)

@@ -1,0 +1,85 @@
+"""Builds the hand-written CUDA kernels with nvcc and loads them with ctypes.
+
+Follows the lazy g++ + ctypes loader of ``midi_vae_tpu/native/__init__.py``:
+each ``csrc/<name>.cu`` compiles on first use, with a plain C interface,
+into ``midi_vae_tpu_torch/csrc/build/lib<name>.so`` (the ``build/`` pattern of
+``.gitignore`` covers it), and is rebuilt when a source under ``csrc/`` is
+newer than the library. Nothing here runs at import time: the CPU paths never
+build anything, and a missing ``nvcc`` raises only when a CUDA tensor asks for
+a kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import os
+import shutil
+import subprocess
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+BUILD_DIR = os.path.join(CSRC, "build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+# seconds spent in nvcc by this process, per library (chip_smoke reports it)
+build_seconds: dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "midi_vae_tpu_torch cannot be built"
+    )
+
+
+def _build(name: str) -> str:
+    src = os.path.join(CSRC, f"{name}.cu")
+    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+    sources = glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh"))
+    newest = max(os.path.getmtime(p) for p in sources)
+    if os.path.exists(so) and os.path.getmtime(so) >= newest:
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # compile to a unique file and rename into place, so a concurrent
+    # process never loads a half-written library
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    t0 = time.perf_counter()
+    result = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    build_seconds[name] = time.perf_counter() - t0
+    if result.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed for {src} (rc {result.returncode}):\n"
+            f"{' '.join(cmd)}\n{result.stdout}{result.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, built first if needed."""
+    lib = ctypes.CDLL(_build(name))
+    lib.mvt_error_string.argtypes = [ctypes.c_int]
+    lib.mvt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.mvt_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
