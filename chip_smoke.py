@@ -7,10 +7,13 @@ Phases (each raises on failure, so the script exits non-zero and prints no
 result line):
   1. device: a CUDA card must be present; prints nvidia-smi's name and power
      limit line;
-  2. build: nvcc builds kernel A (csrc/gru_layer_fwd.cu) and kernel B
-     (csrc/gru_decode.cu) from the checkout;
-  3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the transfer path gives it with B = 256 windows, with times
+  2. build: nvcc builds every kernel library from the checkout, one process
+     per source, all started together: A (csrc/gru_layer_fwd.cu), B
+     (csrc/gru_decode.cu), C (csrc/gru_layer_bwd.cu), D
+     (csrc/gru_decode_train.cu), E (csrc/gru_decode_bwd.cu) and W
+     (csrc/grad_reduce.cu);
+  3. kernels: A and B against their plain PyTorch versions on the card, at
+     the shapes the transfer path gives them with B = 256 windows, with times
      (CUDA events, median of REPS runs);
   4. slice: the transfer CLI (midi_vae_tpu_torch.cli.transfer.main) at the
      full default Config() width on 3 authored songs, with
@@ -18,7 +21,21 @@ result line):
      counters must show every kernel on the path was launched;
   5. card against CPU: one 256-window transfer_argmax batch on the card and
      through the plain path on the CPU; z, probs and argmax must agree. Prints
-     windows/s and note-steps/s on the card.
+     windows/s and note-steps/s on the card;
+  6. training kernels: C, D, E and W against their plain versions at the
+     training step's shapes (B = 256) and at B = 5, with times, and the
+     gradients of the training ops against autograd through the plain
+     forward;
+  7. training slice: the train CLI (midi_vae_tpu_torch.cli.train.main) at
+     the full default Config() width (batch 256) on an authored corpus for 2
+     epochs, then --resume for a third, then the transfer CLI serves the
+     run; losses finite, checkpoints on disk, and the launch counters of
+     every kernel equal to what the design implies per step, eval batch and
+     encode batch;
+  8. training step, card against CPU: one optimizer step's loss, metrics and
+     every parameter gradient on a fixed 256-window batch with padding rows
+     and numpy noise, on the card and through the plain path on the CPU;
+     prints the card's step time and note-steps/s.
 Then one JSON line with the kernels, and the final line
 {"ok": true, "device": {...}}.
 """
@@ -43,9 +60,28 @@ LOGITS_ATOL = 1e-4  # kernel B's logits
 Z_ATOL = 1e-4
 PROBS_ATOL = 1e-4
 MIN_ARGMAX_AGREEMENT = 0.999
+# one training step, card vs CPU (f32, TF32 off, sums in another order over
+# 64-step chains at full width): losses to LOSS_ATOL; accuracies to ACC_ATOL
+# (about 16 of the 16,000 note steps may flip an argmax between near-ties);
+# each parameter's gradient to STEP_GRAD_RTOL of its largest entry, plus
+# STEP_GRAD_ATOL for parameters whose gradients are near zero
+LOSS_ATOL = 1e-5
+ACC_ATOL = 1e-3
+STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-4, 1e-7
+# training kernels (C, D, E, W) in f32 with TF32 off: gradients come back
+# through 64-step chains (the decode heads feed their probs back), and the
+# kernels sum in another order than autograd through the plain versions, so
+# a gradient is held to max|diff| <= GRAD_RTOL * max(1, max|g|); the
+# forward values of D to H_ATOL (probs, h) and LOGITS_ATOL (logits)
+GRAD_RTOL = 1e-4
 REPS = 20
 B = 256
 RAGGED = 5  # rows of a batch smaller than one block's tile
+
+
+def rel(w):
+    """The gradient limit for a plain-version gradient w."""
+    return GRAD_RTOL * max(1.0, w.abs().max().item())
 
 
 def phase_device():
@@ -67,10 +103,11 @@ def phase_build():
     from midi_vae_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    for name in ("gru_layer_fwd", "gru_decode"):
+    _build.build(_build.LIBRARIES)
+    for name in _build.LIBRARIES:
         _build.load(name)
     secs = {k: round(v, 2) for k, v in _build.build_seconds.items()}
-    print(f"[build] {time.perf_counter() - t0:.2f} s; nvcc per library: {secs}")
+    print(f"[build] {time.perf_counter() - t0:.2f} s, in parallel; nvcc per library: {secs}")
 
 
 def random_batch(cfg, n, seed):
@@ -109,13 +146,16 @@ def check(name, kernel_fn, plain_fn, limits):
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    if len(got) != len(want) or len(limits) != len(want):
+        raise RuntimeError(f"{name}: {len(got)} kernel outputs, {len(want)} plain, {len(limits)} limits")
     errs = []
     for g, w, limit in zip(got, want, limits):
         if g.shape != w.shape or not torch.isfinite(g).all():
             raise RuntimeError(f"{name}: kernel output {tuple(g.shape)} not finite or not {tuple(w.shape)}")
+        limit = limit(w) if callable(limit) else limit
         err = (g - w).abs().max().item()
         if not err <= limit:
-            raise RuntimeError(f"{name}: max |kernel - plain| = {err:.3e} > {limit:.0e}")
+            raise RuntimeError(f"{name}: max |kernel - plain| = {err:.3e} > {limit:.3e}")
         errs.append(err)
     return errs
 
@@ -126,8 +166,9 @@ def compare(name, kernel_fn, plain_fn, limits):
     plain_a, kernel_a = median_ms(plain_fn), median_ms(kernel_fn)
     kernel_b, plain_b = median_ms(kernel_fn), median_ms(plain_fn)
     ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
+    shown = ", ".join("rel" if callable(x) else f"{x:.0e}" for x in limits)
     print(f"[kernels] {name}: max|diff| {', '.join(f'{e:.3e}' for e in errs)} "
-          f"(limits {', '.join(f'{x:.0e}' for x in limits)}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"(limits {shown}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
 
 
@@ -193,6 +234,183 @@ def phase_kernels():
     return results
 
 
+def _decode_train_heads(cfg, dec, new_encoded, rows, dev):
+    """The training decode calls of the default config: the notes + velocity
+    multi-head and the instrument head, as lists of head dicts (detached)."""
+    import torch
+
+    from midi_vae_tpu_torch.models.rnn import init_decoder_states
+
+    def head(name, d, T, out_act):
+        h = dec[name]
+        states = init_decoder_states(h["init"], new_encoded, cfg.cell_type,
+                                     cfg.lstm_state_activation)
+        return {"cells": [{k: c[k].detach() for k in "wub"} for c in h["cells"]],
+                "out": {k: h["out"][k].detach() for k in "wb"},
+                "init": [s[0].detach() for s in states], "start": torch.zeros(rows, d, device=dev),
+                "T": T, "out_activation": out_act}
+
+    return {
+        "multihead": [head("notes", cfg.output_dim, cfg.output_length, cfg.activation),
+                      head("velocity", 1, cfg.meta_velocity_length, cfg.meta_velocity_activation)],
+        "instrument": [head("instrument", cfg.meta_instrument_dim, cfg.meta_instrument_length,
+                            cfg.meta_instrument_activation)],
+    }
+
+
+def phase_train_kernels():
+    """Kernels C, D, E and W at the training path's shapes (B = 256: the four
+    encoder layers, the notes + velocity multi-head, the instrument head) and
+    again at B = 5, each against its plain version, plus the gradients of the
+    training ops (A + C + W, D + E + W) against autograd through the plain
+    forward."""
+    import torch
+
+    from midi_vae_tpu.config import Config
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+    from midi_vae_tpu_torch.ops.grad_reduce import (
+        grad_reduce,
+        grad_reduce_reference,
+        gru_weight_grads,
+    )
+
+    cfg = Config()
+    dev = torch.device("cuda")
+    model = MidiVAE(cfg).to(dev)
+    enc, dec = model.params["encoder"], model.params["decoder"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    results = {"gru_layer_bwd": {}, "gru_decode_train": {}, "gru_decode_bwd": {}, "grad_reduce": {}}
+    flat = lambda outs: [t for t in outs if t is not None]  # noqa: E731
+
+    def plain_weight_grads(x, hprev, rh, da):
+        H = hprev.shape[-1]
+        n = x.shape[0] * x.shape[1]
+        da = da.reshape(n, 3 * H)
+        dw, db = grad_reduce_reference(x.reshape(n, -1), da, True)
+        return (dw, db, torch.cat([grad_reduce_reference(hprev.reshape(n, H), da[:, : 2 * H])[0],
+                                   grad_reduce_reference(rh.reshape(n, H), da[:, 2 * H :])[0]], 1))
+
+    for rows in (B, RAGGED):
+        timed = rows == B
+        run = compare if timed else check
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in random_batch(cfg, rows, 3).items()}
+        h0 = torch.zeros(rows, cfg.lstm_size, device=dev)
+        p1 = [enc["notes_rnn"][0][k].detach() for k in "wbu"]
+        with torch.no_grad():
+            x_l2 = gl.gru_layer_reference(tm(batch["X"]), h0, *p1, "tanh", True)
+        layer_cases = [  # name, x, params, return_sequences, dx wanted
+            ("notes_l1", tm(batch["X"]), enc["notes_rnn"][0], True, False),
+            ("notes_l2", x_l2, enc["notes_rnn"][1], False, True),
+            ("instrument", tm(batch["I"]), enc["inst_rnn"][0], False, False),
+            ("velocity", tm(batch["V"]), enc["vel_rnn"][0], False, False),
+        ]
+        for name, x, p, rs, need_dx in layer_cases:
+            w, b, u = (p[k].detach() for k in "wbu")
+            with torch.no_grad():
+                seq = gl.gru_layer_reference(x, h0, w, b, u, "tanh", True)
+            g = torch.randn(seq.shape if rs else seq.shape[1:], generator=gen, device=dev)
+            args = (x, seq, h0, g if rs else None, None if rs else g, w, b, u, need_dx)
+            # dx, dh0, da_cat: gradients; r*h a forward value
+            limits = ([rel] if need_dx else []) + [rel, rel, H_ATOL]
+            tag = f"C {name} x{tuple(x.shape)} rs={rs}"
+            out = run(tag, lambda a=args: tuple(flat(gl.gru_layer_bwd(*a))),
+                      lambda a=args: tuple(flat(gl.gru_layer_bwd_reference(*a))), limits)
+            if timed:
+                results["gru_layer_bwd"][name] = out
+            _dx, _dh0, da, rh = gl.gru_layer_bwd_reference(*args)
+            wargs = (x, torch.cat([h0[None], seq[:-1]]), rh, da)
+            out = run(f"W {name} dW, db, dU", lambda a=wargs: gru_weight_grads(*a),
+                      lambda a=wargs: plain_weight_grads(*a), [rel] * 3)
+            if timed:
+                results["grad_reduce"][f"encoder {name}"] = out
+            # A + C + W against autograd through the plain forward
+            leaves = [t.clone().requires_grad_(i > 0 or need_dx) for i, t in enumerate((x, h0, w, b, u))]
+            wanted = [t for t in leaves if t.requires_grad]
+            got = torch.autograd.grad(gl.gru_layer_train_x(*leaves, rs), wanted, g)
+            want = torch.autograd.grad(gl.gru_layer_reference(*leaves, "tanh", rs), wanted, g)
+            check(f"A+C+W grads {name} B={rows}", lambda: got, lambda: want, [rel] * len(want))
+
+        with torch.no_grad():
+            z = model.encode(batch)
+        new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
+        for call, heads in _decode_train_heads(cfg, dec, new_encoded, rows, dev).items():
+            desc = " + ".join(f"{len(h['cells'])}L D={h['start'].shape[1]} T={h['T']} {h['out_activation']}"
+                              for h in heads)
+            limits = [lim for h in heads for lim in [H_ATOL, LOGITS_ATOL] + [H_ATOL] * len(h["cells"])]
+            fwd_flat = lambda outs: tuple(t for p, l, hs in outs for t in (p, l, *hs))  # noqa: E731
+            out = run(f"D {call} ({desc})", lambda h=heads: fwd_flat(gd.gru_decode_fwd_train(h)),
+                      lambda h=heads: fwd_flat([gd.gru_decode_train_reference(
+                          x["cells"], x["out"], x["init"], x["start"], x["T"], x["out_activation"])
+                          for x in h]), limits)
+            if timed:
+                results["gru_decode_train"][call] = out
+            with torch.no_grad():
+                for h in heads:
+                    h["probs"], _l, h["h_seqs"] = gd.gru_decode_train_reference(
+                        h["cells"], h["out"], h["init"], h["start"], h["T"], h["out_activation"])
+                    h["g_probs"] = torch.randn(h["probs"].shape, generator=gen, device=dev)
+                    h["g_logits"] = torch.randn(h["probs"].shape, generator=gen, device=dev)
+            bwd_flat = lambda outs: tuple(t for o in outs for t in (  # noqa: E731
+                o["dlogits"], *o["da"], *o["rh"], *o["d_init"], o["d_start"]))
+            limits = [lim for h in heads for lim in
+                      [rel] + [rel] * len(h["cells"]) + [H_ATOL] * len(h["cells"])
+                      + [rel] * len(h["cells"]) + [rel]]
+            out = run(f"E {call}", lambda h=heads: bwd_flat(gd.gru_decode_bwd(h)),
+                      lambda h=heads: bwd_flat([gd.gru_decode_bwd_reference(
+                          x["cells"], x["out"], x["init"], x["start"], x["probs"], x["h_seqs"],
+                          x["g_probs"], x["g_logits"], x["out_activation"]) for x in h]), limits)
+            if timed:
+                results["gru_decode_bwd"][call] = out
+            # W over one head's products: dWo, dbo and each cell's dW, db, dU
+            for k, h in enumerate(heads):
+                g = gd.gru_decode_bwd_reference(h["cells"], h["out"], h["init"], h["start"], h["probs"],
+                                                h["h_seqs"], h["g_probs"], h["g_logits"], h["out_activation"])
+                n, H, D = h["T"] * rows, cfg.lstm_size, h["start"].shape[1]
+                top, dl = h["h_seqs"][-1].reshape(n, H), g["dlogits"].reshape(n, D)
+                wsets = [(top, dl, None, None)] + [
+                    (h["h_seqs"][i - 1] if i else torch.cat([h["start"][None], h["probs"][:-1]]),
+                     torch.cat([h["init"][i][None], h["h_seqs"][i][:-1]]), g["rh"][i], g["da"][i])
+                    for i in range(len(h["cells"]))]
+
+                def kernel_w(ws=wsets):
+                    a, d, _, _ = ws[0]
+                    dwo = torch.empty(a.shape[1], d.shape[1], device=dev)
+                    dbo = torch.empty(d.shape[1], device=dev)
+                    grad_reduce(a, d, dwo, dbo)
+                    return (dwo, dbo, *(t for x, hp, rh, da in ws[1:]
+                                        for t in gru_weight_grads(x, hp, rh, da)))
+
+                def plain_w(ws=wsets):
+                    a, d, _, _ = ws[0]
+                    return (*grad_reduce_reference(a, d, True),
+                            *(t for x, hp, rh, da in ws[1:] for t in plain_weight_grads(x, hp, rh, da)))
+
+                nw = 2 + 3 * len(h["cells"])
+                out = run(f"W {call} head {k}", kernel_w, plain_w, [rel] * nw)
+                if timed:
+                    results["grad_reduce"][f"decode {call} head {k}"] = out
+            # D + E + W against autograd through the plain decode
+            leaves = [[t.clone().requires_grad_() for t in gd._flatten_head(h)] for h in heads]
+            lheads = [dict(h, **gd._unflatten_heads([(len(h["cells"]), h["out_activation"], h["T"])],
+                                                     lv)[0]) for h, lv in zip(heads, leaves)]
+            wanted = [t for lv in leaves for t in lv]
+
+            def functional(outs):
+                return sum((p * h["g_probs"]).sum() + (lg * h["g_logits"]).sum()
+                           for (p, lg), h in zip(outs, heads))
+
+            got = torch.autograd.grad(functional(gd._decode_heads_train(lheads)), wanted)
+            want = torch.autograd.grad(functional([gd.gru_decode_train_reference(
+                h["cells"], h["out"], h["init"], h["start"], h["T"], h["out_activation"])[:2]
+                for h in lheads]), wanted)
+            check(f"D+E+W grads {call} B={rows}", lambda: got, lambda: want, [rel] * len(want))
+    print(f"[kernels] C, D, E, W and the training ops' gradients also agree at B = {RAGGED}")
+    return results
+
+
 def phase_slice(work):
     """The transfer CLI at full width on 3 authored songs, on the card."""
     import numpy as np
@@ -247,6 +465,177 @@ def phase_slice(work):
     print(f"[slice] transfer CLI on {len(inputs)} songs in {secs:.2f} s (build done); wrote "
           f"{len(written)} .mid files that parse back; launches {launches}")
     return launches
+
+
+# launches per call of the default Config() on the training path: the four
+# encoder layers (notes x 2, instrument, velocity) and the two decode calls
+# (notes + velocity multi-head, instrument); W reduces 3 products per GRU
+# cell (4 encoder + 2 notes + 1 velocity + 1 instrument) and 1 per head's
+# output dense (3)
+PER_TRAIN_STEP = {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_decode_train": 2,
+                  "gru_decode_bwd": 2, "grad_reduce": 27, "gru_decode": 0}
+PER_EVAL_BATCH = {"gru_layer_fwd": 4, "gru_decode_train": 2}  # forward only
+PER_ENCODE_BATCH = {"gru_layer_fwd": 4}  # the history pass (serving encoder)
+
+
+def train_counters():
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+    from midi_vae_tpu_torch.ops.grad_reduce import grad_reduce
+
+    return {"gru_layer_fwd": gl.gru_layer, "gru_decode": gd.gru_decode,
+            "gru_layer_bwd": gl.gru_layer_bwd, "gru_decode_train": gd.gru_decode_fwd_train,
+            "gru_decode_bwd": gd.gru_decode_bwd, "grad_reduce": grad_reduce}
+
+
+def reset_counters():
+    for fn in train_counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {name: fn.launches for name, fn in train_counters().items()}
+
+
+def expected_train_launches(cfg, n_train, n_test, epochs):
+    """Launches of fit() over ``epochs`` (host loop: a history encode pass
+    over the train split from epoch 1 on, test evaluation every epoch with
+    its own history pass)."""
+    bs = cfg.batch_size
+    n_batches, n_test_batches = -(-n_train // bs), -(-n_test // bs)
+    steps = encodes = evals = 0
+    for e in epochs:
+        steps += n_batches
+        encodes += n_batches if e > 0 else 0
+        if n_test and e % cfg.test_step == 0:
+            encodes += n_test_batches
+            evals += n_test_batches
+    return {name: per * steps + PER_EVAL_BATCH.get(name, 0) * evals
+            + PER_ENCODE_BATCH.get(name, 0) * encodes for name, per in PER_TRAIN_STEP.items()}
+
+
+def phase_train_slice(work):
+    """The train CLI at full width on an authored corpus: 2 epochs, then
+    --resume for a third, then the transfer CLI serves the run."""
+    import numpy as np
+
+    from midi_vae_tpu.config import Config
+    from midi_vae_tpu.data import smf
+    from midi_vae_tpu.data.batching import flatten_dataset
+    from midi_vae_tpu_torch.cli import train as train_cli
+    from midi_vae_tpu_torch.cli import transfer
+    from midi_vae_tpu_torch.training import checkpoint as ckpt
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import make_demo_corpus as corpus
+
+    rng = np.random.RandomState(1)
+    source = os.path.join(work, "corpus")
+    for style in ("style1", "style2"):
+        os.makedirs(os.path.join(source, style))
+        for i in range(10):  # about 290 train windows: a full batch of 256 and a padded one
+            corpus.make_song(corpus.STYLES[style], rng).write(os.path.join(source, style, f"{style}_{i}.mid"))
+    run, cache = os.path.join(work, "train_run"), os.path.join(work, "cache")
+    cfg = Config()
+    train, test, _, _ = flatten_dataset(train_cli.import_corpus(source, cfg, cache), cfg)
+    args = ["--source", source, "--output", run, "--cache", cache, "--device", "cuda"]
+    results = {}
+    for label, extra, epochs in (("2 epochs", ["--epochs", "2"], range(0, 2)),
+                                 ("resume", ["--epochs", "3", "--resume"], range(2, 3))):
+        reset_counters()
+        t0 = time.perf_counter()
+        rc = train_cli.main(args + extra)
+        secs = time.perf_counter() - t0
+        launches = read_counters()
+        if rc != 0:
+            raise RuntimeError(f"train CLI ({label}) returned {rc}")
+        want = expected_train_launches(cfg, train.num_windows, test.num_windows, epochs)
+        if launches != want:
+            raise RuntimeError(f"train CLI ({label}): launch counters {launches}, expected {want}")
+        with open(os.path.join(run, "history.json")) as f:
+            hist = json.load(f)
+        losses = [e["loss"] for e in hist["train"]] + [e["loss"] for e in hist["test"]]
+        if hist["epoch"] != list(range(epochs.stop)) or not np.all(np.isfinite(losses)):
+            raise RuntimeError(f"train CLI ({label}): history {hist['epoch']}, losses {losses}")
+        if ckpt.latest_epoch(run) != epochs.stop - 1:
+            raise RuntimeError(f"train CLI ({label}): latest checkpoint {ckpt.latest_epoch(run)}")
+        results[label] = launches
+        print(f"[train] CLI {label}: {train.num_windows} train / {test.num_windows} test windows, "
+              f"{secs:.2f} s; train losses {[round(x, 4) for x in losses[:epochs.stop]]}; "
+              f"launches {launches} (as designed)")
+    out = os.path.join(work, "train_out")
+    song = os.path.join(source, "style1", "style1_0.mid")
+    rc = transfer.main(["--model", run, "--input", song, "--to-class", "style2", "--output", out,
+                        "--device", "cuda"])
+    if rc != 0:
+        raise RuntimeError(f"the transfer CLI returned {rc} on the trained run")
+    # a model 3 epochs old predicts mostly the silent note: the song must be
+    # written and parse back, its notes may be few
+    mid = smf.read_midi(os.path.join(out, "style1_0_style1_to_style2.mid"))
+    notes = sum(len(inst.notes) for inst in mid.instruments)
+    print(f"[train] the transfer CLI served the trained run (epoch 2 params): a .mid that parses "
+          f"back, {len(mid.instruments)} instruments, {notes} notes")
+    return results["2 epochs"]
+
+
+def phase_train_card_vs_cpu(smi):
+    """One training step on a fixed batch with padding rows and numpy noise:
+    loss, metrics and every parameter gradient, card against the CPU plain
+    path; then the card's step time."""
+    import numpy as np
+    import torch
+
+    from midi_vae_tpu.config import Config
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.tools.profile_train import random_train_batch
+    from midi_vae_tpu_torch.training.trainer import VAETrainer
+
+    cfg = Config()
+    params = MidiVAE(cfg).init_params(np.array([0, cfg.seed], np.uint32))
+    batch = random_train_batch(cfg, B, 4, valid=B - 6)
+    noise = (cfg.epsilon_std * np.random.RandomState(5).randn(B, cfg.latent_dim)).astype(np.float32)
+    got = {}
+    for device in ("cuda", "cpu"):
+        trainer = VAETrainer(cfg, device)
+        state = trainer.new_state(params)
+        reset_counters()
+        loss, metrics, grads = trainer.value_and_grad(state, trainer.to_device(batch),
+                                                      torch.as_tensor(noise, device=device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = read_counters()
+            if launches != PER_TRAIN_STEP:
+                raise RuntimeError(f"one step launched {launches}, expected {PER_TRAIN_STEP}")
+        got[device] = (loss.item(), {k: v.item() for k, v in metrics.items()},
+                       [g.cpu() for g in grads], state.opt_state.names)
+    (gl, gm, gg, names), (cl, cm, cg, _) = got["cuda"], got["cpu"]
+    errs = {"loss": abs(gl - cl)}
+    for k, v in cm.items():
+        errs[k] = abs(gm[k] - v)
+        limit = ACC_ATOL if k.endswith("_acc") else LOSS_ATOL
+        if not (np.isfinite(gm[k]) and errs[k] <= limit):
+            raise RuntimeError(f"train step metric {k}: card {gm[k]}, CPU {v}, limit {limit}")
+    worst = (0.0, "")
+    for name, g, c in zip(names, gg, cg):
+        limit = STEP_GRAD_RTOL * c.abs().max().item() + STEP_GRAD_ATOL
+        err = (g - c).abs().max().item()
+        if not (torch.isfinite(g).all() and err <= limit):
+            raise RuntimeError(f"train step grad {name}: max|card - CPU| {err:.3e} > {limit:.3e}")
+        worst = max(worst, (err / limit, name))
+    print(f"[train card vs cpu] one step, {B} windows ({B - 6} valid): |dloss| {errs['loss']:.3e}, "
+          f"max |dmetric| {max(errs.values()):.3e}; all {len(names)} gradients within limits "
+          f"(closest: {worst[1]} at {worst[0]:.3f} of its limit); launches {PER_TRAIN_STEP}")
+
+    trainer = VAETrainer(cfg, "cuda")
+    state = trainer.new_state(params)
+    tb = trainer.to_device(batch)
+    for _ in range(3):
+        trainer.train_step(state, tb)
+    ms = median_ms(lambda: trainer.train_step(state, tb))
+    steps = B * cfg.output_length
+    print(f"[train card vs cpu] training step on the card {ms:.3f} ms (median of {REPS}, CUDA "
+          f"events) = {steps / ms * 1e3:.1f} note-steps/s on {smi}")
+    return {"step_ms": ms, "note_steps_per_s": steps / ms * 1e3}
 
 
 def phase_card_vs_cpu(smi):
@@ -320,30 +709,42 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         launches = phase_slice(work)
     phase_card_vs_cpu(smi)
+    results.update(phase_train_kernels())
+    with tempfile.TemporaryDirectory() as work:
+        train_launches = phase_train_slice(work)
+    step = phase_train_card_vs_cpu(smi)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
-    meta = {
-        "gru_layer_fwd": ("midi_vae_tpu_torch/csrc/gru_layer_fwd.cu",
-                          "midi_vae_tpu/ops/fused_train.py:2057",
-                          ["midi_vae_tpu/ops/fused_train.py:2919"]),
-        "gru_decode": ("midi_vae_tpu_torch/csrc/gru_decode.cu",
-                       "midi_vae_tpu/ops/fused_decoder.py:61",
-                       ["midi_vae_tpu/ops/fused_decoder.py:95"]),
+    meta = {  # source, replaces, also replaces (midi_vae_tpu/ops/...)
+        "gru_layer_fwd": ("gru_layer_fwd.cu", "fused_train.py:2057", ["fused_train.py:2919"]),
+        "gru_decode": ("gru_decode.cu", "fused_decoder.py:61", ["fused_decoder.py:95"]),
+        "gru_layer_bwd": ("gru_layer_bwd.cu", "fused_train.py:2116", []),
+        "gru_decode_train": ("gru_decode_train.cu", "fused_train.py:3089",
+                             ["fused_train.py:431", "fused_train.py:393"]),
+        "gru_decode_bwd": ("gru_decode_bwd.cu", "fused_train.py:3145",
+                           ["fused_train.py:602", "fused_train.py:533"]),
+        # the weight-grad sums inside _bwdx_kernel, _mh_bwd_kernel, _dec_bwd*_kernel
+        "grad_reduce": ("grad_reduce.cu", "fused_train.py:2175",
+                        ["fused_train.py:3184", "fused_train.py:567", "fused_train.py:628"]),
     }
     kernels = []
     for name, (source, replaces, also) in meta.items():
         per_call = results[name]
+        by_path = {"transfer": launches.get(name, 0), "train": train_launches[name]}
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "also_replaces": also, "launches": launches[name],
+            "name": name, "route": "cuda", "source": f"midi_vae_tpu_torch/csrc/{source}",
+            "replaces": f"midi_vae_tpu/ops/{replaces}",
+            "also_replaces": [f"midi_vae_tpu/ops/{a}" for a in also],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in per_call.values()),
-            # summed over the kernel's calls in one transfer of B windows
+            # summed over the kernel's calls in one transfer (A, B) or one
+            # training step (C, D, E, W) of B windows
             "ms": sum(r["ms"] for r in per_call.values()),
             "plain_ms": sum(r["plain_ms"] for r in per_call.values()),
             "calls": per_call,
         })
-    print(json.dumps({"kernels": kernels, "power": smi}))
+    print(json.dumps({"kernels": kernels, "train_step": step, "power": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

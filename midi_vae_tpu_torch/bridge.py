@@ -62,21 +62,24 @@ def load_params(path: str):
         return unflatten({k: data[k] for k in data.files})
 
 
-def to_module(tree) -> nn.Module:
-    """Numpy tree -> module tree of float32 parameters (no gradients: the
-    port serves, it does not train yet)."""
+def to_module(tree, trainable: bool = False) -> nn.Module:
+    """Numpy tree -> module tree of contiguous float32 parameters. Serving
+    keeps ``trainable=False`` (no gradients); the trainer asks for
+    ``trainable=True``."""
     if isinstance(tree, (list, tuple)):
-        return nn.ModuleList([to_module(v) for v in tree])
+        return nn.ModuleList([to_module(v, trainable) for v in tree])
     leaves = {k: v for k, v in tree.items() if not isinstance(v, (dict, list, tuple))}
     if leaves and len(leaves) != len(tree):
         raise ValueError(f"mixed array/subtree node: {sorted(tree)}")
     if leaves:
         return nn.ParameterDict({
-            k: nn.Parameter(torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)),
-                            requires_grad=False)
+            # a copy: the trainer updates parameters in place, and the
+            # caller's arrays may be shared or read-only
+            k: nn.Parameter(torch.from_numpy(np.array(v, dtype=np.float32, order="C")),
+                            requires_grad=trainable)
             for k, v in leaves.items()
         })
-    return nn.ModuleDict({k: to_module(v) for k, v in tree.items()})
+    return nn.ModuleDict({k: to_module(v, trainable) for k, v in tree.items()})
 
 
 def to_tree(module: nn.Module):

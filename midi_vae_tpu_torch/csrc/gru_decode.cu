@@ -15,11 +15,13 @@
 // the logits of its rows live in shared memory, and the weights (W1, U1, W2,
 // U2, Wo) are re-read from L2 at every step. The output dense layer and the
 // softmax over D (one warp per row) are inside the kernel, so nothing but
-// the outputs touches device memory during the loop.
+// the outputs touches device memory during the loop. The loop body,
+// decode_head in gru_decode_body.cuh, is shared with kernel D
+// (gru_decode_train.cu); this launch passes no h-sequence outputs.
 //
 // What bounds it: the serial chain of T steps (2 barriers per layer and 2
 // for the readout), and per step an L2 read of every weight by every block.
-#include "gru_common.cuh"
+#include "gru_decode_body.cuh"
 
 namespace mvt {
 
@@ -35,60 +37,8 @@ __global__ void gru_decode_kernel(
     float* __restrict__ probs, float* __restrict__ logits,
     int T, int B, int D, int H) {
   extern __shared__ __align__(16) float smem[];
-  float* x_s = smem;                 // (D, kRows) fed-back probs
-  float* l_s = x_s + kRows * D;      // (D, kRows) logits
-  float* h1_s = l_s + kRows * D;     // (H, kRows)
-  float* h2_s = h1_s + kRows * H;    // (H, kRows), 2-layer heads only
-  float* rh_s = h2_s + (NL == 2 ? kRows * H : 0);
-  const int row0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
-
-  load_tile(start, x_s, row0, B, D);
-  load_tile(h1_0, h1_s, row0, B, H);
-  if constexpr (NL == 2) load_tile(h2_0, h2_s, row0, B, H);
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    gru_cell<ACT>(x_s, D, h1_s, rh_s, w1, u1, b1, H);
-    const float* hl = h1_s;
-    if constexpr (NL == 2) {
-      gru_cell<ACT>(h1_s, H, h2_s, rh_s, w2, u2, b2, H);
-      hl = h2_s;
-    }
-    // logits = h_last @ Wo + bo; thread i owns (row r, column d)
-    for (int i = tid; i < kRows * D; i += blockDim.x) {
-      const int r = i / D, d = i - r * D;
-      float acc = bo[d];
-      for (int k = 0; k < H; ++k) acc = fmaf(hl[k * kRows + r], wo[(size_t)k * D + d], acc);
-      l_s[d * kRows + r] = acc;
-    }
-    __syncthreads();
-    if constexpr (OUT == kSoftmax) {
-      for (int r = warp; r < kRows; r += n_warps) {
-        float m = __int_as_float(0xff800000);  // -inf
-        for (int d = lane; d < D; d += 32) m = fmaxf(m, l_s[d * kRows + r]);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-        float s = 0.0f;
-        for (int d = lane; d < D; d += 32) {
-          const float e = expf(l_s[d * kRows + r] - m);
-          x_s[d * kRows + r] = e;
-          s += e;
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        for (int d = lane; d < D; d += 32) x_s[d * kRows + r] /= s;
-      }
-    } else {
-      for (int i = tid; i < kRows * D; i += blockDim.x) x_s[i] = activate<OUT>(l_s[i]);
-    }
-    __syncthreads();
-    // the next step's first writes to l_s and x_s come after the barriers
-    // inside gru_cell, so these reads cannot race them
-    store_tile(x_s, probs + (size_t)t * B * D, row0, B, D);
-    store_tile(l_s, logits + (size_t)t * B * D, row0, B, D);
-  }
+  decode_head<NL, ACT, OUT>(start, h1_0, h2_0, w1, u1, b1, w2, u2, b2, wo, bo,
+                            probs, logits, nullptr, nullptr, T, B, D, H, smem);
 }
 
 template <int NL, int ACT, int OUT>
@@ -98,7 +48,7 @@ cudaError_t launch(const float* start, const float* h1_0, const float* h2_0,
                    const float* wo, const float* bo, float* probs,
                    float* logits, int T, int B, int D, int H,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kRows * (2 * D + (NL + 1) * H);
+  const size_t smem = sizeof(float) * decode_smem_floats(NL, D, H);
   cudaError_t err = allow_smem(gru_decode_kernel<NL, ACT, OUT>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + kRows - 1) / kRows);

@@ -1,0 +1,215 @@
+// Kernel E: the serial part of the decode heads' backward, several heads in
+// one launch.
+//
+// Replaces the TPU kernels midi_vae_tpu/ops/fused_train.py::_mh_bwd_kernel
+// (multihead_decode_train_bwd) and ::_dec_bwd1_kernel / ::_dec_bwd2_kernel
+// (_dec_bwd_pallas). As kernel C does for the encoder layers, it leaves the
+// weight-gradient sums the TPU kernels accumulate in VMEM to kernel W
+// (grad_reduce.cu), the JAX package's wide scheme (_dec_bwd*_wide_kernel +
+// _dec_wide_weight_grads).
+//
+// Per reverse step t = T-1 .. 0 of a head:
+//   gp_total = g_probs[t] + dx_fed        the grad of probs[t], which fed
+//                                          step t+1 (zero at t = T-1)
+//   dlogits  = through softmax (reduced over D per row), sigmoid or linear,
+//              plus g_logits[t]           (_dlogits_from)
+//   dh_top   = dlogits @ Wo^T + the carried dh of the top layer
+//   layer 2 (2-layer heads): the cell transpose on x = h1[t], h_{t-1} =
+//              h2[t-1] (h2_0 at t = 0); its dx adds to layer 1's dh
+//   layer 1:  the cell transpose on x = probs[t-1] (start at t = 0),
+//              h_{t-1} = h1[t-1] (h1_0 at t = 0); its dx is the next dx_fed
+// and emits dlogits (T, B, D), per layer da_cat (T, B, 3H) and r*h (T, B, H),
+// then d_h1_0, d_h2_0 (B, H) and d_start = the last dx_fed (B, D).
+//
+// Design: the grid's y dimension selects the head, as in kernel D; within a
+// head, kernel C's layout (gru_cell_bwd.cuh): one block owns kRows = 8 batch
+// rows, thread j owns hidden column j, the dh carries stay in registers and
+// the tiles in shared memory. The softmax transpose is one warp per row over
+// the D real columns (no padding lanes).
+//
+// What bounds it: the serial chain of T steps, per step and layer 4 barriers
+// and two L2 reads of the layer's W and U, by each of the B/8 blocks.
+#include "gru_cell_bwd.cuh"
+
+namespace mvt {
+
+constexpr int kMaxHeads = 4;
+
+// one head of a launch, (T, B, .) sequences time-major; the layer-2 fields
+// are unused (may be null) for 1-layer heads. ut = U^T (3H, H), wt = W^T
+// (3H, D_in), wot = Wo^T (D, H). Mirrored by _DecodeHeadBwd in
+// ops/gru_decode.py.
+struct DecodeHeadBwd {
+  const float *probs, *h1seq, *h2seq, *g_probs, *g_logits, *start, *h1_0, *h2_0;
+  const float *w1, *u1, *b1, *u1t, *w1t, *w2, *u2, *b2, *u2t, *w2t, *wot;
+  float *dlogits, *da1, *rh1, *da2, *rh2, *d_h1_0, *d_h2_0, *d_start;
+  int D, n_layers, out_act, T;
+};
+
+struct DecodeHeadsBwd {
+  DecodeHeadBwd h[kMaxHeads];
+};
+
+inline size_t bwd_smem_floats(int D, int H) {
+  return (size_t)kRows * (3 * D + 8 * H);
+}
+
+template <int NL, int OUT>
+__device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwd& a, int B,
+                                                int H, float* smem) {
+  const int D = a.D, T = a.T;
+  float* dl_s = smem;                 // (D, kRows) dlogits
+  float* dxf_s = dl_s + kRows * D;    // (D, kRows) grad of the fed-back probs
+  float* xin_s = dxf_s + kRows * D;   // (D, kRows) layer-1 input
+  float* h1_s = xin_s + kRows * D;    // (H, kRows) h1[t], layer-2 input
+  float* hp1_s = h1_s + kRows * H;    // (H, kRows) h1[t-1]
+  float* hp2_s = hp1_s + kRows * H;   // (H, kRows) h2[t-1]
+  float* rh_s = hp2_s + kRows * H;    // (H, kRows)
+  float* dx2_s = rh_s + kRows * H;    // (H, kRows) layer 2's dx
+  float* da_s = dx2_s + kRows * H;    // (3H, kRows)
+  const int row0 = blockIdx.x * kRows;
+  const int j = threadIdx.x;
+  const int lane = j & 31, warp = j >> 5, n_warps = blockDim.x >> 5;
+
+  for (int i = j; i < kRows * D; i += blockDim.x) dxf_s[i] = 0.0f;
+  float dh1[kRows], dh2[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) dh1[r] = dh2[r] = 0.0f;
+
+  for (int t = T - 1; t >= 0; --t) {
+    load_tile(t > 0 ? a.probs + (size_t)(t - 1) * B * D : a.start, xin_s, row0, B, D);
+    load_tile(t > 0 ? a.h1seq + (size_t)(t - 1) * B * H : a.h1_0, hp1_s, row0, B, H);
+    if constexpr (NL == 2) {
+      load_tile(a.h1seq + (size_t)t * B * H, h1_s, row0, B, H);
+      load_tile(t > 0 ? a.h2seq + (size_t)(t - 1) * B * H : a.h2_0, hp2_s, row0, B, H);
+    }
+    // dlogits, one warp per row; dxf_s was written by the previous step's
+    // layer-1 transpose, which ended with a barrier
+    for (int r = warp; r < kRows; r += n_warps) {
+      const int row = row0 + r;
+      if (row >= B) {
+        for (int d = lane; d < D; d += 32) dl_s[d * kRows + r] = 0.0f;
+        continue;
+      }
+      const size_t base = ((size_t)t * B + row) * D;
+      float s = 0.0f;
+      if constexpr (OUT == kSoftmax) {
+        for (int d = lane; d < D; d += 32) {
+          s += (a.g_probs[base + d] + dxf_s[d * kRows + r]) * a.probs[base + d];
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      }
+      for (int d = lane; d < D; d += 32) {
+        const float p = a.probs[base + d];
+        const float gp = a.g_probs[base + d] + dxf_s[d * kRows + r];
+        float dl;
+        if constexpr (OUT == kSoftmax) {
+          dl = p * (gp - s);
+        } else if constexpr (OUT == kSigmoid) {
+          dl = gp * p * (1.0f - p);
+        } else {
+          dl = gp;
+        }
+        dl += a.g_logits[base + d];
+        dl_s[d * kRows + r] = dl;
+        a.dlogits[base + d] = dl;
+      }
+    }
+    __syncthreads();
+    // dh of the top layer: dlogits @ Wo^T plus its carry
+    float acc[kRows], v[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+    for (int d = 0; d < D; ++d) {
+      const float w = a.wot[(size_t)d * H + j];
+      load_rows(dl_s + d * kRows, v);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(v[r], w, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if constexpr (NL == 2) {
+        dh2[r] += acc[r];
+      } else {
+        dh1[r] += acc[r];
+      }
+    }
+    if constexpr (NL == 2) {
+      gru_cell_bwd(h1_s, H, hp2_s, dh2, da_s, rh_s, dx2_s, a.w2, a.u2, a.b2,
+                   a.u2t, a.w2t, H);
+      store_columns(da_s, a.da2 + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
+      store_columns(rh_s, a.rh2 + (size_t)t * B * H, row0, B, H, 1, H);
+      load_rows(dx2_s + j * kRows, v);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) dh1[r] += v[r];
+      // the layer-1 transpose writes rh_s before its first barrier
+      __syncthreads();
+    }
+    gru_cell_bwd(xin_s, D, hp1_s, dh1, da_s, rh_s, dxf_s, a.w1, a.u1, a.b1,
+                 a.u1t, a.w1t, H);
+    store_columns(da_s, a.da1 + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
+    store_columns(rh_s, a.rh1 + (size_t)t * B * H, row0, B, H, 1, H);
+  }
+  store_tile(dxf_s, a.d_start, row0, B, D);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r;
+    if (row >= B) break;
+    a.d_h1_0[(size_t)row * H + j] = dh1[r];
+    if constexpr (NL == 2) a.d_h2_0[(size_t)row * H + j] = dh2[r];
+  }
+}
+
+__global__ void gru_decode_bwd_kernel(DecodeHeadsBwd heads, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const DecodeHeadBwd& a = heads.h[blockIdx.y];
+  const bool two = a.n_layers == 2;
+  switch (a.out_act) {
+    case kSoftmax:
+      two ? decode_head_bwd<2, kSoftmax>(a, B, H, smem)
+          : decode_head_bwd<1, kSoftmax>(a, B, H, smem);
+      break;
+    case kSigmoid:
+      two ? decode_head_bwd<2, kSigmoid>(a, B, H, smem)
+          : decode_head_bwd<1, kSigmoid>(a, B, H, smem);
+      break;
+    default:  // kLinear; the host checked the code
+      two ? decode_head_bwd<2, kLinear>(a, B, H, smem)
+          : decode_head_bwd<1, kLinear>(a, B, H, smem);
+      break;
+  }
+}
+
+}  // namespace mvt
+
+extern "C" int mvt_gru_decode_bwd(const mvt::DecodeHeadBwd* heads, int n_heads,
+                                  int B, int H, void* stream) {
+  using namespace mvt;
+  if (n_heads < 1 || n_heads > kMaxHeads || B < 1 || H < 32 || H > 1024 ||
+      H % 32 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  DecodeHeadsBwd all{};
+  size_t smem = 0;
+  for (int k = 0; k < n_heads; ++k) {
+    const DecodeHeadBwd& a = heads[k];
+    if (a.T < 1 || a.D < 1 || (a.n_layers != 1 && a.n_layers != 2) ||
+        (a.out_act != kSoftmax && a.out_act != kSigmoid && a.out_act != kLinear)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    all.h[k] = a;
+    const size_t need = sizeof(float) * bwd_smem_floats(a.D, H);
+    if (need > smem) smem = need;
+  }
+  cudaError_t err = allow_smem(gru_decode_bwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + kRows - 1) / kRows, n_heads);
+  gru_decode_bwd_kernel<<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(
+      all, B, H);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* mvt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,93 @@
+// Kernel D: the decode heads' training forward, several heads in one launch.
+//
+// Replaces the TPU kernels midi_vae_tpu/ops/fused_train.py::_mh_fwd_kernel
+// (the 2-layer notes head and every 1-layer T-length side head in one
+// launch, multihead_decode_train_fwd) and ::_dec_fwd1_kernel /
+// ::_dec_fwd2_kernel (one head, _dec_fwd_pallas). Those compute what the
+// serving decode computes plus each layer's h sequence as the backward's
+// residual, and so does this kernel: its loop body is kernel B's
+// (decode_head in gru_decode_body.cuh) with the h-sequence outputs on.
+//
+// The TPU kernel runs the heads one after the other inside each grid step;
+// here the grid's y dimension selects the head, so the heads of one launch
+// run on different SMs at the same time (the notes head's 32 blocks and the
+// velocity head's 32 blocks at B = 256). Each head keeps its own layer count,
+// output activation, width D and length T; the cell activation is tanh, the
+// one the backward (kernel E) implements.
+//
+// What bounds it: as kernel B, the serial chain of T steps per head; the
+// 1-layer side heads finish inside the 2-layer notes head's time.
+#include "gru_decode_body.cuh"
+
+namespace mvt {
+
+constexpr int kMaxHeads = 4;
+
+// one head of a launch; h2_0, w2, u2, b2 and h2seq are unused (may be null)
+// for 1-layer heads. Mirrored by _DecodeHead in ops/gru_decode.py.
+struct DecodeHead {
+  const float *start, *h1_0, *h2_0, *w1, *u1, *b1, *w2, *u2, *b2, *wo, *bo;
+  float *probs, *logits, *h1seq, *h2seq;
+  int D, n_layers, out_act, T;
+};
+
+struct DecodeHeads {
+  DecodeHead h[kMaxHeads];
+};
+
+template <int NL, int OUT>
+__device__ __forceinline__ void run(const DecodeHead& a, int B, int H, float* smem) {
+  decode_head<NL, kTanh, OUT>(a.start, a.h1_0, a.h2_0, a.w1, a.u1, a.b1, a.w2,
+                              a.u2, a.b2, a.wo, a.bo, a.probs, a.logits,
+                              a.h1seq, a.h2seq, a.T, B, a.D, H, smem);
+}
+
+__global__ void gru_decode_train_kernel(DecodeHeads heads, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const DecodeHead& a = heads.h[blockIdx.y];
+  const bool two = a.n_layers == 2;
+  switch (a.out_act) {
+    case kSoftmax:
+      two ? run<2, kSoftmax>(a, B, H, smem) : run<1, kSoftmax>(a, B, H, smem);
+      break;
+    case kSigmoid:
+      two ? run<2, kSigmoid>(a, B, H, smem) : run<1, kSigmoid>(a, B, H, smem);
+      break;
+    default:  // kLinear; the host checked the code
+      two ? run<2, kLinear>(a, B, H, smem) : run<1, kLinear>(a, B, H, smem);
+      break;
+  }
+}
+
+}  // namespace mvt
+
+extern "C" int mvt_gru_decode_train(const mvt::DecodeHead* heads, int n_heads,
+                                    int B, int H, void* stream) {
+  using namespace mvt;
+  if (n_heads < 1 || n_heads > kMaxHeads || B < 1 || H < 32 || H > 1024 ||
+      H % 32 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  DecodeHeads all{};
+  size_t smem = 0;
+  for (int k = 0; k < n_heads; ++k) {
+    const DecodeHead& a = heads[k];
+    if (a.T < 1 || a.D < 1 || (a.n_layers != 1 && a.n_layers != 2) ||
+        (a.out_act != kSoftmax && a.out_act != kSigmoid && a.out_act != kLinear)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    all.h[k] = a;
+    const size_t need = sizeof(float) * decode_smem_floats(a.n_layers, a.D, H);
+    if (need > smem) smem = need;
+  }
+  cudaError_t err = allow_smem(gru_decode_train_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + kRows - 1) / kRows, n_heads);
+  gru_decode_train_kernel<<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(
+      all, B, H);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* mvt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,12 +1,14 @@
-"""Sequence RNN encoders and the autoregressive readout decode (inference).
+"""Sequence RNN encoders and the autoregressive readout decode.
 
-Counterpart of ``midi_vae_tpu/models/rnn.py`` on its inference branch:
-``encode_sequence``/``_scan_layer`` run each layer as one call of kernel A
-(``ops.gru_layer``) when the model's kernel switch is on, else the plain
+Counterpart of ``midi_vae_tpu/models/rnn.py``: ``encode_sequence``/
+``_scan_layer`` run each layer as one call of kernel A (``ops.gru_layer``)
+when the model's kernel switch is on, or on the training path as the
+differentiable ``gru_layer_train_x`` (kernels A, C and W), else the plain
 per-step cell scan; ``init_decoder_states`` is plain dense + activation;
 ``decode_autoregressive`` is the plain readout loop that feeds each step's
-activated output back as the next input (heads that kernel B takes never
-reach it on the kernel path).
+activated output back as the next input, or with ``ground_truth`` the
+teacher-forced scan (heads that the decode kernels take never reach it on
+the kernel path).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Any
 
 import torch
 
-from ..ops.gru_layer import gru_layer
+from ..ops.gru_layer import gru_layer, gru_layer_train_x
 from .cells import activation_fn, dense_apply, gate_activation_fn, get_cell, zero_states
 
 Params = dict[str, Any]
@@ -23,33 +25,39 @@ Params = dict[str, Any]
 
 def encode_sequence(layer_params, xs: torch.Tensor, cell_type: str, activation: str = "tanh",
                     bidirectional: bool = False, kernels: bool = False,
-                    gate_activation: str = "sigmoid") -> torch.Tensor:
+                    gate_activation: str = "sigmoid", train: bool = False) -> torch.Tensor:
     """Run a stacked RNN over (B, T, D); return the last layer's final h (B, H).
 
     All layers but the last return sequences; ``bidirectional`` wraps the
-    non-final layers in forward + backward passes with concat merge."""
+    non-final layers in forward + backward passes with concat merge.
+    ``train`` (with ``kernels``) takes the differentiable training layer."""
     cell = get_cell(cell_type)
     h = xs
     n_layers = len(layer_params)
     for i, p in enumerate(layer_params):
         is_last = i == n_layers - 1
         if bidirectional and not is_last:
-            fwd = _scan_layer(cell, p["fwd"], h, activation, True, kernels, gate_activation)
+            fwd = _scan_layer(cell, p["fwd"], h, activation, True, kernels, gate_activation, train)
             bwd = _scan_layer(cell, p["bwd"], h.flip(1), activation, True, kernels,
-                              gate_activation).flip(1)
+                              gate_activation, train).flip(1)
             h = torch.cat([fwd, bwd], dim=-1)
         else:
-            h = _scan_layer(cell, p, h, activation, not is_last, kernels, gate_activation)
+            h = _scan_layer(cell, p, h, activation, not is_last, kernels, gate_activation, train)
     return h
 
 
 def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_sequences: bool,
-                kernels: bool = False, gate_activation: str = "sigmoid"):
+                kernels: bool = False, gate_activation: str = "sigmoid", train: bool = False):
     """One RNN layer over (B, T, D): one kernel-A call when ``kernels`` (GRU
-    cells with sigmoid gates), else the plain cell scan."""
+    cells with sigmoid gates), the training layer (kernels A, C, W) when
+    ``train`` too, else the plain cell scan."""
     B, T, _ = xs.shape
     hidden = p["u"].shape[0]
     init = zero_states(cell, B, hidden, xs)
+    if kernels and train:
+        out = gru_layer_train_x(xs.transpose(0, 1).contiguous(), init[0], p["w"], p["b"], p["u"],
+                                return_sequences)
+        return out.transpose(0, 1) if return_sequences else out
     if kernels:
         out = gru_layer(xs.transpose(0, 1).contiguous(), init[0], p["w"], p["b"], p["u"],
                         activation, return_sequences)
@@ -83,14 +91,27 @@ def init_decoder_states(init_dense, new_encoded: torch.Tensor, cell_type: str,
 
 def decode_autoregressive(cell_params, out_dense: Params, initial_states, start: torch.Tensor,
                           output_length: int, cell_type: str, lstm_activation: str = "tanh",
-                          out_activation: str = "softmax", gate_activation: str = "sigmoid"):
-    """Plain readout loop: output_t feeds back as input_{t+1}.
+                          out_activation: str = "softmax", gate_activation: str = "sigmoid",
+                          ground_truth: torch.Tensor | None = None):
+    """Plain readout loop: output_t feeds back as input_{t+1}; with
+    ``ground_truth`` (B, T, out_dim), step t > 0 consumes ground_truth[t-1]
+    instead (teacher forcing).
 
     Returns (probs, logits), both (B, T, out_dim)."""
     cell = get_cell(cell_type)
     act = activation_fn(lstm_activation)
     gact = gate_activation_fn(gate_activation)
     out_act = activation_fn(out_activation)
+    if ground_truth is not None:
+        states = list(initial_states)
+        logits = []
+        for t in range(output_length):
+            out = start if t == 0 else ground_truth[:, t - 1]
+            for i, p in enumerate(cell_params):
+                out, states[i] = cell.step(p, cell.x_proj(p, out), states[i], act, gact)
+            logits.append(dense_apply(out_dense, out))
+        logits = torch.stack(logits, dim=1)
+        return out_act(logits), logits
     states = list(initial_states)
     out = start
     probs, logits = [], []

@@ -1,17 +1,25 @@
-"""The MIDI-VAE model, inference path: encoder, latent, multi-head decoder.
+"""The MIDI-VAE model: encoder, latent, multi-head decoder, and the loss.
 
 Counterpart of ``midi_vae_tpu/models/vae.py``: ``init_params`` consumes keys
 in the same order (so a seed gives bit-equal parameters), ``encode_stats``,
-``sample_z``, ``encode``, ``decode`` (the ``inference=True`` branch) and
-``composer_logits``. The model owns its parameters as a module tree under the
-JAX key paths (``bridge.to_module``).
+``sample_z``, ``encode``, ``decode`` (both branches), ``apply``, the latent
+probes, and the loss (``kl_divergence``, ``loss_and_metrics``). The model
+owns its parameters as a module tree under the JAX key paths
+(``bridge.to_module``); ``trainable=True`` gives them gradients.
 
 The kernel switch ``kernels_enabled`` mirrors ``MidiVAE._pallas_enabled``:
 GRU cells with sigmoid gates take kernel A (encoder layers) and kernel B
-(decode heads); the wrappers run their plain versions on CPU tensors. Configs
-the JAX package runs as plain scans (``gate_activation='hard_sigmoid'``,
-``cell_type='SimpleRNN'``, ``use_pallas='off'``) keep the plain path on any
-device. Paths whose kernels are not ported yet raise on CUDA.
+(decode heads) when serving; the wrappers run their plain versions on CPU
+tensors. Configs the JAX package runs as plain scans
+(``gate_activation='hard_sigmoid'``, ``cell_type='SimpleRNN'``,
+``use_pallas='off'``) keep the plain path on any device. The training path
+(``inference=False``) takes the differentiable kernel ops instead:
+``gru_layer_train_x`` per encoder layer, ``gru_decode_multihead_train`` for
+the notes head with its T-length side heads and ``gru_decode_train`` for the
+other heads (``train_kernels_enabled``). Paths whose kernels are not ported
+yet raise NotImplementedError on CUDA, naming their row of the kernel table
+(PERF.md, ROADMAP.md Queue 2); on the CPU they run the plain path through
+autograd.
 """
 
 from __future__ import annotations
@@ -25,7 +33,12 @@ from torch import nn
 from midi_vae_tpu.config import Config
 
 from .. import bridge
-from ..ops.gru_decode import OUT_ACTIVATIONS, gru_decode
+from ..ops.gru_decode import (
+    OUT_ACTIVATIONS,
+    gru_decode,
+    gru_decode_multihead_train,
+    gru_decode_train,
+)
 from ..ops.gru_layer import CELL_ACTIVATIONS
 from .cells import activation_fn, dense_apply, dense_init, get_cell, glorot_uniform, split_keys
 from .rnn import decode_autoregressive, encode_sequence, init_decoder_states
@@ -33,17 +46,48 @@ from .rnn import decode_autoregressive, encode_sequence, init_decoder_states
 Params = dict[str, Any]
 
 
+def unported_training(cfg: Config) -> str | None:
+    """Why the training kernels cannot run ``cfg`` on CUDA yet (the rows of
+    the kernel table it waits for), or None when they can."""
+    if cfg.cell_type == "LSTM":
+        return "LSTM training kernels (Queue 2 rows 15-21) not yet ported"
+    if cfg.compute_dtype == "bfloat16":
+        return ("bfloat16 training not yet ported: the training kernels run float32 "
+                "(Queue 1 item 15)")
+    if cfg.lstm_activation != "tanh":
+        return (f"training kernels hard-code tanh's derivative (fused_train.py:2269, :981); "
+                f"lstm_activation={cfg.lstm_activation!r} waits for the per-step GRU cells "
+                "(Queue 2 rows 28-29)")
+    if cfg.teacher_force or cfg.meta_next_notes_teacher_force:
+        return ("teacher forcing runs the per-step GRU cell _gru_full_kernel "
+                "(Queue 2 row 28), not yet ported")
+    if cfg.merge_decoder_scans or not cfg.fused_train_encoder or not cfg.fused_train_decoder:
+        return ("merge_decoder_scans / fused_train_encoder=False / fused_train_decoder=False "
+                "run the per-step GRU cells _gru_full_kernel and _gru_recurrent_kernel "
+                "(Queue 2 rows 28 and 29), not yet ported")
+    return None
+
+
+def _cast_tree(tree, dtype):
+    """Nested dicts/lists of tensors cast to ``dtype`` (differentiably)."""
+    if isinstance(tree, (list, tuple, torch.nn.ModuleList)):
+        return [_cast_tree(v, dtype) for v in tree]
+    if isinstance(tree, (dict, torch.nn.ModuleDict, torch.nn.ParameterDict)):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
 class MidiVAE(nn.Module):
     """Holds the config and the parameters; ``params=None`` initializes them
     from ``[0, cfg.seed]``."""
 
-    def __init__(self, cfg: Config, params: Params | None = None):
+    def __init__(self, cfg: Config, params: Params | None = None, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.cell = get_cell(cfg.cell_type)
         if params is None:
             params = self.init_params(np.array([0, cfg.seed], np.uint32))
-        self.params = bridge.to_module(params)
+        self.params = bridge.to_module(params, trainable=trainable)
 
     def kernels_enabled(self, device: torch.device) -> bool:
         """Whether the encoder layers and decode heads go through the kernel
@@ -56,7 +100,7 @@ class MidiVAE(nn.Module):
         cuda = device.type == "cuda"
         if cfg.cell_type == "LSTM":
             if cuda:
-                raise NotImplementedError("LSTM kernels not yet ported")
+                raise NotImplementedError("LSTM kernels not yet ported (Queue 2 rows 15-21, 30-34)")
             return False
         if cfg.lstm_activation not in CELL_ACTIVATIONS:
             if cuda:
@@ -65,6 +109,18 @@ class MidiVAE(nn.Module):
                 )
             return False
         return True
+
+    def train_kernels_enabled(self, device: torch.device) -> bool:
+        """Whether the training path takes the differentiable kernel ops. On
+        CUDA a config whose training kernels are not ported yet raises
+        NotImplementedError (``unported_training``); on the CPU it runs the
+        plain path through autograd."""
+        if not self.kernels_enabled(device):
+            return False
+        reason = unported_training(self.cfg)
+        if reason is not None and device.type == "cuda":
+            raise NotImplementedError(reason)
+        return reason is None
 
     # ------------------------------------------------------------------
     # Parameter initialization (plain numpy, same key order as the JAX package)
@@ -158,23 +214,29 @@ class MidiVAE(nn.Module):
     # ------------------------------------------------------------------
     # Encoder
     # ------------------------------------------------------------------
-    def encode_stats(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """X/I/V/D -> (z_mean, z_log_var)."""
+    def encode_stats(self, batch: dict, inference: bool = True,
+                     params=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """X/I/V/D -> (z_mean, z_log_var). ``inference=False`` is the
+        training path (the JAX default; the port defaults to serving)."""
         cfg = self.cfg
-        enc = self.params["encoder"]
+        enc = (self.params if params is None else params)["encoder"]
         x = batch["X"]
-        kernels = self.kernels_enabled(x.device)
+        if inference:
+            kernels = self.kernels_enabled(x.device)
+        else:
+            kernels = self.train_kernels_enabled(x.device)
+        train = not inference
         if cfg.use_embedding:
             x = x @ enc["embedding"]["w"]
         parts = [encode_sequence(enc["notes_rnn"], x, cfg.cell_type, cfg.lstm_activation,
-                                 cfg.bidirectional, kernels, cfg.gate_activation)]
+                                 cfg.bidirectional, kernels, cfg.gate_activation, train)]
         for flag, name, key in ((cfg.meta_instrument, "inst_rnn", "I"),
                                 (cfg.meta_velocity, "vel_rnn", "V"),
                                 (cfg.meta_held_notes, "held_rnn", "D")):
             if flag:
                 parts.append(encode_sequence(enc[name], batch[key], cfg.cell_type,
                                              cfg.lstm_activation, False, kernels,
-                                             cfg.gate_activation))
+                                             cfg.gate_activation, train))
         h = parts[0]
         if len(parts) > 1:
             act = activation_fn(cfg.activation_before_splitting)
@@ -208,10 +270,14 @@ class MidiVAE(nn.Module):
     # Decoder (inference: every head decodes autoregressively)
     # ------------------------------------------------------------------
     def decode(self, z: torch.Tensor, history: torch.Tensor | None = None,
-               additional: torch.Tensor | None = None) -> dict[str, tuple]:
-        """z (+ history / additional) -> per-head (probs, logits), (B, T, D)."""
+               additional: torch.Tensor | None = None,
+               ground_truth: torch.Tensor | None = None,
+               next_ground_truth: torch.Tensor | None = None,
+               inference: bool = True, params=None) -> dict[str, tuple]:
+        """z (+ history / additional) -> per-head (probs, logits), (B, T, D).
+        ``inference=False`` is the training path (``_decode_train``)."""
         cfg = self.cfg
-        dec = self.params["decoder"]
+        dec = (self.params if params is None else params)["decoder"]
         B = z.shape[0]
         parts = [z]
         if cfg.history:
@@ -220,6 +286,8 @@ class MidiVAE(nn.Module):
             parts.append(additional if additional is not None
                          else z.new_zeros((B, cfg.decoder_additional_input_dim)))
         new_encoded = torch.cat(parts, dim=-1) if len(parts) > 1 else z
+        if not inference:
+            return self._decode_train(dec, new_encoded, z, ground_truth, next_ground_truth)
         kernels = self.kernels_enabled(z.device)
 
         def run_head(name: str, head_dim: int, length: int, out_activation: str):
@@ -257,6 +325,252 @@ class MidiVAE(nn.Module):
                                              cfg.meta_instrument_activation)
         return outputs
 
+    def _decode_train(self, dec, new_encoded, z, ground_truth, next_ground_truth) -> dict:
+        """The training decode (``MidiVAE.decode(inference=False)``): the
+        2-layer notes head and its T-length side heads in one multi-head call
+        (``_decode_multihead_train``), every other head through
+        ``gru_decode_train``; teacher-forced heads and the non-kernel configs
+        take the plain scan."""
+        cfg = self.cfg
+        B = z.shape[0]
+        kernels = self.train_kernels_enabled(z.device)
+
+        def spec(name: str, head_dim: int) -> dict:
+            h = dec[name]
+            states = init_decoder_states(h["init"], new_encoded, cfg.cell_type,
+                                         cfg.lstm_state_activation)
+            return {"cells": list(h["cells"]), "out": h["out"], "states": states,
+                    "init": [s[0] for s in states], "start": z.new_zeros((B, head_dim))}
+
+        def run_head(name, head_dim, length, out_activation, gt=None):
+            s = spec(name, head_dim)
+            if kernels and gt is None:
+                if len(s["cells"]) in (1, 2) and out_activation in OUT_ACTIVATIONS:
+                    probs, logits = gru_decode_train(s["cells"], s["out"], s["init"], s["start"],
+                                                     length, cfg.lstm_activation, out_activation)
+                    return probs.transpose(0, 1), logits.transpose(0, 1)
+                if z.device.type == "cuda":
+                    raise NotImplementedError(
+                        f"per-step GRU kernels (head {name!r}: {len(s['cells'])} layers, "
+                        f"{out_activation!r} output; Queue 2 row 28) not yet ported")
+            return decode_autoregressive(s["cells"], s["out"], s["states"], s["start"], length,
+                                         cfg.cell_type, cfg.lstm_activation, out_activation,
+                                         cfg.gate_activation, gt)
+
+        outputs: dict = {}
+        if kernels and cfg.num_layers_decoder == 2 and cfg.activation in OUT_ACTIVATIONS:
+            side = [(n, d, a) for flag, n, d, length, a in (
+                (cfg.meta_velocity, "velocity", 1, cfg.meta_velocity_length,
+                 cfg.meta_velocity_activation),
+                (cfg.meta_held_notes, "held", 2, cfg.meta_held_notes_length,
+                 cfg.meta_held_notes_activation),
+            ) if flag and length == cfg.output_length and a in OUT_ACTIVATIONS]
+            if side:
+                results = gru_decode_multihead_train(
+                    spec("notes", cfg.output_dim), [spec(n, d) for n, d, _ in side],
+                    cfg.output_length, cfg.lstm_activation,
+                    (cfg.activation, *(a for _, _, a in side)))
+                for name, (probs, logits) in zip(["notes"] + [n for n, _, _ in side], results):
+                    outputs[name] = (probs.transpose(0, 1), logits.transpose(0, 1))
+        if "notes" not in outputs:
+            outputs["notes"] = run_head("notes", cfg.output_dim, cfg.output_length, cfg.activation,
+                                        ground_truth if cfg.teacher_force else None)
+        if cfg.meta_velocity and "velocity" not in outputs:
+            outputs["velocity"] = run_head("velocity", 1, cfg.meta_velocity_length,
+                                           cfg.meta_velocity_activation)
+        if cfg.meta_held_notes and "held" not in outputs:
+            outputs["held"] = run_head("held", 2, cfg.meta_held_notes_length,
+                                       cfg.meta_held_notes_activation)
+        if cfg.meta_next_notes:
+            next_tf = cfg.meta_next_notes_teacher_force and next_ground_truth is not None
+            outputs["next"] = run_head("next", cfg.output_dim, cfg.meta_next_notes_output_length,
+                                       cfg.activation, next_ground_truth if next_tf else None)
+        if cfg.meta_instrument:
+            outputs["instrument"] = run_head("instrument", cfg.meta_instrument_dim,
+                                             cfg.meta_instrument_length,
+                                             cfg.meta_instrument_activation)
+        return outputs
+
+    # ------------------------------------------------------------------
+    # Latent probes
+    # ------------------------------------------------------------------
     def composer_logits(self, z: torch.Tensor) -> torch.Tensor:
         """The composer probe's logits are z[:, :num_composers]."""
         return z[:, : self.cfg.num_composers]
+
+    def signature_prediction(self, z: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        offset = cfg.num_composers if cfg.include_composer_decoder else 0
+        return activation_fn(cfg.signature_activation)(z[:, offset : offset + cfg.signature_dim])
+
+    def _composer_from(self, params, key: str, seq: torch.Tensor) -> torch.Tensor:
+        """The adversarial composer decoders: a plain GRU scan over a head's
+        output (the JAX package runs no kernel there either)."""
+        p = params[key]
+        h = encode_sequence(p["rnn"], seq, self.cfg.cell_type, self.cfg.lstm_activation,
+                            gate_activation=self.cfg.gate_activation)
+        return dense_apply(p["out"], h)
+
+    # ------------------------------------------------------------------
+    # Full autoencoder forward (training)
+    # ------------------------------------------------------------------
+    def apply(self, batch: dict, generator: torch.Generator | None = None,
+              epsilon_std: float = 0.0, noise: torch.Tensor | None = None) -> dict:
+        """Encode, sample, decode every head and the probes, on the training
+        path. ``noise``: pre-scaled reparameterization noise (epsilon_std *
+        N(0, 1), (B, latent_dim)), z = z_mean + exp(z_log_var / 2) * noise;
+        without it ``sample_z`` draws from ``generator``. With
+        ``compute_dtype='bfloat16'`` the forward runs in bf16 (CPU only)."""
+        cfg = self.cfg
+        params = self.params
+        if cfg.compute_dtype == "bfloat16":
+            params = _cast_tree(self.params, torch.bfloat16)
+            batch = {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
+                     for k, v in batch.items()}
+            if noise is not None:
+                noise = noise.to(torch.bfloat16)
+        z_mean, z_log_var = self.encode_stats(batch, inference=False, params=params)
+        if noise is not None:
+            z = z_mean + torch.exp(z_log_var / 2.0) * noise
+        else:
+            z = self.sample_z(z_mean, z_log_var, generator, epsilon_std)
+        outputs = self.decode(
+            z, history=batch.get("H"), additional=batch.get("A"),
+            ground_truth=batch.get("Y") if cfg.teacher_force else None,
+            next_ground_truth=batch.get("N") if cfg.meta_next_notes_teacher_force else None,
+            inference=False, params=params)
+        result = {"z_mean": z_mean, "z_log_var": z_log_var, "z": z, "heads": outputs}
+        if cfg.include_composer_decoder:
+            result["composer_logits"] = self.composer_logits(z)
+        if cfg.signature_decoder:
+            result["signature"] = self.signature_prediction(z)
+        if cfg.composer_decoder_at_notes_output:
+            result["composer_at_notes_logits"] = self._composer_from(
+                params, "composer_at_notes", outputs["notes"][0])
+        if cfg.composer_decoder_at_instrument_output:
+            result["composer_at_instrument_logits"] = self._composer_from(
+                params, "composer_at_instrument", outputs["instrument"][0])
+        return result
+
+
+# ---------------------------------------------------------------------------
+# Loss: the single fused objective (midi_vae_tpu/models/vae.py:827-1005)
+# ---------------------------------------------------------------------------
+
+def _xent_from_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-element categorical crossentropy -sum(y * log_softmax(logits))."""
+    return -(targets * torch.log_softmax(logits, dim=-1)).sum(-1)
+
+
+def kl_divergence(z_mean, z_log_var, prior_mean: float, prior_std: float) -> torch.Tensor:
+    """Per-sample KL(N(mu, sigma) || N(prior)), summed over latent dims."""
+    prior_log_var = 2.0 * float(np.log(prior_std))
+    prior_var = prior_std * prior_std
+    return -0.5 * (1.0 + z_log_var - prior_log_var
+                   - ((z_mean - prior_mean) ** 2 + torch.exp(z_log_var)) / prior_var).sum(-1)
+
+
+def loss_and_metrics(model: MidiVAE, batch: dict, generator: torch.Generator | None = None,
+                     epsilon_std: float = 0.0, noise: torch.Tensor | None = None,
+                     return_z: bool = False) -> tuple[torch.Tensor, dict]:
+    """Total loss = sum(weight_i * head_loss_i) + beta * KL, with the metrics
+    dict of per-head losses and accuracies (0-d tensors). ``batch["M"]``
+    (B,) masks padding rows out of every mean; ``noise`` as in ``apply``."""
+    cfg = model.cfg
+    out = model.apply(batch, generator, epsilon_std, noise)
+    if cfg.compute_dtype == "bfloat16":
+        def up(tree):
+            if isinstance(tree, dict):
+                return {k: up(v) for k, v in tree.items()}
+            if isinstance(tree, (tuple, list)):
+                return type(tree)(up(v) for v in tree)
+            return tree.float()
+        out = up(out)
+    metrics: dict[str, torch.Tensor] = {}
+    M = batch.get("M")
+
+    def bmean(x: torch.Tensor) -> torch.Tensor:
+        """Mean over all elements, restricted to valid batch rows."""
+        if M is None:
+            return x.mean()
+        m = M.reshape(M.shape[0], *([1] * (x.dim() - 1)))
+        per_sample = 1.0
+        for d in x.shape[1:]:
+            per_sample *= d
+        denom = torch.clamp((M.sum() * per_sample), min=1e-8)
+        return (x * m).sum() / denom
+
+    def acc(probs, target):
+        return bmean((probs.argmax(-1) == target.argmax(-1)).float())
+
+    probs, logits = out["heads"]["notes"]
+    Y = batch["Y"]
+    if cfg.vae_loss in ("mse", "mean_squared_error"):
+        xent = ((probs - Y) ** 2).mean(-1)
+    else:
+        xent = _xent_from_logits(logits, Y)
+    if cfg.include_silent_note and cfg.silent_weight != 1.0:
+        w = torch.where(Y[..., -1] == 1, torch.full_like(xent, cfg.silent_weight),
+                        torch.ones_like(xent))
+        nonzero = bmean((w != 0).float())
+        notes_loss = bmean(xent * w) / torch.clamp(nonzero, min=1e-8)
+    else:
+        notes_loss = bmean(xent)
+    metrics["notes_loss"] = notes_loss
+    metrics["notes_acc"] = acc(probs, Y)
+    total = 1.0 * notes_loss
+
+    def categorical_head(head: str, key: str, name: str, weight: float):
+        p, lg = out["heads"][head]
+        loss = bmean(_xent_from_logits(lg, batch[key]))
+        metrics[f"{name}_loss"] = loss
+        metrics[f"{name}_acc"] = acc(p, batch[key])
+        return weight * loss
+
+    if cfg.meta_instrument:
+        total = total + categorical_head("instrument", "I", "meta_instrument",
+                                         cfg.meta_instrument_weight)
+    if cfg.meta_velocity:
+        probs_v, _ = out["heads"]["velocity"]
+        V = batch["V"]
+        loss_v = bmean((probs_v - V) ** 2)
+        metrics["meta_velocity_loss"] = loss_v
+        # Keras-2.0.8 binary_accuracy on a regression head: y_true is NOT
+        # rounded, so a continuous velocity only scores at exactly 0 or 1
+        metrics["meta_velocity_acc"] = bmean((torch.round(probs_v) == V).float())
+        total = total + cfg.meta_velocity_weight * loss_v
+    if cfg.meta_held_notes:
+        total = total + categorical_head("held", "D", "meta_held_notes", cfg.meta_held_notes_weight)
+    if cfg.meta_next_notes:
+        total = total + categorical_head("next", "N", "meta_next_notes", cfg.meta_next_notes_weight)
+
+    if cfg.include_composer_decoder:
+        C = batch["C"]
+        loss_c = bmean(_xent_from_logits(out["composer_logits"], C))
+        metrics["composer_loss"] = loss_c
+        metrics["composer_acc"] = acc(out["composer_logits"], C)
+        total = total + cfg.composer_weight * loss_c
+    if cfg.signature_decoder:
+        loss_s = bmean((out["signature"] - batch["S"]) ** 2)
+        metrics["signature_loss"] = loss_s
+        total = total + cfg.signature_weight * loss_s
+    if cfg.composer_decoder_at_notes_output:
+        loss_cn = bmean(_xent_from_logits(out["composer_at_notes_logits"], batch["C"]))
+        metrics["composer_at_notes_loss"] = loss_cn
+        total = total + cfg.composer_decoder_at_notes_weight * loss_cn
+    if cfg.composer_decoder_at_instrument_output:
+        loss_ci = bmean(_xent_from_logits(out["composer_at_instrument_logits"], batch["C"]))
+        metrics["composer_at_instrument_loss"] = loss_ci
+        total = total + cfg.composer_decoder_at_instrument_weight * loss_ci
+
+    log_var = out["z_log_var"]
+    if cfg.epsilon_factor > 0:
+        log_var = log_var + cfg.epsilon_factor
+    kl = bmean(kl_divergence(out["z_mean"], log_var, cfg.prior_mean, cfg.prior_std))
+    metrics["kl_loss"] = kl
+    total = total + cfg.beta * kl
+    metrics["loss"] = total
+    if return_z:
+        metrics["_z"] = out["z_mean"]
+    return total, metrics
+

@@ -1,7 +1,8 @@
 """Builds the hand-written CUDA kernels with nvcc and loads them with ctypes.
 
 Follows the lazy g++ + ctypes loader of ``midi_vae_tpu/native/__init__.py``:
-each ``csrc/<name>.cu`` compiles on first use, with a plain C interface,
+each ``csrc/<name>.cu`` compiles on first use (or all together through
+``build``), with a plain C interface,
 into ``midi_vae_tpu_torch/csrc/build/lib<name>.so`` (the ``build/`` pattern of
 ``.gitignore`` covers it), and is rebuilt when a source under ``csrc/`` is
 newer than the library. Nothing here runs at import time: the CPU paths never
@@ -25,6 +26,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+# every kernel library, one per csrc/<name>.cu
+LIBRARIES = ("gru_layer_fwd", "gru_decode", "gru_layer_bwd", "gru_decode_train",
+             "gru_decode_bwd", "grad_reduce")
 # seconds spent in nvcc by this process, per library (chip_smoke reports it)
 build_seconds: dict[str, float] = {}
 
@@ -43,36 +47,54 @@ def _nvcc() -> str:
     )
 
 
-def _build(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
+def _stale(name: str) -> bool:
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
     sources = glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh"))
     newest = max(os.path.getmtime(p) for p in sources)
-    if os.path.exists(so) and os.path.getmtime(so) >= newest:
-        return so
+    return not (os.path.exists(so) and os.path.getmtime(so) >= newest)
+
+
+def build(names) -> None:
+    """Build the stale libraries among ``names``, one nvcc process per
+    source, all started together."""
+    todo = [n for n in dict.fromkeys(names) if _stale(n)]
+    if not todo:
+        return
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # compile to a unique file and rename into place, so a concurrent
-    # process never loads a half-written library
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    t0 = time.perf_counter()
-    result = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    build_seconds[name] = time.perf_counter() - t0
-    if result.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed for {src} (rc {result.returncode}):\n"
-            f"{' '.join(cmd)}\n{result.stdout}{result.stderr}"
-        )
-    os.replace(tmp, so)
-    return so
+    nvcc = _nvcc()
+    running = []
+    for name in todo:
+        src = os.path.join(CSRC, f"{name}.cu")
+        so = os.path.join(BUILD_DIR, f"lib{name}.so")
+        # compile to a unique file and rename into place, so a concurrent
+        # process never loads a half-written library
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, src, so, tmp, cmd, proc, time.perf_counter()))
+    failures = []
+    for name, src, so, tmp, cmd, proc, t0 in running:
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            failures.append(f"nvcc failed for {src} (rc {proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failures:
+        raise RuntimeError("\n".join(failures))
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, built first if needed."""
-    lib = ctypes.CDLL(_build(name))
+    build([name])
+    lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
     lib.mvt_error_string.argtypes = [ctypes.c_int]
     lib.mvt_error_string.restype = ctypes.c_char_p
     return lib

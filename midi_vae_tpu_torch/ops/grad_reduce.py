@@ -1,0 +1,115 @@
+"""Kernel W: the weight-gradient reduction C = A^T B (+ column sums of B).
+
+The TPU backward kernels accumulate dW, dU, dWo and the bias grads over all
+T*B rows inside themselves (``midi_vae_tpu/ops/fused_train.py::_bwdx_kernel``
+:2175-2178, ``_dec_bwd*_kernel``, ``_mh_bwd_kernel``). On the H100 that sum is
+a second pass after the serial kernels C and E, as in the JAX package's wide
+scheme (``_gru_wide_weight_grads``, ``_dec_wide_weight_grads``): the CUDA
+kernel ``csrc/grad_reduce.cu``, whose source note gives the layout.
+``grad_reduce_reference`` is the plain PyTorch version: the CPU path and the
+kernel's oracle.
+
+Operands are 2-D with unit column stride and any row stride, so column
+slices of a gate-grad matrix (``da[:, :2H]``) and of an output
+(``du[:, 2H:]``) go in without copies.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+# aim for about two waves of blocks on the H100's 132 SMs
+_TARGET_BLOCKS = 264
+_TILE = 64
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def grad_reduce_reference(a, b, with_bias=False):
+    """Plain version: (a^T b, b.sum(0) or None)."""
+    return a.t() @ b, (b.sum(0) if with_bias else None)
+
+
+@functools.cache
+def _kernel():
+    lib = _build.load("grad_reduce")
+    fn = lib.mvt_grad_reduce
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_matrix(name: str, t: torch.Tensor, device) -> None:
+    if t.dim() != 2 or t.stride(1) != 1 or t.stride(0) < t.shape[1]:
+        raise ValueError(f"{name} must be 2-D with unit column stride, got shape "
+                         f"{tuple(t.shape)} strides {t.stride()}")
+    if t.device != device or t.dtype != torch.float32:
+        raise ValueError(f"{name} is {t.dtype} on {t.device}; expected float32 on {device}")
+
+
+def grad_reduce(a, b, out, bias_out=None) -> None:
+    """out (I, J) = a^T b for a (N, I), b (N, J); bias_out (J,) = b.sum(0)
+    when given. Writes in place. CPU tensors run the plain version; CUDA
+    tensors launch kernel W."""
+    N, I = a.shape
+    J = b.shape[1]
+    if b.shape[0] != N or tuple(out.shape) != (I, J):
+        raise ValueError(f"grad_reduce: a {tuple(a.shape)}, b {tuple(b.shape)}, "
+                         f"out {tuple(out.shape)} do not fit (N, I), (N, J), (I, J)")
+    if bias_out is not None and tuple(bias_out.shape) != (J,):
+        raise ValueError(f"bias_out has shape {tuple(bias_out.shape)}, expected ({J},)")
+    if a.device.type == "cpu":
+        c, bias = grad_reduce_reference(a, b, bias_out is not None)
+        out.copy_(c)
+        if bias_out is not None:
+            bias_out.copy_(bias)
+        return
+    if a.device.type != "cuda":
+        raise ValueError(f"grad_reduce runs on cpu or cuda tensors, not {a.device}")
+    for name, t in (("a", a), ("b", b), ("out", out)):
+        _check_matrix(name, t, a.device)
+    if bias_out is not None:
+        _check_matrix("bias_out", bias_out[None], a.device)
+    ie = I + (bias_out is not None)
+    tiles = -(-ie // _TILE) * -(-J // _TILE)
+    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), N // 512))
+    part = (torch.empty(splits * ie * J, device=a.device, dtype=torch.float32)
+            if splits > 1 else None)
+    null = ctypes.c_void_p(None)
+    lib, fn = _kernel()
+    rc = fn(
+        _ptr(a), a.stride(0), _ptr(b), b.stride(0), _ptr(out), out.stride(0),
+        _ptr(bias_out) if bias_out is not None else null,
+        _ptr(part) if part is not None else null,
+        N, I, J, splits,
+        ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
+    )
+    _build.check(lib, rc, "grad_reduce launch")
+    grad_reduce.launches += 1
+
+
+grad_reduce.launches = 0
+
+
+def gru_weight_grads(x, hprev, rh, da_cat):
+    """dW (D, 3H), db (3H,), dU (H, 3H) of one GRU cell over a whole sequence
+    from its gate grads: x, h_{t-1}, r*h_{t-1} and da_cat are (T, B, .),
+    time-major (``_gru_cell_bwd``'s sums, :373-378). Three reductions."""
+    T, B, D = x.shape
+    H = hprev.shape[-1]
+    n = T * B
+    da = da_cat.reshape(n, 3 * H)
+    kw = {"device": x.device, "dtype": torch.float32}
+    dw, db, du = torch.empty(D, 3 * H, **kw), torch.empty(3 * H, **kw), torch.empty(H, 3 * H, **kw)
+    grad_reduce(x.reshape(n, D), da, dw, db)
+    grad_reduce(hprev.reshape(n, H), da[:, : 2 * H], du[:, : 2 * H])
+    grad_reduce(rh.reshape(n, H), da[:, 2 * H :], du[:, 2 * H :])
+    return dw, db, du

@@ -8,6 +8,19 @@ version (``_decode_scan_reference``): the CPU path and the kernel's oracle.
 
 ``gru_decode`` takes the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
+
+Training: ``gru_decode_train`` (one head, counterpart of
+``midi_vae_tpu/ops/fused_train.py::gru_decode_train``) and
+``gru_decode_multihead_train`` (a 2-layer primary head plus 1-layer side
+heads, counterpart of ``::gru_decode_multihead_train``) are one
+``torch.autograd.Function``. Its forward is kernel D
+(``csrc/gru_decode_train.cu``, replacing ``_dec_fwd1/2_kernel`` and
+``_mh_fwd_kernel``): all heads of a call in one launch, each also emitting
+its layers' h sequences. Its backward is kernel E
+(``csrc/gru_decode_bwd.cu``, replacing ``_dec_bwd1/2_kernel`` and
+``_mh_bwd_kernel``) for the gate grads, d_init and d_start, then kernel W
+(``ops/grad_reduce.py``) for every weight grad. The plain versions are
+``gru_decode_train_reference`` and ``gru_decode_bwd_reference``.
 """
 
 from __future__ import annotations
@@ -18,7 +31,8 @@ import functools
 import torch
 
 from . import _build
-from .gru_layer import CELL_ACTIVATIONS, _ptr, cell_activation, check_operands, gru_step
+from .grad_reduce import grad_reduce, gru_weight_grads
+from .gru_layer import CELL_ACTIVATIONS, _ptr, cell_activation, check_operands, gru_cell_bwd_core, gru_step
 
 # output activations the kernel implements, with their codes in gru_common.cuh
 OUT_ACTIVATIONS = {"sigmoid": 1, "linear": 3, "softmax": 4}
@@ -115,3 +129,337 @@ def gru_decode(cells, out_dense, init_states, start, T, activation="tanh",
 
 
 gru_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training: kernel D (forward with residuals), kernel E + W (backward)
+# ---------------------------------------------------------------------------
+
+MAX_HEADS = 4  # heads per launch of kernels D and E (kMaxHeads)
+
+
+def dlogits_from(probs, gp_total, g_logits, out_activation):
+    """Grad of the logits from the grads of probs (its loss grad plus the
+    feedback into the next step) and of the logits (``_dlogits_from``)."""
+    if out_activation == "softmax":
+        return probs * (gp_total - (gp_total * probs).sum(-1, keepdim=True)) + g_logits
+    if out_activation == "sigmoid":
+        return gp_total * probs * (1.0 - probs) + g_logits
+    return gp_total + g_logits
+
+
+def gru_decode_train_reference(cells, out_dense, init_states, start, T, out_activation="softmax"):
+    """Plain version of kernel D for one head (tanh cells): (probs, logits,
+    [h sequence of each layer]), all (T, B, .) time-major."""
+    out_act = out_activation_fn(out_activation)
+    states = list(init_states)
+    x = start
+    probs, logits, hs = [], [], [[] for _ in cells]
+    for _ in range(T):
+        for i, p in enumerate(cells):
+            x = states[i] = gru_step(x, states[i], p["w"], p["u"], p["b"], torch.tanh)
+            hs[i].append(x)
+        lg = x @ out_dense["w"] + out_dense["b"]
+        x = out_act(lg)
+        probs.append(x)
+        logits.append(lg)
+    return torch.stack(probs), torch.stack(logits), [torch.stack(h) for h in hs]
+
+
+def gru_decode_bwd_reference(cells, out_dense, init_states, start, probs, h_seqs, g_probs,
+                             g_logits, out_activation="softmax"):
+    """Plain version of kernel E for one head: the reverse-time transpose of
+    the decode (``_dec_bwd1/2_kernel``), emitting the gate grads instead of
+    summing the weight grads. Returns {dlogits (T, B, D), da [per layer
+    (T, B, 3H)], rh [per layer (T, B, H)], d_init [per layer (B, H)],
+    d_start (B, D)}."""
+    T = probs.shape[0]
+    n = len(cells)
+    dh = [torch.zeros_like(s) for s in init_states]
+    dx_fed = torch.zeros_like(start)
+    dlog = [None] * T
+    da = [[None] * T for _ in range(n)]
+    rh = [[None] * T for _ in range(n)]
+    for t in reversed(range(T)):
+        dlog[t] = dlogits_from(probs[t], g_probs[t] + dx_fed, g_logits[t], out_activation)
+        d = dlog[t] @ out_dense["w"].t() + dh[n - 1]
+        for i in reversed(range(n)):
+            x = h_seqs[i - 1][t] if i > 0 else (probs[t - 1] if t > 0 else start)
+            hp = h_seqs[i][t - 1] if t > 0 else init_states[i]
+            p = cells[i]
+            dx, dh[i], da[i][t], rh[i][t] = gru_cell_bwd_core(x, hp, p["w"], p["u"], p["b"], d)
+            if i > 0:
+                d = dx + dh[i - 1]
+            else:
+                dx_fed = dx
+    return {"dlogits": torch.stack(dlog), "da": [torch.stack(a) for a in da],
+            "rh": [torch.stack(a) for a in rh], "d_init": dh, "d_start": dx_fed}
+
+
+_DECODE_PTRS = ("start", "h1_0", "h2_0", "w1", "u1", "b1", "w2", "u2", "b2", "wo", "bo",
+                "probs", "logits", "h1seq", "h2seq")
+_BWD_PTRS = ("probs", "h1seq", "h2seq", "g_probs", "g_logits", "start", "h1_0", "h2_0",
+             "w1", "u1", "b1", "u1t", "w1t", "w2", "u2", "b2", "u2t", "w2t", "wot",
+             "dlogits", "da1", "rh1", "da2", "rh2", "d_h1_0", "d_h2_0", "d_start")
+_INTS = ("D", "n_layers", "out_act", "T")
+
+
+class _DecodeHead(ctypes.Structure):
+    """struct DecodeHead of csrc/gru_decode_train.cu."""
+    _fields_ = [(n, ctypes.c_void_p) for n in _DECODE_PTRS] + [(n, ctypes.c_int) for n in _INTS]
+
+
+class _DecodeHeadBwd(ctypes.Structure):
+    """struct DecodeHeadBwd of csrc/gru_decode_bwd.cu."""
+    _fields_ = [(n, ctypes.c_void_p) for n in _BWD_PTRS] + [(n, ctypes.c_int) for n in _INTS]
+
+
+def _check_heads(heads) -> tuple[int, int, torch.device]:
+    """Shapes of a list of training heads; returns (B, H, device)."""
+    if not 1 <= len(heads) <= MAX_HEADS:
+        raise ValueError(f"kernels D and E take 1 to {MAX_HEADS} heads per call, got {len(heads)}")
+    B, H = heads[0]["start"].shape[0], heads[0]["init"][0].shape[-1]
+    for k, h in enumerate(heads):
+        n_layers = len(h["cells"])
+        if n_layers not in (1, 2) or len(h["init"]) != n_layers:
+            raise ValueError(f"head {k}: 1- or 2-layer heads with one state per layer, got "
+                             f"{n_layers} layers and {len(h['init'])} states")
+        if h["out_activation"] not in OUT_ACTIVATIONS:
+            raise ValueError(f"head {k}: unsupported decode output activation {h['out_activation']!r}")
+        if h["T"] < 1:
+            raise ValueError(f"head {k}: T must be >= 1, got {h['T']}")
+        D = h["start"].shape[-1]
+        named = {"start": h["start"], "wo": h["out"]["w"], "bo": h["out"]["b"]}
+        expected = {"start": (B, D), "wo": (H, D), "bo": (D,)}
+        for i, (p, s0) in enumerate(zip(h["cells"], h["init"])):
+            d_in = D if i == 0 else H
+            named.update({f"w{i + 1}": p["w"], f"u{i + 1}": p["u"], f"b{i + 1}": p["b"],
+                          f"h{i + 1}": s0})
+            expected.update({f"w{i + 1}": (d_in, 3 * H), f"u{i + 1}": (H, 3 * H),
+                             f"b{i + 1}": (3 * H,), f"h{i + 1}": (B, H)})
+        for name, t in named.items():
+            if tuple(t.shape) != expected[name]:
+                raise ValueError(f"head {k}: {name} has shape {tuple(t.shape)}, expected {expected[name]}")
+    device = heads[0]["start"].device
+    if device.type == "cuda" and (H % 32 or not 32 <= H <= 1024):
+        raise ValueError(f"kernels D and E take H a multiple of 32 in [32, 1024]; got H={H}")
+    return B, H, device
+
+
+@functools.cache
+def _fwd_kernel():
+    lib = _build.load("gru_decode_train")
+    fn = lib.mvt_gru_decode_train
+    fn.argtypes = [ctypes.POINTER(_DecodeHead), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def gru_decode_fwd_train(heads):
+    """Training forward of 1 to 4 heads, each a dict {cells, out, init,
+    start, T, out_activation} (tanh cells). Returns per head (probs, logits,
+    [h sequence per layer]), all (T, B, .). CPU tensors run
+    ``gru_decode_train_reference``; CUDA tensors launch kernel D once."""
+    B, H, device = _check_heads(heads)
+    if device.type == "cpu":
+        return [gru_decode_train_reference(h["cells"], h["out"], h["init"], h["start"], h["T"],
+                                           h["out_activation"]) for h in heads]
+    if device.type != "cuda":
+        raise ValueError(f"gru_decode_fwd_train runs on cpu or cuda tensors, not {device}")
+    kw = {"device": device, "dtype": torch.float32}
+    null = ctypes.c_void_p(None)
+    structs = (_DecodeHead * len(heads))()
+    outs = []
+    for h, st in zip(heads, structs):
+        T, D, n_layers = h["T"], h["start"].shape[-1], len(h["cells"])
+        probs, logits = torch.empty(T, B, D, **kw), torch.empty(T, B, D, **kw)
+        h_seqs = [torch.empty(T, B, H, **kw) for _ in range(n_layers)]
+        named = {"start": h["start"], "h1_0": h["init"][0], "wo": h["out"]["w"], "bo": h["out"]["b"],
+                 "probs": probs, "logits": logits, "h1seq": h_seqs[0]}
+        for i, p in enumerate(h["cells"]):
+            named.update({f"w{i + 1}": p["w"], f"u{i + 1}": p["u"], f"b{i + 1}": p["b"]})
+        if n_layers == 2:
+            named.update({"h2_0": h["init"][1], "h2seq": h_seqs[1]})
+        check_operands(named, device)
+        for name in _DECODE_PTRS:
+            setattr(st, name, named[name].data_ptr() if name in named else null.value)
+        st.D, st.n_layers, st.out_act, st.T = D, n_layers, OUT_ACTIVATIONS[h["out_activation"]], T
+        outs.append((probs, logits, h_seqs))
+    lib, fn = _fwd_kernel()
+    rc = fn(structs, len(heads), B, H, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    _build.check(lib, rc, "gru_decode_train launch")
+    gru_decode_fwd_train.launches += 1
+    return outs
+
+
+gru_decode_fwd_train.launches = 0
+
+
+@functools.cache
+def _bwd_kernel():
+    lib = _build.load("gru_decode_bwd")
+    fn = lib.mvt_gru_decode_bwd
+    fn.argtypes = [ctypes.POINTER(_DecodeHeadBwd), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def gru_decode_bwd(heads):
+    """Backward of ``gru_decode_fwd_train``: each head dict also carries the
+    forward's ``probs`` and ``h_seqs`` and the incoming ``g_probs`` and
+    ``g_logits`` (T, B, D). Returns per head the dict of
+    ``gru_decode_bwd_reference``. CPU tensors run that plain version; CUDA
+    tensors launch kernel E once."""
+    B, H, device = _check_heads(heads)
+    for k, h in enumerate(heads):
+        want = (h["T"], B, h["start"].shape[-1])
+        for name in ("probs", "g_probs", "g_logits"):
+            if tuple(h[name].shape) != want:
+                raise ValueError(f"head {k}: {name} has shape {tuple(h[name].shape)}, expected {want}")
+    if device.type == "cpu":
+        return [gru_decode_bwd_reference(h["cells"], h["out"], h["init"], h["start"], h["probs"],
+                                         h["h_seqs"], h["g_probs"], h["g_logits"],
+                                         h["out_activation"]) for h in heads]
+    if device.type != "cuda":
+        raise ValueError(f"gru_decode_bwd runs on cpu or cuda tensors, not {device}")
+    kw = {"device": device, "dtype": torch.float32}
+    null = ctypes.c_void_p(None)
+    structs = (_DecodeHeadBwd * len(heads))()
+    outs, keep = [], []
+    for h, st in zip(heads, structs):
+        T, D, n_layers = h["T"], h["start"].shape[-1], len(h["cells"])
+        g = {"dlogits": torch.empty(T, B, D, **kw),
+             "da": [torch.empty(T, B, 3 * H, **kw) for _ in range(n_layers)],
+             "rh": [torch.empty(T, B, H, **kw) for _ in range(n_layers)],
+             "d_init": [torch.empty(B, H, **kw) for _ in range(n_layers)],
+             "d_start": torch.empty(B, D, **kw)}
+        named = {"probs": h["probs"], "h1seq": h["h_seqs"][0], "g_probs": h["g_probs"],
+                 "g_logits": h["g_logits"], "start": h["start"], "h1_0": h["init"][0],
+                 "wot": h["out"]["w"].t().contiguous(), "dlogits": g["dlogits"],
+                 "d_start": g["d_start"]}
+        for i, p in enumerate(h["cells"]):
+            # the transposed products read U^T and W^T row by row (see the source)
+            named.update({f"w{i + 1}": p["w"], f"u{i + 1}": p["u"], f"b{i + 1}": p["b"],
+                          f"u{i + 1}t": p["u"].t().contiguous(), f"w{i + 1}t": p["w"].t().contiguous(),
+                          f"da{i + 1}": g["da"][i], f"rh{i + 1}": g["rh"][i],
+                          f"d_h{i + 1}_0": g["d_init"][i]})
+        if n_layers == 2:
+            named.update({"h2seq": h["h_seqs"][1], "h2_0": h["init"][1]})
+        check_operands(named, device)
+        keep.append(named)  # the transposes must outlive the launch
+        for name in _BWD_PTRS:
+            setattr(st, name, named[name].data_ptr() if name in named else null.value)
+        st.D, st.n_layers, st.out_act, st.T = D, n_layers, OUT_ACTIVATIONS[h["out_activation"]], T
+        outs.append(g)
+    lib, fn = _bwd_kernel()
+    rc = fn(structs, len(heads), B, H, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    _build.check(lib, rc, "gru_decode_bwd launch")
+    gru_decode_bwd.launches += 1
+    return outs
+
+
+gru_decode_bwd.launches = 0
+
+
+def _flatten_head(h) -> list:
+    """start, init states, then w, u, b of each cell, then wo, bo."""
+    flat = [h["start"], *h["init"]]
+    for c in h["cells"]:
+        flat += [c["w"], c["u"], c["b"]]
+    return flat + [h["out"]["w"], h["out"]["b"]]
+
+
+def _unflatten_heads(layout, flat) -> list[dict]:
+    heads, i = [], 0
+    for n_layers, out_activation, T in layout:
+        start, init = flat[i], list(flat[i + 1 : i + 1 + n_layers])
+        i += 1 + n_layers
+        cells = []
+        for _ in range(n_layers):
+            cells.append({"w": flat[i], "u": flat[i + 1], "b": flat[i + 2]})
+            i += 3
+        heads.append({"start": start, "init": init, "cells": cells,
+                      "out": {"w": flat[i], "b": flat[i + 1]}, "T": T,
+                      "out_activation": out_activation})
+        i += 2
+    return heads
+
+
+class _DecodeTrain(torch.autograd.Function):
+    """Training decode of 1 to 4 heads: forward kernel D, backward kernel E
+    then kernel W. ``layout`` is one (n_layers, out_activation, T) per head;
+    ``flat`` holds each head's tensors in ``_flatten_head`` order. Returns
+    (probs, logits) of every head, flattened."""
+
+    @staticmethod
+    def forward(ctx, layout, *flat):
+        # the notes accuracy and some heads' probs or logits have no grad
+        ctx.set_materialize_grads(True)
+        outs = gru_decode_fwd_train(_unflatten_heads(layout, flat))
+        residuals = [t for probs, _logits, h_seqs in outs for t in (probs, *h_seqs)]
+        ctx.save_for_backward(*flat, *residuals)
+        ctx.layout, ctx.n_flat = layout, len(flat)
+        return tuple(t for probs, logits, _h in outs for t in (probs, logits))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        heads = _unflatten_heads(ctx.layout, saved[: ctx.n_flat])
+        residuals = iter(saved[ctx.n_flat :])
+        for k, h in enumerate(heads):
+            h["probs"] = next(residuals)
+            h["h_seqs"] = [next(residuals) for _ in h["cells"]]
+            h["g_probs"], h["g_logits"] = grads[2 * k].contiguous(), grads[2 * k + 1].contiguous()
+        flat_grads = []
+        for h, g in zip(heads, gru_decode_bwd(heads)):
+            T, (B, D), H = h["T"], h["start"].shape, h["init"][0].shape[-1]
+            kw = {"device": h["start"].device, "dtype": torch.float32}
+            dwo, dbo = torch.empty(H, D, **kw), torch.empty(D, **kw)
+            grad_reduce(h["h_seqs"][-1].reshape(T * B, H), g["dlogits"].reshape(T * B, D), dwo, dbo)
+            cell_grads = []
+            for i in range(len(h["cells"])):
+                x = h["h_seqs"][i - 1] if i > 0 else torch.cat([h["start"][None], h["probs"][:-1]])
+                hprev = torch.cat([h["init"][i][None], h["h_seqs"][i][:-1]])
+                dw, db, du = gru_weight_grads(x, hprev, g["rh"][i], g["da"][i])
+                cell_grads += [dw, du, db]
+            flat_grads += [g["d_start"], *g["d_init"], *cell_grads, dwo, dbo]
+        return (None, *flat_grads)
+
+
+def _decode_heads_train(heads):
+    layout = tuple((len(h["cells"]), h["out_activation"], h["T"]) for h in heads)
+    flat = [t for h in heads for t in _flatten_head(h)]
+    outs = _DecodeTrain.apply(layout, *flat)
+    return [(outs[2 * k], outs[2 * k + 1]) for k in range(len(heads))]
+
+
+def gru_decode_train(cells, out_dense, init_states, start, T, activation="tanh",
+                     out_activation="softmax"):
+    """Differentiable readout decode of one head (1 or 2 GRU layers, tanh):
+    (probs, logits), each (T, B, D) time-major. CPU tensors run the plain
+    versions of kernels D, E and W; CUDA tensors launch them."""
+    if activation != "tanh":
+        raise ValueError(f"the decode training kernels implement tanh cells, not {activation!r}")
+    head = {"cells": list(cells), "out": out_dense, "init": list(init_states), "start": start,
+            "T": T, "out_activation": out_activation}
+    return _decode_heads_train([head])[0]
+
+
+def gru_decode_multihead_train(primary, heads, T, activation, out_acts):
+    """Differentiable decode of a 2-layer primary head and 1-layer side
+    heads over the same T, in one launch each way. ``primary`` and each of
+    ``heads`` are {cells, out, init, start}; ``out_acts`` one output
+    activation per head, primary first. Returns a tuple of (probs, logits)
+    per head, each (T, B, D) time-major."""
+    if activation != "tanh":
+        raise ValueError(f"the decode training kernels implement tanh cells, not {activation!r}")
+    specs = [primary, *heads]
+    if len(out_acts) != len(specs) or len(primary["cells"]) != 2 or any(
+            len(h["cells"]) != 1 for h in heads):
+        raise ValueError("the multi-head decode takes a 2-layer primary head, 1-layer side "
+                         "heads and one output activation per head")
+    return tuple(_decode_heads_train([
+        {"cells": list(h["cells"]), "out": h["out"], "init": list(h["init"]), "start": h["start"],
+         "T": T, "out_activation": oa} for h, oa in zip(specs, out_acts)]))

@@ -9,6 +9,17 @@ bounds it. ``gru_layer_reference`` is the plain PyTorch version
 
 ``gru_layer`` takes the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
+
+Training (``gru_layer_train_x``, counterpart of
+``midi_vae_tpu/ops/fused_train.py::gru_layer_train_x``) is a
+``torch.autograd.Function``: its forward is kernel A emitting the whole h
+sequence (the backward's residual, also for layers that return only the
+final h, as ``_glx_fwd`` does), its backward is kernel C
+(``csrc/gru_layer_bwd.cu``, replacing ``_bwdx_kernel``) followed by kernel W
+(``ops/grad_reduce.py``) for dW, db and dU. ``gru_cell_bwd_core`` and
+``gru_layer_bwd_reference`` are the plain versions of the backward: the
+CPU path and kernel C's oracle. The backward hard-codes tanh's derivative,
+as the TPU kernels do (:2269).
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ import functools
 import torch
 
 from . import _build
+from .grad_reduce import gru_weight_grads
 
 # cell activations the kernels implement, with their codes in gru_common.cuh
 CELL_ACTIVATIONS = {"tanh": 0, "sigmoid": 1, "relu": 2}
@@ -122,3 +134,130 @@ def gru_layer(x, h0, w, b, u, activation="tanh", return_sequences=False):
 
 
 gru_layer.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training: the backward (kernel C + kernel W) and the autograd Function
+# ---------------------------------------------------------------------------
+
+def gru_cell_bwd_core(x, hp, w, u, b, dh):
+    """Backward through one GRU step with a tanh candidate, given x_t, h_{t-1}
+    and dL/dh_t (``_gru_cell_bwd_core``). Returns (dx, dh_prev, da_cat, rh):
+    da_cat = [da_z, da_r, da] are the pre-activation gate grads the weight
+    grads reduce over, rh = r * h_{t-1}."""
+    H = hp.shape[-1]
+    xp = x @ w + b
+    hu = hp @ u[:, : 2 * H]
+    z = torch.sigmoid(xp[:, :H] + hu[:, :H])
+    r = torch.sigmoid(xp[:, H : 2 * H] + hu[:, H:])
+    rh = r * hp
+    hh = torch.tanh(xp[:, 2 * H :] + rh @ u[:, 2 * H :])
+    dz = dh * (hp - hh)
+    da = dh * (1.0 - z) * (1.0 - hh * hh)
+    drh = da @ u[:, 2 * H :].t()
+    da_zr = torch.cat([dz * z * (1.0 - z), drh * hp * r * (1.0 - r)], dim=-1)
+    da_cat = torch.cat([da_zr, da], dim=-1)
+    dx = da_cat @ w.t()
+    dhp = dh * z + drh * r + da_zr @ u[:, : 2 * H].t()
+    return dx, dhp, da_cat, rh
+
+
+def gru_layer_bwd_reference(x, seq, h0, d_seq, d_final, w, b, u, need_dx=True):
+    """Plain version of kernel C: reverse-time BPTT of one layer over the
+    forward's h sequence ``seq`` (T, B, H). ``d_seq`` (T, B, H) and
+    ``d_final`` (B, H) are the incoming grads (either may be None). Returns
+    (dx or None, dh0, da_cat (T, B, 3H), rh (T, B, H))."""
+    T = x.shape[0]
+    dh = d_final if d_final is not None else torch.zeros_like(h0)
+    dx, da, rh = [None] * T, [None] * T, [None] * T
+    for t in reversed(range(T)):
+        if d_seq is not None:
+            dh = dh + d_seq[t]
+        hp = seq[t - 1] if t > 0 else h0
+        dx[t], dh, da[t], rh[t] = gru_cell_bwd_core(x[t], hp, w, u, b, dh)
+    return (torch.stack(dx) if need_dx else None), dh, torch.stack(da), torch.stack(rh)
+
+
+@functools.cache
+def _bwd_kernel():
+    lib = _build.load("gru_layer_bwd")
+    fn = lib.mvt_gru_layer_bwd
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def gru_layer_bwd(x, seq, h0, d_seq, d_final, w, b, u, need_dx=True):
+    """Backward of one GRU layer (tanh): see ``gru_layer_bwd_reference``.
+    CPU tensors run the plain version; CUDA tensors launch kernel C."""
+    T, B, D = x.shape
+    H = u.shape[0]
+    named = {"x": x, "seq": seq, "h0": h0, "w": w, "b": b, "u": u}
+    expected = {"x": (T, B, D), "seq": (T, B, H), "h0": (B, H), "w": (D, 3 * H),
+                "b": (3 * H,), "u": (H, 3 * H)}
+    if d_seq is not None:
+        named["d_seq"], expected["d_seq"] = d_seq, (T, B, H)
+    if d_final is not None:
+        named["d_final"], expected["d_final"] = d_final, (B, H)
+    for name, t in named.items():
+        if tuple(t.shape) != expected[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
+    if x.device.type == "cpu":
+        return gru_layer_bwd_reference(x, seq, h0, d_seq, d_final, w, b, u, need_dx)
+    if x.device.type != "cuda":
+        raise ValueError(f"gru_layer_bwd runs on cpu or cuda tensors, not {x.device}")
+    check_operands(named, x.device)
+    if H % 32 or not 32 <= H <= 1024:
+        raise ValueError(f"kernel C takes H a multiple of 32 in [32, 1024]; got H={H}")
+    kw = {"device": x.device, "dtype": torch.float32}
+    dx = torch.empty(T, B, D, **kw) if need_dx else None
+    dh0 = torch.empty(B, H, **kw)
+    da_cat = torch.empty(T, B, 3 * H, **kw)
+    rh = torch.empty(T, B, H, **kw)
+    # the transposed products read U^T and W^T row by row (see the source)
+    ut, wt = u.t().contiguous(), w.t().contiguous()
+    null = ctypes.c_void_p(None)
+    opt = lambda t: _ptr(t) if t is not None else null  # noqa: E731
+    lib, fn = _bwd_kernel()
+    rc = fn(
+        _ptr(x), _ptr(seq), _ptr(h0), opt(d_seq), opt(d_final), _ptr(w), _ptr(b), _ptr(u),
+        _ptr(ut), _ptr(wt), opt(dx), _ptr(dh0), _ptr(da_cat), _ptr(rh), T, B, D, H,
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    _build.check(lib, rc, "gru_layer_bwd launch")
+    gru_layer_bwd.launches += 1
+    return dx, dh0, da_cat, rh
+
+
+gru_layer_bwd.launches = 0
+
+
+class _GruLayerTrainX(torch.autograd.Function):
+    """Forward: kernel A with the h sequence as residual. Backward: kernel C
+    for dx, dh0 and the gate grads, then kernel W for dW, db, dU."""
+
+    @staticmethod
+    def forward(ctx, x, h0, w, b, u, return_sequences):
+        ctx.set_materialize_grads(True)
+        seq = gru_layer(x, h0, w, b, u, "tanh", True)
+        ctx.save_for_backward(x, h0, w, b, u, seq)
+        ctx.return_sequences = return_sequences
+        return seq if return_sequences else seq[-1].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, h0, w, b, u, seq = ctx.saved_tensors
+        g = g.contiguous()
+        d_seq, d_final = (g, None) if ctx.return_sequences else (None, g)
+        dx, dh0, da_cat, rh = gru_layer_bwd(x, seq, h0, d_seq, d_final, w, b, u,
+                                            need_dx=ctx.needs_input_grad[0])
+        hprev = torch.cat([h0[None], seq[:-1]])
+        dw, db, du = gru_weight_grads(x, hprev, rh, da_cat)
+        return dx, dh0, dw, db, du, None
+
+
+def gru_layer_train_x(x, h0, w, b, u, return_sequences=False):
+    """Differentiable GRU layer (tanh) over x (T, B, D) time-major: the
+    (T, B, H) sequence or the final h (B, H). CPU tensors run the plain
+    versions of kernels A, C and W; CUDA tensors launch them."""
+    return _GruLayerTrainX.apply(x, h0, w, b, u, return_sequences)

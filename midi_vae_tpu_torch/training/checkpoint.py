@@ -1,21 +1,37 @@
-"""Run directories of the port: ``config.json`` + ``params.npz``.
+"""Run directories and training checkpoints of the port.
 
-``load_config`` is a copy of ``midi_vae_tpu/training/checkpoint.py::
-load_config`` (that package's ``__init__`` imports jax). The parameters are
-one ``.npz`` whose keys are the JAX params tree's key paths joined with
-``/`` (``bridge.save_params``); ``tools/jax_run_to_torch.py`` converts a JAX
-run directory into one.
+A run directory holds ``config.json`` + ``params.npz``: what the transfer
+CLI serves. ``load_config`` is a copy of ``midi_vae_tpu/training/
+checkpoint.py::load_config`` (that package's ``__init__`` imports jax). The
+parameters are one ``.npz`` whose keys are the JAX params tree's key paths
+joined with ``/`` (``bridge.save_params``); ``tools/jax_run_to_torch.py``
+converts a JAX run directory into one.
+
+A training run adds one ``epoch_N/`` per checkpoint (counterpart of the JAX
+package's orbax checkpoints, ``save_checkpoint``/``restore_checkpoint``/
+``latest_epoch``): ``params.npz``, ``opt_state.npz`` (the optimizer's count
+and moments under ``<slot>/<parameter name>``), ``rng.npy`` (the
+``torch.Generator`` state) and ``state.json`` (the epoch and the generator's
+device). Resume is exact: the same params, moments and generator state.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
+
+import numpy as np
+import torch
 
 from midi_vae_tpu.config import Config
 
 from .. import bridge
 
 PARAMS_FILE = "params.npz"
+OPT_FILE = "opt_state.npz"
+RNG_FILE = "rng.npy"
+STATE_FILE = "state.json"
 
 
 def load_config(run_dir: str) -> Config:
@@ -43,3 +59,57 @@ def load_params(run_dir: str):
             "tools/jax_run_to_torch.py"
         )
     return bridge.load_params(path)
+
+
+def save_checkpoint(run_dir: str, epoch: int, params, opt_state: dict, rng: torch.Generator,
+                    cfg: Config | None) -> str:
+    """Write ``run_dir/epoch_<epoch>/`` (params: the numpy tree; opt_state:
+    a flat dict of arrays) and ``config.json`` beside it. Returns its path."""
+    path = os.path.join(run_dir, f"epoch_{epoch}")
+    tmp = path + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    bridge.save_params(os.path.join(tmp, PARAMS_FILE), params)
+    np.savez(os.path.join(tmp, OPT_FILE), **opt_state)
+    np.save(os.path.join(tmp, RNG_FILE), rng.get_state().numpy())
+    with open(os.path.join(tmp, STATE_FILE), "w") as f:
+        json.dump({"epoch": int(epoch), "rng_device": rng.device.type}, f)
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    os.replace(tmp, path)  # a checkpoint on disk is always complete
+    if cfg is not None:
+        cfg.save(os.path.join(run_dir, "config.json"))
+    return path
+
+
+def latest_epoch(run_dir: str) -> int | None:
+    if not os.path.isdir(run_dir):
+        return None
+    epochs = []
+    for name in os.listdir(run_dir):
+        if name.startswith("epoch_"):
+            try:
+                epochs.append(int(name.split("_", 1)[1]))
+            except ValueError:
+                pass
+    return max(epochs) if epochs else None
+
+
+def restore_checkpoint(run_dir: str, epoch: int | None = None) -> dict:
+    """{params (numpy tree), opt_state (dict of arrays), rng_state (uint8
+    tensor), rng_device, epoch}; epoch=None means the latest."""
+    if epoch is None:
+        epoch = latest_epoch(run_dir)
+        if epoch is None:
+            raise FileNotFoundError(f"no checkpoints under {run_dir}")
+    path = os.path.join(run_dir, f"epoch_{epoch}")
+    with open(os.path.join(path, STATE_FILE)) as f:
+        state = json.load(f)
+    with np.load(os.path.join(path, OPT_FILE)) as d:
+        opt_state = {k: d[k] for k in d.files}
+    return {
+        "params": bridge.load_params(os.path.join(path, PARAMS_FILE)),
+        "opt_state": opt_state,
+        "rng_state": torch.from_numpy(np.load(os.path.join(path, RNG_FILE))),
+        "rng_device": state["rng_device"],
+        "epoch": int(state["epoch"]),
+    }

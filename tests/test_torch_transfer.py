@@ -126,19 +126,26 @@ def test_cli_refuses_unported_options(tmp_path):
 
 
 def test_transfer_runs_without_jax(tmp_path):
-    """The port serves in a process that never imports jax."""
+    """The port trains (the train CLI) and serves in a process that never
+    imports jax."""
     code = (
         "import sys, os, numpy as np\n"
         f"sys.path.insert(0, {os.path.join(REPO, 'tools')!r})\n"
         "import make_demo_corpus as corpus\n"
         "from midi_vae_tpu.config import small_test_config\n"
         "from midi_vae_tpu.data.tensorize import load_rolls_from_path\n"
+        "from midi_vae_tpu_torch.cli import train as train_cli\n"
         "from midi_vae_tpu_torch.evaluation.generation import GenerationContext\n"
         "from midi_vae_tpu_torch.models.vae import MidiVAE\n"
-        "cfg = small_test_config()\n"
-        "corpus.make_song(corpus.STYLES['style2'], np.random.RandomState(0), bars=6).write('s.mid')\n"
-        "song = load_rolls_from_path('s.mid', cfg)\n"
-        "ctx = GenerationContext(cfg, MidiVAE(cfg), 'cpu')\n"
+        "from midi_vae_tpu_torch.training import checkpoint as ckpt\n"
+        "os.makedirs('c/style2')\n"
+        "corpus.make_song(corpus.STYLES['style2'], np.random.RandomState(0), bars=6).write('c/style2/s.mid')\n"
+        "small = ['--set', 'bars_input_length=2', '--set', 'bars_output_length=2', '--set', 'lstm_size=16',"
+        " '--set', 'latent_dim=16', '--set', 'max_voices=2', '--set', 'batch_size=64']\n"
+        "assert train_cli.main(['--source', 'c', '--output', 'run', '--epochs', '1', '--device', 'cpu', *small]) == 0\n"
+        "cfg = ckpt.load_config('run')\n"
+        "song = load_rolls_from_path('c/style2/s.mid', cfg)\n"
+        "ctx = GenerationContext(cfg, MidiVAE(cfg, ckpt.load_params('run')), 'cpu')\n"
         "(Y, I, V, D, N), z = ctx.style_transfer_song(song.X, song.I, song.V, song.D, C=1, C_switch=0)\n"
         "assert Y.shape == (song.X.shape[0] * cfg.output_length, cfg.new_num_notes)\n"
         "assert np.isfinite(z).all() and np.isfinite(V).all()\n"
