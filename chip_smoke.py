@@ -11,7 +11,9 @@ result line):
      per source, all started together: A (csrc/gru_layer_fwd.cu), B
      (csrc/gru_decode.cu), C (csrc/gru_layer_bwd.cu), D
      (csrc/gru_decode_train.cu), E (csrc/gru_decode_bwd.cu) and W
-     (csrc/grad_reduce.cu);
+     (csrc/grad_reduce.cu), F (csrc/gru_layer_xp_fwd.cu) and G
+     (csrc/gru_layer_xp_bwd.cu); the 8-rows builds of D and E must refuse
+     H = 512 at their C entry points;
   3. kernels: A and B against their plain PyTorch versions on the card, at
      the shapes the transfer path gives them with B = 256 windows, with times
      (CUDA events, median of REPS runs);
@@ -35,7 +37,21 @@ result line):
   8. training step, card against CPU: one optimizer step's loss, metrics and
      every parameter gradient on a fixed 256-window batch with padding rows
      and numpy noise, on the card and through the plain path on the CPU;
-     prints the card's step time and note-steps/s.
+     prints the card's step time and note-steps/s;
+  9. wide kernels: the wide model (Config() with lstm_size=512) takes the
+     wide route (ops/_layout.py): F and G over the four encoder layers'
+     x-projections, the 2-rows-a-block builds of D and E on each decode head
+     alone, and W over their gate grads, against their plain versions at
+     B = 256 and B = 5, with times, and the training ops' gradients against
+     autograd; F and G also at a GRU(256) layer; A and B at H = 512 (the
+     serving path of a wide run); every build's registers and spills from
+     ptxas, and the route chooser's register table held against them;
+ 10. wide training slice: the train CLI at --set lstm_size=512 for 2 epochs,
+     --resume for a third, then the transfer CLI serves the run, with every
+     launch counter equal to the wide design;
+ 11. wide training step, card against CPU, as phase 8 at lstm_size=512;
+ 12. teacher forcing: one teacher-forced step of the default config, card
+     against CPU (the notes head's plain scan, D and E for the other heads).
 Then one JSON line with the kernels, and the final line
 {"ok": true, "device": {...}}.
 """
@@ -108,6 +124,70 @@ def phase_build():
         _build.load(name)
     secs = {k: round(v, 2) for k, v in _build.build_seconds.items()}
     print(f"[build] {time.perf_counter() - t0:.2f} s, in parallel; nvcc per library: {secs}")
+    found = check_registers()
+    check_launch_bounds()
+    return found
+
+
+# the route chooser's build letter -> (library, kernel function name)
+BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel"), "B": ("gru_decode", "gru_decode_kernel"),
+          "C": ("gru_layer_bwd", "gru_layer_bwd_kernel"),
+          "D": ("gru_decode_train", "gru_decode_train_kernel"),
+          "E": ("gru_decode_bwd", "gru_decode_bwd_kernel"),
+          "F": ("gru_layer_xp_fwd", "gru_layer_xp_fwd_kernel"),
+          "G": ("gru_layer_xp_bwd", "gru_layer_xp_bwd_kernel"),
+          "D_wide": ("gru_decode_train", "gru_decode_train_wide_kernel"),
+          "E_wide": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel"),
+          "W": ("grad_reduce", "grad_reduce")}
+
+
+def check_registers():
+    """Registers and spills of every build from ptxas (largest over a
+    kernel's template instances); the route chooser's table must not count
+    fewer registers than the builds use, and the launch-bounded builds must
+    fit 512 threads."""
+    from midi_vae_tpu_torch.ops import _build, _layout
+
+    found = {}
+    for letter, (lib, fn) in BUILDS.items():
+        entries = [v for k, v in _build.ptxas_report.get(lib, {}).items()
+                   if f"{len(fn)}{fn}" in k or (letter == "W" and fn in k)]
+        if not entries:
+            raise RuntimeError(f"no ptxas report for kernel {letter} ({fn} in lib{lib}.so)")
+        found[letter] = {"registers": max(e["registers"] for e in entries),
+                         "spill_bytes": max(e.get("spill_stores", 0) for e in entries)}
+    for letter, regs in _layout.REGISTERS.items():
+        if found[letter]["registers"] > regs:
+            raise RuntimeError(f"kernel {letter} uses {found[letter]['registers']} registers, the "
+                               f"route chooser counts {regs} (ops/_layout.py REGISTERS)")
+    for letter in _layout.BOUNDED:
+        if found[letter]["registers"] * _layout.WIDE_THREADS > _layout.REGS_PER_SM:
+            raise RuntimeError(f"kernel {letter}: {found[letter]} does not fit 512 threads")
+    print("[build] registers (spill bytes) per thread: " + ", ".join(
+        f"{k} {v['registers']} ({v['spill_bytes']})" for k, v in found.items()))
+    return found
+
+
+def check_launch_bounds():
+    """The C entry points of the 8-rows builds of D and E refuse H = 512,
+    whose registers allow at most 384 threads a block, before any launch
+    (cudaErrorLaunchOutOfResources), as the route chooser says."""
+    import ctypes
+
+    from midi_vae_tpu_torch.ops import _layout, gru_decode
+
+    out_of_resources = 701  # cudaErrorLaunchOutOfResources
+    for letter, kernel, struct in (("D", gru_decode._fwd_kernel, gru_decode._DecodeHead),
+                                   ("E", gru_decode._bwd_kernel, gru_decode._DecodeHeadBwd)):
+        if _layout.launch_limit(letter, 512, _layout.smem_bytes(letter, 512, 61, 2)) is None:
+            raise RuntimeError(f"the route chooser lets kernel {letter} launch at H = 512")
+        head = struct(D=61, n_layers=2, out_act=gru_decode.OUT_ACTIVATIONS["softmax"], T=64)
+        _, fn = kernel(False)
+        rc = fn(ctypes.byref(head), 1, B, 512, None)
+        if rc != out_of_resources:
+            raise RuntimeError(f"kernel {letter} (8 rows) at H = 512 returned {rc}, "
+                               f"not {out_of_resources} (cudaErrorLaunchOutOfResources)")
+    print("[build] D and E (8 rows) refuse H = 512 at their C entry points")
 
 
 def random_batch(cfg, n, seed):
@@ -234,9 +314,10 @@ def phase_kernels():
     return results
 
 
-def _decode_train_heads(cfg, dec, new_encoded, rows, dev):
-    """The training decode calls of the default config: the notes + velocity
-    multi-head and the instrument head, as lists of head dicts (detached)."""
+def _decode_train_heads(cfg, dec, new_encoded, rows, dev, wide=False):
+    """The training decode calls of the default config as lists of head
+    dicts (detached): the notes + velocity multi-head and the instrument
+    head, or with ``wide`` each head on its own."""
     import torch
 
     from midi_vae_tpu_torch.models.rnn import init_decoder_states
@@ -250,12 +331,120 @@ def _decode_train_heads(cfg, dec, new_encoded, rows, dev):
                 "init": [s[0].detach() for s in states], "start": torch.zeros(rows, d, device=dev),
                 "T": T, "out_activation": out_act}
 
-    return {
-        "multihead": [head("notes", cfg.output_dim, cfg.output_length, cfg.activation),
-                      head("velocity", 1, cfg.meta_velocity_length, cfg.meta_velocity_activation)],
-        "instrument": [head("instrument", cfg.meta_instrument_dim, cfg.meta_instrument_length,
-                            cfg.meta_instrument_activation)],
-    }
+    notes = head("notes", cfg.output_dim, cfg.output_length, cfg.activation)
+    velocity = head("velocity", 1, cfg.meta_velocity_length, cfg.meta_velocity_activation)
+    instrument = head("instrument", cfg.meta_instrument_dim, cfg.meta_instrument_length,
+                      cfg.meta_instrument_activation)
+    if wide:
+        return {"notes": [notes], "velocity": [velocity], "instrument": [instrument]}
+    return {"multihead": [notes, velocity], "instrument": [instrument]}
+
+
+def plain_weight_grads(x, hprev, rh, da):
+    """dW, db, dU of one GRU cell through the plain version of W."""
+    import torch
+
+    from midi_vae_tpu_torch.ops.grad_reduce import grad_reduce_reference
+
+    H = hprev.shape[-1]
+    n = x.shape[0] * x.shape[1]
+    da = da.reshape(n, 3 * H)
+    dw, db = grad_reduce_reference(x.reshape(n, -1), da, True)
+    return (dw, db, torch.cat([grad_reduce_reference(hprev.reshape(n, H), da[:, : 2 * H])[0],
+                               grad_reduce_reference(rh.reshape(n, H), da[:, 2 * H :])[0]], 1))
+
+
+def check_decode_calls(calls, gen, run, timed, results, wide):
+    """Kernel D and E (their wide builds when ``wide``) on each call's list of
+    head dicts against their plain versions, W over each head's products, and
+    D + E + W against autograd through the plain decode."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+    from midi_vae_tpu_torch.ops.grad_reduce import (
+        grad_reduce,
+        grad_reduce_reference,
+        gru_weight_grads,
+    )
+
+    fwd = gd.gru_decode_fwd_train_wide if wide else gd.gru_decode_fwd_train
+    bwd = gd.gru_decode_bwd_wide if wide else gd.gru_decode_bwd
+    d_name, e_name = ("D wide", "E wide") if wide else ("D", "E")
+    d_key, e_key, w_key = (("gru_decode_train_wide", "gru_decode_bwd_wide", "grad_reduce_wide")
+                           if wide else ("gru_decode_train", "gru_decode_bwd", "grad_reduce"))
+    dev = torch.device("cuda")
+    rows = next(iter(calls.values()))[0]["start"].shape[0]
+    for call, heads in calls.items():
+        desc = " + ".join(f"{len(h['cells'])}L D={h['start'].shape[1]} T={h['T']} {h['out_activation']}"
+                          for h in heads)
+        limits = [lim for h in heads for lim in [H_ATOL, LOGITS_ATOL] + [H_ATOL] * len(h["cells"])]
+        fwd_flat = lambda outs: tuple(t for p, l, hs in outs for t in (p, l, *hs))  # noqa: E731
+        out = run(f"{d_name} {call} ({desc})", lambda h=heads: fwd_flat(fwd(h)),
+                  lambda h=heads: fwd_flat([gd.gru_decode_train_reference(
+                      x["cells"], x["out"], x["init"], x["start"], x["T"], x["out_activation"])
+                      for x in h]), limits)
+        if timed:
+            results[d_key][call] = out
+        with torch.no_grad():
+            for h in heads:
+                h["probs"], _l, h["h_seqs"] = gd.gru_decode_train_reference(
+                    h["cells"], h["out"], h["init"], h["start"], h["T"], h["out_activation"])
+                h["g_probs"] = torch.randn(h["probs"].shape, generator=gen, device=dev)
+                h["g_logits"] = torch.randn(h["probs"].shape, generator=gen, device=dev)
+        bwd_flat = lambda outs: tuple(t for o in outs for t in (  # noqa: E731
+            o["dlogits"], *o["da"], *o["rh"], *o["d_init"], o["d_start"]))
+        limits = [lim for h in heads for lim in
+                  [rel] + [rel] * len(h["cells"]) + [H_ATOL] * len(h["cells"])
+                  + [rel] * len(h["cells"]) + [rel]]
+        out = run(f"{e_name} {call}", lambda h=heads: bwd_flat(bwd(h)),
+                  lambda h=heads: bwd_flat([gd.gru_decode_bwd_reference(
+                      x["cells"], x["out"], x["init"], x["start"], x["probs"], x["h_seqs"],
+                      x["g_probs"], x["g_logits"], x["out_activation"]) for x in h]), limits)
+        if timed:
+            results[e_key][call] = out
+        # W over one head's products: dWo, dbo and each cell's dW, db, dU
+        for k, h in enumerate(heads):
+            g = gd.gru_decode_bwd_reference(h["cells"], h["out"], h["init"], h["start"], h["probs"],
+                                            h["h_seqs"], h["g_probs"], h["g_logits"], h["out_activation"])
+            n, H, D = h["T"] * rows, h["init"][0].shape[1], h["start"].shape[1]
+            top, dl = h["h_seqs"][-1].reshape(n, H), g["dlogits"].reshape(n, D)
+            wsets = [(top, dl, None, None)] + [
+                (h["h_seqs"][i - 1] if i else torch.cat([h["start"][None], h["probs"][:-1]]),
+                 torch.cat([h["init"][i][None], h["h_seqs"][i][:-1]]), g["rh"][i], g["da"][i])
+                for i in range(len(h["cells"]))]
+
+            def kernel_w(ws=wsets):
+                a, d, _, _ = ws[0]
+                dwo = torch.empty(a.shape[1], d.shape[1], device=dev)
+                dbo = torch.empty(d.shape[1], device=dev)
+                grad_reduce(a, d, dwo, dbo)
+                return (dwo, dbo, *(t for x, hp, rh, da in ws[1:]
+                                    for t in gru_weight_grads(x, hp, rh, da)))
+
+            def plain_w(ws=wsets):
+                a, d, _, _ = ws[0]
+                return (*grad_reduce_reference(a, d, True),
+                        *(t for x, hp, rh, da in ws[1:] for t in plain_weight_grads(x, hp, rh, da)))
+
+            nw = 2 + 3 * len(h["cells"])
+            out = run(f"W {call} head {k}", kernel_w, plain_w, [rel] * nw)
+            if timed:
+                results[w_key][f"decode {call} head {k}"] = out
+        # D + E + W against autograd through the plain decode
+        leaves = [[t.clone().requires_grad_() for t in gd._flatten_head(h)] for h in heads]
+        lheads = [dict(h, **gd._unflatten_heads([(len(h["cells"]), h["out_activation"], h["T"])],
+                                                 lv)[0]) for h, lv in zip(heads, leaves)]
+        wanted = [t for lv in leaves for t in lv]
+
+        def functional(outs):
+            return sum((p * h["g_probs"]).sum() + (lg * h["g_logits"]).sum()
+                       for (p, lg), h in zip(outs, heads))
+
+        got = torch.autograd.grad(functional(gd._decode_heads_train(lheads, wide)), wanted)
+        want = torch.autograd.grad(functional([gd.gru_decode_train_reference(
+            h["cells"], h["out"], h["init"], h["start"], h["T"], h["out_activation"])[:2]
+            for h in lheads]), wanted)
+        check(f"{d_name}+{e_name}+W grads {call} B={rows}", lambda: got, lambda: want, [rel] * len(want))
 
 
 def phase_train_kernels():
@@ -268,13 +457,8 @@ def phase_train_kernels():
 
     from midi_vae_tpu.config import Config
     from midi_vae_tpu_torch.models.vae import MidiVAE
-    from midi_vae_tpu_torch.ops import gru_decode as gd
     from midi_vae_tpu_torch.ops import gru_layer as gl
-    from midi_vae_tpu_torch.ops.grad_reduce import (
-        grad_reduce,
-        grad_reduce_reference,
-        gru_weight_grads,
-    )
+    from midi_vae_tpu_torch.ops.grad_reduce import gru_weight_grads
 
     cfg = Config()
     dev = torch.device("cuda")
@@ -282,16 +466,9 @@ def phase_train_kernels():
     enc, dec = model.params["encoder"], model.params["decoder"]
     gen = torch.Generator(device=dev).manual_seed(0)
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
-    results = {"gru_layer_bwd": {}, "gru_decode_train": {}, "gru_decode_bwd": {}, "grad_reduce": {}}
+    results = {"gru_layer_bwd": {}, "gru_decode_train": {}, "gru_decode_bwd": {},
+               "grad_reduce": {}}
     flat = lambda outs: [t for t in outs if t is not None]  # noqa: E731
-
-    def plain_weight_grads(x, hprev, rh, da):
-        H = hprev.shape[-1]
-        n = x.shape[0] * x.shape[1]
-        da = da.reshape(n, 3 * H)
-        dw, db = grad_reduce_reference(x.reshape(n, -1), da, True)
-        return (dw, db, torch.cat([grad_reduce_reference(hprev.reshape(n, H), da[:, : 2 * H])[0],
-                                   grad_reduce_reference(rh.reshape(n, H), da[:, 2 * H :])[0]], 1))
 
     for rows in (B, RAGGED):
         timed = rows == B
@@ -336,78 +513,130 @@ def phase_train_kernels():
         with torch.no_grad():
             z = model.encode(batch)
         new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
-        for call, heads in _decode_train_heads(cfg, dec, new_encoded, rows, dev).items():
-            desc = " + ".join(f"{len(h['cells'])}L D={h['start'].shape[1]} T={h['T']} {h['out_activation']}"
-                              for h in heads)
-            limits = [lim for h in heads for lim in [H_ATOL, LOGITS_ATOL] + [H_ATOL] * len(h["cells"])]
-            fwd_flat = lambda outs: tuple(t for p, l, hs in outs for t in (p, l, *hs))  # noqa: E731
-            out = run(f"D {call} ({desc})", lambda h=heads: fwd_flat(gd.gru_decode_fwd_train(h)),
-                      lambda h=heads: fwd_flat([gd.gru_decode_train_reference(
-                          x["cells"], x["out"], x["init"], x["start"], x["T"], x["out_activation"])
-                          for x in h]), limits)
-            if timed:
-                results["gru_decode_train"][call] = out
-            with torch.no_grad():
-                for h in heads:
-                    h["probs"], _l, h["h_seqs"] = gd.gru_decode_train_reference(
-                        h["cells"], h["out"], h["init"], h["start"], h["T"], h["out_activation"])
-                    h["g_probs"] = torch.randn(h["probs"].shape, generator=gen, device=dev)
-                    h["g_logits"] = torch.randn(h["probs"].shape, generator=gen, device=dev)
-            bwd_flat = lambda outs: tuple(t for o in outs for t in (  # noqa: E731
-                o["dlogits"], *o["da"], *o["rh"], *o["d_init"], o["d_start"]))
-            limits = [lim for h in heads for lim in
-                      [rel] + [rel] * len(h["cells"]) + [H_ATOL] * len(h["cells"])
-                      + [rel] * len(h["cells"]) + [rel]]
-            out = run(f"E {call}", lambda h=heads: bwd_flat(gd.gru_decode_bwd(h)),
-                      lambda h=heads: bwd_flat([gd.gru_decode_bwd_reference(
-                          x["cells"], x["out"], x["init"], x["start"], x["probs"], x["h_seqs"],
-                          x["g_probs"], x["g_logits"], x["out_activation"]) for x in h]), limits)
-            if timed:
-                results["gru_decode_bwd"][call] = out
-            # W over one head's products: dWo, dbo and each cell's dW, db, dU
-            for k, h in enumerate(heads):
-                g = gd.gru_decode_bwd_reference(h["cells"], h["out"], h["init"], h["start"], h["probs"],
-                                                h["h_seqs"], h["g_probs"], h["g_logits"], h["out_activation"])
-                n, H, D = h["T"] * rows, cfg.lstm_size, h["start"].shape[1]
-                top, dl = h["h_seqs"][-1].reshape(n, H), g["dlogits"].reshape(n, D)
-                wsets = [(top, dl, None, None)] + [
-                    (h["h_seqs"][i - 1] if i else torch.cat([h["start"][None], h["probs"][:-1]]),
-                     torch.cat([h["init"][i][None], h["h_seqs"][i][:-1]]), g["rh"][i], g["da"][i])
-                    for i in range(len(h["cells"]))]
-
-                def kernel_w(ws=wsets):
-                    a, d, _, _ = ws[0]
-                    dwo = torch.empty(a.shape[1], d.shape[1], device=dev)
-                    dbo = torch.empty(d.shape[1], device=dev)
-                    grad_reduce(a, d, dwo, dbo)
-                    return (dwo, dbo, *(t for x, hp, rh, da in ws[1:]
-                                        for t in gru_weight_grads(x, hp, rh, da)))
-
-                def plain_w(ws=wsets):
-                    a, d, _, _ = ws[0]
-                    return (*grad_reduce_reference(a, d, True),
-                            *(t for x, hp, rh, da in ws[1:] for t in plain_weight_grads(x, hp, rh, da)))
-
-                nw = 2 + 3 * len(h["cells"])
-                out = run(f"W {call} head {k}", kernel_w, plain_w, [rel] * nw)
-                if timed:
-                    results["grad_reduce"][f"decode {call} head {k}"] = out
-            # D + E + W against autograd through the plain decode
-            leaves = [[t.clone().requires_grad_() for t in gd._flatten_head(h)] for h in heads]
-            lheads = [dict(h, **gd._unflatten_heads([(len(h["cells"]), h["out_activation"], h["T"])],
-                                                     lv)[0]) for h, lv in zip(heads, leaves)]
-            wanted = [t for lv in leaves for t in lv]
-
-            def functional(outs):
-                return sum((p * h["g_probs"]).sum() + (lg * h["g_logits"]).sum()
-                           for (p, lg), h in zip(outs, heads))
-
-            got = torch.autograd.grad(functional(gd._decode_heads_train(lheads)), wanted)
-            want = torch.autograd.grad(functional([gd.gru_decode_train_reference(
-                h["cells"], h["out"], h["init"], h["start"], h["T"], h["out_activation"])[:2]
-                for h in lheads]), wanted)
-            check(f"D+E+W grads {call} B={rows}", lambda: got, lambda: want, [rel] * len(want))
+        check_decode_calls(_decode_train_heads(cfg, dec, new_encoded, rows, dev), gen, run, timed,
+                           results, wide=False)
     print(f"[kernels] C, D, E, W and the training ops' gradients also agree at B = {RAGGED}")
+    return results
+
+
+def phase_wide_kernels():
+    """The wide route at the wide model's shapes (Config() with
+    lstm_size=512): F and G over the four encoder layers' x-projections (xp =
+    x @ W + b, as the model computes it), W for their dU, the wide builds of
+    D and E on each decode head alone, at B = 256 (timed) and B = 5, each
+    against its plain version, and F + G + W and D + E + W against autograd
+    through the plain forward. Then F and G at a GRU(256) layer, and A and B
+    at H = 512: the serving path of a wide run."""
+    import torch
+
+    from midi_vae_tpu.config import Config
+    from midi_vae_tpu_torch.models.rnn import init_decoder_states
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+    from midi_vae_tpu_torch.ops.grad_reduce import grad_reduce_reference, gru_u_grad
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    results = {k: {} for k in ("gru_layer_xp_fwd", "gru_layer_xp_bwd", "gru_decode_train_wide",
+                               "gru_decode_bwd_wide", "grad_reduce_wide", "xp_h256_fwd",
+                               "xp_h256_bwd", "gru_layer_512", "gru_decode_512")}
+
+    def plain_u(hprev, rh, da):
+        n, H = hprev.shape[0] * hprev.shape[1], hprev.shape[-1]
+        da = da.reshape(n, 3 * H)
+        return torch.cat([grad_reduce_reference(hprev.reshape(n, H), da[:, : 2 * H])[0],
+                          grad_reduce_reference(rh.reshape(n, H), da[:, 2 * H :])[0]], 1)
+
+    def layer_checks(tag, x, p, rs, rows, run, fwd_key, bwd_key, w_key):
+        """F, G, W (dU) and F + G + W against autograd on one layer."""
+        w, b, u = (p[k].detach() for k in "wbu")
+        T, H = x.shape[0], u.shape[0]
+        h0 = torch.zeros(rows, H, device=dev)
+        with torch.no_grad():
+            xp = (x.reshape(T * rows, -1) @ w + b).reshape(T, rows, 3 * H)
+            seq = gl.gru_layer_xp_reference(xp, h0, u)
+        out = run(f"F {tag} xp{tuple(xp.shape)}", lambda: gl.gru_layer_xp(xp, h0, u),
+                  lambda: gl.gru_layer_xp_reference(xp, h0, u), [H_ATOL])
+        if fwd_key:
+            results[fwd_key][tag] = out
+        g = torch.randn(seq.shape if rs else seq.shape[1:], generator=gen, device=dev)
+        args = (xp, seq, h0, g if rs else None, None if rs else g, u)
+        # dxp, dh0: gradients; r*h a forward value
+        out = run(f"G {tag} rs={rs}", lambda: gl.gru_layer_xp_bwd(*args),
+                  lambda: gl.gru_layer_xp_bwd_reference(*args), [rel, rel, H_ATOL])
+        if bwd_key:
+            results[bwd_key][tag] = out
+        da, _dh0, rh = gl.gru_layer_xp_bwd_reference(*args)
+        hprev = torch.cat([h0[None], seq[:-1]])
+        out = run(f"W {tag} dU", lambda: gru_u_grad(hprev, rh, da), lambda: plain_u(hprev, rh, da),
+                  [rel])
+        if w_key:
+            results[w_key][f"encoder {tag}"] = out
+        leaves = [t.clone().requires_grad_() for t in (xp, h0, u)]
+        got = torch.autograd.grad(gl.gru_layer_train(*leaves, rs), leaves, g)
+        plain = gl.gru_layer_xp_reference(*leaves)
+        want = torch.autograd.grad(plain if rs else plain[-1], leaves, g)
+        check(f"F+G+W grads {tag} B={rows}", lambda: got, lambda: want, [rel] * 3)
+        return seq
+
+    for H in (512, 256):
+        cfg = Config(lstm_size=H)
+        model = MidiVAE(cfg).to(dev)
+        enc, dec = model.params["encoder"], model.params["decoder"]
+        for rows in (B, RAGGED):
+            timed = rows == B
+            run = compare if timed else check
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in random_batch(cfg, rows, 6).items()}
+            if H == 256:  # rows 9 and 10: F and G at a GRU(256) layer
+                seq = layer_checks("h256 notes_l1", tm(batch["X"]), enc["notes_rnn"][0], True, rows,
+                                   run, "xp_h256_fwd" if timed else None,
+                                   "xp_h256_bwd" if timed else None, None)
+                layer_checks("h256 notes_l2", seq, enc["notes_rnn"][1], False, rows, run,
+                             "xp_h256_fwd" if timed else None, "xp_h256_bwd" if timed else None,
+                             None)
+                continue
+            keys = ("gru_layer_xp_fwd", "gru_layer_xp_bwd", "grad_reduce_wide") if timed else (
+                None, None, None)
+            seq = layer_checks("notes_l1", tm(batch["X"]), enc["notes_rnn"][0], True, rows, run,
+                               *keys)
+            layer_checks("notes_l2", seq, enc["notes_rnn"][1], False, rows, run, *keys)
+            layer_checks("instrument", tm(batch["I"]), enc["inst_rnn"][0], False, rows, run, *keys)
+            layer_checks("velocity", tm(batch["V"]), enc["vel_rnn"][0], False, rows, run, *keys)
+            with torch.no_grad():
+                z = model.encode(batch)
+            new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
+            check_decode_calls(_decode_train_heads(cfg, dec, new_encoded, rows, dev, wide=True), gen,
+                               run, timed, results, wide=True)
+            # the serving kernels at H = 512: A on the encoder layers, B on the heads
+            with torch.inference_mode():
+                h0 = torch.zeros(rows, H, device=dev)
+                for name, x, p, rs in (("notes_l1", tm(batch["X"]), enc["notes_rnn"][0], True),
+                                       ("notes_l2", seq, enc["notes_rnn"][1], False),
+                                       ("instrument", tm(batch["I"]), enc["inst_rnn"][0], False),
+                                       ("velocity", tm(batch["V"]), enc["vel_rnn"][0], False)):
+                    args = (x, h0, p["w"], p["b"], p["u"], "tanh", rs)
+                    out = run(f"A H={H} {name} rs={rs}", lambda a=args: gl.gru_layer(*a),
+                              lambda a=args: gl.gru_layer_reference(*a), [H_ATOL])
+                    if timed:
+                        results["gru_layer_512"][name] = out
+                for name, d, T, out_act in (
+                        ("notes", cfg.output_dim, cfg.output_length, cfg.activation),
+                        ("velocity", 1, cfg.meta_velocity_length, cfg.meta_velocity_activation),
+                        ("instrument", cfg.meta_instrument_dim, cfg.meta_instrument_length,
+                         cfg.meta_instrument_activation)):
+                    h = dec[name]
+                    states = [s[0] for s in init_decoder_states(h["init"], new_encoded, cfg.cell_type,
+                                                                cfg.lstm_state_activation)]
+                    args = (list(h["cells"]), h["out"], states, torch.zeros(rows, d, device=dev), T,
+                            "tanh", out_act)
+                    out = run(f"B H={H} {name}", lambda a=args: gd.gru_decode(*a),
+                              lambda a=args: gd.gru_decode_reference(*a), [H_ATOL, LOGITS_ATOL])
+                    if timed:
+                        results["gru_decode_512"][name] = out
+    print(f"[wide kernels] F, G, the wide D and E, W, A and B at H = 512 and F, G at H = 256 also "
+          f"agree at B = {RAGGED}")
     return results
 
 
@@ -467,15 +696,30 @@ def phase_slice(work):
     return launches
 
 
-# launches per call of the default Config() on the training path: the four
-# encoder layers (notes x 2, instrument, velocity) and the two decode calls
-# (notes + velocity multi-head, instrument); W reduces 3 products per GRU
-# cell (4 encoder + 2 notes + 1 velocity + 1 instrument) and 1 per head's
-# output dense (3)
-PER_TRAIN_STEP = {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_decode_train": 2,
-                  "gru_decode_bwd": 2, "grad_reduce": 27, "gru_decode": 0}
-PER_EVAL_BATCH = {"gru_layer_fwd": 4, "gru_decode_train": 2}  # forward only
-PER_ENCODE_BATCH = {"gru_layer_fwd": 4}  # the history pass (serving encoder)
+# launches per call of the default Config() on the training path, per route
+# (ops/_layout.py): the four encoder layers (notes x 2, instrument, velocity)
+# and the decode calls; W reduces per GRU cell 3 products on the narrow route
+# (dW, db with dU[:, :2H]; dU[:, 2H:]) and 2 on the wide one (dU only: dW and
+# db are autograd over xp = x @ W + b), and 1 per head's output dense
+PER_TRAIN_STEP = {
+    # A + C per layer; notes + velocity multi-head and the instrument head;
+    # W: 3 x (4 encoder + 2 notes + 1 velocity + 1 instrument cells) + 3
+    "narrow": {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_decode_train": 2,
+               "gru_decode_bwd": 2, "grad_reduce": 27},
+    # F + G per layer; each head alone; W: 2 x 4 + 3 x 4 decode cells + 3
+    "wide": {"gru_layer_xp_fwd": 4, "gru_layer_xp_bwd": 4, "gru_decode_train_wide": 3,
+             "gru_decode_bwd_wide": 3, "grad_reduce": 23},
+}
+PER_EVAL_BATCH = {  # forward only
+    "narrow": {"gru_layer_fwd": 4, "gru_decode_train": 2},
+    "wide": {"gru_layer_xp_fwd": 4, "gru_decode_train_wide": 3},
+}
+PER_ENCODE_BATCH = {"gru_layer_fwd": 4}  # the history pass (serving encoder, kernel A)
+# one teacher-forced step of the default config: the notes head is a plain
+# scan over its ground truth, velocity and instrument are decoded alone
+PER_TF_STEP = {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_decode_train": 2,
+               "gru_decode_bwd": 2, "grad_reduce": 20}
+PER_SONG_TRANSFER = {"gru_layer_fwd": 4, "gru_decode": 3}  # encode 4 layers, decode 3 heads
 
 
 def train_counters():
@@ -485,7 +729,10 @@ def train_counters():
 
     return {"gru_layer_fwd": gl.gru_layer, "gru_decode": gd.gru_decode,
             "gru_layer_bwd": gl.gru_layer_bwd, "gru_decode_train": gd.gru_decode_fwd_train,
-            "gru_decode_bwd": gd.gru_decode_bwd, "grad_reduce": grad_reduce}
+            "gru_decode_bwd": gd.gru_decode_bwd, "grad_reduce": grad_reduce,
+            "gru_layer_xp_fwd": gl.gru_layer_xp, "gru_layer_xp_bwd": gl.gru_layer_xp_bwd,
+            "gru_decode_train_wide": gd.gru_decode_fwd_train_wide,
+            "gru_decode_bwd_wide": gd.gru_decode_bwd_wide}
 
 
 def reset_counters():
@@ -494,10 +741,11 @@ def reset_counters():
 
 
 def read_counters():
-    return {name: fn.launches for name, fn in train_counters().items()}
+    """The counters that moved (a kernel absent from the dict ran 0 times)."""
+    return {name: fn.launches for name, fn in train_counters().items() if fn.launches}
 
 
-def expected_train_launches(cfg, n_train, n_test, epochs):
+def expected_train_launches(cfg, route, n_train, n_test, epochs):
     """Launches of fit() over ``epochs`` (host loop: a history encode pass
     over the train split from epoch 1 on, test evaluation every epoch with
     its own history pass)."""
@@ -510,20 +758,27 @@ def expected_train_launches(cfg, n_train, n_test, epochs):
         if n_test and e % cfg.test_step == 0:
             encodes += n_test_batches
             evals += n_test_batches
-    return {name: per * steps + PER_EVAL_BATCH.get(name, 0) * evals
-            + PER_ENCODE_BATCH.get(name, 0) * encodes for name, per in PER_TRAIN_STEP.items()}
+    want = {}
+    for table, times in ((PER_TRAIN_STEP[route], steps), (PER_EVAL_BATCH[route], evals),
+                         (PER_ENCODE_BATCH, encodes)):
+        for name, per in table.items():
+            if per * times:
+                want[name] = want.get(name, 0) + per * times
+    return want
 
 
-def phase_train_slice(work):
-    """The train CLI at full width on an authored corpus: 2 epochs, then
-    --resume for a third, then the transfer CLI serves the run."""
+def phase_train_slice(work, sets=()):
+    """The train CLI at full width (``sets``: its --set overrides) on an
+    authored corpus: 2 epochs, then --resume for a third, then the transfer
+    CLI serves the run."""
     import numpy as np
 
-    from midi_vae_tpu.config import Config
+    from midi_vae_tpu.config import Config, parse_overrides
     from midi_vae_tpu.data import smf
     from midi_vae_tpu.data.batching import flatten_dataset
     from midi_vae_tpu_torch.cli import train as train_cli
     from midi_vae_tpu_torch.cli import transfer
+    from midi_vae_tpu_torch.ops import _layout
     from midi_vae_tpu_torch.training import checkpoint as ckpt
 
     sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -536,9 +791,13 @@ def phase_train_slice(work):
         for i in range(10):  # about 290 train windows: a full batch of 256 and a padded one
             corpus.make_song(corpus.STYLES[style], rng).write(os.path.join(source, style, f"{style}_{i}.mid"))
     run, cache = os.path.join(work, "train_run"), os.path.join(work, "cache")
-    cfg = Config()
+    cfg = Config(**parse_overrides(list(sets)))
+    route = _layout.config_route(cfg)
+    tag = f"H={cfg.lstm_size}, {route} route"
     train, test, _, _ = flatten_dataset(train_cli.import_corpus(source, cfg, cache), cfg)
     args = ["--source", source, "--output", run, "--cache", cache, "--device", "cuda"]
+    for kv in sets:
+        args += ["--set", kv]
     results = {}
     for label, extra, epochs in (("2 epochs", ["--epochs", "2"], range(0, 2)),
                                  ("resume", ["--epochs", "3", "--resume"], range(2, 3))):
@@ -549,7 +808,7 @@ def phase_train_slice(work):
         launches = read_counters()
         if rc != 0:
             raise RuntimeError(f"train CLI ({label}) returned {rc}")
-        want = expected_train_launches(cfg, train.num_windows, test.num_windows, epochs)
+        want = expected_train_launches(cfg, route, train.num_windows, test.num_windows, epochs)
         if launches != want:
             raise RuntimeError(f"train CLI ({label}): launch counters {launches}, expected {want}")
         with open(os.path.join(run, "history.json")) as f:
@@ -560,37 +819,41 @@ def phase_train_slice(work):
         if ckpt.latest_epoch(run) != epochs.stop - 1:
             raise RuntimeError(f"train CLI ({label}): latest checkpoint {ckpt.latest_epoch(run)}")
         results[label] = launches
-        print(f"[train] CLI {label}: {train.num_windows} train / {test.num_windows} test windows, "
+        print(f"[train] CLI {label} ({tag}): {train.num_windows} train / {test.num_windows} test windows, "
               f"{secs:.2f} s; train losses {[round(x, 4) for x in losses[:epochs.stop]]}; "
               f"launches {launches} (as designed)")
     out = os.path.join(work, "train_out")
     song = os.path.join(source, "style1", "style1_0.mid")
+    reset_counters()
     rc = transfer.main(["--model", run, "--input", song, "--to-class", "style2", "--output", out,
                         "--device", "cuda"])
     if rc != 0:
         raise RuntimeError(f"the transfer CLI returned {rc} on the trained run")
+    if read_counters() != PER_SONG_TRANSFER:
+        raise RuntimeError(f"serving the trained run launched {read_counters()}, expected "
+                           f"{PER_SONG_TRANSFER}")
     # a model 3 epochs old predicts mostly the silent note: the song must be
     # written and parse back, its notes may be few
     mid = smf.read_midi(os.path.join(out, "style1_0_style1_to_style2.mid"))
     notes = sum(len(inst.notes) for inst in mid.instruments)
-    print(f"[train] the transfer CLI served the trained run (epoch 2 params): a .mid that parses "
-          f"back, {len(mid.instruments)} instruments, {notes} notes")
+    print(f"[train] the transfer CLI served the trained run ({tag}, epoch 2 params): a .mid that "
+          f"parses back, {len(mid.instruments)} instruments, {notes} notes; launches "
+          f"{PER_SONG_TRANSFER}")
     return results["2 epochs"]
 
 
-def phase_train_card_vs_cpu(smi):
-    """One training step on a fixed batch with padding rows and numpy noise:
-    loss, metrics and every parameter gradient, card against the CPU plain
-    path; then the card's step time."""
+def phase_train_card_vs_cpu(smi, cfg, per_step, label):
+    """One training step of ``cfg`` on a fixed batch with padding rows and
+    numpy noise: loss, metrics and every parameter gradient, card against the
+    CPU plain path, with the card's launch counters equal to ``per_step``;
+    then the card's step time."""
     import numpy as np
     import torch
 
-    from midi_vae_tpu.config import Config
     from midi_vae_tpu_torch.models.vae import MidiVAE
     from midi_vae_tpu_torch.tools.profile_train import random_train_batch
     from midi_vae_tpu_torch.training.trainer import VAETrainer
 
-    cfg = Config()
     params = MidiVAE(cfg).init_params(np.array([0, cfg.seed], np.uint32))
     batch = random_train_batch(cfg, B, 4, valid=B - 6)
     noise = (cfg.epsilon_std * np.random.RandomState(5).randn(B, cfg.latent_dim)).astype(np.float32)
@@ -604,8 +867,8 @@ def phase_train_card_vs_cpu(smi):
         if device == "cuda":
             torch.cuda.synchronize()
             launches = read_counters()
-            if launches != PER_TRAIN_STEP:
-                raise RuntimeError(f"one step launched {launches}, expected {PER_TRAIN_STEP}")
+            if launches != per_step:
+                raise RuntimeError(f"{label}: one step launched {launches}, expected {per_step}")
         got[device] = (loss.item(), {k: v.item() for k, v in metrics.items()},
                        [g.cpu() for g in grads], state.opt_state.names)
     (gl, gm, gg, names), (cl, cm, cg, _) = got["cuda"], got["cpu"]
@@ -614,17 +877,17 @@ def phase_train_card_vs_cpu(smi):
         errs[k] = abs(gm[k] - v)
         limit = ACC_ATOL if k.endswith("_acc") else LOSS_ATOL
         if not (np.isfinite(gm[k]) and errs[k] <= limit):
-            raise RuntimeError(f"train step metric {k}: card {gm[k]}, CPU {v}, limit {limit}")
+            raise RuntimeError(f"{label} metric {k}: card {gm[k]}, CPU {v}, limit {limit}")
     worst = (0.0, "")
     for name, g, c in zip(names, gg, cg):
         limit = STEP_GRAD_RTOL * c.abs().max().item() + STEP_GRAD_ATOL
         err = (g - c).abs().max().item()
         if not (torch.isfinite(g).all() and err <= limit):
-            raise RuntimeError(f"train step grad {name}: max|card - CPU| {err:.3e} > {limit:.3e}")
+            raise RuntimeError(f"{label} grad {name}: max|card - CPU| {err:.3e} > {limit:.3e}")
         worst = max(worst, (err / limit, name))
-    print(f"[train card vs cpu] one step, {B} windows ({B - 6} valid): |dloss| {errs['loss']:.3e}, "
-          f"max |dmetric| {max(errs.values()):.3e}; all {len(names)} gradients within limits "
-          f"(closest: {worst[1]} at {worst[0]:.3f} of its limit); launches {PER_TRAIN_STEP}")
+    print(f"[{label} card vs cpu] one step, {B} windows ({B - 6} valid): |dloss| "
+          f"{errs['loss']:.3e}, max |dmetric| {max(errs.values()):.3e}; all {len(names)} gradients "
+          f"within limits (closest: {worst[1]} at {worst[0]:.3f} of its limit); launches {per_step}")
 
     trainer = VAETrainer(cfg, "cuda")
     state = trainer.new_state(params)
@@ -633,9 +896,10 @@ def phase_train_card_vs_cpu(smi):
         trainer.train_step(state, tb)
     ms = median_ms(lambda: trainer.train_step(state, tb))
     steps = B * cfg.output_length
-    print(f"[train card vs cpu] training step on the card {ms:.3f} ms (median of {REPS}, CUDA "
+    print(f"[{label} card vs cpu] training step on the card {ms:.3f} ms (median of {REPS}, CUDA "
           f"events) = {steps / ms * 1e3:.1f} note-steps/s on {smi}")
-    return {"step_ms": ms, "note_steps_per_s": steps / ms * 1e3}
+    return {"step_ms": ms, "note_steps_per_s": steps / ms * 1e3,
+            "max_abs_dloss": errs["loss"], "closest_grad_to_limit": worst[0]}
 
 
 def phase_card_vs_cpu(smi):
@@ -701,10 +965,11 @@ def main() -> int:
     smi = phase_device()
     import torch
 
+    from midi_vae_tpu.config import Config
     from midi_vae_tpu_torch import use_exact_f32
 
     use_exact_f32()
-    phase_build()
+    registers = phase_build()
     results = phase_kernels()
     with tempfile.TemporaryDirectory() as work:
         launches = phase_slice(work)
@@ -712,39 +977,79 @@ def main() -> int:
     results.update(phase_train_kernels())
     with tempfile.TemporaryDirectory() as work:
         train_launches = phase_train_slice(work)
-    step = phase_train_card_vs_cpu(smi)
+    step = phase_train_card_vs_cpu(smi, Config(), PER_TRAIN_STEP["narrow"], "train")
+    results.update(phase_wide_kernels())
+    with tempfile.TemporaryDirectory() as work:
+        wide_launches = phase_train_slice(work, ["lstm_size=512"])
+    wide_step = phase_train_card_vs_cpu(smi, Config(lstm_size=512), PER_TRAIN_STEP["wide"],
+                                        "wide train")
+    tf_step = phase_train_card_vs_cpu(smi, Config(teacher_force=True), PER_TF_STEP,
+                                      "teacher-forced train")
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
-    meta = {  # source, replaces, also replaces (midi_vae_tpu/ops/...)
-        "gru_layer_fwd": ("gru_layer_fwd.cu", "fused_train.py:2057", ["fused_train.py:2919"]),
-        "gru_decode": ("gru_decode.cu", "fused_decoder.py:61", ["fused_decoder.py:95"]),
-        "gru_layer_bwd": ("gru_layer_bwd.cu", "fused_train.py:2116", []),
-        "gru_decode_train": ("gru_decode_train.cu", "fused_train.py:3089",
+    # letter, source, replaces, also replaces (midi_vae_tpu/ops/...); "ms" is
+    # summed over the kernel's calls in one transfer (A, B) or one training
+    # step (C to G, W) of B windows, at GRU(256) for A to E and GRU(512) for
+    # F, G and the wide builds
+    meta = {
+        "gru_layer_fwd": ("A", "gru_layer_fwd.cu", "fused_train.py:2057", ["fused_train.py:2919"]),
+        "gru_decode": ("B", "gru_decode.cu", "fused_decoder.py:61", ["fused_decoder.py:95"]),
+        "gru_layer_bwd": ("C", "gru_layer_bwd.cu", "fused_train.py:2116", []),
+        "gru_decode_train": ("D", "gru_decode_train.cu", "fused_train.py:3089",
                              ["fused_train.py:431", "fused_train.py:393"]),
-        "gru_decode_bwd": ("gru_decode_bwd.cu", "fused_train.py:3145",
+        "gru_decode_bwd": ("E", "gru_decode_bwd.cu", "fused_train.py:3145",
                            ["fused_train.py:602", "fused_train.py:533"]),
-        # the weight-grad sums inside _bwdx_kernel, _mh_bwd_kernel, _dec_bwd*_kernel
-        "grad_reduce": ("grad_reduce.cu", "fused_train.py:2175",
-                        ["fused_train.py:3184", "fused_train.py:567", "fused_train.py:628"]),
+        # the weight-grad sums inside _bwdx_kernel, _mh_bwd_kernel, _dec_bwd*_kernel,
+        # _bwd_kernel, and the XLA passes _gru_wide_weight_grads, _dec_wide_weight_grads
+        "grad_reduce": ("W", "grad_reduce.cu", "fused_train.py:2175",
+                        ["fused_train.py:3184", "fused_train.py:567", "fused_train.py:628",
+                         "fused_train.py:166"]),
+        # rows 11 and 9: _fwd_kernel through _fwd_wide_pallas and _fwd_pallas
+        "gru_layer_xp_fwd": ("F", "gru_layer_xp_fwd.cu", "fused_train.py:1696",
+                             ["fused_train.py:68", "fused_train.py:92"]),
+        # rows 12 and 10: _bwd_wide_kernel and _bwd_kernel
+        "gru_layer_xp_bwd": ("G", "gru_layer_xp_bwd.cu", "fused_train.py:1720",
+                             ["fused_train.py:1772", "fused_train.py:120", "fused_train.py:177"]),
+        # row 13: _dec_fwd1/2_kernel through _dec_fwd_wide_pallas
+        "gru_decode_train_wide": ("D wide", "gru_decode_train.cu", "fused_train.py:1010",
+                                  ["fused_train.py:431", "fused_train.py:393"]),
+        # row 14: _dec_bwd2_wide_kernel, _dec_bwd1_wide_kernel
+        "gru_decode_bwd_wide": ("E wide", "gru_decode_bwd.cu", "fused_train.py:1080",
+                                ["fused_train.py:1135", "fused_train.py:1176"]),
     }
+    # per kernel: the calls of one step or transfer at a second shape
+    extra = {"gru_layer_fwd": ("ms_h512", "gru_layer_512"), "gru_decode": ("ms_h512", "gru_decode_512"),
+             "grad_reduce": ("ms_wide_step", "grad_reduce_wide"),
+             "gru_layer_xp_fwd": ("ms_h256", "xp_h256_fwd"),
+             "gru_layer_xp_bwd": ("ms_h256", "xp_h256_bwd")}
     kernels = []
-    for name, (source, replaces, also) in meta.items():
+    for name, (letter, source, replaces, also) in meta.items():
         per_call = results[name]
-        by_path = {"transfer": launches.get(name, 0), "train": train_launches[name]}
-        kernels.append({
-            "name": name, "route": "cuda", "source": f"midi_vae_tpu_torch/csrc/{source}",
+        by_path = {"transfer": launches.get(name, 0), "train": train_launches.get(name, 0),
+                   "train_wide": wide_launches.get(name, 0)}
+        entry = {
+            "name": name, "letter": letter, "route": "cuda",
+            "source": f"midi_vae_tpu_torch/csrc/{source}",
             "replaces": f"midi_vae_tpu/ops/{replaces}",
             "also_replaces": [f"midi_vae_tpu/ops/{a}" for a in also],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in per_call.values()),
-            # summed over the kernel's calls in one transfer (A, B) or one
-            # training step (C, D, E, W) of B windows
             "ms": sum(r["ms"] for r in per_call.values()),
             "plain_ms": sum(r["plain_ms"] for r in per_call.values()),
             "calls": per_call,
-        })
-    print(json.dumps({"kernels": kernels, "train_step": step, "power": smi}))
+            "registers": registers[letter.replace(" ", "_")],
+        }
+        if name in extra:
+            key, res = extra[name]
+            calls = results[res]
+            entry[key] = sum(r["ms"] for r in calls.values())
+            entry["plain_" + key] = sum(r["plain_ms"] for r in calls.values())
+            entry["max_abs_err"] = max(entry["max_abs_err"], *(r["max_abs_err"] for r in calls.values()))
+            entry["calls_" + key.removeprefix("ms_")] = calls
+        kernels.append(entry)
+    print(json.dumps({"kernels": kernels, "train_step": step, "train_step_512": wide_step,
+                      "train_step_teacher_force": tf_step, "power": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,6 +1,6 @@
 // Shared device code of the backward kernels (C: gru_layer_bwd.cu, E:
-// gru_decode_bwd.cu): one reverse step of the reset-before GRU cell with a
-// tanh candidate, over the block's kRows batch rows.
+// gru_decode_bwd.cu, G: gru_layer_xp_bwd.cu): one reverse step of the
+// reset-before GRU cell with a tanh candidate, over the block's R batch rows.
 //
 // Math (midi_vae_tpu/ops/fused_train.py::_gru_cell_bwd_core), h = h_{t-1}:
 //   recompute  z = sig(xz + h.Uz)  r = sig(xr + h.Ur)  hh = tanh(xh + (r*h).Uh)
@@ -13,7 +13,7 @@
 // them over all T*B rows afterwards.
 //
 // Layout as in gru_common.cuh: blockDim.x == H, thread j owns hidden column
-// j; tiles are feature-major in shared memory, a[k * kRows + row]. The
+// j; tiles are feature-major in shared memory, a[k * R + row]. The
 // transposed products read UT = U^T (3H, H) and WT = W^T (3H, D), so that
 // neighbouring threads read neighbouring addresses there too.
 #pragma once
@@ -22,22 +22,119 @@
 
 namespace mvt {
 
-// x_s (D, kRows) is the step input and hp_s (H, kRows) is h_{t-1}; dh holds
-// dL/dh_t for column j of the block's rows and is replaced by dL/dh_{t-1}.
-// Writes da_s (3H, kRows) = da_cat, rh_s (H, kRows) = r * h_{t-1} and, when
-// dx_s is not null, dx_s (D, kRows) = da_cat @ W^T. Every thread of the block
-// must call it; it ends with a barrier, after which the outputs are visible.
+// The step from the recomputed gates on: az, ar and ah arrive holding
+// x_t @ W + b of column j (the z, r and candidate gates; kernel G reads them
+// from the forward's x-projection) and are consumed. hp_s (H, R) is h_{t-1};
+// dh holds dL/dh_t for column j of the block's rows and is replaced by
+// dL/dh_{t-1}. Writes da_s (3H, R) = da_cat, rh_s (H, R) = r * h_{t-1} and,
+// when dx_s is not null, dx_s (D, R) = da_cat @ W^T. Every thread of the
+// block must call it; it ends with a barrier, after which the outputs are
+// visible.
+template <int R = kRows>
+__device__ __forceinline__ void gru_cell_bwd_recurrent(
+    float az[R], float ar[R], float ah[R], const float* hp_s, float dh[R],
+    float* da_s, float* rh_s, float* dx_s, const float* __restrict__ U,
+    const float* __restrict__ UT, const float* __restrict__ WT, int D,
+    int H) {
+  const int j = threadIdx.x;
+  const int G = 3 * H;
+  float v[R];
+#pragma unroll 4
+  for (int k = 0; k < H; ++k) {
+    const float* uk = U + (size_t)k * G;
+    const float uz = uk[j], ur = uk[H + j];
+    load_rows<R>(hp_s + k * R, v);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      az[r] = fmaf(v[r], uz, az[r]);
+      ar[r] = fmaf(v[r], ur, ar[r]);
+    }
+  }
+  float hp[R], z[R], rg[R];
+  load_rows<R>(hp_s + j * R, hp);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    z[r] = activate<kSigmoid>(az[r]);
+    rg[r] = activate<kSigmoid>(ar[r]);
+    rh_s[j * R + r] = rg[r] * hp[r];
+  }
+  __syncthreads();
+#pragma unroll 4
+  for (int k = 0; k < H; ++k) {
+    const float uh = U[(size_t)k * G + 2 * H + j];
+    load_rows<R>(rh_s + k * R, v);
+#pragma unroll
+    for (int r = 0; r < R; ++r) ah[r] = fmaf(v[r], uh, ah[r]);
+  }
+  // az now carries dz, ah the candidate's pre-activation grad da
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float hh = tanhf(ah[r]);
+    az[r] = dh[r] * (hp[r] - hh);
+    ah[r] = dh[r] * (1.0f - z[r]) * (1.0f - hh * hh);
+    da_s[(2 * H + j) * R + r] = ah[r];
+  }
+  __syncthreads();
+  // drh = da @ U[:, 2H:]^T, read from rows 2H.. of U^T
+  float drh[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) drh[r] = 0.0f;
+#pragma unroll 4
+  for (int i = 0; i < H; ++i) {
+    const float u = UT[(size_t)(2 * H + i) * H + j];
+    load_rows<R>(da_s + (2 * H + i) * R, v);
+#pragma unroll
+    for (int r = 0; r < R; ++r) drh[r] = fmaf(v[r], u, drh[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float da_z = az[r] * z[r] * (1.0f - z[r]);
+    const float da_r = drh[r] * hp[r] * rg[r] * (1.0f - rg[r]);
+    da_s[j * R + r] = da_z;
+    da_s[(H + j) * R + r] = da_r;
+    dh[r] = dh[r] * z[r] + drh[r] * rg[r];
+  }
+  __syncthreads();
+  // dh_{t-1} += [da_z, da_r] @ U[:, :2H]^T
+#pragma unroll 4
+  for (int g = 0; g < 2 * H; ++g) {
+    const float u = UT[(size_t)g * H + j];
+    load_rows<R>(da_s + g * R, v);
+#pragma unroll
+    for (int r = 0; r < R; ++r) dh[r] = fmaf(v[r], u, dh[r]);
+  }
+  if (dx_s != nullptr) {
+    for (int d = j; d < D; d += blockDim.x) {
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+      for (int g = 0; g < G; ++g) {
+        const float w = WT[(size_t)g * D + d];
+        load_rows<R>(da_s + g * R, v);
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(v[r], w, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) dx_s[d * R + r] = acc[r];
+    }
+  }
+  __syncthreads();
+}
+
+// One reverse step from the step input: x_s (D, R) is x_t and the gates are
+// recomputed from it (x_t @ W + b), then gru_cell_bwd_recurrent.
+template <int R = kRows>
 __device__ __forceinline__ void gru_cell_bwd(
-    const float* x_s, int D, const float* hp_s, float dh[kRows], float* da_s,
+    const float* x_s, int D, const float* hp_s, float dh[R], float* da_s,
     float* rh_s, float* dx_s, const float* __restrict__ W,
     const float* __restrict__ U, const float* __restrict__ bias,
     const float* __restrict__ UT, const float* __restrict__ WT, int H) {
   const int j = threadIdx.x;
   const int G = 3 * H;
-  float az[kRows], ar[kRows], ah[kRows], v[kRows];
+  float az[R], ar[R], ah[R], v[R];
   const float bz = bias[j], br = bias[H + j], bh = bias[2 * H + j];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     az[r] = bz;
     ar[r] = br;
     ah[r] = bh;
@@ -46,109 +143,32 @@ __device__ __forceinline__ void gru_cell_bwd(
   for (int d = 0; d < D; ++d) {
     const float* wd = W + (size_t)d * G;
     const float wz = wd[j], wr = wd[H + j], wh = wd[2 * H + j];
-    load_rows(x_s + d * kRows, v);
+    load_rows<R>(x_s + d * R, v);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
       az[r] = fmaf(v[r], wz, az[r]);
       ar[r] = fmaf(v[r], wr, ar[r]);
       ah[r] = fmaf(v[r], wh, ah[r]);
     }
   }
-#pragma unroll 4
-  for (int k = 0; k < H; ++k) {
-    const float* uk = U + (size_t)k * G;
-    const float uz = uk[j], ur = uk[H + j];
-    load_rows(hp_s + k * kRows, v);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      az[r] = fmaf(v[r], uz, az[r]);
-      ar[r] = fmaf(v[r], ur, ar[r]);
-    }
-  }
-  float hp[kRows], z[kRows], rg[kRows];
-  load_rows(hp_s + j * kRows, hp);
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    z[r] = activate<kSigmoid>(az[r]);
-    rg[r] = activate<kSigmoid>(ar[r]);
-    rh_s[j * kRows + r] = rg[r] * hp[r];
-  }
-  __syncthreads();
-#pragma unroll 4
-  for (int k = 0; k < H; ++k) {
-    const float uh = U[(size_t)k * G + 2 * H + j];
-    load_rows(rh_s + k * kRows, v);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) ah[r] = fmaf(v[r], uh, ah[r]);
-  }
-  // az now carries dz, ah the candidate's pre-activation grad da
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float hh = tanhf(ah[r]);
-    az[r] = dh[r] * (hp[r] - hh);
-    ah[r] = dh[r] * (1.0f - z[r]) * (1.0f - hh * hh);
-    da_s[(2 * H + j) * kRows + r] = ah[r];
-  }
-  __syncthreads();
-  // drh = da @ U[:, 2H:]^T, read from rows 2H.. of U^T
-  float drh[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) drh[r] = 0.0f;
-#pragma unroll 4
-  for (int i = 0; i < H; ++i) {
-    const float u = UT[(size_t)(2 * H + i) * H + j];
-    load_rows(da_s + (2 * H + i) * kRows, v);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) drh[r] = fmaf(v[r], u, drh[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float da_z = az[r] * z[r] * (1.0f - z[r]);
-    const float da_r = drh[r] * hp[r] * rg[r] * (1.0f - rg[r]);
-    da_s[j * kRows + r] = da_z;
-    da_s[(H + j) * kRows + r] = da_r;
-    dh[r] = dh[r] * z[r] + drh[r] * rg[r];
-  }
-  __syncthreads();
-  // dh_{t-1} += [da_z, da_r] @ U[:, :2H]^T
-#pragma unroll 4
-  for (int g = 0; g < 2 * H; ++g) {
-    const float u = UT[(size_t)g * H + j];
-    load_rows(da_s + g * kRows, v);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) dh[r] = fmaf(v[r], u, dh[r]);
-  }
-  if (dx_s != nullptr) {
-    for (int d = j; d < D; d += blockDim.x) {
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      for (int g = 0; g < G; ++g) {
-        const float w = WT[(size_t)g * D + d];
-        load_rows(da_s + g * kRows, v);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(v[r], w, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) dx_s[d * kRows + r] = acc[r];
-    }
-  }
-  __syncthreads();
+  gru_cell_bwd_recurrent<R>(az, ar, ah, hp_s, dh, da_s, rh_s, dx_s, U, UT, WT,
+                            D, H);
 }
 
-// Stores column j's entries of the feature-major (W, kRows) tile a_s into
-// rows [row0, row0 + kRows) of a row-major (B, ld) matrix at column offset
+// Stores column j's entries of the feature-major (W, R) tile a_s into
+// rows [row0, row0 + R) of a row-major (B, ld) matrix at column offset
 // col, for the W/H column blocks that thread j owns (j, j + H, ...); rows past
 // B are skipped. Used for da_cat (3 blocks) and r*h (1 block).
+template <int R = kRows>
 __device__ __forceinline__ void store_columns(
     const float* a_s, float* __restrict__ a, int row0, int B, int ld,
     int n_blocks, int H) {
   const int j = threadIdx.x;
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
     if (row >= B) break;
     for (int blk = 0; blk < n_blocks; ++blk) {
-      a[(size_t)row * ld + blk * H + j] = a_s[(blk * H + j) * kRows + r];
+      a[(size_t)row * ld + blk * H + j] = a_s[(blk * H + j) * R + r];
     }
   }
 }

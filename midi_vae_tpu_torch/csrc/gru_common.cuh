@@ -1,15 +1,23 @@
 // Shared device code of the GRU kernels: activations and one reset-before
 // GRU cell step over a tile of batch rows held in shared memory.
 //
-// Layout (both kernels): one block owns kRows batch rows for the whole time
+// Layout (every kernel): one block owns R batch rows for the whole time
 // loop; blockDim.x == H and thread j owns hidden column j of all three gates.
-// Activations live in shared memory feature-major, a[k * kRows + row], so the
-// kRows values a thread needs for one k are two float4 loads (a broadcast:
-// every thread of the block reads the same address). The weights W, U (and
-// Wo) are read from global memory at every step; at H = 256 one f32 U is
-// 768 KiB, more than a block's 227 KB of shared memory, so they stay in the
-// 50 MB L2 and every block streams them from there. Each U element a thread
-// loads feeds kRows FMAs.
+// Activations live in shared memory feature-major, a[k * R + row], so the R
+// values a thread needs for one k are two float4 loads, or one float2 at
+// R = 2 (a broadcast: every thread of the block reads the same address). The weights W, U (and Wo) are
+// read from global memory at every step; at H = 256 one f32 U is 768 KiB,
+// more than a block's 227 KB of shared memory, so they stay in the 50 MB L2
+// and every block streams them from there. Each U element a thread loads
+// feeds R FMAs.
+//
+// R is kRows = 8 for kernels A to E at the widths where they launch, and for
+// F and G. The wide decode builds (D and E at H = 512) hold kWideRows = 2:
+// a thread keeps R values of every gate, carry and operand in registers, and
+// at 8 rows D and E take 160 and 168 registers a thread, so H = 512 threads
+// would need more than the 65,536 registers of an SM. Under
+// __launch_bounds__(512) they get at most 128; at 2 rows the grid has 128
+// blocks at B = 256 instead of 32, and E spills less than at 4 rows.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,6 +26,11 @@ namespace mvt {
 
 // batch rows per block
 constexpr int kRows = 8;
+// batch rows per block of the wide decode builds
+constexpr int kWideRows = 2;
+// threads per block that the launch-bounded builds (F, G, wide D and E) are
+// compiled for: __launch_bounds__ caps their registers at 65,536 / 512 = 128
+constexpr int kWideThreads = 512;
 
 // activation codes, shared with the Python wrappers
 enum Act : int { kTanh = 0, kSigmoid = 1, kRelu = 2, kLinear = 3, kSoftmax = 4 };
@@ -35,64 +48,52 @@ __device__ __forceinline__ float activate(float x) {
   }
 }
 
-__device__ __forceinline__ void load_rows(const float* __restrict__ a, float v[kRows]) {
-  const float4 lo = *reinterpret_cast<const float4*>(a);
-  const float4 hi = *reinterpret_cast<const float4*>(a + 4);
-  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+template <int R = kRows>
+__device__ __forceinline__ void load_rows(const float* __restrict__ a, float v[R]) {
+  static_assert(R == 8 || R == 2, "a tile holds 8 or 2 rows");
+  if constexpr (R == 8) {
+    const float4 lo = *reinterpret_cast<const float4*>(a);
+    const float4 hi = *reinterpret_cast<const float4*>(a + 4);
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+  } else {
+    const float2 p = *reinterpret_cast<const float2*>(a);
+    v[0] = p.x; v[1] = p.y;
+  }
 }
 
-// One GRU step for the block's kRows rows, in place on h_s:
-//   xp = x @ W + b;  hz, hr = h @ U[:, :2H]
-//   z = sigmoid(xp_z + hz);  r = sigmoid(xp_r + hr)
-//   hh = act(xp_h + (r * h) @ U[:, 2H:]);  h = z * h + (1 - z) * hh
-// x_s is (D, kRows), h_s and rh_s are (H, kRows), all feature-major.
-// W is (D, 3H), U is (H, 3H), b is (3H,), row-major in global memory.
-// Every thread of the block must call it; it ends with a barrier, after
-// which h_s holds the new state.
-template <int ACT>
-__device__ __forceinline__ void gru_cell(
-    const float* x_s, int D, float* h_s, float* rh_s,
-    const float* __restrict__ W, const float* __restrict__ U,
-    const float* __restrict__ bias, int H) {
+// The recurrent part of one GRU step for the block's R rows, in place on
+// h_s; az, ar and ah arrive holding x_t @ W + b of column j (the z, r and
+// candidate gates) and are consumed:
+//   z = sigmoid(az + h @ U_z);  r = sigmoid(ar + h @ U_r)
+//   hh = act(ah + (r * h) @ U_h);  h = z * h + (1 - z) * hh
+// h_s and rh_s are (H, R), feature-major; U is (H, 3H), row-major in global
+// memory. Every thread of the block must call it; it ends with a barrier,
+// after which h_s holds the new state.
+template <int ACT, int R = kRows>
+__device__ __forceinline__ void gru_cell_recurrent(
+    float az[R], float ar[R], float ah[R], float* h_s, float* rh_s,
+    const float* __restrict__ U, int H) {
   const int j = threadIdx.x;
   const int G = 3 * H;
-  float az[kRows], ar[kRows], ah[kRows], v[kRows];
-  const float bz = bias[j], br = bias[H + j], bh = bias[2 * H + j];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    az[r] = bz;
-    ar[r] = br;
-    ah[r] = bh;
-  }
-  for (int d = 0; d < D; ++d) {
-    const float* wd = W + (size_t)d * G;
-    const float wz = wd[j], wr = wd[H + j], wh = wd[2 * H + j];
-    load_rows(x_s + d * kRows, v);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      az[r] = fmaf(v[r], wz, az[r]);
-      ar[r] = fmaf(v[r], wr, ar[r]);
-      ah[r] = fmaf(v[r], wh, ah[r]);
-    }
-  }
+  float v[R];
 #pragma unroll 4
   for (int k = 0; k < H; ++k) {
     const float* uk = U + (size_t)k * G;
     const float uz = uk[j], ur = uk[H + j];
-    load_rows(h_s + k * kRows, v);
+    load_rows<R>(h_s + k * R, v);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
       az[r] = fmaf(v[r], uz, az[r]);
       ar[r] = fmaf(v[r], ur, ar[r]);
     }
   }
-  float hold[kRows];
-  load_rows(h_s + j * kRows, hold);
+  float hold[R];
+  load_rows<R>(h_s + j * R, hold);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     az[r] = activate<kSigmoid>(az[r]);  // z
-    rh_s[j * kRows + r] = activate<kSigmoid>(ar[r]) * hold[r];
+    rh_s[j * R + r] = activate<kSigmoid>(ar[r]) * hold[r];
   }
   // the reset gate multiplies h BEFORE the U_h product: every column of
   // r * h must be in shared memory before any thread starts that product
@@ -100,35 +101,92 @@ __device__ __forceinline__ void gru_cell(
 #pragma unroll 4
   for (int k = 0; k < H; ++k) {
     const float uh = U[(size_t)k * G + 2 * H + j];
-    load_rows(rh_s + k * kRows, v);
+    load_rows<R>(rh_s + k * R, v);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) ah[r] = fmaf(v[r], uh, ah[r]);
+    for (int r = 0; r < R; ++r) ah[r] = fmaf(v[r], uh, ah[r]);
   }
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     const float hh = activate<ACT>(ah[r]);
-    h_s[j * kRows + r] = az[r] * hold[r] + (1.0f - az[r]) * hh;
+    h_s[j * R + r] = az[r] * hold[r] + (1.0f - az[r]) * hh;
   }
   __syncthreads();
 }
 
-// Loads rows [row0, row0 + kRows) of a row-major (B, D) matrix into the
-// feature-major (D, kRows) tile a_s; rows past B read as zeros.
-__device__ __forceinline__ void load_tile(
-    const float* __restrict__ a, float* a_s, int row0, int B, int D) {
-  for (int i = threadIdx.x; i < kRows * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D, row = row0 + r;
-    a_s[d * kRows + r] = row < B ? a[(size_t)row * D + d] : 0.0f;
+// One GRU step for the block's R rows, in place on h_s:
+//   xp = x @ W + b, then gru_cell_recurrent.
+// x_s is (D, R), h_s and rh_s are (H, R), all feature-major.
+// W is (D, 3H), U is (H, 3H), b is (3H,), row-major in global memory.
+// Every thread of the block must call it; it ends with a barrier, after
+// which h_s holds the new state.
+template <int ACT, int R = kRows>
+__device__ __forceinline__ void gru_cell(
+    const float* x_s, int D, float* h_s, float* rh_s,
+    const float* __restrict__ W, const float* __restrict__ U,
+    const float* __restrict__ bias, int H) {
+  const int j = threadIdx.x;
+  const int G = 3 * H;
+  float az[R], ar[R], ah[R], v[R];
+  const float bz = bias[j], br = bias[H + j], bh = bias[2 * H + j];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    az[r] = bz;
+    ar[r] = br;
+    ah[r] = bh;
+  }
+  for (int d = 0; d < D; ++d) {
+    const float* wd = W + (size_t)d * G;
+    const float wz = wd[j], wr = wd[H + j], wh = wd[2 * H + j];
+    load_rows<R>(x_s + d * R, v);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      az[r] = fmaf(v[r], wz, az[r]);
+      ar[r] = fmaf(v[r], wr, ar[r]);
+      ah[r] = fmaf(v[r], wh, ah[r]);
+    }
+  }
+  gru_cell_recurrent<ACT, R>(az, ar, ah, h_s, rh_s, U, H);
+}
+
+// Loads column j's three gates of rows [row0, row0 + R) of a row-major
+// (B, 3H) x-projection into az, ar, ah; rows past B read as zeros.
+template <int R = kRows>
+__device__ __forceinline__ void load_gates(
+    const float* __restrict__ xp, int row0, int B, int H, float az[R],
+    float ar[R], float ah[R]) {
+  const int j = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    az[r] = ar[r] = ah[r] = 0.0f;
+    if (row < B) {
+      const float* x = xp + (size_t)row * 3 * H;
+      az[r] = x[j];
+      ar[r] = x[H + j];
+      ah[r] = x[2 * H + j];
+    }
   }
 }
 
-// Stores the feature-major tile a_s into rows [row0, row0 + kRows) of a
+// Loads rows [row0, row0 + R) of a row-major (B, D) matrix into the
+// feature-major (D, R) tile a_s; rows past B read as zeros.
+template <int R = kRows>
+__device__ __forceinline__ void load_tile(
+    const float* __restrict__ a, float* a_s, int row0, int B, int D) {
+  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
+    const int r = i / D, d = i - r * D, row = row0 + r;
+    a_s[d * R + r] = row < B ? a[(size_t)row * D + d] : 0.0f;
+  }
+}
+
+// Stores the feature-major tile a_s into rows [row0, row0 + R) of a
 // row-major (B, D) matrix, skipping rows past B.
+template <int R = kRows>
 __device__ __forceinline__ void store_tile(
     const float* a_s, float* __restrict__ a, int row0, int B, int D) {
-  for (int i = threadIdx.x; i < kRows * D; i += blockDim.x) {
+  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
     const int r = i / D, d = i - r * D, row = row0 + r;
-    if (row < B) a[(size_t)row * D + d] = a_s[d * kRows + r];
+    if (row < B) a[(size_t)row * D + d] = a_s[d * R + r];
   }
 }
 
@@ -137,6 +195,20 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Readies a launch of `kernel` with `threads` threads a block and `smem`
+// bytes of dynamic shared memory. The build's own limit decides the width:
+// maxThreadsPerBlock is what its registers a thread (or its
+// __launch_bounds__) allow, e.g. 384 for D and E at 8 rows, so a block the
+// build cannot launch fails here as the launch itself would.
+template <typename Kernel>
+inline cudaError_t fit_block(Kernel kernel, int threads, size_t smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (threads > attr.maxThreadsPerBlock) return cudaErrorLaunchOutOfResources;
+  return allow_smem(kernel, smem);
 }
 
 }  // namespace mvt

@@ -49,7 +49,7 @@ cudaError_t launch(const float* start, const float* h1_0, const float* h2_0,
                    float* logits, int T, int B, int D, int H,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * decode_smem_floats(NL, D, H);
-  cudaError_t err = allow_smem(gru_decode_kernel<NL, ACT, OUT>, smem);
+  cudaError_t err = fit_block(gru_decode_kernel<NL, ACT, OUT>, H, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + kRows - 1) / kRows);
   gru_decode_kernel<NL, ACT, OUT><<<grid, H, smem, stream>>>(
@@ -113,7 +113,7 @@ extern "C" int mvt_gru_decode(
     int T, int B, int D, int H, int n_layers, int act, int out_act,
     void* stream) {
   using namespace mvt;
-  if (T < 1 || B < 1 || D < 1 || H < 32 || H > 1024 || H % 32 != 0) {
+  if (T < 1 || B < 1 || D < 1 || H < 32 || H % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

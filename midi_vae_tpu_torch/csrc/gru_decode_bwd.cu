@@ -2,11 +2,12 @@
 // one launch.
 //
 // Replaces the TPU kernels midi_vae_tpu/ops/fused_train.py::_mh_bwd_kernel
-// (multihead_decode_train_bwd) and ::_dec_bwd1_kernel / ::_dec_bwd2_kernel
-// (_dec_bwd_pallas). As kernel C does for the encoder layers, it leaves the
-// weight-gradient sums the TPU kernels accumulate in VMEM to kernel W
-// (grad_reduce.cu), the JAX package's wide scheme (_dec_bwd*_wide_kernel +
-// _dec_wide_weight_grads).
+// (multihead_decode_train_bwd), ::_dec_bwd1_kernel / ::_dec_bwd2_kernel
+// (_dec_bwd_pallas) and ::_dec_bwd1_wide_kernel / ::_dec_bwd2_wide_kernel
+// (_dec_bwd_wide_pallas, the JAX package's path at H = 512). As kernel C does
+// for the encoder layers, it leaves the weight-gradient sums the in-place TPU
+// kernels accumulate in VMEM to kernel W (grad_reduce.cu), the JAX package's
+// wide scheme (_dec_bwd*_wide_kernel + _dec_wide_weight_grads).
 //
 // Per reverse step t = T-1 .. 0 of a head:
 //   gp_total = g_probs[t] + dx_fed        the grad of probs[t], which fed
@@ -22,13 +23,23 @@
 // then d_h1_0, d_h2_0 (B, H) and d_start = the last dx_fed (B, D).
 //
 // Design: the grid's y dimension selects the head, as in kernel D; within a
-// head, kernel C's layout (gru_cell_bwd.cuh): one block owns kRows = 8 batch
-// rows, thread j owns hidden column j, the dh carries stay in registers and
-// the tiles in shared memory. The softmax transpose is one warp per row over
-// the D real columns (no padding lanes).
+// head, kernel C's layout (gru_cell_bwd.cuh): one block owns R batch rows,
+// thread j owns hidden column j, the dh carries stay in registers and the
+// tiles in shared memory. The softmax transpose is one warp per row over the
+// D real columns (no padding lanes).
+//
+// Two builds of the same body, as kernel D: the narrow one
+// (mvt_gru_decode_bwd) holds kRows = 8 rows per block at 168 registers a
+// thread (up to H = 384 threads); the wide one (mvt_gru_decode_bwd_wide)
+// holds kWideRows = 2 under __launch_bounds__(kWideThreads), so H = 512
+// threads launch, and its shared tile, 2 x (3D + 8H) floats, stays far
+// under the 227 KB a block may have. At the 128-register cap the wide build
+// still spills (192 bytes a thread; 344 at 4 rows a block, where the notes
+// head's backward took 98 ms against 71 ms at 2 rows on the H100): two
+// columns a thread (blockDim = H / 2, 255 registers) is the next layout.
 //
 // What bounds it: the serial chain of T steps, per step and layer 4 barriers
-// and two L2 reads of the layer's W and U, by each of the B/8 blocks.
+// and two L2 reads of the layer's W and U, by each of the B/R blocks.
 #include "gru_cell_bwd.cuh"
 
 namespace mvt {
@@ -50,59 +61,59 @@ struct DecodeHeadsBwd {
   DecodeHeadBwd h[kMaxHeads];
 };
 
-inline size_t bwd_smem_floats(int D, int H) {
-  return (size_t)kRows * (3 * D + 8 * H);
+inline size_t bwd_smem_floats(int D, int H, int rows) {
+  return (size_t)rows * (3 * D + 8 * H);
 }
 
-template <int NL, int OUT>
+template <int NL, int OUT, int R>
 __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwd& a, int B,
                                                 int H, float* smem) {
   const int D = a.D, T = a.T;
-  float* dl_s = smem;                 // (D, kRows) dlogits
-  float* dxf_s = dl_s + kRows * D;    // (D, kRows) grad of the fed-back probs
-  float* xin_s = dxf_s + kRows * D;   // (D, kRows) layer-1 input
-  float* h1_s = xin_s + kRows * D;    // (H, kRows) h1[t], layer-2 input
-  float* hp1_s = h1_s + kRows * H;    // (H, kRows) h1[t-1]
-  float* hp2_s = hp1_s + kRows * H;   // (H, kRows) h2[t-1]
-  float* rh_s = hp2_s + kRows * H;    // (H, kRows)
-  float* dx2_s = rh_s + kRows * H;    // (H, kRows) layer 2's dx
-  float* da_s = dx2_s + kRows * H;    // (3H, kRows)
-  const int row0 = blockIdx.x * kRows;
+  float* dl_s = smem;             // (D, R) dlogits
+  float* dxf_s = dl_s + R * D;    // (D, R) grad of the fed-back probs
+  float* xin_s = dxf_s + R * D;   // (D, R) layer-1 input
+  float* h1_s = xin_s + R * D;    // (H, R) h1[t], layer-2 input
+  float* hp1_s = h1_s + R * H;    // (H, R) h1[t-1]
+  float* hp2_s = hp1_s + R * H;   // (H, R) h2[t-1]
+  float* rh_s = hp2_s + R * H;    // (H, R)
+  float* dx2_s = rh_s + R * H;    // (H, R) layer 2's dx
+  float* da_s = dx2_s + R * H;    // (3H, R)
+  const int row0 = blockIdx.x * R;
   const int j = threadIdx.x;
   const int lane = j & 31, warp = j >> 5, n_warps = blockDim.x >> 5;
 
-  for (int i = j; i < kRows * D; i += blockDim.x) dxf_s[i] = 0.0f;
-  float dh1[kRows], dh2[kRows];
+  for (int i = j; i < R * D; i += blockDim.x) dxf_s[i] = 0.0f;
+  float dh1[R], dh2[R];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) dh1[r] = dh2[r] = 0.0f;
+  for (int r = 0; r < R; ++r) dh1[r] = dh2[r] = 0.0f;
 
   for (int t = T - 1; t >= 0; --t) {
-    load_tile(t > 0 ? a.probs + (size_t)(t - 1) * B * D : a.start, xin_s, row0, B, D);
-    load_tile(t > 0 ? a.h1seq + (size_t)(t - 1) * B * H : a.h1_0, hp1_s, row0, B, H);
+    load_tile<R>(t > 0 ? a.probs + (size_t)(t - 1) * B * D : a.start, xin_s, row0, B, D);
+    load_tile<R>(t > 0 ? a.h1seq + (size_t)(t - 1) * B * H : a.h1_0, hp1_s, row0, B, H);
     if constexpr (NL == 2) {
-      load_tile(a.h1seq + (size_t)t * B * H, h1_s, row0, B, H);
-      load_tile(t > 0 ? a.h2seq + (size_t)(t - 1) * B * H : a.h2_0, hp2_s, row0, B, H);
+      load_tile<R>(a.h1seq + (size_t)t * B * H, h1_s, row0, B, H);
+      load_tile<R>(t > 0 ? a.h2seq + (size_t)(t - 1) * B * H : a.h2_0, hp2_s, row0, B, H);
     }
     // dlogits, one warp per row; dxf_s was written by the previous step's
     // layer-1 transpose, which ended with a barrier
-    for (int r = warp; r < kRows; r += n_warps) {
+    for (int r = warp; r < R; r += n_warps) {
       const int row = row0 + r;
       if (row >= B) {
-        for (int d = lane; d < D; d += 32) dl_s[d * kRows + r] = 0.0f;
+        for (int d = lane; d < D; d += 32) dl_s[d * R + r] = 0.0f;
         continue;
       }
       const size_t base = ((size_t)t * B + row) * D;
       float s = 0.0f;
       if constexpr (OUT == kSoftmax) {
         for (int d = lane; d < D; d += 32) {
-          s += (a.g_probs[base + d] + dxf_s[d * kRows + r]) * a.probs[base + d];
+          s += (a.g_probs[base + d] + dxf_s[d * R + r]) * a.probs[base + d];
         }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       }
       for (int d = lane; d < D; d += 32) {
         const float p = a.probs[base + d];
-        const float gp = a.g_probs[base + d] + dxf_s[d * kRows + r];
+        const float gp = a.g_probs[base + d] + dxf_s[d * R + r];
         float dl;
         if constexpr (OUT == kSoftmax) {
           dl = p * (gp - s);
@@ -112,23 +123,23 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwd& a, int B,
           dl = gp;
         }
         dl += a.g_logits[base + d];
-        dl_s[d * kRows + r] = dl;
+        dl_s[d * R + r] = dl;
         a.dlogits[base + d] = dl;
       }
     }
     __syncthreads();
     // dh of the top layer: dlogits @ Wo^T plus its carry
-    float acc[kRows], v[kRows];
+    float acc[R], v[R];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
     for (int d = 0; d < D; ++d) {
       const float w = a.wot[(size_t)d * H + j];
-      load_rows(dl_s + d * kRows, v);
+      load_rows<R>(dl_s + d * R, v);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(v[r], w, acc[r]);
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(v[r], w, acc[r]);
     }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
       if constexpr (NL == 2) {
         dh2[r] += acc[r];
       } else {
@@ -136,24 +147,24 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwd& a, int B,
       }
     }
     if constexpr (NL == 2) {
-      gru_cell_bwd(h1_s, H, hp2_s, dh2, da_s, rh_s, dx2_s, a.w2, a.u2, a.b2,
-                   a.u2t, a.w2t, H);
-      store_columns(da_s, a.da2 + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
-      store_columns(rh_s, a.rh2 + (size_t)t * B * H, row0, B, H, 1, H);
-      load_rows(dx2_s + j * kRows, v);
+      gru_cell_bwd<R>(h1_s, H, hp2_s, dh2, da_s, rh_s, dx2_s, a.w2, a.u2, a.b2,
+                      a.u2t, a.w2t, H);
+      store_columns<R>(da_s, a.da2 + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
+      store_columns<R>(rh_s, a.rh2 + (size_t)t * B * H, row0, B, H, 1, H);
+      load_rows<R>(dx2_s + j * R, v);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) dh1[r] += v[r];
+      for (int r = 0; r < R; ++r) dh1[r] += v[r];
       // the layer-1 transpose writes rh_s before its first barrier
       __syncthreads();
     }
-    gru_cell_bwd(xin_s, D, hp1_s, dh1, da_s, rh_s, dxf_s, a.w1, a.u1, a.b1,
-                 a.u1t, a.w1t, H);
-    store_columns(da_s, a.da1 + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
-    store_columns(rh_s, a.rh1 + (size_t)t * B * H, row0, B, H, 1, H);
+    gru_cell_bwd<R>(xin_s, D, hp1_s, dh1, da_s, rh_s, dxf_s, a.w1, a.u1, a.b1,
+                    a.u1t, a.w1t, H);
+    store_columns<R>(da_s, a.da1 + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
+    store_columns<R>(rh_s, a.rh1 + (size_t)t * B * H, row0, B, H, 1, H);
   }
-  store_tile(dxf_s, a.d_start, row0, B, D);
+  store_tile<R>(dxf_s, a.d_start, row0, B, D);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
     if (row >= B) break;
     a.d_h1_0[(size_t)row * H + j] = dh1[r];
@@ -161,33 +172,42 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwd& a, int B,
   }
 }
 
-__global__ void gru_decode_bwd_kernel(DecodeHeadsBwd heads, int B, int H) {
-  extern __shared__ __align__(16) float smem[];
+template <int R>
+__device__ __forceinline__ void bwd_heads(const DecodeHeadsBwd& heads, int B,
+                                          int H, float* smem) {
   const DecodeHeadBwd& a = heads.h[blockIdx.y];
   const bool two = a.n_layers == 2;
   switch (a.out_act) {
     case kSoftmax:
-      two ? decode_head_bwd<2, kSoftmax>(a, B, H, smem)
-          : decode_head_bwd<1, kSoftmax>(a, B, H, smem);
+      two ? decode_head_bwd<2, kSoftmax, R>(a, B, H, smem)
+          : decode_head_bwd<1, kSoftmax, R>(a, B, H, smem);
       break;
     case kSigmoid:
-      two ? decode_head_bwd<2, kSigmoid>(a, B, H, smem)
-          : decode_head_bwd<1, kSigmoid>(a, B, H, smem);
+      two ? decode_head_bwd<2, kSigmoid, R>(a, B, H, smem)
+          : decode_head_bwd<1, kSigmoid, R>(a, B, H, smem);
       break;
     default:  // kLinear; the host checked the code
-      two ? decode_head_bwd<2, kLinear>(a, B, H, smem)
-          : decode_head_bwd<1, kLinear>(a, B, H, smem);
+      two ? decode_head_bwd<2, kLinear, R>(a, B, H, smem)
+          : decode_head_bwd<1, kLinear, R>(a, B, H, smem);
       break;
   }
 }
 
-}  // namespace mvt
+__global__ void gru_decode_bwd_kernel(DecodeHeadsBwd heads, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_heads<kRows>(heads, B, H, smem);
+}
 
-extern "C" int mvt_gru_decode_bwd(const mvt::DecodeHeadBwd* heads, int n_heads,
-                                  int B, int H, void* stream) {
-  using namespace mvt;
-  if (n_heads < 1 || n_heads > kMaxHeads || B < 1 || H < 32 || H > 1024 ||
-      H % 32 != 0) {
+__global__ void __launch_bounds__(kWideThreads)
+    gru_decode_bwd_wide_kernel(DecodeHeadsBwd heads, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_heads<kWideRows>(heads, B, H, smem);
+}
+
+template <int R, typename Kernel>
+int launch(Kernel kernel, const DecodeHeadBwd* heads, int n_heads, int B,
+           int H, void* stream) {
+  if (n_heads < 1 || n_heads > kMaxHeads || B < 1 || H < 32 || H % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   DecodeHeadsBwd all{};
@@ -199,15 +219,30 @@ extern "C" int mvt_gru_decode_bwd(const mvt::DecodeHeadBwd* heads, int n_heads,
       return (int)cudaErrorInvalidValue;
     }
     all.h[k] = a;
-    const size_t need = sizeof(float) * bwd_smem_floats(a.D, H);
+    const size_t need = sizeof(float) * bwd_smem_floats(a.D, H, R);
     if (need > smem) smem = need;
   }
-  cudaError_t err = allow_smem(gru_decode_bwd_kernel, smem);
+  cudaError_t err = fit_block(kernel, H, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kRows - 1) / kRows, n_heads);
-  gru_decode_bwd_kernel<<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(
-      all, B, H);
+  const dim3 grid((B + R - 1) / R, n_heads);
+  kernel<<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(all, B, H);
   return (int)cudaGetLastError();
+}
+
+}  // namespace mvt
+
+extern "C" int mvt_gru_decode_bwd(const mvt::DecodeHeadBwd* heads, int n_heads,
+                                  int B, int H, void* stream) {
+  using namespace mvt;
+  return launch<kRows>(gru_decode_bwd_kernel, heads, n_heads, B, H, stream);
+}
+
+extern "C" int mvt_gru_decode_bwd_wide(const mvt::DecodeHeadBwd* heads,
+                                       int n_heads, int B, int H,
+                                       void* stream) {
+  using namespace mvt;
+  return launch<kWideRows>(gru_decode_bwd_wide_kernel, heads, n_heads, B, H,
+                           stream);
 }
 
 extern "C" const char* mvt_error_string(int code) {

@@ -3,8 +3,9 @@
 // Replaces the TPU kernels midi_vae_tpu/ops/fused_train.py::_mh_fwd_kernel
 // (the 2-layer notes head and every 1-layer T-length side head in one
 // launch, multihead_decode_train_fwd) and ::_dec_fwd1_kernel /
-// ::_dec_fwd2_kernel (one head, _dec_fwd_pallas). Those compute what the
-// serving decode computes plus each layer's h sequence as the backward's
+// ::_dec_fwd2_kernel (one head: _dec_fwd_pallas, and the batch-tiled
+// _dec_fwd_wide_pallas the JAX package takes at H = 512). Those compute what
+// the serving decode computes plus each layer's h sequence as the backward's
 // residual, and so does this kernel: its loop body is kernel B's
 // (decode_head in gru_decode_body.cuh) with the h-sequence outputs on.
 //
@@ -14,6 +15,16 @@
 // velocity head's 32 blocks at B = 256). Each head keeps its own layer count,
 // output activation, width D and length T; the cell activation is tanh, the
 // one the backward (kernel E) implements.
+//
+// Two builds of the same body. The narrow one (mvt_gru_decode_train) holds
+// kRows = 8 batch rows per block and takes 160 registers a thread, so it
+// launches up to H = 384 (160 x 384 = 61,440 of an SM's 65,536). The wide
+// one (mvt_gru_decode_train_wide) holds kWideRows = 2 rows per block under
+// __launch_bounds__(kWideThreads): a quarter of the per-row accumulators,
+// capped by the compiler at 128 registers, so H = 512 threads launch; it
+// also runs four times the blocks (128 per head at B = 256, on 128 of the
+// 132 SMs), which at H = 512 beat 4 rows a block (notes head 11.1 against
+// 11.5 ms on the H100). ops/_layout.py picks the build.
 //
 // What bounds it: as kernel B, the serial chain of T steps per head; the
 // 1-layer side heads finish inside the 2-layer notes head's time.
@@ -35,37 +46,47 @@ struct DecodeHeads {
   DecodeHead h[kMaxHeads];
 };
 
-template <int NL, int OUT>
+template <int NL, int OUT, int R>
 __device__ __forceinline__ void run(const DecodeHead& a, int B, int H, float* smem) {
-  decode_head<NL, kTanh, OUT>(a.start, a.h1_0, a.h2_0, a.w1, a.u1, a.b1, a.w2,
-                              a.u2, a.b2, a.wo, a.bo, a.probs, a.logits,
-                              a.h1seq, a.h2seq, a.T, B, a.D, H, smem);
+  decode_head<NL, kTanh, OUT, R>(a.start, a.h1_0, a.h2_0, a.w1, a.u1, a.b1,
+                                 a.w2, a.u2, a.b2, a.wo, a.bo, a.probs,
+                                 a.logits, a.h1seq, a.h2seq, a.T, B, a.D, H,
+                                 smem);
 }
 
-__global__ void gru_decode_train_kernel(DecodeHeads heads, int B, int H) {
-  extern __shared__ __align__(16) float smem[];
+template <int R>
+__device__ __forceinline__ void train_heads(const DecodeHeads& heads, int B,
+                                            int H, float* smem) {
   const DecodeHead& a = heads.h[blockIdx.y];
   const bool two = a.n_layers == 2;
   switch (a.out_act) {
     case kSoftmax:
-      two ? run<2, kSoftmax>(a, B, H, smem) : run<1, kSoftmax>(a, B, H, smem);
+      two ? run<2, kSoftmax, R>(a, B, H, smem) : run<1, kSoftmax, R>(a, B, H, smem);
       break;
     case kSigmoid:
-      two ? run<2, kSigmoid>(a, B, H, smem) : run<1, kSigmoid>(a, B, H, smem);
+      two ? run<2, kSigmoid, R>(a, B, H, smem) : run<1, kSigmoid, R>(a, B, H, smem);
       break;
     default:  // kLinear; the host checked the code
-      two ? run<2, kLinear>(a, B, H, smem) : run<1, kLinear>(a, B, H, smem);
+      two ? run<2, kLinear, R>(a, B, H, smem) : run<1, kLinear, R>(a, B, H, smem);
       break;
   }
 }
 
-}  // namespace mvt
+__global__ void gru_decode_train_kernel(DecodeHeads heads, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  train_heads<kRows>(heads, B, H, smem);
+}
 
-extern "C" int mvt_gru_decode_train(const mvt::DecodeHead* heads, int n_heads,
-                                    int B, int H, void* stream) {
-  using namespace mvt;
-  if (n_heads < 1 || n_heads > kMaxHeads || B < 1 || H < 32 || H > 1024 ||
-      H % 32 != 0) {
+__global__ void __launch_bounds__(kWideThreads)
+    gru_decode_train_wide_kernel(DecodeHeads heads, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  train_heads<kWideRows>(heads, B, H, smem);
+}
+
+template <int R, typename Kernel>
+int launch(Kernel kernel, const DecodeHead* heads, int n_heads, int B, int H,
+           void* stream) {
+  if (n_heads < 1 || n_heads > kMaxHeads || B < 1 || H < 32 || H % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   DecodeHeads all{};
@@ -77,15 +98,30 @@ extern "C" int mvt_gru_decode_train(const mvt::DecodeHead* heads, int n_heads,
       return (int)cudaErrorInvalidValue;
     }
     all.h[k] = a;
-    const size_t need = sizeof(float) * decode_smem_floats(a.n_layers, a.D, H);
+    const size_t need = sizeof(float) * decode_smem_floats(a.n_layers, a.D, H, R);
     if (need > smem) smem = need;
   }
-  cudaError_t err = allow_smem(gru_decode_train_kernel, smem);
+  cudaError_t err = fit_block(kernel, H, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kRows - 1) / kRows, n_heads);
-  gru_decode_train_kernel<<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(
-      all, B, H);
+  const dim3 grid((B + R - 1) / R, n_heads);
+  kernel<<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(all, B, H);
   return (int)cudaGetLastError();
+}
+
+}  // namespace mvt
+
+extern "C" int mvt_gru_decode_train(const mvt::DecodeHead* heads, int n_heads,
+                                    int B, int H, void* stream) {
+  using namespace mvt;
+  return launch<kRows>(gru_decode_train_kernel, heads, n_heads, B, H, stream);
+}
+
+extern "C" int mvt_gru_decode_train_wide(const mvt::DecodeHead* heads,
+                                         int n_heads, int B, int H,
+                                         void* stream) {
+  using namespace mvt;
+  return launch<kWideRows>(gru_decode_train_wide_kernel, heads, n_heads, B, H,
+                           stream);
 }
 
 extern "C" const char* mvt_error_string(int code) {

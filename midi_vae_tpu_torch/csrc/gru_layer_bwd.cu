@@ -90,12 +90,12 @@ extern "C" int mvt_gru_layer_bwd(
     const float* ut, const float* wt, float* dx, float* dh0, float* dacat,
     float* rh, int T, int B, int D, int H, void* stream) {
   using namespace mvt;
-  if (T < 1 || B < 1 || D < 1 || H < 32 || H > 1024 || H % 32 != 0) {
+  if (T < 1 || B < 1 || D < 1 || H < 32 || H % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem =
       sizeof(float) * kRows * (D + 5 * H + (dx != nullptr ? D : 0));
-  cudaError_t err = allow_smem(gru_layer_bwd_kernel, smem);
+  cudaError_t err = fit_block(gru_layer_bwd_kernel, H, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + kRows - 1) / kRows);
   gru_layer_bwd_kernel<<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(

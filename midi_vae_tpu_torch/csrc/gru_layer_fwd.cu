@@ -52,7 +52,7 @@ cudaError_t launch(const float* x, const float* h0, const float* w,
                    const float* b, const float* u, float* out, int T, int B,
                    int D, int H, int emit_seq, cudaStream_t stream) {
   const size_t smem = sizeof(float) * kRows * (D + 2 * H);
-  cudaError_t err = allow_smem(gru_layer_fwd_kernel<ACT>, smem);
+  cudaError_t err = fit_block(gru_layer_fwd_kernel<ACT>, H, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + kRows - 1) / kRows);
   gru_layer_fwd_kernel<ACT><<<grid, H, smem, stream>>>(
@@ -67,7 +67,7 @@ extern "C" int mvt_gru_layer_fwd(
     const float* u, float* out, int T, int B, int D, int H, int act,
     int emit_seq, void* stream) {
   using namespace mvt;
-  if (T < 1 || B < 1 || D < 1 || H < 32 || H > 1024 || H % 32 != 0) {
+  if (T < 1 || B < 1 || D < 1 || H < 32 || H % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

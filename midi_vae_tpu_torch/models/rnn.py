@@ -3,8 +3,10 @@
 Counterpart of ``midi_vae_tpu/models/rnn.py``: ``encode_sequence``/
 ``_scan_layer`` run each layer as one call of kernel A (``ops.gru_layer``)
 when the model's kernel switch is on, or on the training path as the
-differentiable ``gru_layer_train_x`` (kernels A, C and W), else the plain
-per-step cell scan; ``init_decoder_states`` is plain dense + activation;
+differentiable ``gru_layer_train_x`` (kernels A, C and W) or, on the wide
+route (``ops/_layout.py``), xp = x @ W + b in torch.matmul and
+``gru_layer_train`` over it (kernels F, G and W), else the plain per-step
+cell scan; ``init_decoder_states`` is plain dense + activation;
 ``decode_autoregressive`` is the plain readout loop that feeds each step's
 activated output back as the next input, or with ``ground_truth`` the
 teacher-forced scan (heads that the decode kernels take never reach it on
@@ -17,7 +19,7 @@ from typing import Any
 
 import torch
 
-from ..ops.gru_layer import gru_layer, gru_layer_train_x
+from ..ops.gru_layer import gru_layer, gru_layer_train, gru_layer_train_x
 from .cells import activation_fn, dense_apply, gate_activation_fn, get_cell, zero_states
 
 Params = dict[str, Any]
@@ -25,38 +27,49 @@ Params = dict[str, Any]
 
 def encode_sequence(layer_params, xs: torch.Tensor, cell_type: str, activation: str = "tanh",
                     bidirectional: bool = False, kernels: bool = False,
-                    gate_activation: str = "sigmoid", train: bool = False) -> torch.Tensor:
+                    gate_activation: str = "sigmoid", train: bool = False,
+                    wide: bool = False) -> torch.Tensor:
     """Run a stacked RNN over (B, T, D); return the last layer's final h (B, H).
 
     All layers but the last return sequences; ``bidirectional`` wraps the
     non-final layers in forward + backward passes with concat merge.
-    ``train`` (with ``kernels``) takes the differentiable training layer."""
+    ``train`` (with ``kernels``) takes the differentiable training layer,
+    over a precomputed x-projection when ``wide``."""
     cell = get_cell(cell_type)
     h = xs
     n_layers = len(layer_params)
     for i, p in enumerate(layer_params):
         is_last = i == n_layers - 1
         if bidirectional and not is_last:
-            fwd = _scan_layer(cell, p["fwd"], h, activation, True, kernels, gate_activation, train)
+            fwd = _scan_layer(cell, p["fwd"], h, activation, True, kernels, gate_activation, train,
+                              wide)
             bwd = _scan_layer(cell, p["bwd"], h.flip(1), activation, True, kernels,
-                              gate_activation, train).flip(1)
+                              gate_activation, train, wide).flip(1)
             h = torch.cat([fwd, bwd], dim=-1)
         else:
-            h = _scan_layer(cell, p, h, activation, not is_last, kernels, gate_activation, train)
+            h = _scan_layer(cell, p, h, activation, not is_last, kernels, gate_activation, train,
+                            wide)
     return h
 
 
 def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_sequences: bool,
-                kernels: bool = False, gate_activation: str = "sigmoid", train: bool = False):
+                kernels: bool = False, gate_activation: str = "sigmoid", train: bool = False,
+                wide: bool = False):
     """One RNN layer over (B, T, D): one kernel-A call when ``kernels`` (GRU
     cells with sigmoid gates), the training layer (kernels A, C, W) when
-    ``train`` too, else the plain cell scan."""
+    ``train`` too, or with ``wide`` xp = x @ W + b and kernels F, G, W (the
+    JAX package's ``_gru_layer_fallback_x``, ``fused_train.py:2282-2288``),
+    else the plain cell scan."""
     B, T, _ = xs.shape
     hidden = p["u"].shape[0]
     init = zero_states(cell, B, hidden, xs)
     if kernels and train:
-        out = gru_layer_train_x(xs.transpose(0, 1).contiguous(), init[0], p["w"], p["b"], p["u"],
-                                return_sequences)
+        x = xs.transpose(0, 1).contiguous()
+        if wide:
+            xp = (x.reshape(T * B, -1) @ p["w"] + p["b"]).reshape(T, B, -1)
+            out = gru_layer_train(xp, init[0], p["u"], return_sequences)
+        else:
+            out = gru_layer_train_x(x, init[0], p["w"], p["b"], p["u"], return_sequences)
         return out.transpose(0, 1) if return_sequences else out
     if kernels:
         out = gru_layer(xs.transpose(0, 1).contiguous(), init[0], p["w"], p["b"], p["u"],

@@ -13,13 +13,17 @@ GRU cells with sigmoid gates take kernel A (encoder layers) and kernel B
 tensors. Configs the JAX package runs as plain scans
 (``gate_activation='hard_sigmoid'``, ``cell_type='SimpleRNN'``,
 ``use_pallas='off'``) keep the plain path on any device. The training path
-(``inference=False``) takes the differentiable kernel ops instead:
+(``inference=False``) takes the differentiable kernel ops instead
+(``train_kernels_enabled``), along the route ``ops/_layout.py`` picks from
+the card's limits (``train_route``): on the narrow route (GRU(256))
 ``gru_layer_train_x`` per encoder layer, ``gru_decode_multihead_train`` for
 the notes head with its T-length side heads and ``gru_decode_train`` for the
-other heads (``train_kernels_enabled``). Paths whose kernels are not ported
-yet raise NotImplementedError on CUDA, naming their row of the kernel table
-(PERF.md, ROADMAP.md Queue 2); on the CPU they run the plain path through
-autograd.
+other heads; on the wide route (GRU(512)) ``gru_layer_train`` over
+xp = x @ W + b per layer and every head through ``gru_decode_train`` on its
+own. A teacher-forced head and cells other than tanh take the plain scans,
+as in the JAX package. Paths whose kernels are not ported yet raise
+NotImplementedError on CUDA, naming their row of the kernel table (PERF.md,
+ROADMAP.md Queue 2); on the CPU they run the plain path through autograd.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from torch import nn
 from midi_vae_tpu.config import Config
 
 from .. import bridge
+from ..ops import _layout
 from ..ops.gru_decode import (
     OUT_ACTIVATIONS,
     gru_decode,
@@ -54,13 +59,6 @@ def unported_training(cfg: Config) -> str | None:
     if cfg.compute_dtype == "bfloat16":
         return ("bfloat16 training not yet ported: the training kernels run float32 "
                 "(Queue 1 item 15)")
-    if cfg.lstm_activation != "tanh":
-        return (f"training kernels hard-code tanh's derivative (fused_train.py:2269, :981); "
-                f"lstm_activation={cfg.lstm_activation!r} waits for the per-step GRU cells "
-                "(Queue 2 rows 28-29)")
-    if cfg.teacher_force or cfg.meta_next_notes_teacher_force:
-        return ("teacher forcing runs the per-step GRU cell _gru_full_kernel "
-                "(Queue 2 row 28), not yet ported")
     if cfg.merge_decoder_scans or not cfg.fused_train_encoder or not cfg.fused_train_decoder:
         return ("merge_decoder_scans / fused_train_encoder=False / fused_train_decoder=False "
                 "run the per-step GRU cells _gru_full_kernel and _gru_recurrent_kernel "
@@ -119,8 +117,24 @@ class MidiVAE(nn.Module):
             return False
         reason = unported_training(self.cfg)
         if reason is not None and device.type == "cuda":
+            # the JAX package runs per-step or whole-scan kernels on these
+            # configs whatever the cell activation (models/vae.py:442-451,
+            # rnn.py:110-111, :165-179)
             raise NotImplementedError(reason)
+        if self.cfg.lstm_activation != "tanh":
+            # the whole-layer training kernels hard-code tanh's derivative;
+            # with the default fused flags the JAX package sends other cell
+            # activations to the plain scans, the encoder
+            # (fused_train.py:2269, :1668) and the decode heads (:3456, :981)
+            # alike
+            return False
         return reason is None
+
+    def train_route(self, device: torch.device) -> str:
+        """``"narrow"`` or ``"wide"``: which kernel builds the training step
+        takes at this width (``ops/_layout.py``); on the card a width no
+        build launches raises LaunchLimitError."""
+        return _layout.config_route(self.cfg, on_card=device.type == "cuda")
 
     # ------------------------------------------------------------------
     # Parameter initialization (plain numpy, same key order as the JAX package)
@@ -226,17 +240,18 @@ class MidiVAE(nn.Module):
         else:
             kernels = self.train_kernels_enabled(x.device)
         train = not inference
+        wide = kernels and train and self.train_route(x.device) == "wide"
         if cfg.use_embedding:
             x = x @ enc["embedding"]["w"]
         parts = [encode_sequence(enc["notes_rnn"], x, cfg.cell_type, cfg.lstm_activation,
-                                 cfg.bidirectional, kernels, cfg.gate_activation, train)]
+                                 cfg.bidirectional, kernels, cfg.gate_activation, train, wide)]
         for flag, name, key in ((cfg.meta_instrument, "inst_rnn", "I"),
                                 (cfg.meta_velocity, "vel_rnn", "V"),
                                 (cfg.meta_held_notes, "held_rnn", "D")):
             if flag:
                 parts.append(encode_sequence(enc[name], batch[key], cfg.cell_type,
                                              cfg.lstm_activation, False, kernels,
-                                             cfg.gate_activation, train))
+                                             cfg.gate_activation, train, wide))
         h = parts[0]
         if len(parts) > 1:
             act = activation_fn(cfg.activation_before_splitting)
@@ -326,14 +341,20 @@ class MidiVAE(nn.Module):
         return outputs
 
     def _decode_train(self, dec, new_encoded, z, ground_truth, next_ground_truth) -> dict:
-        """The training decode (``MidiVAE.decode(inference=False)``): the
-        2-layer notes head and its T-length side heads in one multi-head call
-        (``_decode_multihead_train``), every other head through
-        ``gru_decode_train``; teacher-forced heads and the non-kernel configs
-        take the plain scan."""
+        """The training decode (``MidiVAE.decode(inference=False)``): on the
+        narrow route the 2-layer notes head and its T-length side heads in
+        one multi-head call (``_decode_multihead_train``), every other head
+        through ``gru_decode_train``; on the wide route every head on its own
+        through the wide builds (the JAX package when ``_mh_vmem_ok``
+        rejects, ``models/vae.py:392-394``); teacher-forced heads and the
+        non-kernel configs take the plain scan."""
         cfg = self.cfg
         B = z.shape[0]
         kernels = self.train_kernels_enabled(z.device)
+        wide = kernels and self.train_route(z.device) == "wide"
+        # a teacher-forced notes head scans over known inputs and stays out
+        # of the multi-head call (midi_vae_tpu/models/vae.py:558-569)
+        notes_tf = cfg.teacher_force and ground_truth is not None
 
         def spec(name: str, head_dim: int) -> dict:
             h = dec[name]
@@ -347,7 +368,8 @@ class MidiVAE(nn.Module):
             if kernels and gt is None:
                 if len(s["cells"]) in (1, 2) and out_activation in OUT_ACTIVATIONS:
                     probs, logits = gru_decode_train(s["cells"], s["out"], s["init"], s["start"],
-                                                     length, cfg.lstm_activation, out_activation)
+                                                     length, cfg.lstm_activation, out_activation,
+                                                     wide)
                     return probs.transpose(0, 1), logits.transpose(0, 1)
                 if z.device.type == "cuda":
                     raise NotImplementedError(
@@ -358,7 +380,8 @@ class MidiVAE(nn.Module):
                                          cfg.gate_activation, gt)
 
         outputs: dict = {}
-        if kernels and cfg.num_layers_decoder == 2 and cfg.activation in OUT_ACTIVATIONS:
+        if (kernels and not wide and not notes_tf and cfg.num_layers_decoder == 2
+                and cfg.activation in OUT_ACTIVATIONS):
             side = [(n, d, a) for flag, n, d, length, a in (
                 (cfg.meta_velocity, "velocity", 1, cfg.meta_velocity_length,
                  cfg.meta_velocity_activation),
@@ -374,7 +397,7 @@ class MidiVAE(nn.Module):
                     outputs[name] = (probs.transpose(0, 1), logits.transpose(0, 1))
         if "notes" not in outputs:
             outputs["notes"] = run_head("notes", cfg.output_dim, cfg.output_length, cfg.activation,
-                                        ground_truth if cfg.teacher_force else None)
+                                        ground_truth if notes_tf else None)
         if cfg.meta_velocity and "velocity" not in outputs:
             outputs["velocity"] = run_head("velocity", 1, cfg.meta_velocity_length,
                                            cfg.meta_velocity_activation)

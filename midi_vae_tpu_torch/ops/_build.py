@@ -16,21 +16,26 @@ import ctypes
 import functools
 import glob
 import os
+import re
 import shutil
 import subprocess
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
+# -Xptxas -v only reports each kernel's registers, shared memory and spills
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 # every kernel library, one per csrc/<name>.cu
 LIBRARIES = ("gru_layer_fwd", "gru_decode", "gru_layer_bwd", "gru_decode_train",
-             "gru_decode_bwd", "grad_reduce")
+             "gru_decode_bwd", "grad_reduce", "gru_layer_xp_fwd", "gru_layer_xp_bwd")
 # seconds spent in nvcc by this process, per library (chip_smoke reports it)
 build_seconds: dict[str, float] = {}
+# per library built by this process: {kernel function (mangled): {"registers",
+# "spill_stores", "spill_loads"}}, from ptxas's report
+ptxas_report: dict[str, dict[str, dict[str, int]]] = {}
 
 
 def _nvcc() -> str:
@@ -86,8 +91,34 @@ def build(names) -> None:
             failures.append(f"nvcc failed for {src} (rc {proc.returncode}):\n{' '.join(cmd)}\n{out}")
         else:
             os.replace(tmp, so)
+            ptxas_report[name] = parse_ptxas(out)
     if failures:
         raise RuntimeError("\n".join(failures))
+
+
+_ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?([A-Za-z0-9_]+)'?")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(text: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes per kernel from ``nvcc -Xptxas -v`` output."""
+    kernels: dict[str, dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            current = kernels.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = _SPILLS.search(line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = _REGS.search(line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return {k: v for k, v in kernels.items() if "registers" in v}
 
 
 @functools.cache

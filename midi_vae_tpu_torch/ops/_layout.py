@@ -1,0 +1,155 @@
+"""Which kernel builds a layer or decode head takes, from the card's limits.
+
+Every GRU kernel of the port runs one thread per hidden column (blockDim.x =
+H) and keeps a tile of batch rows per block, so whether a build launches at a
+width is a matter of two limits of the H100 (sm_90a):
+- registers: the block's threads times their registers must fit the SM's
+  65,536 (registers are allocated in steps of 8 per thread);
+- shared memory: the block's tile must fit the 227 KB (232,448 bytes) a block
+  may have.
+
+Kernels A to E were built for GRU(256) without launch bounds; their register
+counts (``REGISTERS``, from ``nvcc -Xptxas -v`` on the card; ``chip_smoke.py``
+checks them against the build) decide how wide they go. F, G and the wide
+decode builds are compiled under ``__launch_bounds__(WIDE_THREADS)``, so the
+compiler guarantees that up to 512 threads launch.
+
+The training step takes one route for all its layers and heads:
+- ``"narrow"``, the GRU(256) path: A + C per encoder layer (the x-projection
+  inside the kernels), D + E over 8 rows per block with the notes head's
+  T-length side heads in one launch;
+- ``"wide"``, taken where a narrow build does not launch (from H = 512 on: D
+  and E at 160 and 168 registers a thread): xp = x @ W + b as one
+  torch.matmul and F + G per encoder layer, and every head decoded on its
+  own by the 2-rows-per-block builds of D and E, as the JAX package does at
+  H = 512 (``fused_train.py:2282-2288``, ``models/vae.py:392-394``). A and
+  C alone would launch at 512, but with x @ W outside the serial kernel one
+  notes layer's forward + backward took 18.6 / 19.8 ms (L1 / L2) against
+  21.4 / 34.7 ms for A + C on the H100, so the encoder goes wide too.
+A width at which neither route launches raises ``LaunchLimitError`` naming the
+limit. ``FORCE_ROUTE`` is a test hook (like the JAX package's
+``_FORCE_TRAIN_MODE``) that sends small widths down the wide route.
+"""
+
+from __future__ import annotations
+
+REGS_PER_SM = 65_536
+SMEM_PER_BLOCK = 232_448
+ROWS = 8          # kRows: batch rows per block of A to G
+WIDE_ROWS = 2     # kWideRows: the wide builds of D and E
+WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
+
+# registers per thread of the builds without launch bounds (the largest over
+# a build's template instances), from nvcc -Xptxas -v for sm_90a
+REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168}
+# the builds compiled under __launch_bounds__(WIDE_THREADS)
+BOUNDED = ("F", "G", "D_wide", "E_wide")
+
+FORCE_ROUTE: str | None = None  # test hook: None | "narrow" | "wide"
+
+
+class LaunchLimitError(ValueError):
+    """A kernel build cannot launch at the asked shape on the card."""
+
+
+def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
+               dx: bool = False) -> int:
+    """Dynamic shared memory of one block of ``kernel``: D is the layer's
+    input width (A, C) or the head's output width (B, D, E)."""
+    rows = WIDE_ROWS if kernel.endswith("_wide") else ROWS
+    floats = {
+        "A": D + 2 * H,
+        "B": 2 * D + (n_layers + 1) * H,
+        "C": D + 5 * H + (D if dx else 0),
+        "D": 2 * D + (n_layers + 1) * H,
+        "E": 3 * D + 8 * H,
+        "F": 2 * H,
+        "G": 5 * H,
+    }[kernel.removesuffix("_wide")]
+    return 4 * rows * floats
+
+
+def launch_limit(kernel: str, H: int, smem: int) -> str | None:
+    """Why a block of H threads of ``kernel`` with ``smem`` bytes of shared
+    memory cannot launch on the card, or None when it can."""
+    if H < 32 or H % 32:
+        return f"kernel {kernel} takes H a multiple of 32 (one warp per 32 columns), got H={H}"
+    if kernel in BOUNDED:
+        if H > WIDE_THREADS:
+            return (f"kernel {kernel} is built under __launch_bounds__({WIDE_THREADS}): "
+                    f"H={H} threads per block do not launch")
+    else:
+        regs = -(-REGISTERS[kernel] // 8) * 8
+        if regs * H > REGS_PER_SM:
+            return (f"kernel {kernel} uses {REGISTERS[kernel]} registers a thread: {H} threads "
+                    f"need {regs * H:,} > the {REGS_PER_SM:,} registers of an SM")
+    if smem > SMEM_PER_BLOCK:
+        return (f"kernel {kernel} needs {smem:,} bytes of shared memory a block at H={H}, "
+                f"more than the {SMEM_PER_BLOCK:,} a block may have")
+    return None
+
+
+def require(kernel: str, H: int, smem: int) -> None:
+    """Raise LaunchLimitError when ``kernel`` cannot launch at H."""
+    why = launch_limit(kernel, H, smem)
+    if why is not None:
+        raise LaunchLimitError(why)
+
+
+def _route_limits(route: str, H: int, layers, heads) -> list[str]:
+    """The limits the route's builds hit: ``layers`` is (D_in, dx wanted) per
+    encoder layer, ``heads`` (D, n_layers) per decode head."""
+    if route == "narrow":
+        checks = [(k, smem_bytes(k, H, d, dx=dx)) for d, dx in layers for k in ("A", "C")]
+        checks += [(k, smem_bytes(k, H, d, n)) for d, n in heads for k in ("D", "E")]
+    else:
+        checks = [(k, smem_bytes(k, H)) for k in ("F", "G")] if layers else []
+        checks += [(k, smem_bytes(k, H, d, n)) for d, n in heads for k in ("D_wide", "E_wide")]
+    return [why for k, smem in checks if (why := launch_limit(k, H, smem)) is not None]
+
+
+def train_route(H: int, layers, heads, on_card: bool = True) -> str:
+    """``"narrow"`` or ``"wide"`` for a training step at width H (see the
+    module note). Off the card both routes run the same plain versions, so a
+    width no build launches takes the narrow route there; on the card it
+    raises LaunchLimitError."""
+    if FORCE_ROUTE is not None:
+        return FORCE_ROUTE
+    narrow = _route_limits("narrow", H, layers, heads)
+    if not narrow:
+        return "narrow"
+    wide = _route_limits("wide", H, layers, heads)
+    if not wide:
+        return "wide"
+    if not on_card:
+        return "narrow"
+    raise LaunchLimitError(f"no kernel build runs a training step at H={H}: {narrow[0]}; "
+                           f"{wide[0]}")
+
+
+def config_shapes(cfg) -> tuple[list, list]:
+    """(layers, heads) of ``cfg``'s training step for ``train_route``: every
+    encoder layer's input width (the notes stack, its meta branches) with
+    whether its dx is wanted, every decode head's (D, layers)."""
+    H = cfg.lstm_size
+    notes_in = cfg.embedding_dim if cfg.use_embedding else cfg.input_dim
+    layers = []
+    for i in range(cfg.num_layers_encoder):
+        d = notes_in if i == 0 else (2 * H if cfg.bidirectional else H)
+        layers.append((d, i > 0 or cfg.use_embedding))
+    for flag, d in ((cfg.meta_instrument, cfg.meta_instrument_dim), (cfg.meta_velocity, 1),
+                    (cfg.meta_held_notes, 2)):
+        if flag:
+            layers.append((d, False))
+    heads = [(cfg.output_dim, cfg.num_layers_decoder)]
+    for flag, d, n in ((cfg.meta_instrument, cfg.meta_instrument_dim, 1),
+                       (cfg.meta_velocity, 1, 1), (cfg.meta_held_notes, 2, 1),
+                       (cfg.meta_next_notes, cfg.output_dim, cfg.num_layers_decoder)):
+        if flag:
+            heads.append((d, n))
+    return layers, heads
+
+
+def config_route(cfg, on_card: bool = True) -> str:
+    """``train_route`` of a model config."""
+    return train_route(cfg.lstm_size, *config_shapes(cfg), on_card=on_card)

@@ -110,6 +110,19 @@ def gru_weight_grads(x, hprev, rh, da_cat):
     kw = {"device": x.device, "dtype": torch.float32}
     dw, db, du = torch.empty(D, 3 * H, **kw), torch.empty(3 * H, **kw), torch.empty(H, 3 * H, **kw)
     grad_reduce(x.reshape(n, D), da, dw, db)
+    gru_u_grad(hprev, rh, da_cat, du)
+    return dw, db, du
+
+
+def gru_u_grad(hprev, rh, da_cat, out=None):
+    """dU (H, 3H) of one GRU cell over a whole sequence (into ``out`` when
+    given): [h_{t-1}^T da_zr, (r*h_{t-1})^T da], all (T, B, .) time-major
+    (``_gru_wide_weight_grads``, :1813-1835). Two reductions."""
+    H = hprev.shape[-1]
+    n = hprev.shape[0] * hprev.shape[1]
+    da = da_cat.reshape(n, 3 * H)
+    du = out if out is not None else torch.empty(H, 3 * H, device=hprev.device,
+                                                 dtype=torch.float32)
     grad_reduce(hprev.reshape(n, H), da[:, : 2 * H], du[:, : 2 * H])
     grad_reduce(rh.reshape(n, H), da[:, 2 * H :], du[:, 2 * H :])
-    return dw, db, du
+    return du

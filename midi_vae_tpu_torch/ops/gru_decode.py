@@ -21,6 +21,12 @@ its layers' h sequences. Its backward is kernel E
 ``_mh_bwd_kernel``) for the gate grads, d_init and d_start, then kernel W
 (``ops/grad_reduce.py``) for every weight grad. The plain versions are
 ``gru_decode_train_reference`` and ``gru_decode_bwd_reference``.
+
+D and E each have a second build for the wide route (``ops/_layout.py``,
+H = 512): 2 batch rows per block under ``__launch_bounds__(512)``, replacing
+``_dec_fwd_wide_pallas`` and ``_dec_bwd_wide_pallas``. ``wide=True`` selects
+it; ``gru_decode_fwd_train_wide`` and ``gru_decode_bwd_wide`` count its
+launches.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, _layout
 from .grad_reduce import grad_reduce, gru_weight_grads
 from .gru_layer import CELL_ACTIVATIONS, _ptr, cell_activation, check_operands, gru_cell_bwd_core, gru_step
 
@@ -107,8 +113,9 @@ def gru_decode(cells, out_dense, init_states, start, T, activation="tanh",
     if start.device.type != "cuda":
         raise ValueError(f"gru_decode runs on cpu or cuda tensors, not {start.device}")
     check_operands(named, start.device)
-    if T < 1 or H % 32 or not 32 <= H <= 1024:
-        raise ValueError(f"kernel B takes T >= 1 and H a multiple of 32 in [32, 1024]; got T={T} H={H}")
+    if T < 1:
+        raise ValueError(f"kernel B takes T >= 1; got T={T}")
+    _layout.require("B", H, _layout.smem_bytes("B", H, D, n_layers))
     probs = torch.empty((T, B, D), device=start.device, dtype=torch.float32)
     logits = torch.empty_like(probs)
     two = n_layers == 2
@@ -214,8 +221,10 @@ class _DecodeHeadBwd(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _BWD_PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
-def _check_heads(heads) -> tuple[int, int, torch.device]:
-    """Shapes of a list of training heads; returns (B, H, device)."""
+def _check_heads(heads, kernel: str) -> tuple[int, int, torch.device]:
+    """Shapes of a list of training heads, and on the card whether
+    ``kernel`` (D, E or their wide builds) launches; returns (B, H,
+    device)."""
     if not 1 <= len(heads) <= MAX_HEADS:
         raise ValueError(f"kernels D and E take 1 to {MAX_HEADS} heads per call, got {len(heads)}")
     B, H = heads[0]["start"].shape[0], heads[0]["init"][0].shape[-1]
@@ -241,15 +250,16 @@ def _check_heads(heads) -> tuple[int, int, torch.device]:
             if tuple(t.shape) != expected[name]:
                 raise ValueError(f"head {k}: {name} has shape {tuple(t.shape)}, expected {expected[name]}")
     device = heads[0]["start"].device
-    if device.type == "cuda" and (H % 32 or not 32 <= H <= 1024):
-        raise ValueError(f"kernels D and E take H a multiple of 32 in [32, 1024]; got H={H}")
+    if device.type == "cuda":
+        _layout.require(kernel, H, max(_layout.smem_bytes(kernel, H, h["start"].shape[-1],
+                                                         len(h["cells"])) for h in heads))
     return B, H, device
 
 
 @functools.cache
-def _fwd_kernel():
+def _fwd_kernel(wide: bool):
     lib = _build.load("gru_decode_train")
-    fn = lib.mvt_gru_decode_train
+    fn = lib.mvt_gru_decode_train_wide if wide else lib.mvt_gru_decode_train
     fn.argtypes = [ctypes.POINTER(_DecodeHead), ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -261,7 +271,23 @@ def gru_decode_fwd_train(heads):
     start, T, out_activation} (tanh cells). Returns per head (probs, logits,
     [h sequence per layer]), all (T, B, .). CPU tensors run
     ``gru_decode_train_reference``; CUDA tensors launch kernel D once."""
-    B, H, device = _check_heads(heads)
+    return _decode_fwd(heads, wide=False)
+
+
+gru_decode_fwd_train.launches = 0
+
+
+def gru_decode_fwd_train_wide(heads):
+    """``gru_decode_fwd_train`` through kernel D's wide build (2 rows per
+    block, up to H = 512 threads)."""
+    return _decode_fwd(heads, wide=True)
+
+
+gru_decode_fwd_train_wide.launches = 0
+
+
+def _decode_fwd(heads, wide: bool):
+    B, H, device = _check_heads(heads, "D_wide" if wide else "D")
     if device.type == "cpu":
         return [gru_decode_train_reference(h["cells"], h["out"], h["init"], h["start"], h["T"],
                                            h["out_activation"]) for h in heads]
@@ -286,20 +312,17 @@ def gru_decode_fwd_train(heads):
             setattr(st, name, named[name].data_ptr() if name in named else null.value)
         st.D, st.n_layers, st.out_act, st.T = D, n_layers, OUT_ACTIVATIONS[h["out_activation"]], T
         outs.append((probs, logits, h_seqs))
-    lib, fn = _fwd_kernel()
+    lib, fn = _fwd_kernel(wide)
     rc = fn(structs, len(heads), B, H, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-    _build.check(lib, rc, "gru_decode_train launch")
-    gru_decode_fwd_train.launches += 1
+    _build.check(lib, rc, f"gru_decode_train{'_wide' if wide else ''} launch")
+    (gru_decode_fwd_train_wide if wide else gru_decode_fwd_train).launches += 1
     return outs
 
 
-gru_decode_fwd_train.launches = 0
-
-
 @functools.cache
-def _bwd_kernel():
+def _bwd_kernel(wide: bool):
     lib = _build.load("gru_decode_bwd")
-    fn = lib.mvt_gru_decode_bwd
+    fn = lib.mvt_gru_decode_bwd_wide if wide else lib.mvt_gru_decode_bwd
     fn.argtypes = [ctypes.POINTER(_DecodeHeadBwd), ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -312,7 +335,23 @@ def gru_decode_bwd(heads):
     ``g_logits`` (T, B, D). Returns per head the dict of
     ``gru_decode_bwd_reference``. CPU tensors run that plain version; CUDA
     tensors launch kernel E once."""
-    B, H, device = _check_heads(heads)
+    return _decode_bwd(heads, wide=False)
+
+
+gru_decode_bwd.launches = 0
+
+
+def gru_decode_bwd_wide(heads):
+    """``gru_decode_bwd`` through kernel E's wide build (2 rows per block, up
+    to H = 512 threads)."""
+    return _decode_bwd(heads, wide=True)
+
+
+gru_decode_bwd_wide.launches = 0
+
+
+def _decode_bwd(heads, wide: bool):
+    B, H, device = _check_heads(heads, "E_wide" if wide else "E")
     for k, h in enumerate(heads):
         want = (h["T"], B, h["start"].shape[-1])
         for name in ("probs", "g_probs", "g_logits"):
@@ -353,14 +392,11 @@ def gru_decode_bwd(heads):
             setattr(st, name, named[name].data_ptr() if name in named else null.value)
         st.D, st.n_layers, st.out_act, st.T = D, n_layers, OUT_ACTIVATIONS[h["out_activation"]], T
         outs.append(g)
-    lib, fn = _bwd_kernel()
+    lib, fn = _bwd_kernel(wide)
     rc = fn(structs, len(heads), B, H, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-    _build.check(lib, rc, "gru_decode_bwd launch")
-    gru_decode_bwd.launches += 1
+    _build.check(lib, rc, f"gru_decode_bwd{'_wide' if wide else ''} launch")
+    (gru_decode_bwd_wide if wide else gru_decode_bwd).launches += 1
     return outs
-
-
-gru_decode_bwd.launches = 0
 
 
 def _flatten_head(h) -> list:
@@ -389,18 +425,20 @@ def _unflatten_heads(layout, flat) -> list[dict]:
 
 class _DecodeTrain(torch.autograd.Function):
     """Training decode of 1 to 4 heads: forward kernel D, backward kernel E
-    then kernel W. ``layout`` is one (n_layers, out_activation, T) per head;
-    ``flat`` holds each head's tensors in ``_flatten_head`` order. Returns
-    (probs, logits) of every head, flattened."""
+    then kernel W (``wide``: D's and E's wide builds). ``layout`` is one
+    (n_layers, out_activation, T) per head; ``flat`` holds each head's
+    tensors in ``_flatten_head`` order. Returns (probs, logits) of every
+    head, flattened."""
 
     @staticmethod
-    def forward(ctx, layout, *flat):
+    def forward(ctx, layout, wide, *flat):
         # the notes accuracy and some heads' probs or logits have no grad
         ctx.set_materialize_grads(True)
-        outs = gru_decode_fwd_train(_unflatten_heads(layout, flat))
+        fwd = gru_decode_fwd_train_wide if wide else gru_decode_fwd_train
+        outs = fwd(_unflatten_heads(layout, flat))
         residuals = [t for probs, _logits, h_seqs in outs for t in (probs, *h_seqs)]
         ctx.save_for_backward(*flat, *residuals)
-        ctx.layout, ctx.n_flat = layout, len(flat)
+        ctx.layout, ctx.wide, ctx.n_flat = layout, wide, len(flat)
         return tuple(t for probs, logits, _h in outs for t in (probs, logits))
 
     @staticmethod
@@ -413,7 +451,8 @@ class _DecodeTrain(torch.autograd.Function):
             h["h_seqs"] = [next(residuals) for _ in h["cells"]]
             h["g_probs"], h["g_logits"] = grads[2 * k].contiguous(), grads[2 * k + 1].contiguous()
         flat_grads = []
-        for h, g in zip(heads, gru_decode_bwd(heads)):
+        bwd = gru_decode_bwd_wide if ctx.wide else gru_decode_bwd
+        for h, g in zip(heads, bwd(heads)):
             T, (B, D), H = h["T"], h["start"].shape, h["init"][0].shape[-1]
             kw = {"device": h["start"].device, "dtype": torch.float32}
             dwo, dbo = torch.empty(H, D, **kw), torch.empty(D, **kw)
@@ -425,26 +464,27 @@ class _DecodeTrain(torch.autograd.Function):
                 dw, db, du = gru_weight_grads(x, hprev, g["rh"][i], g["da"][i])
                 cell_grads += [dw, du, db]
             flat_grads += [g["d_start"], *g["d_init"], *cell_grads, dwo, dbo]
-        return (None, *flat_grads)
+        return (None, None, *flat_grads)
 
 
-def _decode_heads_train(heads):
+def _decode_heads_train(heads, wide=False):
     layout = tuple((len(h["cells"]), h["out_activation"], h["T"]) for h in heads)
     flat = [t for h in heads for t in _flatten_head(h)]
-    outs = _DecodeTrain.apply(layout, *flat)
+    outs = _DecodeTrain.apply(layout, wide, *flat)
     return [(outs[2 * k], outs[2 * k + 1]) for k in range(len(heads))]
 
 
 def gru_decode_train(cells, out_dense, init_states, start, T, activation="tanh",
-                     out_activation="softmax"):
+                     out_activation="softmax", wide=False):
     """Differentiable readout decode of one head (1 or 2 GRU layers, tanh):
     (probs, logits), each (T, B, D) time-major. CPU tensors run the plain
-    versions of kernels D, E and W; CUDA tensors launch them."""
+    versions of kernels D, E and W; CUDA tensors launch them (``wide``: the
+    wide builds of D and E)."""
     if activation != "tanh":
         raise ValueError(f"the decode training kernels implement tanh cells, not {activation!r}")
     head = {"cells": list(cells), "out": out_dense, "init": list(init_states), "start": start,
             "T": T, "out_activation": out_activation}
-    return _decode_heads_train([head])[0]
+    return _decode_heads_train([head], wide)[0]
 
 
 def gru_decode_multihead_train(primary, heads, T, activation, out_acts):

@@ -20,6 +20,17 @@ final h, as ``_glx_fwd`` does), its backward is kernel C
 ``gru_layer_bwd_reference`` are the plain versions of the backward: the
 CPU path and kernel C's oracle. The backward hard-codes tanh's derivative,
 as the TPU kernels do (:2269).
+
+The wide route (``ops/_layout.py``, H = 512) trains a layer over a
+precomputed x-projection instead: ``gru_layer_train(xp, h0, u)``,
+counterpart of ``midi_vae_tpu/ops/fused_train.py::gru_layer_train``, whose
+forward is kernel F (``csrc/gru_layer_xp_fwd.cu``, replacing ``_fwd_kernel``
+in ``_fwd_pallas`` and ``_fwd_wide_pallas``) and whose backward is kernel G
+(``csrc/gru_layer_xp_bwd.cu``, replacing ``_bwd_kernel`` and
+``_bwd_wide_kernel``) then kernel W for dU, as ``_gru_wide_weight_grads``
+does in XLA. The caller computes xp = x @ W + b with torch.matmul, so dx, dW
+and db come from autograd, as the JAX package leaves them to XLA (:2287).
+Plain versions: ``gru_layer_xp_reference`` and ``gru_layer_xp_bwd_reference``.
 """
 
 from __future__ import annotations
@@ -29,8 +40,8 @@ import functools
 
 import torch
 
-from . import _build
-from .grad_reduce import gru_weight_grads
+from . import _build, _layout
+from .grad_reduce import gru_u_grad, gru_weight_grads
 
 # cell activations the kernels implement, with their codes in gru_common.cuh
 CELL_ACTIVATIONS = {"tanh": 0, "sigmoid": 1, "relu": 2}
@@ -57,13 +68,18 @@ def gru_step(x, h, w, u, b, act):
 
 def gru_layer_reference(x, h0, w, b, u, activation="tanh", return_sequences=False):
     """Plain version: x (T, B, D) -> (T, B, H) sequence or final h (B, H)."""
-    act = cell_activation(activation)
     T, B, D = x.shape
     xp = (x.reshape(T * B, D) @ w + b).reshape(T, B, -1)
+    return _scan_xp(xp, h0, u, cell_activation(activation), return_sequences)
+
+
+def _scan_xp(xp, h0, u, act, return_sequences):
+    """The GRU recurrence over a precomputed x-projection xp (T, B, 3H)
+    (``_encoder_scan_reference``)."""
     H = h0.shape[-1]
     h = h0
     seq = []
-    for t in range(T):
+    for t in range(xp.shape[0]):
         hu_zr = h @ u[:, : 2 * H]
         z = torch.sigmoid(xp[t, :, :H] + hu_zr[:, :H])
         r = torch.sigmoid(xp[t, :, H : 2 * H] + hu_zr[:, H:])
@@ -119,8 +135,9 @@ def gru_layer(x, h0, w, b, u, activation="tanh", return_sequences=False):
     if x.device.type != "cuda":
         raise ValueError(f"gru_layer runs on cpu or cuda tensors, not {x.device}")
     check_operands({"x": x, "h0": h0, "w": w, "b": b, "u": u}, x.device)
-    if T < 1 or B < 1 or H % 32 or not 32 <= H <= 1024:
-        raise ValueError(f"kernel A takes T >= 1, B >= 1 and H a multiple of 32 in [32, 1024]; got T={T} B={B} H={H}")
+    if T < 1 or B < 1:
+        raise ValueError(f"kernel A takes T >= 1 and B >= 1; got T={T} B={B}")
+    _layout.require("A", H, _layout.smem_bytes("A", H, D))
     out = torch.empty((T, B, H) if return_sequences else (B, H), device=x.device, dtype=torch.float32)
     lib, fn = _kernel()
     rc = fn(
@@ -145,8 +162,14 @@ def gru_cell_bwd_core(x, hp, w, u, b, dh):
     and dL/dh_t (``_gru_cell_bwd_core``). Returns (dx, dh_prev, da_cat, rh):
     da_cat = [da_z, da_r, da] are the pre-activation gate grads the weight
     grads reduce over, rh = r * h_{t-1}."""
+    da_cat, dhp, rh = gru_cell_bwd_xp(x @ w + b, hp, u, dh)
+    return da_cat @ w.t(), dhp, da_cat, rh
+
+
+def gru_cell_bwd_xp(xp, hp, u, dh):
+    """``gru_cell_bwd_core`` from the step's x-projection xp = x_t @ W + b:
+    returns (da_cat, dh_prev, rh); da_cat is dL/dxp."""
     H = hp.shape[-1]
-    xp = x @ w + b
     hu = hp @ u[:, : 2 * H]
     z = torch.sigmoid(xp[:, :H] + hu[:, :H])
     r = torch.sigmoid(xp[:, H : 2 * H] + hu[:, H:])
@@ -157,9 +180,8 @@ def gru_cell_bwd_core(x, hp, w, u, b, dh):
     drh = da @ u[:, 2 * H :].t()
     da_zr = torch.cat([dz * z * (1.0 - z), drh * hp * r * (1.0 - r)], dim=-1)
     da_cat = torch.cat([da_zr, da], dim=-1)
-    dx = da_cat @ w.t()
     dhp = dh * z + drh * r + da_zr @ u[:, : 2 * H].t()
-    return dx, dhp, da_cat, rh
+    return da_cat, dhp, rh
 
 
 def gru_layer_bwd_reference(x, seq, h0, d_seq, d_final, w, b, u, need_dx=True):
@@ -207,8 +229,7 @@ def gru_layer_bwd(x, seq, h0, d_seq, d_final, w, b, u, need_dx=True):
     if x.device.type != "cuda":
         raise ValueError(f"gru_layer_bwd runs on cpu or cuda tensors, not {x.device}")
     check_operands(named, x.device)
-    if H % 32 or not 32 <= H <= 1024:
-        raise ValueError(f"kernel C takes H a multiple of 32 in [32, 1024]; got H={H}")
+    _layout.require("C", H, _layout.smem_bytes("C", H, D, dx=need_dx))
     kw = {"device": x.device, "dtype": torch.float32}
     dx = torch.empty(T, B, D, **kw) if need_dx else None
     dh0 = torch.empty(B, H, **kw)
@@ -261,3 +282,143 @@ def gru_layer_train_x(x, h0, w, b, u, return_sequences=False):
     (T, B, H) sequence or the final h (B, H). CPU tensors run the plain
     versions of kernels A, C and W; CUDA tensors launch them."""
     return _GruLayerTrainX.apply(x, h0, w, b, u, return_sequences)
+
+
+# ---------------------------------------------------------------------------
+# The wide route: the layer over a precomputed x-projection (kernels F, G, W)
+# ---------------------------------------------------------------------------
+
+def gru_layer_xp_reference(xp, h0, u):
+    """Plain version of kernel F: the tanh GRU layer over xp (T, B, 3H),
+    returning the (T, B, H) h sequence."""
+    return _scan_xp(xp, h0, u, torch.tanh, True)
+
+
+def _check_xp(xp, h0, u, seq=None, d_seq=None, d_final=None) -> tuple[int, int, int]:
+    """Shapes of the operands of kernels F and G (the optional ones may be
+    None) and, on the card, their device, dtype and contiguity. Returns
+    (T, B, H)."""
+    if xp.dim() != 3:
+        raise ValueError(f"xp must be (T, B, 3H), got {tuple(xp.shape)}")
+    T, B = xp.shape[:2]
+    H = u.shape[0]
+    named = {"xp": (xp, (T, B, 3 * H)), "h0": (h0, (B, H)), "u": (u, (H, 3 * H)),
+             "seq": (seq, (T, B, H)), "d_seq": (d_seq, (T, B, H)), "d_final": (d_final, (B, H))}
+    named = {k: v for k, v in named.items() if v[0] is not None}
+    for name, (t, shape) in named.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if xp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the GRU layer kernels run on cpu or cuda tensors, not {xp.device}")
+    if xp.device.type == "cuda":
+        check_operands({k: t for k, (t, _) in named.items()}, xp.device)
+        if T < 1 or B < 1:
+            raise ValueError(f"kernels F and G take T >= 1 and B >= 1; got T={T} B={B}")
+    return T, B, H
+
+
+@functools.cache
+def _xp_fwd_kernel():
+    lib = _build.load("gru_layer_xp_fwd")
+    fn = lib.mvt_gru_layer_xp_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def gru_layer_xp(xp, h0, u):
+    """The tanh GRU layer forward over xp (T, B, 3H) time-major: the (T, B,
+    H) h sequence. CPU tensors run ``gru_layer_xp_reference``; CUDA tensors
+    launch kernel F."""
+    T, B, H = _check_xp(xp, h0, u)
+    if xp.device.type == "cpu":
+        return gru_layer_xp_reference(xp, h0, u)
+    _layout.require("F", H, _layout.smem_bytes("F", H))
+    seq = torch.empty(T, B, H, device=xp.device, dtype=torch.float32)
+    lib, fn = _xp_fwd_kernel()
+    rc = fn(_ptr(xp), _ptr(h0), _ptr(u), _ptr(seq), T, B, H,
+            ctypes.c_void_p(torch.cuda.current_stream(xp.device).cuda_stream))
+    _build.check(lib, rc, "gru_layer_xp_fwd launch")
+    gru_layer_xp.launches += 1
+    return seq
+
+
+gru_layer_xp.launches = 0
+
+
+def gru_layer_xp_bwd_reference(xp, seq, h0, d_seq, d_final, u):
+    """Plain version of kernel G: reverse-time BPTT of the layer over xp.
+    ``d_seq`` (T, B, H) and ``d_final`` (B, H) are the incoming grads (either
+    may be None). Returns (dxp = da_cat (T, B, 3H), dh0, rh (T, B, H))."""
+    T = xp.shape[0]
+    dh = d_final if d_final is not None else torch.zeros_like(h0)
+    da, rh = [None] * T, [None] * T
+    for t in reversed(range(T)):
+        if d_seq is not None:
+            dh = dh + d_seq[t]
+        hp = seq[t - 1] if t > 0 else h0
+        da[t], dh, rh[t] = gru_cell_bwd_xp(xp[t], hp, u, dh)
+    return torch.stack(da), dh, torch.stack(rh)
+
+
+@functools.cache
+def _xp_bwd_kernel():
+    lib = _build.load("gru_layer_xp_bwd")
+    fn = lib.mvt_gru_layer_xp_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def gru_layer_xp_bwd(xp, seq, h0, d_seq, d_final, u):
+    """Backward of ``gru_layer_xp``: see ``gru_layer_xp_bwd_reference``. CPU
+    tensors run the plain version; CUDA tensors launch kernel G."""
+    T, B, H = _check_xp(xp, h0, u, seq, d_seq, d_final)
+    if xp.device.type == "cpu":
+        return gru_layer_xp_bwd_reference(xp, seq, h0, d_seq, d_final, u)
+    _layout.require("G", H, _layout.smem_bytes("G", H))
+    kw = {"device": xp.device, "dtype": torch.float32}
+    dacat, dh0, rh = torch.empty(T, B, 3 * H, **kw), torch.empty(B, H, **kw), torch.empty(T, B, H, **kw)
+    ut = u.t().contiguous()  # the transposed products read U^T row by row
+    null = ctypes.c_void_p(None)
+    opt = lambda t: _ptr(t) if t is not None else null  # noqa: E731
+    lib, fn = _xp_bwd_kernel()
+    rc = fn(_ptr(xp), _ptr(seq), _ptr(h0), opt(d_seq), opt(d_final), _ptr(u), _ptr(ut),
+            _ptr(dacat), _ptr(dh0), _ptr(rh), T, B, H,
+            ctypes.c_void_p(torch.cuda.current_stream(xp.device).cuda_stream))
+    _build.check(lib, rc, "gru_layer_xp_bwd launch")
+    gru_layer_xp_bwd.launches += 1
+    return dacat, dh0, rh
+
+
+gru_layer_xp_bwd.launches = 0
+
+
+class _GruLayerTrain(torch.autograd.Function):
+    """Forward: kernel F, the h sequence as residual. Backward: kernel G for
+    dxp and dh0, then kernel W for dU."""
+
+    @staticmethod
+    def forward(ctx, xp, h0, u, return_sequences):
+        ctx.set_materialize_grads(True)
+        seq = gru_layer_xp(xp, h0, u)
+        ctx.save_for_backward(xp, h0, u, seq)
+        ctx.return_sequences = return_sequences
+        return seq if return_sequences else seq[-1].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, h0, u, seq = ctx.saved_tensors
+        g = g.contiguous()
+        d_seq, d_final = (g, None) if ctx.return_sequences else (None, g)
+        dxp, dh0, rh = gru_layer_xp_bwd(xp, seq, h0, d_seq, d_final, u)
+        du = gru_u_grad(torch.cat([h0[None], seq[:-1]]), rh, dxp)
+        return dxp, dh0, du, None
+
+
+def gru_layer_train(xp, h0, u, return_sequences=False):
+    """Differentiable tanh GRU layer over a precomputed x-projection xp (T,
+    B, 3H) time-major: the (T, B, H) sequence or the final h (B, H). CPU
+    tensors run the plain versions of kernels F, G and W; CUDA tensors launch
+    them."""
+    return _GruLayerTrain.apply(xp, h0, u, return_sequences)

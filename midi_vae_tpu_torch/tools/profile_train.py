@@ -2,14 +2,16 @@
 """Where the time of one training step goes, on a CUDA card.
 
 Runs ``VAETrainer.train_step`` (forward, loss, backward, Adam) of the default
-Config() model (seeded numpy init) on one random 256-window batch, and prints
-one JSON line: the card, the median wall time per step (host clock around
-work that ends in a synchronize), note-steps/s (B x 64 output steps per
-step), and from a torch.profiler window of STEPS steps the device time per
-kernel name, per kernel of the port (A, C, D, E, W) and for everything else,
-and the device's idle share.
+Config() model (seeded numpy init; ``--set`` overrides fields, e.g.
+``lstm_size=512`` for the wide model) on one random 256-window batch, and
+prints one JSON line: the card, the route of the step, the median wall time
+per step (host clock around work that ends in a synchronize), note-steps/s (B
+x 64 output steps per step), and from a torch.profiler window of STEPS steps
+the device time per kernel name, per kernel of the port (A, C, D, E, F, G,
+the wide D and E, W) and for everything else, and the device's idle share.
 
 Usage: python -m midi_vae_tpu_torch.tools.profile_train [--batch 256] [--steps 10]
+           [--set lstm_size=512]
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ PORT_KERNELS = {
     "gru_layer_bwd_kernel": "C gru_layer_bwd",
     "gru_decode_train_kernel": "D gru_decode_train",
     "gru_decode_bwd_kernel": "E gru_decode_bwd",
+    "gru_layer_xp_fwd_kernel": "F gru_layer_xp_fwd",
+    "gru_layer_xp_bwd_kernel": "G gru_layer_xp_bwd",
+    "gru_decode_train_wide_kernel": "D wide gru_decode_train_wide",
+    "gru_decode_bwd_wide_kernel": "E wide gru_decode_bwd_wide",
     "grad_reduce": "W grad_reduce",
 }
 
@@ -68,13 +74,16 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--batch", type=int, default=256)
     p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   help="override any Config field")
     args = p.parse_args(argv)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from midi_vae_tpu.config import Config
+    from midi_vae_tpu.config import Config, parse_overrides
     from midi_vae_tpu_torch import use_exact_f32
+    from midi_vae_tpu_torch.ops import _layout
     from midi_vae_tpu_torch.training.trainer import VAETrainer
 
     if not torch.cuda.is_available():
@@ -82,7 +91,7 @@ def main(argv: list[str] | None = None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     use_exact_f32()
-    cfg = Config(batch_size=args.batch)
+    cfg = Config(batch_size=args.batch, **parse_overrides(args.set))
     trainer = VAETrainer(cfg, "cuda")
     state = trainer.init_state()
     batch = trainer.to_device(random_train_batch(cfg, args.batch, 0))
@@ -115,11 +124,13 @@ def main(argv: list[str] | None = None) -> int:
     groups: dict[str, float] = {}
     for name, ms in kernels.items():
         short = name.split("<")[0].replace("void ", "").replace("mvt::", "")
-        group = next((g for prefix, g in PORT_KERNELS.items() if short.startswith(prefix)),
+        group = next((g for prefix, g in PORT_KERNELS.items() if short == prefix
+                      or short.startswith(prefix + "_")),
                      "other (ATen, cuBLAS, copies)")
         groups[group] = groups.get(group, 0.0) + ms
     print(json.dumps({
-        "batch": args.batch, "card": card, "step_wall_ms_median": wall * 1e3,
+        "batch": args.batch, "lstm_size": cfg.lstm_size, "route": _layout.config_route(cfg),
+        "card": card, "step_wall_ms_median": wall * 1e3,
         "note_steps_per_s": args.batch * cfg.output_length / wall,
         "profiled_ms_per_step": window, "device_busy_ms_per_step": busy,
         "device_idle_share": 1.0 - busy / window,

@@ -34,7 +34,8 @@ CONFIGS = {
     "held_and_next": {"meta_held_notes": True, "meta_next_notes": True},
     "no_history": {"history": False},
     "silent_weight_epsilon_factor": {"silent_weight": 0.5, "epsilon_factor": 0.1},
-    # no kernel path for teacher forcing yet: the port's CPU plain path
+    # the notes head's plain teacher-forced scan beside the decode kernels'
+    # plain versions for the velocity and instrument heads
     "teacher_force": {"teacher_force": True},
 }
 B, VALID = 5, 3  # batch rows, of which the last two are padding
@@ -161,20 +162,34 @@ def test_optimizer_trajectories_match_jax(name):
 
 
 @pytest.mark.parametrize("overrides, row", [
-    ({"teacher_force": True}, "row 28"),
-    ({"meta_next_notes": True, "meta_next_notes_teacher_force": True}, "row 28"),
+    # teacher forcing runs no per-step kernel in the JAX package: the forced
+    # head takes the plain scan, the others the decode kernels
+    ({"teacher_force": True}, True),
+    ({"meta_next_notes": True, "meta_next_notes_teacher_force": True}, True),
     ({"merge_decoder_scans": True}, "rows 28 and 29"),
     ({"fused_train_encoder": False}, "rows 28 and 29"),
     ({"fused_train_decoder": False}, "rows 28 and 29"),
     ({"compute_dtype": "bfloat16"}, "Queue 1 item 15"),
     ({"cell_type": "LSTM"}, "rows 15-21"),
-    ({"lstm_activation": "sigmoid"}, "rows 28-29"),
+    # cells other than tanh train through the plain scans, as in the JAX
+    # package (fused_train.py:2269, :1668, :3456, :981)
+    ({"lstm_activation": "sigmoid"}, False),
+    # ... but only with the default fused flags: otherwise the JAX package
+    # runs its per-step or bf16 whole-scan kernels on them too
+    ({"lstm_activation": "sigmoid", "fused_train_decoder": False}, "rows 28 and 29"),
+    ({"lstm_activation": "sigmoid", "compute_dtype": "bfloat16"}, "Queue 1 item 15"),
 ], ids=["teacher_force", "next_teacher_force", "merge_decoder_scans", "no_fused_encoder",
-        "no_fused_decoder", "bfloat16", "lstm", "sigmoid_cells"])
+        "no_fused_decoder", "bfloat16", "lstm", "sigmoid_cells", "sigmoid_no_fused_decoder",
+        "sigmoid_bfloat16"])
 def test_unported_training_configs_raise_on_cuda(overrides, row):
     """The gate needs no card: it decides from the device type. On CUDA each
-    config raises naming its row; on the CPU it takes the plain path."""
+    unported config raises naming its row, and on the CPU it takes the plain
+    path; a ported one (``row`` True or False) answers the same on both."""
     model = MidiVAE(small_test_config(**overrides))
+    if isinstance(row, bool):
+        assert model.train_kernels_enabled(torch.device("cuda")) is row
+        assert model.train_kernels_enabled(torch.device("cpu")) is row
+        return
     with pytest.raises(NotImplementedError, match=row):
         model.train_kernels_enabled(torch.device("cuda"))
     assert model.train_kernels_enabled(torch.device("cpu")) is False

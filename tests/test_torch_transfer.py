@@ -126,8 +126,9 @@ def test_cli_refuses_unported_options(tmp_path):
 
 
 def test_transfer_runs_without_jax(tmp_path):
-    """The port trains (the train CLI) and serves in a process that never
-    imports jax."""
+    """The port trains (the train CLI, also the wide model at lstm_size=512,
+    whose training step takes the wide route) and serves in a process that
+    never imports jax."""
     code = (
         "import sys, os, numpy as np\n"
         f"sys.path.insert(0, {os.path.join(REPO, 'tools')!r})\n"
@@ -143,6 +144,11 @@ def test_transfer_runs_without_jax(tmp_path):
         "small = ['--set', 'bars_input_length=2', '--set', 'bars_output_length=2', '--set', 'lstm_size=16',"
         " '--set', 'latent_dim=16', '--set', 'max_voices=2', '--set', 'batch_size=64']\n"
         "assert train_cli.main(['--source', 'c', '--output', 'run', '--epochs', '1', '--device', 'cpu', *small]) == 0\n"
+        "assert train_cli.main(['--source', 'c', '--output', 'wide', '--epochs', '1', '--device', 'cpu', *small,"
+        " '--set', 'lstm_size=512']) == 0\n"
+        "from midi_vae_tpu_torch.ops import _layout\n"
+        "assert _layout.config_route(ckpt.load_config('wide'), on_card=False) == 'wide'\n"
+        "assert ckpt.load_params('wide')['encoder']['notes_rnn'][1]['u'].shape == (512, 1536)\n"
         "cfg = ckpt.load_config('run')\n"
         "song = load_rolls_from_path('c/style2/s.mid', cfg)\n"
         "ctx = GenerationContext(cfg, MidiVAE(cfg, ckpt.load_params('run')), 'cpu')\n"
