@@ -10,24 +10,27 @@ result line):
   2. build: nvcc builds every kernel library from the checkout, one process
      per source, all started together: A (csrc/gru_layer_fwd.cu), B
      (csrc/gru_decode.cu), C (csrc/gru_layer_bwd.cu), D
-     (csrc/gru_decode_train.cu), E (csrc/gru_decode_bwd.cu) and W
-     (csrc/grad_reduce.cu), F (csrc/gru_layer_xp_fwd.cu) and G
-     (csrc/gru_layer_xp_bwd.cu); the 8-rows builds of D and E must refuse
-     H = 512 at their C entry points;
+     (csrc/gru_decode_train.cu), E (csrc/gru_decode_bwd.cu), W
+     (csrc/grad_reduce.cu), F (csrc/gru_layer_xp_fwd.cu), G
+     (csrc/gru_layer_xp_bwd.cu), L (csrc/lstm_layer_fwd.cu) and M
+     (csrc/lstm_decode.cu); every build's registers and spills from ptxas
+     against the route chooser's table; the 8-rows builds of D and E must
+     refuse H = 512 at their C entry points;
   3. kernels: A and B against their plain PyTorch versions on the card, at
      the shapes the transfer path gives them with B = 256 windows, with times
-     (CUDA events, median of REPS runs);
+     (CUDA events, median of REPS runs) and each call's bound (the larger of
+     its operations over the card's f32 rate and its bytes over HBM's);
   4. slice: the transfer CLI (midi_vae_tpu_torch.cli.transfer.main) at the
      full default Config() width on 3 authored songs, with
      --write-reconstruction; the .mid files must parse back and the launch
      counters must show every kernel on the path was launched;
   5. card against CPU: one 256-window transfer_argmax batch on the card and
      through the plain path on the CPU; z, probs and argmax must agree. Prints
-     windows/s and note-steps/s on the card;
+     windows/s and note-steps/s on the card, and one song's latency;
   6. training kernels: C, D, E and W against their plain versions at the
-     training step's shapes (B = 256) and at B = 5, with times, and the
-     gradients of the training ops against autograd through the plain
-     forward;
+     training step's shapes (B = 256) and at B = 5, with times (W beside
+     cuBLAS's a.t() @ b), and the gradients of the training ops against
+     autograd through the plain forward;
   7. training slice: the train CLI (midi_vae_tpu_torch.cli.train.main) at
      the full default Config() width (batch 256) on an authored corpus for 2
      epochs, then --resume for a third, then the transfer CLI serves the
@@ -44,14 +47,23 @@ result line):
      alone, and W over their gate grads, against their plain versions at
      B = 256 and B = 5, with times, and the training ops' gradients against
      autograd; F and G also at a GRU(256) layer; A and B at H = 512 (the
-     serving path of a wide run); every build's registers and spills from
-     ptxas, and the route chooser's register table held against them;
+     serving path of a wide run);
  10. wide training slice: the train CLI at --set lstm_size=512 for 2 epochs,
      --resume for a third, then the transfer CLI serves the run, with every
      launch counter equal to the wide design;
  11. wide training step, card against CPU, as phase 8 at lstm_size=512;
  12. teacher forcing: one teacher-forced step of the default config, card
-     against CPU (the notes head's plain scan, D and E for the other heads).
+     against CPU (the notes head's plain scan, D and E for the other heads);
+ 13. LSTM kernels: L and M against their plain versions at the shapes of
+     Config(cell_type="LSTM")'s transfer (LSTM(256) x 2), at B = 256 with
+     times, bounds and, for L, cuDNN's LSTM timed beside it, and at B = 5;
+ 14. LSTM slice with the judges: the transfer CLI serves an LSTM run with
+     --write-reconstruction --classifiers (LSTM judges of all three kinds):
+     per song L 4 and M 3 (8 and 6 with the reconstruction) plus L 2 per
+     judge call; then the GRU slice once more with GRU judges (kernel A
+     under --classifiers);
+ 15. LSTM card against CPU, as phase 5 for Config(cell_type="LSTM");
+ 16. the judges card against CPU: probs of each kind, LSTM and GRU.
 Then one JSON line with the kernels, and the final line
 {"ok": true, "device": {...}}.
 """
@@ -71,11 +83,14 @@ sys.path.insert(0, REPO)
 # float32 with TF32 off on both sides; the kernels sum in another order than
 # cuBLAS, and kernel B's errors compound over 64 fed-back steps
 H_ATOL = 5e-5       # kernel A's h, kernel B's probs
-LOGITS_ATOL = 1e-4  # kernel B's logits
+LOGITS_ATOL = 1e-4  # kernel B's and M's logits
+L_H_ATOL = 1e-5     # kernel L's h
+M_PROBS_ATOL = 1e-5  # kernel M's probs
 # card vs CPU end to end (encoder dense layers + 64-step decode on top)
 Z_ATOL = 1e-4
 PROBS_ATOL = 1e-4
 MIN_ARGMAX_AGREEMENT = 0.999
+JUDGE_ATOL = 1e-5  # the judges' class probs, card vs CPU (two encoder layers + softmax)
 # one training step, card vs CPU (f32, TF32 off, sums in another order over
 # 64-step chains at full width): losses to LOSS_ATOL; accuracies to ACC_ATOL
 # (about 16 of the 16,000 note steps may flip an argmax between near-ties);
@@ -138,7 +153,8 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel"), "B": ("gru_decode", "g
           "G": ("gru_layer_xp_bwd", "gru_layer_xp_bwd_kernel"),
           "D_wide": ("gru_decode_train", "gru_decode_train_wide_kernel"),
           "E_wide": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel"),
-          "W": ("grad_reduce", "grad_reduce")}
+          "W": ("grad_reduce", "grad_reduce"),
+          "L": ("lstm_layer_fwd", "lstm_layer_fwd_kernel"), "M": ("lstm_decode", "lstm_decode_kernel")}
 
 
 def check_registers():
@@ -218,8 +234,75 @@ def median_ms(fn):
     return times[len(times) // 2]
 
 
-def check(name, kernel_fn, plain_fn, limits):
+# the least time the card could take for a kernel's work: the larger of its
+# operations over the H100 SXM's float32 rate outside the tensor cores (the
+# kernels run f32, TF32 off) and the bytes it must move (each input read
+# once, each output written once) over HBM3's rate; NVIDIA's published peaks
+# at the full 700 W power limit
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def tensors_in(*objs):
+    """The distinct tensors (by storage address) inside nested lists, tuples
+    and dicts."""
+    import torch
+
+    found, seen = [], set()
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            if o.data_ptr() not in seen:
+                seen.add(o.data_ptr())
+                found.append(o)
+        elif isinstance(o, (dict, torch.nn.ParameterDict, torch.nn.ModuleDict)):
+            for v in o.values():
+                walk(v)
+        elif isinstance(o, (list, tuple, torch.nn.ModuleList)):
+            for v in o:
+                walk(v)
+
+    for o in objs:
+        walk(o)
+    return found
+
+
+def nbytes(*objs):
+    return 4 * sum(t.numel() for t in tensors_in(*objs))
+
+
+def bound(flops, moved):
+    """(bound_ms, bound_by) of ``flops`` operations and ``moved`` bytes."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, moved / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# operations of the kernels' products (2 per multiply-add; the gate math is a
+# few per element and left out), from the weights' shapes: W (d_in, G),
+# U (H, G), G = 3H (GRU) or 4H (LSTM)
+def layer_flops(T, B, w, u):
+    """A layer forward with x @ W inside (A, L)."""
+    return 2 * T * B * (w.shape[0] + u.shape[0]) * u.shape[1]
+
+
+def decode_flops(T, B, cells, wo):
+    """A decode head forward (B, D, M): its cells and its output dense."""
+    return 2 * T * B * (sum((c["w"].shape[0] + c["u"].shape[0]) * c["u"].shape[1] for c in cells)
+                        + wo.shape[0] * wo.shape[1])
+
+
+def cell_bwd_flops(T, B, w, u, dx=True):
+    """BPTT of a GRU cell (C, E): x @ W again, dx = da @ W^T, and four
+    products with U or U^T: 2G d_in + 2G H multiply-adds a row and step."""
+    return 2 * T * B * (w.shape[1] * w.shape[0] * (2 if dx else 1) + 2 * u.shape[1] * u.shape[0])
+
+
+def check(name, kernel_fn, plain_fn, limits, **_timed_only):
     """Kernel vs plain on the same inputs: max |diff| per output, within limits."""
+    return _check(name, kernel_fn, plain_fn, limits)[0]
+
+
+def _check(name, kernel_fn, plain_fn, limits):
     import torch
 
     got, want = kernel_fn(), plain_fn()
@@ -237,26 +320,35 @@ def check(name, kernel_fn, plain_fn, limits):
         if not err <= limit:
             raise RuntimeError(f"{name}: max |kernel - plain| = {err:.3e} > {limit:.3e}")
         errs.append(err)
-    return errs
+    return errs, got
 
 
-def compare(name, kernel_fn, plain_fn, limits):
-    """check(), then both timed in turns (plain, kernel, kernel, plain)."""
-    errs = check(name, kernel_fn, plain_fn, limits)
+def compare(name, kernel_fn, plain_fn, limits, flops, inputs, library_fn=None):
+    """check(), then both timed in turns (plain, kernel, kernel, plain), with
+    the bound of the call's work: ``flops`` operations, ``inputs`` (nested
+    tensors) read and the kernel's outputs written; ``library_fn``, one
+    PyTorch call that computes the same function, is timed beside them."""
+    errs, got = _check(name, kernel_fn, plain_fn, limits)
     plain_a, kernel_a = median_ms(plain_fn), median_ms(kernel_fn)
     kernel_b, plain_b = median_ms(kernel_fn), median_ms(plain_fn)
     ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
+    moved = nbytes(inputs) + nbytes(got)
+    bound_ms, bound_by = bound(flops, moved)
+    library_ms = median_ms(library_fn) if library_fn is not None else None
     shown = ", ".join("rel" if callable(x) else f"{x:.0e}" for x in limits)
+    lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
     print(f"[kernels] {name}: max|diff| {', '.join(f'{e:.3e}' for e in errs)} "
-          f"(limits {shown}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+          f"(limits {shown}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB)")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "flops": flops,
+            "bytes": moved, "bound_ms": bound_ms, "library_ms": library_ms}
 
 
 def phase_kernels():
     """Both kernels at the path's shapes, with the default model's weights."""
     import torch
 
-    from midi_vae_tpu.config import Config
+    from midi_vae_tpu_torch.config import Config
     from midi_vae_tpu_torch.models.rnn import init_decoder_states
     from midi_vae_tpu_torch.models.vae import MidiVAE
     from midi_vae_tpu_torch.ops.gru_decode import gru_decode, gru_decode_reference
@@ -283,7 +375,8 @@ def phase_kernels():
             args = (x, h0, p["w"], p["b"], p["u"], "tanh", rs)
             results["gru_layer_fwd"][name] = compare(
                 f"A {name} x{tuple(x.shape)} rs={rs}",
-                lambda a=args: gru_layer(*a), lambda a=args: gru_layer_reference(*a), [H_ATOL])
+                lambda a=args: gru_layer(*a), lambda a=args: gru_layer_reference(*a), [H_ATOL],
+                layer_flops(x.shape[0], B, p["w"], p["u"]), args[:5])
             # a short song's bucket: fewer rows than a block's 8
             args = (x[:, :RAGGED].contiguous(), h0[:RAGGED], p["w"], p["b"], p["u"], "tanh", rs)
             check(f"A {name} B={RAGGED}", lambda a=args: gru_layer(*a),
@@ -305,7 +398,7 @@ def phase_kernels():
             results["gru_decode"][name] = compare(
                 f"B {name} layers={len(h['cells'])} D={d} T={T} {out_act}",
                 lambda a=args: gru_decode(*a), lambda a=args: gru_decode_reference(*a),
-                [H_ATOL, LOGITS_ATOL])
+                [H_ATOL, LOGITS_ATOL], decode_flops(T, B, h["cells"], h["out"]["w"]), args[:4])
             args = (args[0], args[1], [s[:RAGGED] for s in states],
                     torch.zeros(RAGGED, d, device=dev), T, "tanh", out_act)
             check(f"B {name} B={RAGGED}", lambda a=args: gru_decode(*a),
@@ -354,6 +447,25 @@ def plain_weight_grads(x, hprev, rh, da):
                                grad_reduce_reference(rh.reshape(n, H), da[:, 2 * H :])[0]], 1))
 
 
+def cublas_weight_grads(x, hprev, rh, da):
+    """dW, db, dU of one GRU cell as PyTorch's ``a.t() @ b`` (cuBLAS): the
+    library call W is timed against."""
+    import torch
+
+    H = hprev.shape[-1]
+    n = x.shape[0] * x.shape[1]
+    da = da.reshape(n, 3 * H)
+    return (x.reshape(n, -1).t() @ da, da.sum(0),
+            torch.cat([hprev.reshape(n, H).t() @ da[:, : 2 * H], rh.reshape(n, H).t() @ da[:, 2 * H :]], 1))
+
+
+def weight_grad_flops(x, hprev):
+    """Operations of W's dW and dU of one GRU cell, per row: x^T da (d_in x
+    3H), h^T da_zr (H x 2H) and rh^T da_h (H x H) multiply-adds."""
+    n, d_in, H = x.shape[0] * x.shape[1], x.shape[-1], hprev.shape[-1]
+    return 2 * n * (d_in * 3 * H + 3 * H * H)
+
+
 def check_decode_calls(calls, gen, run, timed, results, wide):
     """Kernel D and E (their wide builds when ``wide``) on each call's list of
     head dicts against their plain versions, W over each head's products, and
@@ -382,7 +494,9 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
         out = run(f"{d_name} {call} ({desc})", lambda h=heads: fwd_flat(fwd(h)),
                   lambda h=heads: fwd_flat([gd.gru_decode_train_reference(
                       x["cells"], x["out"], x["init"], x["start"], x["T"], x["out_activation"])
-                      for x in h]), limits)
+                      for x in h]), limits,
+                  flops=sum(decode_flops(h["T"], rows, h["cells"], h["out"]["w"]) for h in heads),
+                  inputs=[[h["cells"], h["out"], h["init"], h["start"]] for h in heads])
         if timed:
             results[d_key][call] = out
         with torch.no_grad():
@@ -399,7 +513,12 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
         out = run(f"{e_name} {call}", lambda h=heads: bwd_flat(bwd(h)),
                   lambda h=heads: bwd_flat([gd.gru_decode_bwd_reference(
                       x["cells"], x["out"], x["init"], x["start"], x["probs"], x["h_seqs"],
-                      x["g_probs"], x["g_logits"], x["out_activation"]) for x in h]), limits)
+                      x["g_probs"], x["g_logits"], x["out_activation"]) for x in h]), limits,
+                  flops=sum(2 * h["T"] * rows * h["out"]["w"].numel()
+                            + sum(cell_bwd_flops(h["T"], rows, c["w"], c["u"]) for c in h["cells"])
+                            for h in heads),
+                  inputs=[[h[k] for k in ("cells", "out", "init", "start", "probs", "h_seqs",
+                                          "g_probs", "g_logits")] for h in heads])
         if timed:
             results[e_key][call] = out
         # W over one head's products: dWo, dbo and each cell's dW, db, dU
@@ -426,8 +545,15 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
                 return (*grad_reduce_reference(a, d, True),
                         *(t for x, hp, rh, da in ws[1:] for t in plain_weight_grads(x, hp, rh, da)))
 
+            def library_w(ws=wsets):
+                a, d, _, _ = ws[0]
+                return (a.t() @ d, d.sum(0), *(t for x, hp, rh, da in ws[1:]
+                                               for t in cublas_weight_grads(x, hp, rh, da)))
+
             nw = 2 + 3 * len(h["cells"])
-            out = run(f"W {call} head {k}", kernel_w, plain_w, [rel] * nw)
+            out = run(f"W {call} head {k}", kernel_w, plain_w, [rel] * nw,
+                      flops=2 * n * H * D + sum(weight_grad_flops(x, hp) for x, hp, _, _ in wsets[1:]),
+                      inputs=wsets, library_fn=library_w)
             if timed:
                 results[w_key][f"decode {call} head {k}"] = out
         # D + E + W against autograd through the plain decode
@@ -455,7 +581,7 @@ def phase_train_kernels():
     forward."""
     import torch
 
-    from midi_vae_tpu.config import Config
+    from midi_vae_tpu_torch.config import Config
     from midi_vae_tpu_torch.models.vae import MidiVAE
     from midi_vae_tpu_torch.ops import gru_layer as gl
     from midi_vae_tpu_torch.ops.grad_reduce import gru_weight_grads
@@ -494,13 +620,16 @@ def phase_train_kernels():
             limits = ([rel] if need_dx else []) + [rel, rel, H_ATOL]
             tag = f"C {name} x{tuple(x.shape)} rs={rs}"
             out = run(tag, lambda a=args: tuple(flat(gl.gru_layer_bwd(*a))),
-                      lambda a=args: tuple(flat(gl.gru_layer_bwd_reference(*a))), limits)
+                      lambda a=args: tuple(flat(gl.gru_layer_bwd_reference(*a))), limits,
+                      flops=cell_bwd_flops(x.shape[0], rows, w, u, need_dx), inputs=args[:8])
             if timed:
                 results["gru_layer_bwd"][name] = out
             _dx, _dh0, da, rh = gl.gru_layer_bwd_reference(*args)
             wargs = (x, torch.cat([h0[None], seq[:-1]]), rh, da)
             out = run(f"W {name} dW, db, dU", lambda a=wargs: gru_weight_grads(*a),
-                      lambda a=wargs: plain_weight_grads(*a), [rel] * 3)
+                      lambda a=wargs: plain_weight_grads(*a), [rel] * 3,
+                      flops=weight_grad_flops(x, wargs[1]), inputs=wargs,
+                      library_fn=lambda a=wargs: cublas_weight_grads(*a))
             if timed:
                 results["grad_reduce"][f"encoder {name}"] = out
             # A + C + W against autograd through the plain forward
@@ -529,7 +658,7 @@ def phase_wide_kernels():
     at H = 512: the serving path of a wide run."""
     import torch
 
-    from midi_vae_tpu.config import Config
+    from midi_vae_tpu_torch.config import Config
     from midi_vae_tpu_torch.models.rnn import init_decoder_states
     from midi_vae_tpu_torch.models.vae import MidiVAE
     from midi_vae_tpu_torch.ops import gru_decode as gd
@@ -558,20 +687,25 @@ def phase_wide_kernels():
             xp = (x.reshape(T * rows, -1) @ w + b).reshape(T, rows, 3 * H)
             seq = gl.gru_layer_xp_reference(xp, h0, u)
         out = run(f"F {tag} xp{tuple(xp.shape)}", lambda: gl.gru_layer_xp(xp, h0, u),
-                  lambda: gl.gru_layer_xp_reference(xp, h0, u), [H_ATOL])
+                  lambda: gl.gru_layer_xp_reference(xp, h0, u), [H_ATOL],
+                  flops=2 * T * rows * u.numel(), inputs=[xp, h0, u])
         if fwd_key:
             results[fwd_key][tag] = out
         g = torch.randn(seq.shape if rs else seq.shape[1:], generator=gen, device=dev)
         args = (xp, seq, h0, g if rs else None, None if rs else g, u)
         # dxp, dh0: gradients; r*h a forward value
         out = run(f"G {tag} rs={rs}", lambda: gl.gru_layer_xp_bwd(*args),
-                  lambda: gl.gru_layer_xp_bwd_reference(*args), [rel, rel, H_ATOL])
+                  lambda: gl.gru_layer_xp_bwd_reference(*args), [rel, rel, H_ATOL],
+                  flops=4 * T * rows * u.numel(), inputs=args)
         if bwd_key:
             results[bwd_key][tag] = out
         da, _dh0, rh = gl.gru_layer_xp_bwd_reference(*args)
         hprev = torch.cat([h0[None], seq[:-1]])
+        n = T * rows
         out = run(f"W {tag} dU", lambda: gru_u_grad(hprev, rh, da), lambda: plain_u(hprev, rh, da),
-                  [rel])
+                  [rel], flops=2 * n * u.numel(), inputs=[hprev, rh, da],
+                  library_fn=lambda: torch.cat([hprev.reshape(n, H).t() @ da.reshape(n, 3 * H)[:, : 2 * H],
+                                                rh.reshape(n, H).t() @ da.reshape(n, 3 * H)[:, 2 * H :]], 1))
         if w_key:
             results[w_key][f"encoder {tag}"] = out
         leaves = [t.clone().requires_grad_() for t in (xp, h0, u)]
@@ -618,7 +752,8 @@ def phase_wide_kernels():
                                        ("velocity", tm(batch["V"]), enc["vel_rnn"][0], False)):
                     args = (x, h0, p["w"], p["b"], p["u"], "tanh", rs)
                     out = run(f"A H={H} {name} rs={rs}", lambda a=args: gl.gru_layer(*a),
-                              lambda a=args: gl.gru_layer_reference(*a), [H_ATOL])
+                              lambda a=args: gl.gru_layer_reference(*a), [H_ATOL],
+                              flops=layer_flops(x.shape[0], rows, p["w"], p["u"]), inputs=args[:5])
                     if timed:
                         results["gru_layer_512"][name] = out
                 for name, d, T, out_act in (
@@ -632,7 +767,8 @@ def phase_wide_kernels():
                     args = (list(h["cells"]), h["out"], states, torch.zeros(rows, d, device=dev), T,
                             "tanh", out_act)
                     out = run(f"B H={H} {name}", lambda a=args: gd.gru_decode(*a),
-                              lambda a=args: gd.gru_decode_reference(*a), [H_ATOL, LOGITS_ATOL])
+                              lambda a=args: gd.gru_decode_reference(*a), [H_ATOL, LOGITS_ATOL],
+                              flops=decode_flops(T, rows, h["cells"], h["out"]["w"]), inputs=args[:4])
                     if timed:
                         results["gru_decode_512"][name] = out
     print(f"[wide kernels] F, G, the wide D and E, W, A and B at H = 512 and F, G at H = 256 also "
@@ -640,23 +776,134 @@ def phase_wide_kernels():
     return results
 
 
-def phase_slice(work):
-    """The transfer CLI at full width on 3 authored songs, on the card."""
+def cudnn_lstm(x, p, h0, c0):
+    """cuDNN's LSTM (``torch.nn.LSTM``) holding one LSTM layer's weights:
+    weight_ih = W^T, weight_hh = U^T, bias_ih = b, bias_hh = 0 computes the
+    cell of kernel L (tanh, sigmoid gates, gate order i, f, g, o). The
+    yardstick ``library_ms`` of L; the port never calls it."""
+    import torch
+
+    D, G = p["w"].shape
+    lstm = torch.nn.LSTM(D, G // 4).to(x.device).requires_grad_(False)
+    lstm.weight_ih_l0.copy_(p["w"].t())
+    lstm.weight_hh_l0.copy_(p["u"].t())
+    lstm.bias_ih_l0.copy_(p["b"])
+    lstm.bias_hh_l0.zero_()
+    return lambda: lstm(x, (h0[None], c0[None]))
+
+
+def phase_lstm_kernels():
+    """Kernels L and M against their plain versions at the LSTM transfer's
+    shapes (Config(cell_type="LSTM"), LSTM(256) x 2: notes L1 and L2,
+    instrument, velocity; the notes, velocity and instrument heads), at B =
+    256 (timed, with the bound and, for L, cuDNN's LSTM beside it) and B = 5."""
+    import torch
+
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.models.rnn import init_decoder_states
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.ops.lstm_decode import lstm_decode, lstm_decode_reference
+    from midi_vae_tpu_torch.ops.lstm_layer import lstm_layer, lstm_layer_reference
+
+    cfg = Config(cell_type="LSTM")
+    dev = torch.device("cuda")
+    model = MidiVAE(cfg).to(dev)
+    enc, dec = model.params["encoder"], model.params["decoder"]
+    tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    results = {"lstm_layer_fwd": {}, "lstm_decode": {}}
+    for rows in (B, RAGGED):
+        timed = rows == B
+        run = compare if timed else check
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in random_batch(cfg, rows, 7).items()}
+        h0 = torch.zeros(rows, cfg.lstm_size, device=dev)
+        c0 = torch.zeros(rows, cfg.lstm_size, device=dev)
+        with torch.inference_mode():
+            x_l2 = lstm_layer_reference(tm(batch["X"]), h0, c0,
+                                        *(enc["notes_rnn"][0][k] for k in "wbu"), "tanh", True)
+            for name, x, p, rs in (("notes_l1", tm(batch["X"]), enc["notes_rnn"][0], True),
+                                   ("notes_l2", x_l2, enc["notes_rnn"][1], False),
+                                   ("instrument", tm(batch["I"]), enc["inst_rnn"][0], False),
+                                   ("velocity", tm(batch["V"]), enc["vel_rnn"][0], False)):
+                args = (x, h0, c0, p["w"], p["b"], p["u"], "tanh", rs)
+                library = cudnn_lstm(x, p, h0, c0) if timed else None
+                if timed:
+                    seq, (h_n, _c_n) = library()
+                    lib_err = ((seq if rs else h_n[0]) - lstm_layer_reference(*args)).abs().max().item()
+                    print(f"[lstm kernels] cuDNN LSTM (the library yardstick) on {name}: max |diff| "
+                          f"to the plain version {lib_err:.3e}")
+                out = run(f"L {name} x{tuple(x.shape)} rs={rs}", lambda a=args: lstm_layer(*a),
+                          lambda a=args: lstm_layer_reference(*a), [L_H_ATOL],
+                          flops=layer_flops(x.shape[0], rows, p["w"], p["u"]), inputs=args[:6],
+                          library_fn=library)
+                if timed:
+                    results["lstm_layer_fwd"][name] = out
+            z = model.encode(batch)
+            new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
+            for name, d, T, out_act in (
+                    ("notes", cfg.output_dim, cfg.output_length, cfg.activation),
+                    ("velocity", 1, cfg.meta_velocity_length, cfg.meta_velocity_activation),
+                    ("instrument", cfg.meta_instrument_dim, cfg.meta_instrument_length,
+                     cfg.meta_instrument_activation)):
+                h = dec[name]
+                states = init_decoder_states(h["init"], new_encoded, cfg.cell_type,
+                                             cfg.lstm_state_activation)
+                args = (list(h["cells"]), h["out"], states, torch.zeros(rows, d, device=dev), T,
+                        "tanh", out_act)
+                out = run(f"M {name} layers={len(h['cells'])} D={d} T={T} {out_act}",
+                          lambda a=args: lstm_decode(*a), lambda a=args: lstm_decode_reference(*a),
+                          [M_PROBS_ATOL, LOGITS_ATOL],
+                          flops=decode_flops(T, rows, h["cells"], h["out"]["w"]), inputs=args[:4])
+                if name == "notes":
+                    got, want = lstm_decode(*args)[0], lstm_decode_reference(*args)[0]
+                    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+                    if agree < MIN_ARGMAX_AGREEMENT:
+                        raise RuntimeError(f"M notes B={rows}: argmax agreement {agree:.5f} < "
+                                           f"{MIN_ARGMAX_AGREEMENT}")
+                if timed:
+                    results["lstm_decode"][name] = out
+    print(f"[lstm kernels] L and M also agree at B = {RAGGED}")
+    return results
+
+
+# the serving kernels of each cell type: (encoder layer, decode head)
+SERVING_KERNELS = {"GRU": ("gru_layer_fwd", "gru_decode"), "LSTM": ("lstm_layer_fwd", "lstm_decode")}
+
+
+def write_judges(judge_dir, cfg):
+    """Judges of all three kinds for ``cfg``'s cell type, at the reference
+    width (RNN(256) x 2), from seeded inits, in the port's judge format."""
+    from midi_vae_tpu_torch import bridge
+    from midi_vae_tpu_torch.models.classifier import CLASSIFIER_KINDS, ClassifierSpec, StyleClassifier
+    from midi_vae_tpu_torch.training.checkpoint import save_classifier
+
+    for seed, kind in enumerate(CLASSIFIER_KINDS):
+        spec = ClassifierSpec.for_kind(kind, cfg)
+        save_classifier(os.path.join(judge_dir, kind), spec,
+                        bridge.to_tree(StyleClassifier(spec, seed=seed).params))
+
+
+def phase_slice(work, cell_type="GRU", judges=False):
+    """The transfer CLI at full width (``Config(cell_type=...)``) on 3
+    authored songs, on the card, with --write-reconstruction and, with
+    ``judges``, --classifiers (judges of all three kinds)."""
+    import io
+    from contextlib import redirect_stdout
+
     import numpy as np
 
-    from midi_vae_tpu.config import Config
-    from midi_vae_tpu.data import smf
     from midi_vae_tpu_torch import bridge
     from midi_vae_tpu_torch.cli import transfer
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.data import smf
     from midi_vae_tpu_torch.models.vae import MidiVAE
-    from midi_vae_tpu_torch.ops.gru_decode import gru_decode
-    from midi_vae_tpu_torch.ops.gru_layer import gru_layer
     from midi_vae_tpu_torch.training.checkpoint import save_run
 
     sys.path.insert(0, os.path.join(REPO, "tools"))
     import make_demo_corpus as corpus
 
-    cfg = Config()
+    cfg = Config(cell_type=cell_type)
+    tag = f"{cell_type}{' + judges' if judges else ''}"
+    work = os.path.join(work, f"{cell_type.lower()}_{int(judges)}")
     run = os.path.join(work, "run")
     save_run(run, cfg, bridge.to_tree(MidiVAE(cfg).params))
     songs_dir = os.path.join(work, "songs", "style1")
@@ -668,30 +915,44 @@ def phase_slice(work):
         corpus.make_song(corpus.STYLES["style1"], rng).write(path)
         inputs.append(path)
     out = os.path.join(work, "out")
+    args = ["--model", run, "--input", *inputs, "--to-class", "style2", "--output", out,
+            "--device", "cuda", "--write-reconstruction"]
+    if judges:
+        write_judges(os.path.join(work, "judges"), cfg)
+        args += ["--classifiers", os.path.join(work, "judges")]
 
-    gru_layer.launches = gru_decode.launches = 0
+    reset_counters()
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    rc = transfer.main(["--model", run, "--input", *inputs, "--to-class", "style2",
-                        "--output", out, "--device", "cuda", "--write-reconstruction"])
+    with redirect_stdout(buf):
+        rc = transfer.main(args)
     secs = time.perf_counter() - t0
-    launches = {"gru_layer_fwd": gru_layer.launches, "gru_decode": gru_decode.launches}
+    launches = read_counters()
+    print("\n".join(f"[slice {tag}] {line}" for line in buf.getvalue().splitlines()))
     if rc != 0:
-        raise RuntimeError(f"transfer CLI returned {rc}")
+        raise RuntimeError(f"transfer CLI ({tag}) returned {rc}")
     written = sorted(os.listdir(out))
     expected = sorted([f"song{i}_style1_to_style2.mid" for i in range(3)]
                       + [f"song{i}_reconstruction.mid" for i in range(3)])
     if written != expected:
-        raise RuntimeError(f"transfer wrote {written}, expected {expected}")
+        raise RuntimeError(f"transfer ({tag}) wrote {written}, expected {expected}")
     for name in written:
         mid = smf.read_midi(os.path.join(out, name))
         if not mid.instruments or not any(inst.notes for inst in mid.instruments):
-            raise RuntimeError(f"{name} parsed back with no notes")
+            raise RuntimeError(f"{name} ({tag}) parsed back with no notes")
+    judged = [line for line in buf.getvalue().splitlines() if "judge confidence" in line]
+    if judges and len(judged) != 2 * len(inputs):
+        raise RuntimeError(f"transfer ({tag}) printed {len(judged)} judge lines, expected "
+                           f"{2 * len(inputs)}")
     # per song: transfer (encode 4 layers, decode 3 heads) + reconstruction
-    # (encode_song 4 layers, decode_and_process 3 heads)
-    want = {"gru_layer_fwd": 8 * len(inputs), "gru_decode": 6 * len(inputs)}
+    # (encode_song 4 layers, decode_and_process 3 heads); with the judges 2
+    # layers per judge call, 3 calls (pitch, velocity, instrument) for the
+    # original and 3 for the transferred song
+    layer, decode = SERVING_KERNELS[cell_type]
+    want = {layer: (8 + (2 * 6 if judges else 0)) * len(inputs), decode: 6 * len(inputs)}
     if launches != want:
-        raise RuntimeError(f"launch counters {launches}, expected {want}")
-    print(f"[slice] transfer CLI on {len(inputs)} songs in {secs:.2f} s (build done); wrote "
+        raise RuntimeError(f"transfer ({tag}): launch counters {launches}, expected {want}")
+    print(f"[slice {tag}] transfer CLI on {len(inputs)} songs in {secs:.2f} s (build done); wrote "
           f"{len(written)} .mid files that parse back; launches {launches}")
     return launches
 
@@ -722,27 +983,30 @@ PER_TF_STEP = {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_decode_train": 2,
 PER_SONG_TRANSFER = {"gru_layer_fwd": 4, "gru_decode": 3}  # encode 4 layers, decode 3 heads
 
 
-def train_counters():
+def kernel_counters():
     from midi_vae_tpu_torch.ops import gru_decode as gd
     from midi_vae_tpu_torch.ops import gru_layer as gl
     from midi_vae_tpu_torch.ops.grad_reduce import grad_reduce
+    from midi_vae_tpu_torch.ops.lstm_decode import lstm_decode
+    from midi_vae_tpu_torch.ops.lstm_layer import lstm_layer
 
     return {"gru_layer_fwd": gl.gru_layer, "gru_decode": gd.gru_decode,
             "gru_layer_bwd": gl.gru_layer_bwd, "gru_decode_train": gd.gru_decode_fwd_train,
             "gru_decode_bwd": gd.gru_decode_bwd, "grad_reduce": grad_reduce,
             "gru_layer_xp_fwd": gl.gru_layer_xp, "gru_layer_xp_bwd": gl.gru_layer_xp_bwd,
             "gru_decode_train_wide": gd.gru_decode_fwd_train_wide,
-            "gru_decode_bwd_wide": gd.gru_decode_bwd_wide}
+            "gru_decode_bwd_wide": gd.gru_decode_bwd_wide,
+            "lstm_layer_fwd": lstm_layer, "lstm_decode": lstm_decode}
 
 
 def reset_counters():
-    for fn in train_counters().values():
+    for fn in kernel_counters().values():
         fn.launches = 0
 
 
 def read_counters():
     """The counters that moved (a kernel absent from the dict ran 0 times)."""
-    return {name: fn.launches for name, fn in train_counters().items() if fn.launches}
+    return {name: fn.launches for name, fn in kernel_counters().items() if fn.launches}
 
 
 def expected_train_launches(cfg, route, n_train, n_test, epochs):
@@ -773,9 +1037,10 @@ def phase_train_slice(work, sets=()):
     CLI serves the run."""
     import numpy as np
 
-    from midi_vae_tpu.config import Config, parse_overrides
-    from midi_vae_tpu.data import smf
-    from midi_vae_tpu.data.batching import flatten_dataset
+    from midi_vae_tpu_torch.config import Config, parse_overrides
+    from midi_vae_tpu_torch.data import smf
+    from midi_vae_tpu_torch.data.batching import flatten_dataset
+    from midi_vae_tpu_torch.data.dataset import import_midi_from_folder
     from midi_vae_tpu_torch.cli import train as train_cli
     from midi_vae_tpu_torch.cli import transfer
     from midi_vae_tpu_torch.ops import _layout
@@ -794,7 +1059,7 @@ def phase_train_slice(work, sets=()):
     cfg = Config(**parse_overrides(list(sets)))
     route = _layout.config_route(cfg)
     tag = f"H={cfg.lstm_size}, {route} route"
-    train, test, _, _ = flatten_dataset(train_cli.import_corpus(source, cfg, cache), cfg)
+    train, test, _, _ = flatten_dataset(import_midi_from_folder(source, cfg, cache_dir=cache), cfg)
     args = ["--source", source, "--output", run, "--cache", cache, "--device", "cuda"]
     for kv in sets:
         args += ["--set", kv]
@@ -902,25 +1167,28 @@ def phase_train_card_vs_cpu(smi, cfg, per_step, label):
             "max_abs_dloss": errs["loss"], "closest_grad_to_limit": worst[0]}
 
 
-def phase_card_vs_cpu(smi):
-    """One 256-window transfer_argmax batch: card against the CPU plain path."""
+def phase_card_vs_cpu(smi, cell_type="GRU"):
+    """One 256-window transfer_argmax batch of ``Config(cell_type=...)``: card
+    against the CPU plain path; then the card's transfer rate at B = 256 and
+    one song's latency at B = 16 (host clock around work that ends in a
+    synchronize, median of REPS)."""
     import numpy as np
     import torch
 
-    from midi_vae_tpu.config import Config
     from midi_vae_tpu_torch import bridge
+    from midi_vae_tpu_torch.config import Config
     from midi_vae_tpu_torch.evaluation.generation import GenerationContext
     from midi_vae_tpu_torch.models.vae import MidiVAE
 
-    cfg = Config()
+    cfg = Config(cell_type=cell_type)
     params = bridge.to_tree(MidiVAE(cfg).params)
     batch = random_batch(cfg, B, 2)
-    results = {}
+    results, timing = {}, {}
     for device in ("cuda", "cpu"):
         ctx = GenerationContext(cfg, MidiVAE(cfg, params), device)
-        dev_batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
         perm = torch.arange(cfg.latent_dim, device=device)
         perm[[0, 1]] = perm[[1, 0]]
+        dev_batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
         A = torch.zeros(B, 1, device=device)  # the default config has no additional input
         idx, switched = ctx.transfer_argmax(dev_batch, perm, A)
         H = torch.zeros_like(switched)
@@ -932,66 +1200,113 @@ def phase_card_vs_cpu(smi):
             "probs": {k: v[0].cpu().numpy() for k, v in heads.items()},
             "notes_idx": idx["notes_idx"].cpu().numpy(),
         }
-        if device == "cuda":
-            ctx.transfer_argmax(dev_batch, perm, A)
+        if device != "cuda":
+            continue
+        for rows in (B, 16):
+            part = {k: v[:rows].contiguous() for k, v in dev_batch.items()}
+            ctx.transfer_argmax(part, perm, A[:rows])
             torch.cuda.synchronize()
             times = []
             for _ in range(REPS):
                 t0 = time.perf_counter()
-                out = ctx.transfer_argmax(dev_batch, perm, A)
+                out = ctx.transfer_argmax(part, perm, A[:rows])
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
                 del out
             times.sort()
-            secs = times[len(times) // 2]
+            timing[rows] = times[len(times) // 2]
     gpu, cpu = results["cuda"], results["cpu"]
     z_err = float(np.abs(gpu["z"] - cpu["z"]).max())
     p_err = max(float(np.abs(gpu["probs"][k] - cpu["probs"][k]).max()) for k in cpu["probs"])
     agree = float(np.mean(gpu["notes_idx"] == cpu["notes_idx"]))
     for k, v in gpu["probs"].items():
         if not np.isfinite(v).all():
-            raise RuntimeError(f"card probs of head {k} are not finite")
+            raise RuntimeError(f"card probs of head {k} ({cell_type}) are not finite")
     if not (z_err <= Z_ATOL and p_err <= PROBS_ATOL and agree >= MIN_ARGMAX_AGREEMENT):
-        raise RuntimeError(f"card vs CPU: max|dz| {z_err:.3e} (limit {Z_ATOL:.0e}), max|dprobs| "
-                           f"{p_err:.3e} (limit {PROBS_ATOL:.0e}), notes argmax agreement {agree:.5f} "
-                           f"(limit {MIN_ARGMAX_AGREEMENT})")
+        raise RuntimeError(f"card vs CPU ({cell_type}): max|dz| {z_err:.3e} (limit {Z_ATOL:.0e}), "
+                           f"max|dprobs| {p_err:.3e} (limit {PROBS_ATOL:.0e}), notes argmax "
+                           f"agreement {agree:.5f} (limit {MIN_ARGMAX_AGREEMENT})")
+    secs = timing[B]
     steps = B * cfg.output_length
-    print(f"[card vs cpu] {B} windows: max|dz| {z_err:.3e}, max|dprobs| {p_err:.3e}, notes argmax "
-          f"agreement {agree:.5f}; transfer_argmax on the card {secs * 1e3:.3f} ms (median of {REPS}) = "
-          f"{B / secs:.1f} windows/s = {steps / secs:.1f} note-steps/s on {smi}")
+    print(f"[card vs cpu {cell_type}] {B} windows: max|dz| {z_err:.3e}, max|dprobs| {p_err:.3e}, "
+          f"notes argmax agreement {agree:.5f}; transfer_argmax on the card {secs * 1e3:.3f} ms "
+          f"(median of {REPS}) = {B / secs:.1f} windows/s = {steps / secs:.1f} note-steps/s; one "
+          f"song (16 windows) {timing[16] * 1e3:.3f} ms; on {smi}")
+    return {"cell_type": cell_type, "max_abs_dz": z_err, "max_abs_dprobs": p_err,
+            "notes_argmax_agreement": agree, "transfer_ms_b256": secs * 1e3,
+            "windows_per_s_b256": B / secs, "song_latency_ms_b16": timing[16] * 1e3}
+
+
+def phase_judges_card_vs_cpu(cell_type):
+    """The judges of all three kinds (RNN(256) x 2 of ``cell_type``) on 256
+    windows of their input shapes: card (kernels A or L) against the CPU plain
+    path, probs to JUDGE_ATOL."""
+    import numpy as np
+    import torch
+
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.models.classifier import CLASSIFIER_KINDS, ClassifierSpec, StyleClassifier
+
+    cfg = Config(cell_type=cell_type)
+    batch = random_batch(cfg, B, 8)
+    inputs = {"pitch": batch["X"], "velocity": batch["V"], "instrument": batch["I"]}
+    errs = {}
+    for seed, kind in enumerate(CLASSIFIER_KINDS):
+        spec = ClassifierSpec.for_kind(kind, cfg)
+        probs = {}
+        for device in ("cuda", "cpu"):
+            model = StyleClassifier(spec, seed=seed).to(device)
+            with torch.inference_mode():
+                probs[device] = model.predict(torch.as_tensor(inputs[kind], device=device)).cpu().numpy()
+        errs[kind] = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+        if not (np.isfinite(probs["cuda"]).all() and errs[kind] <= JUDGE_ATOL):
+            raise RuntimeError(f"{cell_type} judge {kind}: max |card - CPU| {errs[kind]:.3e} > "
+                               f"{JUDGE_ATOL:.0e}")
+    print(f"[judges card vs cpu {cell_type}] {B} windows, max |dprobs| per judge: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (limit {JUDGE_ATOL:.0e})")
+    return errs
 
 
 def main() -> int:
     smi = phase_device()
     import torch
 
-    from midi_vae_tpu.config import Config
+    from midi_vae_tpu_torch.config import Config
     from midi_vae_tpu_torch import use_exact_f32
 
     use_exact_f32()
     registers = phase_build()
     results = phase_kernels()
+    paths = {}
     with tempfile.TemporaryDirectory() as work:
-        launches = phase_slice(work)
-    phase_card_vs_cpu(smi)
+        paths["transfer"] = phase_slice(work)
+    serving = {"GRU": phase_card_vs_cpu(smi)}
     results.update(phase_train_kernels())
     with tempfile.TemporaryDirectory() as work:
-        train_launches = phase_train_slice(work)
+        paths["train"] = phase_train_slice(work)
     step = phase_train_card_vs_cpu(smi, Config(), PER_TRAIN_STEP["narrow"], "train")
     results.update(phase_wide_kernels())
     with tempfile.TemporaryDirectory() as work:
-        wide_launches = phase_train_slice(work, ["lstm_size=512"])
+        paths["train_wide"] = phase_train_slice(work, ["lstm_size=512"])
     wide_step = phase_train_card_vs_cpu(smi, Config(lstm_size=512), PER_TRAIN_STEP["wide"],
                                         "wide train")
     tf_step = phase_train_card_vs_cpu(smi, Config(teacher_force=True), PER_TF_STEP,
                                       "teacher-forced train")
+    # LSTM serving (kernels L and M) and the judges (A or L)
+    results.update(phase_lstm_kernels())
+    with tempfile.TemporaryDirectory() as work:
+        paths["transfer_lstm_judges"] = phase_slice(work, "LSTM", judges=True)
+        paths["transfer_gru_judges"] = phase_slice(work, "GRU", judges=True)
+    serving["LSTM"] = phase_card_vs_cpu(smi, "LSTM")
+    judges = {c: phase_judges_card_vs_cpu(c) for c in ("LSTM", "GRU")}
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
-    # letter, source, replaces, also replaces (midi_vae_tpu/ops/...); "ms" is
-    # summed over the kernel's calls in one transfer (A, B) or one training
-    # step (C to G, W) of B windows, at GRU(256) for A to E and GRU(512) for
-    # F, G and the wide builds
+    # letter, source, replaces, also replaces (midi_vae_tpu/ops/...); "ms",
+    # "plain_ms", "bound_ms" and "library_ms" are summed over the kernel's
+    # calls in one transfer (A, B, L, M) or one training step (C to G, W) of B
+    # windows, at GRU(256) for A to E, GRU(512) for F, G and the wide builds,
+    # LSTM(256) for L and M; "launches" over the main paths' runs
     meta = {
         "gru_layer_fwd": ("A", "gru_layer_fwd.cu", "fused_train.py:2057", ["fused_train.py:2919"]),
         "gru_decode": ("B", "gru_decode.cu", "fused_decoder.py:61", ["fused_decoder.py:95"]),
@@ -1017,6 +1332,11 @@ def main() -> int:
         # row 14: _dec_bwd2_wide_kernel, _dec_bwd1_wide_kernel
         "gru_decode_bwd_wide": ("E wide", "gru_decode_bwd.cu", "fused_train.py:1080",
                                 ["fused_train.py:1135", "fused_train.py:1176"]),
+        # rows 21 and 19 (forward): _lstm_fwdx_last_kernel, _lstm_fwdx_kernel
+        "lstm_layer_fwd": ("L", "lstm_layer_fwd.cu", "fused_train.py:2992",
+                           ["fused_train.py:2352"]),
+        # row 34: _decode_kernel_2layer, _decode_kernel_1layer
+        "lstm_decode": ("M", "lstm_decode.cu", "fused_lstm.py:478", ["fused_lstm.py:511"]),
     }
     # per kernel: the calls of one step or transfer at a second shape
     extra = {"gru_layer_fwd": ("ms_h512", "gru_layer_512"), "gru_decode": ("ms_h512", "gru_decode_512"),
@@ -1026,8 +1346,10 @@ def main() -> int:
     kernels = []
     for name, (letter, source, replaces, also) in meta.items():
         per_call = results[name]
-        by_path = {"transfer": launches.get(name, 0), "train": train_launches.get(name, 0),
-                   "train_wide": wide_launches.get(name, 0)}
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
+        bound_ms, bound_by = bound(sum(r["flops"] for r in per_call.values()),
+                                   sum(r["bytes"] for r in per_call.values()))
+        library = [r["library_ms"] for r in per_call.values()]
         entry = {
             "name": name, "letter": letter, "route": "cuda",
             "source": f"midi_vae_tpu_torch/csrc/{source}",
@@ -1037,6 +1359,11 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in per_call.values()),
             "ms": sum(r["ms"] for r in per_call.values()),
             "plain_ms": sum(r["plain_ms"] for r in per_call.values()),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # one PyTorch call of the same function: cuBLAS's a.t() @ b for W,
+            # cuDNN's LSTM for L; none for the GRU kernels (nn.GRU is
+            # reset-after) and the decode kernels (no call feeds back outputs)
+            "library_ms": sum(library) if None not in library else None,
             "calls": per_call,
             "registers": registers[letter.replace(" ", "_")],
         }
@@ -1048,8 +1375,10 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], *(r["max_abs_err"] for r in calls.values()))
             entry["calls_" + key.removeprefix("ms_")] = calls
         kernels.append(entry)
+    print(smi)
     print(json.dumps({"kernels": kernels, "train_step": step, "train_step_512": wide_step,
-                      "train_step_teacher_force": tf_step, "power": smi}))
+                      "train_step_teacher_force": tf_step, "serving": serving,
+                      "judges_card_vs_cpu": judges, "power": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

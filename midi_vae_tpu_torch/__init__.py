@@ -1,12 +1,14 @@
 """PyTorch + CUDA port of midi_vae_tpu, for one NVIDIA H100.
 
-The layout follows ``midi_vae_tpu``: ``models/`` (cells, RNN scans, the VAE
-and its loss), ``ops/`` (the hand-written CUDA kernels in ``csrc/`` with their
-plain PyTorch versions and autograd Functions), ``evaluation/`` (generation
-and post-processing), ``training/`` (trainer, optimizers, checkpoints),
-``cli/transfer.py``, ``cli/train.py`` and ``tools/`` (card profilers). The
-numpy-only modules of the JAX package (config, data, utils.music) are
-imported, not copied; this package never imports jax.
+The layout follows ``midi_vae_tpu``: ``config.py``, ``data/`` and ``utils/``
+(copies of the JAX package's numpy-only modules), ``models/`` (cells, RNN
+scans, the VAE and its loss, the style judges), ``ops/`` (the hand-written
+CUDA kernels in ``csrc/`` with their plain PyTorch versions and autograd
+Functions), ``evaluation/`` (generation and post-processing), ``training/``
+(trainer, optimizers, checkpoints), ``cli/transfer.py``, ``cli/train.py`` and
+``tools/`` (card profilers). This package imports neither jax nor anything of
+``midi_vae_tpu`` (``tests/test_torch_isolation.py``); its functions that take a
+``Config`` also accept the JAX package's, which is field-equal.
 """
 
 import torch

@@ -18,56 +18,8 @@ Examples:
 from __future__ import annotations
 
 import argparse
-import contextlib
-import importlib.util
 import os
 import sys
-import types
-
-
-@contextlib.contextmanager
-def _split_without_sklearn():
-    """``import_midi_from_folder`` imports scikit-learn for its stratified
-    train/test split (dataset.py:186); the card's machine has none. There a
-    stand-in whose ``train_test_split`` raises ValueError sends the import to
-    the package's own fallback, the seeded shuffle split (dataset.py:196-206),
-    and is removed again afterwards."""
-    if importlib.util.find_spec("sklearn") is not None:
-        yield False
-        return
-
-    def train_test_split(*args, **kwargs):
-        raise ValueError("scikit-learn is not installed")
-
-    selection = types.ModuleType("sklearn.model_selection")
-    selection.train_test_split = train_test_split
-    root = types.ModuleType("sklearn")
-    root.model_selection = selection
-    stand_ins = {"sklearn": root, "sklearn.model_selection": selection}
-    before = {name: sys.modules.get(name) for name in stand_ins}
-    sys.modules.update(stand_ins)
-    try:
-        yield True
-    finally:
-        for name, module in before.items():
-            if module is None:
-                sys.modules.pop(name, None)
-            else:
-                sys.modules[name] = module
-
-
-def import_corpus(source: str, cfg, cache_dir: str | None = None, workers: int = 0,
-                  verbose: bool = False):
-    """``midi_vae_tpu.data.dataset.import_midi_from_folder``, with the seeded
-    shuffle split where scikit-learn is missing."""
-    from midi_vae_tpu.data.dataset import import_midi_from_folder
-
-    with _split_without_sklearn() as fallback:
-        ds = import_midi_from_folder(source, cfg, cache_dir=cache_dir, verbose=verbose,
-                                     workers=workers)
-    if fallback and verbose:
-        print("scikit-learn is not installed: seeded shuffle train/test split")
-    return ds
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -88,8 +40,9 @@ def main(argv: list[str] | None = None) -> int:
 
     import numpy as np
 
-    from midi_vae_tpu.config import Config, parse_overrides
-    from midi_vae_tpu.data.batching import flatten_dataset
+    from midi_vae_tpu_torch.config import Config, parse_overrides
+    from midi_vae_tpu_torch.data.batching import flatten_dataset
+    from midi_vae_tpu_torch.data.dataset import import_midi_from_folder
     from midi_vae_tpu_torch import use_exact_f32
     from midi_vae_tpu_torch.training.trainer import VAETrainer
 
@@ -115,7 +68,9 @@ def main(argv: list[str] | None = None) -> int:
     # raises when --device cuda finds no card: no silent CPU run
     trainer = VAETrainer(cfg, args.device)
     print(f"importing corpus from {args.source} ...")
-    ds = import_corpus(args.source, cfg, args.cache, args.workers, verbose=True)
+    # stratified split with scikit-learn, else the seeded shuffle split
+    ds = import_midi_from_folder(args.source, cfg, cache_dir=args.cache, verbose=True,
+                                 workers=args.workers)
     print(f"train songs: {ds.train_set_size}  test songs: {ds.test_set_size}")
     if ds.train_set_size == 0:
         print("no songs imported -- check --source and --classes")

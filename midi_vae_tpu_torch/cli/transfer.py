@@ -4,14 +4,18 @@
 Counterpart of ``midi_vae_tpu/cli/transfer.py``: tensorize a song, encode
 it, swap the style dimensions z[C] <-> z[C_switch], decode, and write the
 transferred MIDI. The run directory holds ``config.json`` and
-``params.npz`` (``tools/jax_run_to_torch.py`` converts a JAX run).
+``params.npz`` (``tools/jax_run_to_torch.py`` converts a JAX run). With
+``--classifiers DIR`` (one ``pitch/``, ``velocity/``, ``instrument/`` judge
+directory each, ``training/checkpoint.py::save_classifier``) the judges score
+the original and the transferred song: per judge, the mean confidence of its
+windows in the target class.
 
 Examples:
     python -m midi_vae_tpu_torch.cli.transfer --model runs/port \\
         --input song.mid --to-class style2 --output out/
     python -m midi_vae_tpu_torch.cli.transfer --model runs/port \\
         --input song.mid --from-class style1 --to-class style2 \\
-        --output out/ --write-reconstruction --device cpu
+        --output out/ --write-reconstruction --classifiers runs/judges --device cpu
 """
 
 from __future__ import annotations
@@ -60,7 +64,9 @@ def main(argv: list[str] | None = None) -> int:
                    help="source style; default: class names matched against the input path, else class 0")
     p.add_argument("--write-reconstruction", action="store_true",
                    help="also write the un-switched autoencoding for comparison")
-    p.add_argument("--classifiers", default=None, help="classifier run dir (not yet ported)")
+    p.add_argument("--classifiers", default=None,
+                   help="judge dir (pitch/, velocity/, instrument/): report per-judge "
+                        "target-class confidence for the original and the transferred song")
     p.add_argument("--bpm", type=float, default=None,
                    help="output tempo (default: the input's steady-span tempo)")
     p.add_argument("--keep-instruments", action="store_true",
@@ -70,19 +76,23 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.bundle is not None:
         raise SystemExit("--bundle: sealed serving bundles are not yet ported")
-    if args.classifiers is not None:
-        raise SystemExit("--classifiers: the style judges are not yet ported")
     if args.model is None:
         raise SystemExit("--model is required")
 
     import numpy as np
 
-    from midi_vae_tpu.data.tensorize import (
+    from midi_vae_tpu_torch.data.tensorize import (
         instrument_matrix_to_programs,
         load_rolls_from_path,
         save_rolls_as_midi,
     )
-    from midi_vae_tpu_torch.evaluation.generation import GenerationContext, vote_for_programs
+    from midi_vae_tpu_torch.evaluation.generation import (
+        GenerationContext,
+        split_song_back_to_samples,
+        vote_for_programs,
+    )
+    from midi_vae_tpu_torch.evaluation.sampling import add_silent_column
+    from midi_vae_tpu_torch.models.classifier import CLASSIFIER_KINDS, make_judge
     from midi_vae_tpu_torch.models.vae import MidiVAE
     from midi_vae_tpu_torch.training import checkpoint as ckpt
 
@@ -90,6 +100,31 @@ def main(argv: list[str] | None = None) -> int:
     # raises when --device cuda finds no card: no silent CPU run
     ctx = GenerationContext(cfg, MidiVAE(cfg, ckpt.load_params(args.model)), args.device)
     os.makedirs(args.output, exist_ok=True)
+
+    judges = {}
+    if args.classifiers:
+        for kind in CLASSIFIER_KINDS:
+            kind_dir = os.path.join(args.classifiers, kind)
+            if os.path.isdir(kind_dir):
+                judges[kind] = make_judge(ckpt.load_classifier(kind_dir).to(ctx.device))
+
+    def judge_windows(Y_song, I_pred, V_flat, label, C_target):
+        """Mean per-judge confidence that the windows are class C_target."""
+        windows = split_song_back_to_samples(Y_song, cfg.output_length)
+        report = []
+        if "pitch" in judges:
+            x = np.stack([add_silent_column(w, cfg) for w in windows])
+            report.append(("pitch", judges["pitch"](x)))
+        if "velocity" in judges and V_flat is not None:
+            v = V_flat.reshape(len(windows), cfg.output_length, 1)
+            report.append(("velocity", judges["velocity"](v)))
+        if "instrument" in judges and I_pred is not None:
+            report.append(("instrument", judges["instrument"](I_pred)))
+        if report:
+            parts = ", ".join(f"{name} {float(np.mean(probs[:, C_target])):.3f}"
+                              for name, probs in report)
+            print(f"  judge confidence in {cfg.classes[C_target]} ({label}): {parts}")
+
     C_switch = _class_index(cfg, args.to_class, "--to-class")
 
     # signature-conditioned runs: normalize with the train-time stats
@@ -110,7 +145,7 @@ def main(argv: list[str] | None = None) -> int:
             continue
         S_song = None
         if sig_stats is not None:
-            from midi_vae_tpu.data.batching import signature_vectors_for_songs
+            from midi_vae_tpu_torch.data.batching import signature_vectors_for_songs
 
             S_song = (signature_vectors_for_songs([song.Y], cfg)[0] - sig_stats[0]) / sig_stats[1]
         if args.from_class is not None:
@@ -132,6 +167,12 @@ def main(argv: list[str] | None = None) -> int:
         out = os.path.join(args.output, f"{stem}_{cfg.classes[C]}_to_{cfg.classes[C_switch]}.mid")
         save_rolls_as_midi(Y_sw, programs, cfg, out, bpm, V_sw, D_sw)
         print(f"{path} [{cfg.classes[C]}] -> {out} (programs {input_programs} -> {programs})")
+        if judges:
+            judge_windows(song.Y[..., : cfg.new_num_notes].reshape(-1, cfg.new_num_notes),
+                          song.I[None],  # one matrix per song, like the reference judge
+                          song.V.reshape(-1), "original", C_switch)
+            judge_windows(Y_sw, I_sw if cfg.meta_instrument else None,
+                          V_sw if cfg.meta_velocity else None, "transferred", C_switch)
 
         if args.write_reconstruction:
             z = ctx.encode_song(song.X, song.I, song.V, song.D)

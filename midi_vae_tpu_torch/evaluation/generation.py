@@ -2,7 +2,8 @@
 
 Counterpart of ``midi_vae_tpu/evaluation/generation.py:28-343``:
 ``additional_rows``, ``decode_argmax_graph``, ``transfer_argmax_graph``,
-``GenerationContext`` and ``vote_for_programs``. Batches are padded to the
+``GenerationContext``, ``split_song_back_to_samples`` and
+``vote_for_programs``. Batches are padded to the
 ``bucket_pow2`` sizes the JAX package uses; the parameters move to the
 device once, when the context is made. All IO is numpy.
 """
@@ -12,11 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from midi_vae_tpu.config import Config
-from midi_vae_tpu.data.batching import bucket_pow2, held_to_categorical, prepare_velocity
-from midi_vae_tpu.data.tensorize import instrument_matrix_to_programs
-
 from .. import use_exact_f32
+from ..config import Config
+from ..data.batching import bucket_pow2, held_to_categorical, prepare_velocity
+from ..data.tensorize import instrument_matrix_to_programs
 from ..models.vae import MidiVAE
 from . import sampling
 
@@ -182,6 +182,11 @@ class GenerationContext:
             raise NotImplementedError(f"sample_method {sample_method!r} not yet ported")
         idx = self._decode_padded(self._decode_argmax, z, history, additional)
         return sampling.process_argmax_outputs(idx, self.cfg, independent_windows=independent_windows)
+
+
+def split_song_back_to_samples(X: np.ndarray, length: int) -> list[np.ndarray]:
+    """A song's rows (n * length, ...) -> its n windows of ``length`` rows."""
+    return np.split(X, int(X.shape[0] / length))
 
 
 def vote_for_programs(I_pred: np.ndarray, cfg: Config) -> list[int]:

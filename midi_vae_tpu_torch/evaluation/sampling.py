@@ -1,15 +1,25 @@
 """Decoder-output post-processing for the argmax path (host-side numpy).
 
-A copy of ``process_argmax_outputs`` and the helper it calls from
-``midi_vae_tpu/evaluation/sampling.py``: that package's ``__init__`` imports
-jax, so the port cannot import the module. The semantics are unchanged.
+A copy of ``process_argmax_outputs``, the helper it calls and
+``add_silent_column`` from ``midi_vae_tpu/evaluation/sampling.py`` (the port
+imports nothing of the JAX package). The semantics are unchanged.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from midi_vae_tpu.config import Config
+from ..config import Config
+
+
+def add_silent_column(Y: np.ndarray, cfg: Config) -> np.ndarray:
+    """Append + mark the silent one-hot column (used to feed sampled rolls
+    back into the encoder/classifiers, e.g. vae_evaluation.py:1878-1884)."""
+    if not cfg.include_silent_note:
+        return np.copy(Y)
+    out = np.concatenate([Y, np.zeros((Y.shape[0], 1), Y.dtype)], axis=1)
+    out[out.sum(axis=1) == 0, -1] = 1
+    return out
 
 
 def override_pitches_from_velocity(Y: np.ndarray, V: np.ndarray, cfg: Config) -> np.ndarray:

@@ -2,7 +2,8 @@
 
 Counterpart of ``midi_vae_tpu/models/rnn.py``: ``encode_sequence``/
 ``_scan_layer`` run each layer as one call of kernel A (``ops.gru_layer``)
-when the model's kernel switch is on, or on the training path as the
+or, for LSTM cells, kernel L (``ops.lstm_layer``) when the model's kernel
+switch is on, or on the training path as the
 differentiable ``gru_layer_train_x`` (kernels A, C and W) or, on the wide
 route (``ops/_layout.py``), xp = x @ W + b in torch.matmul and
 ``gru_layer_train`` over it (kernels F, G and W), else the plain per-step
@@ -20,6 +21,7 @@ from typing import Any
 import torch
 
 from ..ops.gru_layer import gru_layer, gru_layer_train, gru_layer_train_x
+from ..ops.lstm_layer import lstm_layer
 from .cells import activation_fn, dense_apply, gate_activation_fn, get_cell, zero_states
 
 Params = dict[str, Any]
@@ -58,8 +60,10 @@ def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_seque
     """One RNN layer over (B, T, D): one kernel-A call when ``kernels`` (GRU
     cells with sigmoid gates), the training layer (kernels A, C, W) when
     ``train`` too, or with ``wide`` xp = x @ W + b and kernels F, G, W (the
-    JAX package's ``_gru_layer_fallback_x``, ``fused_train.py:2282-2288``),
-    else the plain cell scan."""
+    JAX package's ``_gru_layer_fallback_x``, ``fused_train.py:2282-2288``);
+    one kernel-L call for LSTM cells with tanh (``lstm_layer_infer_x``,
+    which sends other cell activations to the plain scan,
+    ``_lstm_x_use_pallas``); else the plain cell scan."""
     B, T, _ = xs.shape
     hidden = p["u"].shape[0]
     init = zero_states(cell, B, hidden, xs)
@@ -71,7 +75,11 @@ def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_seque
         else:
             out = gru_layer_train_x(x, init[0], p["w"], p["b"], p["u"], return_sequences)
         return out.transpose(0, 1) if return_sequences else out
-    if kernels:
+    if kernels and cell.num_states == 2 and activation == "tanh":
+        out = lstm_layer(xs.transpose(0, 1).contiguous(), init[0], init[1], p["w"], p["b"], p["u"],
+                         activation, return_sequences)
+        return out.transpose(0, 1) if return_sequences else out
+    if kernels and cell.num_states == 1:
         out = gru_layer(xs.transpose(0, 1).contiguous(), init[0], p["w"], p["b"], p["u"],
                         activation, return_sequences)
         return out.transpose(0, 1) if return_sequences else out

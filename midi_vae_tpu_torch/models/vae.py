@@ -8,8 +8,10 @@ owns its parameters as a module tree under the JAX key paths
 (``bridge.to_module``); ``trainable=True`` gives them gradients.
 
 The kernel switch ``kernels_enabled`` mirrors ``MidiVAE._pallas_enabled``:
-GRU cells with sigmoid gates take kernel A (encoder layers) and kernel B
-(decode heads) when serving; the wrappers run their plain versions on CPU
+cells with sigmoid gates take, when serving, kernel A (GRU) or kernel L
+(LSTM, tanh cells: ``_lstm_x_use_pallas``) per encoder layer and kernel B
+(GRU) or kernel M (LSTM) per 1- or 2-layer decode head with a softmax,
+sigmoid or linear output; the wrappers run their plain versions on CPU
 tensors. Configs the JAX package runs as plain scans
 (``gate_activation='hard_sigmoid'``, ``cell_type='SimpleRNN'``,
 ``use_pallas='off'``) keep the plain path on any device. The training path
@@ -34,9 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from midi_vae_tpu.config import Config
-
 from .. import bridge
+from ..config import Config
 from ..ops import _layout
 from ..ops.gru_decode import (
     OUT_ACTIVATIONS,
@@ -45,6 +46,7 @@ from ..ops.gru_decode import (
     gru_decode_train,
 )
 from ..ops.gru_layer import CELL_ACTIVATIONS
+from ..ops.lstm_decode import lstm_decode
 from .cells import activation_fn, dense_apply, dense_init, get_cell, glorot_uniform, split_keys
 from .rnn import decode_autoregressive, encode_sequence, init_decoder_states
 
@@ -55,7 +57,7 @@ def unported_training(cfg: Config) -> str | None:
     """Why the training kernels cannot run ``cfg`` on CUDA yet (the rows of
     the kernel table it waits for), or None when they can."""
     if cfg.cell_type == "LSTM":
-        return "LSTM training kernels (Queue 2 rows 15-21) not yet ported"
+        return "LSTM training kernels (Queue 2 rows 15-20 and 30) not yet ported"
     if cfg.compute_dtype == "bfloat16":
         return ("bfloat16 training not yet ported: the training kernels run float32 "
                 "(Queue 1 item 15)")
@@ -95,18 +97,32 @@ class MidiVAE(nn.Module):
             return False
         if cfg.gate_activation != "sigmoid":
             return False  # the kernels implement exact-sigmoid gates only
-        cuda = device.type == "cuda"
-        if cfg.cell_type == "LSTM":
-            if cuda:
-                raise NotImplementedError("LSTM kernels not yet ported (Queue 2 rows 15-21, 30-34)")
-            return False
         if cfg.lstm_activation not in CELL_ACTIVATIONS:
-            if cuda:
+            if device.type == "cuda":
                 raise NotImplementedError(
-                    f"GRU kernels with lstm_activation={cfg.lstm_activation!r} not yet ported"
-                )
+                    f"{cfg.cell_type} kernels with lstm_activation={cfg.lstm_activation!r} "
+                    "not yet ported")
             return False
         return True
+
+    def serving_head_kernel(self, name: str, n_layers: int, out_activation: str,
+                            device: torch.device) -> bool:
+        """Whether a serving decode head goes through its decode kernel (B
+        for GRU, M for LSTM: 1- or 2-layer heads with a softmax, sigmoid or
+        linear output). On CUDA a head the JAX package runs step by step
+        through ``_gru_full_kernel`` or ``_lstm_full_kernel``
+        (``models/vae.py:522-534``) raises NotImplementedError naming its row
+        of the kernel table; on the CPU it takes the plain scan."""
+        if not self.kernels_enabled(device):
+            return False
+        if n_layers in (1, 2) and out_activation in OUT_ACTIVATIONS:
+            return True
+        if device.type == "cuda":
+            row = 30 if self.cfg.cell_type == "LSTM" else 28
+            raise NotImplementedError(
+                f"per-step {self.cfg.cell_type} kernels (head {name!r}: {n_layers} layers, "
+                f"{out_activation!r} output; Queue 2 row {row}) not yet ported")
+        return False
 
     def train_kernels_enabled(self, device: torch.device) -> bool:
         """Whether the training path takes the differentiable kernel ops. On
@@ -303,23 +319,20 @@ class MidiVAE(nn.Module):
         new_encoded = torch.cat(parts, dim=-1) if len(parts) > 1 else z
         if not inference:
             return self._decode_train(dec, new_encoded, z, ground_truth, next_ground_truth)
-        kernels = self.kernels_enabled(z.device)
 
         def run_head(name: str, head_dim: int, length: int, out_activation: str):
             h = dec[name]
             states = init_decoder_states(h["init"], new_encoded, cfg.cell_type,
                                          cfg.lstm_state_activation)
             start = z.new_zeros((B, head_dim))
-            if kernels:
-                if len(h["cells"]) in (1, 2) and out_activation in OUT_ACTIVATIONS:
+            if self.serving_head_kernel(name, len(h["cells"]), out_activation, z.device):
+                if cfg.cell_type == "LSTM":
+                    probs, logits = lstm_decode(list(h["cells"]), h["out"], states, start,
+                                                length, cfg.lstm_activation, out_activation)
+                else:
                     probs, logits = gru_decode(list(h["cells"]), h["out"], [s[0] for s in states],
                                                start, length, cfg.lstm_activation, out_activation)
-                    return probs.transpose(0, 1), logits.transpose(0, 1)
-                if z.device.type == "cuda":
-                    raise NotImplementedError(
-                        f"per-step GRU kernels (head {name!r}: {len(h['cells'])} layers, "
-                        f"{out_activation!r} output) not yet ported"
-                    )
+                return probs.transpose(0, 1), logits.transpose(0, 1)
             return decode_autoregressive(list(h["cells"]), h["out"], states, start, length,
                                          cfg.cell_type, cfg.lstm_activation, out_activation,
                                          cfg.gate_activation)

@@ -1,14 +1,14 @@
 """Which kernel builds a layer or decode head takes, from the card's limits.
 
-Every GRU kernel of the port runs one thread per hidden column (blockDim.x =
-H) and keeps a tile of batch rows per block, so whether a build launches at a
+Every kernel of the port (GRU: A to G; LSTM: L and M) runs one thread per
+hidden column (blockDim.x = H) and keeps a tile of batch rows per block, so whether a build launches at a
 width is a matter of two limits of the H100 (sm_90a):
 - registers: the block's threads times their registers must fit the SM's
   65,536 (registers are allocated in steps of 8 per thread);
 - shared memory: the block's tile must fit the 227 KB (232,448 bytes) a block
   may have.
 
-Kernels A to E were built for GRU(256) without launch bounds; their register
+Kernels A to E, L and M are built without launch bounds; their register
 counts (``REGISTERS``, from ``nvcc -Xptxas -v`` on the card; ``chip_smoke.py``
 checks them against the build) decide how wide they go. F, G and the wide
 decode builds are compiled under ``__launch_bounds__(WIDE_THREADS)``, so the
@@ -41,7 +41,7 @@ WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
 
 # registers per thread of the builds without launch bounds (the largest over
 # a build's template instances), from nvcc -Xptxas -v for sm_90a
-REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168}
+REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 80, "M": 75}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
 BOUNDED = ("F", "G", "D_wide", "E_wide")
 
@@ -55,7 +55,7 @@ class LaunchLimitError(ValueError):
 def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
                dx: bool = False) -> int:
     """Dynamic shared memory of one block of ``kernel``: D is the layer's
-    input width (A, C) or the head's output width (B, D, E)."""
+    input width (A, C, L) or the head's output width (B, D, E, M)."""
     rows = WIDE_ROWS if kernel.endswith("_wide") else ROWS
     floats = {
         "A": D + 2 * H,
@@ -65,6 +65,8 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
         "E": 3 * D + 8 * H,
         "F": 2 * H,
         "G": 5 * H,
+        "L": D + 3 * H,  # x, h twice (h_{t-1} and h_t), c
+        "M": 2 * D + (n_layers + 1) * H + n_layers * H,  # probs, logits, h tiles, c tiles
     }[kernel.removesuffix("_wide")]
     return 4 * rows * floats
 

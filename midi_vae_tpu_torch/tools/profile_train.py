@@ -81,7 +81,7 @@ def main(argv: list[str] | None = None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from midi_vae_tpu.config import Config, parse_overrides
+    from midi_vae_tpu_torch.config import Config, parse_overrides
     from midi_vae_tpu_torch import use_exact_f32
     from midi_vae_tpu_torch.ops import _layout
     from midi_vae_tpu_torch.training.trainer import VAETrainer

@@ -13,6 +13,12 @@ package's orbax checkpoints, ``save_checkpoint``/``restore_checkpoint``/
 and moments under ``<slot>/<parameter name>``), ``rng.npy`` (the
 ``torch.Generator`` state) and ``state.json`` (the epoch and the generator's
 device). Resume is exact: the same params, moments and generator state.
+
+A judge directory (``save_classifier``/``load_classifier``) holds one
+sub-directory per kind (``pitch/``, ``velocity/``, ``instrument/``), each
+with ``spec.json`` (the ``ClassifierSpec`` fields, as the JAX package writes
+them) and ``params.npz``; ``tools/jax_run_to_torch.py --classifiers``
+converts the JAX package's judge directories into it.
 """
 
 from __future__ import annotations
@@ -24,12 +30,13 @@ import shutil
 import numpy as np
 import torch
 
-from midi_vae_tpu.config import Config
-
 from .. import bridge
+from ..config import Config
+from ..models.classifier import ClassifierSpec, StyleClassifier
 
 PARAMS_FILE = "params.npz"
 OPT_FILE = "opt_state.npz"
+SPEC_FILE = "spec.json"
 RNG_FILE = "rng.npy"
 STATE_FILE = "state.json"
 
@@ -113,3 +120,23 @@ def restore_checkpoint(run_dir: str, epoch: int | None = None) -> dict:
         "rng_device": state["rng_device"],
         "epoch": int(state["epoch"]),
     }
+
+
+def save_classifier(kind_dir: str, spec, params) -> None:
+    """Write one judge: ``spec.json`` (``spec``: a ``ClassifierSpec``, or the
+    JAX package's, whose fields are the same) and ``params.npz`` (the numpy
+    tree)."""
+    os.makedirs(kind_dir, exist_ok=True)
+    with open(os.path.join(kind_dir, SPEC_FILE), "w") as f:
+        json.dump(dict(spec.__dict__), f, indent=2)
+    bridge.save_params(os.path.join(kind_dir, PARAMS_FILE), params)
+
+
+def load_classifier(kind_dir: str):
+    """The ``StyleClassifier`` of one judge directory, on the CPU."""
+    path = os.path.join(kind_dir, SPEC_FILE)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no {SPEC_FILE} under {kind_dir!r} -- is this a judge directory?")
+    with open(path) as f:
+        spec = ClassifierSpec(**json.load(f))
+    return StyleClassifier(spec, bridge.load_params(os.path.join(kind_dir, PARAMS_FILE)))

@@ -28,10 +28,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from midi_vae_tpu.config import Config
-from midi_vae_tpu.data.batching import FlatSplit
-
 from .. import bridge
+from ..config import Config
+from ..data.batching import FlatSplit
 from ..models.vae import MidiVAE, loss_and_metrics
 from . import checkpoint as ckpt
 from .keras_optim import OPTIMIZERS, Optimizer
@@ -320,7 +319,7 @@ class VAETrainer:
                 json.dump(history, f)
             if plot:
                 try:
-                    from midi_vae_tpu.utils.plotting import plot_training_history
+                    from ..utils.plotting import plot_training_history
 
                     plot_training_history(history, os.path.join(output_dir, "plot.png"))
                 except Exception as err:  # plotting must never kill training

@@ -127,14 +127,15 @@ def test_transfer_argmax_matches_jax(pair):
 
 
 def test_kernel_switch_mirrors_jax():
-    cpu = torch.device("cpu")
+    """Serving takes the kernel wrappers for GRU and LSTM cells with sigmoid
+    gates (kernels A and B, L and M) on either device; on the CPU they run
+    their plain versions. LSTM serving no longer raises on CUDA."""
     for overrides, enabled in (({}, True), ({"use_pallas": "off"}, False),
                                ({"gate_activation": "hard_sigmoid"}, False),
-                               ({"cell_type": "SimpleRNN"}, False), ({"cell_type": "LSTM"}, False)):
+                               ({"cell_type": "SimpleRNN"}, False), ({"cell_type": "LSTM"}, True)):
         cfg = small_test_config(**overrides)
-        assert MidiVAE(cfg).kernels_enabled(cpu) is enabled, overrides
-    with pytest.raises(NotImplementedError, match="LSTM kernels not yet ported"):
-        MidiVAE(small_test_config(cell_type="LSTM")).kernels_enabled(torch.device("cuda"))
+        for device in ("cpu", "cuda"):
+            assert MidiVAE(cfg).kernels_enabled(torch.device(device)) is enabled, (overrides, device)
 
 
 @pytest.mark.parametrize("cell_type", ["SimpleRNN", "LSTM"])

@@ -10,7 +10,6 @@ divides each update by the gradient's own magnitude, so gradients near zero
 move the parameter by up to lr whatever their size). Resume: bit-equal.
 """
 
-import importlib.util
 import os
 import sys
 
@@ -28,6 +27,7 @@ from midi_vae_tpu.training.trainer import VAETrainer as JaxTrainer
 from midi_vae_tpu_torch import bridge
 from midi_vae_tpu_torch.cli import train as train_cli
 from midi_vae_tpu_torch.cli import transfer as transfer_cli
+from midi_vae_tpu_torch.data.dataset import import_midi_from_folder
 from midi_vae_tpu_torch.training import checkpoint as ckpt
 from midi_vae_tpu_torch.training.trainer import VAETrainer, _slice_batch, pad_batch_to
 from conftest import tools_module
@@ -146,9 +146,9 @@ def test_train_cli_cuda_without_a_card_is_an_error(tmp_path, monkeypatch):
 
 
 def test_import_corpus_without_sklearn_takes_the_seeded_split(tmp_path, monkeypatch):
-    """Where scikit-learn is missing (the card's machine), the corpus import
-    takes the package's seeded shuffle split instead of failing, and leaves
-    no stand-in module behind."""
+    """Where scikit-learn is missing, the port's corpus import
+    (``data/dataset.py``) takes the package's seeded shuffle split instead of
+    failing."""
     corpus_tool = tools_module("make_demo_corpus")
     rng = np.random.RandomState(0)
     corpus = tmp_path / "corpus"
@@ -157,13 +157,10 @@ def test_import_corpus_without_sklearn_takes_the_seeded_split(tmp_path, monkeypa
         for i in range(3):
             corpus_tool.make_song(corpus_tool.STYLES[style], rng, bars=6).write(
                 str(corpus / style / f"s{i}.mid"))
-    real = importlib.util.find_spec
-    monkeypatch.setattr(importlib.util, "find_spec",
-                        lambda name, *a: None if name == "sklearn" else real(name, *a))
     for name in ("sklearn", "sklearn.model_selection"):  # importing them now fails
         monkeypatch.setitem(sys.modules, name, None)
     cfg = small_test_config()
-    ds = train_cli.import_corpus(str(corpus), cfg)
+    ds = import_midi_from_folder(str(corpus), cfg)
     assert sys.modules.get("sklearn.model_selection") is None
     assert sorted(set(ds.C_train + ds.C_test)) == [0, 1]
     assert ds.train_set_size == 5 and ds.test_set_size == 1

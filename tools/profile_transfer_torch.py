@@ -3,12 +3,13 @@
 
 For each batch size, runs ``GenerationContext.transfer_argmax`` (encode ->
 latent swap -> history roll -> decode -> argmax) of the default Config()
-model with seeded random weights on random windows, and prints one JSON line:
+model (``--set KEY=VALUE`` overrides any field, e.g. ``cell_type=LSTM``) with
+seeded random weights on random windows, and prints one JSON line:
 the median wall time per transfer (host clock around work that ends in a
 synchronize), windows/s and note-steps/s, and from a torch.profiler window of
 REPS transfers the device time per kernel name and the device's idle share.
 
-Usage: python tools/profile_transfer_torch.py [--batch 16 256] [--reps 20]
+Usage: python tools/profile_transfer_torch.py [--batch 16 256] [--reps 20] [--set KEY=VALUE]
 """
 
 from __future__ import annotations
@@ -35,13 +36,15 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--batch", type=int, nargs="+", default=[16, 256])
     p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   help="override any Config field")
     args = p.parse_args(argv)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import random_batch
-    from midi_vae_tpu.config import Config
+    from midi_vae_tpu_torch.config import Config, parse_overrides
     from midi_vae_tpu_torch.evaluation.generation import GenerationContext
     from midi_vae_tpu_torch.models.vae import MidiVAE
 
@@ -49,7 +52,7 @@ def main(argv: list[str] | None = None) -> int:
         raise SystemExit("no CUDA device: this tool measures the card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    cfg = Config()
+    cfg = Config(**parse_overrides(args.set))
     ctx = GenerationContext(cfg, MidiVAE(cfg), "cuda")
     perm = torch.arange(cfg.latent_dim, device="cuda")
     perm[[0, 1]] = perm[[1, 0]]
@@ -84,7 +87,7 @@ def main(argv: list[str] | None = None) -> int:
         busy_ms = sum(kernels.values())
         top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
         print(json.dumps({
-            "batch": B, "card": card, "wall_ms_median": wall * 1e3,
+            "batch": B, "cell_type": cfg.cell_type, "lstm_size": cfg.lstm_size, "card": card, "wall_ms_median": wall * 1e3,
             "windows_per_s": B / wall, "note_steps_per_s": B * cfg.output_length / wall,
             "profiled_ms_per_transfer": window / args.reps * 1e3,
             "device_busy_ms_per_transfer": busy_ms,
