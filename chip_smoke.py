@@ -12,8 +12,10 @@ result line):
      (csrc/gru_decode.cu), C (csrc/gru_layer_bwd.cu), D
      (csrc/gru_decode_train.cu), E (csrc/gru_decode_bwd.cu), W
      (csrc/grad_reduce.cu), F (csrc/gru_layer_xp_fwd.cu), G
-     (csrc/gru_layer_xp_bwd.cu), L (csrc/lstm_layer_fwd.cu) and M
-     (csrc/lstm_decode.cu); every build's registers and spills from ptxas
+     (csrc/gru_layer_xp_bwd.cu), L (csrc/lstm_layer_fwd.cu), M
+     (csrc/lstm_decode.cu), N (csrc/lstm_layer_bwd.cu), Q
+     (csrc/lstm_layer_xp_fwd.cu), R (csrc/lstm_layer_xp_bwd.cu) and S
+     (csrc/lstm_step.cu); every build's registers and spills from ptxas
      against the route chooser's table; the 8-rows builds of D and E must
      refuse H = 512 at their C entry points;
   3. kernels: A and B against their plain PyTorch versions on the card, at
@@ -63,7 +65,24 @@ result line):
      judge call; then the GRU slice once more with GRU judges (kernel A
      under --classifiers);
  15. LSTM card against CPU, as phase 5 for Config(cell_type="LSTM");
- 16. the judges card against CPU: probs of each kind, LSTM and GRU.
+ 16. the judges card against CPU: probs of each kind, LSTM and GRU;
+ 17. LSTM training kernels: L with its c sequence, N (csrc/lstm_layer_bwd.cu),
+     S (csrc/lstm_step.cu) and W at the LSTM(256) step's shapes, Q
+     (csrc/lstm_layer_xp_fwd.cu), R (csrc/lstm_layer_xp_bwd.cu) and W at
+     LSTM(512)'s, against their plain versions at B = 256 (timed, with
+     bounds and cuDNN's LSTM as the yardstick) and B = 5, the gradients of
+     lstm_layer_train_x, lstm_layer_train and lstm_cell_step against
+     autograd through the plain forward, and one LSTM(512) notes layer's
+     forward + backward timed on both routes;
+ 18. LSTM training slice: the train CLI with --set cell_type=LSTM (and with
+     lstm_size=512, the wide route) for 2 epochs, --resume for a third, the
+     transfer CLI serves the run, every launch counter as designed;
+ 19. LSTM training step, card against CPU, as phase 8 at LSTM(256) and
+     LSTM(512);
+ 20. judge training: the classify CLI trains GRU judges (RNN(256) x 2,
+     batch 512, 2 epochs; A + C + W), ClassifierTrainer LSTM judges of all
+     three kinds (L + N + W), one judge step per cell type card against
+     CPU, and the transfer CLI serves the trained LSTM judges.
 Then one JSON line with the kernels, and the final line
 {"ok": true, "device": {...}}.
 """
@@ -84,7 +103,8 @@ sys.path.insert(0, REPO)
 # cuBLAS, and kernel B's errors compound over 64 fed-back steps
 H_ATOL = 5e-5       # kernel A's h, kernel B's probs
 LOGITS_ATOL = 1e-4  # kernel B's and M's logits
-L_H_ATOL = 1e-5     # kernel L's h
+L_H_ATOL = 1e-5     # kernel L's h (and Q's, S's h)
+C_ATOL = 5e-5       # the c sequence of L and Q, S's c: |c| grows over the steps
 M_PROBS_ATOL = 1e-5  # kernel M's probs
 # card vs CPU end to end (encoder dense layers + 64-step decode on top)
 Z_ATOL = 1e-4
@@ -154,7 +174,11 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel"), "B": ("gru_decode", "g
           "D_wide": ("gru_decode_train", "gru_decode_train_wide_kernel"),
           "E_wide": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel"),
           "W": ("grad_reduce", "grad_reduce"),
-          "L": ("lstm_layer_fwd", "lstm_layer_fwd_kernel"), "M": ("lstm_decode", "lstm_decode_kernel")}
+          "L": ("lstm_layer_fwd", "lstm_layer_fwd_kernel"), "M": ("lstm_decode", "lstm_decode_kernel"),
+          "N": ("lstm_layer_bwd", "lstm_layer_bwd_kernel"),
+          "Q": ("lstm_layer_xp_fwd", "lstm_layer_xp_fwd_kernel"),
+          "R": ("lstm_layer_xp_bwd", "lstm_layer_xp_bwd_kernel"),
+          "S": ("lstm_step", "lstm_step_kernel")}
 
 
 def check_registers():
@@ -961,7 +985,12 @@ def phase_slice(work, cell_type="GRU", judges=False):
 # (ops/_layout.py): the four encoder layers (notes x 2, instrument, velocity)
 # and the decode calls; W reduces per GRU cell 3 products on the narrow route
 # (dW, db with dU[:, :2H]; dU[:, 2H:]) and 2 on the wide one (dU only: dW and
-# db are autograd over xp = x @ W + b), and 1 per head's output dense
+# db are autograd over xp = x @ W + b), and 1 per head's output dense. An
+# LSTM step (Config(cell_type="LSTM")) runs S once per head cell and decode
+# step (notes 2 x 64, velocity 64, instrument 4: 196), whose backward is the
+# plain version's, so W reduces only the encoder layers: dW with db, and dU
+# (2 per layer) on the narrow route, dU (1) on the wide one
+S_PER_STEP = 2 * 64 + 64 + 4
 PER_TRAIN_STEP = {
     # A + C per layer; notes + velocity multi-head and the instrument head;
     # W: 3 x (4 encoder + 2 notes + 1 velocity + 1 instrument cells) + 3
@@ -970,25 +999,40 @@ PER_TRAIN_STEP = {
     # F + G per layer; each head alone; W: 2 x 4 + 3 x 4 decode cells + 3
     "wide": {"gru_layer_xp_fwd": 4, "gru_layer_xp_bwd": 4, "gru_decode_train_wide": 3,
              "gru_decode_bwd_wide": 3, "grad_reduce": 23},
+    "lstm_narrow": {"lstm_layer_fwd": 4, "lstm_layer_bwd": 4, "lstm_step": S_PER_STEP,
+                    "grad_reduce": 8},
+    "lstm_wide": {"lstm_layer_xp_fwd": 4, "lstm_layer_xp_bwd": 4, "lstm_step": S_PER_STEP,
+                  "grad_reduce": 4},
 }
 PER_EVAL_BATCH = {  # forward only
     "narrow": {"gru_layer_fwd": 4, "gru_decode_train": 2},
     "wide": {"gru_layer_xp_fwd": 4, "gru_decode_train_wide": 3},
+    "lstm_narrow": {"lstm_layer_fwd": 4, "lstm_step": S_PER_STEP},
+    "lstm_wide": {"lstm_layer_xp_fwd": 4, "lstm_step": S_PER_STEP},
 }
-PER_ENCODE_BATCH = {"gru_layer_fwd": 4}  # the history pass (serving encoder, kernel A)
+# the history pass (the serving encoder, kernel A or L)
+PER_ENCODE_BATCH = {"GRU": {"gru_layer_fwd": 4}, "LSTM": {"lstm_layer_fwd": 4}}
 # one teacher-forced step of the default config: the notes head is a plain
 # scan over its ground truth, velocity and instrument are decoded alone
 PER_TF_STEP = {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_decode_train": 2,
                "gru_decode_bwd": 2, "grad_reduce": 20}
-PER_SONG_TRANSFER = {"gru_layer_fwd": 4, "gru_decode": 3}  # encode 4 layers, decode 3 heads
+# encode 4 layers, decode 3 heads
+PER_SONG_TRANSFER = {"GRU": {"gru_layer_fwd": 4, "gru_decode": 3},
+                     "LSTM": {"lstm_layer_fwd": 4, "lstm_decode": 3}}
+
+
+def route_key(cfg, route):
+    """The key of the launch tables: the route, prefixed for LSTM."""
+    return f"lstm_{route}" if cfg.cell_type == "LSTM" else route
 
 
 def kernel_counters():
     from midi_vae_tpu_torch.ops import gru_decode as gd
     from midi_vae_tpu_torch.ops import gru_layer as gl
+    from midi_vae_tpu_torch.ops import lstm_layer as ll
     from midi_vae_tpu_torch.ops.grad_reduce import grad_reduce
     from midi_vae_tpu_torch.ops.lstm_decode import lstm_decode
-    from midi_vae_tpu_torch.ops.lstm_layer import lstm_layer
+    from midi_vae_tpu_torch.ops.lstm_step import lstm_cell_step_fwd
 
     return {"gru_layer_fwd": gl.gru_layer, "gru_decode": gd.gru_decode,
             "gru_layer_bwd": gl.gru_layer_bwd, "gru_decode_train": gd.gru_decode_fwd_train,
@@ -996,7 +1040,9 @@ def kernel_counters():
             "gru_layer_xp_fwd": gl.gru_layer_xp, "gru_layer_xp_bwd": gl.gru_layer_xp_bwd,
             "gru_decode_train_wide": gd.gru_decode_fwd_train_wide,
             "gru_decode_bwd_wide": gd.gru_decode_bwd_wide,
-            "lstm_layer_fwd": lstm_layer, "lstm_decode": lstm_decode}
+            "lstm_layer_fwd": ll.lstm_layer, "lstm_decode": lstm_decode,
+            "lstm_layer_bwd": ll.lstm_layer_bwd, "lstm_layer_xp_fwd": ll.lstm_layer_xp,
+            "lstm_layer_xp_bwd": ll.lstm_layer_xp_bwd, "lstm_step": lstm_cell_step_fwd}
 
 
 def reset_counters():
@@ -1023,8 +1069,9 @@ def expected_train_launches(cfg, route, n_train, n_test, epochs):
             encodes += n_test_batches
             evals += n_test_batches
     want = {}
-    for table, times in ((PER_TRAIN_STEP[route], steps), (PER_EVAL_BATCH[route], evals),
-                         (PER_ENCODE_BATCH, encodes)):
+    key = route_key(cfg, route)
+    for table, times in ((PER_TRAIN_STEP[key], steps), (PER_EVAL_BATCH[key], evals),
+                         (PER_ENCODE_BATCH[cfg.cell_type], encodes)):
         for name, per in table.items():
             if per * times:
                 want[name] = want.get(name, 0) + per * times
@@ -1058,7 +1105,7 @@ def phase_train_slice(work, sets=()):
     run, cache = os.path.join(work, "train_run"), os.path.join(work, "cache")
     cfg = Config(**parse_overrides(list(sets)))
     route = _layout.config_route(cfg)
-    tag = f"H={cfg.lstm_size}, {route} route"
+    tag = f"{cfg.cell_type}({cfg.lstm_size}), {route} route"
     train, test, _, _ = flatten_dataset(import_midi_from_folder(source, cfg, cache_dir=cache), cfg)
     args = ["--source", source, "--output", run, "--cache", cache, "--device", "cuda"]
     for kv in sets:
@@ -1094,16 +1141,16 @@ def phase_train_slice(work, sets=()):
                         "--device", "cuda"])
     if rc != 0:
         raise RuntimeError(f"the transfer CLI returned {rc} on the trained run")
-    if read_counters() != PER_SONG_TRANSFER:
+    per_song = PER_SONG_TRANSFER[cfg.cell_type]
+    if read_counters() != per_song:
         raise RuntimeError(f"serving the trained run launched {read_counters()}, expected "
-                           f"{PER_SONG_TRANSFER}")
+                           f"{per_song}")
     # a model 3 epochs old predicts mostly the silent note: the song must be
     # written and parse back, its notes may be few
     mid = smf.read_midi(os.path.join(out, "style1_0_style1_to_style2.mid"))
     notes = sum(len(inst.notes) for inst in mid.instruments)
     print(f"[train] the transfer CLI served the trained run ({tag}, epoch 2 params): a .mid that "
-          f"parses back, {len(mid.instruments)} instruments, {notes} notes; launches "
-          f"{PER_SONG_TRANSFER}")
+          f"parses back, {len(mid.instruments)} instruments, {notes} notes; launches {per_song}")
     return results["2 epochs"]
 
 
@@ -1267,6 +1314,471 @@ def phase_judges_card_vs_cpu(cell_type):
     return errs
 
 
+def lstm_bwd_flops(T, B, w, u, dx=True):
+    """BPTT of an LSTM layer with x @ W recomputed (N): the gates again from
+    x_t @ W and h_{t-1} @ U, dh = da @ U^T and dx = da @ W^T: 2 (d_in (2 with
+    dx) + 2 H) 4H multiply-adds a row and step."""
+    return 2 * T * B * (w.shape[0] * (2 if dx else 1) + 2 * u.shape[0]) * u.shape[1]
+
+
+def cudnn_lstm_layer(x, p, h0, c0, xp=False):
+    """cuDNN's LSTM (``torch.nn.LSTM``) holding one LSTM layer's weights
+    (as ``cudnn_lstm``) or, with ``xp``, the layer over a precomputed
+    x-projection x = xp (weight_ih = the identity, bias_ih = 0, so that
+    x @ weight_ih^T = xp): the yardstick ``library_ms`` of L, N, Q and R; the
+    port never calls it. Returns (forward, backward, forward + backward),
+    each a callable; the backward is one autograd.grad call over a forward
+    run once, for the gradients of x, h0, c0 and the weights."""
+    import torch
+
+    G, H = p["u"].shape[1], p["u"].shape[0]
+    D = G if xp else p["w"].shape[0]
+    lstm = torch.nn.LSTM(D, H).to(x.device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.eye(G, device=x.device) if xp else p["w"].t())
+        lstm.weight_hh_l0.copy_(p["u"].t())
+        lstm.bias_ih_l0.copy_(torch.zeros(G, device=x.device) if xp else p["b"])
+        lstm.bias_hh_l0.zero_()
+    leaves = [x.detach().clone().requires_grad_(), h0[None].clone().requires_grad_(),
+              c0[None].clone().requires_grad_(), *lstm.parameters()]
+    g = torch.ones(x.shape[0], x.shape[1], H, device=x.device)
+
+    def fwd():
+        with torch.no_grad():
+            return lstm(leaves[0], (leaves[1], leaves[2]))
+
+    def fwd_bwd():
+        out, _ = lstm(leaves[0], (leaves[1], leaves[2]))
+        return torch.autograd.grad(out, leaves, g)
+
+    out, _ = lstm(leaves[0], (leaves[1], leaves[2]))
+    return fwd, (lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)), fwd_bwd
+
+
+def head_loop_times(name, res, args, n):
+    """S on one head cell as a step's head runs it: ``n`` launches with h
+    and c carried from step to step, timed as one CUDA-event window, beside
+    the plain version's ``n`` steps and ``torch.lstm_cell``'s (the yardstick
+    ``library_ms``: x @ W + b + h @ U and the gates i, f, g, o in one
+    PyTorch call; the port never calls it), in turns plain, kernel, kernel,
+    plain. ``res`` is the cell's per-launch compare(); returns it as the sum
+    over the ``n`` launches, the per-launch time kept beside."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import lstm_step as ls
+
+    x, h0, c0, w, b, u, activation = args
+    # the card's fused cell takes both biases
+    wt, ut, b_hh = w.t().contiguous(), u.t().contiguous(), torch.zeros_like(b)
+
+    def loop(step):
+        def run():
+            h, c = h0, c0
+            for _ in range(n):
+                h, c = step(h, c)
+            return h, c
+        return run
+
+    kernel = loop(lambda h, c: ls.lstm_cell_step_fwd(x, h, c, w, b, u, activation))
+    plain = loop(lambda h, c: ls.lstm_cell_step_reference(x, h, c, w, b, u, activation))
+    library = loop(lambda h, c: torch.lstm_cell(x, (h, c), wt, ut, b, b_hh))
+    with torch.no_grad():
+        # the yardstick computes the same function as the port's step
+        check(f"torch.lstm_cell {name}", lambda: torch.lstm_cell(x, (h0, c0), wt, ut, b, b_hh),
+              lambda: ls.lstm_cell_step_reference(*args), [H_ATOL, C_ATOL])
+        plain_a, kernel_a = median_ms(plain), median_ms(kernel)
+        kernel_b, plain_b = median_ms(kernel), median_ms(plain)
+        library_ms = median_ms(library)
+    ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
+    print(f"[kernels] S {name}, {n} launches in one window: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.lstm_cell {library_ms:.4f} ms")
+    return {k: (v * n if k in ("flops", "bytes", "bound_ms") else v) for k, v in res.items()} | {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "launches_per_step": n,
+        "ms_per_launch_alone": res["ms"], "plain_ms_per_launch_alone": res["plain_ms"]}
+
+
+def phase_lstm_train_kernels():
+    """The LSTM training kernels at the shapes of Config(cell_type="LSTM")'s
+    step (LSTM(256) x 2 notes layers, instrument, velocity; the heads' cells)
+    and Q, R at LSTM(512)'s, at B = 256 (timed, with bounds and cuDNN's LSTM
+    beside L + N and matmul + Q + R) and B = 5, each against its plain
+    version, with the training ops' gradients against autograd through the
+    plain forward; then one LSTM(512) notes layer's forward + backward timed
+    on both routes."""
+    import torch
+
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.models.rnn import init_decoder_states
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.ops import _layout
+    from midi_vae_tpu_torch.ops import lstm_layer as ll
+    from midi_vae_tpu_torch.ops import lstm_step as ls
+    from midi_vae_tpu_torch.ops.grad_reduce import (
+        grad_reduce_reference,
+        lstm_u_grad,
+        lstm_weight_grads,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    results = {k: {} for k in ("lstm_layer_train_fwd", "lstm_layer_bwd", "lstm_layer_xp_fwd",
+                               "lstm_layer_xp_bwd", "lstm_step", "grad_reduce_lstm",
+                               "grad_reduce_lstm_wide", "lstm_fwd_bwd_vs_cudnn")}
+    flat = lambda outs: tuple(t for t in outs if t is not None)  # noqa: E731
+
+    def plain_w(x, hprev, da, with_dw):
+        n, G = x.shape[0] * x.shape[1], da.shape[-1]
+        d2 = da.reshape(n, G)
+        du = grad_reduce_reference(hprev.reshape(n, -1), d2)[0]
+        return (*grad_reduce_reference(x.reshape(n, -1), d2, True), du) if with_dw else du
+
+    def cublas_w(x, hprev, da, with_dw):
+        n, G = x.shape[0] * x.shape[1], da.shape[-1]
+        d2 = da.reshape(n, G)
+        du = hprev.reshape(n, -1).t() @ d2
+        return (x.reshape(n, -1).t() @ d2, d2.sum(0), du) if with_dw else du
+
+    def layers(cfg, enc, batch, rows, wide):
+        """(name, x, params, return_sequences, dx wanted) of the step's four
+        encoder layers, notes L2's input the plain L1's h sequence."""
+        h0 = torch.zeros(rows, cfg.lstm_size, device=dev)
+        p1 = [enc["notes_rnn"][0][k].detach() for k in "wbu"]
+        with torch.no_grad():
+            x_l2 = ll.lstm_layer_reference(tm(batch["X"]), h0, h0, *p1, "tanh", True)
+        return [("notes_l1", tm(batch["X"]), enc["notes_rnn"][0], True, False),
+                ("notes_l2", x_l2, enc["notes_rnn"][1], False, True),
+                ("instrument", tm(batch["I"]), enc["inst_rnn"][0], False, False),
+                ("velocity", tm(batch["V"]), enc["vel_rnn"][0], False, False)]
+
+    for rows in (B, RAGGED):
+        timed = rows == B
+        run = compare if timed else check
+        # --- LSTM(256): L with c, N, W, and the gradients of L + N + W
+        cfg = Config(cell_type="LSTM")
+        model = MidiVAE(cfg).to(dev)
+        enc, dec = model.params["encoder"], model.params["decoder"]
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in random_batch(cfg, rows, 9).items()}
+        h0 = torch.zeros(rows, cfg.lstm_size, device=dev)
+        for name, x, p, rs, need_dx in layers(cfg, enc, batch, rows, False):
+            w, b, u = (p[k].detach() for k in "wbu")
+            T = x.shape[0]
+            args = (x, h0, h0, w, b, u, "tanh", True, True)
+            out = run(f"L {name} x{tuple(x.shape)} with c", lambda a=args: ll.lstm_layer(*a),
+                      lambda a=args: ll.lstm_layer_reference(*a), [L_H_ATOL, C_ATOL],
+                      flops=layer_flops(T, rows, w, u), inputs=args[:6])
+            if timed:
+                results["lstm_layer_train_fwd"][name] = out
+            with torch.no_grad():
+                hseq, cseq = ll.lstm_layer_reference(*args)
+            g = torch.randn(hseq.shape if rs else hseq.shape[1:], generator=gen, device=dev)
+            bargs = (x, hseq, cseq, h0, h0, g if rs else None, None if rs else g, w, b, u, need_dx)
+            library = cudnn_lstm_layer(x, p, h0, h0) if timed else (None, None, None)
+            out = run(f"N {name} rs={rs} dx={need_dx}",
+                      lambda a=bargs: flat(ll.lstm_layer_bwd(*a)),
+                      lambda a=bargs: flat(ll.lstm_layer_bwd_reference(*a)),
+                      [rel] * (4 if need_dx else 3), flops=lstm_bwd_flops(T, rows, w, u, need_dx),
+                      inputs=bargs[:10], library_fn=library[1])
+            if timed:
+                results["lstm_layer_bwd"][name] = out
+            da = ll.lstm_layer_bwd_reference(*bargs)[3]
+            hprev = torch.cat([h0[None], hseq[:-1]])
+            wargs = (x, hprev, da)
+            out = run(f"W LSTM {name} dW, db, dU", lambda a=wargs: lstm_weight_grads(*a),
+                      lambda a=wargs: plain_w(*a, True), [rel] * 3,
+                      flops=2 * T * rows * (w.numel() + u.numel()), inputs=wargs,
+                      library_fn=lambda a=wargs: cublas_w(*a, True))
+            if timed:
+                results["grad_reduce_lstm"][f"encoder {name}"] = out
+                # L + N (+ W) against cuDNN's forward + backward, one layer
+                leaves = [t.clone().requires_grad_(i > 0 or need_dx)
+                          for i, t in enumerate((x, h0, h0, w, b, u))]
+
+                def ours(lv=leaves, rs=rs, g=g):
+                    want = [t for t in lv if t.requires_grad]
+                    return torch.autograd.grad(ll.lstm_layer_train_x(*lv, rs), want, g)
+
+                ours_ms, cudnn_ms = median_ms(ours), median_ms(library[2])
+                results["lstm_fwd_bwd_vs_cudnn"][f"L+N+W {name}"] = {"ms": ours_ms,
+                                                                      "cudnn_ms": cudnn_ms}
+                print(f"[lstm train kernels] {name}: L + N + W forward + backward {ours_ms:.4f} ms, "
+                      f"cuDNN's LSTM forward + backward {cudnn_ms:.4f} ms")
+            leaves = [t.clone().requires_grad_(i > 0 or need_dx)
+                      for i, t in enumerate((x, h0, h0, w, b, u))]
+            wanted = [t for t in leaves if t.requires_grad]
+            got = torch.autograd.grad(ll.lstm_layer_train_x(*leaves, rs), wanted, g)
+            want = torch.autograd.grad(ll.lstm_layer_reference(*leaves, "tanh", rs), wanted, g)
+            check(f"L+N+W grads {name} B={rows}", lambda: got, lambda: want, [rel] * len(want))
+        # S on each head cell at the step's shapes: the input of layer 1 is
+        # the fed-back probs (the start symbol's width), of layer 2 layer 1's h
+        with torch.no_grad():
+            z = model.encode(batch)
+        new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
+        for head, d, T in (("notes", cfg.output_dim, cfg.output_length),
+                           ("velocity", 1, cfg.meta_velocity_length),
+                           ("instrument", cfg.meta_instrument_dim, cfg.meta_instrument_length)):
+            h = dec[head]
+            states = init_decoder_states(h["init"], new_encoded, cfg.cell_type,
+                                         cfg.lstm_state_activation)
+            xin = torch.softmax(torch.randn(rows, d, generator=gen, device=dev), -1)
+            for i, cell in enumerate(h["cells"]):
+                w, b, u = (cell[k].detach() for k in "wbu")
+                hs, cs = (s.detach() for s in states[i])
+                args = (xin, hs, cs, w, b, u, "tanh")
+                tag = f"{head} cell {i + 1}"
+                out = run(f"S {tag} x{tuple(xin.shape)}", lambda a=args: ls.lstm_cell_step_fwd(*a),
+                          lambda a=args: ls.lstm_cell_step_reference(*a), [L_H_ATOL, C_ATOL],
+                          flops=2 * rows * (w.shape[0] + u.shape[0]) * u.shape[1], inputs=args[:6])
+                if timed:
+                    results["lstm_step"][tag] = head_loop_times(f"{tag} x{tuple(xin.shape)}",
+                                                                out, args, T)
+                leaves = [t.clone().requires_grad_() for t in args[:6]]
+                gg = [torch.randn(rows, cfg.lstm_size, generator=gen, device=dev) for _ in range(2)]
+                got = torch.autograd.grad(ls.lstm_cell_step(*leaves, "tanh"), leaves, gg)
+                want = torch.autograd.grad(ls.lstm_cell_step_reference(*leaves, "tanh"), leaves, gg)
+                check(f"S grads {tag} B={rows}", lambda: got, lambda: want, [rel] * 6)
+                xin = ls.lstm_cell_step_reference(*args)[0]
+        # --- LSTM(512), the wide route: Q, R and W (dU) over xp = x @ W + b
+        cfg = Config(cell_type="LSTM", lstm_size=512)
+        model = MidiVAE(cfg).to(dev)
+        enc = model.params["encoder"]
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in random_batch(cfg, rows, 10).items()}
+        h0 = torch.zeros(rows, cfg.lstm_size, device=dev)
+        for name, x, p, rs, _dx in layers(cfg, enc, batch, rows, True):
+            w, b, u = (p[k].detach() for k in "wbu")
+            T = x.shape[0]
+            with torch.no_grad():
+                xp = (x.reshape(T * rows, -1) @ w + b).reshape(T, rows, -1)
+            library = cudnn_lstm_layer(xp, p, h0, h0, xp=True) if timed else (None, None, None)
+            out = run(f"Q {name} xp{tuple(xp.shape)}", lambda: ll.lstm_layer_xp(xp, h0, h0, u),
+                      lambda: ll.lstm_layer_xp_reference(xp, h0, h0, u), [H_ATOL, C_ATOL],
+                      flops=2 * T * rows * u.numel(), inputs=[xp, h0, u], library_fn=library[0])
+            if timed:
+                results["lstm_layer_xp_fwd"][name] = out
+            with torch.no_grad():
+                hseq, cseq = ll.lstm_layer_xp_reference(xp, h0, h0, u)
+            g = torch.randn(hseq.shape if rs else hseq.shape[1:], generator=gen, device=dev)
+            bargs = (xp, hseq, cseq, h0, h0, g if rs else None, None if rs else g, u)
+            out = run(f"R {name} rs={rs}", lambda a=bargs: ll.lstm_layer_xp_bwd(*a),
+                      lambda a=bargs: ll.lstm_layer_xp_bwd_reference(*a), [rel] * 3,
+                      flops=4 * T * rows * u.numel(), inputs=bargs, library_fn=library[1])
+            if timed:
+                results["lstm_layer_xp_bwd"][name] = out
+            da = ll.lstm_layer_xp_bwd_reference(*bargs)[0]
+            hprev = torch.cat([h0[None], hseq[:-1]])
+            out = run(f"W LSTM(512) {name} dU", lambda: lstm_u_grad(hprev, da),
+                      lambda: plain_w(x, hprev, da, False), [rel],
+                      flops=2 * T * rows * u.numel(), inputs=[hprev, da],
+                      library_fn=lambda: cublas_w(x, hprev, da, False))
+            if timed:
+                results["grad_reduce_lstm_wide"][f"encoder {name}"] = out
+            leaves = [t.clone().requires_grad_() for t in (xp, h0, h0, u)]
+            got = torch.autograd.grad(ll.lstm_layer_train(*leaves, rs), leaves, g)
+            plain = ll.lstm_layer_xp_reference(*leaves)[0]
+            want = torch.autograd.grad(plain if rs else plain[-1], leaves, g)
+            check(f"Q+R+W grads {name} B={rows}", lambda: got, lambda: want, [rel] * 4)
+            if not (timed and name.startswith("notes")):
+                continue
+            # one LSTM(512) notes layer's forward + backward on both routes,
+            # beside cuDNN's forward + backward (the layer with its W)
+            lv = [t.clone().requires_grad_(i > 0 or name == "notes_l2")
+                  for i, t in enumerate((x, h0, h0, w, b, u))]
+            wanted = [t for t in lv if t.requires_grad]
+
+            def wide_route(lv=lv, wanted=wanted, rs=rs, g=g):
+                xp_ = (lv[0].reshape(T * rows, -1) @ lv[3] + lv[4]).reshape(T, rows, -1)
+                return torch.autograd.grad(ll.lstm_layer_train(xp_, lv[1], lv[2], lv[5], rs),
+                                           wanted, g)
+
+            def narrow_route(lv=lv, wanted=wanted, rs=rs, g=g):
+                return torch.autograd.grad(ll.lstm_layer_train_x(*lv, rs), wanted, g)
+
+            why = _layout.launch_limit("N", 512, _layout.smem_bytes("N", 512, x.shape[-1]))
+            narrow_ms = median_ms(narrow_route) if why is None else None
+            wide_ms = median_ms(wide_route)
+            cudnn_ms = median_ms(cudnn_lstm_layer(x, p, h0, h0)[2])
+            results["lstm_fwd_bwd_vs_cudnn"][f"512 {name}"] = {
+                "wide_ms": wide_ms, "narrow_ms": narrow_ms, "cudnn_ms": cudnn_ms,
+                "narrow_limit": why}
+            narrow = f"{narrow_ms:.4f} ms" if why is None else f"does not launch ({why})"
+            print(f"[lstm train kernels] LSTM(512) {name} forward + backward: wide route (matmul + "
+                  f"Q + R + W) {wide_ms:.4f} ms, narrow route (L + N + W) {narrow}, cuDNN's LSTM "
+                  f"{cudnn_ms:.4f} ms")
+    print(f"[lstm train kernels] L with c, N, S, Q, R, W and the training ops' gradients also "
+          f"agree at B = {RAGGED}")
+    return results
+
+
+def classify_launches(kind_sizes, cell_type, epochs):
+    """Launches of ClassifierTrainer.fit over ``epochs`` for judges of
+    ``cell_type`` (2 layers each), ``kind_sizes`` {kind: (n_train, n_test)}:
+    per train step the layers' training forward and backward with W (3 per
+    GRU cell, 2 per LSTM cell), per evaluation batch the serving forward."""
+    fwd, bwd, per_cell = (("gru_layer_fwd", "gru_layer_bwd", 3) if cell_type == "GRU"
+                          else ("lstm_layer_fwd", "lstm_layer_bwd", 2))
+    steps = sum(-(-n // 512) for n, _ in kind_sizes.values()) * epochs
+    evals = sum(-(-n // 512) for _, n in kind_sizes.values()) * epochs
+    return {fwd: 2 * (steps + evals), bwd: 2 * steps, "grad_reduce": 2 * per_cell * steps}
+
+
+def phase_judge_training(work, smi):
+    """The classify CLI trains GRU judges (RNN(256) x 2, batch 512) on an
+    authored corpus for 2 epochs; ClassifierTrainer trains LSTM judges of all
+    three kinds; one judge step per cell type, card against CPU; the
+    transfer CLI serves the trained LSTM judges."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from midi_vae_tpu_torch import bridge
+    from midi_vae_tpu_torch.cli import classify as classify_cli
+    from midi_vae_tpu_torch.cli import transfer
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.data.batching import flatten_dataset
+    from midi_vae_tpu_torch.data.dataset import import_midi_from_folder
+    from midi_vae_tpu_torch.models.classifier import (
+        CLASSIFIER_KINDS,
+        ClassifierSpec,
+        StyleClassifier,
+        classifier_loss,
+    )
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.training.checkpoint import save_run
+    from midi_vae_tpu_torch.training.classifier_trainer import ClassifierTrainer, classifier_arrays
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import make_demo_corpus as corpus
+
+    rng = np.random.RandomState(3)
+    source, cache = os.path.join(work, "corpus"), os.path.join(work, "cache")
+    for style in ("style1", "style2"):
+        os.makedirs(os.path.join(source, style))
+        for i in range(10):
+            corpus.make_song(corpus.STYLES[style], rng).write(os.path.join(source, style, f"{style}_{i}.mid"))
+    cfg = Config(classes=("style1", "style2"))
+    train, test, _, _ = flatten_dataset(import_midi_from_folder(source, cfg, cache_dir=cache), cfg)
+    sizes = {k: (len(classifier_arrays(train, k)[1]), len(classifier_arrays(test, k)[1]))
+             for k in CLASSIFIER_KINDS}
+    paths, results = {}, {}
+
+    def check_history(kind_dir, label):
+        with open(os.path.join(kind_dir, "history.json")) as f:
+            hist = json.load(f)
+        losses = [e["loss"] for e in hist["train"]] + [e["loss"] for e in hist["test"]]
+        if hist["epoch"] != [0, 1] or not np.all(np.isfinite(losses)):
+            raise RuntimeError(f"{label}: history {hist['epoch']}, losses {losses}")
+        return [round(x, 4) for x in losses]
+
+    # 1. GRU judges through the classify CLI
+    judges_gru = os.path.join(work, "judges_gru")
+    reset_counters()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = classify_cli.main(["--source", source, "--output", judges_gru, "--classes",
+                                "style1,style2", "--epochs", "2", "--cache", cache,
+                                "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    launches = read_counters()
+    if rc != 0:
+        raise RuntimeError(f"classify CLI returned {rc}:\n{buf.getvalue()}")
+    want = classify_launches(sizes, "GRU", 2)
+    if launches != want:
+        raise RuntimeError(f"classify CLI: launch counters {launches}, expected {want}")
+    losses = {k: check_history(os.path.join(judges_gru, k), f"GRU judge {k}")
+              for k in CLASSIFIER_KINDS}
+    paths["classify_gru"] = launches
+    print(f"[judges] classify CLI, GRU(256) x 2 judges, batch 512, 2 epochs, samples (train, "
+          f"test) {sizes}: {secs:.2f} s; losses {losses}; launches {launches} (as designed)")
+
+    # 2. LSTM judges of all three kinds through ClassifierTrainer
+    judges_lstm = os.path.join(work, "judges_lstm")
+    lcfg = cfg.replace(cell_type="LSTM")
+    reset_counters()
+    t0 = time.perf_counter()
+    for kind in CLASSIFIER_KINDS:
+        trainer = ClassifierTrainer(ClassifierSpec.for_kind(kind, lcfg), "cuda")
+        (tr_x, tr_c), (te_x, te_c) = classifier_arrays(train, kind), classifier_arrays(test, kind)
+        trainer.fit(trainer.init_state(), tr_x, tr_c, te_x, te_c, epochs=2,
+                    output_dir=os.path.join(judges_lstm, kind), log_fn=lambda m: None,
+                    class_names=list(cfg.classes))
+    secs = time.perf_counter() - t0
+    launches = read_counters()
+    want = classify_launches(sizes, "LSTM", 2)
+    if launches != want:
+        raise RuntimeError(f"LSTM judge training: launch counters {launches}, expected {want}")
+    losses = {k: check_history(os.path.join(judges_lstm, k), f"LSTM judge {k}")
+              for k in CLASSIFIER_KINDS}
+    paths["classify_lstm"] = launches
+    print(f"[judges] ClassifierTrainer, LSTM(256) x 2 judges of 3 kinds, 2 epochs: {secs:.2f} s; "
+          f"losses {losses}; launches {launches} (as designed)")
+
+    # 3. one judge training step per cell type, card against CPU, and its time
+    for cell_type in ("GRU", "LSTM"):
+        spec = ClassifierSpec.for_kind("pitch", cfg.replace(cell_type=cell_type))
+        params = StyleClassifier(spec).init_params(np.array([0, 4], np.uint32))
+        valid = 512 - 6
+        drng = np.random.RandomState(11)
+        x = np.eye(spec.input_dim, dtype=np.float32)[drng.randint(0, spec.input_dim, (512, 64))]
+        c = np.eye(2, dtype=np.float32)[drng.randint(0, 2, 512)]
+        x[valid:], c[valid:] = 0, 0
+        mask = (np.arange(512) < valid).astype(np.float32)
+        got = {}
+        for device in ("cuda", "cpu"):
+            model = StyleClassifier(spec, params, trainable=True).to(device)
+            args = [torch.as_tensor(a, device=device) for a in (x, c, mask)]
+            loss, metrics = classifier_loss(model, *args)
+            named = list(model.params.named_parameters())
+            grads = torch.autograd.grad(loss, [p for _, p in named])
+            got[device] = (loss.item(), metrics["acc"].item(), [g.cpu() for g in grads],
+                           [k for k, _ in named])
+        (gl, ga, gg, names), (cl, ca, cg, _) = got["cuda"], got["cpu"]
+        if not (abs(gl - cl) <= LOSS_ATOL and abs(ga - ca) <= ACC_ATOL):
+            raise RuntimeError(f"{cell_type} judge step: loss {gl} / {cl}, acc {ga} / {ca}")
+        worst = (0.0, "")
+        for name, g, w in zip(names, gg, cg):
+            limit = STEP_GRAD_RTOL * w.abs().max().item() + STEP_GRAD_ATOL
+            err = (g - w).abs().max().item()
+            if not (torch.isfinite(g).all() and err <= limit):
+                raise RuntimeError(f"{cell_type} judge grad {name}: {err:.3e} > {limit:.3e}")
+            worst = max(worst, (err / limit, name))
+        trainer = ClassifierTrainer(spec, "cuda")
+        state = trainer.new_state(params)
+        dargs = [torch.as_tensor(a, device="cuda") for a in (x, c, mask)]
+        for _ in range(3):
+            trainer.train_step(state, *dargs)
+        ms = median_ms(lambda: trainer.train_step(state, *dargs))
+        results[cell_type] = {"step_ms": ms, "max_abs_dloss": abs(gl - cl),
+                              "closest_grad_to_limit": worst[0]}
+        print(f"[judges card vs cpu] {cell_type} pitch judge, one step at batch 512 ({valid} valid): "
+              f"|dloss| {abs(gl - cl):.3e}, |dacc| {abs(ga - ca):.3e}; every gradient within limits "
+              f"(closest: {worst[1]} at {worst[0]:.3f}); train step on the card {ms:.3f} ms "
+              f"(median of {REPS}) on {smi}")
+
+    # 4. the transfer CLI serves an LSTM run with the trained LSTM judges
+    run = os.path.join(work, "lstm_run")
+    save_run(run, lcfg, bridge.to_tree(MidiVAE(lcfg).params))
+    song = os.path.join(source, "style1", "style1_0.mid")
+    reset_counters()
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = transfer.main(["--model", run, "--input", song, "--to-class", "style2", "--output",
+                            os.path.join(work, "out"), "--classifiers", judges_lstm,
+                            "--device", "cuda"])
+    launches = read_counters()
+    judged = [line for line in buf.getvalue().splitlines() if "judge confidence" in line]
+    want = {"lstm_layer_fwd": 4 + 2 * 6, "lstm_decode": 3}
+    if rc != 0 or len(judged) != 2 or launches != want:
+        raise RuntimeError(f"transfer with the trained LSTM judges: rc {rc}, launches {launches} "
+                           f"(expected {want}), judge lines {judged}")
+    paths["transfer_trained_lstm_judges"] = launches
+    print("\n".join(f"[judges] {line}" for line in judged))
+    print(f"[judges] the transfer CLI served the trained LSTM judges; launches {launches}")
+    return paths, results
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -1299,14 +1811,28 @@ def main() -> int:
         paths["transfer_gru_judges"] = phase_slice(work, "GRU", judges=True)
     serving["LSTM"] = phase_card_vs_cpu(smi, "LSTM")
     judges = {c: phase_judges_card_vs_cpu(c) for c in ("LSTM", "GRU")}
+    # LSTM training (L, N, S, W; Q and R at 512) and judge training
+    results.update(phase_lstm_train_kernels())
+    for key, sets in (("train_lstm", ["cell_type=LSTM"]),
+                      ("train_lstm_512", ["cell_type=LSTM", "lstm_size=512"])):
+        with tempfile.TemporaryDirectory() as work:
+            paths[key] = phase_train_slice(work, sets)
+    lstm_steps = {H: phase_train_card_vs_cpu(
+        smi, Config(cell_type="LSTM", lstm_size=H), PER_TRAIN_STEP[key], f"LSTM({H}) train")
+        for H, key in ((256, "lstm_narrow"), (512, "lstm_wide"))}
+    with tempfile.TemporaryDirectory() as work:
+        judge_paths, judge_steps = phase_judge_training(work, smi)
+    paths.update(judge_paths)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
     # letter, source, replaces, also replaces (midi_vae_tpu/ops/...); "ms",
     # "plain_ms", "bound_ms" and "library_ms" are summed over the kernel's
-    # calls in one transfer (A, B, L, M) or one training step (C to G, W) of B
-    # windows, at GRU(256) for A to E, GRU(512) for F, G and the wide builds,
-    # LSTM(256) for L and M; "launches" over the main paths' runs
+    # calls in one transfer (A, B, L, M) or one training step (C to G, N to
+    # S, W) of B windows, at GRU(256) for A to E, GRU(512) for F, G and the
+    # wide builds, LSTM(256) for L, M, N and S (S: per-launch times x the
+    # step's 196 launches), LSTM(512) for Q and R; "launches" over the main
+    # paths' runs
     meta = {
         "gru_layer_fwd": ("A", "gru_layer_fwd.cu", "fused_train.py:2057", ["fused_train.py:2919"]),
         "gru_decode": ("B", "gru_decode.cu", "fused_decoder.py:61", ["fused_decoder.py:95"]),
@@ -1319,7 +1845,8 @@ def main() -> int:
         # _bwd_kernel, and the XLA passes _gru_wide_weight_grads, _dec_wide_weight_grads
         "grad_reduce": ("W", "grad_reduce.cu", "fused_train.py:2175",
                         ["fused_train.py:3184", "fused_train.py:567", "fused_train.py:628",
-                         "fused_train.py:166"]),
+                         "fused_train.py:166", "fused_train.py:2458", "fused_train.py:1436",
+                         "fused_train.py:2032"]),
         # rows 11 and 9: _fwd_kernel through _fwd_wide_pallas and _fwd_pallas
         "gru_layer_xp_fwd": ("F", "gru_layer_xp_fwd.cu", "fused_train.py:1696",
                              ["fused_train.py:68", "fused_train.py:92"]),
@@ -1332,17 +1859,31 @@ def main() -> int:
         # row 14: _dec_bwd2_wide_kernel, _dec_bwd1_wide_kernel
         "gru_decode_bwd_wide": ("E wide", "gru_decode_bwd.cu", "fused_train.py:1080",
                                 ["fused_train.py:1135", "fused_train.py:1176"]),
-        # rows 21 and 19 (forward): _lstm_fwdx_last_kernel, _lstm_fwdx_kernel
+        # rows 21 and 19: _lstm_fwdx_last_kernel, _lstm_fwdx_kernel (with c)
         "lstm_layer_fwd": ("L", "lstm_layer_fwd.cu", "fused_train.py:2992",
                            ["fused_train.py:2352"]),
         # row 34: _decode_kernel_2layer, _decode_kernel_1layer
         "lstm_decode": ("M", "lstm_decode.cu", "fused_lstm.py:478", ["fused_lstm.py:511"]),
+        # row 20: _lstm_bwdx_kernel (its weight-grad sums: W)
+        "lstm_layer_bwd": ("N", "lstm_layer_bwd.cu", "fused_train.py:2405", []),
+        # rows 15 and 17: _lstm_fwd_kernel through _lstm_fwd_pallas, _lstm_fwd_wide_pallas
+        "lstm_layer_xp_fwd": ("Q", "lstm_layer_xp_fwd.cu", "fused_train.py:1331",
+                              ["fused_train.py:1352", "fused_train.py:1890"]),
+        # rows 16 and 18: _lstm_bwd_kernel, _lstm_bwd_wide_kernel (dU: W)
+        "lstm_layer_xp_bwd": ("R", "lstm_layer_xp_bwd.cu", "fused_train.py:1383",
+                              ["fused_train.py:1922"]),
+        # row 30: _lstm_full_kernel through _lstm_step_pallas
+        "lstm_step": ("S", "lstm_step.cu", "fused_lstm.py:67", ["fused_lstm.py:98"]),
     }
-    # per kernel: the calls of one step or transfer at a second shape
-    extra = {"gru_layer_fwd": ("ms_h512", "gru_layer_512"), "gru_decode": ("ms_h512", "gru_decode_512"),
-             "grad_reduce": ("ms_wide_step", "grad_reduce_wide"),
-             "gru_layer_xp_fwd": ("ms_h256", "xp_h256_fwd"),
-             "gru_layer_xp_bwd": ("ms_h256", "xp_h256_bwd")}
+    # per kernel: the calls of one step or transfer at other shapes
+    extra = {"gru_layer_fwd": [("ms_h512", "gru_layer_512")],
+             "gru_decode": [("ms_h512", "gru_decode_512")],
+             "grad_reduce": [("ms_wide_step", "grad_reduce_wide"),
+                             ("ms_lstm_step", "grad_reduce_lstm"),
+                             ("ms_lstm_512_step", "grad_reduce_lstm_wide")],
+             "gru_layer_xp_fwd": [("ms_h256", "xp_h256_fwd")],
+             "gru_layer_xp_bwd": [("ms_h256", "xp_h256_bwd")],
+             "lstm_layer_fwd": [("ms_train_step", "lstm_layer_train_fwd")]}
     kernels = []
     for name, (letter, source, replaces, also) in meta.items():
         per_call = results[name]
@@ -1361,14 +1902,14 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in per_call.values()),
             "bound_ms": bound_ms, "bound_by": bound_by,
             # one PyTorch call of the same function: cuBLAS's a.t() @ b for W,
-            # cuDNN's LSTM for L; none for the GRU kernels (nn.GRU is
-            # reset-after) and the decode kernels (no call feeds back outputs)
+            # cuDNN's LSTM for L, N, Q and R, torch.lstm_cell for S; none for
+            # the GRU kernels (nn.GRU is reset-after) and the decode kernels
+            # (no call feeds back outputs)
             "library_ms": sum(library) if None not in library else None,
             "calls": per_call,
             "registers": registers[letter.replace(" ", "_")],
         }
-        if name in extra:
-            key, res = extra[name]
+        for key, res in extra.get(name, []):
             calls = results[res]
             entry[key] = sum(r["ms"] for r in calls.values())
             entry["plain_" + key] = sum(r["plain_ms"] for r in calls.values())
@@ -1378,7 +1919,9 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": kernels, "train_step": step, "train_step_512": wide_step,
                       "train_step_teacher_force": tf_step, "serving": serving,
-                      "judges_card_vs_cpu": judges, "power": smi}))
+                      "judges_card_vs_cpu": judges, "train_step_lstm": lstm_steps[256],
+                      "train_step_lstm_512": lstm_steps[512], "judge_train_step": judge_steps,
+                      "lstm_fwd_bwd_vs_cudnn": results["lstm_fwd_bwd_vs_cudnn"], "power": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

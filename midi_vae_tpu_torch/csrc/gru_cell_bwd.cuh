@@ -155,22 +155,4 @@ __device__ __forceinline__ void gru_cell_bwd(
                             D, H);
 }
 
-// Stores column j's entries of the feature-major (W, R) tile a_s into
-// rows [row0, row0 + R) of a row-major (B, ld) matrix at column offset
-// col, for the W/H column blocks that thread j owns (j, j + H, ...); rows past
-// B are skipped. Used for da_cat (3 blocks) and r*h (1 block).
-template <int R = kRows>
-__device__ __forceinline__ void store_columns(
-    const float* a_s, float* __restrict__ a, int row0, int B, int ld,
-    int n_blocks, int H) {
-  const int j = threadIdx.x;
-  for (int r = 0; r < R; ++r) {
-    const int row = row0 + r;
-    if (row >= B) break;
-    for (int blk = 0; blk < n_blocks; ++blk) {
-      a[(size_t)row * ld + blk * H + j] = a_s[(blk * H + j) * R + r];
-    }
-  }
-}
-
 }  // namespace mvt

@@ -190,6 +190,25 @@ __device__ __forceinline__ void store_tile(
   }
 }
 
+// Stores column j's entries of the feature-major (n_blocks * H, R) tile a_s
+// into rows [row0, row0 + R) of a row-major (B, ld) matrix, for the column
+// blocks that thread j owns (j, j + H, ...); rows past B are skipped. Only
+// thread j reads column j, so a thread may store the columns it wrote itself
+// without a barrier. Used for gate grads (3 or 4 blocks), r*h and c (1 block).
+template <int R = kRows>
+__device__ __forceinline__ void store_columns(
+    const float* a_s, float* __restrict__ a, int row0, int B, int ld,
+    int n_blocks, int H) {
+  const int j = threadIdx.x;
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    if (row >= B) break;
+    for (int blk = 0; blk < n_blocks; ++blk) {
+      a[(size_t)row * ld + blk * H + j] = a_s[(blk * H + j) * R + r];
+    }
+  }
+}
+
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

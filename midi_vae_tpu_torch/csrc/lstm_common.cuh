@@ -1,6 +1,7 @@
 // Shared device code of the LSTM kernels (L: lstm_layer_fwd.cu, M:
-// lstm_decode.cu): one LSTM cell step over a tile of batch rows held in
-// shared memory, and the decode heads' readout.
+// lstm_decode.cu, Q: lstm_layer_xp_fwd.cu, S: lstm_step.cu): one LSTM cell
+// step over a tile of batch rows held in shared memory, and the decode heads'
+// readout.
 //
 // Layout (as the GRU kernels, gru_common.cuh): one block owns R = kRows
 // batch rows for the whole time loop; blockDim.x == H and thread j owns
@@ -19,21 +20,16 @@
 
 namespace mvt {
 
-// One LSTM step for the block's R rows:
-//   [i, f, g, o] = x @ W + h @ U + b
-//   c' = sigmoid(f) * c + sigmoid(i) * act(g);  h' = sigmoid(o) * act(c')
-// x_s is (D, R), h_s, hn_s and c_s are (H, R), all feature-major; the new h
-// goes to hn_s, the new c over c_s. Every thread of the block must call it,
-// after a barrier that completed x_s and h_s; it ends with a barrier, after
-// which hn_s holds h' (the caller swaps h_s and hn_s).
-template <int ACT, int R = kRows>
-__device__ __forceinline__ void lstm_cell(
-    const float* x_s, int D, const float* h_s, float* hn_s, float* c_s,
-    const float* __restrict__ W, const float* __restrict__ U,
-    const float* __restrict__ bias, int H) {
+// Column j's four gates of x_t @ W + b for the block's R rows: the bias, then
+// x_s (D, R) against W (D, 4H), read from L2.
+template <int R = kRows>
+__device__ __forceinline__ void lstm_x_gates(
+    const float* x_s, int D, const float* __restrict__ W,
+    const float* __restrict__ bias, int H, float ai[R], float af[R],
+    float ag[R], float ao[R]) {
   const int j = threadIdx.x;
   const int G = 4 * H;
-  float ai[R], af[R], ag[R], ao[R], v[R];
+  float v[R];
   {
     const float bi = bias[j], bf = bias[H + j], bg = bias[2 * H + j],
                 bo = bias[3 * H + j];
@@ -58,6 +54,44 @@ __device__ __forceinline__ void lstm_cell(
       ao[r] = fmaf(v[r], wo, ao[r]);
     }
   }
+}
+
+// Column j's four gates of a precomputed x-projection (row-major (B, 4H),
+// x @ W + b) for rows [row0, row0 + R); rows past B read as zeros.
+template <int R = kRows>
+__device__ __forceinline__ void load_gates4(
+    const float* __restrict__ xp, int row0, int B, int H, float ai[R],
+    float af[R], float ag[R], float ao[R]) {
+  const int j = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    ai[r] = af[r] = ag[r] = ao[r] = 0.0f;
+    if (row < B) {
+      const float* x = xp + (size_t)row * 4 * H;
+      ai[r] = x[j];
+      af[r] = x[H + j];
+      ag[r] = x[2 * H + j];
+      ao[r] = x[3 * H + j];
+    }
+  }
+}
+
+// The recurrent part of one LSTM step for the block's R rows; ai, af, ag and
+// ao arrive holding column j's x_t @ W + b and are consumed:
+//   [i, f, g, o] += h @ U
+//   c' = sigmoid(f) * c + sigmoid(i) * act(g);  h' = sigmoid(o) * act(c')
+// h_s, hn_s and c_s are (H, R), feature-major; the new h goes to hn_s, the
+// new c over c_s (thread j writes column j only). Every thread of the block
+// must call it, after a barrier that completed h_s; it ends with a barrier,
+// after which hn_s holds h' (the caller swaps h_s and hn_s).
+template <int ACT, int R = kRows>
+__device__ __forceinline__ void lstm_cell_recurrent(
+    float ai[R], float af[R], float ag[R], float ao[R], const float* h_s,
+    float* hn_s, float* c_s, const float* __restrict__ U, int H) {
+  const int j = threadIdx.x;
+  const int G = 4 * H;
+  float v[R];
 #pragma unroll 4
   for (int k = 0; k < H; ++k) {
     const float* uk = U + (size_t)k * G;
@@ -80,6 +114,21 @@ __device__ __forceinline__ void lstm_cell(
     hn_s[j * R + r] = activate<kSigmoid>(ao[r]) * activate<ACT>(c);
   }
   __syncthreads();
+}
+
+// One LSTM step for the block's R rows:
+//   [i, f, g, o] = x @ W + h @ U + b, then as lstm_cell_recurrent.
+// x_s is (D, R), h_s, hn_s and c_s are (H, R), all feature-major. Every
+// thread of the block must call it, after a barrier that completed x_s and
+// h_s; it ends with a barrier, after which hn_s holds h'.
+template <int ACT, int R = kRows>
+__device__ __forceinline__ void lstm_cell(
+    const float* x_s, int D, const float* h_s, float* hn_s, float* c_s,
+    const float* __restrict__ W, const float* __restrict__ U,
+    const float* __restrict__ bias, int H) {
+  float ai[R], af[R], ag[R], ao[R];
+  lstm_x_gates<R>(x_s, D, W, bias, H, ai, af, ag, ao);
+  lstm_cell_recurrent<ACT, R>(ai, af, ag, ao, h_s, hn_s, c_s, U, H);
 }
 
 // The readout of a decode head for the block's R rows: logits = h @ Wo + bo

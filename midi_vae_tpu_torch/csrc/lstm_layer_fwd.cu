@@ -2,11 +2,12 @@
 //
 // Replaces the TPU kernels midi_vae_tpu/ops/fused_train.py::
 // _lstm_fwdx_kernel (:2352, through _lstm_fwdx_pallas: the (T, B, H) h
-// sequence; its c sequence is the training backward's residual and is not
-// emitted here) and ::_lstm_fwdx_last_kernel (:2992, through
-// _lstm_fwdx_last_pallas: the final h only), reached through
-// lstm_layer_infer_x. One kernel covers both with the emit_seq flag. The
-// LSTM twin of kernel A (gru_layer_fwd.cu).
+// sequence and, for the training backward (kernel N, lstm_layer_bwd.cu), the
+// (T, B, H) c sequence as its residual) and ::_lstm_fwdx_last_kernel (:2992,
+// through _lstm_fwdx_last_pallas: the final h only), reached through
+// lstm_layer_train_x and lstm_layer_infer_x. One kernel covers all three with
+// the emit_seq flag and a c output that may be null (serving passes null).
+// The LSTM twin of kernel A (gru_layer_fwd.cu).
 //
 // Design: the TPU walks time with its sequential grid and keeps W, U, b in
 // VMEM. Here one block owns kRows = 8 batch rows and loops over all T steps
@@ -31,7 +32,8 @@ __global__ void lstm_layer_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ h0,
     const float* __restrict__ c0, const float* __restrict__ w,
     const float* __restrict__ b, const float* __restrict__ u,
-    float* __restrict__ out, int T, int B, int D, int H, int emit_seq) {
+    float* __restrict__ out, float* __restrict__ cseq, int T, int B, int D,
+    int H, int emit_seq) {
   extern __shared__ __align__(16) float smem[];
   float* x_s = smem;               // (D, kRows)
   float* h_s = x_s + kRows * D;    // (H, kRows), h_{t-1}
@@ -50,6 +52,10 @@ __global__ void lstm_layer_fwd_kernel(
     hn_s = h_s;
     h_s = done;
     if (emit_seq) store_tile(h_s, out + (size_t)t * B * H, row0, B, H);
+    // thread j stores the c column it wrote itself: no barrier needed
+    if (cseq != nullptr) {
+      store_columns(c_s, cseq + (size_t)t * B * H, row0, B, H, 1, H);
+    }
   }
   if (!emit_seq) store_tile(h_s, out, row0, B, H);
 }
@@ -57,35 +63,41 @@ __global__ void lstm_layer_fwd_kernel(
 template <int ACT>
 cudaError_t launch(const float* x, const float* h0, const float* c0,
                    const float* w, const float* b, const float* u, float* out,
-                   int T, int B, int D, int H, int emit_seq,
+                   float* cseq, int T, int B, int D, int H, int emit_seq,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * kRows * (D + 3 * H);
   cudaError_t err = fit_block(lstm_layer_fwd_kernel<ACT>, H, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + kRows - 1) / kRows);
   lstm_layer_fwd_kernel<ACT><<<grid, H, smem, stream>>>(
-      x, h0, c0, w, b, u, out, T, B, D, H, emit_seq);
+      x, h0, c0, w, b, u, out, cseq, T, B, D, H, emit_seq);
   return cudaGetLastError();
 }
 
 }  // namespace mvt
 
+// cseq (T, B, H) may be null (c not emitted); it is written only with
+// emit_seq.
 extern "C" int mvt_lstm_layer_fwd(
     const float* x, const float* h0, const float* c0, const float* w,
-    const float* b, const float* u, float* out, int T, int B, int D, int H,
-    int act, int emit_seq, void* stream) {
+    const float* b, const float* u, float* out, float* cseq, int T, int B,
+    int D, int H, int act, int emit_seq, void* stream) {
   using namespace mvt;
-  if (T < 1 || B < 1 || D < 1 || H < 32 || H % 32 != 0) {
+  if (T < 1 || B < 1 || D < 1 || H < 32 || H % 32 != 0 ||
+      (cseq != nullptr && !emit_seq)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (act) {
     case kTanh:
-      return (int)launch<kTanh>(x, h0, c0, w, b, u, out, T, B, D, H, emit_seq, s);
+      return (int)launch<kTanh>(x, h0, c0, w, b, u, out, cseq, T, B, D, H,
+                                emit_seq, s);
     case kSigmoid:
-      return (int)launch<kSigmoid>(x, h0, c0, w, b, u, out, T, B, D, H, emit_seq, s);
+      return (int)launch<kSigmoid>(x, h0, c0, w, b, u, out, cseq, T, B, D, H,
+                                   emit_seq, s);
     case kRelu:
-      return (int)launch<kRelu>(x, h0, c0, w, b, u, out, T, B, D, H, emit_seq, s);
+      return (int)launch<kRelu>(x, h0, c0, w, b, u, out, cseq, T, B, D, H,
+                                emit_seq, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

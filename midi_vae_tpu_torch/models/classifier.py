@@ -1,17 +1,21 @@
 """Style classifiers (the judges): one RNN-classifier module, three input kinds.
 
-Counterpart of ``midi_vae_tpu/models/classifier.py`` on its inference path:
-``ClassifierSpec`` (with ``for_kind`` and ``preprocess_inputs``), the
-stacked-RNN ``StyleClassifier`` (2 x RNN(256) -> dense softmax over the
-classes), ``ensemble_prediction``, ``make_judge`` and
-``classifier_inputs_for_kind``. ``init_params`` consumes keys as the JAX
-package does, so a seed gives bit-equal parameters.
+Counterpart of ``midi_vae_tpu/models/classifier.py``: ``ClassifierSpec``
+(with ``for_kind`` and ``preprocess_inputs``), the stacked-RNN
+``StyleClassifier`` (2 x RNN(256) -> dense softmax over the classes),
+``classifier_loss`` (masked crossentropy and accuracy),
+``ensemble_prediction``, ``make_judge`` and ``classifier_inputs_for_kind``.
+``init_params`` consumes keys as the JAX package does, so a seed gives
+bit-equal parameters.
 
-``ClassifierSpec.for_kind`` copies the VAE's ``cell_type``, so the judges of
-an LSTM run encode through kernel L and those of a GRU run through kernel A
-(``encode_sequence``: the wrappers run their plain versions on CPU tensors).
-Training the judges (``classifier_loss``, ``training/classifier_trainer.py``
-of the JAX package) is not ported yet.
+``ClassifierSpec.for_kind`` copies the VAE's ``cell_type``. Serving
+(``predict``) encodes through kernel A (GRU judges) or L (LSTM judges); the
+training path (``logits(x, train=True)``, as the JAX package's
+``logits(inference=False)``) takes the differentiable layers on the route
+``ops/_layout.py`` picks from the judge's width: A + C + W or F + G + W for
+GRU judges, L + N + W or Q + R + W for LSTM judges (``encode_sequence``: the
+wrappers run their plain versions on CPU tensors). The judges are trained by
+``training/classifier_trainer.py`` (``cli/classify.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from torch import nn
 from .. import bridge
 from ..config import Config
 from ..data.batching import bucket_pow2
+from ..ops import _layout
 from .cells import dense_apply, dense_init, get_cell, split_keys
 from .rnn import encode_sequence
 
@@ -86,15 +91,16 @@ class ClassifierSpec:
 
 class StyleClassifier(nn.Module):
     """Stacked-RNN sequence classifier; ``params=None`` initializes from
-    ``[0, seed]``."""
+    ``[0, seed]``; ``trainable=True`` gives the parameters gradients."""
 
-    def __init__(self, spec: ClassifierSpec, params: Params | None = None, seed: int = 0):
+    def __init__(self, spec: ClassifierSpec, params: Params | None = None, seed: int = 0,
+                 trainable: bool = False):
         super().__init__()
         self.spec = spec
         self.cell = get_cell(spec.cell_type)
         if params is None:
             params = self.init_params(np.array([0, seed], np.uint32))
-        self.params = bridge.to_module(params)
+        self.params = bridge.to_module(params, trainable=trainable)
 
     def kernels_enabled(self) -> bool:
         """Whether the layers go through the kernel wrappers (the JAX
@@ -111,16 +117,49 @@ class StyleClassifier(nn.Module):
             d = spec.lstm_size
         return {"rnn": layers, "out": dense_init(keys[-1], spec.lstm_size, spec.num_classes)}
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T, input_dim) -> (B, num_classes), on the inference path."""
+    def train_route(self, device: torch.device) -> str:
+        """``"narrow"`` or ``"wide"``: the training layers' builds at the
+        judge's width (``ops/_layout.py``); no decode heads, and the first
+        layer's dx is not wanted."""
+        spec = self.spec
+        layers = [(spec.input_dim, False)] + [(spec.lstm_size, True)] * (spec.num_layers - 1)
+        return _layout.train_route(spec.lstm_size, layers, [], on_card=device.type == "cuda",
+                                   cell_type=spec.cell_type)
+
+    def logits(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """(B, T, input_dim) -> (B, num_classes), on the inference path or,
+        with ``train``, on the training path."""
+        kernels = self.kernels_enabled()
+        wide = kernels and train and self.train_route(x.device) == "wide"
         h = encode_sequence(self.params["rnn"], x, self.spec.cell_type, "tanh",
-                            kernels=self.kernels_enabled(),
-                            gate_activation=self.spec.gate_activation)
+                            kernels=kernels, gate_activation=self.spec.gate_activation,
+                            train=train, wide=wide)
         return dense_apply(self.params["out"], h)
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """Softmax class probabilities -- the Keras ``model.predict``."""
         return torch.softmax(self.logits(x), dim=-1)
+
+
+def classifier_loss(model: StyleClassifier, x: torch.Tensor, c_onehot: torch.Tensor,
+                    mask: torch.Tensor | None = None):
+    """Categorical crossentropy + accuracy (pitch_classifier.py:102-103), on
+    the training path; ``mask`` (B,) keeps padding rows out of both means.
+    Returns (loss, {"loss", "acc"})."""
+    return masked_crossentropy(model.logits(x, train=True), c_onehot, mask)
+
+
+def masked_crossentropy(logits: torch.Tensor, c_onehot: torch.Tensor,
+                        mask: torch.Tensor | None = None):
+    """``classifier_loss`` from logits (B, num_classes) already computed."""
+    xent = -(c_onehot * torch.log_softmax(logits, dim=-1)).sum(-1)
+    correct = (logits.argmax(-1) == c_onehot.argmax(-1)).float()
+    if mask is not None:
+        denom = torch.clamp(mask.sum(), min=1e-8)
+        loss, acc = (xent * mask).sum() / denom, (correct * mask).sum() / denom
+    else:
+        loss, acc = xent.mean(), correct.mean()
+    return loss, {"loss": loss, "acc": acc}
 
 
 # ---------------------------------------------------------------------------

@@ -3,15 +3,17 @@
 Counterpart of ``midi_vae_tpu/models/rnn.py``: ``encode_sequence``/
 ``_scan_layer`` run each layer as one call of kernel A (``ops.gru_layer``)
 or, for LSTM cells, kernel L (``ops.lstm_layer``) when the model's kernel
-switch is on, or on the training path as the
-differentiable ``gru_layer_train_x`` (kernels A, C and W) or, on the wide
-route (``ops/_layout.py``), xp = x @ W + b in torch.matmul and
-``gru_layer_train`` over it (kernels F, G and W), else the plain per-step
+switch is on, or on the training path as the differentiable
+``gru_layer_train_x`` (kernels A, C and W) or ``lstm_layer_train_x``
+(kernels L, N and W) or, on the wide route (``ops/_layout.py``), xp = x @ W
++ b in torch.matmul and ``gru_layer_train`` (kernels F, G and W) or
+``lstm_layer_train`` (kernels Q, R and W) over it, else the plain per-step
 cell scan; ``init_decoder_states`` is plain dense + activation;
-``decode_autoregressive`` is the plain readout loop that feeds each step's
-activated output back as the next input, or with ``ground_truth`` the
-teacher-forced scan (heads that the decode kernels take never reach it on
-the kernel path).
+``decode_autoregressive`` is the readout loop that feeds each step's
+activated output back as the next input, each cell through ``step`` when
+given (an LSTM head's kernel S, the JAX package's ``fused_step``) or the
+plain cell, or with ``ground_truth`` the plain teacher-forced scan (heads
+that the decode kernels take never reach it on the kernel path).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Any
 import torch
 
 from ..ops.gru_layer import gru_layer, gru_layer_train, gru_layer_train_x
-from ..ops.lstm_layer import lstm_layer
+from ..ops.lstm_layer import lstm_layer, lstm_layer_train, lstm_layer_train_x
 from .cells import activation_fn, dense_apply, gate_activation_fn, get_cell, zero_states
 
 Params = dict[str, Any]
@@ -61,25 +63,33 @@ def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_seque
     cells with sigmoid gates), the training layer (kernels A, C, W) when
     ``train`` too, or with ``wide`` xp = x @ W + b and kernels F, G, W (the
     JAX package's ``_gru_layer_fallback_x``, ``fused_train.py:2282-2288``);
-    one kernel-L call for LSTM cells with tanh (``lstm_layer_infer_x``,
-    which sends other cell activations to the plain scan,
-    ``_lstm_x_use_pallas``); else the plain cell scan."""
+    for LSTM cells with tanh one kernel-L call (``lstm_layer_infer_x``), the
+    training layer (kernels L, N, W) or with ``wide`` kernels Q, R, W
+    (``_lstm_layer_fallback_x``, :2559-2565); other LSTM cell activations
+    take the plain scan on any device (``_lstm_x_use_pallas``,
+    ``_lstm_mode``); else the plain cell scan."""
     B, T, _ = xs.shape
     hidden = p["u"].shape[0]
     init = zero_states(cell, B, hidden, xs)
-    if kernels and train:
+    if kernels and train and (cell.num_states == 1 or activation == "tanh"):
         x = xs.transpose(0, 1).contiguous()
         if wide:
             xp = (x.reshape(T * B, -1) @ p["w"] + p["b"]).reshape(T, B, -1)
-            out = gru_layer_train(xp, init[0], p["u"], return_sequences)
+            if cell.num_states == 2:
+                out = lstm_layer_train(xp, init[0], init[1], p["u"], return_sequences)
+            else:
+                out = gru_layer_train(xp, init[0], p["u"], return_sequences)
+        elif cell.num_states == 2:
+            out = lstm_layer_train_x(x, init[0], init[1], p["w"], p["b"], p["u"],
+                                     return_sequences)
         else:
             out = gru_layer_train_x(x, init[0], p["w"], p["b"], p["u"], return_sequences)
         return out.transpose(0, 1) if return_sequences else out
-    if kernels and cell.num_states == 2 and activation == "tanh":
+    if kernels and not train and cell.num_states == 2 and activation == "tanh":
         out = lstm_layer(xs.transpose(0, 1).contiguous(), init[0], init[1], p["w"], p["b"], p["u"],
                          activation, return_sequences)
         return out.transpose(0, 1) if return_sequences else out
-    if kernels and cell.num_states == 1:
+    if kernels and not train and cell.num_states == 1:
         out = gru_layer(xs.transpose(0, 1).contiguous(), init[0], p["w"], p["b"], p["u"],
                         activation, return_sequences)
         return out.transpose(0, 1) if return_sequences else out
@@ -113,10 +123,13 @@ def init_decoder_states(init_dense, new_encoded: torch.Tensor, cell_type: str,
 def decode_autoregressive(cell_params, out_dense: Params, initial_states, start: torch.Tensor,
                           output_length: int, cell_type: str, lstm_activation: str = "tanh",
                           out_activation: str = "softmax", gate_activation: str = "sigmoid",
-                          ground_truth: torch.Tensor | None = None):
-    """Plain readout loop: output_t feeds back as input_{t+1}; with
+                          ground_truth: torch.Tensor | None = None, step=None):
+    """Readout loop: output_t feeds back as input_{t+1}; with
     ``ground_truth`` (B, T, out_dim), step t > 0 consumes ground_truth[t-1]
-    instead (teacher forcing).
+    instead (teacher forcing, always the plain cells: the JAX
+    teacher-forced scan ignores ``fused_step``, ``rnn.py:276-297``).
+    ``step(params, x, states) -> (out, states)`` replaces the plain cell of
+    the fed-back loop (``fused_step``, ``rnn.py:299-312``).
 
     Returns (probs, logits), both (B, T, out_dim)."""
     cell = get_cell(cell_type)
@@ -133,12 +146,15 @@ def decode_autoregressive(cell_params, out_dense: Params, initial_states, start:
             logits.append(dense_apply(out_dense, out))
         logits = torch.stack(logits, dim=1)
         return out_act(logits), logits
+    if step is None:
+        def step(p, x, s):
+            return cell.step(p, cell.x_proj(p, x), s, act, gact)
     states = list(initial_states)
     out = start
     probs, logits = [], []
     for _ in range(output_length):
         for i, p in enumerate(cell_params):
-            out, states[i] = cell.step(p, cell.x_proj(p, out), states[i], act, gact)
+            out, states[i] = step(p, out, states[i])
         lg = dense_apply(out_dense, out)
         out = out_act(lg)
         probs.append(out)

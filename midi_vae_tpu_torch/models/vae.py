@@ -11,19 +11,26 @@ The kernel switch ``kernels_enabled`` mirrors ``MidiVAE._pallas_enabled``:
 cells with sigmoid gates take, when serving, kernel A (GRU) or kernel L
 (LSTM, tanh cells: ``_lstm_x_use_pallas``) per encoder layer and kernel B
 (GRU) or kernel M (LSTM) per 1- or 2-layer decode head with a softmax,
-sigmoid or linear output; the wrappers run their plain versions on CPU
-tensors. Configs the JAX package runs as plain scans
+sigmoid or linear output; an LSTM head that M does not take (3 layers, or
+another output activation) runs kernel S per cell and step, as the JAX
+package runs ``_lstm_full_kernel`` there. The wrappers run their plain
+versions on CPU tensors. Configs the JAX package runs as plain scans
 (``gate_activation='hard_sigmoid'``, ``cell_type='SimpleRNN'``,
 ``use_pallas='off'``) keep the plain path on any device. The training path
 (``inference=False``) takes the differentiable kernel ops instead
 (``train_kernels_enabled``), along the route ``ops/_layout.py`` picks from
-the card's limits (``train_route``): on the narrow route (GRU(256))
+the card's limits (``train_route``). GRU: on the narrow route (GRU(256))
 ``gru_layer_train_x`` per encoder layer, ``gru_decode_multihead_train`` for
 the notes head with its T-length side heads and ``gru_decode_train`` for the
 other heads; on the wide route (GRU(512)) ``gru_layer_train`` over
 xp = x @ W + b per layer and every head through ``gru_decode_train`` on its
-own. A teacher-forced head and cells other than tanh take the plain scans,
-as in the JAX package. Paths whose kernels are not ported yet raise
+own. LSTM: ``lstm_layer_train_x`` (narrow, LSTM(256)) or ``lstm_layer_train``
+over xp (wide) per encoder layer, and every head step by step through
+``lstm_cell_step`` (kernel S), whose backward is the plain version's, as the
+JAX package's whole-head training kernels are GRU-only (``models/vae.py:504-511``,
+``:560-569``) and its LSTM heads take ``fused_step``. A teacher-forced head
+takes the plain scan; non-tanh encoder cells too, and GRU heads with them, as
+in the JAX package. Paths whose kernels are not ported yet raise
 NotImplementedError on CUDA, naming their row of the kernel table (PERF.md,
 ROADMAP.md Queue 2); on the CPU they run the plain path through autograd.
 """
@@ -47,6 +54,7 @@ from ..ops.gru_decode import (
 )
 from ..ops.gru_layer import CELL_ACTIVATIONS
 from ..ops.lstm_decode import lstm_decode
+from ..ops.lstm_step import make_decoder_step
 from .cells import activation_fn, dense_apply, dense_init, get_cell, glorot_uniform, split_keys
 from .rnn import decode_autoregressive, encode_sequence, init_decoder_states
 
@@ -57,7 +65,19 @@ def unported_training(cfg: Config) -> str | None:
     """Why the training kernels cannot run ``cfg`` on CUDA yet (the rows of
     the kernel table it waits for), or None when they can."""
     if cfg.cell_type == "LSTM":
-        return "LSTM training kernels (Queue 2 rows 15-20 and 30) not yet ported"
+        if not cfg.fused_train_encoder:
+            return ("LSTM training with fused_train_encoder=False runs the per-step cell "
+                    "_lstm_recurrent_kernel (Queue 2 row 31) or, in bfloat16, the whole-scan "
+                    "_encoder_kernel (rows 32 and 33), not yet ported")
+        if cfg.compute_dtype == "bfloat16":
+            # with the train kernels on, the JAX package keeps them in bf16
+            # (whole_scan, rows 32 and 33, needs fused_train_encoder=False)
+            return ("bfloat16 LSTM training not yet ported: the JAX package runs its LSTM "
+                    "training kernels (rows 15-20 and 30) in bfloat16, the port's run float32 "
+                    "(Queue 1 item 15)")
+        # the JAX package decodes LSTM heads step by step whatever
+        # merge_decoder_scans and fused_train_decoder say (vae.py:442-451)
+        return None
     if cfg.compute_dtype == "bfloat16":
         return ("bfloat16 training not yet ported: the training kernels run float32 "
                 "(Queue 1 item 15)")
@@ -109,20 +129,29 @@ class MidiVAE(nn.Module):
                             device: torch.device) -> bool:
         """Whether a serving decode head goes through its decode kernel (B
         for GRU, M for LSTM: 1- or 2-layer heads with a softmax, sigmoid or
-        linear output). On CUDA a head the JAX package runs step by step
-        through ``_gru_full_kernel`` or ``_lstm_full_kernel``
-        (``models/vae.py:522-534``) raises NotImplementedError naming its row
-        of the kernel table; on the CPU it takes the plain scan."""
+        linear output). An LSTM head M does not take runs kernel S step by
+        step (``decode_step``), as the JAX package runs ``_lstm_full_kernel``
+        there (``models/vae.py:522-534``); on CUDA such a GRU head raises
+        NotImplementedError naming its row of the kernel table
+        (``_gru_full_kernel``, row 28), and on the CPU it takes the plain
+        scan."""
         if not self.kernels_enabled(device):
             return False
         if n_layers in (1, 2) and out_activation in OUT_ACTIVATIONS:
             return True
-        if device.type == "cuda":
-            row = 30 if self.cfg.cell_type == "LSTM" else 28
+        if device.type == "cuda" and self.cfg.cell_type == "GRU":
             raise NotImplementedError(
-                f"per-step {self.cfg.cell_type} kernels (head {name!r}: {n_layers} layers, "
-                f"{out_activation!r} output; Queue 2 row {row}) not yet ported")
+                f"per-step GRU kernels (head {name!r}: {n_layers} layers, {out_activation!r} "
+                "output; Queue 2 row 28) not yet ported")
         return False
+
+    def decode_step(self, kernels: bool):
+        """The per-step cell of ``decode_autoregressive``: kernel S for LSTM
+        heads when ``kernels`` (the JAX package's ``fused_step``), else None
+        (the plain cells)."""
+        if kernels and self.cfg.cell_type == "LSTM":
+            return make_decoder_step(self.cfg.lstm_activation)
+        return None
 
     def train_kernels_enabled(self, device: torch.device) -> bool:
         """Whether the training path takes the differentiable kernel ops. On
@@ -132,19 +161,20 @@ class MidiVAE(nn.Module):
         if not self.kernels_enabled(device):
             return False
         reason = unported_training(self.cfg)
-        if reason is not None and device.type == "cuda":
-            # the JAX package runs per-step or whole-scan kernels on these
-            # configs whatever the cell activation (models/vae.py:442-451,
-            # rnn.py:110-111, :165-179)
-            raise NotImplementedError(reason)
-        if self.cfg.lstm_activation != "tanh":
-            # the whole-layer training kernels hard-code tanh's derivative;
-            # with the default fused flags the JAX package sends other cell
-            # activations to the plain scans, the encoder
-            # (fused_train.py:2269, :1668) and the decode heads (:3456, :981)
-            # alike
+        if reason is not None:
+            if device.type == "cuda":
+                # the JAX package runs per-step or whole-scan kernels on these
+                # configs whatever the cell activation (models/vae.py:442-451,
+                # rnn.py:110-111, :165-179)
+                raise NotImplementedError(reason)
             return False
-        return reason is None
+        # the whole-layer and GRU decode training kernels hard-code tanh's
+        # derivative; with the default fused flags the JAX package sends
+        # other cell activations to the plain scans, the encoder
+        # (fused_train.py:2269, :1668, :2546) and the GRU decode heads
+        # (:3456, :981) alike, while its LSTM heads take the per-step kernel
+        # whatever the activation (models/vae.py:442-451)
+        return self.cfg.lstm_activation == "tanh" or self.cfg.cell_type == "LSTM"
 
     def train_route(self, device: torch.device) -> str:
         """``"narrow"`` or ``"wide"``: which kernel builds the training step
@@ -335,7 +365,8 @@ class MidiVAE(nn.Module):
                 return probs.transpose(0, 1), logits.transpose(0, 1)
             return decode_autoregressive(list(h["cells"]), h["out"], states, start, length,
                                          cfg.cell_type, cfg.lstm_activation, out_activation,
-                                         cfg.gate_activation)
+                                         cfg.gate_activation,
+                                         step=self.decode_step(self.kernels_enabled(z.device)))
 
         outputs = {"notes": run_head("notes", cfg.output_dim, cfg.output_length, cfg.activation)}
         if cfg.meta_velocity:
@@ -354,17 +385,22 @@ class MidiVAE(nn.Module):
         return outputs
 
     def _decode_train(self, dec, new_encoded, z, ground_truth, next_ground_truth) -> dict:
-        """The training decode (``MidiVAE.decode(inference=False)``): on the
-        narrow route the 2-layer notes head and its T-length side heads in
+        """The training decode (``MidiVAE.decode(inference=False)``). GRU: on
+        the narrow route the 2-layer notes head and its T-length side heads in
         one multi-head call (``_decode_multihead_train``), every other head
         through ``gru_decode_train``; on the wide route every head on its own
         through the wide builds (the JAX package when ``_mh_vmem_ok``
-        rejects, ``models/vae.py:392-394``); teacher-forced heads and the
-        non-kernel configs take the plain scan."""
+        rejects, ``models/vae.py:392-394``). LSTM: every head one after
+        another, each cell and step through kernel S (``decode_step``; with
+        ``merge_decoder_scans`` too: the same math as the JAX package's
+        merged scan). Teacher-forced heads and the non-kernel configs take
+        the plain scan."""
         cfg = self.cfg
         B = z.shape[0]
         kernels = self.train_kernels_enabled(z.device)
-        wide = kernels and self.train_route(z.device) == "wide"
+        lstm = cfg.cell_type == "LSTM"
+        wide = kernels and not lstm and self.train_route(z.device) == "wide"
+        step = self.decode_step(kernels)
         # a teacher-forced notes head scans over known inputs and stays out
         # of the multi-head call (midi_vae_tpu/models/vae.py:558-569)
         notes_tf = cfg.teacher_force and ground_truth is not None
@@ -378,7 +414,7 @@ class MidiVAE(nn.Module):
 
         def run_head(name, head_dim, length, out_activation, gt=None):
             s = spec(name, head_dim)
-            if kernels and gt is None:
+            if kernels and gt is None and not lstm:
                 if len(s["cells"]) in (1, 2) and out_activation in OUT_ACTIVATIONS:
                     probs, logits = gru_decode_train(s["cells"], s["out"], s["init"], s["start"],
                                                      length, cfg.lstm_activation, out_activation,
@@ -388,12 +424,14 @@ class MidiVAE(nn.Module):
                     raise NotImplementedError(
                         f"per-step GRU kernels (head {name!r}: {len(s['cells'])} layers, "
                         f"{out_activation!r} output; Queue 2 row 28) not yet ported")
-            return decode_autoregressive(s["cells"], s["out"], s["states"], s["start"], length,
-                                         cfg.cell_type, cfg.lstm_activation, out_activation,
-                                         cfg.gate_activation, gt)
+            args = (s["cells"], s["out"], s["states"], s["start"], length, cfg.cell_type,
+                    cfg.lstm_activation, out_activation, cfg.gate_activation)
+            if gt is not None:  # the teacher-forced scan runs the plain cells
+                return decode_autoregressive(*args, gt)
+            return decode_autoregressive(*args, step=step)
 
         outputs: dict = {}
-        if (kernels and not wide and not notes_tf and cfg.num_layers_decoder == 2
+        if (kernels and not lstm and not wide and not notes_tf and cfg.num_layers_decoder == 2
                 and cfg.activation in OUT_ACTIVATIONS):
             side = [(n, d, a) for flag, n, d, length, a in (
                 (cfg.meta_velocity, "velocity", 1, cfg.meta_velocity_length,

@@ -1,18 +1,19 @@
 """Which kernel builds a layer or decode head takes, from the card's limits.
 
-Every kernel of the port (GRU: A to G; LSTM: L and M) runs one thread per
-hidden column (blockDim.x = H) and keeps a tile of batch rows per block, so whether a build launches at a
-width is a matter of two limits of the H100 (sm_90a):
+Every kernel of the port (GRU: A to G; LSTM: L, M, N, Q, R, S) runs one
+thread per hidden column (blockDim.x = H) and keeps a tile of batch rows per
+block, so whether a build launches at a width is a matter of two limits of
+the H100 (sm_90a):
 - registers: the block's threads times their registers must fit the SM's
   65,536 (registers are allocated in steps of 8 per thread);
 - shared memory: the block's tile must fit the 227 KB (232,448 bytes) a block
   may have.
 
-Kernels A to E, L and M are built without launch bounds; their register
+Kernels A to E, L, M and N are built without launch bounds; their register
 counts (``REGISTERS``, from ``nvcc -Xptxas -v`` on the card; ``chip_smoke.py``
-checks them against the build) decide how wide they go. F, G and the wide
-decode builds are compiled under ``__launch_bounds__(WIDE_THREADS)``, so the
-compiler guarantees that up to 512 threads launch.
+checks them against the build) decide how wide they go. F, G, Q, R, S and the
+wide decode builds are compiled under ``__launch_bounds__(WIDE_THREADS)``, so
+the compiler guarantees that up to 512 threads launch.
 
 The training step takes one route for all its layers and heads:
 - ``"narrow"``, the GRU(256) path: A + C per encoder layer (the x-projection
@@ -26,6 +27,19 @@ The training step takes one route for all its layers and heads:
   C alone would launch at 512, but with x @ W outside the serial kernel one
   notes layer's forward + backward took 18.6 / 19.8 ms (L1 / L2) against
   21.4 / 34.7 ms for A + C on the H100, so the encoder goes wide too.
+An LSTM step decodes every head per step through S on both routes (the JAX
+package has no LSTM whole-head training kernel), so its route is the
+encoder's: ``"narrow"`` is L + N per layer, ``"wide"`` is xp = x @ W + b and
+Q + R. L and N would launch at 512 too; the LSTM switches at
+``LSTM_NARROW_MAX_H`` = 256 because the JAX package does: its in-kernel
+projection (rows 19 and 20) is the layer's path only while
+``_lstm_x_train_vmem_ok`` admits it, which holds at H = 256 and is pinned
+off at 512 (``tests/test_ops_train.py:827-841``), where it falls back to
+``_lstm_layer_fallback_x`` (``fused_train.py:2559-2565``), the wide pair.
+On the H100 the wide route is also the faster one there: ``chip_smoke.py``
+times one LSTM(512) notes layer's forward + backward both ways, and the
+wide route took 19.6 / 21.2 ms (L1 / L2) against the narrow route's
+21.3 / 47.7 ms (NVIDIA H100 80GB HBM3, 700 W).
 A width at which neither route launches raises ``LaunchLimitError`` naming the
 limit. ``FORCE_ROUTE`` is a test hook (like the JAX package's
 ``_FORCE_TRAIN_MODE``) that sends small widths down the wide route.
@@ -41,9 +55,11 @@ WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
 
 # registers per thread of the builds without launch bounds (the largest over
 # a build's template instances), from nvcc -Xptxas -v for sm_90a
-REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 80, "M": 75}
+REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75, "N": 117}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
-BOUNDED = ("F", "G", "D_wide", "E_wide")
+BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "R", "S")
+# the widest LSTM whose encoder takes the narrow route (L + N; see above)
+LSTM_NARROW_MAX_H = 256
 
 FORCE_ROUTE: str | None = None  # test hook: None | "narrow" | "wide"
 
@@ -55,7 +71,8 @@ class LaunchLimitError(ValueError):
 def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
                dx: bool = False) -> int:
     """Dynamic shared memory of one block of ``kernel``: D is the layer's
-    input width (A, C, L) or the head's output width (B, D, E, M)."""
+    input width (A, C, L, N), the head's output width (B, D, E, M) or the
+    cell's input width (S)."""
     rows = WIDE_ROWS if kernel.endswith("_wide") else ROWS
     floats = {
         "A": D + 2 * H,
@@ -67,6 +84,10 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
         "G": 5 * H,
         "L": D + 3 * H,  # x, h twice (h_{t-1} and h_t), c
         "M": 2 * D + (n_layers + 1) * H + n_layers * H,  # probs, logits, h tiles, c tiles
+        "N": D + 5 * H,  # x, h_{t-1}, the gate grads (4H)
+        "Q": 3 * H,  # h twice, c
+        "R": 5 * H,  # h_{t-1}, the gate grads (4H)
+        "S": D + 3 * H,  # as L
     }[kernel.removesuffix("_wide")]
     return 4 * rows * floats
 
@@ -98,10 +119,17 @@ def require(kernel: str, H: int, smem: int) -> None:
         raise LaunchLimitError(why)
 
 
-def _route_limits(route: str, H: int, layers, heads) -> list[str]:
+def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> list[str]:
     """The limits the route's builds hit: ``layers`` is (D_in, dx wanted) per
     encoder layer, ``heads`` (D, n_layers) per decode head."""
-    if route == "narrow":
+    if cell_type == "LSTM":
+        if route == "narrow":
+            checks = [(k, smem_bytes(k, H, d)) for d, _dx in layers for k in ("L", "N")]
+        else:
+            checks = [(k, smem_bytes(k, H)) for k in ("Q", "R")] if layers else []
+        # S per cell: the head's input for its first layer, h for the others
+        checks += [("S", smem_bytes("S", H, max(d, H) if n > 1 else d)) for d, n in heads]
+    elif route == "narrow":
         checks = [(k, smem_bytes(k, H, d, dx=dx)) for d, dx in layers for k in ("A", "C")]
         checks += [(k, smem_bytes(k, H, d, n)) for d, n in heads for k in ("D", "E")]
     else:
@@ -110,23 +138,28 @@ def _route_limits(route: str, H: int, layers, heads) -> list[str]:
     return [why for k, smem in checks if (why := launch_limit(k, H, smem)) is not None]
 
 
-def train_route(H: int, layers, heads, on_card: bool = True) -> str:
+def train_route(H: int, layers, heads, on_card: bool = True, cell_type: str = "GRU") -> str:
     """``"narrow"`` or ``"wide"`` for a training step at width H (see the
-    module note). Off the card both routes run the same plain versions, so a
-    width no build launches takes the narrow route there; on the card it
-    raises LaunchLimitError."""
+    module note): the preferred route (GRU: narrow; LSTM: narrow up to
+    ``LSTM_NARROW_MAX_H``, wide above), else the other where the preferred
+    one's builds do not launch. Off the card both routes run the same plain
+    versions, so a width no build launches takes the preferred route there;
+    on the card it raises LaunchLimitError."""
     if FORCE_ROUTE is not None:
         return FORCE_ROUTE
-    narrow = _route_limits("narrow", H, layers, heads)
-    if not narrow:
-        return "narrow"
-    wide = _route_limits("wide", H, layers, heads)
-    if not wide:
-        return "wide"
+    order = ("narrow", "wide")
+    if cell_type == "LSTM" and H > LSTM_NARROW_MAX_H:
+        order = ("wide", "narrow")
+    first = _route_limits(order[0], H, layers, heads, cell_type)
+    if not first:
+        return order[0]
+    second = _route_limits(order[1], H, layers, heads, cell_type)
+    if not second:
+        return order[1]
     if not on_card:
-        return "narrow"
-    raise LaunchLimitError(f"no kernel build runs a training step at H={H}: {narrow[0]}; "
-                           f"{wide[0]}")
+        return order[0]
+    raise LaunchLimitError(f"no kernel build runs a training step at H={H}: {first[0]}; "
+                           f"{second[0]}")
 
 
 def config_shapes(cfg) -> tuple[list, list]:
@@ -154,4 +187,5 @@ def config_shapes(cfg) -> tuple[list, list]:
 
 def config_route(cfg, on_card: bool = True) -> str:
     """``train_route`` of a model config."""
-    return train_route(cfg.lstm_size, *config_shapes(cfg), on_card=on_card)
+    return train_route(cfg.lstm_size, *config_shapes(cfg), on_card=on_card,
+                       cell_type=cfg.cell_type)

@@ -2,10 +2,12 @@
 
 The TPU backward kernels accumulate dW, dU, dWo and the bias grads over all
 T*B rows inside themselves (``midi_vae_tpu/ops/fused_train.py::_bwdx_kernel``
-:2175-2178, ``_dec_bwd*_kernel``, ``_mh_bwd_kernel``). On the H100 that sum is
-a second pass after the serial kernels C and E, as in the JAX package's wide
-scheme (``_gru_wide_weight_grads``, ``_dec_wide_weight_grads``): the CUDA
-kernel ``csrc/grad_reduce.cu``, whose source note gives the layout.
+:2175-2178, ``_lstm_bwdx_kernel`` :2458-2460, ``_lstm_bwd_kernel`` :1436,
+``_dec_bwd*_kernel``, ``_mh_bwd_kernel``). On the H100 that sum is a second
+pass after the serial kernels C, E, G, N and R, as in the JAX package's wide
+scheme (``_gru_wide_weight_grads``, ``_lstm_wide_weight_grads``,
+``_dec_wide_weight_grads``): the CUDA kernel ``csrc/grad_reduce.cu``, whose
+source note gives the layout.
 ``grad_reduce_reference`` is the plain PyTorch version: the CPU path and the
 kernel's oracle.
 
@@ -112,6 +114,30 @@ def gru_weight_grads(x, hprev, rh, da_cat):
     grad_reduce(x.reshape(n, D), da, dw, db)
     gru_u_grad(hprev, rh, da_cat, du)
     return dw, db, du
+
+
+def lstm_weight_grads(x, hprev, da):
+    """dW (D, 4H), db (4H,), dU (H, 4H) of one LSTM cell over a whole
+    sequence from its gate grads: x, h_{t-1} and da are (T, B, .),
+    time-major (the sums of ``_lstm_bwdx_kernel`` :2458-2460). Two
+    reductions."""
+    T, B, D = x.shape
+    G = da.shape[-1]
+    kw = {"device": x.device, "dtype": torch.float32}
+    dw, db = torch.empty(D, G, **kw), torch.empty(G, **kw)
+    grad_reduce(x.reshape(T * B, D), da.reshape(T * B, G), dw, db)
+    return dw, db, lstm_u_grad(hprev, da)
+
+
+def lstm_u_grad(hprev, da):
+    """dU = h_{t-1}^T da (H, 4H) of one LSTM cell over a whole sequence, both
+    (T, B, .) time-major (``_lstm_wide_weight_grads``, :2032-2043). One
+    reduction."""
+    T, B, H = hprev.shape
+    G = da.shape[-1]
+    du = torch.empty(H, G, device=hprev.device, dtype=torch.float32)
+    grad_reduce(hprev.reshape(T * B, H), da.reshape(T * B, G), du)
+    return du
 
 
 def gru_u_grad(hprev, rh, da_cat, out=None):

@@ -3,15 +3,19 @@
 
 Runs ``VAETrainer.train_step`` (forward, loss, backward, Adam) of the default
 Config() model (seeded numpy init; ``--set`` overrides fields, e.g.
-``lstm_size=512`` for the wide model) on one random 256-window batch, and
-prints one JSON line: the card, the route of the step, the median wall time
-per step (host clock around work that ends in a synchronize), note-steps/s (B
-x 64 output steps per step), and from a torch.profiler window of STEPS steps
-the device time per kernel name, per kernel of the port (A, C, D, E, F, G,
-the wide D and E, W) and for everything else, and the device's idle share.
+``lstm_size=512`` for the wide model, ``cell_type=LSTM`` for the LSTM model)
+on one random 256-window batch, or with ``--judge KIND`` one
+``ClassifierTrainer.train_step`` of that judge (RNN(256) x 2 of the config's
+cell type) on one random batch (default 512), and prints one JSON line: the
+card, the route of the step, the median wall time per step (host clock
+around work that ends in a synchronize), note-steps/s (B x 64 output steps
+per step; windows/s for a judge), and from a torch.profiler window of STEPS
+steps the device time per kernel name, per kernel of the port (A, C, D, E,
+F, G, the wide D and E, L, N, Q, R, S, W) and for everything else, per
+autograd node of the backward, and the device's idle share.
 
 Usage: python -m midi_vae_tpu_torch.tools.profile_train [--batch 256] [--steps 10]
-           [--set lstm_size=512]
+           [--set lstm_size=512] [--set cell_type=LSTM] [--judge pitch]
 """
 
 from __future__ import annotations
@@ -35,6 +39,11 @@ PORT_KERNELS = {
     "gru_layer_xp_bwd_kernel": "G gru_layer_xp_bwd",
     "gru_decode_train_wide_kernel": "D wide gru_decode_train_wide",
     "gru_decode_bwd_wide_kernel": "E wide gru_decode_bwd_wide",
+    "lstm_layer_fwd_kernel": "L lstm_layer_fwd",
+    "lstm_layer_bwd_kernel": "N lstm_layer_bwd",
+    "lstm_layer_xp_fwd_kernel": "Q lstm_layer_xp_fwd",
+    "lstm_layer_xp_bwd_kernel": "R lstm_layer_xp_bwd",
+    "lstm_step_kernel": "S lstm_step",
     "grad_reduce": "W grad_reduce",
 }
 
@@ -63,63 +72,52 @@ def random_train_batch(cfg, n: int, seed: int, valid: int | None = None) -> dict
     return batch
 
 
-def _device_us(event) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
+def _device_us(event, own: bool = True) -> float:
+    """The device time of a profiler event: its own, or with ``own=False``
+    that of every kernel launched under it."""
+    for attr in (("self_device_time_total", "self_cuda_time_total") if own
+                 else ("device_time_total", "cuda_time_total")):
         if hasattr(event, attr):
             return float(getattr(event, attr))
     return 0.0
 
 
-def main(argv: list[str] | None = None) -> int:
-    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--batch", type=int, default=256)
-    p.add_argument("--steps", type=int, default=10)
-    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                   help="override any Config field")
-    args = p.parse_args(argv)
+NODE = "autograd::engine::evaluate_function: "
 
+
+def _profile(step, steps: int) -> dict:
+    """Median wall time of ``step`` over ``steps`` runs and a torch.profiler
+    window of as many: device ms per kernel name and per port kernel, and
+    the device's idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from midi_vae_tpu_torch.config import Config, parse_overrides
-    from midi_vae_tpu_torch import use_exact_f32
-    from midi_vae_tpu_torch.ops import _layout
-    from midi_vae_tpu_torch.training.trainer import VAETrainer
-
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: this tool measures the card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    use_exact_f32()
-    cfg = Config(batch_size=args.batch, **parse_overrides(args.set))
-    trainer = VAETrainer(cfg, "cuda")
-    state = trainer.init_state()
-    batch = trainer.to_device(random_train_batch(cfg, args.batch, 0))
     for _ in range(3):
-        trainer.train_step(state, batch)
+        step()
     torch.cuda.synchronize()
     walls = []
-    for _ in range(args.steps):
+    for _ in range(steps):
         t0 = time.perf_counter()
-        trainer.train_step(state, batch)
+        step()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     walls.sort()
-    wall = walls[len(walls) // 2]
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            trainer.train_step(state, batch)
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
-        window = (time.perf_counter() - t0) / args.steps * 1e3
-    kernels = {}
+        window = (time.perf_counter() - t0) / steps * 1e3
+    kernels, nodes = {}, {}
     for ev in prof.key_averages():
+        if ev.key.startswith(NODE):
+            nodes[ev.key[len(NODE):]] = _device_us(ev, own=False) / steps / 1e3
+            continue
         us = _device_us(ev)
         if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             name = ev.key.split("(")[0]  # drop the argument list
-            kernels[name] = kernels.get(name, 0.0) + us / args.steps / 1e3
+            kernels[name] = kernels.get(name, 0.0) + us / steps / 1e3
     busy = sum(kernels.values())
     groups: dict[str, float] = {}
     for name, ms in kernels.items():
@@ -128,15 +126,73 @@ def main(argv: list[str] | None = None) -> int:
                       or short.startswith(prefix + "_")),
                      "other (ATen, cuBLAS, copies)")
         groups[group] = groups.get(group, 0.0) + ms
-    print(json.dumps({
-        "batch": args.batch, "lstm_size": cfg.lstm_size, "route": _layout.config_route(cfg),
-        "card": card, "step_wall_ms_median": wall * 1e3,
-        "note_steps_per_s": args.batch * cfg.output_length / wall,
+    return {
+        "step_wall_ms_median": walls[len(walls) // 2] * 1e3,
         "profiled_ms_per_step": window, "device_busy_ms_per_step": busy,
         "device_idle_share": 1.0 - busy / window,
         "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "device_ms_by_kernel": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12]),
-    }))
+        # the backward by autograd node, with the kernels each launched (e.g.
+        # _LstmCellStepBackward: kernel S's backward through the plain version)
+        "backward_device_ms_by_node": dict(sorted(nodes.items(), key=lambda kv: -kv[1])[:8]),
+    }
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--batch", type=int, default=None,
+                   help="batch rows (default 256, 512 with --judge)")
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   help="override any Config field")
+    p.add_argument("--judge", default=None, choices=("pitch", "velocity", "instrument"),
+                   help="profile one training step of this judge instead")
+    args = p.parse_args(argv)
+
+    import torch
+
+    from midi_vae_tpu_torch.config import Config, parse_overrides
+    from midi_vae_tpu_torch import use_exact_f32
+    from midi_vae_tpu_torch.ops import _layout
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this tool measures the card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    use_exact_f32()
+    if args.judge:
+        from midi_vae_tpu_torch.models.classifier import ClassifierSpec, StyleClassifier
+        from midi_vae_tpu_torch.training.classifier_trainer import ClassifierTrainer
+
+        batch = args.batch or 512
+        spec = ClassifierSpec.for_kind(args.judge, Config(**parse_overrides(args.set)),
+                                       batch_size=batch)
+        trainer = ClassifierTrainer(spec, "cuda")
+        state = trainer.init_state()
+        T = {"pitch": 64, "velocity": 64, "instrument": 4}[args.judge]
+        rng = np.random.RandomState(0)
+        x = (np.eye(spec.input_dim, dtype=np.float32)[rng.randint(0, spec.input_dim, (batch, T))]
+             if spec.input_dim > 1 else rng.rand(batch, T, 1).astype(np.float32))
+        c = np.eye(spec.num_classes, dtype=np.float32)[rng.randint(0, spec.num_classes, batch)]
+        dev = [torch.as_tensor(a, device="cuda") for a in (x, c, np.ones(batch, np.float32))]
+        out = _profile(lambda: trainer.train_step(state, *dev), args.steps)
+        head = {"judge": args.judge, "cell_type": spec.cell_type, "batch": batch,
+                "lstm_size": spec.lstm_size,
+                "route": StyleClassifier(spec).train_route(torch.device("cuda")), "card": card}
+        out["windows_per_s"] = batch / out["step_wall_ms_median"] * 1e3
+    else:
+        from midi_vae_tpu_torch.training.trainer import VAETrainer
+
+        batch = args.batch or 256
+        cfg = Config(batch_size=batch, **parse_overrides(args.set))
+        trainer = VAETrainer(cfg, "cuda")
+        state = trainer.init_state()
+        tb = trainer.to_device(random_train_batch(cfg, batch, 0))
+        out = _profile(lambda: trainer.train_step(state, tb), args.steps)
+        head = {"batch": batch, "cell_type": cfg.cell_type, "lstm_size": cfg.lstm_size,
+                "route": _layout.config_route(cfg), "card": card}
+        out["note_steps_per_s"] = batch * cfg.output_length / out["step_wall_ms_median"] * 1e3
+    print(json.dumps({**head, **out}))
     return 0
 
 

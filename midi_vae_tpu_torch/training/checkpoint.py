@@ -132,11 +132,16 @@ def save_classifier(kind_dir: str, spec, params) -> None:
     bridge.save_params(os.path.join(kind_dir, PARAMS_FILE), params)
 
 
-def load_classifier(kind_dir: str):
-    """The ``StyleClassifier`` of one judge directory, on the CPU."""
+def load_spec(kind_dir: str) -> ClassifierSpec:
+    """The ``ClassifierSpec`` of one judge directory."""
     path = os.path.join(kind_dir, SPEC_FILE)
     if not os.path.exists(path):
         raise FileNotFoundError(f"no {SPEC_FILE} under {kind_dir!r} -- is this a judge directory?")
     with open(path) as f:
-        spec = ClassifierSpec(**json.load(f))
-    return StyleClassifier(spec, bridge.load_params(os.path.join(kind_dir, PARAMS_FILE)))
+        return ClassifierSpec(**json.load(f))
+
+
+def load_classifier(kind_dir: str):
+    """The ``StyleClassifier`` of one judge directory, on the CPU."""
+    return StyleClassifier(load_spec(kind_dir),
+                           bridge.load_params(os.path.join(kind_dir, PARAMS_FILE)))

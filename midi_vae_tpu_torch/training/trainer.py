@@ -6,9 +6,10 @@ Counterpart of ``midi_vae_tpu/training/trainer.py`` on its host path:
 encode steps (:188-218), ``init_state`` (:790), ``compute_history`` (:814),
 ``run_epoch`` (:856), ``evaluate`` (:927), ``fit`` with the ``_fit_host``
 loop (:960, :1280: test and save cadence, epoch 0 trains with H = 0,
-preemption-safe stop) and ``restore`` (:1344). The device-resident epochs
-(with ``padded_batch_order``, their batch grid), the z-cache, the HBM layout
-picker and async saves are not ported yet.
+preemption-safe stop) and ``restore`` (:1344), and ``padded_batch_order``
+(:117), the batch grid the judges' trainer runs its epochs on. The
+device-resident epochs, the z-cache, the HBM layout picker and async saves
+are not ported yet.
 
 Randomness: ``TrainState.rng`` is a ``torch.Generator`` on the training
 device; each train step draws its reparameterization noise from it, and each
@@ -54,6 +55,21 @@ def pad_batch_to(batch: dict, size: int) -> tuple[dict, np.ndarray]:
         pad = np.zeros((size - n, *v.shape[1:]), dtype=v.dtype)
         out[k] = np.concatenate([np.asarray(v), pad], axis=0)
     return out, mask
+
+
+def padded_batch_order(order, bs: int) -> tuple[np.ndarray, np.ndarray]:
+    """A window-index order padded to an (n_batches, bs) grid, -1 = pad, and
+    its float mask (1 on real rows). A copy of
+    ``midi_vae_tpu/training/trainer.py::padded_batch_order`` (:117-130), the
+    batch grid of the JAX package's device-resident epochs: pad rows gather
+    row 0 and are masked out of every loss and metric."""
+    order = np.asarray(order)
+    n = int(order.shape[0])
+    n_batches = max(1, (n + bs - 1) // bs)
+    padded = np.full((n_batches * bs,), -1, np.int32)
+    padded[:n] = order
+    grid = padded.reshape(n_batches, bs)
+    return grid, (grid >= 0).astype(np.float32)
 
 
 def make_optimizer(cfg: Config, model: MidiVAE) -> Optimizer:
@@ -118,7 +134,7 @@ class EpochMetrics:
         return {k: v / self.weight for k, v in self.sums.items()}
 
 
-def _aggregate(pending: list[tuple[dict, float]]) -> EpochMetrics:
+def aggregate_metrics(pending: list[tuple[dict, float]]) -> EpochMetrics:
     """Per-batch metric tensors -> EpochMetrics, with one device sync."""
     agg = EpochMetrics()
     if not pending:
@@ -245,7 +261,7 @@ class VAETrainer:
             batch, mask = pad_batch_to(_slice_batch(flat, order[start : start + bs], cfg, H), bs)
             batch["M"] = mask
             pending.append((self.train_step(state, self.to_device(batch)), float(mask.sum())))
-        return _aggregate(pending)
+        return aggregate_metrics(pending)
 
     def evaluate(self, state: TrainState, flat: FlatSplit,
                  H: np.ndarray | None = None) -> EpochMetrics:
@@ -259,7 +275,7 @@ class VAETrainer:
             batch, mask = pad_batch_to(_slice_batch(flat, idx, cfg, H), bs)
             batch["M"] = mask
             pending.append((self.eval_step(state.model, self.to_device(batch)), float(mask.sum())))
-        return _aggregate(pending)
+        return aggregate_metrics(pending)
 
     # ------------------------------------------------------------------
     def fit(self, state: TrainState, train: FlatSplit, test: FlatSplit | None = None,

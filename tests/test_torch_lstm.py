@@ -227,21 +227,20 @@ def test_lstm_transfer_cli_matches_jax_cli(tmp_path):
 
 def test_lstm_serving_dispatch_on_cuda():
     """The dispatch decides from the device type, so it is tested without a
-    card: LSTM serving takes kernels L and M on CUDA; LSTM training raises
-    naming rows 15-20 and 30; a head the JAX package decodes step by step
-    (3 layers, or another output activation) raises naming row 30."""
+    card: LSTM serving takes kernels L and M on CUDA; LSTM training takes
+    its kernels too (no raise); a head the JAX package decodes step by step
+    (3 layers, or another output activation) takes kernel S, step by step,
+    instead of M; a GRU head of that kind still raises naming row 28."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     model = MidiVAE(small_test_config(cell_type="LSTM"))
     assert model.kernels_enabled(cuda) and model.kernels_enabled(cpu)
     for n_layers, out_act in ((2, "softmax"), (1, "sigmoid"), (1, "linear")):
         assert model.serving_head_kernel("notes", n_layers, out_act, cuda)
-    with pytest.raises(NotImplementedError, match="rows 15-20 and 30"):
-        model.train_kernels_enabled(cuda)
-    assert model.train_kernels_enabled(cpu) is False
-    with pytest.raises(NotImplementedError, match="row 30"):
-        model.serving_head_kernel("notes", 3, "softmax", cuda)
-    with pytest.raises(NotImplementedError, match="row 30"):
-        model.serving_head_kernel("velocity", 1, "relu", cuda)
+    assert model.train_kernels_enabled(cuda) is True
+    assert model.train_kernels_enabled(cpu) is True
+    assert model.serving_head_kernel("notes", 3, "softmax", cuda) is False
+    assert model.serving_head_kernel("velocity", 1, "relu", cuda) is False
+    assert model.decode_step(model.kernels_enabled(cuda)) is not None
     assert not model.serving_head_kernel("notes", 3, "softmax", cpu)
     # the GRU heads name their own per-step row
     with pytest.raises(NotImplementedError, match="row 28"):
