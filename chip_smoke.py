@@ -14,10 +14,10 @@ result line):
      (csrc/grad_reduce.cu), F (csrc/gru_layer_xp_fwd.cu), G
      (csrc/gru_layer_xp_bwd.cu), L (csrc/lstm_layer_fwd.cu), M
      (csrc/lstm_decode.cu), N (csrc/lstm_layer_bwd.cu), Q
-     (csrc/lstm_layer_xp_fwd.cu), R (csrc/lstm_layer_xp_bwd.cu) and S
-     (csrc/lstm_step.cu); every build's registers and spills from ptxas
-     against the route chooser's table; the 8-rows builds of D and E must
-     refuse H = 512 at their C entry points;
+     (csrc/lstm_layer_xp_fwd.cu), R (csrc/lstm_layer_xp_bwd.cu), S and S xp
+     (csrc/lstm_step.cu), T and T xp (csrc/gru_step.cu); every build's
+     registers and spills from ptxas against the route chooser's table; the
+     8-rows builds of D and E must refuse H = 512 at their C entry points;
   3. kernels: A and B against their plain PyTorch versions on the card, at
      the shapes the transfer path gives them with B = 256 windows, with times
      (CUDA events, median of REPS runs) and each call's bound (the larger of
@@ -38,7 +38,8 @@ result line):
      epochs, then --resume for a third, then the transfer CLI serves the
      run; losses finite, checkpoints on disk, and the launch counters of
      every kernel equal to what the design implies per step, eval batch and
-     encode batch;
+     encode batch (the z cache gives the history: no encode pass over the
+     train split but the one that seeds the cache on --resume);
   8. training step, card against CPU: one optimizer step's loss, metrics and
      every parameter gradient on a fixed 256-window batch with padding rows
      and numpy noise, on the card and through the plain path on the CPU;
@@ -82,7 +83,28 @@ result line):
  20. judge training: the classify CLI trains GRU judges (RNN(256) x 2,
      batch 512, 2 epochs; A + C + W), ClassifierTrainer LSTM judges of all
      three kinds (L + N + W), one judge step per cell type card against
-     CPU, and the transfer CLI serves the trained LSTM judges.
+     CPU, and the transfer CLI serves the trained LSTM judges;
+ 21. per-step cells: T (csrc/gru_step.cu) on each decode-head cell of
+     Config() (notes 1 and 2, velocity, instrument) and of lstm_size=512, T
+     xp on each encoder layer's x-projection at 256 and 512, S xp
+     (csrc/lstm_step.cu) on each LSTM(256) and LSTM(512) encoder layer's,
+     against their plain versions at B = 256 and B = 5; each cell's loop
+     (its head's or layer's launches, the state carried) timed in one
+     CUDA-event window beside the plain version's loop and, for S xp,
+     torch.lstm_cell's, with bounds;
+ 22. their gradients: the three autograd Functions against autograd through
+     the plain forward;
+ 23. the train CLI on the per-step configs at full width, 2 epochs, --resume
+     for a third, serving: --set merge_decoder_scans=True (T on the merged
+     heads, D and E on the instrument head), --set fused_train_encoder=False
+     --set fused_train_decoder=False (T xp and T), --set cell_type=LSTM
+     --set fused_train_encoder=False (S xp and S), every launch counter as
+     designed;
+ 24. one training step of each of those configs, card against CPU, as
+     phase 8;
+ 25. serving a GRU run with a 3-layer notes head (--set
+     num_layers_decoder=3, seeded init) through the transfer CLI: T 3 x 64
+     launches per notes-head call; one transfer batch card against CPU.
 Then one JSON line with the kernels, and the final line
 {"ok": true, "device": {...}}.
 """
@@ -178,7 +200,8 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel"), "B": ("gru_decode", "g
           "N": ("lstm_layer_bwd", "lstm_layer_bwd_kernel"),
           "Q": ("lstm_layer_xp_fwd", "lstm_layer_xp_fwd_kernel"),
           "R": ("lstm_layer_xp_bwd", "lstm_layer_xp_bwd_kernel"),
-          "S": ("lstm_step", "lstm_step_kernel")}
+          "S": ("lstm_step", "lstm_step_kernel"), "S_xp": ("lstm_step", "lstm_step_xp_kernel"),
+          "T": ("gru_step", "gru_step_kernel"), "T_xp": ("gru_step", "gru_step_xp_kernel")}
 
 
 def check_registers():
@@ -1003,14 +1026,29 @@ PER_TRAIN_STEP = {
                     "grad_reduce": 8},
     "lstm_wide": {"lstm_layer_xp_fwd": 4, "lstm_layer_xp_bwd": 4, "lstm_step": S_PER_STEP,
                   "grad_reduce": 4},
+    # the per-step configs (their backward through the cells is the plain
+    # versions'): merge_decoder_scans runs the notes and velocity heads
+    # through T (2 x 64 + 64), the instrument head through D and E (W 3 + 1);
+    # no_fused_train the four encoder layers through T xp (64 + 64 + 4 + 64)
+    # and every head through T; the LSTM with fused_train_encoder=False the
+    # layers through S xp and the heads through S; no W where nothing but
+    # the per-step cells runs (dW, db of xp = x @ W + b by autograd)
+    "merge": {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_step": 2 * 64 + 64,
+              "gru_decode_train": 1, "gru_decode_bwd": 1, "grad_reduce": 16},
+    "no_fused_train": {"gru_step_xp": S_PER_STEP, "gru_step": S_PER_STEP},
+    "lstm_no_fused_encoder": {"lstm_step_xp": S_PER_STEP, "lstm_step": S_PER_STEP},
 }
 PER_EVAL_BATCH = {  # forward only
     "narrow": {"gru_layer_fwd": 4, "gru_decode_train": 2},
     "wide": {"gru_layer_xp_fwd": 4, "gru_decode_train_wide": 3},
     "lstm_narrow": {"lstm_layer_fwd": 4, "lstm_step": S_PER_STEP},
     "lstm_wide": {"lstm_layer_xp_fwd": 4, "lstm_step": S_PER_STEP},
+    "merge": {"gru_layer_fwd": 4, "gru_step": 2 * 64 + 64, "gru_decode_train": 1},
+    "no_fused_train": {"gru_step_xp": S_PER_STEP, "gru_step": S_PER_STEP},
+    "lstm_no_fused_encoder": {"lstm_step_xp": S_PER_STEP, "lstm_step": S_PER_STEP},
 }
-# the history pass (the serving encoder, kernel A or L)
+# an encode pass (the serving encoder, kernel A or L): the test split's
+# history at each evaluation, the z cache's seeding on --resume
 PER_ENCODE_BATCH = {"GRU": {"gru_layer_fwd": 4}, "LSTM": {"lstm_layer_fwd": 4}}
 # one teacher-forced step of the default config: the notes head is a plain
 # scan over its ground truth, velocity and instrument are decoded alone
@@ -1029,10 +1067,11 @@ def route_key(cfg, route):
 def kernel_counters():
     from midi_vae_tpu_torch.ops import gru_decode as gd
     from midi_vae_tpu_torch.ops import gru_layer as gl
+    from midi_vae_tpu_torch.ops import gru_step as gs
     from midi_vae_tpu_torch.ops import lstm_layer as ll
+    from midi_vae_tpu_torch.ops import lstm_step as ls
     from midi_vae_tpu_torch.ops.grad_reduce import grad_reduce
     from midi_vae_tpu_torch.ops.lstm_decode import lstm_decode
-    from midi_vae_tpu_torch.ops.lstm_step import lstm_cell_step_fwd
 
     return {"gru_layer_fwd": gl.gru_layer, "gru_decode": gd.gru_decode,
             "gru_layer_bwd": gl.gru_layer_bwd, "gru_decode_train": gd.gru_decode_fwd_train,
@@ -1042,7 +1081,9 @@ def kernel_counters():
             "gru_decode_bwd_wide": gd.gru_decode_bwd_wide,
             "lstm_layer_fwd": ll.lstm_layer, "lstm_decode": lstm_decode,
             "lstm_layer_bwd": ll.lstm_layer_bwd, "lstm_layer_xp_fwd": ll.lstm_layer_xp,
-            "lstm_layer_xp_bwd": ll.lstm_layer_xp_bwd, "lstm_step": lstm_cell_step_fwd}
+            "lstm_layer_xp_bwd": ll.lstm_layer_xp_bwd, "lstm_step": ls.lstm_cell_step_fwd,
+            "lstm_step_xp": ls.lstm_recurrent_step_fwd, "gru_step": gs.gru_cell_step_fwd,
+            "gru_step_xp": gs.gru_recurrent_step_fwd}
 
 
 def reset_counters():
@@ -1055,21 +1096,24 @@ def read_counters():
     return {name: fn.launches for name, fn in kernel_counters().items() if fn.launches}
 
 
-def expected_train_launches(cfg, route, n_train, n_test, epochs):
-    """Launches of fit() over ``epochs`` (host loop: a history encode pass
-    over the train split from epoch 1 on, test evaluation every epoch with
-    its own history pass)."""
+def expected_train_launches(cfg, key, n_train, n_test, epochs):
+    """Launches of fit() over ``epochs`` (``key``: the launch tables' row of
+    the config): its train steps; with history, the z cache's seeding pass
+    over the train split when the run resumes past epoch 0 (or, with
+    ``history_from_train_z=False``, an encode pass at each epoch after the
+    first); test evaluation every test_step epochs with its own history
+    pass."""
     bs = cfg.batch_size
     n_batches, n_test_batches = -(-n_train // bs), -(-n_test // bs)
     steps = encodes = evals = 0
     for e in epochs:
         steps += n_batches
-        encodes += n_batches if e > 0 else 0
+        if cfg.history and e > 0 and (not cfg.history_from_train_z or e == epochs.start):
+            encodes += n_batches
         if n_test and e % cfg.test_step == 0:
-            encodes += n_test_batches
+            encodes += n_test_batches if cfg.history else 0
             evals += n_test_batches
     want = {}
-    key = route_key(cfg, route)
     for table, times in ((PER_TRAIN_STEP[key], steps), (PER_EVAL_BATCH[key], evals),
                          (PER_ENCODE_BATCH[cfg.cell_type], encodes)):
         for name, per in table.items():
@@ -1078,10 +1122,11 @@ def expected_train_launches(cfg, route, n_train, n_test, epochs):
     return want
 
 
-def phase_train_slice(work, sets=()):
+def phase_train_slice(work, sets=(), key=None):
     """The train CLI at full width (``sets``: its --set overrides) on an
     authored corpus: 2 epochs, then --resume for a third, then the transfer
-    CLI serves the run."""
+    CLI serves the run. ``key``: the launch tables' row (default: the
+    route's)."""
     import numpy as np
 
     from midi_vae_tpu_torch.config import Config, parse_overrides
@@ -1105,7 +1150,8 @@ def phase_train_slice(work, sets=()):
     run, cache = os.path.join(work, "train_run"), os.path.join(work, "cache")
     cfg = Config(**parse_overrides(list(sets)))
     route = _layout.config_route(cfg)
-    tag = f"{cfg.cell_type}({cfg.lstm_size}), {route} route"
+    key = key or route_key(cfg, route)
+    tag = f"{cfg.cell_type}({cfg.lstm_size}), {route} route{', ' + key if key != route else ''}"
     train, test, _, _ = flatten_dataset(import_midi_from_folder(source, cfg, cache_dir=cache), cfg)
     args = ["--source", source, "--output", run, "--cache", cache, "--device", "cuda"]
     for kv in sets:
@@ -1120,7 +1166,7 @@ def phase_train_slice(work, sets=()):
         launches = read_counters()
         if rc != 0:
             raise RuntimeError(f"train CLI ({label}) returned {rc}")
-        want = expected_train_launches(cfg, route, train.num_windows, test.num_windows, epochs)
+        want = expected_train_launches(cfg, key, train.num_windows, test.num_windows, epochs)
         if launches != want:
             raise RuntimeError(f"train CLI ({label}): launch counters {launches}, expected {want}")
         with open(os.path.join(run, "history.json")) as f:
@@ -1214,8 +1260,9 @@ def phase_train_card_vs_cpu(smi, cfg, per_step, label):
             "max_abs_dloss": errs["loss"], "closest_grad_to_limit": worst[0]}
 
 
-def phase_card_vs_cpu(smi, cell_type="GRU"):
-    """One 256-window transfer_argmax batch of ``Config(cell_type=...)``: card
+def phase_card_vs_cpu(smi, cell_type="GRU", overrides=None):
+    """One 256-window transfer_argmax batch of ``Config(cell_type=...,
+    **overrides)``: card
     against the CPU plain path; then the card's transfer rate at B = 256 and
     one song's latency at B = 16 (host clock around work that ends in a
     synchronize, median of REPS)."""
@@ -1227,7 +1274,7 @@ def phase_card_vs_cpu(smi, cell_type="GRU"):
     from midi_vae_tpu_torch.evaluation.generation import GenerationContext
     from midi_vae_tpu_torch.models.vae import MidiVAE
 
-    cfg = Config(cell_type=cell_type)
+    cfg = Config(cell_type=cell_type, **(overrides or {}))
     params = bridge.to_tree(MidiVAE(cfg).params)
     batch = random_batch(cfg, B, 2)
     results, timing = {}, {}
@@ -1275,7 +1322,8 @@ def phase_card_vs_cpu(smi, cell_type="GRU"):
                            f"agreement {agree:.5f} (limit {MIN_ARGMAX_AGREEMENT})")
     secs = timing[B]
     steps = B * cfg.output_length
-    print(f"[card vs cpu {cell_type}] {B} windows: max|dz| {z_err:.3e}, max|dprobs| {p_err:.3e}, "
+    print(f"[card vs cpu {cell_type}{overrides or ''}] {B} windows: max|dz| {z_err:.3e}, "
+          f"max|dprobs| {p_err:.3e}, "
           f"notes argmax agreement {agree:.5f}; transfer_argmax on the card {secs * 1e3:.3f} ms "
           f"(median of {REPS}) = {B / secs:.1f} windows/s = {steps / secs:.1f} note-steps/s; one "
           f"song (16 windows) {timing[16] * 1e3:.3f} ms; on {smi}")
@@ -1355,14 +1403,43 @@ def cudnn_lstm_layer(x, p, h0, c0, xp=False):
     return fwd, (lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)), fwd_bwd
 
 
+def loop_times(tag, res, kernel, plain, n, library=None):
+    """A per-step cell's ``n`` launches as its head or layer runs them:
+    ``kernel``, ``plain`` and ``library`` are loops (callables) over the
+    ``n`` steps with the state carried, each timed as one CUDA-event window
+    in turns plain, kernel, kernel, plain (``library``, one PyTorch call per
+    step that computes the same step, after them). ``res`` is the cell's
+    per-launch compare(); returns it as the sum over the ``n`` launches, the
+    per-launch times kept beside."""
+    import torch
+
+    with torch.no_grad():
+        plain_a, kernel_a = median_ms(plain), median_ms(kernel)
+        kernel_b, plain_b = median_ms(kernel), median_ms(plain)
+        library_ms = median_ms(library) if library is not None else None
+    ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
+    lib = f", library {library_ms:.4f} ms" if library is not None else ""
+    print(f"[kernels] {tag}, {n} launches in one window: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms{lib}")
+    return {k: (v * n if k in ("flops", "bytes", "bound_ms") else v) for k, v in res.items()} | {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "launches_per_step": n,
+        "ms_per_launch_alone": res["ms"], "plain_ms_per_launch_alone": res["plain_ms"]}
+
+
+def carried(step, state, n, xs=None):
+    """A loop of ``n`` calls of ``step(state[, xs[t]]) -> state``."""
+    def run():
+        st = state
+        for t in range(n):
+            st = step(st) if xs is None else step(st, xs[t])
+        return st
+    return run
+
+
 def head_loop_times(name, res, args, n):
-    """S on one head cell as a step's head runs it: ``n`` launches with h
-    and c carried from step to step, timed as one CUDA-event window, beside
-    the plain version's ``n`` steps and ``torch.lstm_cell``'s (the yardstick
-    ``library_ms``: x @ W + b + h @ U and the gates i, f, g, o in one
-    PyTorch call; the port never calls it), in turns plain, kernel, kernel,
-    plain. ``res`` is the cell's per-launch compare(); returns it as the sum
-    over the ``n`` launches, the per-launch time kept beside."""
+    """S on one head cell as a step's head runs it (``loop_times``), beside
+    ``torch.lstm_cell`` (the yardstick ``library_ms``: x @ W + b + h @ U and
+    the gates i, f, g, o in one PyTorch call; the port never calls it)."""
     import torch
 
     from midi_vae_tpu_torch.ops import lstm_step as ls
@@ -1370,31 +1447,15 @@ def head_loop_times(name, res, args, n):
     x, h0, c0, w, b, u, activation = args
     # the card's fused cell takes both biases
     wt, ut, b_hh = w.t().contiguous(), u.t().contiguous(), torch.zeros_like(b)
-
-    def loop(step):
-        def run():
-            h, c = h0, c0
-            for _ in range(n):
-                h, c = step(h, c)
-            return h, c
-        return run
-
-    kernel = loop(lambda h, c: ls.lstm_cell_step_fwd(x, h, c, w, b, u, activation))
-    plain = loop(lambda h, c: ls.lstm_cell_step_reference(x, h, c, w, b, u, activation))
-    library = loop(lambda h, c: torch.lstm_cell(x, (h, c), wt, ut, b, b_hh))
     with torch.no_grad():
         # the yardstick computes the same function as the port's step
         check(f"torch.lstm_cell {name}", lambda: torch.lstm_cell(x, (h0, c0), wt, ut, b, b_hh),
               lambda: ls.lstm_cell_step_reference(*args), [H_ATOL, C_ATOL])
-        plain_a, kernel_a = median_ms(plain), median_ms(kernel)
-        kernel_b, plain_b = median_ms(kernel), median_ms(plain)
-        library_ms = median_ms(library)
-    ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
-    print(f"[kernels] S {name}, {n} launches in one window: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.lstm_cell {library_ms:.4f} ms")
-    return {k: (v * n if k in ("flops", "bytes", "bound_ms") else v) for k, v in res.items()} | {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "launches_per_step": n,
-        "ms_per_launch_alone": res["ms"], "plain_ms_per_launch_alone": res["plain_ms"]}
+    return loop_times(
+        f"S {name}", res,
+        carried(lambda hc: ls.lstm_cell_step_fwd(x, *hc, w, b, u, activation), (h0, c0), n),
+        carried(lambda hc: ls.lstm_cell_step_reference(x, *hc, w, b, u, activation), (h0, c0), n),
+        n, carried(lambda hc: torch.lstm_cell(x, hc, wt, ut, b, b_hh), (h0, c0), n))
 
 
 def phase_lstm_train_kernels():
@@ -1779,11 +1840,218 @@ def phase_judge_training(work, smi):
     return paths, results
 
 
-def main() -> int:
-    smi = phase_device()
+def phase_step_kernels():
+    """The per-step cells at the shapes of the configs that run them, at B =
+    256 (timed: each cell's loop in one window) and B = 5: T on each decode
+    head cell of Config() and Config(lstm_size=512), the input of a head's
+    first cell its fed-back output (the start symbol's width), of the second
+    the first's h; T xp on each encoder layer's x-projection (notes L1, L2,
+    instrument, velocity) at 256 and 512; S xp on each encoder layer's of
+    Config(cell_type="LSTM") at 256 and 512, beside torch.lstm_cell over the
+    same loop (its w_ih the identity, so that xp @ w_ih^T = xp: one 4H x 4H
+    product more than S xp does). Then the three autograd Functions'
+    gradients against autograd through the plain forward."""
     import torch
 
     from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.models.rnn import init_decoder_states
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+    from midi_vae_tpu_torch.ops import gru_step as gs
+    from midi_vae_tpu_torch.ops import lstm_layer as ll
+    from midi_vae_tpu_torch.ops import lstm_step as ls
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    results = {k: {} for k in ("gru_step", "gru_step_512", "gru_step_xp", "gru_step_xp_512",
+                               "lstm_step_xp", "lstm_step_xp_512")}
+
+    def grads(tag, fn, plain, args, rows):
+        leaves = [t.detach().clone().requires_grad_() for t in args]
+        out = plain(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        cot = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+        got = torch.autograd.grad(fn(*leaves), leaves, cot)
+        want = torch.autograd.grad(outs, leaves, cot)
+        check(f"{tag} grads B={rows}", lambda: got, lambda: want, [rel] * len(want))
+
+    def encoder_layers(cfg, enc, batch, rows, ref):
+        """(name, x, params) of the four encoder layers, notes L2's input the
+        plain L1's h sequence, all time-major."""
+        h0 = torch.zeros(rows, cfg.lstm_size, device=dev)
+        p1 = [enc["notes_rnn"][0][k] for k in "wbu"]
+        x_l2 = ref(tm(batch["X"]), h0, *p1)
+        return [("notes_l1", tm(batch["X"]), enc["notes_rnn"][0]),
+                ("notes_l2", x_l2, enc["notes_rnn"][1]),
+                ("instrument", tm(batch["I"]), enc["inst_rnn"][0]),
+                ("velocity", tm(batch["V"]), enc["vel_rnn"][0])]
+
+    for H in (256, 512):
+        suffix = "" if H == 256 else "_512"
+        gru_cfg, lstm_cfg = Config(lstm_size=H), Config(cell_type="LSTM", lstm_size=H)
+        gru, lstm = MidiVAE(gru_cfg).to(dev), MidiVAE(lstm_cfg).to(dev)
+        for rows in (B, RAGGED):
+            timed = rows == B
+            run = compare if timed else check
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in random_batch(gru_cfg, rows, 12).items()}
+            with torch.no_grad():
+                # --- T on each head cell
+                z = gru.encode(batch)
+                new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
+                for head, d, T in (("notes", gru_cfg.output_dim, gru_cfg.output_length),
+                                   ("velocity", 1, gru_cfg.meta_velocity_length),
+                                   ("instrument", gru_cfg.meta_instrument_dim,
+                                    gru_cfg.meta_instrument_length)):
+                    h = gru.params["decoder"][head]
+                    states = init_decoder_states(h["init"], new_encoded, "GRU",
+                                                 gru_cfg.lstm_state_activation)
+                    xin = torch.softmax(torch.randn(rows, d, generator=gen, device=dev), -1)
+                    for i, cell in enumerate(h["cells"]):
+                        args = (xin, states[i][0], cell["w"], cell["b"], cell["u"])
+                        tag = f"H={H} {head} cell {i + 1}"
+                        out = run(f"T {tag} x{tuple(xin.shape)}",
+                                  lambda a=args: gs.gru_cell_step_fwd(*a),
+                                  lambda a=args: gs.gru_cell_step_reference(*a), [H_ATOL],
+                                  flops=2 * rows * (cell["w"].shape[0] + H) * 3 * H,
+                                  inputs=args)
+                        if timed:
+                            results["gru_step" + suffix][f"{head} cell {i + 1}"] = loop_times(
+                                f"T {tag}", out,
+                                carried(lambda st, a=args: gs.gru_cell_step_fwd(
+                                    a[0], st, *a[2:]), args[1], T),
+                                carried(lambda st, a=args: gs.gru_cell_step_reference(
+                                    a[0], st, *a[2:]), args[1], T), T)
+                        with torch.enable_grad():
+                            grads(f"T {tag}", lambda *a: gs.gru_cell_step(*a),
+                                  gs.gru_cell_step_reference, args, rows)
+                        xin = gs.gru_cell_step_reference(*args)
+                # --- T xp on each encoder layer
+                ref = lambda x, h0, w, b, u: gl.gru_layer_reference(x, h0, w, b, u, "tanh", True)  # noqa: E731
+                for name, x, p in encoder_layers(gru_cfg, gru.params["encoder"], batch, rows, ref):
+                    T = x.shape[0]
+                    h0 = torch.zeros(rows, H, device=dev)
+                    xp = (x.reshape(T * rows, -1) @ p["w"] + p["b"]).reshape(T, rows, 3 * H)
+                    args = (xp[0], 0.5 * torch.tanh(torch.randn(rows, H, generator=gen,
+                                                                device=dev)), p["u"])
+                    tag = f"H={H} {name}"
+                    out = run(f"T xp {tag} xp{tuple(xp.shape)}",
+                              lambda a=args: gs.gru_recurrent_step_fwd(*a),
+                              lambda a=args: gs.gru_recurrent_step_reference(*a), [H_ATOL],
+                              flops=2 * rows * p["u"].numel(), inputs=args)
+                    if timed:
+                        results["gru_step_xp" + suffix][name] = loop_times(
+                            f"T xp {tag}", out,
+                            carried(lambda st, x_t: gs.gru_recurrent_step_fwd(x_t, st, p["u"]),
+                                    h0, T, xp),
+                            carried(lambda st, x_t: gs.gru_recurrent_step_reference(
+                                x_t, st, p["u"]), h0, T, xp), T)
+                    if name == "notes_l2":
+                        with torch.enable_grad():
+                            grads(f"T xp {tag}", lambda *a: gs.gru_recurrent_step(*a),
+                                  gs.gru_recurrent_step_reference, args, rows)
+                # --- S xp on each LSTM encoder layer
+                lbatch = {k: torch.as_tensor(v, device=dev)
+                          for k, v in random_batch(lstm_cfg, rows, 13).items()}
+                ref = lambda x, h0, w, b, u: ll.lstm_layer_reference(  # noqa: E731
+                    x, h0, h0, w, b, u, "tanh", True)
+                for name, x, p in encoder_layers(lstm_cfg, lstm.params["encoder"], lbatch, rows,
+                                                 ref):
+                    T = x.shape[0]
+                    h0 = torch.zeros(rows, H, device=dev)
+                    xp = (x.reshape(T * rows, -1) @ p["w"] + p["b"]).reshape(T, rows, 4 * H)
+                    state = [0.5 * torch.tanh(torch.randn(rows, H, generator=gen, device=dev))
+                             for _ in range(2)]
+                    args = (xp[0], *state, p["u"])
+                    tag = f"H={H} {name}"
+                    out = run(f"S xp {tag} xp{tuple(xp.shape)}",
+                              lambda a=args: ls.lstm_recurrent_step_fwd(*a),
+                              lambda a=args: ls.lstm_recurrent_step_reference(*a),
+                              [L_H_ATOL, C_ATOL], flops=2 * rows * p["u"].numel(), inputs=args)
+                    if timed:
+                        eye, ut = torch.eye(4 * H, device=dev), p["u"].t().contiguous()
+                        zero = torch.zeros(4 * H, device=dev)
+                        check(f"torch.lstm_cell S xp {tag}",
+                              lambda: torch.lstm_cell(args[0], tuple(state), eye, ut, zero, zero),
+                              lambda: ls.lstm_recurrent_step_reference(*args), [H_ATOL, C_ATOL])
+                        results["lstm_step_xp" + suffix][name] = loop_times(
+                            f"S xp {tag}", out,
+                            carried(lambda hc, x_t: ls.lstm_recurrent_step_fwd(x_t, *hc, p["u"]),
+                                    (h0, h0), T, xp),
+                            carried(lambda hc, x_t: ls.lstm_recurrent_step_reference(
+                                x_t, *hc, p["u"]), (h0, h0), T, xp), T,
+                            carried(lambda hc, x_t: torch.lstm_cell(x_t, hc, eye, ut, zero, zero),
+                                    (h0, h0), T, xp))
+                        results["lstm_step_xp" + suffix][name]["library_note"] = (
+                            "torch.lstm_cell with w_ih = I (4H x 4H): one product more than S xp")
+                    if name == "notes_l2":
+                        with torch.enable_grad():
+                            grads(f"S xp {tag}", lambda *a: ls.lstm_recurrent_step(*a),
+                                  ls.lstm_recurrent_step_reference, args, rows)
+    print(f"[step kernels] T, T xp and S xp at H = 256 and 512, and their gradients, also agree "
+          f"at B = {RAGGED}")
+    return results
+
+
+def phase_gru_3layer_serving(work, smi):
+    """A GRU run with a 3-layer notes head (Config(num_layers_decoder=3),
+    seeded init) served through the transfer CLI on 2 authored songs: kernel
+    T runs the notes head, 3 cells x 64 steps per call, B the velocity and
+    instrument heads; then one transfer batch card against CPU."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+
+    from midi_vae_tpu_torch import bridge
+    from midi_vae_tpu_torch.cli import transfer
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.data import smf
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.training.checkpoint import save_run
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import make_demo_corpus as corpus
+
+    cfg = Config(num_layers_decoder=3)
+    run = os.path.join(work, "run")
+    save_run(run, cfg, bridge.to_tree(MidiVAE(cfg).params))
+    songs = os.path.join(work, "songs")
+    os.makedirs(songs)
+    rng = np.random.RandomState(5)
+    inputs = []
+    for i in range(2):
+        inputs.append(os.path.join(songs, f"song{i}.mid"))
+        corpus.make_song(corpus.STYLES["style1"], rng).write(inputs[-1])
+    out = os.path.join(work, "out")
+    reset_counters()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        rc = transfer.main(["--model", run, "--input", *inputs, "--to-class", "style2", "--output",
+                            out, "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    launches = read_counters()
+    want = {"gru_layer_fwd": 4 * len(inputs), "gru_decode": 2 * len(inputs),
+            "gru_step": 3 * cfg.output_length * len(inputs)}
+    if rc != 0 or launches != want:
+        raise RuntimeError(f"transfer with a 3-layer notes head: rc {rc}, launches {launches} "
+                           f"(expected {want})\n{buf.getvalue()}")
+    for path in sorted(os.listdir(out)):
+        if not smf.read_midi(os.path.join(out, path)).instruments:
+            raise RuntimeError(f"{path} (3-layer notes head) parsed back with no instruments")
+    print(f"[3-layer head] transfer CLI on {len(inputs)} songs in {secs:.2f} s; launches "
+          f"{launches} (as designed)")
+    return launches, phase_card_vs_cpu(smi, "GRU", {"num_layers_decoder": 3})
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    smi = phase_device()
+    import torch
+
+    from midi_vae_tpu_torch.config import Config, parse_overrides
     from midi_vae_tpu_torch import use_exact_f32
 
     use_exact_f32()
@@ -1823,16 +2091,34 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         judge_paths, judge_steps = phase_judge_training(work, smi)
     paths.update(judge_paths)
+    # the per-step cells (T, T xp, S xp) and the configs that run them
+    results.update(phase_step_kernels())
+    per_step_configs = (
+        # Python literals: parse_overrides reads "false" as a (truthy) string
+        ("train_merge", "merge", ["merge_decoder_scans=True"]),
+        ("train_no_fused_train", "no_fused_train",
+         ["fused_train_encoder=False", "fused_train_decoder=False"]),
+        ("train_lstm_no_fused_encoder", "lstm_no_fused_encoder",
+         ["cell_type=LSTM", "fused_train_encoder=False"]))
+    for path, key, sets in per_step_configs:
+        with tempfile.TemporaryDirectory() as work:
+            paths[path] = phase_train_slice(work, sets, key)
+    per_step_steps = {key: phase_train_card_vs_cpu(smi, Config(**parse_overrides(sets)),
+                                                   PER_TRAIN_STEP[key], f"{key} train")
+                      for _, key, sets in per_step_configs}
+    with tempfile.TemporaryDirectory() as work:
+        paths["transfer_gru_3layer"], serving["GRU_3layer"] = phase_gru_3layer_serving(work, smi)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
     # letter, source, replaces, also replaces (midi_vae_tpu/ops/...); "ms",
     # "plain_ms", "bound_ms" and "library_ms" are summed over the kernel's
     # calls in one transfer (A, B, L, M) or one training step (C to G, N to
-    # S, W) of B windows, at GRU(256) for A to E, GRU(512) for F, G and the
-    # wide builds, LSTM(256) for L, M, N and S (S: per-launch times x the
-    # step's 196 launches), LSTM(512) for Q and R; "launches" over the main
-    # paths' runs
+    # S, W, S xp, T, T xp) of B windows, at GRU(256) for A to E, T and T xp
+    # (T: the four head cells of a fused_train_decoder=False step, T xp: its
+    # four encoder layers, each cell's loop in one window), GRU(512) for F, G
+    # and the wide builds, LSTM(256) for L, M, N, S and S xp, LSTM(512) for Q
+    # and R; "launches" over the main paths' runs
     meta = {
         "gru_layer_fwd": ("A", "gru_layer_fwd.cu", "fused_train.py:2057", ["fused_train.py:2919"]),
         "gru_decode": ("B", "gru_decode.cu", "fused_decoder.py:61", ["fused_decoder.py:95"]),
@@ -1874,6 +2160,12 @@ def main() -> int:
                               ["fused_train.py:1922"]),
         # row 30: _lstm_full_kernel through _lstm_step_pallas
         "lstm_step": ("S", "lstm_step.cu", "fused_lstm.py:67", ["fused_lstm.py:98"]),
+        # row 31: _lstm_recurrent_kernel through _lstm_recurrent_pallas
+        "lstm_step_xp": ("S xp", "lstm_step.cu", "fused_lstm.py:78", ["fused_lstm.py:126"]),
+        # row 28: _gru_full_kernel through _gru_step_pallas
+        "gru_step": ("T", "gru_step.cu", "fused_gru.py:54", ["fused_gru.py:95"]),
+        # row 29: _gru_recurrent_kernel through _gru_recurrent_pallas
+        "gru_step_xp": ("T xp", "gru_step.cu", "fused_gru.py:71", ["fused_gru.py:117"]),
     }
     # per kernel: the calls of one step or transfer at other shapes
     extra = {"gru_layer_fwd": [("ms_h512", "gru_layer_512")],
@@ -1883,7 +2175,10 @@ def main() -> int:
                              ("ms_lstm_512_step", "grad_reduce_lstm_wide")],
              "gru_layer_xp_fwd": [("ms_h256", "xp_h256_fwd")],
              "gru_layer_xp_bwd": [("ms_h256", "xp_h256_bwd")],
-             "lstm_layer_fwd": [("ms_train_step", "lstm_layer_train_fwd")]}
+             "lstm_layer_fwd": [("ms_train_step", "lstm_layer_train_fwd")],
+             "lstm_step_xp": [("ms_h512", "lstm_step_xp_512")],
+             "gru_step": [("ms_h512", "gru_step_512")],
+             "gru_step_xp": [("ms_h512", "gru_step_xp_512")]}
     kernels = []
     for name, (letter, source, replaces, also) in meta.items():
         per_call = results[name]
@@ -1902,8 +2197,9 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in per_call.values()),
             "bound_ms": bound_ms, "bound_by": bound_by,
             # one PyTorch call of the same function: cuBLAS's a.t() @ b for W,
-            # cuDNN's LSTM for L, N, Q and R, torch.lstm_cell for S; none for
-            # the GRU kernels (nn.GRU is reset-after) and the decode kernels
+            # cuDNN's LSTM for L, N, Q and R, torch.lstm_cell for S and S xp
+            # (with w_ih = I: one product more); none for the GRU kernels
+            # (nn.GRU, torch.gru_cell are reset-after) and the decode kernels
             # (no call feeds back outputs)
             "library_ms": sum(library) if None not in library else None,
             "calls": per_call,
@@ -1916,12 +2212,16 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], *(r["max_abs_err"] for r in calls.values()))
             entry["calls_" + key.removeprefix("ms_")] = calls
         kernels.append(entry)
+    wall_s = time.perf_counter() - t_start
+    print(f"[done] every phase passed in {wall_s:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels, "train_step": step, "train_step_512": wide_step,
                       "train_step_teacher_force": tf_step, "serving": serving,
                       "judges_card_vs_cpu": judges, "train_step_lstm": lstm_steps[256],
                       "train_step_lstm_512": lstm_steps[512], "judge_train_step": judge_steps,
-                      "lstm_fwd_bwd_vs_cudnn": results["lstm_fwd_bwd_vs_cudnn"], "power": smi}))
+                      "train_step_per_step_cells": per_step_steps,
+                      "lstm_fwd_bwd_vs_cudnn": results["lstm_fwd_bwd_vs_cudnn"], "power": smi,
+                      "wall_s": wall_s}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

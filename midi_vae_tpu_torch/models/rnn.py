@@ -7,13 +7,17 @@ switch is on, or on the training path as the differentiable
 ``gru_layer_train_x`` (kernels A, C and W) or ``lstm_layer_train_x``
 (kernels L, N and W) or, on the wide route (``ops/_layout.py``), xp = x @ W
 + b in torch.matmul and ``gru_layer_train`` (kernels F, G and W) or
-``lstm_layer_train`` (kernels Q, R and W) over it, else the plain per-step
-cell scan; ``init_decoder_states`` is plain dense + activation;
+``lstm_layer_train`` (kernels Q, R and W) over it, or with ``per_step``
+(``fused_train_encoder=False``) xp in one matmul and the per-step cell over
+it (kernel T xp or S xp), else the plain per-step cell scan;
+``init_decoder_states`` is plain dense + activation;
 ``decode_autoregressive`` is the readout loop that feeds each step's
 activated output back as the next input, each cell through ``step`` when
-given (an LSTM head's kernel S, the JAX package's ``fused_step``) or the
-plain cell, or with ``ground_truth`` the plain teacher-forced scan (heads
-that the decode kernels take never reach it on the kernel path).
+given (kernel T or S, the JAX package's ``fused_step``) or the plain cell,
+or with ``ground_truth`` the plain teacher-forced scan (heads that the
+decode kernels take never reach it on the kernel path);
+``decode_heads_merged`` runs several heads in one loop, each cell through
+``step`` too.
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ from typing import Any
 import torch
 
 from ..ops.gru_layer import gru_layer, gru_layer_train, gru_layer_train_x
+from ..ops.gru_step import gru_recurrent_step
 from ..ops.lstm_layer import lstm_layer, lstm_layer_train, lstm_layer_train_x
+from ..ops.lstm_step import lstm_recurrent_step
 from .cells import activation_fn, dense_apply, gate_activation_fn, get_cell, zero_states
 
 Params = dict[str, Any]
@@ -32,13 +38,14 @@ Params = dict[str, Any]
 def encode_sequence(layer_params, xs: torch.Tensor, cell_type: str, activation: str = "tanh",
                     bidirectional: bool = False, kernels: bool = False,
                     gate_activation: str = "sigmoid", train: bool = False,
-                    wide: bool = False) -> torch.Tensor:
+                    wide: bool = False, per_step: bool = False) -> torch.Tensor:
     """Run a stacked RNN over (B, T, D); return the last layer's final h (B, H).
 
     All layers but the last return sequences; ``bidirectional`` wraps the
     non-final layers in forward + backward passes with concat merge.
     ``train`` (with ``kernels``) takes the differentiable training layer,
-    over a precomputed x-projection when ``wide``."""
+    over a precomputed x-projection when ``wide``; ``per_step`` (with
+    ``kernels``) the per-step cell over it."""
     cell = get_cell(cell_type)
     h = xs
     n_layers = len(layer_params)
@@ -46,19 +53,19 @@ def encode_sequence(layer_params, xs: torch.Tensor, cell_type: str, activation: 
         is_last = i == n_layers - 1
         if bidirectional and not is_last:
             fwd = _scan_layer(cell, p["fwd"], h, activation, True, kernels, gate_activation, train,
-                              wide)
+                              wide, per_step)
             bwd = _scan_layer(cell, p["bwd"], h.flip(1), activation, True, kernels,
-                              gate_activation, train, wide).flip(1)
+                              gate_activation, train, wide, per_step).flip(1)
             h = torch.cat([fwd, bwd], dim=-1)
         else:
             h = _scan_layer(cell, p, h, activation, not is_last, kernels, gate_activation, train,
-                            wide)
+                            wide, per_step)
     return h
 
 
 def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_sequences: bool,
                 kernels: bool = False, gate_activation: str = "sigmoid", train: bool = False,
-                wide: bool = False):
+                wide: bool = False, per_step: bool = False):
     """One RNN layer over (B, T, D): one kernel-A call when ``kernels`` (GRU
     cells with sigmoid gates), the training layer (kernels A, C, W) when
     ``train`` too, or with ``wide`` xp = x @ W + b and kernels F, G, W (the
@@ -67,10 +74,23 @@ def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_seque
     training layer (kernels L, N, W) or with ``wide`` kernels Q, R, W
     (``_lstm_layer_fallback_x``, :2559-2565); other LSTM cell activations
     take the plain scan on any device (``_lstm_x_use_pallas``,
-    ``_lstm_mode``); else the plain cell scan."""
+    ``_lstm_mode``); with ``per_step`` xp = x @ W + b in one matmul and
+    kernel T xp (GRU) or S xp (LSTM) per step over it, any cell activation
+    (``rnn.py:184-200``); else the plain cell scan."""
     B, T, _ = xs.shape
     hidden = p["u"].shape[0]
     init = zero_states(cell, B, hidden, xs)
+    if kernels and per_step:
+        xp = (xs.transpose(0, 1).reshape(T * B, -1) @ p["w"] + p["b"]).reshape(T, B, -1)
+        states, outs = init, []
+        for t in range(T):
+            if cell.num_states == 2:
+                states = lstm_recurrent_step(xp[t], *states, p["u"], activation)
+            else:
+                states = (gru_recurrent_step(xp[t], *states, p["u"], activation),)
+            if return_sequences:
+                outs.append(states[0])
+        return torch.stack(outs, dim=1) if return_sequences else states[0]
     if kernels and train and (cell.num_states == 1 or activation == "tanh"):
         x = xs.transpose(0, 1).contiguous()
         if wide:
@@ -124,39 +144,64 @@ def decode_autoregressive(cell_params, out_dense: Params, initial_states, start:
                           output_length: int, cell_type: str, lstm_activation: str = "tanh",
                           out_activation: str = "softmax", gate_activation: str = "sigmoid",
                           ground_truth: torch.Tensor | None = None, step=None):
-    """Readout loop: output_t feeds back as input_{t+1}; with
-    ``ground_truth`` (B, T, out_dim), step t > 0 consumes ground_truth[t-1]
-    instead (teacher forcing, always the plain cells: the JAX
-    teacher-forced scan ignores ``fused_step``, ``rnn.py:276-297``).
-    ``step(params, x, states) -> (out, states)`` replaces the plain cell of
-    the fed-back loop (``fused_step``, ``rnn.py:299-312``).
+    """Readout loop: output_t feeds back as input_{t+1} (one head of
+    ``decode_heads_merged``); with ``ground_truth`` (B, T, out_dim), step
+    t > 0 consumes ground_truth[t-1] instead (teacher forcing, always the
+    plain cells: the JAX teacher-forced scan ignores ``fused_step``,
+    ``rnn.py:276-297``). ``step(params, x, states) -> (out, states)``
+    replaces the plain cell of the fed-back loop (``fused_step``,
+    ``rnn.py:299-312``).
 
     Returns (probs, logits), both (B, T, out_dim)."""
+    if ground_truth is None:
+        head = {"cells": cell_params, "out": out_dense, "init_states": initial_states,
+                "start": start, "out_activation": out_activation}
+        return decode_heads_merged({"head": head}, output_length, cell_type, lstm_activation,
+                                   step, gate_activation)["head"]
     cell = get_cell(cell_type)
     act = activation_fn(lstm_activation)
     gact = gate_activation_fn(gate_activation)
-    out_act = activation_fn(out_activation)
-    if ground_truth is not None:
-        states = list(initial_states)
-        logits = []
-        for t in range(output_length):
-            out = start if t == 0 else ground_truth[:, t - 1]
-            for i, p in enumerate(cell_params):
-                out, states[i] = cell.step(p, cell.x_proj(p, out), states[i], act, gact)
-            logits.append(dense_apply(out_dense, out))
-        logits = torch.stack(logits, dim=1)
-        return out_act(logits), logits
+    states = list(initial_states)
+    logits = []
+    for t in range(output_length):
+        out = start if t == 0 else ground_truth[:, t - 1]
+        for i, p in enumerate(cell_params):
+            out, states[i] = cell.step(p, cell.x_proj(p, out), states[i], act, gact)
+        logits.append(dense_apply(out_dense, out))
+    logits = torch.stack(logits, dim=1)
+    return activation_fn(out_activation)(logits), logits
+
+
+def decode_heads_merged(heads: dict, output_length: int, cell_type: str,
+                        lstm_activation: str = "tanh", step=None,
+                        gate_activation: str = "sigmoid") -> dict:
+    """Several readout decoders in one loop (``rnn.py:320-377``): the carry
+    holds every head's states and previous output, each step runs every
+    head's cells (through ``step`` when given, the JAX package's
+    ``fused_step``) and readout in turn. The heads share no state, so each
+    head's result is that of decoding it alone (``decode_autoregressive``
+    is the one-head case).
+
+    heads: name -> dict(cells, out, init_states, start, out_activation), all
+    over ``output_length`` steps. Returns name -> (probs, logits), each (B,
+    T, dim)."""
+    cell = get_cell(cell_type)
+    act = activation_fn(lstm_activation)
+    gact = gate_activation_fn(gate_activation)
     if step is None:
         def step(p, x, s):
             return cell.step(p, cell.x_proj(p, x), s, act, gact)
-    states = list(initial_states)
-    out = start
-    probs, logits = [], []
+    out_acts = {n: activation_fn(h["out_activation"]) for n, h in heads.items()}
+    carry = {n: (list(h["init_states"]), h["start"]) for n, h in heads.items()}
+    seqs = {n: ([], []) for n in heads}
     for _ in range(output_length):
-        for i, p in enumerate(cell_params):
-            out, states[i] = step(p, out, states[i])
-        lg = dense_apply(out_dense, out)
-        out = out_act(lg)
-        probs.append(out)
-        logits.append(lg)
-    return torch.stack(probs, dim=1), torch.stack(logits, dim=1)
+        for n, h in heads.items():
+            states, out = carry[n]
+            for i, p in enumerate(h["cells"]):
+                out, states[i] = step(p, out, states[i])
+            lg = dense_apply(h["out"], out)
+            out = out_acts[n](lg)
+            carry[n] = (states, out)
+            seqs[n][0].append(out)
+            seqs[n][1].append(lg)
+    return {n: (torch.stack(p, dim=1), torch.stack(lg, dim=1)) for n, (p, lg) in seqs.items()}

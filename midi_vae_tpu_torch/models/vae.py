@@ -11,28 +11,36 @@ The kernel switch ``kernels_enabled`` mirrors ``MidiVAE._pallas_enabled``:
 cells with sigmoid gates take, when serving, kernel A (GRU) or kernel L
 (LSTM, tanh cells: ``_lstm_x_use_pallas``) per encoder layer and kernel B
 (GRU) or kernel M (LSTM) per 1- or 2-layer decode head with a softmax,
-sigmoid or linear output; an LSTM head that M does not take (3 layers, or
-another output activation) runs kernel S per cell and step, as the JAX
-package runs ``_lstm_full_kernel`` there. The wrappers run their plain
+sigmoid or linear output; a head those do not take (3 layers, or another
+output activation) runs kernel T (GRU) or S (LSTM) per cell and step, as the
+JAX package runs its ``fused_step`` there. The wrappers run their plain
 versions on CPU tensors. Configs the JAX package runs as plain scans
 (``gate_activation='hard_sigmoid'``, ``cell_type='SimpleRNN'``,
-``use_pallas='off'``) keep the plain path on any device. The training path
-(``inference=False``) takes the differentiable kernel ops instead
-(``train_kernels_enabled``), along the route ``ops/_layout.py`` picks from
-the card's limits (``train_route``). GRU: on the narrow route (GRU(256))
-``gru_layer_train_x`` per encoder layer, ``gru_decode_multihead_train`` for
-the notes head with its T-length side heads and ``gru_decode_train`` for the
-other heads; on the wide route (GRU(512)) ``gru_layer_train`` over
-xp = x @ W + b per layer and every head through ``gru_decode_train`` on its
-own. LSTM: ``lstm_layer_train_x`` (narrow, LSTM(256)) or ``lstm_layer_train``
-over xp (wide) per encoder layer, and every head step by step through
-``lstm_cell_step`` (kernel S), whose backward is the plain version's, as the
-JAX package's whole-head training kernels are GRU-only (``models/vae.py:504-511``,
-``:560-569``) and its LSTM heads take ``fused_step``. A teacher-forced head
-takes the plain scan; non-tanh encoder cells too, and GRU heads with them, as
-in the JAX package. Paths whose kernels are not ported yet raise
-NotImplementedError on CUDA, naming their row of the kernel table (PERF.md,
-ROADMAP.md Queue 2); on the CPU they run the plain path through autograd.
+``use_pallas='off'``) keep the plain path on any device.
+
+The training path (``inference=False``) decides each part on its own, as the
+JAX package does (``train_kernels``): the per-step cells T, T xp, S and S xp
+take any of tanh, sigmoid and relu; the whole-layer and whole-head training
+kernels take tanh cells only, along the route ``ops/_layout.py`` picks from
+the card's limits (``train_route``). Encoder layers: with
+``fused_train_encoder`` (the default) the whole-layer kernels (GRU
+``gru_layer_train_x``, A + C + W, or on the wide route ``gru_layer_train``
+over xp = x @ W + b, F + G + W; LSTM ``lstm_layer_train_x``, L + N + W, or
+``lstm_layer_train``, Q + R + W) or, for other cell activations, the plain
+scan; without it xp in one matmul and T xp or S xp per step. GRU decode
+heads: with ``fused_train_decoder`` the notes head and its T-length side
+heads in one multi-head call (narrow route), every other 1- or 2-layer head
+with a softmax, sigmoid or linear output through ``gru_decode_train`` (D +
+E, or their wide builds), the plain scan where those kernels do not take the
+head (3 layers, other cell activations: ``_dec_mode``), and T per cell and
+step for other output activations; ``merge_decoder_scans`` runs the T-length
+heads in one loop (``decode_heads_merged``) through T, and
+``fused_train_decoder=False`` every head through T. LSTM heads run S per
+cell and step (the JAX package has no LSTM whole-head training kernel),
+merged or not. Teacher-forced heads take the plain scan. Paths whose kernels
+are not ported yet raise NotImplementedError on CUDA, naming their row of
+the kernel table or their ROADMAP item (``unported_training``); on the CPU
+they run the plain path through autograd.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from torch import nn
 
 from .. import bridge
 from ..config import Config
-from ..ops import _layout
+from ..ops import _layout, gru_step, lstm_step
 from ..ops.gru_decode import (
     OUT_ACTIVATIONS,
     gru_decode,
@@ -54,37 +62,58 @@ from ..ops.gru_decode import (
 )
 from ..ops.gru_layer import CELL_ACTIVATIONS
 from ..ops.lstm_decode import lstm_decode
-from ..ops.lstm_step import make_decoder_step
 from .cells import activation_fn, dense_apply, dense_init, get_cell, glorot_uniform, split_keys
-from .rnn import decode_autoregressive, encode_sequence, init_decoder_states
+from .rnn import decode_autoregressive, decode_heads_merged, encode_sequence, init_decoder_states
 
 Params = dict[str, Any]
 
 
+def _side_heads(cfg: Config) -> list[tuple[str, int, str]]:
+    """(name, width, output activation) of the T-length side heads that ride
+    in the notes head's multi-head call (``_decode_multihead_train``)."""
+    return [(n, d, a) for flag, n, d, length, a in (
+        (cfg.meta_velocity, "velocity", 1, cfg.meta_velocity_length,
+         cfg.meta_velocity_activation),
+        (cfg.meta_held_notes, "held", 2, cfg.meta_held_notes_length,
+         cfg.meta_held_notes_activation),
+    ) if flag and length == cfg.output_length and a in OUT_ACTIVATIONS]
+
+
+def _multihead(cfg: Config, route: str | None) -> bool:
+    """Whether the training decode runs the multi-head call when the notes
+    head is not teacher-forced: GRU, tanh, ``fused_train_decoder``, not
+    merged, a 2-layer notes head with a softmax, sigmoid or linear output
+    and a T-length side head, on the narrow route (``models/vae.py:560-572``,
+    ``_mh_use_pallas``)."""
+    return (cfg.cell_type == "GRU" and cfg.lstm_activation == "tanh" and cfg.fused_train_decoder
+            and not cfg.merge_decoder_scans and cfg.num_layers_decoder == 2
+            and cfg.activation in OUT_ACTIVATIONS and bool(_side_heads(cfg))
+            and route == "narrow")
+
+
 def unported_training(cfg: Config) -> str | None:
     """Why the training kernels cannot run ``cfg`` on CUDA yet (the rows of
-    the kernel table it waits for), or None when they can."""
-    if cfg.cell_type == "LSTM":
+    the kernel table or the ROADMAP item it waits for), or None when they
+    can."""
+    lstm = cfg.cell_type == "LSTM"
+    if cfg.compute_dtype == "bfloat16":
         if not cfg.fused_train_encoder:
-            return ("LSTM training with fused_train_encoder=False runs the per-step cell "
-                    "_lstm_recurrent_kernel (Queue 2 row 31) or, in bfloat16, the whole-scan "
-                    "_encoder_kernel (rows 32 and 33), not yet ported")
-        if cfg.compute_dtype == "bfloat16":
+            rows = "32 and 33" if lstm else "26 and 27"
+            return (f"bfloat16 training with fused_train_encoder=False runs the whole-scan "
+                    f"encoder kernel _encoder_kernel (rows {rows}) in bfloat16, not yet ported "
+                    "(Queue 1 item 2)")
+        if lstm:
             # with the train kernels on, the JAX package keeps them in bf16
-            # (whole_scan, rows 32 and 33, needs fused_train_encoder=False)
             return ("bfloat16 LSTM training not yet ported: the JAX package runs its LSTM "
                     "training kernels (rows 15-20 and 30) in bfloat16, the port's run float32 "
-                    "(Queue 1 item 15)")
-        # the JAX package decodes LSTM heads step by step whatever
-        # merge_decoder_scans and fused_train_decoder say (vae.py:442-451)
-        return None
-    if cfg.compute_dtype == "bfloat16":
+                    "(Queue 1 item 2)")
         return ("bfloat16 training not yet ported: the training kernels run float32 "
-                "(Queue 1 item 15)")
-    if cfg.merge_decoder_scans or not cfg.fused_train_encoder or not cfg.fused_train_decoder:
-        return ("merge_decoder_scans / fused_train_encoder=False / fused_train_decoder=False "
-                "run the per-step GRU cells _gru_full_kernel and _gru_recurrent_kernel "
-                "(Queue 2 rows 28 and 29), not yet ported")
+                "(Queue 1 item 2)")
+    if (cfg.decode_residual_bf16 and not cfg.teacher_force
+            and _multihead(cfg, _layout.config_route(cfg, on_card=False))):
+        return ("decode_residual_bf16 keeps the multi-head decode kernel's residuals in "
+                "bfloat16 (models/vae.py:395-401); kernels D and E keep them in float32 "
+                "(Queue 1 item 2)")
     return None
 
 
@@ -129,52 +158,53 @@ class MidiVAE(nn.Module):
                             device: torch.device) -> bool:
         """Whether a serving decode head goes through its decode kernel (B
         for GRU, M for LSTM: 1- or 2-layer heads with a softmax, sigmoid or
-        linear output). An LSTM head M does not take runs kernel S step by
-        step (``decode_step``), as the JAX package runs ``_lstm_full_kernel``
-        there (``models/vae.py:522-534``); on CUDA such a GRU head raises
-        NotImplementedError naming its row of the kernel table
-        (``_gru_full_kernel``, row 28), and on the CPU it takes the plain
-        scan."""
+        linear output). A head they do not take runs kernel T (GRU) or S
+        (LSTM) step by step (``decode_step``), as the JAX package runs its
+        ``fused_step`` there (``models/vae.py:522-534``)."""
         if not self.kernels_enabled(device):
             return False
-        if n_layers in (1, 2) and out_activation in OUT_ACTIVATIONS:
-            return True
-        if device.type == "cuda" and self.cfg.cell_type == "GRU":
-            raise NotImplementedError(
-                f"per-step GRU kernels (head {name!r}: {n_layers} layers, {out_activation!r} "
-                "output; Queue 2 row 28) not yet ported")
-        return False
+        return n_layers in (1, 2) and out_activation in OUT_ACTIVATIONS
 
     def decode_step(self, kernels: bool):
-        """The per-step cell of ``decode_autoregressive``: kernel S for LSTM
-        heads when ``kernels`` (the JAX package's ``fused_step``), else None
+        """The per-step cell of ``decode_autoregressive`` and
+        ``decode_heads_merged`` when ``kernels`` (the JAX package's
+        ``fused_step``): kernel T for GRU heads, S for LSTM heads; else None
         (the plain cells)."""
-        if kernels and self.cfg.cell_type == "LSTM":
-            return make_decoder_step(self.cfg.lstm_activation)
-        return None
+        if not kernels:
+            return None
+        ops = lstm_step if self.cfg.cell_type == "LSTM" else gru_step
+        return ops.make_decoder_step(self.cfg.lstm_activation)
 
-    def train_kernels_enabled(self, device: torch.device) -> bool:
-        """Whether the training path takes the differentiable kernel ops. On
-        CUDA a config whose training kernels are not ported yet raises
-        NotImplementedError (``unported_training``); on the CPU it runs the
-        plain path through autograd."""
+    def train_kernels(self, device: torch.device) -> tuple[bool, bool]:
+        """(steps, layers) of the training path; each part of the step then
+        decides on its own, as the JAX package does. ``steps``: the per-step
+        cells T, T xp, S and S xp run where the JAX package runs its
+        ``fused_step`` and per-step encoder cells (tanh, sigmoid or relu).
+        ``layers``: the whole-layer and whole-head training kernels (A to G,
+        L, N, Q, R) take the part; they hard-code tanh's derivative, and the
+        JAX package sends other cell activations to the plain scans
+        (``_x_use_pallas`` fused_train.py:2269, ``_dec_mode`` :981,
+        ``_mh_use_pallas`` :3456, ``_lstm_x_use_pallas`` :2546). On CUDA a
+        config whose kernels are not ported yet raises NotImplementedError
+        (``unported_training``); on the CPU it runs the plain path."""
         if not self.kernels_enabled(device):
-            return False
+            return False, False
         reason = unported_training(self.cfg)
         if reason is not None:
             if device.type == "cuda":
-                # the JAX package runs per-step or whole-scan kernels on these
-                # configs whatever the cell activation (models/vae.py:442-451,
-                # rnn.py:110-111, :165-179)
                 raise NotImplementedError(reason)
-            return False
-        # the whole-layer and GRU decode training kernels hard-code tanh's
-        # derivative; with the default fused flags the JAX package sends
-        # other cell activations to the plain scans, the encoder
-        # (fused_train.py:2269, :1668, :2546) and the GRU decode heads
-        # (:3456, :981) alike, while its LSTM heads take the per-step kernel
-        # whatever the activation (models/vae.py:442-451)
-        return self.cfg.lstm_activation == "tanh" or self.cfg.cell_type == "LSTM"
+            return False, False
+        return True, self.cfg.lstm_activation == "tanh"
+
+    def train_kernels_enabled(self, device: torch.device) -> bool:
+        """Whether the flags send any part of the training step through a
+        kernel: the whole-layer and whole-head kernels (tanh cells), the
+        LSTM heads' S, or the per-step cells that ``merge_decoder_scans`` and
+        ``fused_train_*=False`` select (``train_kernels``)."""
+        steps, layers = self.train_kernels(device)
+        cfg = self.cfg
+        return steps and (layers or cfg.cell_type == "LSTM" or cfg.merge_decoder_scans
+                          or not cfg.fused_train_encoder or not cfg.fused_train_decoder)
 
     def train_route(self, device: torch.device) -> str:
         """``"narrow"`` or ``"wide"``: which kernel builds the training step
@@ -281,23 +311,29 @@ class MidiVAE(nn.Module):
         cfg = self.cfg
         enc = (self.params if params is None else params)["encoder"]
         x = batch["X"]
+        train = not inference
+        per_step = wide = False
         if inference:
             kernels = self.kernels_enabled(x.device)
         else:
-            kernels = self.train_kernels_enabled(x.device)
-        train = not inference
-        wide = kernels and train and self.train_route(x.device) == "wide"
+            # fused_train_encoder: the whole-layer kernels (tanh cells) or
+            # the plain scan; without it T xp or S xp per step (rnn.py:139-200)
+            steps, layers = self.train_kernels(x.device)
+            per_step = steps and not cfg.fused_train_encoder
+            kernels = per_step or layers
+            wide = layers and not per_step and self.train_route(x.device) == "wide"
         if cfg.use_embedding:
             x = x @ enc["embedding"]["w"]
         parts = [encode_sequence(enc["notes_rnn"], x, cfg.cell_type, cfg.lstm_activation,
-                                 cfg.bidirectional, kernels, cfg.gate_activation, train, wide)]
+                                 cfg.bidirectional, kernels, cfg.gate_activation, train, wide,
+                                 per_step)]
         for flag, name, key in ((cfg.meta_instrument, "inst_rnn", "I"),
                                 (cfg.meta_velocity, "vel_rnn", "V"),
                                 (cfg.meta_held_notes, "held_rnn", "D")):
             if flag:
                 parts.append(encode_sequence(enc[name], batch[key], cfg.cell_type,
                                              cfg.lstm_activation, False, kernels,
-                                             cfg.gate_activation, train, wide))
+                                             cfg.gate_activation, train, wide, per_step))
         h = parts[0]
         if len(parts) > 1:
             act = activation_fn(cfg.activation_before_splitting)
@@ -385,80 +421,86 @@ class MidiVAE(nn.Module):
         return outputs
 
     def _decode_train(self, dec, new_encoded, z, ground_truth, next_ground_truth) -> dict:
-        """The training decode (``MidiVAE.decode(inference=False)``). GRU: on
-        the narrow route the 2-layer notes head and its T-length side heads in
-        one multi-head call (``_decode_multihead_train``), every other head
-        through ``gru_decode_train``; on the wide route every head on its own
-        through the wide builds (the JAX package when ``_mh_vmem_ok``
-        rejects, ``models/vae.py:392-394``). LSTM: every head one after
-        another, each cell and step through kernel S (``decode_step``; with
-        ``merge_decoder_scans`` too: the same math as the JAX package's
-        merged scan). Teacher-forced heads and the non-kernel configs take
+        """The training decode (``MidiVAE.decode(inference=False)``,
+        ``models/vae.py:442-630``): the multi-head call (``_multihead``) for
+        the notes head and its T-length side heads; with
+        ``merge_decoder_scans`` the T-length heads in one loop
+        (``decode_heads_merged``) through the per-step cell; every other head
+        through ``run_head`` (see the module note). Teacher-forced heads take
         the plain scan."""
         cfg = self.cfg
         B = z.shape[0]
-        kernels = self.train_kernels_enabled(z.device)
+        steps, layers = self.train_kernels(z.device)
         lstm = cfg.cell_type == "LSTM"
-        wide = kernels and not lstm and self.train_route(z.device) == "wide"
-        step = self.decode_step(kernels)
+        route = self.train_route(z.device) if layers and not lstm else None
+        step = self.decode_step(steps)
+        merge = cfg.merge_decoder_scans
         # a teacher-forced notes head scans over known inputs and stays out
-        # of the multi-head call (midi_vae_tpu/models/vae.py:558-569)
+        # of the multi-head call and the merged loop (models/vae.py:558-583)
         notes_tf = cfg.teacher_force and ground_truth is not None
 
-        def spec(name: str, head_dim: int) -> dict:
+        def spec(name: str, head_dim: int, out_activation: str | None = None) -> dict:
             h = dec[name]
             states = init_decoder_states(h["init"], new_encoded, cfg.cell_type,
                                          cfg.lstm_state_activation)
-            return {"cells": list(h["cells"]), "out": h["out"], "states": states,
-                    "init": [s[0] for s in states], "start": z.new_zeros((B, head_dim))}
+            return {"cells": list(h["cells"]), "out": h["out"], "init_states": states,
+                    "init": [s[0] for s in states],
+                    "start": z.new_zeros((B, head_dim)), "out_activation": out_activation}
 
         def run_head(name, head_dim, length, out_activation, gt=None):
             s = spec(name, head_dim)
-            if kernels and gt is None and not lstm:
-                if len(s["cells"]) in (1, 2) and out_activation in OUT_ACTIVATIONS:
-                    probs, logits = gru_decode_train(s["cells"], s["out"], s["init"], s["start"],
-                                                     length, cfg.lstm_activation, out_activation,
-                                                     wide)
-                    return probs.transpose(0, 1), logits.transpose(0, 1)
-                if z.device.type == "cuda":
-                    raise NotImplementedError(
-                        f"per-step GRU kernels (head {name!r}: {len(s['cells'])} layers, "
-                        f"{out_activation!r} output; Queue 2 row 28) not yet ported")
-            args = (s["cells"], s["out"], s["states"], s["start"], length, cfg.cell_type,
+            args = (s["cells"], s["out"], s["init_states"], s["start"], length, cfg.cell_type,
                     cfg.lstm_activation, out_activation, cfg.gate_activation)
             if gt is not None:  # the teacher-forced scan runs the plain cells
                 return decode_autoregressive(*args, gt)
+            if steps and not lstm and cfg.fused_train_decoder and out_activation in OUT_ACTIVATIONS:
+                # gru_decode_train (models/vae.py:504-521): D + E, or the plain
+                # scan where _dec_mode says "scan" (3 layers, non-tanh cells)
+                if layers and len(s["cells"]) in (1, 2):
+                    probs, logits = gru_decode_train(s["cells"], s["out"], s["init"], s["start"],
+                                                     length, cfg.lstm_activation, out_activation,
+                                                     route == "wide")
+                    return probs.transpose(0, 1), logits.transpose(0, 1)
+                return decode_autoregressive(*args)
             return decode_autoregressive(*args, step=step)
 
         outputs: dict = {}
-        if (kernels and not lstm and not wide and not notes_tf and cfg.num_layers_decoder == 2
-                and cfg.activation in OUT_ACTIVATIONS):
-            side = [(n, d, a) for flag, n, d, length, a in (
+        if layers and not notes_tf and _multihead(cfg, route):
+            side = _side_heads(cfg)
+            results = gru_decode_multihead_train(
+                spec("notes", cfg.output_dim), [spec(n, d) for n, d, _ in side],
+                cfg.output_length, cfg.lstm_activation,
+                (cfg.activation, *(a for _, _, a in side)))
+            for name, (probs, logits) in zip(["notes"] + [n for n, _, _ in side], results):
+                outputs[name] = (probs.transpose(0, 1), logits.transpose(0, 1))
+        merged: dict = {}
+        if "notes" not in outputs:
+            if merge and not notes_tf:
+                merged["notes"] = spec("notes", cfg.output_dim, cfg.activation)
+            else:
+                outputs["notes"] = run_head("notes", cfg.output_dim, cfg.output_length,
+                                            cfg.activation, ground_truth if notes_tf else None)
+        for flag, name, d, length, a in (
                 (cfg.meta_velocity, "velocity", 1, cfg.meta_velocity_length,
                  cfg.meta_velocity_activation),
                 (cfg.meta_held_notes, "held", 2, cfg.meta_held_notes_length,
-                 cfg.meta_held_notes_activation),
-            ) if flag and length == cfg.output_length and a in OUT_ACTIVATIONS]
-            if side:
-                results = gru_decode_multihead_train(
-                    spec("notes", cfg.output_dim), [spec(n, d) for n, d, _ in side],
-                    cfg.output_length, cfg.lstm_activation,
-                    (cfg.activation, *(a for _, _, a in side)))
-                for name, (probs, logits) in zip(["notes"] + [n for n, _, _ in side], results):
-                    outputs[name] = (probs.transpose(0, 1), logits.transpose(0, 1))
-        if "notes" not in outputs:
-            outputs["notes"] = run_head("notes", cfg.output_dim, cfg.output_length, cfg.activation,
-                                        ground_truth if notes_tf else None)
-        if cfg.meta_velocity and "velocity" not in outputs:
-            outputs["velocity"] = run_head("velocity", 1, cfg.meta_velocity_length,
-                                           cfg.meta_velocity_activation)
-        if cfg.meta_held_notes and "held" not in outputs:
-            outputs["held"] = run_head("held", 2, cfg.meta_held_notes_length,
-                                       cfg.meta_held_notes_activation)
+                 cfg.meta_held_notes_activation)):
+            if flag and name not in outputs:
+                if merge:
+                    merged[name] = spec(name, d, a)
+                else:
+                    outputs[name] = run_head(name, d, length, a)
         if cfg.meta_next_notes:
             next_tf = cfg.meta_next_notes_teacher_force and next_ground_truth is not None
-            outputs["next"] = run_head("next", cfg.output_dim, cfg.meta_next_notes_output_length,
-                                       cfg.activation, next_ground_truth if next_tf else None)
+            if merge and not next_tf:
+                merged["next"] = spec("next", cfg.output_dim, cfg.activation)
+            else:
+                outputs["next"] = run_head("next", cfg.output_dim,
+                                           cfg.meta_next_notes_output_length, cfg.activation,
+                                           next_ground_truth if next_tf else None)
+        if merged:
+            outputs.update(decode_heads_merged(merged, cfg.output_length, cfg.cell_type,
+                                               cfg.lstm_activation, step, cfg.gate_activation))
         if cfg.meta_instrument:
             outputs["instrument"] = run_head("instrument", cfg.meta_instrument_dim,
                                              cfg.meta_instrument_length,

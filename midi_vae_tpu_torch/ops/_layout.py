@@ -1,6 +1,7 @@
 """Which kernel builds a layer or decode head takes, from the card's limits.
 
-Every kernel of the port (GRU: A to G; LSTM: L, M, N, Q, R, S) runs one
+Every kernel of the port (GRU: A to G, T, T xp; LSTM: L, M, N, Q, R, S,
+S xp) runs one
 thread per hidden column (blockDim.x = H) and keeps a tile of batch rows per
 block, so whether a build launches at a width is a matter of two limits of
 the H100 (sm_90a):
@@ -11,9 +12,11 @@ the H100 (sm_90a):
 
 Kernels A to E, L, M and N are built without launch bounds; their register
 counts (``REGISTERS``, from ``nvcc -Xptxas -v`` on the card; ``chip_smoke.py``
-checks them against the build) decide how wide they go. F, G, Q, R, S and the
-wide decode builds are compiled under ``__launch_bounds__(WIDE_THREADS)``, so
-the compiler guarantees that up to 512 threads launch.
+checks them against the build) decide how wide they go. F, G, Q, R, the
+per-step cells (S, S xp, T, T xp) and the wide decode builds are compiled
+under ``__launch_bounds__(WIDE_THREADS)``, so the compiler guarantees that
+up to 512 threads launch (``chip_smoke.py`` checks their registers from
+ptxas against it).
 
 The training step takes one route for all its layers and heads:
 - ``"narrow"``, the GRU(256) path: A + C per encoder layer (the x-projection
@@ -57,7 +60,7 @@ WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
 # a build's template instances), from nvcc -Xptxas -v for sm_90a
 REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75, "N": 117}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
-BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "R", "S")
+BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "R", "S", "S_xp", "T", "T_xp")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
 LSTM_NARROW_MAX_H = 256
 
@@ -72,7 +75,7 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
                dx: bool = False) -> int:
     """Dynamic shared memory of one block of ``kernel``: D is the layer's
     input width (A, C, L, N), the head's output width (B, D, E, M) or the
-    cell's input width (S)."""
+    cell's input width (S, T)."""
     rows = WIDE_ROWS if kernel.endswith("_wide") else ROWS
     floats = {
         "A": D + 2 * H,
@@ -88,6 +91,9 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
         "Q": 3 * H,  # h twice, c
         "R": 5 * H,  # h_{t-1}, the gate grads (4H)
         "S": D + 3 * H,  # as L
+        "S_xp": 3 * H,  # as Q
+        "T": D + 2 * H,  # x, h, r * h
+        "T_xp": 2 * H,  # h, r * h
     }[kernel.removesuffix("_wide")]
     return 4 * rows * floats
 

@@ -57,8 +57,13 @@ def cell_activation(name: str):
 
 def gru_step(x, h, w, u, b, act):
     """One reset-before GRU step: (B, D), (B, H) -> (B, H)."""
+    return gru_step_xp(x @ w + b, h, u, act)
+
+
+def gru_step_xp(xp, h, u, act):
+    """One reset-before GRU step over its x-projection xp = x @ W + b
+    (B, 3H): (B, H) -> (B, H)."""
     H = h.shape[-1]
-    xp = x @ w + b
     hu_zr = h @ u[:, : 2 * H]
     z = torch.sigmoid(xp[:, :H] + hu_zr[:, :H])
     r = torch.sigmoid(xp[:, H : 2 * H] + hu_zr[:, H:])
@@ -76,15 +81,10 @@ def gru_layer_reference(x, h0, w, b, u, activation="tanh", return_sequences=Fals
 def _scan_xp(xp, h0, u, act, return_sequences):
     """The GRU recurrence over a precomputed x-projection xp (T, B, 3H)
     (``_encoder_scan_reference``)."""
-    H = h0.shape[-1]
     h = h0
     seq = []
     for t in range(xp.shape[0]):
-        hu_zr = h @ u[:, : 2 * H]
-        z = torch.sigmoid(xp[t, :, :H] + hu_zr[:, :H])
-        r = torch.sigmoid(xp[t, :, H : 2 * H] + hu_zr[:, H:])
-        hh = act(xp[t, :, 2 * H :] + (r * h) @ u[:, 2 * H :])
-        h = z * h + (1.0 - z) * hh
+        h = gru_step_xp(xp[t], h, u, act)
         if return_sequences:
             seq.append(h)
     return torch.stack(seq) if return_sequences else h

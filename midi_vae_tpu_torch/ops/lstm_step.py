@@ -1,22 +1,26 @@
-"""Kernel S: one whole LSTM cell step, the per-step cell of the decode heads.
+"""Kernels S and S xp: one LSTM cell step, the per-step cell of the decode
+heads (S) and of the encoder layers that no whole-layer kernel runs (S xp).
 
-Counterpart of ``midi_vae_tpu/ops/fused_lstm.py::lstm_step``, whose Pallas
-kernel ``_lstm_full_kernel`` (through ``_lstm_step_pallas``) the CUDA kernel
-``csrc/lstm_step.cu`` replaces; its source note gives the layout and what
-bounds it. ``lstm_cell_step_reference`` is the plain PyTorch version
-(``_lstm_step_reference``): the CPU path, the kernel's oracle and the
-backward.
+Counterpart of ``midi_vae_tpu/ops/fused_lstm.py``: ``lstm_cell_step`` is its
+``lstm_step`` (:155), whose Pallas kernel ``_lstm_full_kernel`` (through
+``_lstm_step_pallas``) kernel S replaces; ``lstm_recurrent_step`` is its
+``lstm_recurrent_step`` (:181) over a precomputed x-projection, whose
+``_lstm_recurrent_kernel`` (through ``_lstm_recurrent_pallas``) kernel S xp
+replaces. Both live in ``csrc/lstm_step.cu``, whose source note gives the
+layout and what bounds them. ``lstm_cell_step_reference`` and
+``lstm_recurrent_step_reference`` are the plain PyTorch versions
+(``_lstm_step_reference``, ``_lstm_recurrent_reference``): the CPU path,
+the kernels' oracles and the backward.
 
-``lstm_cell_step`` is a ``torch.autograd.Function`` whose forward launches S
-on CUDA tensors (``lstm_cell_step_fwd``; the plain version on CPU tensors)
-and whose backward recomputes the step through the plain version under
-autograd. That is the JAX package's own design, not a fallback: its
-``lstm_step`` custom VJP re-runs ``_lstm_step_reference`` under ``jax.vjp``
-(``_lstm_step_bwd``, :168-174), and XLA computes that backward.
-``make_decoder_step`` adapts it to ``models/rnn.py::decode_autoregressive``
+Each differentiable step is a ``gru_step.RematStep`` whose forward launches
+the kernel on CUDA tensors (the plain version on CPU tensors) and whose
+backward recomputes the step through the plain version under autograd. That
+is the JAX package's own design, not a fallback: its custom VJPs re-run the
+plain step under ``jax.vjp`` (``_lstm_step_bwd`` :168-174,
+``_lstm_recurrent_bwd`` :194-200), and XLA computes that backward.
+``make_decoder_step`` adapts S to ``models/rnn.py::decode_autoregressive``
 (``make_fused_decoder_step``). The cell activation (on g and on c) is tanh,
-sigmoid or relu, as ``_lstm_step_pallas`` takes through
-``fused_gru._activation``.
+sigmoid or relu, as ``fused_gru._activation`` gives it.
 """
 
 from __future__ import annotations
@@ -28,21 +32,29 @@ import torch
 
 from . import _build, _layout
 from .gru_layer import CELL_ACTIVATIONS, _ptr, cell_activation, check_operands
+from .gru_step import RematStep
 from .lstm_layer import _check_shapes, _on, _stream, lstm_step
 
 
 def lstm_cell_step_reference(x, h, c, w, b, u, activation="tanh"):
-    """Plain version: x (B, D), h, c (B, H) -> (h', c')."""
+    """Plain version of S: x (B, D), h, c (B, H) -> (h', c')."""
     return lstm_step(x @ w + b, h, c, u, cell_activation(activation))
 
 
+def lstm_recurrent_step_reference(xp, h, c, u, activation="tanh"):
+    """Plain version of S xp: xp = x @ W + b (B, 4H), h, c (B, H) -> (h',
+    c')."""
+    return lstm_step(xp, h, c, u, cell_activation(activation))
+
+
 @functools.cache
-def _kernel():
+def _kernels():
     lib = _build.load("lstm_step")
-    fn = lib.mvt_lstm_step
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    step, step_xp = lib.mvt_lstm_step, lib.mvt_lstm_step_xp
+    step.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    step_xp.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    step.restype = step_xp.restype = ctypes.c_int
+    return lib, step, step_xp
 
 
 def lstm_cell_step_fwd(x, h, c, w, b, u, activation="tanh"):
@@ -66,7 +78,7 @@ def lstm_cell_step_fwd(x, h, c, w, b, u, activation="tanh"):
     _layout.require("S", H, _layout.smem_bytes("S", H, D))
     h_out = torch.empty(B, H, device=x.device, dtype=torch.float32)
     c_out = torch.empty_like(h_out)
-    lib, fn = _kernel()
+    lib, fn, _ = _kernels()
     rc = fn(_ptr(x), _ptr(h), _ptr(c), _ptr(w), _ptr(b), _ptr(u), _ptr(h_out), _ptr(c_out),
             B, D, H, CELL_ACTIVATIONS[activation], _stream(x))
     _build.check(lib, rc, "lstm_step launch")
@@ -77,34 +89,49 @@ def lstm_cell_step_fwd(x, h, c, w, b, u, activation="tanh"):
 lstm_cell_step_fwd.launches = 0
 
 
-class _LstmCellStep(torch.autograd.Function):
-    """Forward: kernel S. Backward: the plain version recomputed under
-    autograd, as ``_lstm_step_bwd`` does with ``jax.vjp``."""
+def lstm_recurrent_step_fwd(xp, h, c, u, activation="tanh"):
+    """One LSTM step over xp (B, 4H), h, c (B, H), u (H, 4H): returns (h',
+    c'). CPU tensors run ``lstm_recurrent_step_reference``; CUDA tensors
+    launch kernel S xp."""
+    if activation not in CELL_ACTIVATIONS:
+        raise ValueError(f"unsupported LSTM kernel activation {activation!r}")
+    if h.dim() != 2:
+        raise ValueError(f"h must be (B, H), got {tuple(h.shape)}")
+    B, H = h.shape
+    named = {"xp": xp, "h": h, "c": c, "u": u}
+    _check_shapes(named, {"xp": (B, 4 * H), "h": (B, H), "c": (B, H), "u": (H, 4 * H)})
+    if not _on(xp, "lstm_recurrent_step"):
+        return lstm_recurrent_step_reference(xp, h, c, u, activation)
+    check_operands(named, xp.device)
+    if B < 1:
+        raise ValueError(f"kernel S xp takes B >= 1; got B={B}")
+    _layout.require("S_xp", H, _layout.smem_bytes("S_xp", H))
+    h_out = torch.empty(B, H, device=xp.device, dtype=torch.float32)
+    c_out = torch.empty_like(h_out)
+    lib, _, fn = _kernels()
+    rc = fn(_ptr(xp), _ptr(h), _ptr(c), _ptr(u), _ptr(h_out), _ptr(c_out), B, H,
+            CELL_ACTIVATIONS[activation], _stream(xp))
+    _build.check(lib, rc, "lstm_step_xp launch")
+    lstm_recurrent_step_fwd.launches += 1
+    return h_out, c_out
 
-    @staticmethod
-    def forward(ctx, x, h, c, w, b, u, activation):
-        ctx.set_materialize_grads(True)
-        ctx.save_for_backward(x, h, c, w, b, u)
-        ctx.activation = activation
-        return lstm_cell_step_fwd(x, h, c, w, b, u, activation)
 
-    @staticmethod
-    def backward(ctx, gh, gc):
-        needs = ctx.needs_input_grad[:6]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
-            out = lstm_cell_step_reference(*leaves, ctx.activation)
-            wanted = [t for t, n in zip(leaves, needs) if n]
-            grads = iter(torch.autograd.grad(out, wanted, (gh, gc), allow_unused=True)
-                         if wanted else ())
-        return (*(next(grads) if n else None for n in needs), None)
+lstm_recurrent_step_fwd.launches = 0
 
 
 def lstm_cell_step(x, h, c, w, b, u, activation="tanh"):
     """Differentiable LSTM step x (B, D), h, c (B, H) -> (h', c'), with x @ W
     + b and h @ U inside: kernel S forward on CUDA tensors, the plain
     version's backward."""
-    return _LstmCellStep.apply(x, h, c, w, b, u, activation)
+    return RematStep.apply(lstm_cell_step_fwd, lstm_cell_step_reference, activation,
+                           x, h, c, w, b, u)
+
+
+def lstm_recurrent_step(xp, h, c, u, activation="tanh"):
+    """Differentiable LSTM step over xp (B, 4H), h, c (B, H) -> (h', c'):
+    kernel S xp forward on CUDA tensors, the plain version's backward."""
+    return RematStep.apply(lstm_recurrent_step_fwd, lstm_recurrent_step_reference, activation,
+                           xp, h, c, u)
 
 
 def make_decoder_step(activation="tanh"):

@@ -11,7 +11,7 @@ card, the route of the step, the median wall time per step (host clock
 around work that ends in a synchronize), note-steps/s (B x 64 output steps
 per step; windows/s for a judge), and from a torch.profiler window of STEPS
 steps the device time per kernel name, per kernel of the port (A, C, D, E,
-F, G, the wide D and E, L, N, Q, R, S, W) and for everything else, per
+F, G, the wide D and E, L, N, Q, R, S, S xp, T, T xp, W) and for everything else, per
 autograd node of the backward, and the device's idle share.
 
 Usage: python -m midi_vae_tpu_torch.tools.profile_train [--batch 256] [--steps 10]
@@ -44,6 +44,9 @@ PORT_KERNELS = {
     "lstm_layer_xp_fwd_kernel": "Q lstm_layer_xp_fwd",
     "lstm_layer_xp_bwd_kernel": "R lstm_layer_xp_bwd",
     "lstm_step_kernel": "S lstm_step",
+    "lstm_step_xp_kernel": "S xp lstm_step_xp",
+    "gru_step_kernel": "T gru_step",
+    "gru_step_xp_kernel": "T xp gru_step_xp",
     "grad_reduce": "W grad_reduce",
 }
 
@@ -133,7 +136,8 @@ def _profile(step, steps: int) -> dict:
         "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "device_ms_by_kernel": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12]),
         # the backward by autograd node, with the kernels each launched (e.g.
-        # _LstmCellStepBackward: kernel S's backward through the plain version)
+        # RematStepBackward: the per-step cells' backward through their plain
+        # versions)
         "backward_device_ms_by_node": dict(sorted(nodes.items(), key=lambda kv: -kv[1])[:8]),
     }
 

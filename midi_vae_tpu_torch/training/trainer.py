@@ -1,20 +1,30 @@
-"""The VAE training loop, host-batched epochs on one device.
+"""The VAE training loop on one device, with the batches gathered on the host.
 
-Counterpart of ``midi_vae_tpu/training/trainer.py`` on its host path:
-``make_optimizer`` (:41), ``_slice_batch`` (:90), ``TrainState`` (:134),
-``EpochMetrics`` (:148), the train, eval and
-encode steps (:188-218), ``init_state`` (:790), ``compute_history`` (:814),
-``run_epoch`` (:856), ``evaluate`` (:927), ``fit`` with the ``_fit_host``
-loop (:960, :1280: test and save cadence, epoch 0 trains with H = 0,
-preemption-safe stop) and ``restore`` (:1344), and ``padded_batch_order``
-(:117), the batch grid the judges' trainer runs its epochs on. The
-device-resident epochs, the z-cache, the HBM layout picker and async saves
-are not ported yet.
+Counterpart of ``midi_vae_tpu/training/trainer.py``: ``make_optimizer``
+(:41), ``_slice_batch`` (:90), ``padded_batch_order`` (:117), ``TrainState``
+(:134), ``EpochMetrics`` (:148), the train, eval and encode steps
+(:188-218), ``init_state`` (:790), ``compute_history`` (:814),
+``evaluate`` (:927), ``fit`` (:960) and ``restore`` (:1344). ``fit`` runs
+the epochs of the JAX package's one-process default, ``_fit_device``
+(:1084), with the data on the host:
+- each epoch's batch order is ``epoch_order``, a pure numpy function of
+  (cfg.seed, epoch) (``_epoch_orders``, :617-639), in the padded batch grid;
+- with ``history_from_train_z`` (the default) the history latents come from
+  a per-window z cache that each train step fills with its batch's z_mean
+  (``_device_epoch_fn``, :464-491; row N is the dustbin of padding rows),
+  zero at epoch 0 and seeded by one encode pass when a run resumes past it
+  (``_get_z_cache``, :585-615); without it an encode pass at each epoch's
+  start gives them (:467-469);
+- evaluation encodes its split with the current parameters
+  (``_device_eval_fn``, :641-665);
+- the test and save cadence, epoch 0 with H = 0, and the preemption-safe
+  stop of ``_fit_device``.
+The device-resident data, the HBM layout picker and async saves are not
+ported yet.
 
 Randomness: ``TrainState.rng`` is a ``torch.Generator`` on the training
-device; each train step draws its reparameterization noise from it, and each
-shuffled epoch draws a numpy seed from it for the window order. Its state is
-checkpointed, so a resumed run continues the same streams.
+device; each train step draws its reparameterization noise from it. Its
+state is checkpointed, so a resumed run continues the same stream.
 """
 
 from __future__ import annotations
@@ -72,6 +82,27 @@ def padded_batch_order(order, bs: int) -> tuple[np.ndarray, np.ndarray]:
     return grid, (grid >= 0).astype(np.float32)
 
 
+def epoch_order(cfg: Config, num_windows: int, epoch: int, shuffle: bool = True):
+    """Epoch ``epoch``'s batch grid and mask (``padded_batch_order``): the
+    windows in order, or shuffled by ``RandomState(base + epoch)`` with base
+    (cfg.seed * 1_000_003 + 0x5EED) mod 2**31, whatever the chunking or
+    resume (``_epoch_orders``, :617-639)."""
+    order = np.arange(num_windows)
+    if shuffle:
+        base = (cfg.seed * 1_000_003 + 0x5EED) % (2**31)
+        np.random.RandomState((base + epoch) % (2**31)).shuffle(order)
+    return padded_batch_order(order, cfg.batch_size)
+
+
+def history_from(z: np.ndarray, flat: FlatSplit) -> np.ndarray:
+    """H[i] = z[i-1] within each song, zero at each song's first window
+    (the reference's per-song roll, :470-471)."""
+    H = np.zeros_like(z)
+    H[1:] = z[:-1]
+    H[flat.first_in_song] = 0.0
+    return H
+
+
 def make_optimizer(cfg: Config, model: MidiVAE) -> Optimizer:
     """'adam'/'rmsprop' follow optax's stock rules; the '_keras' variants
     the Keras-2.0.8 update rules (see keras_optim)."""
@@ -109,13 +140,15 @@ def _slice_batch(flat: FlatSplit, idx: np.ndarray, cfg: Config, H: np.ndarray | 
 @dataclass
 class TrainState:
     """The model (its parameters train in place), the optimizer and its
-    state, the generator of the noise and the shuffle seeds, and the epoch
-    to run next."""
+    state, the generator of the noise, the epoch to run next, and the z
+    cache: (N + 1, latent_dim) on the trainer's device, derived and not
+    checkpointed (None until ``fit`` builds it for its split)."""
 
     model: MidiVAE
     opt_state: Optimizer
     rng: torch.Generator
     epoch: int = 0
+    z_cache: torch.Tensor | None = None
 
 
 @dataclass
@@ -163,24 +196,34 @@ class VAETrainer:
         """numpy batch -> tensors on the trainer's device."""
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
 
-    def value_and_grad(self, state: TrainState, batch: dict, noise: torch.Tensor | None = None):
+    def value_and_grad(self, state: TrainState, batch: dict, noise: torch.Tensor | None = None,
+                       return_z: bool = False):
         """(loss, metrics, grads) of one batch; grads in the optimizer's
-        parameter order (zeros for parameters the loss does not reach)."""
-        loss, metrics = loss_and_metrics(state.model, batch, noise=noise)
+        parameter order (zeros for parameters the loss does not reach). With
+        ``return_z`` the metrics hold the batch's z_mean, detached, under
+        "_z"."""
+        loss, metrics = loss_and_metrics(state.model, batch, noise=noise, return_z=return_z)
         params = state.opt_state.params
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
         return loss, {k: v.detach() for k, v in metrics.items()}, grads
 
-    def train_step(self, state: TrainState, batch: dict, noise: torch.Tensor | None = None) -> dict:
+    def train_step(self, state: TrainState, batch: dict, noise: torch.Tensor | None = None,
+                   rows: torch.Tensor | None = None) -> dict:
         """One optimizer step on a device batch; returns its metrics (0-d
         tensors, not synced). The noise is epsilon_std * N(0, 1) drawn from
-        state.rng, as ``sample_z`` draws it, unless given."""
+        state.rng, as ``sample_z`` draws it, unless given. ``rows`` (B,),
+        the batch's window indices on the device with padding rows sent to
+        the dustbin row N, writes the batch's z_mean into ``state.z_cache``
+        (an ``index_copy_`` on the device, no host sync)."""
         cfg = self.cfg
         if noise is None and cfg.epsilon_std != 0.0:
             noise = cfg.epsilon_std * torch.randn(
                 (batch["X"].shape[0], cfg.latent_dim), generator=state.rng, device=self.device)
-        _loss, metrics, grads = self.value_and_grad(state, batch, noise)
+        cache = rows is not None and state.z_cache is not None
+        _loss, metrics, grads = self.value_and_grad(state, batch, noise, return_z=cache)
+        if cache:
+            state.z_cache.index_copy_(0, rows, metrics.pop("_z").to(state.z_cache.dtype))
         state.opt_state.step(grads)
         return metrics
 
@@ -231,8 +274,14 @@ class VAETrainer:
         ckpt.save_run(run_dir, self.cfg, params)
 
     # ------------------------------------------------------------------
-    def compute_history(self, model: MidiVAE, flat: FlatSplit) -> np.ndarray:
-        """One batched encoder pass -> H[i] = z[i-1] within each song."""
+    def uses_z_cache(self) -> bool:
+        """History latents from the train steps' z cache instead of an
+        encode pass at each epoch's start (``_uses_z_cache``, :398-402)."""
+        return self.cfg.history and self.cfg.history_from_train_z
+
+    def encode_all(self, model: MidiVAE, flat: FlatSplit) -> np.ndarray:
+        """One batched encoder pass in window order -> z (N, latent_dim)
+        (``_encode_all_z``, :563-583)."""
         cfg = self.cfg
         n = flat.num_windows
         zs = np.zeros((n, cfg.latent_dim), np.float32)
@@ -241,26 +290,41 @@ class VAETrainer:
             idx = np.arange(start, min(start + bs, n))
             batch, _mask = pad_batch_to({k: getattr(flat, k)[idx] for k in ("X", "I", "V", "D")}, bs)
             zs[idx] = self.encode_step(model, self.to_device(batch))[: len(idx)].cpu().numpy()
-        H = np.zeros_like(zs)
-        H[1:] = zs[:-1]
-        H[flat.first_in_song] = 0.0
-        return H
+        return zs
 
-    def run_epoch(self, state: TrainState, flat: FlatSplit, shuffle: bool = True,
+    def compute_history(self, model: MidiVAE, flat: FlatSplit) -> np.ndarray:
+        """One batched encoder pass -> H[i] = z[i-1] within each song."""
+        return history_from(self.encode_all(model, flat), flat)
+
+    def z_cache_for(self, state: TrainState, flat: FlatSplit) -> torch.Tensor:
+        """``state.z_cache`` for ``flat``: kept when it has its N + 1 rows,
+        else zero when the state is at epoch 0 and, past it (a resume),
+        seeded by one encode pass with the state's parameters
+        (``_get_z_cache``, :585-615)."""
+        n = flat.num_windows
+        if state.z_cache is not None and state.z_cache.shape[0] == n + 1:
+            return state.z_cache
+        cache = torch.zeros((n + 1, self.cfg.latent_dim), device=self.device)
+        if state.epoch > 0:
+            cache[:n] = torch.as_tensor(self.encode_all(state.model, flat), device=self.device)
+        return cache
+
+    def run_epoch(self, state: TrainState, flat: FlatSplit, epoch: int, shuffle: bool = True,
                   H: np.ndarray | None = None) -> EpochMetrics:
+        """Epoch ``epoch``'s optimizer steps over ``epoch_order``'s grid,
+        each writing its z_mean into ``state.z_cache`` when there is one."""
         cfg = self.cfg
         n = flat.num_windows
-        order = np.arange(n)
-        if shuffle:
-            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=state.rng,
-                                     device=self.device).item())
-            np.random.RandomState(seed).shuffle(order)
-        bs = cfg.batch_size
+        if not n:
+            return EpochMetrics()
+        grid, masks = epoch_order(cfg, n, epoch, shuffle)
         pending = []
-        for start in range(0, n, bs):
-            batch, mask = pad_batch_to(_slice_batch(flat, order[start : start + bs], cfg, H), bs)
+        for idx, mask in zip(grid, masks):
+            batch, _ = pad_batch_to(_slice_batch(flat, idx[idx >= 0], cfg, H), cfg.batch_size)
             batch["M"] = mask
-            pending.append((self.train_step(state, self.to_device(batch)), float(mask.sum())))
+            rows = torch.as_tensor(np.where(idx >= 0, idx, n).astype(np.int64), device=self.device)
+            pending.append((self.train_step(state, self.to_device(batch), rows=rows),
+                            float(mask.sum())))
         return aggregate_metrics(pending)
 
     def evaluate(self, state: TrainState, flat: FlatSplit,
@@ -317,7 +381,7 @@ class VAETrainer:
                 except (ValueError, KeyError, IndexError):
                     pass  # unreadable history: start fresh
         try:
-            self._fit_host(state, train, test, epochs, output_dir, log_fn, history)
+            self._fit_epochs(state, train, test, epochs, output_dir, log_fn, history)
         finally:
             for sig, handler in prev_handlers.items():
                 try:
@@ -342,17 +406,23 @@ class VAETrainer:
                     log_fn(f"plotting failed: {err}")
         return history
 
-    def _fit_host(self, state, train, test, epochs, output_dir, log_fn, history) -> None:
+    def _fit_epochs(self, state, train, test, epochs, output_dir, log_fn, history) -> None:
         cfg = self.cfg
         start_epoch = state.epoch
         last_saved_epoch = -1
         e = state.epoch
+        if self.uses_z_cache() and e < epochs and train.num_windows:
+            state.z_cache = self.z_cache_for(state, train)
         while e < epochs and not self._stop_requested:
             t0 = time.time()
             H = None
-            if cfg.history and e > 0:
-                H = self.compute_history(state.model, train)
-            train_metrics = self.run_epoch(state, train, shuffle=cfg.shuffle_train_set, H=H).means()
+            if cfg.history and e > 0 and train.num_windows:
+                # one sync an epoch for the cache's rows; the JAX package
+                # reads them on the device (:464-472)
+                H = (history_from(state.z_cache[: train.num_windows].cpu().numpy(), train)
+                     if self.uses_z_cache() else self.compute_history(state.model, train))
+            train_metrics = self.run_epoch(state, train, e, shuffle=cfg.shuffle_train_set,
+                                           H=H).means()
             dt = time.time() - t0
             steps = train.num_windows * cfg.output_length
             log_fn(f"epoch {e}: loss={train_metrics.get('loss', float('nan')):.4f} "

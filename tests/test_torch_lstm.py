@@ -230,7 +230,7 @@ def test_lstm_serving_dispatch_on_cuda():
     card: LSTM serving takes kernels L and M on CUDA; LSTM training takes
     its kernels too (no raise); a head the JAX package decodes step by step
     (3 layers, or another output activation) takes kernel S, step by step,
-    instead of M; a GRU head of that kind still raises naming row 28."""
+    instead of M; a GRU head of that kind takes kernel T."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     model = MidiVAE(small_test_config(cell_type="LSTM"))
     assert model.kernels_enabled(cuda) and model.kernels_enabled(cpu)
@@ -242,9 +242,10 @@ def test_lstm_serving_dispatch_on_cuda():
     assert model.serving_head_kernel("velocity", 1, "relu", cuda) is False
     assert model.decode_step(model.kernels_enabled(cuda)) is not None
     assert not model.serving_head_kernel("notes", 3, "softmax", cpu)
-    # the GRU heads name their own per-step row
-    with pytest.raises(NotImplementedError, match="row 28"):
-        MidiVAE(small_test_config()).serving_head_kernel("notes", 3, "softmax", cuda)
+    # a GRU head of that kind takes its own per-step cell, kernel T (row 28)
+    gru = MidiVAE(small_test_config())
+    assert gru.serving_head_kernel("notes", 3, "softmax", cuda) is False
+    assert gru.decode_step(gru.kernels_enabled(cuda)).__module__.endswith("gru_step")
 
 
 def test_three_layer_lstm_head_takes_the_plain_scan_on_the_cpu(monkeypatch):

@@ -341,12 +341,17 @@ def test_lstm_training_takes_the_kernels_on_cuda(overrides):
 
 
 @pytest.mark.parametrize("overrides, rows", [
-    ({"fused_train_encoder": False}, "row 31"),
+    # S xp (row 31) is ported: the encoder takes it per step
+    ({"fused_train_encoder": False}, None),
     ({"compute_dtype": "bfloat16"}, "rows 15-20 and 30"),
     ({"fused_train_encoder": False, "compute_dtype": "bfloat16"}, "rows 32 and 33"),
 ], ids=["no_fused_encoder", "bfloat16", "bfloat16_no_fused_encoder"])
 def test_unported_lstm_training_raises_naming_its_rows(overrides, rows):
     model = MidiVAE(small_test_config(cell_type="LSTM", **overrides))
+    if rows is None:
+        for device in ("cuda", "cpu"):
+            assert model.train_kernels(torch.device(device)) == (True, True)
+        return
     with pytest.raises(NotImplementedError, match=rows):
         model.train_kernels_enabled(torch.device("cuda"))
     assert model.train_kernels_enabled(torch.device("cpu")) is False
@@ -381,9 +386,15 @@ def test_lstm_heads_kernel_m_does_not_take_serve_through_s(overrides, head, n_la
 
 
 def test_gru_per_step_heads_still_raise_on_cuda():
-    with pytest.raises(NotImplementedError, match="row 28"):
-        MidiVAE(small_test_config()).serving_head_kernel("notes", 3, "softmax",
-                                                         torch.device("cuda"))
+    """A GRU serving head that kernel B does not take (3 layers, or a relu
+    output) no longer raises on CUDA: it runs kernel T per cell and step
+    (row 28), as LSTM heads run S."""
+    model = MidiVAE(small_test_config())
+    cuda = torch.device("cuda")
+    assert model.serving_head_kernel("notes", 3, "softmax", cuda) is False
+    assert model.serving_head_kernel("velocity", 1, "relu", cuda) is False
+    step = model.decode_step(model.kernels_enabled(cuda))
+    assert step.__qualname__.startswith("make_decoder_step") and step.__module__.endswith("gru_step")
 
 
 def test_lstm_route_at_256_and_512():

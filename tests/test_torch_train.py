@@ -166,30 +166,40 @@ def test_optimizer_trajectories_match_jax(name):
     # head takes the plain scan, the others the decode kernels
     ({"teacher_force": True}, True),
     ({"meta_next_notes": True, "meta_next_notes_teacher_force": True}, True),
-    ({"merge_decoder_scans": True}, "rows 28 and 29"),
-    ({"fused_train_encoder": False}, "rows 28 and 29"),
-    ({"fused_train_decoder": False}, "rows 28 and 29"),
-    ({"compute_dtype": "bfloat16"}, "Queue 1 item 15"),
-    # LSTM trains on the card since its kernels (rows 15-20 and 30) are
-    # ported; with the unported encoder paths or bf16 it raises naming them
+    # the per-step cells (rows 28, 29, 31) are ported: (steps, layers) of
+    # train_kernels, each part deciding on its own
+    ({"merge_decoder_scans": True}, (True, True)),
+    ({"fused_train_encoder": False}, (True, True)),
+    ({"fused_train_decoder": False}, (True, True)),
+    ({"compute_dtype": "bfloat16"}, "Queue 1 item 2"),
+    # LSTM trains on the card since its kernels (rows 15-20, 30 and 31) are
+    # ported; in bf16 it raises naming them
     ({"cell_type": "LSTM"}, True),
-    ({"cell_type": "LSTM", "fused_train_encoder": False}, "row 31"),
+    ({"cell_type": "LSTM", "fused_train_encoder": False}, (True, True)),
     ({"cell_type": "LSTM", "compute_dtype": "bfloat16"}, "rows 15-20 and 30"),
     # cells other than tanh train through the plain scans, as in the JAX
     # package (fused_train.py:2269, :1668, :3456, :981)
     ({"lstm_activation": "sigmoid"}, False),
-    # ... but only with the default fused flags: otherwise the JAX package
-    # runs its per-step or bf16 whole-scan kernels on them too
-    ({"lstm_activation": "sigmoid", "fused_train_decoder": False}, "rows 28 and 29"),
-    ({"lstm_activation": "sigmoid", "compute_dtype": "bfloat16"}, "Queue 1 item 15"),
+    # ... but the per-step cells take them: with fused_train_decoder=False
+    # the JAX package runs its heads through _gru_full_kernel whatever the
+    # cell activation, while the encoder keeps the plain scan
+    ({"lstm_activation": "sigmoid", "fused_train_decoder": False}, (True, False)),
+    ({"lstm_activation": "sigmoid", "compute_dtype": "bfloat16"}, "Queue 1 item 2"),
 ], ids=["teacher_force", "next_teacher_force", "merge_decoder_scans", "no_fused_encoder",
         "no_fused_decoder", "bfloat16", "lstm", "lstm_no_fused_encoder", "lstm_bfloat16",
         "sigmoid_cells", "sigmoid_no_fused_decoder", "sigmoid_bfloat16"])
 def test_unported_training_configs_raise_on_cuda(overrides, row):
     """The gate needs no card: it decides from the device type. On CUDA each
-    unported config raises naming its row, and on the CPU it takes the plain
-    path; a ported one (``row`` True or False) answers the same on both."""
+    unported config raises naming its row or ROADMAP item, and on the CPU it
+    takes the plain path; a ported one (``row`` True or False, or its
+    (steps, layers) of ``train_kernels`` with kernels on) answers the same on
+    both."""
     model = MidiVAE(small_test_config(**overrides))
+    if isinstance(row, tuple):
+        for device in ("cuda", "cpu"):
+            assert model.train_kernels(torch.device(device)) == row
+            assert model.train_kernels_enabled(torch.device(device)) is True
+        return
     if isinstance(row, bool):
         assert model.train_kernels_enabled(torch.device("cuda")) is row
         assert model.train_kernels_enabled(torch.device("cpu")) is row
