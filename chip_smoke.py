@@ -15,7 +15,9 @@ result line):
      (csrc/gru_layer_xp_bwd.cu), L (csrc/lstm_layer_fwd.cu), M
      (csrc/lstm_decode.cu), N (csrc/lstm_layer_bwd.cu), Q
      (csrc/lstm_layer_xp_fwd.cu), R (csrc/lstm_layer_xp_bwd.cu), S and S xp
-     (csrc/lstm_step.cu), T and T xp (csrc/gru_step.cu); every build's
+     (csrc/lstm_step.cu), T and T xp (csrc/gru_step.cu), with the bf16
+     builds of S and T, X (csrc/gru_encoder_scan.cu) and Y
+     (csrc/lstm_encoder_scan.cu); every build's
      registers and spills from ptxas against the route chooser's table; the
      8-rows builds of D and E must refuse H = 512 at their C entry points;
   3. kernels: A and B against their plain PyTorch versions on the card, at
@@ -104,7 +106,24 @@ result line):
      phase 8;
  25. serving a GRU run with a 3-layer notes head (--set
      num_layers_decoder=3, seeded init) through the transfer CLI: T 3 x 64
-     launches per notes-head call; one transfer batch card against CPU.
+     launches per notes-head call; one transfer batch card against CPU;
+ 26. bf16 kernels: X (csrc/gru_encoder_scan.cu) on each encoder layer's
+     x-projection of the bf16 GRU(256) step and at (T 64, B 512, H 512),
+     the batch-tiled row 27; Y (csrc/lstm_encoder_scan.cu) on each of the
+     bf16 LSTM(256) and LSTM(512) steps' (row 33 at 512); the bf16 builds of
+     T and S on each head cell of GRU(256) and LSTM(256); each against its
+     plain bf16 version at B = 256 (timed; the cells' loops in one window,
+     with bounds at the bf16 tensor-core rate, cuDNN's LSTM in bf16 with
+     w_ih = I beside Y and torch.lstm_cell in bf16 beside S) and at B = 5,
+     and the remat backward of X and Y against autograd through the plain
+     forward;
+ 27. the train CLI on the two bf16 configs at full width, 2 epochs, --resume
+     for a third, serving: --set compute_dtype=bfloat16 with both
+     fused_train_* False (X 4 and T bf16 196 a step), and with cell_type=LSTM
+     and fused_train_encoder=False (Y 4 and S bf16 196), every launch
+     counter as designed;
+ 28. one training step of each, and of the bf16 LSTM(512) config, card
+     against CPU (bf16 limits).
 Then one JSON line with the kernels, and the final line
 {"ok": true, "device": {...}}.
 """
@@ -147,6 +166,36 @@ STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-4, 1e-7
 # a gradient is held to max|diff| <= GRAD_RTOL * max(1, max|g|); the
 # forward values of D to H_ATOL (probs, h) and LOGITS_ATOL (logits)
 GRAD_RTOL = 1e-4
+# bf16 (phases 26-28): the kernels and their plain versions both take the
+# products and gates in float32 and round the carried state to bf16 once a
+# step, but sum in another order, so a state entry may now and then round
+# one bf16 step the other way and carry that on. Two limits, on every
+# output: max |diff| <= BF16_ATOL (on the path's data |h| <= 0.11, where a
+# bf16 step is <= 4.9e-4), and the relative L2 error |k - p| / |p| <=
+# BF16_REL_L2, the one that tells a sound kernel from a wrong one. A sound
+# kernel differs from its plain version in a share of entries by a rounding
+# flip each, a share that grows over the 64 steps; a scan that rounds every
+# op to bf16, or one that carries the state in float32 (no per-step
+# rounding), differs in most of them. Phase 26 on the H100 (NVIDIA H100
+# 80GB HBM3, 700 W) read: the kernels 7.5e-5 to 1.40e-3 (Y at LSTM(512),
+# final h), the per-op scan 4.7e-3 to 6.4e-3, the float32-state
+# scan 1.99e-3 to 2.82e-3; BF16_REL_L2 lies between. Phase 26 runs both
+# faults as controls on notes L1 that must land over it. max |diff| alone
+# cannot separate them at these magnitudes: the per-op fault stays within a
+# few bf16 steps of 0.1, under BF16_ATOL.
+# The remat backward is the JAX reference on both sides. One
+# step card vs CPU: cuBLAS and the CPU round each bf16 product of the dense
+# layers and the backward at their own sums' order: losses to
+# BF16_LOSS_ATOL, accuracies to BF16_ACC_ATOL, each gradient's relative L2
+# error to BF16_GRAD_REL_L2 and its max |diff| to BF16_GRAD_REL_MAX of its
+# largest entry (about twice what one step of each bf16 config measured on
+# the H100: |dloss| 1.4e-6, an accuracy off by 1e-3, every gradient within
+# 1.2e-2 relative L2 and 2.3e-2 of its largest entry)
+BF16_ATOL = 1.5e-3
+BF16_REL_L2 = 1.7e-3
+BF16 = (BF16_ATOL, BF16_REL_L2)
+BF16_LOSS_ATOL, BF16_ACC_ATOL = 1e-4, 5e-3
+BF16_GRAD_REL_L2, BF16_GRAD_REL_MAX = 2.5e-2, 5e-2
 REPS = 20
 B = 256
 RAGGED = 5  # rows of a batch smaller than one block's tile
@@ -201,7 +250,12 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel"), "B": ("gru_decode", "g
           "Q": ("lstm_layer_xp_fwd", "lstm_layer_xp_fwd_kernel"),
           "R": ("lstm_layer_xp_bwd", "lstm_layer_xp_bwd_kernel"),
           "S": ("lstm_step", "lstm_step_kernel"), "S_xp": ("lstm_step", "lstm_step_xp_kernel"),
-          "T": ("gru_step", "gru_step_kernel"), "T_xp": ("gru_step", "gru_step_xp_kernel")}
+          "T": ("gru_step", "gru_step_kernel"), "T_xp": ("gru_step", "gru_step_xp_kernel"),
+          "X": ("gru_encoder_scan", "gru_encoder_scan_kernel"),
+          "Y": ("lstm_encoder_scan", "lstm_encoder_scan_kernel"),
+          # the bf16 instances of T's and S's kernels
+          "T_bf16": ("gru_step", "gru_step_kernel", "nv_bfloat16"),
+          "S_bf16": ("lstm_step", "lstm_step_kernel", "nv_bfloat16")}
 
 
 def check_registers():
@@ -212,9 +266,10 @@ def check_registers():
     from midi_vae_tpu_torch.ops import _build, _layout
 
     found = {}
-    for letter, (lib, fn) in BUILDS.items():
+    for letter, (lib, fn, *only) in BUILDS.items():
         entries = [v for k, v in _build.ptxas_report.get(lib, {}).items()
-                   if f"{len(fn)}{fn}" in k or (letter == "W" and fn in k)]
+                   if (f"{len(fn)}{fn}" in k or (letter == "W" and fn in k))
+                   and all(o in k for o in only)]
         if not entries:
             raise RuntimeError(f"no ptxas report for kernel {letter} ({fn} in lib{lib}.so)")
         found[letter] = {"registers": max(e["registers"] for e in entries),
@@ -223,7 +278,7 @@ def check_registers():
         if found[letter]["registers"] > regs:
             raise RuntimeError(f"kernel {letter} uses {found[letter]['registers']} registers, the "
                                f"route chooser counts {regs} (ops/_layout.py REGISTERS)")
-    for letter in _layout.BOUNDED:
+    for letter in (*_layout.BOUNDED, "T_bf16", "S_bf16"):
         if found[letter]["registers"] * _layout.WIDE_THREADS > _layout.REGS_PER_SM:
             raise RuntimeError(f"kernel {letter}: {found[letter]} does not fit 512 threads")
     print("[build] registers (spill bytes) per thread: " + ", ".join(
@@ -283,10 +338,12 @@ def median_ms(fn):
 
 # the least time the card could take for a kernel's work: the larger of its
 # operations over the H100 SXM's float32 rate outside the tensor cores (the
-# kernels run f32, TF32 off) and the bytes it must move (each input read
-# once, each output written once) over HBM3's rate; NVIDIA's published peaks
-# at the full 700 W power limit
+# f32 kernels, TF32 off) or, for the bf16 kernels, its dense bf16 tensor-core
+# rate, and the bytes it must move (each input read once, each output
+# written once, at each tensor's element size) over HBM3's rate; NVIDIA's
+# published peaks at the full 700 W power limit
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -315,12 +372,13 @@ def tensors_in(*objs):
 
 
 def nbytes(*objs):
-    return 4 * sum(t.numel() for t in tensors_in(*objs))
+    return sum(t.numel() * t.element_size() for t in tensors_in(*objs))
 
 
-def bound(flops, moved):
-    """(bound_ms, bound_by) of ``flops`` operations and ``moved`` bytes."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, moved / PEAK_BYTES_PER_S
+def bound(flops, moved, peak=PEAK_F32_FLOPS):
+    """(bound_ms, bound_by) of ``flops`` operations at ``peak`` FLOP/s and
+    ``moved`` bytes."""
+    t_ops, t_bytes = flops / peak, moved / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -349,7 +407,15 @@ def check(name, kernel_fn, plain_fn, limits, **_timed_only):
     return _check(name, kernel_fn, plain_fn, limits)[0]
 
 
+def rel_l2(got, want):
+    """|got - want| / |want| in float32 (Frobenius norms)."""
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
 def _check(name, kernel_fn, plain_fn, limits):
+    """Returns (max |diff| per output, relative L2 error per output held to
+    a (max |diff|, relative L2) limit such as BF16, the kernel's outputs)."""
     import torch
 
     got, want = kernel_fn(), plain_fn()
@@ -358,37 +424,48 @@ def _check(name, kernel_fn, plain_fn, limits):
     want = want if isinstance(want, tuple) else (want,)
     if len(got) != len(want) or len(limits) != len(want):
         raise RuntimeError(f"{name}: {len(got)} kernel outputs, {len(want)} plain, {len(limits)} limits")
-    errs = []
+    errs, rels = [], []
     for g, w, limit in zip(got, want, limits):
         if g.shape != w.shape or not torch.isfinite(g).all():
             raise RuntimeError(f"{name}: kernel output {tuple(g.shape)} not finite or not {tuple(w.shape)}")
+        if isinstance(limit, tuple):
+            limit, rel_limit = limit
+            rels.append(rel_l2(g, w))
+            if not rels[-1] <= rel_limit:
+                raise RuntimeError(f"{name}: relative L2 |kernel - plain| / |plain| = "
+                                   f"{rels[-1]:.3e} > {rel_limit:.3e}")
         limit = limit(w) if callable(limit) else limit
         err = (g - w).abs().max().item()
         if not err <= limit:
             raise RuntimeError(f"{name}: max |kernel - plain| = {err:.3e} > {limit:.3e}")
         errs.append(err)
-    return errs, got
+    return errs, rels, got
 
 
-def compare(name, kernel_fn, plain_fn, limits, flops, inputs, library_fn=None):
+def compare(name, kernel_fn, plain_fn, limits, flops, inputs, library_fn=None,
+            peak=PEAK_F32_FLOPS):
     """check(), then both timed in turns (plain, kernel, kernel, plain), with
-    the bound of the call's work: ``flops`` operations, ``inputs`` (nested
-    tensors) read and the kernel's outputs written; ``library_fn``, one
-    PyTorch call that computes the same function, is timed beside them."""
-    errs, got = _check(name, kernel_fn, plain_fn, limits)
+    the bound of the call's work: ``flops`` operations at ``peak`` FLOP/s,
+    ``inputs`` (nested tensors) read and the kernel's outputs written;
+    ``library_fn``, one PyTorch call that computes the same function, is
+    timed beside them."""
+    errs, rels, got = _check(name, kernel_fn, plain_fn, limits)
     plain_a, kernel_a = median_ms(plain_fn), median_ms(kernel_fn)
     kernel_b, plain_b = median_ms(kernel_fn), median_ms(plain_fn)
     ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
     moved = nbytes(inputs) + nbytes(got)
-    bound_ms, bound_by = bound(flops, moved)
+    bound_ms, bound_by = bound(flops, moved, peak)
     library_ms = median_ms(library_fn) if library_fn is not None else None
-    shown = ", ".join("rel" if callable(x) else f"{x:.0e}" for x in limits)
+    shown = ", ".join("rel" if callable(x) else f"{x[0]:.1e} & rel L2 {x[1]:.1e}"
+                      if isinstance(x, tuple) else f"{x:.0e}" for x in limits)
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
-    print(f"[kernels] {name}: max|diff| {', '.join(f'{e:.3e}' for e in errs)} "
+    rel = f", rel L2 {', '.join(f'{e:.3e}' for e in rels)}" if rels else ""
+    print(f"[kernels] {name}: max|diff| {', '.join(f'{e:.3e}' for e in errs)}{rel} "
           f"(limits {shown}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
           f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB)")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "flops": flops,
-            "bytes": moved, "bound_ms": bound_ms, "library_ms": library_ms}
+            "bytes": moved, "bound_ms": bound_ms, "library_ms": library_ms, "peak_flops": peak,
+            **({"rel_l2": max(rels)} if rels else {})}
 
 
 def phase_kernels():
@@ -1037,6 +1114,11 @@ PER_TRAIN_STEP = {
               "gru_decode_train": 1, "gru_decode_bwd": 1, "grad_reduce": 16},
     "no_fused_train": {"gru_step_xp": S_PER_STEP, "gru_step": S_PER_STEP},
     "lstm_no_fused_encoder": {"lstm_step_xp": S_PER_STEP, "lstm_step": S_PER_STEP},
+    # bf16 with fused_train_encoder=False: the four encoder layers through
+    # the whole-scan kernel X or Y, every head cell through T's or S's bf16
+    # build (their backward: the plain versions)
+    "bf16_no_fused_train": {"gru_encoder_scan": 4, "gru_step_bf16": S_PER_STEP},
+    "lstm_bf16_no_fused_encoder": {"lstm_encoder_scan": 4, "lstm_step_bf16": S_PER_STEP},
 }
 PER_EVAL_BATCH = {  # forward only
     "narrow": {"gru_layer_fwd": 4, "gru_decode_train": 2},
@@ -1046,8 +1128,11 @@ PER_EVAL_BATCH = {  # forward only
     "merge": {"gru_layer_fwd": 4, "gru_step": 2 * 64 + 64, "gru_decode_train": 1},
     "no_fused_train": {"gru_step_xp": S_PER_STEP, "gru_step": S_PER_STEP},
     "lstm_no_fused_encoder": {"lstm_step_xp": S_PER_STEP, "lstm_step": S_PER_STEP},
+    "bf16_no_fused_train": {"gru_encoder_scan": 4, "gru_step_bf16": S_PER_STEP},
+    "lstm_bf16_no_fused_encoder": {"lstm_encoder_scan": 4, "lstm_step_bf16": S_PER_STEP},
 }
-# an encode pass (the serving encoder, kernel A or L): the test split's
+# an encode pass (the serving encoder in float32, kernel A or L, also for a
+# bf16 model: the JAX package's encode casts nothing): the test split's
 # history at each evaluation, the z cache's seeding on --resume
 PER_ENCODE_BATCH = {"GRU": {"gru_layer_fwd": 4}, "LSTM": {"lstm_layer_fwd": 4}}
 # one teacher-forced step of the default config: the notes head is a plain
@@ -1065,6 +1150,9 @@ def route_key(cfg, route):
 
 
 def kernel_counters():
+    """Kernel name -> (wrapper, its counter attribute): ``launches``, or
+    ``launches_bf16`` for the bf16 builds of T and S."""
+    from midi_vae_tpu_torch.ops import encoder_scan as es
     from midi_vae_tpu_torch.ops import gru_decode as gd
     from midi_vae_tpu_torch.ops import gru_layer as gl
     from midi_vae_tpu_torch.ops import gru_step as gs
@@ -1073,27 +1161,34 @@ def kernel_counters():
     from midi_vae_tpu_torch.ops.grad_reduce import grad_reduce
     from midi_vae_tpu_torch.ops.lstm_decode import lstm_decode
 
-    return {"gru_layer_fwd": gl.gru_layer, "gru_decode": gd.gru_decode,
-            "gru_layer_bwd": gl.gru_layer_bwd, "gru_decode_train": gd.gru_decode_fwd_train,
-            "gru_decode_bwd": gd.gru_decode_bwd, "grad_reduce": grad_reduce,
-            "gru_layer_xp_fwd": gl.gru_layer_xp, "gru_layer_xp_bwd": gl.gru_layer_xp_bwd,
-            "gru_decode_train_wide": gd.gru_decode_fwd_train_wide,
-            "gru_decode_bwd_wide": gd.gru_decode_bwd_wide,
-            "lstm_layer_fwd": ll.lstm_layer, "lstm_decode": lstm_decode,
-            "lstm_layer_bwd": ll.lstm_layer_bwd, "lstm_layer_xp_fwd": ll.lstm_layer_xp,
-            "lstm_layer_xp_bwd": ll.lstm_layer_xp_bwd, "lstm_step": ls.lstm_cell_step_fwd,
-            "lstm_step_xp": ls.lstm_recurrent_step_fwd, "gru_step": gs.gru_cell_step_fwd,
-            "gru_step_xp": gs.gru_recurrent_step_fwd}
+    fns = {"gru_layer_fwd": gl.gru_layer, "gru_decode": gd.gru_decode,
+           "gru_layer_bwd": gl.gru_layer_bwd, "gru_decode_train": gd.gru_decode_fwd_train,
+           "gru_decode_bwd": gd.gru_decode_bwd, "grad_reduce": grad_reduce,
+           "gru_layer_xp_fwd": gl.gru_layer_xp, "gru_layer_xp_bwd": gl.gru_layer_xp_bwd,
+           "gru_decode_train_wide": gd.gru_decode_fwd_train_wide,
+           "gru_decode_bwd_wide": gd.gru_decode_bwd_wide,
+           "lstm_layer_fwd": ll.lstm_layer, "lstm_decode": lstm_decode,
+           "lstm_layer_bwd": ll.lstm_layer_bwd, "lstm_layer_xp_fwd": ll.lstm_layer_xp,
+           "lstm_layer_xp_bwd": ll.lstm_layer_xp_bwd, "lstm_step": ls.lstm_cell_step_fwd,
+           "lstm_step_xp": ls.lstm_recurrent_step_fwd, "gru_step": gs.gru_cell_step_fwd,
+           "gru_step_xp": gs.gru_recurrent_step_fwd,
+           "gru_encoder_scan": es.gru_encoder_scan_fwd,
+           "lstm_encoder_scan": es.lstm_encoder_scan_fwd}
+    counters = {name: (fn, "launches") for name, fn in fns.items()}
+    counters["gru_step_bf16"] = (gs.gru_cell_step_fwd, "launches_bf16")
+    counters["lstm_step_bf16"] = (ls.lstm_cell_step_fwd, "launches_bf16")
+    return counters
 
 
 def reset_counters():
-    for fn in kernel_counters().values():
-        fn.launches = 0
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counters():
     """The counters that moved (a kernel absent from the dict ran 0 times)."""
-    return {name: fn.launches for name, fn in kernel_counters().items() if fn.launches}
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()
+            if getattr(fn, attr)}
 
 
 def expected_train_launches(cfg, key, n_train, n_test, epochs):
@@ -1203,8 +1298,8 @@ def phase_train_slice(work, sets=(), key=None):
 def phase_train_card_vs_cpu(smi, cfg, per_step, label):
     """One training step of ``cfg`` on a fixed batch with padding rows and
     numpy noise: loss, metrics and every parameter gradient, card against the
-    CPU plain path, with the card's launch counters equal to ``per_step``;
-    then the card's step time."""
+    CPU plain path (a bf16 ``cfg`` to the BF16_* limits), with the card's
+    launch counters equal to ``per_step``; then the card's step time."""
     import numpy as np
     import torch
 
@@ -1230,16 +1325,27 @@ def phase_train_card_vs_cpu(smi, cfg, per_step, label):
         got[device] = (loss.item(), {k: v.item() for k, v in metrics.items()},
                        [g.cpu() for g in grads], state.opt_state.names)
     (gl, gm, gg, names), (cl, cm, cg, _) = got["cuda"], got["cpu"]
+    bf16 = cfg.compute_dtype == "bfloat16"
+    loss_atol, acc_atol = (BF16_LOSS_ATOL, BF16_ACC_ATOL) if bf16 else (LOSS_ATOL, ACC_ATOL)
     errs = {"loss": abs(gl - cl)}
     for k, v in cm.items():
         errs[k] = abs(gm[k] - v)
-        limit = ACC_ATOL if k.endswith("_acc") else LOSS_ATOL
+        limit = acc_atol if k.endswith("_acc") else loss_atol
         if not (np.isfinite(gm[k]) and errs[k] <= limit):
             raise RuntimeError(f"{label} metric {k}: card {gm[k]}, CPU {v}, limit {limit}")
     worst = (0.0, "")
     for name, g, c in zip(names, gg, cg):
-        limit = STEP_GRAD_RTOL * c.abs().max().item() + STEP_GRAD_ATOL
         err = (g - c).abs().max().item()
+        if bf16:
+            limit = BF16_GRAD_REL_MAX * c.abs().max().item() + STEP_GRAD_ATOL
+            rel_l2 = ((g - c).norm() / c.norm().clamp_min(1e-12)).item()
+            if not (torch.isfinite(g).all() and err <= limit and rel_l2 <= BF16_GRAD_REL_L2):
+                raise RuntimeError(f"{label} grad {name}: max|card - CPU| {err:.3e} (limit "
+                                   f"{limit:.3e}), relative L2 {rel_l2:.3e} (limit "
+                                   f"{BF16_GRAD_REL_L2:.0e})")
+            worst = max(worst, (max(err / limit, rel_l2 / BF16_GRAD_REL_L2), name))
+            continue
+        limit = STEP_GRAD_RTOL * c.abs().max().item() + STEP_GRAD_ATOL
         if not (torch.isfinite(g).all() and err <= limit):
             raise RuntimeError(f"{label} grad {name}: max|card - CPU| {err:.3e} > {limit:.3e}")
         worst = max(worst, (err / limit, name))
@@ -1373,15 +1479,16 @@ def cudnn_lstm_layer(x, p, h0, c0, xp=False):
     """cuDNN's LSTM (``torch.nn.LSTM``) holding one LSTM layer's weights
     (as ``cudnn_lstm``) or, with ``xp``, the layer over a precomputed
     x-projection x = xp (weight_ih = the identity, bias_ih = 0, so that
-    x @ weight_ih^T = xp): the yardstick ``library_ms`` of L, N, Q and R; the
-    port never calls it. Returns (forward, backward, forward + backward),
+    x @ weight_ih^T = xp), in x's dtype: the yardstick ``library_ms`` of L,
+    N, Q, R and (bf16) Y; the port never calls it. Returns (forward,
+    backward, forward + backward),
     each a callable; the backward is one autograd.grad call over a forward
     run once, for the gradients of x, h0, c0 and the weights."""
     import torch
 
     G, H = p["u"].shape[1], p["u"].shape[0]
     D = G if xp else p["w"].shape[0]
-    lstm = torch.nn.LSTM(D, H).to(x.device)
+    lstm = torch.nn.LSTM(D, H).to(x.device, x.dtype)
     with torch.no_grad():
         lstm.weight_ih_l0.copy_(torch.eye(G, device=x.device) if xp else p["w"].t())
         lstm.weight_hh_l0.copy_(p["u"].t())
@@ -1389,7 +1496,7 @@ def cudnn_lstm_layer(x, p, h0, c0, xp=False):
         lstm.bias_hh_l0.zero_()
     leaves = [x.detach().clone().requires_grad_(), h0[None].clone().requires_grad_(),
               c0[None].clone().requires_grad_(), *lstm.parameters()]
-    g = torch.ones(x.shape[0], x.shape[1], H, device=x.device)
+    g = torch.ones(x.shape[0], x.shape[1], H, device=x.device, dtype=x.dtype)
 
     def fwd():
         with torch.no_grad():
@@ -1436,10 +1543,11 @@ def carried(step, state, n, xs=None):
     return run
 
 
-def head_loop_times(name, res, args, n):
+def head_loop_times(name, res, args, n, limits=(H_ATOL, C_ATOL)):
     """S on one head cell as a step's head runs it (``loop_times``), beside
     ``torch.lstm_cell`` (the yardstick ``library_ms``: x @ W + b + h @ U and
-    the gates i, f, g, o in one PyTorch call; the port never calls it)."""
+    the gates i, f, g, o in one PyTorch call, held to the plain version
+    within ``limits``; the port never calls it)."""
     import torch
 
     from midi_vae_tpu_torch.ops import lstm_step as ls
@@ -1450,9 +1558,9 @@ def head_loop_times(name, res, args, n):
     with torch.no_grad():
         # the yardstick computes the same function as the port's step
         check(f"torch.lstm_cell {name}", lambda: torch.lstm_cell(x, (h0, c0), wt, ut, b, b_hh),
-              lambda: ls.lstm_cell_step_reference(*args), [H_ATOL, C_ATOL])
+              lambda: ls.lstm_cell_step_reference(*args), list(limits))
     return loop_times(
-        f"S {name}", res,
+        f"S{' bf16' if x.dtype == torch.bfloat16 else ''} {name}", res,
         carried(lambda hc: ls.lstm_cell_step_fwd(x, *hc, w, b, u, activation), (h0, c0), n),
         carried(lambda hc: ls.lstm_cell_step_reference(x, *hc, w, b, u, activation), (h0, c0), n),
         n, carried(lambda hc: torch.lstm_cell(x, hc, wt, ut, b, b_hh), (h0, c0), n))
@@ -1994,6 +2102,229 @@ def phase_step_kernels():
     return results
 
 
+def yardstick_bf16_lim(w):
+    """The limit for ``torch.lstm_cell`` in bf16 against S's plain version:
+    it rounds both products to bf16 before the gates, where S keeps them in
+    float32, so it is held only to computing the same function: 1e-2 of the
+    output's largest entry, at least 1e-2 (c grows past 1, where a bf16 step
+    is 2**-7 or more)."""
+    return 1e-2 * max(1.0, w.abs().max().item())
+
+
+def phase_bf16_kernels():
+    """Phase 26: X and Y over the encoder layers of the bf16 steps (notes L1
+    with its h sequence, notes L2, instrument and velocity; xp = x @ W + b in
+    one bf16 matmul and zero initial states, as models/rnn.py runs them) of
+    GRU(256) and LSTM(256), X at row 27's (T 64, B 512, H 512) and Y at
+    LSTM(512)'s B = 256 (row 33); T's and S's bf16 builds on each head cell
+    of GRU(256) and LSTM(256) (each cell's loop in one window); all at
+    B = 256 (timed, bound at the bf16 tensor-core rate) and B = 5, each
+    against its plain bf16 version (BF16: max |diff| and relative L2), with
+    two wrong scans on notes L1 as controls that must fail BF16's relative
+    L2 (``controls``); the remat backward of X, Y, T and S against autograd
+    through the JAX reference each differentiates."""
+    import torch
+
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.models.cells import get_cell
+    from midi_vae_tpu_torch.models.rnn import init_decoder_states
+    from midi_vae_tpu_torch.models.vae import MidiVAE, _cast_tree
+    from midi_vae_tpu_torch.ops import encoder_scan as es
+    from midi_vae_tpu_torch.ops import gru_step as gs
+    from midi_vae_tpu_torch.ops import lstm_step as ls
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    results = {k: {} for k in ("gru_encoder_scan", "gru_encoder_scan_row27", "lstm_encoder_scan",
+                               "lstm_encoder_scan_512", "gru_step_bf16", "lstm_step_bf16")}
+
+    def grads(tag, fn, plain, args):
+        leaves = [t.detach().clone().requires_grad_() for t in args]
+        out = plain(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        cot = [torch.randn(o.shape, generator=gen, device=dev).to(o.dtype) for o in outs]
+        got = torch.autograd.grad(fn(*leaves), leaves, cot)
+        want = torch.autograd.grad(outs, leaves, cot)
+        check(f"{tag} grads", lambda: got, lambda: want, [rel] * len(want))
+
+    def model_of(cfg):
+        model = MidiVAE(cfg).to(dev)
+        return model, _cast_tree(model.params, bf)
+
+    def scan_cases(cfg, params, rows, seed):
+        """(name, xp, u, return_sequences) of the step's four encoder layers
+        and the zero initial states, notes L2's input the plain L1's h
+        sequence."""
+        lstm = cfg.cell_type == "LSTM"
+        enc = params["encoder"]
+        batch = {k: torch.as_tensor(v, device=dev).to(bf)
+                 for k, v in random_batch(cfg, rows, seed).items()}
+        states = [torch.zeros(rows, cfg.lstm_size, device=dev, dtype=bf)
+                  for _ in range(2 if lstm else 1)]
+        plain = es.lstm_encoder_scan_reference if lstm else es.gru_encoder_scan_reference
+
+        def xp_of(x, p):
+            return (x.reshape(x.shape[0] * rows, -1) @ p["w"] + p["b"]).reshape(x.shape[0], rows, -1)
+
+        with torch.no_grad():
+            xp1 = xp_of(tm(batch["X"]), enc["notes_rnn"][0])
+            seq1 = plain(xp1, *states, enc["notes_rnn"][0]["u"], "tanh", True)
+            cases = [("notes_l1", xp1, enc["notes_rnn"][0]["u"], True),
+                     ("notes_l2", xp_of(seq1, enc["notes_rnn"][1]), enc["notes_rnn"][1]["u"], False),
+                     ("instrument", xp_of(tm(batch["I"]), enc["inst_rnn"][0]),
+                      enc["inst_rnn"][0]["u"], False),
+                     ("velocity", xp_of(tm(batch["V"]), enc["vel_rnn"][0]),
+                      enc["vel_rnn"][0]["u"], False)]
+        return [(n, xp, u.detach(), rs) for n, xp, u, rs in cases], states
+
+    def scans(key, letter, cfg, rows, seed, only=None, library=False, timed=None):
+        """X or Y on the step's encoder layers of ``cfg`` (``only``: those
+        names) at ``rows``; timed into results[key] (by default when
+        rows == B)."""
+        lstm = cfg.cell_type == "LSTM"
+        _, params = model_of(cfg)
+        fwd = es.lstm_encoder_scan_fwd if lstm else es.gru_encoder_scan_fwd
+        plain = es.lstm_encoder_scan_reference if lstm else es.gru_encoder_scan_reference
+        vjp_plain = es.lstm_encoder_scan_reference if lstm else es.gru_encoder_scan_vjp_reference
+        timed = rows == B if timed is None else timed
+        cases, states = scan_cases(cfg, params, rows, seed)
+        for name, xp, u, rs in cases:
+            if only and name not in only:
+                continue
+            args = (xp, *states, u, "tanh", rs)
+            tag = f"{letter} {cfg.cell_type}({cfg.lstm_size}) {name} xp{tuple(xp.shape)} rs={rs}"
+            lib = None
+            if timed and library:
+                # cuDNN's LSTM in bf16 over xp (w_ih = I: one 4H x 4H product
+                # more than Y does); a yardstick only, so a refusal leaves
+                # library_ms null and fails nothing
+                try:
+                    lib = cudnn_lstm_layer(xp, {"u": u}, states[0], states[1], xp=True)[0]
+                except RuntimeError as err:
+                    print(f"[bf16 kernels] cuDNN's LSTM refused bf16 ({err}): no library time")
+            if timed:
+                results[key][name] = compare(
+                    tag, lambda a=args: fwd(*a), lambda a=args: plain(*a), [BF16],
+                    flops=2 * xp.shape[0] * rows * u.numel(), inputs=args[:-2], library_fn=lib,
+                    peak=PEAK_BF16_FLOPS)
+                if name == "notes_l1":
+                    results[key][name]["controls_rel_l2"] = controls(tag, args)
+            else:
+                check(f"{tag} B={rows}", lambda a=args: fwd(*a), lambda a=args: plain(*a),
+                      [BF16])
+            if name == "notes_l2":
+                scan = es.lstm_encoder_scan if lstm else es.gru_encoder_scan
+                with torch.enable_grad():
+                    grads(f"{letter} remat {name} B={rows}",
+                          lambda *a, rs=rs: scan(*a, "tanh", rs),
+                          lambda *a, rs=rs: vjp_plain(*a, "tanh", rs), args[:-2])
+
+    def controls(tag, args):
+        """Two faults against the plain scan: every op rounded to bf16 (the
+        plain cells of ``models/cells.py`` scanned) and the state carried in
+        float32 (the plain scan on float32 copies, only its output rounded).
+        Each must land over BF16_REL_L2, or the limit does not tell a wrong
+        kernel from X or Y."""
+        xp, *states, u = args[:-2]
+        lstm = len(states) == 2
+        plain = es.lstm_encoder_scan_reference if lstm else es.gru_encoder_scan_reference
+        cell = get_cell("LSTM" if lstm else "GRU")
+        with torch.no_grad():
+            want = plain(*args)
+            st, per_op = tuple(states), []
+            for x_t in xp:
+                h, st = cell.step({"u": u}, x_t, st, torch.tanh)
+                per_op.append(h)
+            f32 = plain(xp.float(), *(s_.float() for s_ in states), u.float(), *args[-2:])
+            found = {"per_op": rel_l2(torch.stack(per_op), want),
+                     "float32_state": rel_l2(f32.to(want.dtype), want)}
+        print(f"[bf16 kernels] controls {tag}: relative L2 from the plain scan, per-op bf16 "
+              f"{found['per_op']:.3e}, float32 state {found['float32_state']:.3e} (each must "
+              f"exceed {BF16_REL_L2:.1e})")
+        for fault, err in found.items():
+            if not err > BF16_REL_L2:
+                raise RuntimeError(f"{tag}: the {fault} control lands {err:.3e} from the plain "
+                                   f"scan, inside BF16_REL_L2 = {BF16_REL_L2:.1e}")
+        return found
+
+    def cells(key, cfg, rows, seed):
+        """T's or S's bf16 build on each head cell of ``cfg``'s step: the input
+        of a head's first cell its fed-back output (the start symbol's
+        width), of the second the first's h."""
+        lstm = cfg.cell_type == "LSTM"
+        model, params = model_of(cfg)
+        timed = rows == B
+        run = compare if timed else check
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in random_batch(cfg, rows, seed).items()}
+        with torch.no_grad():
+            z = model.encode(batch).to(bf)
+        new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
+        for head, d, T in (("notes", cfg.output_dim, cfg.output_length),
+                           ("velocity", 1, cfg.meta_velocity_length),
+                           ("instrument", cfg.meta_instrument_dim, cfg.meta_instrument_length)):
+            h = params["decoder"][head]
+            with torch.no_grad():
+                states = init_decoder_states(h["init"], new_encoded, cfg.cell_type,
+                                             cfg.lstm_state_activation)
+            xin = torch.softmax(torch.randn(rows, d, generator=gen, device=dev), -1).to(bf)
+            for i, cell in enumerate(h["cells"]):
+                w, b, u = (cell[k].detach() for k in "wbu")
+                st = [s.detach() for s in states[i]]
+                tag = f"{cfg.cell_type}({cfg.lstm_size}) {head} cell {i + 1} x{tuple(xin.shape)}"
+                flops = 2 * rows * (w.shape[0] + u.shape[0]) * u.shape[1]
+                if lstm:
+                    args = (xin, *st, w, b, u, "tanh")
+                    out = run(f"S bf16 {tag}", lambda a=args: ls.lstm_cell_step_fwd(*a),
+                              lambda a=args: ls.lstm_cell_step_reference(*a),
+                              [BF16, BF16], flops=flops, inputs=args[:6],
+                              peak=PEAK_BF16_FLOPS)
+                    if timed:
+                        results[key][f"{head} cell {i + 1}"] = head_loop_times(
+                            tag, out, args, T, (yardstick_bf16_lim, yardstick_bf16_lim))
+                    fn, plain, leaves = (ls.lstm_cell_step, ls.lstm_cell_step_vjp_reference,
+                                         args[:6])
+                    nxt = ls.lstm_cell_step_reference(*args)[0]
+                else:
+                    args = (xin, st[0], w, b, u)
+                    out = run(f"T bf16 {tag}", lambda a=args: gs.gru_cell_step_fwd(*a),
+                              lambda a=args: gs.gru_cell_step_reference(*a), [BF16],
+                              flops=flops, inputs=args, peak=PEAK_BF16_FLOPS)
+                    if timed:
+                        results[key][f"{head} cell {i + 1}"] = loop_times(
+                            f"T bf16 {tag}", out,
+                            carried(lambda s_, a=args: gs.gru_cell_step_fwd(a[0], s_, *a[2:]),
+                                    args[1], T),
+                            carried(lambda s_, a=args: gs.gru_cell_step_reference(a[0], s_, *a[2:]),
+                                    args[1], T), T)
+                    fn, plain, leaves = gs.gru_cell_step, gs.gru_cell_step_vjp_reference, args
+                    nxt = gs.gru_cell_step_reference(*args)
+                if head == "notes":
+                    with torch.enable_grad():
+                        grads(f"{'S' if lstm else 'T'} bf16 remat {tag} B={rows}",
+                              lambda *a: fn(*a, "tanh"), lambda *a: plain(*a, "tanh"), leaves)
+                xin = nxt
+
+    slice_sets = {"compute_dtype": "bfloat16", "fused_train_encoder": False}
+    gru256 = Config(fused_train_decoder=False, **slice_sets)
+    lstm256 = Config(cell_type="LSTM", **slice_sets)
+    for rows in (B, RAGGED):
+        scans("gru_encoder_scan", "X", gru256, rows, 14)
+        scans("lstm_encoder_scan", "Y", lstm256, rows, 15, library=True)
+        cells("gru_step_bf16", gru256, rows, 16)
+        cells("lstm_step_bf16", lstm256, rows, 17)
+    # row 27: the batch-tiled TPU grid's shape, GRU(512) at B = 512 (the
+    # notes layers); row 33: LSTM(512) at B = 256
+    scans("gru_encoder_scan_row27", "X", Config(lstm_size=512, fused_train_decoder=False,
+                                                **slice_sets), 512, 18, ("notes_l1", "notes_l2"),
+          timed=True)
+    scans("lstm_encoder_scan_512", "Y", Config(cell_type="LSTM", lstm_size=512, **slice_sets), B,
+          19, library=True)
+    print(f"[bf16 kernels] X, Y, T bf16 and S bf16 agree with their plain bf16 versions at "
+          f"B = {B} and {RAGGED}, X at (64, 512, 512), Y at LSTM(512); the remat backward too")
+    return results
+
+
 def phase_gru_3layer_serving(work, smi):
     """A GRU run with a 3-layer notes head (Config(num_layers_decoder=3),
     seeded init) served through the transfer CLI on 2 authored songs: kernel
@@ -2108,6 +2439,24 @@ def main() -> int:
                       for _, key, sets in per_step_configs}
     with tempfile.TemporaryDirectory() as work:
         paths["transfer_gru_3layer"], serving["GRU_3layer"] = phase_gru_3layer_serving(work, smi)
+    # bf16 training with the whole-scan encoders: X and Y, T's and S's bf16
+    # builds, and the configs that run them
+    results.update(phase_bf16_kernels())
+    bf16_configs = (
+        ("train_bf16_no_fused_train", "bf16_no_fused_train",
+         ["compute_dtype=bfloat16", "fused_train_encoder=False", "fused_train_decoder=False"]),
+        ("train_lstm_bf16_no_fused_encoder", "lstm_bf16_no_fused_encoder",
+         ["cell_type=LSTM", "compute_dtype=bfloat16", "fused_train_encoder=False"]))
+    for path, key, sets in bf16_configs:
+        with tempfile.TemporaryDirectory() as work:
+            paths[path] = phase_train_slice(work, sets, key)
+    bf16_steps = {key: phase_train_card_vs_cpu(smi, Config(**parse_overrides(sets)),
+                                               PER_TRAIN_STEP[key], f"{key} train")
+                  for _, key, sets in bf16_configs}
+    bf16_steps["lstm_512_bf16_no_fused_encoder"] = phase_train_card_vs_cpu(
+        smi, Config(cell_type="LSTM", lstm_size=512, compute_dtype="bfloat16",
+                    fused_train_encoder=False),
+        PER_TRAIN_STEP["lstm_bf16_no_fused_encoder"], "lstm_512_bf16_no_fused_encoder train")
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
@@ -2118,7 +2467,8 @@ def main() -> int:
     # (T: the four head cells of a fused_train_decoder=False step, T xp: its
     # four encoder layers, each cell's loop in one window), GRU(512) for F, G
     # and the wide builds, LSTM(256) for L, M, N, S and S xp, LSTM(512) for Q
-    # and R; "launches" over the main paths' runs
+    # and R, the bf16 GRU(256) and LSTM(256) steps for X, T bf16, Y and S
+    # bf16; "launches" over the main paths' runs
     meta = {
         "gru_layer_fwd": ("A", "gru_layer_fwd.cu", "fused_train.py:2057", ["fused_train.py:2919"]),
         "gru_decode": ("B", "gru_decode.cu", "fused_decoder.py:61", ["fused_decoder.py:95"]),
@@ -2166,6 +2516,16 @@ def main() -> int:
         "gru_step": ("T", "gru_step.cu", "fused_gru.py:54", ["fused_gru.py:95"]),
         # row 29: _gru_recurrent_kernel through _gru_recurrent_pallas
         "gru_step_xp": ("T xp", "gru_step.cu", "fused_gru.py:71", ["fused_gru.py:117"]),
+        # rows 26 and 27: _encoder_kernel through _encoder_scan_pallas and,
+        # batch-tiled, _encoder_scan_wide_pallas
+        "gru_encoder_scan": ("X", "gru_encoder_scan.cu", "fused_decoder.py:288",
+                             ["fused_decoder.py:347", "fused_decoder.py:416"]),
+        # rows 32 and 33: the LSTM's _encoder_kernel through its two wrappers
+        "lstm_encoder_scan": ("Y", "lstm_encoder_scan.cu", "fused_lstm.py:228",
+                              ["fused_lstm.py:302", "fused_lstm.py:343"]),
+        # rows 28 and 30 in a bf16 model
+        "gru_step_bf16": ("T bf16", "gru_step.cu", "fused_gru.py:54", ["fused_gru.py:95"]),
+        "lstm_step_bf16": ("S bf16", "lstm_step.cu", "fused_lstm.py:67", ["fused_lstm.py:98"]),
     }
     # per kernel: the calls of one step or transfer at other shapes
     extra = {"gru_layer_fwd": [("ms_h512", "gru_layer_512")],
@@ -2178,13 +2538,16 @@ def main() -> int:
              "lstm_layer_fwd": [("ms_train_step", "lstm_layer_train_fwd")],
              "lstm_step_xp": [("ms_h512", "lstm_step_xp_512")],
              "gru_step": [("ms_h512", "gru_step_512")],
-             "gru_step_xp": [("ms_h512", "gru_step_xp_512")]}
+             "gru_step_xp": [("ms_h512", "gru_step_xp_512")],
+             "gru_encoder_scan": [("ms_row27", "gru_encoder_scan_row27")],
+             "lstm_encoder_scan": [("ms_h512", "lstm_encoder_scan_512")]}
     kernels = []
     for name, (letter, source, replaces, also) in meta.items():
         per_call = results[name]
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         bound_ms, bound_by = bound(sum(r["flops"] for r in per_call.values()),
-                                   sum(r["bytes"] for r in per_call.values()))
+                                   sum(r["bytes"] for r in per_call.values()),
+                                   next(iter(per_call.values()))["peak_flops"])
         library = [r["library_ms"] for r in per_call.values()]
         entry = {
             "name": name, "letter": letter, "route": "cuda",
@@ -2197,10 +2560,11 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in per_call.values()),
             "bound_ms": bound_ms, "bound_by": bound_by,
             # one PyTorch call of the same function: cuBLAS's a.t() @ b for W,
-            # cuDNN's LSTM for L, N, Q and R, torch.lstm_cell for S and S xp
-            # (with w_ih = I: one product more); none for the GRU kernels
-            # (nn.GRU, torch.gru_cell are reset-after) and the decode kernels
-            # (no call feeds back outputs)
+            # cuDNN's LSTM for L, N, Q, R and (bf16, w_ih = I) Y,
+            # torch.lstm_cell for S, S bf16 and S xp (with w_ih = I: one
+            # product more); none for the GRU kernels (nn.GRU, torch.gru_cell
+            # are reset-after) and the decode kernels (no call feeds back
+            # outputs)
             "library_ms": sum(library) if None not in library else None,
             "calls": per_call,
             "registers": registers[letter.replace(" ", "_")],
@@ -2220,6 +2584,7 @@ def main() -> int:
                       "judges_card_vs_cpu": judges, "train_step_lstm": lstm_steps[256],
                       "train_step_lstm_512": lstm_steps[512], "judge_train_step": judge_steps,
                       "train_step_per_step_cells": per_step_steps,
+                      "train_step_bf16": bf16_steps,
                       "lstm_fwd_bwd_vs_cudnn": results["lstm_fwd_bwd_vs_cudnn"], "power": smi,
                       "wall_s": wall_s}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,14 @@
 // and every block streams them from there. Each U element a thread loads
 // feeds R FMAs.
 //
+// Operands in global memory are float, or __nv_bfloat16 in the bf16 builds
+// (kernels X and Y, and the bf16 entry points of T and S): a bf16 value is
+// widened to float as it is loaded, every product and gate sums in float,
+// and what a step carries (h, and the LSTM's c) is rounded to nearest even
+// in bf16 where the JAX kernel stores it in its compute dtype (round_as);
+// shared memory stays float. The float instantiations are the kernels'
+// original code (to_f32 and round_as<float> are the identity).
+//
 // R is kRows = 8 for kernels A to E at the widths where they launch, and for
 // F and G. The wide decode builds (D and E at H = 512) hold kWideRows = 2:
 // a thread keeps R values of every gate, carry and operand in registers, and
@@ -20,9 +28,34 @@
 // blocks at B = 256 instead of 32, and E spills less than at 4 rows.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace mvt {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// x stored as a T: the identity for float, round to nearest even for bf16
+// (jnp's astype)
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    return __float2bfloat16_rn(x);
+  } else {
+    return x;
+  }
+}
+
+// x as a T holds it, back in float
+template <typename T>
+__device__ __forceinline__ float round_as(float x) {
+  return to_f32(from_f32<T>(x));
+}
 
 // batch rows per block
 constexpr int kRows = 8;
@@ -68,19 +101,20 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ a, float v[R
 //   z = sigmoid(az + h @ U_z);  r = sigmoid(ar + h @ U_r)
 //   hh = act(ah + (r * h) @ U_h);  h = z * h + (1 - z) * hh
 // h_s and rh_s are (H, R), feature-major; U is (H, 3H), row-major in global
-// memory. Every thread of the block must call it; it ends with a barrier,
-// after which h_s holds the new state.
-template <int ACT, int R = kRows>
+// memory, of type TU. The new h is rounded as a TS holds it (r * h stays
+// float, as the Pallas dot promotes it). Every thread of the block must call
+// it; it ends with a barrier, after which h_s holds the new state.
+template <int ACT, int R = kRows, typename TU = float, typename TS = float>
 __device__ __forceinline__ void gru_cell_recurrent(
     float az[R], float ar[R], float ah[R], float* h_s, float* rh_s,
-    const float* __restrict__ U, int H) {
+    const TU* __restrict__ U, int H) {
   const int j = threadIdx.x;
   const int G = 3 * H;
   float v[R];
 #pragma unroll 4
   for (int k = 0; k < H; ++k) {
-    const float* uk = U + (size_t)k * G;
-    const float uz = uk[j], ur = uk[H + j];
+    const TU* uk = U + (size_t)k * G;
+    const float uz = to_f32(uk[j]), ur = to_f32(uk[H + j]);
     load_rows<R>(h_s + k * R, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -100,7 +134,7 @@ __device__ __forceinline__ void gru_cell_recurrent(
   __syncthreads();
 #pragma unroll 4
   for (int k = 0; k < H; ++k) {
-    const float uh = U[(size_t)k * G + 2 * H + j];
+    const float uh = to_f32(U[(size_t)k * G + 2 * H + j]);
     load_rows<R>(rh_s + k * R, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) ah[r] = fmaf(v[r], uh, ah[r]);
@@ -108,7 +142,7 @@ __device__ __forceinline__ void gru_cell_recurrent(
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const float hh = activate<ACT>(ah[r]);
-    h_s[j * R + r] = az[r] * hold[r] + (1.0f - az[r]) * hh;
+    h_s[j * R + r] = round_as<TS>(az[r] * hold[r] + (1.0f - az[r]) * hh);
   }
   __syncthreads();
 }
@@ -116,18 +150,20 @@ __device__ __forceinline__ void gru_cell_recurrent(
 // One GRU step for the block's R rows, in place on h_s:
 //   xp = x @ W + b, then gru_cell_recurrent.
 // x_s is (D, R), h_s and rh_s are (H, R), all feature-major.
-// W is (D, 3H), U is (H, 3H), b is (3H,), row-major in global memory.
+// W is (D, 3H), U is (H, 3H), b is (3H,), row-major in global memory, all of
+// type TW, which is also the type the new h is rounded as.
 // Every thread of the block must call it; it ends with a barrier, after
 // which h_s holds the new state.
-template <int ACT, int R = kRows>
+template <int ACT, int R = kRows, typename TW = float>
 __device__ __forceinline__ void gru_cell(
     const float* x_s, int D, float* h_s, float* rh_s,
-    const float* __restrict__ W, const float* __restrict__ U,
-    const float* __restrict__ bias, int H) {
+    const TW* __restrict__ W, const TW* __restrict__ U,
+    const TW* __restrict__ bias, int H) {
   const int j = threadIdx.x;
   const int G = 3 * H;
   float az[R], ar[R], ah[R], v[R];
-  const float bz = bias[j], br = bias[H + j], bh = bias[2 * H + j];
+  const float bz = to_f32(bias[j]), br = to_f32(bias[H + j]),
+              bh = to_f32(bias[2 * H + j]);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     az[r] = bz;
@@ -135,8 +171,9 @@ __device__ __forceinline__ void gru_cell(
     ah[r] = bh;
   }
   for (int d = 0; d < D; ++d) {
-    const float* wd = W + (size_t)d * G;
-    const float wz = wd[j], wr = wd[H + j], wh = wd[2 * H + j];
+    const TW* wd = W + (size_t)d * G;
+    const float wz = to_f32(wd[j]), wr = to_f32(wd[H + j]),
+                wh = to_f32(wd[2 * H + j]);
     load_rows<R>(x_s + d * R, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -145,14 +182,14 @@ __device__ __forceinline__ void gru_cell(
       ah[r] = fmaf(v[r], wh, ah[r]);
     }
   }
-  gru_cell_recurrent<ACT, R>(az, ar, ah, h_s, rh_s, U, H);
+  gru_cell_recurrent<ACT, R, TW, TW>(az, ar, ah, h_s, rh_s, U, H);
 }
 
 // Loads column j's three gates of rows [row0, row0 + R) of a row-major
 // (B, 3H) x-projection into az, ar, ah; rows past B read as zeros.
-template <int R = kRows>
+template <int R = kRows, typename TX>
 __device__ __forceinline__ void load_gates(
-    const float* __restrict__ xp, int row0, int B, int H, float az[R],
+    const TX* __restrict__ xp, int row0, int B, int H, float az[R],
     float ar[R], float ah[R]) {
   const int j = threadIdx.x;
 #pragma unroll
@@ -160,33 +197,33 @@ __device__ __forceinline__ void load_gates(
     const int row = row0 + r;
     az[r] = ar[r] = ah[r] = 0.0f;
     if (row < B) {
-      const float* x = xp + (size_t)row * 3 * H;
-      az[r] = x[j];
-      ar[r] = x[H + j];
-      ah[r] = x[2 * H + j];
+      const TX* x = xp + (size_t)row * 3 * H;
+      az[r] = to_f32(x[j]);
+      ar[r] = to_f32(x[H + j]);
+      ah[r] = to_f32(x[2 * H + j]);
     }
   }
 }
 
 // Loads rows [row0, row0 + R) of a row-major (B, D) matrix into the
 // feature-major (D, R) tile a_s; rows past B read as zeros.
-template <int R = kRows>
+template <int R = kRows, typename TA>
 __device__ __forceinline__ void load_tile(
-    const float* __restrict__ a, float* a_s, int row0, int B, int D) {
+    const TA* __restrict__ a, float* a_s, int row0, int B, int D) {
   for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
     const int r = i / D, d = i - r * D, row = row0 + r;
-    a_s[d * R + r] = row < B ? a[(size_t)row * D + d] : 0.0f;
+    a_s[d * R + r] = row < B ? to_f32(a[(size_t)row * D + d]) : 0.0f;
   }
 }
 
 // Stores the feature-major tile a_s into rows [row0, row0 + R) of a
 // row-major (B, D) matrix, skipping rows past B.
-template <int R = kRows>
+template <int R = kRows, typename TA>
 __device__ __forceinline__ void store_tile(
-    const float* a_s, float* __restrict__ a, int row0, int B, int D) {
+    const float* a_s, TA* __restrict__ a, int row0, int B, int D) {
   for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
     const int r = i / D, d = i - r * D, row = row0 + r;
-    if (row < B) a[(size_t)row * D + d] = a_s[d * R + r];
+    if (row < B) a[(size_t)row * D + d] = from_f32<TA>(a_s[d * R + r]);
   }
 }
 

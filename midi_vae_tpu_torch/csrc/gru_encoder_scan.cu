@@ -1,0 +1,108 @@
+// Kernel X: one whole GRU encoder layer in bf16 over a precomputed
+// x-projection xp = x @ W + b, emitting the h sequence or only the final h.
+//
+// Replaces the TPU kernel midi_vae_tpu/ops/fused_decoder.py::_encoder_kernel
+// (:288), reached through _encoder_scan_pallas (:347, grid over T) and
+// _encoder_scan_wide_pallas (:416, the batch-tiled grid taken where
+// _encoder_vmem_ok fails: GRU(512) at B = 512) from fused_encoder_scan
+// (:457). The JAX package runs it only for bf16 training with
+// fused_train_encoder=False (models/vae.py:255-260, models/rnn.py:165-182);
+// its backward is no kernel: _fes_bwd (:492) recomputes the plain scan under
+// jax.vjp, and the port's autograd Function does the same
+// (ops/encoder_scan.py).
+//
+// Numerics, as the Pallas kernel's: xp, h0, U and the output are bf16; the
+// products h @ U and (r * h) @ U_h and the gate math run in float (r * h
+// stays float, which is what the Pallas dot promotes it to), and h is
+// rounded to bf16 after every step (h_s[:] = new_h.astype(h_s.dtype), :311).
+// Templated on the cell activation (tanh, sigmoid or relu: _activation) and
+// on whether the h sequence is emitted.
+//
+// Design: kernel F (gru_layer_xp_fwd.cu) over bf16 operands. One block owns
+// kRows = 8 batch rows and loops over all T steps; h (bf16 values held in
+// float) and r * h of its rows live in shared memory; thread j reads its
+// three gates of xp[t] straight from global memory and adds h @ U from the
+// L2-resident U (1.5 MB in bf16 at H = 512). Both TPU grids (untiled and
+// batch-tiled) map to the same grid here: blocks tile the batch, and each
+// carries its rows' h through the whole sequence. Compiled under
+// __launch_bounds__(kWideThreads), so a block of up to 512 threads (H <= 512)
+// always has the registers it needs.
+//
+// What bounds it: the serial chain of T steps, each an L2 read of U by each
+// of the B/8 blocks (32 SMs work at B = 256, 64 at B = 512), not the
+// tensor-core rate that bounds the same work in bf16.
+#include "gru_common.cuh"
+
+namespace mvt {
+
+template <int ACT, bool SEQ>
+__global__ void __launch_bounds__(kWideThreads) gru_encoder_scan_kernel(
+    const bf16* __restrict__ xp, const bf16* __restrict__ h0,
+    const bf16* __restrict__ u, bf16* __restrict__ out, int T, int B,
+    int H) {
+  extern __shared__ __align__(16) float smem[];
+  float* h_s = smem;               // (H, kRows)
+  float* rh_s = h_s + kRows * H;   // (H, kRows)
+  const int row0 = blockIdx.x * kRows;
+  load_tile(h0, h_s, row0, B, H);
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    float az[kRows], ar[kRows], ah[kRows];
+    load_gates(xp + (size_t)t * B * 3 * H, row0, B, H, az, ar, ah);
+    // the previous step's cell ended with a barrier, and the store below
+    // only reads h_s, which the next cell writes after its first barrier
+    gru_cell_recurrent<ACT, kRows, bf16, bf16>(az, ar, ah, h_s, rh_s, u, H);
+    if constexpr (SEQ) store_tile(h_s, out + (size_t)t * B * H, row0, B, H);
+  }
+  if constexpr (!SEQ) store_tile(h_s, out, row0, B, H);
+}
+
+template <int ACT, bool SEQ>
+cudaError_t launch(const bf16* xp, const bf16* h0, const bf16* u, bf16* out,
+                   int T, int B, int H, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * kRows * 2 * H;
+  cudaError_t err = fit_block(gru_encoder_scan_kernel<ACT, SEQ>, H, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + kRows - 1) / kRows);
+  gru_encoder_scan_kernel<ACT, SEQ><<<grid, H, smem, stream>>>(xp, h0, u, out,
+                                                               T, B, H);
+  return cudaGetLastError();
+}
+
+template <bool SEQ>
+cudaError_t launch_act(const bf16* xp, const bf16* h0, const bf16* u,
+                       bf16* out, int T, int B, int H, int act,
+                       cudaStream_t stream) {
+  switch (act) {
+    case kTanh:
+      return launch<kTanh, SEQ>(xp, h0, u, out, T, B, H, stream);
+    case kSigmoid:
+      return launch<kSigmoid, SEQ>(xp, h0, u, out, T, B, H, stream);
+    case kRelu:
+      return launch<kRelu, SEQ>(xp, h0, u, out, T, B, H, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace mvt
+
+// xp (T, B, 3H), h0 (B, H), u (H, 3H), all bf16 and contiguous; out is
+// (T, B, H) with return_sequences, else (B, H).
+extern "C" int mvt_gru_encoder_scan(const mvt::bf16* xp, const mvt::bf16* h0,
+                                    const mvt::bf16* u, mvt::bf16* out, int T,
+                                    int B, int H, int act,
+                                    int return_sequences, void* stream) {
+  using namespace mvt;
+  if (T < 1 || B < 1 || H < 32 || H % 32 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(return_sequences
+                   ? launch_act<true>(xp, h0, u, out, T, B, H, act, s)
+                   : launch_act<false>(xp, h0, u, out, T, B, H, act, s));
+}
+
+extern "C" const char* mvt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

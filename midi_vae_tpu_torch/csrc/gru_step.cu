@@ -18,6 +18,12 @@
 // math (_gru_step_bwd :153, _gru_recurrent_bwd :174), and the port's autograd
 // Functions do the same (ops/gru_step.py). Templated on the cell activation
 // (tanh, sigmoid or relu).
+// T has a bf16 build too (mvt_gru_step_bf16): _gru_full_kernel in a bf16
+// model (compute_dtype="bfloat16", the heads of fused_train_decoder=False
+// and merge_decoder_scans) takes x, h, W, U and b in bf16, computes
+// x @ W + b, h @ U and the gates in float (preferred_element_type=float32)
+// and stores h' in bf16; the bf16 build loads bf16 and stores h' rounded to
+// nearest even (gru_common.cuh's to_f32, from_f32).
 //
 // Design: the cell of kernels A and B (gru_common.cuh) run once: one block
 // owns kRows = 8 batch rows, blockDim.x == H and thread j owns hidden column
@@ -36,11 +42,11 @@
 
 namespace mvt {
 
-template <int ACT>
+template <int ACT, typename TT>
 __global__ void __launch_bounds__(kWideThreads) gru_step_kernel(
-    const float* __restrict__ x, const float* __restrict__ h,
-    const float* __restrict__ w, const float* __restrict__ b,
-    const float* __restrict__ u, float* __restrict__ h_out, int B, int D,
+    const TT* __restrict__ x, const TT* __restrict__ h,
+    const TT* __restrict__ w, const TT* __restrict__ b,
+    const TT* __restrict__ u, TT* __restrict__ h_out, int B, int D,
     int H) {
   extern __shared__ __align__(16) float smem[];
   float* x_s = smem;               // (D, kRows)
@@ -50,7 +56,7 @@ __global__ void __launch_bounds__(kWideThreads) gru_step_kernel(
   load_tile(x, x_s, row0, B, D);
   load_tile(h, h_s, row0, B, H);
   __syncthreads();
-  gru_cell<ACT>(x_s, D, h_s, rh_s, w, u, b, H);
+  gru_cell<ACT, kRows, TT>(x_s, D, h_s, rh_s, w, u, b, H);
   store_tile(h_s, h_out, row0, B, H);
 }
 
@@ -70,17 +76,37 @@ __global__ void __launch_bounds__(kWideThreads) gru_step_xp_kernel(
   store_tile(h_s, h_out, row0, B, H);
 }
 
-template <int ACT>
-cudaError_t launch(const float* x, const float* h, const float* w,
-                   const float* b, const float* u, float* h_out, int B, int D,
-                   int H, cudaStream_t stream) {
+template <int ACT, typename TT>
+cudaError_t launch(const TT* x, const TT* h, const TT* w, const TT* b,
+                   const TT* u, TT* h_out, int B, int D, int H,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(float) * kRows * (D + 2 * H);
-  cudaError_t err = fit_block(gru_step_kernel<ACT>, H, smem);
+  cudaError_t err = fit_block(gru_step_kernel<ACT, TT>, H, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + kRows - 1) / kRows);
-  gru_step_kernel<ACT><<<grid, H, smem, stream>>>(x, h, w, b, u, h_out, B, D,
-                                                  H);
+  gru_step_kernel<ACT, TT><<<grid, H, smem, stream>>>(x, h, w, b, u, h_out, B,
+                                                      D, H);
   return cudaGetLastError();
+}
+
+template <typename TT>
+int launch_any(const TT* x, const TT* h, const TT* w, const TT* b,
+               const TT* u, TT* h_out, int B, int D, int H, int act,
+               void* stream) {
+  if (B < 1 || D < 1 || H < 32 || H % 32 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (act) {
+    case kTanh:
+      return (int)launch<kTanh>(x, h, w, b, u, h_out, B, D, H, s);
+    case kSigmoid:
+      return (int)launch<kSigmoid>(x, h, w, b, u, h_out, B, D, H, s);
+    case kRelu:
+      return (int)launch<kRelu>(x, h, w, b, u, h_out, B, D, H, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int ACT>
@@ -99,21 +125,14 @@ cudaError_t launch_xp(const float* xp, const float* h, const float* u,
 extern "C" int mvt_gru_step(const float* x, const float* h, const float* w,
                             const float* b, const float* u, float* h_out,
                             int B, int D, int H, int act, void* stream) {
-  using namespace mvt;
-  if (B < 1 || D < 1 || H < 32 || H % 32 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (act) {
-    case kTanh:
-      return (int)launch<kTanh>(x, h, w, b, u, h_out, B, D, H, s);
-    case kSigmoid:
-      return (int)launch<kSigmoid>(x, h, w, b, u, h_out, B, D, H, s);
-    case kRelu:
-      return (int)launch<kRelu>(x, h, w, b, u, h_out, B, D, H, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return mvt::launch_any(x, h, w, b, u, h_out, B, D, H, act, stream);
+}
+
+extern "C" int mvt_gru_step_bf16(const mvt::bf16* x, const mvt::bf16* h,
+                                 const mvt::bf16* w, const mvt::bf16* b,
+                                 const mvt::bf16* u, mvt::bf16* h_out, int B,
+                                 int D, int H, int act, void* stream) {
+  return mvt::launch_any(x, h, w, b, u, h_out, B, D, H, act, stream);
 }
 
 extern "C" int mvt_gru_step_xp(const float* xp, const float* h,

@@ -21,18 +21,19 @@
 namespace mvt {
 
 // Column j's four gates of x_t @ W + b for the block's R rows: the bias, then
-// x_s (D, R) against W (D, 4H), read from L2.
-template <int R = kRows>
+// x_s (D, R) against W (D, 4H), read from L2 (W and b of type TW, summed in
+// float).
+template <int R = kRows, typename TW = float>
 __device__ __forceinline__ void lstm_x_gates(
-    const float* x_s, int D, const float* __restrict__ W,
-    const float* __restrict__ bias, int H, float ai[R], float af[R],
+    const float* x_s, int D, const TW* __restrict__ W,
+    const TW* __restrict__ bias, int H, float ai[R], float af[R],
     float ag[R], float ao[R]) {
   const int j = threadIdx.x;
   const int G = 4 * H;
   float v[R];
   {
-    const float bi = bias[j], bf = bias[H + j], bg = bias[2 * H + j],
-                bo = bias[3 * H + j];
+    const float bi = to_f32(bias[j]), bf = to_f32(bias[H + j]),
+                bg = to_f32(bias[2 * H + j]), bo = to_f32(bias[3 * H + j]);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       ai[r] = bi;
@@ -42,9 +43,9 @@ __device__ __forceinline__ void lstm_x_gates(
     }
   }
   for (int d = 0; d < D; ++d) {
-    const float* wd = W + (size_t)d * G;
-    const float wi = wd[j], wf = wd[H + j], wg = wd[2 * H + j],
-                wo = wd[3 * H + j];
+    const TW* wd = W + (size_t)d * G;
+    const float wi = to_f32(wd[j]), wf = to_f32(wd[H + j]),
+                wg = to_f32(wd[2 * H + j]), wo = to_f32(wd[3 * H + j]);
     load_rows<R>(x_s + d * R, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -58,9 +59,9 @@ __device__ __forceinline__ void lstm_x_gates(
 
 // Column j's four gates of a precomputed x-projection (row-major (B, 4H),
 // x @ W + b) for rows [row0, row0 + R); rows past B read as zeros.
-template <int R = kRows>
+template <int R = kRows, typename TX>
 __device__ __forceinline__ void load_gates4(
-    const float* __restrict__ xp, int row0, int B, int H, float ai[R],
+    const TX* __restrict__ xp, int row0, int B, int H, float ai[R],
     float af[R], float ag[R], float ao[R]) {
   const int j = threadIdx.x;
 #pragma unroll
@@ -68,11 +69,11 @@ __device__ __forceinline__ void load_gates4(
     const int row = row0 + r;
     ai[r] = af[r] = ag[r] = ao[r] = 0.0f;
     if (row < B) {
-      const float* x = xp + (size_t)row * 4 * H;
-      ai[r] = x[j];
-      af[r] = x[H + j];
-      ag[r] = x[2 * H + j];
-      ao[r] = x[3 * H + j];
+      const TX* x = xp + (size_t)row * 4 * H;
+      ai[r] = to_f32(x[j]);
+      af[r] = to_f32(x[H + j]);
+      ag[r] = to_f32(x[2 * H + j]);
+      ao[r] = to_f32(x[3 * H + j]);
     }
   }
 }
@@ -82,21 +83,23 @@ __device__ __forceinline__ void load_gates4(
 //   [i, f, g, o] += h @ U
 //   c' = sigmoid(f) * c + sigmoid(i) * act(g);  h' = sigmoid(o) * act(c')
 // h_s, hn_s and c_s are (H, R), feature-major; the new h goes to hn_s, the
-// new c over c_s (thread j writes column j only). Every thread of the block
-// must call it, after a barrier that completed h_s; it ends with a barrier,
-// after which hn_s holds h' (the caller swaps h_s and hn_s).
-template <int ACT, int R = kRows>
+// new c over c_s (thread j writes column j only), each rounded as a TS holds
+// it, h' from the unrounded c' (_lstm_gates, then astype). U (H, 4H) is of
+// type TU. Every thread of the block must call it, after a barrier that
+// completed h_s; it ends with a barrier, after which hn_s holds h' (the
+// caller swaps h_s and hn_s).
+template <int ACT, int R = kRows, typename TU = float, typename TS = float>
 __device__ __forceinline__ void lstm_cell_recurrent(
     float ai[R], float af[R], float ag[R], float ao[R], const float* h_s,
-    float* hn_s, float* c_s, const float* __restrict__ U, int H) {
+    float* hn_s, float* c_s, const TU* __restrict__ U, int H) {
   const int j = threadIdx.x;
   const int G = 4 * H;
   float v[R];
 #pragma unroll 4
   for (int k = 0; k < H; ++k) {
-    const float* uk = U + (size_t)k * G;
-    const float ui = uk[j], uf = uk[H + j], ug = uk[2 * H + j],
-                uo = uk[3 * H + j];
+    const TU* uk = U + (size_t)k * G;
+    const float ui = to_f32(uk[j]), uf = to_f32(uk[H + j]),
+                ug = to_f32(uk[2 * H + j]), uo = to_f32(uk[3 * H + j]);
     load_rows<R>(h_s + k * R, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -110,25 +113,26 @@ __device__ __forceinline__ void lstm_cell_recurrent(
   for (int r = 0; r < R; ++r) {
     const float c = activate<kSigmoid>(af[r]) * c_s[j * R + r] +
                     activate<kSigmoid>(ai[r]) * activate<ACT>(ag[r]);
-    c_s[j * R + r] = c;
-    hn_s[j * R + r] = activate<kSigmoid>(ao[r]) * activate<ACT>(c);
+    c_s[j * R + r] = round_as<TS>(c);
+    hn_s[j * R + r] = round_as<TS>(activate<kSigmoid>(ao[r]) * activate<ACT>(c));
   }
   __syncthreads();
 }
 
 // One LSTM step for the block's R rows:
 //   [i, f, g, o] = x @ W + h @ U + b, then as lstm_cell_recurrent.
-// x_s is (D, R), h_s, hn_s and c_s are (H, R), all feature-major. Every
+// x_s is (D, R), h_s, hn_s and c_s are (H, R), all feature-major; W, U and
+// b of type TW, which is also the type h' and c' are rounded as. Every
 // thread of the block must call it, after a barrier that completed x_s and
 // h_s; it ends with a barrier, after which hn_s holds h'.
-template <int ACT, int R = kRows>
+template <int ACT, int R = kRows, typename TW = float>
 __device__ __forceinline__ void lstm_cell(
     const float* x_s, int D, const float* h_s, float* hn_s, float* c_s,
-    const float* __restrict__ W, const float* __restrict__ U,
-    const float* __restrict__ bias, int H) {
+    const TW* __restrict__ W, const TW* __restrict__ U,
+    const TW* __restrict__ bias, int H) {
   float ai[R], af[R], ag[R], ao[R];
-  lstm_x_gates<R>(x_s, D, W, bias, H, ai, af, ag, ao);
-  lstm_cell_recurrent<ACT, R>(ai, af, ag, ao, h_s, hn_s, c_s, U, H);
+  lstm_x_gates<R, TW>(x_s, D, W, bias, H, ai, af, ag, ao);
+  lstm_cell_recurrent<ACT, R, TW, TW>(ai, af, ag, ao, h_s, hn_s, c_s, U, H);
 }
 
 // The readout of a decode head for the block's R rows: logits = h @ Wo + bo

@@ -16,6 +16,11 @@
 // h @ U is in the kernel, as in kernel Q's step. Its backward is the plain
 // recomputation too (_lstm_recurrent_bwd, :194-200).
 // Templated on the cell activation (on g and on c: tanh, sigmoid or relu).
+// S has a bf16 build too (mvt_lstm_step_bf16): _lstm_full_kernel in a bf16
+// model (compute_dtype="bfloat16": every LSTM head cell) takes x, h, c, W, U
+// and b in bf16, computes x @ W + b, h @ U and the gates in float and stores
+// h' and c' in bf16, h' from the unrounded c'; the bf16 build loads bf16 and
+// stores both rounded to nearest even (lstm_common.cuh).
 //
 // Design: the cell of kernels L and M (lstm_common.cuh) run once: one block
 // owns kRows = 8 batch rows, blockDim.x == H and thread j owns hidden column
@@ -32,13 +37,12 @@
 
 namespace mvt {
 
-template <int ACT>
+template <int ACT, typename TT>
 __global__ void __launch_bounds__(kWideThreads) lstm_step_kernel(
-    const float* __restrict__ x, const float* __restrict__ h,
-    const float* __restrict__ c, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ u,
-    float* __restrict__ h_out, float* __restrict__ c_out, int B, int D,
-    int H) {
+    const TT* __restrict__ x, const TT* __restrict__ h,
+    const TT* __restrict__ c, const TT* __restrict__ w,
+    const TT* __restrict__ b, const TT* __restrict__ u,
+    TT* __restrict__ h_out, TT* __restrict__ c_out, int B, int D, int H) {
   extern __shared__ __align__(16) float smem[];
   float* x_s = smem;               // (D, kRows)
   float* h_s = x_s + kRows * D;    // (H, kRows)
@@ -49,7 +53,7 @@ __global__ void __launch_bounds__(kWideThreads) lstm_step_kernel(
   load_tile(h, h_s, row0, B, H);
   load_tile(c, c_s, row0, B, H);
   __syncthreads();
-  lstm_cell<ACT>(x_s, D, h_s, hn_s, c_s, w, u, b, H);
+  lstm_cell<ACT, kRows, TT>(x_s, D, h_s, hn_s, c_s, w, u, b, H);
   store_tile(hn_s, h_out, row0, B, H);
   store_tile(c_s, c_out, row0, B, H);
 }
@@ -74,18 +78,37 @@ __global__ void __launch_bounds__(kWideThreads) lstm_step_xp_kernel(
   store_tile(c_s, c_out, row0, B, H);
 }
 
-template <int ACT>
-cudaError_t launch(const float* x, const float* h, const float* c,
-                   const float* w, const float* b, const float* u,
-                   float* h_out, float* c_out, int B, int D, int H,
-                   cudaStream_t stream) {
+template <int ACT, typename TT>
+cudaError_t launch(const TT* x, const TT* h, const TT* c, const TT* w,
+                   const TT* b, const TT* u, TT* h_out, TT* c_out, int B,
+                   int D, int H, cudaStream_t stream) {
   const size_t smem = sizeof(float) * kRows * (D + 3 * H);
-  cudaError_t err = fit_block(lstm_step_kernel<ACT>, H, smem);
+  cudaError_t err = fit_block(lstm_step_kernel<ACT, TT>, H, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + kRows - 1) / kRows);
-  lstm_step_kernel<ACT><<<grid, H, smem, stream>>>(x, h, c, w, b, u, h_out,
-                                                   c_out, B, D, H);
+  lstm_step_kernel<ACT, TT><<<grid, H, smem, stream>>>(x, h, c, w, b, u,
+                                                       h_out, c_out, B, D, H);
   return cudaGetLastError();
+}
+
+template <typename TT>
+int launch_any(const TT* x, const TT* h, const TT* c, const TT* w,
+               const TT* b, const TT* u, TT* h_out, TT* c_out, int B, int D,
+               int H, int act, void* stream) {
+  if (B < 1 || D < 1 || H < 32 || H % 32 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (act) {
+    case kTanh:
+      return (int)launch<kTanh>(x, h, c, w, b, u, h_out, c_out, B, D, H, s);
+    case kSigmoid:
+      return (int)launch<kSigmoid>(x, h, c, w, b, u, h_out, c_out, B, D, H, s);
+    case kRelu:
+      return (int)launch<kRelu>(x, h, c, w, b, u, h_out, c_out, B, D, H, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int ACT>
@@ -107,21 +130,15 @@ extern "C" int mvt_lstm_step(const float* x, const float* h, const float* c,
                              const float* w, const float* b, const float* u,
                              float* h_out, float* c_out, int B, int D, int H,
                              int act, void* stream) {
-  using namespace mvt;
-  if (B < 1 || D < 1 || H < 32 || H % 32 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (act) {
-    case kTanh:
-      return (int)launch<kTanh>(x, h, c, w, b, u, h_out, c_out, B, D, H, s);
-    case kSigmoid:
-      return (int)launch<kSigmoid>(x, h, c, w, b, u, h_out, c_out, B, D, H, s);
-    case kRelu:
-      return (int)launch<kRelu>(x, h, c, w, b, u, h_out, c_out, B, D, H, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return mvt::launch_any(x, h, c, w, b, u, h_out, c_out, B, D, H, act, stream);
+}
+
+extern "C" int mvt_lstm_step_bf16(const mvt::bf16* x, const mvt::bf16* h,
+                                  const mvt::bf16* c, const mvt::bf16* w,
+                                  const mvt::bf16* b, const mvt::bf16* u,
+                                  mvt::bf16* h_out, mvt::bf16* c_out, int B,
+                                  int D, int H, int act, void* stream) {
+  return mvt::launch_any(x, h, c, w, b, u, h_out, c_out, B, D, H, act, stream);
 }
 
 extern "C" int mvt_lstm_step_xp(const float* xp, const float* h,

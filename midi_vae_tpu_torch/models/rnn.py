@@ -9,7 +9,9 @@ switch is on, or on the training path as the differentiable
 + b in torch.matmul and ``gru_layer_train`` (kernels F, G and W) or
 ``lstm_layer_train`` (kernels Q, R and W) over it, or with ``per_step``
 (``fused_train_encoder=False``) xp in one matmul and the per-step cell over
-it (kernel T xp or S xp), else the plain per-step cell scan;
+it (kernel T xp or S xp), or with ``whole_scan`` (the same in bfloat16) xp
+in one matmul and the whole-scan layer over it (kernel X or Y), else the
+plain per-step cell scan;
 ``init_decoder_states`` is plain dense + activation;
 ``decode_autoregressive`` is the readout loop that feeds each step's
 activated output back as the next input, each cell through ``step`` when
@@ -26,6 +28,7 @@ from typing import Any
 
 import torch
 
+from ..ops.encoder_scan import gru_encoder_scan, lstm_encoder_scan
 from ..ops.gru_layer import gru_layer, gru_layer_train, gru_layer_train_x
 from ..ops.gru_step import gru_recurrent_step
 from ..ops.lstm_layer import lstm_layer, lstm_layer_train, lstm_layer_train_x
@@ -38,34 +41,34 @@ Params = dict[str, Any]
 def encode_sequence(layer_params, xs: torch.Tensor, cell_type: str, activation: str = "tanh",
                     bidirectional: bool = False, kernels: bool = False,
                     gate_activation: str = "sigmoid", train: bool = False,
-                    wide: bool = False, per_step: bool = False) -> torch.Tensor:
+                    wide: bool = False, per_step: bool = False,
+                    whole_scan: bool = False) -> torch.Tensor:
     """Run a stacked RNN over (B, T, D); return the last layer's final h (B, H).
 
     All layers but the last return sequences; ``bidirectional`` wraps the
     non-final layers in forward + backward passes with concat merge.
     ``train`` (with ``kernels``) takes the differentiable training layer,
     over a precomputed x-projection when ``wide``; ``per_step`` (with
-    ``kernels``) the per-step cell over it."""
+    ``kernels``) the per-step cell over it; ``whole_scan`` (with
+    ``kernels``) the whole-scan layer over it."""
     cell = get_cell(cell_type)
     h = xs
     n_layers = len(layer_params)
+    opts = (kernels, gate_activation, train, wide, per_step, whole_scan)
     for i, p in enumerate(layer_params):
         is_last = i == n_layers - 1
         if bidirectional and not is_last:
-            fwd = _scan_layer(cell, p["fwd"], h, activation, True, kernels, gate_activation, train,
-                              wide, per_step)
-            bwd = _scan_layer(cell, p["bwd"], h.flip(1), activation, True, kernels,
-                              gate_activation, train, wide, per_step).flip(1)
+            fwd = _scan_layer(cell, p["fwd"], h, activation, True, *opts)
+            bwd = _scan_layer(cell, p["bwd"], h.flip(1), activation, True, *opts).flip(1)
             h = torch.cat([fwd, bwd], dim=-1)
         else:
-            h = _scan_layer(cell, p, h, activation, not is_last, kernels, gate_activation, train,
-                            wide, per_step)
+            h = _scan_layer(cell, p, h, activation, not is_last, *opts)
     return h
 
 
 def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_sequences: bool,
                 kernels: bool = False, gate_activation: str = "sigmoid", train: bool = False,
-                wide: bool = False, per_step: bool = False):
+                wide: bool = False, per_step: bool = False, whole_scan: bool = False):
     """One RNN layer over (B, T, D): one kernel-A call when ``kernels`` (GRU
     cells with sigmoid gates), the training layer (kernels A, C, W) when
     ``train`` too, or with ``wide`` xp = x @ W + b and kernels F, G, W (the
@@ -76,10 +79,20 @@ def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_seque
     take the plain scan on any device (``_lstm_x_use_pallas``,
     ``_lstm_mode``); with ``per_step`` xp = x @ W + b in one matmul and
     kernel T xp (GRU) or S xp (LSTM) per step over it, any cell activation
-    (``rnn.py:184-200``); else the plain cell scan."""
+    (``rnn.py:184-200``); with ``whole_scan`` the same xp and one call of
+    kernel X (GRU) or Y (LSTM) over it, any cell activation
+    (``rnn.py:163-182``); else the plain cell scan."""
     B, T, _ = xs.shape
     hidden = p["u"].shape[0]
     init = zero_states(cell, B, hidden, xs)
+    if kernels and whole_scan:
+        # xp in the compute dtype, as cell.x_proj gives it outside Pallas
+        xp = (xs.transpose(0, 1).reshape(T * B, -1) @ p["w"] + p["b"]).reshape(T, B, -1)
+        if cell.num_states == 2:
+            out = lstm_encoder_scan(xp, init[0], init[1], p["u"], activation, return_sequences)
+        else:
+            out = gru_encoder_scan(xp, init[0], p["u"], activation, return_sequences)
+        return out.transpose(0, 1) if return_sequences else out
     if kernels and per_step:
         xp = (xs.transpose(0, 1).reshape(T * B, -1) @ p["w"] + p["b"]).reshape(T, B, -1)
         states, outs = init, []

@@ -27,7 +27,9 @@ the card's limits (``train_route``). Encoder layers: with
 ``gru_layer_train_x``, A + C + W, or on the wide route ``gru_layer_train``
 over xp = x @ W + b, F + G + W; LSTM ``lstm_layer_train_x``, L + N + W, or
 ``lstm_layer_train``, Q + R + W) or, for other cell activations, the plain
-scan; without it xp in one matmul and T xp or S xp per step. GRU decode
+scan; without it xp in one matmul and T xp or S xp per step, or in bfloat16
+(``compute_dtype``, the JAX package's ``whole_scan``) one call of the
+whole-scan kernel X (GRU) or Y (LSTM) per layer over it. GRU decode
 heads: with ``fused_train_decoder`` the notes head and its T-length side
 heads in one multi-head call (narrow route), every other 1- or 2-layer head
 with a softmax, sigmoid or linear output through ``gru_decode_train`` (D +
@@ -37,10 +39,12 @@ step for other output activations; ``merge_decoder_scans`` runs the T-length
 heads in one loop (``decode_heads_merged``) through T, and
 ``fused_train_decoder=False`` every head through T. LSTM heads run S per
 cell and step (the JAX package has no LSTM whole-head training kernel),
-merged or not. Teacher-forced heads take the plain scan. Paths whose kernels
-are not ported yet raise NotImplementedError on CUDA, naming their row of
-the kernel table or their ROADMAP item (``unported_training``); on the CPU
-they run the plain path through autograd.
+merged or not. Teacher-forced heads take the plain scan. In bfloat16 the
+cells T and S run their bf16 builds and the multi-head call is declined, as
+on the TPU. Paths whose kernels are not ported yet raise NotImplementedError
+on CUDA, naming their row of the kernel table or their ROADMAP item
+(``unported_training``); on the CPU they run the plain path through
+autograd.
 """
 
 from __future__ import annotations
@@ -83,12 +87,13 @@ def _multihead(cfg: Config, route: str | None) -> bool:
     """Whether the training decode runs the multi-head call when the notes
     head is not teacher-forced: GRU, tanh, ``fused_train_decoder``, not
     merged, a 2-layer notes head with a softmax, sigmoid or linear output
-    and a T-length side head, on the narrow route (``models/vae.py:560-572``,
-    ``_mh_use_pallas``)."""
+    and a T-length side head, float32 (bf16 training falls back to the
+    per-head kernels on the TPU), on the narrow route
+    (``models/vae.py:560-572``, ``_mh_use_pallas`` fused_train.py:3454-3471)."""
     return (cfg.cell_type == "GRU" and cfg.lstm_activation == "tanh" and cfg.fused_train_decoder
             and not cfg.merge_decoder_scans and cfg.num_layers_decoder == 2
             and cfg.activation in OUT_ACTIVATIONS and bool(_side_heads(cfg))
-            and route == "narrow")
+            and cfg.compute_dtype != "bfloat16" and route == "narrow")
 
 
 def unported_training(cfg: Config) -> str | None:
@@ -97,18 +102,23 @@ def unported_training(cfg: Config) -> str | None:
     can."""
     lstm = cfg.cell_type == "LSTM"
     if cfg.compute_dtype == "bfloat16":
-        if not cfg.fused_train_encoder:
-            rows = "32 and 33" if lstm else "26 and 27"
-            return (f"bfloat16 training with fused_train_encoder=False runs the whole-scan "
-                    f"encoder kernel _encoder_kernel (rows {rows}) in bfloat16, not yet ported "
-                    "(Queue 1 item 2)")
-        if lstm:
-            # with the train kernels on, the JAX package keeps them in bf16
-            return ("bfloat16 LSTM training not yet ported: the JAX package runs its LSTM "
-                    "training kernels (rows 15-20 and 30) in bfloat16, the port's run float32 "
-                    "(Queue 1 item 2)")
-        return ("bfloat16 training not yet ported: the training kernels run float32 "
-                "(Queue 1 item 2)")
+        # ported in bf16: the whole-scan encoders X and Y (fused_train_encoder
+        # =False) and the cells T and S; the plain scans of non-tanh cells
+        if cfg.fused_train_encoder and cfg.lstm_activation == "tanh":
+            built = ("L, N and W (narrow route) or Q, R and W (wide route), rows 15-20" if lstm
+                     else "A, C and W (narrow route) or F, G and W (wide route), rows 1-4 and "
+                     "9-12")
+            return (f"bfloat16 training with fused_train_encoder runs the encoder's whole-layer "
+                    f"training kernels {built}, in bfloat16 in the JAX package; their bf16 "
+                    "builds are not yet ported (Queue 1 item 2). With "
+                    f"fused_train_encoder=False the encoder trains through kernel "
+                    f"{'Y' if lstm else 'X'}")
+        if not lstm and cfg.fused_train_decoder and cfg.lstm_activation == "tanh":
+            return ("bfloat16 GRU training with fused_train_decoder decodes its heads through "
+                    "gru_decode_train, whose kernels D and E (rows 5-8 and 13-14) the JAX "
+                    "package runs in bfloat16 (heads narrower than 8 promoted to float32, "
+                    "fused_train.py:808-822); D and E in bf16 are not yet ported (Queue 1 item "
+                    "2). With fused_train_decoder=False every head decodes through kernel T")
     if (cfg.decode_residual_bf16 and not cfg.teacher_force
             and _multihead(cfg, _layout.config_route(cfg, on_card=False))):
         return ("decode_residual_bf16 keeps the multi-head decode kernel's residuals in "
@@ -312,28 +322,33 @@ class MidiVAE(nn.Module):
         enc = (self.params if params is None else params)["encoder"]
         x = batch["X"]
         train = not inference
-        per_step = wide = False
+        per_step = wide = whole_scan = False
         if inference:
             kernels = self.kernels_enabled(x.device)
         else:
             # fused_train_encoder: the whole-layer kernels (tanh cells) or
-            # the plain scan; without it T xp or S xp per step (rnn.py:139-200)
+            # the plain scan; without it T xp or S xp per step, or in bf16
+            # the whole-scan kernels X and Y (rnn.py:139-200, vae.py:255-260)
             steps, layers = self.train_kernels(x.device)
-            per_step = steps and not cfg.fused_train_encoder
-            kernels = per_step or layers
-            wide = layers and not per_step and self.train_route(x.device) == "wide"
+            whole_scan = (steps and not cfg.fused_train_encoder
+                          and cfg.compute_dtype == "bfloat16")
+            per_step = steps and not cfg.fused_train_encoder and not whole_scan
+            kernels = per_step or whole_scan or layers
+            wide = (layers and not per_step and not whole_scan
+                    and self.train_route(x.device) == "wide")
         if cfg.use_embedding:
             x = x @ enc["embedding"]["w"]
         parts = [encode_sequence(enc["notes_rnn"], x, cfg.cell_type, cfg.lstm_activation,
                                  cfg.bidirectional, kernels, cfg.gate_activation, train, wide,
-                                 per_step)]
+                                 per_step, whole_scan)]
         for flag, name, key in ((cfg.meta_instrument, "inst_rnn", "I"),
                                 (cfg.meta_velocity, "vel_rnn", "V"),
                                 (cfg.meta_held_notes, "held_rnn", "D")):
             if flag:
                 parts.append(encode_sequence(enc[name], batch[key], cfg.cell_type,
                                              cfg.lstm_activation, False, kernels,
-                                             cfg.gate_activation, train, wide, per_step))
+                                             cfg.gate_activation, train, wide, per_step,
+                                             whole_scan))
         h = parts[0]
         if len(parts) > 1:
             act = activation_fn(cfg.activation_before_splitting)
@@ -536,7 +551,8 @@ class MidiVAE(nn.Module):
         path. ``noise``: pre-scaled reparameterization noise (epsilon_std *
         N(0, 1), (B, latent_dim)), z = z_mean + exp(z_log_var / 2) * noise;
         without it ``sample_z`` draws from ``generator``. With
-        ``compute_dtype='bfloat16'`` the forward runs in bf16 (CPU only)."""
+        ``compute_dtype='bfloat16'`` the forward runs in bf16, params and
+        batch cast as the JAX package casts them (``models/vae.py:689-697``)."""
         cfg = self.cfg
         params = self.params
         if cfg.compute_dtype == "bfloat16":

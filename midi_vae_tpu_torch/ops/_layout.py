@@ -1,7 +1,7 @@
 """Which kernel builds a layer or decode head takes, from the card's limits.
 
-Every kernel of the port (GRU: A to G, T, T xp; LSTM: L, M, N, Q, R, S,
-S xp) runs one
+Every kernel of the port (GRU: A to G, T, T xp, X; LSTM: L, M, N, Q, R, S,
+S xp, Y) runs one
 thread per hidden column (blockDim.x = H) and keeps a tile of batch rows per
 block, so whether a build launches at a width is a matter of two limits of
 the H100 (sm_90a):
@@ -13,10 +13,10 @@ the H100 (sm_90a):
 Kernels A to E, L, M and N are built without launch bounds; their register
 counts (``REGISTERS``, from ``nvcc -Xptxas -v`` on the card; ``chip_smoke.py``
 checks them against the build) decide how wide they go. F, G, Q, R, the
-per-step cells (S, S xp, T, T xp) and the wide decode builds are compiled
-under ``__launch_bounds__(WIDE_THREADS)``, so the compiler guarantees that
-up to 512 threads launch (``chip_smoke.py`` checks their registers from
-ptxas against it).
+per-step cells (S, S xp, T, T xp), the bf16 whole-scan encoders (X, Y) and
+the wide decode builds are compiled under ``__launch_bounds__(WIDE_THREADS)``,
+so the compiler guarantees that up to 512 threads launch (``chip_smoke.py``
+checks their registers from ptxas against it).
 
 The training step takes one route for all its layers and heads:
 - ``"narrow"``, the GRU(256) path: A + C per encoder layer (the x-projection
@@ -60,7 +60,7 @@ WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
 # a build's template instances), from nvcc -Xptxas -v for sm_90a
 REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75, "N": 117}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
-BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "R", "S", "S_xp", "T", "T_xp")
+BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "R", "S", "S_xp", "T", "T_xp", "X", "Y")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
 LSTM_NARROW_MAX_H = 256
 
@@ -75,7 +75,8 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
                dx: bool = False) -> int:
     """Dynamic shared memory of one block of ``kernel``: D is the layer's
     input width (A, C, L, N), the head's output width (B, D, E, M) or the
-    cell's input width (S, T)."""
+    cell's input width (S, T). The bf16 builds (X, Y and those of S and T)
+    hold their tiles in float too: a bf16 value is widened as it is loaded."""
     rows = WIDE_ROWS if kernel.endswith("_wide") else ROWS
     floats = {
         "A": D + 2 * H,
@@ -94,6 +95,8 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
         "S_xp": 3 * H,  # as Q
         "T": D + 2 * H,  # x, h, r * h
         "T_xp": 2 * H,  # h, r * h
+        "X": 2 * H,  # as F
+        "Y": 3 * H,  # as Q
     }[kernel.removesuffix("_wide")]
     return 4 * rows * floats
 

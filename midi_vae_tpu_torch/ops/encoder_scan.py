@@ -1,0 +1,170 @@
+"""Kernels X and Y: a whole GRU or LSTM encoder layer in bfloat16 over its
+precomputed x-projection, the encoder of bf16 training with
+``fused_train_encoder=False``.
+
+Counterpart of ``midi_vae_tpu/ops/fused_decoder.py::fused_encoder_scan``
+(:457) and ``midi_vae_tpu/ops/fused_lstm.py::fused_lstm_encoder_scan``
+(:387), whose Pallas kernels ``_encoder_kernel`` (through
+``_encoder_scan_pallas`` and, batch-tiled, ``_encoder_scan_wide_pallas``:
+rows 26, 27, 32 and 33 of the kernel table) kernels X
+(``csrc/gru_encoder_scan.cu``) and Y (``csrc/lstm_encoder_scan.cu``)
+replace; their source notes give the layout and what bounds them. The JAX
+package takes them only where ``models/vae.py:255-260`` sets
+``whole_scan``: training, the kernels on, ``fused_train_encoder=False`` and
+``compute_dtype="bfloat16"``.
+
+``gru_encoder_scan_reference`` and ``lstm_encoder_scan_reference`` are the
+plain versions: the CPU path and the kernels' oracles. They compute as the
+Pallas kernels do: the products and the gate math in float32, the carried
+state (h; h and c) rounded to the compute dtype after every step
+(``gru_layer.gru_step_xp``, ``lstm_layer.lstm_step``); in float32 they are
+the JAX references exactly.
+
+``gru_encoder_scan`` and ``lstm_encoder_scan`` are whole-layer
+``RematStep``s: the forward launches the kernel on CUDA tensors (bfloat16
+only, the one dtype the JAX package runs them in) and the plain version on
+CPU tensors, and the backward recomputes the JAX reference scan under
+autograd, as ``_fes_bwd`` (:492) and ``_fles_bwd`` (:430) do with
+``jax.vjp``: for the GRU ``gru_encoder_scan_vjp_reference``, every op in
+bf16 as ``fused_decoder._encoder_scan_reference`` (:333) rounds; for the
+LSTM ``lstm_encoder_scan_reference`` itself, which is
+``fused_lstm._encoder_scan_reference`` (:290: ``_lstm_gates``' float32
+product of the bf16 operands, the state rounded each step). The cell
+activation is tanh, sigmoid or relu (``_activation``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build, _layout
+from . import gru_layer, lstm_layer
+from .gru_layer import CELL_ACTIVATIONS, _ptr, cell_activation, check_operands
+from .gru_step import RematStep, gru_recurrent_step_vjp_reference
+from .lstm_layer import _check_shapes, _on, _stream
+
+
+def gru_encoder_scan_reference(xp, h0, u, activation="tanh", return_sequences=False):
+    """Plain version of X: xp (T, B, 3H), h0 (B, H), u (H, 3H) -> the (T, B,
+    H) h sequence or the final h (B, H)."""
+    return gru_layer._scan_xp(xp, h0, u, cell_activation(activation), return_sequences)
+
+
+def gru_encoder_scan_vjp_reference(xp, h0, u, activation="tanh", return_sequences=False):
+    """What X's backward differentiates: ``_encoder_scan_reference``, every
+    op in the operands' dtype, T xp's backward reference scanned
+    (``gru_encoder_scan_reference`` in float32)."""
+    h, seq = h0, []
+    for t in range(xp.shape[0]):
+        h = gru_recurrent_step_vjp_reference(xp[t], h, u, activation)
+        seq.append(h)
+    return torch.stack(seq) if return_sequences else h
+
+
+def lstm_encoder_scan_reference(xp, h0, c0, u, activation="tanh", return_sequences=False):
+    """Plain version of Y: xp (T, B, 4H), h0, c0 (B, H), u (H, 4H) -> the
+    (T, B, H) h sequence or the final h (B, H)."""
+    hseq, _ = lstm_layer._scan_xp(xp, h0, c0, u, cell_activation(activation))
+    return hseq if return_sequences else hseq[-1]
+
+
+@functools.cache
+def _kernel(name):
+    lib = _build.load(name)
+    fn = getattr(lib, f"mvt_{name}")
+    n_ptrs = 4 if name == "gru_encoder_scan" else 5
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _launch(name, letter, xp, states, u, activation, return_sequences):
+    """Checks and launches kernel X or Y over xp (T, B, G) with the initial
+    ``states`` (h0, or h0 and c0)."""
+    T, B = xp.shape[:2]
+    H = u.shape[0]
+    check_operands({"xp": xp, **{f"state{i}": s for i, s in enumerate(states)}, "u": u},
+                   xp.device, (torch.bfloat16,))
+    if T < 1 or B < 1:
+        raise ValueError(f"kernel {letter} takes T >= 1 and B >= 1; got T={T} B={B}")
+    _layout.require(letter, H, _layout.smem_bytes(letter, H))
+    out = torch.empty((T, B, H) if return_sequences else (B, H), device=xp.device,
+                      dtype=torch.bfloat16)
+    lib, fn = _kernel(name)
+    rc = fn(_ptr(xp), *map(_ptr, states), _ptr(u), _ptr(out), T, B, H,
+            CELL_ACTIVATIONS[activation], int(return_sequences), _stream(xp))
+    _build.check(lib, rc, f"{name} launch")
+    return out
+
+
+def _check_activation(activation):
+    if activation not in CELL_ACTIVATIONS:
+        raise ValueError(f"unsupported encoder scan activation {activation!r}")
+
+
+def gru_encoder_scan_fwd(xp, h0, u, activation="tanh", return_sequences=False):
+    """The GRU layer over xp (T, B, 3H) time-major: the (T, B, H) h sequence
+    or the final h (B, H). CPU tensors run ``gru_encoder_scan_reference``;
+    CUDA tensors (bfloat16) launch kernel X."""
+    _check_activation(activation)
+    if xp.dim() != 3:
+        raise ValueError(f"xp must be (T, B, 3H), got {tuple(xp.shape)}")
+    T, B = xp.shape[:2]
+    H = u.shape[0]
+    _check_shapes({"xp": xp, "h0": h0, "u": u},
+                  {"xp": (T, B, 3 * H), "h0": (B, H), "u": (H, 3 * H)})
+    if not _on(xp, "gru_encoder_scan"):
+        return gru_encoder_scan_reference(xp, h0, u, activation, return_sequences)
+    out = _launch("gru_encoder_scan", "X", xp, (h0,), u, activation, return_sequences)
+    gru_encoder_scan_fwd.launches += 1
+    return out
+
+
+gru_encoder_scan_fwd.launches = 0
+
+
+def lstm_encoder_scan_fwd(xp, h0, c0, u, activation="tanh", return_sequences=False):
+    """The LSTM layer over xp (T, B, 4H) time-major: the (T, B, H) h
+    sequence or the final h (B, H). CPU tensors run
+    ``lstm_encoder_scan_reference``; CUDA tensors (bfloat16) launch kernel
+    Y."""
+    _check_activation(activation)
+    if xp.dim() != 3:
+        raise ValueError(f"xp must be (T, B, 4H), got {tuple(xp.shape)}")
+    T, B = xp.shape[:2]
+    H = u.shape[0]
+    _check_shapes({"xp": xp, "h0": h0, "c0": c0, "u": u},
+                  {"xp": (T, B, 4 * H), "h0": (B, H), "c0": (B, H), "u": (H, 4 * H)})
+    if not _on(xp, "lstm_encoder_scan"):
+        return lstm_encoder_scan_reference(xp, h0, c0, u, activation, return_sequences)
+    out = _launch("lstm_encoder_scan", "Y", xp, (h0, c0), u, activation, return_sequences)
+    lstm_encoder_scan_fwd.launches += 1
+    return out
+
+
+lstm_encoder_scan_fwd.launches = 0
+
+
+def gru_encoder_scan(xp, h0, u, activation="tanh", return_sequences=False):
+    """Differentiable GRU layer over xp (T, B, 3H): kernel X forward on CUDA
+    tensors, ``gru_encoder_scan_vjp_reference`` recomputed under autograd
+    as its backward."""
+    return RematStep.apply(functools.partial(gru_encoder_scan_fwd,
+                                             return_sequences=return_sequences),
+                           functools.partial(gru_encoder_scan_vjp_reference,
+                                             return_sequences=return_sequences),
+                           activation, xp, h0, u)
+
+
+def lstm_encoder_scan(xp, h0, c0, u, activation="tanh", return_sequences=False):
+    """Differentiable LSTM layer over xp (T, B, 4H): kernel Y forward on
+    CUDA tensors, the plain scan (the JAX reference's rounding) recomputed
+    under autograd as its backward."""
+    return RematStep.apply(functools.partial(lstm_encoder_scan_fwd,
+                                             return_sequences=return_sequences),
+                           functools.partial(lstm_encoder_scan_reference,
+                                             return_sequences=return_sequences),
+                           activation, xp, h0, c0, u)

@@ -56,19 +56,25 @@ def cell_activation(name: str):
 
 
 def gru_step(x, h, w, u, b, act):
-    """One reset-before GRU step: (B, D), (B, H) -> (B, H)."""
-    return gru_step_xp(x @ w + b, h, u, act)
+    """One reset-before GRU step: (B, D), (B, H) -> (B, H); x @ W + b in
+    float32, as ``gru_step_xp`` computes the rest."""
+    return gru_step_xp(x.float() @ w.float() + b.float(), h, u, act)
 
 
 def gru_step_xp(xp, h, u, act):
     """One reset-before GRU step over its x-projection xp = x @ W + b
-    (B, 3H): (B, H) -> (B, H)."""
+    (B, 3H): (B, H) -> (B, H). The products and the gate math run in
+    float32 (r * h too) and h' is rounded to h's dtype once, as the Pallas
+    kernels do in a bfloat16 model (``preferred_element_type=float32``,
+    then ``astype``: ``fused_gru.py:54-82``, ``fused_decoder.py:300-311``);
+    in float32 the casts are no-ops."""
     H = h.shape[-1]
-    hu_zr = h @ u[:, : 2 * H]
+    xp, hf, u = xp.float(), h.float(), u.float()
+    hu_zr = hf @ u[:, : 2 * H]
     z = torch.sigmoid(xp[:, :H] + hu_zr[:, :H])
     r = torch.sigmoid(xp[:, H : 2 * H] + hu_zr[:, H:])
-    hh = act(xp[:, 2 * H :] + (r * h) @ u[:, 2 * H :])
-    return z * h + (1.0 - z) * hh
+    hh = act(xp[:, 2 * H :] + (r * hf) @ u[:, 2 * H :])
+    return (z * hf + (1.0 - z) * hh).to(h.dtype)
 
 
 def gru_layer_reference(x, h0, w, b, u, activation="tanh", return_sequences=False):
@@ -90,15 +96,22 @@ def _scan_xp(xp, h0, u, act, return_sequences):
     return torch.stack(seq) if return_sequences else h
 
 
-def check_operands(named: dict, device: torch.device) -> None:
-    """Device, dtype and contiguity checks shared by the kernel wrappers."""
+def check_operands(named: dict, device: torch.device,
+                   dtypes: tuple = (torch.float32,)) -> torch.dtype:
+    """Device, dtype and contiguity checks shared by the kernel wrappers:
+    every operand on ``device``, contiguous, and of one dtype among
+    ``dtypes`` (those the kernel has builds for). Returns that dtype."""
+    dtype = next(iter(named.values())).dtype
     for name, t in named.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} has dtype {t.dtype}; the kernels take float32")
+        if t.dtype not in dtypes or t.dtype != dtype:
+            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise ValueError(f"{name} has dtype {t.dtype}; the kernel takes {names}, every "
+                             "operand alike")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return dtype
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -8,19 +8,33 @@ Counterpart of ``midi_vae_tpu/ops/fused_gru.py``: ``gru_cell_step`` is its
 ``_gru_recurrent_kernel`` (through ``_gru_recurrent_pallas``) kernel T xp
 replaces. Both live in ``csrc/gru_step.cu``, whose source note gives the
 layout and what bounds them. The plain versions ``gru_cell_step_reference``
-and ``gru_recurrent_step_reference`` (``_gru_step_reference``,
-``_gru_recurrent_reference``) are the CPU path, the kernels' oracles and
-the backward.
+and ``gru_recurrent_step_reference`` compute as the Pallas kernels do: the
+CPU path and the kernels' oracles.
 
 Each differentiable step is a ``RematStep``: its forward launches the kernel
 on CUDA tensors (the plain version on CPU tensors) and its backward
-recomputes the step through the plain version under autograd, as the JAX
-package's custom VJPs do with ``jax.vjp`` (``_gru_step_bwd`` :153,
-``_gru_recurrent_bwd`` :174). ``make_decoder_step`` adapts T to
+recomputes the step under autograd through ``gru_cell_step_vjp_reference``
+or ``gru_recurrent_step_vjp_reference``, the JAX references
+``_gru_step_reference`` and ``_gru_recurrent_reference`` (every op in the
+operands' dtype), as the JAX package's custom VJPs do with ``jax.vjp``
+(``_gru_step_bwd`` :153, ``_gru_recurrent_bwd`` :174). In float32 both
+plain versions compute the same. ``make_decoder_step`` adapts T to
 ``models/rnn.py::decode_autoregressive`` (``make_fused_decoder_step``).
 The cell activation is tanh, sigmoid or relu (``fused_gru._activation``).
 Neither ``torch.nn.GRUCell`` nor ``torch.gru_cell`` computes this cell: both
 are reset-after.
+
+T has a float32 and a bfloat16 build (``mvt_gru_step``,
+``mvt_gru_step_bf16``), picked by the operands' dtype: a bf16 model
+(``compute_dtype="bfloat16"``) runs ``_gru_full_kernel`` in bf16, with the
+products and gates in float32 and h' stored in bf16; the plain versions
+compute the same way (``gru_layer.gru_step_xp``), while the backward rounds
+every op to bf16, as ``_gru_step_reference`` and the plain cell do.
+Launches are counted per build: ``gru_cell_step_fwd.launches`` (float32)
+and ``.launches_bf16``.
+T xp has the float32 build only: the bf16 encoder with
+``fused_train_encoder=False`` is the whole-scan kernel X
+(``ops/encoder_scan.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ import functools
 
 import torch
 
+from ..models.cells import GRUCell
 from . import _build, _layout
 from .gru_layer import (
     CELL_ACTIVATIONS,
@@ -45,8 +60,9 @@ from .lstm_layer import _check_shapes, _on, _stream
 class RematStep(torch.autograd.Function):
     """A per-step cell: the forward is ``fwd`` (a kernel wrapper), the
     backward recomputes ``plain`` under autograd (the JAX package's
-    ``jax.vjp`` remat of its per-step cells). ``apply(fwd, plain,
-    activation, *tensors)``; the outputs are one tensor or a tuple."""
+    ``jax.vjp`` remat of its per-step cells, ``plain`` the JAX reference it
+    differentiates). ``apply(fwd, plain, activation, *tensors)``; the
+    outputs are one tensor or a tuple."""
 
     @staticmethod
     def forward(ctx, fwd, plain, activation, *tensors):
@@ -77,20 +93,34 @@ def gru_recurrent_step_reference(xp, h, u, activation="tanh"):
     return gru_step_xp(xp, h, u, cell_activation(activation))
 
 
+def gru_cell_step_vjp_reference(x, h, w, b, u, activation="tanh"):
+    """What T's backward differentiates: ``_gru_step_reference``, x @ W + b
+    and every op after it in the operands' dtype, as the plain cell
+    (``models/cells.py::GRUCell.step``) computes."""
+    return gru_recurrent_step_vjp_reference(x @ w + b, h, u, activation)
+
+
+def gru_recurrent_step_vjp_reference(xp, h, u, activation="tanh"):
+    """What T xp's backward differentiates: ``_gru_recurrent_reference``."""
+    return GRUCell.step({"u": u}, xp, (h,), cell_activation(activation))[0]
+
+
 @functools.cache
 def _kernels():
     lib = _build.load("gru_step")
-    step, step_xp = lib.mvt_gru_step, lib.mvt_gru_step_xp
-    step.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    step, step_bf16, step_xp = lib.mvt_gru_step, lib.mvt_gru_step_bf16, lib.mvt_gru_step_xp
+    step.argtypes = step_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
     step_xp.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    step.restype = step_xp.restype = ctypes.c_int
-    return lib, step, step_xp
+    step.restype = step_bf16.restype = step_xp.restype = ctypes.c_int
+    return lib, {torch.float32: step, torch.bfloat16: step_bf16}, step_xp
 
 
 def gru_cell_step_fwd(x, h, w, b, u, activation="tanh"):
-    """One GRU step, x (B, D), h (B, H), w (D, 3H), b (3H,), u (H, 3H):
-    returns h'. CPU tensors run ``gru_cell_step_reference``; CUDA tensors
-    launch kernel T."""
+    """One GRU step, x (B, D), h (B, H), w (D, 3H), b (3H,), u (H, 3H), all
+    float32 or all bfloat16: returns h' of their dtype. CPU tensors run
+    ``gru_cell_step_reference``; CUDA tensors launch kernel T's build of
+    their dtype."""
     if activation not in CELL_ACTIVATIONS:
         raise ValueError(f"unsupported GRU kernel activation {activation!r}")
     if x.dim() != 2:
@@ -102,20 +132,24 @@ def gru_cell_step_fwd(x, h, w, b, u, activation="tanh"):
                           "u": (H, 3 * H)})
     if not _on(x, "gru_cell_step"):
         return gru_cell_step_reference(x, h, w, b, u, activation)
-    check_operands(named, x.device)
+    dtype = check_operands(named, x.device, (torch.float32, torch.bfloat16))
     if B < 1:
         raise ValueError(f"kernel T takes B >= 1; got B={B}")
     _layout.require("T", H, _layout.smem_bytes("T", H, D))
-    h_out = torch.empty(B, H, device=x.device, dtype=torch.float32)
-    lib, step, _ = _kernels()
-    rc = step(_ptr(x), _ptr(h), _ptr(w), _ptr(b), _ptr(u), _ptr(h_out), B, D, H,
-              CELL_ACTIVATIONS[activation], _stream(x))
+    h_out = torch.empty(B, H, device=x.device, dtype=dtype)
+    lib, steps, _ = _kernels()
+    rc = steps[dtype](_ptr(x), _ptr(h), _ptr(w), _ptr(b), _ptr(u), _ptr(h_out), B, D, H,
+                      CELL_ACTIVATIONS[activation], _stream(x))
     _build.check(lib, rc, "gru_step launch")
-    gru_cell_step_fwd.launches += 1
+    if dtype == torch.bfloat16:
+        gru_cell_step_fwd.launches_bf16 += 1
+    else:
+        gru_cell_step_fwd.launches += 1
     return h_out
 
 
 gru_cell_step_fwd.launches = 0
+gru_cell_step_fwd.launches_bf16 = 0
 
 
 def gru_recurrent_step_fwd(xp, h, u, activation="tanh"):
@@ -149,15 +183,17 @@ gru_recurrent_step_fwd.launches = 0
 
 def gru_cell_step(x, h, w, b, u, activation="tanh"):
     """Differentiable GRU step x (B, D), h (B, H) -> h', with x @ W + b and
-    h @ U inside: kernel T forward on CUDA tensors, the plain version's
-    backward."""
-    return RematStep.apply(gru_cell_step_fwd, gru_cell_step_reference, activation, x, h, w, b, u)
+    h @ U inside: kernel T forward on CUDA tensors, the backward through
+    ``gru_cell_step_vjp_reference``."""
+    return RematStep.apply(gru_cell_step_fwd, gru_cell_step_vjp_reference, activation,
+                           x, h, w, b, u)
 
 
 def gru_recurrent_step(xp, h, u, activation="tanh"):
     """Differentiable GRU step over xp (B, 3H), h (B, H) -> h': kernel T xp
-    forward on CUDA tensors, the plain version's backward."""
-    return RematStep.apply(gru_recurrent_step_fwd, gru_recurrent_step_reference, activation,
+    forward on CUDA tensors, the backward through
+    ``gru_recurrent_step_vjp_reference``."""
+    return RematStep.apply(gru_recurrent_step_fwd, gru_recurrent_step_vjp_reference, activation,
                            xp, h, u)
 
 

@@ -47,15 +47,20 @@ from .gru_layer import CELL_ACTIVATIONS, _ptr, cell_activation, check_operands
 
 def lstm_step(xp, h, c, u, act):
     """One LSTM step over its x-projection xp = x @ W + b (B, 4H): returns
-    (h', c')."""
+    (h', c'). h @ U and the gate math run in float32, h' comes from the
+    unrounded c', and both are rounded to the state's dtype once, as the
+    Pallas kernels do in a bfloat16 model (``_lstm_gates``'s
+    ``preferred_element_type=float32``, then ``astype``:
+    ``fused_lstm.py:54-95``, ``:241-243``); in float32 the casts are
+    no-ops."""
     H = h.shape[-1]
-    gates = xp + h @ u
+    gates = xp.float() + h.float() @ u.float()
     i = torch.sigmoid(gates[:, :H])
     f = torch.sigmoid(gates[:, H : 2 * H])
     g = act(gates[:, 2 * H : 3 * H])
     o = torch.sigmoid(gates[:, 3 * H :])
-    c = f * c + i * g
-    return o * act(c), c
+    c_new = f * c.float() + i * g
+    return (o * act(c_new)).to(h.dtype), c_new.to(c.dtype)
 
 
 def _scan_xp(xp, h0, c0, u, act):

@@ -8,19 +8,32 @@ Counterpart of ``midi_vae_tpu/ops/fused_lstm.py``: ``lstm_cell_step`` is its
 ``_lstm_recurrent_kernel`` (through ``_lstm_recurrent_pallas``) kernel S xp
 replaces. Both live in ``csrc/lstm_step.cu``, whose source note gives the
 layout and what bounds them. ``lstm_cell_step_reference`` and
-``lstm_recurrent_step_reference`` are the plain PyTorch versions
-(``_lstm_step_reference``, ``_lstm_recurrent_reference``): the CPU path,
-the kernels' oracles and the backward.
+``lstm_recurrent_step_reference`` are the plain PyTorch versions, computed
+as the Pallas kernels compute: the CPU path and the kernels' oracles.
 
 Each differentiable step is a ``gru_step.RematStep`` whose forward launches
 the kernel on CUDA tensors (the plain version on CPU tensors) and whose
-backward recomputes the step through the plain version under autograd. That
-is the JAX package's own design, not a fallback: its custom VJPs re-run the
+backward recomputes the step under autograd through the JAX reference it
+mirrors: ``lstm_cell_step_vjp_reference`` (``_lstm_step_reference``) or
+``lstm_recurrent_step_reference`` (``_lstm_recurrent_reference``). That is
+the JAX package's own design, not a fallback: its custom VJPs re-run the
 plain step under ``jax.vjp`` (``_lstm_step_bwd`` :168-174,
 ``_lstm_recurrent_bwd`` :194-200), and XLA computes that backward.
 ``make_decoder_step`` adapts S to ``models/rnn.py::decode_autoregressive``
 (``make_fused_decoder_step``). The cell activation (on g and on c) is tanh,
 sigmoid or relu, as ``fused_gru._activation`` gives it.
+
+S has a float32 and a bfloat16 build (``mvt_lstm_step``,
+``mvt_lstm_step_bf16``), picked by the operands' dtype: every head cell of a
+bf16 LSTM model runs ``_lstm_full_kernel`` in bf16, x @ W + b, h @ U and the
+gates in float32, h' and c' stored in bf16; the plain versions compute the
+same way (``lstm_layer.lstm_step``). The backward's reference rounds x @ W +
+b to bf16 before the gates, as ``_lstm_step_reference`` does (:85-90); its
+h @ U is ``_lstm_gates``' float32 product of the bf16 operands, as in the
+kernel. Launches are counted per build:
+``lstm_cell_step_fwd.launches`` (float32) and ``.launches_bf16``. S xp has
+the float32 build only: the bf16 encoder with ``fused_train_encoder=False``
+is the whole-scan kernel Y (``ops/encoder_scan.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +50,14 @@ from .lstm_layer import _check_shapes, _on, _stream, lstm_step
 
 
 def lstm_cell_step_reference(x, h, c, w, b, u, activation="tanh"):
-    """Plain version of S: x (B, D), h, c (B, H) -> (h', c')."""
+    """Plain version of S: x (B, D), h, c (B, H) -> (h', c'); x @ W + b in
+    float32, as ``lstm_step`` computes the rest."""
+    return lstm_step(x.float() @ w.float() + b.float(), h, c, u, cell_activation(activation))
+
+
+def lstm_cell_step_vjp_reference(x, h, c, w, b, u, activation="tanh"):
+    """What S's backward differentiates: ``_lstm_step_reference``, x @ W + b
+    in the operands' dtype, then ``lstm_step``."""
     return lstm_step(x @ w + b, h, c, u, cell_activation(activation))
 
 
@@ -50,17 +70,19 @@ def lstm_recurrent_step_reference(xp, h, c, u, activation="tanh"):
 @functools.cache
 def _kernels():
     lib = _build.load("lstm_step")
-    step, step_xp = lib.mvt_lstm_step, lib.mvt_lstm_step_xp
-    step.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    step, step_bf16, step_xp = lib.mvt_lstm_step, lib.mvt_lstm_step_bf16, lib.mvt_lstm_step_xp
+    step.argtypes = step_bf16.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
     step_xp.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    step.restype = step_xp.restype = ctypes.c_int
-    return lib, step, step_xp
+    step.restype = step_bf16.restype = step_xp.restype = ctypes.c_int
+    return lib, {torch.float32: step, torch.bfloat16: step_bf16}, step_xp
 
 
 def lstm_cell_step_fwd(x, h, c, w, b, u, activation="tanh"):
-    """One LSTM step, x (B, D), h, c (B, H), w (D, 4H), b (4H,), u (H, 4H):
-    returns (h', c'). CPU tensors run ``lstm_cell_step_reference``; CUDA
-    tensors launch kernel S."""
+    """One LSTM step, x (B, D), h, c (B, H), w (D, 4H), b (4H,), u (H, 4H),
+    all float32 or all bfloat16: returns (h', c') of their dtype. CPU
+    tensors run ``lstm_cell_step_reference``; CUDA tensors launch kernel S's
+    build of their dtype."""
     if activation not in CELL_ACTIVATIONS:
         raise ValueError(f"unsupported LSTM kernel activation {activation!r}")
     if x.dim() != 2:
@@ -72,21 +94,25 @@ def lstm_cell_step_fwd(x, h, c, w, b, u, activation="tanh"):
                           "b": (4 * H,), "u": (H, 4 * H)})
     if not _on(x, "lstm_cell_step"):
         return lstm_cell_step_reference(x, h, c, w, b, u, activation)
-    check_operands(named, x.device)
+    dtype = check_operands(named, x.device, (torch.float32, torch.bfloat16))
     if B < 1:
         raise ValueError(f"kernel S takes B >= 1; got B={B}")
     _layout.require("S", H, _layout.smem_bytes("S", H, D))
-    h_out = torch.empty(B, H, device=x.device, dtype=torch.float32)
+    h_out = torch.empty(B, H, device=x.device, dtype=dtype)
     c_out = torch.empty_like(h_out)
-    lib, fn, _ = _kernels()
-    rc = fn(_ptr(x), _ptr(h), _ptr(c), _ptr(w), _ptr(b), _ptr(u), _ptr(h_out), _ptr(c_out),
-            B, D, H, CELL_ACTIVATIONS[activation], _stream(x))
+    lib, steps, _ = _kernels()
+    rc = steps[dtype](_ptr(x), _ptr(h), _ptr(c), _ptr(w), _ptr(b), _ptr(u), _ptr(h_out),
+                      _ptr(c_out), B, D, H, CELL_ACTIVATIONS[activation], _stream(x))
     _build.check(lib, rc, "lstm_step launch")
-    lstm_cell_step_fwd.launches += 1
+    if dtype == torch.bfloat16:
+        lstm_cell_step_fwd.launches_bf16 += 1
+    else:
+        lstm_cell_step_fwd.launches += 1
     return h_out, c_out
 
 
 lstm_cell_step_fwd.launches = 0
+lstm_cell_step_fwd.launches_bf16 = 0
 
 
 def lstm_recurrent_step_fwd(xp, h, c, u, activation="tanh"):
@@ -121,9 +147,9 @@ lstm_recurrent_step_fwd.launches = 0
 
 def lstm_cell_step(x, h, c, w, b, u, activation="tanh"):
     """Differentiable LSTM step x (B, D), h, c (B, H) -> (h', c'), with x @ W
-    + b and h @ U inside: kernel S forward on CUDA tensors, the plain
-    version's backward."""
-    return RematStep.apply(lstm_cell_step_fwd, lstm_cell_step_reference, activation,
+    + b and h @ U inside: kernel S forward on CUDA tensors, the backward
+    through ``lstm_cell_step_vjp_reference``."""
+    return RematStep.apply(lstm_cell_step_fwd, lstm_cell_step_vjp_reference, activation,
                            x, h, c, w, b, u)
 
 
