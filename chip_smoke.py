@@ -16,8 +16,9 @@ result line):
      (csrc/lstm_decode.cu), N (csrc/lstm_layer_bwd.cu), Q
      (csrc/lstm_layer_xp_fwd.cu), R (csrc/lstm_layer_xp_bwd.cu), S and S xp
      (csrc/lstm_step.cu), T and T xp (csrc/gru_step.cu), with the bf16
-     builds of S and T, X (csrc/gru_encoder_scan.cu) and Y
-     (csrc/lstm_encoder_scan.cu); every build's
+     builds of S and T, X (csrc/gru_encoder_scan.cu), Y
+     (csrc/lstm_encoder_scan.cu), U (csrc/gru_encoder_stack_fwd.cu) and V
+     (csrc/gru_encoder_stack_bwd.cu); every build's
      registers and spills from ptxas against the route chooser's table; the
      8-rows builds of D and E must refuse H = 512 at their C entry points;
   3. kernels: A and B against their plain PyTorch versions on the card, at
@@ -123,7 +124,19 @@ result line):
      and fused_train_encoder=False (Y 4 and S bf16 196), every launch
      counter as designed;
  28. one training step of each, and of the bf16 LSTM(512) config, card
-     against CPU (bf16 limits).
+     against CPU (bf16 limits);
+ 29. the fused encoder stacks (ops/encoder_stack.py), which no main path
+     runs: U (csrc/gru_encoder_stack_fwd.cu) and V
+     (csrc/gru_encoder_stack_bwd.cu) at the default Config() encoder's
+     shapes and seeded weights, the multi-branch op (notes stack, velocity
+     and instrument branches) and stack2 (numpy-random h01 and h02, both
+     return_sequences), against their plain versions at B = 256 (timed, with
+     bounds) and B = 5; stack2 in bf16 with two controls that feed layer 2
+     the rounded h1 and must land over BF16's relative L2, and at H = 512;
+     both ops' gradients against autograd through the plain forward; the
+     same encoder's forward and forward + backward through the per-layer
+     route (A x 4, C x 4, W x 12) timed beside U and U + V + W; no main path
+     launched U or V.
 Then one JSON line with the kernels, and the final line
 {"ok": true, "device": {...}}.
 """
@@ -253,6 +266,8 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel"), "B": ("gru_decode", "g
           "T": ("gru_step", "gru_step_kernel"), "T_xp": ("gru_step", "gru_step_xp_kernel"),
           "X": ("gru_encoder_scan", "gru_encoder_scan_kernel"),
           "Y": ("lstm_encoder_scan", "lstm_encoder_scan_kernel"),
+          "U": ("gru_encoder_stack_fwd", "gru_encoder_stack_fwd_kernel"),
+          "V": ("gru_encoder_stack_bwd", "gru_encoder_stack_bwd_kernel"),
           # the bf16 instances of T's and S's kernels
           "T_bf16": ("gru_step", "gru_step_kernel", "nv_bfloat16"),
           "S_bf16": ("lstm_step", "lstm_step_kernel", "nv_bfloat16")}
@@ -442,6 +457,14 @@ def _check(name, kernel_fn, plain_fn, limits):
     return errs, rels, got
 
 
+def _shown_limit(limit):
+    """A limit as compare() prints it: "rel" for a function of the plain
+    output, a (max |diff|, relative L2) pair, or a number."""
+    if isinstance(limit, tuple):
+        return f"{_shown_limit(limit[0])} & rel L2 {limit[1]:.1e}"
+    return "rel" if callable(limit) else f"{limit:.1e}"
+
+
 def compare(name, kernel_fn, plain_fn, limits, flops, inputs, library_fn=None,
             peak=PEAK_F32_FLOPS):
     """check(), then both timed in turns (plain, kernel, kernel, plain), with
@@ -456,8 +479,7 @@ def compare(name, kernel_fn, plain_fn, limits, flops, inputs, library_fn=None,
     moved = nbytes(inputs) + nbytes(got)
     bound_ms, bound_by = bound(flops, moved, peak)
     library_ms = median_ms(library_fn) if library_fn is not None else None
-    shown = ", ".join("rel" if callable(x) else f"{x[0]:.1e} & rel L2 {x[1]:.1e}"
-                      if isinstance(x, tuple) else f"{x:.0e}" for x in limits)
+    shown = ", ".join(_shown_limit(x) for x in limits)
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
     rel = f", rel L2 {', '.join(f'{e:.3e}' for e in rels)}" if rels else ""
     print(f"[kernels] {name}: max|diff| {', '.join(f'{e:.3e}' for e in errs)}{rel} "
@@ -1153,6 +1175,7 @@ def kernel_counters():
     """Kernel name -> (wrapper, its counter attribute): ``launches``, or
     ``launches_bf16`` for the bf16 builds of T and S."""
     from midi_vae_tpu_torch.ops import encoder_scan as es
+    from midi_vae_tpu_torch.ops import encoder_stack as est
     from midi_vae_tpu_torch.ops import gru_decode as gd
     from midi_vae_tpu_torch.ops import gru_layer as gl
     from midi_vae_tpu_torch.ops import gru_step as gs
@@ -1173,7 +1196,9 @@ def kernel_counters():
            "lstm_step_xp": ls.lstm_recurrent_step_fwd, "gru_step": gs.gru_cell_step_fwd,
            "gru_step_xp": gs.gru_recurrent_step_fwd,
            "gru_encoder_scan": es.gru_encoder_scan_fwd,
-           "lstm_encoder_scan": es.lstm_encoder_scan_fwd}
+           "lstm_encoder_scan": es.lstm_encoder_scan_fwd,
+           "gru_encoder_stack_fwd": est.gru_encoder_stack_fwd,
+           "gru_encoder_stack_bwd": est.gru_encoder_stack_bwd}
     counters = {name: (fn, "launches") for name, fn in fns.items()}
     counters["gru_step_bf16"] = (gs.gru_cell_step_fwd, "launches_bf16")
     counters["lstm_step_bf16"] = (ls.lstm_cell_step_fwd, "launches_bf16")
@@ -2325,6 +2350,291 @@ def phase_bf16_kernels():
     return results
 
 
+def flat_outputs(outs):
+    """The tensors of nested outputs in order, Nones dropped."""
+    import torch
+
+    if isinstance(outs, torch.Tensor):
+        return (outs,)
+    return tuple(t for o in outs if o is not None for t in flat_outputs(o))
+
+
+def bf16_step_lim(w):
+    """One bf16 step at the largest entry of ``w``: the limit of an output
+    rounded to bf16 once from float32 sums taken in another order (V's dx
+    and dh0s, whose carries stay in float32)."""
+    return 2.0 ** -7 * w.abs().max().item()
+
+
+def phase_encoder_stacks():
+    """Phase 29: kernels U (csrc/gru_encoder_stack_fwd.cu) and V
+    (csrc/gru_encoder_stack_bwd.cu) of ops/encoder_stack.py at the default
+    Config() encoder's full width, with its seeded weights: the multi-branch
+    op (the notes stack over x (64, B, 61), the velocity branch (64, B, 1),
+    the instrument branch (4, B, 16)) and stack2 from numpy-random h01 and
+    h02, return_sequences both ways, each against its plain version at
+    B = 256 (timed, with bounds) and B = 5; stack2 in bf16 (BF16, with two
+    controls that feed layer 2 the rounded h1 and must land over
+    BF16_REL_L2) and at H = 512 (each kernel launches, or raises
+    LaunchLimitError exactly where ops/_layout.py says); both ops' gradients
+    against autograd through the plain forward; and the same encoder through
+    the per-layer route the model takes (A x 4; A x 4, C x 4 and W x 12)
+    beside U and U + V + W, each way in CUDA-event windows."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.ops import _layout
+    from midi_vae_tpu_torch.ops import encoder_stack as es
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(29)
+    rng = np.random.RandomState(29)
+    tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    wbu = lambda p: (p["w"], p["b"], p["u"])  # noqa: E731
+    results = {k: {} for k in ("gru_encoder_stack_fwd", "gru_encoder_stack_bwd", "stack2_fwd",
+                               "stack2_bwd", "stack2_bf16_fwd", "stack2_bf16_bwd", "stack2_512_fwd",
+                               "stack2_512_bwd", "encoder_route")}
+
+    def params_of(cfg):
+        enc = MidiVAE(cfg).to(dev).params["encoder"]
+        return [{k: p[k].detach() for k in "wbu"} for p in (
+            enc["notes_rnn"][0], enc["notes_rnn"][1], enc["vel_rnn"][0], enc["inst_rnn"][0])]
+
+    def state(rows, H, dtype=torch.float32):
+        return torch.as_tensor(0.1 * rng.randn(rows, H), dtype=torch.float32, device=dev).to(dtype)
+
+    def cot(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def stack2_fwd(key, name, args, run, limits, peak):
+        x, p1, p2 = args[0], args[3], args[4]
+        flops = layer_flops(x.shape[0], x.shape[1], p1["w"], p1["u"]) + layer_flops(
+            x.shape[0], x.shape[1], p2["w"], p2["u"])
+        out = run(f"U stack2 {name}", lambda: flat_outputs(es.gru_encoder_stack_fwd(*args)),
+                  lambda: es.stack2_fwd_reference(*args), limits, flops=flops, inputs=args,
+                  peak=peak)
+        if key:
+            results[key][name] = out
+
+    def stack2_bwd(key, name, args, run, limits, peak):
+        """V's stack2 entry from the plain forward's sequences and a random
+        cotangent of layer 2's sequence (rs) or final h."""
+        x, p1, p2, h01, h02, rs = args
+        with torch.no_grad():
+            h1, h2 = es.stack2_fwd_reference(x, h01, h02, p1, p2)
+        g = cot(h2.shape if rs else h2.shape[1:], x.dtype)
+        bargs = (x, h1, h2, h01, h02, g if rs else None, None if rs else g, p1, p2)
+        T, rows = x.shape[:2]
+        flops = cell_bwd_flops(T, rows, p1["w"], p1["u"]) + cell_bwd_flops(T, rows, p2["w"], p2["u"])
+        out = run(f"V stack2 {name}", lambda: flat_outputs(es.gru_encoder_stack_bwd(*bargs)),
+                  lambda: flat_outputs(es.stack2_bwd_reference(*bargs)), limits, flops=flops,
+                  inputs=bargs, peak=peak)
+        if key:
+            results[key][name] = out
+        return h2
+
+    def stack2_controls(name, args, want):
+        """Two scans that feed layer 2 the rounded h1 sequence: the two-layer
+        JAX reference (``stack2_reference``: every op in bf16) and two plain
+        layer scans with the kernels' rounding (kernel X's, once per layer).
+        Each must land over BF16_REL_L2 from the plain stack, or the limit
+        does not tell U from a kernel that rounds h1 before layer 2."""
+        x, h01, h02, p1, p2 = args
+
+        def layer_scan(xs, h, p):
+            seq = []
+            for x_t in xs:
+                h = gl.gru_step(x_t, h, p["w"], p["u"], p["b"], torch.tanh)
+                seq.append(h)
+            return torch.stack(seq)
+
+        with torch.no_grad():
+            found = {"two_layer_reference": rel_l2(es.stack2_reference(x, h01, h02, p1, p2, "tanh",
+                                                                       True), want),
+                     "per_layer_scans": rel_l2(layer_scan(layer_scan(x, h01, p1), h02, p2), want)}
+        print(f"[encoder stacks] controls U stack2 {name}: relative L2 from the plain stack, the "
+              f"two-layer reference {found['two_layer_reference']:.3e}, the per-layer scans "
+              f"{found['per_layer_scans']:.3e} (each must exceed {BF16_REL_L2:.1e})")
+        for fault, err in found.items():
+            if not err > BF16_REL_L2:
+                raise RuntimeError(f"U stack2 {name}: the {fault} control lands {err:.3e} from the "
+                                   f"plain stack, inside BF16_REL_L2 = {BF16_REL_L2:.1e}")
+        return found
+
+    cfg = Config()
+    H = cfg.lstm_size
+    p1, p2, pv, pi = params_of(cfg)
+    bfp = lambda p: {k: v.to(bf) for k, v in p.items()}  # noqa: E731
+    v_limits = [rel, rel, rel, rel, H_ATOL, rel, H_ATOL]  # dx, dh01, dh02, (da, r*h) x 2
+    v_bf16_limits = [(bf16_step_lim, BF16_REL_L2)] * 3 + v_limits[3:]
+    for rows in (B, RAGGED):
+        timed = rows == B
+        run = compare if timed else check
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in random_batch(cfg, rows, 29).items()}
+        x, xv, xi = tm(batch["X"]), tm(batch["V"]), tm(batch["I"])
+        T = x.shape[0]
+        branches = [(xv, pv), (xi, pi)]
+        tag = f"x{tuple(x.shape)} + velocity {tuple(xv.shape)} + instrument {tuple(xi.shape)}"
+        flops = sum(layer_flops(a.shape[0], rows, p["w"], p["u"])
+                    for a, p in ((x, p1), (x, p2), (xv, pv), (xi, pi)))
+        out = run(f"U multibranch {tag}",
+                  lambda: flat_outputs(es.gru_encoder_stack_fwd(x, None, None, p1, p2, branches)),
+                  lambda: flat_outputs(es.multibranch_fwd_reference(x, p1, p2, branches)),
+                  [H_ATOL] * 4, flops=flops, inputs=(x, p1, p2, branches))
+        if timed:
+            results["gru_encoder_stack_fwd"]["multibranch"] = out
+        with torch.no_grad():
+            h1, h2, hk = es.multibranch_fwd_reference(x, p1, p2, branches)
+        g2 = cot((rows, H))
+        bb = [(xb, hb, cot((rows, H)), pb, False) for (xb, pb), hb in zip(branches, hk)]
+        flops = (cell_bwd_flops(T, rows, p2["w"], p2["u"])
+                 + cell_bwd_flops(T, rows, p1["w"], p1["u"], False)
+                 + sum(cell_bwd_flops(xb.shape[0], rows, pb["w"], pb["u"], False)
+                       for xb, pb in branches))
+        out = run(f"V multibranch {tag}",
+                  lambda: flat_outputs(es.gru_encoder_stack_bwd(x, h1, h2, None, None, None, g2, p1,
+                                                                p2, bb, need_dx=False)),
+                  lambda: flat_outputs(es.multibranch_bwd_reference(x, h1, h2, p1, p2, g2, bb,
+                                                                    False)),
+                  [rel, H_ATOL] * 4, flops=flops, inputs=(x, h1, h2, p1, p2, g2, bb))
+        if timed:
+            results["gru_encoder_stack_bwd"]["multibranch"] = out
+        for rs in (False, True):
+            name = f"x{tuple(x.shape)} rs={rs}" + ("" if timed else f" B={rows}")
+            h0s = (state(rows, H), state(rows, H))
+            stack2_fwd("stack2_fwd" if timed else None, name, (x, h0s[0], h0s[1], p1, p2), run,
+                       [H_ATOL] * 2, PEAK_F32_FLOPS)
+            stack2_bwd("stack2_bwd" if timed else None, name, (x, p1, p2, *h0s, rs), run, v_limits,
+                       PEAK_F32_FLOPS)
+            # bf16 (the JAX op's kernels run bf16 where D >= 8)
+            xb, q1, q2 = x.to(bf), bfp(p1), bfp(p2)
+            h0b = (state(rows, H, bf), state(rows, H, bf))
+            args = (xb, h0b[0], h0b[1], q1, q2)
+            stack2_fwd("stack2_bf16_fwd" if timed else None, name, args, run, [BF16] * 2,
+                       PEAK_BF16_FLOPS)
+            want = stack2_bwd("stack2_bf16_bwd" if timed else None, name, (xb, q1, q2, *h0b, rs),
+                              run, v_bf16_limits, PEAK_BF16_FLOPS)
+            if timed and not rs:
+                found = stack2_controls(name, args, want)
+                results["stack2_bf16_fwd"][name]["controls_rel_l2"] = found
+        # both ops' gradients (U + V + W) against autograd through the plain forward
+        with torch.enable_grad():
+            for rs in (False, True):
+                leaves = [t.clone().requires_grad_() for t in (x, state(rows, H), state(rows, H),
+                                                             *wbu(p1), *wbu(p2))]
+                q1, q2 = dict(zip("wbu", leaves[3:6])), dict(zip("wbu", leaves[6:9]))
+                out = es.gru_stack2_train_x(*leaves[:3], q1, q2, "tanh", rs)
+                g = cot(out.shape)
+                got = torch.autograd.grad(out, leaves, g)
+                ref = es.stack2_fwd_reference(*leaves[:3], q1, q2)[1]
+                want = torch.autograd.grad(ref if rs else ref[-1], leaves, g)
+                check(f"U+V+W stack2 grads rs={rs} B={rows}", lambda: got, lambda: want,
+                      [rel] * len(want))
+            leaves = [t.clone().requires_grad_() for t in (x, *wbu(p1), *wbu(p2), xv, *wbu(pv), xi,
+                                                         *wbu(pi))]
+            q = [dict(zip("wbu", leaves[i:i + 3])) for i in (1, 4, 8, 12)]
+            h2f, finals = es.gru_encode_multibranch_train(
+                {"x": leaves[0], "p1": q[0], "p2": q[1]},
+                ({"x": leaves[7], "p": q[2]}, {"x": leaves[11], "p": q[3]}))
+            gs = [cot(h2f.shape)] + [cot(f.shape) for f in finals]
+            got = torch.autograd.grad((h2f, *finals), leaves, gs)
+            _, r2, rk = es.multibranch_fwd_reference(leaves[0], q[0], q[1],
+                                                     [(leaves[7], q[2]), (leaves[11], q[3])])
+            want = torch.autograd.grad((r2[-1], *(h[-1] for h in rk)), leaves, gs)
+            check(f"U+V+W multibranch grads B={rows}", lambda: got, lambda: want, [rel] * len(want))
+    print(f"[encoder stacks] U and V agree with their plain versions at B = {B} and {RAGGED} "
+          f"(multi-branch, stack2 in f32 and bf16), and both ops' gradients with autograd")
+
+    # the same encoder through the per-layer route the model takes, at B
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in random_batch(cfg, B, 30).items()}
+    x, xv, xi = tm(batch["X"]), tm(batch["V"]), tm(batch["I"])
+    h0 = torch.zeros(B, H, device=dev)
+    branches = [(xv, pv), (xi, pi)]
+
+    def fused_fwd():
+        return flat_outputs(es.gru_encoder_stack_fwd(x, None, None, p1, p2, branches))
+
+    def per_layer_fwd():
+        s1 = gl.gru_layer(x, h0, *wbu(p1), "tanh", True)
+        return (s1, *(gl.gru_layer(a, h0, *wbu(p), "tanh", True) for a, p in ((s1, p2), (xv, pv),
+                                                                             (xi, pi))))
+
+    leaves = [t.clone().requires_grad_() for p in (p1, p2, pv, pi) for t in wbu(p)]
+    q = [dict(zip("wbu", leaves[3 * i:3 * i + 3])) for i in range(4)]
+    gs = [cot((B, H)) for _ in range(3)]
+
+    def fused_fwd_bwd():
+        with torch.enable_grad():
+            h2f, finals = es.gru_encode_multibranch_train(
+                {"x": x, "p1": q[0], "p2": q[1]}, ({"x": xv, "p": q[2]}, {"x": xi, "p": q[3]}))
+            return torch.autograd.grad((h2f, *finals), leaves, gs)
+
+    def per_layer_fwd_bwd():
+        with torch.enable_grad():
+            s1 = gl.gru_layer_train_x(x, h0, *wbu(q[0]), True)
+            outs = [gl.gru_layer_train_x(a, h0, *wbu(p), False)
+                    for a, p in ((s1, q[1]), (xv, q[2]), (xi, q[3]))]
+            return torch.autograd.grad(outs, leaves, gs)
+
+    check("encoder forward: U against A x 4", fused_fwd, per_layer_fwd, [H_ATOL] * 4)
+    check("encoder forward + backward: U + V + W against A + C + W", fused_fwd_bwd,
+          per_layer_fwd_bwd, [rel] * len(leaves))
+    route = results["encoder_route"]
+    for key, fn in (("per_layer_fwd_ms", per_layer_fwd), ("fused_fwd_ms", fused_fwd),
+                    ("fused_fwd_ms_2", fused_fwd), ("per_layer_fwd_ms_2", per_layer_fwd),
+                    ("per_layer_fwd_bwd_ms", per_layer_fwd_bwd),
+                    ("fused_fwd_bwd_ms", fused_fwd_bwd),
+                    ("fused_fwd_bwd_ms_2", fused_fwd_bwd),
+                    ("per_layer_fwd_bwd_ms_2", per_layer_fwd_bwd)):
+        route[key.removesuffix("_2")] = route.get(key.removesuffix("_2"), 0.0) + median_ms(fn) / 2
+    print(f"[encoder stacks] Config() encoder at B = {B}: forward U {route['fused_fwd_ms']:.4f} ms "
+          f"(1 launch) against A x 4 {route['per_layer_fwd_ms']:.4f} ms; forward + backward "
+          f"U + V + "
+          f"W {route['fused_fwd_bwd_ms']:.4f} ms (1 + 1 + 12 launches) against A + C + W "
+          f"{route['per_layer_fwd_bwd_ms']:.4f} ms (4 + 4 + 12)")
+
+    # H = 512 (vae_wide's width): each kernel launches, or raises exactly
+    # where the route chooser's table says
+    q1, q2 = params_of(Config(lstm_size=512))[:2]
+    x = tm(torch.as_tensor(random_batch(cfg, B, 31)["X"], device=dev))
+    h0s = (state(B, 512), state(B, 512))
+    name = f"H=512 x{tuple(x.shape)} rs=False"
+    for letter, smem, run_it in (
+            ("U", _layout.smem_bytes("U", 512, x.shape[2], 2),
+             lambda: stack2_fwd("stack2_512_fwd", name, (x, *h0s, q1, q2), compare, [H_ATOL] * 2,
+                                PEAK_F32_FLOPS)),
+            ("V", _layout.smem_bytes("V", 512, x.shape[2], 2, True),
+             lambda: stack2_bwd("stack2_512_bwd", name, (x, q1, q2, *h0s, False), compare, v_limits,
+                                PEAK_F32_FLOPS))):
+        why = _layout.launch_limit(letter, 512, smem)
+        if why is None:
+            run_it()
+            continue
+        try:
+            run_it()
+        except _layout.LaunchLimitError as err:
+            if str(err) != why:
+                raise RuntimeError(f"{letter} at H = 512 raised {err!r}, the table says {why!r}")
+        else:
+            raise RuntimeError(f"{letter} at H = 512 ran where the route chooser says: {why}")
+        # and the build itself refuses 512 threads at its C entry point
+        # (cudaErrorLaunchOutOfResources, before any memory is touched)
+        lib, _, multibranch = es._kernels(f"gru_encoder_stack_{'fwd' if letter == 'U' else 'bwd'}")
+        stack = (es._StackFwd if letter == "U" else es._StackBwd)(T=64, D=x.shape[2])
+        rc = multibranch(ctypes.byref(stack), None, 0, B, 512, None)
+        if rc != 701:
+            raise RuntimeError(f"{letter}'s C entry point at H = 512 returned {rc}, not 701 "
+                               f"(cudaErrorLaunchOutOfResources)")
+        print(f"[encoder stacks] {letter} at H = 512 raises LaunchLimitError, as the table says, and "
+              f"its build refuses 512 threads: {why}")
+    return results
+
+
 def phase_gru_3layer_serving(work, smi):
     """A GRU run with a 3-layer notes head (Config(num_layers_decoder=3),
     seeded init) served through the transfer CLI on 2 authored songs: kernel
@@ -2457,6 +2767,13 @@ def main() -> int:
         smi, Config(cell_type="LSTM", lstm_size=512, compute_dtype="bfloat16",
                     fused_train_encoder=False),
         PER_TRAIN_STEP["lstm_bf16_no_fused_encoder"], "lstm_512_bf16_no_fused_encoder train")
+    # the fused encoder stacks (U and V) through their own entry points: the
+    # model keeps the per-layer dispatch, so no main path launches them
+    results.update(phase_encoder_stacks())
+    for path, counts in paths.items():
+        for name in ("gru_encoder_stack_fwd", "gru_encoder_stack_bwd"):
+            if counts.get(name, 0):
+                raise RuntimeError(f"the {path} path launched {name} {counts[name]} times")
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
@@ -2468,7 +2785,9 @@ def main() -> int:
     # four encoder layers, each cell's loop in one window), GRU(512) for F, G
     # and the wide builds, LSTM(256) for L, M, N, S and S xp, LSTM(512) for Q
     # and R, the bf16 GRU(256) and LSTM(256) steps for X, T bf16, Y and S
-    # bf16; "launches" over the main paths' runs
+    # bf16, the Config() encoder's multi-branch call for U and V (no path
+    # runs them; their stack2 calls beside); "launches" over the main paths'
+    # runs
     meta = {
         "gru_layer_fwd": ("A", "gru_layer_fwd.cu", "fused_train.py:2057", ["fused_train.py:2919"]),
         "gru_decode": ("B", "gru_decode.cu", "fused_decoder.py:61", ["fused_decoder.py:95"]),
@@ -2526,6 +2845,16 @@ def main() -> int:
         # rows 28 and 30 in a bf16 model
         "gru_step_bf16": ("T bf16", "gru_step.cu", "fused_gru.py:54", ["fused_gru.py:95"]),
         "lstm_step_bf16": ("S bf16", "lstm_step.cu", "fused_lstm.py:67", ["fused_lstm.py:98"]),
+        # rows 22 and 24: _stack2_fwd_kernel (through _stack2_fwd_pallas) and
+        # _encmb_fwd_kernel (through encode_multibranch_train_fwd)
+        "gru_encoder_stack_fwd": ("U", "gru_encoder_stack_fwd.cu", "fused_train.py:2637",
+                                  ["fused_train.py:2673", "fused_train.py:3620",
+                                   "fused_train.py:3756"]),
+        # rows 23 and 25: _stack2_bwd_kernel and _encmb_bwd_kernel (their
+        # weight-grad sums: W)
+        "gru_encoder_stack_bwd": ("V", "gru_encoder_stack_bwd.cu", "fused_train.py:2702",
+                                  ["fused_train.py:2760", "fused_train.py:3667",
+                                   "fused_train.py:3810"]),
     }
     # per kernel: the calls of one step or transfer at other shapes
     extra = {"gru_layer_fwd": [("ms_h512", "gru_layer_512")],
@@ -2540,7 +2869,13 @@ def main() -> int:
              "gru_step": [("ms_h512", "gru_step_512")],
              "gru_step_xp": [("ms_h512", "gru_step_xp_512")],
              "gru_encoder_scan": [("ms_row27", "gru_encoder_scan_row27")],
-             "lstm_encoder_scan": [("ms_h512", "lstm_encoder_scan_512")]}
+             "lstm_encoder_scan": [("ms_h512", "lstm_encoder_scan_512")],
+             "gru_encoder_stack_fwd": [("ms_stack2", "stack2_fwd"),
+                                       ("ms_stack2_bf16", "stack2_bf16_fwd"),
+                                       ("ms_h512", "stack2_512_fwd")],
+             "gru_encoder_stack_bwd": [("ms_stack2", "stack2_bwd"),
+                                       ("ms_stack2_bf16", "stack2_bf16_bwd"),
+                                       ("ms_h512", "stack2_512_bwd")]}
     kernels = []
     for name, (letter, source, replaces, also) in meta.items():
         per_call = results[name]
@@ -2571,6 +2906,8 @@ def main() -> int:
         }
         for key, res in extra.get(name, []):
             calls = results[res]
+            if not calls:  # a width whose build does not launch (phase 29, H = 512)
+                continue
             entry[key] = sum(r["ms"] for r in calls.values())
             entry["plain_" + key] = sum(r["plain_ms"] for r in calls.values())
             entry["max_abs_err"] = max(entry["max_abs_err"], *(r["max_abs_err"] for r in calls.values()))
@@ -2585,7 +2922,8 @@ def main() -> int:
                       "train_step_lstm_512": lstm_steps[512], "judge_train_step": judge_steps,
                       "train_step_per_step_cells": per_step_steps,
                       "train_step_bf16": bf16_steps,
-                      "lstm_fwd_bwd_vs_cudnn": results["lstm_fwd_bwd_vs_cudnn"], "power": smi,
+                      "lstm_fwd_bwd_vs_cudnn": results["lstm_fwd_bwd_vs_cudnn"],
+                      "encoder_stack_vs_per_layer": results["encoder_route"], "power": smi,
                       "wall_s": wall_s}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -151,10 +151,11 @@ __device__ __forceinline__ void gru_cell_recurrent(
 //   xp = x @ W + b, then gru_cell_recurrent.
 // x_s is (D, R), h_s and rh_s are (H, R), all feature-major.
 // W is (D, 3H), U is (H, 3H), b is (3H,), row-major in global memory, all of
-// type TW, which is also the type the new h is rounded as.
+// type TW; the new h is rounded as a TS holds it (by default TW; float
+// keeps it unrounded, as the stack kernel U feeds layer 1's h to layer 2).
 // Every thread of the block must call it; it ends with a barrier, after
 // which h_s holds the new state.
-template <int ACT, int R = kRows, typename TW = float>
+template <int ACT, int R = kRows, typename TW = float, typename TS = TW>
 __device__ __forceinline__ void gru_cell(
     const float* x_s, int D, float* h_s, float* rh_s,
     const TW* __restrict__ W, const TW* __restrict__ U,
@@ -182,7 +183,7 @@ __device__ __forceinline__ void gru_cell(
       ah[r] = fmaf(v[r], wh, ah[r]);
     }
   }
-  gru_cell_recurrent<ACT, R, TW, TW>(az, ar, ah, h_s, rh_s, U, H);
+  gru_cell_recurrent<ACT, R, TW, TS>(az, ar, ah, h_s, rh_s, U, H);
 }
 
 // Loads column j's three gates of rows [row0, row0 + R) of a row-major
@@ -213,6 +214,17 @@ __device__ __forceinline__ void load_tile(
   for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
     const int r = i / D, d = i - r * D, row = row0 + r;
     a_s[d * R + r] = row < B ? to_f32(a[(size_t)row * D + d]) : 0.0f;
+  }
+}
+
+// load_tile, or zeros where a is null (a zero initial state)
+template <int R = kRows, typename TA>
+__device__ __forceinline__ void load_tile_or_zero(
+    const TA* __restrict__ a, float* a_s, int row0, int B, int D) {
+  if (a != nullptr) {
+    load_tile<R>(a, a_s, row0, B, D);
+  } else {
+    for (int i = threadIdx.x; i < R * D; i += blockDim.x) a_s[i] = 0.0f;
   }
 }
 

@@ -33,7 +33,7 @@ LIBRARIES = ("gru_layer_fwd", "gru_decode", "gru_layer_bwd", "gru_decode_train",
              "gru_decode_bwd", "grad_reduce", "gru_layer_xp_fwd", "gru_layer_xp_bwd",
              "lstm_layer_fwd", "lstm_decode", "lstm_layer_bwd", "lstm_layer_xp_fwd",
              "lstm_layer_xp_bwd", "lstm_step", "gru_step", "gru_encoder_scan",
-             "lstm_encoder_scan")
+             "lstm_encoder_scan", "gru_encoder_stack_fwd", "gru_encoder_stack_bwd")
 # seconds spent in nvcc by this process, per library (chip_smoke reports it)
 build_seconds: dict[str, float] = {}
 # per library built by this process: {kernel function (mangled): {"registers",

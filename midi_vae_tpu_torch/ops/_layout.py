@@ -1,7 +1,7 @@
 """Which kernel builds a layer or decode head takes, from the card's limits.
 
-Every kernel of the port (GRU: A to G, T, T xp, X; LSTM: L, M, N, Q, R, S,
-S xp, Y) runs one
+Every kernel of the port (GRU: A to G, T, T xp, X, and the encoder stacks'
+U and V; LSTM: L, M, N, Q, R, S, S xp, Y) runs one
 thread per hidden column (blockDim.x = H) and keeps a tile of batch rows per
 block, so whether a build launches at a width is a matter of two limits of
 the H100 (sm_90a):
@@ -10,7 +10,7 @@ the H100 (sm_90a):
 - shared memory: the block's tile must fit the 227 KB (232,448 bytes) a block
   may have.
 
-Kernels A to E, L, M and N are built without launch bounds; their register
+Kernels A to E, L, M, N, U and V are built without launch bounds; their register
 counts (``REGISTERS``, from ``nvcc -Xptxas -v`` on the card; ``chip_smoke.py``
 checks them against the build) decide how wide they go. F, G, Q, R, the
 per-step cells (S, S xp, T, T xp), the bf16 whole-scan encoders (X, Y) and
@@ -58,7 +58,8 @@ WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
 
 # registers per thread of the builds without launch bounds (the largest over
 # a build's template instances), from nvcc -Xptxas -v for sm_90a
-REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75, "N": 117}
+REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75, "N": 117,
+             "U": 78, "V": 172}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
 BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "R", "S", "S_xp", "T", "T_xp", "X", "Y")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
@@ -74,9 +75,11 @@ class LaunchLimitError(ValueError):
 def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
                dx: bool = False) -> int:
     """Dynamic shared memory of one block of ``kernel``: D is the layer's
-    input width (A, C, L, N), the head's output width (B, D, E, M) or the
-    cell's input width (S, T). The bf16 builds (X, Y and those of S and T)
-    hold their tiles in float too: a bf16 value is widened as it is loaded."""
+    input width (A, C, L, N; U and V: of the stack, ``n_layers`` = 2, or of
+    a branch, ``n_layers`` = 1), the head's output width (B, D, E, M) or the
+    cell's input width (S, T). The bf16 builds (X, Y, those of S and T, and
+    U's and V's) hold their tiles in float too: a bf16 value is widened as
+    it is loaded."""
     rows = WIDE_ROWS if kernel.endswith("_wide") else ROWS
     floats = {
         "A": D + 2 * H,
@@ -97,6 +100,11 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
         "T_xp": 2 * H,  # h, r * h
         "X": 2 * H,  # as F
         "Y": 3 * H,  # as Q
+        # the stack: x, h1, h2, r * h; a branch: as A
+        "U": D + (n_layers + 1) * H,
+        # the stack: x, h1_t, h1_{t-1}, h2_{t-1}, r * h, the gate grads (3H),
+        # layer 2's dx (H); a branch: as C
+        "V": D + (3 * n_layers + 2) * H + (D if dx else 0),
     }[kernel.removesuffix("_wide")]
     return 4 * rows * floats
 
