@@ -136,7 +136,25 @@ result line):
      both ops' gradients against autograd through the plain forward; the
      same encoder's forward and forward + backward through the per-layer
      route (A x 4, C x 4, W x 12) timed beside U and U + V + W; no main path
-     launched U or V.
+     launched U or V;
+ 30. bf16 with the default fused flags: the bf16 builds of A
+     (csrc/gru_layer_fwd.cu), C (csrc/gru_layer_bwd.cu), W
+     (csrc/grad_reduce.cu), D (csrc/gru_decode_train.cu) and E
+     (csrc/gru_decode_bwd.cu) at the bf16 Config() step's shapes (the four
+     encoder layers; the notes and instrument heads, each decoded alone; W
+     over each layer's and head's products), against their plain bf16
+     versions at B = 256 (timed, bf16 x bf16 products at the bf16 rate and
+     the rest at the float32 rate, W beside cuBLAS on the widened operands)
+     and B = 5; A and D also one step from a random state, where three wrong
+     roundings (r * h in A, the gate grads before W, layer 2 fed the rounded
+     h1 in D) must land over the limits; the autograd ops' gradients against
+     the plain backward;
+ 31. the train CLI with --set compute_dtype=bfloat16 at full width, 2
+     epochs, --resume for a third, serving: A and C in bf16 4 each a step,
+     D and E in bf16 2 and in float32 1 (the velocity head), W 16 in bf16
+     and 11 in float32, every launch counter as designed;
+ 32. one training step of that config and of merge_bf16, card against CPU
+     (bf16 limits), with each step's time.
 Then one JSON line with the kernels, and the final line
 {"ok": true, "device": {...}}.
 """
@@ -244,20 +262,24 @@ def phase_build():
     secs = {k: round(v, 2) for k, v in _build.build_seconds.items()}
     print(f"[build] {time.perf_counter() - t0:.2f} s, in parallel; nvcc per library: {secs}")
     found = check_registers()
-    check_launch_bounds()
+    check_launch_bounds(found)
     return found
 
 
-# the route chooser's build letter -> (library, kernel function name)
-BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel"), "B": ("gru_decode", "gru_decode_kernel"),
-          "C": ("gru_layer_bwd", "gru_layer_bwd_kernel"),
-          "D": ("gru_decode_train", "gru_decode_train_kernel"),
-          "E": ("gru_decode_bwd", "gru_decode_bwd_kernel"),
+# the route chooser's build letter -> (library, kernel function name[, a
+# substring its mangled name must hold, or with "!" must not]): the f32
+# builds of A to E and W leave their bf16 instances to the "_bf16" letters
+NOT_BF16, BF16_ONLY = "!nv_bfloat16", "nv_bfloat16"
+BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
+          "B": ("gru_decode", "gru_decode_kernel"),
+          "C": ("gru_layer_bwd", "gru_layer_bwd_kernel", NOT_BF16),
+          "D": ("gru_decode_train", "gru_decode_train_kernel", NOT_BF16),
+          "E": ("gru_decode_bwd", "gru_decode_bwd_kernel", NOT_BF16),
           "F": ("gru_layer_xp_fwd", "gru_layer_xp_fwd_kernel"),
           "G": ("gru_layer_xp_bwd", "gru_layer_xp_bwd_kernel"),
           "D_wide": ("gru_decode_train", "gru_decode_train_wide_kernel"),
           "E_wide": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel"),
-          "W": ("grad_reduce", "grad_reduce"),
+          "W": ("grad_reduce", "grad_reduce", NOT_BF16),
           "L": ("lstm_layer_fwd", "lstm_layer_fwd_kernel"), "M": ("lstm_decode", "lstm_decode_kernel"),
           "N": ("lstm_layer_bwd", "lstm_layer_bwd_kernel"),
           "Q": ("lstm_layer_xp_fwd", "lstm_layer_xp_fwd_kernel"),
@@ -268,9 +290,14 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel"), "B": ("gru_decode", "g
           "Y": ("lstm_encoder_scan", "lstm_encoder_scan_kernel"),
           "U": ("gru_encoder_stack_fwd", "gru_encoder_stack_fwd_kernel"),
           "V": ("gru_encoder_stack_bwd", "gru_encoder_stack_bwd_kernel"),
-          # the bf16 instances of T's and S's kernels
-          "T_bf16": ("gru_step", "gru_step_kernel", "nv_bfloat16"),
-          "S_bf16": ("lstm_step", "lstm_step_kernel", "nv_bfloat16")}
+          # the bf16 instances of T's, S's, A's, C's, D's, E's and W's kernels
+          "T_bf16": ("gru_step", "gru_step_kernel", BF16_ONLY),
+          "S_bf16": ("lstm_step", "lstm_step_kernel", BF16_ONLY),
+          "A_bf16": ("gru_layer_fwd", "gru_layer_fwd_kernel", BF16_ONLY),
+          "C_bf16": ("gru_layer_bwd", "gru_layer_bwd_kernel", BF16_ONLY),
+          "D_bf16": ("gru_decode_train", "gru_decode_train_kernel", BF16_ONLY),
+          "E_bf16": ("gru_decode_bwd", "gru_decode_bwd_kernel", BF16_ONLY),
+          "W_bf16": ("grad_reduce", "grad_reduce_kernel", BF16_ONLY)}
 
 
 def check_registers():
@@ -284,7 +311,7 @@ def check_registers():
     for letter, (lib, fn, *only) in BUILDS.items():
         entries = [v for k, v in _build.ptxas_report.get(lib, {}).items()
                    if (f"{len(fn)}{fn}" in k or (letter == "W" and fn in k))
-                   and all(o in k for o in only)]
+                   and all(o[1:] not in k if o.startswith("!") else o in k for o in only)]
         if not entries:
             raise RuntimeError(f"no ptxas report for kernel {letter} ({fn} in lib{lib}.so)")
         found[letter] = {"registers": max(e["registers"] for e in entries),
@@ -301,26 +328,39 @@ def check_registers():
     return found
 
 
-def check_launch_bounds():
-    """The C entry points of the 8-rows builds of D and E refuse H = 512,
-    whose registers allow at most 384 threads a block, before any launch
-    (cudaErrorLaunchOutOfResources), as the route chooser says."""
+def check_launch_bounds(found):
+    """The C entry points of the 8-rows builds of D and E (and of their bf16
+    builds where ptxas's registers allow fewer than 512 threads) refuse
+    H = 512 before any launch (cudaErrorLaunchOutOfResources), as the route
+    chooser says."""
     import ctypes
+
+    import torch
 
     from midi_vae_tpu_torch.ops import _layout, gru_decode
 
     out_of_resources = 701  # cudaErrorLaunchOutOfResources
-    for letter, kernel, struct in (("D", gru_decode._fwd_kernel, gru_decode._DecodeHead),
-                                   ("E", gru_decode._bwd_kernel, gru_decode._DecodeHeadBwd)):
-        if _layout.launch_limit(letter, 512, _layout.smem_bytes(letter, 512, 61, 2)) is None:
+    refused = []
+    for letter, kernel, struct, dtype in (
+            ("D", gru_decode._fwd_kernel, gru_decode._DecodeHead, torch.float32),
+            ("E", gru_decode._bwd_kernel, gru_decode._DecodeHeadBwd, torch.float32),
+            ("D_bf16", gru_decode._fwd_kernel, gru_decode._DecodeHead, torch.bfloat16),
+            ("E_bf16", gru_decode._bwd_kernel, gru_decode._DecodeHeadBwd, torch.bfloat16)):
+        chooser = _layout.launch_limit(letter, 512, _layout.smem_bytes(letter, 512, 61, 2))
+        if dtype == torch.float32 and chooser is None:
             raise RuntimeError(f"the route chooser lets kernel {letter} launch at H = 512")
+        if found[letter]["registers"] * 512 <= _layout.REGS_PER_SM:
+            continue  # it would launch: no call with null pointers
+        if chooser is None:
+            raise RuntimeError(f"the route chooser lets kernel {letter} launch at H = 512, "
+                               f"its build uses {found[letter]['registers']} registers")
         head = struct(D=61, n_layers=2, out_act=gru_decode.OUT_ACTIVATIONS["softmax"], T=64)
-        _, fn = kernel(False)
-        rc = fn(ctypes.byref(head), 1, B, 512, None)
+        rc = kernel(False)[1][dtype](ctypes.byref(head), 1, B, 512, None)
         if rc != out_of_resources:
             raise RuntimeError(f"kernel {letter} (8 rows) at H = 512 returned {rc}, "
                                f"not {out_of_resources} (cudaErrorLaunchOutOfResources)")
-    print("[build] D and E (8 rows) refuse H = 512 at their C entry points")
+        refused.append(letter)
+    print(f"[build] {', '.join(refused)} (8 rows) refuse H = 512 at their C entry points")
 
 
 def random_batch(cfg, n, seed):
@@ -390,11 +430,20 @@ def nbytes(*objs):
     return sum(t.numel() * t.element_size() for t in tensors_in(*objs))
 
 
-def bound(flops, moved, peak=PEAK_F32_FLOPS):
-    """(bound_ms, bound_by) of ``flops`` operations at ``peak`` FLOP/s and
-    ``moved`` bytes."""
-    t_ops, t_bytes = flops / peak, moved / PEAK_BYTES_PER_S
+def bound(flops, moved, peak=PEAK_F32_FLOPS, flops_f32=0.0):
+    """(bound_ms, bound_by) of ``flops`` operations at ``peak`` FLOP/s, plus
+    ``flops_f32`` at the float32 rate (a bf16 kernel's products with a
+    float32 operand), and ``moved`` bytes."""
+    t_ops = flops / peak + flops_f32 / PEAK_F32_FLOPS
+    t_bytes = moved / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def calls_bound(calls):
+    """bound() of the summed work of compare() results."""
+    return bound(sum(r["flops"] / r["peak_flops"] for r in calls) * PEAK_F32_FLOPS
+                 + sum(r.get("flops_f32", 0.0) for r in calls),
+                 sum(r["bytes"] for r in calls))
 
 
 # operations of the kernels' products (2 per multiply-add; the gate math is a
@@ -466,27 +515,29 @@ def _shown_limit(limit):
 
 
 def compare(name, kernel_fn, plain_fn, limits, flops, inputs, library_fn=None,
-            peak=PEAK_F32_FLOPS):
+            peak=PEAK_F32_FLOPS, flops_f32=0.0):
     """check(), then both timed in turns (plain, kernel, kernel, plain), with
-    the bound of the call's work: ``flops`` operations at ``peak`` FLOP/s,
-    ``inputs`` (nested tensors) read and the kernel's outputs written;
-    ``library_fn``, one PyTorch call that computes the same function, is
-    timed beside them."""
+    the bound of the call's work: ``flops`` operations at ``peak`` FLOP/s
+    (and ``flops_f32`` at the float32 rate), ``inputs`` (nested tensors) read
+    and the kernel's outputs written; ``library_fn``, one PyTorch call that
+    computes the same function, is timed beside them."""
     errs, rels, got = _check(name, kernel_fn, plain_fn, limits)
     plain_a, kernel_a = median_ms(plain_fn), median_ms(kernel_fn)
     kernel_b, plain_b = median_ms(kernel_fn), median_ms(plain_fn)
     ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
     moved = nbytes(inputs) + nbytes(got)
-    bound_ms, bound_by = bound(flops, moved, peak)
+    bound_ms, bound_by = bound(flops, moved, peak, flops_f32)
     library_ms = median_ms(library_fn) if library_fn is not None else None
     shown = ", ".join(_shown_limit(x) for x in limits)
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
     rel = f", rel L2 {', '.join(f'{e:.3e}' for e in rels)}" if rels else ""
     print(f"[kernels] {name}: max|diff| {', '.join(f'{e:.3e}' for e in errs)}{rel} "
           f"(limits {shown}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB)")
+          f"{bound_ms:.4f} ms ({bound_by}: {(flops + flops_f32) / 1e9:.3f} GFLOP, "
+          f"{moved / 1e6:.3f} MB)")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "flops": flops,
             "bytes": moved, "bound_ms": bound_ms, "library_ms": library_ms, "peak_flops": peak,
+            **({"flops_f32": flops_f32} if flops_f32 else {}),
             **({"rel_l2": max(rels)} if rels else {})}
 
 
@@ -1141,6 +1192,22 @@ PER_TRAIN_STEP = {
     # build (their backward: the plain versions)
     "bf16_no_fused_train": {"gru_encoder_scan": 4, "gru_step_bf16": S_PER_STEP},
     "lstm_bf16_no_fused_encoder": {"lstm_encoder_scan": 4, "lstm_step_bf16": S_PER_STEP},
+    # bf16 with the default flags: A + C in bf16 per encoder layer; each head
+    # decoded alone (the multi-head call is float32 only): notes and
+    # instrument through D and E in bf16, velocity (D = 1 < 8) promoted to
+    # float32; W over bf16 activations for dW and dU[:, :2H] of the 4 encoder
+    # and 2 + 1 bf16 head cells and the 2 bf16 heads' dWo (16), over float32
+    # operands for dU[:, 2H:] (r * h) of every cell (8) and the velocity
+    # head's dW, dU[:, :2H] and dWo (3)
+    "bf16": {"gru_layer_fwd_bf16": 4, "gru_layer_bwd_bf16": 4, "gru_decode_train_bf16": 2,
+             "gru_decode_train": 1, "gru_decode_bwd_bf16": 2, "gru_decode_bwd": 1,
+             "grad_reduce_bf16": 16, "grad_reduce": 11},
+    # merge_decoder_scans in bf16: notes and velocity through T's bf16 build
+    # (2 x 64 + 64), the instrument head through D and E in bf16; W: 8 + 3
+    # over bf16 activations, 4 + 1 over r * h
+    "merge_bf16": {"gru_layer_fwd_bf16": 4, "gru_layer_bwd_bf16": 4, "gru_step_bf16": 2 * 64 + 64,
+                   "gru_decode_train_bf16": 1, "gru_decode_bwd_bf16": 1, "grad_reduce_bf16": 11,
+                   "grad_reduce": 5},
 }
 PER_EVAL_BATCH = {  # forward only
     "narrow": {"gru_layer_fwd": 4, "gru_decode_train": 2},
@@ -1152,6 +1219,7 @@ PER_EVAL_BATCH = {  # forward only
     "lstm_no_fused_encoder": {"lstm_step_xp": S_PER_STEP, "lstm_step": S_PER_STEP},
     "bf16_no_fused_train": {"gru_encoder_scan": 4, "gru_step_bf16": S_PER_STEP},
     "lstm_bf16_no_fused_encoder": {"lstm_encoder_scan": 4, "lstm_step_bf16": S_PER_STEP},
+    "bf16": {"gru_layer_fwd_bf16": 4, "gru_decode_train_bf16": 2, "gru_decode_train": 1},
 }
 # an encode pass (the serving encoder in float32, kernel A or L, also for a
 # bf16 model: the JAX package's encode casts nothing): the test split's
@@ -1173,7 +1241,7 @@ def route_key(cfg, route):
 
 def kernel_counters():
     """Kernel name -> (wrapper, its counter attribute): ``launches``, or
-    ``launches_bf16`` for the bf16 builds of T and S."""
+    ``launches_bf16`` for the bf16 builds of T, S, A, C, D, E and W."""
     from midi_vae_tpu_torch.ops import encoder_scan as es
     from midi_vae_tpu_torch.ops import encoder_stack as est
     from midi_vae_tpu_torch.ops import gru_decode as gd
@@ -1200,8 +1268,9 @@ def kernel_counters():
            "gru_encoder_stack_fwd": est.gru_encoder_stack_fwd,
            "gru_encoder_stack_bwd": est.gru_encoder_stack_bwd}
     counters = {name: (fn, "launches") for name, fn in fns.items()}
-    counters["gru_step_bf16"] = (gs.gru_cell_step_fwd, "launches_bf16")
-    counters["lstm_step_bf16"] = (ls.lstm_cell_step_fwd, "launches_bf16")
+    for name in ("gru_step", "lstm_step", "gru_layer_fwd", "gru_layer_bwd", "gru_decode_train",
+                 "gru_decode_bwd", "grad_reduce"):
+        counters[f"{name}_bf16"] = (counters[name][0], "launches_bf16")
     return counters
 
 
@@ -2635,6 +2704,379 @@ def phase_encoder_stacks():
     return results
 
 
+# bf16 with the default flags (phases 30-32). A's bf16 h sequences are held
+# to BF16 as X's are. The bf16 outputs of D and the bf16 gradients of C
+# and E (dx, dh0, d_init, d_start) span up to several units, where one bf16
+# step is larger than BF16_ATOL: they are held to one bf16 step at their
+# largest entry and to BF16_REL_L2 (BF16_OUT). The autograd ops' gradients
+# against the plain backward (the weight grads rounded to bf16 from float32
+# sums over forward sequences that themselves differ by rounding flips) to
+# two bf16 steps at their largest entry and BF16_GRAD_REL_L2_OP. Over 64
+# steps a state entry that rounds the other way carries on, so a wrong
+# rounding that moves each step by less than a bf16 step hides in that
+# spread: on the H100 (NVIDIA H100 80GB HBM3, 700 W) the kernels' relative
+# L2 from their plain versions reached 5.6e-4 (A), 6.3e-4 (D's logits) and
+# 1.35e-3 (the ops' gradients), where r * h rounded to bf16 in A landed at
+# 1.5e-3 and layer 2 fed the rounded h1 in D at 3.4e-4. So the controls
+# are run on one step from a random state, where a sound kernel differs from
+# its plain version only where a float32 sum taken in another order
+# straddles a bf16 rounding boundary: A and D at T = 1 are held to
+# BF16_STEP_REL_L2, and each control must land over it. W's sums stay
+# float32 in both versions (bf16 activations widened, float32 gate grads):
+# max |diff| to rel() and relative L2 to W_REL_L2 (the kernel: 9.3e-7), which
+# a W that rounds the gate grads to bf16 before summing them (1.3e-3) must
+# exceed
+BF16_OUT = (bf16_step_lim, BF16_REL_L2)
+BF16_GRAD_REL_L2_OP = 4e-3
+BF16_GRAD_OP = (lambda w: 2 * bf16_step_lim(w), BF16_GRAD_REL_L2_OP)
+BF16_STEP_REL_L2 = 1e-4
+BF16_STEP = (bf16_step_lim, BF16_STEP_REL_L2)
+W_REL_L2 = 1e-5
+
+
+def layer_flops_bf16(T, B, w, u):
+    """(bf16 x bf16, float32-rate) operations of A's bf16 build: x @ W and
+    h @ U[:, :2H] are bf16 products, (r * h) @ U[:, 2H:] takes the float32
+    r * h."""
+    H = u.shape[0]
+    return 2 * T * B * (w.shape[0] * 3 * H + H * 2 * H), 2 * T * B * H * H
+
+
+def decode_flops_bf16(T, B, cells, wo):
+    """(bf16 x bf16, float32-rate) operations of D's bf16 build: layer 1's
+    x @ W (the fed-back bf16 probs) and every layer's h @ U[:, :2H] are bf16
+    products; (r * h) @ U[:, 2H:], layer 2's h1 @ W (the float32 h1) and the
+    readout (the float32 top h) take a float32 operand."""
+    bf, f32 = 0, 2 * T * B * wo.numel()
+    for i, c in enumerate(cells):
+        H = c["u"].shape[0]
+        bf += 2 * T * B * 2 * H * H
+        f32 += 2 * T * B * H * H
+        if i == 0:
+            bf += 2 * T * B * c["w"].numel()
+        else:
+            f32 += 2 * T * B * c["w"].numel()
+    return bf, f32
+
+
+def plain_layer_vjp(x, h0, w, b, u, rs, g):
+    """The gradients of ``gru_layer_train_x`` through the plain versions of
+    A, C and W (the CPU path's explicit float32 transposition), cast as the
+    autograd op casts them: (dx, dh0, dW, db, dU)."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+
+    seq = gl.gru_layer_reference(x, h0, w, b, u, "tanh", True)
+    dx, dh0, da, rh = gl.gru_layer_bwd_reference(x, seq, h0, g if rs else None,
+                                                 None if rs else g, w, b, u)
+    dw, db, du = plain_weight_grads(x, torch.cat([h0[None], seq[:-1]]), rh, da)
+    return dx, dh0, dw.to(w.dtype), db.to(b.dtype), du.to(u.dtype)
+
+
+def plain_decode_vjp(head, g_probs, g_logits):
+    """The gradients of one head's training decode through the plain versions
+    of D, E and W, in ``_flatten_head`` order, cast to the inputs' dtypes."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+    from midi_vae_tpu_torch.ops.grad_reduce import grad_reduce_reference
+
+    h = head
+    probs, _, h_seqs = gd.gru_decode_train_reference(h["cells"], h["out"], h["init"], h["start"],
+                                                      h["T"], h["out_activation"])
+    g = gd.gru_decode_bwd_reference(h["cells"], h["out"], h["init"], h["start"], probs, h_seqs,
+                                    g_probs, g_logits, h["out_activation"])
+    T, (rows, D), H = h["T"], h["start"].shape, h["init"][0].shape[-1]
+    dwo, dbo = grad_reduce_reference(h_seqs[-1].reshape(T * rows, H),
+                                     g["dlogits"].reshape(T * rows, D), True)
+    cells = []
+    for i in range(len(h["cells"])):
+        x = h_seqs[i - 1] if i > 0 else torch.cat([h["start"][None], probs[:-1]])
+        hprev = torch.cat([h["init"][i][None], h_seqs[i][:-1]])
+        dw, db, du = plain_weight_grads(x, hprev, g["rh"][i], g["da"][i])
+        cells += [dw, du, db]
+    flat = [g["d_start"], *g["d_init"], *cells, dwo, dbo]
+    return tuple(t.to(p.dtype) for t, p in zip(flat, gd._flatten_head(h)))
+
+
+def scan_rounding_rh(x, h0, w, b, u):
+    """A control: A's plain version with r * h rounded to bf16 before its
+    product with U[:, 2H:] (the Pallas kernel keeps it float32)."""
+    import torch
+
+    H = h0.shape[-1]
+    xp, uf, h, seq = x.float() @ w.float() + b.float(), u.float(), h0, []
+    for t in range(x.shape[0]):
+        hf = h.float()
+        hu = hf @ uf[:, : 2 * H]
+        z = torch.sigmoid(xp[t, :, :H] + hu[:, :H])
+        r = torch.sigmoid(xp[t, :, H : 2 * H] + hu[:, H:])
+        hh = torch.tanh(xp[t, :, 2 * H :] + (r * hf).to(h.dtype).float() @ uf[:, 2 * H :])
+        h = (z * hf + (1.0 - z) * hh).to(h.dtype)
+        seq.append(h)
+    return torch.stack(seq)
+
+
+def decode_rounding_h1(head):
+    """A control: D's plain version with layer 2 fed the rounded h1 (the
+    Pallas kernel feeds it the float32 h1 of the step): its (probs, top h
+    sequence)."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+    from midi_vae_tpu_torch.ops.gru_layer import gru_step
+
+    act = gd.out_activation_fn(head["out_activation"])
+    states, x, probs, top = list(head["init"]), head["start"], [], []
+    for _ in range(head["T"]):
+        for i, p in enumerate(head["cells"]):
+            x = states[i] = gru_step(x, states[i], p["w"], p["u"], p["b"], torch.tanh)
+        top.append(x)
+        x = act(x.float() @ head["out"]["w"].float() + head["out"]["b"].float()).to(x.dtype)
+        probs.append(x)
+    return torch.stack(probs), torch.stack(top)
+
+
+def phase_bf16_fused_kernels():
+    """Phase 30: the bf16 builds of A (csrc/gru_layer_fwd.cu), C
+    (csrc/gru_layer_bwd.cu), W (csrc/grad_reduce.cu), D
+    (csrc/gru_decode_train.cu) and E (csrc/gru_decode_bwd.cu) at the bf16
+    Config() step's shapes (the four encoder layers with the h sequence;
+    the notes head, 2 layers, softmax, D = 61, and the instrument head, 1
+    layer, softmax, D = 16, 4 steps, each decoded alone; W over each layer's
+    and head's products), the params and batch cast to bf16 as the model
+    casts them, each against its plain bf16 version at B = 256 (timed, with
+    bounds: bf16 x bf16 products at the bf16 rate, the rest at the float32
+    rate; W beside cuBLAS's a.t() @ b on the widened operands) and B = 5;
+    three wrong plain versions as controls that must land over the limits
+    (``controls``); the autograd ops' gradients (gru_layer_train_x,
+    gru_decode_train) against the plain backward (the float32 transposition
+    through the plain versions of C, E and W)."""
+    import torch
+
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.models.rnn import init_decoder_states
+    from midi_vae_tpu_torch.models.vae import MidiVAE, _cast_tree
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+    from midi_vae_tpu_torch.ops.grad_reduce import (
+        grad_reduce,
+        grad_reduce_reference,
+        gru_weight_grads,
+    )
+
+    cfg = Config(compute_dtype="bfloat16")
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    model = MidiVAE(cfg).to(dev)
+    params = _cast_tree(model.params, bf)
+    enc, dec = params["encoder"], params["decoder"]
+    gen = torch.Generator(device=dev).manual_seed(30)
+    tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    flat = lambda outs: tuple(t for t in outs if t is not None)  # noqa: E731
+    keys = ("gru_layer_fwd_bf16", "gru_layer_bwd_bf16", "grad_reduce_bf16",
+            "gru_decode_train_bf16", "gru_decode_bwd_bf16")
+    results = {k: {} for k in keys}
+    found = {}
+
+    def cot(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def widened(*ts):
+        return tuple(t.float() for t in ts)
+
+    def kernel_d(head):
+        """D's outputs for one head: probs, logits, then each layer's h."""
+        probs, logits, h_seqs = gd.gru_decode_fwd_train([head])[0]
+        return probs, logits, *h_seqs
+
+    def plain_d(head):
+        probs, logits, h_seqs = gd.gru_decode_train_reference(
+            head["cells"], head["out"], head["init"], head["start"], head["T"],
+            head["out_activation"])
+        return probs, logits, *h_seqs
+
+    for rows in (B, RAGGED):
+        timed = rows == B
+        run = compare if timed else check
+        batch = {k: torch.as_tensor(v, device=dev).to(bf)
+                 for k, v in random_batch(cfg, rows, 30).items()}
+        h0 = torch.zeros(rows, cfg.lstm_size, device=dev, dtype=bf)
+        with torch.no_grad():
+            x_l2 = gl.gru_layer_reference(tm(batch["X"]), h0,
+                                          *(enc["notes_rnn"][0][k] for k in "wbu"), "tanh", True)
+        layer_cases = [  # name, x, params, return_sequences, dx wanted
+            ("notes_l1", tm(batch["X"]), enc["notes_rnn"][0], True, False),
+            ("notes_l2", x_l2, enc["notes_rnn"][1], False, True),
+            ("instrument", tm(batch["I"]), enc["inst_rnn"][0], False, False),
+            ("velocity", tm(batch["V"]), enc["vel_rnn"][0], False, False),
+        ]
+        for name, x, p, rs, need_dx in layer_cases:
+            w, b, u = (p[k].detach() for k in "wbu")
+            T = x.shape[0]
+            args = (x, h0, w, b, u, "tanh", True)
+            fb, ff = layer_flops_bf16(T, rows, w, u)
+            out = run(f"A bf16 {name} x{tuple(x.shape)}", lambda a=args: gl.gru_layer(*a),
+                      lambda a=args: gl.gru_layer_reference(*a), [BF16], flops=fb, flops_f32=ff,
+                      inputs=args[:5], peak=PEAK_BF16_FLOPS)
+            with torch.no_grad():
+                seq = gl.gru_layer_reference(*args)
+            if timed:
+                results["gru_layer_fwd_bf16"][name] = out
+            if timed and name == "notes_l1":
+                # one step from a random state: the control's ground
+                state = (0.5 * torch.tanh(torch.randn(rows, cfg.lstm_size, generator=gen,
+                                                      device=dev))).to(bf)
+                sargs = (x[:1].contiguous(), state, w, b, u, "tanh", True)
+                found["A one step (the kernel)"] = _check(
+                    f"A bf16 {name} one step", lambda a=sargs: gl.gru_layer(*a),
+                    lambda a=sargs: gl.gru_layer_reference(*a), [BF16_STEP])[1][0]
+                found["A: r*h rounded"] = rel_l2(scan_rounding_rh(*sargs[:5]),
+                                                 gl.gru_layer_reference(*sargs))
+            g = cot(seq.shape if rs else seq.shape[1:])
+            cargs = (x, seq, h0, g if rs else None, None if rs else g, w, b, u, need_dx)
+            # dx, dh0 (bf16 grads), da_cat (float32 grads), r*h (a float32 value)
+            limits = ([BF16_OUT] if need_dx else []) + [BF16_OUT, rel, H_ATOL]
+            out = run(f"C bf16 {name} rs={rs}", lambda a=cargs: flat(gl.gru_layer_bwd(*a)),
+                      lambda a=cargs: flat(gl.gru_layer_bwd_reference(*a)), limits,
+                      flops=cell_bwd_flops(T, rows, w, u, need_dx), inputs=cargs[:8])
+            if timed:
+                results["gru_layer_bwd_bf16"][name] = out
+            _dx, _dh0, da, rh = gl.gru_layer_bwd_reference(*cargs)
+            wargs = (x, torch.cat([h0[None], seq[:-1]]), rh, da)
+            wide = widened(*wargs)
+            out = run(f"W bf16 {name} dW, db, dU", lambda a=wargs: gru_weight_grads(*a),
+                      lambda a=wargs: plain_weight_grads(*a), [(rel, W_REL_L2)] * 3,
+                      flops=weight_grad_flops(x, wargs[1]), inputs=wargs,
+                      library_fn=lambda a=wide: cublas_weight_grads(*a))
+            if timed:
+                results["grad_reduce_bf16"][f"encoder {name}"] = out
+                if name == "notes_l1":
+                    want = plain_weight_grads(*wargs)
+                    rounded = plain_weight_grads(x, wargs[1], rh, da.to(bf).float())
+                    found["W: gate grads rounded"] = min(
+                        rel_l2(r_, w_) for r_, w_ in zip(rounded, want) if r_.numel() > 3 * 256)
+            # A + C + W against the plain backward
+            leaves = [t.clone().requires_grad_(i > 0 or need_dx) for i, t in enumerate((x, h0, w, b, u))]
+            wanted = [t for t in leaves if t.requires_grad]
+            got = torch.autograd.grad(gl.gru_layer_train_x(*leaves, rs), wanted, g)
+            want = [t for t, leaf in zip(plain_layer_vjp(x, h0, w, b, u, rs, g), leaves)
+                    if leaf.requires_grad]
+            check(f"A+C+W bf16 grads {name} B={rows}", lambda: got, lambda: tuple(want),
+                  [BF16_GRAD_OP] * len(want))
+
+        with torch.no_grad():
+            z = model.encode({k: v.float() for k, v in batch.items()}).to(bf)
+        new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
+        for name, d, T, out_act in (("notes", cfg.output_dim, cfg.output_length, cfg.activation),
+                                    ("instrument", cfg.meta_instrument_dim,
+                                     cfg.meta_instrument_length, cfg.meta_instrument_activation)):
+            h = dec[name]
+            with torch.no_grad():
+                states = init_decoder_states(h["init"], new_encoded, cfg.cell_type,
+                                             cfg.lstm_state_activation)
+            head = {"cells": [{k: c[k].detach() for k in "wub"} for c in h["cells"]],
+                    "out": {k: h["out"][k].detach() for k in "wb"},
+                    "init": [s_[0].detach() for s_ in states],
+                    "start": torch.zeros(rows, d, device=dev, dtype=bf), "T": T,
+                    "out_activation": out_act}
+            n = len(head["cells"])
+            tag = f"{name} ({n}L D={d} T={T} {out_act})"
+            fb, ff = decode_flops_bf16(T, rows, head["cells"], head["out"]["w"])
+            out = run(f"D bf16 {tag}", lambda h_=head: kernel_d(h_), lambda h_=head: plain_d(h_),
+                      [BF16_OUT] * (2 + n), flops=fb, flops_f32=ff,
+                      inputs=[head["cells"], head["out"], head["init"], head["start"]],
+                      peak=PEAK_BF16_FLOPS)
+            probs, _logits, *h_seqs = plain_d(head)
+            if timed:
+                results["gru_decode_train_bf16"][name] = out
+            if timed and n == 2:
+                # one step from the head's initial states: the control's ground
+                step1 = dict(head, T=1)
+                found["D one step (the kernel)"] = max(_check(
+                    f"D bf16 {name} one step", lambda h_=step1: kernel_d(h_),
+                    lambda h_=step1: plain_d(h_), [BF16_STEP] * (2 + n))[1])
+                want1 = plain_d(step1)
+                wrong = decode_rounding_h1(step1)
+                found["D: layer 2 fed the rounded h1"] = max(rel_l2(wrong[0], want1[0]),
+                                                             rel_l2(wrong[1], want1[-1]))
+            head.update(probs=probs, h_seqs=h_seqs, g_probs=cot(probs.shape),
+                        g_logits=cot(probs.shape))
+            bwd_flat = lambda o: (o["dlogits"], *o["da"], *o["rh"], *o["d_init"], o["d_start"])  # noqa: E731
+            out = run(f"E bf16 {tag}", lambda h_=head: bwd_flat(gd.gru_decode_bwd([h_])[0]),
+                      lambda h_=head: bwd_flat(gd.gru_decode_bwd_reference(
+                          h_["cells"], h_["out"], h_["init"], h_["start"], h_["probs"],
+                          h_["h_seqs"], h_["g_probs"], h_["g_logits"], h_["out_activation"])),
+                      [rel] * (1 + n) + [H_ATOL] * n + [BF16_OUT] * (n + 1),
+                      flops=2 * T * rows * head["out"]["w"].numel()
+                      + sum(cell_bwd_flops(T, rows, c["w"], c["u"]) for c in head["cells"]),
+                      inputs=[head[k] for k in ("cells", "out", "init", "start", "probs",
+                                                "h_seqs", "g_probs", "g_logits")])
+            if timed:
+                results["gru_decode_bwd_bf16"][name] = out
+            g = gd.gru_decode_bwd_reference(head["cells"], head["out"], head["init"], head["start"],
+                                            probs, h_seqs, head["g_probs"], head["g_logits"],
+                                            out_act)
+            H = head["init"][0].shape[-1]
+            top, dl = h_seqs[-1].reshape(T * rows, H), g["dlogits"].reshape(T * rows, d)
+            wsets = [(h_seqs[i - 1] if i else torch.cat([head["start"][None], probs[:-1]]),
+                      torch.cat([head["init"][i][None], h_seqs[i][:-1]]), g["rh"][i], g["da"][i])
+                     for i in range(n)]
+            wide_top, wide_sets = top.float(), [widened(*ws) for ws in wsets]
+
+            def kernel_w(top=top, dl=dl, ws=wsets):
+                dwo = torch.empty(top.shape[1], dl.shape[1], device=dev)
+                dbo = torch.empty(dl.shape[1], device=dev)
+                grad_reduce(top, dl, dwo, dbo)
+                return (dwo, dbo, *(t for s_ in ws for t in gru_weight_grads(*s_)))
+
+            def plain_w(top=top, dl=dl, ws=wsets):
+                return (*grad_reduce_reference(top, dl, True),
+                        *(t for s_ in ws for t in plain_weight_grads(*s_)))
+
+            def library_w(top=wide_top, dl=dl, ws=wide_sets):
+                return (top.t() @ dl, dl.sum(0), *(t for s_ in ws for t in cublas_weight_grads(*s_)))
+
+            out = run(f"W bf16 {name} head", kernel_w, plain_w, [(rel, W_REL_L2)] * (2 + 3 * n),
+                      flops=2 * T * rows * H * d + sum(weight_grad_flops(x_, hp) for x_, hp, _, _ in wsets),
+                      inputs=[top, dl, wsets], library_fn=library_w)
+            if timed:
+                results["grad_reduce_bf16"][f"decode {name}"] = out
+            # D + E + W against the plain backward
+            leaves = [t.clone().requires_grad_() for t in gd._flatten_head(head)]
+            lhead = dict(head, **gd._unflatten_heads([(n, out_act, T)], leaves)[0])
+            got_p, got_l = gd._decode_heads_train([lhead])[0]
+            got = torch.autograd.grad((got_p, got_l), leaves, (head["g_probs"], head["g_logits"]))
+            want = plain_decode_vjp(head, head["g_probs"], head["g_logits"])
+            check(f"D+E+W bf16 grads {name} B={rows}", lambda: got, lambda: want,
+                  [BF16_GRAD_OP] * len(want))
+    check_controls(found)
+    print(f"[bf16 fused kernels] A, C, W, D and E in bf16 agree with their plain versions at "
+          f"B = {B} and {RAGGED}; the autograd ops' gradients with the plain backward")
+    return results
+
+
+def check_controls(found):
+    """Prints the one-step kernels' relative L2 (held to BF16_STEP_REL_L2
+    by their checks) beside three wrong plain versions against the right
+    ones at B = 256: r * h
+    rounded to bf16 in A (one step of notes L1), the gate grads rounded to
+    bf16 before W sums them (notes L1's dW and dU, the smaller of the two),
+    layer 2 fed the rounded h1 in D (one step of the notes head: probs and
+    h2, the larger). Each must land over the relative L2 its kernel is held
+    to (BF16_STEP_REL_L2, W_REL_L2), or the limit does not tell a wrong
+    kernel from a sound one."""
+    limits = {"A: r*h rounded": BF16_STEP_REL_L2, "W: gate grads rounded": W_REL_L2,
+              "D: layer 2 fed the rounded h1": BF16_STEP_REL_L2}
+    print("[bf16 fused kernels] relative L2 from the plain version: " + ", ".join(
+        f"{k} {v:.3e}" + (f" (must exceed {limits[k]:.1e})" if k in limits else "")
+        for k, v in found.items()))
+    for what, err in ((k, v) for k, v in found.items() if k in limits):
+        if not err > limits[what]:
+            raise RuntimeError(f"the control {what} lands {err:.3e} from the plain version, "
+                               f"inside {limits[what]:.1e}")
+
+
 def phase_gru_3layer_serving(work, smi):
     """A GRU run with a 3-layer notes head (Config(num_layers_decoder=3),
     seeded init) served through the transfer CLI on 2 authored songs: kernel
@@ -2770,6 +3212,16 @@ def main() -> int:
     # the fused encoder stacks (U and V) through their own entry points: the
     # model keeps the per-layer dispatch, so no main path launches them
     results.update(phase_encoder_stacks())
+    # bf16 with the default fused flags: A, C, W, D and E in bf16, the train
+    # CLI on Config(compute_dtype="bfloat16"), its step and merge_bf16's card
+    # vs CPU
+    results.update(phase_bf16_fused_kernels())
+    with tempfile.TemporaryDirectory() as work:
+        paths["train_bf16"] = phase_train_slice(work, ["compute_dtype=bfloat16"], "bf16")
+    for key, overrides in (("bf16", {}), ("merge_bf16", {"merge_decoder_scans": True})):
+        bf16_steps[key] = phase_train_card_vs_cpu(
+            smi, Config(compute_dtype="bfloat16", **overrides), PER_TRAIN_STEP[key],
+            f"{key} train")
     for path, counts in paths.items():
         for name in ("gru_encoder_stack_fwd", "gru_encoder_stack_bwd"):
             if counts.get(name, 0):
@@ -2786,8 +3238,10 @@ def main() -> int:
     # and the wide builds, LSTM(256) for L, M, N, S and S xp, LSTM(512) for Q
     # and R, the bf16 GRU(256) and LSTM(256) steps for X, T bf16, Y and S
     # bf16, the Config() encoder's multi-branch call for U and V (no path
-    # runs them; their stack2 calls beside); "launches" over the main paths'
-    # runs
+    # runs them; their stack2 calls beside), the bf16 Config() step for A,
+    # C, W, D and E in bf16 (W bf16: each layer's and bf16 head's
+    # reductions, the float32 one over r * h among them); "launches" over the
+    # main paths' runs
     meta = {
         "gru_layer_fwd": ("A", "gru_layer_fwd.cu", "fused_train.py:2057", ["fused_train.py:2919"]),
         "gru_decode": ("B", "gru_decode.cu", "fused_decoder.py:61", ["fused_decoder.py:95"]),
@@ -2855,6 +3309,20 @@ def main() -> int:
         "gru_encoder_stack_bwd": ("V", "gru_encoder_stack_bwd.cu", "fused_train.py:2702",
                                   ["fused_train.py:2760", "fused_train.py:3667",
                                    "fused_train.py:3810"]),
+        # rows 1, 4, 7 and 8 in a bf16 model, and their weight-grad sums:
+        # _fwdx_kernel (through _fwdx_pallas), _bwdx_kernel (_bwdx_pallas),
+        # _dec_fwd2/1_kernel (_dec_fwd_pallas), _dec_bwd2/1_kernel
+        # (_dec_bwd_pallas)
+        "gru_layer_fwd_bf16": ("A bf16", "gru_layer_fwd.cu", "fused_train.py:2057",
+                               ["fused_train.py:2084"]),
+        "gru_layer_bwd_bf16": ("C bf16", "gru_layer_bwd.cu", "fused_train.py:2116",
+                               ["fused_train.py:2201"]),
+        "gru_decode_train_bf16": ("D bf16", "gru_decode_train.cu", "fused_train.py:393",
+                                  ["fused_train.py:431", "fused_train.py:465"]),
+        "gru_decode_bwd_bf16": ("E bf16", "gru_decode_bwd.cu", "fused_train.py:533",
+                                ["fused_train.py:602", "fused_train.py:650"]),
+        "grad_reduce_bf16": ("W bf16", "grad_reduce.cu", "fused_train.py:2175",
+                             ["fused_train.py:567", "fused_train.py:628"]),
     }
     # per kernel: the calls of one step or transfer at other shapes
     extra = {"gru_layer_fwd": [("ms_h512", "gru_layer_512")],
@@ -2880,9 +3348,7 @@ def main() -> int:
     for name, (letter, source, replaces, also) in meta.items():
         per_call = results[name]
         by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
-        bound_ms, bound_by = bound(sum(r["flops"] for r in per_call.values()),
-                                   sum(r["bytes"] for r in per_call.values()),
-                                   next(iter(per_call.values()))["peak_flops"])
+        bound_ms, bound_by = calls_bound(per_call.values())
         library = [r["library_ms"] for r in per_call.values()]
         entry = {
             "name": name, "letter": letter, "route": "cuda",

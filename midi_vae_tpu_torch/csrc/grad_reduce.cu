@@ -26,7 +26,13 @@
 // What bounds it: f32 FMA throughput outside the tensor cores (no TF32, to
 // keep f32 gradients) and the shared-memory operand traffic, 8 loads per
 // 16 FMAs a thread.
-#include <cuda_runtime.h>
+//
+// A bf16 build (mvt_grad_reduce_bf16) serves a bf16 model: A is the stored
+// bf16 activations (x, h_{t-1}, a decode head's fed-back probs and top h),
+// widened to float as it is staged; B, the gate grads or dlogits, is float
+// and never rounded, and the sums are float, as the Pallas backward kernels
+// accumulate _outer_acc(x.astype(f32), da_cat) in float32.
+#include "gru_common.cuh"
 
 namespace mvt {
 
@@ -35,8 +41,9 @@ constexpr int kK = 16;     // rows of A and B per stage
 constexpr int kThreads = 256;
 
 // rows [n0, n1) of the reduction; i0/j0 the tile origin; Ie = I (+1 with bias)
+template <typename TA>
 __global__ __launch_bounds__(kThreads) void grad_reduce_kernel(
-    const float* __restrict__ a, int lda, const float* __restrict__ b, int ldb,
+    const TA* __restrict__ a, int lda, const float* __restrict__ b, int ldb,
     float* __restrict__ c, int ldc, float* __restrict__ bias,
     float* __restrict__ part, int N, int I, int J, int with_bias, int chunk) {
   __shared__ __align__(16) float a_s[kK][kTile];
@@ -60,7 +67,7 @@ __global__ __launch_bounds__(kThreads) void grad_reduce_kernel(
       float av = 0.0f, bv = 0.0f;
       if (row < n1) {
         if (i < I) {
-          av = a[(size_t)row * lda + i];
+          av = to_f32(a[(size_t)row * lda + i]);
         } else if (i < Ie) {
           av = 1.0f;  // the bias row
         }
@@ -122,14 +129,10 @@ __global__ void grad_reduce_sum_kernel(const float* __restrict__ part, int S,
   }
 }
 
-}  // namespace mvt
-
-// bias may be null (no bias sums). With splits > 1, part must hold
-// splits * (I + (bias != null)) * J floats; with splits == 1 it is unused.
-extern "C" int mvt_grad_reduce(const float* a, int lda, const float* b, int ldb,
-                               float* c, int ldc, float* bias, float* part,
-                               int N, int I, int J, int splits, void* stream) {
-  using namespace mvt;
+template <typename TA>
+int reduce(const TA* a, int lda, const float* b, int ldb, float* c, int ldc,
+           float* bias, float* part, int N, int I, int J, int splits,
+           void* stream) {
   if (N < 1 || I < 1 || J < 1 || splits < 1 || lda < I || ldb < J || ldc < J ||
       (splits > 1 && part == nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -142,9 +145,9 @@ extern "C" int mvt_grad_reduce(const float* a, int lda, const float* b, int ldb,
   chunk = (chunk + kK - 1) / kK * kK;
   const int S = (N + chunk - 1) / chunk;
   const dim3 grid((J + kTile - 1) / kTile, (Ie + kTile - 1) / kTile, S);
-  grad_reduce_kernel<<<grid, kThreads, 0, s>>>(a, lda, b, ldb, c, ldc, bias,
-                                               S > 1 ? part : nullptr, N, I, J,
-                                               with_bias, chunk);
+  grad_reduce_kernel<TA><<<grid, kThreads, 0, s>>>(a, lda, b, ldb, c, ldc, bias,
+                                                   S > 1 ? part : nullptr, N, I,
+                                                   J, with_bias, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return (int)err;
   const size_t total = (size_t)Ie * J;
@@ -152,6 +155,26 @@ extern "C" int mvt_grad_reduce(const float* a, int lda, const float* b, int ldb,
   grad_reduce_sum_kernel<<<blocks, 256, 0, s>>>(part, S, c, ldc, bias, I, J,
                                                 with_bias);
   return (int)cudaGetLastError();
+}
+
+}  // namespace mvt
+
+// bias may be null (no bias sums). With splits > 1, part must hold
+// splits * (I + (bias != null)) * J floats; with splits == 1 it is unused.
+extern "C" int mvt_grad_reduce(const float* a, int lda, const float* b, int ldb,
+                               float* c, int ldc, float* bias, float* part,
+                               int N, int I, int J, int splits, void* stream) {
+  return mvt::reduce(a, lda, b, ldb, c, ldc, bias, part, N, I, J, splits,
+                     stream);
+}
+
+// the same with A in bf16
+extern "C" int mvt_grad_reduce_bf16(const mvt::bf16* a, int lda, const float* b,
+                                    int ldb, float* c, int ldc, float* bias,
+                                    float* part, int N, int I, int J,
+                                    int splits, void* stream) {
+  return mvt::reduce(a, lda, b, ldb, c, ldc, bias, part, N, I, J, splits,
+                     stream);
 }
 
 extern "C" const char* mvt_error_string(int code) {

@@ -15,7 +15,10 @@
 // Layout as in gru_common.cuh: blockDim.x == H, thread j owns hidden column
 // j; tiles are feature-major in shared memory, a[k * R + row]. The
 // transposed products read UT = U^T (3H, H) and WT = W^T (3H, D), so that
-// neighbouring threads read neighbouring addresses there too.
+// neighbouring threads read neighbouring addresses there too. The weights
+// are of type TW: float, or bf16 in the bf16 builds of C and E, widened as
+// they are loaded (every product and gate grad stays float, as the Pallas
+// backward widens its operands to float32).
 #pragma once
 
 #include "gru_common.cuh"
@@ -30,19 +33,19 @@ namespace mvt {
 // when dx_s is not null, dx_s (D, R) = da_cat @ W^T. Every thread of the
 // block must call it; it ends with a barrier, after which the outputs are
 // visible.
-template <int R = kRows>
+template <int R = kRows, typename TW = float>
 __device__ __forceinline__ void gru_cell_bwd_recurrent(
     float az[R], float ar[R], float ah[R], const float* hp_s, float dh[R],
-    float* da_s, float* rh_s, float* dx_s, const float* __restrict__ U,
-    const float* __restrict__ UT, const float* __restrict__ WT, int D,
-    int H) {
+    float* da_s, float* rh_s, float* dx_s, const TW* __restrict__ U,
+    const nondeduced<TW>* __restrict__ UT,
+    const nondeduced<TW>* __restrict__ WT, int D, int H) {
   const int j = threadIdx.x;
   const int G = 3 * H;
   float v[R];
 #pragma unroll 4
   for (int k = 0; k < H; ++k) {
-    const float* uk = U + (size_t)k * G;
-    const float uz = uk[j], ur = uk[H + j];
+    const TW* uk = U + (size_t)k * G;
+    const float uz = to_f32(uk[j]), ur = to_f32(uk[H + j]);
     load_rows<R>(hp_s + k * R, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -61,7 +64,7 @@ __device__ __forceinline__ void gru_cell_bwd_recurrent(
   __syncthreads();
 #pragma unroll 4
   for (int k = 0; k < H; ++k) {
-    const float uh = U[(size_t)k * G + 2 * H + j];
+    const float uh = to_f32(U[(size_t)k * G + 2 * H + j]);
     load_rows<R>(rh_s + k * R, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) ah[r] = fmaf(v[r], uh, ah[r]);
@@ -81,7 +84,7 @@ __device__ __forceinline__ void gru_cell_bwd_recurrent(
   for (int r = 0; r < R; ++r) drh[r] = 0.0f;
 #pragma unroll 4
   for (int i = 0; i < H; ++i) {
-    const float u = UT[(size_t)(2 * H + i) * H + j];
+    const float u = to_f32(UT[(size_t)(2 * H + i) * H + j]);
     load_rows<R>(da_s + (2 * H + i) * R, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) drh[r] = fmaf(v[r], u, drh[r]);
@@ -98,7 +101,7 @@ __device__ __forceinline__ void gru_cell_bwd_recurrent(
   // dh_{t-1} += [da_z, da_r] @ U[:, :2H]^T
 #pragma unroll 4
   for (int g = 0; g < 2 * H; ++g) {
-    const float u = UT[(size_t)g * H + j];
+    const float u = to_f32(UT[(size_t)g * H + j]);
     load_rows<R>(da_s + g * R, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) dh[r] = fmaf(v[r], u, dh[r]);
@@ -109,7 +112,7 @@ __device__ __forceinline__ void gru_cell_bwd_recurrent(
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.0f;
       for (int g = 0; g < G; ++g) {
-        const float w = WT[(size_t)g * D + d];
+        const float w = to_f32(WT[(size_t)g * D + d]);
         load_rows<R>(da_s + g * R, v);
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = fmaf(v[r], w, acc[r]);
@@ -123,16 +126,18 @@ __device__ __forceinline__ void gru_cell_bwd_recurrent(
 
 // One reverse step from the step input: x_s (D, R) is x_t and the gates are
 // recomputed from it (x_t @ W + b), then gru_cell_bwd_recurrent.
-template <int R = kRows>
+template <int R = kRows, typename TW = float>
 __device__ __forceinline__ void gru_cell_bwd(
     const float* x_s, int D, const float* hp_s, float dh[R], float* da_s,
-    float* rh_s, float* dx_s, const float* __restrict__ W,
-    const float* __restrict__ U, const float* __restrict__ bias,
-    const float* __restrict__ UT, const float* __restrict__ WT, int H) {
+    float* rh_s, float* dx_s, const TW* __restrict__ W,
+    const TW* __restrict__ U, const TW* __restrict__ bias,
+    const nondeduced<TW>* __restrict__ UT,
+    const nondeduced<TW>* __restrict__ WT, int H) {
   const int j = threadIdx.x;
   const int G = 3 * H;
   float az[R], ar[R], ah[R], v[R];
-  const float bz = bias[j], br = bias[H + j], bh = bias[2 * H + j];
+  const float bz = to_f32(bias[j]), br = to_f32(bias[H + j]),
+              bh = to_f32(bias[2 * H + j]);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     az[r] = bz;
@@ -141,8 +146,9 @@ __device__ __forceinline__ void gru_cell_bwd(
   }
   // the forward's gates, recomputed from x_t and h_{t-1}
   for (int d = 0; d < D; ++d) {
-    const float* wd = W + (size_t)d * G;
-    const float wz = wd[j], wr = wd[H + j], wh = wd[2 * H + j];
+    const TW* wd = W + (size_t)d * G;
+    const float wz = to_f32(wd[j]), wr = to_f32(wd[H + j]),
+                wh = to_f32(wd[2 * H + j]);
     load_rows<R>(x_s + d * R, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -151,8 +157,8 @@ __device__ __forceinline__ void gru_cell_bwd(
       ah[r] = fmaf(v[r], wh, ah[r]);
     }
   }
-  gru_cell_bwd_recurrent<R>(az, ar, ah, hp_s, dh, da_s, rh_s, dx_s, U, UT, WT,
-                            D, H);
+  gru_cell_bwd_recurrent<R, TW>(az, ar, ah, hp_s, dh, da_s, rh_s, dx_s, U, UT,
+                                WT, D, H);
 }
 
 }  // namespace mvt

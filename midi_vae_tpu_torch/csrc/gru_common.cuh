@@ -37,6 +37,15 @@ namespace mvt {
 
 using bf16 = __nv_bfloat16;
 
+// T where a template must not deduce it: a pointer parameter that callers
+// may pass as nullptr takes the type deduced from the others
+template <typename T>
+struct type_is {
+  using type = T;
+};
+template <typename T>
+using nondeduced = typename type_is<T>::type;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 

@@ -14,6 +14,13 @@
 // shared memory, and the weights (W1, U1, W2, U2, Wo) are re-read from L2 at
 // every step. The output dense layer and the softmax over D (one warp per
 // row) are inside the loop, so nothing but the outputs touches device memory.
+//
+// TV is the operands' type: float, or bf16 in kernel D's bf16 build
+// (_dec_fwd1/2_kernel in a bf16 model). There every product sums in float,
+// layer 2 takes layer 1's float h of the same step and the readout the top
+// layer's float h; only what the Pallas kernel stores is rounded to bf16:
+// the carried states (after the readout has read them), the h sequences,
+// probs and logits, and the probs fed back as the next input.
 #pragma once
 
 #include "gru_common.cuh"
@@ -25,17 +32,17 @@ inline size_t decode_smem_floats(int n_layers, int D, int H, int rows = kRows) {
   return (size_t)rows * (2 * D + (n_layers + 1) * H);
 }
 
-template <int NL, int ACT, int OUT, int R = kRows>
+template <int NL, int ACT, int OUT, int R = kRows, typename TV = float>
 __device__ __forceinline__ void decode_head(
-    const float* __restrict__ start, const float* __restrict__ h1_0,
-    const float* __restrict__ h2_0,
-    const float* __restrict__ w1, const float* __restrict__ u1,
-    const float* __restrict__ b1,
-    const float* __restrict__ w2, const float* __restrict__ u2,
-    const float* __restrict__ b2,
-    const float* __restrict__ wo, const float* __restrict__ bo,
-    float* __restrict__ probs, float* __restrict__ logits,
-    float* __restrict__ h1seq, float* __restrict__ h2seq,
+    const TV* __restrict__ start, const TV* __restrict__ h1_0,
+    const nondeduced<TV>* __restrict__ h2_0,
+    const TV* __restrict__ w1, const TV* __restrict__ u1,
+    const TV* __restrict__ b1,
+    const nondeduced<TV>* __restrict__ w2, const nondeduced<TV>* __restrict__ u2,
+    const nondeduced<TV>* __restrict__ b2,
+    const TV* __restrict__ wo, const TV* __restrict__ bo,
+    TV* __restrict__ probs, TV* __restrict__ logits,
+    nondeduced<TV>* __restrict__ h1seq, nondeduced<TV>* __restrict__ h2seq,
     int T, int B, int D, int H, float* smem) {
   float* x_s = smem;             // (D, R) fed-back probs
   float* l_s = x_s + R * D;      // (D, R) logits
@@ -52,20 +59,32 @@ __device__ __forceinline__ void decode_head(
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    gru_cell<ACT, R>(x_s, D, h1_s, rh_s, w1, u1, b1, H);
+    // the new states stay float until the readout has read them
+    gru_cell<ACT, R, TV, float>(x_s, D, h1_s, rh_s, w1, u1, b1, H);
     const float* hl = h1_s;
     if constexpr (NL == 2) {
-      gru_cell<ACT, R>(h1_s, H, h2_s, rh_s, w2, u2, b2, H);
+      gru_cell<ACT, R, TV, float>(h1_s, H, h2_s, rh_s, w2, u2, b2, H);
       hl = h2_s;
     }
     // logits = h_last @ Wo + bo; thread i owns (row r, column d)
     for (int i = tid; i < R * D; i += blockDim.x) {
       const int r = i / D, d = i - r * D;
-      float acc = bo[d];
-      for (int k = 0; k < H; ++k) acc = fmaf(hl[k * R + r], wo[(size_t)k * D + d], acc);
+      float acc = to_f32(bo[d]);
+      for (int k = 0; k < H; ++k) {
+        acc = fmaf(hl[k * R + r], to_f32(wo[(size_t)k * D + d]), acc);
+      }
       l_s[d * R + r] = acc;
     }
     __syncthreads();
+    if constexpr (!std::is_same_v<TV, float>) {
+      // the carries as the Pallas scratch holds them; thread j owns column
+      // j, and nothing reads the states until the barrier after the softmax
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        h1_s[tid * R + r] = round_as<TV>(h1_s[tid * R + r]);
+        if constexpr (NL == 2) h2_s[tid * R + r] = round_as<TV>(h2_s[tid * R + r]);
+      }
+    }
     if constexpr (OUT == kSoftmax) {
       for (int r = warp; r < R; r += n_warps) {
         float m = __int_as_float(0xff800000);  // -inf
@@ -80,10 +99,11 @@ __device__ __forceinline__ void decode_head(
         }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        for (int d = lane; d < D; d += 32) x_s[d * R + r] /= s;
+        // the fed-back probs as the Pallas scratch holds them
+        for (int d = lane; d < D; d += 32) x_s[d * R + r] = round_as<TV>(x_s[d * R + r] / s);
       }
     } else {
-      for (int i = tid; i < R * D; i += blockDim.x) x_s[i] = activate<OUT>(l_s[i]);
+      for (int i = tid; i < R * D; i += blockDim.x) x_s[i] = round_as<TV>(activate<OUT>(l_s[i]));
     }
     __syncthreads();
     // the next step's first writes to l_s, x_s, h1_s and h2_s come after the

@@ -40,6 +40,14 @@
 //
 // What bounds it: the serial chain of T steps, per step and layer 4 barriers
 // and two L2 reads of the layer's W and U, by each of the B/R blocks.
+//
+// The narrow build has a bf16 twin (mvt_gru_decode_bwd_bf16) for a bf16
+// model (_dec_bwd1/2_kernel in bf16): the stored probs and h sequences, the
+// incoming grads, start, the initial states and the weights are bf16,
+// widened to float as they are loaded; the whole transpose runs in float
+// (layer 2 recomputed from the stored bf16 h1, the dh carries and the grad
+// of the fed-back probs in float), dlogits, the gate grads and r * h leave
+// in float for kernel W, and d_init and d_start are rounded to bf16 once.
 #include "gru_cell_bwd.cuh"
 
 namespace mvt {
@@ -48,26 +56,30 @@ constexpr int kMaxHeads = 4;
 
 // one head of a launch, (T, B, .) sequences time-major; the layer-2 fields
 // are unused (may be null) for 1-layer heads. ut = U^T (3H, H), wt = W^T
-// (3H, D_in), wot = Wo^T (D, H). Mirrored by _DecodeHeadBwd in
-// ops/gru_decode.py.
-struct DecodeHeadBwd {
-  const float *probs, *h1seq, *h2seq, *g_probs, *g_logits, *start, *h1_0, *h2_0;
-  const float *w1, *u1, *b1, *u1t, *w1t, *w2, *u2, *b2, *u2t, *w2t, *wot;
-  float *dlogits, *da1, *rh1, *da2, *rh2, *d_h1_0, *d_h2_0, *d_start;
+// (3H, D_in), wot = Wo^T (D, H). TV is float, or bf16 in the bf16 build;
+// dlogits, the gate grads and r * h are float in both. Mirrored by
+// _DecodeHeadBwd in ops/gru_decode.py (pointers only: one layout for both).
+template <typename TV>
+struct DecodeHeadBwdT {
+  const TV *probs, *h1seq, *h2seq, *g_probs, *g_logits, *start, *h1_0, *h2_0;
+  const TV *w1, *u1, *b1, *u1t, *w1t, *w2, *u2, *b2, *u2t, *w2t, *wot;
+  float *dlogits, *da1, *rh1, *da2, *rh2;
+  TV *d_h1_0, *d_h2_0, *d_start;
   int D, n_layers, out_act, T;
 };
 
+template <typename TV>
 struct DecodeHeadsBwd {
-  DecodeHeadBwd h[kMaxHeads];
+  DecodeHeadBwdT<TV> h[kMaxHeads];
 };
 
 inline size_t bwd_smem_floats(int D, int H, int rows) {
   return (size_t)rows * (3 * D + 8 * H);
 }
 
-template <int NL, int OUT, int R>
-__device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwd& a, int B,
-                                                int H, float* smem) {
+template <int NL, int OUT, int R, typename TV>
+__device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwdT<TV>& a,
+                                                int B, int H, float* smem) {
   const int D = a.D, T = a.T;
   float* dl_s = smem;             // (D, R) dlogits
   float* dxf_s = dl_s + R * D;    // (D, R) grad of the fed-back probs
@@ -106,14 +118,14 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwd& a, int B,
       float s = 0.0f;
       if constexpr (OUT == kSoftmax) {
         for (int d = lane; d < D; d += 32) {
-          s += (a.g_probs[base + d] + dxf_s[d * R + r]) * a.probs[base + d];
+          s += (to_f32(a.g_probs[base + d]) + dxf_s[d * R + r]) * to_f32(a.probs[base + d]);
         }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       }
       for (int d = lane; d < D; d += 32) {
-        const float p = a.probs[base + d];
-        const float gp = a.g_probs[base + d] + dxf_s[d * R + r];
+        const float p = to_f32(a.probs[base + d]);
+        const float gp = to_f32(a.g_probs[base + d]) + dxf_s[d * R + r];
         float dl;
         if constexpr (OUT == kSoftmax) {
           dl = p * (gp - s);
@@ -122,7 +134,7 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwd& a, int B,
         } else {
           dl = gp;
         }
-        dl += a.g_logits[base + d];
+        dl += to_f32(a.g_logits[base + d]);
         dl_s[d * R + r] = dl;
         a.dlogits[base + d] = dl;
       }
@@ -133,7 +145,7 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwd& a, int B,
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] = 0.0f;
     for (int d = 0; d < D; ++d) {
-      const float w = a.wot[(size_t)d * H + j];
+      const float w = to_f32(a.wot[(size_t)d * H + j]);
       load_rows<R>(dl_s + d * R, v);
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = fmaf(v[r], w, acc[r]);
@@ -147,8 +159,8 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwd& a, int B,
       }
     }
     if constexpr (NL == 2) {
-      gru_cell_bwd<R>(h1_s, H, hp2_s, dh2, da_s, rh_s, dx2_s, a.w2, a.u2, a.b2,
-                      a.u2t, a.w2t, H);
+      gru_cell_bwd<R, TV>(h1_s, H, hp2_s, dh2, da_s, rh_s, dx2_s, a.w2, a.u2,
+                          a.b2, a.u2t, a.w2t, H);
       store_columns<R>(da_s, a.da2 + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
       store_columns<R>(rh_s, a.rh2 + (size_t)t * B * H, row0, B, H, 1, H);
       load_rows<R>(dx2_s + j * R, v);
@@ -157,8 +169,8 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwd& a, int B,
       // the layer-1 transpose writes rh_s before its first barrier
       __syncthreads();
     }
-    gru_cell_bwd<R>(xin_s, D, hp1_s, dh1, da_s, rh_s, dxf_s, a.w1, a.u1, a.b1,
-                    a.u1t, a.w1t, H);
+    gru_cell_bwd<R, TV>(xin_s, D, hp1_s, dh1, da_s, rh_s, dxf_s, a.w1, a.u1,
+                        a.b1, a.u1t, a.w1t, H);
     store_columns<R>(da_s, a.da1 + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
     store_columns<R>(rh_s, a.rh1 + (size_t)t * B * H, row0, B, H, 1, H);
   }
@@ -167,15 +179,15 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwd& a, int B,
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
     if (row >= B) break;
-    a.d_h1_0[(size_t)row * H + j] = dh1[r];
-    if constexpr (NL == 2) a.d_h2_0[(size_t)row * H + j] = dh2[r];
+    a.d_h1_0[(size_t)row * H + j] = from_f32<TV>(dh1[r]);
+    if constexpr (NL == 2) a.d_h2_0[(size_t)row * H + j] = from_f32<TV>(dh2[r]);
   }
 }
 
-template <int R>
-__device__ __forceinline__ void bwd_heads(const DecodeHeadsBwd& heads, int B,
-                                          int H, float* smem) {
-  const DecodeHeadBwd& a = heads.h[blockIdx.y];
+template <int R, typename TV>
+__device__ __forceinline__ void bwd_heads(const DecodeHeadsBwd<TV>& heads,
+                                          int B, int H, float* smem) {
+  const DecodeHeadBwdT<TV>& a = heads.h[blockIdx.y];
   const bool two = a.n_layers == 2;
   switch (a.out_act) {
     case kSoftmax:
@@ -193,27 +205,28 @@ __device__ __forceinline__ void bwd_heads(const DecodeHeadsBwd& heads, int B,
   }
 }
 
-__global__ void gru_decode_bwd_kernel(DecodeHeadsBwd heads, int B, int H) {
+template <typename TV>
+__global__ void gru_decode_bwd_kernel(DecodeHeadsBwd<TV> heads, int B, int H) {
   extern __shared__ __align__(16) float smem[];
   bwd_heads<kRows>(heads, B, H, smem);
 }
 
 __global__ void __launch_bounds__(kWideThreads)
-    gru_decode_bwd_wide_kernel(DecodeHeadsBwd heads, int B, int H) {
+    gru_decode_bwd_wide_kernel(DecodeHeadsBwd<float> heads, int B, int H) {
   extern __shared__ __align__(16) float smem[];
   bwd_heads<kWideRows>(heads, B, H, smem);
 }
 
-template <int R, typename Kernel>
-int launch(Kernel kernel, const DecodeHeadBwd* heads, int n_heads, int B,
+template <int R, typename TV, typename Kernel>
+int launch(Kernel kernel, const DecodeHeadBwdT<TV>* heads, int n_heads, int B,
            int H, void* stream) {
   if (n_heads < 1 || n_heads > kMaxHeads || B < 1 || H < 32 || H % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  DecodeHeadsBwd all{};
+  DecodeHeadsBwd<TV> all{};
   size_t smem = 0;
   for (int k = 0; k < n_heads; ++k) {
-    const DecodeHeadBwd& a = heads[k];
+    const DecodeHeadBwdT<TV>& a = heads[k];
     if (a.T < 1 || a.D < 1 || (a.n_layers != 1 && a.n_layers != 2) ||
         (a.out_act != kSoftmax && a.out_act != kSigmoid && a.out_act != kLinear)) {
       return (int)cudaErrorInvalidValue;
@@ -231,13 +244,22 @@ int launch(Kernel kernel, const DecodeHeadBwd* heads, int n_heads, int B,
 
 }  // namespace mvt
 
-extern "C" int mvt_gru_decode_bwd(const mvt::DecodeHeadBwd* heads, int n_heads,
-                                  int B, int H, void* stream) {
+extern "C" int mvt_gru_decode_bwd(const mvt::DecodeHeadBwdT<float>* heads,
+                                  int n_heads, int B, int H, void* stream) {
   using namespace mvt;
-  return launch<kRows>(gru_decode_bwd_kernel, heads, n_heads, B, H, stream);
+  return launch<kRows>(gru_decode_bwd_kernel<float>, heads, n_heads, B, H,
+                       stream);
 }
 
-extern "C" int mvt_gru_decode_bwd_wide(const mvt::DecodeHeadBwd* heads,
+extern "C" int mvt_gru_decode_bwd_bf16(const mvt::DecodeHeadBwdT<mvt::bf16>* heads,
+                                       int n_heads, int B, int H,
+                                       void* stream) {
+  using namespace mvt;
+  return launch<kRows>(gru_decode_bwd_kernel<bf16>, heads, n_heads, B, H,
+                       stream);
+}
+
+extern "C" int mvt_gru_decode_bwd_wide(const mvt::DecodeHeadBwdT<float>* heads,
                                        int n_heads, int B, int H,
                                        void* stream) {
   using namespace mvt;

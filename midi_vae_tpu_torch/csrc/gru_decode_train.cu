@@ -28,36 +28,46 @@
 //
 // What bounds it: as kernel B, the serial chain of T steps per head; the
 // 1-layer side heads finish inside the 2-layer notes head's time.
+//
+// The narrow build has a bf16 twin (mvt_gru_decode_train_bf16) for a bf16
+// model, where the JAX package decodes each head alone through
+// _dec_fwd1/2_kernel in bf16 (the multi-head kernel is float32 only): its
+// operands and outputs are bf16, the rounding decode_head documents. Heads
+// narrower than 8 are promoted to float32 by the caller and take the float
+// build.
 #include "gru_decode_body.cuh"
 
 namespace mvt {
 
 constexpr int kMaxHeads = 4;
 
-// one head of a launch; h2_0, w2, u2, b2 and h2seq are unused (may be null)
-// for 1-layer heads. Mirrored by _DecodeHead in ops/gru_decode.py.
-struct DecodeHead {
-  const float *start, *h1_0, *h2_0, *w1, *u1, *b1, *w2, *u2, *b2, *wo, *bo;
-  float *probs, *logits, *h1seq, *h2seq;
+// one head of a launch, its tensors of type TV (float or bf16); h2_0, w2,
+// u2, b2 and h2seq are unused (may be null) for 1-layer heads. Mirrored by
+// _DecodeHead in ops/gru_decode.py (pointers only: one layout for both).
+template <typename TV>
+struct DecodeHeadT {
+  const TV *start, *h1_0, *h2_0, *w1, *u1, *b1, *w2, *u2, *b2, *wo, *bo;
+  TV *probs, *logits, *h1seq, *h2seq;
   int D, n_layers, out_act, T;
 };
 
+template <typename TV>
 struct DecodeHeads {
-  DecodeHead h[kMaxHeads];
+  DecodeHeadT<TV> h[kMaxHeads];
 };
 
-template <int NL, int OUT, int R>
-__device__ __forceinline__ void run(const DecodeHead& a, int B, int H, float* smem) {
+template <int NL, int OUT, int R, typename TV>
+__device__ __forceinline__ void run(const DecodeHeadT<TV>& a, int B, int H, float* smem) {
   decode_head<NL, kTanh, OUT, R>(a.start, a.h1_0, a.h2_0, a.w1, a.u1, a.b1,
                                  a.w2, a.u2, a.b2, a.wo, a.bo, a.probs,
                                  a.logits, a.h1seq, a.h2seq, a.T, B, a.D, H,
                                  smem);
 }
 
-template <int R>
-__device__ __forceinline__ void train_heads(const DecodeHeads& heads, int B,
+template <int R, typename TV>
+__device__ __forceinline__ void train_heads(const DecodeHeads<TV>& heads, int B,
                                             int H, float* smem) {
-  const DecodeHead& a = heads.h[blockIdx.y];
+  const DecodeHeadT<TV>& a = heads.h[blockIdx.y];
   const bool two = a.n_layers == 2;
   switch (a.out_act) {
     case kSoftmax:
@@ -72,27 +82,28 @@ __device__ __forceinline__ void train_heads(const DecodeHeads& heads, int B,
   }
 }
 
-__global__ void gru_decode_train_kernel(DecodeHeads heads, int B, int H) {
+template <typename TV>
+__global__ void gru_decode_train_kernel(DecodeHeads<TV> heads, int B, int H) {
   extern __shared__ __align__(16) float smem[];
   train_heads<kRows>(heads, B, H, smem);
 }
 
 __global__ void __launch_bounds__(kWideThreads)
-    gru_decode_train_wide_kernel(DecodeHeads heads, int B, int H) {
+    gru_decode_train_wide_kernel(DecodeHeads<float> heads, int B, int H) {
   extern __shared__ __align__(16) float smem[];
   train_heads<kWideRows>(heads, B, H, smem);
 }
 
-template <int R, typename Kernel>
-int launch(Kernel kernel, const DecodeHead* heads, int n_heads, int B, int H,
+template <int R, typename TV, typename Kernel>
+int launch(Kernel kernel, const DecodeHeadT<TV>* heads, int n_heads, int B, int H,
            void* stream) {
   if (n_heads < 1 || n_heads > kMaxHeads || B < 1 || H < 32 || H % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  DecodeHeads all{};
+  DecodeHeads<TV> all{};
   size_t smem = 0;
   for (int k = 0; k < n_heads; ++k) {
-    const DecodeHead& a = heads[k];
+    const DecodeHeadT<TV>& a = heads[k];
     if (a.T < 1 || a.D < 1 || (a.n_layers != 1 && a.n_layers != 2) ||
         (a.out_act != kSoftmax && a.out_act != kSigmoid && a.out_act != kLinear)) {
       return (int)cudaErrorInvalidValue;
@@ -110,13 +121,22 @@ int launch(Kernel kernel, const DecodeHead* heads, int n_heads, int B, int H,
 
 }  // namespace mvt
 
-extern "C" int mvt_gru_decode_train(const mvt::DecodeHead* heads, int n_heads,
-                                    int B, int H, void* stream) {
+extern "C" int mvt_gru_decode_train(const mvt::DecodeHeadT<float>* heads,
+                                    int n_heads, int B, int H, void* stream) {
   using namespace mvt;
-  return launch<kRows>(gru_decode_train_kernel, heads, n_heads, B, H, stream);
+  return launch<kRows>(gru_decode_train_kernel<float>, heads, n_heads, B, H,
+                       stream);
 }
 
-extern "C" int mvt_gru_decode_train_wide(const mvt::DecodeHead* heads,
+extern "C" int mvt_gru_decode_train_bf16(const mvt::DecodeHeadT<mvt::bf16>* heads,
+                                         int n_heads, int B, int H,
+                                         void* stream) {
+  using namespace mvt;
+  return launch<kRows>(gru_decode_train_kernel<bf16>, heads, n_heads, B, H,
+                       stream);
+}
+
+extern "C" int mvt_gru_decode_train_wide(const mvt::DecodeHeadT<float>* heads,
                                          int n_heads, int B, int H,
                                          void* stream) {
   using namespace mvt;

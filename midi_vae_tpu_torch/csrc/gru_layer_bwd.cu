@@ -26,17 +26,25 @@
 // What bounds it: the serial chain of T steps, each with 4 barriers and an L2
 // read of U twice (U for the recompute, U^T for the transposed products) and
 // of W twice, by each of the B/8 blocks; at B = 256 only 32 SMs work.
+//
+// A bf16 build (mvt_gru_layer_bwd_bf16) runs _bwdx_kernel in a bf16 model:
+// x, the stored h sequence, h0, the incoming grads and the weights in bf16,
+// each widened to float as it is loaded; the gate math, the dh carry and
+// every product stay float (the Pallas kernel widens x and h_{t-1} and keeps
+// dh in an f32 scratch); dx and dh0 are rounded to bf16 once, and the gate
+// grads and r * h leave in float for kernel W.
 #include "gru_cell_bwd.cuh"
 
 namespace mvt {
 
+template <typename TV>
 __global__ void gru_layer_bwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ hseq,
-    const float* __restrict__ h0, const float* __restrict__ d_seq,
-    const float* __restrict__ d_final, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ u,
-    const float* __restrict__ ut, const float* __restrict__ wt,
-    float* __restrict__ dx, float* __restrict__ dh0,
+    const TV* __restrict__ x, const TV* __restrict__ hseq,
+    const TV* __restrict__ h0, const TV* __restrict__ d_seq,
+    const TV* __restrict__ d_final, const TV* __restrict__ w,
+    const TV* __restrict__ b, const TV* __restrict__ u,
+    const TV* __restrict__ ut, const TV* __restrict__ wt,
+    TV* __restrict__ dx, TV* __restrict__ dh0,
     float* __restrict__ dacat, float* __restrict__ rh, int T, int B, int D,
     int H) {
   extern __shared__ __align__(16) float smem[];
@@ -52,7 +60,7 @@ __global__ void gru_layer_bwd_kernel(
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = row0 + r;
-    dh[r] = (d_final != nullptr && row < B) ? d_final[(size_t)row * H + j] : 0.0f;
+    dh[r] = (d_final != nullptr && row < B) ? to_f32(d_final[(size_t)row * H + j]) : 0.0f;
   }
   for (int t = T - 1; t >= 0; --t) {
     // x_s and hp_s are free: the previous step's cell ended with a barrier
@@ -63,12 +71,12 @@ __global__ void gru_layer_bwd_kernel(
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int row = row0 + r;
-        if (row < B) dh[r] += d_seq[((size_t)t * B + row) * H + j];
+        if (row < B) dh[r] += to_f32(d_seq[((size_t)t * B + row) * H + j]);
       }
     }
     __syncthreads();
-    gru_cell_bwd(x_s, D, hp_s, dh, da_s, rh_s, dx != nullptr ? dx_s : nullptr,
-                 w, u, b, ut, wt, H);
+    gru_cell_bwd<kRows, TV>(x_s, D, hp_s, dh, da_s, rh_s,
+                            dx != nullptr ? dx_s : nullptr, w, u, b, ut, wt, H);
     store_columns(da_s, dacat + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
     store_columns(rh_s, rh + (size_t)t * B * H, row0, B, H, 1, H);
     if (dx != nullptr) store_tile(dx_s, dx + (size_t)t * B * D, row0, B, D);
@@ -76,8 +84,27 @@ __global__ void gru_layer_bwd_kernel(
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = row0 + r;
-    if (row < B) dh0[(size_t)row * H + j] = dh[r];
+    if (row < B) dh0[(size_t)row * H + j] = from_f32<TV>(dh[r]);
   }
+}
+
+template <typename TV>
+int launch(const TV* x, const TV* hseq, const TV* h0, const TV* d_seq,
+           const TV* d_final, const TV* w, const TV* b, const TV* u,
+           const TV* ut, const TV* wt, TV* dx, TV* dh0, float* dacat,
+           float* rh, int T, int B, int D, int H, void* stream) {
+  if (T < 1 || B < 1 || D < 1 || H < 32 || H % 32 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem =
+      sizeof(float) * kRows * (D + 5 * H + (dx != nullptr ? D : 0));
+  cudaError_t err = fit_block(gru_layer_bwd_kernel<TV>, H, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + kRows - 1) / kRows);
+  gru_layer_bwd_kernel<TV><<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, hseq, h0, d_seq, d_final, w, b, u, ut, wt, dx, dh0, dacat, rh, T, B,
+      D, H);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace mvt
@@ -89,19 +116,19 @@ extern "C" int mvt_gru_layer_bwd(
     const float* d_final, const float* w, const float* b, const float* u,
     const float* ut, const float* wt, float* dx, float* dh0, float* dacat,
     float* rh, int T, int B, int D, int H, void* stream) {
-  using namespace mvt;
-  if (T < 1 || B < 1 || D < 1 || H < 32 || H % 32 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem =
-      sizeof(float) * kRows * (D + 5 * H + (dx != nullptr ? D : 0));
-  cudaError_t err = fit_block(gru_layer_bwd_kernel, H, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kRows - 1) / kRows);
-  gru_layer_bwd_kernel<<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, hseq, h0, d_seq, d_final, w, b, u, ut, wt, dx, dh0, dacat, rh, T, B,
-      D, H);
-  return (int)cudaGetLastError();
+  return mvt::launch(x, hseq, h0, d_seq, d_final, w, b, u, ut, wt, dx, dh0,
+                     dacat, rh, T, B, D, H, stream);
+}
+
+// the bf16 build: every operand bf16 but the gate grads and r * h (float)
+extern "C" int mvt_gru_layer_bwd_bf16(
+    const mvt::bf16* x, const mvt::bf16* hseq, const mvt::bf16* h0,
+    const mvt::bf16* d_seq, const mvt::bf16* d_final, const mvt::bf16* w,
+    const mvt::bf16* b, const mvt::bf16* u, const mvt::bf16* ut,
+    const mvt::bf16* wt, mvt::bf16* dx, mvt::bf16* dh0, float* dacat,
+    float* rh, int T, int B, int D, int H, void* stream) {
+  return mvt::launch(x, hseq, h0, d_seq, d_final, w, b, u, ut, wt, dx, dh0,
+                     dacat, rh, T, B, D, H, stream);
 }
 
 extern "C" const char* mvt_error_string(int code) {

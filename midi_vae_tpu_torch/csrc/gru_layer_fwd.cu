@@ -17,17 +17,25 @@
 // U by every block. At B = 256 the grid is 32 blocks of H = 256 threads, so
 // most SMs idle; each U element loaded feeds kRows FMAs.
 //
+// A bf16 build (mvt_gru_layer_fwd_bf16) runs _fwdx_kernel in a bf16 model
+// (compute_dtype="bfloat16", the encoder layers of the training step): x,
+// h0, W, b and U in bf16, widened as they are loaded, x @ W and h @ U summed
+// in float, r * h kept in float, and the carried h and the stored sequence
+// rounded to bf16 once a step (the Pallas h_s scratch and seq_ref have x's
+// dtype). The velocity layer's cast_x (D < 8: x and W widened to float in
+// the JAX wrapper) gives the same products, so it takes this build too.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (midi_vae_tpu_torch/ops/_build.py).
 #include "gru_common.cuh"
 
 namespace mvt {
 
-template <int ACT>
+template <int ACT, typename TV>
 __global__ void gru_layer_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ h0,
-    const float* __restrict__ w, const float* __restrict__ b,
-    const float* __restrict__ u, float* __restrict__ out,
+    const TV* __restrict__ x, const TV* __restrict__ h0,
+    const TV* __restrict__ w, const TV* __restrict__ b,
+    const TV* __restrict__ u, TV* __restrict__ out,
     int T, int B, int D, int H, int emit_seq) {
   extern __shared__ __align__(16) float smem[];
   float* x_s = smem;               // (D, kRows)
@@ -39,7 +47,7 @@ __global__ void gru_layer_fwd_kernel(
     // x_s is free: the previous step's cell ended with a barrier
     load_tile(x + (size_t)t * B * D, x_s, row0, B, D);
     __syncthreads();
-    gru_cell<ACT>(x_s, D, h_s, rh_s, w, u, b, H);
+    gru_cell<ACT, kRows, TV>(x_s, D, h_s, rh_s, w, u, b, H);
     if (emit_seq) {
       store_tile(h_s, out + (size_t)t * B * H, row0, B, H);
     }
@@ -47,26 +55,23 @@ __global__ void gru_layer_fwd_kernel(
   if (!emit_seq) store_tile(h_s, out, row0, B, H);
 }
 
-template <int ACT>
-cudaError_t launch(const float* x, const float* h0, const float* w,
-                   const float* b, const float* u, float* out, int T, int B,
-                   int D, int H, int emit_seq, cudaStream_t stream) {
+template <int ACT, typename TV>
+cudaError_t launch(const TV* x, const TV* h0, const TV* w, const TV* b,
+                   const TV* u, TV* out, int T, int B, int D, int H,
+                   int emit_seq, cudaStream_t stream) {
   const size_t smem = sizeof(float) * kRows * (D + 2 * H);
-  cudaError_t err = fit_block(gru_layer_fwd_kernel<ACT>, H, smem);
+  cudaError_t err = fit_block(gru_layer_fwd_kernel<ACT, TV>, H, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + kRows - 1) / kRows);
-  gru_layer_fwd_kernel<ACT><<<grid, H, smem, stream>>>(
+  gru_layer_fwd_kernel<ACT, TV><<<grid, H, smem, stream>>>(
       x, h0, w, b, u, out, T, B, D, H, emit_seq);
   return cudaGetLastError();
 }
 
-}  // namespace mvt
-
-extern "C" int mvt_gru_layer_fwd(
-    const float* x, const float* h0, const float* w, const float* b,
-    const float* u, float* out, int T, int B, int D, int H, int act,
-    int emit_seq, void* stream) {
-  using namespace mvt;
+template <typename TV>
+int run(const TV* x, const TV* h0, const TV* w, const TV* b, const TV* u,
+        TV* out, int T, int B, int D, int H, int act, int emit_seq,
+        void* stream) {
   if (T < 1 || B < 1 || D < 1 || H < 32 || H % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -81,6 +86,22 @@ extern "C" int mvt_gru_layer_fwd(
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace mvt
+
+extern "C" int mvt_gru_layer_fwd(
+    const float* x, const float* h0, const float* w, const float* b,
+    const float* u, float* out, int T, int B, int D, int H, int act,
+    int emit_seq, void* stream) {
+  return mvt::run(x, h0, w, b, u, out, T, B, D, H, act, emit_seq, stream);
+}
+
+extern "C" int mvt_gru_layer_fwd_bf16(
+    const mvt::bf16* x, const mvt::bf16* h0, const mvt::bf16* w,
+    const mvt::bf16* b, const mvt::bf16* u, mvt::bf16* out, int T, int B,
+    int D, int H, int act, int emit_seq, void* stream) {
+  return mvt::run(x, h0, w, b, u, out, T, B, D, H, act, emit_seq, stream);
 }
 
 extern "C" const char* mvt_error_string(int code) {

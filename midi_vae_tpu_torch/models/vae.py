@@ -40,11 +40,13 @@ heads in one loop (``decode_heads_merged``) through T, and
 ``fused_train_decoder=False`` every head through T. LSTM heads run S per
 cell and step (the JAX package has no LSTM whole-head training kernel),
 merged or not. Teacher-forced heads take the plain scan. In bfloat16 the
-cells T and S run their bf16 builds and the multi-head call is declined, as
-on the TPU. Paths whose kernels are not ported yet raise NotImplementedError
-on CUDA, naming their row of the kernel table or their ROADMAP item
-(``unported_training``); on the CPU they run the plain path through
-autograd.
+kernels run their bf16 builds (A, C, D, E and W on the narrow route, T and
+S, X and Y), the multi-head call is declined and heads narrower than 8 are
+decoded in float32 (``gru_decode_train``), as on the TPU; the encode pass
+and serving stay float32. Paths whose kernels are not ported yet raise
+NotImplementedError on CUDA, naming their row of the kernel table or their
+ROADMAP item (``unported_training``); on the CPU they run the plain path
+through autograd.
 """
 
 from __future__ import annotations
@@ -101,24 +103,22 @@ def unported_training(cfg: Config) -> str | None:
     the kernel table or the ROADMAP item it waits for), or None when they
     can."""
     lstm = cfg.cell_type == "LSTM"
-    if cfg.compute_dtype == "bfloat16":
+    if cfg.compute_dtype == "bfloat16" and cfg.lstm_activation == "tanh":
         # ported in bf16: the whole-scan encoders X and Y (fused_train_encoder
-        # =False) and the cells T and S; the plain scans of non-tanh cells
-        if cfg.fused_train_encoder and cfg.lstm_activation == "tanh":
-            built = ("L, N and W (narrow route) or Q, R and W (wide route), rows 15-20" if lstm
-                     else "A, C and W (narrow route) or F, G and W (wide route), rows 1-4 and "
-                     "9-12")
-            return (f"bfloat16 training with fused_train_encoder runs the encoder's whole-layer "
-                    f"training kernels {built}, in bfloat16 in the JAX package; their bf16 "
-                    "builds are not yet ported (Queue 1 item 2). With "
-                    f"fused_train_encoder=False the encoder trains through kernel "
-                    f"{'Y' if lstm else 'X'}")
-        if not lstm and cfg.fused_train_decoder and cfg.lstm_activation == "tanh":
-            return ("bfloat16 GRU training with fused_train_decoder decodes its heads through "
-                    "gru_decode_train, whose kernels D and E (rows 5-8 and 13-14) the JAX "
-                    "package runs in bfloat16 (heads narrower than 8 promoted to float32, "
-                    "fused_train.py:808-822); D and E in bf16 are not yet ported (Queue 1 item "
-                    "2). With fused_train_decoder=False every head decodes through kernel T")
+        # =False), the cells T and S, and on the GRU's narrow route A, C, D,
+        # E and W; the plain scans of non-tanh cells
+        if lstm and cfg.fused_train_encoder:
+            return ("bfloat16 LSTM training with fused_train_encoder runs the encoder's "
+                    "whole-layer training kernels L, N and W (narrow route) or Q, R and W (wide "
+                    "route), rows 15-20, in bfloat16 in the JAX package; their bf16 builds are "
+                    "not yet ported (Queue 1 item 2). With fused_train_encoder=False the encoder "
+                    "trains through kernel Y")
+        if (not lstm and (cfg.fused_train_encoder or cfg.fused_train_decoder)
+                and _layout.config_route(cfg, on_card=False) == "wide"):
+            return ("bfloat16 GRU training on the wide route runs F, G and W "
+                    "(fused_train_encoder) and the wide builds of D and E (fused_train_decoder), "
+                    "rows 9-14, in bfloat16 in the JAX package; their bf16 builds are not yet "
+                    "ported (Queue 1 item 2). The narrow route's A, C, D, E and W have theirs")
     if (cfg.decode_residual_bf16 and not cfg.teacher_force
             and _multihead(cfg, _layout.config_route(cfg, on_card=False))):
         return ("decode_residual_bf16 keeps the multi-head decode kernel's residuals in "

@@ -21,6 +21,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 # -Xptxas -v only reports each kernel's registers, shared memory and spills
@@ -132,6 +134,30 @@ def load(name: str) -> ctypes.CDLL:
     lib.mvt_error_string.argtypes = [ctypes.c_int]
     lib.mvt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# the dtypes of the kernels with a float32 and a bfloat16 build (load_builds)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def load_builds(name: str, entry: str, argtypes) -> tuple:
+    """(library, {dtype: entry point}) of a kernel with a float32 build
+    (``entry``) and a bfloat16 one (``entry_bf16``) in ``csrc/<name>.cu``."""
+    lib = load(name)
+    fns = dict(zip(DTYPES, (getattr(lib, entry), getattr(lib, f"{entry}_bf16"))))
+    for fn in fns.values():
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, fns
+
+
+def count_launch(fn, dtype: torch.dtype) -> None:
+    """One more launch of wrapper ``fn``'s build of ``dtype``:
+    ``fn.launches`` (float32) or ``fn.launches_bf16``."""
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

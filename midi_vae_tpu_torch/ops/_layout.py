@@ -43,6 +43,11 @@ On the H100 the wide route is also the faster one there: ``chip_smoke.py``
 times one LSTM(512) notes layer's forward + backward both ways, and the
 wide route took 19.6 / 21.2 ms (L1 / L2) against the narrow route's
 21.3 / 47.7 ms (NVIDIA H100 80GB HBM3, 700 W).
+In a bfloat16 model (``compute_dtype``) the narrow route's A, C, D and E
+are their bf16 builds (``A_bf16`` ... ``E_bf16``, their own register counts;
+their tiles stay float, as every bf16 build's): the route is decided from
+those. The wide route has no bf16 builds yet, so a bf16 config it takes
+raises in ``models/vae.py::unported_training``.
 A width at which neither route launches raises ``LaunchLimitError`` naming the
 limit. ``FORCE_ROUTE`` is a test hook (like the JAX package's
 ``_FORCE_TRAIN_MODE``) that sends small widths down the wide route.
@@ -59,7 +64,7 @@ WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
 # registers per thread of the builds without launch bounds (the largest over
 # a build's template instances), from nvcc -Xptxas -v for sm_90a
 REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75, "N": 117,
-             "U": 78, "V": 172}
+             "U": 78, "V": 172, "A_bf16": 94, "C_bf16": 96, "D_bf16": 144, "E_bf16": 167}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
 BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "R", "S", "S_xp", "T", "T_xp", "X", "Y")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
@@ -77,9 +82,10 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
     """Dynamic shared memory of one block of ``kernel``: D is the layer's
     input width (A, C, L, N; U and V: of the stack, ``n_layers`` = 2, or of
     a branch, ``n_layers`` = 1), the head's output width (B, D, E, M) or the
-    cell's input width (S, T). The bf16 builds (X, Y, those of S and T, and
-    U's and V's) hold their tiles in float too: a bf16 value is widened as
-    it is loaded."""
+    cell's input width (S, T). The bf16 builds (X, Y, those of A to E, S
+    and T, and U's and V's) hold their tiles in float too: a bf16 value is
+    widened as it is loaded."""
+    kernel = kernel.removesuffix("_bf16")
     rows = WIDE_ROWS if kernel.endswith("_wide") else ROWS
     floats = {
         "A": D + 2 * H,
@@ -136,9 +142,12 @@ def require(kernel: str, H: int, smem: int) -> None:
         raise LaunchLimitError(why)
 
 
-def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> list[str]:
+def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU",
+                  bf16: bool = False) -> list[str]:
     """The limits the route's builds hit: ``layers`` is (D_in, dx wanted) per
-    encoder layer, ``heads`` (D, n_layers) per decode head."""
+    encoder layer, ``heads`` (D, n_layers) per decode head; ``bf16``: the
+    GRU narrow route's bf16 builds (a head narrower than 8 is promoted to
+    float32 and takes D's and E's float32 builds)."""
     if cell_type == "LSTM":
         if route == "narrow":
             checks = [(k, smem_bytes(k, H, d)) for d, _dx in layers for k in ("L", "N")]
@@ -147,15 +156,18 @@ def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> 
         # S per cell: the head's input for its first layer, h for the others
         checks += [("S", smem_bytes("S", H, max(d, H) if n > 1 else d)) for d, n in heads]
     elif route == "narrow":
-        checks = [(k, smem_bytes(k, H, d, dx=dx)) for d, dx in layers for k in ("A", "C")]
-        checks += [(k, smem_bytes(k, H, d, n)) for d, n in heads for k in ("D", "E")]
+        sfx = "_bf16" if bf16 else ""
+        checks = [(k + sfx, smem_bytes(k, H, d, dx=dx)) for d, dx in layers for k in ("A", "C")]
+        checks += [(k + (sfx if d >= 8 else ""), smem_bytes(k, H, d, n)) for d, n in heads
+                   for k in ("D", "E")]
     else:
         checks = [(k, smem_bytes(k, H)) for k in ("F", "G")] if layers else []
         checks += [(k, smem_bytes(k, H, d, n)) for d, n in heads for k in ("D_wide", "E_wide")]
     return [why for k, smem in checks if (why := launch_limit(k, H, smem)) is not None]
 
 
-def train_route(H: int, layers, heads, on_card: bool = True, cell_type: str = "GRU") -> str:
+def train_route(H: int, layers, heads, on_card: bool = True, cell_type: str = "GRU",
+                bf16: bool = False) -> str:
     """``"narrow"`` or ``"wide"`` for a training step at width H (see the
     module note): the preferred route (GRU: narrow; LSTM: narrow up to
     ``LSTM_NARROW_MAX_H``, wide above), else the other where the preferred
@@ -167,10 +179,10 @@ def train_route(H: int, layers, heads, on_card: bool = True, cell_type: str = "G
     order = ("narrow", "wide")
     if cell_type == "LSTM" and H > LSTM_NARROW_MAX_H:
         order = ("wide", "narrow")
-    first = _route_limits(order[0], H, layers, heads, cell_type)
+    first = _route_limits(order[0], H, layers, heads, cell_type, bf16)
     if not first:
         return order[0]
-    second = _route_limits(order[1], H, layers, heads, cell_type)
+    second = _route_limits(order[1], H, layers, heads, cell_type, bf16)
     if not second:
         return order[1]
     if not on_card:
@@ -205,4 +217,4 @@ def config_shapes(cfg) -> tuple[list, list]:
 def config_route(cfg, on_card: bool = True) -> str:
     """``train_route`` of a model config."""
     return train_route(cfg.lstm_size, *config_shapes(cfg), on_card=on_card,
-                       cell_type=cfg.cell_type)
+                       cell_type=cfg.cell_type, bf16=cfg.compute_dtype == "bfloat16")

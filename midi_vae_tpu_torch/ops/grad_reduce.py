@@ -14,6 +14,15 @@ kernel's oracle.
 Operands are 2-D with unit column stride and any row stride, so column
 slices of a gate-grad matrix (``da[:, :2H]``) and of an output
 (``du[:, 2H:]``) go in without copies.
+
+W has a second build for a bfloat16 model (``mvt_grad_reduce_bf16``): its
+activations A (x, h_{t-1}, a decode head's fed-back probs and h sequences)
+are the stored bf16 values, the gate grads B are float32 and never rounded,
+and the sums are float32, as the TPU kernels accumulate
+``_outer_acc(x, da_cat)`` with x widened (``_bwdx_kernel``, ``_dec_bwd*_kernel``).
+The float32 build serves r * h, which stays float32 in a bf16 model. The
+wrapper picks the build from A's dtype; launches are counted per build
+(``grad_reduce.launches``, ``.launches_bf16``).
 """
 
 from __future__ import annotations
@@ -35,32 +44,33 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def grad_reduce_reference(a, b, with_bias=False):
-    """Plain version: (a^T b, b.sum(0) or None)."""
-    return a.t() @ b, (b.sum(0) if with_bias else None)
+    """Plain version: (a^T b, b.sum(0) or None), in float32 (a bf16 ``a``
+    widened)."""
+    b = b.float()
+    return a.float().t() @ b, (b.sum(0) if with_bias else None)
 
 
 @functools.cache
 def _kernel():
-    lib = _build.load("grad_reduce")
-    fn = lib.mvt_grad_reduce
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib, fn
+    return _build.load_builds("grad_reduce", "mvt_grad_reduce",
+                              [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
-def _check_matrix(name: str, t: torch.Tensor, device) -> None:
+def _check_matrix(name: str, t: torch.Tensor, device, dtypes=(torch.float32,)) -> None:
     if t.dim() != 2 or t.stride(1) != 1 or t.stride(0) < t.shape[1]:
         raise ValueError(f"{name} must be 2-D with unit column stride, got shape "
                          f"{tuple(t.shape)} strides {t.stride()}")
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(f"{name} is {t.dtype} on {t.device}; expected float32 on {device}")
+    if t.device != device or t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{name} is {t.dtype} on {t.device}; expected {names} on {device}")
 
 
 def grad_reduce(a, b, out, bias_out=None) -> None:
     """out (I, J) = a^T b for a (N, I), b (N, J); bias_out (J,) = b.sum(0)
-    when given. Writes in place. CPU tensors run the plain version; CUDA
-    tensors launch kernel W."""
+    when given. Writes in place. ``a`` is float32 or bfloat16, the others
+    float32. CPU tensors run the plain version; CUDA tensors launch kernel
+    W's build of a's dtype."""
     N, I = a.shape
     J = b.shape[1]
     if b.shape[0] != N or tuple(out.shape) != (I, J):
@@ -76,7 +86,8 @@ def grad_reduce(a, b, out, bias_out=None) -> None:
         return
     if a.device.type != "cuda":
         raise ValueError(f"grad_reduce runs on cpu or cuda tensors, not {a.device}")
-    for name, t in (("a", a), ("b", b), ("out", out)):
+    _check_matrix("a", a, a.device, _build.DTYPES)
+    for name, t in (("b", b), ("out", out)):
         _check_matrix(name, t, a.device)
     if bias_out is not None:
         _check_matrix("bias_out", bias_out[None], a.device)
@@ -86,8 +97,8 @@ def grad_reduce(a, b, out, bias_out=None) -> None:
     part = (torch.empty(splits * ie * J, device=a.device, dtype=torch.float32)
             if splits > 1 else None)
     null = ctypes.c_void_p(None)
-    lib, fn = _kernel()
-    rc = fn(
+    lib, fns = _kernel()
+    rc = fns[a.dtype](
         _ptr(a), a.stride(0), _ptr(b), b.stride(0), _ptr(out), out.stride(0),
         _ptr(bias_out) if bias_out is not None else null,
         _ptr(part) if part is not None else null,
@@ -95,16 +106,19 @@ def grad_reduce(a, b, out, bias_out=None) -> None:
         ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
     )
     _build.check(lib, rc, "grad_reduce launch")
-    grad_reduce.launches += 1
+    _build.count_launch(grad_reduce, a.dtype)
 
 
 grad_reduce.launches = 0
+grad_reduce.launches_bf16 = 0
 
 
 def gru_weight_grads(x, hprev, rh, da_cat):
     """dW (D, 3H), db (3H,), dU (H, 3H) of one GRU cell over a whole sequence
     from its gate grads: x, h_{t-1}, r*h_{t-1} and da_cat are (T, B, .),
-    time-major (``_gru_cell_bwd``'s sums, :373-378). Three reductions."""
+    time-major (``_gru_cell_bwd``'s sums, :373-378). Three reductions, in
+    float32; x and h_{t-1} may be bf16 (W's bf16 build), rh and da_cat are
+    float32."""
     T, B, D = x.shape
     H = hprev.shape[-1]
     n = T * B

@@ -27,6 +27,23 @@ H = 512): 2 batch rows per block under ``__launch_bounds__(512)``, replacing
 ``_dec_fwd_wide_pallas`` and ``_dec_bwd_wide_pallas``. ``wide=True`` selects
 it; ``gru_decode_fwd_train_wide`` and ``gru_decode_bwd_wide`` count its
 launches.
+
+The narrow D and E also have a bfloat16 build (``mvt_gru_decode_train_bf16``,
+``mvt_gru_decode_bwd_bf16``), picked by the operands' dtype: a bf16 model
+(``compute_dtype="bfloat16"``) decodes each head alone through
+``gru_decode_train`` (the multi-head call is float32 only), as the JAX
+package runs ``_dec_fwd1/2_kernel`` and ``_dec_bwd1/2_kernel`` in bf16. The
+forward takes its products in float32 and rounds only what the Pallas kernel
+stores: the carried states, the h sequences, probs and logits, and the probs
+fed back as the next input; layer 2 takes layer 1's float32 h of the same
+step and the readout the float32 top h. The backward widens the stored
+sequences and probs to float32 and runs in float32 (it recomputes layer 2
+from the stored bf16 h1); d_init and d_start leave in bf16, the gate grads
+and dlogits in float32 for W, and the weight grads are rounded to the params'
+dtype at the end (``_gdt_bwd``). A head narrower than 8 (velocity, held
+notes) is promoted whole to float32 and takes the float32 builds, as
+``gru_decode_train`` does on the TPU (``fused_train.py:813-825``).
+Launches are counted per build (``.launches``, ``.launches_bf16``).
 """
 
 from __future__ import annotations
@@ -157,19 +174,24 @@ def dlogits_from(probs, gp_total, g_logits, out_activation):
 
 def gru_decode_train_reference(cells, out_dense, init_states, start, T, out_activation="softmax"):
     """Plain version of kernel D for one head (tanh cells): (probs, logits,
-    [h sequence of each layer]), all (T, B, .) time-major."""
+    [h sequence of each layer]), all (T, B, .) time-major in start's dtype.
+    Each layer's h is float32 within the step (the next layer's input, the
+    readout's); the carried states, the outputs and the fed-back probs are
+    rounded to start's dtype (``_dec_fwd1/2_kernel``: no-ops in float32)."""
     out_act = out_activation_fn(out_activation)
+    dtype = start.dtype
     states = list(init_states)
     x = start
     probs, logits, hs = [], [], [[] for _ in cells]
     for _ in range(T):
         for i, p in enumerate(cells):
-            x = states[i] = gru_step(x, states[i], p["w"], p["u"], p["b"], torch.tanh)
-            hs[i].append(x)
-        lg = x @ out_dense["w"] + out_dense["b"]
-        x = out_act(lg)
+            x = gru_step(x, states[i], p["w"], p["u"], p["b"], torch.tanh, torch.float32)
+            states[i] = x.to(dtype)
+            hs[i].append(states[i])
+        lg = x @ out_dense["w"].float() + out_dense["b"].float()
+        x = out_act(lg).to(dtype)
         probs.append(x)
-        logits.append(lg)
+        logits.append(lg.to(dtype))
     return torch.stack(probs), torch.stack(logits), [torch.stack(h) for h in hs]
 
 
@@ -179,7 +201,14 @@ def gru_decode_bwd_reference(cells, out_dense, init_states, start, probs, h_seqs
     the decode (``_dec_bwd1/2_kernel``), emitting the gate grads instead of
     summing the weight grads. Returns {dlogits (T, B, D), da [per layer
     (T, B, 3H)], rh [per layer (T, B, H)], d_init [per layer (B, H)],
-    d_start (B, D)}."""
+    d_start (B, D)}. Every operand is widened to float32 and the transpose
+    runs in float32; d_init and d_start leave in start's dtype, the rest in
+    float32."""
+    dtype = start.dtype
+    cells = [{k: c[k].float() for k in ("w", "u", "b")} for c in cells]
+    out_dense = {k: out_dense[k].float() for k in ("w", "b")}
+    init_states, h_seqs = [s.float() for s in init_states], [h.float() for h in h_seqs]
+    start, probs, g_probs, g_logits = (t.float() for t in (start, probs, g_probs, g_logits))
     T = probs.shape[0]
     n = len(cells)
     dh = [torch.zeros_like(s) for s in init_states]
@@ -200,7 +229,8 @@ def gru_decode_bwd_reference(cells, out_dense, init_states, start, probs, h_seqs
             else:
                 dx_fed = dx
     return {"dlogits": torch.stack(dlog), "da": [torch.stack(a) for a in da],
-            "rh": [torch.stack(a) for a in rh], "d_init": dh, "d_start": dx_fed}
+            "rh": [torch.stack(a) for a in rh], "d_init": [d.to(dtype) for d in dh],
+            "d_start": dx_fed.to(dtype)}
 
 
 _DECODE_PTRS = ("start", "h1_0", "h2_0", "w1", "u1", "b1", "w2", "u2", "b2", "wo", "bo",
@@ -221,10 +251,11 @@ class _DecodeHeadBwd(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _BWD_PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
-def _check_heads(heads, kernel: str) -> tuple[int, int, torch.device]:
-    """Shapes of a list of training heads, and on the card whether
-    ``kernel`` (D, E or their wide builds) launches; returns (B, H,
-    device)."""
+def _check_heads(heads, kernel: str) -> tuple[int, int, torch.device, torch.dtype]:
+    """Shapes of a list of training heads, and on the card their dtype (one
+    for all: float32, or bfloat16 for the narrow builds) and whether
+    ``kernel`` (D, E or their wide builds) launches; returns (B, H, device,
+    dtype)."""
     if not 1 <= len(heads) <= MAX_HEADS:
         raise ValueError(f"kernels D and E take 1 to {MAX_HEADS} heads per call, got {len(heads)}")
     B, H = heads[0]["start"].shape[0], heads[0]["init"][0].shape[-1]
@@ -249,21 +280,37 @@ def _check_heads(heads, kernel: str) -> tuple[int, int, torch.device]:
         for name, t in named.items():
             if tuple(t.shape) != expected[name]:
                 raise ValueError(f"head {k}: {name} has shape {tuple(t.shape)}, expected {expected[name]}")
-    device = heads[0]["start"].device
+    device, dtype = heads[0]["start"].device, heads[0]["start"].dtype
     if device.type == "cuda":
+        # the wide builds are float32 only; the operands' checks hold every
+        # head of a call to head 0's dtype
+        builds = _build.DTYPES if kernel in ("D", "E") else (torch.float32,)
+        if dtype not in builds:
+            raise ValueError(f"kernel {kernel} has builds for "
+                             f"{', '.join(str(d) for d in builds)}, not {dtype}")
+        if dtype == torch.bfloat16:
+            kernel += "_bf16"
         _layout.require(kernel, H, max(_layout.smem_bytes(kernel, H, h["start"].shape[-1],
                                                          len(h["cells"])) for h in heads))
-    return B, H, device
+    return B, H, device, dtype
+
+
+def _entries(name: str, entry: str, struct, wide: bool) -> tuple:
+    """(library, {dtype: entry point}) of kernel D or E: the wide build
+    (float32 only), or the narrow float32 and bfloat16 builds."""
+    argtypes = [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
+    if not wide:
+        return _build.load_builds(name, entry, argtypes)
+    lib = _build.load(name)
+    fn = getattr(lib, f"{entry}_wide")
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib, {torch.float32: fn}
 
 
 @functools.cache
 def _fwd_kernel(wide: bool):
-    lib = _build.load("gru_decode_train")
-    fn = lib.mvt_gru_decode_train_wide if wide else lib.mvt_gru_decode_train
-    fn.argtypes = [ctypes.POINTER(_DecodeHead), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    return _entries("gru_decode_train", "mvt_gru_decode_train", _DecodeHead, wide)
 
 
 def gru_decode_fwd_train(heads):
@@ -275,6 +322,7 @@ def gru_decode_fwd_train(heads):
 
 
 gru_decode_fwd_train.launches = 0
+gru_decode_fwd_train.launches_bf16 = 0
 
 
 def gru_decode_fwd_train_wide(heads):
@@ -287,13 +335,13 @@ gru_decode_fwd_train_wide.launches = 0
 
 
 def _decode_fwd(heads, wide: bool):
-    B, H, device = _check_heads(heads, "D_wide" if wide else "D")
+    B, H, device, dtype = _check_heads(heads, "D_wide" if wide else "D")
     if device.type == "cpu":
         return [gru_decode_train_reference(h["cells"], h["out"], h["init"], h["start"], h["T"],
                                            h["out_activation"]) for h in heads]
     if device.type != "cuda":
         raise ValueError(f"gru_decode_fwd_train runs on cpu or cuda tensors, not {device}")
-    kw = {"device": device, "dtype": torch.float32}
+    kw = {"device": device, "dtype": dtype}
     null = ctypes.c_void_p(None)
     structs = (_DecodeHead * len(heads))()
     outs = []
@@ -307,26 +355,22 @@ def _decode_fwd(heads, wide: bool):
             named.update({f"w{i + 1}": p["w"], f"u{i + 1}": p["u"], f"b{i + 1}": p["b"]})
         if n_layers == 2:
             named.update({"h2_0": h["init"][1], "h2seq": h_seqs[1]})
-        check_operands(named, device)
+        check_operands(named, device, (dtype,))
         for name in _DECODE_PTRS:
             setattr(st, name, named[name].data_ptr() if name in named else null.value)
         st.D, st.n_layers, st.out_act, st.T = D, n_layers, OUT_ACTIVATIONS[h["out_activation"]], T
         outs.append((probs, logits, h_seqs))
-    lib, fn = _fwd_kernel(wide)
-    rc = fn(structs, len(heads), B, H, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    lib, fns = _fwd_kernel(wide)
+    rc = fns[dtype](structs, len(heads), B, H,
+                    ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     _build.check(lib, rc, f"gru_decode_train{'_wide' if wide else ''} launch")
-    (gru_decode_fwd_train_wide if wide else gru_decode_fwd_train).launches += 1
+    _build.count_launch(gru_decode_fwd_train_wide if wide else gru_decode_fwd_train, dtype)
     return outs
 
 
 @functools.cache
 def _bwd_kernel(wide: bool):
-    lib = _build.load("gru_decode_bwd")
-    fn = lib.mvt_gru_decode_bwd_wide if wide else lib.mvt_gru_decode_bwd
-    fn.argtypes = [ctypes.POINTER(_DecodeHeadBwd), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    return _entries("gru_decode_bwd", "mvt_gru_decode_bwd", _DecodeHeadBwd, wide)
 
 
 def gru_decode_bwd(heads):
@@ -339,6 +383,7 @@ def gru_decode_bwd(heads):
 
 
 gru_decode_bwd.launches = 0
+gru_decode_bwd.launches_bf16 = 0
 
 
 def gru_decode_bwd_wide(heads):
@@ -351,7 +396,7 @@ gru_decode_bwd_wide.launches = 0
 
 
 def _decode_bwd(heads, wide: bool):
-    B, H, device = _check_heads(heads, "E_wide" if wide else "E")
+    B, H, device, dtype = _check_heads(heads, "E_wide" if wide else "E")
     for k, h in enumerate(heads):
         want = (h["T"], B, h["start"].shape[-1])
         for name in ("probs", "g_probs", "g_logits"):
@@ -369,33 +414,36 @@ def _decode_bwd(heads, wide: bool):
     outs, keep = [], []
     for h, st in zip(heads, structs):
         T, D, n_layers = h["T"], h["start"].shape[-1], len(h["cells"])
-        g = {"dlogits": torch.empty(T, B, D, **kw),
-             "da": [torch.empty(T, B, 3 * H, **kw) for _ in range(n_layers)],
-             "rh": [torch.empty(T, B, H, **kw) for _ in range(n_layers)],
-             "d_init": [torch.empty(B, H, **kw) for _ in range(n_layers)],
-             "d_start": torch.empty(B, D, **kw)}
         named = {"probs": h["probs"], "h1seq": h["h_seqs"][0], "g_probs": h["g_probs"],
                  "g_logits": h["g_logits"], "start": h["start"], "h1_0": h["init"][0],
-                 "wot": h["out"]["w"].t().contiguous(), "dlogits": g["dlogits"],
-                 "d_start": g["d_start"]}
+                 "wot": h["out"]["w"].t().contiguous()}
         for i, p in enumerate(h["cells"]):
             # the transposed products read U^T and W^T row by row (see the source)
             named.update({f"w{i + 1}": p["w"], f"u{i + 1}": p["u"], f"b{i + 1}": p["b"],
-                          f"u{i + 1}t": p["u"].t().contiguous(), f"w{i + 1}t": p["w"].t().contiguous(),
-                          f"da{i + 1}": g["da"][i], f"rh{i + 1}": g["rh"][i],
-                          f"d_h{i + 1}_0": g["d_init"][i]})
+                          f"u{i + 1}t": p["u"].t().contiguous(), f"w{i + 1}t": p["w"].t().contiguous()})
         if n_layers == 2:
             named.update({"h2seq": h["h_seqs"][1], "h2_0": h["init"][1]})
-        check_operands(named, device)
+        check_operands(named, device, (dtype,))
+        # dlogits, the gate grads and r*h in float32; d_init, d_start in the heads' dtype
+        g = {"dlogits": torch.empty(T, B, D, **kw),
+             "da": [torch.empty(T, B, 3 * H, **kw) for _ in range(n_layers)],
+             "rh": [torch.empty(T, B, H, **kw) for _ in range(n_layers)],
+             "d_init": [torch.empty(B, H, device=device, dtype=dtype) for _ in range(n_layers)],
+             "d_start": torch.empty(B, D, device=device, dtype=dtype)}
+        named.update({"dlogits": g["dlogits"], "d_start": g["d_start"]})
+        for i in range(n_layers):
+            named.update({f"da{i + 1}": g["da"][i], f"rh{i + 1}": g["rh"][i],
+                          f"d_h{i + 1}_0": g["d_init"][i]})
         keep.append(named)  # the transposes must outlive the launch
         for name in _BWD_PTRS:
             setattr(st, name, named[name].data_ptr() if name in named else null.value)
         st.D, st.n_layers, st.out_act, st.T = D, n_layers, OUT_ACTIVATIONS[h["out_activation"]], T
         outs.append(g)
-    lib, fn = _bwd_kernel(wide)
-    rc = fn(structs, len(heads), B, H, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    lib, fns = _bwd_kernel(wide)
+    rc = fns[dtype](structs, len(heads), B, H,
+                    ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     _build.check(lib, rc, f"gru_decode_bwd{'_wide' if wide else ''} launch")
-    (gru_decode_bwd_wide if wide else gru_decode_bwd).launches += 1
+    _build.count_launch(gru_decode_bwd_wide if wide else gru_decode_bwd, dtype)
     return outs
 
 
@@ -428,7 +476,8 @@ class _DecodeTrain(torch.autograd.Function):
     then kernel W (``wide``: D's and E's wide builds). ``layout`` is one
     (n_layers, out_activation, T) per head; ``flat`` holds each head's
     tensors in ``_flatten_head`` order. Returns (probs, logits) of every
-    head, flattened."""
+    head, flattened. The weight grads are float32 sums, rounded to the
+    params' dtype."""
 
     @staticmethod
     def forward(ctx, layout, wide, *flat):
@@ -464,7 +513,7 @@ class _DecodeTrain(torch.autograd.Function):
                 dw, db, du = gru_weight_grads(x, hprev, g["rh"][i], g["da"][i])
                 cell_grads += [dw, du, db]
             flat_grads += [g["d_start"], *g["d_init"], *cell_grads, dwo, dbo]
-        return (None, None, *flat_grads)
+        return (None, None, *(g.to(p.dtype) for g, p in zip(flat_grads, saved)))
 
 
 def _decode_heads_train(heads, wide=False):
@@ -477,11 +526,19 @@ def _decode_heads_train(heads, wide=False):
 def gru_decode_train(cells, out_dense, init_states, start, T, activation="tanh",
                      out_activation="softmax", wide=False):
     """Differentiable readout decode of one head (1 or 2 GRU layers, tanh):
-    (probs, logits), each (T, B, D) time-major. CPU tensors run the plain
-    versions of kernels D, E and W; CUDA tensors launch them (``wide``: the
-    wide builds of D and E)."""
+    (probs, logits), each (T, B, D) time-major in start's dtype. CPU tensors
+    run the plain versions of kernels D, E and W; CUDA tensors launch them
+    (``wide``: the wide builds of D and E; a bfloat16 head: the bf16 builds).
+    A head narrower than 8 that is not float32 is promoted whole to float32
+    and its outputs cast back (``fused_train.py:813-825``)."""
     if activation != "tanh":
         raise ValueError(f"the decode training kernels implement tanh cells, not {activation!r}")
+    if start.shape[-1] < 8 and start.dtype != torch.float32:
+        probs, logits = gru_decode_train(
+            [{k: c[k].float() for k in ("w", "u", "b")} for c in cells],
+            {k: out_dense[k].float() for k in ("w", "b")}, [s.float() for s in init_states],
+            start.float(), T, activation, out_activation, wide)
+        return probs.to(start.dtype), logits.to(start.dtype)
     head = {"cells": list(cells), "out": out_dense, "init": list(init_states), "start": start,
             "T": T, "out_activation": out_activation}
     return _decode_heads_train([head], wide)[0]

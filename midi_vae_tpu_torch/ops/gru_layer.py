@@ -31,6 +31,24 @@ in ``_fwd_pallas`` and ``_fwd_wide_pallas``) and whose backward is kernel G
 does in XLA. The caller computes xp = x @ W + b with torch.matmul, so dx, dW
 and db come from autograd, as the JAX package leaves them to XLA (:2287).
 Plain versions: ``gru_layer_xp_reference`` and ``gru_layer_xp_bwd_reference``.
+
+A and C have a bfloat16 build beside the float32 one (``mvt_gru_layer_fwd_bf16``,
+``mvt_gru_layer_bwd_bf16``), picked by the operands' dtype: a bf16 model
+(``compute_dtype="bfloat16"``) trains its encoder layers through
+``gru_layer_train_x`` in bf16, as the JAX package runs ``_fwdx_kernel`` and
+``_bwdx_kernel`` there. A takes x @ W and h @ U as bf16 products summed in
+float32, keeps r * h in float32 and rounds only the carried state and the
+stored sequence to bf16. C widens x, the stored sequence and h0 to float32
+and runs the whole transposition in float32 (the dh carry too); dx and dh0
+leave in bf16, the gate grads and r * h in float32, and W sums the weight
+grads in float32 (its bf16 build reads the bf16 activations); the layer's
+weight grads are rounded to the params' dtype at the end, as ``_glx_bwd``
+casts them. The velocity layer (D < 8) is the JAX package's ``cast_x`` case:
+there x and W enter the products widened to float32, which gives the same
+products as the bf16 build's widening loads, so it takes the same build.
+The plain versions compute the same way, so the CPU path is this explicit
+float32 transposition, not autograd through a bf16 forward. Launches are
+counted per build: ``.launches`` (float32) and ``.launches_bf16``.
 """
 
 from __future__ import annotations
@@ -55,32 +73,34 @@ def cell_activation(name: str):
         raise ValueError(f"unsupported GRU kernel activation {name!r}") from None
 
 
-def gru_step(x, h, w, u, b, act):
+def gru_step(x, h, w, u, b, act, dtype=None):
     """One reset-before GRU step: (B, D), (B, H) -> (B, H); x @ W + b in
     float32, as ``gru_step_xp`` computes the rest."""
-    return gru_step_xp(x.float() @ w.float() + b.float(), h, u, act)
+    return gru_step_xp(x.float() @ w.float() + b.float(), h, u, act, dtype)
 
 
-def gru_step_xp(xp, h, u, act):
+def gru_step_xp(xp, h, u, act, dtype=None):
     """One reset-before GRU step over its x-projection xp = x @ W + b
     (B, 3H): (B, H) -> (B, H). The products and the gate math run in
-    float32 (r * h too) and h' is rounded to h's dtype once, as the Pallas
-    kernels do in a bfloat16 model (``preferred_element_type=float32``,
-    then ``astype``: ``fused_gru.py:54-82``, ``fused_decoder.py:300-311``);
-    in float32 the casts are no-ops."""
+    float32 (r * h too) and h' is rounded once to ``dtype`` (h's by
+    default), as the Pallas kernels do in a bfloat16 model
+    (``preferred_element_type=float32``, then ``astype``:
+    ``fused_gru.py:54-82``, ``fused_decoder.py:300-311``); in float32 the
+    casts are no-ops."""
     H = h.shape[-1]
     xp, hf, u = xp.float(), h.float(), u.float()
     hu_zr = hf @ u[:, : 2 * H]
     z = torch.sigmoid(xp[:, :H] + hu_zr[:, :H])
     r = torch.sigmoid(xp[:, H : 2 * H] + hu_zr[:, H:])
     hh = act(xp[:, 2 * H :] + (r * hf) @ u[:, 2 * H :])
-    return (z * hf + (1.0 - z) * hh).to(h.dtype)
+    return (z * hf + (1.0 - z) * hh).to(h.dtype if dtype is None else dtype)
 
 
 def gru_layer_reference(x, h0, w, b, u, activation="tanh", return_sequences=False):
-    """Plain version: x (T, B, D) -> (T, B, H) sequence or final h (B, H)."""
+    """Plain version: x (T, B, D) -> (T, B, H) sequence or final h (B, H),
+    in h0's dtype; x @ W + b in float32 (``_fwdx_kernel``)."""
     T, B, D = x.shape
-    xp = (x.reshape(T * B, D) @ w + b).reshape(T, B, -1)
+    xp = (x.reshape(T * B, D).float() @ w.float() + b.float()).reshape(T, B, -1)
     return _scan_xp(xp, h0, u, cell_activation(activation), return_sequences)
 
 
@@ -118,21 +138,22 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+_BF16 = torch.bfloat16
+
+
 @functools.cache
 def _kernel():
-    lib = _build.load("gru_layer_fwd")
-    fn = lib.mvt_gru_layer_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    return _build.load_builds("gru_layer_fwd", "mvt_gru_layer_fwd",
+                              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def gru_layer(x, h0, w, b, u, activation="tanh", return_sequences=False):
-    """GRU layer forward, x (T, B, D) time-major.
+    """GRU layer forward, x (T, B, D) time-major, every operand float32 or
+    every one bfloat16.
 
     Returns the (T, B, H) h sequence when ``return_sequences`` else the final
-    h (B, H). CPU tensors run ``gru_layer_reference``; CUDA tensors launch
-    kernel A."""
+    h (B, H), in the operands' dtype. CPU tensors run ``gru_layer_reference``;
+    CUDA tensors launch kernel A's build of their dtype."""
     if activation not in CELL_ACTIVATIONS:
         raise ValueError(f"unsupported GRU kernel activation {activation!r}")
     if x.dim() != 3:
@@ -147,23 +168,25 @@ def gru_layer(x, h0, w, b, u, activation="tanh", return_sequences=False):
         return gru_layer_reference(x, h0, w, b, u, activation, return_sequences)
     if x.device.type != "cuda":
         raise ValueError(f"gru_layer runs on cpu or cuda tensors, not {x.device}")
-    check_operands({"x": x, "h0": h0, "w": w, "b": b, "u": u}, x.device)
+    dtype = check_operands({"x": x, "h0": h0, "w": w, "b": b, "u": u}, x.device, _build.DTYPES)
     if T < 1 or B < 1:
         raise ValueError(f"kernel A takes T >= 1 and B >= 1; got T={T} B={B}")
-    _layout.require("A", H, _layout.smem_bytes("A", H, D))
-    out = torch.empty((T, B, H) if return_sequences else (B, H), device=x.device, dtype=torch.float32)
-    lib, fn = _kernel()
-    rc = fn(
+    build = "A_bf16" if dtype == _BF16 else "A"
+    _layout.require(build, H, _layout.smem_bytes(build, H, D))
+    out = torch.empty((T, B, H) if return_sequences else (B, H), device=x.device, dtype=dtype)
+    lib, fns = _kernel()
+    rc = fns[dtype](
         _ptr(x), _ptr(h0), _ptr(w), _ptr(b), _ptr(u), _ptr(out),
         T, B, D, H, CELL_ACTIVATIONS[activation], int(return_sequences),
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     _build.check(lib, rc, "gru_layer_fwd launch")
-    gru_layer.launches += 1
+    _build.count_launch(gru_layer, dtype)
     return out
 
 
 gru_layer.launches = 0
+gru_layer.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -201,30 +224,34 @@ def gru_layer_bwd_reference(x, seq, h0, d_seq, d_final, w, b, u, need_dx=True):
     """Plain version of kernel C: reverse-time BPTT of one layer over the
     forward's h sequence ``seq`` (T, B, H). ``d_seq`` (T, B, H) and
     ``d_final`` (B, H) are the incoming grads (either may be None). Returns
-    (dx or None, dh0, da_cat (T, B, 3H), rh (T, B, H))."""
+    (dx or None, dh0, da_cat (T, B, 3H), rh (T, B, H)). Every operand is
+    widened to float32 and the transposition runs in float32, the dh carry
+    too; dx and dh0 leave in x's dtype, da_cat and rh in float32
+    (``_bwdx_kernel``: a no-op in a float32 layer)."""
+    dtype = x.dtype
+    x, seq, h0, w, b, u = (t.float() for t in (x, seq, h0, w, b, u))
     T = x.shape[0]
-    dh = d_final if d_final is not None else torch.zeros_like(h0)
+    dh = d_final.float() if d_final is not None else torch.zeros_like(h0)
     dx, da, rh = [None] * T, [None] * T, [None] * T
     for t in reversed(range(T)):
         if d_seq is not None:
-            dh = dh + d_seq[t]
+            dh = dh + d_seq[t].float()
         hp = seq[t - 1] if t > 0 else h0
         dx[t], dh, da[t], rh[t] = gru_cell_bwd_core(x[t], hp, w, u, b, dh)
-    return (torch.stack(dx) if need_dx else None), dh, torch.stack(da), torch.stack(rh)
+    return ((torch.stack(dx).to(dtype) if need_dx else None), dh.to(dtype), torch.stack(da),
+            torch.stack(rh))
 
 
 @functools.cache
 def _bwd_kernel():
-    lib = _build.load("gru_layer_bwd")
-    fn = lib.mvt_gru_layer_bwd
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    return _build.load_builds("gru_layer_bwd", "mvt_gru_layer_bwd",
+                              [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def gru_layer_bwd(x, seq, h0, d_seq, d_final, w, b, u, need_dx=True):
     """Backward of one GRU layer (tanh): see ``gru_layer_bwd_reference``.
-    CPU tensors run the plain version; CUDA tensors launch kernel C."""
+    CPU tensors run the plain version; CUDA tensors (every operand float32
+    or every one bfloat16) launch kernel C's build of their dtype."""
     T, B, D = x.shape
     H = u.shape[0]
     named = {"x": x, "seq": seq, "h0": h0, "w": w, "b": b, "u": u}
@@ -241,34 +268,37 @@ def gru_layer_bwd(x, seq, h0, d_seq, d_final, w, b, u, need_dx=True):
         return gru_layer_bwd_reference(x, seq, h0, d_seq, d_final, w, b, u, need_dx)
     if x.device.type != "cuda":
         raise ValueError(f"gru_layer_bwd runs on cpu or cuda tensors, not {x.device}")
-    check_operands(named, x.device)
-    _layout.require("C", H, _layout.smem_bytes("C", H, D, dx=need_dx))
+    dtype = check_operands(named, x.device, _build.DTYPES)
+    build = "C_bf16" if dtype == _BF16 else "C"
+    _layout.require(build, H, _layout.smem_bytes(build, H, D, dx=need_dx))
     kw = {"device": x.device, "dtype": torch.float32}
-    dx = torch.empty(T, B, D, **kw) if need_dx else None
-    dh0 = torch.empty(B, H, **kw)
+    dx = torch.empty(T, B, D, device=x.device, dtype=dtype) if need_dx else None
+    dh0 = torch.empty(B, H, device=x.device, dtype=dtype)
     da_cat = torch.empty(T, B, 3 * H, **kw)
     rh = torch.empty(T, B, H, **kw)
     # the transposed products read U^T and W^T row by row (see the source)
     ut, wt = u.t().contiguous(), w.t().contiguous()
     null = ctypes.c_void_p(None)
     opt = lambda t: _ptr(t) if t is not None else null  # noqa: E731
-    lib, fn = _bwd_kernel()
-    rc = fn(
+    lib, fns = _bwd_kernel()
+    rc = fns[dtype](
         _ptr(x), _ptr(seq), _ptr(h0), opt(d_seq), opt(d_final), _ptr(w), _ptr(b), _ptr(u),
         _ptr(ut), _ptr(wt), opt(dx), _ptr(dh0), _ptr(da_cat), _ptr(rh), T, B, D, H,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     _build.check(lib, rc, "gru_layer_bwd launch")
-    gru_layer_bwd.launches += 1
+    _build.count_launch(gru_layer_bwd, dtype)
     return dx, dh0, da_cat, rh
 
 
 gru_layer_bwd.launches = 0
+gru_layer_bwd.launches_bf16 = 0
 
 
 class _GruLayerTrainX(torch.autograd.Function):
     """Forward: kernel A with the h sequence as residual. Backward: kernel C
-    for dx, dh0 and the gate grads, then kernel W for dW, db, dU."""
+    for dx, dh0 and the gate grads, then kernel W for dW, db, dU (float32
+    sums, rounded to the params' dtype)."""
 
     @staticmethod
     def forward(ctx, x, h0, w, b, u, return_sequences):
@@ -287,13 +317,14 @@ class _GruLayerTrainX(torch.autograd.Function):
                                             need_dx=ctx.needs_input_grad[0])
         hprev = torch.cat([h0[None], seq[:-1]])
         dw, db, du = gru_weight_grads(x, hprev, rh, da_cat)
-        return dx, dh0, dw, db, du, None
+        return dx, dh0, dw.to(w.dtype), db.to(b.dtype), du.to(u.dtype), None
 
 
 def gru_layer_train_x(x, h0, w, b, u, return_sequences=False):
-    """Differentiable GRU layer (tanh) over x (T, B, D) time-major: the
-    (T, B, H) sequence or the final h (B, H). CPU tensors run the plain
-    versions of kernels A, C and W; CUDA tensors launch them."""
+    """Differentiable GRU layer (tanh) over x (T, B, D) time-major, float32
+    or bfloat16: the (T, B, H) sequence or the final h (B, H). CPU tensors
+    run the plain versions of kernels A, C and W; CUDA tensors launch the
+    builds of their dtype."""
     return _GruLayerTrainX.apply(x, h0, w, b, u, return_sequences)
 
 

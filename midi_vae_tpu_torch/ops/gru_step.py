@@ -141,10 +141,7 @@ def gru_cell_step_fwd(x, h, w, b, u, activation="tanh"):
     rc = steps[dtype](_ptr(x), _ptr(h), _ptr(w), _ptr(b), _ptr(u), _ptr(h_out), B, D, H,
                       CELL_ACTIVATIONS[activation], _stream(x))
     _build.check(lib, rc, "gru_step launch")
-    if dtype == torch.bfloat16:
-        gru_cell_step_fwd.launches_bf16 += 1
-    else:
-        gru_cell_step_fwd.launches += 1
+    _build.count_launch(gru_cell_step_fwd, dtype)
     return h_out
 
 

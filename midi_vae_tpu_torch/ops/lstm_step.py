@@ -104,10 +104,7 @@ def lstm_cell_step_fwd(x, h, c, w, b, u, activation="tanh"):
     rc = steps[dtype](_ptr(x), _ptr(h), _ptr(c), _ptr(w), _ptr(b), _ptr(u), _ptr(h_out),
                       _ptr(c_out), B, D, H, CELL_ACTIVATIONS[activation], _stream(x))
     _build.check(lib, rc, "lstm_step launch")
-    if dtype == torch.bfloat16:
-        lstm_cell_step_fwd.launches_bf16 += 1
-    else:
-        lstm_cell_step_fwd.launches += 1
+    _build.count_launch(lstm_cell_step_fwd, dtype)
     return h_out, c_out
 
 

@@ -11,8 +11,8 @@ card, the route of the step, the median wall time per step (host clock
 around work that ends in a synchronize), note-steps/s (B x 64 output steps
 per step; windows/s for a judge), and from a torch.profiler window of STEPS
 steps the device time per kernel name, per kernel of the port (A, C, D, E,
-F, G, the wide D and E, L, N, Q, R, S, S xp, T, T xp, X, Y, W; S and T in
-bf16 apart) and for everything else, per
+F, G, the wide D and E, L, N, Q, R, S, S xp, T, T xp, X, Y, W; the bf16
+builds of A, C, D, E, S, T and W apart) and for everything else, per
 autograd node of the backward, and the device's idle share.
 
 Usage: python -m midi_vae_tpu_torch.tools.profile_train [--batch 256] [--steps 10]
@@ -52,6 +52,9 @@ PORT_KERNELS = {
     "lstm_encoder_scan_kernel": "Y lstm_encoder_scan",
     "grad_reduce": "W grad_reduce",
 }
+# the groups whose kernels have a bf16 build, counted apart
+BF16_BUILDS = ("A gru_layer_fwd", "C gru_layer_bwd", "D gru_decode_train", "E gru_decode_bwd",
+               "S lstm_step", "T gru_step", "W grad_reduce")
 
 
 def random_train_batch(cfg, n: int, seed: int, valid: int | None = None) -> dict:
@@ -131,8 +134,8 @@ def _profile(step, steps: int) -> dict:
         group = next((g for prefix, g in PORT_KERNELS.items() if short == prefix
                       or short.startswith(prefix + "_")),
                      "other (ATen, cuBLAS, copies)")
-        if group in ("S lstm_step", "T gru_step") and "bfloat16" in name:
-            group = group.replace(" ", " bf16 ", 1)  # the bf16 builds of S and T
+        if group in BF16_BUILDS and "bfloat16" in name:
+            group = group.replace(" ", " bf16 ", 1)
         groups[group] = groups.get(group, 0.0) + ms
     return {
         "step_wall_ms_median": walls[len(walls) // 2] * 1e3,

@@ -422,25 +422,27 @@ def test_slice_configs_take_the_whole_scan_wrappers(name, monkeypatch):
         assert spy.count() == {"L" if name == "lstm" else "A": 4}
 
 
-@pytest.mark.parametrize("overrides, match", [
-    # the multi-head call is float32 only (_mh_use_pallas): the notes and
-    # velocity heads then take gru_decode_train, D and E in bf16; merged or
-    # teacher-forced, the instrument head still does
-    ({"fused_train_encoder": False}, "GRU training with fused_train_decoder.*D and E"),
-    ({"fused_train_encoder": False, "merge_decoder_scans": True},
-     "GRU training with fused_train_decoder.*D and E"),
-    ({"fused_train_encoder": False, "teacher_force": True},
-     "GRU training with fused_train_decoder.*D and E"),
-    ({"fused_train_decoder": False}, "A, C and W"),
-    ({"cell_type": "LSTM"}, "L, N and W.*Queue 1 item 2"),
-    ({"cell_type": "LSTM", "fused_train_decoder": False}, "Q, R and W"),
-], ids=["gru_fused_decoder", "gru_merged", "gru_teacher_forced", "gru_fused_encoder",
-        "lstm_fused_encoder", "lstm_fused_encoder_no_fused_decoder"])
-def test_unported_bf16_configs_raise_naming_what_they_wait_for(overrides, match):
+@pytest.mark.parametrize("overrides, route, match", [
+    # the LSTM's whole-layer kernels have no bf16 build yet
+    ({"cell_type": "LSTM"}, None, "L, N and W.*Queue 1 item 2"),
+    ({"cell_type": "LSTM", "fused_train_decoder": False}, None, "Q, R and W"),
+    # nor has the GRU's wide route (F, G, D wide, E wide), whichever fused
+    # flag sends the step there
+    ({}, "wide", "wide route.*Queue 1 item 2"),
+    ({"fused_train_encoder": False}, "wide", "wide route.*Queue 1 item 2"),
+    # the multi-head kernel's bf16 residuals (a float32 model)
+    ({"compute_dtype": "float32", "decode_residual_bf16": True}, None,
+     "decode_residual_bf16.*Queue 1 item 2"),
+], ids=["lstm_fused_encoder", "lstm_fused_encoder_no_fused_decoder", "gru_wide",
+        "gru_wide_fused_decoder", "decode_residual_bf16"])
+def test_unported_bf16_configs_raise_naming_what_they_wait_for(overrides, route, match,
+                                                                monkeypatch):
     """Every bf16 config whose step still needs a kernel without a bf16 build
     raises on CUDA, naming it and the ROADMAP item; on the CPU it takes the
-    plain path."""
-    model = MidiVAE(small_test_config(compute_dtype="bfloat16", **overrides))
+    plain path. The GRU configs that waited for A, C, D, E and W in bf16 on
+    the narrow route train (``tests/test_torch_bf16_fused.py``)."""
+    monkeypatch.setattr(_layout, "FORCE_ROUTE", route)
+    model = MidiVAE(small_test_config(**{"compute_dtype": "bfloat16", **overrides}))
     with pytest.raises(NotImplementedError, match=match):
         model.train_kernels(torch.device("cuda"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):

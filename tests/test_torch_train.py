@@ -171,9 +171,9 @@ def test_optimizer_trajectories_match_jax(name):
     ({"merge_decoder_scans": True}, (True, True)),
     ({"fused_train_encoder": False}, (True, True)),
     ({"fused_train_decoder": False}, (True, True)),
-    # bf16 with the default flags runs A, C and W in bf16 (not ported); with
+    # bf16 with the default flags runs A, C, D, E and W in bf16; with
     # both fused_train_* False the whole-scan kernel X and T's bf16 build
-    ({"compute_dtype": "bfloat16"}, "A, C and W.*Queue 1 item 2"),
+    ({"compute_dtype": "bfloat16"}, (True, True)),
     ({"compute_dtype": "bfloat16", "fused_train_encoder": False,
       "fused_train_decoder": False}, (True, True)),
     # LSTM trains on the card since its kernels (rows 15-20, 30 and 31) are
@@ -242,8 +242,8 @@ def test_bridge_trainable_mode():
 
 
 def test_bfloat16_trains_on_the_cpu_in_bfloat16():
-    """compute_dtype='bfloat16' with the default flags (unported on CUDA)
-    runs the plain forward in bf16 on the CPU, as the JAX package casts params and batch, with f32
+    """compute_dtype='bfloat16' with the default flags runs the kernels'
+    plain bf16 versions on the CPU, as the JAX package casts params and batch, with f32
     losses and f32 parameter grads; the loss lands within bf16's precision
     (atol 2e-2) of the f32 loss."""
     losses = {}
