@@ -154,7 +154,27 @@ result line):
      D and E in bf16 2 and in float32 1 (the velocity head), W 16 in bf16
      and 11 in float32, every launch counter as designed;
  32. one training step of that config and of merge_bf16, card against CPU
-     (bf16 limits), with each step's time.
+     (bf16 limits), with each step's time;
+ 33. bf16 on the wide route (Config(lstm_size=512, compute_dtype=bfloat16),
+     the soak's wide512_bf16): per encoder layer kernel X
+     (csrc/gru_encoder_scan.cu) as row 9 in bf16, G's bf16 build
+     (csrc/gru_layer_xp_bwd.cu) and W for dU from G's float32 gate grads;
+     on the notes and instrument heads the bf16 builds of the wide D
+     (csrc/gru_decode_train.cu) and E (csrc/gru_decode_bwd.cu), whose
+     dlogits and gate grads leave rounded to bf16, and W over them; each
+     against its plain bf16 version at B = 256 (timed, with bounds, W beside
+     cuBLAS) and B = 5, the autograd ops' gradients against the plain
+     backward, and three controls: dU from the rounded dxp, the heads'
+     weight grads from the unrounded streams, one D step with layer 2 fed
+     the rounded h1;
+ 34. the train CLI with --set lstm_size=512 --set compute_dtype=bfloat16, 2
+     epochs, --resume for a third, serving: X 4, G bf16 4, the wide D and E
+     in bf16 2 and in float32 1 (velocity), W 12 in bf16 and 11 in float32
+     a step, every launch counter as designed;
+ 35. that step card against CPU (bf16 limits), and one step on the card of
+     it with fused_train_encoder=False (X and the wide heads) and with
+     fused_train_decoder=False (X, G and T bf16): exact launch counts, a
+     finite loss, each step's time.
 Then one JSON line with the kernels, and the final line
 {"ok": true, "device": {...}}.
 """
@@ -276,9 +296,9 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "D": ("gru_decode_train", "gru_decode_train_kernel", NOT_BF16),
           "E": ("gru_decode_bwd", "gru_decode_bwd_kernel", NOT_BF16),
           "F": ("gru_layer_xp_fwd", "gru_layer_xp_fwd_kernel"),
-          "G": ("gru_layer_xp_bwd", "gru_layer_xp_bwd_kernel"),
-          "D_wide": ("gru_decode_train", "gru_decode_train_wide_kernel"),
-          "E_wide": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel"),
+          "G": ("gru_layer_xp_bwd", "gru_layer_xp_bwd_kernel", NOT_BF16),
+          "D_wide": ("gru_decode_train", "gru_decode_train_wide_kernel", NOT_BF16),
+          "E_wide": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel", NOT_BF16),
           "W": ("grad_reduce", "grad_reduce", NOT_BF16),
           "L": ("lstm_layer_fwd", "lstm_layer_fwd_kernel"), "M": ("lstm_decode", "lstm_decode_kernel"),
           "N": ("lstm_layer_bwd", "lstm_layer_bwd_kernel"),
@@ -290,14 +310,18 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "Y": ("lstm_encoder_scan", "lstm_encoder_scan_kernel"),
           "U": ("gru_encoder_stack_fwd", "gru_encoder_stack_fwd_kernel"),
           "V": ("gru_encoder_stack_bwd", "gru_encoder_stack_bwd_kernel"),
-          # the bf16 instances of T's, S's, A's, C's, D's, E's and W's kernels
+          # the bf16 instances of T's, S's, A's, C's, D's, E's, G's, the wide
+          # D's and E's and W's kernels
           "T_bf16": ("gru_step", "gru_step_kernel", BF16_ONLY),
           "S_bf16": ("lstm_step", "lstm_step_kernel", BF16_ONLY),
           "A_bf16": ("gru_layer_fwd", "gru_layer_fwd_kernel", BF16_ONLY),
           "C_bf16": ("gru_layer_bwd", "gru_layer_bwd_kernel", BF16_ONLY),
           "D_bf16": ("gru_decode_train", "gru_decode_train_kernel", BF16_ONLY),
           "E_bf16": ("gru_decode_bwd", "gru_decode_bwd_kernel", BF16_ONLY),
-          "W_bf16": ("grad_reduce", "grad_reduce_kernel", BF16_ONLY)}
+          "W_bf16": ("grad_reduce", "grad_reduce_kernel", BF16_ONLY),
+          "G_bf16": ("gru_layer_xp_bwd", "gru_layer_xp_bwd_kernel", BF16_ONLY),
+          "D_wide_bf16": ("gru_decode_train", "gru_decode_train_wide_kernel", BF16_ONLY),
+          "E_wide_bf16": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel", BF16_ONLY)}
 
 
 def check_registers():
@@ -890,13 +914,13 @@ def phase_wide_kernels():
             results[fwd_key][tag] = out
         g = torch.randn(seq.shape if rs else seq.shape[1:], generator=gen, device=dev)
         args = (xp, seq, h0, g if rs else None, None if rs else g, u)
-        # dxp, dh0: gradients; r*h a forward value
-        out = run(f"G {tag} rs={rs}", lambda: gl.gru_layer_xp_bwd(*args),
-                  lambda: gl.gru_layer_xp_bwd_reference(*args), [rel, rel, H_ATOL],
+        # dxp, dh0, da_cat (dxp itself in float32): gradients; r*h a forward value
+        out = run(f"G {tag} rs={rs}", lambda: gl.gru_layer_xp_bwd(*args)[1:],
+                  lambda: gl.gru_layer_xp_bwd_reference(*args)[1:], [rel, rel, H_ATOL],
                   flops=4 * T * rows * u.numel(), inputs=args)
         if bwd_key:
             results[bwd_key][tag] = out
-        da, _dh0, rh = gl.gru_layer_xp_bwd_reference(*args)
+        _dxp, _dh0, da, rh = gl.gru_layer_xp_bwd_reference(*args)
         hprev = torch.cat([h0[None], seq[:-1]])
         n = T * rows
         out = run(f"W {tag} dU", lambda: gru_u_grad(hprev, rh, da), lambda: plain_u(hprev, rh, da),
@@ -1208,6 +1232,28 @@ PER_TRAIN_STEP = {
     "merge_bf16": {"gru_layer_fwd_bf16": 4, "gru_layer_bwd_bf16": 4, "gru_step_bf16": 2 * 64 + 64,
                    "gru_decode_train_bf16": 1, "gru_decode_bwd_bf16": 1, "grad_reduce_bf16": 11,
                    "grad_reduce": 5},
+    # bf16 on the wide route (lstm_size=512): each encoder layer's forward
+    # through kernel X (row 9 in bf16), its backward through G's bf16 build;
+    # the notes and instrument heads through the wide D and E's bf16 builds,
+    # velocity (D = 1 < 8) through their float32 builds; W over bf16
+    # activations: dU[:, :2H] of the 4 encoder layers, dW and dU[:, :2H] of
+    # the 2 + 1 bf16 head cells and the 2 bf16 heads' dWo (4 + 8 = 12), over
+    # float32 operands: dU[:, 2H:] (r * h) of the 4 layers and 3 bf16 head
+    # cells and the velocity head's dW, dU[:, :2H], dU[:, 2H:] and dWo (11)
+    "wide_bf16": {"gru_encoder_scan": 4, "gru_layer_xp_bwd_bf16": 4,
+                  "gru_decode_train_wide_bf16": 2, "gru_decode_train_wide": 1,
+                  "gru_decode_bwd_wide_bf16": 2, "gru_decode_bwd_wide": 1,
+                  "grad_reduce_bf16": 12, "grad_reduce": 11},
+    # with fused_train_encoder=False the encoder is kernel X with its remat
+    # backward (no G, no encoder W); with fused_train_decoder=False every
+    # head cell runs T's bf16 build (no wide D or E, no head W)
+    "wide_bf16_no_fused_encoder": {"gru_encoder_scan": 4, "gru_decode_train_wide_bf16": 2,
+                                   "gru_decode_train_wide": 1, "gru_decode_bwd_wide_bf16": 2,
+                                   "gru_decode_bwd_wide": 1, "grad_reduce_bf16": 8,
+                                   "grad_reduce": 7},
+    "wide_bf16_no_fused_decoder": {"gru_encoder_scan": 4, "gru_layer_xp_bwd_bf16": 4,
+                                   "gru_step_bf16": S_PER_STEP, "grad_reduce_bf16": 4,
+                                   "grad_reduce": 4},
 }
 PER_EVAL_BATCH = {  # forward only
     "narrow": {"gru_layer_fwd": 4, "gru_decode_train": 2},
@@ -1220,6 +1266,8 @@ PER_EVAL_BATCH = {  # forward only
     "bf16_no_fused_train": {"gru_encoder_scan": 4, "gru_step_bf16": S_PER_STEP},
     "lstm_bf16_no_fused_encoder": {"lstm_encoder_scan": 4, "lstm_step_bf16": S_PER_STEP},
     "bf16": {"gru_layer_fwd_bf16": 4, "gru_decode_train_bf16": 2, "gru_decode_train": 1},
+    "wide_bf16": {"gru_encoder_scan": 4, "gru_decode_train_wide_bf16": 2,
+                  "gru_decode_train_wide": 1},
 }
 # an encode pass (the serving encoder in float32, kernel A or L, also for a
 # bf16 model: the JAX package's encode casts nothing): the test split's
@@ -1241,7 +1289,8 @@ def route_key(cfg, route):
 
 def kernel_counters():
     """Kernel name -> (wrapper, its counter attribute): ``launches``, or
-    ``launches_bf16`` for the bf16 builds of T, S, A, C, D, E and W."""
+    ``launches_bf16`` for the bf16 builds of T, S, A, C, D, E, G, the wide D
+    and E, and W."""
     from midi_vae_tpu_torch.ops import encoder_scan as es
     from midi_vae_tpu_torch.ops import encoder_stack as est
     from midi_vae_tpu_torch.ops import gru_decode as gd
@@ -1269,7 +1318,8 @@ def kernel_counters():
            "gru_encoder_stack_bwd": est.gru_encoder_stack_bwd}
     counters = {name: (fn, "launches") for name, fn in fns.items()}
     for name in ("gru_step", "lstm_step", "gru_layer_fwd", "gru_layer_bwd", "gru_decode_train",
-                 "gru_decode_bwd", "grad_reduce"):
+                 "gru_decode_bwd", "grad_reduce", "gru_layer_xp_bwd", "gru_decode_train_wide",
+                 "gru_decode_bwd_wide"):
         counters[f"{name}_bf16"] = (counters[name][0], "launches_bf16")
     return counters
 
@@ -2732,6 +2782,16 @@ BF16_GRAD_OP = (lambda w: 2 * bf16_step_lim(w), BF16_GRAD_REL_L2_OP)
 BF16_STEP_REL_L2 = 1e-4
 BF16_STEP = (bf16_step_lim, BF16_STEP_REL_L2)
 W_REL_L2 = 1e-5
+# the gate-grad streams of the wide route in bf16 (phase 33), against their
+# plain versions on the same forward sequences: G's float32 gate grads (dU's
+# operand) and E wide's dlogits and gate grads, which hold bf16 values (row
+# 14's pass 2 sums them rounded). A sound kernel differs from its plain
+# version where a float32 sum taken in another order straddles a bf16
+# rounding boundary: on the H100 (NVIDIA H100 80GB HBM3, 700 W) E wide's
+# streams read at most 6.9e-5. A stream left unrounded, or G's rounded, is
+# off by up to half a bf16 step in every entry (about 1e-3), and the
+# controls of check_wide_controls must land over the limit
+STREAM_REL_L2 = 2e-4
 
 
 def layer_flops_bf16(T, B, w, u):
@@ -2774,9 +2834,10 @@ def plain_layer_vjp(x, h0, w, b, u, rs, g):
     return dx, dh0, dw.to(w.dtype), db.to(b.dtype), du.to(u.dtype)
 
 
-def plain_decode_vjp(head, g_probs, g_logits):
+def plain_decode_vjp(head, g_probs, g_logits, wide=False):
     """The gradients of one head's training decode through the plain versions
-    of D, E and W, in ``_flatten_head`` order, cast to the inputs' dtypes."""
+    of D, E (``wide``: E's wide build, its streams rounded) and W, in
+    ``_flatten_head`` order, cast to the inputs' dtypes."""
     import torch
 
     from midi_vae_tpu_torch.ops import gru_decode as gd
@@ -2786,7 +2847,7 @@ def plain_decode_vjp(head, g_probs, g_logits):
     probs, _, h_seqs = gd.gru_decode_train_reference(h["cells"], h["out"], h["init"], h["start"],
                                                       h["T"], h["out_activation"])
     g = gd.gru_decode_bwd_reference(h["cells"], h["out"], h["init"], h["start"], probs, h_seqs,
-                                    g_probs, g_logits, h["out_activation"])
+                                    g_probs, g_logits, h["out_activation"], wide)
     T, (rows, D), H = h["T"], h["start"].shape, h["init"][0].shape[-1]
     dwo, dbo = grad_reduce_reference(h_seqs[-1].reshape(T * rows, H),
                                      g["dlogits"].reshape(T * rows, D), True)
@@ -3077,6 +3138,331 @@ def check_controls(found):
                                f"inside {limits[what]:.1e}")
 
 
+def phase_bf16_wide_kernels():
+    """Phase 33: bf16 on the wide route at wide512_bf16's shapes
+    (Config(lstm_size=512, compute_dtype="bfloat16"): T 64, H 512), the
+    params and batch cast to bf16 as the model casts them. Per encoder layer
+    (xp = x @ W + b in bf16, as the model computes it): kernel X
+    (csrc/gru_encoder_scan.cu), which serves row 9 in bf16 through
+    gru_layer_xp, G's bf16 build (csrc/gru_layer_xp_bwd.cu) and W for dU
+    from G's float32 gate grads; per decode head of 8 outputs or more (notes,
+    2 layers, D 61; instrument, 1 layer, D 16, 4 steps): the wide D's and
+    E's bf16 builds (csrc/gru_decode_train.cu, csrc/gru_decode_bwd.cu) and W
+    over E's bf16-rounded streams. Each against its plain bf16 version at
+    B = 256 (timed, with bounds: bf16 x bf16 products at the bf16 rate, the
+    rest at the float32 rate; W beside cuBLAS on the widened operands) and
+    B = 5; G's float32 gate grads, and E's dlogits and gate grads (each
+    equal to its own bf16 rounding), against the plain versions' at
+    STREAM_REL_L2; the autograd ops' gradients against the plain backward;
+    and the controls (``check_wide_controls``): G's gate grads rounded and
+    E's left unrounded (each over STREAM_REL_L2), dU summed from the rounded
+    dxp (row 12's rounding, where row 10 sums the float32 gate grads), the
+    heads' weight grads summed from the unrounded streams (the narrow
+    route's, where row 14's pass 2 sums the rounded ones), and one D step
+    with layer 2 fed the rounded h1."""
+    import torch
+
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.models.rnn import init_decoder_states
+    from midi_vae_tpu_torch.models.vae import MidiVAE, _cast_tree
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+    from midi_vae_tpu_torch.ops.grad_reduce import (
+        grad_reduce,
+        grad_reduce_reference,
+        gru_u_grad,
+        gru_weight_grads,
+    )
+
+    cfg = Config(lstm_size=512, compute_dtype="bfloat16")
+    H = cfg.lstm_size
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    model = MidiVAE(cfg).to(dev)
+    params = _cast_tree(model.params, bf)
+    enc, dec = params["encoder"], params["decoder"]
+    gen = torch.Generator(device=dev).manual_seed(33)
+    tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    keys = ("gru_encoder_scan_wide_bf16", "gru_layer_xp_bwd_bf16", "grad_reduce_wide_bf16",
+            "gru_decode_train_wide_bf16", "gru_decode_bwd_wide_bf16")
+    results = {k: {} for k in keys}
+    found = {}
+
+    def cot(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def plain_u(hprev, rh, da):
+        n = hprev.shape[0] * hprev.shape[1]
+        da = da.reshape(n, 3 * H)
+        return torch.cat([grad_reduce_reference(hprev.reshape(n, H), da[:, : 2 * H])[0],
+                          grad_reduce_reference(rh.reshape(n, H), da[:, 2 * H :])[0]], 1)
+
+    def cublas_u(hprev, rh, da):
+        n = hprev.shape[0] * hprev.shape[1]
+        da = da.reshape(n, 3 * H)
+        return torch.cat([hprev.reshape(n, H).t() @ da[:, : 2 * H],
+                          rh.reshape(n, H).t() @ da[:, 2 * H :]], 1)
+
+    def kernel_d(head):
+        probs, logits, h_seqs = gd.gru_decode_fwd_train_wide([head])[0]
+        return probs, logits, *h_seqs
+
+    def plain_d(head):
+        probs, logits, h_seqs = gd.gru_decode_train_reference(
+            head["cells"], head["out"], head["init"], head["start"], head["T"],
+            head["out_activation"])
+        return probs, logits, *h_seqs
+
+    def plain_e(head, wide=True):
+        return gd.gru_decode_bwd_reference(head["cells"], head["out"], head["init"], head["start"],
+                                           head["probs"], head["h_seqs"], head["g_probs"],
+                                           head["g_logits"], head["out_activation"], wide)
+
+    for rows in (B, RAGGED):
+        timed = rows == B
+        run = compare if timed else check
+        batch = {k: torch.as_tensor(v, device=dev).to(bf)
+                 for k, v in random_batch(cfg, rows, 33).items()}
+        h0 = torch.zeros(rows, H, device=dev, dtype=bf)
+
+        def xp_of(x, p):  # xp = x @ W + b in bf16, as the model's wide branch
+            T = x.shape[0]
+            return (x.reshape(T * rows, -1) @ p["w"] + p["b"]).reshape(T, rows, 3 * H)
+
+        with torch.no_grad():
+            p1 = enc["notes_rnn"][0]
+            seq1 = gl.gru_layer_xp_reference(xp_of(tm(batch["X"]), p1), h0, p1["u"])
+        layer_cases = [("notes_l1", tm(batch["X"]), enc["notes_rnn"][0], True),
+                       ("notes_l2", seq1, enc["notes_rnn"][1], False),
+                       ("instrument", tm(batch["I"]), enc["inst_rnn"][0], False),
+                       ("velocity", tm(batch["V"]), enc["vel_rnn"][0], False)]
+        for name, x, p, rs in layer_cases:
+            with torch.no_grad():
+                xp = xp_of(x, p)
+            u = p["u"].detach()
+            T = x.shape[0]
+            fargs = (xp, h0, u)
+            # h @ U[:, :2H] of two bf16 operands; (r * h) @ U[:, 2H:] takes the float32 r * h
+            out = run(f"X bf16 (row 9) {name} xp{tuple(xp.shape)}",
+                      lambda a=fargs: gl.gru_layer_xp(*a),
+                      lambda a=fargs: gl.gru_layer_xp_reference(*a), [BF16],
+                      flops=4 * T * rows * H * H, flops_f32=2 * T * rows * H * H, inputs=fargs,
+                      peak=PEAK_BF16_FLOPS)
+            if timed:
+                results["gru_encoder_scan_wide_bf16"][name] = out
+            with torch.no_grad():
+                seq = gl.gru_layer_xp_reference(*fargs)
+            g = cot(seq.shape if rs else seq.shape[1:])
+            gargs = (xp, seq, h0, g if rs else None, None if rs else g, u)
+            # dxp, dh0 (bf16 grads), da_cat (float32 grads), r*h (a float32
+            # value); the recompute's h @ U[:, :2H] is the one bf16 x bf16
+            # product, the other three read the float32 r * h or gate grads
+            out = run(f"G bf16 {name} rs={rs}", lambda a=gargs: gl.gru_layer_xp_bwd(*a),
+                      lambda a=gargs: gl.gru_layer_xp_bwd_reference(*a),
+                      [BF16_OUT, BF16_OUT, rel, H_ATOL], flops=4 * T * rows * H * H,
+                      flops_f32=8 * T * rows * H * H, inputs=gargs, peak=PEAK_BF16_FLOPS)
+            if timed:
+                results["gru_layer_xp_bwd_bf16"][name] = out
+            dxp, dh0_plain, da, rh = gl.gru_layer_xp_bwd_reference(*gargs)
+            # dU's operand: G's gate grads unrounded, in float32
+            err = rel_l2(gl.gru_layer_xp_bwd(*gargs)[2], da)
+            if not err <= STREAM_REL_L2:
+                raise RuntimeError(f"G bf16 {name}: the gate grads lie {err:.3e} from the plain "
+                                   f"version's, over {STREAM_REL_L2:.1e}")
+            if timed and name == "notes_l1":
+                found["G notes_l1 gate grads (the kernel)"] = err
+                found["G: gate grads rounded"] = rel_l2(da.to(bf), da)
+            hprev = torch.cat([h0[None], seq[:-1]])
+            uargs = (hprev, rh, da)
+            out = run(f"W bf16 {name} dU", lambda a=uargs: gru_u_grad(*a),
+                      lambda a=uargs: plain_u(*a), [(rel, W_REL_L2)],
+                      flops=2 * T * rows * u.numel(), inputs=uargs,
+                      library_fn=lambda a=uargs: cublas_u(a[0].float(), *a[1:]))
+            if timed:
+                results["grad_reduce_wide_bf16"][f"encoder {name}"] = out
+                if name == "notes_l1":
+                    found["G+W: dU from the rounded dxp"] = rel_l2(plain_u(hprev, rh, dxp.float()),
+                                                                   plain_u(*uargs))
+            # X + G + W against the plain backward (G's plain version, W's)
+            leaves = [t.clone().requires_grad_() for t in fargs]
+            got = torch.autograd.grad(gl.gru_layer_train(*leaves, rs), leaves, g)
+            check(f"X+G+W bf16 grads {name} B={rows}", lambda: got,
+                  lambda: (dxp, dh0_plain, plain_u(*uargs).to(bf)), [BF16_GRAD_OP] * 3)
+
+        with torch.no_grad():
+            z = model.encode({k: v.float() for k, v in batch.items()}).to(bf)
+        new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
+        for name, d, T, out_act in (("notes", cfg.output_dim, cfg.output_length, cfg.activation),
+                                    ("instrument", cfg.meta_instrument_dim,
+                                     cfg.meta_instrument_length, cfg.meta_instrument_activation)):
+            h = dec[name]
+            with torch.no_grad():
+                states = init_decoder_states(h["init"], new_encoded, cfg.cell_type,
+                                             cfg.lstm_state_activation)
+            head = {"cells": [{k: c[k].detach() for k in "wub"} for c in h["cells"]],
+                    "out": {k: h["out"][k].detach() for k in "wb"},
+                    "init": [s_[0].detach() for s_ in states],
+                    "start": torch.zeros(rows, d, device=dev, dtype=bf), "T": T,
+                    "out_activation": out_act}
+            n = len(head["cells"])
+            tag = f"{name} ({n}L D={d} T={T} {out_act})"
+            fb, ff = decode_flops_bf16(T, rows, head["cells"], head["out"]["w"])
+            out = run(f"D wide bf16 {tag}", lambda h_=head: kernel_d(h_),
+                      lambda h_=head: plain_d(h_), [BF16_OUT] * (2 + n), flops=fb, flops_f32=ff,
+                      inputs=[head["cells"], head["out"], head["init"], head["start"]],
+                      peak=PEAK_BF16_FLOPS)
+            if timed:
+                results["gru_decode_train_wide_bf16"][name] = out
+            if timed and n == 2:
+                # one step from the head's initial states: the control's ground
+                step1 = dict(head, T=1)
+                found["D wide one step (the kernel)"] = max(_check(
+                    f"D wide bf16 {name} one step", lambda h_=step1: kernel_d(h_),
+                    lambda h_=step1: plain_d(h_), [BF16_STEP] * (2 + n))[1])
+                want1, wrong = plain_d(step1), decode_rounding_h1(step1)
+                found["D wide: layer 2 fed the rounded h1"] = max(rel_l2(wrong[0], want1[0]),
+                                                                  rel_l2(wrong[1], want1[-1]))
+            probs, _logits, *h_seqs = plain_d(head)
+            head.update(probs=probs, h_seqs=h_seqs, g_probs=cot(probs.shape),
+                        g_logits=cot(probs.shape))
+            bwd_flat = lambda o: (o["dlogits"], *o["da"], *o["rh"], *o["d_init"], o["d_start"])  # noqa: E731
+            # dlogits and the gate grads leave as bf16 values: a flip of a
+            # float32 sum's order moves an entry by one bf16 step (BF16_OUT)
+            out = run(f"E wide bf16 {tag}", lambda h_=head: bwd_flat(gd.gru_decode_bwd_wide([h_])[0]),
+                      lambda h_=head: bwd_flat(plain_e(h_)),
+                      [BF16_OUT] * (1 + n) + [H_ATOL] * n + [BF16_OUT] * (n + 1),
+                      flops=2 * T * rows * head["out"]["w"].numel()
+                      + sum(cell_bwd_flops(T, rows, c["w"], c["u"]) for c in head["cells"]),
+                      inputs=[head[k] for k in ("cells", "out", "init", "start", "probs",
+                                                "h_seqs", "g_probs", "g_logits")])
+            if timed:
+                results["gru_decode_bwd_wide_bf16"][name] = out
+            # the streams pass 2 sums (row 14's rounding): each holds bf16
+            # values and lies within STREAM_REL_L2 of the plain version's
+            ke, pe, ue = gd.gru_decode_bwd_wide([head])[0], plain_e(head), plain_e(head, False)
+            for what, i in (("dlogits", None), *((f"da{k + 1}", k) for k in range(n))):
+                kt, pt, ut = ((o["dlogits"] if i is None else o["da"][i]) for o in (ke, pe, ue))
+                if not torch.equal(kt, kt.to(bf).float()):
+                    raise RuntimeError(f"E wide bf16 {name}: its {what} holds values that are not bf16")
+                err = rel_l2(kt, pt)
+                if not err <= STREAM_REL_L2:
+                    raise RuntimeError(f"E wide bf16 {name}: its {what} lies {err:.3e} from the "
+                                       f"plain version's, over {STREAM_REL_L2:.1e}")
+                if timed:
+                    found[f"E wide {name} {what} (the kernel)"] = err
+                    found[f"E wide {name} {what}: unrounded"] = rel_l2(ut, pt)
+            wsets = {}
+            for wide in (True, False):
+                g = plain_e(head, wide)
+                wsets[wide] = (h_seqs[-1].reshape(T * rows, H), g["dlogits"].reshape(T * rows, d),
+                               [(h_seqs[i - 1] if i else torch.cat([head["start"][None], probs[:-1]]),
+                                 torch.cat([head["init"][i][None], h_seqs[i][:-1]]), g["rh"][i],
+                                 g["da"][i]) for i in range(n)])
+
+            def kernel_w(ws=wsets[True]):
+                top, dl, cells = ws
+                dwo = torch.empty(H, dl.shape[1], device=dev)
+                dbo = torch.empty(dl.shape[1], device=dev)
+                grad_reduce(top, dl, dwo, dbo)
+                return (dwo, dbo, *(t for c in cells for t in gru_weight_grads(*c)))
+
+            def plain_w(ws=wsets[True]):
+                top, dl, cells = ws
+                return (*grad_reduce_reference(top, dl, True),
+                        *(t for c in cells for t in plain_weight_grads(*c)))
+
+            def library_w(ws=wsets[True]):
+                top, dl, cells = ws
+                top = top.float()
+                return (top.t() @ dl, dl.sum(0),
+                        *(t for c in cells for t in cublas_weight_grads(*(x.float() for x in c))))
+
+            out = run(f"W bf16 {name} head (rounded streams)", kernel_w, plain_w,
+                      [(rel, W_REL_L2)] * (2 + 3 * n),
+                      flops=2 * T * rows * H * d + sum(weight_grad_flops(c[0], c[1])
+                                                       for c in wsets[True][2]),
+                      inputs=list(wsets[True]), library_fn=library_w)
+            if timed:
+                results["grad_reduce_wide_bf16"][f"decode {name}"] = out
+                # dW and dU of each cell and dWo: from the unrounded streams
+                want_w = plain_w()
+                wrong_w = plain_w(wsets[False])
+                found[f"E wide+W {name}: unrounded streams"] = min(
+                    rel_l2(wrong_w[i], want_w[i]) for i in
+                    [0] + [j for c in range(n) for j in (2 + 3 * c, 4 + 3 * c)])
+            # D + E + W against the plain backward
+            leaves = [t.clone().requires_grad_() for t in gd._flatten_head(head)]
+            lhead = dict(head, **gd._unflatten_heads([(n, out_act, T)], leaves)[0])
+            got_p, got_l = gd._decode_heads_train([lhead], wide=True)[0]
+            got = torch.autograd.grad((got_p, got_l), leaves, (head["g_probs"], head["g_logits"]))
+            want = plain_decode_vjp(head, head["g_probs"], head["g_logits"], wide=True)
+            check(f"D+E+W wide bf16 grads {name} B={rows}", lambda: got, lambda: want,
+                  [BF16_GRAD_OP] * len(want))
+    check_wide_controls(found)
+    print(f"[bf16 wide kernels] X, G, the wide D and E in bf16 and W agree with their plain "
+          f"versions at B = {B} and {RAGGED}; the autograd ops' gradients with the plain backward")
+    return results
+
+
+def check_wide_controls(found):
+    """Prints the kernels' relative L2 at B = 256 (the one-step D, G's gate
+    grads on notes L1 and E wide's streams, held to BF16_STEP_REL_L2 and
+    STREAM_REL_L2 by their checks) beside wrong plain versions against the
+    right ones: G's gate grads rounded to bf16 and E wide's streams left
+    unrounded (the narrow route's), dU summed from the rounded dxp (notes
+    L1), the heads' dW, dU and dWo summed from the unrounded dlogits and
+    gate grads (the smallest over each head's matrices), and one D step with
+    layer 2 fed the rounded h1. Each must land over the relative L2 its
+    kernel is held to (STREAM_REL_L2, W_REL_L2, BF16_STEP_REL_L2), or the
+    limit does not tell the wrong rounding from the kernel's."""
+    limits = {k: W_REL_L2 for k in found if k.startswith(("G+W", "E wide+W"))}
+    limits.update({k: STREAM_REL_L2 for k in found
+                   if k.endswith(": unrounded") or k == "G: gate grads rounded"})
+    limits["D wide: layer 2 fed the rounded h1"] = BF16_STEP_REL_L2
+    print("[bf16 wide kernels] relative L2 from the plain version: " + ", ".join(
+        f"{k} {v:.3e}" + (f" (must exceed {limits[k]:.1e})" if k in limits else "")
+        for k, v in found.items()))
+    for what, err in ((k, v) for k, v in found.items() if k in limits):
+        if not err > limits[what]:
+            raise RuntimeError(f"the control {what} lands {err:.3e} from the plain version, "
+                               f"inside {limits[what]:.1e}")
+
+
+def phase_train_step_card(smi, cfg, per_step, label):
+    """One training step of ``cfg`` on the card (the batch and noise of
+    ``phase_train_card_vs_cpu``): a finite loss and metrics, every gradient
+    finite, the launch counters equal to ``per_step``; then its time."""
+    import numpy as np
+    import torch
+
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.tools.profile_train import random_train_batch
+    from midi_vae_tpu_torch.training.trainer import VAETrainer
+
+    params = MidiVAE(cfg).init_params(np.array([0, cfg.seed], np.uint32))
+    batch = random_train_batch(cfg, B, 4, valid=B - 6)
+    noise = (cfg.epsilon_std * np.random.RandomState(5).randn(B, cfg.latent_dim)).astype(np.float32)
+    trainer = VAETrainer(cfg, "cuda")
+    state = trainer.new_state(params)
+    tb = trainer.to_device(batch)
+    reset_counters()
+    loss, metrics, grads = trainer.value_and_grad(state, tb, torch.as_tensor(noise, device="cuda"))
+    torch.cuda.synchronize()
+    launches = read_counters()
+    if launches != per_step:
+        raise RuntimeError(f"{label}: one step launched {launches}, expected {per_step}")
+    values = [loss.item(), *(v.item() for v in metrics.values())]
+    if not (np.all(np.isfinite(values)) and all(torch.isfinite(g).all() for g in grads)):
+        raise RuntimeError(f"{label}: loss {values[0]}, metrics or gradients not finite")
+    for _ in range(3):
+        trainer.train_step(state, tb)
+    ms = median_ms(lambda: trainer.train_step(state, tb))
+    steps = B * cfg.output_length
+    print(f"[{label}] one step on the card: loss {values[0]:.4f}, every gradient finite, launches "
+          f"{per_step}; training step {ms:.3f} ms (median of {REPS}, CUDA events) = "
+          f"{steps / ms * 1e3:.1f} note-steps/s on {smi}")
+    return {"step_ms": ms, "note_steps_per_s": steps / ms * 1e3, "loss": values[0]}
+
+
 def phase_gru_3layer_serving(work, smi):
     """A GRU run with a 3-layer notes head (Config(num_layers_decoder=3),
     seeded init) served through the transfer CLI on 2 authored songs: kernel
@@ -3222,6 +3608,19 @@ def main() -> int:
         bf16_steps[key] = phase_train_card_vs_cpu(
             smi, Config(compute_dtype="bfloat16", **overrides), PER_TRAIN_STEP[key],
             f"{key} train")
+    # bf16 on the wide route: X, G, the wide D and E in bf16 and W, the train
+    # CLI on wide512_bf16 and its step card vs CPU, and one step on the card
+    # of each of the two configs with a fused flag off that the route serves
+    results.update(phase_bf16_wide_kernels())
+    wide_bf16 = ["lstm_size=512", "compute_dtype=bfloat16"]
+    with tempfile.TemporaryDirectory() as work:
+        paths["train_wide_bf16"] = phase_train_slice(work, wide_bf16, "wide_bf16")
+    bf16_steps["wide_bf16"] = phase_train_card_vs_cpu(
+        smi, Config(**parse_overrides(wide_bf16)), PER_TRAIN_STEP["wide_bf16"], "wide_bf16 train")
+    for key, flag in (("wide_bf16_no_fused_encoder", "fused_train_encoder=False"),
+                      ("wide_bf16_no_fused_decoder", "fused_train_decoder=False")):
+        bf16_steps[key] = phase_train_step_card(smi, Config(**parse_overrides([*wide_bf16, flag])),
+                                                PER_TRAIN_STEP[key], f"{key} train")
     for path, counts in paths.items():
         for name in ("gru_encoder_stack_fwd", "gru_encoder_stack_bwd"):
             if counts.get(name, 0):
@@ -3240,8 +3639,10 @@ def main() -> int:
     # bf16, the Config() encoder's multi-branch call for U and V (no path
     # runs them; their stack2 calls beside), the bf16 Config() step for A,
     # C, W, D and E in bf16 (W bf16: each layer's and bf16 head's
-    # reductions, the float32 one over r * h among them); "launches" over the
-    # main paths' runs
+    # reductions, the float32 one over r * h among them), wide512_bf16's
+    # step for G bf16 and the wide D and E in bf16 (X and W bf16 there:
+    # "ms_wide_bf16", "ms_wide_bf16_step"); "launches" over the main paths'
+    # runs
     meta = {
         "gru_layer_fwd": ("A", "gru_layer_fwd.cu", "fused_train.py:2057", ["fused_train.py:2919"]),
         "gru_decode": ("B", "gru_decode.cu", "fused_decoder.py:61", ["fused_decoder.py:95"]),
@@ -3290,9 +3691,11 @@ def main() -> int:
         # row 29: _gru_recurrent_kernel through _gru_recurrent_pallas
         "gru_step_xp": ("T xp", "gru_step.cu", "fused_gru.py:71", ["fused_gru.py:117"]),
         # rows 26 and 27: _encoder_kernel through _encoder_scan_pallas and,
-        # batch-tiled, _encoder_scan_wide_pallas
+        # batch-tiled, _encoder_scan_wide_pallas; and row 9 in a bf16 model:
+        # _fwd_kernel through _fwd_pallas (gru_layer_xp on bf16 operands)
         "gru_encoder_scan": ("X", "gru_encoder_scan.cu", "fused_decoder.py:288",
-                             ["fused_decoder.py:347", "fused_decoder.py:416"]),
+                             ["fused_decoder.py:347", "fused_decoder.py:416",
+                              "fused_train.py:68", "fused_train.py:92"]),
         # rows 32 and 33: the LSTM's _encoder_kernel through its two wrappers
         "lstm_encoder_scan": ("Y", "lstm_encoder_scan.cu", "fused_lstm.py:228",
                               ["fused_lstm.py:302", "fused_lstm.py:343"]),
@@ -3322,7 +3725,18 @@ def main() -> int:
         "gru_decode_bwd_bf16": ("E bf16", "gru_decode_bwd.cu", "fused_train.py:533",
                                 ["fused_train.py:602", "fused_train.py:650"]),
         "grad_reduce_bf16": ("W bf16", "grad_reduce.cu", "fused_train.py:2175",
-                             ["fused_train.py:567", "fused_train.py:628"]),
+                             ["fused_train.py:567", "fused_train.py:628", "fused_train.py:166",
+                              "fused_train.py:1262"]),
+        # row 10 in a bf16 model: _bwd_kernel through _bwd_pallas (its dU: W)
+        "gru_layer_xp_bwd_bf16": ("G bf16", "gru_layer_xp_bwd.cu", "fused_train.py:120",
+                                  ["fused_train.py:177"]),
+        # rows 13 and 14 in a bf16 model: _dec_fwd2/1_kernel through
+        # _dec_fwd_wide_pallas; _dec_bwd2/1_wide_kernel through
+        # _dec_bwd_wide_pallas (their weight grads, _dec_wide_weight_grads: W)
+        "gru_decode_train_wide_bf16": ("D wide bf16", "gru_decode_train.cu", "fused_train.py:1010",
+                                       ["fused_train.py:393", "fused_train.py:431"]),
+        "gru_decode_bwd_wide_bf16": ("E wide bf16", "gru_decode_bwd.cu", "fused_train.py:1080",
+                                     ["fused_train.py:1135", "fused_train.py:1176"]),
     }
     # per kernel: the calls of one step or transfer at other shapes
     extra = {"gru_layer_fwd": [("ms_h512", "gru_layer_512")],
@@ -3336,7 +3750,9 @@ def main() -> int:
              "lstm_step_xp": [("ms_h512", "lstm_step_xp_512")],
              "gru_step": [("ms_h512", "gru_step_512")],
              "gru_step_xp": [("ms_h512", "gru_step_xp_512")],
-             "gru_encoder_scan": [("ms_row27", "gru_encoder_scan_row27")],
+             "gru_encoder_scan": [("ms_row27", "gru_encoder_scan_row27"),
+                                  ("ms_wide_bf16", "gru_encoder_scan_wide_bf16")],
+             "grad_reduce_bf16": [("ms_wide_bf16_step", "grad_reduce_wide_bf16")],
              "lstm_encoder_scan": [("ms_h512", "lstm_encoder_scan_512")],
              "gru_encoder_stack_fwd": [("ms_stack2", "stack2_fwd"),
                                        ("ms_stack2_bf16", "stack2_bf16_fwd"),

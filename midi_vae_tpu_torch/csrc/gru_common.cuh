@@ -253,16 +253,20 @@ __device__ __forceinline__ void store_tile(
 // blocks that thread j owns (j, j + H, ...); rows past B are skipped. Only
 // thread j reads column j, so a thread may store the columns it wrote itself
 // without a barrier. Used for gate grads (3 or 4 blocks), r*h and c (1 block).
-template <int R = kRows>
+// Each value is rounded as a TS holds it and stored as a TA: float/float
+// (the default) stores it as it is, TA = bf16 rounds it into a bf16 matrix,
+// TS = bf16 into a float one (the wide bf16 decode backward's streams).
+template <int R = kRows, typename TS = float, typename TA = float>
 __device__ __forceinline__ void store_columns(
-    const float* a_s, float* __restrict__ a, int row0, int B, int ld,
+    const float* a_s, TA* __restrict__ a, int row0, int B, int ld,
     int n_blocks, int H) {
   const int j = threadIdx.x;
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
     if (row >= B) break;
     for (int blk = 0; blk < n_blocks; ++blk) {
-      a[(size_t)row * ld + blk * H + j] = a_s[(blk * H + j) * R + r];
+      a[(size_t)row * ld + blk * H + j] =
+          from_f32<TA>(round_as<TS>(a_s[(blk * H + j) * R + r]));
     }
   }
 }

@@ -48,6 +48,16 @@
 // (layer 2 recomputed from the stored bf16 h1, the dh carries and the grad
 // of the fed-back probs in float), dlogits, the gate grads and r * h leave
 // in float for kernel W, and d_init and d_start are rounded to bf16 once.
+//
+// The wide build has a bf16 twin too (mvt_gru_decode_bwd_wide_bf16), for a
+// bf16 model at H = 512, where the JAX package runs _dec_bwd1/2_wide_kernel
+// in bf16 (_dec_bwd_wide_pallas) and sums the weight grads in a second pass
+// (_dec_wide_weight_grads): the same float transpose as the narrow bf16
+// build, but the streams that pass reads are stored as the TPU stores them,
+// rounded to bf16 (dlog_ref, dacat*_ref in start's dtype, :1214-1244):
+// dlogits and each layer's gate grads leave as bf16 values in float, which
+// kernel W then sums in float. The carries read the unrounded values, as
+// the Pallas kernels do; r * h stays float (pass 2 recomputes r in float).
 #include "gru_cell_bwd.cuh"
 
 namespace mvt {
@@ -77,7 +87,9 @@ inline size_t bwd_smem_floats(int D, int H, int rows) {
   return (size_t)rows * (3 * D + 8 * H);
 }
 
-template <int NL, int OUT, int R, typename TV>
+// TG: the type the emitted dlogits and gate grads are rounded as (float, or
+// bf16 in the wide bf16 build); they are stored in float either way
+template <int NL, int OUT, int R, typename TV, typename TG>
 __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwdT<TV>& a,
                                                 int B, int H, float* smem) {
   const int D = a.D, T = a.T;
@@ -136,7 +148,7 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwdT<TV>& a,
         }
         dl += to_f32(a.g_logits[base + d]);
         dl_s[d * R + r] = dl;
-        a.dlogits[base + d] = dl;
+        a.dlogits[base + d] = round_as<TG>(dl);
       }
     }
     __syncthreads();
@@ -161,7 +173,7 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwdT<TV>& a,
     if constexpr (NL == 2) {
       gru_cell_bwd<R, TV>(h1_s, H, hp2_s, dh2, da_s, rh_s, dx2_s, a.w2, a.u2,
                           a.b2, a.u2t, a.w2t, H);
-      store_columns<R>(da_s, a.da2 + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
+      store_columns<R, TG>(da_s, a.da2 + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
       store_columns<R>(rh_s, a.rh2 + (size_t)t * B * H, row0, B, H, 1, H);
       load_rows<R>(dx2_s + j * R, v);
 #pragma unroll
@@ -171,7 +183,7 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwdT<TV>& a,
     }
     gru_cell_bwd<R, TV>(xin_s, D, hp1_s, dh1, da_s, rh_s, dxf_s, a.w1, a.u1,
                         a.b1, a.u1t, a.w1t, H);
-    store_columns<R>(da_s, a.da1 + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
+    store_columns<R, TG>(da_s, a.da1 + (size_t)t * B * 3 * H, row0, B, 3 * H, 3, H);
     store_columns<R>(rh_s, a.rh1 + (size_t)t * B * H, row0, B, H, 1, H);
   }
   store_tile<R>(dxf_s, a.d_start, row0, B, D);
@@ -184,23 +196,23 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwdT<TV>& a,
   }
 }
 
-template <int R, typename TV>
+template <int R, typename TV, typename TG>
 __device__ __forceinline__ void bwd_heads(const DecodeHeadsBwd<TV>& heads,
                                           int B, int H, float* smem) {
   const DecodeHeadBwdT<TV>& a = heads.h[blockIdx.y];
   const bool two = a.n_layers == 2;
   switch (a.out_act) {
     case kSoftmax:
-      two ? decode_head_bwd<2, kSoftmax, R>(a, B, H, smem)
-          : decode_head_bwd<1, kSoftmax, R>(a, B, H, smem);
+      two ? decode_head_bwd<2, kSoftmax, R, TV, TG>(a, B, H, smem)
+          : decode_head_bwd<1, kSoftmax, R, TV, TG>(a, B, H, smem);
       break;
     case kSigmoid:
-      two ? decode_head_bwd<2, kSigmoid, R>(a, B, H, smem)
-          : decode_head_bwd<1, kSigmoid, R>(a, B, H, smem);
+      two ? decode_head_bwd<2, kSigmoid, R, TV, TG>(a, B, H, smem)
+          : decode_head_bwd<1, kSigmoid, R, TV, TG>(a, B, H, smem);
       break;
     default:  // kLinear; the host checked the code
-      two ? decode_head_bwd<2, kLinear, R>(a, B, H, smem)
-          : decode_head_bwd<1, kLinear, R>(a, B, H, smem);
+      two ? decode_head_bwd<2, kLinear, R, TV, TG>(a, B, H, smem)
+          : decode_head_bwd<1, kLinear, R, TV, TG>(a, B, H, smem);
       break;
   }
 }
@@ -208,13 +220,14 @@ __device__ __forceinline__ void bwd_heads(const DecodeHeadsBwd<TV>& heads,
 template <typename TV>
 __global__ void gru_decode_bwd_kernel(DecodeHeadsBwd<TV> heads, int B, int H) {
   extern __shared__ __align__(16) float smem[];
-  bwd_heads<kRows>(heads, B, H, smem);
+  bwd_heads<kRows, TV, float>(heads, B, H, smem);
 }
 
+template <typename TV>
 __global__ void __launch_bounds__(kWideThreads)
-    gru_decode_bwd_wide_kernel(DecodeHeadsBwd<float> heads, int B, int H) {
+    gru_decode_bwd_wide_kernel(DecodeHeadsBwd<TV> heads, int B, int H) {
   extern __shared__ __align__(16) float smem[];
-  bwd_heads<kWideRows>(heads, B, H, smem);
+  bwd_heads<kWideRows, TV, TV>(heads, B, H, smem);
 }
 
 template <int R, typename TV, typename Kernel>
@@ -263,8 +276,16 @@ extern "C" int mvt_gru_decode_bwd_wide(const mvt::DecodeHeadBwdT<float>* heads,
                                        int n_heads, int B, int H,
                                        void* stream) {
   using namespace mvt;
-  return launch<kWideRows>(gru_decode_bwd_wide_kernel, heads, n_heads, B, H,
-                           stream);
+  return launch<kWideRows>(gru_decode_bwd_wide_kernel<float>, heads, n_heads,
+                           B, H, stream);
+}
+
+extern "C" int mvt_gru_decode_bwd_wide_bf16(
+    const mvt::DecodeHeadBwdT<mvt::bf16>* heads, int n_heads, int B, int H,
+    void* stream) {
+  using namespace mvt;
+  return launch<kWideRows>(gru_decode_bwd_wide_kernel<bf16>, heads, n_heads,
+                           B, H, stream);
 }
 
 extern "C" const char* mvt_error_string(int code) {

@@ -29,12 +29,13 @@
 // What bounds it: as kernel B, the serial chain of T steps per head; the
 // 1-layer side heads finish inside the 2-layer notes head's time.
 //
-// The narrow build has a bf16 twin (mvt_gru_decode_train_bf16) for a bf16
-// model, where the JAX package decodes each head alone through
-// _dec_fwd1/2_kernel in bf16 (the multi-head kernel is float32 only): its
-// operands and outputs are bf16, the rounding decode_head documents. Heads
-// narrower than 8 are promoted to float32 by the caller and take the float
-// build.
+// Both builds have a bf16 twin (mvt_gru_decode_train_bf16,
+// mvt_gru_decode_train_wide_bf16) for a bf16 model, where the JAX package
+// decodes each head alone through _dec_fwd1/2_kernel in bf16 (the
+// multi-head kernel is float32 only), on the untiled grid (_dec_fwd_pallas)
+// or, at H = 512, the batch-tiled one (_dec_fwd_wide_pallas): its operands
+// and outputs are bf16, the rounding decode_head documents. Heads narrower
+// than 8 are promoted to float32 by the caller and take the float builds.
 #include "gru_decode_body.cuh"
 
 namespace mvt {
@@ -88,8 +89,9 @@ __global__ void gru_decode_train_kernel(DecodeHeads<TV> heads, int B, int H) {
   train_heads<kRows>(heads, B, H, smem);
 }
 
+template <typename TV>
 __global__ void __launch_bounds__(kWideThreads)
-    gru_decode_train_wide_kernel(DecodeHeads<float> heads, int B, int H) {
+    gru_decode_train_wide_kernel(DecodeHeads<TV> heads, int B, int H) {
   extern __shared__ __align__(16) float smem[];
   train_heads<kWideRows>(heads, B, H, smem);
 }
@@ -140,8 +142,16 @@ extern "C" int mvt_gru_decode_train_wide(const mvt::DecodeHeadT<float>* heads,
                                          int n_heads, int B, int H,
                                          void* stream) {
   using namespace mvt;
-  return launch<kWideRows>(gru_decode_train_wide_kernel, heads, n_heads, B, H,
-                           stream);
+  return launch<kWideRows>(gru_decode_train_wide_kernel<float>, heads, n_heads,
+                           B, H, stream);
+}
+
+extern "C" int mvt_gru_decode_train_wide_bf16(
+    const mvt::DecodeHeadT<mvt::bf16>* heads, int n_heads, int B, int H,
+    void* stream) {
+  using namespace mvt;
+  return launch<kWideRows>(gru_decode_train_wide_kernel<bf16>, heads, n_heads,
+                           B, H, stream);
 }
 
 extern "C" const char* mvt_error_string(int code) {

@@ -6,7 +6,8 @@ or, for LSTM cells, kernel L (``ops.lstm_layer``) when the model's kernel
 switch is on, or on the training path as the differentiable
 ``gru_layer_train_x`` (kernels A, C and W) or ``lstm_layer_train_x``
 (kernels L, N and W) or, on the wide route (``ops/_layout.py``), xp = x @ W
-+ b in torch.matmul and ``gru_layer_train`` (kernels F, G and W) or
++ b in torch.matmul and ``gru_layer_train`` (kernels F, G and W; in
+bfloat16 X, G and W) or
 ``lstm_layer_train`` (kernels Q, R and W) over it, or with ``per_step``
 (``fused_train_encoder=False``) xp in one matmul and the per-step cell over
 it (kernel T xp or S xp), or with ``whole_scan`` (the same in bfloat16) xp
@@ -71,8 +72,9 @@ def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_seque
                 wide: bool = False, per_step: bool = False, whole_scan: bool = False):
     """One RNN layer over (B, T, D): one kernel-A call when ``kernels`` (GRU
     cells with sigmoid gates), the training layer (kernels A, C, W) when
-    ``train`` too, or with ``wide`` xp = x @ W + b and kernels F, G, W (the
-    JAX package's ``_gru_layer_fallback_x``, ``fused_train.py:2282-2288``);
+    ``train`` too, or with ``wide`` xp = x @ W + b and kernels F, G, W (X,
+    G, W in bfloat16: the JAX package's ``_gru_layer_fallback_x``,
+    ``fused_train.py:2282-2288``, over ``_fwd_kernel`` and ``_bwd_kernel``);
     for LSTM cells with tanh one kernel-L call (``lstm_layer_infer_x``), the
     training layer (kernels L, N, W) or with ``wide`` kernels Q, R, W
     (``_lstm_layer_fallback_x``, :2559-2565); other LSTM cell activations

@@ -40,8 +40,9 @@ heads in one loop (``decode_heads_merged``) through T, and
 ``fused_train_decoder=False`` every head through T. LSTM heads run S per
 cell and step (the JAX package has no LSTM whole-head training kernel),
 merged or not. Teacher-forced heads take the plain scan. In bfloat16 the
-kernels run their bf16 builds (A, C, D, E and W on the narrow route, T and
-S, X and Y), the multi-head call is declined and heads narrower than 8 are
+kernels run their bf16 builds (A, C, D, E and W on the narrow route; X, G,
+the wide D and E, and W on the wide route; T and S, X and Y), the
+multi-head call is declined and heads narrower than 8 are
 decoded in float32 (``gru_decode_train``), as on the TPU; the encode pass
 and serving stay float32. Paths whose kernels are not ported yet raise
 NotImplementedError on CUDA, naming their row of the kernel table or their
@@ -105,20 +106,15 @@ def unported_training(cfg: Config) -> str | None:
     lstm = cfg.cell_type == "LSTM"
     if cfg.compute_dtype == "bfloat16" and cfg.lstm_activation == "tanh":
         # ported in bf16: the whole-scan encoders X and Y (fused_train_encoder
-        # =False), the cells T and S, and on the GRU's narrow route A, C, D,
-        # E and W; the plain scans of non-tanh cells
+        # =False), the cells T and S, on the GRU's narrow route A, C, D, E and
+        # W, on its wide route X, G, the wide D and E, and W; the plain scans
+        # of non-tanh cells
         if lstm and cfg.fused_train_encoder:
             return ("bfloat16 LSTM training with fused_train_encoder runs the encoder's "
                     "whole-layer training kernels L, N and W (narrow route) or Q, R and W (wide "
                     "route), rows 15-20, in bfloat16 in the JAX package; their bf16 builds are "
                     "not yet ported (Queue 1 item 2). With fused_train_encoder=False the encoder "
                     "trains through kernel Y")
-        if (not lstm and (cfg.fused_train_encoder or cfg.fused_train_decoder)
-                and _layout.config_route(cfg, on_card=False) == "wide"):
-            return ("bfloat16 GRU training on the wide route runs F, G and W "
-                    "(fused_train_encoder) and the wide builds of D and E (fused_train_decoder), "
-                    "rows 9-14, in bfloat16 in the JAX package; their bf16 builds are not yet "
-                    "ported (Queue 1 item 2). The narrow route's A, C, D, E and W have theirs")
     if (cfg.decode_residual_bf16 and not cfg.teacher_force
             and _multihead(cfg, _layout.config_route(cfg, on_card=False))):
         return ("decode_residual_bf16 keeps the multi-head decode kernel's residuals in "

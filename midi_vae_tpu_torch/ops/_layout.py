@@ -43,11 +43,16 @@ On the H100 the wide route is also the faster one there: ``chip_smoke.py``
 times one LSTM(512) notes layer's forward + backward both ways, and the
 wide route took 19.6 / 21.2 ms (L1 / L2) against the narrow route's
 21.3 / 47.7 ms (NVIDIA H100 80GB HBM3, 700 W).
-In a bfloat16 model (``compute_dtype``) the narrow route's A, C, D and E
-are their bf16 builds (``A_bf16`` ... ``E_bf16``, their own register counts;
-their tiles stay float, as every bf16 build's): the route is decided from
-those. The wide route has no bf16 builds yet, so a bf16 config it takes
-raises in ``models/vae.py::unported_training``.
+In a bfloat16 model (``compute_dtype``) each route takes its bf16 builds
+(their tiles stay float, as every bf16 build's), and the route is decided
+from those: on the narrow route A, C, D and E (``A_bf16`` ... ``E_bf16``,
+their own register counts, D's 144 a thread keep it under 512 threads); on
+the wide route X for the layer's forward (kernel X computes what F would in
+bf16: the JAX package's ``_fwd_kernel`` in bf16 is its ``_encoder_kernel``
+with the sequence emitted), ``G_bf16`` for its backward and the wide D and
+E's bf16 builds (``D_wide_bf16``, ``E_wide_bf16``), all launch-bounded. On
+both routes a head narrower than 8 is promoted to float32 and takes D's and
+E's float32 builds.
 A width at which neither route launches raises ``LaunchLimitError`` naming the
 limit. ``FORCE_ROUTE`` is a test hook (like the JAX package's
 ``_FORCE_TRAIN_MODE``) that sends small widths down the wide route.
@@ -66,7 +71,8 @@ WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
 REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75, "N": 117,
              "U": 78, "V": 172, "A_bf16": 94, "C_bf16": 96, "D_bf16": 144, "E_bf16": 167}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
-BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "R", "S", "S_xp", "T", "T_xp", "X", "Y")
+BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "R", "S", "S_xp", "T", "T_xp", "X", "Y",
+           "G_bf16", "D_wide_bf16", "E_wide_bf16")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
 LSTM_NARROW_MAX_H = 256
 
@@ -82,9 +88,9 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
     """Dynamic shared memory of one block of ``kernel``: D is the layer's
     input width (A, C, L, N; U and V: of the stack, ``n_layers`` = 2, or of
     a branch, ``n_layers`` = 1), the head's output width (B, D, E, M) or the
-    cell's input width (S, T). The bf16 builds (X, Y, those of A to E, S
-    and T, and U's and V's) hold their tiles in float too: a bf16 value is
-    widened as it is loaded."""
+    cell's input width (S, T). The bf16 builds (X, Y, those of A to E, G,
+    the wide D and E, S and T, and U's and V's) hold their tiles in float
+    too: a bf16 value is widened as it is loaded."""
     kernel = kernel.removesuffix("_bf16")
     rows = WIDE_ROWS if kernel.endswith("_wide") else ROWS
     floats = {
@@ -146,8 +152,8 @@ def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU",
                   bf16: bool = False) -> list[str]:
     """The limits the route's builds hit: ``layers`` is (D_in, dx wanted) per
     encoder layer, ``heads`` (D, n_layers) per decode head; ``bf16``: the
-    GRU narrow route's bf16 builds (a head narrower than 8 is promoted to
-    float32 and takes D's and E's float32 builds)."""
+    GRU route's bf16 builds (a head narrower than 8 is promoted to float32
+    and takes D's and E's float32 builds)."""
     if cell_type == "LSTM":
         if route == "narrow":
             checks = [(k, smem_bytes(k, H, d)) for d, _dx in layers for k in ("L", "N")]
@@ -155,14 +161,18 @@ def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU",
             checks = [(k, smem_bytes(k, H)) for k in ("Q", "R")] if layers else []
         # S per cell: the head's input for its first layer, h for the others
         checks += [("S", smem_bytes("S", H, max(d, H) if n > 1 else d)) for d, n in heads]
-    elif route == "narrow":
-        sfx = "_bf16" if bf16 else ""
-        checks = [(k + sfx, smem_bytes(k, H, d, dx=dx)) for d, dx in layers for k in ("A", "C")]
-        checks += [(k + (sfx if d >= 8 else ""), smem_bytes(k, H, d, n)) for d, n in heads
-                   for k in ("D", "E")]
     else:
-        checks = [(k, smem_bytes(k, H)) for k in ("F", "G")] if layers else []
-        checks += [(k, smem_bytes(k, H, d, n)) for d, n in heads for k in ("D_wide", "E_wide")]
+        sfx = "_bf16" if bf16 else ""
+        if route == "narrow":
+            checks = [(k + sfx, smem_bytes(k, H, d, dx=dx)) for d, dx in layers
+                      for k in ("A", "C")]
+        elif layers:  # the x-projection is outside: one tile for every layer
+            checks = [(k, smem_bytes(k, H)) for k in (("X", "G_bf16") if bf16 else ("F", "G"))]
+        else:
+            checks = []
+        heads_k = ("D", "E") if route == "narrow" else ("D_wide", "E_wide")
+        checks += [(k + (sfx if d >= 8 else ""), smem_bytes(k, H, d, n)) for d, n in heads
+                   for k in heads_k]
     return [why for k, smem in checks if (why := launch_limit(k, H, smem)) is not None]
 
 

@@ -17,12 +17,16 @@ slices of a gate-grad matrix (``da[:, :2H]``) and of an output
 
 W has a second build for a bfloat16 model (``mvt_grad_reduce_bf16``): its
 activations A (x, h_{t-1}, a decode head's fed-back probs and h sequences)
-are the stored bf16 values, the gate grads B are float32 and never rounded,
-and the sums are float32, as the TPU kernels accumulate
-``_outer_acc(x, da_cat)`` with x widened (``_bwdx_kernel``, ``_dec_bwd*_kernel``).
-The float32 build serves r * h, which stays float32 in a bf16 model. The
-wrapper picks the build from A's dtype; launches are counted per build
-(``grad_reduce.launches``, ``.launches_bf16``).
+are the stored bf16 values, the gate grads B are float32, and the sums are
+float32, as the TPU kernels accumulate ``_outer_acc(x, da_cat)`` with x
+widened (``_bwdx_kernel``, ``_bwd_kernel``, ``_dec_bwd*_kernel``). B is what
+the serial kernel hands over: the unrounded gate grads of C, G and the
+narrow E, as those TPU kernels sum from the float32 values in VMEM; on the
+wide route's decode heads E's bf16 build hands over dlogits and gate grads
+rounded to bf16 (held in float32), the streams ``_dec_wide_weight_grads``
+sums on the TPU. The float32 build serves r * h, which stays float32 in a
+bf16 model. The wrapper picks the build from A's dtype; launches are counted
+per build (``grad_reduce.launches``, ``.launches_bf16``).
 """
 
 from __future__ import annotations
@@ -118,7 +122,7 @@ def gru_weight_grads(x, hprev, rh, da_cat):
     from its gate grads: x, h_{t-1}, r*h_{t-1} and da_cat are (T, B, .),
     time-major (``_gru_cell_bwd``'s sums, :373-378). Three reductions, in
     float32; x and h_{t-1} may be bf16 (W's bf16 build), rh and da_cat are
-    float32."""
+    float32 (da_cat holding bf16 values on the wide route's bf16 heads)."""
     T, B, D = x.shape
     H = hprev.shape[-1]
     n = T * B
@@ -157,7 +161,9 @@ def lstm_u_grad(hprev, da):
 def gru_u_grad(hprev, rh, da_cat, out=None):
     """dU (H, 3H) of one GRU cell over a whole sequence (into ``out`` when
     given): [h_{t-1}^T da_zr, (r*h_{t-1})^T da], all (T, B, .) time-major
-    (``_gru_wide_weight_grads``, :1813-1835). Two reductions."""
+    (``_gru_wide_weight_grads``, :1813-1835; ``_bwd_kernel``'s dU,
+    :166-167). Two reductions; h_{t-1} may be bf16, rh and da_cat are
+    float32."""
     H = hprev.shape[-1]
     n = hprev.shape[0] * hprev.shape[1]
     da = da_cat.reshape(n, 3 * H)

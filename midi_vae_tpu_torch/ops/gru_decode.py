@@ -44,6 +44,18 @@ dtype at the end (``_gdt_bwd``). A head narrower than 8 (velocity, held
 notes) is promoted whole to float32 and takes the float32 builds, as
 ``gru_decode_train`` does on the TPU (``fused_train.py:813-825``).
 Launches are counted per build (``.launches``, ``.launches_bf16``).
+
+The wide builds have bfloat16 builds too (``mvt_gru_decode_train_wide_bf16``,
+``mvt_gru_decode_bwd_wide_bf16``): a bf16 model at H = 512 runs
+``_dec_fwd1/2_kernel`` and ``_dec_bwd1/2_wide_kernel`` in bf16 on the
+batch-tiled grid, then ``_dec_wide_weight_grads``. The forward rounds as the
+narrow bf16 build does. The backward differs in what it emits: the TPU
+stores dlogits and the gate grads for its second pass rounded to bf16
+(``fused_train.py:1214-1244``) and sums the weight grads from those, so E
+wide's bf16 build emits them as bf16 values (in float32 tensors), and W sums
+them; the narrow route's bf16 E keeps them unrounded, as ``_dec_bwd1/2_kernel``
+sums its weight grads from the float32 values in VMEM. The carries, r * h,
+d_init and d_start are as in the narrow bf16 build.
 """
 
 from __future__ import annotations
@@ -196,14 +208,16 @@ def gru_decode_train_reference(cells, out_dense, init_states, start, T, out_acti
 
 
 def gru_decode_bwd_reference(cells, out_dense, init_states, start, probs, h_seqs, g_probs,
-                             g_logits, out_activation="softmax"):
+                             g_logits, out_activation="softmax", wide=False):
     """Plain version of kernel E for one head: the reverse-time transpose of
     the decode (``_dec_bwd1/2_kernel``), emitting the gate grads instead of
     summing the weight grads. Returns {dlogits (T, B, D), da [per layer
     (T, B, 3H)], rh [per layer (T, B, H)], d_init [per layer (B, H)],
     d_start (B, D)}. Every operand is widened to float32 and the transpose
     runs in float32; d_init and d_start leave in start's dtype, the rest in
-    float32."""
+    float32. ``wide``: E's wide build (``_dec_bwd1/2_wide_kernel``), which
+    emits dlogits and the gate grads rounded to start's dtype (still float32
+    tensors; the carries read them unrounded); a no-op in float32."""
     dtype = start.dtype
     cells = [{k: c[k].float() for k in ("w", "u", "b")} for c in cells]
     out_dense = {k: out_dense[k].float() for k in ("w", "b")}
@@ -228,7 +242,8 @@ def gru_decode_bwd_reference(cells, out_dense, init_states, start, probs, h_seqs
                 d = dx + dh[i - 1]
             else:
                 dx_fed = dx
-    return {"dlogits": torch.stack(dlog), "da": [torch.stack(a) for a in da],
+    stream = (lambda a: torch.stack(a).to(dtype).float()) if wide else torch.stack
+    return {"dlogits": stream(dlog), "da": [stream(a) for a in da],
             "rh": [torch.stack(a) for a in rh], "d_init": [d.to(dtype) for d in dh],
             "d_start": dx_fed.to(dtype)}
 
@@ -253,9 +268,8 @@ class _DecodeHeadBwd(ctypes.Structure):
 
 def _check_heads(heads, kernel: str) -> tuple[int, int, torch.device, torch.dtype]:
     """Shapes of a list of training heads, and on the card their dtype (one
-    for all: float32, or bfloat16 for the narrow builds) and whether
-    ``kernel`` (D, E or their wide builds) launches; returns (B, H, device,
-    dtype)."""
+    for all: float32 or bfloat16) and whether ``kernel`` (D, E or their wide
+    builds) launches; returns (B, H, device, dtype)."""
     if not 1 <= len(heads) <= MAX_HEADS:
         raise ValueError(f"kernels D and E take 1 to {MAX_HEADS} heads per call, got {len(heads)}")
     B, H = heads[0]["start"].shape[0], heads[0]["init"][0].shape[-1]
@@ -282,12 +296,10 @@ def _check_heads(heads, kernel: str) -> tuple[int, int, torch.device, torch.dtyp
                 raise ValueError(f"head {k}: {name} has shape {tuple(t.shape)}, expected {expected[name]}")
     device, dtype = heads[0]["start"].device, heads[0]["start"].dtype
     if device.type == "cuda":
-        # the wide builds are float32 only; the operands' checks hold every
-        # head of a call to head 0's dtype
-        builds = _build.DTYPES if kernel in ("D", "E") else (torch.float32,)
-        if dtype not in builds:
+        # the operands' checks hold every head of a call to head 0's dtype
+        if dtype not in _build.DTYPES:
             raise ValueError(f"kernel {kernel} has builds for "
-                             f"{', '.join(str(d) for d in builds)}, not {dtype}")
+                             f"{', '.join(str(d) for d in _build.DTYPES)}, not {dtype}")
         if dtype == torch.bfloat16:
             kernel += "_bf16"
         _layout.require(kernel, H, max(_layout.smem_bytes(kernel, H, h["start"].shape[-1],
@@ -296,16 +308,11 @@ def _check_heads(heads, kernel: str) -> tuple[int, int, torch.device, torch.dtyp
 
 
 def _entries(name: str, entry: str, struct, wide: bool) -> tuple:
-    """(library, {dtype: entry point}) of kernel D or E: the wide build
-    (float32 only), or the narrow float32 and bfloat16 builds."""
-    argtypes = [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
-    if not wide:
-        return _build.load_builds(name, entry, argtypes)
-    lib = _build.load(name)
-    fn = getattr(lib, f"{entry}_wide")
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return lib, {torch.float32: fn}
+    """(library, {dtype: entry point}) of kernel D or E: the float32 and
+    bfloat16 builds, narrow or ``wide``."""
+    return _build.load_builds(name, entry + ("_wide" if wide else ""),
+                              [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_void_p])
 
 
 @functools.cache
@@ -332,6 +339,7 @@ def gru_decode_fwd_train_wide(heads):
 
 
 gru_decode_fwd_train_wide.launches = 0
+gru_decode_fwd_train_wide.launches_bf16 = 0
 
 
 def _decode_fwd(heads, wide: bool):
@@ -393,6 +401,7 @@ def gru_decode_bwd_wide(heads):
 
 
 gru_decode_bwd_wide.launches = 0
+gru_decode_bwd_wide.launches_bf16 = 0
 
 
 def _decode_bwd(heads, wide: bool):
@@ -405,7 +414,7 @@ def _decode_bwd(heads, wide: bool):
     if device.type == "cpu":
         return [gru_decode_bwd_reference(h["cells"], h["out"], h["init"], h["start"], h["probs"],
                                          h["h_seqs"], h["g_probs"], h["g_logits"],
-                                         h["out_activation"]) for h in heads]
+                                         h["out_activation"], wide) for h in heads]
     if device.type != "cuda":
         raise ValueError(f"gru_decode_bwd runs on cpu or cuda tensors, not {device}")
     kw = {"device": device, "dtype": torch.float32}
@@ -424,7 +433,9 @@ def _decode_bwd(heads, wide: bool):
         if n_layers == 2:
             named.update({"h2seq": h["h_seqs"][1], "h2_0": h["init"][1]})
         check_operands(named, device, (dtype,))
-        # dlogits, the gate grads and r*h in float32; d_init, d_start in the heads' dtype
+        # dlogits, the gate grads and r*h in float32 (the wide bf16 build's
+        # dlogits and gate grads hold bf16 values); d_init, d_start in the
+        # heads' dtype
         g = {"dlogits": torch.empty(T, B, D, **kw),
              "da": [torch.empty(T, B, 3 * H, **kw) for _ in range(n_layers)],
              "rh": [torch.empty(T, B, H, **kw) for _ in range(n_layers)],

@@ -32,6 +32,20 @@ does in XLA. The caller computes xp = x @ W + b with torch.matmul, so dx, dW
 and db come from autograd, as the JAX package leaves them to XLA (:2287).
 Plain versions: ``gru_layer_xp_reference`` and ``gru_layer_xp_bwd_reference``.
 
+In a bf16 model the wide route runs the JAX package's ``_fwd_kernel`` and
+``_bwd_kernel`` in bf16 (GRU(512) at B = 256: ``_train_vmem_ok`` admits the
+in-place pair in bf16, :220-237). The forward there is the whole-scan
+encoder's function with the sequence emitted (``fused_decoder.py:288-318``:
+products in float32, the carried h and the stored sequence rounded), so
+``gru_layer_xp`` launches kernel X (``csrc/gru_encoder_scan.cu``,
+``encoder_scan.gru_encoder_scan_fwd``, which counts it) over bf16 operands;
+F has no bf16 build. The backward is G's bf16 build
+(``mvt_gru_layer_xp_bwd_bf16``): the float32 transposition over the bf16
+operands, emitting dxp and dh0 rounded to bf16 (:165, :186) and the same
+gate grads unrounded, from which W sums dU in float32 as ``_bwd_kernel``
+does (:166-167). ``_GruLayerTrain`` hands autograd the rounded dxp and W
+the float32 gate grads; in float32 the two are one tensor.
+
 A and C have a bfloat16 build beside the float32 one (``mvt_gru_layer_fwd_bf16``,
 ``mvt_gru_layer_bwd_bf16``), picked by the operands' dtype: a bf16 model
 (``compute_dtype="bfloat16"``) trains its encoder layers through
@@ -355,7 +369,7 @@ def _check_xp(xp, h0, u, seq=None, d_seq=None, d_final=None) -> tuple[int, int, 
     if xp.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the GRU layer kernels run on cpu or cuda tensors, not {xp.device}")
     if xp.device.type == "cuda":
-        check_operands({k: t for k, (t, _) in named.items()}, xp.device)
+        check_operands({k: t for k, (t, _) in named.items()}, xp.device, _build.DTYPES)
         if T < 1 or B < 1:
             raise ValueError(f"kernels F and G take T >= 1 and B >= 1; got T={T} B={B}")
     return T, B, H
@@ -371,12 +385,17 @@ def _xp_fwd_kernel():
 
 
 def gru_layer_xp(xp, h0, u):
-    """The tanh GRU layer forward over xp (T, B, 3H) time-major: the (T, B,
-    H) h sequence. CPU tensors run ``gru_layer_xp_reference``; CUDA tensors
-    launch kernel F."""
+    """The tanh GRU layer forward over xp (T, B, 3H) time-major, every
+    operand float32 or every one bfloat16: the (T, B, H) h sequence in their
+    dtype. CPU tensors run ``gru_layer_xp_reference``; CUDA tensors launch
+    kernel F (float32) or kernel X (bfloat16, see the module note)."""
     T, B, H = _check_xp(xp, h0, u)
     if xp.device.type == "cpu":
         return gru_layer_xp_reference(xp, h0, u)
+    if xp.dtype == _BF16:
+        from . import encoder_scan  # it imports this module
+
+        return encoder_scan.gru_encoder_scan_fwd(xp, h0, u, "tanh", True)
     _layout.require("F", H, _layout.smem_bytes("F", H))
     seq = torch.empty(T, B, H, device=xp.device, dtype=torch.float32)
     lib, fn = _xp_fwd_kernel()
@@ -393,54 +412,70 @@ gru_layer_xp.launches = 0
 def gru_layer_xp_bwd_reference(xp, seq, h0, d_seq, d_final, u):
     """Plain version of kernel G: reverse-time BPTT of the layer over xp.
     ``d_seq`` (T, B, H) and ``d_final`` (B, H) are the incoming grads (either
-    may be None). Returns (dxp = da_cat (T, B, 3H), dh0, rh (T, B, H))."""
+    may be None). Returns (dxp (T, B, 3H), dh0, da_cat (T, B, 3H), rh (T, B,
+    H)). Every operand is widened to float32 and the transposition runs in
+    float32, the dh carry too; dxp (the gate grads) and dh0 leave in xp's
+    dtype, da_cat (the same gate grads) and rh in float32 (``_bwd_kernel``;
+    in a float32 layer dxp is da_cat)."""
+    dtype = xp.dtype
+    xp, seq, h0, u = (t.float() for t in (xp, seq, h0, u))
     T = xp.shape[0]
-    dh = d_final if d_final is not None else torch.zeros_like(h0)
+    dh = d_final.float() if d_final is not None else torch.zeros_like(h0)
     da, rh = [None] * T, [None] * T
     for t in reversed(range(T)):
         if d_seq is not None:
-            dh = dh + d_seq[t]
+            dh = dh + d_seq[t].float()
         hp = seq[t - 1] if t > 0 else h0
         da[t], dh, rh[t] = gru_cell_bwd_xp(xp[t], hp, u, dh)
-    return torch.stack(da), dh, torch.stack(rh)
+    da = torch.stack(da)
+    return da.to(dtype), dh.to(dtype), da, torch.stack(rh)
 
 
 @functools.cache
 def _xp_bwd_kernel():
-    lib = _build.load("gru_layer_xp_bwd")
-    fn = lib.mvt_gru_layer_xp_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    lib, fns = _build.load_builds("gru_layer_xp_bwd", "mvt_gru_layer_xp_bwd",
+                                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    # the float32 build has no dxp pointer: its dacat is its dxp
+    fns[torch.float32].argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return lib, fns
 
 
 def gru_layer_xp_bwd(xp, seq, h0, d_seq, d_final, u):
     """Backward of ``gru_layer_xp``: see ``gru_layer_xp_bwd_reference``. CPU
-    tensors run the plain version; CUDA tensors launch kernel G."""
+    tensors run the plain version; CUDA tensors (every operand float32 or
+    every one bfloat16) launch kernel G's build of their dtype."""
     T, B, H = _check_xp(xp, h0, u, seq, d_seq, d_final)
     if xp.device.type == "cpu":
         return gru_layer_xp_bwd_reference(xp, seq, h0, d_seq, d_final, u)
-    _layout.require("G", H, _layout.smem_bytes("G", H))
+    dtype = xp.dtype
+    build = "G_bf16" if dtype == _BF16 else "G"
+    _layout.require(build, H, _layout.smem_bytes(build, H))
     kw = {"device": xp.device, "dtype": torch.float32}
-    dacat, dh0, rh = torch.empty(T, B, 3 * H, **kw), torch.empty(B, H, **kw), torch.empty(T, B, H, **kw)
+    dacat, rh = torch.empty(T, B, 3 * H, **kw), torch.empty(T, B, H, **kw)
+    dh0 = torch.empty(B, H, device=xp.device, dtype=dtype)
+    # the float32 build's dxp is its dacat; the bf16 build also rounds it
+    dxp = torch.empty(T, B, 3 * H, device=xp.device, dtype=dtype) if dtype == _BF16 else dacat
     ut = u.t().contiguous()  # the transposed products read U^T row by row
     null = ctypes.c_void_p(None)
     opt = lambda t: _ptr(t) if t is not None else null  # noqa: E731
-    lib, fn = _xp_bwd_kernel()
-    rc = fn(_ptr(xp), _ptr(seq), _ptr(h0), opt(d_seq), opt(d_final), _ptr(u), _ptr(ut),
-            _ptr(dacat), _ptr(dh0), _ptr(rh), T, B, H,
-            ctypes.c_void_p(torch.cuda.current_stream(xp.device).cuda_stream))
+    lib, fns = _xp_bwd_kernel()
+    outs = (_ptr(dacat), _ptr(dxp), _ptr(dh0)) if dtype == _BF16 else (_ptr(dacat), _ptr(dh0))
+    rc = fns[dtype](_ptr(xp), _ptr(seq), _ptr(h0), opt(d_seq), opt(d_final), _ptr(u), _ptr(ut),
+                    *outs, _ptr(rh), T, B, H,
+                    ctypes.c_void_p(torch.cuda.current_stream(xp.device).cuda_stream))
     _build.check(lib, rc, "gru_layer_xp_bwd launch")
-    gru_layer_xp_bwd.launches += 1
-    return dacat, dh0, rh
+    _build.count_launch(gru_layer_xp_bwd, dtype)
+    return dxp, dh0, dacat, rh
 
 
 gru_layer_xp_bwd.launches = 0
+gru_layer_xp_bwd.launches_bf16 = 0
 
 
 class _GruLayerTrain(torch.autograd.Function):
-    """Forward: kernel F, the h sequence as residual. Backward: kernel G for
-    dxp and dh0, then kernel W for dU."""
+    """Forward: kernel F (bf16: X), the h sequence as residual. Backward:
+    kernel G for dxp and dh0, then kernel W for dU from G's float32 gate
+    grads (float32 sums, rounded to U's dtype)."""
 
     @staticmethod
     def forward(ctx, xp, h0, u, return_sequences):
@@ -455,14 +490,14 @@ class _GruLayerTrain(torch.autograd.Function):
         xp, h0, u, seq = ctx.saved_tensors
         g = g.contiguous()
         d_seq, d_final = (g, None) if ctx.return_sequences else (None, g)
-        dxp, dh0, rh = gru_layer_xp_bwd(xp, seq, h0, d_seq, d_final, u)
-        du = gru_u_grad(torch.cat([h0[None], seq[:-1]]), rh, dxp)
-        return dxp, dh0, du, None
+        dxp, dh0, da_cat, rh = gru_layer_xp_bwd(xp, seq, h0, d_seq, d_final, u)
+        du = gru_u_grad(torch.cat([h0[None], seq[:-1]]), rh, da_cat)
+        return dxp, dh0, du.to(u.dtype), None
 
 
 def gru_layer_train(xp, h0, u, return_sequences=False):
     """Differentiable tanh GRU layer over a precomputed x-projection xp (T,
-    B, 3H) time-major: the (T, B, H) sequence or the final h (B, H). CPU
-    tensors run the plain versions of kernels F, G and W; CUDA tensors launch
-    them."""
+    B, 3H) time-major, float32 or bfloat16: the (T, B, H) sequence or the
+    final h (B, H). CPU tensors run the plain versions of kernels F (X), G
+    and W; CUDA tensors launch the builds of their dtype."""
     return _GruLayerTrain.apply(xp, h0, u, return_sequences)

@@ -12,11 +12,13 @@ around work that ends in a synchronize), note-steps/s (B x 64 output steps
 per step; windows/s for a judge), and from a torch.profiler window of STEPS
 steps the device time per kernel name, per kernel of the port (A, C, D, E,
 F, G, the wide D and E, L, N, Q, R, S, S xp, T, T xp, X, Y, W; the bf16
-builds of A, C, D, E, S, T and W apart) and for everything else, per
-autograd node of the backward, and the device's idle share.
+builds of A, C, D, E, G, the wide D and E, S, T and W apart) and for
+everything else, per autograd node of the backward, and the device's idle
+share.
 
 Usage: python -m midi_vae_tpu_torch.tools.profile_train [--batch 256] [--steps 10]
-           [--set lstm_size=512] [--set cell_type=LSTM] [--judge pitch]
+           [--set lstm_size=512] [--set compute_dtype=bfloat16] [--set cell_type=LSTM]
+           [--judge pitch]
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ PORT_KERNELS = {
 }
 # the groups whose kernels have a bf16 build, counted apart
 BF16_BUILDS = ("A gru_layer_fwd", "C gru_layer_bwd", "D gru_decode_train", "E gru_decode_bwd",
-               "S lstm_step", "T gru_step", "W grad_reduce")
+               "G gru_layer_xp_bwd", "D wide gru_decode_train_wide",
+               "E wide gru_decode_bwd_wide", "S lstm_step", "T gru_step", "W grad_reduce")
 
 
 def random_train_batch(cfg, n: int, seed: int, valid: int | None = None) -> dict:
@@ -135,7 +138,8 @@ def _profile(step, steps: int) -> dict:
                       or short.startswith(prefix + "_")),
                      "other (ATen, cuBLAS, copies)")
         if group in BF16_BUILDS and "bfloat16" in name:
-            group = group.replace(" ", " bf16 ", 1)
+            letter, library = group.rsplit(" ", 1)
+            group = f"{letter} bf16 {library}"
         groups[group] = groups.get(group, 0.0) + ms
     return {
         "step_wall_ms_median": walls[len(walls) // 2] * 1e3,

@@ -13,6 +13,7 @@ alternating them (parent, change, change, parent).
 Usage: python -m midi_vae_tpu_torch.tools.time_train_step
            compute_dtype=bfloat16,fused_train_encoder=False,fused_train_decoder=False
            cell_type=LSTM,compute_dtype=bfloat16,fused_train_encoder=False
+           lstm_size=512,compute_dtype=bfloat16
 """
 
 from __future__ import annotations

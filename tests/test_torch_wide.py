@@ -112,8 +112,8 @@ def test_kernel_g_plain_version_matches_jax_bwd_wide(T):
     dacat, dh0 = ft._bwd_wide_pallas(*map(jnp.asarray, (xp, seq, h0, d_seq, np.zeros_like(h0), u)),
                                      True, True, 8)
     want_du = ft._gru_wide_weight_grads(*map(jnp.asarray, (xp, seq, h0, u)), dacat)
-    got_da, got_dh0, rh = port_layer.gru_layer_xp_bwd_reference(_t(xp), _t(seq), _t(h0),
-                                                                 _t(d_seq), None, _t(u))
+    got_da, got_dh0, _, rh = port_layer.gru_layer_xp_bwd_reference(_t(xp), _t(seq), _t(h0),
+                                                                    _t(d_seq), None, _t(u))
     _close(got_da, dacat, GRAD_RTOL, GRAD_ATOL)
     _close(got_dh0, dh0, GRAD_RTOL, GRAD_ATOL)
     hprev = torch.cat([_t(h0)[None], _t(seq)[:-1]])
