@@ -16,7 +16,8 @@ result line):
      (csrc/lstm_decode.cu), N (csrc/lstm_layer_bwd.cu), Q
      (csrc/lstm_layer_xp_fwd.cu), R (csrc/lstm_layer_xp_bwd.cu), S and S xp
      (csrc/lstm_step.cu), T and T xp (csrc/gru_step.cu), with the bf16
-     builds of S and T, X (csrc/gru_encoder_scan.cu), Y
+     builds of A, C, D, E, G, the wide D and E, L, N, Q, R, S, T and W, X
+     (csrc/gru_encoder_scan.cu), Y
      (csrc/lstm_encoder_scan.cu), U (csrc/gru_encoder_stack_fwd.cu) and V
      (csrc/gru_encoder_stack_bwd.cu); every build's
      registers and spills from ptxas against the route chooser's table; the
@@ -174,7 +175,29 @@ result line):
  35. that step card against CPU (bf16 limits), and one step on the card of
      it with fused_train_encoder=False (X and the wide heads) and with
      fused_train_decoder=False (X, G and T bf16): exact launch counts, a
-     finite loss, each step's time.
+     finite loss, each step's time;
+ 36. the bf16 LSTM with the default fused flags: at
+     Config(cell_type="LSTM", compute_dtype=bfloat16)'s shapes (rows 19 and
+     20 at B = 256) the bf16 builds of L (csrc/lstm_layer_fwd.cu) with the c
+     sequence, N (csrc/lstm_layer_bwd.cu) and W over N's float32 gate
+     grads; at LSTM(512)'s (rows 17 and 18) Q (csrc/lstm_layer_xp_fwd.cu)
+     and R (csrc/lstm_layer_xp_bwd.cu) in bf16 over xp = x @ W + b in bf16
+     and W for dU from R's rounded dxp; each against its plain bf16 version
+     at B = 256 (timed, with bounds, cuDNN's bf16 LSTM forward and backward
+     beside L, N, Q and R, W beside cuBLAS) and B = 5, L and Q also on two
+     steps from a random state, N's and R's float32 gate grads at
+     STREAM_REL_L2, the autograd ops' gradients against the plain backward
+     and their dU against the plain sum of their row's gate grads, and four
+     controls that must land over the limits those are held to: the layer
+     with every op in bf16, c carried in float32, N's dU from the rounded
+     da, R's dU from the other row's gate grads (wide and in place);
+ 37. the train CLI with --set cell_type=LSTM --set compute_dtype=bfloat16, 2
+     epochs, --resume for a third, serving: L and N in bf16 4 each, S bf16
+     196, W bf16 8 a step, every launch counter as designed;
+ 38. that step and the bf16 LSTM(512)'s (Q and R in bf16 4 each, S bf16
+     196, W bf16 4) card against CPU (bf16 limits), and one card step of
+     each with fused_train_decoder=False: exact launch counts, a finite
+     loss, each step's time.
 Then one JSON line with the kernels, and the final line
 {"ok": true, "device": {...}}.
 """
@@ -300,10 +323,11 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "D_wide": ("gru_decode_train", "gru_decode_train_wide_kernel", NOT_BF16),
           "E_wide": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel", NOT_BF16),
           "W": ("grad_reduce", "grad_reduce", NOT_BF16),
-          "L": ("lstm_layer_fwd", "lstm_layer_fwd_kernel"), "M": ("lstm_decode", "lstm_decode_kernel"),
-          "N": ("lstm_layer_bwd", "lstm_layer_bwd_kernel"),
-          "Q": ("lstm_layer_xp_fwd", "lstm_layer_xp_fwd_kernel"),
-          "R": ("lstm_layer_xp_bwd", "lstm_layer_xp_bwd_kernel"),
+          "L": ("lstm_layer_fwd", "lstm_layer_fwd_kernel", NOT_BF16),
+          "M": ("lstm_decode", "lstm_decode_kernel"),
+          "N": ("lstm_layer_bwd", "lstm_layer_bwd_kernel", NOT_BF16),
+          "Q": ("lstm_layer_xp_fwd", "lstm_layer_xp_fwd_kernel", NOT_BF16),
+          "R": ("lstm_layer_xp_bwd", "lstm_layer_xp_bwd_kernel", NOT_BF16),
           "S": ("lstm_step", "lstm_step_kernel"), "S_xp": ("lstm_step", "lstm_step_xp_kernel"),
           "T": ("gru_step", "gru_step_kernel"), "T_xp": ("gru_step", "gru_step_xp_kernel"),
           "X": ("gru_encoder_scan", "gru_encoder_scan_kernel"),
@@ -311,7 +335,7 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "U": ("gru_encoder_stack_fwd", "gru_encoder_stack_fwd_kernel"),
           "V": ("gru_encoder_stack_bwd", "gru_encoder_stack_bwd_kernel"),
           # the bf16 instances of T's, S's, A's, C's, D's, E's, G's, the wide
-          # D's and E's and W's kernels
+          # D's and E's, W's, L's, N's, Q's and R's kernels
           "T_bf16": ("gru_step", "gru_step_kernel", BF16_ONLY),
           "S_bf16": ("lstm_step", "lstm_step_kernel", BF16_ONLY),
           "A_bf16": ("gru_layer_fwd", "gru_layer_fwd_kernel", BF16_ONLY),
@@ -321,7 +345,11 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "W_bf16": ("grad_reduce", "grad_reduce_kernel", BF16_ONLY),
           "G_bf16": ("gru_layer_xp_bwd", "gru_layer_xp_bwd_kernel", BF16_ONLY),
           "D_wide_bf16": ("gru_decode_train", "gru_decode_train_wide_kernel", BF16_ONLY),
-          "E_wide_bf16": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel", BF16_ONLY)}
+          "E_wide_bf16": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel", BF16_ONLY),
+          "L_bf16": ("lstm_layer_fwd", "lstm_layer_fwd_kernel", BF16_ONLY),
+          "N_bf16": ("lstm_layer_bwd", "lstm_layer_bwd_kernel", BF16_ONLY),
+          "Q_bf16": ("lstm_layer_xp_fwd", "lstm_layer_xp_fwd_kernel", BF16_ONLY),
+          "R_bf16": ("lstm_layer_xp_bwd", "lstm_layer_xp_bwd_kernel", BF16_ONLY)}
 
 
 def check_registers():
@@ -1254,7 +1282,18 @@ PER_TRAIN_STEP = {
     "wide_bf16_no_fused_decoder": {"gru_encoder_scan": 4, "gru_layer_xp_bwd_bf16": 4,
                                    "gru_step_bf16": S_PER_STEP, "grad_reduce_bf16": 4,
                                    "grad_reduce": 4},
+    # the bf16 LSTM with the default flags (its fused_train_decoder=False
+    # variant decodes the same way: S per head cell and step): LSTM(256) at
+    # B = 256 runs L and N in bf16 per encoder layer (rows 19 and 20), W
+    # over the bf16 x and h_{t-1} (dW + db, dU: 2 a layer, the velocity
+    # layer's too); LSTM(512) Q and R in bf16 (rows 17 and 18), W dU alone
+    "lstm_bf16": {"lstm_layer_fwd_bf16": 4, "lstm_layer_bwd_bf16": 4,
+                  "lstm_step_bf16": S_PER_STEP, "grad_reduce_bf16": 8},
+    "lstm_512_bf16": {"lstm_layer_xp_fwd_bf16": 4, "lstm_layer_xp_bwd_bf16": 4,
+                      "lstm_step_bf16": S_PER_STEP, "grad_reduce_bf16": 4},
 }
+PER_TRAIN_STEP["lstm_bf16_no_fused_decoder"] = PER_TRAIN_STEP["lstm_bf16"]
+PER_TRAIN_STEP["lstm_512_bf16_no_fused_decoder"] = PER_TRAIN_STEP["lstm_512_bf16"]
 PER_EVAL_BATCH = {  # forward only
     "narrow": {"gru_layer_fwd": 4, "gru_decode_train": 2},
     "wide": {"gru_layer_xp_fwd": 4, "gru_decode_train_wide": 3},
@@ -1268,6 +1307,7 @@ PER_EVAL_BATCH = {  # forward only
     "bf16": {"gru_layer_fwd_bf16": 4, "gru_decode_train_bf16": 2, "gru_decode_train": 1},
     "wide_bf16": {"gru_encoder_scan": 4, "gru_decode_train_wide_bf16": 2,
                   "gru_decode_train_wide": 1},
+    "lstm_bf16": {"lstm_layer_fwd_bf16": 4, "lstm_step_bf16": S_PER_STEP},
 }
 # an encode pass (the serving encoder in float32, kernel A or L, also for a
 # bf16 model: the JAX package's encode casts nothing): the test split's
@@ -1290,7 +1330,7 @@ def route_key(cfg, route):
 def kernel_counters():
     """Kernel name -> (wrapper, its counter attribute): ``launches``, or
     ``launches_bf16`` for the bf16 builds of T, S, A, C, D, E, G, the wide D
-    and E, and W."""
+    and E, W, L, N, Q and R."""
     from midi_vae_tpu_torch.ops import encoder_scan as es
     from midi_vae_tpu_torch.ops import encoder_stack as est
     from midi_vae_tpu_torch.ops import gru_decode as gd
@@ -1319,7 +1359,8 @@ def kernel_counters():
     counters = {name: (fn, "launches") for name, fn in fns.items()}
     for name in ("gru_step", "lstm_step", "gru_layer_fwd", "gru_layer_bwd", "gru_decode_train",
                  "gru_decode_bwd", "grad_reduce", "gru_layer_xp_bwd", "gru_decode_train_wide",
-                 "gru_decode_bwd_wide"):
+                 "gru_decode_bwd_wide", "lstm_layer_fwd", "lstm_layer_bwd", "lstm_layer_xp_fwd",
+                 "lstm_layer_xp_bwd"):
         counters[f"{name}_bf16"] = (counters[name][0], "launches_bf16")
     return counters
 
@@ -1507,7 +1548,8 @@ def phase_train_card_vs_cpu(smi, cfg, per_step, label):
     print(f"[{label} card vs cpu] training step on the card {ms:.3f} ms (median of {REPS}, CUDA "
           f"events) = {steps / ms * 1e3:.1f} note-steps/s on {smi}")
     return {"step_ms": ms, "note_steps_per_s": steps / ms * 1e3,
-            "max_abs_dloss": errs["loss"], "closest_grad_to_limit": worst[0]}
+            "max_abs_dloss": errs["loss"], "closest_grad_to_limit": worst[0],
+            "launches": launches}
 
 
 def phase_card_vs_cpu(smi, cell_type="GRU", overrides=None):
@@ -1872,8 +1914,9 @@ def phase_lstm_train_kernels():
                 hseq, cseq = ll.lstm_layer_xp_reference(xp, h0, h0, u)
             g = torch.randn(hseq.shape if rs else hseq.shape[1:], generator=gen, device=dev)
             bargs = (xp, hseq, cseq, h0, h0, g if rs else None, None if rs else g, u)
+            # (dxp, dh0, dc0, da): in float32 da is dxp
             out = run(f"R {name} rs={rs}", lambda a=bargs: ll.lstm_layer_xp_bwd(*a),
-                      lambda a=bargs: ll.lstm_layer_xp_bwd_reference(*a), [rel] * 3,
+                      lambda a=bargs: ll.lstm_layer_xp_bwd_reference(*a), [rel] * 4,
                       flops=4 * T * rows * u.numel(), inputs=bargs, library_fn=library[1])
             if timed:
                 results["lstm_layer_xp_bwd"][name] = out
@@ -3427,6 +3470,318 @@ def check_wide_controls(found):
                                f"inside {limits[what]:.1e}")
 
 
+def lstm_rounding_controls(xp, h0, c0, u):
+    """Two wrong plain forwards of a bf16 LSTM layer over xp (T, B, 4H), each
+    a (h sequence, c sequence) pair in bf16: every op in bf16 (the products,
+    the gates and the cell update rounded as they go; the Pallas kernels keep
+    them in float32), and c carried in float32 and stored rounded (the
+    kernels round the c they carry to bf16, as h). Over one step the second
+    equals the right forward: only a second step reads the carried c."""
+    import torch
+
+    H = h0.shape[-1]
+    found = {}
+    for what in ("every op in bf16", "c carried in float32"):
+        h, c, hs, cs = h0, c0 if what == "every op in bf16" else c0.float(), [], []
+        for t in range(xp.shape[0]):
+            if what == "every op in bf16":
+                gates = xp[t].to(h0.dtype) + h @ u
+            else:
+                gates = xp[t].float() + h.float() @ u.float()
+            i, f = torch.sigmoid(gates[:, :H]), torch.sigmoid(gates[:, H : 2 * H])
+            g, o = torch.tanh(gates[:, 2 * H : 3 * H]), torch.sigmoid(gates[:, 3 * H :])
+            c = f * c + i * g
+            h = (o * torch.tanh(c)).to(h0.dtype)
+            hs.append(h)
+            cs.append(c.to(h0.dtype))
+        found[what] = (torch.stack(hs), torch.stack(cs))
+    return found
+
+
+def phase_bf16_lstm_kernels():
+    """Phase 36: the bf16 LSTM's encoder with the default fused flags, the
+    params and batch cast to bf16 as the model casts them, T 64. At
+    Config(cell_type="LSTM", compute_dtype="bfloat16")'s shapes (the TPU's
+    rows 19 and 20 at B = 256, H = 256), per encoder layer: L's bf16 build
+    (csrc/lstm_layer_fwd.cu) with the c sequence, N's (csrc/lstm_layer_bwd.cu)
+    and W's bf16 build over N's float32 gate grads (dW, db, dU); at
+    LSTM(512)'s (rows 17 and 18), over xp = x @ W + b in bf16: Q's bf16 build
+    (csrc/lstm_layer_xp_fwd.cu), R's (csrc/lstm_layer_xp_bwd.cu, without its
+    float32 gate grads, as row 18 has none) and W bf16 for dU from R's
+    rounded dxp. Each against its plain bf16 version at B = 256 (timed, with
+    bounds: bf16 x bf16 products at the bf16 rate, the rest at the float32
+    rate; cuDNN's bf16 LSTM forward and backward beside L, N, Q and R; W
+    beside cuBLAS on the widened operands) and B = 5; N's and R's float32
+    gate grads (R's as row 16 emits them) against the plain versions' at
+    STREAM_REL_L2; L and Q also two steps from a random state at
+    BF16_STEP_REL_L2; the autograd ops' gradients against the plain
+    backward (Q + R + W in "wide" and "inplace"), and their dU against the
+    plain sum of their row's gate grads over their kernels' own streams at
+    STREAM_REL_L2; and the controls (``check_lstm_controls``): the layer on
+    two steps with every op in bf16 and with c carried in float32, dU from
+    the other row's gate grads."""
+    import torch
+
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.models.vae import MidiVAE, _cast_tree
+    from midi_vae_tpu_torch.ops import lstm_layer as ll
+    from midi_vae_tpu_torch.ops.grad_reduce import (
+        grad_reduce_reference,
+        lstm_u_grad,
+        lstm_weight_grads,
+    )
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(36)
+    tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    keys = ("lstm_layer_fwd_bf16", "lstm_layer_bwd_bf16", "lstm_layer_xp_fwd_bf16",
+            "lstm_layer_xp_bwd_bf16", "grad_reduce_lstm_bf16", "grad_reduce_lstm_512_bf16")
+    results = {k: {} for k in keys}
+    found = {}
+
+    def cot(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def plain_w(x, hprev, da):
+        n, G = x.shape[0] * x.shape[1], da.shape[-1]
+        d2 = da.reshape(n, G).float()
+        return (*grad_reduce_reference(x.reshape(n, -1), d2, True),
+                grad_reduce_reference(hprev.reshape(n, -1), d2)[0])
+
+    def cublas_w(x, hprev, da):
+        n, G = x.shape[0] * x.shape[1], da.shape[-1]
+        d2 = da.reshape(n, G).float()
+        return x.reshape(n, -1).float().t() @ d2, d2.sum(0), hprev.reshape(n, -1).float().t() @ d2
+
+    def plain_u(hprev, da):
+        n = hprev.shape[0] * hprev.shape[1]
+        return grad_reduce_reference(hprev.reshape(n, -1), da.reshape(n, -1).float())[0]
+
+    def held_u(tag, got_u, hprev, right, wrong):
+        """The autograd op's dU (bf16) against the plain sum of the gate grads
+        its row sums (``right``) over its kernels' own streams, rounded to
+        bf16: only W's order of summation differs, so a rounding flips here
+        and there (STREAM_REL_L2). Returns that and the relative L2 of the
+        other row's sum (``wrong``), the control, from the same plain sum."""
+        want = plain_u(hprev, right).to(bf)
+        err = rel_l2(got_u, want)
+        if not err <= STREAM_REL_L2:
+            raise RuntimeError(f"{tag}: the op's dU lies {err:.3e} from the plain sum of its "
+                               f"row's gate grads, over {STREAM_REL_L2:.1e}")
+        return err, rel_l2(plain_u(hprev, wrong).to(bf), want)
+
+    def two_steps(tag, kernel_fn, xp, u, rows):
+        """The layer's forward on two steps from a random bf16 state: the
+        kernel's h and c of both steps against the plain version's at
+        BF16_STEP, and the controls' (which must land over it)."""
+        h0 = (0.5 * torch.tanh(torch.randn(rows, u.shape[0], generator=gen, device=dev))).to(bf)
+        c0 = (0.5 * torch.randn(rows, u.shape[0], generator=gen, device=dev)).to(bf)
+        want = ll.lstm_layer_xp_reference(xp[:2], h0, c0, u)
+        found[f"{tag} two steps (the kernel)"] = max(_check(
+            f"{tag} two steps", lambda: kernel_fn(h0, c0), lambda: want, [BF16_STEP] * 2)[1])
+        for what, (hs, cs) in lstm_rounding_controls(xp[:2], h0, c0, u).items():
+            found[f"{tag}: {what}, two steps"] = max(rel_l2(hs, want[0]), rel_l2(cs, want[1]))
+
+    for rows in (B, RAGGED):
+        timed = rows == B
+        run = compare if timed else check
+        # --- LSTM(256): L, N and W in bf16 (rows 19 and 20)
+        cfg = Config(cell_type="LSTM", compute_dtype="bfloat16")
+        H = cfg.lstm_size
+        params = _cast_tree(MidiVAE(cfg).to(dev).params, bf)
+        enc = params["encoder"]
+        batch = {k: torch.as_tensor(v, device=dev).to(bf)
+                 for k, v in random_batch(cfg, rows, 36).items()}
+        h0 = torch.zeros(rows, H, device=dev, dtype=bf)
+        with torch.no_grad():
+            p1 = [enc["notes_rnn"][0][k].detach() for k in "wbu"]
+            x_l2 = ll.lstm_layer_reference(tm(batch["X"]), h0, h0, *p1, "tanh", True)
+        layer_cases = [("notes_l1", tm(batch["X"]), enc["notes_rnn"][0], True, False),
+                       ("notes_l2", x_l2, enc["notes_rnn"][1], False, True),
+                       ("instrument", tm(batch["I"]), enc["inst_rnn"][0], False, False),
+                       ("velocity", tm(batch["V"]), enc["vel_rnn"][0], False, False)]
+        for name, x, p, rs, need_dx in layer_cases:
+            w, b, u = (p[k].detach() for k in "wbu")
+            T, D = x.shape[0], x.shape[-1]
+            p_ = {"w": w, "b": b, "u": u}
+            args = (x, h0, h0, w, b, u, "tanh", True, True)
+            library = cudnn_lstm_layer(x, p_, h0, h0) if timed else (None, None, None)
+            # x @ W and h @ U are bf16 products (the velocity layer's cast_x
+            # widens x and W: the same products)
+            out = run(f"L bf16 {name} x{tuple(x.shape)} with c", lambda a=args: ll.lstm_layer(*a),
+                      lambda a=args: ll.lstm_layer_reference(*a), [BF16_OUT, BF16_OUT],
+                      flops=layer_flops(T, rows, w, u), inputs=args[:6], peak=PEAK_BF16_FLOPS,
+                      library_fn=library[0])
+            if timed:
+                results["lstm_layer_fwd_bf16"][name] = out
+                if name == "notes_l1":
+                    with torch.no_grad():
+                        xp1 = (x.reshape(T * rows, D).float() @ w.float() + b.float()).reshape(
+                            T, rows, 4 * H)
+                    two_steps("L", lambda h_, c_, x=x: ll.lstm_layer(x[:2], h_, c_, w, b, u,
+                                                                    "tanh", True, True), xp1, u,
+                              rows)
+            with torch.no_grad():
+                hseq, cseq = ll.lstm_layer_reference(*args)
+            g = cot(hseq.shape if rs else hseq.shape[1:])
+            bargs = (x, hseq, cseq, h0, h0, g if rs else None, None if rs else g, w, b, u, need_dx)
+            flat = lambda o: tuple(t for t in o if t is not None)  # noqa: E731
+            # the recompute's x @ W and h @ U are bf16 products; da @ U^T and
+            # da @ W^T take the float32 gate grads
+            out = run(f"N bf16 {name} rs={rs} dx={need_dx}",
+                      lambda a=bargs: flat(ll.lstm_layer_bwd(*a)),
+                      lambda a=bargs: flat(ll.lstm_layer_bwd_reference(*a)),
+                      [BF16_OUT] * (3 if need_dx else 2) + [rel],
+                      flops=layer_flops(T, rows, w, u),
+                      flops_f32=lstm_bwd_flops(T, rows, w, u, need_dx) - layer_flops(T, rows, w, u),
+                      inputs=bargs[:10], peak=PEAK_BF16_FLOPS, library_fn=library[1])
+            if timed:
+                results["lstm_layer_bwd_bf16"][name] = out
+            dx, dh0_p, dc0_p, da = ll.lstm_layer_bwd_reference(*bargs)
+            err = rel_l2(ll.lstm_layer_bwd(*bargs)[3], da)
+            if not err <= STREAM_REL_L2:
+                raise RuntimeError(f"N bf16 {name}: the gate grads lie {err:.3e} from the plain "
+                                   f"version's, over {STREAM_REL_L2:.1e}")
+            hprev = torch.cat([h0[None], hseq[:-1]])
+            wargs = (x, hprev, da)
+            out = run(f"W bf16 LSTM {name} dW, db, dU", lambda a=wargs: lstm_weight_grads(*a),
+                      lambda a=wargs: plain_w(*a), [(rel, W_REL_L2)] * 3,
+                      flops=2 * T * rows * (w.numel() + u.numel()), inputs=wargs,
+                      library_fn=lambda a=wargs: cublas_w(*a))
+            if timed:
+                results["grad_reduce_lstm_bf16"][f"encoder {name}"] = out
+                if name == "notes_l1":
+                    found["N gate grads (the kernel)"] = err
+            # L + N + W against the plain backward (N's plain version, W's)
+            leaves = [t.clone().requires_grad_(i > 0 or need_dx)
+                      for i, t in enumerate((x, h0, h0, w, b, u))]
+            wanted = [t for t in leaves if t.requires_grad]
+            got = torch.autograd.grad(ll.lstm_layer_train_x(*leaves, rs), wanted, g)
+            pw = plain_w(*wargs)
+            want = ((dx,) if need_dx else ()) + (dh0_p, dc0_p, pw[0].to(bf), pw[1].to(bf),
+                                                 pw[2].to(bf))
+            check(f"L+N+W bf16 grads {name} B={rows}", lambda: got, lambda: want,
+                  [BF16_GRAD_OP] * len(want))
+            # its dU from the unrounded da (row 20) over L's and N's own streams
+            with torch.no_grad():
+                khs, kcs = ll.lstm_layer(*args)
+                kda = ll.lstm_layer_bwd(x, khs, kcs, *bargs[3:])[3]
+            held = held_u(f"L+N+W {name}", got[-1], torch.cat([h0[None], khs[:-1]]), kda,
+                          kda.to(bf))
+            if timed and name == "notes_l1":
+                found["N+W dU (the op)"], found["N+W: dU from the rounded da"] = held
+        # --- LSTM(512): Q, R and W in bf16 over xp (rows 17 and 18)
+        cfg = Config(cell_type="LSTM", lstm_size=512, compute_dtype="bfloat16")
+        H = cfg.lstm_size
+        params = _cast_tree(MidiVAE(cfg).to(dev).params, bf)
+        enc = params["encoder"]
+        batch = {k: torch.as_tensor(v, device=dev).to(bf)
+                 for k, v in random_batch(cfg, rows, 37).items()}
+        h0 = torch.zeros(rows, H, device=dev, dtype=bf)
+
+        def xp_of(x, p):  # xp = x @ W + b in bf16, as the model's rows 17 and 18
+            return (x.reshape(x.shape[0] * rows, -1) @ p["w"] + p["b"]).reshape(x.shape[0], rows,
+                                                                                4 * H)
+
+        with torch.no_grad():
+            p1 = enc["notes_rnn"][0]
+            x_l2 = ll.lstm_layer_xp_reference(xp_of(tm(batch["X"]), p1), h0, h0, p1["u"])[0]
+        for name, x, p, rs in (("notes_l1", tm(batch["X"]), enc["notes_rnn"][0], True),
+                               ("notes_l2", x_l2, enc["notes_rnn"][1], False),
+                               ("instrument", tm(batch["I"]), enc["inst_rnn"][0], False),
+                               ("velocity", tm(batch["V"]), enc["vel_rnn"][0], False)):
+            with torch.no_grad():
+                xp = xp_of(x, p)
+            u = p["u"].detach()
+            T = x.shape[0]
+            library = (cudnn_lstm_layer(xp, {"u": u}, h0, h0, xp=True) if timed
+                       else (None, None, None))
+            out = run(f"Q bf16 {name} xp{tuple(xp.shape)}", lambda: ll.lstm_layer_xp(xp, h0, h0, u),
+                      lambda: ll.lstm_layer_xp_reference(xp, h0, h0, u), [BF16_OUT, BF16_OUT],
+                      flops=2 * T * rows * u.numel(), inputs=[xp, h0, u], peak=PEAK_BF16_FLOPS,
+                      library_fn=library[0])
+            if timed:
+                results["lstm_layer_xp_fwd_bf16"][name] = out
+                if name == "notes_l1":
+                    two_steps("Q", lambda h_, c_: ll.lstm_layer_xp(xp[:2], h_, c_, u), xp, u, rows)
+            with torch.no_grad():
+                hseq, cseq = ll.lstm_layer_xp_reference(xp, h0, h0, u)
+            g = cot(hseq.shape if rs else hseq.shape[1:])
+            bargs = (xp, hseq, cseq, h0, h0, g if rs else None, None if rs else g, u)
+            # row 18's: dxp, dh0, dc0 rounded, no float32 gate grads
+            out = run(f"R bf16 {name} rs={rs}",
+                      lambda a=bargs: ll.lstm_layer_xp_bwd(*a, need_da=False)[:3],
+                      lambda a=bargs: ll.lstm_layer_xp_bwd_reference(*a)[:3], [BF16_OUT] * 3,
+                      flops=2 * T * rows * u.numel(), flops_f32=2 * T * rows * u.numel(),
+                      inputs=bargs, peak=PEAK_BF16_FLOPS, library_fn=library[1])
+            if timed:
+                results["lstm_layer_xp_bwd_bf16"][name] = out
+            dxp, dh0_p, dc0_p, da = ll.lstm_layer_xp_bwd_reference(*bargs)
+            # row 16's: the same gate grads unrounded in float32 beside dxp
+            kdxp, _, _, kda = ll.lstm_layer_xp_bwd(*bargs)
+            err = rel_l2(kda, da)
+            if not (err <= STREAM_REL_L2 and torch.equal(kdxp, kda.to(bf))):
+                raise RuntimeError(f"R bf16 {name}: the gate grads lie {err:.3e} from the plain "
+                                   f"version's (limit {STREAM_REL_L2:.1e}), or dxp is not their "
+                                   "bf16 rounding")
+            hprev = torch.cat([h0[None], hseq[:-1]])
+            out = run(f"W bf16 LSTM(512) {name} dU from the rounded dxp",
+                      lambda: lstm_u_grad(hprev, dxp.float()), lambda: plain_u(hprev, dxp),
+                      [(rel, W_REL_L2)], flops=2 * T * rows * u.numel(), inputs=[hprev, dxp],
+                      library_fn=lambda: hprev.reshape(T * rows, -1).float().t()
+                      @ dxp.reshape(T * rows, -1).float())
+            if timed:
+                results["grad_reduce_lstm_512_bf16"][f"encoder {name}"] = out
+                if name == "notes_l1":
+                    found["R gate grads (the kernel)"] = err
+            # Q + R + W against the plain backward: "wide" (row 18) sums dU
+            # from the rounded dxp, "inplace" (row 16) from the float32 gate
+            # grads; then its dU over Q's and R's own streams, the other
+            # row's operand as the control
+            with torch.no_grad():
+                khs, kcs = ll.lstm_layer_xp(xp, h0, h0, u)
+                kdxp, _, _, kda = ll.lstm_layer_xp_bwd(xp, khs, kcs, *bargs[3:])
+            khprev = torch.cat([h0[None], khs[:-1]])
+            for mode, want_u, right, wrong, what in (
+                    ("wide", plain_u(hprev, dxp), kdxp, kda, "the unrounded da"),
+                    ("inplace", plain_u(hprev, da), kda, kdxp, "the rounded dxp")):
+                leaves = [t.clone().requires_grad_() for t in (xp, h0, h0, u)]
+                got = torch.autograd.grad(ll.lstm_layer_train(*leaves, rs, mode), leaves, g)
+                check(f"Q+R+W bf16 grads {name} {mode} B={rows}", lambda: got,
+                      lambda w=want_u: (dxp, dh0_p, dc0_p, w.to(bf)), [BF16_GRAD_OP] * 4)
+                held = held_u(f"Q+R+W {name} {mode}", got[-1], khprev, right, wrong)
+                if timed and name == "notes_l1":
+                    found[f"R+W {mode} dU (the op)"] = held[0]
+                    found[f"R+W {mode}: dU from {what}"] = held[1]
+    check_lstm_controls(found)
+    print(f"[bf16 lstm kernels] L, N, Q, R and W in bf16 agree with their plain versions at "
+          f"B = {B} and {RAGGED}; the autograd ops' gradients with the plain backward")
+    return results
+
+
+def check_lstm_controls(found):
+    """Prints the kernels' relative L2 at B = 256 (L and Q on two steps, h
+    and c, held to BF16_STEP_REL_L2; N's and R's float32 gate grads, held to
+    STREAM_REL_L2; the autograd ops' dU on notes L1, held to STREAM_REL_L2)
+    beside wrong plain versions against the right ones, in the same
+    comparisons: the layer on two steps with every op in bf16, and with c
+    carried in float32 and stored rounded (the larger of h and c), each over
+    BF16_STEP_REL_L2; dU summed from the other row's gate grads, each over
+    STREAM_REL_L2: L + N + W's from the rounded da (row 20 sums the
+    unrounded one), Q + R + W's in "wide" from the unrounded da (row 18 sums
+    the stored bf16 stream) and in "inplace" from the rounded dxp (row 16
+    sums the unrounded da)."""
+    limits = {k: BF16_STEP_REL_L2 for k in found if k.endswith(", two steps")}
+    limits.update({k: STREAM_REL_L2 for k in found if ": dU from " in k})
+    print("[bf16 lstm kernels] relative L2 from the plain version: " + ", ".join(
+        f"{k} {v:.3e}" + (f" (must exceed {limits[k]:.1e})" if k in limits else "")
+        for k, v in found.items()))
+    for what, err in ((k, v) for k, v in found.items() if k in limits):
+        if not err > limits[what]:
+            raise RuntimeError(f"the control {what} lands {err:.3e} from the plain version, "
+                               f"inside {limits[what]:.1e}")
+
+
 def phase_train_step_card(smi, cfg, per_step, label):
     """One training step of ``cfg`` on the card (the batch and noise of
     ``phase_train_card_vs_cpu``): a finite loss and metrics, every gradient
@@ -3460,7 +3815,8 @@ def phase_train_step_card(smi, cfg, per_step, label):
     print(f"[{label}] one step on the card: loss {values[0]:.4f}, every gradient finite, launches "
           f"{per_step}; training step {ms:.3f} ms (median of {REPS}, CUDA events) = "
           f"{steps / ms * 1e3:.1f} note-steps/s on {smi}")
-    return {"step_ms": ms, "note_steps_per_s": steps / ms * 1e3, "loss": values[0]}
+    return {"step_ms": ms, "note_steps_per_s": steps / ms * 1e3, "loss": values[0],
+            "launches": launches}
 
 
 def phase_gru_3layer_serving(work, smi):
@@ -3621,6 +3977,22 @@ def main() -> int:
                       ("wide_bf16_no_fused_decoder", "fused_train_decoder=False")):
         bf16_steps[key] = phase_train_step_card(smi, Config(**parse_overrides([*wide_bf16, flag])),
                                                 PER_TRAIN_STEP[key], f"{key} train")
+    # the bf16 LSTM with the default fused flags: L, N, Q, R and W in bf16,
+    # the train CLI on lstm_bf16, its step and LSTM(512)'s card vs CPU, and
+    # one card step of each fused_train_decoder=False variant
+    results.update(phase_bf16_lstm_kernels())
+    lstm_bf16 = ["cell_type=LSTM", "compute_dtype=bfloat16"]
+    with tempfile.TemporaryDirectory() as work:
+        paths["train_lstm_bf16"] = phase_train_slice(work, lstm_bf16, "lstm_bf16")
+    for key, sets in (("lstm_bf16", lstm_bf16), ("lstm_512_bf16", [*lstm_bf16, "lstm_size=512"])):
+        bf16_steps[key] = phase_train_card_vs_cpu(smi, Config(**parse_overrides(sets)),
+                                                  PER_TRAIN_STEP[key], f"{key} train")
+        bf16_steps[f"{key}_no_fused_decoder"] = phase_train_step_card(
+            smi, Config(**parse_overrides([*sets, "fused_train_decoder=False"])),
+            PER_TRAIN_STEP[f"{key}_no_fused_decoder"], f"{key}_no_fused_decoder train")
+        # LSTM(512) bf16 has no train CLI run: its steps' launches are its path's
+        for k in (key, f"{key}_no_fused_decoder"):
+            paths[f"step_{k}"] = bf16_steps[k]["launches"]
     for path, counts in paths.items():
         for name in ("gru_encoder_stack_fwd", "gru_encoder_stack_bwd"):
             if counts.get(name, 0):
@@ -3641,8 +4013,10 @@ def main() -> int:
     # C, W, D and E in bf16 (W bf16: each layer's and bf16 head's
     # reductions, the float32 one over r * h among them), wide512_bf16's
     # step for G bf16 and the wide D and E in bf16 (X and W bf16 there:
-    # "ms_wide_bf16", "ms_wide_bf16_step"); "launches" over the main paths'
-    # runs
+    # "ms_wide_bf16", "ms_wide_bf16_step"), the bf16 LSTM(256) step for L
+    # and N in bf16 and LSTM(512)'s for Q and R in bf16 (W bf16 there:
+    # "ms_lstm_bf16_step", "ms_lstm_512_bf16_step"); "launches" over the
+    # main paths' runs
     meta = {
         "gru_layer_fwd": ("A", "gru_layer_fwd.cu", "fused_train.py:2057", ["fused_train.py:2919"]),
         "gru_decode": ("B", "gru_decode.cu", "fused_decoder.py:61", ["fused_decoder.py:95"]),
@@ -3737,6 +4111,21 @@ def main() -> int:
                                        ["fused_train.py:393", "fused_train.py:431"]),
         "gru_decode_bwd_wide_bf16": ("E wide bf16", "gru_decode_bwd.cu", "fused_train.py:1080",
                                      ["fused_train.py:1135", "fused_train.py:1176"]),
+        # rows 19 and 20 in a bf16 model: _lstm_fwdx_kernel (through
+        # _lstm_fwdx_pallas), _lstm_bwdx_kernel (_lstm_bwdx_pallas; its
+        # weight-grad sums: W bf16)
+        "lstm_layer_fwd_bf16": ("L bf16", "lstm_layer_fwd.cu", "fused_train.py:2352",
+                                ["fused_train.py:2374"]),
+        "lstm_layer_bwd_bf16": ("N bf16", "lstm_layer_bwd.cu", "fused_train.py:2405",
+                                ["fused_train.py:2472"]),
+        # rows 17 and 15 in a bf16 model: _lstm_fwd_kernel through
+        # _lstm_fwd_wide_pallas and _lstm_fwd_pallas; rows 18 and 16:
+        # _lstm_bwd_wide_kernel and _lstm_bwd_kernel (dU: W bf16)
+        "lstm_layer_xp_fwd_bf16": ("Q bf16", "lstm_layer_xp_fwd.cu", "fused_train.py:1331",
+                                   ["fused_train.py:1890", "fused_train.py:1352"]),
+        "lstm_layer_xp_bwd_bf16": ("R bf16", "lstm_layer_xp_bwd.cu", "fused_train.py:1922",
+                                   ["fused_train.py:1984", "fused_train.py:1383",
+                                    "fused_train.py:1448"]),
     }
     # per kernel: the calls of one step or transfer at other shapes
     extra = {"gru_layer_fwd": [("ms_h512", "gru_layer_512")],
@@ -3752,7 +4141,9 @@ def main() -> int:
              "gru_step_xp": [("ms_h512", "gru_step_xp_512")],
              "gru_encoder_scan": [("ms_row27", "gru_encoder_scan_row27"),
                                   ("ms_wide_bf16", "gru_encoder_scan_wide_bf16")],
-             "grad_reduce_bf16": [("ms_wide_bf16_step", "grad_reduce_wide_bf16")],
+             "grad_reduce_bf16": [("ms_wide_bf16_step", "grad_reduce_wide_bf16"),
+                                  ("ms_lstm_bf16_step", "grad_reduce_lstm_bf16"),
+                                  ("ms_lstm_512_bf16_step", "grad_reduce_lstm_512_bf16")],
              "lstm_encoder_scan": [("ms_h512", "lstm_encoder_scan_512")],
              "gru_encoder_stack_fwd": [("ms_stack2", "stack2_fwd"),
                                        ("ms_stack2_bf16", "stack2_bf16_fwd"),
@@ -3777,7 +4168,8 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in per_call.values()),
             "bound_ms": bound_ms, "bound_by": bound_by,
             # one PyTorch call of the same function: cuBLAS's a.t() @ b for W,
-            # cuDNN's LSTM for L, N, Q, R and (bf16, w_ih = I) Y,
+            # cuDNN's LSTM for L, N, Q, R (in bf16 their bf16 builds; Q and
+            # R with w_ih = I) and (bf16, w_ih = I) Y,
             # torch.lstm_cell for S, S bf16 and S xp (with w_ih = I: one
             # product more); none for the GRU kernels (nn.GRU, torch.gru_cell
             # are reset-after) and the decode kernels (no call feeds back

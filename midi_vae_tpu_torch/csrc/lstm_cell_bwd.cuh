@@ -20,6 +20,11 @@
 // dh_{t-1} = da.U^T needs every gate column: 32 KiB at H = 256. The
 // transposed product reads UT = U^T (4H, H), so that neighbouring threads
 // read neighbouring addresses.
+//
+// In the bf16 builds (N and R in a bf16 model) c_{t-1}, c_t, U and U^T are
+// bf16, each widened to float as it is loaded: the whole transposition and
+// the dh and dc carries stay float, as the Pallas kernels widen what they
+// load and carry dh and dc in float scratch.
 #pragma once
 
 #include "lstm_common.cuh"
@@ -34,20 +39,21 @@ namespace mvt {
 // replaced by dL/dc_{t-1}. Writes da_s (4H, R). Every thread of the block
 // must call it, after a barrier that completed hp_s and after every read of
 // da_s from the previous step; da_s is complete from its inner barrier on.
-template <int R = kRows>
+// cprev, ccur, U and UT are of type TV.
+template <int R = kRows, typename TV = float>
 __device__ __forceinline__ void lstm_cell_bwd_recurrent(
     float ai[R], float af[R], float ag[R], float ao[R], const float* hp_s,
-    const float* __restrict__ cprev, const float* __restrict__ ccur, int row0,
+    const TV* __restrict__ cprev, const TV* __restrict__ ccur, int row0,
     int B, float dh[R], float dc[R], float* da_s,
-    const float* __restrict__ U, const float* __restrict__ UT, int H) {
+    const TV* __restrict__ U, const TV* __restrict__ UT, int H) {
   const int j = threadIdx.x;
   const int G = 4 * H;
   float v[R];
 #pragma unroll 4
   for (int k = 0; k < H; ++k) {
-    const float* uk = U + (size_t)k * G;
-    const float ui = uk[j], uf = uk[H + j], ug = uk[2 * H + j],
-                uo = uk[3 * H + j];
+    const TV* uk = U + (size_t)k * G;
+    const float ui = to_f32(uk[j]), uf = to_f32(uk[H + j]),
+                ug = to_f32(uk[2 * H + j]), uo = to_f32(uk[3 * H + j]);
     load_rows<R>(hp_s + k * R, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -60,8 +66,8 @@ __device__ __forceinline__ void lstm_cell_bwd_recurrent(
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int row = row0 + r;
-    const float cp = row < B ? cprev[(size_t)row * H + j] : 0.0f;
-    const float ct = row < B ? ccur[(size_t)row * H + j] : 0.0f;
+    const float cp = row < B ? to_f32(cprev[(size_t)row * H + j]) : 0.0f;
+    const float ct = row < B ? to_f32(ccur[(size_t)row * H + j]) : 0.0f;
     const float i = activate<kSigmoid>(ai[r]), f = activate<kSigmoid>(af[r]);
     const float g = tanhf(ag[r]), o = activate<kSigmoid>(ao[r]);
     const float tc = tanhf(ct);
@@ -77,7 +83,7 @@ __device__ __forceinline__ void lstm_cell_bwd_recurrent(
   // dh_{t-1}[j] = sum_g da[g] U[j, g] = sum_g da[g] UT[g, j]
 #pragma unroll 4
   for (int g = 0; g < G; ++g) {
-    const float u = UT[(size_t)g * H + j];
+    const float u = to_f32(UT[(size_t)g * H + j]);
     load_rows<R>(da_s + g * R, v);
 #pragma unroll
     for (int r = 0; r < R; ++r) dh[r] = fmaf(v[r], u, dh[r]);

@@ -21,18 +21,28 @@
 // U by every block. At B = 256 the grid is 32 blocks of H = 256 threads, so
 // most SMs idle; each weight loaded feeds kRows FMAs.
 //
+// A bf16 build (mvt_lstm_layer_fwd_bf16) runs _lstm_fwdx_kernel in a bf16
+// model (row 19 in bf16, the encoder's layers of the soak's lstm_bf16): x,
+// h0, c0, W, b and U in bf16, each widened to float as it is loaded, so
+// x @ W + b and h @ U are bf16 products summed in float (_dot's
+// preferred_element_type, b widened :2379; the velocity layer's cast_x,
+// x and W widened to float, gives the same products); h' comes from the
+// unrounded c', and h and c are rounded to bf16 where the Pallas kernel keeps
+// them in its bf16 scratch (:2398-2399) and stores both sequences. The
+// training forward only emits the sequences; serving stays float.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (midi_vae_tpu_torch/ops/_build.py).
 #include "lstm_common.cuh"
 
 namespace mvt {
 
-template <int ACT>
+template <int ACT, typename TV>
 __global__ void lstm_layer_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ h0,
-    const float* __restrict__ c0, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ u,
-    float* __restrict__ out, float* __restrict__ cseq, int T, int B, int D,
+    const TV* __restrict__ x, const TV* __restrict__ h0,
+    const TV* __restrict__ c0, const TV* __restrict__ w,
+    const TV* __restrict__ b, const TV* __restrict__ u,
+    TV* __restrict__ out, TV* __restrict__ cseq, int T, int B, int D,
     int H, int emit_seq) {
   extern __shared__ __align__(16) float smem[];
   float* x_s = smem;               // (D, kRows)
@@ -47,7 +57,7 @@ __global__ void lstm_layer_fwd_kernel(
     // and its h_t (now h_s) is only read from here on
     load_tile(x + (size_t)t * B * D, x_s, row0, B, D);
     __syncthreads();
-    lstm_cell<ACT>(x_s, D, h_s, hn_s, c_s, w, u, b, H);
+    lstm_cell<ACT, kRows, TV>(x_s, D, h_s, hn_s, c_s, w, u, b, H);
     float* done = hn_s;
     hn_s = h_s;
     h_s = done;
@@ -60,29 +70,23 @@ __global__ void lstm_layer_fwd_kernel(
   if (!emit_seq) store_tile(h_s, out, row0, B, H);
 }
 
-template <int ACT>
-cudaError_t launch(const float* x, const float* h0, const float* c0,
-                   const float* w, const float* b, const float* u, float* out,
-                   float* cseq, int T, int B, int D, int H, int emit_seq,
-                   cudaStream_t stream) {
+template <int ACT, typename TV>
+cudaError_t launch(const TV* x, const TV* h0, const TV* c0, const TV* w,
+                   const TV* b, const TV* u, TV* out, TV* cseq, int T, int B,
+                   int D, int H, int emit_seq, cudaStream_t stream) {
   const size_t smem = sizeof(float) * kRows * (D + 3 * H);
-  cudaError_t err = fit_block(lstm_layer_fwd_kernel<ACT>, H, smem);
+  cudaError_t err = fit_block(lstm_layer_fwd_kernel<ACT, TV>, H, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + kRows - 1) / kRows);
-  lstm_layer_fwd_kernel<ACT><<<grid, H, smem, stream>>>(
+  lstm_layer_fwd_kernel<ACT, TV><<<grid, H, smem, stream>>>(
       x, h0, c0, w, b, u, out, cseq, T, B, D, H, emit_seq);
   return cudaGetLastError();
 }
 
-}  // namespace mvt
-
-// cseq (T, B, H) may be null (c not emitted); it is written only with
-// emit_seq.
-extern "C" int mvt_lstm_layer_fwd(
-    const float* x, const float* h0, const float* c0, const float* w,
-    const float* b, const float* u, float* out, float* cseq, int T, int B,
-    int D, int H, int act, int emit_seq, void* stream) {
-  using namespace mvt;
+template <typename TV>
+int run(const TV* x, const TV* h0, const TV* c0, const TV* w, const TV* b,
+        const TV* u, TV* out, TV* cseq, int T, int B, int D, int H, int act,
+        int emit_seq, void* stream) {
   if (T < 1 || B < 1 || D < 1 || H < 32 || H % 32 != 0 ||
       (cseq != nullptr && !emit_seq)) {
     return (int)cudaErrorInvalidValue;
@@ -101,6 +105,28 @@ extern "C" int mvt_lstm_layer_fwd(
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace mvt
+
+// cseq (T, B, H) may be null (c not emitted); it is written only with
+// emit_seq.
+extern "C" int mvt_lstm_layer_fwd(
+    const float* x, const float* h0, const float* c0, const float* w,
+    const float* b, const float* u, float* out, float* cseq, int T, int B,
+    int D, int H, int act, int emit_seq, void* stream) {
+  return mvt::run(x, h0, c0, w, b, u, out, cseq, T, B, D, H, act, emit_seq,
+                  stream);
+}
+
+// the bf16 build: every operand and output bf16
+extern "C" int mvt_lstm_layer_fwd_bf16(
+    const mvt::bf16* x, const mvt::bf16* h0, const mvt::bf16* c0,
+    const mvt::bf16* w, const mvt::bf16* b, const mvt::bf16* u,
+    mvt::bf16* out, mvt::bf16* cseq, int T, int B, int D, int H, int act,
+    int emit_seq, void* stream) {
+  return mvt::run(x, h0, c0, w, b, u, out, cseq, T, B, D, H, act, emit_seq,
+                  stream);
 }
 
 extern "C" const char* mvt_error_string(int code) {

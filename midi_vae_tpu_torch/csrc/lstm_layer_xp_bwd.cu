@@ -30,17 +30,31 @@
 // What bounds it: the serial chain of T steps, each with two L2 reads of U
 // (U for the recompute, U^T for dh) by each of the B/8 blocks; at B = 256
 // only 32 SMs work.
+//
+// A bf16 build (mvt_lstm_layer_xp_bwd_bf16) runs _lstm_bwd_wide_kernel and
+// _lstm_bwd_kernel in a bf16 model (rows 18 and 16 in bf16): xp, the stored
+// h and c sequences, h0, c0, the incoming grads and U in bf16, each widened
+// to float as it is loaded; the gate recompute, the dh and dc carries and
+// every product stay float. It emits dxp rounded to bf16 (dacat_ref and
+// dxp_ref in xp's dtype, :2000, :1435) with dh0 and dc0 rounded, and, where
+// dacat is not null, the same gate grads unrounded in float. Row 18 sums dU
+// from the rounded stream (_lstm_wide_weight_grads :2032-2043, after the
+// kernel), so kernel W reads dxp there; row 16 sums dU inside the kernel
+// from the unrounded da (:1436), so kernel W reads dacat there. The float
+// build emits dacat alone, which is its dxp.
 #include "lstm_cell_bwd.cuh"
 
 namespace mvt {
 
+template <typename TV>
 __global__ void __launch_bounds__(kWideThreads) lstm_layer_xp_bwd_kernel(
-    const float* __restrict__ xp, const float* __restrict__ hseq,
-    const float* __restrict__ cseq, const float* __restrict__ h0,
-    const float* __restrict__ c0, const float* __restrict__ d_seq,
-    const float* __restrict__ d_final, const float* __restrict__ u,
-    const float* __restrict__ ut, float* __restrict__ dacat,
-    float* __restrict__ dh0, float* __restrict__ dc0, int T, int B, int H) {
+    const TV* __restrict__ xp, const TV* __restrict__ hseq,
+    const TV* __restrict__ cseq, const TV* __restrict__ h0,
+    const TV* __restrict__ c0, const TV* __restrict__ d_seq,
+    const TV* __restrict__ d_final, const TV* __restrict__ u,
+    const TV* __restrict__ ut, float* __restrict__ dacat,
+    TV* __restrict__ dxp, TV* __restrict__ dh0, TV* __restrict__ dc0, int T,
+    int B, int H) {
   extern __shared__ __align__(16) float smem[];
   float* hp_s = smem;              // (H, kRows)
   float* da_s = hp_s + kRows * H;  // (4H, kRows)
@@ -52,7 +66,7 @@ __global__ void __launch_bounds__(kWideThreads) lstm_layer_xp_bwd_kernel(
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = row0 + r;
-    dh[r] = (d_final != nullptr && row < B) ? d_final[(size_t)row * H + j] : 0.0f;
+    dh[r] = (d_final != nullptr && row < B) ? to_f32(d_final[(size_t)row * H + j]) : 0.0f;
     dc[r] = 0.0f;
   }
   for (int t = T - 1; t >= 0; --t) {
@@ -63,49 +77,77 @@ __global__ void __launch_bounds__(kWideThreads) lstm_layer_xp_bwd_kernel(
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int row = row0 + r;
-        if (row < B) dh[r] += d_seq[((size_t)t * B + row) * H + j];
+        if (row < B) dh[r] += to_f32(d_seq[((size_t)t * B + row) * H + j]);
       }
     }
     float ai[kRows], af[kRows], ag[kRows], ao[kRows];
     load_gates4(xp + (size_t)t * B * G, row0, B, H, ai, af, ag, ao);
     // also orders the previous step's reads of da_s before this step's writes
     __syncthreads();
-    lstm_cell_bwd_recurrent(ai, af, ag, ao, hp_s,
+    lstm_cell_bwd_recurrent<kRows, TV>(ai, af, ag, ao, hp_s,
                             t > 0 ? cseq + (size_t)(t - 1) * B * H : c0,
                             cseq + (size_t)t * B * H, row0, B, dh, dc, da_s, u,
                             ut, H);
-    store_columns(da_s, dacat + (size_t)t * B * G, row0, B, G, 4, H);
+    if (std::is_same_v<TV, float> || dacat != nullptr) {
+      store_columns(da_s, dacat + (size_t)t * B * G, row0, B, G, 4, H);
+    }
+    if constexpr (!std::is_same_v<TV, float>) {
+      store_columns(da_s, dxp + (size_t)t * B * G, row0, B, G, 4, H);
+    }
   }
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = row0 + r;
     if (row < B) {
-      dh0[(size_t)row * H + j] = dh[r];
-      dc0[(size_t)row * H + j] = dc[r];
+      dh0[(size_t)row * H + j] = from_f32<TV>(dh[r]);
+      dc0[(size_t)row * H + j] = from_f32<TV>(dc[r]);
     }
   }
+}
+
+template <typename TV>
+int launch(const TV* xp, const TV* hseq, const TV* cseq, const TV* h0,
+           const TV* c0, const TV* d_seq, const TV* d_final, const TV* u,
+           const TV* ut, float* dacat, TV* dxp, TV* dh0, TV* dc0, int T, int B,
+           int H, void* stream) {
+  if (T < 1 || B < 1 || H < 32 || H % 32 != 0 ||
+      (dacat == nullptr && dxp == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = sizeof(float) * kRows * 5 * H;
+  cudaError_t err = fit_block(lstm_layer_xp_bwd_kernel<TV>, H, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + kRows - 1) / kRows);
+  lstm_layer_xp_bwd_kernel<TV><<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(
+      xp, hseq, cseq, h0, c0, d_seq, d_final, u, ut, dacat, dxp, dh0, dc0, T,
+      B, H);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace mvt
 
 // d_seq (T, B, H) and d_final (B, H) may each be null (read as zeros).
-// ut = U^T (4H, H), contiguous.
+// ut = U^T (4H, H), contiguous. The float build has no dxp (dacat is its
+// dxp).
 extern "C" int mvt_lstm_layer_xp_bwd(
     const float* xp, const float* hseq, const float* cseq, const float* h0,
     const float* c0, const float* d_seq, const float* d_final, const float* u,
     const float* ut, float* dacat, float* dh0, float* dc0, int T, int B, int H,
     void* stream) {
-  using namespace mvt;
-  if (T < 1 || B < 1 || H < 32 || H % 32 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = sizeof(float) * kRows * 5 * H;
-  cudaError_t err = fit_block(lstm_layer_xp_bwd_kernel, H, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kRows - 1) / kRows);
-  lstm_layer_xp_bwd_kernel<<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(
-      xp, hseq, cseq, h0, c0, d_seq, d_final, u, ut, dacat, dh0, dc0, T, B, H);
-  return (int)cudaGetLastError();
+  return mvt::launch(xp, hseq, cseq, h0, c0, d_seq, d_final, u, ut, dacat,
+                     static_cast<float*>(nullptr), dh0, dc0, T, B, H, stream);
+}
+
+// the bf16 build: every operand bf16; dxp (bf16) receives the rounded gate
+// grads, dacat (float, may be null) the same gate grads unrounded
+extern "C" int mvt_lstm_layer_xp_bwd_bf16(
+    const mvt::bf16* xp, const mvt::bf16* hseq, const mvt::bf16* cseq,
+    const mvt::bf16* h0, const mvt::bf16* c0, const mvt::bf16* d_seq,
+    const mvt::bf16* d_final, const mvt::bf16* u, const mvt::bf16* ut,
+    float* dacat, mvt::bf16* dxp, mvt::bf16* dh0, mvt::bf16* dc0, int T,
+    int B, int H, void* stream) {
+  return mvt::launch(xp, hseq, cseq, h0, c0, d_seq, d_final, u, ut, dacat,
+                     dxp, dh0, dc0, T, B, H, stream);
 }
 
 extern "C" const char* mvt_error_string(int code) {

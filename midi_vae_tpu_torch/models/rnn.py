@@ -29,6 +29,7 @@ from typing import Any
 
 import torch
 
+from ..ops import _layout
 from ..ops.encoder_scan import gru_encoder_scan, lstm_encoder_scan
 from ..ops.gru_layer import gru_layer, gru_layer_train, gru_layer_train_x
 from ..ops.gru_step import gru_recurrent_step
@@ -83,7 +84,13 @@ def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_seque
     kernel T xp (GRU) or S xp (LSTM) per step over it, any cell activation
     (``rnn.py:184-200``); with ``whole_scan`` the same xp and one call of
     kernel X (GRU) or Y (LSTM) over it, any cell activation
-    (``rnn.py:163-182``); else the plain cell scan."""
+    (``rnn.py:163-182``); else the plain cell scan. A bf16 training layer
+    (kernels and ``train``, bf16 ``xs``) takes the rows the JAX package runs
+    at its own (B, D, H) (``ops/_layout.py::bf16_layer_mode``: the in-kernel
+    projection, or xp = x @ W + b in bf16 and the in-place or the wide pair,
+    which differ in the rounding dU is summed from), whatever ``wide`` says;
+    on the card rows without a port build that launches raise
+    NotImplementedError."""
     B, T, _ = xs.shape
     hidden = p["u"].shape[0]
     init = zero_states(cell, B, hidden, xs)
@@ -106,14 +113,19 @@ def _scan_layer(cell, p: Params, xs: torch.Tensor, activation: str, return_seque
             if return_sequences:
                 outs.append(states[0])
         return torch.stack(outs, dim=1) if return_sequences else states[0]
-    if kernels and train and (cell.num_states == 1 or activation == "tanh"):
+    mode = "inplace" if wide else "x"  # float32: one function on every row
+    if kernels and train and xs.dtype == torch.bfloat16:
+        mode = _layout.bf16_layer_mode("LSTM" if cell.num_states == 2 else "GRU", B,
+                                       xs.shape[-1], hidden, xs.device.type == "cuda",
+                                       xs.requires_grad)
+    if kernels and train and mode != "scan" and (cell.num_states == 1 or activation == "tanh"):
         x = xs.transpose(0, 1).contiguous()
-        if wide:
+        if mode != "x":
             xp = (x.reshape(T * B, -1) @ p["w"] + p["b"]).reshape(T, B, -1)
             if cell.num_states == 2:
-                out = lstm_layer_train(xp, init[0], init[1], p["u"], return_sequences)
+                out = lstm_layer_train(xp, init[0], init[1], p["u"], return_sequences, mode)
             else:
-                out = gru_layer_train(xp, init[0], p["u"], return_sequences)
+                out = gru_layer_train(xp, init[0], p["u"], return_sequences, mode)
         elif cell.num_states == 2:
             out = lstm_layer_train_x(x, init[0], init[1], p["w"], p["b"], p["u"],
                                      return_sequences)

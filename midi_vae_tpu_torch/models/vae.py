@@ -41,11 +41,16 @@ heads in one loop (``decode_heads_merged``) through T, and
 cell and step (the JAX package has no LSTM whole-head training kernel),
 merged or not. Teacher-forced heads take the plain scan. In bfloat16 the
 kernels run their bf16 builds (A, C, D, E and W on the narrow route; X, G,
-the wide D and E, and W on the wide route; T and S, X and Y), the
-multi-head call is declined and heads narrower than 8 are
-decoded in float32 (``gru_decode_train``), as on the TPU; the encode pass
-and serving stay float32. Paths whose kernels are not ported yet raise
-NotImplementedError on CUDA, naming their row of the kernel table or their
+the wide D and E, and W on the wide route; L, N and W or Q, R and W for the
+LSTM; T and S, X and Y), the multi-head call is declined and heads narrower
+than 8 are decoded in float32 (``gru_decode_train``), as on the TPU; the
+encode pass and serving stay float32. As the TPU's rows round differently
+in bf16, each encoder layer and GRU decode head there takes the rows the
+JAX package runs at the batch it is called with (``ops/_layout.py``:
+``bf16_layer_mode``, ``bf16_head_mode``), not the route of the step: the
+LSTM's L + N or Q + R, the GRU's A + C or X + G (dU from the float32 or the
+rounded gate grads), D + E or their wide builds. Paths whose kernels are
+not ported yet raise NotImplementedError on CUDA, naming their row of the kernel table or their
 ROADMAP item (``unported_training``); on the CPU they run the plain path
 through autograd.
 """
@@ -103,18 +108,6 @@ def unported_training(cfg: Config) -> str | None:
     """Why the training kernels cannot run ``cfg`` on CUDA yet (the rows of
     the kernel table or the ROADMAP item it waits for), or None when they
     can."""
-    lstm = cfg.cell_type == "LSTM"
-    if cfg.compute_dtype == "bfloat16" and cfg.lstm_activation == "tanh":
-        # ported in bf16: the whole-scan encoders X and Y (fused_train_encoder
-        # =False), the cells T and S, on the GRU's narrow route A, C, D, E and
-        # W, on its wide route X, G, the wide D and E, and W; the plain scans
-        # of non-tanh cells
-        if lstm and cfg.fused_train_encoder:
-            return ("bfloat16 LSTM training with fused_train_encoder runs the encoder's "
-                    "whole-layer training kernels L, N and W (narrow route) or Q, R and W (wide "
-                    "route), rows 15-20, in bfloat16 in the JAX package; their bf16 builds are "
-                    "not yet ported (Queue 1 item 2). With fused_train_encoder=False the encoder "
-                    "trains through kernel Y")
     if (cfg.decode_residual_bf16 and not cfg.teacher_force
             and _multihead(cfg, _layout.config_route(cfg, on_card=False))):
         return ("decode_residual_bf16 keeps the multi-head decode kernel's residuals in "
@@ -215,7 +208,9 @@ class MidiVAE(nn.Module):
     def train_route(self, device: torch.device) -> str:
         """``"narrow"`` or ``"wide"``: which kernel builds the training step
         takes at this width (``ops/_layout.py``); on the card a width no
-        build launches raises LaunchLimitError."""
+        build launches raises LaunchLimitError. In bf16 the parts are
+        dispatched one by one (``config_route``: its label, ``"per-part"``
+        where they differ)."""
         return _layout.config_route(self.cfg, on_card=device.type == "cuda")
 
     # ------------------------------------------------------------------
@@ -468,9 +463,16 @@ class MidiVAE(nn.Module):
                 # gru_decode_train (models/vae.py:504-521): D + E, or the plain
                 # scan where _dec_mode says "scan" (3 layers, non-tanh cells)
                 if layers and len(s["cells"]) in (1, 2):
+                    wide = route == "wide"
+                    if z.dtype == torch.bfloat16:
+                        mode = _layout.bf16_head_mode(B, head_dim, cfg.lstm_size, len(s["cells"]),
+                                                      z.device.type == "cuda")
+                        if mode == "scan":
+                            return decode_autoregressive(*args)
+                        wide = mode == "wide"
                     probs, logits = gru_decode_train(s["cells"], s["out"], s["init"], s["start"],
                                                      length, cfg.lstm_activation, out_activation,
-                                                     route == "wide")
+                                                     wide)
                     return probs.transpose(0, 1), logits.transpose(0, 1)
                 return decode_autoregressive(*args)
             return decode_autoregressive(*args, step=step)

@@ -43,16 +43,30 @@ On the H100 the wide route is also the faster one there: ``chip_smoke.py``
 times one LSTM(512) notes layer's forward + backward both ways, and the
 wide route took 19.6 / 21.2 ms (L1 / L2) against the narrow route's
 21.3 / 47.7 ms (NVIDIA H100 80GB HBM3, 700 W).
-In a bfloat16 model (``compute_dtype``) each route takes its bf16 builds
-(their tiles stay float, as every bf16 build's), and the route is decided
-from those: on the narrow route A, C, D and E (``A_bf16`` ... ``E_bf16``,
-their own register counts, D's 144 a thread keep it under 512 threads); on
-the wide route X for the layer's forward (kernel X computes what F would in
-bf16: the JAX package's ``_fwd_kernel`` in bf16 is its ``_encoder_kernel``
-with the sequence emitted), ``G_bf16`` for its backward and the wide D and
-E's bf16 builds (``D_wide_bf16``, ``E_wide_bf16``), all launch-bounded. On
-both routes a head narrower than 8 is promoted to float32 and takes D's and
-E's float32 builds.
+In a bfloat16 model (``compute_dtype``) the parts take bf16 builds (their
+tiles stay float, as every bf16 build's): in-kernel projection layers A and
+C or L and N (``A_bf16``, ``C_bf16``, ``L_bf16``, ``N_bf16``, their own
+register counts), the GRU's xp layers X for the forward (kernel X computes
+what F would in bf16: the JAX package's ``_fwd_kernel`` in bf16 is its
+``_encoder_kernel`` with the sequence emitted) and ``G_bf16``, the LSTM's
+``Q_bf16`` and ``R_bf16``, heads D and E (``D_bf16``, ``E_bf16``; D's 144
+registers a thread keep it under 512 threads) or ``D_wide_bf16`` and
+``E_wide_bf16``; a head narrower than 8 is promoted to float32 and takes
+D's and E's float32 builds. In float32 every row of a part computes the
+same function, so the route is the chooser's (``train_route``). In bf16 the
+TPU's rows round differently, and there is no step route: which row the
+JAX package runs is decided per part from (B, D, H) by its VMEM predicates,
+which the port keeps copies of here (``x_train_vmem_ok`` ...
+``dec_wide_btiles``): ``bf16_layer_mode`` gives an encoder layer's rows
+("x": the in-kernel projection, rows 1 and 4 or 19 and 20; "inplace":
+xp = x @ W + b rounded to bf16 and rows 9 and 10 or 15 and 16, dU from the
+unrounded gate grads; "wide": the same xp and rows 11 and 12 or 17 and 18,
+dU from the rounded stream; "scan": the XLA scan), ``bf16_head_mode`` a
+GRU decode head's ("inplace": rows 7 and 8, D and E; "wide": rows 13 and 14,
+their wide builds; "scan"), both from the batch the part is called with, as
+the JAX dispatch reads shapes. On the card both raise NotImplementedError,
+naming the rows, where their port builds do not launch at that width; no
+other row's rounding runs in their place.
 A width at which neither route launches raises ``LaunchLimitError`` naming the
 limit. ``FORCE_ROUTE`` is a test hook (like the JAX package's
 ``_FORCE_TRAIN_MODE``) that sends small widths down the wide route.
@@ -69,10 +83,11 @@ WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
 # registers per thread of the builds without launch bounds (the largest over
 # a build's template instances), from nvcc -Xptxas -v for sm_90a
 REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75, "N": 117,
-             "U": 78, "V": 172, "A_bf16": 94, "C_bf16": 96, "D_bf16": 144, "E_bf16": 167}
+             "U": 78, "V": 172, "A_bf16": 94, "C_bf16": 96, "D_bf16": 144, "E_bf16": 167,
+             "L_bf16": 80, "N_bf16": 114}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
 BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "R", "S", "S_xp", "T", "T_xp", "X", "Y",
-           "G_bf16", "D_wide_bf16", "E_wide_bf16")
+           "G_bf16", "D_wide_bf16", "E_wide_bf16", "Q_bf16", "R_bf16")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
 LSTM_NARROW_MAX_H = 256
 
@@ -148,12 +163,9 @@ def require(kernel: str, H: int, smem: int) -> None:
         raise LaunchLimitError(why)
 
 
-def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU",
-                  bf16: bool = False) -> list[str]:
-    """The limits the route's builds hit: ``layers`` is (D_in, dx wanted) per
-    encoder layer, ``heads`` (D, n_layers) per decode head; ``bf16``: the
-    GRU route's bf16 builds (a head narrower than 8 is promoted to float32
-    and takes D's and E's float32 builds)."""
+def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> list[str]:
+    """The limits the route's float32 builds hit: ``layers`` is (D_in, dx
+    wanted) per encoder layer, ``heads`` (D, n_layers) per decode head."""
     if cell_type == "LSTM":
         if route == "narrow":
             checks = [(k, smem_bytes(k, H, d)) for d, _dx in layers for k in ("L", "N")]
@@ -162,37 +174,32 @@ def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU",
         # S per cell: the head's input for its first layer, h for the others
         checks += [("S", smem_bytes("S", H, max(d, H) if n > 1 else d)) for d, n in heads]
     else:
-        sfx = "_bf16" if bf16 else ""
         if route == "narrow":
-            checks = [(k + sfx, smem_bytes(k, H, d, dx=dx)) for d, dx in layers
-                      for k in ("A", "C")]
+            checks = [(k, smem_bytes(k, H, d, dx=dx)) for d, dx in layers for k in ("A", "C")]
         elif layers:  # the x-projection is outside: one tile for every layer
-            checks = [(k, smem_bytes(k, H)) for k in (("X", "G_bf16") if bf16 else ("F", "G"))]
+            checks = [(k, smem_bytes(k, H)) for k in ("F", "G")]
         else:
             checks = []
         heads_k = ("D", "E") if route == "narrow" else ("D_wide", "E_wide")
-        checks += [(k + (sfx if d >= 8 else ""), smem_bytes(k, H, d, n)) for d, n in heads
-                   for k in heads_k]
+        checks += [(k, smem_bytes(k, H, d, n)) for d, n in heads for k in heads_k]
     return [why for k, smem in checks if (why := launch_limit(k, H, smem)) is not None]
 
 
-def train_route(H: int, layers, heads, on_card: bool = True, cell_type: str = "GRU",
-                bf16: bool = False) -> str:
+def train_route(H: int, layers, heads, on_card: bool = True, cell_type: str = "GRU") -> str:
     """``"narrow"`` or ``"wide"`` for a training step at width H (see the
     module note): the preferred route (GRU: narrow; LSTM: narrow up to
     ``LSTM_NARROW_MAX_H``, wide above), else the other where the preferred
     one's builds do not launch. Off the card both routes run the same plain
     versions, so a width no build launches takes the preferred route there;
-    on the card it raises LaunchLimitError."""
+    on the card it raises LaunchLimitError. This is float32's chooser: a
+    bf16 model's parts are dispatched one by one (``config_route``)."""
     if FORCE_ROUTE is not None:
         return FORCE_ROUTE
-    order = ("narrow", "wide")
-    if cell_type == "LSTM" and H > LSTM_NARROW_MAX_H:
-        order = ("wide", "narrow")
-    first = _route_limits(order[0], H, layers, heads, cell_type, bf16)
+    order = _route_order(H, cell_type)
+    first = _route_limits(order[0], H, layers, heads, cell_type)
     if not first:
         return order[0]
-    second = _route_limits(order[1], H, layers, heads, cell_type, bf16)
+    second = _route_limits(order[1], H, layers, heads, cell_type)
     if not second:
         return order[1]
     if not on_card:
@@ -224,7 +231,228 @@ def config_shapes(cfg) -> tuple[list, list]:
     return layers, heads
 
 
+def _route_order(H: int, cell_type: str) -> tuple[str, str]:
+    """The preferred route first (GRU: narrow; LSTM: narrow up to
+    ``LSTM_NARROW_MAX_H``, wide above)."""
+    if cell_type == "LSTM" and H > LSTM_NARROW_MAX_H:
+        return ("wide", "narrow")
+    return ("narrow", "wide")
+
+
 def config_route(cfg, on_card: bool = True) -> str:
-    """``train_route`` of a model config."""
-    return train_route(cfg.lstm_size, *config_shapes(cfg), on_card=on_card,
-                       cell_type=cfg.cell_type, bf16=cfg.compute_dtype == "bfloat16")
+    """``train_route`` of a float32 model config. In bf16 the step's parts
+    take the rows ``bf16_layer_mode`` and ``bf16_head_mode`` give at the
+    batch each is called with; here every part whose training kernels the
+    config runs (the encoder layers with ``fused_train_encoder``, the GRU's
+    1- and 2-layer heads with ``fused_train_decoder``, tanh cells) is
+    dispatched at ``cfg.batch_size``, so that on the card a part without a
+    build that launches raises NotImplementedError before the step; the
+    label is the route whose builds every such part takes (the preferred one
+    when there are none), else "per-part". ``FORCE_ROUTE`` is returned as it
+    is, as ``train_route`` returns it."""
+    if cfg.compute_dtype != "bfloat16" or FORCE_ROUTE is not None:
+        return train_route(cfg.lstm_size, *config_shapes(cfg), on_card=on_card,
+                           cell_type=cfg.cell_type)
+    layers, heads = config_shapes(cfg)
+    B, H, tanh = cfg.batch_size, cfg.lstm_size, cfg.lstm_activation == "tanh"
+    modes = set()
+    if cfg.fused_train_encoder and tanh:
+        modes |= {"narrow" if bf16_layer_mode(cfg.cell_type, B, d, H, on_card, dx) == "x"
+                  else "wide" for d, dx in layers}
+    if cfg.cell_type == "GRU" and cfg.fused_train_decoder and tanh:
+        modes |= {"narrow" if bf16_head_mode(B, d, H, n, on_card) == "inplace" else "wide"
+                  for d, n in heads if n in (1, 2)}
+    if len(modes) > 1:
+        return "per-part"
+    return modes.pop() if modes else _route_order(H, cfg.cell_type)[0]
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's per-part dispatch in a bf16 model: its VMEM predicates
+# (midi_vae_tpu/ops/fused_train.py, fused_decoder.py, fused_gru.py), copied;
+# ``s`` is the operands' itemsize (2 in bf16, 4 for the heads promoted to
+# float32)
+# ---------------------------------------------------------------------------
+
+_VMEM_LIMIT_BYTES = 12 * 1024 * 1024  # fused_gru.py:34
+_WIDE_BUDGET_BYTES = 15_500_000  # fused_train.py:1610
+_TEMPS_FWD = {4: 12, 2: 24}  # fused_train.py:1621-1622
+_TEMPS_BWD = {4: 34, 2: 109}
+
+
+def encoder_vmem_ok(B: int, H: int, s: int = 4) -> bool:
+    """``fused_decoder.py::_encoder_vmem_ok`` (:320)."""
+    return (H * 3 * H + 3 * B * H + B * 3 * H) * s + 4 * B * 3 * H * 4 < 15_500_000
+
+
+def x_train_vmem_ok(B: int, D: int, H: int, s: int = 4) -> bool:
+    """``_x_train_vmem_ok`` (:2255): the GRU's in-kernel projection, rows 1
+    and 4."""
+    operand = D * 3 * H + H * 3 * H + 3 * H + 2 * (2 * B * D + 2 * B * H)
+    f32 = 2 * (D * 3 * H + H * 3 * H + 3 * H) + 8 * B * H + 2 * B * 3 * H
+    return operand * s + f32 * 4 < 15_500_000
+
+
+def train_vmem_ok(B: int, H: int, s: int = 4) -> bool:
+    """``_train_vmem_ok`` (:220): the GRU's in-place pair, rows 9 and 10."""
+    operand = H * 3 * H + 2 * B * 3 * H + 2 * B * H
+    f32 = H * 3 * H + B * H + 8 * B * H
+    return operand * s + f32 * 4 < 13_000_000 and encoder_vmem_ok(B, H, s)
+
+
+def lstm_x_train_vmem_ok(B: int, D: int, H: int, s: int = 4) -> bool:
+    """``_lstm_x_train_vmem_ok`` (:2532-2542): rows 19 and 20."""
+    operand = D * 4 * H + H * 4 * H + 4 * H + 2 * (2 * B * D + 4 * B * H)
+    f32 = 2 * (D * 4 * H + H * 4 * H + 4 * H) + 10 * B * H + 2 * B * 4 * H
+    return operand * s + f32 * 4 < 15_500_000
+
+
+def lstm_train_vmem_ok(B: int, H: int, s: int = 4) -> bool:
+    """``_lstm_train_vmem_ok`` (:1495-1502): rows 15 and 16."""
+    operand = H * 4 * H + 2 * (2 * B * 4 * H + 4 * B * H)
+    f32 = H * 4 * H + 2 * B * H + 8 * B * H
+    return operand * s + f32 * 4 < _VMEM_LIMIT_BYTES
+
+
+def dec_train_vmem_ok(B: int, D: int, H: int, n_layers: int) -> bool:
+    """``_dec_train_vmem_ok`` (:748): a decode head's rows 7 and 8."""
+    weights = D * 3 * H + (n_layers - 1) * H * 3 * H + n_layers * H * 3 * H + H * D
+    grads = weights + (n_layers * 3 * H + D)
+    streams = 2 * (4 * B * D + 2 * n_layers * B * H)
+    temps = 4 * B * 3 * H + 2 * B * H
+    carries = n_layers * B * H + B * D
+    return (weights + grads + streams + temps + carries) * 4 < 15_500_000
+
+
+def _btile(B: int, fits) -> int:
+    """``_btile`` (:1625): the largest power-of-two-descending divisor tile of
+    B that ``fits``; 0 if none of 8 rows or more does."""
+    bt = B
+    while bt >= 8:
+        if B % bt == 0 and fits(bt):
+            return bt
+        bt //= 2
+    return 0
+
+
+def _tiles(B: int, fwd_bytes, bwd_bytes) -> tuple[int, int]:
+    fwd = _btile(B, lambda bt: fwd_bytes(bt) < _WIDE_BUDGET_BYTES)
+    bwd = _btile(B, lambda bt: bwd_bytes(bt) < _WIDE_BUDGET_BYTES)
+    return (fwd, bwd) if fwd and bwd else (0, 0)
+
+
+def gru_wide_btiles(B: int, H: int, s: int) -> tuple[int, int]:
+    """``_gru_wide_btiles`` (:1659): rows 11 and 12's batch tiles, or (0, 0)."""
+    return _tiles(
+        B,
+        lambda bt: (H * 3 * H * s + (2 * bt * 3 * H + 2 * bt * H) * s + 2 * bt * H * s
+                    + _TEMPS_FWD[min(s, 4)] * bt * H),
+        lambda bt: (H * 3 * H * s + (4 * bt * 3 * H + 4 * bt * H) * s + 3 * bt * H * s
+                    + 4 * bt * H + _TEMPS_BWD[min(s, 4)] * bt * H))
+
+
+def lstm_wide_btiles(B: int, H: int, s: int) -> tuple[int, int]:
+    """``_lstm_wide_btiles`` (:1863-1870): rows 17 and 18's batch tiles."""
+    return _tiles(
+        B,
+        lambda bt: (H * 4 * H * s + (2 * bt * 4 * H + 4 * bt * H) * s + 4 * bt * H * s
+                    + _TEMPS_FWD[min(s, 4)] * bt * H * 4 // 3),
+        lambda bt: (H * 4 * H * s + (4 * bt * 4 * H + 8 * bt * H) * s + 5 * bt * H * s
+                    + 8 * bt * H + _TEMPS_BWD[min(s, 4)] * bt * H * 4 // 3))
+
+
+def dec_wide_btiles(B: int, D: int, H: int, n: int, s: int) -> tuple[int, int]:
+    """``_dec_wide_btiles`` (:952): rows 13 and 14's batch tiles."""
+    Dp = (D + 127) // 128 * 128  # _dpad: Mosaic pads to 128 lanes
+    weights = (D * 3 * H + (2 * n - 1) * H * 3 * H + H * Dp + n * 3 * H + Dp) * s
+    return _tiles(
+        B,
+        lambda bt: (weights + 2 * bt * (2 * Dp + n * H) * s + (n * bt * H + bt * Dp) * s
+                    + _TEMPS_FWD[min(s, 4)] * bt * (n * H + Dp)),
+        lambda bt: (weights + 2 * bt * (5 * Dp + 5 * n * H) * s + (2 * Dp + 2 * n * H) * bt * s
+                    + (n * H + Dp) * bt * 4 + _TEMPS_BWD[min(s, 4)] * bt * (n * H + Dp)))
+
+
+# which gate grads W sums dU from over a precomputed x-projection
+# (``gru_layer_train``'s and ``lstm_layer_train``'s ``mode``): the in-place
+# rows (10, 16) sum the unrounded float32 gate grads inside their kernel, the
+# wide rows' pass 2 (12, 18) the stream as stored in the compute dtype; the
+# same numbers in float32
+XP_MODES = ("inplace", "wide")
+
+# the rows each mode of a bf16 part runs on the TPU (PERF.md's kernel table)
+LAYER_ROWS = {"GRU": {"x": "rows 1 and 4", "inplace": "rows 9 and 10",
+                      "wide": "rows 11 and 12", "scan": "the XLA scan"},
+              "LSTM": {"x": "rows 19 and 20", "inplace": "rows 15 and 16",
+                       "wide": "rows 17 and 18", "scan": "the XLA scan"}}
+HEAD_ROWS = {"inplace": "rows 7 and 8", "wide": "rows 13 and 14", "scan": "the XLA scan"}
+
+
+def bf16_layer_mode(cell_type: str, B: int, D: int, H: int, on_card: bool = False,
+                    dx: bool = True) -> str:
+    """The rows the JAX package runs a bf16 encoder layer of batch B, input
+    width D and width H through (``_x_use_pallas`` / ``_lstm_x_use_pallas``,
+    then ``_gru_mode`` / ``_lstm_mode``): "x", "inplace", "wide" or "scan"
+    (see the module note). ``FORCE_ROUTE`` "narrow" gives "x", "wide" skips
+    the in-kernel projection (as a test hook of the JAX package's
+    ``_x_use_pallas``). ``on_card``: raise NotImplementedError where the
+    port has no build of those rows that launches (``dx``: the layer's dx is
+    wanted)."""
+    lstm = cell_type == "LSTM"
+    if FORCE_ROUTE == "narrow" or (FORCE_ROUTE is None and (
+            lstm_x_train_vmem_ok if lstm else x_train_vmem_ok)(B, D, H, 2)):
+        mode = "x"
+    elif (lstm_train_vmem_ok if lstm else train_vmem_ok)(B, H, 2):
+        mode = "inplace"
+    elif (lstm_wide_btiles if lstm else gru_wide_btiles)(B, H, 2)[0]:
+        mode = "wide"
+    else:
+        mode = "scan"
+    if on_card:
+        if mode == "x":
+            pair = ("L", "N") if lstm else ("A", "C")
+            builds = [(k + "_bf16", smem_bytes(k, H, D, dx=dx)) for k in pair]
+        else:
+            pair = ("Q_bf16", "R_bf16") if lstm else ("X", "G_bf16")
+            builds = [(k, smem_bytes(k, H)) for k in pair] if mode != "scan" else []
+        _require_bf16(LAYER_ROWS[cell_type][mode], builds, H)
+    return mode
+
+
+def bf16_head_mode(B: int, D: int, H: int, n_layers: int, on_card: bool = False) -> str:
+    """The rows the JAX package runs a bf16 GRU decode head of batch B and
+    width D through (``_dec_mode``; a head narrower than 8 is promoted to
+    float32 first, ``gru_decode_train``): "inplace", "wide" or "scan";
+    ``FORCE_ROUTE`` "narrow" gives "inplace", "wide" "wide" (as the JAX
+    package's ``_FORCE_TRAIN_MODE``). ``on_card``: raise
+    NotImplementedError where the port has no build of those rows that
+    launches (a head narrower than 8 takes D's and E's float32 builds)."""
+    if FORCE_ROUTE is not None:
+        mode = "inplace" if FORCE_ROUTE == "narrow" else "wide"
+    elif dec_train_vmem_ok(B, D, H, n_layers):
+        mode = "inplace"
+    elif dec_wide_btiles(B, D, H, n_layers, 4 if D < 8 else 2)[0]:
+        mode = "wide"
+    else:
+        mode = "scan"
+    if on_card:
+        sfx = "_bf16" if D >= 8 else ""
+        pair = ("D", "E") if mode == "inplace" else ("D_wide", "E_wide")
+        builds = ([(k + sfx, smem_bytes(k, H, D, n_layers)) for k in pair] if mode != "scan"
+                  else [])
+        _require_bf16(HEAD_ROWS[mode], builds, H)
+    return mode
+
+
+def _require_bf16(rows: str, builds, H: int) -> None:
+    """Raise NotImplementedError when the port has no build of the TPU's
+    ``rows`` (``builds``: (build, shared memory) pairs) that launches at
+    width H on the card."""
+    if not builds:
+        raise NotImplementedError(f"the JAX package runs this bf16 part through {rows}, which "
+                                  "the port has no kernel build for")
+    for k, smem in builds:
+        why = launch_limit(k, H, smem)
+        if why is not None:
+            raise NotImplementedError(f"the JAX package runs this bf16 part through {rows}; "
+                                      f"their port build does not launch: {why}")

@@ -44,7 +44,12 @@ F has no bf16 build. The backward is G's bf16 build
 operands, emitting dxp and dh0 rounded to bf16 (:165, :186) and the same
 gate grads unrounded, from which W sums dU in float32 as ``_bwd_kernel``
 does (:166-167). ``_GruLayerTrain`` hands autograd the rounded dxp and W
-the float32 gate grads; in float32 the two are one tensor.
+the float32 gate grads; in float32 the two are one tensor. Where the JAX
+package takes the batch-tiled rows 11 and 12 instead (a bf16 layer whose
+in-place pair does not fit its VMEM, ``_train_vmem_ok``: B = 1024 at
+H = 256, B >= 512 at H = 512), the forward and dxp are the same and dU is
+summed from the stored bf16 stream (``_gru_wide_weight_grads``,
+:1813-1835): ``gru_layer_train``'s ``mode`` "wide" hands W the rounded dxp.
 
 A and C have a bfloat16 build beside the float32 one (``mvt_gru_layer_fwd_bf16``,
 ``mvt_gru_layer_bwd_bf16``), picked by the operands' dtype: a bf16 model
@@ -475,14 +480,16 @@ gru_layer_xp_bwd.launches_bf16 = 0
 class _GruLayerTrain(torch.autograd.Function):
     """Forward: kernel F (bf16: X), the h sequence as residual. Backward:
     kernel G for dxp and dh0, then kernel W for dU from G's float32 gate
-    grads (float32 sums, rounded to U's dtype)."""
+    grads (``mode`` "inplace", row 10) or from the rounded dxp ("wide", row
+    12), float32 sums rounded to U's dtype."""
 
     @staticmethod
-    def forward(ctx, xp, h0, u, return_sequences):
+    def forward(ctx, xp, h0, u, return_sequences, mode):
         ctx.set_materialize_grads(True)
         seq = gru_layer_xp(xp, h0, u)
         ctx.save_for_backward(xp, h0, u, seq)
         ctx.return_sequences = return_sequences
+        ctx.mode = mode
         return seq if return_sequences else seq[-1].clone()
 
     @staticmethod
@@ -491,13 +498,18 @@ class _GruLayerTrain(torch.autograd.Function):
         g = g.contiguous()
         d_seq, d_final = (g, None) if ctx.return_sequences else (None, g)
         dxp, dh0, da_cat, rh = gru_layer_xp_bwd(xp, seq, h0, d_seq, d_final, u)
-        du = gru_u_grad(torch.cat([h0[None], seq[:-1]]), rh, da_cat)
-        return dxp, dh0, du.to(u.dtype), None
+        du = gru_u_grad(torch.cat([h0[None], seq[:-1]]), rh,
+                        da_cat if ctx.mode == "inplace" else dxp.float())
+        return dxp, dh0, du.to(u.dtype), None, None
 
 
-def gru_layer_train(xp, h0, u, return_sequences=False):
+def gru_layer_train(xp, h0, u, return_sequences=False, mode="inplace"):
     """Differentiable tanh GRU layer over a precomputed x-projection xp (T,
     B, 3H) time-major, float32 or bfloat16: the (T, B, H) sequence or the
-    final h (B, H). CPU tensors run the plain versions of kernels F (X), G
-    and W; CUDA tensors launch the builds of their dtype."""
-    return _GruLayerTrain.apply(xp, h0, u, return_sequences)
+    final h (B, H). ``mode`` ("inplace" or "wide", ``_layout.XP_MODES``)
+    picks the row whose dU rounding the backward takes. CPU tensors run the
+    plain versions of kernels F (X), G and W; CUDA tensors launch the builds
+    of their dtype."""
+    if mode not in _layout.XP_MODES:
+        raise ValueError(f"mode must be one of {_layout.XP_MODES}, got {mode!r}")
+    return _GruLayerTrain.apply(xp, h0, u, return_sequences, mode)

@@ -12,7 +12,7 @@ around work that ends in a synchronize), note-steps/s (B x 64 output steps
 per step; windows/s for a judge), and from a torch.profiler window of STEPS
 steps the device time per kernel name, per kernel of the port (A, C, D, E,
 F, G, the wide D and E, L, N, Q, R, S, S xp, T, T xp, X, Y, W; the bf16
-builds of A, C, D, E, G, the wide D and E, S, T and W apart) and for
+builds of A, C, D, E, G, the wide D and E, L, N, Q, R, S, T and W apart) and for
 everything else, per autograd node of the backward, and the device's idle
 share.
 
@@ -57,7 +57,9 @@ PORT_KERNELS = {
 # the groups whose kernels have a bf16 build, counted apart
 BF16_BUILDS = ("A gru_layer_fwd", "C gru_layer_bwd", "D gru_decode_train", "E gru_decode_bwd",
                "G gru_layer_xp_bwd", "D wide gru_decode_train_wide",
-               "E wide gru_decode_bwd_wide", "S lstm_step", "T gru_step", "W grad_reduce")
+               "E wide gru_decode_bwd_wide", "L lstm_layer_fwd", "N lstm_layer_bwd",
+               "Q lstm_layer_xp_fwd", "R lstm_layer_xp_bwd", "S lstm_step", "T gru_step",
+               "W grad_reduce")
 
 
 def random_train_batch(cfg, n: int, seed: int, valid: int | None = None) -> dict:

@@ -423,13 +423,10 @@ def test_slice_configs_take_the_whole_scan_wrappers(name, monkeypatch):
 
 
 @pytest.mark.parametrize("overrides, route, match", [
-    # the LSTM's whole-layer kernels have no bf16 build yet
-    ({"cell_type": "LSTM"}, None, "L, N and W.*Queue 1 item 2"),
-    ({"cell_type": "LSTM", "fused_train_decoder": False}, None, "Q, R and W"),
     # the multi-head kernel's bf16 residuals (a float32 model)
     ({"compute_dtype": "float32", "decode_residual_bf16": True}, None,
      "decode_residual_bf16.*Queue 1 item 2"),
-], ids=["lstm_fused_encoder", "lstm_fused_encoder_no_fused_decoder", "decode_residual_bf16"])
+], ids=["decode_residual_bf16"])
 def test_unported_bf16_configs_raise_naming_what_they_wait_for(overrides, route, match,
                                                                 monkeypatch):
     """Every bf16 config whose step still needs a kernel without a bf16 build
@@ -437,7 +434,8 @@ def test_unported_bf16_configs_raise_naming_what_they_wait_for(overrides, route,
     plain path. The GRU configs that waited for A, C, D, E and W in bf16 on
     the narrow route train (``tests/test_torch_bf16_fused.py``), and so do
     those that waited for the wide route's bf16 builds
-    (``tests/test_torch_bf16_wide.py``)."""
+    (``tests/test_torch_bf16_wide.py``) and the LSTM ones that waited for
+    L, N, Q and R in bf16 (``tests/test_torch_bf16_lstm.py``)."""
     monkeypatch.setattr(_layout, "FORCE_ROUTE", route)
     model = MidiVAE(small_test_config(**{"compute_dtype": "bfloat16", **overrides}))
     with pytest.raises(NotImplementedError, match=match):

@@ -488,17 +488,22 @@ def test_formerly_unported_bf16_configs_train_through_the_bf16_builds(name, monk
 
 
 def test_route_is_decided_from_the_bf16_builds():
-    """``config_route`` of a bf16 config checks A to E's bf16 builds on the
-    narrow route (D and E at float32 for heads narrower than 8): Config()'s
-    width takes it, a width whose bf16 builds do not launch takes the wide
-    route, whose bf16 builds train it on CUDA too."""
+    """``config_route`` of a bf16 config dispatches each part at the
+    config's batch and checks the bf16 builds of its rows: Config()'s parts
+    take A, C, D and E in bf16 (D and E at float32 for heads narrower than
+    8), the narrow route; forced onto those rows at H = 512, D's bf16 build
+    does not launch and the dispatch raises on the card naming it; the rows
+    the TPU runs at H = 512 are the wide ones, whose bf16 builds train it on
+    CUDA too."""
     from midi_vae_tpu_torch.config import Config
     from midi_vae_tpu_torch.models.vae import unported_training
 
     assert _layout.config_route(Config(compute_dtype="bfloat16")) == "narrow"
-    checked = [why for why in _layout._route_limits("narrow", 512, [(61, False)], [(61, 2)],
-                                                    bf16=True) if "_bf16" in why]
-    assert checked, "the narrow route at H = 512 names no bf16 build"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(_layout, "FORCE_ROUTE", "narrow")
+        with pytest.raises(NotImplementedError, match="rows 7 and 8.*D_bf16"):
+            _layout.bf16_head_mode(256, 61, 512, 2, on_card=True)
+        assert _layout.bf16_head_mode(256, 61, 512, 2) == "inplace"
     wide = Config(compute_dtype="bfloat16", lstm_size=512)
     assert _layout.config_route(wide) == "wide"
     assert unported_training(wide) is None

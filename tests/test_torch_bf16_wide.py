@@ -119,8 +119,10 @@ def test_jax_dispatch_at_the_wide_bf16_shape(monkeypatch):
     10 (in float32: the batch-tiled rows 11 and 12), every decode head of 8
     outputs or more through the wide pair with tiles (256, 64), the velocity
     head through the same pair in float32 (``gru_decode_train`` promotes it
-    first), and no multi-head call; the port's route chooser sends the same
-    config down the wide route, whose bf16 builds all launch at H = 512."""
+    first), and no multi-head call; the port's per-part dispatch picks the
+    same rows for every part, whose bf16 builds all launch at H = 512, and
+    labels the config's route wide; the narrow rows' bf16 heads do not
+    launch there."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     cfg = Config(lstm_size=512, compute_dtype="bfloat16")
     layers, heads = _layout.config_shapes(cfg)
@@ -148,9 +150,10 @@ def test_jax_dispatch_at_the_wide_bf16_shape(monkeypatch):
     primary = {"start": spec((rows, 61), bf), "init": [spec((rows, H), bf)]}
     assert not ft._mh_use_pallas(primary, [], "tanh", ("softmax", "sigmoid"), False)
     assert _layout.config_route(cfg) == "wide"
-    assert _layout._route_limits("wide", H, layers, heads, bf16=True) == []
-    assert any("D_bf16" in why for why in _layout._route_limits("narrow", H, layers, heads,
-                                                                 bf16=True))
+    assert [_layout.bf16_layer_mode("GRU", rows, d, H, True, dx) for d, dx in layers] == [
+        "inplace"] * 4
+    assert [_layout.bf16_head_mode(rows, d, H, n, True) for d, n in heads] == ["wide"] * 3
+    assert _layout.launch_limit("D_bf16", H, _layout.smem_bytes("D", H, 61, 2)) is not None
 
 
 # ---------------------------------------------------------------------------
@@ -547,15 +550,15 @@ def test_formerly_unported_wide_bf16_configs_train_through_the_bf16_builds(name,
 
 def test_wide_bf16_config_takes_the_wide_route_at_full_width():
     """``Config(lstm_size=512, compute_dtype="bfloat16")`` trains on CUDA
-    (no raise) on the wide route; the bf16 LSTM with the fused encoder and
-    ``decode_residual_bf16`` on the multi-head path still raise, naming
-    Queue 1 item 2."""
+    (no raise) on the wide route, and so does the bf16 LSTM(512) with the
+    fused encoder (Q and R in bf16); ``decode_residual_bf16`` on the
+    multi-head path still raises, naming Queue 1 item 2."""
     from midi_vae_tpu_torch.models.vae import unported_training
 
     wide = Config(lstm_size=512, compute_dtype="bfloat16")
     assert unported_training(wide) is None
     for variant in ({"fused_train_encoder": False}, {"fused_train_decoder": False}):
         assert unported_training(Config(lstm_size=512, compute_dtype="bfloat16", **variant)) is None
-    assert "Queue 1 item 2" in unported_training(Config(lstm_size=512, compute_dtype="bfloat16",
-                                                        cell_type="LSTM"))
+    assert unported_training(Config(lstm_size=512, compute_dtype="bfloat16",
+                                    cell_type="LSTM")) is None
     assert "Queue 1 item 2" in unported_training(Config(decode_residual_bf16=True))

@@ -160,8 +160,9 @@ def test_kernel_r_plain_version_matches_jax_bwd_wide(T):
         *map(jnp.asarray, (xp, hseq.numpy(), cseq.numpy(), h0, c0, np.zeros_like(hseq[:1]),
                            d_final, u)), False, True, 8)
     want_du = ft._lstm_wide_weight_grads(jnp.asarray(hseq.numpy()), jnp.asarray(h0), dacat)
-    da, got_dh0, got_dc0 = port_layer.lstm_layer_xp_bwd_reference(
+    da, got_dh0, got_dc0, da32 = port_layer.lstm_layer_xp_bwd_reference(
         _t(xp), hseq, cseq, _t(h0), _t(c0), None, _t(d_final), _t(u))
+    assert da32 is da  # in float32 the gate grads are dxp
     _close(da, dacat, GRAD_RTOL, GRAD_ATOL)
     _close(got_dh0, dh0, GRAD_RTOL, GRAD_ATOL)
     _close(got_dc0, dc0, GRAD_RTOL, GRAD_ATOL)
@@ -344,9 +345,9 @@ def test_lstm_training_takes_the_kernels_on_cuda(overrides):
     # S xp (row 31) is ported: the encoder takes it per step
     ({"fused_train_encoder": False}, None),
     # bf16 with the default flags runs the encoder's L, N and W (or Q, R and
-    # W) in bf16, not ported; without fused_train_encoder the whole-scan
-    # kernel Y (rows 32 and 33) and S's bf16 build are
-    ({"compute_dtype": "bfloat16"}, "rows 15-20"),
+    # W) in bf16 (rows 15-20); without fused_train_encoder the whole-scan
+    # kernel Y (rows 32 and 33) and S's bf16 build; all ported
+    ({"compute_dtype": "bfloat16"}, None),
     ({"fused_train_encoder": False, "compute_dtype": "bfloat16"}, None),
 ], ids=["no_fused_encoder", "bfloat16", "bfloat16_no_fused_encoder"])
 def test_unported_lstm_training_raises_naming_its_rows(overrides, rows):

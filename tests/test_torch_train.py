@@ -177,11 +177,10 @@ def test_optimizer_trajectories_match_jax(name):
     ({"compute_dtype": "bfloat16", "fused_train_encoder": False,
       "fused_train_decoder": False}, (True, True)),
     # LSTM trains on the card since its kernels (rows 15-20, 30 and 31) are
-    # ported; in bf16 with the default flags it raises naming the encoder's
-    # (S has its bf16 build)
+    # ported, in bf16 too (L, N, Q and R have bf16 builds, S has its own)
     ({"cell_type": "LSTM"}, True),
     ({"cell_type": "LSTM", "fused_train_encoder": False}, (True, True)),
-    ({"cell_type": "LSTM", "compute_dtype": "bfloat16"}, "rows 15-20"),
+    ({"cell_type": "LSTM", "compute_dtype": "bfloat16"}, (True, True)),
     # cells other than tanh train through the plain scans, as in the JAX
     # package (fused_train.py:2269, :1668, :3456, :981)
     ({"lstm_activation": "sigmoid"}, False),
