@@ -19,7 +19,8 @@ result line):
      builds of A, C, D, E, G, the wide D and E, L, N, Q, R, S, T and W, X
      (csrc/gru_encoder_scan.cu), Y
      (csrc/lstm_encoder_scan.cu), U (csrc/gru_encoder_stack_fwd.cu) and V
-     (csrc/gru_encoder_stack_bwd.cu); every build's
+     (csrc/gru_encoder_stack_bwd.cu), D's and E's bf16-residual builds and
+     E wide's bf16 build with row 8's rounding; every build's
      registers and spills from ptxas against the route chooser's table; the
      8-rows builds of D and E must refuse H = 512 at their C entry points;
   3. kernels: A and B against their plain PyTorch versions on the card, at
@@ -197,7 +198,29 @@ result line):
  38. that step and the bf16 LSTM(512)'s (Q and R in bf16 4 each, S bf16
      196, W bf16 4) card against CPU (bf16 limits), and one card step of
      each with fused_train_decoder=False: exact launch counts, a finite
-     loss, each step's time.
+     loss, each step's time;
+ 39. the last kernel instances a config reaches at H <= 512: at
+     Config(meta_held_notes=True)'s shapes (B = 256 and B = 5) the notes +
+     velocity and notes + velocity + held multi-head calls through D's
+     bf16-residual build (decode_residual_bf16: probs and logits equal to
+     the float32 build's bit for bit, the stored h sequences equal to its
+     rounded to bf16) and E's, and W over the rounded sequences, against
+     their plain versions at the training kernels' limits (E fed the
+     float32 sequences must land over them); at
+     Config(lstm_size=512, compute_dtype=bfloat16, batch_size=128)'s
+     instrument head (B = 128 and 5), rows 7 and 8 through D's wide bf16
+     build and E's wide bf16 build with row 8's rounding (its streams
+     unrounded, within STREAM_REL_L2 of the plain version's; row 14's
+     rounded build must land over it) and W; the autograd ops' gradients
+     against the plain backward; times, bounds;
+ 40. the train CLI with --set decode_residual_bf16=True and with --set
+     lstm_size=512 --set compute_dtype=bfloat16 --set batch_size=128, 2
+     epochs, --resume for a third, serving, every launch counter as
+     designed;
+ 41. one training step card against CPU of residual_bf16,
+     held_residual_bf16 and held_notes (float32 limits), held_bf16 and the
+     bf16 GRU(512) at B = 128 (bf16 limits), each step's time beside
+     Config()'s.
 Then one JSON line with the kernels, and the final line
 {"ok": true, "device": {...}}.
 """
@@ -349,7 +372,12 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "L_bf16": ("lstm_layer_fwd", "lstm_layer_fwd_kernel", BF16_ONLY),
           "N_bf16": ("lstm_layer_bwd", "lstm_layer_bwd_kernel", BF16_ONLY),
           "Q_bf16": ("lstm_layer_xp_fwd", "lstm_layer_xp_fwd_kernel", BF16_ONLY),
-          "R_bf16": ("lstm_layer_xp_bwd", "lstm_layer_xp_bwd_kernel", BF16_ONLY)}
+          "R_bf16": ("lstm_layer_xp_bwd", "lstm_layer_xp_bwd_kernel", BF16_ONLY),
+          # D's and E's bf16-residual builds (decode_residual_bf16) and E's
+          # wide bf16 build with row 8's rounding
+          "D_resid": ("gru_decode_train", "gru_decode_train_resid_kernel"),
+          "E_resid": ("gru_decode_bwd", "gru_decode_bwd_resid_kernel"),
+          "E_wide_row8_bf16": ("gru_decode_bwd", "gru_decode_bwd_wide_row8_kernel")}
 
 
 def check_registers():
@@ -382,9 +410,9 @@ def check_registers():
 
 def check_launch_bounds(found):
     """The C entry points of the 8-rows builds of D and E (and of their bf16
-    builds where ptxas's registers allow fewer than 512 threads) refuse
-    H = 512 before any launch (cudaErrorLaunchOutOfResources), as the route
-    chooser says."""
+    and bf16-residual builds where ptxas's registers allow fewer than 512
+    threads) refuse H = 512 before any launch
+    (cudaErrorLaunchOutOfResources), as the route chooser says."""
     import ctypes
 
     import torch
@@ -393,11 +421,9 @@ def check_launch_bounds(found):
 
     out_of_resources = 701  # cudaErrorLaunchOutOfResources
     refused = []
-    for letter, kernel, struct, dtype in (
-            ("D", gru_decode._fwd_kernel, gru_decode._DecodeHead, torch.float32),
-            ("E", gru_decode._bwd_kernel, gru_decode._DecodeHeadBwd, torch.float32),
-            ("D_bf16", gru_decode._fwd_kernel, gru_decode._DecodeHead, torch.bfloat16),
-            ("E_bf16", gru_decode._bwd_kernel, gru_decode._DecodeHeadBwd, torch.bfloat16)):
+    for letter in ("D", "E", "D_bf16", "E_bf16", "D_resid", "E_resid"):
+        struct = gru_decode._DecodeHead if letter[0] == "D" else gru_decode._DecodeHeadBwd
+        dtype = torch.bfloat16 if letter.endswith("_bf16") else torch.float32
         chooser = _layout.launch_limit(letter, 512, _layout.smem_bytes(letter, 512, 61, 2))
         if dtype == torch.float32 and chooser is None:
             raise RuntimeError(f"the route chooser lets kernel {letter} launch at H = 512")
@@ -407,7 +433,7 @@ def check_launch_bounds(found):
             raise RuntimeError(f"the route chooser lets kernel {letter} launch at H = 512, "
                                f"its build uses {found[letter]['registers']} registers")
         head = struct(D=61, n_layers=2, out_act=gru_decode.OUT_ACTIVATIONS["softmax"], T=64)
-        rc = kernel(False)[1][dtype](ctypes.byref(head), 1, B, 512, None)
+        rc = gru_decode._entry(letter)[1](ctypes.byref(head), 1, B, 512, None)
         if rc != out_of_resources:
             raise RuntimeError(f"kernel {letter} (8 rows) at H = 512 returned {rc}, "
                                f"not {out_of_resources} (cudaErrorLaunchOutOfResources)")
@@ -815,7 +841,8 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
             return sum((p * h["g_probs"]).sum() + (lg * h["g_logits"]).sum()
                        for (p, lg), h in zip(outs, heads))
 
-        got = torch.autograd.grad(functional(gd._decode_heads_train(lheads, wide)), wanted)
+        got = torch.autograd.grad(functional(gd._decode_heads_train(
+            lheads, ("D_wide", "E_wide") if wide else None)), wanted)
         want = torch.autograd.grad(functional([gd.gru_decode_train_reference(
             h["cells"], h["out"], h["init"], h["start"], h["T"], h["out_activation"])[:2]
             for h in lheads]), wanted)
@@ -1292,6 +1319,44 @@ PER_TRAIN_STEP = {
     "lstm_512_bf16": {"lstm_layer_xp_fwd_bf16": 4, "lstm_layer_xp_bwd_bf16": 4,
                       "lstm_step_bf16": S_PER_STEP, "grad_reduce_bf16": 4},
 }
+# decode_residual_bf16 (the soak's residual_bf16, held_residual_bf16): the
+# notes + velocity (+ held) multi-head call through D's and E's
+# bf16-residual builds, the instrument head through the float32 ones; W
+# over the rounded h sequences for each multi-head head's dWo and the notes
+# layer 2's dW (x = the rounded h1), in float32 for the rest: 3 per encoder
+# layer (4, or 5 with the held-notes branch), the instrument head's 4, and
+# the multi-head cells' dU over h_{t-1} beside the unrounded initial state,
+# r * h and layer 1's dW over the float32 probs (5 + 3 per side head)
+PER_TRAIN_STEP.update({
+    "residual_bf16": {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_decode_train_resid": 1,
+                      "gru_decode_train": 1, "gru_decode_bwd_resid": 1, "gru_decode_bwd": 1,
+                      "grad_reduce_bf16": 3, "grad_reduce": 24},
+    "held_residual_bf16": {"gru_layer_fwd": 5, "gru_layer_bwd": 5, "gru_decode_train_resid": 1,
+                           "gru_decode_train": 1, "gru_decode_bwd_resid": 1,
+                           "gru_decode_bwd": 1, "grad_reduce_bf16": 4, "grad_reduce": 30},
+    # meta_held_notes in float32: the held-notes branch (A + C, W 3) and the
+    # held head in the multi-head call (three heads in one D and E launch)
+    "held_notes": {"gru_layer_fwd": 5, "gru_layer_bwd": 5, "gru_decode_train": 2,
+                   "gru_decode_bwd": 2, "grad_reduce": 34},
+    # held_bf16: as "bf16" with the held branch (A, C bf16 and its W) and the
+    # held head (D = 2 < 8: promoted to float32, as velocity)
+    "held_bf16": {"gru_layer_fwd_bf16": 5, "gru_layer_bwd_bf16": 5, "gru_decode_train_bf16": 2,
+                  "gru_decode_train": 2, "gru_decode_bwd_bf16": 2, "gru_decode_bwd": 2,
+                  "grad_reduce_bf16": 18, "grad_reduce": 16},
+    # the bf16 GRU(512) at B = 128 (the TPU's rows per part): notes L1 and
+    # the branches through A and C in bf16 (rows 1, 4), notes L2 through X
+    # and G bf16 (rows 9, 10), the notes head through the wide D and E in
+    # bf16 (rows 13, 14), the instrument head's rows 7 and 8 through the wide
+    # D's bf16 build and E's row-8 build, the velocity head's (float32)
+    # through the wide float32 builds; W: 2 + 1 per A + C layer, 1 + 1 for
+    # notes L2's dU, 5 + 2 for the notes head, 3 + 1 for the instrument
+    # head, 4 float32 for the velocity head
+    "bf16_128_512": {"gru_layer_fwd_bf16": 3, "gru_layer_bwd_bf16": 3, "gru_encoder_scan": 1,
+                     "gru_layer_xp_bwd_bf16": 1, "gru_decode_train_wide_bf16": 2,
+                     "gru_decode_train_wide": 1, "gru_decode_bwd_wide_bf16": 1,
+                     "gru_decode_bwd_wide_row8_bf16": 1, "gru_decode_bwd_wide": 1,
+                     "grad_reduce_bf16": 15, "grad_reduce": 11},
+})
 PER_TRAIN_STEP["lstm_bf16_no_fused_decoder"] = PER_TRAIN_STEP["lstm_bf16"]
 PER_TRAIN_STEP["lstm_512_bf16_no_fused_decoder"] = PER_TRAIN_STEP["lstm_512_bf16"]
 PER_EVAL_BATCH = {  # forward only
@@ -1308,6 +1373,9 @@ PER_EVAL_BATCH = {  # forward only
     "wide_bf16": {"gru_encoder_scan": 4, "gru_decode_train_wide_bf16": 2,
                   "gru_decode_train_wide": 1},
     "lstm_bf16": {"lstm_layer_fwd_bf16": 4, "lstm_step_bf16": S_PER_STEP},
+    "residual_bf16": {"gru_layer_fwd": 4, "gru_decode_train_resid": 1, "gru_decode_train": 1},
+    "bf16_128_512": {"gru_layer_fwd_bf16": 3, "gru_encoder_scan": 1,
+                     "gru_decode_train_wide_bf16": 2, "gru_decode_train_wide": 1},
 }
 # an encode pass (the serving encoder in float32, kernel A or L, also for a
 # bf16 model: the JAX package's encode casts nothing): the test split's
@@ -1330,7 +1398,8 @@ def route_key(cfg, route):
 def kernel_counters():
     """Kernel name -> (wrapper, its counter attribute): ``launches``, or
     ``launches_bf16`` for the bf16 builds of T, S, A, C, D, E, G, the wide D
-    and E, W, L, N, Q and R."""
+    and E, W, L, N, Q and R, ``launches_resid`` for D's and E's
+    bf16-residual builds, ``launches_row8_bf16`` for E wide's row-8 build."""
     from midi_vae_tpu_torch.ops import encoder_scan as es
     from midi_vae_tpu_torch.ops import encoder_stack as est
     from midi_vae_tpu_torch.ops import gru_decode as gd
@@ -1362,6 +1431,9 @@ def kernel_counters():
                  "gru_decode_bwd_wide", "lstm_layer_fwd", "lstm_layer_bwd", "lstm_layer_xp_fwd",
                  "lstm_layer_xp_bwd"):
         counters[f"{name}_bf16"] = (counters[name][0], "launches_bf16")
+    counters["gru_decode_train_resid"] = (gd.gru_decode_fwd_train, "launches_resid")
+    counters["gru_decode_bwd_resid"] = (gd.gru_decode_bwd, "launches_resid")
+    counters["gru_decode_bwd_wide_row8_bf16"] = (gd.gru_decode_bwd_wide, "launches_row8_bf16")
     return counters
 
 
@@ -1481,10 +1553,11 @@ def phase_train_slice(work, sets=(), key=None):
 
 
 def phase_train_card_vs_cpu(smi, cfg, per_step, label):
-    """One training step of ``cfg`` on a fixed batch with padding rows and
-    numpy noise: loss, metrics and every parameter gradient, card against the
-    CPU plain path (a bf16 ``cfg`` to the BF16_* limits), with the card's
-    launch counters equal to ``per_step``; then the card's step time."""
+    """One training step of ``cfg`` on a fixed batch of ``cfg.batch_size``
+    windows with padding rows and numpy noise: loss, metrics and every
+    parameter gradient, card against the CPU plain path (a bf16 ``cfg`` to
+    the BF16_* limits), with the card's launch counters equal to
+    ``per_step``; then the card's step time."""
     import numpy as np
     import torch
 
@@ -1492,9 +1565,10 @@ def phase_train_card_vs_cpu(smi, cfg, per_step, label):
     from midi_vae_tpu_torch.tools.profile_train import random_train_batch
     from midi_vae_tpu_torch.training.trainer import VAETrainer
 
+    rows = cfg.batch_size
     params = MidiVAE(cfg).init_params(np.array([0, cfg.seed], np.uint32))
-    batch = random_train_batch(cfg, B, 4, valid=B - 6)
-    noise = (cfg.epsilon_std * np.random.RandomState(5).randn(B, cfg.latent_dim)).astype(np.float32)
+    batch = random_train_batch(cfg, rows, 4, valid=rows - 6)
+    noise = (cfg.epsilon_std * np.random.RandomState(5).randn(rows, cfg.latent_dim)).astype(np.float32)
     got = {}
     for device in ("cuda", "cpu"):
         trainer = VAETrainer(cfg, device)
@@ -1534,7 +1608,7 @@ def phase_train_card_vs_cpu(smi, cfg, per_step, label):
         if not (torch.isfinite(g).all() and err <= limit):
             raise RuntimeError(f"{label} grad {name}: max|card - CPU| {err:.3e} > {limit:.3e}")
         worst = max(worst, (err / limit, name))
-    print(f"[{label} card vs cpu] one step, {B} windows ({B - 6} valid): |dloss| "
+    print(f"[{label} card vs cpu] one step, {rows} windows ({rows - 6} valid): |dloss| "
           f"{errs['loss']:.3e}, max |dmetric| {max(errs.values()):.3e}; all {len(names)} gradients "
           f"within limits (closest: {worst[1]} at {worst[0]:.3f} of its limit); launches {per_step}")
 
@@ -1544,7 +1618,7 @@ def phase_train_card_vs_cpu(smi, cfg, per_step, label):
     for _ in range(3):
         trainer.train_step(state, tb)
     ms = median_ms(lambda: trainer.train_step(state, tb))
-    steps = B * cfg.output_length
+    steps = rows * cfg.output_length
     print(f"[{label} card vs cpu] training step on the card {ms:.3f} ms (median of {REPS}, CUDA "
           f"events) = {steps / ms * 1e3:.1f} note-steps/s on {smi}")
     return {"step_ms": ms, "note_steps_per_s": steps / ms * 1e3,
@@ -2835,6 +2909,13 @@ W_REL_L2 = 1e-5
 # off by up to half a bf16 step in every entry (about 1e-3), and the
 # controls of check_wide_controls must land over the limit
 STREAM_REL_L2 = 2e-4
+# E's bf16-residual build (phase 39) against its plain version over the same
+# rounded h sequences: float32 on both sides, sums in another order, so each
+# gradient is held to rel() and to RESID_REL_L2 relative L2 (on the H100,
+# NVIDIA H100 80GB HBM3, 700 W: at most 8.2e-7). E's float32 build fed the
+# unrounded sequences, each h entry off by up to half a bf16 step, must land
+# over one of the two (there: 2.7 and 3.8 times them)
+RESID_REL_L2 = 1e-5
 
 
 def layer_flops_bf16(T, B, w, u):
@@ -2862,6 +2943,21 @@ def decode_flops_bf16(T, B, cells, wo):
     return bf, f32
 
 
+def decode_bwd_flops_bf16(T, B, cells, wo):
+    """(bf16 x bf16, float32-rate) operations of E's bf16 builds (the
+    cell_bwd_flops of each cell and the readout's transpose, split by
+    operand type): the gate recompute's x @ W (the stored bf16 probs or h1)
+    and h_{t-1} @ U[:, :2H] (the stored bf16 h) are bf16 products;
+    (r * h) @ U[:, 2H:] (r * h in float32), da @ W^T, da @ U^T and
+    dlogits @ Wo^T take a float32 operand."""
+    bf, f32 = 0, 2 * T * B * wo.numel()
+    for c in cells:
+        H = c["u"].shape[0]
+        bf += 2 * T * B * (c["w"].numel() + 2 * H * H)
+        f32 += 2 * T * B * (H * H + c["w"].numel() + c["u"].numel())
+    return bf, f32
+
+
 def plain_layer_vjp(x, h0, w, b, u, rs, g):
     """The gradients of ``gru_layer_train_x`` through the plain versions of
     A, C and W (the CPU path's explicit float32 transposition), cast as the
@@ -2877,9 +2973,10 @@ def plain_layer_vjp(x, h0, w, b, u, rs, g):
     return dx, dh0, dw.to(w.dtype), db.to(b.dtype), du.to(u.dtype)
 
 
-def plain_decode_vjp(head, g_probs, g_logits, wide=False):
+def plain_decode_vjp(head, g_probs, g_logits, wide=False, fwd=None):
     """The gradients of one head's training decode through the plain versions
-    of D, E (``wide``: E's wide build, its streams rounded) and W, in
+    of D (or over ``fwd``, the (probs, h sequences) a kernel stored), E
+    (``wide``: E's wide build, its streams rounded) and W, in
     ``_flatten_head`` order, cast to the inputs' dtypes."""
     import torch
 
@@ -2887,8 +2984,8 @@ def plain_decode_vjp(head, g_probs, g_logits, wide=False):
     from midi_vae_tpu_torch.ops.grad_reduce import grad_reduce_reference
 
     h = head
-    probs, _, h_seqs = gd.gru_decode_train_reference(h["cells"], h["out"], h["init"], h["start"],
-                                                      h["T"], h["out_activation"])
+    probs, h_seqs = fwd or gd.gru_decode_train_reference(
+        h["cells"], h["out"], h["init"], h["start"], h["T"], h["out_activation"])[::2]
     g = gd.gru_decode_bwd_reference(h["cells"], h["out"], h["init"], h["start"], probs, h_seqs,
                                     g_probs, g_logits, h["out_activation"], wide)
     T, (rows, D), H = h["T"], h["start"].shape, h["init"][0].shape[-1]
@@ -3107,15 +3204,16 @@ def phase_bf16_fused_kernels():
             head.update(probs=probs, h_seqs=h_seqs, g_probs=cot(probs.shape),
                         g_logits=cot(probs.shape))
             bwd_flat = lambda o: (o["dlogits"], *o["da"], *o["rh"], *o["d_init"], o["d_start"])  # noqa: E731
+            eb, ef = decode_bwd_flops_bf16(T, rows, head["cells"], head["out"]["w"])
             out = run(f"E bf16 {tag}", lambda h_=head: bwd_flat(gd.gru_decode_bwd([h_])[0]),
                       lambda h_=head: bwd_flat(gd.gru_decode_bwd_reference(
                           h_["cells"], h_["out"], h_["init"], h_["start"], h_["probs"],
                           h_["h_seqs"], h_["g_probs"], h_["g_logits"], h_["out_activation"])),
                       [rel] * (1 + n) + [H_ATOL] * n + [BF16_OUT] * (n + 1),
-                      flops=2 * T * rows * head["out"]["w"].numel()
-                      + sum(cell_bwd_flops(T, rows, c["w"], c["u"]) for c in head["cells"]),
+                      flops=eb, flops_f32=ef,
                       inputs=[head[k] for k in ("cells", "out", "init", "start", "probs",
-                                                "h_seqs", "g_probs", "g_logits")])
+                                                "h_seqs", "g_probs", "g_logits")],
+                      peak=PEAK_BF16_FLOPS)
             if timed:
                 results["gru_decode_bwd_bf16"][name] = out
             g = gd.gru_decode_bwd_reference(head["cells"], head["out"], head["init"], head["start"],
@@ -3370,13 +3468,14 @@ def phase_bf16_wide_kernels():
             bwd_flat = lambda o: (o["dlogits"], *o["da"], *o["rh"], *o["d_init"], o["d_start"])  # noqa: E731
             # dlogits and the gate grads leave as bf16 values: a flip of a
             # float32 sum's order moves an entry by one bf16 step (BF16_OUT)
+            eb, ef = decode_bwd_flops_bf16(T, rows, head["cells"], head["out"]["w"])
             out = run(f"E wide bf16 {tag}", lambda h_=head: bwd_flat(gd.gru_decode_bwd_wide([h_])[0]),
                       lambda h_=head: bwd_flat(plain_e(h_)),
                       [BF16_OUT] * (1 + n) + [H_ATOL] * n + [BF16_OUT] * (n + 1),
-                      flops=2 * T * rows * head["out"]["w"].numel()
-                      + sum(cell_bwd_flops(T, rows, c["w"], c["u"]) for c in head["cells"]),
+                      flops=eb, flops_f32=ef,
                       inputs=[head[k] for k in ("cells", "out", "init", "start", "probs",
-                                                "h_seqs", "g_probs", "g_logits")])
+                                                "h_seqs", "g_probs", "g_logits")],
+                      peak=PEAK_BF16_FLOPS)
             if timed:
                 results["gru_decode_bwd_wide_bf16"][name] = out
             # the streams pass 2 sums (row 14's rounding): each holds bf16
@@ -3435,7 +3534,7 @@ def phase_bf16_wide_kernels():
             # D + E + W against the plain backward
             leaves = [t.clone().requires_grad_() for t in gd._flatten_head(head)]
             lhead = dict(head, **gd._unflatten_heads([(n, out_act, T)], leaves)[0])
-            got_p, got_l = gd._decode_heads_train([lhead], wide=True)[0]
+            got_p, got_l = gd._decode_heads_train([lhead], ("D_wide_bf16", "E_wide_bf16"))[0]
             got = torch.autograd.grad((got_p, got_l), leaves, (head["g_probs"], head["g_logits"]))
             want = plain_decode_vjp(head, head["g_probs"], head["g_logits"], wide=True)
             check(f"D+E+W wide bf16 grads {name} B={rows}", lambda: got, lambda: want,
@@ -3782,6 +3881,294 @@ def check_lstm_controls(found):
                                f"inside {limits[what]:.1e}")
 
 
+def head_weight_grads(head, g):
+    """The weight-grad reductions of one head from E's outputs ``g``, as
+    (a, b) pairs in the order ``_DecodeTrain`` runs them: dWo (and dbo) over
+    the top h sequence, then per cell dW (and db) over x, dU[:, :2H] over
+    h_{t-1}, dU[:, 2H:] over r * h."""
+    import torch
+
+    T, (rows, D), H = head["T"], head["start"].shape, head["init"][0].shape[-1]
+    pairs = [(head["h_seqs"][-1].reshape(T * rows, H), g["dlogits"].reshape(T * rows, D))]
+    for i in range(len(head["cells"])):
+        x = (head["h_seqs"][i - 1] if i else
+             torch.cat([head["start"][None], head["probs"][:-1]]))
+        hprev = torch.cat([head["init"][i][None], head["h_seqs"][i][:-1]])
+        da = g["da"][i].reshape(T * rows, 3 * H)
+        pairs += [(x.reshape(T * rows, -1), da), (hprev.reshape(T * rows, H), da[:, : 2 * H]),
+                  (g["rh"][i].reshape(T * rows, H), da[:, 2 * H :])]
+    return pairs
+
+
+def run_weight_grads(pairs, kernel):
+    """The reductions of ``head_weight_grads`` through W (``kernel``) or its
+    plain version, each with the column sums where _DecodeTrain takes them
+    (dbo, db)."""
+    import torch
+
+    from midi_vae_tpu_torch.ops.grad_reduce import grad_reduce, grad_reduce_reference
+
+    outs = []
+    for k, (a, b) in enumerate(pairs):
+        with_bias = k == 0 or k % 3 == 1
+        if kernel:
+            out = torch.empty(a.shape[1], b.shape[1], device=b.device)
+            bias = torch.empty(b.shape[1], device=b.device) if with_bias else None
+            grad_reduce(a, b, out, bias)
+            outs += [out] + ([bias] if with_bias else [])
+        else:
+            c, bias = grad_reduce_reference(a, b, with_bias)
+            outs += [c] + ([bias] if with_bias else [])
+    return tuple(outs)
+
+
+def cublas_pairs(pairs):
+    """The reductions of ``head_weight_grads`` as cuBLAS's ``a.t() @ b`` on
+    the widened operands, with the same column sums: W's library call."""
+    return tuple(t for k, (a, b) in enumerate(pairs)
+                 for t in ((a.float().t() @ b, b.sum(0)) if k == 0 or k % 3 == 1
+                           else (a.float().t() @ b,)))
+
+
+def phase_residual_kernels():
+    """Phase 39: the last kernel instances a config reaches at H <= 512.
+    (1) decode_residual_bf16 at Config(meta_held_notes=True)'s shapes,
+    B = 256 and B = 5: the notes + velocity and notes + velocity + held
+    multi-head calls through D's bf16-residual build
+    (csrc/gru_decode_train.cu), whose probs and logits must equal the float32
+    build's bit for bit and whose stored h sequences must equal the float32
+    build's rounded to bf16; E's bf16-residual build (csrc/gru_decode_bwd.cu)
+    over the plain forward's rounded sequences and W over them, against
+    their plain versions at the training kernels' limits, with a control (E
+    fed the float32 sequences must land over the limit); the autograd op's
+    gradients against the plain backward. (2) Rows 7 and 8 in bf16 at H = 512
+    (Config(lstm_size=512, compute_dtype=bfloat16, batch_size=128)'s
+    instrument head, B = 128 and B = 5): D's wide bf16 build (row 7's
+    forward is row 13's), E's wide bf16 build with row 8's rounding, W over
+    its unrounded streams, against their plain versions at the bf16 limits;
+    its streams within STREAM_REL_L2 of the plain version's and not all
+    bf16 values, where row 14's rounded build must land over STREAM_REL_L2;
+    the autograd op's gradients against the plain backward. Times (CUDA
+    events), bounds."""
+    import torch
+
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.models.rnn import init_decoder_states
+    from midi_vae_tpu_torch.models.vae import MidiVAE, _cast_tree
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+
+    bf, dev = torch.bfloat16, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(39)
+    keys = ("gru_decode_train_resid", "gru_decode_bwd_resid", "grad_reduce_resid",
+            "gru_decode_train_rows78", "gru_decode_bwd_wide_row8_bf16", "grad_reduce_rows78_bf16")
+    results = {k: {} for k in keys}
+    found = {}
+    fwd_flat = lambda outs: tuple(t for p, l, hs in outs for t in (p, l, *hs))  # noqa: E731
+    bwd_flat = lambda outs: tuple(t for o in outs for t in (  # noqa: E731
+        o["dlogits"], *o["da"], *o["rh"], *o["d_init"], o["d_start"]))
+
+    def heads_of(cfg, dec, new_encoded, rows, names, dtype=torch.float32):
+        spec = {"notes": (cfg.output_dim, cfg.output_length, cfg.activation),
+                "velocity": (1, cfg.meta_velocity_length, cfg.meta_velocity_activation),
+                "held": (2, cfg.meta_held_notes_length, cfg.meta_held_notes_activation),
+                "instrument": (cfg.meta_instrument_dim, cfg.meta_instrument_length,
+                               cfg.meta_instrument_activation)}
+        out = []
+        for name in names:
+            d, T, out_act = spec[name]
+            h = dec[name]
+            with torch.no_grad():
+                states = init_decoder_states(h["init"], new_encoded, cfg.cell_type,
+                                             cfg.lstm_state_activation)
+            out.append({"cells": [{k: c[k].detach() for k in "wub"} for c in h["cells"]],
+                        "out": {k: h["out"][k].detach() for k in "wb"},
+                        "init": [s_[0].detach() for s_ in states],
+                        "start": torch.zeros(rows, d, device=dev, dtype=dtype), "T": T,
+                        "out_activation": out_act})
+        return out
+
+    def with_residuals(heads, rdt, wide=False):
+        """The plain forward's probs and (``rdt``) h sequences, and random
+        incoming grads, on each head."""
+        with torch.no_grad():
+            for h in heads:
+                h["probs"], _l, h["h_seqs"] = gd.gru_decode_train_reference(
+                    h["cells"], h["out"], h["init"], h["start"], h["T"], h["out_activation"], rdt)
+                h["g_probs"] = torch.randn(h["probs"].shape, generator=gen, device=dev).to(
+                    h["probs"].dtype)
+                h["g_logits"] = torch.randn(h["probs"].shape, generator=gen, device=dev).to(
+                    h["probs"].dtype)
+
+    def plain_e(h, wide=False):
+        return gd.gru_decode_bwd_reference(h["cells"], h["out"], h["init"], h["start"], h["probs"],
+                                           h["h_seqs"], h["g_probs"], h["g_logits"],
+                                           h["out_activation"], wide)
+
+    def autograd_check(tag, heads, vjp_limit, builds):
+        """The autograd op's gradients against the plain backward (E and W)
+        over the sequences the kernels store: a sequence entry that a
+        float32 sum in another order rounds the other way in bf16 would
+        otherwise move the plain backward, not the op."""
+        fwd = [(p, hs) for p, _l, hs in gd.gru_decode_fwd_train(heads, builds[0])]
+        leaves = [[t.clone().requires_grad_() for t in gd._flatten_head(h)] for h in heads]
+        lheads = [dict(h, **gd._unflatten_heads([(len(h["cells"]), h["out_activation"], h["T"])],
+                                                 lv)[0]) for h, lv in zip(heads, leaves)]
+        outs = gd._decode_heads_train(lheads, builds)
+        got = torch.autograd.grad([t for o in outs for t in o], [t for lv in leaves for t in lv],
+                                  [g for h in heads for g in (h["g_probs"], h["g_logits"])])
+        want = [t for h, f in zip(heads, fwd) for t in plain_decode_vjp(
+            h, h["g_probs"], h["g_logits"], False, f)]
+        check(tag, lambda: got, lambda: tuple(want), [vjp_limit] * len(want))
+
+    # (1) decode_residual_bf16: the multi-head calls of Config(meta_held_notes=True)
+    cfg = Config(meta_held_notes=True)
+    model = MidiVAE(cfg).to(dev)
+    for rows in (B, RAGGED):
+        timed = rows == B
+        run = compare if timed else check
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in random_batch(cfg, rows, 39).items()}
+        with torch.no_grad():
+            z = model.encode(batch)
+        new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
+        for call, names in (("notes+velocity", ("notes", "velocity")),
+                            ("notes+velocity+held", ("notes", "velocity", "held"))):
+            heads = heads_of(cfg, model.params["decoder"], new_encoded, rows, names)
+            desc = " + ".join(f"{len(h['cells'])}L D={h['start'].shape[1]}" for h in heads)
+            resid, exact = gd.gru_decode_fwd_train(heads, "D_resid"), gd.gru_decode_fwd_train(heads)
+            torch.cuda.synchronize()
+            for (p, lg, hs), (fp, fl, fhs) in zip(resid, exact):
+                if not (torch.equal(p, fp) and torch.equal(lg, fl)):
+                    raise RuntimeError(f"D resid {call} B={rows}: probs or logits differ from the "
+                                       "float32 build's")
+                if not all(x.dtype == bf and torch.equal(x, y.to(bf)) for x, y in zip(hs, fhs)):
+                    raise RuntimeError(f"D resid {call} B={rows}: a stored h sequence is not the "
+                                       "float32 build's rounded to bf16")
+            limits = [lim for h in heads for lim in [H_ATOL, LOGITS_ATOL] + [BF16_OUT] * len(h["cells"])]
+            out = run(f"D resid {call} ({desc})", lambda h=heads: fwd_flat(gd.gru_decode_fwd_train(h, "D_resid")),
+                      lambda h=heads: fwd_flat([gd.gru_decode_train_reference(
+                          x["cells"], x["out"], x["init"], x["start"], x["T"], x["out_activation"], bf)
+                          for x in h]), limits,
+                      flops=sum(decode_flops(h["T"], rows, h["cells"], h["out"]["w"]) for h in heads),
+                      inputs=[[h["cells"], h["out"], h["init"], h["start"]] for h in heads])
+            if timed:
+                results["gru_decode_train_resid"][call] = out
+            with_residuals(heads, bf)
+            grad = (rel, RESID_REL_L2)
+            limits = [lim for h in heads for lim in
+                      [grad] * (1 + len(h["cells"])) + [H_ATOL] * len(h["cells"])
+                      + [grad] * (len(h["cells"]) + 1)]
+            out = run(f"E resid {call}", lambda h=heads: bwd_flat(gd.gru_decode_bwd(h, "E_resid")),
+                      lambda h=heads: bwd_flat([plain_e(x) for x in h]), limits,
+                      flops=sum(2 * h["T"] * rows * h["out"]["w"].numel()
+                                + sum(cell_bwd_flops(h["T"], rows, c["w"], c["u"])
+                                      for c in h["cells"]) for h in heads),
+                      inputs=[[h[k] for k in ("cells", "out", "init", "start", "probs", "h_seqs",
+                                              "g_probs", "g_logits")] for h in heads])
+            if timed:
+                results["gru_decode_bwd_resid"][call] = out
+                # the control: E's float32 build fed the unrounded sequences
+                want = bwd_flat([plain_e(x) for x in heads])
+                f32 = [dict(h, h_seqs=gd.gru_decode_train_reference(
+                    h["cells"], h["out"], h["init"], h["start"], h["T"], h["out_activation"])[2])
+                    for h in heads]
+                wrong = bwd_flat(gd.gru_decode_bwd(f32))
+                # the largest share of either limit it reaches (over 1: outside)
+                found[f"E fed the float32 sequences, {call}"] = max(
+                    max((g - w).abs().max().item() / rel(w), rel_l2(g, w) / RESID_REL_L2)
+                    for g, w, lim in zip(wrong, want, limits) if lim is grad)
+            for k, h in enumerate(heads):
+                pairs = head_weight_grads(h, plain_e(h))
+                n = len(pairs) + 1 + len(h["cells"])
+                # dWo (and notes layer 2's dW) over the rounded sequences:
+                # W's bf16 build; the rest float32
+                out = run(f"W resid {call} head {k}", lambda p=pairs: run_weight_grads(p, True),
+                          lambda p=pairs: run_weight_grads(p, False), [rel] * n,
+                          flops=sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in pairs),
+                          inputs=pairs, library_fn=lambda p=pairs: cublas_pairs(p))
+                if timed:
+                    results["grad_reduce_resid"][f"{call} head {k}"] = out
+            autograd_check(f"D+E+W resid grads {call} B={rows}", heads, rel,
+                           ("D_resid", "E_resid"))
+
+    # (2) rows 7 and 8 in bf16 at H = 512: the instrument head at B = 128
+    cfg = Config(lstm_size=512, compute_dtype="bfloat16", batch_size=128)
+    model = MidiVAE(cfg).to(dev)
+    dec = _cast_tree(model.params, bf)["decoder"]
+    for rows in (cfg.batch_size, RAGGED):
+        timed = rows == cfg.batch_size
+        run = compare if timed else check
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in random_batch(cfg, rows, 40).items()}
+        with torch.no_grad():
+            z = model.encode(batch).to(bf)
+        new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
+        (head,) = heads_of(cfg, dec, new_encoded, rows, ("instrument",), bf)
+        n, T = len(head["cells"]), head["T"]
+        tag = f"instrument (1L D={head['start'].shape[1]} T={T}) B={rows}"
+        fb, ff = decode_flops_bf16(T, rows, head["cells"], head["out"]["w"])
+        out = run(f"D wide bf16 (row 7) {tag}",
+                  lambda: fwd_flat(gd.gru_decode_fwd_train_wide([head])),
+                  lambda: fwd_flat([gd.gru_decode_train_reference(
+                      head["cells"], head["out"], head["init"], head["start"], T,
+                      head["out_activation"])]), [BF16_OUT] * (2 + n), flops=fb, flops_f32=ff,
+                  inputs=[head["cells"], head["out"], head["init"], head["start"]],
+                  peak=PEAK_BF16_FLOPS)
+        if timed:
+            results["gru_decode_train_rows78"]["instrument"] = out
+        with_residuals([head], None)
+        eb, ef = decode_bwd_flops_bf16(T, rows, head["cells"], head["out"]["w"])
+        out = run(f"E wide row8 bf16 {tag}",
+                  lambda: bwd_flat(gd.gru_decode_bwd_wide([head], "E_wide_row8_bf16")),
+                  lambda: bwd_flat([plain_e(head)]),
+                  [BF16_OUT] * (1 + n) + [H_ATOL] * n + [BF16_OUT] * (n + 1),
+                  flops=eb, flops_f32=ef,
+                  inputs=[head[k] for k in ("cells", "out", "init", "start", "probs", "h_seqs",
+                                            "g_probs", "g_logits")],
+                  peak=PEAK_BF16_FLOPS)
+        if timed:
+            results["gru_decode_bwd_wide_row8_bf16"]["instrument"] = out
+        # the streams W sums: unrounded (row 8), within STREAM_REL_L2 of the
+        # plain version's, where row 14's rounded build lands over it
+        ke = gd.gru_decode_bwd_wide([head], "E_wide_row8_bf16")[0]
+        r14 = gd.gru_decode_bwd_wide([head])[0]
+        pe = plain_e(head)
+        streams = [("dlogits", None)] + [(f"da{k + 1}", k) for k in range(n)]
+        pick = lambda o, i: o["dlogits"] if i is None else o["da"][i]  # noqa: E731
+        if all(torch.equal(pick(ke, i), pick(ke, i).to(bf).float()) for _, i in streams):
+            raise RuntimeError(f"E wide row8 bf16 {tag}: every stream holds bf16 values")
+        for what, i in streams:
+            err = rel_l2(pick(ke, i), pick(pe, i))
+            if not err <= STREAM_REL_L2:
+                raise RuntimeError(f"E wide row8 bf16 {tag}: its {what} lies {err:.3e} from the "
+                                   f"plain version's, over {STREAM_REL_L2:.1e}")
+            if timed:
+                found[f"E wide row8 instrument {what} (the kernel)"] = err
+                found[f"E wide row8 instrument {what}: row 14's rounded build"] = rel_l2(
+                    pick(r14, i), pick(pe, i))
+        pairs = head_weight_grads(head, pe)
+        out = run(f"W bf16 rows 7, 8 {tag} (unrounded streams)",
+                  lambda p=pairs: run_weight_grads(p, True),
+                  lambda p=pairs: run_weight_grads(p, False), [(rel, W_REL_L2)] * (len(pairs) + 1 + n),
+                  flops=sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in pairs),
+                  inputs=pairs, library_fn=lambda p=pairs: cublas_pairs(p))
+        if timed:
+            results["grad_reduce_rows78_bf16"]["instrument"] = out
+        autograd_check(f"D+E+W rows 7, 8 bf16 grads {tag}", [head], BF16_GRAD_OP,
+                       ("D_wide_bf16", "E_wide_row8_bf16"))
+    limits = {k: (1.0 if k.startswith("E fed") else STREAM_REL_L2) for k in found
+              if k.startswith("E fed") or k.endswith("rounded build")}
+    print("[residual kernels] the controls (E fed the float32 sequences: its largest share of "
+          "the limits rel() and RESID_REL_L2; the streams: relative L2): " + ", ".join(
+        f"{k} {v:.3e}" + (f" (must exceed {limits[k]:.1e})" if k in limits else "")
+        for k, v in found.items()))
+    for what, lim in limits.items():
+        if not found[what] > lim:
+            raise RuntimeError(f"the control {what} lands at {found[what]:.3e}, inside {lim:.1e}")
+    print(f"[residual kernels] D and E resid, the wide D and E's row-8 build in bf16 and W agree "
+          f"with their plain versions at B = {B}, 128 and {RAGGED}; the autograd ops' gradients "
+          "with the plain backward")
+    return results
+
+
 def phase_train_step_card(smi, cfg, per_step, label):
     """One training step of ``cfg`` on the card (the batch and noise of
     ``phase_train_card_vs_cpu``): a finite loss and metrics, every gradient
@@ -3793,9 +4180,10 @@ def phase_train_step_card(smi, cfg, per_step, label):
     from midi_vae_tpu_torch.tools.profile_train import random_train_batch
     from midi_vae_tpu_torch.training.trainer import VAETrainer
 
+    rows = cfg.batch_size
     params = MidiVAE(cfg).init_params(np.array([0, cfg.seed], np.uint32))
-    batch = random_train_batch(cfg, B, 4, valid=B - 6)
-    noise = (cfg.epsilon_std * np.random.RandomState(5).randn(B, cfg.latent_dim)).astype(np.float32)
+    batch = random_train_batch(cfg, rows, 4, valid=rows - 6)
+    noise = (cfg.epsilon_std * np.random.RandomState(5).randn(rows, cfg.latent_dim)).astype(np.float32)
     trainer = VAETrainer(cfg, "cuda")
     state = trainer.new_state(params)
     tb = trainer.to_device(batch)
@@ -3811,7 +4199,7 @@ def phase_train_step_card(smi, cfg, per_step, label):
     for _ in range(3):
         trainer.train_step(state, tb)
     ms = median_ms(lambda: trainer.train_step(state, tb))
-    steps = B * cfg.output_length
+    steps = rows * cfg.output_length
     print(f"[{label}] one step on the card: loss {values[0]:.4f}, every gradient finite, launches "
           f"{per_step}; training step {ms:.3f} ms (median of {REPS}, CUDA events) = "
           f"{steps / ms * 1e3:.1f} note-steps/s on {smi}")
@@ -3993,6 +4381,31 @@ def main() -> int:
         # LSTM(512) bf16 has no train CLI run: its steps' launches are its path's
         for k in (key, f"{key}_no_fused_decoder"):
             paths[f"step_{k}"] = bf16_steps[k]["launches"]
+    # the last kernel instances a config reaches at H <= 512: D's and E's
+    # bf16-residual builds (decode_residual_bf16) and rows 7 and 8 in bf16 at
+    # H = 512 (E wide's row-8 build); the train CLI on both configs; their
+    # steps and the held-notes configs' card vs CPU
+    results.update(phase_residual_kernels())
+    for path, key, sets in (
+            ("train_residual_bf16", "residual_bf16", ["decode_residual_bf16=True"]),
+            ("train_bf16_128_512", "bf16_128_512",
+             ["lstm_size=512", "compute_dtype=bfloat16", "batch_size=128"])):
+        with tempfile.TemporaryDirectory() as work:
+            paths[path] = phase_train_slice(work, sets, key)
+    residual_steps = {}
+    for key, overrides in (
+            ("residual_bf16", {"decode_residual_bf16": True}),
+            ("held_residual_bf16", {"decode_residual_bf16": True, "meta_held_notes": True}),
+            ("held_notes", {"meta_held_notes": True}),
+            ("held_bf16", {"meta_held_notes": True, "compute_dtype": "bfloat16"}),
+            ("bf16_128_512", {"lstm_size": 512, "compute_dtype": "bfloat16", "batch_size": 128})):
+        residual_steps[key] = phase_train_card_vs_cpu(smi, Config(**overrides),
+                                                      PER_TRAIN_STEP[key], f"{key} train")
+        paths[f"step_{key}"] = residual_steps[key]["launches"]
+    print(f"[residual steps] training step ms on the card (CUDA events, median of {REPS}): "
+          f"Config() {step['step_ms']:.3f} (B = {B}); " + ", ".join(
+              f"{k} {v['step_ms']:.3f}" for k, v in residual_steps.items())
+          + f" (bf16_128_512 at B = 128) on {smi}")
     for path, counts in paths.items():
         for name in ("gru_encoder_stack_fwd", "gru_encoder_stack_bwd"):
             if counts.get(name, 0):
@@ -4126,6 +4539,20 @@ def main() -> int:
         "lstm_layer_xp_bwd_bf16": ("R bf16", "lstm_layer_xp_bwd.cu", "fused_train.py:1922",
                                    ["fused_train.py:1984", "fused_train.py:1383",
                                     "fused_train.py:1448"]),
+        # rows 5 and 6 with bf16 residuals (decode_residual_bf16):
+        # _mh_fwd_kernel (through multihead_decode_train_fwd) storing the h
+        # sequences in bf16, _mh_bwd_kernel (multihead_decode_train_bwd)
+        # reading them (its weight-grad sums: W)
+        "gru_decode_train_resid": ("D resid", "gru_decode_train.cu", "fused_train.py:3089",
+                                   ["fused_train.py:3262"]),
+        "gru_decode_bwd_resid": ("E resid", "gru_decode_bwd.cu", "fused_train.py:3145",
+                                 ["fused_train.py:3331"]),
+        # row 8 in a bf16 model where its 8-row build does not launch (H =
+        # 512): _dec_bwd1/2_kernel through _dec_bwd_pallas (its weight-grad
+        # sums: W bf16); row 7's forward is D wide bf16's ("ms_rows78")
+        "gru_decode_bwd_wide_row8_bf16": ("E wide row8 bf16", "gru_decode_bwd.cu",
+                                          "fused_train.py:602",
+                                          ["fused_train.py:533", "fused_train.py:650"]),
     }
     # per kernel: the calls of one step or transfer at other shapes
     extra = {"gru_layer_fwd": [("ms_h512", "gru_layer_512")],
@@ -4143,7 +4570,10 @@ def main() -> int:
                                   ("ms_wide_bf16", "gru_encoder_scan_wide_bf16")],
              "grad_reduce_bf16": [("ms_wide_bf16_step", "grad_reduce_wide_bf16"),
                                   ("ms_lstm_bf16_step", "grad_reduce_lstm_bf16"),
-                                  ("ms_lstm_512_bf16_step", "grad_reduce_lstm_512_bf16")],
+                                  ("ms_lstm_512_bf16_step", "grad_reduce_lstm_512_bf16"),
+                                  ("ms_resid", "grad_reduce_resid"),
+                                  ("ms_rows78", "grad_reduce_rows78_bf16")],
+             "gru_decode_train_wide_bf16": [("ms_rows78", "gru_decode_train_rows78")],
              "lstm_encoder_scan": [("ms_h512", "lstm_encoder_scan_512")],
              "gru_encoder_stack_fwd": [("ms_stack2", "stack2_fwd"),
                                        ("ms_stack2_bf16", "stack2_bf16_fwd"),
@@ -4195,7 +4625,7 @@ def main() -> int:
                       "judges_card_vs_cpu": judges, "train_step_lstm": lstm_steps[256],
                       "train_step_lstm_512": lstm_steps[512], "judge_train_step": judge_steps,
                       "train_step_per_step_cells": per_step_steps,
-                      "train_step_bf16": bf16_steps,
+                      "train_step_bf16": bf16_steps, "train_step_residual": residual_steps,
                       "lstm_fwd_bwd_vs_cudnn": results["lstm_fwd_bwd_vs_cudnn"],
                       "encoder_stack_vs_per_layer": results["encoder_route"], "power": smi,
                       "wall_s": wall_s}))

@@ -21,6 +21,12 @@
 // layer's float h; only what the Pallas kernel stores is rounded to bf16:
 // the carried states (after the readout has read them), the h sequences,
 // probs and logits, and the probs fed back as the next input.
+//
+// TS is the type the h sequences are stored as: TV, or bf16 in kernel D's
+// bf16-residual build (a float model with decode_residual_bf16,
+// _mh_fwd_kernel storing h1seq, h2seq and hkseq in residual_dtype): the
+// carries, probs and logits stay float and bit-equal to the float build's,
+// and only the stored sequences are rounded.
 #pragma once
 
 #include "gru_common.cuh"
@@ -32,7 +38,8 @@ inline size_t decode_smem_floats(int n_layers, int D, int H, int rows = kRows) {
   return (size_t)rows * (2 * D + (n_layers + 1) * H);
 }
 
-template <int NL, int ACT, int OUT, int R = kRows, typename TV = float>
+template <int NL, int ACT, int OUT, int R = kRows, typename TV = float,
+          typename TS = TV>
 __device__ __forceinline__ void decode_head(
     const TV* __restrict__ start, const TV* __restrict__ h1_0,
     const nondeduced<TV>* __restrict__ h2_0,
@@ -42,7 +49,7 @@ __device__ __forceinline__ void decode_head(
     const nondeduced<TV>* __restrict__ b2,
     const TV* __restrict__ wo, const TV* __restrict__ bo,
     TV* __restrict__ probs, TV* __restrict__ logits,
-    nondeduced<TV>* __restrict__ h1seq, nondeduced<TV>* __restrict__ h2seq,
+    nondeduced<TS>* __restrict__ h1seq, nondeduced<TS>* __restrict__ h2seq,
     int T, int B, int D, int H, float* smem) {
   float* x_s = smem;             // (D, R) fed-back probs
   float* l_s = x_s + R * D;      // (D, R) logits

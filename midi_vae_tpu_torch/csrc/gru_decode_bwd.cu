@@ -58,6 +58,27 @@
 // dlogits and each layer's gate grads leave as bf16 values in float, which
 // kernel W then sums in float. The carries read the unrounded values, as
 // the Pallas kernels do; r * h stays float (pass 2 recomputes r in float).
+//
+// The wide bf16 build has a second twin with row 8's rounding
+// (mvt_gru_decode_bwd_wide_row8_bf16), for a bf16 model whose head the JAX
+// package runs through _dec_bwd1/2_kernel (rows 7 and 8: _dec_train_vmem_ok
+// admits it, e.g. a 1-layer head at B <= 128, H = 512) at a width where the
+// 8-row bf16 build does not launch (167 registers a thread): the 2-row
+// layout under __launch_bounds__(kWideThreads), with dlogits and the gate
+// grads left unrounded, as the narrow bf16 build leaves them and as
+// _dec_bwd1/2_kernel sums its weight grads from the float values in VMEM.
+// Its forward is the wide D's bf16 build: _dec_fwd1/2_kernel is the forward
+// of rows 7 and 13 alike, on the untiled or the batch-tiled grid.
+//
+// The narrow float build has a bf16-residual twin (mvt_gru_decode_bwd_resid)
+// for a float32 model with decode_residual_bf16 (_mh_bwd_kernel reading
+// h1seq, h2seq and hkseq stored in bf16): the weights, probs, incoming
+// grads and initial states are float, the h sequences bf16, and the gates
+// are recomputed from the rounded h, as _mh_bwd_kernel does: h_{t-1} is the
+// rounded h[t-1] (the unrounded initial state at t = 0), layer 1's x the
+// float probs, layer 2's x the rounded h1[t]; r * h comes from the rounded
+// h_{t-1}. Kernel W then sums dWo and layer 2's dW over the rounded h
+// sequences (W's bf16 build), as _mh_bwd_kernel's in-kernel sums do.
 #include "gru_cell_bwd.cuh"
 
 namespace mvt {
@@ -66,21 +87,24 @@ constexpr int kMaxHeads = 4;
 
 // one head of a launch, (T, B, .) sequences time-major; the layer-2 fields
 // are unused (may be null) for 1-layer heads. ut = U^T (3H, H), wt = W^T
-// (3H, D_in), wot = Wo^T (D, H). TV is float, or bf16 in the bf16 build;
-// dlogits, the gate grads and r * h are float in both. Mirrored by
-// _DecodeHeadBwd in ops/gru_decode.py (pointers only: one layout for both).
-template <typename TV>
+// (3H, D_in), wot = Wo^T (D, H). TV is float, or bf16 in the bf16 builds;
+// the h sequences are of type TS (TV, or bf16 in the bf16-residual build);
+// dlogits, the gate grads and r * h are float in all. Mirrored by
+// _DecodeHeadBwd in ops/gru_decode.py (pointers only: one layout for all).
+template <typename TV, typename TS = TV>
 struct DecodeHeadBwdT {
-  const TV *probs, *h1seq, *h2seq, *g_probs, *g_logits, *start, *h1_0, *h2_0;
+  const TV* probs;
+  const TS *h1seq, *h2seq;
+  const TV *g_probs, *g_logits, *start, *h1_0, *h2_0;
   const TV *w1, *u1, *b1, *u1t, *w1t, *w2, *u2, *b2, *u2t, *w2t, *wot;
   float *dlogits, *da1, *rh1, *da2, *rh2;
   TV *d_h1_0, *d_h2_0, *d_start;
   int D, n_layers, out_act, T;
 };
 
-template <typename TV>
+template <typename TV, typename TS = TV>
 struct DecodeHeadsBwd {
-  DecodeHeadBwdT<TV> h[kMaxHeads];
+  DecodeHeadBwdT<TV, TS> h[kMaxHeads];
 };
 
 inline size_t bwd_smem_floats(int D, int H, int rows) {
@@ -89,9 +113,9 @@ inline size_t bwd_smem_floats(int D, int H, int rows) {
 
 // TG: the type the emitted dlogits and gate grads are rounded as (float, or
 // bf16 in the wide bf16 build); they are stored in float either way
-template <int NL, int OUT, int R, typename TV, typename TG>
-__device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwdT<TV>& a,
-                                                int B, int H, float* smem) {
+template <int NL, int OUT, int R, typename TV, typename TG, typename TS>
+__device__ __forceinline__ void decode_head_bwd(
+    const DecodeHeadBwdT<TV, TS>& a, int B, int H, float* smem) {
   const int D = a.D, T = a.T;
   float* dl_s = smem;             // (D, R) dlogits
   float* dxf_s = dl_s + R * D;    // (D, R) grad of the fed-back probs
@@ -113,10 +137,24 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwdT<TV>& a,
 
   for (int t = T - 1; t >= 0; --t) {
     load_tile<R>(t > 0 ? a.probs + (size_t)(t - 1) * B * D : a.start, xin_s, row0, B, D);
-    load_tile<R>(t > 0 ? a.h1seq + (size_t)(t - 1) * B * H : a.h1_0, hp1_s, row0, B, H);
-    if constexpr (NL == 2) {
-      load_tile<R>(a.h1seq + (size_t)t * B * H, h1_s, row0, B, H);
-      load_tile<R>(t > 0 ? a.h2seq + (size_t)(t - 1) * B * H : a.h2_0, hp2_s, row0, B, H);
+    // h_{t-1}: the stored h[t-1], or the initial state at t = 0 (unrounded
+    // beside bf16 sequences). The two branches are spelled out here: moved
+    // into a helper function, the same loads cost the float build 200
+    // registers a thread instead of 168 (ptxas for sm_90a)
+    if constexpr (std::is_same_v<TS, TV>) {
+      load_tile<R>(t > 0 ? a.h1seq + (size_t)(t - 1) * B * H : a.h1_0, hp1_s, row0, B, H);
+      if constexpr (NL == 2) {
+        load_tile<R>(a.h1seq + (size_t)t * B * H, h1_s, row0, B, H);
+        load_tile<R>(t > 0 ? a.h2seq + (size_t)(t - 1) * B * H : a.h2_0, hp2_s, row0, B, H);
+      }
+    } else {
+      if (t > 0) load_tile<R>(a.h1seq + (size_t)(t - 1) * B * H, hp1_s, row0, B, H);
+      else load_tile<R>(a.h1_0, hp1_s, row0, B, H);
+      if constexpr (NL == 2) {
+        load_tile<R>(a.h1seq + (size_t)t * B * H, h1_s, row0, B, H);
+        if (t > 0) load_tile<R>(a.h2seq + (size_t)(t - 1) * B * H, hp2_s, row0, B, H);
+        else load_tile<R>(a.h2_0, hp2_s, row0, B, H);
+      }
     }
     // dlogits, one warp per row; dxf_s was written by the previous step's
     // layer-1 transpose, which ended with a barrier
@@ -196,10 +234,10 @@ __device__ __forceinline__ void decode_head_bwd(const DecodeHeadBwdT<TV>& a,
   }
 }
 
-template <int R, typename TV, typename TG>
-__device__ __forceinline__ void bwd_heads(const DecodeHeadsBwd<TV>& heads,
+template <int R, typename TV, typename TG, typename TS>
+__device__ __forceinline__ void bwd_heads(const DecodeHeadsBwd<TV, TS>& heads,
                                           int B, int H, float* smem) {
-  const DecodeHeadBwdT<TV>& a = heads.h[blockIdx.y];
+  const DecodeHeadBwdT<TV, TS>& a = heads.h[blockIdx.y];
   const bool two = a.n_layers == 2;
   switch (a.out_act) {
     case kSoftmax:
@@ -223,6 +261,13 @@ __global__ void gru_decode_bwd_kernel(DecodeHeadsBwd<TV> heads, int B, int H) {
   bwd_heads<kRows, TV, float>(heads, B, H, smem);
 }
 
+// the bf16-residual build: float heads reading h sequences stored in bf16
+__global__ void gru_decode_bwd_resid_kernel(DecodeHeadsBwd<float, bf16> heads,
+                                            int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_heads<kRows, float, float>(heads, B, H, smem);
+}
+
 template <typename TV>
 __global__ void __launch_bounds__(kWideThreads)
     gru_decode_bwd_wide_kernel(DecodeHeadsBwd<TV> heads, int B, int H) {
@@ -230,16 +275,23 @@ __global__ void __launch_bounds__(kWideThreads)
   bwd_heads<kWideRows, TV, TV>(heads, B, H, smem);
 }
 
-template <int R, typename TV, typename Kernel>
-int launch(Kernel kernel, const DecodeHeadBwdT<TV>* heads, int n_heads, int B,
-           int H, void* stream) {
+// rows 7 and 8 in bf16 on the 2-row layout: the streams left unrounded
+__global__ void __launch_bounds__(kWideThreads)
+    gru_decode_bwd_wide_row8_kernel(DecodeHeadsBwd<bf16> heads, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_heads<kWideRows, bf16, float>(heads, B, H, smem);
+}
+
+template <int R, typename TV, typename TS, typename Kernel>
+int launch(Kernel kernel, const DecodeHeadBwdT<TV, TS>* heads, int n_heads,
+           int B, int H, void* stream) {
   if (n_heads < 1 || n_heads > kMaxHeads || B < 1 || H < 32 || H % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  DecodeHeadsBwd<TV> all{};
+  DecodeHeadsBwd<TV, TS> all{};
   size_t smem = 0;
   for (int k = 0; k < n_heads; ++k) {
-    const DecodeHeadBwdT<TV>& a = heads[k];
+    const DecodeHeadBwdT<TV, TS>& a = heads[k];
     if (a.T < 1 || a.D < 1 || (a.n_layers != 1 && a.n_layers != 2) ||
         (a.out_act != kSoftmax && a.out_act != kSigmoid && a.out_act != kLinear)) {
       return (int)cudaErrorInvalidValue;
@@ -272,6 +324,14 @@ extern "C" int mvt_gru_decode_bwd_bf16(const mvt::DecodeHeadBwdT<mvt::bf16>* hea
                        stream);
 }
 
+extern "C" int mvt_gru_decode_bwd_resid(
+    const mvt::DecodeHeadBwdT<float, mvt::bf16>* heads, int n_heads, int B,
+    int H, void* stream) {
+  using namespace mvt;
+  return launch<kRows>(gru_decode_bwd_resid_kernel, heads, n_heads, B, H,
+                       stream);
+}
+
 extern "C" int mvt_gru_decode_bwd_wide(const mvt::DecodeHeadBwdT<float>* heads,
                                        int n_heads, int B, int H,
                                        void* stream) {
@@ -286,6 +346,14 @@ extern "C" int mvt_gru_decode_bwd_wide_bf16(
   using namespace mvt;
   return launch<kWideRows>(gru_decode_bwd_wide_kernel<bf16>, heads, n_heads,
                            B, H, stream);
+}
+
+extern "C" int mvt_gru_decode_bwd_wide_row8_bf16(
+    const mvt::DecodeHeadBwdT<mvt::bf16>* heads, int n_heads, int B, int H,
+    void* stream) {
+  using namespace mvt;
+  return launch<kWideRows>(gru_decode_bwd_wide_row8_kernel, heads, n_heads, B,
+                           H, stream);
 }
 
 extern "C" const char* mvt_error_string(int code) {

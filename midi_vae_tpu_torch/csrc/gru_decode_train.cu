@@ -36,39 +36,50 @@
 // or, at H = 512, the batch-tiled one (_dec_fwd_wide_pallas): its operands
 // and outputs are bf16, the rounding decode_head documents. Heads narrower
 // than 8 are promoted to float32 by the caller and take the float builds.
+//
+// The narrow build has a bf16-residual twin (mvt_gru_decode_train_resid) for
+// a float32 model with decode_residual_bf16, where the JAX package passes
+// residual_dtype=bfloat16 to the multi-head kernel (_mh_fwd_kernel,
+// multihead_decode_train_fwd): float operands, carries, probs and logits,
+// the same arithmetic as the float build, so probs and logits are bit-equal
+// to its; only h1seq, h2seq (and each side head's hkseq) are stored rounded
+// to bf16, which halves the bytes kernel E reads back.
 #include "gru_decode_body.cuh"
 
 namespace mvt {
 
 constexpr int kMaxHeads = 4;
 
-// one head of a launch, its tensors of type TV (float or bf16); h2_0, w2,
+// one head of a launch, its tensors of type TV (float or bf16) and its h
+// sequences of type TS (TV, or bf16 in the bf16-residual build); h2_0, w2,
 // u2, b2 and h2seq are unused (may be null) for 1-layer heads. Mirrored by
-// _DecodeHead in ops/gru_decode.py (pointers only: one layout for both).
-template <typename TV>
+// _DecodeHead in ops/gru_decode.py (pointers only: one layout for all).
+template <typename TV, typename TS = TV>
 struct DecodeHeadT {
   const TV *start, *h1_0, *h2_0, *w1, *u1, *b1, *w2, *u2, *b2, *wo, *bo;
-  TV *probs, *logits, *h1seq, *h2seq;
+  TV *probs, *logits;
+  TS *h1seq, *h2seq;
   int D, n_layers, out_act, T;
 };
 
-template <typename TV>
+template <typename TV, typename TS = TV>
 struct DecodeHeads {
-  DecodeHeadT<TV> h[kMaxHeads];
+  DecodeHeadT<TV, TS> h[kMaxHeads];
 };
 
-template <int NL, int OUT, int R, typename TV>
-__device__ __forceinline__ void run(const DecodeHeadT<TV>& a, int B, int H, float* smem) {
-  decode_head<NL, kTanh, OUT, R>(a.start, a.h1_0, a.h2_0, a.w1, a.u1, a.b1,
-                                 a.w2, a.u2, a.b2, a.wo, a.bo, a.probs,
-                                 a.logits, a.h1seq, a.h2seq, a.T, B, a.D, H,
-                                 smem);
+template <int NL, int OUT, int R, typename TV, typename TS>
+__device__ __forceinline__ void run(const DecodeHeadT<TV, TS>& a, int B, int H,
+                                    float* smem) {
+  decode_head<NL, kTanh, OUT, R, TV, TS>(a.start, a.h1_0, a.h2_0, a.w1, a.u1,
+                                         a.b1, a.w2, a.u2, a.b2, a.wo, a.bo,
+                                         a.probs, a.logits, a.h1seq, a.h2seq,
+                                         a.T, B, a.D, H, smem);
 }
 
-template <int R, typename TV>
-__device__ __forceinline__ void train_heads(const DecodeHeads<TV>& heads, int B,
-                                            int H, float* smem) {
-  const DecodeHeadT<TV>& a = heads.h[blockIdx.y];
+template <int R, typename TV, typename TS>
+__device__ __forceinline__ void train_heads(const DecodeHeads<TV, TS>& heads,
+                                            int B, int H, float* smem) {
+  const DecodeHeadT<TV, TS>& a = heads.h[blockIdx.y];
   const bool two = a.n_layers == 2;
   switch (a.out_act) {
     case kSoftmax:
@@ -89,6 +100,13 @@ __global__ void gru_decode_train_kernel(DecodeHeads<TV> heads, int B, int H) {
   train_heads<kRows>(heads, B, H, smem);
 }
 
+// the bf16-residual build: float heads, h sequences stored in bf16
+__global__ void gru_decode_train_resid_kernel(DecodeHeads<float, bf16> heads,
+                                              int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  train_heads<kRows>(heads, B, H, smem);
+}
+
 template <typename TV>
 __global__ void __launch_bounds__(kWideThreads)
     gru_decode_train_wide_kernel(DecodeHeads<TV> heads, int B, int H) {
@@ -96,16 +114,16 @@ __global__ void __launch_bounds__(kWideThreads)
   train_heads<kWideRows>(heads, B, H, smem);
 }
 
-template <int R, typename TV, typename Kernel>
-int launch(Kernel kernel, const DecodeHeadT<TV>* heads, int n_heads, int B, int H,
-           void* stream) {
+template <int R, typename TV, typename TS, typename Kernel>
+int launch(Kernel kernel, const DecodeHeadT<TV, TS>* heads, int n_heads, int B,
+           int H, void* stream) {
   if (n_heads < 1 || n_heads > kMaxHeads || B < 1 || H < 32 || H % 32 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  DecodeHeads<TV> all{};
+  DecodeHeads<TV, TS> all{};
   size_t smem = 0;
   for (int k = 0; k < n_heads; ++k) {
-    const DecodeHeadT<TV>& a = heads[k];
+    const DecodeHeadT<TV, TS>& a = heads[k];
     if (a.T < 1 || a.D < 1 || (a.n_layers != 1 && a.n_layers != 2) ||
         (a.out_act != kSoftmax && a.out_act != kSigmoid && a.out_act != kLinear)) {
       return (int)cudaErrorInvalidValue;
@@ -135,6 +153,14 @@ extern "C" int mvt_gru_decode_train_bf16(const mvt::DecodeHeadT<mvt::bf16>* head
                                          void* stream) {
   using namespace mvt;
   return launch<kRows>(gru_decode_train_kernel<bf16>, heads, n_heads, B, H,
+                       stream);
+}
+
+extern "C" int mvt_gru_decode_train_resid(
+    const mvt::DecodeHeadT<float, mvt::bf16>* heads, int n_heads, int B, int H,
+    void* stream) {
+  using namespace mvt;
+  return launch<kRows>(gru_decode_train_resid_kernel, heads, n_heads, B, H,
                        stream);
 }
 

@@ -31,7 +31,10 @@ scan; without it xp in one matmul and T xp or S xp per step, or in bfloat16
 (``compute_dtype``, the JAX package's ``whole_scan``) one call of the
 whole-scan kernel X (GRU) or Y (LSTM) per layer over it. GRU decode
 heads: with ``fused_train_decoder`` the notes head and its T-length side
-heads in one multi-head call (narrow route), every other 1- or 2-layer head
+heads in one multi-head call (narrow route, where ``_mh_vmem_ok`` admits it
+at the step's batch; ``decode_residual_bf16`` stores its h sequences in
+bfloat16, and raises on the card where the TPU would run that call off the
+narrow route, ``_multihead``), every other 1- or 2-layer head
 with a softmax, sigmoid or linear output through ``gru_decode_train`` (D +
 E, or their wide builds), the plain scan where those kernels do not take the
 head (3 layers, other cell activations: ``_dec_mode``), and T per cell and
@@ -47,12 +50,10 @@ than 8 are decoded in float32 (``gru_decode_train``), as on the TPU; the
 encode pass and serving stay float32. As the TPU's rows round differently
 in bf16, each encoder layer and GRU decode head there takes the rows the
 JAX package runs at the batch it is called with (``ops/_layout.py``:
-``bf16_layer_mode``, ``bf16_head_mode``), not the route of the step: the
-LSTM's L + N or Q + R, the GRU's A + C or X + G (dU from the float32 or the
-rounded gate grads), D + E or their wide builds. Paths whose kernels are
-not ported yet raise NotImplementedError on CUDA, naming their row of the kernel table or their
-ROADMAP item (``unported_training``); on the CPU they run the plain path
-through autograd.
+``bf16_layer_mode``, ``bf16_head_mode``, ``head_builds``), not the route of
+the step: the LSTM's L + N or Q + R, the GRU's A + C or X + G (dU from the
+float32 or the rounded gate grads), D + E or their wide builds (rows 7 and
+8 at H = 512 on the wide builds with row 8's rounding).
 """
 
 from __future__ import annotations
@@ -91,29 +92,35 @@ def _side_heads(cfg: Config) -> list[tuple[str, int, str]]:
     ) if flag and length == cfg.output_length and a in OUT_ACTIVATIONS]
 
 
-def _multihead(cfg: Config, route: str | None) -> bool:
-    """Whether the training decode runs the multi-head call when the notes
-    head is not teacher-forced: GRU, tanh, ``fused_train_decoder``, not
-    merged, a 2-layer notes head with a softmax, sigmoid or linear output
-    and a T-length side head, float32 (bf16 training falls back to the
-    per-head kernels on the TPU), on the narrow route
-    (``models/vae.py:560-572``, ``_mh_use_pallas`` fused_train.py:3454-3471)."""
-    return (cfg.cell_type == "GRU" and cfg.lstm_activation == "tanh" and cfg.fused_train_decoder
+def _multihead(cfg: Config, route: str | None, B: int, on_card: bool = False) -> bool:
+    """Whether the training decode of a batch of B runs the multi-head call
+    when the notes head is not teacher-forced: GRU, tanh,
+    ``fused_train_decoder``, not merged, a 2-layer notes head with a
+    softmax, sigmoid or linear output and a T-length side head, float32
+    (bf16 training falls back to the per-head kernels on the TPU), the VMEM
+    check ``_mh_vmem_ok`` at B (``models/vae.py:560-572``, ``_mh_use_pallas``
+    fused_train.py:3454-3471), on the narrow route (where D's and E's 8-row
+    builds launch; ``_mh_vmem_ok`` fails at H = 512 for every B). Off the
+    narrow route (H = 416 to 480 at B <= 32) the per-head wide builds
+    compute the same function in float32, but not with
+    ``decode_residual_bf16``, whose sequences the TPU stores rounded: there
+    the CPU runs rows 5 and 6's plain versions, and ``on_card`` raises
+    NotImplementedError (no build of rows 5 and 6 launches at that width)."""
+    side = _side_heads(cfg)
+    if not (cfg.cell_type == "GRU" and cfg.lstm_activation == "tanh" and cfg.fused_train_decoder
             and not cfg.merge_decoder_scans and cfg.num_layers_decoder == 2
-            and cfg.activation in OUT_ACTIVATIONS and bool(_side_heads(cfg))
-            and cfg.compute_dtype != "bfloat16" and route == "narrow")
-
-
-def unported_training(cfg: Config) -> str | None:
-    """Why the training kernels cannot run ``cfg`` on CUDA yet (the rows of
-    the kernel table or the ROADMAP item it waits for), or None when they
-    can."""
-    if (cfg.decode_residual_bf16 and not cfg.teacher_force
-            and _multihead(cfg, _layout.config_route(cfg, on_card=False))):
-        return ("decode_residual_bf16 keeps the multi-head decode kernel's residuals in "
-                "bfloat16 (models/vae.py:395-401); kernels D and E keep them in float32 "
-                "(Queue 1 item 2)")
-    return None
+            and cfg.activation in OUT_ACTIVATIONS and bool(side)
+            and cfg.compute_dtype != "bfloat16"
+            and _layout.mh_vmem_ok(B, cfg.output_dim, [d for _, d, _ in side], cfg.lstm_size)):
+        return False
+    if route == "narrow" or not cfg.decode_residual_bf16:
+        return route == "narrow"
+    if on_card:
+        raise NotImplementedError(
+            f"the JAX package runs this decode through rows 5 and 6 with bf16 residuals "
+            f"(decode_residual_bf16) at B={B}, H={cfg.lstm_size}; their port builds (D_resid, "
+            f"E_resid, 8 rows a block) do not launch on the {route} route (ROADMAP Queue 1 item 9)")
+    return True
 
 
 def _cast_tree(tree, dtype):
@@ -183,15 +190,8 @@ class MidiVAE(nn.Module):
         L, N, Q, R) take the part; they hard-code tanh's derivative, and the
         JAX package sends other cell activations to the plain scans
         (``_x_use_pallas`` fused_train.py:2269, ``_dec_mode`` :981,
-        ``_mh_use_pallas`` :3456, ``_lstm_x_use_pallas`` :2546). On CUDA a
-        config whose kernels are not ported yet raises NotImplementedError
-        (``unported_training``); on the CPU it runs the plain path."""
+        ``_mh_use_pallas`` :3456, ``_lstm_x_use_pallas`` :2546)."""
         if not self.kernels_enabled(device):
-            return False, False
-        reason = unported_training(self.cfg)
-        if reason is not None:
-            if device.type == "cuda":
-                raise NotImplementedError(reason)
             return False, False
         return True, self.cfg.lstm_activation == "tanh"
 
@@ -463,27 +463,29 @@ class MidiVAE(nn.Module):
                 # gru_decode_train (models/vae.py:504-521): D + E, or the plain
                 # scan where _dec_mode says "scan" (3 layers, non-tanh cells)
                 if layers and len(s["cells"]) in (1, 2):
-                    wide = route == "wide"
+                    builds = ("D_wide", "E_wide") if route == "wide" else ("D", "E")
                     if z.dtype == torch.bfloat16:
-                        mode = _layout.bf16_head_mode(B, head_dim, cfg.lstm_size, len(s["cells"]),
+                        n = len(s["cells"])
+                        mode = _layout.bf16_head_mode(B, head_dim, cfg.lstm_size, n,
                                                       z.device.type == "cuda")
                         if mode == "scan":
                             return decode_autoregressive(*args)
-                        wide = mode == "wide"
+                        builds = _layout.head_builds(mode, head_dim, cfg.lstm_size, n)
                     probs, logits = gru_decode_train(s["cells"], s["out"], s["init"], s["start"],
                                                      length, cfg.lstm_activation, out_activation,
-                                                     wide)
+                                                     builds)
                     return probs.transpose(0, 1), logits.transpose(0, 1)
                 return decode_autoregressive(*args)
             return decode_autoregressive(*args, step=step)
 
         outputs: dict = {}
-        if layers and not notes_tf and _multihead(cfg, route):
+        if layers and not notes_tf and _multihead(cfg, route, B, z.device.type == "cuda"):
             side = _side_heads(cfg)
             results = gru_decode_multihead_train(
                 spec("notes", cfg.output_dim), [spec(n, d) for n, d, _ in side],
                 cfg.output_length, cfg.lstm_activation,
-                (cfg.activation, *(a for _, _, a in side)))
+                (cfg.activation, *(a for _, _, a in side)),
+                torch.bfloat16 if cfg.decode_residual_bf16 else None)
             for name, (probs, logits) in zip(["notes"] + [n for n, _, _ in side], results):
                 outputs[name] = (probs.transpose(0, 1), logits.transpose(0, 1))
         merged: dict = {}

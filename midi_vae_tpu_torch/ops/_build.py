@@ -140,15 +140,22 @@ def load(name: str) -> ctypes.CDLL:
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+def load_entry(name: str, entry: str, argtypes) -> tuple:
+    """(library, entry point ``entry`` of ``csrc/<name>.cu``), its argument
+    types set and returning the CUDA error code."""
+    lib = load(name)
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
 def load_builds(name: str, entry: str, argtypes) -> tuple:
     """(library, {dtype: entry point}) of a kernel with a float32 build
     (``entry``) and a bfloat16 one (``entry_bf16``) in ``csrc/<name>.cu``."""
-    lib = load(name)
-    fns = dict(zip(DTYPES, (getattr(lib, entry), getattr(lib, f"{entry}_bf16"))))
-    for fn in fns.values():
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib, fns
+    fns = {dt: load_entry(name, e, argtypes)[1]
+           for dt, e in zip(DTYPES, (entry, f"{entry}_bf16"))}
+    return load(name), fns
 
 
 def count_launch(fn, dtype: torch.dtype) -> None:

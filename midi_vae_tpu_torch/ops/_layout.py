@@ -52,8 +52,18 @@ what F would in bf16: the JAX package's ``_fwd_kernel`` in bf16 is its
 ``Q_bf16`` and ``R_bf16``, heads D and E (``D_bf16``, ``E_bf16``; D's 144
 registers a thread keep it under 512 threads) or ``D_wide_bf16`` and
 ``E_wide_bf16``; a head narrower than 8 is promoted to float32 and takes
-D's and E's float32 builds. In float32 every row of a part computes the
-same function, so the route is the chooser's (``train_route``). In bf16 the
+D's and E's float32 builds. Where the TPU runs a bf16 head through rows 7
+and 8 at a width where D's and E's 8-row builds do not launch (H = 512:
+144 and 167 registers a thread), it takes ``D_wide_bf16`` (rows 7 and 13
+share their forward) and ``E_wide_row8_bf16`` (the 2-row layout with row
+8's rounding: the streams for W left unrounded), or for a head promoted to
+float32 the float32 wide builds, which compute rows 7 and 8's function
+(``head_builds``). A float32 model with ``decode_residual_bf16`` takes D's
+and E's bf16-residual builds (``D_resid``, ``E_resid``) in the multi-head
+call, which runs where the JAX package's ``_mh_vmem_ok`` admits it
+(``mh_vmem_ok``) at the batch the decode is called with. In float32 every
+row of a part computes the same function, so the route is the chooser's
+(``train_route``). In bf16 the
 TPU's rows round differently, and there is no step route: which row the
 JAX package runs is decided per part from (B, D, H) by its VMEM predicates,
 which the port keeps copies of here (``x_train_vmem_ok`` ...
@@ -62,11 +72,12 @@ which the port keeps copies of here (``x_train_vmem_ok`` ...
 xp = x @ W + b rounded to bf16 and rows 9 and 10 or 15 and 16, dU from the
 unrounded gate grads; "wide": the same xp and rows 11 and 12 or 17 and 18,
 dU from the rounded stream; "scan": the XLA scan), ``bf16_head_mode`` a
-GRU decode head's ("inplace": rows 7 and 8, D and E; "wide": rows 13 and 14,
-their wide builds; "scan"), both from the batch the part is called with, as
-the JAX dispatch reads shapes. On the card both raise NotImplementedError,
-naming the rows, where their port builds do not launch at that width; no
-other row's rounding runs in their place.
+GRU decode head's ("inplace": rows 7 and 8; "wide": rows 13 and 14;
+"scan"), both from the batch the part is called with, as the JAX dispatch
+reads shapes; ``head_builds`` names the builds of a head's rows. On the
+card both raise NotImplementedError, naming the rows, where their port
+builds do not launch at that width; no other row's rounding runs in their
+place.
 A width at which neither route launches raises ``LaunchLimitError`` naming the
 limit. ``FORCE_ROUTE`` is a test hook (like the JAX package's
 ``_FORCE_TRAIN_MODE``) that sends small widths down the wide route.
@@ -84,10 +95,10 @@ WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
 # a build's template instances), from nvcc -Xptxas -v for sm_90a
 REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75, "N": 117,
              "U": 78, "V": 172, "A_bf16": 94, "C_bf16": 96, "D_bf16": 144, "E_bf16": 167,
-             "L_bf16": 80, "N_bf16": 114}
+             "L_bf16": 80, "N_bf16": 114, "D_resid": 160, "E_resid": 168}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
 BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "R", "S", "S_xp", "T", "T_xp", "X", "Y",
-           "G_bf16", "D_wide_bf16", "E_wide_bf16", "Q_bf16", "R_bf16")
+           "G_bf16", "D_wide_bf16", "E_wide_bf16", "Q_bf16", "R_bf16", "E_wide_row8_bf16")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
 LSTM_NARROW_MAX_H = 256
 
@@ -104,9 +115,10 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
     input width (A, C, L, N; U and V: of the stack, ``n_layers`` = 2, or of
     a branch, ``n_layers`` = 1), the head's output width (B, D, E, M) or the
     cell's input width (S, T). The bf16 builds (X, Y, those of A to E, G,
-    the wide D and E, S and T, and U's and V's) hold their tiles in float
-    too: a bf16 value is widened as it is loaded."""
-    kernel = kernel.removesuffix("_bf16")
+    the wide D and E, S and T, and U's and V's), D's and E's bf16-residual
+    builds and E's row-8 build hold the tiles of the builds they are twins
+    of, in float: a bf16 value is widened as it is loaded."""
+    kernel = kernel.removesuffix("_bf16").removesuffix("_resid").removesuffix("_row8")
     rows = WIDE_ROWS if kernel.endswith("_wide") else ROWS
     floats = {
         "A": D + 2 * H,
@@ -260,8 +272,8 @@ def config_route(cfg, on_card: bool = True) -> str:
         modes |= {"narrow" if bf16_layer_mode(cfg.cell_type, B, d, H, on_card, dx) == "x"
                   else "wide" for d, dx in layers}
     if cfg.cell_type == "GRU" and cfg.fused_train_decoder and tanh:
-        modes |= {"narrow" if bf16_head_mode(B, d, H, n, on_card) == "inplace" else "wide"
-                  for d, n in heads if n in (1, 2)}
+        modes |= {"wide" if head_builds(bf16_head_mode(B, d, H, n, on_card), d, H, n)[0]
+                  .startswith("D_wide") else "narrow" for d, n in heads if n in (1, 2)}
     if len(modes) > 1:
         return "per-part"
     return modes.pop() if modes else _route_order(H, cfg.cell_type)[0]
@@ -312,6 +324,23 @@ def lstm_train_vmem_ok(B: int, H: int, s: int = 4) -> bool:
     operand = H * 4 * H + 2 * (2 * B * 4 * H + 4 * B * H)
     f32 = H * 4 * H + 2 * B * H + 8 * B * H
     return operand * s + f32 * 4 < _VMEM_LIMIT_BYTES
+
+
+def mh_vmem_ok(B: int, Dp: int, dks, H: int) -> bool:
+    """``_mh_vmem_ok`` (:3454): the multi-head decode (rows 5 and 6) of a
+    2-layer primary head of width Dp and 1-layer side heads of widths
+    ``dks``, always in float32."""
+    def head_w(d):
+        return d * 3 * H + H * 3 * H + 3 * H + H * d + d
+    weights = head_w(Dp) + H * 3 * H + 3 * H  # the primary head has 2 cells
+    streams = 8 * B * Dp + 8 * B * H
+    carries = 2 * B * H + B * Dp
+    for d in dks:
+        weights += head_w(d)
+        streams += 8 * B * max(d, 128) + 4 * B * H  # lane padding for narrow heads
+        carries += B * H + B * max(d, 128)
+    temps = 4 * B * 3 * H + 2 * B * H
+    return (2 * weights + streams + temps + carries) * 4 < 19_000_000
 
 
 def dec_train_vmem_ok(B: int, D: int, H: int, n_layers: int) -> bool:
@@ -426,7 +455,7 @@ def bf16_head_mode(B: int, D: int, H: int, n_layers: int, on_card: bool = False)
     ``FORCE_ROUTE`` "narrow" gives "inplace", "wide" "wide" (as the JAX
     package's ``_FORCE_TRAIN_MODE``). ``on_card``: raise
     NotImplementedError where the port has no build of those rows that
-    launches (a head narrower than 8 takes D's and E's float32 builds)."""
+    launches (``head_builds``)."""
     if FORCE_ROUTE is not None:
         mode = "inplace" if FORCE_ROUTE == "narrow" else "wide"
     elif dec_train_vmem_ok(B, D, H, n_layers):
@@ -436,12 +465,30 @@ def bf16_head_mode(B: int, D: int, H: int, n_layers: int, on_card: bool = False)
     else:
         mode = "scan"
     if on_card:
-        sfx = "_bf16" if D >= 8 else ""
-        pair = ("D", "E") if mode == "inplace" else ("D_wide", "E_wide")
-        builds = ([(k + sfx, smem_bytes(k, H, D, n_layers)) for k in pair] if mode != "scan"
-                  else [])
+        builds = ([(k, smem_bytes(k, H, D, n_layers)) for k in head_builds(mode, D, H, n_layers)]
+                  if mode != "scan" else [])
         _require_bf16(HEAD_ROWS[mode], builds, H)
     return mode
+
+
+def head_builds(mode: str, D: int, H: int, n_layers: int) -> tuple[str, str]:
+    """The builds of D and E that run a bf16 GRU decode head's rows ``mode``
+    ("inplace": rows 7 and 8, "wide": rows 13 and 14) at width H; a head
+    narrower than 8 is promoted to float32 and takes float32 builds. Rows 7
+    and 8 take the 8-row builds where they launch, else the 2-row ones: D's
+    wide build (``_dec_fwd1/2_kernel`` is the forward of rows 7 and 13
+    alike) and E's with row 8's rounding (``E_wide_row8_bf16``; in float32
+    the wide E, whose streams are not rounded either)."""
+    sfx = "_bf16" if D >= 8 else ""
+    if mode == "wide":
+        return "D_wide" + sfx, "E_wide" + sfx
+    narrow = ("D" + sfx, "E" + sfx)
+    wide = ("D_wide" + sfx, "E_wide_row8_bf16" if sfx else "E_wide")
+
+    def launches(pair):
+        return all(launch_limit(k, H, smem_bytes(k, H, D, n_layers)) is None for k in pair)
+
+    return wide if launches(wide) and not launches(narrow) else narrow
 
 
 def _require_bf16(rows: str, builds, H: int) -> None:

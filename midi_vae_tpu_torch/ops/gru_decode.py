@@ -24,9 +24,11 @@ its layers' h sequences. Its backward is kernel E
 
 D and E each have a second build for the wide route (``ops/_layout.py``,
 H = 512): 2 batch rows per block under ``__launch_bounds__(512)``, replacing
-``_dec_fwd_wide_pallas`` and ``_dec_bwd_wide_pallas``. ``wide=True`` selects
+``_dec_fwd_wide_pallas`` and ``_dec_bwd_wide_pallas``. "D_wide", "E_wide" select
 it; ``gru_decode_fwd_train_wide`` and ``gru_decode_bwd_wide`` count its
-launches.
+launches. Every build has a name (``ops/_layout.py``: "D", "E_wide_bf16",
+...); the wrappers and ``gru_decode_train`` take it as ``build`` /
+``builds``, and ``_BUILDS`` gives each its entry point and its counter.
 
 The narrow D and E also have a bfloat16 build (``mvt_gru_decode_train_bf16``,
 ``mvt_gru_decode_bwd_bf16``), picked by the operands' dtype: a bf16 model
@@ -55,7 +57,24 @@ stores dlogits and the gate grads for its second pass rounded to bf16
 wide's bf16 build emits them as bf16 values (in float32 tensors), and W sums
 them; the narrow route's bf16 E keeps them unrounded, as ``_dec_bwd1/2_kernel``
 sums its weight grads from the float32 values in VMEM. The carries, r * h,
-d_init and d_start are as in the narrow bf16 build.
+d_init and d_start are as in the narrow bf16 build. E's wide build has a
+second bf16 build with that narrow rounding (``mvt_gru_decode_bwd_wide_row8_bf16``,
+build "E_wide_row8_bf16"): where the TPU runs a bf16 head through rows 7 and
+8 at a width the 8-row builds do not launch at (``ops/_layout.py``,
+``head_builds``), the head takes D's wide bf16 build (rows 7 and 13 share
+``_dec_fwd1/2_kernel``) and this one (``.launches_row8_bf16``).
+
+A float32 model with ``decode_residual_bf16`` stores the multi-head call's
+h sequences in bfloat16 (``residual_dtype``, ``_mh_fwd_kernel``'s
+``residual_dtype``): D's bf16-residual build ("D_resid",
+``mvt_gru_decode_train_resid``) computes the float32 build's carries, probs
+and logits bit for bit and stores the sequences rounded; E's ("E_resid",
+``mvt_gru_decode_bwd_resid``) reads them and recomputes the gates from the
+rounded h, as ``_mh_bwd_kernel`` does (the
+initial states unrounded at t = 0, layer 1's x the float32 probs); W sums
+dWo and layer 2's dW over the rounded sequences (its bf16 build) and every
+dU over h_{t-1} widened beside the unrounded initial state (its float32
+build). Launches: ``.launches_resid``.
 """
 
 from __future__ import annotations
@@ -184,14 +203,18 @@ def dlogits_from(probs, gp_total, g_logits, out_activation):
     return gp_total + g_logits
 
 
-def gru_decode_train_reference(cells, out_dense, init_states, start, T, out_activation="softmax"):
+def gru_decode_train_reference(cells, out_dense, init_states, start, T, out_activation="softmax",
+                               residual_dtype=None):
     """Plain version of kernel D for one head (tanh cells): (probs, logits,
-    [h sequence of each layer]), all (T, B, .) time-major in start's dtype.
-    Each layer's h is float32 within the step (the next layer's input, the
-    readout's); the carried states, the outputs and the fed-back probs are
-    rounded to start's dtype (``_dec_fwd1/2_kernel``: no-ops in float32)."""
+    [h sequence of each layer]), all (T, B, .) time-major in start's dtype,
+    the h sequences in ``residual_dtype`` when given. Each layer's h is
+    float32 within the step (the next layer's input, the readout's); the
+    carried states, the outputs and the fed-back probs are rounded to
+    start's dtype (``_dec_fwd1/2_kernel``: no-ops in float32), the stored
+    sequences to ``residual_dtype`` (``_mh_fwd_kernel``)."""
     out_act = out_activation_fn(out_activation)
     dtype = start.dtype
+    rdt = residual_dtype or dtype
     states = list(init_states)
     x = start
     probs, logits, hs = [], [], [[] for _ in cells]
@@ -199,7 +222,7 @@ def gru_decode_train_reference(cells, out_dense, init_states, start, T, out_acti
         for i, p in enumerate(cells):
             x = gru_step(x, states[i], p["w"], p["u"], p["b"], torch.tanh, torch.float32)
             states[i] = x.to(dtype)
-            hs[i].append(states[i])
+            hs[i].append(x.to(rdt))
         lg = x @ out_dense["w"].float() + out_dense["b"].float()
         x = out_act(lg).to(dtype)
         probs.append(x)
@@ -217,7 +240,10 @@ def gru_decode_bwd_reference(cells, out_dense, init_states, start, probs, h_seqs
     runs in float32; d_init and d_start leave in start's dtype, the rest in
     float32. ``wide``: E's wide build (``_dec_bwd1/2_wide_kernel``), which
     emits dlogits and the gate grads rounded to start's dtype (still float32
-    tensors; the carries read them unrounded); a no-op in float32."""
+    tensors; the carries read them unrounded); a no-op in float32. h_seqs
+    stored in bfloat16 beside a float32 head (``decode_residual_bf16``) are
+    read as stored: the gates are recomputed from the rounded h, h_{t-1} at
+    t = 0 is the unrounded initial state (``_mh_bwd_kernel``)."""
     dtype = start.dtype
     cells = [{k: c[k].float() for k in ("w", "u", "b")} for c in cells]
     out_dense = {k: out_dense[k].float() for k in ("w", "b")}
@@ -266,10 +292,13 @@ class _DecodeHeadBwd(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _BWD_PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
-def _check_heads(heads, kernel: str) -> tuple[int, int, torch.device, torch.dtype]:
+def _check_heads(heads, build: str) -> tuple[int, int, torch.device, torch.dtype]:
     """Shapes of a list of training heads, and on the card their dtype (one
-    for all: float32 or bfloat16) and whether ``kernel`` (D, E or their wide
-    builds) launches; returns (B, H, device, dtype)."""
+    for all: bfloat16 for a ``_bf16`` build, else float32) and whether
+    ``build`` (a name of ``_BUILDS``) launches; returns (B, H, device,
+    dtype)."""
+    if build not in _BUILDS:
+        raise ValueError(f"kernels D and E have the builds {', '.join(_BUILDS)}, not {build!r}")
     if not 1 <= len(heads) <= MAX_HEADS:
         raise ValueError(f"kernels D and E take 1 to {MAX_HEADS} heads per call, got {len(heads)}")
     B, H = heads[0]["start"].shape[0], heads[0]["init"][0].shape[-1]
@@ -297,56 +326,51 @@ def _check_heads(heads, kernel: str) -> tuple[int, int, torch.device, torch.dtyp
     device, dtype = heads[0]["start"].device, heads[0]["start"].dtype
     if device.type == "cuda":
         # the operands' checks hold every head of a call to head 0's dtype
-        if dtype not in _build.DTYPES:
-            raise ValueError(f"kernel {kernel} has builds for "
-                             f"{', '.join(str(d) for d in _build.DTYPES)}, not {dtype}")
-        if dtype == torch.bfloat16:
-            kernel += "_bf16"
-        _layout.require(kernel, H, max(_layout.smem_bytes(kernel, H, h["start"].shape[-1],
-                                                         len(h["cells"])) for h in heads))
+        want = torch.bfloat16 if build.endswith("_bf16") else torch.float32
+        if dtype != want:
+            raise ValueError(f"build {build} of kernel {build[0]} takes {want} heads, not {dtype}")
+        _layout.require(build, H, max(_layout.smem_bytes(build, H, h["start"].shape[-1],
+                                                        len(h["cells"])) for h in heads))
     return B, H, device, dtype
 
 
-def _entries(name: str, entry: str, struct, wide: bool) -> tuple:
-    """(library, {dtype: entry point}) of kernel D or E: the float32 and
-    bfloat16 builds, narrow or ``wide``."""
-    return _build.load_builds(name, entry + ("_wide" if wide else ""),
-                              [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_void_p])
+def _named(build: str, heads) -> str:
+    """``build`` ("D", "E", "D_wide" or "E_wide") for the heads' dtype."""
+    return build + ("_bf16" if heads[0]["start"].dtype == torch.bfloat16 else "")
 
 
-@functools.cache
-def _fwd_kernel(wide: bool):
-    return _entries("gru_decode_train", "mvt_gru_decode_train", _DecodeHead, wide)
-
-
-def gru_decode_fwd_train(heads):
+def gru_decode_fwd_train(heads, build=None):
     """Training forward of 1 to 4 heads, each a dict {cells, out, init,
     start, T, out_activation} (tanh cells). Returns per head (probs, logits,
-    [h sequence per layer]), all (T, B, .). CPU tensors run
-    ``gru_decode_train_reference``; CUDA tensors launch kernel D once."""
-    return _decode_fwd(heads, wide=False)
+    [h sequence per layer]), all (T, B, .). ``build``: kernel D's build by
+    its name in ``ops/_layout.py`` (default "D", or "D_bf16" for bf16
+    heads; "D_resid": float32 heads whose h sequences are stored in
+    bfloat16). CPU tensors run ``gru_decode_train_reference``; CUDA tensors
+    launch kernel D once."""
+    return _decode_fwd(heads, build or _named("D", heads))
 
 
 gru_decode_fwd_train.launches = 0
 gru_decode_fwd_train.launches_bf16 = 0
+gru_decode_fwd_train.launches_resid = 0
 
 
-def gru_decode_fwd_train_wide(heads):
+def gru_decode_fwd_train_wide(heads, build=None):
     """``gru_decode_fwd_train`` through kernel D's wide build (2 rows per
-    block, up to H = 512 threads)."""
-    return _decode_fwd(heads, wide=True)
+    block, up to H = 512 threads): "D_wide" or "D_wide_bf16"."""
+    return _decode_fwd(heads, build or _named("D_wide", heads))
 
 
 gru_decode_fwd_train_wide.launches = 0
 gru_decode_fwd_train_wide.launches_bf16 = 0
 
 
-def _decode_fwd(heads, wide: bool):
-    B, H, device, dtype = _check_heads(heads, "D_wide" if wide else "D")
+def _decode_fwd(heads, build: str):
+    B, H, device, dtype = _check_heads(heads, build)
+    rdt = torch.bfloat16 if build == "D_resid" else dtype
     if device.type == "cpu":
         return [gru_decode_train_reference(h["cells"], h["out"], h["init"], h["start"], h["T"],
-                                           h["out_activation"]) for h in heads]
+                                           h["out_activation"], rdt) for h in heads]
     if device.type != "cuda":
         raise ValueError(f"gru_decode_fwd_train runs on cpu or cuda tensors, not {device}")
     kw = {"device": device, "dtype": dtype}
@@ -356,65 +380,105 @@ def _decode_fwd(heads, wide: bool):
     for h, st in zip(heads, structs):
         T, D, n_layers = h["T"], h["start"].shape[-1], len(h["cells"])
         probs, logits = torch.empty(T, B, D, **kw), torch.empty(T, B, D, **kw)
-        h_seqs = [torch.empty(T, B, H, **kw) for _ in range(n_layers)]
+        h_seqs = [torch.empty(T, B, H, device=device, dtype=rdt) for _ in range(n_layers)]
         named = {"start": h["start"], "h1_0": h["init"][0], "wo": h["out"]["w"], "bo": h["out"]["b"],
-                 "probs": probs, "logits": logits, "h1seq": h_seqs[0]}
+                 "probs": probs, "logits": logits}
         for i, p in enumerate(h["cells"]):
             named.update({f"w{i + 1}": p["w"], f"u{i + 1}": p["u"], f"b{i + 1}": p["b"]})
         if n_layers == 2:
-            named.update({"h2_0": h["init"][1], "h2seq": h_seqs[1]})
+            named["h2_0"] = h["init"][1]
         check_operands(named, device, (dtype,))
+        named.update({f"h{i + 1}seq": t for i, t in enumerate(h_seqs)})
         for name in _DECODE_PTRS:
             setattr(st, name, named[name].data_ptr() if name in named else null.value)
         st.D, st.n_layers, st.out_act, st.T = D, n_layers, OUT_ACTIVATIONS[h["out_activation"]], T
         outs.append((probs, logits, h_seqs))
-    lib, fns = _fwd_kernel(wide)
-    rc = fns[dtype](structs, len(heads), B, H,
-                    ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-    _build.check(lib, rc, f"gru_decode_train{'_wide' if wide else ''} launch")
-    _build.count_launch(gru_decode_fwd_train_wide if wide else gru_decode_fwd_train, dtype)
+    _launch(build, structs, len(heads), B, H, device)
     return outs
 
 
-@functools.cache
-def _bwd_kernel(wide: bool):
-    return _entries("gru_decode_bwd", "mvt_gru_decode_bwd", _DecodeHeadBwd, wide)
-
-
-def gru_decode_bwd(heads):
+def gru_decode_bwd(heads, build=None):
     """Backward of ``gru_decode_fwd_train``: each head dict also carries the
     forward's ``probs`` and ``h_seqs`` and the incoming ``g_probs`` and
     ``g_logits`` (T, B, D). Returns per head the dict of
-    ``gru_decode_bwd_reference``. CPU tensors run that plain version; CUDA
-    tensors launch kernel E once."""
-    return _decode_bwd(heads, wide=False)
+    ``gru_decode_bwd_reference``. ``build``: kernel E's build (default "E",
+    or "E_bf16" for bf16 heads; "E_resid": float32 heads reading bf16 h
+    sequences). CPU tensors run that plain version; CUDA tensors launch
+    kernel E once."""
+    return _decode_bwd(heads, build or _named("E", heads))
 
 
 gru_decode_bwd.launches = 0
 gru_decode_bwd.launches_bf16 = 0
+gru_decode_bwd.launches_resid = 0
 
 
-def gru_decode_bwd_wide(heads):
+def gru_decode_bwd_wide(heads, build=None):
     """``gru_decode_bwd`` through kernel E's wide build (2 rows per block, up
-    to H = 512 threads)."""
-    return _decode_bwd(heads, wide=True)
+    to H = 512 threads): "E_wide", "E_wide_bf16" (rows 13 and 14: dlogits
+    and the gate grads W sums rounded to bf16) or "E_wide_row8_bf16" (rows
+    7 and 8: unrounded, as the narrow build emits them)."""
+    return _decode_bwd(heads, build or _named("E_wide", heads))
 
 
 gru_decode_bwd_wide.launches = 0
 gru_decode_bwd_wide.launches_bf16 = 0
+gru_decode_bwd_wide.launches_row8_bf16 = 0
+
+# kernel D's and E's builds by their names in ops/_layout.py: (library, entry
+# point, the wrapper whose counter a launch adds to, that counter)
+_BUILDS = {
+    "D": ("gru_decode_train", "mvt_gru_decode_train", gru_decode_fwd_train, "launches"),
+    "D_bf16": ("gru_decode_train", "mvt_gru_decode_train_bf16", gru_decode_fwd_train,
+               "launches_bf16"),
+    "D_resid": ("gru_decode_train", "mvt_gru_decode_train_resid", gru_decode_fwd_train,
+                "launches_resid"),
+    "D_wide": ("gru_decode_train", "mvt_gru_decode_train_wide", gru_decode_fwd_train_wide,
+               "launches"),
+    "D_wide_bf16": ("gru_decode_train", "mvt_gru_decode_train_wide_bf16",
+                    gru_decode_fwd_train_wide, "launches_bf16"),
+    "E": ("gru_decode_bwd", "mvt_gru_decode_bwd", gru_decode_bwd, "launches"),
+    "E_bf16": ("gru_decode_bwd", "mvt_gru_decode_bwd_bf16", gru_decode_bwd, "launches_bf16"),
+    "E_resid": ("gru_decode_bwd", "mvt_gru_decode_bwd_resid", gru_decode_bwd, "launches_resid"),
+    "E_wide": ("gru_decode_bwd", "mvt_gru_decode_bwd_wide", gru_decode_bwd_wide, "launches"),
+    "E_wide_bf16": ("gru_decode_bwd", "mvt_gru_decode_bwd_wide_bf16", gru_decode_bwd_wide,
+                    "launches_bf16"),
+    "E_wide_row8_bf16": ("gru_decode_bwd", "mvt_gru_decode_bwd_wide_row8_bf16",
+                         gru_decode_bwd_wide, "launches_row8_bf16"),
+}
 
 
-def _decode_bwd(heads, wide: bool):
-    B, H, device, dtype = _check_heads(heads, "E_wide" if wide else "E")
+@functools.cache
+def _entry(build: str) -> tuple:
+    """(library, entry point) of one of ``_BUILDS``."""
+    name, entry, _fn, _counter = _BUILDS[build]
+    struct = _DecodeHead if build.startswith("D") else _DecodeHeadBwd
+    return _build.load_entry(name, entry, [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p])
+
+
+def _launch(build: str, structs, n_heads: int, B: int, H: int, device) -> None:
+    """Launch ``build`` on the current stream and count the launch."""
+    lib, fn = _entry(build)
+    rc = fn(structs, n_heads, B, H, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    _build.check(lib, rc, f"{_BUILDS[build][1]} launch")
+    _name, _e, wrapper, counter = _BUILDS[build]
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
+def _decode_bwd(heads, build: str):
+    B, H, device, dtype = _check_heads(heads, build)
     for k, h in enumerate(heads):
         want = (h["T"], B, h["start"].shape[-1])
         for name in ("probs", "g_probs", "g_logits"):
             if tuple(h[name].shape) != want:
                 raise ValueError(f"head {k}: {name} has shape {tuple(h[name].shape)}, expected {want}")
     if device.type == "cpu":
+        # rows 13 and 14 round the streams W sums to the heads' dtype
         return [gru_decode_bwd_reference(h["cells"], h["out"], h["init"], h["start"], h["probs"],
                                          h["h_seqs"], h["g_probs"], h["g_logits"],
-                                         h["out_activation"], wide) for h in heads]
+                                         h["out_activation"], build in ("E_wide", "E_wide_bf16"))
+                for h in heads]
     if device.type != "cuda":
         raise ValueError(f"gru_decode_bwd runs on cpu or cuda tensors, not {device}")
     kw = {"device": device, "dtype": torch.float32}
@@ -423,7 +487,7 @@ def _decode_bwd(heads, wide: bool):
     outs, keep = [], []
     for h, st in zip(heads, structs):
         T, D, n_layers = h["T"], h["start"].shape[-1], len(h["cells"])
-        named = {"probs": h["probs"], "h1seq": h["h_seqs"][0], "g_probs": h["g_probs"],
+        named = {"probs": h["probs"], "g_probs": h["g_probs"],
                  "g_logits": h["g_logits"], "start": h["start"], "h1_0": h["init"][0],
                  "wot": h["out"]["w"].t().contiguous()}
         for i, p in enumerate(h["cells"]):
@@ -431,8 +495,11 @@ def _decode_bwd(heads, wide: bool):
             named.update({f"w{i + 1}": p["w"], f"u{i + 1}": p["u"], f"b{i + 1}": p["b"],
                           f"u{i + 1}t": p["u"].t().contiguous(), f"w{i + 1}t": p["w"].t().contiguous()})
         if n_layers == 2:
-            named.update({"h2seq": h["h_seqs"][1], "h2_0": h["init"][1]})
+            named["h2_0"] = h["init"][1]
         check_operands(named, device, (dtype,))
+        seqs = {f"h{i + 1}seq": t for i, t in enumerate(h["h_seqs"])}
+        check_operands(seqs, device, (torch.bfloat16 if build == "E_resid" else dtype,))
+        named.update(seqs)
         # dlogits, the gate grads and r*h in float32 (the wide bf16 build's
         # dlogits and gate grads hold bf16 values); d_init, d_start in the
         # heads' dtype
@@ -450,11 +517,7 @@ def _decode_bwd(heads, wide: bool):
             setattr(st, name, named[name].data_ptr() if name in named else null.value)
         st.D, st.n_layers, st.out_act, st.T = D, n_layers, OUT_ACTIVATIONS[h["out_activation"]], T
         outs.append(g)
-    lib, fns = _bwd_kernel(wide)
-    rc = fns[dtype](structs, len(heads), B, H,
-                    ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-    _build.check(lib, rc, f"gru_decode_bwd{'_wide' if wide else ''} launch")
-    _build.count_launch(gru_decode_bwd_wide if wide else gru_decode_bwd, dtype)
+    _launch(build, structs, len(heads), B, H, device)
     return outs
 
 
@@ -484,21 +547,22 @@ def _unflatten_heads(layout, flat) -> list[dict]:
 
 class _DecodeTrain(torch.autograd.Function):
     """Training decode of 1 to 4 heads: forward kernel D, backward kernel E
-    then kernel W (``wide``: D's and E's wide builds). ``layout`` is one
-    (n_layers, out_activation, T) per head; ``flat`` holds each head's
-    tensors in ``_flatten_head`` order. Returns (probs, logits) of every
-    head, flattened. The weight grads are float32 sums, rounded to the
-    params' dtype."""
+    then kernel W. ``layout`` is one (n_layers, out_activation, T) per head;
+    ``builds`` the names of D's and E's builds (``_BUILDS``); ``flat`` holds
+    each head's tensors in ``_flatten_head`` order. Returns (probs, logits)
+    of every head, flattened. The weight grads are float32 sums, rounded to
+    the params' dtype."""
 
     @staticmethod
-    def forward(ctx, layout, wide, *flat):
+    def forward(ctx, layout, builds, *flat):
         # the notes accuracy and some heads' probs or logits have no grad
         ctx.set_materialize_grads(True)
-        fwd = gru_decode_fwd_train_wide if wide else gru_decode_fwd_train
-        outs = fwd(_unflatten_heads(layout, flat))
+        heads = _unflatten_heads(layout, flat)
+        fwd = gru_decode_fwd_train_wide if builds[0].startswith("D_wide") else gru_decode_fwd_train
+        outs = fwd(heads, builds[0])
         residuals = [t for probs, _logits, h_seqs in outs for t in (probs, *h_seqs)]
         ctx.save_for_backward(*flat, *residuals)
-        ctx.layout, ctx.wide, ctx.n_flat = layout, wide, len(flat)
+        ctx.layout, ctx.builds, ctx.n_flat = layout, builds, len(flat)
         return tuple(t for probs, logits, _h in outs for t in (probs, logits))
 
     @staticmethod
@@ -511,8 +575,13 @@ class _DecodeTrain(torch.autograd.Function):
             h["h_seqs"] = [next(residuals) for _ in h["cells"]]
             h["g_probs"], h["g_logits"] = grads[2 * k].contiguous(), grads[2 * k + 1].contiguous()
         flat_grads = []
-        bwd = gru_decode_bwd_wide if ctx.wide else gru_decode_bwd
-        for h, g in zip(heads, bwd(heads)):
+        build = ctx.builds[1]
+        gs = (gru_decode_bwd_wide if build.startswith("E_wide") else gru_decode_bwd)(heads, build)
+        # dWo and layer 2's dW sum over the h sequences as stored; with bf16
+        # residuals beside float32 heads, h_{t-1} is widened beside the
+        # unrounded initial state (torch.cat promotes), so its dU sums over
+        # float32 operands
+        for h, g in zip(heads, gs):
             T, (B, D), H = h["T"], h["start"].shape, h["init"][0].shape[-1]
             kw = {"device": h["start"].device, "dtype": torch.float32}
             dwo, dbo = torch.empty(H, D, **kw), torch.empty(D, **kw)
@@ -527,40 +596,48 @@ class _DecodeTrain(torch.autograd.Function):
         return (None, None, *(g.to(p.dtype) for g, p in zip(flat_grads, saved)))
 
 
-def _decode_heads_train(heads, wide=False):
+def _decode_heads_train(heads, builds=None):
+    """``_DecodeTrain`` of ``heads``; ``builds`` default to the narrow D and
+    E of the heads' dtype."""
     layout = tuple((len(h["cells"]), h["out_activation"], h["T"]) for h in heads)
     flat = [t for h in heads for t in _flatten_head(h)]
-    outs = _DecodeTrain.apply(layout, wide, *flat)
+    outs = _DecodeTrain.apply(layout, builds or (_named("D", heads), _named("E", heads)), *flat)
     return [(outs[2 * k], outs[2 * k + 1]) for k in range(len(heads))]
 
 
 def gru_decode_train(cells, out_dense, init_states, start, T, activation="tanh",
-                     out_activation="softmax", wide=False):
+                     out_activation="softmax", builds=None):
     """Differentiable readout decode of one head (1 or 2 GRU layers, tanh):
     (probs, logits), each (T, B, D) time-major in start's dtype. CPU tensors
-    run the plain versions of kernels D, E and W; CUDA tensors launch them
-    (``wide``: the wide builds of D and E; a bfloat16 head: the bf16 builds).
-    A head narrower than 8 that is not float32 is promoted whole to float32
-    and its outputs cast back (``fused_train.py:813-825``)."""
+    run the plain versions of kernels D, E and W; CUDA tensors launch them.
+    ``builds``: the names of D's and E's builds (``ops/_layout.py``: the
+    float32 route's ("D", "E") or ("D_wide", "E_wide"), a bf16 head's
+    ``head_builds``); default the narrow ones of the head's dtype. A head
+    narrower than 8 that is not float32 is promoted whole to float32 and
+    its outputs cast back (``fused_train.py:813-825``); ``builds`` then name
+    float32 builds."""
     if activation != "tanh":
         raise ValueError(f"the decode training kernels implement tanh cells, not {activation!r}")
     if start.shape[-1] < 8 and start.dtype != torch.float32:
         probs, logits = gru_decode_train(
             [{k: c[k].float() for k in ("w", "u", "b")} for c in cells],
             {k: out_dense[k].float() for k in ("w", "b")}, [s.float() for s in init_states],
-            start.float(), T, activation, out_activation, wide)
+            start.float(), T, activation, out_activation, builds)
         return probs.to(start.dtype), logits.to(start.dtype)
     head = {"cells": list(cells), "out": out_dense, "init": list(init_states), "start": start,
             "T": T, "out_activation": out_activation}
-    return _decode_heads_train([head], wide)[0]
+    return _decode_heads_train([head], builds)[0]
 
 
-def gru_decode_multihead_train(primary, heads, T, activation, out_acts):
+def gru_decode_multihead_train(primary, heads, T, activation, out_acts, residual_dtype=None):
     """Differentiable decode of a 2-layer primary head and 1-layer side
     heads over the same T, in one launch each way. ``primary`` and each of
     ``heads`` are {cells, out, init, start}; ``out_acts`` one output
-    activation per head, primary first. Returns a tuple of (probs, logits)
-    per head, each (T, B, D) time-major."""
+    activation per head, primary first; ``residual_dtype``: the dtype the h
+    sequences are stored in for the backward (bfloat16 beside float32
+    heads: ``decode_residual_bf16``, D's and E's bf16-residual builds; probs
+    and logits do not change). Returns a tuple of (probs, logits) per head,
+    each (T, B, D) time-major."""
     if activation != "tanh":
         raise ValueError(f"the decode training kernels implement tanh cells, not {activation!r}")
     specs = [primary, *heads]
@@ -568,6 +645,14 @@ def gru_decode_multihead_train(primary, heads, T, activation, out_acts):
             len(h["cells"]) != 1 for h in heads):
         raise ValueError("the multi-head decode takes a 2-layer primary head, 1-layer side "
                          "heads and one output activation per head")
+    dtype = primary["start"].dtype
+    if residual_dtype in (None, dtype):
+        builds = None
+    elif residual_dtype == torch.bfloat16 and dtype == torch.float32:
+        builds = ("D_resid", "E_resid")
+    else:
+        raise ValueError(f"the multi-head decode stores {dtype} heads' h sequences in their own "
+                         f"dtype, or float32 heads' in bfloat16; got {residual_dtype}")
     return tuple(_decode_heads_train([
         {"cells": list(h["cells"]), "out": h["out"], "init": list(h["init"]), "start": h["start"],
-         "T": T, "out_activation": oa} for h, oa in zip(specs, out_acts)]))
+         "T": T, "out_activation": oa} for h, oa in zip(specs, out_acts)], builds))

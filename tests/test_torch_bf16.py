@@ -34,6 +34,8 @@ The JAX side runs its Pallas kernels in interpret mode (``interpret=True``,
   model: ``jax.random.normal`` in bf16.
 """
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,8 +45,9 @@ import torch
 from midi_vae_tpu.config import small_test_config
 from midi_vae_tpu.models.vae import MidiVAE as JaxVAE
 from midi_vae_tpu.models.vae import loss_and_metrics as jax_loss
-from midi_vae_tpu.ops import fused_decoder, fused_gru, fused_lstm
+from midi_vae_tpu.ops import fused_decoder, fused_gru, fused_lstm, fused_train
 from midi_vae_tpu_torch import bridge
+from midi_vae_tpu_torch.config import Config
 from midi_vae_tpu_torch.models import vae as port_vae
 from midi_vae_tpu_torch.models.vae import MidiVAE, loss_and_metrics
 from midi_vae_tpu_torch.ops import _layout
@@ -422,27 +425,33 @@ def test_slice_configs_take_the_whole_scan_wrappers(name, monkeypatch):
         assert spy.count() == {"L" if name == "lstm" else "A": 4}
 
 
-@pytest.mark.parametrize("overrides, route, match", [
-    # the multi-head kernel's bf16 residuals (a float32 model)
-    ({"compute_dtype": "float32", "decode_residual_bf16": True}, None,
-     "decode_residual_bf16.*Queue 1 item 2"),
-], ids=["decode_residual_bf16"])
-def test_unported_bf16_configs_raise_naming_what_they_wait_for(overrides, route, match,
-                                                                monkeypatch):
-    """Every bf16 config whose step still needs a kernel without a bf16 build
-    raises on CUDA, naming it and the ROADMAP item; on the CPU it takes the
-    plain path. The GRU configs that waited for A, C, D, E and W in bf16 on
-    the narrow route train (``tests/test_torch_bf16_fused.py``), and so do
-    those that waited for the wide route's bf16 builds
-    (``tests/test_torch_bf16_wide.py``) and the LSTM ones that waited for
-    L, N, Q and R in bf16 (``tests/test_torch_bf16_lstm.py``)."""
-    monkeypatch.setattr(_layout, "FORCE_ROUTE", route)
-    model = MidiVAE(small_test_config(**{"compute_dtype": "bfloat16", **overrides}))
-    with pytest.raises(NotImplementedError, match=match):
-        model.train_kernels(torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        model.train_kernels_enabled(torch.device("cuda"))
-    assert model.train_kernels(torch.device("cpu")) == (False, False)
+@pytest.mark.parametrize("cell_type, dtype, H", list(itertools.product(
+    ("GRU", "LSTM"), ("float32", "bfloat16"), (128, 256, 512))))
+def test_unported_bf16_configs_raise_naming_what_they_wait_for(cell_type, dtype, H):
+    """No config at H <= 512 waits for a kernel any more: for every batch
+    from 32 to 1024, with ``decode_residual_bf16`` and ``meta_held_notes`` on
+    or off, ``config_route`` and ``train_kernels`` dispatch every part on
+    CUDA without raising NotImplementedError (a part whose rows have no port
+    build that launches) or LaunchLimitError (a width no build launches).
+    The last configs that raised were bf16 GRU heads at rows 7 and 8 at
+    H = 512, B <= 128 (``head_builds``: the 2-row builds with row 8's
+    rounding) and the float32 multi-head decode with bf16 residuals, whose
+    dispatch the flag axis checks: on the card ``_multihead`` takes the call
+    (and the flag its bf16-residual builds, which
+    ``tests/test_torch_residual_bf16.py`` spies on) exactly where the JAX
+    package's ``_mh_use_pallas`` runs its kernel (float32, ``_mh_vmem_ok``
+    at the batch), without raising."""
+    cuda = torch.device("cuda")
+    for batch, residual, held in itertools.product((32, 64, 128, 256, 512, 1024), (False, True),
+                                                   (False, True)):
+        cfg = Config(cell_type=cell_type, compute_dtype=dtype, lstm_size=H, batch_size=batch,
+                     decode_residual_bf16=residual, meta_held_notes=held)
+        route = _layout.config_route(cfg)
+        assert route in ("narrow", "wide", "per-part")
+        assert MidiVAE(cfg, {}).train_kernels(cuda) == (True, True)
+        tpu = (cell_type == "GRU" and dtype == "float32"
+               and fused_train._mh_vmem_ok(batch, cfg.output_dim, [1, 2] if held else [1], H))
+        assert port_vae._multihead(cfg, route, batch, on_card=True) is tpu, (batch, residual, held)
 
 
 def test_multihead_is_declined_in_bf16():
@@ -451,8 +460,7 @@ def test_multihead_is_declined_in_bf16():
     ``decode_residual_bf16`` is a no-op in a bf16 model."""
     f32 = small_test_config()
     bf16 = small_test_config(compute_dtype="bfloat16")
-    assert port_vae._multihead(f32, "narrow") is True
-    assert port_vae._multihead(bf16, "narrow") is False
-    assert port_vae.unported_training(small_test_config(
-        compute_dtype="bfloat16", decode_residual_bf16=True, fused_train_encoder=False,
-        fused_train_decoder=False)) is None
+    assert port_vae._multihead(f32, "narrow", B) is True
+    assert port_vae._multihead(bf16, "narrow", B) is False
+    assert port_vae._multihead(small_test_config(compute_dtype="bfloat16",
+                                                 decode_residual_bf16=True), "narrow", B) is False

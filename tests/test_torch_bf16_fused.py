@@ -491,20 +491,20 @@ def test_route_is_decided_from_the_bf16_builds():
     """``config_route`` of a bf16 config dispatches each part at the
     config's batch and checks the bf16 builds of its rows: Config()'s parts
     take A, C, D and E in bf16 (D and E at float32 for heads narrower than
-    8), the narrow route; forced onto those rows at H = 512, D's bf16 build
-    does not launch and the dispatch raises on the card naming it; the rows
-    the TPU runs at H = 512 are the wide ones, whose bf16 builds train it on
-    CUDA too."""
+    8), the narrow route; forced onto those rows at H = 512, where D's and
+    E's 8-row bf16 builds do not launch, the head takes the 2-row builds
+    with row 8's rounding; the rows the TPU runs at H = 512 and B = 256 are
+    the wide ones, whose bf16 builds train it on CUDA too."""
     from midi_vae_tpu_torch.config import Config
-    from midi_vae_tpu_torch.models.vae import unported_training
 
     assert _layout.config_route(Config(compute_dtype="bfloat16")) == "narrow"
+    assert _layout.head_builds("inplace", 61, 256, 2) == ("D_bf16", "E_bf16")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(_layout, "FORCE_ROUTE", "narrow")
-        with pytest.raises(NotImplementedError, match="rows 7 and 8.*D_bf16"):
-            _layout.bf16_head_mode(256, 61, 512, 2, on_card=True)
-        assert _layout.bf16_head_mode(256, 61, 512, 2) == "inplace"
+        assert _layout.bf16_head_mode(256, 61, 512, 2, on_card=True) == "inplace"
+        assert _layout.head_builds("inplace", 61, 512, 2) == ("D_wide_bf16", "E_wide_row8_bf16")
+        assert _layout.launch_limit("D_bf16", 512, _layout.smem_bytes("D_bf16", 512, 61, 2))
     wide = Config(compute_dtype="bfloat16", lstm_size=512)
     assert _layout.config_route(wide) == "wide"
-    assert unported_training(wide) is None
-    assert unported_training(Config(compute_dtype="bfloat16")) is None
+    for cfg in (wide, Config(compute_dtype="bfloat16")):
+        assert MidiVAE(cfg, {}).train_kernels(torch.device("cuda")) == (True, True)

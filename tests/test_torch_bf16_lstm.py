@@ -48,7 +48,7 @@ from midi_vae_tpu.ops import fused_train as ft
 from midi_vae_tpu_torch import bridge
 from midi_vae_tpu_torch.config import Config
 from midi_vae_tpu_torch.models import rnn as port_rnn
-from midi_vae_tpu_torch.models.vae import MidiVAE, unported_training
+from midi_vae_tpu_torch.models.vae import MidiVAE
 from midi_vae_tpu_torch.ops import _layout
 from midi_vae_tpu_torch.ops import grad_reduce as port_gr
 from midi_vae_tpu_torch.ops import gru_decode as port_decode
@@ -352,7 +352,8 @@ def test_bf16_dispatch_at_the_shapes_that_differ(monkeypatch):
     only, at (128, 512) rows 15 and 16; the GRU at (1024, 256) rows 11 and
     12 and the wide heads, at (128, 512) rows 1 and 4 for notes L1 and the
     branches, 9 and 10 for notes L2, the wide notes head and rows 7 and 8 for
-    the others (whose port builds do not launch at H = 512)."""
+    the others (on the card through the 2-row builds with row 8's rounding,
+    as D's and E's 8-row builds do not launch at H = 512)."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     lstm = lambda b, h: [_layout.bf16_layer_mode("LSTM", b, d, h) for d in (61, h, 16, 1)]  # noqa: E731
     gru = lambda b, h: [_layout.bf16_layer_mode("GRU", b, d, h) for d in (61, h, 16, 1)]  # noqa: E731
@@ -365,11 +366,12 @@ def test_bf16_dispatch_at_the_shapes_that_differ(monkeypatch):
     assert heads(128, 512) == ["wide", "inplace", "inplace"]
     assert gru(256, 256) == ["x"] * 4 and heads(256, 256) == ["inplace"] * 3
     assert gru(256, 512) == ["inplace"] * 4 and heads(256, 512) == ["wide"] * 3
-    # on the card: the rows 7 and 8 of a head at H = 512 have no build that
-    # launches (D's and E's 8-row builds); every other part's rows do
-    for D in (16, 1):
-        with pytest.raises(NotImplementedError, match="rows 7 and 8"):
-            _layout.bf16_head_mode(128, D, 512, 1, on_card=True)
+    # on the card: the rows 7 and 8 of a head at H = 512 run on the 2-row
+    # builds (D's and E's 8-row builds do not launch there), in bf16 with
+    # row 8's rounding or, promoted to float32, the wide float32 builds
+    for D, builds in ((16, ("D_wide_bf16", "E_wide_row8_bf16")), (1, ("D_wide", "E_wide"))):
+        assert _layout.bf16_head_mode(128, D, 512, 1, on_card=True) == "inplace"
+        assert _layout.head_builds("inplace", D, 512, 1) == builds
     assert _layout.bf16_head_mode(128, 61, 512, 2, on_card=True) == "wide"
     for cell_type, (b, h) in (("LSTM", (256, 256)), ("LSTM", (256, 512)), ("LSTM", (128, 512)),
                               ("GRU", (1024, 256)), ("GRU", (128, 512))):
@@ -527,20 +529,21 @@ def test_formerly_unported_bf16_lstm_configs_train_through_the_bf16_builds(name,
 
 
 def test_lstm_bf16_configs_train_at_full_width():
-    """``unported_training`` is None for the bf16 LSTM at 256 and 512, with
-    and without ``fused_train_decoder``; ``decode_residual_bf16`` on the
-    multi-head path still raises (Queue 2 item 3). ``config_route`` labels
-    the rows every part takes at the config's batch, checking their builds
-    on the card: narrow at (256, 256), wide at (256, 512), per-part at (512,
-    256), where notes L2 alone takes rows 17 and 18."""
+    """The bf16 LSTM trains on CUDA at 256 and 512, with and without
+    ``fused_train_decoder``, and so does ``decode_residual_bf16`` on the
+    multi-head path (D's and E's bf16-residual builds). ``config_route``
+    labels the rows every part takes at the config's batch, checking their
+    builds on the card: narrow at (256, 256), wide at (256, 512), per-part
+    at (512, 256), where notes L2 alone takes rows 17 and 18."""
+    cuda = torch.device("cuda")
     for H in (256, 512):
         for flags in ({}, {"fused_train_decoder": False}):
             cfg = Config(cell_type="LSTM", lstm_size=H, compute_dtype="bfloat16", **flags)
-            assert unported_training(cfg) is None
+            assert MidiVAE(cfg, {}).train_kernels(cuda) == (True, True)
             assert _layout.config_route(cfg) == ("narrow" if H == 256 else "wide")
     assert _layout.config_route(Config(cell_type="LSTM", compute_dtype="bfloat16",
                                        batch_size=512)) == "per-part"
-    assert "decode_residual_bf16" in unported_training(Config(decode_residual_bf16=True))
+    assert MidiVAE(Config(decode_residual_bf16=True), {}).train_kernels(cuda) == (True, True)
 
 
 # ---------------------------------------------------------------------------
@@ -572,10 +575,13 @@ def _gru_mirror(which):
                 "scan" if dec_mode(cells, *a) == "scan" else
                 "wide" if len(cells) == 2 else "inplace"))
 
-        def port_side(mp):  # the predicates' answers at (B 128, H 512)
+        head_builds = _layout.head_builds
+
+        def port_side(mp):  # the predicates' and the builds' answers at (B 128, H 512)
             mp.setattr(_layout, "x_train_vmem_ok", lambda B_, D, H, s: D != H)
             mp.setattr(_layout, "dec_train_vmem_ok", lambda B_, D, H, n: n != 2)
             mp.setattr(_layout, "dec_wide_btiles", lambda *a: (128, 64))
+            mp.setattr(_layout, "head_builds", lambda mode, D, H, n: head_builds(mode, D, 512, n))
 
     def jax_with_mh_off(mp):
         jax_side(mp)
@@ -604,12 +610,13 @@ def _gru_spy(monkeypatch):
 
 def _gru_builds(spy) -> dict:
     """{kernel: calls}, the decode kernels by head width (each call takes
-    one head)."""
+    one head), the wide E's build with row 8's rounding as "E_wide row8"."""
     found: dict = {}
     for name, calls in spy.calls.items():
         for args, _ in calls:
-            key = (f"{name} D={args[0][0]['start'].shape[-1]}" if name.startswith(("D", "E"))
-                   else name)
+            row8 = name == "E_wide" and args[1] == "E_wide_row8_bf16"
+            key = (f"{name}{' row8' if row8 else ''} D={args[0][0]['start'].shape[-1]}"
+                   if name.startswith(("D", "E")) else name)
             found[key] = found.get(key, 0) + 1
     return found
 
@@ -620,9 +627,12 @@ GRU_WANT = {
     "b1024_h256": {"X": 4, "G": 4, "D_wide D=61": 1, "E_wide D=61": 1, "D_wide D=16": 1,
                    "E_wide D=16": 1, "D_wide D=1": 1, "E_wide D=1": 1},
     # A + C for notes L1 and the branches, X + G for notes L2; the notes head
-    # wide, the 1-layer heads on D and E
+    # wide, the 1-layer heads' rows 7 and 8 on the 2-row builds with row 8's
+    # rounding (the velocity head's promoted to float32: E wide's float32
+    # build, whose streams are unrounded too)
     "b128_h512": {"A": 3, "C": 3, "X": 1, "G": 1, "D_wide D=61": 1, "E_wide D=61": 1,
-                  "D D=16": 1, "E D=16": 1, "D D=1": 1, "E D=1": 1},
+                  "D_wide D=16": 1, "E_wide row8 D=16": 1, "D_wide D=1": 1,
+                  "E_wide D=1": 1},
 }
 
 

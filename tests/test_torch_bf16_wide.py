@@ -1,6 +1,6 @@
 """CPU parity of bf16 training on the GRU's wide route against the JAX
 package: ``gru_layer_train`` over xp = x @ W + b (kernel X forward, G's bf16
-build and W backward), ``gru_decode_train(wide=True)`` (the bf16 builds of
+build and W backward), ``gru_decode_train`` on the wide builds (the bf16 builds of
 the wide D and E, and W) and the configs that take them
 (``Config(lstm_size=512, compute_dtype="bfloat16")``, the soak's
 ``wide512_bf16``, forced down the wide route at small widths).
@@ -300,7 +300,8 @@ def test_wide_decode_train_bf16_matches_rows_13_and_14(n_layers, D, out_act, mon
                 for k, w in enumerate(want))
     want_grads = jax.tree_util.tree_leaves(vjp(cot))
     tc, to, ti, ts = _torch_head(cells, out, init, start, grad=True)
-    got = port_decode.gru_decode_train(tc, to, ti, ts, T_HEAD, "tanh", out_act, wide=True)
+    got = port_decode.gru_decode_train(tc, to, ti, ts, T_HEAD, "tanh", out_act,
+                                       _layout.head_builds("wide", D, H_OP, n_layers))
     for name, g, w in zip(("probs", "logits"), got, want):
         assert g.dtype == BF and w.dtype == jnp.bfloat16, name
         _assert_close(g, w, name)
@@ -322,7 +323,8 @@ def test_wide_narrow_heads_take_the_float32_builds(monkeypatch):
     for n_layers, D, out_act in HEAD_CASES[:3]:
         cells, out, init, start = _torch_head(*_head_inputs(n_layers, D), grad=True)
         probs, logits = port_decode.gru_decode_train(cells, out, init, start, T_HEAD, "tanh",
-                                                     out_act, wide=True)
+                                                     out_act,
+                                                     _layout.head_builds("wide", D, H_OP, n_layers))
         (probs.float().sum() + logits.float().sum()).backward()
     dtypes = {k: [args[0][0]["start"].dtype for args, _ in v] for k, v in spy.calls.items()}
     assert dtypes == {"D": [BF, BF, torch.float32], "E": [BF, BF, torch.float32]}
@@ -404,6 +406,96 @@ def test_rounding_controls_land_outside_the_tolerance(seed):
         for i, (p, u, w) in enumerate(zip(port, unrounded, want)):
             _assert_close(p, w, f"{n_layers}L D={D} E wide + W grad {i}")
             found[f"{n_layers}L D={D} unrounded streams grad {i}"] = _rel_l2(u, w)
+    for what, err in found.items():
+        assert err > REL_L2, f"the control {what} lands {err:.3e} from JAX, inside {REL_L2:.1e}"
+
+
+# ---------------------------------------------------------------------------
+# rows 7 and 8 on the 2-row builds: a bf16 head the TPU runs through
+# _dec_fwd/_dec_bwd_pallas at a width (H = 512) where D's and E's 8-row bf16
+# builds do not launch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_layers, D, out_act", HEAD_CASES,
+                         ids=[f"{n}L-D{d}-{a}" for n, d, a in HEAD_CASES])
+def test_rows_7_and_8_on_the_wide_builds_match_the_pallas_kernels(n_layers, D, out_act,
+                                                                  monkeypatch):
+    """``gru_decode_train`` on D's and E's 2-row builds in bf16 (D's wide
+    bf16 build, E's with row 8's rounding; a head narrower than 8 in float32)
+    against the JAX op on its in-place rows (``_dec_fwd_pallas``,
+    ``_dec_bwd_pallas`` in interpret mode): probs, logits and the VJP of
+    every input within REL_L2, and the wide E is asked for its unrounded
+    streams."""
+    spy = _Spy(monkeypatch, {"E_wide": (port_decode, "gru_decode_bwd_wide")})
+    cells, out, init, start = _head_inputs(n_layers, D, seed=D)
+    jc = [{k: _pair(v)[0] for k, v in c.items()} for c in cells]
+    jo = {k: _pair(v)[0] for k, v in out.items()}
+    want, vjp = jax.vjp(lambda c, o, i, s: ft.gru_decode_train(c, o, i, s, T_HEAD, "tanh",
+                                                                out_act, True),
+                        jc, jo, [_pair(s)[0] for s in init], _pair(start)[0])
+    cot = tuple(jnp.cos(3.0 * w.astype(jnp.float32) + k).astype(w.dtype)
+                for k, w in enumerate(want))
+    want_grads = jax.tree_util.tree_leaves(vjp(cot))
+    tc, to, ti, ts = _torch_head(cells, out, init, start, grad=True)
+    builds = ("D_wide_bf16", "E_wide_row8_bf16") if D >= 8 else ("D_wide", "E_wide")
+    got = port_decode.gru_decode_train(tc, to, ti, ts, T_HEAD, "tanh", out_act, builds)
+    for name, g, w in zip(("probs", "logits"), got, want):
+        assert g.dtype == BF and w.dtype == jnp.bfloat16, name
+        _assert_close(g, w, name)
+    leaves = _head_leaves(tc, to, ti, ts)
+    grads = torch.autograd.grad(got, leaves, [torch.from_numpy(_np(c).copy()).to(BF) for c in cot])
+    for i, (g, w) in enumerate(zip(grads, want_grads)):
+        assert g.dtype == BF and w.dtype == jnp.bfloat16, i
+        _assert_close(g, w, f"grad {i}")
+    assert [(a[0][0]["start"].dtype, a[1]) for a, _ in spy.calls["E_wide"]] == [
+        (BF, "E_wide_row8_bf16") if D >= 8 else (torch.float32, "E_wide")]
+
+
+def _row8_weight_grads(n_layers, D, out_act, seed):
+    """The weight grads of one head before their bf16 cast, flattened (per
+    layer dW, dU; then dWo): rows 7 and 8's in-kernel float32 sums, the
+    port's E wide + W with row 8's unrounded streams, and with row 14's
+    rounded ones."""
+    cells, out, init, start = _head_inputs(n_layers, D, seed=11 + seed)
+    jc = [{k: _pair(v)[0] for k, v in c.items()} for c in cells]
+    jo = {k: _pair(v)[0] for k, v in out.items()}
+    ji, js = [_pair(s)[0] for s in init], _pair(start)[0]
+    probs, _, *h_seqs = ft._dec_fwd_pallas(jc, jo, ji, js, T_HEAD, "tanh", out_act, True)
+    rng = np.random.RandomState(12 + seed)
+    g_probs, g_logits = (jnp.asarray(rng.randn(*probs.shape), jnp.bfloat16) for _ in range(2))
+    outs = ft._dec_bwd_pallas(jc, jo, ji, js, probs, h_seqs, g_probs, g_logits, out_act, True)
+    want = [outs[3 * i + k] for i in range(n_layers) for k in (0, 1)] + [outs[3 * n_layers]]
+    tc, to, ti, ts = _torch_head(cells, out, init, start)
+    tp, tgp, tgl = (torch.from_numpy(_np(a).copy()).to(BF) for a in (probs, g_probs, g_logits))
+    th = [torch.from_numpy(_np(h).copy()).to(BF) for h in h_seqs]
+    found = []
+    for rounded in (False, True):
+        g = port_decode.gru_decode_bwd_reference(tc, to, ti, ts, tp, th, tgp, tgl, out_act, rounded)
+        grads = []
+        for i in range(n_layers):
+            x = th[i - 1] if i > 0 else torch.cat([ts[None], tp[:-1]])
+            dw, _db, du = port_gr.gru_weight_grads(x, torch.cat([ti[i][None], th[i][:-1]]),
+                                                   g["rh"][i], g["da"][i])
+            grads += [dw, du]
+        dwo = torch.empty(H_OP, D)
+        port_gr.grad_reduce(th[-1].reshape(-1, H_OP), g["dlogits"].reshape(-1, D), dwo)
+        found.append(grads + [dwo])
+    return want, found[0], found[1]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_row_8_weight_grads_sum_the_unrounded_streams(seed):
+    """Rows 7 and 8 sum their weight grads from the float32 gate grads in
+    VMEM: the port's E wide + W with ``round_streams=False`` meets those
+    sums within REL_L2 before the final bf16 cast, and row 14's rounded
+    streams (E wide's other bf16 build) land over it on each head's dW, dU
+    and dWo."""
+    found = {}
+    for n_layers, D, out_act in ((2, 61, "softmax"), (1, 16, "softmax")):
+        want, port, rounded = _row8_weight_grads(n_layers, D, out_act, seed)
+        for i, (p, r, w) in enumerate(zip(port, rounded, want)):
+            _assert_close(p, w, f"{n_layers}L D={D} E wide row 8 + W grad {i}")
+            found[f"{n_layers}L D={D} rounded streams grad {i}"] = _rel_l2(r, w)
     for what, err in found.items():
         assert err > REL_L2, f"the control {what} lands {err:.3e} from JAX, inside {REL_L2:.1e}"
 
@@ -551,14 +643,13 @@ def test_formerly_unported_wide_bf16_configs_train_through_the_bf16_builds(name,
 def test_wide_bf16_config_takes_the_wide_route_at_full_width():
     """``Config(lstm_size=512, compute_dtype="bfloat16")`` trains on CUDA
     (no raise) on the wide route, and so does the bf16 LSTM(512) with the
-    fused encoder (Q and R in bf16); ``decode_residual_bf16`` on the
-    multi-head path still raises, naming Queue 1 item 2."""
-    from midi_vae_tpu_torch.models.vae import unported_training
-
+    fused encoder (Q and R in bf16); so does ``decode_residual_bf16`` on the
+    multi-head path (D's and E's bf16-residual builds)."""
+    cuda = torch.device("cuda")
     wide = Config(lstm_size=512, compute_dtype="bfloat16")
-    assert unported_training(wide) is None
-    for variant in ({"fused_train_encoder": False}, {"fused_train_decoder": False}):
-        assert unported_training(Config(lstm_size=512, compute_dtype="bfloat16", **variant)) is None
-    assert unported_training(Config(lstm_size=512, compute_dtype="bfloat16",
-                                    cell_type="LSTM")) is None
-    assert "Queue 1 item 2" in unported_training(Config(decode_residual_bf16=True))
+    for variant in ({}, {"fused_train_encoder": False}, {"fused_train_decoder": False},
+                    {"cell_type": "LSTM"}):
+        cfg = Config(lstm_size=512, compute_dtype="bfloat16", **variant)
+        assert MidiVAE(cfg, {}).train_kernels(cuda) == (True, True)
+    assert _layout.config_route(wide) == "wide"
+    assert MidiVAE(Config(decode_residual_bf16=True), {}).train_kernels(cuda) == (True, True)

@@ -32,7 +32,7 @@ from midi_vae_tpu_torch.ops import gru_layer as port_layer
 from midi_vae_tpu_torch.ops import gru_step as port_gru_step
 from midi_vae_tpu_torch.ops import lstm_layer as port_lstm_layer
 from midi_vae_tpu_torch.ops import lstm_step as port_lstm_step
-from test_torch_wide import B, _assert_step_matches, _jax_step, _Spy, make_batch
+from test_torch_wide import B, _assert_step_matches, _jax_step, _port_step, _Spy, make_batch
 
 ATOL = 2e-6
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
@@ -293,18 +293,31 @@ def test_decode_residual_bf16_raises_where_the_multihead_kernel_runs(overrides, 
                                                                      monkeypatch):
     """decode_residual_bf16 acts in the JAX package only where its
     multi-head kernel runs (models/vae.py:395-401, :560-572): there the port
-    raises on CUDA, naming the flag and the bf16 item; elsewhere, and on the
-    wide route, the flag is a no-op as in the JAX package. On the CPU the
-    config takes the plain path."""
-    model = MidiVAE(small_test_config(decode_residual_bf16=True, **overrides))
+    stores the multi-head call's h sequences in bf16 (D's and E's
+    bf16-residual builds: ``raises`` names the cases where the flag acts,
+    which raised on CUDA before those builds), on CUDA as on the CPU;
+    elsewhere the flag is a no-op as in the JAX package. One CPU step's
+    spies show which. Off the narrow route the TPU still runs the call: the
+    CPU runs its plain versions and the card raises, as no build of rows 5
+    and 6 launches there."""
+    cfg = small_test_config(decode_residual_bf16=True, **overrides)
+    params = MidiVAE(cfg).init_params(np.array([0, 2], np.uint32))
+    model = MidiVAE(cfg, params)
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    if raises:
-        with pytest.raises(NotImplementedError, match="decode_residual_bf16.*Queue 1 item 2"):
-            model.train_kernels(cuda)
-        assert model.train_kernels(cpu) == (False, False)
-        monkeypatch.setattr(_layout, "FORCE_ROUTE", "wide")
     assert model.train_kernels(cuda) == model.train_kernels(cpu)
     assert model.train_kernels(cuda)[0] is True
+
+    def d_builds():
+        spy = _Spy(monkeypatch, {"D": (port_decode, "gru_decode_fwd_train")})
+        _port_step(cfg, params, make_batch(cfg), np.zeros((B, cfg.latent_dim), np.float32))
+        return [a[1] for a, _ in spy.calls["D"]]
+
+    assert ("D_resid" in d_builds()) is raises
+    if raises:
+        monkeypatch.setattr(_layout, "FORCE_ROUTE", "wide")
+        assert "D_resid" in d_builds()
+        with pytest.raises(NotImplementedError, match="rows 5 and 6"):
+            port_vae._multihead(cfg, model.train_route(cuda), B, on_card=True)
 
 
 def test_per_step_encoder_takes_one_matmul_then_the_cell(monkeypatch):

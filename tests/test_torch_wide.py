@@ -141,7 +141,7 @@ def _head(D, n, Bn, H, seed):
 def test_wide_decode_matches_jax(D, n, out_act, T, jax_wide, monkeypatch):
     """probs, logits and the grads of sum(sin(probs)) + 0.3 sum(cos(logits))
     for every cell, the out dense, the init states and the start symbol,
-    through gru_decode_train(wide=True) against the JAX wide decode pair
+    through gru_decode_train on the wide builds against the JAX wide decode pair
     (as tests/test_ops_train.py::test_wide_decode_gradient_parity)."""
     monkeypatch.setattr(ft, "_WIDE_BUDGET_BYTES", 200_000)
     spec = _head(D, n, 16, 16, D + n)
@@ -152,7 +152,7 @@ def test_wide_decode_matches_jax(D, n, out_act, T, jax_wide, monkeypatch):
     leaves = [_t(a).requires_grad_() for a in port_decode._flatten_head(spec)]
     h = port_decode._unflatten_heads([(n, None, None)], leaves)[0]
     probs, logits = port_decode.gru_decode_train(h["cells"], h["out"], h["init"], h["start"], T,
-                                                 "tanh", out_act, wide=True)
+                                                 "tanh", out_act, ("D_wide", "E_wide"))
     _close(probs, want_p)
     _close(logits, want_l)
     got = torch.autograd.grad(torch.sin(probs).sum() + 0.3 * torch.cos(logits).sum(), leaves)
@@ -392,7 +392,7 @@ def test_wide_ops_run_without_nvcc(tmp_path):
         "xp = torch.zeros(2, 3, 96, requires_grad=True); h = torch.zeros(3, 32)\n"
         "gl.gru_layer_train(xp, h, torch.zeros(32, 96), True).sum().backward()\n"
         "c = {'w': torch.zeros(4, 96), 'u': torch.zeros(32, 96, requires_grad=True), 'b': torch.zeros(96)}\n"
-        "p, l = gd.gru_decode_train([c], {'w': torch.zeros(32, 4), 'b': torch.zeros(4)}, [h], torch.zeros(3, 4), 2, wide=True)\n"
+        "p, l = gd.gru_decode_train([c], {'w': torch.zeros(32, 4), 'b': torch.zeros(4)}, [h], torch.zeros(3, 4), 2, builds=('D_wide', 'E_wide'))\n"
         "(p.sum() + l.sum()).backward()\n"
         "assert xp.grad is not None and c['u'].grad is not None\n"
         "assert _build.load.cache_info().currsize == 0 and not _build.build_seconds\n"
