@@ -20,9 +20,14 @@ result line):
      (csrc/gru_encoder_scan.cu), Y
      (csrc/lstm_encoder_scan.cu), U (csrc/gru_encoder_stack_fwd.cu) and V
      (csrc/gru_encoder_stack_bwd.cu), D's and E's bf16-residual builds and
-     E wide's bf16 build with row 8's rounding; every build's
-     registers and spills from ptxas against the route chooser's table; the
-     8-rows builds of D and E must refuse H = 512 at their C entry points;
+     E wide's bf16 build with row 8's rounding; N and R as three phases
+     each (csrc/lstm_cell_bwd.cuh: the gate pre-pass, the chain on
+     thread-block clusters, N's dx pass); every build's registers and
+     spills from ptxas against the route chooser's table (the phase builds
+     also against their threads a block); the 8-rows builds of D and E must
+     refuse H = 512 at their C entry points; each chain build's cluster
+     size, whether it streams U^T, the card's
+     cudaOccupancyMaxActiveClusters and its plan at B = 256;
   3. kernels: A and B against their plain PyTorch versions on the card, at
      the shapes the transfer path gives them with B = 256 windows, with times
      (CUDA events, median of REPS runs) and each call's bound (the larger of
@@ -76,7 +81,9 @@ result line):
      S (csrc/lstm_step.cu) and W at the LSTM(256) step's shapes, Q
      (csrc/lstm_layer_xp_fwd.cu), R (csrc/lstm_layer_xp_bwd.cu) and W at
      LSTM(512)'s, against their plain versions at B = 256 (timed, with
-     bounds and cuDNN's LSTM as the yardstick) and B = 5, the gradients of
+     bounds and cuDNN's LSTM as the yardstick: its forward beside L, its
+     backward beside N and R) and B = 5, each of N's and R's phases against
+     its plain version on the same inputs, the gradients of
      lstm_layer_train_x, lstm_layer_train and lstm_cell_step against
      autograd through the plain forward, and one LSTM(512) notes layer's
      forward + backward timed on both routes;
@@ -191,7 +198,11 @@ result line):
      and their dU against the plain sum of their row's gate grads, and four
      controls that must land over the limits those are held to: the layer
      with every op in bf16, c carried in float32, N's dU from the rounded
-     da, R's dU from the other row's gate grads (wide and in place);
+     da, R's dU from the other row's gate grads (wide and in place); each of
+     N's and R's phases against its plain version, and on notes L2 their
+     chain over the last two steps (step T-2's float32 gate grads within
+     BF16_STEP_REL_L2) beside a fifth control that must land over it: the
+     chain with da rounded to bf16 before the dh product;
  37. the train CLI with --set cell_type=LSTM --set compute_dtype=bfloat16, 2
      epochs, --resume for a third, serving: L and N in bf16 4 each, S bf16
      196, W bf16 8 a step, every launch counter as designed;
@@ -329,6 +340,38 @@ def phase_build():
     print(f"[build] {time.perf_counter() - t0:.2f} s, in parallel; nvcc per library: {secs}")
     found = check_registers()
     check_launch_bounds(found)
+    found["clusters"] = report_clusters()
+    return found
+
+
+def report_clusters():
+    """The cluster size of each of N's and R's chain builds at H = 256 and
+    512, whether its U^T slice streams, and the card's
+    cudaOccupancyMaxActiveClusters at that size (one CTA an SM), beside the
+    count the route chooser's plans assume off the card."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import _layout
+    from midi_vae_tpu_torch.ops import lstm_layer as ll
+
+    found = {}
+    for build in _layout.BPTT_BUILDS:
+        lib = "lstm_layer_bwd" if build[0] == "N" else "lstm_layer_xp_bwd"
+        for H in (256, 512):
+            C, stream = _layout.bptt_cluster(build, H)
+            active = ll._max_clusters(lib, build.endswith("_bf16"), C, stream)
+            dtype = torch.bfloat16 if build.endswith("_bf16") else torch.float32
+            plan = ll.chain_plan(build[0], H, B, dtype)
+            found[f"{build} H={H}"] = {"cluster": C, "stream": stream, "max_active_clusters": active,
+                                       "assumed": _layout.MAX_CLUSTERS_H100[C],
+                                       "plan_B256": plan._asdict()}
+    print("[build] chain clusters (size, U^T streamed, cudaOccupancyMaxActiveClusters; plan at "
+          f"B = {B}): " + "; ".join(
+              f"{k}: {v['cluster']}, {v['stream']}, {v['max_active_clusters']}; rows "
+              f"{v['plan_B256']['rows']} x {v['plan_B256']['clusters']} clusters, splits "
+              f"{v['plan_B256']['splits']}, nbuf {v['plan_B256']['nbuf']}, stages "
+              f"{v['plan_B256']['stages']}, {v['plan_B256']['smem']:,} bytes"
+              for k, v in found.items()))
     return found
 
 
@@ -348,9 +391,14 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "W": ("grad_reduce", "grad_reduce", NOT_BF16),
           "L": ("lstm_layer_fwd", "lstm_layer_fwd_kernel", NOT_BF16),
           "M": ("lstm_decode", "lstm_decode_kernel"),
-          "N": ("lstm_layer_bwd", "lstm_layer_bwd_kernel", NOT_BF16),
+          # N's and R's phases (csrc/lstm_cell_bwd.cuh): the gate pre-pass
+          # (FFMA in float32, tensor cores in bf16), the chain, N's dx pass
+          "N_gates": ("lstm_layer_bwd", "lstm_bwd_gates_kernel"),
+          "N_chain": ("lstm_layer_bwd", "lstm_bwd_chain_kernel", NOT_BF16),
+          "N_dx": ("lstm_layer_bwd", "lstm_bwd_dx_kernel", NOT_BF16),
           "Q": ("lstm_layer_xp_fwd", "lstm_layer_xp_fwd_kernel", NOT_BF16),
-          "R": ("lstm_layer_xp_bwd", "lstm_layer_xp_bwd_kernel", NOT_BF16),
+          "R_gates": ("lstm_layer_xp_bwd", "lstm_bwd_gates_kernel"),
+          "R_chain": ("lstm_layer_xp_bwd", "lstm_bwd_chain_kernel", NOT_BF16),
           "S": ("lstm_step", "lstm_step_kernel"), "S_xp": ("lstm_step", "lstm_step_xp_kernel"),
           "T": ("gru_step", "gru_step_kernel"), "T_xp": ("gru_step", "gru_step_xp_kernel"),
           "X": ("gru_encoder_scan", "gru_encoder_scan_kernel"),
@@ -370,9 +418,12 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "D_wide_bf16": ("gru_decode_train", "gru_decode_train_wide_kernel", BF16_ONLY),
           "E_wide_bf16": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel", BF16_ONLY),
           "L_bf16": ("lstm_layer_fwd", "lstm_layer_fwd_kernel", BF16_ONLY),
-          "N_bf16": ("lstm_layer_bwd", "lstm_layer_bwd_kernel", BF16_ONLY),
+          "N_gates_bf16": ("lstm_layer_bwd", "lstm_bwd_gates_mma_kernel"),
+          "N_chain_bf16": ("lstm_layer_bwd", "lstm_bwd_chain_kernel", BF16_ONLY),
+          "N_dx_bf16": ("lstm_layer_bwd", "lstm_bwd_dx_kernel", BF16_ONLY),
           "Q_bf16": ("lstm_layer_xp_fwd", "lstm_layer_xp_fwd_kernel", BF16_ONLY),
-          "R_bf16": ("lstm_layer_xp_bwd", "lstm_layer_xp_bwd_kernel", BF16_ONLY),
+          "R_gates_bf16": ("lstm_layer_xp_bwd", "lstm_bwd_gates_mma_kernel"),
+          "R_chain_bf16": ("lstm_layer_xp_bwd", "lstm_bwd_chain_kernel", BF16_ONLY),
           # D's and E's bf16-residual builds (decode_residual_bf16) and E's
           # wide bf16 build with row 8's rounding
           "D_resid": ("gru_decode_train", "gru_decode_train_resid_kernel"),
@@ -403,6 +454,9 @@ def check_registers():
     for letter in (*_layout.BOUNDED, "T_bf16", "S_bf16"):
         if found[letter]["registers"] * _layout.WIDE_THREADS > _layout.REGS_PER_SM:
             raise RuntimeError(f"kernel {letter}: {found[letter]} does not fit 512 threads")
+    for letter, threads in _layout.BPTT_PHASE_THREADS.items():
+        if found[letter]["registers"] * threads > _layout.REGS_PER_SM:
+            raise RuntimeError(f"kernel {letter}: {found[letter]} does not fit {threads} threads")
     print("[build] registers (spill bytes) per thread: " + ", ".join(
         f"{k} {v['registers']} ({v['spill_bytes']})" for k, v in found.items()))
     return found
@@ -1251,10 +1305,13 @@ PER_TRAIN_STEP = {
     # F + G per layer; each head alone; W: 2 x 4 + 3 x 4 decode cells + 3
     "wide": {"gru_layer_xp_fwd": 4, "gru_layer_xp_bwd": 4, "gru_decode_train_wide": 3,
              "gru_decode_bwd_wide": 3, "grad_reduce": 23},
-    "lstm_narrow": {"lstm_layer_fwd": 4, "lstm_layer_bwd": 4, "lstm_step": S_PER_STEP,
+    # N's and R's phases: the pre-pass and the chain per layer, N's dx pass
+    # for notes layer 2 alone (the other layers' inputs are the batch)
+    "lstm_narrow": {"lstm_layer_fwd": 4, "lstm_layer_bwd": 4, "lstm_layer_bwd_gates": 4,
+                    "lstm_layer_bwd_chain": 4, "lstm_layer_bwd_dx": 1, "lstm_step": S_PER_STEP,
                     "grad_reduce": 8},
-    "lstm_wide": {"lstm_layer_xp_fwd": 4, "lstm_layer_xp_bwd": 4, "lstm_step": S_PER_STEP,
-                  "grad_reduce": 4},
+    "lstm_wide": {"lstm_layer_xp_fwd": 4, "lstm_layer_xp_bwd": 4, "lstm_layer_xp_bwd_gates": 4,
+                  "lstm_layer_xp_bwd_chain": 4, "lstm_step": S_PER_STEP, "grad_reduce": 4},
     # the per-step configs (their backward through the cells is the plain
     # versions'): merge_decoder_scans runs the notes and velocity heads
     # through T (2 x 64 + 64), the instrument head through D and E (W 3 + 1);
@@ -1315,8 +1372,11 @@ PER_TRAIN_STEP = {
     # over the bf16 x and h_{t-1} (dW + db, dU: 2 a layer, the velocity
     # layer's too); LSTM(512) Q and R in bf16 (rows 17 and 18), W dU alone
     "lstm_bf16": {"lstm_layer_fwd_bf16": 4, "lstm_layer_bwd_bf16": 4,
-                  "lstm_step_bf16": S_PER_STEP, "grad_reduce_bf16": 8},
+                  "lstm_layer_bwd_gates_bf16": 4, "lstm_layer_bwd_chain_bf16": 4,
+                  "lstm_layer_bwd_dx_bf16": 1, "lstm_step_bf16": S_PER_STEP,
+                  "grad_reduce_bf16": 8},
     "lstm_512_bf16": {"lstm_layer_xp_fwd_bf16": 4, "lstm_layer_xp_bwd_bf16": 4,
+                      "lstm_layer_xp_bwd_gates_bf16": 4, "lstm_layer_xp_bwd_chain_bf16": 4,
                       "lstm_step_bf16": S_PER_STEP, "grad_reduce_bf16": 4},
 }
 # decode_residual_bf16 (the soak's residual_bf16, held_residual_bf16): the
@@ -1390,6 +1450,12 @@ PER_SONG_TRANSFER = {"GRU": {"gru_layer_fwd": 4, "gru_decode": 3},
                      "LSTM": {"lstm_layer_fwd": 4, "lstm_decode": 3}}
 
 
+# the counters of N's and R's phases (one launch each per op call; dx where
+# the layer's dx is wanted)
+BPTT_PHASES = ("lstm_layer_bwd_gates", "lstm_layer_bwd_chain", "lstm_layer_bwd_dx",
+               "lstm_layer_xp_bwd_gates", "lstm_layer_xp_bwd_chain")
+
+
 def route_key(cfg, route):
     """The key of the launch tables: the route, prefixed for LSTM."""
     return f"lstm_{route}" if cfg.cell_type == "LSTM" else route
@@ -1419,6 +1485,11 @@ def kernel_counters():
            "lstm_layer_fwd": ll.lstm_layer, "lstm_decode": lstm_decode,
            "lstm_layer_bwd": ll.lstm_layer_bwd, "lstm_layer_xp_fwd": ll.lstm_layer_xp,
            "lstm_layer_xp_bwd": ll.lstm_layer_xp_bwd, "lstm_step": ls.lstm_cell_step_fwd,
+           "lstm_layer_bwd_gates": ll.lstm_layer_bwd_gates,
+           "lstm_layer_bwd_chain": ll.lstm_layer_bwd_chain,
+           "lstm_layer_bwd_dx": ll.lstm_layer_bwd_dx,
+           "lstm_layer_xp_bwd_gates": ll.lstm_layer_xp_bwd_gates,
+           "lstm_layer_xp_bwd_chain": ll.lstm_layer_xp_bwd_chain,
            "lstm_step_xp": ls.lstm_recurrent_step_fwd, "gru_step": gs.gru_cell_step_fwd,
            "gru_step_xp": gs.gru_recurrent_step_fwd,
            "gru_encoder_scan": es.gru_encoder_scan_fwd,
@@ -1429,7 +1500,7 @@ def kernel_counters():
     for name in ("gru_step", "lstm_step", "gru_layer_fwd", "gru_layer_bwd", "gru_decode_train",
                  "gru_decode_bwd", "grad_reduce", "gru_layer_xp_bwd", "gru_decode_train_wide",
                  "gru_decode_bwd_wide", "lstm_layer_fwd", "lstm_layer_bwd", "lstm_layer_xp_fwd",
-                 "lstm_layer_xp_bwd"):
+                 "lstm_layer_xp_bwd", *BPTT_PHASES):
         counters[f"{name}_bf16"] = (counters[name][0], "launches_bf16")
     counters["gru_decode_train_resid"] = (gd.gru_decode_fwd_train, "launches_resid")
     counters["gru_decode_bwd_resid"] = (gd.gru_decode_bwd, "launches_resid")
@@ -1826,6 +1897,68 @@ def head_loop_times(name, res, args, n, limits=(H_ATOL, C_ATOL)):
         n, carried(lambda hc: torch.lstm_cell(x, hc, wt, ut, b, b_hh), (h0, c0), n))
 
 
+def bptt_phase_checks(run, letter, tag, bargs):
+    """N's ("N": bargs are lstm_layer_bwd's) or R's ("R": lstm_layer_xp_bwd's)
+    phases, each against its plain version on the same inputs: the gate
+    pre-pass, the chain over the plain pre-pass's act, N's dx pass over the
+    plain chain's gate grads, where the layer's dx is wanted. ``run`` is
+    compare (timed, with bounds: the pre-pass's products at the FFMA rate in
+    float32 and at the bf16 tensor-core rate in bf16, the chain's dh product
+    and the dx pass at the FFMA rate, both taking the float32 gate grads) or
+    check. Returns {counter name: result}."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import lstm_layer as ll
+
+    if letter == "N":
+        x, hseq, cseq, h0, c0, d_seq, d_final, w, b, u, need_dx = bargs
+        gargs, gates, gates_ref = (x, hseq, h0, w, b, u), ll.lstm_layer_bwd_gates, (
+            lambda: ll.lstm_bwd_gates_reference(x, hseq, h0, u, w, b))
+        k_in = x.shape[-1] + u.shape[0]
+    else:
+        x, hseq, cseq, h0, c0, d_seq, d_final, u = bargs
+        need_dx = False
+        gargs, gates, gates_ref = (x, hseq, h0, u), ll.lstm_layer_xp_bwd_gates, (
+            lambda: ll.lstm_bwd_gates_reference(x, hseq, h0, u))
+        k_in = u.shape[0]
+    T, rows, H = hseq.shape
+    bf16 = x.dtype == torch.bfloat16
+    sfx, peak = ("_bf16", PEAK_BF16_FLOPS) if bf16 else ("", PEAK_F32_FLOPS)
+    name = "lstm_layer_bwd" if letter == "N" else "lstm_layer_xp_bwd"
+    kind = f"{letter}{' bf16' if bf16 else ''}"
+    found = {}
+    with torch.no_grad():
+        act = gates_ref()
+    found[f"{name}_gates{sfx}"] = run(
+        f"{kind} gate pre-pass {tag}", lambda: gates(*gargs), gates_ref, [rel],
+        flops=2 * T * rows * k_in * 4 * H, inputs=gargs, peak=peak)
+    cargs = (act, cseq, c0, d_seq, d_final, u)
+    if letter == "N":
+        chain, chain_ref = ll.lstm_layer_bwd_chain, lambda: tuple(
+            t if i == 0 else t.to(x.dtype)
+            for i, t in enumerate(ll.lstm_bwd_chain_reference(*cargs)))
+        limits = [rel] + [BF16_OUT if bf16 else rel] * 2
+    else:
+        def chain_ref():
+            da, dh0, dc0 = ll.lstm_bwd_chain_reference(*cargs)
+            return da.to(x.dtype), dh0.to(x.dtype), dc0.to(x.dtype), da
+
+        chain = ll.lstm_layer_xp_bwd_chain
+        limits = [BF16_OUT if bf16 else rel] * 3 + [rel]
+    found[f"{name}_chain{sfx}"] = run(
+        f"{kind} chain {tag}", lambda: chain(*cargs), chain_ref, limits,
+        flops=0.0, flops_f32=2 * T * rows * 4 * H * H, inputs=cargs)
+    if need_dx:
+        with torch.no_grad():
+            da = ll.lstm_bwd_chain_reference(*cargs)[0]
+        found[f"{name}_dx{sfx}"] = run(
+            f"{kind} dx pass {tag}", lambda: ll.lstm_layer_bwd_dx(da, w),
+            lambda: ll.lstm_bwd_dx_reference(da, w), [BF16_OUT if bf16 else rel],
+            flops=0.0, flops_f32=2 * T * rows * 4 * H * w.shape[0], inputs=(da, w),
+            library_fn=None if bf16 else (lambda: da @ w.t()))
+    return found
+
+
 def phase_lstm_train_kernels():
     """The LSTM training kernels at the shapes of Config(cell_type="LSTM")'s
     step (LSTM(256) x 2 notes layers, instrument, velocity; the heads' cells)
@@ -1853,7 +1986,7 @@ def phase_lstm_train_kernels():
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
     results = {k: {} for k in ("lstm_layer_train_fwd", "lstm_layer_bwd", "lstm_layer_xp_fwd",
                                "lstm_layer_xp_bwd", "lstm_step", "grad_reduce_lstm",
-                               "grad_reduce_lstm_wide", "lstm_fwd_bwd_vs_cudnn")}
+                               "grad_reduce_lstm_wide", "lstm_fwd_bwd_vs_cudnn", *BPTT_PHASES)}
     flat = lambda outs: tuple(t for t in outs if t is not None)  # noqa: E731
 
     def plain_w(x, hprev, da, with_dw):
@@ -1893,16 +2026,16 @@ def phase_lstm_train_kernels():
             w, b, u = (p[k].detach() for k in "wbu")
             T = x.shape[0]
             args = (x, h0, h0, w, b, u, "tanh", True, True)
+            library = cudnn_lstm_layer(x, p, h0, h0) if timed else (None, None, None)
             out = run(f"L {name} x{tuple(x.shape)} with c", lambda a=args: ll.lstm_layer(*a),
                       lambda a=args: ll.lstm_layer_reference(*a), [L_H_ATOL, C_ATOL],
-                      flops=layer_flops(T, rows, w, u), inputs=args[:6])
+                      flops=layer_flops(T, rows, w, u), inputs=args[:6], library_fn=library[0])
             if timed:
                 results["lstm_layer_train_fwd"][name] = out
             with torch.no_grad():
                 hseq, cseq = ll.lstm_layer_reference(*args)
             g = torch.randn(hseq.shape if rs else hseq.shape[1:], generator=gen, device=dev)
             bargs = (x, hseq, cseq, h0, h0, g if rs else None, None if rs else g, w, b, u, need_dx)
-            library = cudnn_lstm_layer(x, p, h0, h0) if timed else (None, None, None)
             out = run(f"N {name} rs={rs} dx={need_dx}",
                       lambda a=bargs: flat(ll.lstm_layer_bwd(*a)),
                       lambda a=bargs: flat(ll.lstm_layer_bwd_reference(*a)),
@@ -1910,6 +2043,9 @@ def phase_lstm_train_kernels():
                       inputs=bargs[:10], library_fn=library[1])
             if timed:
                 results["lstm_layer_bwd"][name] = out
+            for phase, res in bptt_phase_checks(run, "N", f"{name} rs={rs}", bargs).items():
+                if timed:
+                    results[phase][name] = res
             da = ll.lstm_layer_bwd_reference(*bargs)[3]
             hprev = torch.cat([h0[None], hseq[:-1]])
             wargs = (x, hprev, da)
@@ -1994,6 +2130,9 @@ def phase_lstm_train_kernels():
                       flops=4 * T * rows * u.numel(), inputs=bargs, library_fn=library[1])
             if timed:
                 results["lstm_layer_xp_bwd"][name] = out
+            for phase, res in bptt_phase_checks(run, "R", f"{name} rs={rs}", bargs).items():
+                if timed:
+                    results[phase][name] = res
             da = ll.lstm_layer_xp_bwd_reference(*bargs)[0]
             hprev = torch.cat([h0[None], hseq[:-1]])
             out = run(f"W LSTM(512) {name} dU", lambda: lstm_u_grad(hprev, da),
@@ -2023,7 +2162,7 @@ def phase_lstm_train_kernels():
             def narrow_route(lv=lv, wanted=wanted, rs=rs, g=g):
                 return torch.autograd.grad(ll.lstm_layer_train_x(*lv, rs), wanted, g)
 
-            why = _layout.launch_limit("N", 512, _layout.smem_bytes("N", 512, x.shape[-1]))
+            why = _layout.launch_limit("N", 512, 0)
             narrow_ms = median_ms(narrow_route) if why is None else None
             wide_ms = median_ms(wide_route)
             cudnn_ms = median_ms(cudnn_lstm_layer(x, p, h0, h0)[2])
@@ -2048,7 +2187,11 @@ def classify_launches(kind_sizes, cell_type, epochs):
                           else ("lstm_layer_fwd", "lstm_layer_bwd", 2))
     steps = sum(-(-n // 512) for n, _ in kind_sizes.values()) * epochs
     evals = sum(-(-n // 512) for _, n in kind_sizes.values()) * epochs
-    return {fwd: 2 * (steps + evals), bwd: 2 * steps, "grad_reduce": 2 * per_cell * steps}
+    want = {fwd: 2 * (steps + evals), bwd: 2 * steps, "grad_reduce": 2 * per_cell * steps}
+    if cell_type == "LSTM":  # N's phases; dx for layer 2 alone
+        want.update({"lstm_layer_bwd_gates": 2 * steps, "lstm_layer_bwd_chain": 2 * steps,
+                     "lstm_layer_bwd_dx": steps})
+    return want
 
 
 def phase_judge_training(work, smi):
@@ -3618,7 +3761,11 @@ def phase_bf16_lstm_kernels():
     plain sum of their row's gate grads over their kernels' own streams at
     STREAM_REL_L2; and the controls (``check_lstm_controls``): the layer on
     two steps with every op in bf16 and with c carried in float32, dU from
-    the other row's gate grads."""
+    the other row's gate grads; and each of N's and R's phases against its
+    plain version (``bptt_phase_checks``), and on notes L2 their chain over
+    its last two steps against the chain with da rounded to bf16 before the
+    dh product, a control that must land over BF16_STEP_REL_L2
+    (``chain_two_steps``)."""
     import torch
 
     from midi_vae_tpu_torch.config import Config
@@ -3634,7 +3781,8 @@ def phase_bf16_lstm_kernels():
     gen = torch.Generator(device=dev).manual_seed(36)
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
     keys = ("lstm_layer_fwd_bf16", "lstm_layer_bwd_bf16", "lstm_layer_xp_fwd_bf16",
-            "lstm_layer_xp_bwd_bf16", "grad_reduce_lstm_bf16", "grad_reduce_lstm_512_bf16")
+            "lstm_layer_xp_bwd_bf16", "grad_reduce_lstm_bf16", "grad_reduce_lstm_512_bf16",
+            *(f"{k}_bf16" for k in BPTT_PHASES))
     results = {k: {} for k in keys}
     found = {}
 
@@ -3736,6 +3884,11 @@ def phase_bf16_lstm_kernels():
                       inputs=bargs[:10], peak=PEAK_BF16_FLOPS, library_fn=library[1])
             if timed:
                 results["lstm_layer_bwd_bf16"][name] = out
+            for phase, res in bptt_phase_checks(run, "N", f"{name} rs={rs}", bargs).items():
+                if timed:
+                    results[phase][name] = res
+            if timed and name == "notes_l2":
+                found.update(chain_two_steps("N", bargs))
             dx, dh0_p, dc0_p, da = ll.lstm_layer_bwd_reference(*bargs)
             err = rel_l2(ll.lstm_layer_bwd(*bargs)[3], da)
             if not err <= STREAM_REL_L2:
@@ -3815,6 +3968,11 @@ def phase_bf16_lstm_kernels():
                       inputs=bargs, peak=PEAK_BF16_FLOPS, library_fn=library[1])
             if timed:
                 results["lstm_layer_xp_bwd_bf16"][name] = out
+            for phase, res in bptt_phase_checks(run, "R", f"{name} rs={rs}", bargs).items():
+                if timed:
+                    results[phase][name] = res
+            if timed and name == "notes_l2":
+                found.update(chain_two_steps("R", bargs))
             dxp, dh0_p, dc0_p, da = ll.lstm_layer_xp_bwd_reference(*bargs)
             # row 16's: the same gate grads unrounded in float32 beside dxp
             kdxp, _, _, kda = ll.lstm_layer_xp_bwd(*bargs)
@@ -3858,6 +4016,42 @@ def phase_bf16_lstm_kernels():
     return results
 
 
+def chain_two_steps(letter, bargs):
+    """N's or R's bf16 backward (``bargs`` as lstm_layer_bwd's or
+    lstm_layer_xp_bwd's, a last layer's: d_final seeds dh) over the layer's
+    last two steps, from their forward sequences: the float32 gate grads of
+    step T-2, which read dh_{T-2} = da_{T-1} @ U^T, against the plain
+    version's at BF16_STEP_REL_L2, and the control: the plain chain with
+    da rounded to bf16 before that product (what a bf16 tensor-core product
+    would take), which must land over it. Returns {what: relative L2}."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import lstm_layer as ll
+
+    x, hseq, cseq = bargs[:3]
+    u = bargs[-2] if letter == "N" else bargs[-1]
+    # the last two steps, from the state before them
+    x2, hs2, cs2 = x[-2:], hseq[-2:], cseq[-2:]
+    h_in, c_in = hseq[-3], cseq[-3]
+    g = bargs[6]
+    if letter == "N":
+        kda = ll.lstm_layer_bwd(x2, hs2, cs2, h_in, c_in, None, g, *bargs[7:10], False)[3]
+        act = ll.lstm_bwd_gates_reference(x2, hs2, h_in, u, bargs[7], bargs[8])
+    else:
+        kda = ll.lstm_layer_xp_bwd(x2, hs2, cs2, h_in, c_in, None, g, u)[3]
+        act = ll.lstm_bwd_gates_reference(x2, hs2, h_in, u)
+    da = ll.lstm_bwd_chain_reference(act, cs2, c_in, None, g, u)[0]
+    # the control: da_{T-1} rounded to bf16 before dh_{T-2} = da_{T-1} @ U^T
+    uf, cf = u.float(), cs2.float()
+    da1, _, dc = ll.lstm_cell_bwd_act(act[1], cf[0], cf[1], uf, g.float(),
+                                      torch.zeros_like(cf[0]))
+    dh = da1.to(torch.bfloat16).float() @ uf.t()
+    da0 = ll.lstm_cell_bwd_act(act[0], c_in.float(), cf[0], uf, dh, dc)[0]
+    return {f"{letter} chain, step T-2's gate grads (the kernel)": rel_l2(kda[0], da[0]),
+            f"{letter} chain: da rounded to bf16 before the dh product, two steps":
+                rel_l2(da0, da[0])}
+
+
 def check_lstm_controls(found):
     """Prints the kernels' relative L2 at B = 256 (L and Q on two steps, h
     and c, held to BF16_STEP_REL_L2; N's and R's float32 gate grads, held to
@@ -3879,6 +4073,10 @@ def check_lstm_controls(found):
         if not err > limits[what]:
             raise RuntimeError(f"the control {what} lands {err:.3e} from the plain version, "
                                f"inside {limits[what]:.1e}")
+    for what, err in ((k, v) for k, v in found.items() if " chain, " in k):
+        if not err <= BF16_STEP_REL_L2:
+            raise RuntimeError(f"{what} lies {err:.3e} from the plain version, over "
+                               f"{BF16_STEP_REL_L2:.1e}")
 
 
 def head_weight_grads(head, g):
@@ -4259,6 +4457,17 @@ def phase_gru_3layer_serving(work, smi):
     return launches, phase_card_vs_cpu(smi, "GRU", {"num_layers_decoder": 3})
 
 
+def phase_registers(registers, letter):
+    """ptxas's registers and spills of kernel ``letter``'s build; for N's
+    and R's ops those of each of their phases."""
+    key = letter.replace(" ", "_")
+    if key in registers:
+        return registers[key]
+    base, _, sfx = key.partition("_")
+    phases = ("gates", "chain", "dx") if base == "N" else ("gates", "chain")
+    return {p: registers[f"{base}_{p}{'_' + sfx if sfx else ''}"] for p in phases}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4539,6 +4748,17 @@ def main() -> int:
         "lstm_layer_xp_bwd_bf16": ("R bf16", "lstm_layer_xp_bwd.cu", "fused_train.py:1922",
                                    ["fused_train.py:1984", "fused_train.py:1383",
                                     "fused_train.py:1448"]),
+        # the phases of N and R (csrc/lstm_cell_bwd.cuh), each a part of the
+        # TPU kernels above: the gate recompute, the serial chain, N's dx
+        **{f"{op}_{phase}{sfx}": (f"{letter} {phase}{' bf16' if sfx else ''}", source, *rows)
+           for op, letter, source, rows in (
+               ("lstm_layer_bwd", "N", "lstm_layer_bwd.cu",
+                ("fused_train.py:2405", ["fused_train.py:2472"])),
+               ("lstm_layer_xp_bwd", "R", "lstm_layer_xp_bwd.cu",
+                ("fused_train.py:1383", ["fused_train.py:1922", "fused_train.py:1448",
+                                         "fused_train.py:1984"])))
+           for phase in (("gates", "chain", "dx") if letter == "N" else ("gates", "chain"))
+           for sfx in ("", "_bf16")},
         # rows 5 and 6 with bf16 residuals (decode_residual_bf16):
         # _mh_fwd_kernel (through multihead_decode_train_fwd) storing the h
         # sequences in bf16, _mh_bwd_kernel (multihead_decode_train_bwd)
@@ -4606,7 +4826,7 @@ def main() -> int:
             # outputs)
             "library_ms": sum(library) if None not in library else None,
             "calls": per_call,
-            "registers": registers[letter.replace(" ", "_")],
+            "registers": phase_registers(registers, letter),
         }
         for key, res in extra.get(name, []):
             calls = results[res]

@@ -1,7 +1,7 @@
 """Which kernel builds a layer or decode head takes, from the card's limits.
 
-Every kernel of the port (GRU: A to G, T, T xp, X, and the encoder stacks'
-U and V; LSTM: L, M, N, Q, R, S, S xp, Y) runs one
+Every kernel of the port but N and R (GRU: A to G, T, T xp, X, and the
+encoder stacks' U and V; LSTM: L, M, Q, S, S xp, Y) runs one
 thread per hidden column (blockDim.x = H) and keeps a tile of batch rows per
 block, so whether a build launches at a width is a matter of two limits of
 the H100 (sm_90a):
@@ -10,13 +10,17 @@ the H100 (sm_90a):
 - shared memory: the block's tile must fit the 227 KB (232,448 bytes) a block
   may have.
 
-Kernels A to E, L, M, N, U and V are built without launch bounds; their register
+Kernels A to E, L, M, U and V are built without launch bounds; their register
 counts (``REGISTERS``, from ``nvcc -Xptxas -v`` on the card; ``chip_smoke.py``
-checks them against the build) decide how wide they go. F, G, Q, R, the
+checks them against the build) decide how wide they go. F, G, Q, the
 per-step cells (S, S xp, T, T xp), the bf16 whole-scan encoders (X, Y) and
 the wide decode builds are compiled under ``__launch_bounds__(WIDE_THREADS)``,
 so the compiler guarantees that up to 512 threads launch (``chip_smoke.py``
-checks their registers from ptxas against it).
+checks their registers from ptxas against it). N and R, the LSTM's backward
+through time, run as phases of fixed block sizes whatever H: a gate
+pre-pass, a chain on thread-block clusters and N's dx pass (the section
+"The LSTM's backward through time" below); whether they launch is the
+chain's cluster plan (``bptt_plan``).
 
 The training step takes one route for all its layers and heads:
 - ``"narrow"``, the GRU(256) path: A + C per encoder layer (the x-projection
@@ -85,6 +89,8 @@ limit. ``FORCE_ROUTE`` is a test hook (like the JAX package's
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 REGS_PER_SM = 65_536
 SMEM_PER_BLOCK = 232_448
 ROWS = 8          # kRows: batch rows per block of A to G
@@ -93,12 +99,12 @@ WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
 
 # registers per thread of the builds without launch bounds (the largest over
 # a build's template instances), from nvcc -Xptxas -v for sm_90a
-REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75, "N": 117,
+REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75,
              "U": 78, "V": 172, "A_bf16": 94, "C_bf16": 96, "D_bf16": 144, "E_bf16": 167,
-             "L_bf16": 80, "N_bf16": 114, "D_resid": 160, "E_resid": 168}
+             "L_bf16": 80, "D_resid": 160, "E_resid": 168}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
-BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "R", "S", "S_xp", "T", "T_xp", "X", "Y",
-           "G_bf16", "D_wide_bf16", "E_wide_bf16", "Q_bf16", "R_bf16", "E_wide_row8_bf16")
+BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "S", "S_xp", "T", "T_xp", "X", "Y",
+           "G_bf16", "D_wide_bf16", "E_wide_bf16", "Q_bf16", "E_wide_row8_bf16")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
 LSTM_NARROW_MAX_H = 256
 
@@ -130,9 +136,7 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
         "G": 5 * H,
         "L": D + 3 * H,  # x, h twice (h_{t-1} and h_t), c
         "M": 2 * D + (n_layers + 1) * H + n_layers * H,  # probs, logits, h tiles, c tiles
-        "N": D + 5 * H,  # x, h_{t-1}, the gate grads (4H)
         "Q": 3 * H,  # h twice, c
-        "R": 5 * H,  # h_{t-1}, the gate grads (4H)
         "S": D + 3 * H,  # as L
         "S_xp": 3 * H,  # as Q
         "T": D + 2 * H,  # x, h, r * h
@@ -150,7 +154,11 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
 
 def launch_limit(kernel: str, H: int, smem: int) -> str | None:
     """Why a block of H threads of ``kernel`` with ``smem`` bytes of shared
-    memory cannot launch on the card, or None when it can."""
+    memory cannot launch on the card, or None when it can. For the LSTM's
+    backward (N, R and their bf16 builds: ``BPTT_BUILDS``) the chain's
+    cluster plan decides, whatever ``smem``: ``bptt_limit``."""
+    if kernel in BPTT_BUILDS:
+        return bptt_limit(kernel, H)
     if H < 32 or H % 32:
         return f"kernel {kernel} takes H a multiple of 32 (one warp per 32 columns), got H={H}"
     if kernel in BOUNDED:
@@ -175,14 +183,158 @@ def require(kernel: str, H: int, smem: int) -> None:
         raise LaunchLimitError(why)
 
 
+# ---------------------------------------------------------------------------
+# The LSTM's backward through time (kernels N and R, csrc/lstm_cell_bwd.cuh):
+# a gate pre-pass and N's dx pass, 256 threads over 128 x 128 output tiles
+# with two (8, 128) float tiles of static shared memory, and the serial
+# chain on thread-block clusters of 512-thread CTAs. A cluster owns
+# ``rows`` batch rows; its C CTAs split the H units (Hc = H / C each) and
+# keep their slices of U^T (4 Hc rows, H wide) in shared memory, beside the
+# da tile (rows rounded up to 8, 4 Hc floats) and the partial dh buffers
+# (nbuf x splits x rows x H floats; the bf16 builds take the product on the
+# tensor cores, da split into three bf16 terms, in one split). C is the
+# smallest cluster whose slice
+# fits beside one row's buffers; float32 where none does (H = 512) streams
+# its slice at C = 16 through a ring of ``stages`` chunks of 16 gate rows
+# (as many as fit, 2 to 8). ``rows`` is
+# ceil(B / the card's active clusters at that C), so that the clusters run
+# at once where the buffers allow it.
+# ---------------------------------------------------------------------------
+
+BPTT_BUILDS = ("N", "N_bf16", "R", "R_bf16")
+GEMM_THREADS = 256     # kGemmThreads: the pre-pass and dx pass
+CHAIN_THREADS = 512    # kChainThreads
+CHAIN_WARPS = CHAIN_THREADS // 32
+CHAIN_MAX_PAIRS = 3    # kMaxPairs: (unit, row) pairs a chain thread owns
+STREAM_CHUNK = 16      # kStreamChunk: gate rows of a streamed chunk
+DA_PAD = 8             # kDaPad: the da tile's rows are 4 Hc + DA_PAD floats
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is a non-portable cluster size
+# cudaOccupancyMaxActiveClusters of the chain on an NVIDIA H100 80GB HBM3 at
+# one CTA an SM (chip_smoke.py prints what the card reports; the wrappers
+# ask the card itself)
+MAX_CLUSTERS_H100 = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+# the LSTM backward's phase builds (csrc/lstm_cell_bwd.cuh), each under
+# __launch_bounds__ of its threads a block: the gate pre-pass (the bf16
+# builds on the tensor cores), the chain and N's dx pass; their registers a
+# thread from ptxas (``chip_smoke.py`` checks the builds against both)
+BPTT_PHASE_THREADS = {f"{k}_{p}{s}": (CHAIN_THREADS if p == "chain" else GEMM_THREADS)
+                      for k, phases in (("N", ("gates", "chain", "dx")), ("R", ("gates", "chain")))
+                      for p in phases for s in ("", "_bf16")}
+REGISTERS.update({"N_gates": 128, "N_chain": 128, "N_dx": 127, "R_gates": 127, "R_chain": 128,
+                  "N_gates_bf16": 123, "N_chain_bf16": 128, "N_dx_bf16": 127,
+                  "R_gates_bf16": 121, "R_chain_bf16": 128})
+
+
+class BpttPlan(NamedTuple):
+    """How the chain of a BPTT build runs at (H, B): ``cluster`` CTAs a
+    cluster, ``rows`` batch rows a cluster, ``clusters`` clusters,
+    ``splits`` partials per CTA (the warps split its gate rows when the
+    product's tiles are fewer than the warps), ``nbuf`` partial buffers (2:
+    one cluster barrier a step), ``stages`` chunks in the streamed ring (0
+    where the slice is resident), ``smem`` bytes of dynamic shared memory a
+    CTA."""
+
+    cluster: int
+    rows: int
+    clusters: int
+    splits: int
+    nbuf: int
+    stages: int
+    smem: int
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def chain_smem(H: int, C: int, rows: int, splits: int, nbuf: int, stages: int,
+               elem: int) -> int:
+    """``chain_smem`` of csrc/lstm_cell_bwd.cuh, in bytes: the slice (or the
+    ``stages`` chunks of its ring, when ``stages`` > 0), the da tile and the
+    partial buffers."""
+    Hc = H // C
+    slice_ = stages * STREAM_CHUNK * H * 4 if stages else 4 * Hc * H * elem
+    return slice_ + _round8(rows) * (4 * Hc + DA_PAD) * 4 + nbuf * splits * rows * H * 4
+
+
+def bptt_cluster(build: str, H: int) -> tuple[int, bool]:
+    """(cluster size, whether the slice streams) of a BPTT build at width H;
+    raises LaunchLimitError where no cluster holds it."""
+    if build not in BPTT_BUILDS:
+        raise ValueError(f"{build!r} is not one of {BPTT_BUILDS}")
+    if H < 64 or H % 64:
+        raise LaunchLimitError(f"kernel {build}'s chain takes H a multiple of 64 (two units a "
+                               f"lane), got H={H}")
+    elem = 2 if build.endswith("_bf16") else 4
+    if elem == 2 and H % 128:
+        raise LaunchLimitError(f"kernel {build}'s chain takes H a multiple of 128 (a warp's "
+                               f"units in tiles of 8 on the tensor cores), got H={H}")
+    for C in CLUSTER_SIZES:
+        if H % C == 0 and chain_smem(H, C, 1, 1, 1, 0, elem) <= SMEM_PER_BLOCK and (
+                elem == 4 or (H // C) % 16 == 0):
+            return C, False
+    if elem == 4:
+        return CLUSTER_SIZES[-1], True
+    raise LaunchLimitError(
+        f"kernel {build}'s chain needs {chain_smem(H, 16, 1, 1, 1, 0, elem):,} bytes of "
+        f"shared memory a CTA at H={H} in clusters of 16, more than the {SMEM_PER_BLOCK:,} a "
+        "block may have")
+
+
+def bptt_plan(build: str, H: int, B: int, max_clusters: int | None = None) -> BpttPlan:
+    """The chain's plan of BPTT build ``build`` at width H and batch B, with
+    ``max_clusters`` clusters of its size active at once (default: the
+    H100's, ``MAX_CLUSTERS_H100``). Raises LaunchLimitError where the chain
+    does not launch."""
+    C, stream = bptt_cluster(build, H)
+    elem = 2 if build.endswith("_bf16") else 4
+    Hc = H // C
+    M = max_clusters or MAX_CLUSTERS_H100[C]
+    least = 2 if stream else 0  # the ring's fewest chunks
+    # the most rows a cluster takes: the pairs its threads own (and three
+    # m-tiles of 16 on the tensor cores), and one partial buffer beside the
+    # slice and the da tile
+    most = CHAIN_MAX_PAIRS * CHAIN_THREADS // Hc
+    if elem == 2:
+        most = min(most, 48)
+    while chain_smem(H, C, most, 1, 1, least, elem) > SMEM_PER_BLOCK:
+        most -= 1
+    rows = max(1, min(-(-B // M), most))
+    tiles = (H // 64) * (_round8(rows) // 8)
+    for nbuf in (2, 1):
+        for splits in (8, 4, 2, 1) if elem == 4 else (1,):
+            if (tiles * splits > CHAIN_WARPS and splits > 1) or Hc % splits:
+                continue
+            if chain_smem(H, C, rows, splits, nbuf, least, elem) > SMEM_PER_BLOCK:
+                continue
+            stages = least
+            while stream and stages < min(8, 4 * Hc // STREAM_CHUNK) and chain_smem(
+                    H, C, rows, splits, nbuf, stages + 1, elem) <= SMEM_PER_BLOCK:
+                stages += 1
+            return BpttPlan(C, rows, -(-B // rows), splits, nbuf, stages,
+                            chain_smem(H, C, rows, splits, nbuf, stages, elem))
+    raise AssertionError("one buffer of one split fits by the choice of rows")
+
+
+def bptt_limit(build: str, H: int) -> str | None:
+    """Why BPTT build ``build``'s chain cannot launch at width H, or None."""
+    try:
+        bptt_cluster(build, H)
+    except LaunchLimitError as e:
+        return str(e)
+    return None
+
+
 def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> list[str]:
     """The limits the route's float32 builds hit: ``layers`` is (D_in, dx
     wanted) per encoder layer, ``heads`` (D, n_layers) per decode head."""
     if cell_type == "LSTM":
         if route == "narrow":
-            checks = [(k, smem_bytes(k, H, d)) for d, _dx in layers for k in ("L", "N")]
+            checks = [("L", smem_bytes("L", H, d)) for d, _dx in layers]
+            checks += [("N", 0)] if layers else []
         else:
-            checks = [(k, smem_bytes(k, H)) for k in ("Q", "R")] if layers else []
+            checks = [("Q", smem_bytes("Q", H)), ("R", 0)] if layers else []
         # S per cell: the head's input for its first layer, h for the others
         checks += [("S", smem_bytes("S", H, max(d, H) if n > 1 else d)) for d, n in heads]
     else:
@@ -439,11 +591,12 @@ def bf16_layer_mode(cell_type: str, B: int, D: int, H: int, on_card: bool = Fals
         mode = "scan"
     if on_card:
         if mode == "x":
-            pair = ("L", "N") if lstm else ("A", "C")
-            builds = [(k + "_bf16", smem_bytes(k, H, D, dx=dx)) for k in pair]
+            builds = ([("L_bf16", smem_bytes("L", H, D)), ("N_bf16", 0)] if lstm else
+                      [(k + "_bf16", smem_bytes(k, H, D, dx=dx)) for k in ("A", "C")])
         else:
-            pair = ("Q_bf16", "R_bf16") if lstm else ("X", "G_bf16")
-            builds = [(k, smem_bytes(k, H)) for k in pair] if mode != "scan" else []
+            builds = ([("Q_bf16", smem_bytes("Q", H)), ("R_bf16", 0)] if lstm else
+                      [(k, smem_bytes(k, H)) for k in ("X", "G_bf16")])
+            builds = builds if mode != "scan" else []
         _require_bf16(LAYER_ROWS[cell_type][mode], builds, H)
     return mode
 

@@ -29,6 +29,16 @@ kernels hard-code tanh's derivative, as the TPU kernels do
 (``_lstm_x_use_pallas`` :2546, ``_lstm_mode`` :1874); the model sends other
 cell activations to the plain scan on any device (``models/rnn.py``).
 
+N and R each run as phases on the card (``csrc/lstm_cell_bwd.cuh`` has the
+design): the gate pre-pass (``lstm_layer_bwd_gates``,
+``lstm_layer_xp_bwd_gates``: the gates' activations of every step at once),
+the chain on thread-block clusters (``lstm_layer_bwd_chain``,
+``lstm_layer_xp_bwd_chain``; its plan ``chain_plan``) and N's dx pass
+(``lstm_layer_bwd_dx``). Each phase has its plain version
+(``lstm_bwd_gates_reference``, ``lstm_bwd_chain_reference``,
+``lstm_bwd_dx_reference``) and its launch counts; the ops count one launch
+of N or R a call.
+
 In a bf16 model (``compute_dtype="bfloat16"``) each of L, N, Q and R runs
 its bfloat16 build (``mvt_*_bf16``), picked by the operands' dtype, as the
 JAX package runs rows 15-20 in bf16 (which pair a layer takes is decided per
@@ -192,22 +202,34 @@ lstm_layer.launches_bf16 = 0
 # autograd Function
 # ---------------------------------------------------------------------------
 
-def lstm_cell_bwd_xp(xp, hp, cp, ct, u, dh, dc):
-    """Backward through one tanh LSTM step from its x-projection xp = x_t @
-    W + b, h_{t-1}, c_{t-1}, the forward's c_t, dL/dh_t and the carried
-    dL/dc (``_lstm_bwdx_kernel`` :2436-2462). Returns (da (B, 4H) = dL/dxp
-    in gate order i, f, g, o, dL/dh_{t-1}, dL/dc_{t-1})."""
-    H = hp.shape[-1]
-    gates = xp + hp @ u
-    i = torch.sigmoid(gates[:, :H])
-    f = torch.sigmoid(gates[:, H : 2 * H])
-    g = torch.tanh(gates[:, 2 * H : 3 * H])
-    o = torch.sigmoid(gates[:, 3 * H :])
+def _gate_acts(gates):
+    """[sigmoid(i), sigmoid(f), tanh(g), sigmoid(o)] of pre-activations (...,
+    4H), gate order i, f, g, o."""
+    H = gates.shape[-1] // 4
+    return torch.cat([torch.sigmoid(gates[..., : 2 * H]), torch.tanh(gates[..., 2 * H : 3 * H]),
+                      torch.sigmoid(gates[..., 3 * H :])], dim=-1)
+
+
+def lstm_cell_bwd_act(act, cp, ct, u, dh, dc):
+    """Backward through one tanh LSTM step from its gates' activations act =
+    [i, f, g, o] (B, 4H), c_{t-1}, the forward's c_t, dL/dh_t and the
+    carried dL/dc (``_lstm_bwdx_kernel`` :2443-2462). Returns (da (B, 4H) =
+    dL/dxp in gate order i, f, g, o, dL/dh_{t-1}, dL/dc_{t-1})."""
+    H = cp.shape[-1]
+    i, f, g, o = act[:, :H], act[:, H : 2 * H], act[:, 2 * H : 3 * H], act[:, 3 * H :]
     tc = torch.tanh(ct)
     dc = dc + dh * o * (1.0 - tc * tc)
     da = torch.cat([dc * g * i * (1.0 - i), dc * cp * f * (1.0 - f), dc * i * (1.0 - g * g),
                     dh * tc * o * (1.0 - o)], dim=-1)
     return da, da @ u.t(), dc * f
+
+
+def lstm_cell_bwd_xp(xp, hp, cp, ct, u, dh, dc):
+    """Backward through one tanh LSTM step from its x-projection xp = x_t @
+    W + b, h_{t-1}, c_{t-1}, the forward's c_t, dL/dh_t and the carried
+    dL/dc (``_lstm_bwdx_kernel`` :2436-2462): ``lstm_cell_bwd_act`` of the
+    gates recomputed from xp + h_{t-1} @ U."""
+    return lstm_cell_bwd_act(_gate_acts(xp + hp @ u), cp, ct, u, dh, dc)
 
 
 def _bptt(xps, hseq, cseq, h0, c0, d_seq, d_final, u):
@@ -247,46 +269,242 @@ def lstm_layer_bwd_reference(x, hseq, cseq, h0, c0, d_seq, d_final, w, b, u, nee
     return dx, dh0.to(dtype), dc0.to(dtype), da
 
 
+# ---------------------------------------------------------------------------
+# N's and R's phases (csrc/lstm_cell_bwd.cuh): the gate pre-pass, the chain
+# over its activations on thread-block clusters, N's dx pass; each has its
+# plain version and its launch counts (``.launches``, ``.launches_bf16``)
+# ---------------------------------------------------------------------------
+
+def lstm_bwd_gates_reference(x, hseq, h0, u, w=None, b=None):
+    """Plain version of the gate pre-pass: act (T, B, 4H) float32 = the
+    gates' activations [i, f, g, o] of x @ W + b + h_prev @ U (N's, with w
+    and b) or of xp + h_prev @ U (R's: x is xp), h_prev = [h0, hseq[:-1]];
+    every operand widened to float32 (in bf16 the products of bf16 values,
+    summed in float32: ``_dot``'s ``preferred_element_type``)."""
+    T, B = x.shape[:2]
+    x, hseq, h0, u, w, b = _widened(x, hseq, h0, u, w, b)
+    pre = x if w is None else (x.reshape(T * B, -1) @ w + b).reshape(T, B, -1)
+    hprev = torch.cat([h0[None], hseq[:-1]]).reshape(T * B, -1)
+    return _gate_acts(pre + (hprev @ u).reshape(T, B, -1))
+
+
+def lstm_bwd_chain_reference(act, cseq, c0, d_seq, d_final, u):
+    """Plain version of the chain: the reverse loop over the pre-pass's
+    activations act (T, B, 4H). Returns (da (T, B, 4H), dh0, dc0), all
+    float32, every operand widened: da @ U^T takes the float32 da."""
+    cseq, c0, d_seq, d_final, u = _widened(cseq, c0, d_seq, d_final, u)
+    T = act.shape[0]
+    dh = d_final if d_final is not None else torch.zeros_like(c0)
+    dc = torch.zeros_like(c0)
+    da = [None] * T
+    for t in reversed(range(T)):
+        if d_seq is not None:
+            dh = dh + d_seq[t]
+        da[t], dh, dc = lstm_cell_bwd_act(act[t], cseq[t - 1] if t > 0 else c0, cseq[t], u, dh,
+                                          dc)
+    return torch.stack(da), dh, dc
+
+
+def lstm_bwd_dx_reference(da, w):
+    """Plain version of N's dx pass: da (T, B, 4H) float32 @ W^T with W
+    widened, rounded once to W's dtype."""
+    return (da @ w.float().t()).to(w.dtype)
+
+
+_GATES_ARGS = {"lstm_layer_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+               "lstm_layer_xp_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+               + [ctypes.c_void_p]}
+_CHAIN_INTS = [ctypes.c_int] * 9 + [ctypes.c_void_p]  # T, B, H, the plan, the stream
+
+
 @functools.cache
-def _bwd_kernel():
-    return _build.load_builds("lstm_layer_bwd", "mvt_lstm_layer_bwd",
-                              [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+def _phases(lib_name):
+    """(library, {"gates" | "chain" | "dx": {dtype: entry}}, the entry of
+    cudaOccupancyMaxActiveClusters) of kernel N's library ("lstm_layer_bwd")
+    or R's ("lstm_layer_xp_bwd")."""
+    entry = f"mvt_{lib_name}"
+    lib, gates = _build.load_builds(lib_name, f"{entry}_gates", _GATES_ARGS[lib_name])
+    chain = _build.load_builds(lib_name, f"{entry}_chain", [ctypes.c_void_p] * 9 + _CHAIN_INTS)[1]
+    fns = {"gates": gates, "chain": chain}
+    if lib_name == "lstm_layer_bwd":
+        fns["dx"] = _build.load_builds(lib_name, f"{entry}_dx", [ctypes.c_void_p] * 3
+                                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])[1]
+    else:  # R's bf16 chain also writes the rounded dxp
+        chain[torch.bfloat16].argtypes = [ctypes.c_void_p] * 10 + _CHAIN_INTS
+    clusters = _build.load_entry(lib_name, f"{entry}_max_clusters",
+                                 [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])[1]
+    return lib, fns, clusters
+
+
+@functools.cache
+def _max_clusters(lib_name, bf16, cluster, stream):
+    """The card's cudaOccupancyMaxActiveClusters of the chain (one CTA an
+    SM) at ``cluster`` CTAs a cluster."""
+    lib, _, fn = _phases(lib_name)
+    out = ctypes.c_int(0)
+    _build.check(lib, fn(int(bf16), cluster, int(stream), ctypes.byref(out)),
+                 f"{lib_name} cudaOccupancyMaxActiveClusters")
+    return out.value
+
+
+def chain_plan(letter, H, B, dtype):
+    """The chain's cluster plan (``_layout.bptt_plan``) of kernel ``letter``
+    ("N" or "R") at (H, B) in ``dtype``, at the card's active clusters;
+    raises LaunchLimitError where it does not launch."""
+    build = _bf16_build(letter, dtype)
+    C, stream = _layout.bptt_cluster(build, H)
+    lib_name = "lstm_layer_bwd" if letter == "N" else "lstm_layer_xp_bwd"
+    return _layout.bptt_plan(build, H, B,
+                             _max_clusters(lib_name, dtype == torch.bfloat16, C, stream))
+
+
+def _gates(lib_name, fn, x, hseq, h0, u, w=None, b=None, ut=None):
+    """The pre-pass's build of x's dtype: the float32 build (FFMA) takes W
+    and U as they are, the bf16 one (tensor cores) W^T and U^T (``ut``, when
+    the caller has it)."""
+    T, B = x.shape[:2]
+    H = u.shape[0]
+    act = torch.empty(T, B, 4 * H, device=x.device, dtype=torch.float32)
+    if x.dtype == torch.bfloat16:
+        u = u.t().contiguous() if ut is None else ut
+        w = w.t().contiguous() if w is not None else None
+    lib, fns, _ = _phases(lib_name)
+    if w is None:
+        rc = fns["gates"][x.dtype](_ptr(x), _ptr(hseq), _ptr(h0), _ptr(u), _ptr(act), T, B, H,
+                                   _stream(x))
+    else:
+        rc = fns["gates"][x.dtype](_ptr(x), _ptr(w), _ptr(b), _ptr(hseq), _ptr(h0), _ptr(u),
+                                   _ptr(act), T, B, x.shape[2], H, _stream(x))
+    _build.check(lib, rc, f"{lib_name} gates launch")
+    _build.count_launch(fn, x.dtype)
+    return act
+
+
+def _chain(letter, fn, act, cseq, c0, d_seq, d_final, u, need_da=True, ut=None):
+    """(da or None, dxp or None, dh0, dc0) of the chain's build of cseq's
+    dtype: da float32, dxp the gate grads rounded (R's bf16 build); ``ut``
+    is U^T where the caller has it."""
+    T, B, H = cseq.shape
+    dtype = cseq.dtype
+    plan = chain_plan(letter, H, B, dtype)
+    kw = {"device": cseq.device, "dtype": dtype}
+    dh0, dc0 = torch.empty(B, H, **kw), torch.empty(B, H, **kw)
+    rounded = letter == "R" and dtype == torch.bfloat16
+    da = (torch.empty(T, B, 4 * H, device=cseq.device, dtype=torch.float32)
+          if need_da or not rounded else None)
+    dxp = torch.empty(T, B, 4 * H, **kw) if rounded else None
+    if dtype == torch.bfloat16:
+        ut = u  # the bf16 build's CTAs copy their columns of U
+    elif ut is None:
+        ut = u.t().contiguous()  # the float32 build's copy their rows of U^T
+    lib_name = "lstm_layer_bwd" if letter == "N" else "lstm_layer_xp_bwd"
+    lib, fns, _ = _phases(lib_name)
+    outs = (_opt(da), _ptr(dxp)) if rounded else (_ptr(da),)
+    rc = fns["chain"][dtype](_ptr(act), _ptr(cseq), _ptr(c0), _opt(d_seq), _opt(d_final),
+                             _ptr(ut), *outs, _ptr(dh0), _ptr(dc0), T, B, H, plan.cluster,
+                             plan.rows, plan.splits, plan.nbuf, plan.stages, int(plan.stages > 0),
+                             _stream(cseq))
+    _build.check(lib, rc, f"{lib_name} chain launch")
+    _build.count_launch(fn, dtype)
+    return da, dxp, dh0, dc0
+
+
+def _check_phase(what, named, expected, dtype=None):
+    """Shapes, and on the card device, dtype and contiguity; True on the
+    card."""
+    _check_shapes(named, expected)
+    first = next(iter(named.values()))
+    if not _on(first, what):
+        return False
+    ops = {k: v for k, v in named.items() if k not in ("act", "da")}
+    check_operands(ops, first.device, _build.DTYPES)
+    for k in ("act", "da"):
+        if k in named:
+            check_operands({k: named[k]}, first.device, (torch.float32,))
+    return True
+
+
+def _bwd_expected(T, B, D, H):
+    return {"x": (T, B, D), "xp": (T, B, 4 * H), "hseq": (T, B, H), "cseq": (T, B, H),
+            "h0": (B, H), "c0": (B, H), "w": (D, 4 * H), "b": (4 * H,), "u": (H, 4 * H),
+            "d_seq": (T, B, H), "d_final": (B, H), "act": (T, B, 4 * H), "da": (T, B, 4 * H)}
+
+
+def _present(**ts):
+    return {k: v for k, v in ts.items() if v is not None}
+
+
+def lstm_layer_bwd_gates(x, hseq, h0, w, b, u):
+    """Kernel N's gate pre-pass: ``lstm_bwd_gates_reference`` with W and b.
+    CPU tensors run the plain version; CUDA tensors (every operand float32
+    or every one bfloat16) launch its build of their dtype."""
+    T, B, D = x.shape
+    H = u.shape[0]
+    if not _check_phase("lstm_layer_bwd_gates", _present(x=x, hseq=hseq, h0=h0, w=w, b=b, u=u),
+                        _bwd_expected(T, B, D, H)):
+        return lstm_bwd_gates_reference(x, hseq, h0, u, w, b)
+    return _gates("lstm_layer_bwd", lstm_layer_bwd_gates, x, hseq, h0, u, w, b)
+
+
+def lstm_layer_bwd_chain(act, cseq, c0, d_seq, d_final, u):
+    """Kernel N's chain over the pre-pass's act: (da float32, dh0, dc0 in
+    cseq's dtype). CPU tensors run ``lstm_bwd_chain_reference`` (dh0, dc0
+    rounded to cseq's dtype); CUDA tensors launch its build of cseq's
+    dtype on clusters (``chain_plan``)."""
+    T, B, H = cseq.shape
+    if not _check_phase("lstm_layer_bwd_chain",
+                        _present(act=act, cseq=cseq, c0=c0, d_seq=d_seq, d_final=d_final, u=u),
+                        _bwd_expected(T, B, 0, H)):
+        da, dh0, dc0 = lstm_bwd_chain_reference(act, cseq, c0, d_seq, d_final, u)
+        return da, dh0.to(cseq.dtype), dc0.to(cseq.dtype)
+    da, _, dh0, dc0 = _chain("N", lstm_layer_bwd_chain, act, cseq, c0, d_seq, d_final, u)
+    return da, dh0, dc0
+
+
+def lstm_layer_bwd_dx(da, w):
+    """Kernel N's dx pass: ``lstm_bwd_dx_reference``. CPU tensors run the
+    plain version; CUDA tensors launch its build of W's dtype."""
+    T, B, G = da.shape
+    D = w.shape[0]
+    if not _check_phase("lstm_layer_bwd_dx", {"da": da, "w": w},
+                        {"da": (T, B, G), "w": (D, G)}):
+        return lstm_bwd_dx_reference(da, w)
+    dx = torch.empty(T, B, D, device=da.device, dtype=w.dtype)
+    wt = w.t().contiguous()  # (4H, D): the product's B operand row by row
+    lib, fns, _ = _phases("lstm_layer_bwd")
+    rc = fns["dx"][w.dtype](_ptr(da), _ptr(wt), _ptr(dx), T, B, D, G // 4, _stream(da))
+    _build.check(lib, rc, "lstm_layer_bwd dx launch")
+    _build.count_launch(lstm_layer_bwd_dx, w.dtype)
+    return dx
+
+
+for _fn in (lstm_layer_bwd_gates, lstm_layer_bwd_chain, lstm_layer_bwd_dx):
+    _fn.launches = _fn.launches_bf16 = 0
 
 
 def lstm_layer_bwd(x, hseq, cseq, h0, c0, d_seq, d_final, w, b, u, need_dx=True):
     """Backward of one tanh LSTM layer: see ``lstm_layer_bwd_reference``. CPU
     tensors run the plain version; CUDA tensors (every operand float32 or
-    every one bfloat16) launch kernel N's build of their dtype."""
+    every one bfloat16) run kernel N's build of their dtype: its gate
+    pre-pass, its chain and, with ``need_dx``, its dx pass (one launch of
+    N counted on ``.launches`` or ``.launches_bf16``, each phase's on its
+    own wrapper)."""
     T, B, D = x.shape
     H = u.shape[0]
-    named = {"x": x, "hseq": hseq, "cseq": cseq, "h0": h0, "c0": c0, "w": w, "b": b, "u": u}
-    expected = {"x": (T, B, D), "hseq": (T, B, H), "cseq": (T, B, H), "h0": (B, H),
-                "c0": (B, H), "w": (D, 4 * H), "b": (4 * H,), "u": (H, 4 * H),
-                "d_seq": (T, B, H), "d_final": (B, H)}
-    for name, t in (("d_seq", d_seq), ("d_final", d_final)):
-        if t is not None:
-            named[name] = t
-    _check_shapes(named, expected)
+    named = _present(x=x, hseq=hseq, cseq=cseq, h0=h0, c0=c0, w=w, b=b, u=u, d_seq=d_seq,
+                     d_final=d_final)
+    _check_shapes(named, _bwd_expected(T, B, D, H))
     if not _on(x, "lstm_layer_bwd"):
         return lstm_layer_bwd_reference(x, hseq, cseq, h0, c0, d_seq, d_final, w, b, u, need_dx)
     dtype = check_operands(named, x.device, _build.DTYPES)
     if T < 1 or B < 1:
         raise ValueError(f"kernel N takes T >= 1 and B >= 1; got T={T} B={B}")
-    build = _bf16_build("N", dtype)
-    _layout.require(build, H, _layout.smem_bytes(build, H, D))
-    kw = {"device": x.device, "dtype": dtype}
-    dx = torch.empty(T, B, D, **kw) if need_dx else None
-    dh0, dc0 = torch.empty(B, H, **kw), torch.empty(B, H, **kw)
-    da = torch.empty(T, B, 4 * H, device=x.device, dtype=torch.float32)
-    # the transposed products read U^T and W^T row by row (see the source)
-    ut, wt = u.t().contiguous(), w.t().contiguous()
-    lib, fns = _bwd_kernel()
-    rc = fns[dtype](
-        _ptr(x), _ptr(hseq), _ptr(cseq), _ptr(h0), _ptr(c0), _opt(d_seq), _opt(d_final),
-        _ptr(w), _ptr(b), _ptr(u), _ptr(ut), _ptr(wt), _opt(dx), _ptr(dh0), _ptr(dc0), _ptr(da),
-        T, B, D, H, _stream(x),
-    )
-    _build.check(lib, rc, "lstm_layer_bwd launch")
+    chain_plan("N", H, B, dtype)  # raises LaunchLimitError before any launch
+    ut = u.t().contiguous()
+    act = _gates("lstm_layer_bwd", lstm_layer_bwd_gates, x, hseq, h0, u, w, b, ut)
+    da, _, dh0, dc0 = _chain("N", lstm_layer_bwd_chain, act, cseq, c0, d_seq, d_final, u,
+                             ut=ut)
+    dx = lstm_layer_bwd_dx(da, w) if need_dx else None
     _build.count_launch(lstm_layer_bwd, dtype)
     return dx, dh0, dc0, da
 
@@ -413,44 +631,59 @@ def lstm_layer_xp_bwd_reference(xp, hseq, cseq, h0, c0, d_seq, d_final, u):
     return da.to(dtype), dh0.to(dtype), dc0.to(dtype), da
 
 
-@functools.cache
-def _xp_bwd_kernel():
-    lib, fns = _build.load_builds("lstm_layer_xp_bwd", "mvt_lstm_layer_xp_bwd",
-                                  [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    # the float32 build has no dxp pointer: its dacat is its dxp
-    fns[torch.float32].argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    return lib, fns
+def lstm_layer_xp_bwd_gates(xp, hseq, h0, u):
+    """Kernel R's gate pre-pass: ``lstm_bwd_gates_reference`` over xp. CPU
+    tensors run the plain version; CUDA tensors (every operand float32 or
+    every one bfloat16) launch its build of their dtype."""
+    T, B, G = xp.shape
+    H = u.shape[0]
+    if not _check_phase("lstm_layer_xp_bwd_gates", {"xp": xp, "hseq": hseq, "h0": h0, "u": u},
+                        _bwd_expected(T, B, 0, H)):
+        return lstm_bwd_gates_reference(xp, hseq, h0, u)
+    return _gates("lstm_layer_xp_bwd", lstm_layer_xp_bwd_gates, xp, hseq, h0, u)
+
+
+def lstm_layer_xp_bwd_chain(act, cseq, c0, d_seq, d_final, u, need_da=True):
+    """Kernel R's chain over the pre-pass's act: (dxp, dh0, dc0, da) as
+    ``lstm_layer_xp_bwd`` returns them. CPU tensors run
+    ``lstm_bwd_chain_reference`` (dxp, dh0, dc0 rounded to cseq's dtype);
+    CUDA tensors launch its build of cseq's dtype on clusters
+    (``chain_plan``); in bfloat16 without ``need_da`` da is None."""
+    T, B, H = cseq.shape
+    if not _check_phase("lstm_layer_xp_bwd_chain",
+                        _present(act=act, cseq=cseq, c0=c0, d_seq=d_seq, d_final=d_final, u=u),
+                        _bwd_expected(T, B, 0, H)):
+        da, dh0, dc0 = lstm_bwd_chain_reference(act, cseq, c0, d_seq, d_final, u)
+        dtype = cseq.dtype
+        return da.to(dtype), dh0.to(dtype), dc0.to(dtype), da
+    da, dxp, dh0, dc0 = _chain("R", lstm_layer_xp_bwd_chain, act, cseq, c0, d_seq, d_final, u,
+                               need_da)
+    return (da if dxp is None else dxp), dh0, dc0, da
+
+
+lstm_layer_xp_bwd_gates.launches = lstm_layer_xp_bwd_gates.launches_bf16 = 0
+lstm_layer_xp_bwd_chain.launches = lstm_layer_xp_bwd_chain.launches_bf16 = 0
 
 
 def lstm_layer_xp_bwd(xp, hseq, cseq, h0, c0, d_seq, d_final, u, need_da=True):
     """Backward of ``lstm_layer_xp``: see ``lstm_layer_xp_bwd_reference``.
     CPU tensors run the plain version; CUDA tensors (every operand float32
-    or every one bfloat16) launch kernel R's build of their dtype. In
-    bfloat16 without ``need_da`` the kernel emits no float32 gate grads and
-    da is None (the plain version computes it all the same)."""
+    or every one bfloat16) run kernel R's build of their dtype: its gate
+    pre-pass and its chain (one launch of R counted, each phase's on its
+    own wrapper). In bfloat16 without ``need_da`` the chain emits no
+    float32 gate grads and da is None (the plain version computes it all
+    the same)."""
     T, B, H, on_card = _check_xp(xp, h0, c0, u, "lstm_layer_xp_bwd", hseq=hseq, cseq=cseq,
                                  d_seq=d_seq, d_final=d_final)
     if not on_card:
         return lstm_layer_xp_bwd_reference(xp, hseq, cseq, h0, c0, d_seq, d_final, u)
-    dtype = xp.dtype
-    build = _bf16_build("R", dtype)
-    _layout.require(build, H, _layout.smem_bytes(build, H))
-    kw = {"device": xp.device, "dtype": dtype}
-    dh0, dc0 = torch.empty(B, H, **kw), torch.empty(B, H, **kw)
-    bf16 = dtype == torch.bfloat16
-    da = (torch.empty(T, B, 4 * H, device=xp.device, dtype=torch.float32)
-          if need_da or not bf16 else None)
-    # the float32 build's dxp is its da; the bf16 build also rounds it
-    dxp = torch.empty(T, B, 4 * H, **kw) if bf16 else da
-    ut = u.t().contiguous()  # the transposed product reads U^T row by row
-    lib, fns = _xp_bwd_kernel()
-    outs = (_opt(da), _ptr(dxp)) if bf16 else (_ptr(da),)
-    rc = fns[dtype](_ptr(xp), _ptr(hseq), _ptr(cseq), _ptr(h0), _ptr(c0), _opt(d_seq),
-                    _opt(d_final), _ptr(u), _ptr(ut), *outs, _ptr(dh0), _ptr(dc0), T, B, H,
-                    _stream(xp))
-    _build.check(lib, rc, "lstm_layer_xp_bwd launch")
-    _build.count_launch(lstm_layer_xp_bwd, dtype)
-    return dxp, dh0, dc0, da
+    chain_plan("R", H, B, xp.dtype)  # raises LaunchLimitError before any launch
+    ut = u.t().contiguous()
+    act = _gates("lstm_layer_xp_bwd", lstm_layer_xp_bwd_gates, xp, hseq, h0, u, ut=ut)
+    da, dxp, dh0, dc0 = _chain("R", lstm_layer_xp_bwd_chain, act, cseq, c0, d_seq, d_final, u,
+                               need_da, ut)
+    _build.count_launch(lstm_layer_xp_bwd, xp.dtype)
+    return (da if dxp is None else dxp), dh0, dc0, da
 
 
 lstm_layer_xp_bwd.launches = 0

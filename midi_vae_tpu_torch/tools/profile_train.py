@@ -11,8 +11,9 @@ card, the route of the step, the median wall time per step (host clock
 around work that ends in a synchronize), note-steps/s (B x 64 output steps
 per step; windows/s for a judge), and from a torch.profiler window of STEPS
 steps the device time per kernel name, per kernel of the port (A, C, D, E,
-F, G, the wide D and E, L, N, Q, R, S, S xp, T, T xp, X, Y, W; the bf16
-builds of A, C, D, E, G, the wide D and E, L, N, Q, R, S, T and W apart) and for
+F, G, the wide D and E, L, N's and R's phases, Q, S, S xp, T, T xp, X, Y,
+W; the bf16 builds of A, C, D, E, G, the wide D and E, L, the phases, Q, S,
+T and W apart) and for
 everything else, per autograd node of the backward, and the device's idle
 share.
 
@@ -43,9 +44,12 @@ PORT_KERNELS = {
     "gru_decode_train_wide_kernel": "D wide gru_decode_train_wide",
     "gru_decode_bwd_wide_kernel": "E wide gru_decode_bwd_wide",
     "lstm_layer_fwd_kernel": "L lstm_layer_fwd",
-    "lstm_layer_bwd_kernel": "N lstm_layer_bwd",
     "lstm_layer_xp_fwd_kernel": "Q lstm_layer_xp_fwd",
-    "lstm_layer_xp_bwd_kernel": "R lstm_layer_xp_bwd",
+    # N's and R's phases (one config runs N or R, not both)
+    "lstm_bwd_gates_kernel": "N/R gates lstm_bwd_gates",
+    "lstm_bwd_gates_mma_kernel": "N/R gates bf16 lstm_bwd_gates_mma",
+    "lstm_bwd_chain_kernel": "N/R chain lstm_bwd_chain",
+    "lstm_bwd_dx_kernel": "N dx lstm_bwd_dx",
     "lstm_step_kernel": "S lstm_step",
     "lstm_step_xp_kernel": "S xp lstm_step_xp",
     "gru_step_kernel": "T gru_step",
@@ -57,8 +61,8 @@ PORT_KERNELS = {
 # the groups whose kernels have a bf16 build, counted apart
 BF16_BUILDS = ("A gru_layer_fwd", "C gru_layer_bwd", "D gru_decode_train", "E gru_decode_bwd",
                "G gru_layer_xp_bwd", "D wide gru_decode_train_wide",
-               "E wide gru_decode_bwd_wide", "L lstm_layer_fwd", "N lstm_layer_bwd",
-               "Q lstm_layer_xp_fwd", "R lstm_layer_xp_bwd", "S lstm_step", "T gru_step",
+               "E wide gru_decode_bwd_wide", "L lstm_layer_fwd", "N/R chain lstm_bwd_chain",
+               "N dx lstm_bwd_dx", "Q lstm_layer_xp_fwd", "S lstm_step", "T gru_step",
                "W grad_reduce")
 
 
