@@ -345,10 +345,11 @@ def phase_build():
 
 
 def report_clusters():
-    """The cluster size of each of N's and R's chain builds at H = 256 and
-    512, whether its U^T slice streams, and the card's
-    cudaOccupancyMaxActiveClusters at that size (one CTA an SM), beside the
-    count the route chooser's plans assume off the card."""
+    """The cluster size of each of N's and R's chain builds and of Q's and
+    Y's forward chain builds at H = 256 and 512, whether its slice of U
+    streams, and the card's cudaOccupancyMaxActiveClusters at that size (one
+    CTA an SM), beside the count the route chooser's plans assume off the
+    card, and each build's plan at B = 256."""
     import torch
 
     from midi_vae_tpu_torch.ops import _layout
@@ -365,6 +366,22 @@ def report_clusters():
             found[f"{build} H={H}"] = {"cluster": C, "stream": stream, "max_active_clusters": active,
                                        "assumed": _layout.MAX_CLUSTERS_H100[C],
                                        "plan_B256": plan._asdict()}
+    fwd = {}
+    for build in _layout.FWD_BUILDS:
+        lib = "lstm_encoder_scan" if build == "Y" else "lstm_layer_xp_fwd"
+        for H in (256, 512):
+            C, stream = _layout.fwd_cluster(build, H)
+            active = ll._max_clusters(lib, build != "Q", C, stream)
+            plan = ll.fwd_chain_plan(build, H, B)
+            fwd[f"{build} H={H}"] = {"cluster": C, "stream": stream, "max_active_clusters": active,
+                                     "assumed": _layout.MAX_CLUSTERS_H100[C],
+                                     "plan_B256": plan._asdict()}
+    print("[build] forward chain clusters (size, U streamed, cudaOccupancyMaxActiveClusters; "
+          f"plan at B = {B}): " + "; ".join(
+              f"{k}: {v['cluster']}, {v['stream']}, {v['max_active_clusters']}; rows "
+              f"{v['plan_B256']['rows']} x {v['plan_B256']['clusters']} clusters, splits "
+              f"{v['plan_B256']['splits']}, stages {v['plan_B256']['stages']}, "
+              f"{v['plan_B256']['smem']:,} bytes" for k, v in fwd.items()))
     print("[build] chain clusters (size, U^T streamed, cudaOccupancyMaxActiveClusters; plan at "
           f"B = {B}): " + "; ".join(
               f"{k}: {v['cluster']}, {v['stream']}, {v['max_active_clusters']}; rows "
@@ -372,7 +389,7 @@ def report_clusters():
               f"{v['plan_B256']['splits']}, nbuf {v['plan_B256']['nbuf']}, stages "
               f"{v['plan_B256']['stages']}, {v['plan_B256']['smem']:,} bytes"
               for k, v in found.items()))
-    return found
+    return found | fwd
 
 
 # the route chooser's build letter -> (library, kernel function name[, a
@@ -396,13 +413,15 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "N_gates": ("lstm_layer_bwd", "lstm_bwd_gates_kernel"),
           "N_chain": ("lstm_layer_bwd", "lstm_bwd_chain_kernel", NOT_BF16),
           "N_dx": ("lstm_layer_bwd", "lstm_bwd_dx_kernel", NOT_BF16),
-          "Q": ("lstm_layer_xp_fwd", "lstm_layer_xp_fwd_kernel", NOT_BF16),
+          # Q's and Y's forward chain (csrc/lstm_cell_fwd.cuh): FFMA in float32,
+          # tensor cores in bf16
+          "Q": ("lstm_layer_xp_fwd", "lstm_fwd_chain_kernel"),
           "R_gates": ("lstm_layer_xp_bwd", "lstm_bwd_gates_kernel"),
           "R_chain": ("lstm_layer_xp_bwd", "lstm_bwd_chain_kernel", NOT_BF16),
           "S": ("lstm_step", "lstm_step_kernel"), "S_xp": ("lstm_step", "lstm_step_xp_kernel"),
           "T": ("gru_step", "gru_step_kernel"), "T_xp": ("gru_step", "gru_step_xp_kernel"),
           "X": ("gru_encoder_scan", "gru_encoder_scan_kernel"),
-          "Y": ("lstm_encoder_scan", "lstm_encoder_scan_kernel"),
+          "Y": ("lstm_encoder_scan", "lstm_fwd_chain_mma_kernel"),
           "U": ("gru_encoder_stack_fwd", "gru_encoder_stack_fwd_kernel"),
           "V": ("gru_encoder_stack_bwd", "gru_encoder_stack_bwd_kernel"),
           # the bf16 instances of T's, S's, A's, C's, D's, E's, G's, the wide
@@ -421,7 +440,7 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "N_gates_bf16": ("lstm_layer_bwd", "lstm_bwd_gates_mma_kernel"),
           "N_chain_bf16": ("lstm_layer_bwd", "lstm_bwd_chain_kernel", BF16_ONLY),
           "N_dx_bf16": ("lstm_layer_bwd", "lstm_bwd_dx_kernel", BF16_ONLY),
-          "Q_bf16": ("lstm_layer_xp_fwd", "lstm_layer_xp_fwd_kernel", BF16_ONLY),
+          "Q_bf16": ("lstm_layer_xp_fwd", "lstm_fwd_chain_mma_kernel"),
           "R_gates_bf16": ("lstm_layer_xp_bwd", "lstm_bwd_gates_mma_kernel"),
           "R_chain_bf16": ("lstm_layer_xp_bwd", "lstm_bwd_chain_kernel", BF16_ONLY),
           # D's and E's bf16-residual builds (decode_residual_bf16) and E's
@@ -454,7 +473,9 @@ def check_registers():
     for letter in (*_layout.BOUNDED, "T_bf16", "S_bf16"):
         if found[letter]["registers"] * _layout.WIDE_THREADS > _layout.REGS_PER_SM:
             raise RuntimeError(f"kernel {letter}: {found[letter]} does not fit 512 threads")
-    for letter, threads in _layout.BPTT_PHASE_THREADS.items():
+    chains = {**_layout.BPTT_PHASE_THREADS, **dict.fromkeys(_layout.FWD_BUILDS,
+                                                               _layout.CHAIN_THREADS)}
+    for letter, threads in chains.items():
         if found[letter]["registers"] * threads > _layout.REGS_PER_SM:
             raise RuntimeError(f"kernel {letter}: {found[letter]} does not fit {threads} threads")
     print("[build] registers (spill bytes) per thread: " + ", ".join(
@@ -2173,8 +2194,21 @@ def phase_lstm_train_kernels():
             print(f"[lstm train kernels] LSTM(512) {name} forward + backward: wide route (matmul + "
                   f"Q + R + W) {wide_ms:.4f} ms, narrow route (L + N + W) {narrow}, cuDNN's LSTM "
                   f"{cudnn_ms:.4f} ms")
+    # Q's forward chain at B = 512 (its clusters in more than one wave) and
+    # at B = 300 (the last cluster ragged), on the LSTM(512) notes layers
+    for rows in (2 * B, 300):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in random_batch(cfg, rows, 11).items()}
+        h0 = torch.zeros(rows, cfg.lstm_size, device=dev)
+        for name, x, p, _rs, _dx in layers(cfg, enc, batch, rows, True)[:2]:
+            w, b, u = (p[k].detach() for k in "wbu")
+            with torch.no_grad():
+                xp = (x.reshape(x.shape[0] * rows, -1) @ w + b).reshape(x.shape[0], rows, -1)
+            plan = ll.fwd_chain_plan("Q", cfg.lstm_size, rows)
+            check(f"Q {name} xp{tuple(xp.shape)}, {plan.clusters} clusters of {plan.rows} rows",
+                  lambda: ll.lstm_layer_xp(xp, h0, h0, u),
+                  lambda: ll.lstm_layer_xp_reference(xp, h0, h0, u), [H_ATOL, C_ATOL])
     print(f"[lstm train kernels] L with c, N, S, Q, R, W and the training ops' gradients also "
-          f"agree at B = {RAGGED}")
+          f"agree at B = {RAGGED}; Q at B = {2 * B} and 300")
     return results
 
 
@@ -2582,10 +2616,11 @@ def phase_bf16_kernels():
                       enc["vel_rnn"][0]["u"], False)]
         return [(n, xp, u.detach(), rs) for n, xp, u, rs in cases], states
 
-    def scans(key, letter, cfg, rows, seed, only=None, library=False, timed=None):
+    def scans(key, letter, cfg, rows, seed, only=None, library=False, timed=None,
+              activation="tanh", limits=BF16):
         """X or Y on the step's encoder layers of ``cfg`` (``only``: those
-        names) at ``rows``; timed into results[key] (by default when
-        rows == B)."""
+        names) at ``rows`` with cell activation ``activation``; timed into
+        results[key] (by default when rows == B)."""
         lstm = cfg.cell_type == "LSTM"
         _, params = model_of(cfg)
         fwd = es.lstm_encoder_scan_fwd if lstm else es.gru_encoder_scan_fwd
@@ -2596,8 +2631,10 @@ def phase_bf16_kernels():
         for name, xp, u, rs in cases:
             if only and name not in only:
                 continue
-            args = (xp, *states, u, "tanh", rs)
+            args = (xp, *states, u, activation, rs)
             tag = f"{letter} {cfg.cell_type}({cfg.lstm_size}) {name} xp{tuple(xp.shape)} rs={rs}"
+            if activation != "tanh":
+                tag += f" {activation}"
             lib = None
             if timed and library:
                 # cuDNN's LSTM in bf16 over xp (w_ih = I: one 4H x 4H product
@@ -2616,8 +2653,8 @@ def phase_bf16_kernels():
                     results[key][name]["controls_rel_l2"] = controls(tag, args)
             else:
                 check(f"{tag} B={rows}", lambda a=args: fwd(*a), lambda a=args: plain(*a),
-                      [BF16])
-            if name == "notes_l2":
+                      [limits])
+            if name == "notes_l2" and activation == "tanh":
                 scan = es.lstm_encoder_scan if lstm else es.gru_encoder_scan
                 with torch.enable_grad():
                     grads(f"{letter} remat {name} B={rows}",
@@ -2722,10 +2759,20 @@ def phase_bf16_kernels():
     scans("gru_encoder_scan_row27", "X", Config(lstm_size=512, fused_train_decoder=False,
                                                 **slice_sets), 512, 18, ("notes_l1", "notes_l2"),
           timed=True)
-    scans("lstm_encoder_scan_512", "Y", Config(cell_type="LSTM", lstm_size=512, **slice_sets), B,
-          19, library=True)
+    lstm512 = Config(cell_type="LSTM", lstm_size=512, **slice_sets)
+    scans("lstm_encoder_scan_512", "Y", lstm512, B, 19, library=True)
+    # Y's forward chain at B = 512 (clusters in more than one wave at 512)
+    # and with the other cell activations, the sequence (notes L1) and the
+    # final h (notes L2); their outputs span more than tanh's, so they are
+    # held to one bf16 step at their largest entry (BF16_OUT)
+    for cfg in (lstm256, lstm512):
+        scans("lstm_encoder_scan", "Y", cfg, 2 * B, 20, ("notes_l1", "notes_l2"), timed=False)
+        for activation in ("sigmoid", "relu"):
+            scans("lstm_encoder_scan", "Y", cfg, B, 21, ("notes_l1", "notes_l2"), timed=False,
+                  activation=activation, limits=BF16_OUT)
     print(f"[bf16 kernels] X, Y, T bf16 and S bf16 agree with their plain bf16 versions at "
-          f"B = {B} and {RAGGED}, X at (64, 512, 512), Y at LSTM(512); the remat backward too")
+          f"B = {B} and {RAGGED}, X at (64, 512, 512), Y at LSTM(512), at B = {2 * B} and with "
+          f"sigmoid and relu cells; the remat backward too")
     return results
 
 
@@ -4010,9 +4057,22 @@ def phase_bf16_lstm_kernels():
                 if timed and name == "notes_l1":
                     found[f"R+W {mode} dU (the op)"] = held[0]
                     found[f"R+W {mode}: dU from {what}"] = held[1]
+    # Q bf16's forward chain at B = 512: its clusters in more than one wave
+    rows = 2 * B
+    batch = {k: torch.as_tensor(v, device=dev).to(bf)
+             for k, v in random_batch(cfg, rows, 38).items()}
+    h0 = torch.zeros(rows, H, device=dev, dtype=bf)
+    x, p = tm(batch["X"]), enc["notes_rnn"][0]
+    with torch.no_grad():
+        xp = (x.reshape(x.shape[0] * rows, -1) @ p["w"] + p["b"]).reshape(x.shape[0], rows, 4 * H)
+    plan = ll.fwd_chain_plan("Q_bf16", H, rows)
+    check(f"Q bf16 notes_l1 xp{tuple(xp.shape)}, {plan.clusters} clusters of {plan.rows} rows",
+          lambda: ll.lstm_layer_xp(xp, h0, h0, p["u"]),
+          lambda: ll.lstm_layer_xp_reference(xp, h0, h0, p["u"]), [BF16_OUT, BF16_OUT])
     check_lstm_controls(found)
     print(f"[bf16 lstm kernels] L, N, Q, R and W in bf16 agree with their plain versions at "
-          f"B = {B} and {RAGGED}; the autograd ops' gradients with the plain backward")
+          f"B = {B} and {RAGGED}, Q also at {rows}; the autograd ops' gradients with the plain "
+          "backward")
     return results
 
 

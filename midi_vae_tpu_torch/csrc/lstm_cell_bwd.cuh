@@ -80,13 +80,9 @@
 // choose the cluster plan (ops/_layout.py::bptt_plan).
 #pragma once
 
-#include <cooperative_groups.h>
-
-#include "lstm_common.cuh"
+#include "lstm_cluster.cuh"
 
 namespace mvt {
-
-namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------------------
 // The tiled product of phases 1 and 3
@@ -242,19 +238,6 @@ __global__ void __launch_bounds__(kGemmThreads) lstm_bwd_gates_kernel(
 constexpr int kMmaK = 32;
 constexpr int kMmaStride = kMmaK + 8;
 
-__device__ __forceinline__ unsigned ld_b32(const bf16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], unsigned a0, unsigned a1, unsigned a2,
-                                         unsigned a3, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // rows [r0, r0 + 128) x depths [k0, k0 + 32) of a row-major (rows, K) bf16
 // operand into dst (128, kMmaStride); rows past `rows` and depths past K
 // read as zeros. 16-byte copies where K is a multiple of 8 (a row that is
@@ -409,12 +392,8 @@ __global__ void __launch_bounds__(kGemmThreads) lstm_bwd_dx_kernel(
 // Phase 2: the serial chain on a cluster
 // ---------------------------------------------------------------------------
 
-constexpr int kChainThreads = 512;
-constexpr int kChainWarps = kChainThreads / 32;
 // (unit, row) pairs a thread owns: Hc * rows <= kMaxPairs * kChainThreads
 constexpr int kMaxPairs = 3;
-// the largest cluster (16: a non-portable size)
-constexpr int kMaxCluster = 16;
 // gate rows of U^T per streamed chunk (the STREAM instance)
 constexpr int kStreamChunk = 16;
 // the da tile's row stride is 4 Hc + kDaPad floats, so that the bf16
@@ -440,33 +419,6 @@ struct ChainArgs {
   int stages;  // chunks in the streamed ring (the STREAM instance), >= 2
 };
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most n of the thread's committed copy groups are pending
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
-  }
-}
-
 // two neighbouring units of one U^T row in shared memory, widened
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -474,8 +426,6 @@ __device__ __forceinline__ float2 load_pair(const float* p) {
 __device__ __forceinline__ float2 load_pair(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
-
-__host__ __device__ constexpr int round8(int n) { return (n + 7) / 8 * 8; }
 
 // Shared memory of a chain CTA, in bytes: the U slice (or the `stages`
 // chunks it streams through), the da tile (rows rounded up to 8, 4 Hc +
@@ -539,22 +489,6 @@ __device__ __forceinline__ void chain_product(const float* da_s, const float* sl
     if (r0 + r < rows) {
       *reinterpret_cast<float2*>(part + (size_t)(r0 + r) * H + k0) = make_float2(acc0[r], acc1[r]);
     }
-  }
-}
-
-// The bf16 build's slice: U (not U^T) restricted to the CTA's gate
-// columns, (H, 4 Hc) with unit n's row n holding its 4 Hc gate columns
-// (local gl = q Hc + u is U column q H + c Hc + u), each 16-byte chunk j of
-// a row stored at chunk j ^ (n % 8): the mma B fragments of 8 neighbouring
-// units then read 8 different chunks, so 32 banks.
-__device__ __forceinline__ void copy_slice_u(const bf16* __restrict__ u, bf16* dst, int H,
-                                             int Hc, int c) {
-  const int G4 = 4 * Hc, chunks = G4 / 8;
-  for (int i = threadIdx.x; i < H * chunks; i += blockDim.x) {
-    const int n = i / chunks, j = i % chunks;
-    const int q = 8 * j / Hc, u0 = 8 * j % Hc;
-    cp_async16(dst + (size_t)n * G4 + ((j ^ (n & 7)) << 3),
-               u + (size_t)n * 4 * H + q * H + c * Hc + u0);
   }
 }
 
@@ -907,39 +841,10 @@ int launch_dx(const float* da, const TV* wt, TV* dx, int T, int B, int D, int H,
   return (int)cudaGetLastError();
 }
 
-template <typename TV, bool STREAM>
-cudaError_t chain_config(int cluster, size_t smem) {
-  auto kernel = lstm_bwd_chain_kernel<TV, STREAM>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err == cudaSuccess && cluster > 8) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }
-  return err;
-}
-
-// a launch configuration of `grid` CTAs of the chain in clusters of `cluster`
-struct ClusterLaunch {
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  ClusterLaunch(int grid, int cluster, size_t smem, void* stream) {
-    cfg.gridDim = dim3(grid);
-    cfg.blockDim = dim3(kChainThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-};
-
 // Only the float build streams its slice (bf16 fits at every H <= 512).
 template <typename TV, bool STREAM>
 int launch_chain_instance(const ChainArgs<TV>& a, int cluster, size_t smem, void* stream) {
-  cudaError_t err = chain_config<TV, STREAM>(cluster, smem);
+  cudaError_t err = cluster_config(lstm_bwd_chain_kernel<TV, STREAM>, cluster, smem);
   if (err != cudaSuccess) return (int)err;
   ClusterLaunch l((a.B + a.rows - 1) / a.rows * cluster, cluster, smem, stream);
   err = cudaLaunchKernelEx(&l.cfg, lstm_bwd_chain_kernel<TV, STREAM>, a);
@@ -969,25 +874,16 @@ int launch_chain(const ChainArgs<TV>& a, int cluster, int stream_slice, void* st
   return launch_chain_instance<TV, false>(a, cluster, smem, stream);
 }
 
-// cudaOccupancyMaxActiveClusters of the chain at `cluster` CTAs a cluster,
-// each with the whole of a block's shared memory (one CTA an SM).
-template <typename TV, bool STREAM>
-int max_clusters_instance(int cluster, int* out) {
-  const size_t smem = 232448;
-  cudaError_t err = chain_config<TV, STREAM>(cluster, smem);
-  if (err != cudaSuccess) return (int)err;
-  ClusterLaunch l(cluster, cluster, smem, nullptr);
-  return (int)cudaOccupancyMaxActiveClusters(out, lstm_bwd_chain_kernel<TV, STREAM>, &l.cfg);
-}
-
+// cudaOccupancyMaxActiveClusters of the chain at `cluster` CTAs a cluster
+// (one CTA an SM)
 template <typename TV>
 int chain_max_clusters(int cluster, int stream_slice, int* out) {
   if constexpr (std::is_same_v<TV, float>) {
-    if (stream_slice) return max_clusters_instance<TV, true>(cluster, out);
+    if (stream_slice) return max_active_clusters(lstm_bwd_chain_kernel<TV, true>, cluster, out);
   } else {
     if (stream_slice) return (int)cudaErrorInvalidValue;
   }
-  return max_clusters_instance<TV, false>(cluster, out);
+  return max_active_clusters(lstm_bwd_chain_kernel<TV, false>, cluster, out);
 }
 
 }  // namespace mvt

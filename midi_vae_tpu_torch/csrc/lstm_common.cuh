@@ -1,7 +1,6 @@
 // Shared device code of the LSTM kernels (L: lstm_layer_fwd.cu, M:
-// lstm_decode.cu, Q: lstm_layer_xp_fwd.cu, S: lstm_step.cu): one LSTM cell
-// step over a tile of batch rows held in shared memory, and the decode heads'
-// readout.
+// lstm_decode.cu, S: lstm_step.cu): one LSTM cell step over a tile of batch
+// rows held in shared memory, and the decode heads' readout.
 //
 // Layout (as the GRU kernels, gru_common.cuh): one block owns R = kRows
 // batch rows for the whole time loop; blockDim.x == H and thread j owns

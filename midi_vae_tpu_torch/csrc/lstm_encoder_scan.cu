@@ -14,100 +14,41 @@
 // Numerics, as the Pallas kernel's (_lstm_gates): xp, h0, c0, U and the
 // output are bf16; h @ U (preferred_element_type=float32) and the gate math
 // run in float, h' comes from the unrounded c', and both h and c are rounded
-// to bf16 after every step (:242-243). Templated on the cell activation (on g
-// and on c: tanh, sigmoid or relu) and on whether the h sequence is emitted.
+// to bf16 after every step (:242-243). The cell activation (on g and on c)
+// is tanh, sigmoid or relu.
 //
-// Design: kernel Q (lstm_layer_xp_fwd.cu) over bf16 operands. One block owns
-// kRows = 8 batch rows and loops over all T steps; h (double-buffered) and c
-// of its rows live in shared memory as float holding bf16 values; thread j
-// reads its four gates of xp[t] straight from global memory and adds h @ U
-// from the L2-resident U (2 MiB in bf16 at H = 512). Both TPU grids map to
-// the same grid here: blocks tile the batch and carry their rows' state
-// through the whole sequence. Compiled under __launch_bounds__(kWideThreads),
-// so a block of up to 512 threads (H <= 512) always has the registers it
-// needs.
-//
-// What bounds it: the serial chain of T steps, each an L2 read of U by each
-// of the B/8 blocks (32 SMs work at B = 256), not the tensor-core rate that
-// bounds the same work in bf16.
-#include "lstm_common.cuh"
-
-namespace mvt {
-
-template <int ACT, bool SEQ>
-__global__ void __launch_bounds__(kWideThreads) lstm_encoder_scan_kernel(
-    const bf16* __restrict__ xp, const bf16* __restrict__ h0,
-    const bf16* __restrict__ c0, const bf16* __restrict__ u,
-    bf16* __restrict__ out, int T, int B, int H) {
-  extern __shared__ __align__(16) float smem[];
-  float* h_s = smem;               // (H, kRows), h_{t-1}
-  float* hn_s = h_s + kRows * H;   // (H, kRows), h_t
-  float* c_s = hn_s + kRows * H;   // (H, kRows)
-  const int row0 = blockIdx.x * kRows;
-  load_tile(h0, h_s, row0, B, H);
-  load_tile(c0, c_s, row0, B, H);
-  __syncthreads();
-  for (int t = 0; t < T; ++t) {
-    float ai[kRows], af[kRows], ag[kRows], ao[kRows];
-    load_gates4(xp + (size_t)t * B * 4 * H, row0, B, H, ai, af, ag, ao);
-    // the previous step's cell ended with a barrier; its h_t (now h_s) is
-    // only read from here on, and this cell writes the other buffer
-    lstm_cell_recurrent<ACT, kRows, bf16, bf16>(ai, af, ag, ao, h_s, hn_s, c_s,
-                                                u, H);
-    float* done = hn_s;
-    hn_s = h_s;
-    h_s = done;
-    if constexpr (SEQ) store_tile(h_s, out + (size_t)t * B * H, row0, B, H);
-  }
-  if constexpr (!SEQ) store_tile(h_s, out, row0, B, H);
-}
-
-template <int ACT, bool SEQ>
-cudaError_t launch(const bf16* xp, const bf16* h0, const bf16* c0,
-                   const bf16* u, bf16* out, int T, int B, int H,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kRows * 3 * H;
-  cudaError_t err = fit_block(lstm_encoder_scan_kernel<ACT, SEQ>, H, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + kRows - 1) / kRows);
-  lstm_encoder_scan_kernel<ACT, SEQ><<<grid, H, smem, stream>>>(
-      xp, h0, c0, u, out, T, B, H);
-  return cudaGetLastError();
-}
-
-template <bool SEQ>
-cudaError_t launch_act(const bf16* xp, const bf16* h0, const bf16* c0,
-                       const bf16* u, bf16* out, int T, int B, int H, int act,
-                       cudaStream_t stream) {
-  switch (act) {
-    case kTanh:
-      return launch<kTanh, SEQ>(xp, h0, c0, u, out, T, B, H, stream);
-    case kSigmoid:
-      return launch<kSigmoid, SEQ>(xp, h0, c0, u, out, T, B, H, stream);
-    case kRelu:
-      return launch<kRelu, SEQ>(xp, h0, c0, u, out, T, B, H, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace mvt
+// The kernel is the bf16 build of kernel Q's forward chain on thread-block
+// clusters (lstm_cell_fwd.cuh has the design and what bounds it): U's
+// column slices resident in the CTAs' shared memory, h . U on the tensor
+// cores. Both TPU grids map to the same launch: clusters tile the batch and
+// carry their rows' state through the whole sequence.
+#include "lstm_cell_fwd.cuh"
 
 // xp (T, B, 4H), h0 and c0 (B, H), u (H, 4H), all bf16 and contiguous; out
-// is (T, B, H) with return_sequences, else (B, H).
+// is (T, B, H) with return_sequences, else (B, H). cluster and rows are the
+// plan of ops/_layout.py::fwd_plan.
 extern "C" int mvt_lstm_encoder_scan(const mvt::bf16* xp, const mvt::bf16* h0,
                                      const mvt::bf16* c0, const mvt::bf16* u,
-                                     mvt::bf16* out, int T, int B, int H,
-                                     int act, int return_sequences,
+                                     mvt::bf16* out, int T, int B, int H, int act,
+                                     int return_sequences, int cluster, int rows,
                                      void* stream) {
   using namespace mvt;
-  if (T < 1 || B < 1 || H < 32 || H % 32 != 0) {
-    return (int)cudaErrorInvalidValue;
+  const FwdArgs<bf16> a{xp, h0, c0, u, return_sequences ? out : nullptr, nullptr,
+                        return_sequences ? nullptr : out, T, B, H, rows, 1, 0};
+  switch (act) {
+    case kTanh: return launch_fwd_chain<bf16, kTanh>(a, cluster, stream);
+    case kSigmoid: return launch_fwd_chain<bf16, kSigmoid>(a, cluster, stream);
+    case kRelu: return launch_fwd_chain<bf16, kRelu>(a, cluster, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(return_sequences
-                   ? launch_act<true>(xp, h0, c0, u, out, T, B, H, act, s)
-                   : launch_act<false>(xp, h0, c0, u, out, T, B, H, act, s));
+}
+
+// cudaOccupancyMaxActiveClusters of the chain (bf16, the slice resident) at
+// `cluster` CTAs a cluster
+extern "C" int mvt_lstm_encoder_scan_max_clusters(int bf16, int cluster, int stream_slice,
+                                                  int* out) {
+  if (!bf16) return (int)cudaErrorInvalidValue;
+  return mvt::fwd_max_clusters<mvt::bf16, mvt::kTanh>(cluster, stream_slice, out);
 }
 
 extern "C" const char* mvt_error_string(int code) {

@@ -1,7 +1,7 @@
 """Which kernel builds a layer or decode head takes, from the card's limits.
 
-Every kernel of the port but N and R (GRU: A to G, T, T xp, X, and the
-encoder stacks' U and V; LSTM: L, M, Q, S, S xp, Y) runs one
+Every kernel of the port but N, R, Q and Y (GRU: A to G, T, T xp, X, and
+the encoder stacks' U and V; LSTM: L, M, S, S xp) runs one
 thread per hidden column (blockDim.x = H) and keeps a tile of batch rows per
 block, so whether a build launches at a width is a matter of two limits of
 the H100 (sm_90a):
@@ -12,15 +12,18 @@ the H100 (sm_90a):
 
 Kernels A to E, L, M, U and V are built without launch bounds; their register
 counts (``REGISTERS``, from ``nvcc -Xptxas -v`` on the card; ``chip_smoke.py``
-checks them against the build) decide how wide they go. F, G, Q, the
-per-step cells (S, S xp, T, T xp), the bf16 whole-scan encoders (X, Y) and
+checks them against the build) decide how wide they go. F, G, the
+per-step cells (S, S xp, T, T xp), the GRU's bf16 whole-scan encoder X and
 the wide decode builds are compiled under ``__launch_bounds__(WIDE_THREADS)``,
 so the compiler guarantees that up to 512 threads launch (``chip_smoke.py``
 checks their registers from ptxas against it). N and R, the LSTM's backward
 through time, run as phases of fixed block sizes whatever H: a gate
 pre-pass, a chain on thread-block clusters and N's dx pass (the section
 "The LSTM's backward through time" below); whether they launch is the
-chain's cluster plan (``bptt_plan``).
+chain's cluster plan (``bptt_plan``). Q and Y, the LSTM's forward over a
+precomputed x-projection, are one chain on thread-block clusters of the
+same shape (the section "The LSTM's forward over xp"); whether they launch
+is its plan (``fwd_plan``).
 
 The training step takes one route for all its layers and heads:
 - ``"narrow"``, the GRU(256) path: A + C per encoder layer (the x-projection
@@ -103,8 +106,8 @@ REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75,
              "U": 78, "V": 172, "A_bf16": 94, "C_bf16": 96, "D_bf16": 144, "E_bf16": 167,
              "L_bf16": 80, "D_resid": 160, "E_resid": 168}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
-BOUNDED = ("F", "G", "D_wide", "E_wide", "Q", "S", "S_xp", "T", "T_xp", "X", "Y",
-           "G_bf16", "D_wide_bf16", "E_wide_bf16", "Q_bf16", "E_wide_row8_bf16")
+BOUNDED = ("F", "G", "D_wide", "E_wide", "S", "S_xp", "T", "T_xp", "X",
+           "G_bf16", "D_wide_bf16", "E_wide_bf16", "E_wide_row8_bf16")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
 LSTM_NARROW_MAX_H = 256
 
@@ -120,7 +123,7 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
     """Dynamic shared memory of one block of ``kernel``: D is the layer's
     input width (A, C, L, N; U and V: of the stack, ``n_layers`` = 2, or of
     a branch, ``n_layers`` = 1), the head's output width (B, D, E, M) or the
-    cell's input width (S, T). The bf16 builds (X, Y, those of A to E, G,
+    cell's input width (S, T). The bf16 builds (X, those of A to E, G,
     the wide D and E, S and T, and U's and V's), D's and E's bf16-residual
     builds and E's row-8 build hold the tiles of the builds they are twins
     of, in float: a bf16 value is widened as it is loaded."""
@@ -136,13 +139,11 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
         "G": 5 * H,
         "L": D + 3 * H,  # x, h twice (h_{t-1} and h_t), c
         "M": 2 * D + (n_layers + 1) * H + n_layers * H,  # probs, logits, h tiles, c tiles
-        "Q": 3 * H,  # h twice, c
         "S": D + 3 * H,  # as L
-        "S_xp": 3 * H,  # as Q
+        "S_xp": 3 * H,  # h twice, c
         "T": D + 2 * H,  # x, h, r * h
         "T_xp": 2 * H,  # h, r * h
         "X": 2 * H,  # as F
-        "Y": 3 * H,  # as Q
         # the stack: x, h1, h2, r * h; a branch: as A
         "U": D + (n_layers + 1) * H,
         # the stack: x, h1_t, h1_{t-1}, h2_{t-1}, r * h, the gate grads (3H),
@@ -155,10 +156,13 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
 def launch_limit(kernel: str, H: int, smem: int) -> str | None:
     """Why a block of H threads of ``kernel`` with ``smem`` bytes of shared
     memory cannot launch on the card, or None when it can. For the LSTM's
-    backward (N, R and their bf16 builds: ``BPTT_BUILDS``) the chain's
-    cluster plan decides, whatever ``smem``: ``bptt_limit``."""
+    backward (N, R and their bf16 builds: ``BPTT_BUILDS``) and its forward
+    over xp (Q, Q bf16, Y: ``FWD_BUILDS``) the chain's cluster plan decides,
+    whatever ``smem``: ``bptt_limit``, ``fwd_limit``."""
     if kernel in BPTT_BUILDS:
         return bptt_limit(kernel, H)
+    if kernel in FWD_BUILDS:
+        return fwd_limit(kernel, H)
     if H < 32 or H % 32:
         return f"kernel {kernel} takes H a multiple of 32 (one warp per 32 columns), got H={H}"
     if kernel in BOUNDED:
@@ -326,6 +330,139 @@ def bptt_limit(build: str, H: int) -> str | None:
     return None
 
 
+# ---------------------------------------------------------------------------
+# The LSTM's forward over xp (kernels Q and Y, csrc/lstm_cell_fwd.cuh): one
+# serial chain on thread-block clusters of 512-thread CTAs. A cluster owns
+# ``rows`` batch rows; its C CTAs split the H units (Hc = H / C each), each
+# keeps its 4 Hc gate columns of U (an H x 4 Hc slice) and the whole h of
+# its rows in shared memory (twice in bf16: read and written), and each step ends
+# with one all-gather of h through distributed shared memory. The bf16
+# builds (Q_bf16, Y) keep the slice resident and take h @ U on the tensor
+# cores (rows in m-tiles of 16, at most 48); float32 (Q) takes it as FFMA,
+# ``splits`` threads sharing each tile's depth, and streams the slice in
+# chunks of 64 depth rows through a ring of ``stages`` chunks where it does
+# not fit (H = 512). C is the smallest cluster whose resident slice fits
+# beside one row's tiles; ``rows`` is ceil(B / the card's active clusters at
+# that C), bounded by what fits beside the slice.
+# ---------------------------------------------------------------------------
+
+FWD_BUILDS = ("Q", "Q_bf16", "Y")
+FWD_MAX_ITEMS = 2   # kFwdMaxItems: (m-tile, unit group) items a warp owns
+FWD_MAX_ROWS_MMA = 48  # kFwdMaxRowsMma: three m-tiles of 16
+H_PAD = 8           # kHPad: the bf16 h tile's rows are H + H_PAD values
+TILE_STRIDE = 33    # kTileStride: floats a float32 tile's partials (or xp) take
+FWD_CHUNK = 64      # kFwdChunk: depth rows of a streamed chunk of Q's float32 slice
+MAX_SPLITS = 16     # the float product's depth splits: powers of two up to 16
+REGISTERS.update({"Q": 128, "Q_bf16": 128, "Y": 128})
+
+
+class FwdPlan(NamedTuple):
+    """How the forward chain of a build runs at (H, B): ``cluster`` CTAs a
+    cluster, ``rows`` batch rows a cluster, ``clusters`` clusters,
+    ``splits`` threads sharing a tile's depth (float32; 1 in bf16),
+    ``stages`` chunks in the streamed ring (0 where the slice is resident),
+    ``smem`` bytes of dynamic shared memory a CTA."""
+
+    cluster: int
+    rows: int
+    clusters: int
+    splits: int
+    stages: int
+    smem: int
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def fwd_chain_smem(H: int, C: int, rows: int, splits: int, stages: int, elem: int) -> int:
+    """``fwd_chain_smem`` of csrc/lstm_cell_fwd.cuh, in bytes: the slice (or
+    the ``stages`` chunks of its ring), the h tiles (two in bf16, one in
+    float32) and, in float32, the partials of splits 1 and up and the xp of
+    the step to come (TILE_STRIDE floats a tile of 8 rows)."""
+    Hc = H // C
+    if elem == 2:
+        return 4 * Hc * H * 2 + 2 * _round16(rows) * (H + H_PAD) * 2
+    slice_ = stages * FWD_CHUNK * 4 * Hc * 4 if stages else 4 * Hc * H * 4
+    return (slice_ + _round8(rows) * H * 4
+            + splits * TILE_STRIDE * Hc * (_round8(rows) // 8) * 4)
+
+
+def _fwd_elem(build: str) -> int:
+    if build not in FWD_BUILDS:
+        raise ValueError(f"{build!r} is not one of {FWD_BUILDS}")
+    return 4 if build == "Q" else 2
+
+
+def fwd_cluster(build: str, H: int) -> tuple[int, bool]:
+    """(cluster size, whether the slice streams) of a forward chain build at
+    width H; raises LaunchLimitError where no cluster holds it."""
+    elem = _fwd_elem(build)
+    multiple = 64 if elem == 4 else 128
+    if H < multiple or H % multiple:
+        why = ("four units a 16-byte copy at 16 CTAs" if elem == 4
+               else "units in groups of 16 on the tensor cores")
+        raise LaunchLimitError(f"kernel {build}'s chain takes H a multiple of {multiple} "
+                               f"({why}), got H={H}")
+    for C in CLUSTER_SIZES:
+        Hc = H // C
+        if H % C == 0 and Hc % (4 if elem == 4 else 16) == 0 and fwd_chain_smem(
+                H, C, 1, 1, 0, elem) <= SMEM_PER_BLOCK:
+            return C, False
+    if elem == 4 and CHAIN_THREADS % (H // 16):
+        raise LaunchLimitError(f"kernel {build}'s chain streams its slice in clusters of 16 at "
+                               f"H a divisor of 8192 (its threads split a chunk's rows), got H={H}")
+    if elem == 4 and fwd_chain_smem(H, 16, 1, 1, 2, elem) <= SMEM_PER_BLOCK:
+        return CLUSTER_SIZES[-1], True
+    need = fwd_chain_smem(H, 16, 1, 1, 2 if elem == 4 else 0, elem)
+    raise LaunchLimitError(
+        f"kernel {build}'s chain needs {need:,} bytes of shared memory a CTA at H={H} in "
+        f"clusters of 16, more than the {SMEM_PER_BLOCK:,} a block may have")
+
+
+def fwd_plan(build: str, H: int, B: int, max_clusters: int | None = None) -> FwdPlan:
+    """The forward chain's plan of build ``build`` ("Q", "Q_bf16" or "Y")
+    at width H and batch B, with ``max_clusters`` clusters of its size
+    active at once (default: the H100's, ``MAX_CLUSTERS_H100``). Raises
+    LaunchLimitError where the chain does not launch."""
+    C, stream = fwd_cluster(build, H)
+    elem = _fwd_elem(build)
+    Hc = H // C
+    M = max_clusters or MAX_CLUSTERS_H100[C]
+    least = 2 if stream else 0  # the ring's fewest chunks
+    # the most rows a cluster takes: at most three m-tiles of 16 on the
+    # tensor cores, each warp at most FWD_MAX_ITEMS (m-tile, 8 units) items,
+    # or one tile of 8 rows a thread of split 0; one split beside the slice
+    if elem == 2:
+        most = min(FWD_MAX_ROWS_MMA, FWD_MAX_ITEMS * CHAIN_WARPS // (Hc // 8) * 16)
+    else:
+        most = CHAIN_THREADS // Hc * 8
+    while fwd_chain_smem(H, C, most, 1, least, elem) > SMEM_PER_BLOCK:
+        most -= 1
+    rows = max(1, min(-(-B // M), most))
+    splits = 1
+    if elem == 4:
+        tiles = Hc * _round8(rows) // 8
+        while (splits < MAX_SPLITS and tiles * 2 * splits <= CHAIN_THREADS
+               and fwd_chain_smem(H, C, rows, 2 * splits, least, elem) <= SMEM_PER_BLOCK):
+            splits *= 2
+    stages = least
+    while stream and stages < 8 and fwd_chain_smem(H, C, rows, splits, stages + 1,
+                                                   elem) <= SMEM_PER_BLOCK:
+        stages += 1
+    return FwdPlan(C, rows, -(-B // rows), splits, stages,
+                   fwd_chain_smem(H, C, rows, splits, stages, elem))
+
+
+def fwd_limit(build: str, H: int) -> str | None:
+    """Why forward chain build ``build`` cannot launch at width H, or None."""
+    try:
+        fwd_cluster(build, H)
+    except LaunchLimitError as e:
+        return str(e)
+    return None
+
+
 def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> list[str]:
     """The limits the route's float32 builds hit: ``layers`` is (D_in, dx
     wanted) per encoder layer, ``heads`` (D, n_layers) per decode head."""
@@ -334,7 +471,7 @@ def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> 
             checks = [("L", smem_bytes("L", H, d)) for d, _dx in layers]
             checks += [("N", 0)] if layers else []
         else:
-            checks = [("Q", smem_bytes("Q", H)), ("R", 0)] if layers else []
+            checks = [("Q", 0), ("R", 0)] if layers else []
         # S per cell: the head's input for its first layer, h for the others
         checks += [("S", smem_bytes("S", H, max(d, H) if n > 1 else d)) for d, n in heads]
     else:
@@ -594,7 +731,7 @@ def bf16_layer_mode(cell_type: str, B: int, D: int, H: int, on_card: bool = Fals
             builds = ([("L_bf16", smem_bytes("L", H, D)), ("N_bf16", 0)] if lstm else
                       [(k + "_bf16", smem_bytes(k, H, D, dx=dx)) for k in ("A", "C")])
         else:
-            builds = ([("Q_bf16", smem_bytes("Q", H)), ("R_bf16", 0)] if lstm else
+            builds = ([("Q_bf16", 0), ("R_bf16", 0)] if lstm else
                       [(k, smem_bytes(k, H)) for k in ("X", "G_bf16")])
             builds = builds if mode != "scan" else []
         _require_bf16(LAYER_ROWS[cell_type][mode], builds, H)

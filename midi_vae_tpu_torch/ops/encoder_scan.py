@@ -20,6 +20,9 @@ state (h; h and c) rounded to the compute dtype after every step
 (``gru_layer.gru_step_xp``, ``lstm_layer.lstm_step``); in float32 they are
 the JAX references exactly.
 
+Y is the bf16 build of kernel Q's forward chain on thread-block clusters
+(``csrc/lstm_cell_fwd.cuh``; its plan ``lstm_layer.fwd_chain_plan``).
+
 ``gru_encoder_scan`` and ``lstm_encoder_scan`` are whole-layer
 ``RematStep``s: the forward launches the kernel on CUDA tensors (bfloat16
 only, the one dtype the JAX package runs them in) and the plain version on
@@ -75,8 +78,9 @@ def lstm_encoder_scan_reference(xp, h0, c0, u, activation="tanh", return_sequenc
 def _kernel(name):
     lib = _build.load(name)
     fn = getattr(lib, f"mvt_{name}")
-    n_ptrs = 4 if name == "gru_encoder_scan" else 5
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    # X: xp, h0, u, out; Y: xp, h0, c0, u, out and its plan's cluster, rows
+    n_ptrs, n_ints = (4, 5) if name == "gru_encoder_scan" else (5, 7)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -90,12 +94,17 @@ def _launch(name, letter, xp, states, u, activation, return_sequences):
                    xp.device, (torch.bfloat16,))
     if T < 1 or B < 1:
         raise ValueError(f"kernel {letter} takes T >= 1 and B >= 1; got T={T} B={B}")
-    _layout.require(letter, H, _layout.smem_bytes(letter, H))
+    if letter == "Y":
+        plan = lstm_layer.fwd_chain_plan("Y", H, B)
+        chain = (plan.cluster, plan.rows)
+    else:
+        _layout.require(letter, H, _layout.smem_bytes(letter, H))
+        chain = ()
     out = torch.empty((T, B, H) if return_sequences else (B, H), device=xp.device,
                       dtype=torch.bfloat16)
     lib, fn = _kernel(name)
     rc = fn(_ptr(xp), *map(_ptr, states), _ptr(u), _ptr(out), T, B, H,
-            CELL_ACTIVATIONS[activation], int(return_sequences), _stream(xp))
+            CELL_ACTIVATIONS[activation], int(return_sequences), *chain, _stream(xp))
     _build.check(lib, rc, f"{name} launch")
     return out
 

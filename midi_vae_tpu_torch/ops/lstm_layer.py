@@ -20,9 +20,11 @@ for dW, db and dU. The wide route (above 256) trains a layer over a
 precomputed x-projection instead: ``lstm_layer_train(xp, h0, c0, u)``,
 counterpart of ``fused_train.py::lstm_layer_train`` (:1505-1578), whose
 forward is kernel Q (``csrc/lstm_layer_xp_fwd.cu``, replacing
-``_lstm_fwd_kernel`` in ``_lstm_fwd_pallas`` and ``_lstm_fwd_wide_pallas``)
-and whose backward is kernel R (``csrc/lstm_layer_xp_bwd.cu``, replacing
-``_lstm_bwd_kernel`` and ``_lstm_bwd_wide_kernel``) then kernel W for dU, as
+``_lstm_fwd_kernel`` in ``_lstm_fwd_pallas`` and ``_lstm_fwd_wide_pallas``;
+a serial chain on thread-block clusters, ``csrc/lstm_cell_fwd.cuh``, its
+plan ``fwd_chain_plan``) and whose backward is kernel R
+(``csrc/lstm_layer_xp_bwd.cu``, replacing ``_lstm_bwd_kernel`` and
+``_lstm_bwd_wide_kernel``) then kernel W for dU, as
 ``_lstm_wide_weight_grads`` does in XLA. The caller computes xp = x @ W + b
 with torch.matmul, so dx, dW and db come from autograd. The backward
 kernels hard-code tanh's derivative, as the TPU kernels do
@@ -319,9 +321,8 @@ _CHAIN_INTS = [ctypes.c_int] * 9 + [ctypes.c_void_p]  # T, B, H, the plan, the s
 
 @functools.cache
 def _phases(lib_name):
-    """(library, {"gates" | "chain" | "dx": {dtype: entry}}, the entry of
-    cudaOccupancyMaxActiveClusters) of kernel N's library ("lstm_layer_bwd")
-    or R's ("lstm_layer_xp_bwd")."""
+    """(library, {"gates" | "chain" | "dx": {dtype: entry}}) of kernel N's
+    library ("lstm_layer_bwd") or R's ("lstm_layer_xp_bwd")."""
     entry = f"mvt_{lib_name}"
     lib, gates = _build.load_builds(lib_name, f"{entry}_gates", _GATES_ARGS[lib_name])
     chain = _build.load_builds(lib_name, f"{entry}_chain", [ctypes.c_void_p] * 9 + _CHAIN_INTS)[1]
@@ -331,16 +332,16 @@ def _phases(lib_name):
                                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])[1]
     else:  # R's bf16 chain also writes the rounded dxp
         chain[torch.bfloat16].argtypes = [ctypes.c_void_p] * 10 + _CHAIN_INTS
-    clusters = _build.load_entry(lib_name, f"{entry}_max_clusters",
-                                 [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])[1]
-    return lib, fns, clusters
+    return lib, fns
 
 
 @functools.cache
 def _max_clusters(lib_name, bf16, cluster, stream):
-    """The card's cudaOccupancyMaxActiveClusters of the chain (one CTA an
-    SM) at ``cluster`` CTAs a cluster."""
-    lib, _, fn = _phases(lib_name)
+    """The card's cudaOccupancyMaxActiveClusters of the chain in library
+    ``lib_name`` (N's and R's backward chains, Q's and Y's forward chain;
+    one CTA an SM) at ``cluster`` CTAs a cluster."""
+    lib, fn = _build.load_entry(lib_name, f"mvt_{lib_name}_max_clusters",
+                                [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
     out = ctypes.c_int(0)
     _build.check(lib, fn(int(bf16), cluster, int(stream), ctypes.byref(out)),
                  f"{lib_name} cudaOccupancyMaxActiveClusters")
@@ -368,7 +369,7 @@ def _gates(lib_name, fn, x, hseq, h0, u, w=None, b=None, ut=None):
     if x.dtype == torch.bfloat16:
         u = u.t().contiguous() if ut is None else ut
         w = w.t().contiguous() if w is not None else None
-    lib, fns, _ = _phases(lib_name)
+    lib, fns = _phases(lib_name)
     if w is None:
         rc = fns["gates"][x.dtype](_ptr(x), _ptr(hseq), _ptr(h0), _ptr(u), _ptr(act), T, B, H,
                                    _stream(x))
@@ -398,7 +399,7 @@ def _chain(letter, fn, act, cseq, c0, d_seq, d_final, u, need_da=True, ut=None):
     elif ut is None:
         ut = u.t().contiguous()  # the float32 build's copy their rows of U^T
     lib_name = "lstm_layer_bwd" if letter == "N" else "lstm_layer_xp_bwd"
-    lib, fns, _ = _phases(lib_name)
+    lib, fns = _phases(lib_name)
     outs = (_opt(da), _ptr(dxp)) if rounded else (_ptr(da),)
     rc = fns["chain"][dtype](_ptr(act), _ptr(cseq), _ptr(c0), _opt(d_seq), _opt(d_final),
                              _ptr(ut), *outs, _ptr(dh0), _ptr(dc0), T, B, H, plan.cluster,
@@ -471,7 +472,7 @@ def lstm_layer_bwd_dx(da, w):
         return lstm_bwd_dx_reference(da, w)
     dx = torch.empty(T, B, D, device=da.device, dtype=w.dtype)
     wt = w.t().contiguous()  # (4H, D): the product's B operand row by row
-    lib, fns, _ = _phases("lstm_layer_bwd")
+    lib, fns = _phases("lstm_layer_bwd")
     rc = fns["dx"][w.dtype](_ptr(da), _ptr(wt), _ptr(dx), T, B, D, G // 4, _stream(da))
     _build.check(lib, rc, "lstm_layer_bwd dx launch")
     _build.count_launch(lstm_layer_bwd_dx, w.dtype)
@@ -586,27 +587,36 @@ def _check_xp(xp, h0, c0, u, what, **opt) -> tuple[int, int, int, bool]:
     return T, B, H, on_card
 
 
+def fwd_chain_plan(build, H, B):
+    """The forward chain's cluster plan (``_layout.fwd_plan``) of build
+    ``build`` ("Q", "Q_bf16" or "Y") at (H, B), at the card's active
+    clusters; raises LaunchLimitError where it does not launch."""
+    C, stream = _layout.fwd_cluster(build, H)
+    lib_name = "lstm_encoder_scan" if build == "Y" else "lstm_layer_xp_fwd"
+    return _layout.fwd_plan(build, H, B, _max_clusters(lib_name, build != "Q", C, stream))
+
+
 @functools.cache
 def _xp_fwd_kernel():
     return _build.load_builds("lstm_layer_xp_fwd", "mvt_lstm_layer_xp_fwd",
-                              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def lstm_layer_xp(xp, h0, c0, u):
     """The tanh LSTM layer forward over xp (T, B, 4H) time-major, every
     operand float32 or every one bfloat16: the (T, B, H) h and c sequences
     in their dtype. CPU tensors run ``lstm_layer_xp_reference``; CUDA
-    tensors launch kernel Q's build of their dtype."""
+    tensors launch kernel Q's build of their dtype on clusters
+    (``fwd_chain_plan``)."""
     T, B, H, on_card = _check_xp(xp, h0, c0, u, "lstm_layer_xp")
     if not on_card:
         return lstm_layer_xp_reference(xp, h0, c0, u)
-    build = _bf16_build("Q", xp.dtype)
-    _layout.require(build, H, _layout.smem_bytes(build, H))
+    plan = fwd_chain_plan(_bf16_build("Q", xp.dtype), H, B)
     kw = {"device": xp.device, "dtype": xp.dtype}
     hseq, cseq = torch.empty(T, B, H, **kw), torch.empty(T, B, H, **kw)
     lib, fns = _xp_fwd_kernel()
     rc = fns[xp.dtype](_ptr(xp), _ptr(h0), _ptr(c0), _ptr(u), _ptr(hseq), _ptr(cseq), T, B, H,
-                       _stream(xp))
+                       plan.cluster, plan.rows, plan.splits, plan.stages, _stream(xp))
     _build.check(lib, rc, "lstm_layer_xp_fwd launch")
     _build.count_launch(lstm_layer_xp, xp.dtype)
     return hseq, cseq

@@ -12,8 +12,8 @@ around work that ends in a synchronize), note-steps/s (B x 64 output steps
 per step; windows/s for a judge), and from a torch.profiler window of STEPS
 steps the device time per kernel name, per kernel of the port (A, C, D, E,
 F, G, the wide D and E, L, N's and R's phases, Q, S, S xp, T, T xp, X, Y,
-W; the bf16 builds of A, C, D, E, G, the wide D and E, L, the phases, Q, S,
-T and W apart) and for
+W; the bf16 builds of A, C, D, E, G, the wide D and E, L, the phases, S, T
+and W apart, Q bf16 and Y together) and for
 everything else, per autograd node of the backward, and the device's idle
 share.
 
@@ -44,7 +44,10 @@ PORT_KERNELS = {
     "gru_decode_train_wide_kernel": "D wide gru_decode_train_wide",
     "gru_decode_bwd_wide_kernel": "E wide gru_decode_bwd_wide",
     "lstm_layer_fwd_kernel": "L lstm_layer_fwd",
-    "lstm_layer_xp_fwd_kernel": "Q lstm_layer_xp_fwd",
+    # Q's and Y's forward chain: the float32 build (Q) and the bf16 one (Q
+    # bf16 or Y: one config runs one of them)
+    "lstm_fwd_chain_kernel": "Q lstm_fwd_chain",
+    "lstm_fwd_chain_mma_kernel": "Q/Y bf16 lstm_fwd_chain_mma",
     # N's and R's phases (one config runs N or R, not both)
     "lstm_bwd_gates_kernel": "N/R gates lstm_bwd_gates",
     "lstm_bwd_gates_mma_kernel": "N/R gates bf16 lstm_bwd_gates_mma",
@@ -55,14 +58,13 @@ PORT_KERNELS = {
     "gru_step_kernel": "T gru_step",
     "gru_step_xp_kernel": "T xp gru_step_xp",
     "gru_encoder_scan_kernel": "X gru_encoder_scan",
-    "lstm_encoder_scan_kernel": "Y lstm_encoder_scan",
     "grad_reduce": "W grad_reduce",
 }
 # the groups whose kernels have a bf16 build, counted apart
 BF16_BUILDS = ("A gru_layer_fwd", "C gru_layer_bwd", "D gru_decode_train", "E gru_decode_bwd",
                "G gru_layer_xp_bwd", "D wide gru_decode_train_wide",
                "E wide gru_decode_bwd_wide", "L lstm_layer_fwd", "N/R chain lstm_bwd_chain",
-               "N dx lstm_bwd_dx", "Q lstm_layer_xp_fwd", "S lstm_step", "T gru_step",
+               "N dx lstm_bwd_dx", "S lstm_step", "T gru_step",
                "W grad_reduce")
 
 
