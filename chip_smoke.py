@@ -27,7 +27,13 @@ result line):
      also against their threads a block); the 8-rows builds of D and E must
      refuse H = 512 at their C entry points; each chain build's cluster
      size, whether it streams U^T, the card's
-     cudaOccupancyMaxActiveClusters and its plan at B = 256;
+     cudaOccupancyMaxActiveClusters and its plan at B = 256; the instances
+     of W (the tiles on the tensor cores, the small-I stream) and of L (the
+     x @ W pre-pass, the chain) must not spill; W's one-TF32-product
+     control is built too (csrc/grad_reduce.cu with -DMVT_W_TF32_ONE);
+  2b. W: kernel W on the paths' reductions (W_CASES) against a float64 sum
+     within W_REL_L2, two runs bit-equal, and the one-TF32-product control
+     over W_REL_L2 on the tiled cases;
   3. kernels: A and B against their plain PyTorch versions on the card, at
      the shapes the transfer path gives them with B = 256 windows, with times
      (CUDA events, median of REPS runs) and each call's bound (the larger of
@@ -70,6 +76,12 @@ result line):
  13. LSTM kernels: L and M against their plain versions at the shapes of
      Config(cell_type="LSTM")'s transfer (LSTM(256) x 2), at B = 256 with
      times, bounds and, for L, cuDNN's LSTM timed beside it, and at B = 5;
+     L's phases (the pre-pass beside torch.addmm, the chain beside cuDNN's
+     forward over xp) each against its plain version, and L's per-block
+     route (no path at these widths takes it) on the same layers; phase 17
+     holds the phases on the training layers (with c), phase 36 in bf16,
+     there beside the plain chain over xp rounded to bf16, a control that
+     must land over BF16_STEP_REL_L2;
  14. LSTM slice with the judges: the transfer CLI serves an LSTM run with
      --write-reconstruction --classifiers (LSTM judges of all three kinds):
      per song L 4 and M 3 (8 and 6 with the reconstruction) plus L 2 per
@@ -238,6 +250,7 @@ Then one JSON line with the kernels, and the final line
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -305,6 +318,13 @@ BF16 = (BF16_ATOL, BF16_REL_L2)
 BF16_LOSS_ATOL, BF16_ACC_ATOL = 1e-4, 5e-3
 BF16_GRAD_REL_L2, BF16_GRAD_REL_MAX = 2.5e-2, 5e-2
 REPS = 20
+# the plain versions' timing windows in compare() (two sets, in turns with
+# the kernel's): they take milliseconds where the kernels take tens of
+# microseconds, and vary less
+PLAIN_REPS = 10
+# a training step's timing windows, after one warm-up step: 5 steps of
+# 60-500 ms each (a step's device time is profile_train's to measure)
+STEP_REPS = 5
 B = 256
 RAGGED = 5  # rows of a batch smaller than one block's tile
 
@@ -333,8 +353,8 @@ def phase_build():
     from midi_vae_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build(_build.LIBRARIES)
-    for name in _build.LIBRARIES:
+    _build.build([*_build.LIBRARIES, *_build.VARIANTS])
+    for name in (*_build.LIBRARIES, *_build.VARIANTS):
         _build.load(name)
     secs = {k: round(v, 2) for k, v in _build.build_seconds.items()}
     print(f"[build] {time.perf_counter() - t0:.2f} s, in parallel; nvcc per library: {secs}")
@@ -345,8 +365,8 @@ def phase_build():
 
 
 def report_clusters():
-    """The cluster size of each of N's and R's chain builds and of Q's and
-    Y's forward chain builds at H = 256 and 512, whether its slice of U
+    """The cluster size of each of N's and R's chain builds and of Q's, Y's
+    and L's forward chain builds at H = 256 and 512, whether its slice of U
     streams, and the card's cudaOccupancyMaxActiveClusters at that size (one
     CTA an SM), beside the count the route chooser's plans assume off the
     card, and each build's plan at B = 256."""
@@ -368,10 +388,10 @@ def report_clusters():
                                        "plan_B256": plan._asdict()}
     fwd = {}
     for build in _layout.FWD_BUILDS:
-        lib = "lstm_encoder_scan" if build == "Y" else "lstm_layer_xp_fwd"
         for H in (256, 512):
             C, stream = _layout.fwd_cluster(build, H)
-            active = ll._max_clusters(lib, build != "Q", C, stream)
+            active = ll._max_clusters(ll._FWD_LIBRARIES[build], build not in ("Q", "L_chain"), C,
+                                      stream)
             plan = ll.fwd_chain_plan(build, H, B)
             fwd[f"{build} H={H}"] = {"cluster": C, "stream": stream, "max_active_clusters": active,
                                      "assumed": _layout.MAX_CLUSTERS_H100[C],
@@ -406,7 +426,16 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "D_wide": ("gru_decode_train", "gru_decode_train_wide_kernel", NOT_BF16),
           "E_wide": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel", NOT_BF16),
           "W": ("grad_reduce", "grad_reduce", NOT_BF16),
+          # W's instances: the tiles on the tensor cores, the small-I stream,
+          # and the one-TF32-product control build
+          "W_tc": ("grad_reduce", "grad_reduce_tc_kernel", NOT_BF16),
+          "W_small": ("grad_reduce", "grad_reduce_small_kernel", NOT_BF16),
+          "W_tf32one": ("grad_reduce_tf32one", "grad_reduce_tc_kernel", NOT_BF16),
+          # L's per-block route (its first design), its x @ W pre-pass and its
+          # chain (csrc/lstm_cell_fwd.cuh, the float32 xp of the pre-pass)
           "L": ("lstm_layer_fwd", "lstm_layer_fwd_kernel", NOT_BF16),
+          "L_xproj": ("lstm_layer_fwd", "lstm_xproj_kernel", NOT_BF16),
+          "L_chain": ("lstm_layer_fwd", "lstm_fwd_chain_kernel"),
           "M": ("lstm_decode", "lstm_decode_kernel"),
           # N's and R's phases (csrc/lstm_cell_bwd.cuh): the gate pre-pass
           # (FFMA in float32, tensor cores in bf16), the chain, N's dx pass
@@ -432,11 +461,15 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "C_bf16": ("gru_layer_bwd", "gru_layer_bwd_kernel", BF16_ONLY),
           "D_bf16": ("gru_decode_train", "gru_decode_train_kernel", BF16_ONLY),
           "E_bf16": ("gru_decode_bwd", "gru_decode_bwd_kernel", BF16_ONLY),
-          "W_bf16": ("grad_reduce", "grad_reduce_kernel", BF16_ONLY),
+          "W_bf16": ("grad_reduce", "grad_reduce", BF16_ONLY),
+          "W_tc_bf16": ("grad_reduce", "grad_reduce_tc_kernel", BF16_ONLY),
+          "W_small_bf16": ("grad_reduce", "grad_reduce_small_kernel", BF16_ONLY),
           "G_bf16": ("gru_layer_xp_bwd", "gru_layer_xp_bwd_kernel", BF16_ONLY),
           "D_wide_bf16": ("gru_decode_train", "gru_decode_train_wide_kernel", BF16_ONLY),
           "E_wide_bf16": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel", BF16_ONLY),
           "L_bf16": ("lstm_layer_fwd", "lstm_layer_fwd_kernel", BF16_ONLY),
+          "L_xproj_bf16": ("lstm_layer_fwd", "lstm_xproj_kernel", BF16_ONLY),
+          "L_chain_bf16": ("lstm_layer_fwd", "lstm_fwd_chain_mma_kernel"),
           "N_gates_bf16": ("lstm_layer_bwd", "lstm_bwd_gates_mma_kernel"),
           "N_chain_bf16": ("lstm_layer_bwd", "lstm_bwd_chain_kernel", BF16_ONLY),
           "N_dx_bf16": ("lstm_layer_bwd", "lstm_bwd_dx_kernel", BF16_ONLY),
@@ -450,6 +483,12 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "E_wide_row8_bf16": ("gru_decode_bwd", "gru_decode_bwd_wide_row8_kernel")}
 
 
+# the instances that must not spill: W's and L's of the tensor-core and
+# chain designs
+NO_SPILLS = ("W_tc", "W_small", "W_tf32one", "W_tc_bf16", "W_small_bf16", "L_xproj", "L_chain",
+             "L_xproj_bf16", "L_chain_bf16")
+
+
 def check_registers():
     """Registers and spills of every build from ptxas (largest over a
     kernel's template instances); the route chooser's table must not count
@@ -460,7 +499,7 @@ def check_registers():
     found = {}
     for letter, (lib, fn, *only) in BUILDS.items():
         entries = [v for k, v in _build.ptxas_report.get(lib, {}).items()
-                   if (f"{len(fn)}{fn}" in k or (letter == "W" and fn in k))
+                   if (f"{len(fn)}{fn}" in k or (letter in ("W", "W_bf16") and fn in k))
                    and all(o[1:] not in k if o.startswith("!") else o in k for o in only)]
         if not entries:
             raise RuntimeError(f"no ptxas report for kernel {letter} ({fn} in lib{lib}.so)")
@@ -480,6 +519,9 @@ def check_registers():
             raise RuntimeError(f"kernel {letter}: {found[letter]} does not fit {threads} threads")
     print("[build] registers (spill bytes) per thread: " + ", ".join(
         f"{k} {v['registers']} ({v['spill_bytes']})" for k, v in found.items()))
+    for letter in NO_SPILLS:
+        if found[letter]["spill_bytes"]:
+            raise RuntimeError(f"kernel {letter} spills: {found[letter]}")
     return found
 
 
@@ -529,11 +571,11 @@ def random_batch(cfg, n, seed):
     }
 
 
-def median_ms(fn):
+def median_ms(fn, reps=REPS):
     import torch
 
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -552,6 +594,10 @@ def median_ms(fn):
 # published peaks at the full 700 W power limit
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# the dense TF32 tensor-core rate: kernel W and L's pre-pass take a float32
+# product as three TF32 products (a bf16 A: two), so their bound is those
+# products at this rate (tf32_work) where it exceeds the bytes'
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -675,8 +721,8 @@ def compare(name, kernel_fn, plain_fn, limits, flops, inputs, library_fn=None,
     and the kernel's outputs written; ``library_fn``, one PyTorch call that
     computes the same function, is timed beside them."""
     errs, rels, got = _check(name, kernel_fn, plain_fn, limits)
-    plain_a, kernel_a = median_ms(plain_fn), median_ms(kernel_fn)
-    kernel_b, plain_b = median_ms(kernel_fn), median_ms(plain_fn)
+    plain_a, kernel_a = median_ms(plain_fn, PLAIN_REPS), median_ms(kernel_fn)
+    kernel_b, plain_b = median_ms(kernel_fn), median_ms(plain_fn, PLAIN_REPS)
     ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
     moved = nbytes(inputs) + nbytes(got)
     bound_ms, bound_by = bound(flops, moved, peak, flops_f32)
@@ -692,6 +738,119 @@ def compare(name, kernel_fn, plain_fn, limits, flops, inputs, library_fn=None,
             "bytes": moved, "bound_ms": bound_ms, "library_ms": library_ms, "peak_flops": peak,
             **({"flops_f32": flops_f32} if flops_f32 else {}),
             **({"rel_l2": max(rels)} if rels else {})}
+
+
+# W's reductions at the paths' shapes: (what, N rows, I, J, B's row stride
+# (J where B is whole, wider where it is a column slice of the gate grads),
+# bias sums, A's dtype, A's values)
+W_CASES = (
+    ("GRU(256) dW, notes L1: x (16384, 61)", 16384, 61, 768, 768, True, "float32", "one-hot"),
+    ("GRU(256) dU[:, :2H]: h_{t-1}, da[:, :2H]", 16384, 256, 512, 768, False, "float32", "tanh"),
+    ("GRU(256) dU[:, 2H:]: r*h, da[:, 2H:]", 16384, 256, 256, 768, False, "float32", "tanh"),
+    ("notes head dWo, db: h (16384, 256), dlogits (16384, 61)", 16384, 256, 61, 61, True,
+     "float32", "tanh"),
+    ("velocity layer dW, db: x (16384, 1)", 16384, 1, 768, 768, True, "float32", "uniform"),
+    ("instrument layer dW, db: x (1024, 16)", 1024, 16, 768, 768, True, "float32", "one-hot"),
+    ("LSTM(512) dU", 16384, 512, 2048, 2048, False, "float32", "tanh"),
+    ("LSTM judge dU, B = 512", 32768, 256, 1024, 1024, False, "float32", "tanh"),
+    ("bf16 LSTM(256) dW, db, notes L1", 16384, 61, 1024, 1024, True, "bfloat16", "one-hot"),
+    ("bf16 LSTM(256) dU", 16384, 256, 1024, 1024, False, "bfloat16", "tanh"),
+    ("bf16 velocity layer dW, db", 16384, 1, 1024, 1024, True, "bfloat16", "uniform"),
+)
+
+
+def w_variant(lib_name, a, b, out, bias_out=None):
+    """W from one of its variant libraries (``_build.VARIANTS``: the
+    one-TF32-product control), called as the wrapper calls W's build of a's
+    dtype; no path loads them."""
+    import ctypes
+
+    import torch
+
+    from midi_vae_tpu_torch.ops import _build
+    from midi_vae_tpu_torch.ops import grad_reduce as gr
+
+    entry = "mvt_grad_reduce_bf16" if a.dtype == torch.bfloat16 else "mvt_grad_reduce"
+    lib, fn = _build.load_entry(lib_name, entry,
+                                [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    (N, I), J = a.shape, b.shape[1]
+    splits = gr.splits(N, I, J, bias_out is not None)
+    ie = I + (bias_out is not None)
+    part = torch.empty(splits * ie * J, device=a.device) if splits > 1 else None
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)  # noqa: E731
+    rc = fn(ptr(a), a.stride(0), ptr(b), b.stride(0), ptr(out), out.stride(0), ptr(bias_out),
+            ptr(part), N, I, J, splits, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(lib, rc, f"{lib_name} launch")
+
+
+def phase_grad_reduce_checks():
+    """Kernel W (csrc/grad_reduce.cu) on each of W_CASES from seeded inputs,
+    against a float64 sum on the card: C and the bias sums within W_REL_L2
+    relative L2; two runs of the same reduction bit-equal (the partial sums
+    added in a fixed order, no atomics); the control: the one-TF32-product
+    build, on the float32 cases that take the tensor cores (I > 16), must
+    land over W_REL_L2. Each timed (CUDA events, median of REPS, in turns)
+    beside cuBLAS's a.t() @ b (+ b.sum(0) for the bias), and the control
+    beside them. Returns {case: relative L2s and ms}."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import grad_reduce as gr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    found = {}
+    for what, N, I, J, ldb, with_bias, dtype, kind in W_CASES:
+        if kind == "one-hot":
+            a = torch.nn.functional.one_hot(
+                torch.randint(0, I, (N,), generator=gen, device=dev), I).float()
+        elif kind == "tanh":
+            a = torch.tanh(torch.randn(N, I, generator=gen, device=dev))
+        else:
+            a = torch.rand(N, I, generator=gen, device=dev)
+        a = a.to(getattr(torch, dtype))
+        b = (1e-2 * torch.randn(N, ldb, generator=gen, device=dev))[:, ldb - J:]
+        want = a.double().t() @ b.double()
+        want_bias = b.double().sum(0)
+        out = torch.empty(I, J + 7, device=dev)[:, 7:]  # a column slice, as du[:, 2H:]
+        bias = torch.empty(J, device=dev) if with_bias else None
+
+        def run(fn=gr.grad_reduce, a=a, b=b, out=out, bias=bias):
+            fn(a, b, out, bias)
+            return out.clone(), bias.clone() if bias is not None else None
+
+        got, got_bias = run()
+        again, bias_again = run()
+        torch.cuda.synchronize()
+        errs = {"rel_l2": rel_l2(got.double(), want)}
+        if with_bias:
+            errs["bias_rel_l2"] = rel_l2(got_bias.double(), want_bias)
+        if not (torch.isfinite(got).all() and max(errs.values()) <= W_REL_L2):
+            raise RuntimeError(f"W {what}: relative L2 {errs} from the float64 sum, over "
+                               f"{W_REL_L2:.1e}")
+        if not (torch.equal(got, again) and (not with_bias or torch.equal(got_bias, bias_again))):
+            raise RuntimeError(f"W {what}: two runs of the same reduction differ")
+        af = a.float()
+        library = (lambda: (af.t() @ b, b.sum(0))) if with_bias else (lambda: af.t() @ b)
+        timed = {"kernel": lambda: gr.grad_reduce(a, b, out, bias), "cuBLAS": library}
+        if dtype == "float32" and I > gr.SMALL_I:
+            ctrl, _ = run(lambda *x: w_variant("grad_reduce_tf32one", *x))
+            torch.cuda.synchronize()
+            errs["one TF32 product rel_l2"] = rel_l2(ctrl.double(), want)
+            if not errs["one TF32 product rel_l2"] > W_REL_L2:
+                raise RuntimeError(f"W {what}: the one-TF32-product control lands "
+                                   f"{errs['one TF32 product rel_l2']:.3e} from the float64 "
+                                   f"sum, inside {W_REL_L2:.1e}")
+            timed["one TF32 product"] = lambda: w_variant("grad_reduce_tf32one", a, b, out, bias)
+        first = {k: median_ms(f) for k, f in timed.items()}
+        second = {k: median_ms(f) for k, f in reversed(timed.items())}
+        ms = {f"{k} ms": (first[k] + second[k]) / 2 for k in timed}
+        found[what] = errs | ms
+        print(f"[W] {what} ({dtype} A, splits {gr.splits(N, I, J, with_bias)}): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (limit {W_REL_L2:.1e}; the one-product control must exceed it); two runs "
+              "bit-equal; " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return found
 
 
 def phase_kernels():
@@ -902,7 +1061,8 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
 
             nw = 2 + 3 * len(h["cells"])
             out = run(f"W {call} head {k}", kernel_w, plain_w, [rel] * nw,
-                      flops=2 * n * H * D + sum(weight_grad_flops(x, hp) for x, hp, _, _ in wsets[1:]),
+                      **tf32_work(2 * n * H * D + sum(weight_grad_flops(x, hp)
+                                                      for x, hp, _, _ in wsets[1:])),
                       inputs=wsets, library_fn=library_w)
             if timed:
                 results[w_key][f"decode {call} head {k}"] = out
@@ -979,7 +1139,7 @@ def phase_train_kernels():
             wargs = (x, torch.cat([h0[None], seq[:-1]]), rh, da)
             out = run(f"W {name} dW, db, dU", lambda a=wargs: gru_weight_grads(*a),
                       lambda a=wargs: plain_weight_grads(*a), [rel] * 3,
-                      flops=weight_grad_flops(x, wargs[1]), inputs=wargs,
+                      **tf32_work(weight_grad_flops(x, wargs[1])), inputs=wargs,
                       library_fn=lambda a=wargs: cublas_weight_grads(*a))
             if timed:
                 results["grad_reduce"][f"encoder {name}"] = out
@@ -1143,25 +1303,84 @@ def cudnn_lstm(x, p, h0, c0):
     return lambda: lstm(x, (h0[None], c0[None]))
 
 
+def tf32_work(flops, products=3):
+    """compare()'s work of a product taken on the tensor cores as
+    ``products`` TF32 products: W and L's pre-pass take a float32 product as
+    three, a bf16 A's as two (W bf16's float32 sums over r * h counted as
+    two too: a lower bound still)."""
+    return {"flops": products * flops, "peak": PEAK_TF32_FLOPS}
+
+
+def l_phase_checks(run, tag, args):
+    """L's two phases (csrc/lstm_layer_fwd.cu) on the inputs ``args`` of
+    ``lstm_layer`` (x, h0, c0, w, b, u, activation, return_sequences[,
+    with_c]), each against its plain version: the pre-pass (xp = x @ W + b
+    in float32; bound: three TF32 products in float32, one bf16 product in
+    bf16; library: one torch.addmm in float32) and the chain over the plain
+    pre-pass's xp (bound: h @ U at the FFMA rate in float32, at the bf16
+    rate in bf16; library: cuDNN's LSTM over xp, w_ih = I, in float32 with
+    tanh cells: its bf16 build would take xp rounded). Returns {counter
+    name: result}."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import lstm_layer as ll
+
+    x, h0, c0, w, b, u, act, rs, *rest = args
+    with_c = bool(rest and rest[0])
+    T, rows, D = x.shape
+    G, H = w.shape[1], u.shape[0]
+    bf16 = x.dtype == torch.bfloat16
+    sfx, kind = ("_bf16", "L bf16") if bf16 else ("", "L")
+    timed = run is compare
+    with torch.no_grad():
+        xp = ll.lstm_xproj_reference(x, w, b)
+    flops = 2 * T * rows * D * G
+    found = {f"lstm_layer_xproj{sfx}": run(
+        f"{kind} pre-pass {tag} x{tuple(x.shape)}", lambda: ll.lstm_layer_xproj(x, w, b),
+        lambda: ll.lstm_xproj_reference(x, w, b), [L_H_ATOL],
+        **({"flops": flops, "peak": PEAK_BF16_FLOPS} if bf16 else tf32_work(flops)),
+        inputs=(x, w, b), library_fn=None if bf16 or not timed else (
+            lambda: torch.addmm(b, x.reshape(T * rows, D), w)))}
+    cargs = (xp, h0, c0, u, act, rs, with_c)
+    n_out = 2 if with_c else 1
+    limits = [BF16_OUT] * n_out if bf16 else [L_H_ATOL, C_ATOL][:n_out]
+    flops = 2 * T * rows * H * G
+    # cuDNN's forward over xp: weight_ih = I, bias_ih = 0 (forward only, so
+    # that it runs under inference_mode too)
+    library = (cudnn_lstm(xp, {"w": torch.eye(G, device=xp.device), "u": u,
+                               "b": torch.zeros(G, device=xp.device)}, h0, c0)
+               if timed and not bf16 and act == "tanh" else None)
+    found[f"lstm_layer_fwd_chain{sfx}"] = run(
+        f"{kind} chain {tag} xp{tuple(xp.shape)}", lambda: ll.lstm_layer_fwd_chain(*cargs),
+        lambda: ll.lstm_fwd_chain_reference(*cargs), limits,
+        **({"flops": flops, "peak": PEAK_BF16_FLOPS} if bf16 else
+           {"flops": 0.0, "flops_f32": flops}),
+        inputs=(xp, h0, c0, u), library_fn=library)
+    return found
+
+
 def phase_lstm_kernels():
     """Kernels L and M against their plain versions at the LSTM transfer's
     shapes (Config(cell_type="LSTM"), LSTM(256) x 2: notes L1 and L2,
     instrument, velocity; the notes, velocity and instrument heads), at B =
-    256 (timed, with the bound and, for L, cuDNN's LSTM beside it) and B = 5."""
+    256 (timed, with the bound and, for L, cuDNN's LSTM beside it) and B = 5;
+    L's two phases (the pre-pass, the chain) each against its plain version,
+    and L's per-block route (which no path at these widths takes) on the
+    same layers."""
     import torch
 
     from midi_vae_tpu_torch.config import Config
     from midi_vae_tpu_torch.models.rnn import init_decoder_states
     from midi_vae_tpu_torch.models.vae import MidiVAE
     from midi_vae_tpu_torch.ops.lstm_decode import lstm_decode, lstm_decode_reference
-    from midi_vae_tpu_torch.ops.lstm_layer import lstm_layer, lstm_layer_reference
+    from midi_vae_tpu_torch.ops.lstm_layer import lstm_layer, lstm_layer_block, lstm_layer_reference
 
     cfg = Config(cell_type="LSTM")
     dev = torch.device("cuda")
     model = MidiVAE(cfg).to(dev)
     enc, dec = model.params["encoder"], model.params["decoder"]
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
-    results = {"lstm_layer_fwd": {}, "lstm_decode": {}}
+    results = {k: {} for k in ("lstm_layer_fwd", "lstm_decode", *L_PHASES)}
     for rows in (B, RAGGED):
         timed = rows == B
         run = compare if timed else check
@@ -1188,6 +1407,15 @@ def phase_lstm_kernels():
                           library_fn=library)
                 if timed:
                     results["lstm_layer_fwd"][name] = out
+                for phase, res in l_phase_checks(run, f"{name} rs={rs}", args).items():
+                    if timed:
+                        results[phase][name] = res
+                out = run(f"L block {name} x{tuple(x.shape)} rs={rs}",
+                          lambda a=args: lstm_layer_block(*a),
+                          lambda a=args: lstm_layer_reference(*a), [L_H_ATOL],
+                          flops=layer_flops(x.shape[0], rows, p["w"], p["u"]), inputs=args[:6])
+                if timed:
+                    results["lstm_layer_block"][name] = out
             z = model.encode(batch)
             new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
             for name, d, T, out_act in (
@@ -1212,7 +1440,7 @@ def phase_lstm_kernels():
                                            f"{MIN_ARGMAX_AGREEMENT}")
                 if timed:
                     results["lstm_decode"][name] = out
-    print(f"[lstm kernels] L and M also agree at B = {RAGGED}")
+    print(f"[lstm kernels] L (its phases, its per-block route) and M also agree at B = {RAGGED}")
     return results
 
 
@@ -1300,7 +1528,7 @@ def phase_slice(work, cell_type="GRU", judges=False):
     # layers per judge call, 3 calls (pitch, velocity, instrument) for the
     # original and 3 for the transferred song
     layer, decode = SERVING_KERNELS[cell_type]
-    want = {layer: (8 + (2 * 6 if judges else 0)) * len(inputs), decode: 6 * len(inputs)}
+    want = l_phases({layer: (8 + (2 * 6 if judges else 0)) * len(inputs), decode: 6 * len(inputs)})
     if launches != want:
         raise RuntimeError(f"transfer ({tag}): launch counters {launches}, expected {want}")
     print(f"[slice {tag}] transfer CLI on {len(inputs)} songs in {secs:.2f} s (build done); wrote "
@@ -1471,10 +1699,30 @@ PER_SONG_TRANSFER = {"GRU": {"gru_layer_fwd": 4, "gru_decode": 3},
                      "LSTM": {"lstm_layer_fwd": 4, "lstm_decode": 3}}
 
 
+def l_phases(want):
+    """``want`` with kernel L's phases: at the paths' widths (H = 256, 512)
+    each call of L (``lstm_layer_fwd``, which ``read_counters`` derives
+    from its phases) runs its pre-pass and its chain once; its per-block
+    route none."""
+    out = dict(want)
+    for sfx in ("", "_bf16"):
+        n = want.get(f"lstm_layer_fwd{sfx}", 0)
+        if n:
+            out[f"lstm_layer_xproj{sfx}"] = out[f"lstm_layer_fwd_chain{sfx}"] = n
+    return out
+
+
+for _table in (*PER_TRAIN_STEP.values(), *PER_EVAL_BATCH.values(), *PER_ENCODE_BATCH.values(),
+               *PER_SONG_TRANSFER.values(), PER_TF_STEP):
+    _table.update(l_phases(_table))
+
+
 # the counters of N's and R's phases (one launch each per op call; dx where
 # the layer's dx is wanted)
 BPTT_PHASES = ("lstm_layer_bwd_gates", "lstm_layer_bwd_chain", "lstm_layer_bwd_dx",
                "lstm_layer_xp_bwd_gates", "lstm_layer_xp_bwd_chain")
+# L's: the pre-pass and the chain, and its per-block route
+L_PHASES = ("lstm_layer_xproj", "lstm_layer_fwd_chain", "lstm_layer_block")
 
 
 def route_key(cfg, route):
@@ -1503,7 +1751,7 @@ def kernel_counters():
            "gru_layer_xp_fwd": gl.gru_layer_xp, "gru_layer_xp_bwd": gl.gru_layer_xp_bwd,
            "gru_decode_train_wide": gd.gru_decode_fwd_train_wide,
            "gru_decode_bwd_wide": gd.gru_decode_bwd_wide,
-           "lstm_layer_fwd": ll.lstm_layer, "lstm_decode": lstm_decode,
+           "lstm_decode": lstm_decode,
            "lstm_layer_bwd": ll.lstm_layer_bwd, "lstm_layer_xp_fwd": ll.lstm_layer_xp,
            "lstm_layer_xp_bwd": ll.lstm_layer_xp_bwd, "lstm_step": ls.lstm_cell_step_fwd,
            "lstm_layer_bwd_gates": ll.lstm_layer_bwd_gates,
@@ -1511,6 +1759,7 @@ def kernel_counters():
            "lstm_layer_bwd_dx": ll.lstm_layer_bwd_dx,
            "lstm_layer_xp_bwd_gates": ll.lstm_layer_xp_bwd_gates,
            "lstm_layer_xp_bwd_chain": ll.lstm_layer_xp_bwd_chain,
+           **{name: getattr(ll, name) for name in L_PHASES},
            "lstm_step_xp": ls.lstm_recurrent_step_fwd, "gru_step": gs.gru_cell_step_fwd,
            "gru_step_xp": gs.gru_recurrent_step_fwd,
            "gru_encoder_scan": es.gru_encoder_scan_fwd,
@@ -1520,8 +1769,8 @@ def kernel_counters():
     counters = {name: (fn, "launches") for name, fn in fns.items()}
     for name in ("gru_step", "lstm_step", "gru_layer_fwd", "gru_layer_bwd", "gru_decode_train",
                  "gru_decode_bwd", "grad_reduce", "gru_layer_xp_bwd", "gru_decode_train_wide",
-                 "gru_decode_bwd_wide", "lstm_layer_fwd", "lstm_layer_bwd", "lstm_layer_xp_fwd",
-                 "lstm_layer_xp_bwd", *BPTT_PHASES):
+                 "gru_decode_bwd_wide", "lstm_layer_bwd", "lstm_layer_xp_fwd",
+                 "lstm_layer_xp_bwd", *BPTT_PHASES, *L_PHASES):
         counters[f"{name}_bf16"] = (counters[name][0], "launches_bf16")
     counters["gru_decode_train_resid"] = (gd.gru_decode_fwd_train, "launches_resid")
     counters["gru_decode_bwd_resid"] = (gd.gru_decode_bwd, "launches_resid")
@@ -1535,9 +1784,17 @@ def reset_counters():
 
 
 def read_counters():
-    """The counters that moved (a kernel absent from the dict ran 0 times)."""
-    return {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()
-            if getattr(fn, attr)}
+    """The counters that moved (a kernel absent from the dict ran 0 times),
+    and L's calls (``lstm_layer_fwd``, ``lstm_layer_fwd_bf16``): the launches
+    of its pre-pass and of its per-block route, one of which each call of
+    ``lstm_layer`` takes."""
+    found = {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()
+             if getattr(fn, attr)}
+    for sfx in ("", "_bf16"):
+        calls = found.get(f"lstm_layer_xproj{sfx}", 0) + found.get(f"lstm_layer_block{sfx}", 0)
+        if calls:
+            found[f"lstm_layer_fwd{sfx}"] = calls
+    return found
 
 
 def expected_train_launches(cfg, key, n_train, n_test, epochs):
@@ -1707,11 +1964,10 @@ def phase_train_card_vs_cpu(smi, cfg, per_step, label):
     trainer = VAETrainer(cfg, "cuda")
     state = trainer.new_state(params)
     tb = trainer.to_device(batch)
-    for _ in range(3):
-        trainer.train_step(state, tb)
-    ms = median_ms(lambda: trainer.train_step(state, tb))
+    trainer.train_step(state, tb)
+    ms = median_ms(lambda: trainer.train_step(state, tb), STEP_REPS)
     steps = rows * cfg.output_length
-    print(f"[{label} card vs cpu] training step on the card {ms:.3f} ms (median of {REPS}, CUDA "
+    print(f"[{label} card vs cpu] training step on the card {ms:.3f} ms (median of {STEP_REPS}, CUDA "
           f"events) = {steps / ms * 1e3:.1f} note-steps/s on {smi}")
     return {"step_ms": ms, "note_steps_per_s": steps / ms * 1e3,
             "max_abs_dloss": errs["loss"], "closest_grad_to_limit": worst[0],
@@ -2007,7 +2263,8 @@ def phase_lstm_train_kernels():
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
     results = {k: {} for k in ("lstm_layer_train_fwd", "lstm_layer_bwd", "lstm_layer_xp_fwd",
                                "lstm_layer_xp_bwd", "lstm_step", "grad_reduce_lstm",
-                               "grad_reduce_lstm_wide", "lstm_fwd_bwd_vs_cudnn", *BPTT_PHASES)}
+                               "grad_reduce_lstm_wide", "lstm_fwd_bwd_vs_cudnn", *BPTT_PHASES,
+                               "lstm_layer_xproj_train", "lstm_layer_fwd_chain_train")}
     flat = lambda outs: tuple(t for t in outs if t is not None)  # noqa: E731
 
     def plain_w(x, hprev, da, with_dw):
@@ -2053,6 +2310,9 @@ def phase_lstm_train_kernels():
                       flops=layer_flops(T, rows, w, u), inputs=args[:6], library_fn=library[0])
             if timed:
                 results["lstm_layer_train_fwd"][name] = out
+            for phase, res in l_phase_checks(run, f"{name} with c", args).items():
+                if timed:
+                    results[f"{phase}_train"][name] = res
             with torch.no_grad():
                 hseq, cseq = ll.lstm_layer_reference(*args)
             g = torch.randn(hseq.shape if rs else hseq.shape[1:], generator=gen, device=dev)
@@ -2072,7 +2332,7 @@ def phase_lstm_train_kernels():
             wargs = (x, hprev, da)
             out = run(f"W LSTM {name} dW, db, dU", lambda a=wargs: lstm_weight_grads(*a),
                       lambda a=wargs: plain_w(*a, True), [rel] * 3,
-                      flops=2 * T * rows * (w.numel() + u.numel()), inputs=wargs,
+                      **tf32_work(2 * T * rows * (w.numel() + u.numel())), inputs=wargs,
                       library_fn=lambda a=wargs: cublas_w(*a, True))
             if timed:
                 results["grad_reduce_lstm"][f"encoder {name}"] = out
@@ -2158,7 +2418,7 @@ def phase_lstm_train_kernels():
             hprev = torch.cat([h0[None], hseq[:-1]])
             out = run(f"W LSTM(512) {name} dU", lambda: lstm_u_grad(hprev, da),
                       lambda: plain_w(x, hprev, da, False), [rel],
-                      flops=2 * T * rows * u.numel(), inputs=[hprev, da],
+                      **tf32_work(2 * T * rows * u.numel()), inputs=[hprev, da],
                       library_fn=lambda: cublas_w(x, hprev, da, False))
             if timed:
                 results["grad_reduce_lstm_wide"][f"encoder {name}"] = out
@@ -2225,7 +2485,7 @@ def classify_launches(kind_sizes, cell_type, epochs):
     if cell_type == "LSTM":  # N's phases; dx for layer 2 alone
         want.update({"lstm_layer_bwd_gates": 2 * steps, "lstm_layer_bwd_chain": 2 * steps,
                      "lstm_layer_bwd_dx": steps})
-    return want
+    return l_phases(want)
 
 
 def phase_judge_training(work, smi):
@@ -2376,7 +2636,7 @@ def phase_judge_training(work, smi):
                             "--device", "cuda"])
     launches = read_counters()
     judged = [line for line in buf.getvalue().splitlines() if "judge confidence" in line]
-    want = {"lstm_layer_fwd": 4 + 2 * 6, "lstm_decode": 3}
+    want = l_phases({"lstm_layer_fwd": 4 + 2 * 6, "lstm_decode": 3})
     if rc != 0 or len(judged) != 2 or launches != want:
         raise RuntimeError(f"transfer with the trained LSTM judges: rc {rc}, launches {launches} "
                            f"(expected {want}), judge lines {judged}")
@@ -3338,7 +3598,7 @@ def phase_bf16_fused_kernels():
             wide = widened(*wargs)
             out = run(f"W bf16 {name} dW, db, dU", lambda a=wargs: gru_weight_grads(*a),
                       lambda a=wargs: plain_weight_grads(*a), [(rel, W_REL_L2)] * 3,
-                      flops=weight_grad_flops(x, wargs[1]), inputs=wargs,
+                      **tf32_work(weight_grad_flops(x, wargs[1]), 2), inputs=wargs,
                       library_fn=lambda a=wide: cublas_weight_grads(*a))
             if timed:
                 results["grad_reduce_bf16"][f"encoder {name}"] = out
@@ -3430,7 +3690,8 @@ def phase_bf16_fused_kernels():
                 return (top.t() @ dl, dl.sum(0), *(t for s_ in ws for t in cublas_weight_grads(*s_)))
 
             out = run(f"W bf16 {name} head", kernel_w, plain_w, [(rel, W_REL_L2)] * (2 + 3 * n),
-                      flops=2 * T * rows * H * d + sum(weight_grad_flops(x_, hp) for x_, hp, _, _ in wsets),
+                      **tf32_work(2 * T * rows * H * d + sum(weight_grad_flops(x_, hp)
+                                                             for x_, hp, _, _ in wsets), 2),
                       inputs=[top, dl, wsets], library_fn=library_w)
             if timed:
                 results["grad_reduce_bf16"][f"decode {name}"] = out
@@ -3606,7 +3867,7 @@ def phase_bf16_wide_kernels():
             uargs = (hprev, rh, da)
             out = run(f"W bf16 {name} dU", lambda a=uargs: gru_u_grad(*a),
                       lambda a=uargs: plain_u(*a), [(rel, W_REL_L2)],
-                      flops=2 * T * rows * u.numel(), inputs=uargs,
+                      **tf32_work(2 * T * rows * u.numel(), 2), inputs=uargs,
                       library_fn=lambda a=uargs: cublas_u(a[0].float(), *a[1:]))
             if timed:
                 results["grad_reduce_wide_bf16"][f"encoder {name}"] = out
@@ -3710,8 +3971,8 @@ def phase_bf16_wide_kernels():
 
             out = run(f"W bf16 {name} head (rounded streams)", kernel_w, plain_w,
                       [(rel, W_REL_L2)] * (2 + 3 * n),
-                      flops=2 * T * rows * H * d + sum(weight_grad_flops(c[0], c[1])
-                                                       for c in wsets[True][2]),
+                      **tf32_work(2 * T * rows * H * d + sum(weight_grad_flops(c[0], c[1])
+                                                             for c in wsets[True][2]), 2),
                       inputs=list(wsets[True]), library_fn=library_w)
             if timed:
                 results["grad_reduce_wide_bf16"][f"decode {name}"] = out
@@ -3829,7 +4090,7 @@ def phase_bf16_lstm_kernels():
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
     keys = ("lstm_layer_fwd_bf16", "lstm_layer_bwd_bf16", "lstm_layer_xp_fwd_bf16",
             "lstm_layer_xp_bwd_bf16", "grad_reduce_lstm_bf16", "grad_reduce_lstm_512_bf16",
-            *(f"{k}_bf16" for k in BPTT_PHASES))
+            *(f"{k}_bf16" for k in (*BPTT_PHASES, *L_PHASES)))
     results = {k: {} for k in keys}
     found = {}
 
@@ -3867,13 +4128,18 @@ def phase_bf16_lstm_kernels():
     def two_steps(tag, kernel_fn, xp, u, rows):
         """The layer's forward on two steps from a random bf16 state: the
         kernel's h and c of both steps against the plain version's at
-        BF16_STEP, and the controls' (which must land over it)."""
+        BF16_STEP, and the controls' (which must land over it); for L, whose
+        xp is float32, also the plain chain over xp rounded to bf16 (Q's
+        input, not L's)."""
         h0 = (0.5 * torch.tanh(torch.randn(rows, u.shape[0], generator=gen, device=dev))).to(bf)
         c0 = (0.5 * torch.randn(rows, u.shape[0], generator=gen, device=dev)).to(bf)
         want = ll.lstm_layer_xp_reference(xp[:2], h0, c0, u)
         found[f"{tag} two steps (the kernel)"] = max(_check(
             f"{tag} two steps", lambda: kernel_fn(h0, c0), lambda: want, [BF16_STEP] * 2)[1])
-        for what, (hs, cs) in lstm_rounding_controls(xp[:2], h0, c0, u).items():
+        controls = lstm_rounding_controls(xp[:2], h0, c0, u)
+        if xp.dtype == torch.float32:
+            controls["xp rounded to bf16"] = ll.lstm_layer_xp_reference(xp[:2].to(bf), h0, c0, u)
+        for what, (hs, cs) in controls.items():
             found[f"{tag}: {what}, two steps"] = max(rel_l2(hs, want[0]), rel_l2(cs, want[1]))
 
     for rows in (B, RAGGED):
@@ -3906,7 +4172,15 @@ def phase_bf16_lstm_kernels():
                       lambda a=args: ll.lstm_layer_reference(*a), [BF16_OUT, BF16_OUT],
                       flops=layer_flops(T, rows, w, u), inputs=args[:6], peak=PEAK_BF16_FLOPS,
                       library_fn=library[0])
+            for phase, res in l_phase_checks(run, f"{name} with c", args).items():
+                if timed:
+                    results[phase][name] = res
+            blk = run(f"L block bf16 {name} x{tuple(x.shape)} with c",
+                      lambda a=args: ll.lstm_layer_block(*a),
+                      lambda a=args: ll.lstm_layer_reference(*a), [BF16_OUT, BF16_OUT],
+                      flops=layer_flops(T, rows, w, u), inputs=args[:6], peak=PEAK_BF16_FLOPS)
             if timed:
+                results["lstm_layer_block_bf16"][name] = blk
                 results["lstm_layer_fwd_bf16"][name] = out
                 if name == "notes_l1":
                     with torch.no_grad():
@@ -3945,7 +4219,7 @@ def phase_bf16_lstm_kernels():
             wargs = (x, hprev, da)
             out = run(f"W bf16 LSTM {name} dW, db, dU", lambda a=wargs: lstm_weight_grads(*a),
                       lambda a=wargs: plain_w(*a), [(rel, W_REL_L2)] * 3,
-                      flops=2 * T * rows * (w.numel() + u.numel()), inputs=wargs,
+                      **tf32_work(2 * T * rows * (w.numel() + u.numel()), 2), inputs=wargs,
                       library_fn=lambda a=wargs: cublas_w(*a))
             if timed:
                 results["grad_reduce_lstm_bf16"][f"encoder {name}"] = out
@@ -4031,7 +4305,8 @@ def phase_bf16_lstm_kernels():
             hprev = torch.cat([h0[None], hseq[:-1]])
             out = run(f"W bf16 LSTM(512) {name} dU from the rounded dxp",
                       lambda: lstm_u_grad(hprev, dxp.float()), lambda: plain_u(hprev, dxp),
-                      [(rel, W_REL_L2)], flops=2 * T * rows * u.numel(), inputs=[hprev, dxp],
+                      [(rel, W_REL_L2)], **tf32_work(2 * T * rows * u.numel(), 2),
+                      inputs=[hprev, dxp],
                       library_fn=lambda: hprev.reshape(T * rows, -1).float().t()
                       @ dxp.reshape(T * rows, -1).float())
             if timed:
@@ -4341,7 +4616,8 @@ def phase_residual_kernels():
                 # W's bf16 build; the rest float32
                 out = run(f"W resid {call} head {k}", lambda p=pairs: run_weight_grads(p, True),
                           lambda p=pairs: run_weight_grads(p, False), [rel] * n,
-                          flops=sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in pairs),
+                          **tf32_work(sum(2 * a.shape[0] * a.shape[1] * b.shape[1]
+                                          for a, b in pairs), 2),
                           inputs=pairs, library_fn=lambda p=pairs: cublas_pairs(p))
                 if timed:
                     results["grad_reduce_resid"][f"{call} head {k}"] = out
@@ -4406,7 +4682,7 @@ def phase_residual_kernels():
         out = run(f"W bf16 rows 7, 8 {tag} (unrounded streams)",
                   lambda p=pairs: run_weight_grads(p, True),
                   lambda p=pairs: run_weight_grads(p, False), [(rel, W_REL_L2)] * (len(pairs) + 1 + n),
-                  flops=sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in pairs),
+                  **tf32_work(sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in pairs), 2),
                   inputs=pairs, library_fn=lambda p=pairs: cublas_pairs(p))
         if timed:
             results["grad_reduce_rows78_bf16"]["instrument"] = out
@@ -4454,12 +4730,11 @@ def phase_train_step_card(smi, cfg, per_step, label):
     values = [loss.item(), *(v.item() for v in metrics.values())]
     if not (np.all(np.isfinite(values)) and all(torch.isfinite(g).all() for g in grads)):
         raise RuntimeError(f"{label}: loss {values[0]}, metrics or gradients not finite")
-    for _ in range(3):
-        trainer.train_step(state, tb)
-    ms = median_ms(lambda: trainer.train_step(state, tb))
+    trainer.train_step(state, tb)
+    ms = median_ms(lambda: trainer.train_step(state, tb), STEP_REPS)
     steps = rows * cfg.output_length
     print(f"[{label}] one step on the card: loss {values[0]:.4f}, every gradient finite, launches "
-          f"{per_step}; training step {ms:.3f} ms (median of {REPS}, CUDA events) = "
+          f"{per_step}; training step {ms:.3f} ms (median of {STEP_REPS}, CUDA events) = "
           f"{steps / ms * 1e3:.1f} note-steps/s on {smi}")
     return {"step_ms": ms, "note_steps_per_s": steps / ms * 1e3, "loss": values[0],
             "launches": launches}
@@ -4517,15 +4792,19 @@ def phase_gru_3layer_serving(work, smi):
     return launches, phase_card_vs_cpu(smi, "GRU", {"num_layers_decoder": 3})
 
 
-def phase_registers(registers, letter):
-    """ptxas's registers and spills of kernel ``letter``'s build; for N's
-    and R's ops those of each of their phases."""
+def kernel_registers(registers, letter):
+    """ptxas's registers and spills of kernel ``letter``'s build; for N's,
+    R's and L's ops those of each of their phases (L's per-block route is
+    build "L" of the route chooser)."""
     key = letter.replace(" ", "_")
-    if key in registers:
-        return registers[key]
+    aliases = {"L_block": "L", "L_block_bf16": "L_bf16"}
+    if key in aliases:
+        return registers[aliases[key]]
+    phases = {"N": ("gates", "chain", "dx"), "R": ("gates", "chain"), "L": ("xproj", "chain")}
     base, _, sfx = key.partition("_")
-    phases = ("gates", "chain", "dx") if base == "N" else ("gates", "chain")
-    return {p: registers[f"{base}_{p}{'_' + sfx if sfx else ''}"] for p in phases}
+    if base not in phases or sfx not in ("", "bf16"):
+        return registers[key]
+    return {p: registers[f"{base}_{p}{'_' + sfx if sfx else ''}"] for p in phases[base]}
 
 
 def main() -> int:
@@ -4538,6 +4817,7 @@ def main() -> int:
 
     use_exact_f32()
     registers = phase_build()
+    w_checks = phase_grad_reduce_checks()
     results = phase_kernels()
     paths = {}
     with tempfile.TemporaryDirectory() as work:
@@ -4671,7 +4951,7 @@ def main() -> int:
         residual_steps[key] = phase_train_card_vs_cpu(smi, Config(**overrides),
                                                       PER_TRAIN_STEP[key], f"{key} train")
         paths[f"step_{key}"] = residual_steps[key]["launches"]
-    print(f"[residual steps] training step ms on the card (CUDA events, median of {REPS}): "
+    print(f"[residual steps] training step ms on the card (CUDA events, median of {STEP_REPS}): "
           f"Config() {step['step_ms']:.3f} (B = {B}); " + ", ".join(
               f"{k} {v['step_ms']:.3f}" for k, v in residual_steps.items())
           + f" (bf16_128_512 at B = 128) on {smi}")
@@ -4725,9 +5005,15 @@ def main() -> int:
         # row 14: _dec_bwd2_wide_kernel, _dec_bwd1_wide_kernel
         "gru_decode_bwd_wide": ("E wide", "gru_decode_bwd.cu", "fused_train.py:1080",
                                 ["fused_train.py:1135", "fused_train.py:1176"]),
-        # rows 21 and 19: _lstm_fwdx_last_kernel, _lstm_fwdx_kernel (with c)
+        # rows 21 and 19: _lstm_fwdx_last_kernel, _lstm_fwdx_kernel (with c);
+        # its phases, each a part of those TPU kernels: the x @ W pre-pass,
+        # the chain; and its per-block route, which no path at H <= 512 takes
         "lstm_layer_fwd": ("L", "lstm_layer_fwd.cu", "fused_train.py:2992",
                            ["fused_train.py:2352"]),
+        **{f"lstm_layer_{op}{sfx}": (f"L {part}{' bf16' if sfx else ''}", "lstm_layer_fwd.cu",
+                                     "fused_train.py:2352", ["fused_train.py:2992"])
+           for op, part in (("xproj", "xproj"), ("fwd_chain", "chain"), ("block", "block"))
+           for sfx in ("", "_bf16")},
         # row 34: _decode_kernel_2layer, _decode_kernel_1layer
         "lstm_decode": ("M", "lstm_decode.cu", "fused_lstm.py:478", ["fused_lstm.py:511"]),
         # row 20: _lstm_bwdx_kernel (its weight-grad sums: W)
@@ -4843,6 +5129,8 @@ def main() -> int:
              "gru_layer_xp_fwd": [("ms_h256", "xp_h256_fwd")],
              "gru_layer_xp_bwd": [("ms_h256", "xp_h256_bwd")],
              "lstm_layer_fwd": [("ms_train_step", "lstm_layer_train_fwd")],
+             "lstm_layer_xproj": [("ms_train_step", "lstm_layer_xproj_train")],
+             "lstm_layer_fwd_chain": [("ms_train_step", "lstm_layer_fwd_chain_train")],
              "lstm_step_xp": [("ms_h512", "lstm_step_xp_512")],
              "gru_step": [("ms_h512", "gru_step_512")],
              "gru_step_xp": [("ms_h512", "gru_step_xp_512")],
@@ -4886,7 +5174,7 @@ def main() -> int:
             # outputs)
             "library_ms": sum(library) if None not in library else None,
             "calls": per_call,
-            "registers": phase_registers(registers, letter),
+            "registers": kernel_registers(registers, letter),
         }
         for key, res in extra.get(name, []):
             calls = results[res]
@@ -4907,11 +5195,33 @@ def main() -> int:
                       "train_step_per_step_cells": per_step_steps,
                       "train_step_bf16": bf16_steps, "train_step_residual": residual_steps,
                       "lstm_fwd_bwd_vs_cudnn": results["lstm_fwd_bwd_vs_cudnn"],
-                      "encoder_stack_vs_per_layer": results["encoder_route"], "power": smi,
-                      "wall_s": wall_s}))
+                      "encoder_stack_vs_per_layer": results["encoder_route"],
+                      "grad_reduce_checks": w_checks, "power": smi,
+                      "wall_s": wall_s, "phase_seconds": PHASE_SECONDS}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+# seconds each phase took, in order: printed as it ends (so that a run cut
+# at its time limit still shows where its time went) and in the result line
+PHASE_SECONDS: list[tuple[str, float]] = []
+
+
+def _timed(fn):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            PHASE_SECONDS.append((fn.__name__, time.perf_counter() - t0))
+            print(f"[time] {fn.__name__} {PHASE_SECONDS[-1][1]:.1f} s", flush=True)
+    return run
+
+
+for _name in [n for n in globals() if n.startswith("phase_")]:
+    globals()[_name] = _timed(globals()[_name])
 
 
 if __name__ == "__main__":

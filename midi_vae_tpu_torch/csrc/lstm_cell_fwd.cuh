@@ -1,6 +1,7 @@
 // Shared device code of the LSTM forward kernels over a precomputed
-// x-projection (Q: lstm_layer_xp_fwd.cu, Y: lstm_encoder_scan.cu): the
-// serial chain of one LSTM layer on thread-block clusters.
+// x-projection (Q: lstm_layer_xp_fwd.cu, Y: lstm_encoder_scan.cu, and L's
+// chain after its x @ W pre-pass: lstm_layer_fwd.cu): the serial chain of
+// one LSTM layer on thread-block clusters.
 //
 // Math (midi_vae_tpu/ops/fused_train.py::_lstm_fwd_kernel :1331-1349 and
 // fused_lstm.py::_encoder_kernel :228-249, both around _lstm_gates):
@@ -8,7 +9,7 @@
 //   c' = sig(f) c + sig(i) act(g);   h' = sig(o) act(c')
 // h' comes from the unrounded c'; h and c are rounded to the build's type
 // where the Pallas scratch holds them (a no-op in float). act is tanh for Q;
-// tanh, sigmoid or relu for Y.
+// tanh, sigmoid or relu for Y and L.
 //
 // Layout. One cluster of C CTAs (512 threads each, one an SM) owns `rows`
 // batch rows for all T steps. CTA c owns the hidden units [c Hc, (c+1) Hc),
@@ -17,7 +18,8 @@
 // the whole h_{t-1} of its rows in shared memory (in bf16 twice: h_{t-1}
 // read, h_t written). A step:
 //   P  gates (rows, 4 Hc) = h_{t-1} (rows, H) . U slice, plus xp_t's own
-//      columns (loaded one step ahead into registers);
+//      columns (loaded one step ahead: into registers in bf16, into shared
+//      memory by cp.async where xp is float);
 //   E  the cell math of the CTA's own (unit, row) pairs in registers (c
 //      carried there: float, or rounded to bf16 each step in bf16), h and c
 //      out to the sequences, h' (rounded as the build holds it) into the
@@ -40,6 +42,12 @@
 // order. h is held row-major (rows, H + kHPad); a warp owns (m-tile of 16
 // rows, group of 8 units) items and computes their four gates' n-tiles, so
 // each thread ends with i, f, g and o of the same four (unit, row) pairs.
+// L's bf16 chain reads a float xp (_lstm_fwdx_kernel adds x @ W + b to h @ U
+// unrounded): its threads copy their pairs' float xp of the step to come
+// into a shared-memory tile (rows, 4 Hc + kXsPad) with cp.async, as the
+// float owners do, since 16 more floats a thread would spill the bf16
+// chain's 128 registers; the tile takes the place of rows it would
+// otherwise hold (fwd_plan counts it).
 // The float build (lstm_fwd_chain_kernel) takes P as FFMA: h held
 // feature-major (H, rows rounded to 8), a thread of split 0 owns one unit's
 // four gates on 8 rows, and `splits` threads share each such tile's depth,
@@ -77,10 +85,14 @@ constexpr int kTileStride = 33;
 // that share a tile's depth (a power of two dividing it)
 constexpr int kFwdChunk = 64;
 constexpr int kMaxSplits = 16;
+// bf16 with a float xp: the xp tile's rows are 4 Hc + kXsPad floats, so that
+// a half-warp's 8-byte reads (8 rows of 4 unit pairs) hit 32 banks
+constexpr int kXsPad = 8;
 
-template <typename TV>
+// XT: xp's type (TV, or float for L's bf16 chain)
+template <typename TV, typename XT = TV>
 struct FwdArgs {
-  const TV* xp;  // (T, B, 4H), x @ W + b
+  const XT* xp;  // (T, B, 4H), x @ W + b
   const TV* h0;  // (B, H)
   const TV* c0;  // (B, H)
   const TV* u;   // (H, 4H)
@@ -96,11 +108,12 @@ struct FwdArgs {
 // Shared memory of a forward chain CTA, in bytes: the slice (or the
 // `stages` chunks of its ring), the h tiles (two in bf16, one in float) and,
 // in float, the partials of splits 1 and up and the xp of the step to come (each
-// kTileStride floats a tile of 8 rows). ops/_layout.py's fwd_chain_smem
-// computes the same.
+// kTileStride floats a tile of 8 rows); in bf16 with a float xp (xs), its
+// tile. ops/_layout.py's fwd_chain_smem computes the same.
 __host__ __device__ constexpr size_t fwd_chain_smem(int H, int C, int rows, int splits,
-                                                    int stages, bool mma) {
-  return mma ? (size_t)4 * (H / C) * H * 2 + (size_t)2 * round16(rows) * (H + kHPad) * 2
+                                                    int stages, bool mma, bool xs = false) {
+  return mma ? (size_t)4 * (H / C) * H * 2 + (size_t)2 * round16(rows) * (H + kHPad) * 2 +
+                   (xs ? (size_t)rows * (4 * (H / C) + kXsPad) * 4 : 0)
              : (stages ? (size_t)stages * kFwdChunk * 4 * (H / C) * 4
                        : (size_t)4 * (H / C) * H * 4) +
                    (size_t)round8(rows) * H * 4 +
@@ -150,9 +163,10 @@ __device__ __forceinline__ void ldmatrix_x4_trans(const bf16* p, unsigned& r0, u
 // ---------------------------------------------------------------------------
 
 // Grid: clusters * C CTAs of kChainThreads, cluster dims (C, 1, 1).
-template <int ACT>
+template <int ACT, typename XT>
 __global__ void __launch_bounds__(kChainThreads, 1) lstm_fwd_chain_mma_kernel(
-    const FwdArgs<bf16> a) {
+    const FwdArgs<bf16, XT> a) {
+  constexpr bool kXs = std::is_same_v<XT, float>;
   extern __shared__ __align__(16) unsigned char fwd_smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
@@ -163,9 +177,12 @@ __global__ void __launch_bounds__(kChainThreads, 1) lstm_fwd_chain_mma_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gid = lane >> 2,
             tig = lane & 3;
   // shared memory: the slice (H, 4 Hc), swizzled | two h tiles (16 mts, HP)
+  // | with a float xp, its tile (rows, XS)
   bf16* slice = reinterpret_cast<bf16*>(fwd_smem_raw);
   bf16* hbuf = slice + (size_t)G4 * H;
   const size_t hsize = (size_t)16 * mts * HP;
+  float* xs = reinterpret_cast<float*>(hbuf + 2 * hsize);
+  const int XS = G4 + kXsPad;
 
   copy_slice_u(a.u, slice, H, Hc, c);
   cp_async_commit();
@@ -180,9 +197,9 @@ __global__ void __launch_bounds__(kChainThreads, 1) lstm_fwd_chain_mma_kernel(
   // the thread's pairs: item it = warp + i kChainWarps is (m-tile it / ugs,
   // units 8 (it % ugs) ..); pair (i, half, e) is row 16 mt + gid + 8 half,
   // local unit 8 ug + 2 tig + e. Their c, and xp of the step to come as
-  // bf16 pairs of units (gate q, half)
+  // bf16 pairs of units (gate q, half); a float xp goes to xs instead
   float cst[kFwdMaxItems][4];
-  unsigned xq[kFwdMaxItems][4][2];
+  unsigned xq[kFwdMaxItems][4][kXs ? 1 : 2];
   auto pair_row = [&](int i, int half) {
     return 16 * ((warp + i * kChainWarps) / ugs) + gid + 8 * half;
   };
@@ -197,11 +214,28 @@ __global__ void __launch_bounds__(kChainThreads, 1) lstm_fwd_chain_mma_kernel(
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const bool ok = live(i, half);
-        const bf16* x = a.xp + ((size_t)t * B + row0 + pair_row(i, half)) * 4 * H + pair_unit(i);
+        const XT* x = a.xp + ((size_t)t * B + row0 + pair_row(i, half)) * 4 * H + pair_unit(i);
+        if constexpr (kXs) {
+          // the pair's 2 units of each gate, 8 bytes a copy, into its own
+          // slots: only this thread reads them, after its own wait
+          const int rl = pair_row(i, half);
+          if (warp + i * kChainWarps >= items || rl >= rows) continue;
+          float* dst = xs + (size_t)rl * XS + pair_unit(i) - c * Hc;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) xq[i][q][half] = ok ? ld_b32(x + q * H) : 0u;
+          for (int q = 0; q < 4; ++q) {
+            if (ok) {
+              cp_async8(dst + q * Hc, x + q * H);
+            } else {
+              dst[q * Hc] = dst[q * Hc + 1] = 0.0f;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) xq[i][q][half] = ok ? ld_b32(x + q * H) : 0u;
+        }
       }
     }
+    if constexpr (kXs) cp_async_commit();
   };
 #pragma unroll
   for (int i = 0; i < kFwdMaxItems; ++i) {
@@ -247,6 +281,8 @@ __global__ void __launch_bounds__(kChainThreads, 1) lstm_fwd_chain_mma_kernel(
   for (int t = 0; t < T; ++t) {
     const bf16* hc = hbuf + (size_t)(t & 1) * hsize;
     bf16* hn = hbuf + (size_t)((t & 1) ^ 1) * hsize;
+    // a float xp of step t (copied during step t - 1's barrier) has landed
+    if constexpr (kXs) cp_async_wait(0);
 #pragma unroll
     for (int i = 0; i < kFwdMaxItems; ++i) {
       const int it = warp + i * kChainWarps;
@@ -283,9 +319,13 @@ __global__ void __launch_bounds__(kChainThreads, 1) lstm_fwd_chain_mma_kernel(
           float g[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            // unit 2 tig + e's bf16 is the pair's low (e = 0) or high half
-            const unsigned x = xq[i][q][half];
-            g[q] = acc[q][2 * half + e] + __uint_as_float(e ? x & 0xffff0000u : x << 16);
+            if constexpr (kXs) {
+              g[q] = acc[q][2 * half + e] + xs[(size_t)rl * XS + q * Hc + pair_unit(i) - c * Hc + e];
+            } else {
+              // unit 2 tig + e's bf16 is the pair's low (e = 0) or high half
+              const unsigned x = xq[i][q][half];
+              g[q] = acc[q][2 * half + e] + __uint_as_float(e ? x & 0xffff0000u : x << 16);
+            }
           }
           hv[e] = lstm_pair<ACT, bf16>(g[0], g[1], g[2], g[3], cst[i][2 * half + e]);
         }
@@ -548,8 +588,8 @@ __global__ void __launch_bounds__(kChainThreads, 1) lstm_fwd_chain_kernel(
 // Host launchers (each returns a cudaError_t code)
 // ---------------------------------------------------------------------------
 
-template <typename Kernel, typename TV>
-int launch_fwd_instance(Kernel kernel, const FwdArgs<TV>& a, int cluster, size_t smem,
+template <typename Kernel, typename TV, typename XT>
+int launch_fwd_instance(Kernel kernel, const FwdArgs<TV, XT>& a, int cluster, size_t smem,
                         void* stream) {
   cudaError_t err = cluster_config(kernel, cluster, smem);
   if (err != cudaSuccess) return (int)err;
@@ -566,12 +606,14 @@ __host__ inline bool misaligned(const void* p, size_t bytes) {
 // The chain of one layer at the plan of ops/_layout.py::fwd_plan (cluster
 // size, rows a cluster, splits, streamed ring); cudaErrorInvalidValue for a
 // plan the build does not run.
-template <typename TV, int ACT>
-int launch_fwd_chain(const FwdArgs<TV>& a, int cluster, void* stream) {
+template <typename TV, int ACT, typename XT = TV>
+int launch_fwd_chain(const FwdArgs<TV, XT>& a, int cluster, void* stream) {
   constexpr bool kMma = std::is_same_v<TV, bf16>;
+  constexpr bool kXs = kMma && std::is_same_v<XT, float>;
+  static_assert(kMma || std::is_same_v<XT, float>, "the float chain reads a float xp");
   const int H = a.H;
   if (a.T < 1 || a.B < 1 || cluster < 1 || cluster > kMaxCluster || H % cluster != 0 ||
-      a.rows < 1 || a.splits < 1 || misaligned(a.u, 16) || misaligned(a.xp, 4) ||
+      a.rows < 1 || a.splits < 1 || misaligned(a.u, 16) || misaligned(a.xp, kXs ? 8 : 4) ||
       (a.hseq == nullptr && a.hlast == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -590,10 +632,10 @@ int launch_fwd_chain(const FwdArgs<TV>& a, int cluster, void* stream) {
       return (int)cudaErrorInvalidValue;
     }
   }
-  const size_t smem = fwd_chain_smem(H, cluster, a.rows, a.splits, a.stages, kMma);
+  const size_t smem = fwd_chain_smem(H, cluster, a.rows, a.splits, a.stages, kMma, kXs);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   if constexpr (kMma) {
-    return launch_fwd_instance(lstm_fwd_chain_mma_kernel<ACT>, a, cluster, smem, stream);
+    return launch_fwd_instance(lstm_fwd_chain_mma_kernel<ACT, XT>, a, cluster, smem, stream);
   } else {
     if (a.stages != 0) {
       return launch_fwd_instance(lstm_fwd_chain_kernel<ACT, true>, a, cluster, smem, stream);
@@ -604,11 +646,11 @@ int launch_fwd_chain(const FwdArgs<TV>& a, int cluster, void* stream) {
 
 // cudaOccupancyMaxActiveClusters of the chain's build (the resident or the
 // streamed slice) at `cluster` CTAs a cluster (one CTA an SM)
-template <typename TV, int ACT>
+template <typename TV, int ACT, typename XT = TV>
 int fwd_max_clusters(int cluster, int stream_slice, int* out) {
   if constexpr (std::is_same_v<TV, bf16>) {
     if (stream_slice) return (int)cudaErrorInvalidValue;
-    return max_active_clusters(lstm_fwd_chain_mma_kernel<ACT>, cluster, out);
+    return max_active_clusters(lstm_fwd_chain_mma_kernel<ACT, XT>, cluster, out);
   } else {
     if (stream_slice) return max_active_clusters(lstm_fwd_chain_kernel<ACT, true>, cluster, out);
     return max_active_clusters(lstm_fwd_chain_kernel<ACT, false>, cluster, out);

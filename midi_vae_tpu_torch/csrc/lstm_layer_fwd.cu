@@ -1,39 +1,48 @@
-// Kernel L: one whole LSTM layer forward, x @ W computed inside the kernel.
+// Kernel L: one whole LSTM layer forward with the x-projection, in two
+// phases on the card.
 //
 // Replaces the TPU kernels midi_vae_tpu/ops/fused_train.py::
 // _lstm_fwdx_kernel (:2352, through _lstm_fwdx_pallas: the (T, B, H) h
 // sequence and, for the training backward (kernel N, lstm_layer_bwd.cu), the
 // (T, B, H) c sequence as its residual) and ::_lstm_fwdx_last_kernel (:2992,
 // through _lstm_fwdx_last_pallas: the final h only), reached through
-// lstm_layer_train_x and lstm_layer_infer_x. One kernel covers all three with
-// the emit_seq flag and a c output that may be null (serving passes null).
-// The LSTM twin of kernel A (gru_layer_fwd.cu).
+// lstm_layer_train_x and lstm_layer_infer_x.
 //
-// Design: the TPU walks time with its sequential grid and keeps W, U, b in
-// VMEM. Here one block owns kRows = 8 batch rows and loops over all T steps
-// itself; h (double-buffered) and c for its rows live in shared memory (see
-// lstm_common.cuh). W, U and b stay in global memory and are re-read from L2
-// at every step (U alone is 1 MiB at H = 256). Per step: the x_t tile, a
-// barrier, then one pass over x_t @ W and h @ U for the four gates, and the
-// cell update, ending with a barrier: two barriers a step.
+// Design. Inside a step the TPU kernel computes xp = x_t @ W + b (:2368)
+// before _lstm_gates adds h @ U; x_t @ W does not depend on h, so it leaves
+// the serial chain:
+//   1. the pre-pass (mvt_lstm_layer_xproj): xp (T B, 4H) = x @ W + b over
+//      all T B rows at once, stored float32, on the tensor cores
+//      (gemm_tc.cuh): float32 operands through the three-product TF32
+//      split, bf16 operands as one TF32 product each (a bf16 value is exact
+//      in TF32: the bf16 products, summed in float, as _dot's
+//      preferred_element_type; the velocity layer's cast_x, D < 8, widens x
+//      and W to float32 and gives the same products, with K padded with
+//      zeros); the bias added in float (b_ref[:].astype(f32), :2379);
+//   2. the chain (mvt_lstm_layer_fwd_chain): kernels Q's and Y's forward
+//      chain on thread-block clusters (lstm_cell_fwd.cuh has the design and
+//      what bounds it) over that xp, for every cell activation (tanh,
+//      sigmoid, relu), emitting the h sequence, the c sequence (training)
+//      or only the final h (emit_seq = 0: row 21 and serving). The bf16
+//      build reads the float xp, so x @ W + b enters the gates unrounded as
+//      in _lstm_fwdx_kernel, and carries h and c rounded to bf16 where the
+//      Pallas kernel keeps them in its bf16 scratch (:2398-2399).
+// What bounds the pre-pass is writing xp (64 MiB at T 64, B 256, H 256);
+// the chain, its T steps.
 //
-// What bounds it: the serial chain of T steps, each one an L2 read of W and
-// U by every block. At B = 256 the grid is 32 blocks of H = 256 threads, so
-// most SMs idle; each weight loaded feeds kRows FMAs.
-//
-// A bf16 build (mvt_lstm_layer_fwd_bf16) runs _lstm_fwdx_kernel in a bf16
-// model (row 19 in bf16, the encoder's layers of the soak's lstm_bf16): x,
-// h0, c0, W, b and U in bf16, each widened to float as it is loaded, so
-// x @ W + b and h @ U are bf16 products summed in float (_dot's
-// preferred_element_type, b widened :2379; the velocity layer's cast_x,
-// x and W widened to float, gives the same products); h' comes from the
-// unrounded c', and h and c are rounded to bf16 where the Pallas kernel keeps
-// them in its bf16 scratch (:2398-2399) and stores both sequences. The
-// training forward only emits the sequences; serving stays float.
+// The first design stays as a named route for widths the chain does not
+// run (H not a multiple of 64 in float32, or of 128 in bf16;
+// ops/_layout.py::lstm_fwd_route picks it, never after a failed launch):
+// mvt_lstm_layer_fwd, one block of kRows = 8 batch rows and H threads for
+// all T steps, h (double-buffered) and c in shared memory (lstm_common.cuh),
+// W, U and b re-read from L2 at every step, x_t @ W and h @ U as FFMA; in
+// bf16 every operand widened as it is loaded. It is bound by its serial
+// steps, each an L2 read of W and U by each of B / 8 blocks.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (midi_vae_tpu_torch/ops/_build.py).
-#include "lstm_common.cuh"
+#include "gemm_tc.cuh"
+#include "lstm_cell_fwd.cuh"
 
 namespace mvt {
 
@@ -107,10 +116,133 @@ int run(const TV* x, const TV* h0, const TV* c0, const TV* w, const TV* b,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The pre-pass: xp (M, N) = x (M, K) @ W (K, N) + b, float32 out
+// ---------------------------------------------------------------------------
+
+constexpr int kXprojBM = 128;
+
+template <typename TV>
+__global__ void __launch_bounds__(tc::kThreads) lstm_xproj_kernel(
+    const TV* __restrict__ x, const TV* __restrict__ w, const TV* __restrict__ b,
+    float* __restrict__ xp, int M, int K, int N, int a_vec, int b_vec) {
+  using G = tc::Gemm<false, TV, TV, kXprojBM,
+                     std::is_same_v<TV, bf16> ? tc::kOne : tc::kThree>;
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = blockIdx.y * kXprojBM, n0 = blockIdx.x * tc::kBN;
+  typename G::Acc acc;
+  G::run(x, K, w, N, m0, M, n0, N, 0, K, a_vec, b_vec, smem, acc, nullptr);
+#pragma unroll
+  for (int nt = 0; nt < G::kNT; ++nt) {
+    const int n = n0 + G::col_of(nt, 0);  // even, and N is a multiple of 4
+    if (n >= N) continue;
+    const float b0 = to_f32(b[n]), b1 = to_f32(b[n + 1]);
+#pragma unroll
+    for (int mt = 0; mt < G::kMT; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = m0 + G::row_of(mt, 2 * half);
+        if (m < M) {
+          *reinterpret_cast<float2*>(xp + (size_t)m * N + n) =
+              make_float2(acc[mt][nt][2 * half] + b0, acc[mt][nt][2 * half + 1] + b1);
+        }
+      }
+    }
+  }
+}
+
+template <typename TV>
+int xproj(const TV* x, const TV* w, const TV* b, float* xp, int M, int K, int N,
+          void* stream) {
+  using G = tc::Gemm<false, TV, TV, kXprojBM,
+                     std::is_same_v<TV, bf16> ? tc::kOne : tc::kThree>;
+  if (M < 1 || K < 1 || N < 4 || N % 4 != 0 ||
+      (reinterpret_cast<size_t>(xp) & 7) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = lstm_xproj_kernel<TV>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)G::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte copies of float rows that are 16-byte multiples (bf16: staged)
+  const bool f32 = std::is_same_v<TV, float>;
+  const int a_vec = f32 && K % 4 == 0 && (reinterpret_cast<size_t>(x) & 15) == 0;
+  const int b_vec = f32 && (reinterpret_cast<size_t>(w) & 15) == 0;
+  const dim3 grid(N / tc::kBN + (N % tc::kBN != 0), (M + kXprojBM - 1) / kXprojBM);
+  kernel<<<grid, tc::kThreads, G::kSmem, static_cast<cudaStream_t>(stream)>>>(
+      x, w, b, xp, M, K, N, a_vec, b_vec);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The chain over xp (float32 in both builds)
+// ---------------------------------------------------------------------------
+
+template <typename TV>
+int chain(const float* xp, const TV* h0, const TV* c0, const TV* u, TV* hseq, TV* cseq,
+          TV* hlast, int T, int B, int H, int act, int cluster, int rows, int splits, int stages,
+          void* stream) {
+  const FwdArgs<TV, float> a{xp, h0, c0, u, hseq, cseq, hlast, T, B, H, rows, splits, stages};
+  if ((hseq == nullptr) == (hlast == nullptr) || (cseq != nullptr && hseq == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (act) {
+    case kTanh: return launch_fwd_chain<TV, kTanh, float>(a, cluster, stream);
+    case kSigmoid: return launch_fwd_chain<TV, kSigmoid, float>(a, cluster, stream);
+    case kRelu: return launch_fwd_chain<TV, kRelu, float>(a, cluster, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace mvt
 
-// cseq (T, B, H) may be null (c not emitted); it is written only with
-// emit_seq.
+// The pre-pass: x (M, K), w (K, N), b (N,) contiguous, xp (M, N) float32;
+// M = T B, K = D, N = 4H.
+extern "C" int mvt_lstm_layer_xproj(const float* x, const float* w, const float* b, float* xp,
+                                    int M, int K, int N, void* stream) {
+  return mvt::xproj(x, w, b, xp, M, K, N, stream);
+}
+
+// the bf16 build: x, w, b bf16, xp float32
+extern "C" int mvt_lstm_layer_xproj_bf16(const mvt::bf16* x, const mvt::bf16* w,
+                                         const mvt::bf16* b, float* xp, int M, int K, int N,
+                                         void* stream) {
+  return mvt::xproj(x, w, b, xp, M, K, N, stream);
+}
+
+// The chain: xp (T, B, 4H) float32, h0 and c0 (B, H), u (H, 4H), contiguous;
+// either hseq (T, B, H), with cseq (T, B, H) or null, or hlast (B, H) alone.
+// cluster, rows, splits and stages are the plan of ops/_layout.py::fwd_plan
+// for build "L_chain" (float32) or "L_chain_bf16".
+extern "C" int mvt_lstm_layer_fwd_chain(const float* xp, const float* h0, const float* c0,
+                                        const float* u, float* hseq, float* cseq, float* hlast,
+                                        int T, int B, int H, int act, int cluster, int rows,
+                                        int splits, int stages, void* stream) {
+  return mvt::chain(xp, h0, c0, u, hseq, cseq, hlast, T, B, H, act, cluster, rows, splits,
+                    stages, stream);
+}
+
+// the bf16 build: xp float32, every other operand and output bf16
+extern "C" int mvt_lstm_layer_fwd_chain_bf16(const float* xp, const mvt::bf16* h0,
+                                             const mvt::bf16* c0, const mvt::bf16* u,
+                                             mvt::bf16* hseq, mvt::bf16* cseq,
+                                             mvt::bf16* hlast, int T, int B, int H, int act,
+                                             int cluster, int rows, int splits, int stages,
+                                             void* stream) {
+  return mvt::chain(xp, h0, c0, u, hseq, cseq, hlast, T, B, H, act, cluster, rows, splits,
+                    stages, stream);
+}
+
+// cudaOccupancyMaxActiveClusters of the chain's build (bf16 or float, the
+// resident or the streamed slice) at `cluster` CTAs a cluster
+extern "C" int mvt_lstm_layer_fwd_max_clusters(int bf16, int cluster, int stream_slice,
+                                               int* out) {
+  return bf16 ? mvt::fwd_max_clusters<mvt::bf16, mvt::kTanh, float>(cluster, stream_slice, out)
+              : mvt::fwd_max_clusters<float, mvt::kTanh>(cluster, stream_slice, out);
+}
+
+// The per-block route: cseq (T, B, H) may be null (c not emitted); it is
+// written only with emit_seq.
 extern "C" int mvt_lstm_layer_fwd(
     const float* x, const float* h0, const float* c0, const float* w,
     const float* b, const float* u, float* out, float* cseq, int T, int B,

@@ -36,6 +36,11 @@ LIBRARIES = ("gru_layer_fwd", "gru_decode", "gru_layer_bwd", "gru_decode_train",
              "lstm_layer_fwd", "lstm_decode", "lstm_layer_bwd", "lstm_layer_xp_fwd",
              "lstm_layer_xp_bwd", "lstm_step", "gru_step", "gru_encoder_scan",
              "lstm_encoder_scan", "gru_encoder_stack_fwd", "gru_encoder_stack_bwd")
+# libraries built from another library's source with extra nvcc flags:
+# name -> (source, flags), loaded by chip_smoke.py alone (no wrapper loads
+# them): kernel W with one TF32 product instead of three, the control its
+# limit must catch
+VARIANTS = {"grad_reduce_tf32one": ("grad_reduce", ["-DMVT_W_TF32_ONE"])}
 # seconds spent in nvcc by this process, per library (chip_smoke reports it)
 build_seconds: dict[str, float] = {}
 # per library built by this process: {kernel function (mangled): {"registers",
@@ -65,8 +70,8 @@ def _stale(name: str) -> bool:
 
 
 def build(names) -> None:
-    """Build the stale libraries among ``names``, one nvcc process per
-    source, all started together."""
+    """Build the stale libraries among ``names`` (``LIBRARIES`` and
+    ``VARIANTS``), one nvcc process per library, all started together."""
     todo = [n for n in dict.fromkeys(names) if _stale(n)]
     if not todo:
         return
@@ -74,12 +79,13 @@ def build(names) -> None:
     nvcc = _nvcc()
     running = []
     for name in todo:
-        src = os.path.join(CSRC, f"{name}.cu")
+        source, flags = VARIANTS.get(name, (name, []))
+        src = os.path.join(CSRC, f"{source}.cu")
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
         # compile to a unique file and rename into place, so a concurrent
         # process never loads a half-written library
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", tmp, src]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, src, so, tmp, cmd, proc, time.perf_counter()))
     failures = []

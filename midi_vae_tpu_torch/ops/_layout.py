@@ -23,7 +23,10 @@ pre-pass, a chain on thread-block clusters and N's dx pass (the section
 chain's cluster plan (``bptt_plan``). Q and Y, the LSTM's forward over a
 precomputed x-projection, are one chain on thread-block clusters of the
 same shape (the section "The LSTM's forward over xp"); whether they launch
-is its plan (``fwd_plan``).
+is its plan (``fwd_plan``). L runs an x @ W pre-pass and then that chain
+(builds ``L_chain``, ``L_chain_bf16``); its first, per-block design (``L``,
+``L_bf16`` here) is a route of its own for widths the chain does not take
+(``lstm_fwd_route``).
 
 The training step takes one route for all its layers and heads:
 - ``"narrow"``, the GRU(256) path: A + C per encoder layer (the x-projection
@@ -346,14 +349,15 @@ def bptt_limit(build: str, H: int) -> str | None:
 # that C), bounded by what fits beside the slice.
 # ---------------------------------------------------------------------------
 
-FWD_BUILDS = ("Q", "Q_bf16", "Y")
+FWD_BUILDS = ("Q", "Q_bf16", "Y", "L_chain", "L_chain_bf16")
 FWD_MAX_ITEMS = 2   # kFwdMaxItems: (m-tile, unit group) items a warp owns
 FWD_MAX_ROWS_MMA = 48  # kFwdMaxRowsMma: three m-tiles of 16
 H_PAD = 8           # kHPad: the bf16 h tile's rows are H + H_PAD values
 TILE_STRIDE = 33    # kTileStride: floats a float32 tile's partials (or xp) take
 FWD_CHUNK = 64      # kFwdChunk: depth rows of a streamed chunk of Q's float32 slice
 MAX_SPLITS = 16     # the float product's depth splits: powers of two up to 16
-REGISTERS.update({"Q": 128, "Q_bf16": 128, "Y": 128})
+XS_PAD = 8          # kXsPad: L_chain_bf16's float xp tile rows are 4 Hc + XS_PAD floats
+REGISTERS.update({"Q": 128, "Q_bf16": 128, "Y": 128, "L_chain": 128, "L_chain_bf16": 128})
 
 
 class FwdPlan(NamedTuple):
@@ -375,14 +379,17 @@ def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def fwd_chain_smem(H: int, C: int, rows: int, splits: int, stages: int, elem: int) -> int:
+def fwd_chain_smem(H: int, C: int, rows: int, splits: int, stages: int, elem: int,
+                   xs: bool = False) -> int:
     """``fwd_chain_smem`` of csrc/lstm_cell_fwd.cuh, in bytes: the slice (or
     the ``stages`` chunks of its ring), the h tiles (two in bf16, one in
     float32) and, in float32, the partials of splits 1 and up and the xp of
-    the step to come (TILE_STRIDE floats a tile of 8 rows)."""
+    the step to come (TILE_STRIDE floats a tile of 8 rows); in bf16 with
+    ``xs`` (L's chain, xp in float32) the float xp tile."""
     Hc = H // C
     if elem == 2:
-        return 4 * Hc * H * 2 + 2 * _round16(rows) * (H + H_PAD) * 2
+        return (4 * Hc * H * 2 + 2 * _round16(rows) * (H + H_PAD) * 2
+                + (rows * (4 * Hc + XS_PAD) * 4 if xs else 0))
     slice_ = stages * FWD_CHUNK * 4 * Hc * 4 if stages else 4 * Hc * H * 4
     return (slice_ + _round8(rows) * H * 4
             + splits * TILE_STRIDE * Hc * (_round8(rows) // 8) * 4)
@@ -391,13 +398,13 @@ def fwd_chain_smem(H: int, C: int, rows: int, splits: int, stages: int, elem: in
 def _fwd_elem(build: str) -> int:
     if build not in FWD_BUILDS:
         raise ValueError(f"{build!r} is not one of {FWD_BUILDS}")
-    return 4 if build == "Q" else 2
+    return 4 if build in ("Q", "L_chain") else 2
 
 
 def fwd_cluster(build: str, H: int) -> tuple[int, bool]:
     """(cluster size, whether the slice streams) of a forward chain build at
     width H; raises LaunchLimitError where no cluster holds it."""
-    elem = _fwd_elem(build)
+    elem, xs = _fwd_elem(build), build == "L_chain_bf16"
     multiple = 64 if elem == 4 else 128
     if H < multiple or H % multiple:
         why = ("four units a 16-byte copy at 16 CTAs" if elem == 4
@@ -407,26 +414,26 @@ def fwd_cluster(build: str, H: int) -> tuple[int, bool]:
     for C in CLUSTER_SIZES:
         Hc = H // C
         if H % C == 0 and Hc % (4 if elem == 4 else 16) == 0 and fwd_chain_smem(
-                H, C, 1, 1, 0, elem) <= SMEM_PER_BLOCK:
+                H, C, 1, 1, 0, elem, xs) <= SMEM_PER_BLOCK:
             return C, False
     if elem == 4 and CHAIN_THREADS % (H // 16):
         raise LaunchLimitError(f"kernel {build}'s chain streams its slice in clusters of 16 at "
                                f"H a divisor of 8192 (its threads split a chunk's rows), got H={H}")
     if elem == 4 and fwd_chain_smem(H, 16, 1, 1, 2, elem) <= SMEM_PER_BLOCK:
         return CLUSTER_SIZES[-1], True
-    need = fwd_chain_smem(H, 16, 1, 1, 2 if elem == 4 else 0, elem)
+    need = fwd_chain_smem(H, 16, 1, 1, 2 if elem == 4 else 0, elem, xs)
     raise LaunchLimitError(
         f"kernel {build}'s chain needs {need:,} bytes of shared memory a CTA at H={H} in "
         f"clusters of 16, more than the {SMEM_PER_BLOCK:,} a block may have")
 
 
 def fwd_plan(build: str, H: int, B: int, max_clusters: int | None = None) -> FwdPlan:
-    """The forward chain's plan of build ``build`` ("Q", "Q_bf16" or "Y")
-    at width H and batch B, with ``max_clusters`` clusters of its size
-    active at once (default: the H100's, ``MAX_CLUSTERS_H100``). Raises
+    """The forward chain's plan of build ``build`` (``FWD_BUILDS``) at width
+    H and batch B, with ``max_clusters`` clusters of its size active at
+    once (default: the H100's, ``MAX_CLUSTERS_H100``). Raises
     LaunchLimitError where the chain does not launch."""
     C, stream = fwd_cluster(build, H)
-    elem = _fwd_elem(build)
+    elem, xs = _fwd_elem(build), build == "L_chain_bf16"
     Hc = H // C
     M = max_clusters or MAX_CLUSTERS_H100[C]
     least = 2 if stream else 0  # the ring's fewest chunks
@@ -437,7 +444,7 @@ def fwd_plan(build: str, H: int, B: int, max_clusters: int | None = None) -> Fwd
         most = min(FWD_MAX_ROWS_MMA, FWD_MAX_ITEMS * CHAIN_WARPS // (Hc // 8) * 16)
     else:
         most = CHAIN_THREADS // Hc * 8
-    while fwd_chain_smem(H, C, most, 1, least, elem) > SMEM_PER_BLOCK:
+    while fwd_chain_smem(H, C, most, 1, least, elem, xs) > SMEM_PER_BLOCK:
         most -= 1
     rows = max(1, min(-(-B // M), most))
     splits = 1
@@ -451,7 +458,7 @@ def fwd_plan(build: str, H: int, B: int, max_clusters: int | None = None) -> Fwd
                                                    elem) <= SMEM_PER_BLOCK:
         stages += 1
     return FwdPlan(C, rows, -(-B // rows), splits, stages,
-                   fwd_chain_smem(H, C, rows, splits, stages, elem))
+                   fwd_chain_smem(H, C, rows, splits, stages, elem, xs))
 
 
 def fwd_limit(build: str, H: int) -> str | None:
@@ -463,13 +470,47 @@ def fwd_limit(build: str, H: int) -> str | None:
     return None
 
 
+# ---------------------------------------------------------------------------
+# Kernel L (csrc/lstm_layer_fwd.cu): an x @ W pre-pass on the tensor cores,
+# then the forward chain above over its float32 xp (builds "L_chain",
+# "L_chain_bf16"); where the chain does not launch (H not a multiple of 64
+# in float32, or of 128 in bf16) the first design, one block of 8 rows and
+# H threads (builds "L", "L_bf16": REGISTERS and smem_bytes), as a route
+# of its own, picked here before any launch.
+# ---------------------------------------------------------------------------
+
+def lstm_fwd_route(H: int, D: int, bf16: bool = False) -> str:
+    """The route of kernel L at width H and input width D: "chain" (the
+    pre-pass and the chain) where the chain launches, else "block" where
+    the per-block build does; raises LaunchLimitError where neither does."""
+    sfx = "_bf16" if bf16 else ""
+    chain_why = fwd_limit("L_chain" + sfx, H)
+    if chain_why is None:
+        return "chain"
+    block_why = launch_limit("L" + sfx, H, smem_bytes("L", H, D))
+    if block_why is None:
+        return "block"
+    raise LaunchLimitError(f"kernel L launches at H={H} neither on its chain ({chain_why}) "
+                           f"nor per block ({block_why})")
+
+
+def l_limit(H: int, D: int, bf16: bool = False) -> str | None:
+    """Why kernel L launches on no route at (H, D), or None."""
+    try:
+        lstm_fwd_route(H, D, bf16)
+    except LaunchLimitError as e:
+        return str(e)
+    return None
+
+
 def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> list[str]:
     """The limits the route's float32 builds hit: ``layers`` is (D_in, dx
     wanted) per encoder layer, ``heads`` (D, n_layers) per decode head."""
+    whys = []
     if cell_type == "LSTM":
         if route == "narrow":
-            checks = [("L", smem_bytes("L", H, d)) for d, _dx in layers]
-            checks += [("N", 0)] if layers else []
+            whys = [l_limit(H, d) for d, _dx in layers]
+            checks = [("N", 0)] if layers else []
         else:
             checks = [("Q", 0), ("R", 0)] if layers else []
         # S per cell: the head's input for its first layer, h for the others
@@ -483,7 +524,8 @@ def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> 
             checks = []
         heads_k = ("D", "E") if route == "narrow" else ("D_wide", "E_wide")
         checks += [(k, smem_bytes(k, H, d, n)) for d, n in heads for k in heads_k]
-    return [why for k, smem in checks if (why := launch_limit(k, H, smem)) is not None]
+    whys += [launch_limit(k, H, smem) for k, smem in checks]
+    return [why for why in whys if why is not None]
 
 
 def train_route(H: int, layers, heads, on_card: bool = True, cell_type: str = "GRU") -> str:
@@ -728,7 +770,12 @@ def bf16_layer_mode(cell_type: str, B: int, D: int, H: int, on_card: bool = Fals
         mode = "scan"
     if on_card:
         if mode == "x":
-            builds = ([("L_bf16", smem_bytes("L", H, D)), ("N_bf16", 0)] if lstm else
+            why = l_limit(H, D, True) if lstm else None
+            if why is not None:
+                raise NotImplementedError(f"the JAX package runs this bf16 part through "
+                                          f"{LAYER_ROWS[cell_type][mode]}; their port build "
+                                          f"does not launch: {why}")
+            builds = ([("N_bf16", 0)] if lstm else
                       [(k + "_bf16", smem_bytes(k, H, D, dx=dx)) for k in ("A", "C")])
         else:
             builds = ([("Q_bf16", 0), ("R_bf16", 0)] if lstm else

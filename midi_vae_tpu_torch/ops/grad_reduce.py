@@ -7,7 +7,11 @@ T*B rows inside themselves (``midi_vae_tpu/ops/fused_train.py::_bwdx_kernel``
 pass after the serial kernels C, E, G, N and R, as in the JAX package's wide
 scheme (``_gru_wide_weight_grads``, ``_lstm_wide_weight_grads``,
 ``_dec_wide_weight_grads``): the CUDA kernel ``csrc/grad_reduce.cu``, whose
-source note gives the layout.
+source note gives the layout: the product on the tensor cores at float32
+accuracy (``csrc/gemm_tc.cuh``: three TF32 products of split operands, two
+for a bf16 A), the rows split over blocks (``splits``) and the partial sums
+added in a fixed order, so two runs give the same bits; A narrower than 17
+columns takes an instance that streams B.
 ``grad_reduce_reference`` is the plain PyTorch version: the CPU path and the
 kernel's oracle.
 
@@ -38,9 +42,48 @@ import torch
 
 from . import _build
 
-# aim for about two waves of blocks on the H100's 132 SMs
-_TARGET_BLOCKS = 264
-_TILE = 64
+# the small instance (I <= SMALL_I, csrc/grad_reduce.cu) streams B, 1,024
+# columns a block, in one wave of blocks on the H100's 132 SMs; the tiled
+# instance runs tiles of 64 (I <= 64) or 128 rows by 128 columns, one block
+# an SM (its registers), over whole stages of 16 rows
+SMALL_I = 16
+_SMS = 132
+_SMALL_BLOCKS = _SMS
+_SMALL_COLS = 1024
+_TILE_N = 128
+# the fewest rows a chunk of the depth takes: the small instance's (below
+# 32 the partial sums cost more than the rows: the instrument layer's dW
+# and db over 1,024 rows took 0.042 ms in 64 chunks, 0.030 in 32, on the
+# H100, tools/time_w_splits.py), the tiled instance's (16 stages of its
+# ring)
+_MIN_ROWS_SMALL = 32
+_MIN_ROWS_TILED = 256
+# the tiled instance's cost model: seconds a block takes per row of its
+# chunk (NVIDIA H100 80GB HBM3: a 128 x 128 tile's three TF32 products,
+# about 1.6 us a stage of 16 rows), and the bytes a second the partial sums
+# are written and read back at
+_ROW_S = 1e-7
+_BYTES_PER_S = 3e12
+
+
+@functools.lru_cache(maxsize=None)
+def splits(N: int, I: int, J: int, with_bias: bool = False) -> int:
+    """The chunks the N rows of a reduction C (I, J) = A^T B are split into
+    (grid z of the instance that I selects), each at least the instance's
+    fewest rows. The small instance takes one wave of blocks; the tiled one
+    the count that costs least: its waves of one block an SM times the rows
+    of a chunk, plus the partial sums it writes and adds."""
+    if I <= SMALL_I:
+        tiles = -(-J // _SMALL_COLS)
+        return max(1, min(-(-_SMALL_BLOCKS // tiles), N // _MIN_ROWS_SMALL))
+    bm = 64 if I <= 64 else 128
+    tiles = -(-I // bm) * -(-J // _TILE_N)
+    partial = 8 * (I + with_bias) * J / _BYTES_PER_S
+
+    def cost(s):
+        return -(-tiles * s // _SMS) * -(-N // s) * _ROW_S + (s > 1) * s * partial
+
+    return min(range(1, max(1, N // _MIN_ROWS_TILED) + 1), key=lambda s: (cost(s), s))
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -96,17 +139,15 @@ def grad_reduce(a, b, out, bias_out=None) -> None:
     if bias_out is not None:
         _check_matrix("bias_out", bias_out[None], a.device)
     ie = I + (bias_out is not None)
-    tiles = -(-ie // _TILE) * -(-J // _TILE)
-    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), N // 512))
-    part = (torch.empty(splits * ie * J, device=a.device, dtype=torch.float32)
-            if splits > 1 else None)
+    s = splits(N, I, J, bias_out is not None)
+    part = torch.empty(s * ie * J, device=a.device, dtype=torch.float32) if s > 1 else None
     null = ctypes.c_void_p(None)
     lib, fns = _kernel()
     rc = fns[a.dtype](
         _ptr(a), a.stride(0), _ptr(b), b.stride(0), _ptr(out), out.stride(0),
         _ptr(bias_out) if bias_out is not None else null,
         _ptr(part) if part is not None else null,
-        N, I, J, splits,
+        N, I, J, s,
         ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
     )
     _build.check(lib, rc, "grad_reduce launch")

@@ -8,7 +8,14 @@ whose Pallas kernels ``_lstm_fwdx_kernel`` (the h sequence) and
 what bounds it. ``lstm_layer_reference`` is the plain PyTorch version
 (``_lstm_layer_reference_x``): the CPU path and the kernel's oracle. Gate
 order i, f, g, o; ``activation`` acts on g and on c
-(``midi_vae_tpu/ops/fused_lstm.py::_lstm_gates``).
+(``midi_vae_tpu/ops/fused_lstm.py::_lstm_gates``). On the card L runs as
+two phases, each with its plain version and its launch counts: the x @ W
+pre-pass (``lstm_layer_xproj``: xp = x @ W + b in float32 on the tensor
+cores, ``lstm_xproj_reference``) and the chain over that xp
+(``lstm_layer_fwd_chain``: Q's and Y's forward chain on thread-block
+clusters, ``lstm_fwd_chain_reference``); where the chain does not launch,
+``ops/_layout.py::lstm_fwd_route`` picks L's first, per-block design
+(``lstm_layer_block``).
 
 Training, the narrow route (``ops/_layout.py``, H <= 256):
 ``lstm_layer_train_x``, counterpart of ``fused_train.py::lstm_layer_train_x``
@@ -124,10 +131,37 @@ def lstm_layer_reference(x, h0, c0, w, b, u, activation="tanh", return_sequences
     return hseq if return_sequences else hseq[-1]
 
 
+def lstm_xproj_reference(x, w, b):
+    """Plain version of L's pre-pass: xp (T, B, 4H) = x (T, B, D) @ W + b in
+    float32, every operand widened (in bf16 the products of bf16 values
+    summed in float32, ``_lstm_fwdx_kernel`` :2368)."""
+    T, B, D = x.shape
+    return (x.reshape(T * B, D).float() @ w.float() + b.float()).reshape(T, B, -1)
+
+
+def lstm_fwd_chain_reference(xp, h0, c0, u, activation="tanh", return_sequences=False,
+                             with_c=False):
+    """Plain version of L's chain over a float32 xp (T, B, 4H): the h
+    sequence or the final h, with ``with_c`` (h sequence, c sequence), in
+    h0's dtype (``_lstm_fwdx_kernel``'s recurrence: xp enters the gates
+    unrounded)."""
+    hseq, cseq = _scan_xp(xp, h0, c0, u, cell_activation(activation))
+    if with_c:
+        return hseq, cseq
+    return hseq if return_sequences else hseq[-1]
+
+
 @functools.cache
 def _kernel():
-    return _build.load_builds("lstm_layer_fwd", "mvt_lstm_layer_fwd",
-                              [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    """(library, {"block" | "xproj" | "chain": {dtype: entry}}) of kernel L."""
+    lib, block = _build.load_builds("lstm_layer_fwd", "mvt_lstm_layer_fwd",
+                                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                                    + [ctypes.c_void_p])
+    xproj = _build.load_builds("lstm_layer_fwd", "mvt_lstm_layer_xproj",
+                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])[1]
+    chain = _build.load_builds("lstm_layer_fwd", "mvt_lstm_layer_fwd_chain",
+                               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])[1]
+    return lib, {"block": block, "xproj": xproj, "chain": chain}
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -156,15 +190,9 @@ def _on(t: torch.Tensor, what: str) -> bool:
     return t.device.type == "cuda"
 
 
-def lstm_layer(x, h0, c0, w, b, u, activation="tanh", return_sequences=False, with_c=False):
-    """LSTM layer forward, x (T, B, D) time-major, every operand float32 or
-    every one bfloat16.
-
-    Returns the (T, B, H) h sequence when ``return_sequences`` else the final
-    h (B, H); with ``with_c`` the (h sequence, c sequence) pair, the
-    training forward's residual; in the operands' dtype. CPU tensors run
-    ``lstm_layer_reference``; CUDA tensors launch kernel L's build of their
-    dtype."""
+def _check_layer(x, h0, c0, w, b, u, activation, what):
+    """Shapes of kernel L's operands and, on the card, their device, dtype
+    and contiguity. Returns (T, B, D, H, dtype or None off the card)."""
     if activation not in CELL_ACTIVATIONS:
         raise ValueError(f"unsupported LSTM kernel activation {activation!r}")
     if x.dim() != 3:
@@ -174,29 +202,125 @@ def lstm_layer(x, h0, c0, w, b, u, activation="tanh", return_sequences=False, wi
     named = {"x": x, "h0": h0, "c0": c0, "w": w, "b": b, "u": u}
     _check_shapes(named, {"x": (T, B, D), "h0": (B, H), "c0": (B, H), "w": (D, 4 * H),
                           "b": (4 * H,), "u": (H, 4 * H)})
-    if not _on(x, "lstm_layer"):
-        return lstm_layer_reference(x, h0, c0, w, b, u, activation, return_sequences, with_c)
+    if not _on(x, what):
+        return T, B, D, H, None
     dtype = check_operands(named, x.device, _build.DTYPES)
     if T < 1 or B < 1:
         raise ValueError(f"kernel L takes T >= 1 and B >= 1; got T={T} B={B}")
+    return T, B, D, H, dtype
+
+
+def _outputs(T, B, H, emit_seq, with_c, kw):
+    out = torch.empty((T, B, H) if emit_seq else (B, H), **kw)
+    return out, (torch.empty(T, B, H, **kw) if with_c else None)
+
+
+def lstm_layer_xproj(x, w, b):
+    """Kernel L's pre-pass: ``lstm_xproj_reference``, xp (T, B, 4H) float32.
+    CPU tensors run the plain version; CUDA tensors (every operand float32
+    or every one bfloat16) launch its build of their dtype."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (T, B, D), got {tuple(x.shape)}")
+    T, B, D = x.shape
+    G = w.shape[-1]
+    _check_shapes({"w": w, "b": b}, {"w": (D, G), "b": (G,)})
+    if not _on(x, "lstm_layer_xproj"):
+        return lstm_xproj_reference(x, w, b)
+    dtype = check_operands({"x": x, "w": w, "b": b}, x.device, _build.DTYPES)
+    xp = torch.empty(T, B, G, device=x.device, dtype=torch.float32)
+    lib, fns = _kernel()
+    rc = fns["xproj"][dtype](_ptr(x), _ptr(w), _ptr(b), _ptr(xp), T * B, D, G, _stream(x))
+    _build.check(lib, rc, "lstm_layer_fwd pre-pass launch")
+    _build.count_launch(lstm_layer_xproj, dtype)
+    return xp
+
+
+def lstm_layer_fwd_chain(xp, h0, c0, u, activation="tanh", return_sequences=False,
+                         with_c=False):
+    """Kernel L's chain over a float32 xp (T, B, 4H), h0, c0 and U float32
+    or all three bfloat16: ``lstm_fwd_chain_reference``. CPU tensors run
+    the plain version; CUDA tensors launch its build of h0's dtype on
+    clusters (``fwd_chain_plan``)."""
+    if activation not in CELL_ACTIVATIONS:
+        raise ValueError(f"unsupported LSTM kernel activation {activation!r}")
+    if xp.dim() != 3:
+        raise ValueError(f"xp must be (T, B, 4H), got {tuple(xp.shape)}")
+    T, B = xp.shape[:2]
+    H = u.shape[0]
+    _check_shapes({"xp": xp, "h0": h0, "c0": c0, "u": u},
+                  {"xp": (T, B, 4 * H), "h0": (B, H), "c0": (B, H), "u": (H, 4 * H)})
+    if not _on(xp, "lstm_layer_fwd_chain"):
+        return lstm_fwd_chain_reference(xp, h0, c0, u, activation, return_sequences, with_c)
+    dtype = check_operands({"h0": h0, "c0": c0, "u": u}, xp.device, _build.DTYPES)
+    check_operands({"xp": xp}, xp.device, (torch.float32,))
+    if T < 1 or B < 1:
+        raise ValueError(f"kernel L takes T >= 1 and B >= 1; got T={T} B={B}")
+    plan = fwd_chain_plan(_bf16_build("L_chain", dtype), H, B)
+    emit_seq = return_sequences or with_c
+    out, cseq = _outputs(T, B, H, emit_seq, with_c, {"device": xp.device, "dtype": dtype})
+    null = ctypes.c_void_p(None)
+    lib, fns = _kernel()
+    rc = fns["chain"][dtype](
+        _ptr(xp), _ptr(h0), _ptr(c0), _ptr(u), _ptr(out) if emit_seq else null, _opt(cseq),
+        null if emit_seq else _ptr(out), T, B, H, CELL_ACTIVATIONS[activation], plan.cluster,
+        plan.rows, plan.splits, plan.stages, _stream(xp))
+    _build.check(lib, rc, "lstm_layer_fwd chain launch")
+    _build.count_launch(lstm_layer_fwd_chain, dtype)
+    return (out, cseq) if with_c else out
+
+
+def lstm_layer_block(x, h0, c0, w, b, u, activation="tanh", return_sequences=False,
+                     with_c=False):
+    """Kernel L's per-block route (its first design), as ``lstm_layer``:
+    CPU tensors run ``lstm_layer_reference``; CUDA tensors launch its build
+    of their dtype where ``_layout`` lets it launch."""
+    T, B, D, H, dtype = _check_layer(x, h0, c0, w, b, u, activation, "lstm_layer_block")
+    if dtype is None:
+        return lstm_layer_reference(x, h0, c0, w, b, u, activation, return_sequences, with_c)
     build = _bf16_build("L", dtype)
     _layout.require(build, H, _layout.smem_bytes(build, H, D))
     emit_seq = return_sequences or with_c
-    kw = {"device": x.device, "dtype": dtype}
-    out = torch.empty((T, B, H) if emit_seq else (B, H), **kw)
-    cseq = torch.empty(T, B, H, **kw) if with_c else None
+    out, cseq = _outputs(T, B, H, emit_seq, with_c, {"device": x.device, "dtype": dtype})
     lib, fns = _kernel()
-    rc = fns[dtype](
+    rc = fns["block"][dtype](
         _ptr(x), _ptr(h0), _ptr(c0), _ptr(w), _ptr(b), _ptr(u), _ptr(out), _opt(cseq),
         T, B, D, H, CELL_ACTIVATIONS[activation], int(emit_seq), _stream(x),
     )
     _build.check(lib, rc, "lstm_layer_fwd launch")
-    _build.count_launch(lstm_layer, dtype)
+    _build.count_launch(lstm_layer_block, dtype)
     return (out, cseq) if with_c else out
 
 
-lstm_layer.launches = 0
-lstm_layer.launches_bf16 = 0
+def lstm_layer(x, h0, c0, w, b, u, activation="tanh", return_sequences=False, with_c=False):
+    """LSTM layer forward, x (T, B, D) time-major, every operand float32 or
+    every one bfloat16.
+
+    Returns the (T, B, H) h sequence when ``return_sequences`` else the final
+    h (B, H); with ``with_c`` the (h sequence, c sequence) pair, the
+    training forward's residual; in the operands' dtype. CPU tensors run
+    ``lstm_layer_reference``; CUDA tensors run kernel L's build of their
+    dtype on the route ``_layout.lstm_fwd_route`` picks: the pre-pass and
+    the chain, or the per-block route (``lstm_layer_block``). Each of those
+    wrappers counts its own launches (``L_PHASES``); this one launches
+    nothing itself."""
+    T, B, D, H, dtype = _check_layer(x, h0, c0, w, b, u, activation, "lstm_layer")
+    if dtype is None:
+        return lstm_layer_reference(x, h0, c0, w, b, u, activation, return_sequences, with_c)
+    route = _layout.lstm_fwd_route(H, D, dtype == torch.bfloat16)
+    if route == "block":
+        out = lstm_layer_block(x, h0, c0, w, b, u, activation, return_sequences, with_c)
+    else:
+        fwd_chain_plan(_bf16_build("L_chain", dtype), H, B)  # raises before any launch
+        xp = lstm_layer_xproj(x, w, b)
+        out = lstm_layer_fwd_chain(xp, h0, c0, u, activation, return_sequences, with_c)
+    return out
+
+
+# the wrappers that launch L's kernels, each counting on ``.launches`` and
+# ``.launches_bf16``
+L_PHASES = ("lstm_layer_xproj", "lstm_layer_fwd_chain", "lstm_layer_block")
+for _fn in (lstm_layer_xproj, lstm_layer_fwd_chain, lstm_layer_block):
+    _fn.launches = _fn.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -587,13 +711,20 @@ def _check_xp(xp, h0, c0, u, what, **opt) -> tuple[int, int, int, bool]:
     return T, B, H, on_card
 
 
+_FWD_LIBRARIES = {"Q": "lstm_layer_xp_fwd", "Q_bf16": "lstm_layer_xp_fwd",
+                  "Y": "lstm_encoder_scan", "L_chain": "lstm_layer_fwd",
+                  "L_chain_bf16": "lstm_layer_fwd"}
+
+
+@functools.cache
 def fwd_chain_plan(build, H, B):
     """The forward chain's cluster plan (``_layout.fwd_plan``) of build
-    ``build`` ("Q", "Q_bf16" or "Y") at (H, B), at the card's active
-    clusters; raises LaunchLimitError where it does not launch."""
+    ``build`` (``_layout.FWD_BUILDS``: Q's, Y's, L's) at (H, B), at the
+    card's active clusters; raises LaunchLimitError where it does not
+    launch."""
     C, stream = _layout.fwd_cluster(build, H)
-    lib_name = "lstm_encoder_scan" if build == "Y" else "lstm_layer_xp_fwd"
-    return _layout.fwd_plan(build, H, B, _max_clusters(lib_name, build != "Q", C, stream))
+    bf16 = build in ("Q_bf16", "Y", "L_chain_bf16")
+    return _layout.fwd_plan(build, H, B, _max_clusters(_FWD_LIBRARIES[build], bf16, C, stream))
 
 
 @functools.cache

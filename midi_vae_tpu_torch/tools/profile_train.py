@@ -11,9 +11,10 @@ card, the route of the step, the median wall time per step (host clock
 around work that ends in a synchronize), note-steps/s (B x 64 output steps
 per step; windows/s for a judge), and from a torch.profiler window of STEPS
 steps the device time per kernel name, per kernel of the port (A, C, D, E,
-F, G, the wide D and E, L, N's and R's phases, Q, S, S xp, T, T xp, X, Y,
-W; the bf16 builds of A, C, D, E, G, the wide D and E, L, the phases, S, T
-and W apart, Q bf16 and Y together) and for
+F, G, the wide D and E, L's pre-pass and per-block route, N's and R's
+phases, the forward chain of Q and L, S, S xp, T, T xp, X, Y, W; the bf16
+builds of A, C, D, E, G, the wide D and E, L, the phases, S, T and W apart,
+the bf16 chain of Q, Y and L together) and for
 everything else, per autograd node of the backward, and the device's idle
 share.
 
@@ -43,11 +44,14 @@ PORT_KERNELS = {
     "gru_layer_xp_bwd_kernel": "G gru_layer_xp_bwd",
     "gru_decode_train_wide_kernel": "D wide gru_decode_train_wide",
     "gru_decode_bwd_wide_kernel": "E wide gru_decode_bwd_wide",
-    "lstm_layer_fwd_kernel": "L lstm_layer_fwd",
-    # Q's and Y's forward chain: the float32 build (Q) and the bf16 one (Q
-    # bf16 or Y: one config runs one of them)
-    "lstm_fwd_chain_kernel": "Q lstm_fwd_chain",
-    "lstm_fwd_chain_mma_kernel": "Q/Y bf16 lstm_fwd_chain_mma",
+    # L: its x @ W pre-pass; its chain is the forward chain below; its
+    # per-block route (no config at H <= 512 takes it)
+    "lstm_xproj_kernel": "L xproj lstm_xproj",
+    "lstm_layer_fwd_kernel": "L block lstm_layer_fwd",
+    # the forward chain of Q, Y and L: the float32 build (Q or L) and the
+    # bf16 one (Q bf16, Y or L bf16: one config's encoder runs one of them)
+    "lstm_fwd_chain_kernel": "Q/L chain lstm_fwd_chain",
+    "lstm_fwd_chain_mma_kernel": "Q/Y/L bf16 chain lstm_fwd_chain_mma",
     # N's and R's phases (one config runs N or R, not both)
     "lstm_bwd_gates_kernel": "N/R gates lstm_bwd_gates",
     "lstm_bwd_gates_mma_kernel": "N/R gates bf16 lstm_bwd_gates_mma",
@@ -63,7 +67,8 @@ PORT_KERNELS = {
 # the groups whose kernels have a bf16 build, counted apart
 BF16_BUILDS = ("A gru_layer_fwd", "C gru_layer_bwd", "D gru_decode_train", "E gru_decode_bwd",
                "G gru_layer_xp_bwd", "D wide gru_decode_train_wide",
-               "E wide gru_decode_bwd_wide", "L lstm_layer_fwd", "N/R chain lstm_bwd_chain",
+               "E wide gru_decode_bwd_wide", "L xproj lstm_xproj", "L block lstm_layer_fwd",
+               "N/R chain lstm_bwd_chain",
                "N dx lstm_bwd_dx", "S lstm_step", "T gru_step",
                "W grad_reduce")
 

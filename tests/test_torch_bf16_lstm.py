@@ -166,7 +166,8 @@ def test_layer_train_x_bf16_matches_rows_19_and_20(D, rs, seed):
     (notes 61, instrument 16, velocity 1: ``cast_x``), within the flips a
     recurrence carries on; every output and gradient bf16, as JAX's."""
     _assert_layer(*_x_layer(D, rs, seed), X_NAMES, one_step=False)
-    assert port_layer.lstm_layer.launches_bf16 == port_layer.lstm_layer_bwd.launches_bf16 == 0
+    assert all(getattr(port_layer, f).launches_bf16 == 0 for f in port_layer.L_PHASES)
+    assert port_layer.lstm_layer_bwd.launches_bf16 == 0
 
 
 @pytest.mark.parametrize("seed", SEEDS)

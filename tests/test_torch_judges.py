@@ -29,7 +29,7 @@ from midi_vae_tpu_torch import bridge
 from midi_vae_tpu_torch.cli import transfer as transfer_cli
 from midi_vae_tpu_torch.models import classifier as port_clf
 from midi_vae_tpu_torch.ops.gru_layer import gru_layer
-from midi_vae_tpu_torch.ops.lstm_layer import lstm_layer
+from midi_vae_tpu_torch.ops import lstm_layer as port_lstm_layer
 from midi_vae_tpu_torch.training import checkpoint as port_ckpt
 
 ATOL = 1e-5
@@ -60,13 +60,14 @@ def test_predict_matches_jax(kind, cell_type):
     port = port_clf.StyleClassifier(pspec, jax.tree_util.tree_map(np.asarray, params))
     x = kind_inputs(kind, 5)
     want = np.asarray(jm.predict(params, jnp.asarray(x)))
-    counter = lstm_layer if cell_type == "LSTM" else gru_layer
+    counters = ([getattr(port_lstm_layer, f) for f in port_lstm_layer.L_PHASES]
+                if cell_type == "LSTM" else [gru_layer])
     with torch.inference_mode():
         got = port.predict(torch.from_numpy(x)).numpy()
     assert got.shape == (5, pspec.num_classes)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
     np.testing.assert_allclose(got.sum(-1), 1.0, rtol=0, atol=1e-6)
-    assert counter.launches == 0  # CPU tensors: the plain versions
+    assert all(c.launches == 0 for c in counters)  # CPU tensors: the plain versions
 
 
 def test_init_params_bit_equal():

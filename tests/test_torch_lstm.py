@@ -35,6 +35,7 @@ from midi_vae_tpu_torch.models import vae as port_vae
 from midi_vae_tpu_torch.models.vae import MidiVAE
 from midi_vae_tpu_torch.ops import _layout
 from midi_vae_tpu_torch.ops.lstm_decode import lstm_decode, lstm_decode_reference
+from midi_vae_tpu_torch.ops import lstm_layer as port_layer
 from midi_vae_tpu_torch.ops.lstm_layer import lstm_layer, lstm_layer_reference
 from midi_vae_tpu_torch.training import checkpoint as port_ckpt
 
@@ -71,7 +72,7 @@ def test_lstm_layer_matches_jax(D, return_sequences):
     got = lstm_layer_reference(_t(x), _t(h0), _t(c0), _t(p["w"]), _t(p["b"]), _t(p["u"]),
                                "tanh", return_sequences)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
-    assert lstm_layer.launches == 0
+    assert all(getattr(port_layer, f).launches == 0 for f in port_layer.L_PHASES)
 
 
 @pytest.mark.parametrize("n_layers", [1, 2])

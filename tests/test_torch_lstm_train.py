@@ -92,7 +92,8 @@ def test_lstm_layer_train_x_matches_jax(D, return_sequences):
     got = torch.autograd.grad(torch.sin(out).sum(), leaves)
     for name, g, w in zip(("x", "h0", "c0", "w", "b", "u"), got, want):
         _close(g, w, GRAD_RTOL, GRAD_ATOL, f"d{name}")
-    assert port_layer.lstm_layer.launches == port_layer.lstm_layer_bwd.launches == 0
+    assert all(getattr(port_layer, f).launches == 0 for f in port_layer.L_PHASES)
+    assert port_layer.lstm_layer_bwd.launches == 0
 
 
 @pytest.mark.parametrize("mode", ["inplace", "wide"])
@@ -483,7 +484,8 @@ def test_lstm_training_ops_run_without_nvcc(tmp_path):
         "sum(t.sum() for t in ls.lstm_cell_step(x[0], h, h, w, b, u, 'relu')).backward()\n"
         "assert x.grad is not None and xp.grad is not None and u.grad is not None\n"
         "assert _build.load.cache_info().currsize == 0 and not _build.build_seconds\n"
-        "assert ll.lstm_layer.launches == ll.lstm_layer_bwd.launches == 0\n"
+        "assert all(getattr(ll, f).launches == 0 for f in ll.L_PHASES)\n"
+        "assert ll.lstm_layer_bwd.launches == 0\n"
         "assert ll.lstm_layer_xp.launches == ll.lstm_layer_xp_bwd.launches == 0\n"
         "assert ls.lstm_cell_step_fwd.launches == 0\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules)\n"

@@ -128,9 +128,13 @@ def test_cli_refuses_unported_options(tmp_path):
 def test_transfer_runs_without_jax(tmp_path):
     """The port trains (the train CLI, also the wide model at lstm_size=512,
     whose training step takes the wide route) and serves in a process that
-    never imports jax."""
+    never imports jax. The child runs torch on one intra-op thread: beside
+    the suite's other workers (pytest -n 6 on 8 cores) its default of one
+    thread a core oversubscribed the machine and ran past the timeout."""
     code = (
         "import sys, os, numpy as np\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
         f"sys.path.insert(0, {os.path.join(REPO, 'tools')!r})\n"
         "import make_demo_corpus as corpus\n"
         "from midi_vae_tpu.config import small_test_config\n"
@@ -158,7 +162,7 @@ def test_transfer_runs_without_jax(tmp_path):
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=str(tmp_path), timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
