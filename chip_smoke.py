@@ -22,22 +22,30 @@ result line):
      (csrc/gru_encoder_stack_bwd.cu), D's and E's bf16-residual builds and
      E wide's bf16 build with row 8's rounding; N and R as three phases
      each (csrc/lstm_cell_bwd.cuh: the gate pre-pass, the chain on
-     thread-block clusters, N's dx pass); every build's registers and
+     thread-block clusters, N's dx pass); A as two phases (the x @ W
+     pre-pass of csrc/xproj.cuh, L's, and the GRU chain on clusters of
+     csrc/gru_cell_fwd.cuh) beside its per-block route; S and S xp as one
+     product on the tensor cores (csrc/gemm_tc.cuh) with the cell in its
+     epilogue; every build's registers and
      spills from ptxas against the route chooser's table (the phase builds
      also against their threads a block); the 8-rows builds of D and E must
      refuse H = 512 at their C entry points; each chain build's cluster
      size, whether it streams U^T, the card's
-     cudaOccupancyMaxActiveClusters and its plan at B = 256; the instances
-     of W (the tiles on the tensor cores, the small-I stream) and of L (the
-     x @ W pre-pass, the chain) must not spill; W's one-TF32-product
-     control is built too (csrc/grad_reduce.cu with -DMVT_W_TF32_ONE);
+     cudaOccupancyMaxActiveClusters and its plan at B = 256 (A's chain
+     builds too); the instances of W (the tiles on the tensor cores, the
+     small-I stream), of L and A (the x @ W pre-pass, the chain) and of S
+     must not spill; W's one-TF32-product control is built too
+     (csrc/grad_reduce.cu with -DMVT_W_TF32_ONE);
   2b. W: kernel W on the paths' reductions (W_CASES) against a float64 sum
      within W_REL_L2, two runs bit-equal, and the one-TF32-product control
      over W_REL_L2 on the tiled cases;
   3. kernels: A and B against their plain PyTorch versions on the card, at
      the shapes the transfer path gives them with B = 256 windows, with times
      (CUDA events, median of REPS runs) and each call's bound (the larger of
-     its operations over the card's f32 rate and its bytes over HBM's);
+     its operations over the card's f32 rate and its bytes over HBM's); A's
+     phases (the pre-pass beside torch.addmm, the chain, the per-block
+     route) each against its plain version, and A and its phases at B = 5
+     and one song's 16;
   4. slice: the transfer CLI (midi_vae_tpu_torch.cli.transfer.main) at the
      full default Config() width on 3 authored songs, with
      --write-reconstruction; the .mid files must parse back and the launch
@@ -115,7 +123,9 @@ result line):
      against their plain versions at B = 256 and B = 5; each cell's loop
      (its head's or layer's launches, the state carried) timed in one
      CUDA-event window beside the plain version's loop and, for S xp,
-     torch.lstm_cell's, with bounds;
+     torch.lstm_cell's, with bounds; then S (float32 and bf16) and S xp
+     against their plain versions at every shape the paths give them (H 256
+     and 512; B = 256, 16, 5; D = 61, H, 1, 16; the three cell activations);
  22. their gradients: the three autograd Functions against autograd through
      the plain forward;
  23. the train CLI on the per-step configs at full width, 2 epochs, --resume
@@ -166,7 +176,8 @@ result line):
      over each layer's and head's products), against their plain bf16
      versions at B = 256 (timed, bf16 x bf16 products at the bf16 rate and
      the rest at the float32 rate, W beside cuBLAS on the widened operands)
-     and B = 5; A and D also one step from a random state, where three wrong
+     and B = 5, A's phases each against its plain version; A and D also one
+     step from a random state, where three wrong
      roundings (r * h in A, the gate grads before W, layer 2 fed the rounded
      h1 in D) must land over the limits; the autograd ops' gradients against
      the plain backward;
@@ -396,6 +407,16 @@ def report_clusters():
             fwd[f"{build} H={H}"] = {"cluster": C, "stream": stream, "max_active_clusters": active,
                                      "assumed": _layout.MAX_CLUSTERS_H100[C],
                                      "plan_B256": plan._asdict()}
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+
+    for build in _layout.GRU_FWD_BUILDS:
+        for H in (256, 512):
+            C, stream = _layout.gru_fwd_cluster(build, H)
+            active = gl._max_clusters("gru_layer_fwd", build.endswith("_bf16"), C, stream)
+            plan = gl.gru_chain_plan(build, H, B)
+            fwd[f"{build} H={H}"] = {"cluster": C, "stream": stream, "max_active_clusters": active,
+                                     "assumed": _layout.MAX_CLUSTERS_H100[C],
+                                     "plan_B256": plan._asdict()}
     print("[build] forward chain clusters (size, U streamed, cudaOccupancyMaxActiveClusters; "
           f"plan at B = {B}): " + "; ".join(
               f"{k}: {v['cluster']}, {v['stream']}, {v['max_active_clusters']}; rows "
@@ -417,6 +438,12 @@ def report_clusters():
 # builds of A to E and W leave their bf16 instances to the "_bf16" letters
 NOT_BF16, BF16_ONLY = "!nv_bfloat16", "nv_bfloat16"
 BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
+          # A's x @ W pre-pass (csrc/xproj.cuh, L's) and its chain
+          # (csrc/gru_cell_fwd.cuh), and their bf16 instances
+          "A_xproj": ("gru_layer_fwd", "xproj_kernel", NOT_BF16),
+          "A_chain": ("gru_layer_fwd", "gru_fwd_chain_kernel", NOT_BF16),
+          "A_xproj_bf16": ("gru_layer_fwd", "xproj_kernel", BF16_ONLY),
+          "A_chain_bf16": ("gru_layer_fwd", "gru_fwd_chain_mma_kernel"),
           "B": ("gru_decode", "gru_decode_kernel"),
           "C": ("gru_layer_bwd", "gru_layer_bwd_kernel", NOT_BF16),
           "D": ("gru_decode_train", "gru_decode_train_kernel", NOT_BF16),
@@ -434,7 +461,7 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           # L's per-block route (its first design), its x @ W pre-pass and its
           # chain (csrc/lstm_cell_fwd.cuh, the float32 xp of the pre-pass)
           "L": ("lstm_layer_fwd", "lstm_layer_fwd_kernel", NOT_BF16),
-          "L_xproj": ("lstm_layer_fwd", "lstm_xproj_kernel", NOT_BF16),
+          "L_xproj": ("lstm_layer_fwd", "xproj_kernel", NOT_BF16),
           "L_chain": ("lstm_layer_fwd", "lstm_fwd_chain_kernel"),
           "M": ("lstm_decode", "lstm_decode_kernel"),
           # N's and R's phases (csrc/lstm_cell_bwd.cuh): the gate pre-pass
@@ -447,7 +474,10 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "Q": ("lstm_layer_xp_fwd", "lstm_fwd_chain_kernel"),
           "R_gates": ("lstm_layer_xp_bwd", "lstm_bwd_gates_kernel"),
           "R_chain": ("lstm_layer_xp_bwd", "lstm_bwd_chain_kernel", NOT_BF16),
-          "S": ("lstm_step", "lstm_step_kernel"), "S_xp": ("lstm_step", "lstm_step_xp_kernel"),
+          # S and S xp: one product on the tensor cores (gemm_tc.cuh) with
+          # the cell in its epilogue, three tile instances each
+          "S": ("lstm_step", "lstm_step_kernel", NOT_BF16),
+          "S_xp": ("lstm_step", "lstm_step_xp_kernel"),
           "T": ("gru_step", "gru_step_kernel"), "T_xp": ("gru_step", "gru_step_xp_kernel"),
           "X": ("gru_encoder_scan", "gru_encoder_scan_kernel"),
           "Y": ("lstm_encoder_scan", "lstm_fwd_chain_mma_kernel"),
@@ -468,7 +498,7 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "D_wide_bf16": ("gru_decode_train", "gru_decode_train_wide_kernel", BF16_ONLY),
           "E_wide_bf16": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel", BF16_ONLY),
           "L_bf16": ("lstm_layer_fwd", "lstm_layer_fwd_kernel", BF16_ONLY),
-          "L_xproj_bf16": ("lstm_layer_fwd", "lstm_xproj_kernel", BF16_ONLY),
+          "L_xproj_bf16": ("lstm_layer_fwd", "xproj_kernel", BF16_ONLY),
           "L_chain_bf16": ("lstm_layer_fwd", "lstm_fwd_chain_mma_kernel"),
           "N_gates_bf16": ("lstm_layer_bwd", "lstm_bwd_gates_mma_kernel"),
           "N_chain_bf16": ("lstm_layer_bwd", "lstm_bwd_chain_kernel", BF16_ONLY),
@@ -483,10 +513,11 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "E_wide_row8_bf16": ("gru_decode_bwd", "gru_decode_bwd_wide_row8_kernel")}
 
 
-# the instances that must not spill: W's and L's of the tensor-core and
-# chain designs
+# the instances that must not spill: W's, L's, A's and S's of the
+# tensor-core and chain designs
 NO_SPILLS = ("W_tc", "W_small", "W_tf32one", "W_tc_bf16", "W_small_bf16", "L_xproj", "L_chain",
-             "L_xproj_bf16", "L_chain_bf16")
+             "L_xproj_bf16", "L_chain_bf16", "A_xproj", "A_chain", "A_xproj_bf16", "A_chain_bf16",
+             "S", "S_xp", "S_bf16")
 
 
 def check_registers():
@@ -509,11 +540,15 @@ def check_registers():
         if found[letter]["registers"] > regs:
             raise RuntimeError(f"kernel {letter} uses {found[letter]['registers']} registers, the "
                                f"route chooser counts {regs} (ops/_layout.py REGISTERS)")
-    for letter in (*_layout.BOUNDED, "T_bf16", "S_bf16"):
+    for letter in (*_layout.BOUNDED, "T_bf16"):
         if found[letter]["registers"] * _layout.WIDE_THREADS > _layout.REGS_PER_SM:
             raise RuntimeError(f"kernel {letter}: {found[letter]} does not fit 512 threads")
-    chains = {**_layout.BPTT_PHASE_THREADS, **dict.fromkeys(_layout.FWD_BUILDS,
-                                                               _layout.CHAIN_THREADS)}
+    chains = {**_layout.BPTT_PHASE_THREADS,
+              **dict.fromkeys((*_layout.FWD_BUILDS, *_layout.GRU_FWD_BUILDS),
+                              _layout.CHAIN_THREADS),
+              # S's largest block (its instances: 64 or 128 threads)
+              **dict.fromkeys(_layout.STEP_BUILDS,
+                              max(p[1] for p in _layout.STEP_TILES) * 8)}
     for letter, threads in chains.items():
         if found[letter]["registers"] * threads > _layout.REGS_PER_SM:
             raise RuntimeError(f"kernel {letter}: {found[letter]} does not fit {threads} threads")
@@ -879,17 +914,21 @@ def phase_kernels():
             ("instrument", tm(batch["I"]), enc["inst_rnn"][0], False),
             ("velocity", tm(batch["V"]), enc["vel_rnn"][0], False),
         ]
-        results = {"gru_layer_fwd": {}, "gru_decode": {}}
+        results = {k: {} for k in ("gru_layer_fwd", "gru_decode", *A_PHASES)}
         for name, x, p, rs in layer_cases:
             args = (x, h0, p["w"], p["b"], p["u"], "tanh", rs)
             results["gru_layer_fwd"][name] = compare(
                 f"A {name} x{tuple(x.shape)} rs={rs}",
                 lambda a=args: gru_layer(*a), lambda a=args: gru_layer_reference(*a), [H_ATOL],
-                layer_flops(x.shape[0], B, p["w"], p["u"]), args[:5])
-            # a short song's bucket: fewer rows than a block's 8
-            args = (x[:, :RAGGED].contiguous(), h0[:RAGGED], p["w"], p["b"], p["u"], "tanh", rs)
-            check(f"A {name} B={RAGGED}", lambda a=args: gru_layer(*a),
-                  lambda a=args: gru_layer_reference(*a), [H_ATOL])
+                inputs=args[:5], **a_work(x.shape[0], B, p["w"], p["u"]))
+            for phase, res in a_phase_checks(compare, f"{name} rs={rs}", args, H_ATOL).items():
+                results[phase][name] = res
+            # a short song's bucket: fewer rows than a block's 8; one song's
+            for rows in (RAGGED, 16):
+                args = (x[:, :rows].contiguous(), h0[:rows], p["w"], p["b"], p["u"], "tanh", rs)
+                check(f"A {name} B={rows}", lambda a=args: gru_layer(*a),
+                      lambda a=args: gru_layer_reference(*a), [H_ATOL])
+                a_phase_checks(check, f"{name} B={rows}", args, H_ATOL)
         z = model.encode(batch)
         new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
         head_cases = [
@@ -912,7 +951,7 @@ def phase_kernels():
                     torch.zeros(RAGGED, d, device=dev), T, "tanh", out_act)
             check(f"B {name} B={RAGGED}", lambda a=args: gru_decode(*a),
                   lambda a=args: gru_decode_reference(*a), [H_ATOL, LOGITS_ATOL])
-        print(f"[kernels] every kernel call also agrees at B = {RAGGED}")
+        print(f"[kernels] every kernel call (and A's phases) also agrees at B = {RAGGED}; A at 16")
     return results
 
 
@@ -1264,7 +1303,7 @@ def phase_wide_kernels():
                     args = (x, h0, p["w"], p["b"], p["u"], "tanh", rs)
                     out = run(f"A H={H} {name} rs={rs}", lambda a=args: gl.gru_layer(*a),
                               lambda a=args: gl.gru_layer_reference(*a), [H_ATOL],
-                              flops=layer_flops(x.shape[0], rows, p["w"], p["u"]), inputs=args[:5])
+                              **a_work(x.shape[0], rows, p["w"], p["u"]), inputs=args[:5])
                     if timed:
                         results["gru_layer_512"][name] = out
                 for name, d, T, out_act in (
@@ -1301,6 +1340,14 @@ def cudnn_lstm(x, p, h0, c0):
     lstm.bias_ih_l0.copy_(p["b"])
     lstm.bias_hh_l0.zero_()
     return lambda: lstm(x, (h0[None], c0[None]))
+
+
+def a_work(T, B, w, u):
+    """compare()'s work of A's float32 build: x @ W as three TF32 products
+    (the pre-pass on the tensor cores), the recurrent products at the
+    float32 rate (the chain's FFMA)."""
+    return {"flops": 3 * 2 * T * B * w.numel(), "peak": PEAK_TF32_FLOPS,
+            "flops_f32": 2 * T * B * u.numel()}
 
 
 def tf32_work(flops, products=3):
@@ -1356,6 +1403,54 @@ def l_phase_checks(run, tag, args):
         **({"flops": flops, "peak": PEAK_BF16_FLOPS} if bf16 else
            {"flops": 0.0, "flops_f32": flops}),
         inputs=(xp, h0, c0, u), library_fn=library)
+    return found
+
+
+def a_phase_checks(run, tag, args, limit):
+    """A's phases (csrc/gru_layer_fwd.cu) on the inputs ``args`` of
+    ``gru_layer`` (x, h0, w, b, u, activation, return_sequences), each
+    against its plain version: the pre-pass (xp = x @ W + b in float32;
+    bound: three TF32 products in float32, one bf16 product in bf16;
+    library: one torch.addmm in float32), the chain over the plain
+    pre-pass's xp (bound: h @ U[:, :2H] at the FFMA rate in float32, at the
+    bf16 rate in bf16, (r * h) @ U[:, 2H:] at the FFMA rate; no library: the
+    GRU is reset-before) and A's per-block route on the layer (bound as A's:
+    ``a_work``, ``layer_flops_bf16``),
+    the chain and the route held to ``limit`` (A's). Returns {counter name:
+    result}."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+
+    x, h0, w, b, u, act, rs = args
+    T, rows, D = x.shape
+    G, H = w.shape[1], u.shape[0]
+    bf16 = x.dtype == torch.bfloat16
+    sfx, kind = ("_bf16", "A bf16") if bf16 else ("", "A")
+    timed = run is compare
+    with torch.no_grad():
+        xp = gl.gru_xproj_reference(x, w, b)
+    flops = 2 * T * rows * D * G
+    found = {f"gru_layer_xproj{sfx}": run(
+        f"{kind} pre-pass {tag} x{tuple(x.shape)}", lambda: gl.gru_layer_xproj(x, w, b),
+        lambda: gl.gru_xproj_reference(x, w, b), [L_H_ATOL],
+        **({"flops": flops, "peak": PEAK_BF16_FLOPS} if bf16 else tf32_work(flops)),
+        inputs=(x, w, b), library_fn=None if bf16 or not timed else (
+            lambda: torch.addmm(b, x.reshape(T * rows, D), w)))}
+    cargs = (xp, h0, u, act, rs)
+    zr, cand = 2 * T * rows * H * 2 * H, 2 * T * rows * H * H
+    found[f"gru_layer_fwd_chain{sfx}"] = run(
+        f"{kind} chain {tag} xp{tuple(xp.shape)}", lambda: gl.gru_layer_fwd_chain(*cargs),
+        lambda: gl.gru_fwd_chain_reference(*cargs), [limit],
+        **({"flops": zr, "flops_f32": cand, "peak": PEAK_BF16_FLOPS} if bf16 else
+           {"flops": 0.0, "flops_f32": zr + cand}),
+        inputs=(xp, h0, u))
+    fb, ff = layer_flops_bf16(T, rows, w, u) if bf16 else (0.0, 0.0)
+    found[f"gru_layer_block{sfx}"] = run(
+        f"{kind} block {tag} x{tuple(x.shape)}", lambda: gl.gru_layer_block(*args),
+        lambda: gl.gru_layer_reference(*args), [limit], inputs=args[:5],
+        **({"flops": fb, "flops_f32": ff, "peak": PEAK_BF16_FLOPS} if bf16
+           else a_work(T, rows, w, u)))
     return found
 
 
@@ -1528,7 +1623,7 @@ def phase_slice(work, cell_type="GRU", judges=False):
     # layers per judge call, 3 calls (pitch, velocity, instrument) for the
     # original and 3 for the transferred song
     layer, decode = SERVING_KERNELS[cell_type]
-    want = l_phases({layer: (8 + (2 * 6 if judges else 0)) * len(inputs), decode: 6 * len(inputs)})
+    want = fwd_phases({layer: (8 + (2 * 6 if judges else 0)) * len(inputs), decode: 6 * len(inputs)})
     if launches != want:
         raise RuntimeError(f"transfer ({tag}): launch counters {launches}, expected {want}")
     print(f"[slice {tag}] transfer CLI on {len(inputs)} songs in {secs:.2f} s (build done); wrote "
@@ -1699,30 +1794,33 @@ PER_SONG_TRANSFER = {"GRU": {"gru_layer_fwd": 4, "gru_decode": 3},
                      "LSTM": {"lstm_layer_fwd": 4, "lstm_decode": 3}}
 
 
-def l_phases(want):
-    """``want`` with kernel L's phases: at the paths' widths (H = 256, 512)
-    each call of L (``lstm_layer_fwd``, which ``read_counters`` derives
-    from its phases) runs its pre-pass and its chain once; its per-block
-    route none."""
+def fwd_phases(want):
+    """``want`` with the phases of kernels L and A: at the paths' widths (H =
+    256, 512) each call of L (``lstm_layer_fwd``, which ``read_counters``
+    derives from its phases) or of A (``gru_layer_fwd``, derived the same
+    way) runs its pre-pass and its chain once; its per-block route none."""
     out = dict(want)
     for sfx in ("", "_bf16"):
-        n = want.get(f"lstm_layer_fwd{sfx}", 0)
-        if n:
-            out[f"lstm_layer_xproj{sfx}"] = out[f"lstm_layer_fwd_chain{sfx}"] = n
+        for op, phases in (("lstm_layer_fwd", ("lstm_layer_xproj", "lstm_layer_fwd_chain")),
+                           ("gru_layer_fwd", ("gru_layer_xproj", "gru_layer_fwd_chain"))):
+            n = want.get(f"{op}{sfx}", 0)
+            if n:
+                out.update({f"{p}{sfx}": n for p in phases})
     return out
 
 
 for _table in (*PER_TRAIN_STEP.values(), *PER_EVAL_BATCH.values(), *PER_ENCODE_BATCH.values(),
                *PER_SONG_TRANSFER.values(), PER_TF_STEP):
-    _table.update(l_phases(_table))
+    _table.update(fwd_phases(_table))
 
 
 # the counters of N's and R's phases (one launch each per op call; dx where
 # the layer's dx is wanted)
 BPTT_PHASES = ("lstm_layer_bwd_gates", "lstm_layer_bwd_chain", "lstm_layer_bwd_dx",
                "lstm_layer_xp_bwd_gates", "lstm_layer_xp_bwd_chain")
-# L's: the pre-pass and the chain, and its per-block route
+# L's and A's: the pre-pass and the chain, and the per-block route
 L_PHASES = ("lstm_layer_xproj", "lstm_layer_fwd_chain", "lstm_layer_block")
+A_PHASES = ("gru_layer_xproj", "gru_layer_fwd_chain", "gru_layer_block")
 
 
 def route_key(cfg, route):
@@ -1745,7 +1843,7 @@ def kernel_counters():
     from midi_vae_tpu_torch.ops.grad_reduce import grad_reduce
     from midi_vae_tpu_torch.ops.lstm_decode import lstm_decode
 
-    fns = {"gru_layer_fwd": gl.gru_layer, "gru_decode": gd.gru_decode,
+    fns = {"gru_decode": gd.gru_decode,
            "gru_layer_bwd": gl.gru_layer_bwd, "gru_decode_train": gd.gru_decode_fwd_train,
            "gru_decode_bwd": gd.gru_decode_bwd, "grad_reduce": grad_reduce,
            "gru_layer_xp_fwd": gl.gru_layer_xp, "gru_layer_xp_bwd": gl.gru_layer_xp_bwd,
@@ -1760,6 +1858,7 @@ def kernel_counters():
            "lstm_layer_xp_bwd_gates": ll.lstm_layer_xp_bwd_gates,
            "lstm_layer_xp_bwd_chain": ll.lstm_layer_xp_bwd_chain,
            **{name: getattr(ll, name) for name in L_PHASES},
+           **{name: getattr(gl, name) for name in A_PHASES},
            "lstm_step_xp": ls.lstm_recurrent_step_fwd, "gru_step": gs.gru_cell_step_fwd,
            "gru_step_xp": gs.gru_recurrent_step_fwd,
            "gru_encoder_scan": es.gru_encoder_scan_fwd,
@@ -1767,10 +1866,10 @@ def kernel_counters():
            "gru_encoder_stack_fwd": est.gru_encoder_stack_fwd,
            "gru_encoder_stack_bwd": est.gru_encoder_stack_bwd}
     counters = {name: (fn, "launches") for name, fn in fns.items()}
-    for name in ("gru_step", "lstm_step", "gru_layer_fwd", "gru_layer_bwd", "gru_decode_train",
+    for name in ("gru_step", "lstm_step", "gru_layer_bwd", "gru_decode_train",
                  "gru_decode_bwd", "grad_reduce", "gru_layer_xp_bwd", "gru_decode_train_wide",
                  "gru_decode_bwd_wide", "lstm_layer_bwd", "lstm_layer_xp_fwd",
-                 "lstm_layer_xp_bwd", *BPTT_PHASES, *L_PHASES):
+                 "lstm_layer_xp_bwd", *BPTT_PHASES, *L_PHASES, *A_PHASES):
         counters[f"{name}_bf16"] = (counters[name][0], "launches_bf16")
     counters["gru_decode_train_resid"] = (gd.gru_decode_fwd_train, "launches_resid")
     counters["gru_decode_bwd_resid"] = (gd.gru_decode_bwd, "launches_resid")
@@ -1785,15 +1884,17 @@ def reset_counters():
 
 def read_counters():
     """The counters that moved (a kernel absent from the dict ran 0 times),
-    and L's calls (``lstm_layer_fwd``, ``lstm_layer_fwd_bf16``): the launches
-    of its pre-pass and of its per-block route, one of which each call of
-    ``lstm_layer`` takes."""
+    and the calls of L (``lstm_layer_fwd``, ``lstm_layer_fwd_bf16``) and of A
+    (``gru_layer_fwd``, ``gru_layer_fwd_bf16``): the launches of the layer's
+    pre-pass and of its per-block route, one of which each call of
+    ``lstm_layer`` or ``gru_layer`` takes."""
     found = {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()
              if getattr(fn, attr)}
-    for sfx in ("", "_bf16"):
-        calls = found.get(f"lstm_layer_xproj{sfx}", 0) + found.get(f"lstm_layer_block{sfx}", 0)
-        if calls:
-            found[f"lstm_layer_fwd{sfx}"] = calls
+    for op in ("lstm_layer", "gru_layer"):
+        for sfx in ("", "_bf16"):
+            calls = found.get(f"{op}_xproj{sfx}", 0) + found.get(f"{op}_block{sfx}", 0)
+            if calls:
+                found[f"{op}_fwd{sfx}"] = calls
     return found
 
 
@@ -2374,7 +2475,8 @@ def phase_lstm_train_kernels():
                 tag = f"{head} cell {i + 1}"
                 out = run(f"S {tag} x{tuple(xin.shape)}", lambda a=args: ls.lstm_cell_step_fwd(*a),
                           lambda a=args: ls.lstm_cell_step_reference(*a), [L_H_ATOL, C_ATOL],
-                          flops=2 * rows * (w.shape[0] + u.shape[0]) * u.shape[1], inputs=args[:6])
+                          **tf32_work(2 * rows * (w.shape[0] + u.shape[0]) * u.shape[1]),
+                          inputs=args[:6])
                 if timed:
                     results["lstm_step"][tag] = head_loop_times(f"{tag} x{tuple(xin.shape)}",
                                                                 out, args, T)
@@ -2485,7 +2587,7 @@ def classify_launches(kind_sizes, cell_type, epochs):
     if cell_type == "LSTM":  # N's phases; dx for layer 2 alone
         want.update({"lstm_layer_bwd_gates": 2 * steps, "lstm_layer_bwd_chain": 2 * steps,
                      "lstm_layer_bwd_dx": steps})
-    return l_phases(want)
+    return fwd_phases(want)
 
 
 def phase_judge_training(work, smi):
@@ -2636,7 +2738,7 @@ def phase_judge_training(work, smi):
                             "--device", "cuda"])
     launches = read_counters()
     judged = [line for line in buf.getvalue().splitlines() if "judge confidence" in line]
-    want = l_phases({"lstm_layer_fwd": 4 + 2 * 6, "lstm_decode": 3})
+    want = fwd_phases({"lstm_layer_fwd": 4 + 2 * 6, "lstm_decode": 3})
     if rc != 0 or len(judged) != 2 or launches != want:
         raise RuntimeError(f"transfer with the trained LSTM judges: rc {rc}, launches {launches} "
                            f"(expected {want}), judge lines {judged}")
@@ -2774,7 +2876,8 @@ def phase_step_kernels():
                     out = run(f"S xp {tag} xp{tuple(xp.shape)}",
                               lambda a=args: ls.lstm_recurrent_step_fwd(*a),
                               lambda a=args: ls.lstm_recurrent_step_reference(*a),
-                              [L_H_ATOL, C_ATOL], flops=2 * rows * p["u"].numel(), inputs=args)
+                              [L_H_ATOL, C_ATOL], **tf32_work(2 * rows * p["u"].numel()),
+                              inputs=args)
                     if timed:
                         eye, ut = torch.eye(4 * H, device=dev), p["u"].t().contiguous()
                         zero = torch.zeros(4 * H, device=dev)
@@ -2797,7 +2900,52 @@ def phase_step_kernels():
                                   ls.lstm_recurrent_step_reference, args, rows)
     print(f"[step kernels] T, T xp and S xp at H = 256 and 512, and their gradients, also agree "
           f"at B = {RAGGED}")
+    s_path_checks()
     return results
+
+
+def s_path_checks():
+    """S (float32 and bf16) and S xp against their plain versions at every
+    shape the paths give them: H 256 and 512; B = 256, one song's 16 and
+    RAGGED; the notes head's cell 1 (D = 61) and cell 2 (D = H), the
+    velocity (D = 1) and instrument (D = 16) heads' cells; S xp on the same
+    batches; the cell activations taken in turn (the serving heads that M
+    does not take may use sigmoid or relu cells). Seeded inputs, a random
+    state; float32 at S's limits (L_H_ATOL, C_ATOL), bf16 one step from
+    that state at BF16_STEP."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import _layout
+    from midi_vae_tpu_torch.ops import lstm_step as ls
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(21)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
+    acts = ("tanh", "sigmoid", "relu")
+    n = 0
+    for H in (256, 512):
+        u = randn(H, 4 * H) / H ** 0.5
+        for rows in (B, 16, RAGGED):
+            h, c = 0.5 * torch.tanh(randn(rows, H)), randn(rows, H)
+            for D in (61, H, 1, 16):
+                x = torch.softmax(randn(rows, D), -1) if D != H else 0.5 * torch.tanh(randn(rows, D))
+                w, b = randn(D, 4 * H) / D ** 0.5, 0.1 * randn(4 * H)
+                for dtype, limits in ((torch.float32, [L_H_ATOL, C_ATOL]), (bf, [BF16_STEP] * 2)):
+                    plan = _layout.step_plan(rows, D, H, 2 if dtype == bf else 4)
+                    args = (*(t.to(dtype) for t in (x, h, c, w, b, u)), acts[n % 3])
+                    check(f"S{' bf16' if dtype == bf else ''} H={H} B={rows} D={D} {args[-1]} "
+                          f"(tile {plan.rows} x {plan.units})",
+                          lambda a=args: ls.lstm_cell_step_fwd(*a),
+                          lambda a=args: ls.lstm_cell_step_reference(*a), limits)
+                    n += 1
+            xp = randn(rows, 4 * H)
+            for act in acts:
+                args = (xp, h, c, u, act)
+                check(f"S xp H={H} B={rows} {act}", lambda a=args: ls.lstm_recurrent_step_fwd(*a),
+                      lambda a=args: ls.lstm_recurrent_step_reference(*a), [L_H_ATOL, C_ATOL])
+                n += 1
+    print(f"[step kernels] S, S bf16 and S xp agree with their plain versions at every path shape "
+          f"(H 256 and 512; B {B}, 16, {RAGGED}; D 61, H, 1, 16): {n} checks")
 
 
 def yardstick_bf16_lim(w):
@@ -3526,7 +3674,7 @@ def phase_bf16_fused_kernels():
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
     flat = lambda outs: tuple(t for t in outs if t is not None)  # noqa: E731
     keys = ("gru_layer_fwd_bf16", "gru_layer_bwd_bf16", "grad_reduce_bf16",
-            "gru_decode_train_bf16", "gru_decode_bwd_bf16")
+            "gru_decode_train_bf16", "gru_decode_bwd_bf16", *(f"{k}_bf16" for k in A_PHASES))
     results = {k: {} for k in keys}
     found = {}
 
@@ -3570,6 +3718,9 @@ def phase_bf16_fused_kernels():
             out = run(f"A bf16 {name} x{tuple(x.shape)}", lambda a=args: gl.gru_layer(*a),
                       lambda a=args: gl.gru_layer_reference(*a), [BF16], flops=fb, flops_f32=ff,
                       inputs=args[:5], peak=PEAK_BF16_FLOPS)
+            for phase, res in a_phase_checks(run, name, args, BF16).items():
+                if timed:
+                    results[phase][name] = res
             with torch.no_grad():
                 seq = gl.gru_layer_reference(*args)
             if timed:
@@ -4779,8 +4930,8 @@ def phase_gru_3layer_serving(work, smi):
                             out, "--device", "cuda"])
     secs = time.perf_counter() - t0
     launches = read_counters()
-    want = {"gru_layer_fwd": 4 * len(inputs), "gru_decode": 2 * len(inputs),
-            "gru_step": 3 * cfg.output_length * len(inputs)}
+    want = fwd_phases({"gru_layer_fwd": 4 * len(inputs), "gru_decode": 2 * len(inputs),
+                       "gru_step": 3 * cfg.output_length * len(inputs)})
     if rc != 0 or launches != want:
         raise RuntimeError(f"transfer with a 3-layer notes head: rc {rc}, launches {launches} "
                            f"(expected {want})\n{buf.getvalue()}")
@@ -4794,13 +4945,14 @@ def phase_gru_3layer_serving(work, smi):
 
 def kernel_registers(registers, letter):
     """ptxas's registers and spills of kernel ``letter``'s build; for N's,
-    R's and L's ops those of each of their phases (L's per-block route is
-    build "L" of the route chooser)."""
+    R's, L's and A's ops those of each of their phases (L's and A's
+    per-block routes are builds "L" and "A" of the route chooser)."""
     key = letter.replace(" ", "_")
-    aliases = {"L_block": "L", "L_block_bf16": "L_bf16"}
+    aliases = {"L_block": "L", "L_block_bf16": "L_bf16", "A_block": "A", "A_block_bf16": "A_bf16"}
     if key in aliases:
         return registers[aliases[key]]
-    phases = {"N": ("gates", "chain", "dx"), "R": ("gates", "chain"), "L": ("xproj", "chain")}
+    phases = {"N": ("gates", "chain", "dx"), "R": ("gates", "chain"), "L": ("xproj", "chain"),
+              "A": ("xproj", "chain")}
     base, _, sfx = key.partition("_")
     if base not in phases or sfx not in ("", "bf16"):
         return registers[key]
@@ -4981,6 +5133,13 @@ def main() -> int:
     # main paths' runs
     meta = {
         "gru_layer_fwd": ("A", "gru_layer_fwd.cu", "fused_train.py:2057", ["fused_train.py:2919"]),
+        # rows 1 and 2: A's phases, each a part of _fwdx_kernel and
+        # _fwdx_last_kernel: the x @ W pre-pass, the chain; and its per-block
+        # route, which no path at H <= 512 takes
+        **{f"gru_layer_{op}{sfx}": (f"A {part}{' bf16' if sfx else ''}", "gru_layer_fwd.cu",
+                                    "fused_train.py:2057", ["fused_train.py:2919"])
+           for op, part in (("xproj", "xproj"), ("fwd_chain", "chain"), ("block", "block"))
+           for sfx in ("", "_bf16")},
         "gru_decode": ("B", "gru_decode.cu", "fused_decoder.py:61", ["fused_decoder.py:95"]),
         "gru_layer_bwd": ("C", "gru_layer_bwd.cu", "fused_train.py:2116", []),
         "gru_decode_train": ("D", "gru_decode_train.cu", "fused_train.py:3089",

@@ -1,7 +1,8 @@
 // Shared device code of the port's matrix products on the tensor cores at
 // float32 accuracy: kernel W's weight-gradient reduction (grad_reduce.cu,
-// C = A^T B over N rows) and kernel L's x-projection pre-pass
-// (lstm_layer_fwd.cu, xp = x @ W + b).
+// C = A^T B over N rows), the x-projection pre-pass of kernels L and A
+// (xproj.cuh, xp = x @ W + b) and kernel S's step (lstm_step.cu, [x | h] .
+// [W ; U] with the LSTM cell in the epilogue).
 //
 // Arithmetic. mma.sync m16n8k8 takes TF32 operands (10 mantissa bits) and
 // sums in float. A float32 operand is split into a TF32 high part
@@ -23,10 +24,15 @@
 // go into zeroed accumulators and are added into the running sums by one
 // rounded float add: the truncation then touches only 16 rows' products.
 //
-// Mainloop. A block of kThreads = 256 threads (8 warps, 2 along M x 4 along
-// N) computes one kBM x kBN tile of the product (kBM 128, or 64 where the
-// product has few rows) over a range of the depth, in stages of kBK = 16
-// depth rows held in a ring of kStages = 4 slots of shared memory. Float
+// Mainloop. A block of 2 kBNt threads (warps: 2 along M x kBNt / 32 along
+// N; W and the pre-pass: kBNt = kBN = 128, kThreads = 256; S: 64 or 32)
+// computes one kBM x kBNt tile of the product (kBM 128, or 64 or 32 where
+// the product has few rows) over a range of the depth, or over two
+// segments of it one after the other (S: x against W, then h against U;
+// run2), in stages of kBK = 16 depth rows held in a ring of kStages = 4
+// slots of shared memory; a stage never holds depth of both segments. B's
+// tile columns may be gathered (kGather: S's four gate blocks of its units,
+// interleaved 8 units at a time, gather_unit and gather_gate). Float
 // operands are copied by cp.async, 16 bytes a copy where the row stride,
 // the width and the base are multiples of 4 floats, else 4 bytes (x has
 // D = 61 columns: its rows are not 16-byte aligned); bf16 operands are
@@ -113,43 +119,63 @@ __device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
   }
 }
 
+// The tile column cl of an operand whose columns are gathered (kGather):
+// the four gate blocks of kernel S's units, interleaved 8 units at a time
+// (tile columns 32 j + 8 q + i are gate q of unit 8 j + i), so that a
+// warp's four n-tiles of 8 columns are one unit group's four gates. cl's
+// unit (from the tile's first) and gate.
+__device__ __forceinline__ int gather_unit(int cl) { return (cl >> 5) * 8 + (cl & 7); }
+__device__ __forceinline__ int gather_gate(int cl) { return (cl >> 3) & 3; }
+
 // One operand's stage: R rows x CC values of a row-major matrix g (row
 // stride ld) from (r0, c0), rows < r1 and columns < c1 valid, into a float
-// tile of row stride ss. Float: cp.async (16-byte copies when vec); bf16:
-// loaded into registers by fetch(), stored widened by put().
-template <typename T, int R, int CC>
+// tile of row stride ss, by kThr threads. Float: cp.async (16-byte copies
+// when vec); bf16: loaded into registers by fetch(), stored widened by
+// put(). kGather: tile column cl is matrix column c0 + gather_unit(cl) +
+// gather_gate(cl) * gstride, valid where c0 + gather_unit(cl) < c1 (four
+// neighbouring tile columns stay neighbours in g).
+template <typename T, int R, int CC, int kThr = kThreads, bool kGather = false>
 struct Stage {
   static constexpr bool kStaged = std::is_same_v<T, bf16>;
-  static constexpr int kElems = R * CC / kThreads;
+  static constexpr int kElems = R * CC / kThr;
   static constexpr int kVecs = kElems / 4;
-  static_assert(R * CC % (4 * kThreads) == 0, "a tile is whole 16-byte copies of every thread");
+  static_assert(R * CC % (4 * kThr) == 0, "a tile is whole 16-byte copies of every thread");
   unsigned short held[kStaged ? kElems : 1];
 
+  // matrix column (cc, what c1 bounds) and its offset in a row of g
+  __device__ __forceinline__ static int col(int c0, int cl) {
+    return c0 + (kGather ? gather_unit(cl) : cl);
+  }
+  __device__ __forceinline__ static int off(int cc, int cl, int gstride) {
+    return kGather ? cc + gather_gate(cl) * gstride : cc;
+  }
+
   __device__ __forceinline__ void fetch(const T* g, int ld, int r0, int r1, int c0, int c1,
-                                        float* s, int ss, bool vec) {
+                                        float* s, int ss, bool vec, int gstride = 0) {
     const int tid = threadIdx.x;
     if constexpr (kStaged) {
       const unsigned short* gu = reinterpret_cast<const unsigned short*>(g);
 #pragma unroll
       for (int i = 0; i < kElems; ++i) {
-        const int e = tid + i * kThreads, r = r0 + e / CC, cc = c0 + e % CC;
-        held[i] = (r < r1 && cc < c1) ? __ldg(gu + (size_t)r * ld + cc) : (unsigned short)0;
+        const int e = tid + i * kThr, r = r0 + e / CC, cl = e % CC, cc = col(c0, cl);
+        held[i] = (r < r1 && cc < c1) ? __ldg(gu + (size_t)r * ld + off(cc, cl, gstride))
+                                      : (unsigned short)0;
       }
     } else if (vec) {
 #pragma unroll
       for (int i = 0; i < kVecs; ++i) {
-        const int e = tid + i * kThreads, rr = e / (CC / 4), cl = 4 * (e % (CC / 4));
-        const int r = r0 + rr, cc = c0 + cl;
+        const int e = tid + i * kThr, rr = e / (CC / 4), cl = 4 * (e % (CC / 4));
+        const int r = r0 + rr, cc = col(c0, cl);
         const bool ok = r < r1 && cc < c1;
-        copy16(s + rr * ss + cl, ok ? g + (size_t)r * ld + cc : g, ok);
+        copy16(s + rr * ss + cl, ok ? g + (size_t)r * ld + off(cc, cl, gstride) : g, ok);
       }
     } else {
 #pragma unroll
       for (int i = 0; i < kElems; ++i) {
-        const int e = tid + i * kThreads, rr = e / CC, cl = e % CC;
-        const int r = r0 + rr, cc = c0 + cl;
+        const int e = tid + i * kThr, rr = e / CC, cl = e % CC;
+        const int r = r0 + rr, cc = col(c0, cl);
         const bool ok = r < r1 && cc < c1;
-        copy4(s + rr * ss + cl, ok ? g + (size_t)r * ld + cc : g, ok);
+        copy4(s + rr * ss + cl, ok ? g + (size_t)r * ld + off(cc, cl, gstride) : g, ok);
       }
     }
   }
@@ -158,39 +184,67 @@ struct Stage {
     if constexpr (kStaged) {
 #pragma unroll
       for (int i = 0; i < kElems; ++i) {
-        const int e = threadIdx.x + i * kThreads;
+        const int e = threadIdx.x + i * kThr;
         s[(e / CC) * ss + e % CC] = __uint_as_float((unsigned)held[i] << 16);
       }
     }
   }
 };
 
-// The product of one kBM x kBN tile over depth [k0, k1): acc (the warp's
-// kMT x 4 fragments of 16 x 8) += A(m0.., k) B(k, n0..), rows m < M and
-// columns n < Nn valid. kProducts: kThree (float A and B), kTwo (A exact in
-// TF32), kOne (both exact, or the one-product build).
-template <bool kAT, typename TA, typename TB, int kBM, int kProducts>
+// One segment of a product's depth: A (a, lda) and B (b, ldb) over depth
+// rows [k0, k1) of each; a_vec, b_vec: their float tiles take 16-byte
+// copies. A product may run over two segments one after the other (kernel
+// S: x then h against W then U); an empty segment has k1 == k0.
+template <typename TA, typename TB>
+struct Seg {
+  const TA* a;
+  int lda;
+  const TB* b;
+  int ldb;
+  int k0, k1;
+  bool a_vec, b_vec;
+};
+
+// The product of one kBM x kBNt tile over depth [k0, k1) (or over two
+// segments of depth, run2): acc (the warp's kMT x 4 fragments of 16 x 8) +=
+// A(m0.., k) B(k, n0..), rows m < M and columns n < Nn valid, by kThr =
+// 2 kBNt threads (warps: 2 along M x kBNt / 32 along N). kProducts: kThree
+// (float A and B), kTwo (A exact in TF32), kOne (both exact, or the
+// one-product build). kGather: B's columns gathered (Stage, gstride).
+template <bool kAT, typename TA, typename TB, int kBM, int kProducts, int kBNt = kBN,
+          bool kGather = false>
 struct Gemm {
+  static constexpr int kThr = 2 * kBNt;
+  static constexpr int kWarpsN = kBNt / 32;
   static constexpr int kWM = kBM / 2;  // warp tile rows; 32 columns
   static constexpr int kMT = kWM / 16;
   static constexpr int kNT = 4;
   static constexpr int kAS = kAT ? kBM + kPadMN : kBK + kPadK;
   static constexpr int kASize = kAT ? kBK * kAS : kBM * kAS;
-  static constexpr int kBS = kBN + kPadMN;
+  static constexpr int kBS = kBNt + kPadMN;
   static constexpr int kBSize = kBK * kBS;
   static constexpr size_t kSmem = (size_t)kStages * (kASize + kBSize) * sizeof(float);
   using Acc = float[kMT][kNT][4];
+  using Segment = Seg<TA, TB>;
 
-  // bsum: where given, the thread adds column tid % kBN of B's rows
-  // 8 (tid / kBN) .. + 8 of every stage (plain float sums, in order)
+  // bsum: where given, the thread adds column tid % kBNt of B's rows
+  // 8 (tid / kBNt) .. + 8 of every stage (plain float sums, in order)
   __device__ static void run(const TA* __restrict__ a, int lda, const TB* __restrict__ b,
                              int ldb, int m0, int M, int n0, int Nn, int k0, int k1, bool a_vec,
                              bool b_vec, float* smem, Acc& acc, float* bsum) {
+    run2(Segment{a, lda, b, ldb, k0, k1, a_vec, b_vec}, Segment{a, lda, b, ldb, 0, 0, false, false},
+         m0, M, n0, Nn, 0, smem, acc, bsum);
+  }
+
+  // the product over segment s1's depth, then s2's, in one ring of stages
+  // (a stage never holds depth of both)
+  __device__ static void run2(const Segment s1, const Segment s2, int m0, int M, int n0, int Nn,
+                              int gstride, float* smem, Acc& acc, float* bsum) {
     float* As = smem;
     float* Bs = smem + kStages * kASize;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gid = lane >> 2,
               tig = lane & 3;
-    const int wm = (warp >> 2) * kWM, wn = (warp & 3) * 32;
+    const int wm = (warp / kWarpsN) * kWM, wn = (warp % kWarpsN) * 32;
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -198,17 +252,19 @@ struct Gemm {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
 
-    Stage<TA, kAT ? kBK : kBM, kAT ? kBM : kBK> sa;
-    Stage<TB, kBK, kBN> sb;
-    const int nk = (k1 - k0 + kBK - 1) / kBK;
+    Stage<TA, kAT ? kBK : kBM, kAT ? kBM : kBK, kThr> sa;
+    Stage<TB, kBK, kBNt, kThr, kGather> sb;
+    const int nk1 = (s1.k1 - s1.k0 + kBK - 1) / kBK;
+    const int nk = nk1 + (s2.k1 - s2.k0 + kBK - 1) / kBK;
     auto fetch = [&](int kt) {
-      const int kb = k0 + kt * kBK, slot = kt % kStages;
+      const Segment& g = kt < nk1 ? s1 : s2;
+      const int kb = g.k0 + (kt < nk1 ? kt : kt - nk1) * kBK, slot = kt % kStages;
       if constexpr (kAT) {
-        sa.fetch(a, lda, kb, k1, m0, M, As + slot * kASize, kAS, a_vec);
+        sa.fetch(g.a, g.lda, kb, g.k1, m0, M, As + slot * kASize, kAS, g.a_vec);
       } else {
-        sa.fetch(a, lda, m0, M, kb, k1, As + slot * kASize, kAS, a_vec);
+        sa.fetch(g.a, g.lda, m0, M, kb, g.k1, As + slot * kASize, kAS, g.a_vec);
       }
-      sb.fetch(b, ldb, kb, k1, n0, Nn, Bs + slot * kBSize, kBS, b_vec);
+      sb.fetch(g.b, g.ldb, kb, g.k1, n0, Nn, Bs + slot * kBSize, kBS, g.b_vec, gstride);
     };
     auto put = [&](int kt) {
       const int slot = kt % kStages;
@@ -287,7 +343,7 @@ struct Gemm {
           for (int e = 0; e < 4; ++e) acc[mt][nt][e] += t[nt][e];
       }
       if (bsum != nullptr) {
-        const int col = tid % kBN, r0 = 8 * (tid / kBN);
+        const int col = tid % kBNt, r0 = 8 * (tid / kBNt);
 #pragma unroll
         for (int r = 0; r < 8; ++r) *bsum += bt[(r0 + r) * kBS + col];
       }
@@ -300,11 +356,11 @@ struct Gemm {
   // to the tile's origin
   __device__ __forceinline__ static int row_of(int mt, int e) {
     const int warp = threadIdx.x >> 5, gid = (threadIdx.x & 31) >> 2;
-    return (warp >> 2) * kWM + mt * 16 + gid + (e >= 2 ? 8 : 0);
+    return (warp / kWarpsN) * kWM + mt * 16 + gid + (e >= 2 ? 8 : 0);
   }
   __device__ __forceinline__ static int col_of(int nt, int e) {
     const int warp = threadIdx.x >> 5, tig = threadIdx.x & 3;
-    return (warp & 3) * 32 + nt * 8 + 2 * tig + (e & 1);
+    return (warp % kWarpsN) * 32 + nt * 8 + 2 * tig + (e & 1);
   }
 };
 

@@ -1,33 +1,45 @@
-// Kernel A: one whole GRU layer forward, x @ W computed inside the kernel.
+// Kernel A: one whole GRU layer forward with the x-projection, in two
+// phases on the card.
 //
 // Replaces the TPU kernels midi_vae_tpu/ops/fused_train.py::_fwdx_kernel
-// (emits the (T, B, H) h sequence) and ::_fwdx_last_kernel (emits only the
-// final h), reached through gru_layer_infer_x. One kernel covers both with
-// the emit_seq flag.
+// (:2057, through _fwdx_pallas :2084: the (T, B, H) h sequence) and
+// ::_fwdx_last_kernel (:2919, through _fwdx_last_pallas :2945: the final h
+// only), reached through gru_layer_train_x (:2298) and gru_layer_infer_x
+// (:2975): every GRU encoder layer in training and serving and every GRU
+// judge.
 //
-// Design: the TPU walks time with its sequential grid and keeps W, U, b in
-// VMEM. Here one block owns kRows = 8 batch rows and loops over all T steps
-// itself (blocks run in parallel and share nothing, so no state crosses a
-// block boundary); h for its rows lives in shared memory. W, U and b stay in
-// global memory and are re-read from L2 at every step (U alone is 768 KiB
-// at H = 256, above the 227 KB of shared memory a block can have). Per step
-// the block computes x_t @ W, h @ U[:, :2H], a barrier, then (r*h) @ U[:, 2H:].
+// Design. Inside a step the TPU kernel computes xp = x_t @ W + b (:2071)
+// before h @ U[:, :2H]; x_t @ W does not depend on h, so it leaves the
+// serial chain:
+//   1. the pre-pass (mvt_gru_layer_xproj): xp (T B, 3H) = x @ W + b over
+//      all T B rows at once, stored float32, on the tensor cores
+//      (xproj.cuh, kernel L's pre-pass): float32 operands through the
+//      three-product TF32 split, bf16 operands as one TF32 product each
+//      (the velocity layer's cast_x, D < 8, gives the same products);
+//   2. the chain (mvt_gru_layer_fwd_chain): the GRU recurrence over that
+//      xp on thread-block clusters (gru_cell_fwd.cuh has the design and
+//      what bounds it), for every cell activation (tanh, sigmoid, relu),
+//      emitting the h sequence (emit_seq = 1: training, whose backward C
+//      reads it) or only the final h (serving's last layers, the branches,
+//      the judges). The bf16 build reads the float xp, so x @ W + b enters
+//      the gates unrounded as in _fwdx_kernel, keeps r * h in float and
+//      carries h rounded to bf16 once a step (the Pallas h_s scratch and
+//      seq_ref have x's dtype).
+// What bounds the pre-pass is writing xp; the chain, its T steps.
 //
-// What bounds it: the serial chain of T steps, each one an L2 read of W and
-// U by every block. At B = 256 the grid is 32 blocks of H = 256 threads, so
-// most SMs idle; each U element loaded feeds kRows FMAs.
-//
-// A bf16 build (mvt_gru_layer_fwd_bf16) runs _fwdx_kernel in a bf16 model
-// (compute_dtype="bfloat16", the encoder layers of the training step): x,
-// h0, W, b and U in bf16, widened as they are loaded, x @ W and h @ U summed
-// in float, r * h kept in float, and the carried h and the stored sequence
-// rounded to bf16 once a step (the Pallas h_s scratch and seq_ref have x's
-// dtype). The velocity layer's cast_x (D < 8: x and W widened to float in
-// the JAX wrapper) gives the same products, so it takes this build too.
+// The first design stays as a named route for widths the chain does not
+// run (ops/_layout.py::gru_fwd_route picks it, never after a failed
+// launch): mvt_gru_layer_fwd, one block of kRows = 8 batch rows and H
+// threads for all T steps, h in shared memory, W, U and b re-read from L2
+// at every step, x_t @ W, h @ U[:, :2H] and (r * h) @ U[:, 2H:] as FFMA
+// (gru_common.cuh); in bf16 every operand widened as it is loaded, r * h
+// kept in float, the carried h rounded once a step. It is bound by its
+// serial steps, each an L2 read of W and U by each of B / 8 blocks.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (midi_vae_tpu_torch/ops/_build.py).
-#include "gru_common.cuh"
+#include "gru_cell_fwd.cuh"
+#include "xproj.cuh"
 
 namespace mvt {
 
@@ -90,6 +102,7 @@ int run(const TV* x, const TV* h0, const TV* w, const TV* b, const TV* u,
 
 }  // namespace mvt
 
+// The per-block route (see the note): every operand and output float32
 extern "C" int mvt_gru_layer_fwd(
     const float* x, const float* h0, const float* w, const float* b,
     const float* u, float* out, int T, int B, int D, int H, int act,
@@ -102,6 +115,66 @@ extern "C" int mvt_gru_layer_fwd_bf16(
     const mvt::bf16* b, const mvt::bf16* u, mvt::bf16* out, int T, int B,
     int D, int H, int act, int emit_seq, void* stream) {
   return mvt::run(x, h0, w, b, u, out, T, B, D, H, act, emit_seq, stream);
+}
+
+// The pre-pass: x (M, K), w (K, N), b (N,) contiguous, xp (M, N) float32;
+// M = T B, K = D, N = 3H.
+extern "C" int mvt_gru_layer_xproj(const float* x, const float* w, const float* b, float* xp,
+                                   int M, int K, int N, void* stream) {
+  return mvt::xproj(x, w, b, xp, M, K, N, stream);
+}
+
+// the bf16 build: x, w, b bf16, xp float32
+extern "C" int mvt_gru_layer_xproj_bf16(const mvt::bf16* x, const mvt::bf16* w,
+                                        const mvt::bf16* b, float* xp, int M, int K, int N,
+                                        void* stream) {
+  return mvt::xproj(x, w, b, xp, M, K, N, stream);
+}
+
+namespace mvt {
+
+template <typename TV>
+int gru_chain(const float* xp, const TV* h0, const TV* u, TV* hseq, TV* hlast, int T, int B,
+              int H, int act, int cluster, int rows, int splits, int stages, void* stream) {
+  const GruFwdArgs<TV> a{xp, h0, u, hseq, hlast, T, B, H, rows, splits, stages};
+  switch (act) {
+    case kTanh: return launch_gru_fwd_chain<TV, kTanh>(a, cluster, stream);
+    case kSigmoid: return launch_gru_fwd_chain<TV, kSigmoid>(a, cluster, stream);
+    case kRelu: return launch_gru_fwd_chain<TV, kRelu>(a, cluster, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace mvt
+
+// The chain: xp (T, B, 3H) float32, h0 (B, H), u (H, 3H), contiguous; either
+// hseq (T, B, H) or hlast (B, H). cluster, rows, splits and stages are the
+// plan of ops/_layout.py::gru_fwd_plan for build "A_chain" (float32) or
+// "A_chain_bf16".
+extern "C" int mvt_gru_layer_fwd_chain(const float* xp, const float* h0, const float* u,
+                                       float* hseq, float* hlast, int T, int B, int H, int act,
+                                       int cluster, int rows, int splits, int stages,
+                                       void* stream) {
+  return mvt::gru_chain(xp, h0, u, hseq, hlast, T, B, H, act, cluster, rows, splits, stages,
+                        stream);
+}
+
+// the bf16 build: xp float32, every other operand and output bf16
+extern "C" int mvt_gru_layer_fwd_chain_bf16(const float* xp, const mvt::bf16* h0,
+                                            const mvt::bf16* u, mvt::bf16* hseq,
+                                            mvt::bf16* hlast, int T, int B, int H, int act,
+                                            int cluster, int rows, int splits, int stages,
+                                            void* stream) {
+  return mvt::gru_chain(xp, h0, u, hseq, hlast, T, B, H, act, cluster, rows, splits, stages,
+                        stream);
+}
+
+// cudaOccupancyMaxActiveClusters of the chain's build (bf16 or float, the
+// resident or the streamed slice) at `cluster` CTAs a cluster
+extern "C" int mvt_gru_layer_fwd_max_clusters(int bf16, int cluster, int stream_slice,
+                                              int* out) {
+  return bf16 ? mvt::gru_fwd_max_clusters<mvt::bf16>(cluster, stream_slice, out)
+              : mvt::gru_fwd_max_clusters<float>(cluster, stream_slice, out);
 }
 
 extern "C" const char* mvt_error_string(int code) {

@@ -71,23 +71,12 @@
 
 namespace mvt {
 
-// bf16: (m-tile, unit group) items a warp owns at most
-constexpr int kFwdMaxItems = 2;
 // bf16: at most three m-tiles of 16 rows a cluster
 constexpr int kFwdMaxRowsMma = 48;
-// bf16: the h tile's row stride is H + kHPad values, so that ldmatrix's 8
-// rows of 16 bytes hit 32 banks
-constexpr int kHPad = 8;
-// float: a tile's 32 partial sums (or xp values) lie kTileStride floats
-// from the next tile's, so that a warp's neighbouring tiles hit 32 banks
-constexpr int kTileStride = 33;
 // float: depth rows of a streamed chunk of the slice, and the most threads
 // that share a tile's depth (a power of two dividing it)
 constexpr int kFwdChunk = 64;
 constexpr int kMaxSplits = 16;
-// bf16 with a float xp: the xp tile's rows are 4 Hc + kXsPad floats, so that
-// a half-warp's 8-byte reads (8 rows of 4 unit pairs) hit 32 banks
-constexpr int kXsPad = 8;
 
 // XT: xp's type (TV, or float for L's bf16 chain)
 template <typename TV, typename XT = TV>
@@ -127,35 +116,6 @@ __device__ __forceinline__ float lstm_pair(float gi, float gf, float gg, float g
   const float cn = activate<kSigmoid>(gf) * c + activate<kSigmoid>(gi) * activate<ACT>(gg);
   c = round_as<TV>(cn);
   return activate<kSigmoid>(go) * activate<ACT>(cn);
-}
-
-// X: n16 16-byte chunks of this CTA's h tile `tile` (chunk i at byte offset
-// off(i)) into the same place of every peer's tile
-template <typename Off>
-__device__ __forceinline__ void push_columns(cg::cluster_group& cluster, char* tile, int n16,
-                                             Off off, int C, int c) {
-  for (int i = threadIdx.x; i < n16 * (C - 1); i += blockDim.x) {
-    const size_t o = off(i % n16);
-    const int4 v = *reinterpret_cast<const int4*>(tile + o);
-    char* peer = cluster.map_shared_rank(tile, (c + 1 + i / n16) % C);
-    *reinterpret_cast<int4*>(peer + o) = v;
-  }
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldmatrix_x4(const bf16* p, unsigned& r0, unsigned& r1,
-                                            unsigned& r2, unsigned& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(const bf16* p, unsigned& r0, unsigned& r1,
-                                                  unsigned& r2, unsigned& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
 }
 
 // ---------------------------------------------------------------------------

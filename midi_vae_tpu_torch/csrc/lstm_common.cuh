@@ -1,6 +1,6 @@
-// Shared device code of the LSTM kernels (L: lstm_layer_fwd.cu, M:
-// lstm_decode.cu, S: lstm_step.cu): one LSTM cell step over a tile of batch
-// rows held in shared memory, and the decode heads' readout.
+// Shared device code of the per-block LSTM kernels (M: lstm_decode.cu, and
+// L's per-block route: lstm_layer_fwd.cu): one LSTM cell step over a tile
+// of batch rows held in shared memory, and the decode heads' readout.
 //
 // Layout (as the GRU kernels, gru_common.cuh): one block owns R = kRows
 // batch rows for the whole time loop; blockDim.x == H and thread j owns
@@ -52,27 +52,6 @@ __device__ __forceinline__ void lstm_x_gates(
       af[r] = fmaf(v[r], wf, af[r]);
       ag[r] = fmaf(v[r], wg, ag[r]);
       ao[r] = fmaf(v[r], wo, ao[r]);
-    }
-  }
-}
-
-// Column j's four gates of a precomputed x-projection (row-major (B, 4H),
-// x @ W + b) for rows [row0, row0 + R); rows past B read as zeros.
-template <int R = kRows, typename TX>
-__device__ __forceinline__ void load_gates4(
-    const TX* __restrict__ xp, int row0, int B, int H, float ai[R],
-    float af[R], float ag[R], float ao[R]) {
-  const int j = threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = row0 + r;
-    ai[r] = af[r] = ag[r] = ao[r] = 0.0f;
-    if (row < B) {
-      const TX* x = xp + (size_t)row * 4 * H;
-      ai[r] = to_f32(x[j]);
-      af[r] = to_f32(x[H + j]);
-      ag[r] = to_f32(x[2 * H + j]);
-      ao[r] = to_f32(x[3 * H + j]);
     }
   }
 }

@@ -1,7 +1,8 @@
 """Which kernel builds a layer or decode head takes, from the card's limits.
 
-Every kernel of the port but N, R, Q and Y (GRU: A to G, T, T xp, X, and
-the encoder stacks' U and V; LSTM: L, M, S, S xp) runs one
+Every kernel of the port but N, R, Q, Y, the chains of L and A, and S
+(GRU: B to G, T, T xp, X, A's per-block route, and the encoder stacks' U
+and V; LSTM: L's per-block route, M) runs one
 thread per hidden column (blockDim.x = H) and keeps a tile of batch rows per
 block, so whether a build launches at a width is a matter of two limits of
 the H100 (sm_90a):
@@ -13,7 +14,7 @@ the H100 (sm_90a):
 Kernels A to E, L, M, U and V are built without launch bounds; their register
 counts (``REGISTERS``, from ``nvcc -Xptxas -v`` on the card; ``chip_smoke.py``
 checks them against the build) decide how wide they go. F, G, the
-per-step cells (S, S xp, T, T xp), the GRU's bf16 whole-scan encoder X and
+per-step cells T and T xp, the GRU's bf16 whole-scan encoder X and
 the wide decode builds are compiled under ``__launch_bounds__(WIDE_THREADS)``,
 so the compiler guarantees that up to 512 threads launch (``chip_smoke.py``
 checks their registers from ptxas against it). N and R, the LSTM's backward
@@ -26,7 +27,12 @@ same shape (the section "The LSTM's forward over xp"); whether they launch
 is its plan (``fwd_plan``). L runs an x @ W pre-pass and then that chain
 (builds ``L_chain``, ``L_chain_bf16``); its first, per-block design (``L``,
 ``L_bf16`` here) is a route of its own for widths the chain does not take
-(``lstm_fwd_route``).
+(``lstm_fwd_route``). A runs the same pre-pass and then a GRU forward chain
+on clusters (builds ``A_chain``, ``A_chain_bf16``; ``gru_fwd_plan``); its
+per-block design (``A``, ``A_bf16``) is the route of widths that chain does
+not take (``gru_fwd_route``). S and S xp, the LSTM step, are one product on
+the tensor cores over tiles of batch rows x hidden units, whose plan
+(``step_plan``) launches at H a multiple of 32 up to ``STEP_MAX_H``.
 
 The training step takes one route for all its layers and heads:
 - ``"narrow"``, the GRU(256) path: A + C per encoder layer (the x-projection
@@ -109,7 +115,7 @@ REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75,
              "U": 78, "V": 172, "A_bf16": 94, "C_bf16": 96, "D_bf16": 144, "E_bf16": 167,
              "L_bf16": 80, "D_resid": 160, "E_resid": 168}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
-BOUNDED = ("F", "G", "D_wide", "E_wide", "S", "S_xp", "T", "T_xp", "X",
+BOUNDED = ("F", "G", "D_wide", "E_wide", "T", "T_xp", "X",
            "G_bf16", "D_wide_bf16", "E_wide_bf16", "E_wide_row8_bf16")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
 LSTM_NARROW_MAX_H = 256
@@ -126,8 +132,8 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
     """Dynamic shared memory of one block of ``kernel``: D is the layer's
     input width (A, C, L, N; U and V: of the stack, ``n_layers`` = 2, or of
     a branch, ``n_layers`` = 1), the head's output width (B, D, E, M) or the
-    cell's input width (S, T). The bf16 builds (X, those of A to E, G,
-    the wide D and E, S and T, and U's and V's), D's and E's bf16-residual
+    cell's input width (T). The bf16 builds (X, those of A to E, G,
+    the wide D and E, and T, and U's and V's), D's and E's bf16-residual
     builds and E's row-8 build hold the tiles of the builds they are twins
     of, in float: a bf16 value is widened as it is loaded."""
     kernel = kernel.removesuffix("_bf16").removesuffix("_resid").removesuffix("_row8")
@@ -142,8 +148,6 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
         "G": 5 * H,
         "L": D + 3 * H,  # x, h twice (h_{t-1} and h_t), c
         "M": 2 * D + (n_layers + 1) * H + n_layers * H,  # probs, logits, h tiles, c tiles
-        "S": D + 3 * H,  # as L
-        "S_xp": 3 * H,  # h twice, c
         "T": D + 2 * H,  # x, h, r * h
         "T_xp": 2 * H,  # h, r * h
         "X": 2 * H,  # as F
@@ -159,13 +163,19 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
 def launch_limit(kernel: str, H: int, smem: int) -> str | None:
     """Why a block of H threads of ``kernel`` with ``smem`` bytes of shared
     memory cannot launch on the card, or None when it can. For the LSTM's
-    backward (N, R and their bf16 builds: ``BPTT_BUILDS``) and its forward
-    over xp (Q, Q bf16, Y: ``FWD_BUILDS``) the chain's cluster plan decides,
-    whatever ``smem``: ``bptt_limit``, ``fwd_limit``."""
+    backward (N, R and their bf16 builds: ``BPTT_BUILDS``), its forward
+    over xp (Q, Q bf16, Y, L's chain: ``FWD_BUILDS``) and A's chain
+    (``GRU_FWD_BUILDS``) the chain's cluster plan decides, whatever
+    ``smem``: ``bptt_limit``, ``fwd_limit``, ``gru_fwd_limit``; for S and S
+    xp their tile plan: ``step_limit``."""
     if kernel in BPTT_BUILDS:
         return bptt_limit(kernel, H)
     if kernel in FWD_BUILDS:
         return fwd_limit(kernel, H)
+    if kernel in GRU_FWD_BUILDS:
+        return gru_fwd_limit(kernel, H)
+    if kernel in STEP_BUILDS:
+        return step_limit(kernel, H)
     if H < 32 or H % 32:
         return f"kernel {kernel} takes H a multiple of 32 (one warp per 32 columns), got H={H}"
     if kernel in BOUNDED:
@@ -503,6 +513,217 @@ def l_limit(H: int, D: int, bf16: bool = False) -> str | None:
     return None
 
 
+# ---------------------------------------------------------------------------
+# Kernel A (csrc/gru_layer_fwd.cu): L's x @ W pre-pass (csrc/xproj.cuh), then
+# the GRU forward chain of csrc/gru_cell_fwd.cuh over its float32 xp (builds
+# "A_chain", "A_chain_bf16"): clusters of 512-thread CTAs, CTA c owning the
+# units [c Hc, (c+1) Hc) and their 3 Hc gate columns of U (an H x 3 Hc
+# slice), the whole h and r * h of its rows in two tiles, two cluster
+# barriers a step; bf16 takes h @ U[:, :2H] on the tensor cores (the h tile
+# in bf16, rows in m-tiles of 16). C is the smallest cluster whose resident slice takes at
+# most half of a block's shared memory; float32 where none does (H = 512)
+# streams its slice at C = 16 in chunks of GRU_CHUNK depth rows through a
+# ring of ``stages`` (as many as fit, 2 to 8). ``rows`` is ceil(B / the
+# card's active clusters at that C), bounded by what fits; ``splits``
+# threads share a tile's depth. Where the chain does not launch, A's first,
+# per-block design (builds "A", "A_bf16": REGISTERS and smem_bytes) is a
+# route of its own, picked here before any launch.
+# ---------------------------------------------------------------------------
+
+GRU_FWD_BUILDS = ("A_chain", "A_chain_bf16")
+GRU_CHUNK = 32        # kGruChunk: depth rows of a streamed chunk of the float32 slice
+GRU_MAX_SPLITS = 16   # kGruMaxSplits
+REGISTERS.update({"A_chain": 128, "A_chain_bf16": 128})
+
+
+class GruFwdPlan(NamedTuple):
+    """How A's chain runs at (H, B): ``cluster`` CTAs a cluster, ``rows``
+    batch rows a cluster, ``clusters`` clusters, ``splits`` threads sharing
+    a tile's depth, ``stages`` chunks in the streamed ring (0 where the
+    slice is resident), ``smem`` bytes of dynamic shared memory a CTA."""
+
+    cluster: int
+    rows: int
+    clusters: int
+    splits: int
+    stages: int
+    smem: int
+
+
+def gru_chain_smem(H: int, C: int, rows: int, splits: int, stages: int, elem: int) -> int:
+    """``gru_chain_smem`` of csrc/gru_cell_fwd.cuh, in bytes: the slice
+    (``elem`` bytes a value) or the ``stages`` chunks of its ring; the h and
+    r * h tiles in float32, or in bf16 (P1 on the tensor cores) the h tile
+    in bf16 (rows in m-tiles of 16, H + H_PAD a row), the r * h tile, z's
+    tile and the float32 xp of z and r (rows, 2 Hc + XS_PAD); the partials
+    of splits 1 and up and the owners' xp (TILE_STRIDE floats a tile of 8
+    rows)."""
+    Hc, R8 = H // C, _round8(rows)
+    tiles = splits * TILE_STRIDE * Hc * (R8 // 8) * 4
+    if elem == 2:
+        return (3 * Hc * H * 2 + _round16(rows) * (H + H_PAD) * 2 + H * R8 * 4 + R8 * Hc * 4
+                + rows * (2 * Hc + XS_PAD) * 4 + tiles)
+    slice_ = stages * GRU_CHUNK * 2 * Hc * 4 if stages else 3 * Hc * H * elem
+    return slice_ + 2 * H * R8 * 4 + tiles
+
+
+def _gru_elem(build: str) -> int:
+    if build not in GRU_FWD_BUILDS:
+        raise ValueError(f"{build!r} is not one of {GRU_FWD_BUILDS}")
+    return 2 if build.endswith("_bf16") else 4
+
+
+def gru_fwd_cluster(build: str, H: int) -> tuple[int, bool]:
+    """(cluster size, whether the slice streams) of A's chain build at
+    width H; raises LaunchLimitError where no cluster holds it."""
+    elem = _gru_elem(build)
+    # the units a CTA takes: whole 16-byte copies of the slice (float32), or
+    # in bf16 whole groups of 32 (the z and r slice's 2 Hc / 8 chunks a row,
+    # swizzled over 8)
+    units = 4 if elem == 4 else 32
+    for C in CLUSTER_SIZES:
+        if H % C == 0 and (H // C) % units == 0 and 3 * (H // C) * H * elem <= SMEM_PER_BLOCK // 2:
+            return C, False
+    if elem == 4 and H % 64 == 0 and gru_chain_smem(H, 16, 1, 1, 2, elem) <= SMEM_PER_BLOCK:
+        return CLUSTER_SIZES[-1], True
+    raise LaunchLimitError(
+        f"kernel {build}'s chain takes H whose slice of U fits a CTA of a cluster of at most 16 "
+        f"({units} units a CTA at least; float32 streams it at H a multiple of 64), got H={H}")
+
+
+def gru_fwd_plan(build: str, H: int, B: int, max_clusters: int | None = None) -> GruFwdPlan:
+    """A's chain plan of build ``build`` (``GRU_FWD_BUILDS``) at width H and
+    batch B, with ``max_clusters`` clusters of its size active at once
+    (default: the H100's, ``MAX_CLUSTERS_H100``). Raises LaunchLimitError
+    where the chain does not launch."""
+    C, stream = gru_fwd_cluster(build, H)
+    elem = _gru_elem(build)
+    Hc = H // C
+    M = max_clusters or MAX_CLUSTERS_H100[C]
+    least = 2 if stream else 0  # the ring's fewest chunks
+    # the most rows a cluster takes: one tile of 8 rows a thread of split 0
+    # (bf16: each warp at most FWD_MAX_ITEMS (m-tile, 8 units) items of P1),
+    # and one split beside the slice
+    most = CHAIN_THREADS // Hc * 8
+    if elem == 2:
+        most = min(most, FWD_MAX_ITEMS * CHAIN_WARPS // (Hc // 8) * 16)
+    while gru_chain_smem(H, C, most, 1, least, elem) > SMEM_PER_BLOCK:
+        most -= 1
+    rows = max(1, min(-(-B // M), most))
+    tiles = Hc * _round8(rows) // 8
+    depth = GRU_CHUNK if stream else H  # what the splits share
+    splits = 1
+    while (splits < GRU_MAX_SPLITS and tiles * 2 * splits <= CHAIN_THREADS
+           and depth % (2 * splits) == 0
+           and gru_chain_smem(H, C, rows, 2 * splits, least, elem) <= SMEM_PER_BLOCK):
+        splits *= 2
+    stages = least
+    while stream and stages < min(8, H // GRU_CHUNK) and gru_chain_smem(
+            H, C, rows, splits, stages + 1, elem) <= SMEM_PER_BLOCK:
+        stages += 1
+    return GruFwdPlan(C, rows, -(-B // rows), splits, stages,
+                      gru_chain_smem(H, C, rows, splits, stages, elem))
+
+
+def gru_fwd_limit(build: str, H: int) -> str | None:
+    """Why A's chain build ``build`` cannot launch at width H, or None."""
+    try:
+        gru_fwd_cluster(build, H)
+    except LaunchLimitError as e:
+        return str(e)
+    return None
+
+
+def gru_fwd_route(H: int, D: int, bf16: bool = False) -> str:
+    """The route of kernel A at width H and input width D: "chain" (the
+    pre-pass and the chain) where the chain launches, else "block" where
+    the per-block build does; raises LaunchLimitError where neither does."""
+    sfx = "_bf16" if bf16 else ""
+    chain_why = gru_fwd_limit("A_chain" + sfx, H)
+    if chain_why is None:
+        return "chain"
+    block_why = launch_limit("A" + sfx, H, smem_bytes("A", H, D))
+    if block_why is None:
+        return "block"
+    raise LaunchLimitError(f"kernel A launches at H={H} neither on its chain ({chain_why}) "
+                           f"nor per block ({block_why})")
+
+
+def a_limit(H: int, D: int, bf16: bool = False) -> str | None:
+    """Why kernel A launches on no route at (H, D), or None."""
+    try:
+        gru_fwd_route(H, D, bf16)
+    except LaunchLimitError as e:
+        return str(e)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Kernels S and S xp (csrc/lstm_step.cu): one product [x | h] . [W ; U] on
+# the tensor cores a launch (S xp: h . U), with the cell math in its
+# epilogue. A block of 8 ``units`` threads owns ``rows`` batch rows x
+# ``units`` hidden units (their 4 gate columns); the grid is H / units x
+# ceil(B / rows) blocks. The plan is one of STEP_TILES: 32 x 8, except for
+# bf16 S where 32 x 8 makes more than STEP_WIDE_BLOCKS blocks, which takes
+# 64 x 16. Timed on the H100 at every path shape (tools/time_s_and_a.py
+# --only tiles; PERF.md, Findings): 32 x 8 was the fastest tile or
+# within 7 % of it everywhere but bf16 S at B = 256, H = 512 (512 blocks),
+# where 64 x 16 took 18 % less; bf16 at B = 256, H = 256 (256 blocks) kept
+# 32 x 8.
+# ---------------------------------------------------------------------------
+
+STEP_BUILDS = ("S", "S_bf16", "S_xp")
+# the widest S the configs reach: above it the JAX package's step cells
+# decline (``_fits_vmem`` at H = 1024) and a width mirror is Queue 2's work
+STEP_MAX_H = 512
+STEP_TILES = ((32, 8), (64, 16))  # (rows, units), by the kernel's tile index
+SMS = 132  # streaming multiprocessors of an H100 SXM
+STEP_WIDE_BLOCKS = 3 * SMS
+
+
+class StepPlan(NamedTuple):
+    """How S runs at (B, D, H): the tile's index in the kernel
+    (``STEP_TILES``), its ``rows`` and ``units``, ``threads`` a block,
+    ``blocks`` in the grid, ``smem`` bytes of dynamic shared memory a
+    block."""
+
+    tile: int
+    rows: int
+    units: int
+    threads: int
+    blocks: int
+    smem: int
+
+
+def step_smem(rows: int, units: int) -> int:
+    """gemm_tc.cuh's ring (4 stages) of a kernel S tile: A (rows x (16 + 4)
+    floats) and B (16 x (4 units + 8) floats) a stage."""
+    return 4 * 4 * (rows * (16 + 4) + 16 * (4 * units + 8))
+
+
+def step_limit(build: str, H: int) -> str | None:
+    """Why kernel S's ``build`` cannot launch at width H, or None."""
+    if build not in STEP_BUILDS:
+        raise ValueError(f"{build!r} is not one of {STEP_BUILDS}")
+    if H < 32 or H % 32 or H > STEP_MAX_H:
+        return (f"kernel {build} takes H a multiple of 32 (its tiles of 8 or 16 units) up to "
+                f"{STEP_MAX_H}, got H={H}")
+    return None
+
+
+def step_plan(B: int, D: int, H: int, elem: int = 4) -> StepPlan:
+    """Kernel S's tile plan at batch B, input width D (0: S xp) and width H,
+    operands of ``elem`` bytes; raises LaunchLimitError where it does not
+    launch."""
+    why = step_limit("S" if D else "S_xp", H)
+    if why is not None:
+        raise LaunchLimitError(why)
+    tile = int(elem == 2 and -(-B // 32) * (H // 8) > STEP_WIDE_BLOCKS)
+    rows, units = STEP_TILES[tile]
+    return StepPlan(tile, rows, units, 8 * units, -(-B // rows) * (H // units),
+                    step_smem(rows, units))
+
+
 def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> list[str]:
     """The limits the route's float32 builds hit: ``layers`` is (D_in, dx
     wanted) per encoder layer, ``heads`` (D, n_layers) per decode head."""
@@ -513,11 +734,12 @@ def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> 
             checks = [("N", 0)] if layers else []
         else:
             checks = [("Q", 0), ("R", 0)] if layers else []
-        # S per cell: the head's input for its first layer, h for the others
-        checks += [("S", smem_bytes("S", H, max(d, H) if n > 1 else d)) for d, n in heads]
+        # S per cell
+        whys += [step_limit("S", H)] if heads else []
     else:
         if route == "narrow":
-            checks = [(k, smem_bytes(k, H, d, dx=dx)) for d, dx in layers for k in ("A", "C")]
+            whys = [a_limit(H, d) for d, _dx in layers]
+            checks = [("C", smem_bytes("C", H, d, dx=dx)) for d, dx in layers]
         elif layers:  # the x-projection is outside: one tile for every layer
             checks = [(k, smem_bytes(k, H)) for k in ("F", "G")]
         else:
@@ -770,13 +992,13 @@ def bf16_layer_mode(cell_type: str, B: int, D: int, H: int, on_card: bool = Fals
         mode = "scan"
     if on_card:
         if mode == "x":
-            why = l_limit(H, D, True) if lstm else None
+            why = (l_limit if lstm else a_limit)(H, D, True)
             if why is not None:
                 raise NotImplementedError(f"the JAX package runs this bf16 part through "
                                           f"{LAYER_ROWS[cell_type][mode]}; their port build "
                                           f"does not launch: {why}")
             builds = ([("N_bf16", 0)] if lstm else
-                      [(k + "_bf16", smem_bytes(k, H, D, dx=dx)) for k in ("A", "C")])
+                      [("C_bf16", smem_bytes("C", H, D, dx=dx))])
         else:
             builds = ([("Q_bf16", 0), ("R_bf16", 0)] if lstm else
                       [(k, smem_bytes(k, H)) for k in ("X", "G_bf16")])

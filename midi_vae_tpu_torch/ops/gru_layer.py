@@ -1,14 +1,23 @@
-"""Kernel A: one whole GRU layer forward with the x-projection in the kernel.
+"""Kernel A: one whole GRU layer forward with the x-projection.
 
 Counterpart of ``midi_vae_tpu/ops/fused_train.py::gru_layer_infer_x``, whose
 Pallas kernels ``_fwdx_kernel`` (emits the h sequence) and
 ``_fwdx_last_kernel`` (emits the final h) the CUDA kernel
-``csrc/gru_layer_fwd.cu`` replaces; its source note gives the layout and what
-bounds it. ``gru_layer_reference`` is the plain PyTorch version
-(``_gru_layer_reference_x``): the CPU path and the kernel's oracle.
+``csrc/gru_layer_fwd.cu`` replaces; its source note gives the design and
+what bounds it. ``gru_layer_reference`` is the plain PyTorch version
+(``_gru_layer_reference_x``): the CPU path and the kernel's oracle. On the
+card A runs as two phases, each with its plain version and its launch
+counts: the x @ W pre-pass (``gru_layer_xproj``: xp = x @ W + b in float32
+on the tensor cores, kernel L's pre-pass, ``gru_xproj_reference``) and the
+GRU forward chain over that xp on thread-block clusters
+(``gru_layer_fwd_chain``, ``gru_fwd_chain_reference``; its plan
+``gru_chain_plan``); where the chain does not launch,
+``ops/_layout.py::gru_fwd_route`` picks A's first, per-block design
+(``gru_layer_block``). Each phase counts its own launches (``A_PHASES``);
+``gru_layer`` launches nothing itself.
 
 ``gru_layer`` takes the plain version only for CPU tensors; a CUDA tensor
-launches the kernel or raises.
+launches the kernels or raises.
 
 Training (``gru_layer_train_x``, counterpart of
 ``midi_vae_tpu/ops/fused_train.py::gru_layer_train_x``) is a
@@ -160,19 +169,65 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 _BF16 = torch.bfloat16
 
 
+def gru_xproj_reference(x, w, b):
+    """Plain version of A's pre-pass: xp (T, B, 3H) = x (T, B, D) @ W + b in
+    float32, every operand widened (in bf16 the products of bf16 values
+    summed in float32, ``_fwdx_kernel`` :2071; D < 8 is its cast_x case, the
+    same products)."""
+    T, B, D = x.shape
+    return (x.reshape(T * B, D).float() @ w.float() + b.float()).reshape(T, B, -1)
+
+
+def gru_fwd_chain_reference(xp, h0, u, activation="tanh", return_sequences=False):
+    """Plain version of A's chain over a float32 xp (T, B, 3H): the h
+    sequence or the final h in h0's dtype (``_fwdx_kernel``'s recurrence: xp
+    enters the gates unrounded, r * h in float32, h rounded once a step)."""
+    return _scan_xp(xp, h0, u, cell_activation(activation), return_sequences)
+
+
 @functools.cache
 def _kernel():
-    return _build.load_builds("gru_layer_fwd", "mvt_gru_layer_fwd",
-                              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    """(library, {"block" | "xproj" | "chain": {dtype: entry}}) of kernel A."""
+    lib, block = _build.load_builds("gru_layer_fwd", "mvt_gru_layer_fwd",
+                                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                                    + [ctypes.c_void_p])
+    xproj = _build.load_builds("gru_layer_fwd", "mvt_gru_layer_xproj",
+                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])[1]
+    chain = _build.load_builds("gru_layer_fwd", "mvt_gru_layer_fwd_chain",
+                               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])[1]
+    return lib, {"block": block, "xproj": xproj, "chain": chain}
 
 
-def gru_layer(x, h0, w, b, u, activation="tanh", return_sequences=False):
-    """GRU layer forward, x (T, B, D) time-major, every operand float32 or
-    every one bfloat16.
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
-    Returns the (T, B, H) h sequence when ``return_sequences`` else the final
-    h (B, H), in the operands' dtype. CPU tensors run ``gru_layer_reference``;
-    CUDA tensors launch kernel A's build of their dtype."""
+
+@functools.cache
+def _max_clusters(lib_name, bf16, cluster, stream):
+    """The card's cudaOccupancyMaxActiveClusters of the chain in library
+    ``lib_name`` (A's forward chain; N's and R's backward chains, Q's and
+    Y's forward chain; one CTA an SM) at ``cluster`` CTAs a cluster."""
+    lib, fn = _build.load_entry(lib_name, f"mvt_{lib_name}_max_clusters",
+                                [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    _build.check(lib, fn(int(bf16), cluster, int(stream), ctypes.byref(out)),
+                 f"{lib_name} cudaOccupancyMaxActiveClusters")
+    return out.value
+
+
+@functools.cache
+def gru_chain_plan(build, H, B):
+    """A's chain plan (``_layout.gru_fwd_plan``) of build ``build``
+    (``_layout.GRU_FWD_BUILDS``) at (H, B), at the card's active clusters;
+    raises LaunchLimitError where it does not launch."""
+    C, stream = _layout.gru_fwd_cluster(build, H)
+    return _layout.gru_fwd_plan(build, H, B, _max_clusters(
+        "gru_layer_fwd", build.endswith("_bf16"), C, stream))
+
+
+def _check_layer(x, h0, w, b, u, activation, what):
+    """Shapes of kernel A's operands and, on the card, their device, dtype
+    and contiguity. Returns (T, B, D, H, dtype or None off the card)."""
     if activation not in CELL_ACTIVATIONS:
         raise ValueError(f"unsupported GRU kernel activation {activation!r}")
     if x.dim() != 3:
@@ -184,28 +239,120 @@ def gru_layer(x, h0, w, b, u, activation="tanh", return_sequences=False):
         if tuple(t.shape) != expected[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
     if x.device.type == "cpu":
-        return gru_layer_reference(x, h0, w, b, u, activation, return_sequences)
+        return T, B, D, H, None
     if x.device.type != "cuda":
-        raise ValueError(f"gru_layer runs on cpu or cuda tensors, not {x.device}")
+        raise ValueError(f"{what} runs on cpu or cuda tensors, not {x.device}")
     dtype = check_operands({"x": x, "h0": h0, "w": w, "b": b, "u": u}, x.device, _build.DTYPES)
     if T < 1 or B < 1:
         raise ValueError(f"kernel A takes T >= 1 and B >= 1; got T={T} B={B}")
+    return T, B, D, H, dtype
+
+
+def gru_layer_xproj(x, w, b):
+    """Kernel A's pre-pass: ``gru_xproj_reference``, xp (T, B, 3H) float32.
+    CPU tensors run the plain version; CUDA tensors (every operand float32
+    or every one bfloat16) launch its build of their dtype."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (T, B, D), got {tuple(x.shape)}")
+    T, B, D = x.shape
+    G = w.shape[-1]
+    for name, t, shape in (("w", w, (D, G)), ("b", b, (G,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if x.device.type == "cpu":
+        return gru_xproj_reference(x, w, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"gru_layer_xproj runs on cpu or cuda tensors, not {x.device}")
+    dtype = check_operands({"x": x, "w": w, "b": b}, x.device, _build.DTYPES)
+    xp = torch.empty(T, B, G, device=x.device, dtype=torch.float32)
+    lib, fns = _kernel()
+    rc = fns["xproj"][dtype](_ptr(x), _ptr(w), _ptr(b), _ptr(xp), T * B, D, G, _stream(x))
+    _build.check(lib, rc, "gru_layer_fwd pre-pass launch")
+    _build.count_launch(gru_layer_xproj, dtype)
+    return xp
+
+
+def gru_layer_fwd_chain(xp, h0, u, activation="tanh", return_sequences=False):
+    """Kernel A's chain over a float32 xp (T, B, 3H), h0 and U float32 or
+    both bfloat16: ``gru_fwd_chain_reference``. CPU tensors run the plain
+    version; CUDA tensors launch its build of h0's dtype on clusters
+    (``gru_chain_plan``)."""
+    if activation not in CELL_ACTIVATIONS:
+        raise ValueError(f"unsupported GRU kernel activation {activation!r}")
+    if xp.dim() != 3:
+        raise ValueError(f"xp must be (T, B, 3H), got {tuple(xp.shape)}")
+    T, B = xp.shape[:2]
+    H = u.shape[0]
+    for name, t, shape in (("xp", xp, (T, B, 3 * H)), ("h0", h0, (B, H)), ("u", u, (H, 3 * H))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if xp.device.type == "cpu":
+        return gru_fwd_chain_reference(xp, h0, u, activation, return_sequences)
+    if xp.device.type != "cuda":
+        raise ValueError(f"gru_layer_fwd_chain runs on cpu or cuda tensors, not {xp.device}")
+    dtype = check_operands({"h0": h0, "u": u}, xp.device, _build.DTYPES)
+    check_operands({"xp": xp}, xp.device, (torch.float32,))
+    if T < 1 or B < 1:
+        raise ValueError(f"kernel A takes T >= 1 and B >= 1; got T={T} B={B}")
+    plan = gru_chain_plan("A_chain_bf16" if dtype == _BF16 else "A_chain", H, B)
+    out = torch.empty((T, B, H) if return_sequences else (B, H), device=xp.device, dtype=dtype)
+    null = ctypes.c_void_p(None)
+    lib, fns = _kernel()
+    rc = fns["chain"][dtype](
+        _ptr(xp), _ptr(h0), _ptr(u), _ptr(out) if return_sequences else null,
+        null if return_sequences else _ptr(out), T, B, H, CELL_ACTIVATIONS[activation],
+        plan.cluster, plan.rows, plan.splits, plan.stages, _stream(xp))
+    _build.check(lib, rc, "gru_layer_fwd chain launch")
+    _build.count_launch(gru_layer_fwd_chain, dtype)
+    return out
+
+
+def gru_layer_block(x, h0, w, b, u, activation="tanh", return_sequences=False):
+    """Kernel A's per-block route (its first design), as ``gru_layer``: CPU
+    tensors run ``gru_layer_reference``; CUDA tensors launch its build of
+    their dtype where ``_layout`` lets it launch."""
+    T, B, D, H, dtype = _check_layer(x, h0, w, b, u, activation, "gru_layer_block")
+    if dtype is None:
+        return gru_layer_reference(x, h0, w, b, u, activation, return_sequences)
     build = "A_bf16" if dtype == _BF16 else "A"
     _layout.require(build, H, _layout.smem_bytes(build, H, D))
     out = torch.empty((T, B, H) if return_sequences else (B, H), device=x.device, dtype=dtype)
     lib, fns = _kernel()
-    rc = fns[dtype](
+    rc = fns["block"][dtype](
         _ptr(x), _ptr(h0), _ptr(w), _ptr(b), _ptr(u), _ptr(out),
-        T, B, D, H, CELL_ACTIVATIONS[activation], int(return_sequences),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        T, B, D, H, CELL_ACTIVATIONS[activation], int(return_sequences), _stream(x),
     )
     _build.check(lib, rc, "gru_layer_fwd launch")
-    _build.count_launch(gru_layer, dtype)
+    _build.count_launch(gru_layer_block, dtype)
     return out
 
 
-gru_layer.launches = 0
-gru_layer.launches_bf16 = 0
+def gru_layer(x, h0, w, b, u, activation="tanh", return_sequences=False):
+    """GRU layer forward, x (T, B, D) time-major, every operand float32 or
+    every one bfloat16.
+
+    Returns the (T, B, H) h sequence when ``return_sequences`` else the final
+    h (B, H), in the operands' dtype. CPU tensors run ``gru_layer_reference``;
+    CUDA tensors run kernel A's build of their dtype on the route
+    ``_layout.gru_fwd_route`` picks: the pre-pass and the chain, or the
+    per-block route (``gru_layer_block``). Each of those wrappers counts its
+    own launches (``A_PHASES``); this one launches nothing itself."""
+    T, B, D, H, dtype = _check_layer(x, h0, w, b, u, activation, "gru_layer")
+    if dtype is None:
+        return gru_layer_reference(x, h0, w, b, u, activation, return_sequences)
+    if _layout.gru_fwd_route(H, D, dtype == _BF16) == "block":
+        out = gru_layer_block(x, h0, w, b, u, activation, return_sequences)
+    else:
+        gru_chain_plan("A_chain_bf16" if dtype == _BF16 else "A_chain", H, B)  # raises first
+        out = gru_layer_fwd_chain(gru_layer_xproj(x, w, b), h0, u, activation, return_sequences)
+    return out
+
+
+# the wrappers that launch A's kernels, each counting on ``.launches`` and
+# ``.launches_bf16``
+A_PHASES = ("gru_layer_xproj", "gru_layer_fwd_chain", "gru_layer_block")
+for _fn in (gru_layer_xproj, gru_layer_fwd_chain, gru_layer_block):
+    _fn.launches = _fn.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------

@@ -85,7 +85,7 @@ import torch
 
 from . import _build, _layout
 from .grad_reduce import lstm_u_grad, lstm_weight_grads
-from .gru_layer import CELL_ACTIVATIONS, _ptr, cell_activation, check_operands
+from .gru_layer import CELL_ACTIVATIONS, _max_clusters, _ptr, cell_activation, check_operands
 
 
 def lstm_step(xp, h, c, u, act):
@@ -457,19 +457,6 @@ def _phases(lib_name):
     else:  # R's bf16 chain also writes the rounded dxp
         chain[torch.bfloat16].argtypes = [ctypes.c_void_p] * 10 + _CHAIN_INTS
     return lib, fns
-
-
-@functools.cache
-def _max_clusters(lib_name, bf16, cluster, stream):
-    """The card's cudaOccupancyMaxActiveClusters of the chain in library
-    ``lib_name`` (N's and R's backward chains, Q's and Y's forward chain;
-    one CTA an SM) at ``cluster`` CTAs a cluster."""
-    lib, fn = _build.load_entry(lib_name, f"mvt_{lib_name}_max_clusters",
-                                [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
-    out = ctypes.c_int(0)
-    _build.check(lib, fn(int(bf16), cluster, int(stream), ctypes.byref(out)),
-                 f"{lib_name} cudaOccupancyMaxActiveClusters")
-    return out.value
 
 
 def chain_plan(letter, H, B, dtype):

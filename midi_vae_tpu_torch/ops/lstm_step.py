@@ -7,7 +7,10 @@ Counterpart of ``midi_vae_tpu/ops/fused_lstm.py``: ``lstm_cell_step`` is its
 ``lstm_recurrent_step`` (:181) over a precomputed x-projection, whose
 ``_lstm_recurrent_kernel`` (through ``_lstm_recurrent_pallas``) kernel S xp
 replaces. Both live in ``csrc/lstm_step.cu``, whose source note gives the
-layout and what bounds them. ``lstm_cell_step_reference`` and
+design (one product on the tensor cores a launch, the cell math in its
+epilogue) and what bounds them; the tile plan is ``_layout.step_plan``,
+cached per shape (``_tile``), so that a step adds no host work beyond the
+launch. ``lstm_cell_step_reference`` and
 ``lstm_recurrent_step_reference`` are the plain PyTorch versions, computed
 as the Pallas kernels compute: the CPU path and the kernels' oracles.
 
@@ -44,9 +47,9 @@ import functools
 import torch
 
 from . import _build, _layout
-from .gru_layer import CELL_ACTIVATIONS, _ptr, cell_activation, check_operands
+from .gru_layer import CELL_ACTIVATIONS, cell_activation, check_operands
 from .gru_step import RematStep
-from .lstm_layer import _check_shapes, _on, _stream, lstm_step
+from .lstm_layer import _check_shapes, _on, lstm_step
 
 
 def lstm_cell_step_reference(x, h, c, w, b, u, activation="tanh"):
@@ -71,11 +74,27 @@ def lstm_recurrent_step_reference(xp, h, c, u, activation="tanh"):
 def _kernels():
     lib = _build.load("lstm_step")
     step, step_bf16, step_xp = lib.mvt_lstm_step, lib.mvt_lstm_step_bf16, lib.mvt_lstm_step_xp
-    step.argtypes = step_bf16.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    step.argtypes = step_bf16.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
-    step_xp.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    step_xp.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     step.restype = step_bf16.restype = step_xp.restype = ctypes.c_int
     return lib, {torch.float32: step, torch.bfloat16: step_bf16}, step_xp
+
+
+def _raw_stream(t):
+    """The handle of the current CUDA stream of t's device, as an int,
+    without building a torch.cuda.Stream object: a training step launches S
+    196 times on a host-bound path (on the H100's host the Stream object
+    took 12 us a call, the raw handle 0.2: PERF.md, Findings)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+@functools.cache
+def _tile(B, D, H, elem):
+    """The kernel's tile index of ``_layout.step_plan`` at (B, D, H) (D = 0:
+    S xp) for operands of ``elem`` bytes; raises LaunchLimitError where S
+    does not launch."""
+    return _layout.step_plan(B, D, H, elem).tile
 
 
 def lstm_cell_step_fwd(x, h, c, w, b, u, activation="tanh"):
@@ -97,12 +116,12 @@ def lstm_cell_step_fwd(x, h, c, w, b, u, activation="tanh"):
     dtype = check_operands(named, x.device, (torch.float32, torch.bfloat16))
     if B < 1:
         raise ValueError(f"kernel S takes B >= 1; got B={B}")
-    _layout.require("S", H, _layout.smem_bytes("S", H, D))
-    h_out = torch.empty(B, H, device=x.device, dtype=dtype)
-    c_out = torch.empty_like(h_out)
+    tile = _tile(B, D, H, x.element_size())
+    h_out, c_out = torch.empty_like(h), torch.empty_like(h)
     lib, steps, _ = _kernels()
-    rc = steps[dtype](_ptr(x), _ptr(h), _ptr(c), _ptr(w), _ptr(b), _ptr(u), _ptr(h_out),
-                      _ptr(c_out), B, D, H, CELL_ACTIVATIONS[activation], _stream(x))
+    rc = steps[dtype](x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(), b.data_ptr(),
+                      u.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), B, D, H,
+                      CELL_ACTIVATIONS[activation], tile, _raw_stream(x))
     _build.check(lib, rc, "lstm_step launch")
     _build.count_launch(lstm_cell_step_fwd, dtype)
     return h_out, c_out
@@ -128,12 +147,11 @@ def lstm_recurrent_step_fwd(xp, h, c, u, activation="tanh"):
     check_operands(named, xp.device)
     if B < 1:
         raise ValueError(f"kernel S xp takes B >= 1; got B={B}")
-    _layout.require("S_xp", H, _layout.smem_bytes("S_xp", H))
-    h_out = torch.empty(B, H, device=xp.device, dtype=torch.float32)
-    c_out = torch.empty_like(h_out)
+    tile = _tile(B, 0, H, 4)
+    h_out, c_out = torch.empty_like(h), torch.empty_like(h)
     lib, _, fn = _kernels()
-    rc = fn(_ptr(xp), _ptr(h), _ptr(c), _ptr(u), _ptr(h_out), _ptr(c_out), B, H,
-            CELL_ACTIVATIONS[activation], _stream(xp))
+    rc = fn(xp.data_ptr(), h.data_ptr(), c.data_ptr(), u.data_ptr(), h_out.data_ptr(),
+            c_out.data_ptr(), B, H, CELL_ACTIVATIONS[activation], tile, _raw_stream(xp))
     _build.check(lib, rc, "lstm_step_xp launch")
     lstm_recurrent_step_fwd.launches += 1
     return h_out, c_out

@@ -11,10 +11,11 @@ card, the route of the step, the median wall time per step (host clock
 around work that ends in a synchronize), note-steps/s (B x 64 output steps
 per step; windows/s for a judge), and from a torch.profiler window of STEPS
 steps the device time per kernel name, per kernel of the port (A, C, D, E,
-F, G, the wide D and E, L's pre-pass and per-block route, N's and R's
-phases, the forward chain of Q and L, S, S xp, T, T xp, X, Y, W; the bf16
-builds of A, C, D, E, G, the wide D and E, L, the phases, S, T and W apart,
-the bf16 chain of Q, Y and L together) and for
+F, G, the wide D and E, A's and L's pre-pass, A's chain, A's and L's
+per-block routes, N's and R's phases, the forward chain of Q and L, S, S
+xp, T, T xp, X, Y, W; the bf16 builds of A, C, D, E, G, the wide D and E,
+L, the phases, S, T and W apart, the bf16 chain of Q, Y and L together) and
+for
 everything else, per autograd node of the backward, and the device's idle
 share.
 
@@ -35,7 +36,12 @@ import numpy as np
 
 # kernel name prefixes of the port's hand-written kernels
 PORT_KERNELS = {
-    "gru_layer_fwd_kernel": "A gru_layer_fwd",
+    # A: its x @ W pre-pass (xproj, L's: one config runs A or L), its
+    # chain, its per-block route (no config at H <= 512 takes it)
+    "xproj_kernel": "A/L xproj xproj",
+    "gru_fwd_chain_kernel": "A chain gru_fwd_chain",
+    "gru_fwd_chain_mma_kernel": "A chain bf16 gru_fwd_chain_mma",
+    "gru_layer_fwd_kernel": "A block gru_layer_fwd",
     "gru_decode_kernel": "B gru_decode",
     "gru_layer_bwd_kernel": "C gru_layer_bwd",
     "gru_decode_train_kernel": "D gru_decode_train",
@@ -44,9 +50,8 @@ PORT_KERNELS = {
     "gru_layer_xp_bwd_kernel": "G gru_layer_xp_bwd",
     "gru_decode_train_wide_kernel": "D wide gru_decode_train_wide",
     "gru_decode_bwd_wide_kernel": "E wide gru_decode_bwd_wide",
-    # L: its x @ W pre-pass; its chain is the forward chain below; its
-    # per-block route (no config at H <= 512 takes it)
-    "lstm_xproj_kernel": "L xproj lstm_xproj",
+    # L: its x @ W pre-pass is A's (above); its chain is the forward chain
+    # below; its per-block route (no config at H <= 512 takes it)
     "lstm_layer_fwd_kernel": "L block lstm_layer_fwd",
     # the forward chain of Q, Y and L: the float32 build (Q or L) and the
     # bf16 one (Q bf16, Y or L bf16: one config's encoder runs one of them)
@@ -65,9 +70,10 @@ PORT_KERNELS = {
     "grad_reduce": "W grad_reduce",
 }
 # the groups whose kernels have a bf16 build, counted apart
-BF16_BUILDS = ("A gru_layer_fwd", "C gru_layer_bwd", "D gru_decode_train", "E gru_decode_bwd",
+BF16_BUILDS = ("A/L xproj xproj", "A chain gru_fwd_chain", "A block gru_layer_fwd",
+               "C gru_layer_bwd", "D gru_decode_train", "E gru_decode_bwd",
                "G gru_layer_xp_bwd", "D wide gru_decode_train_wide",
-               "E wide gru_decode_bwd_wide", "L xproj lstm_xproj", "L block lstm_layer_fwd",
+               "E wide gru_decode_bwd_wide", "L block lstm_layer_fwd",
                "N/R chain lstm_bwd_chain",
                "N dx lstm_bwd_dx", "S lstm_step", "T gru_step",
                "W grad_reduce")

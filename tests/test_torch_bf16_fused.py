@@ -122,7 +122,8 @@ def test_layer_train_x_bf16_matches_the_pallas_kernels(D, rs):
     for name, g, w in zip(("dx", "dh0", "dW", "db", "dU"), grads, want_grads):
         assert g.dtype == BF and w.dtype == jnp.bfloat16, name
         _assert_close(g, w, name)
-    assert port_layer.gru_layer.launches_bf16 == port_layer.gru_layer_bwd.launches_bf16 == 0
+    assert all(getattr(port_layer, f).launches_bf16 == 0 for f in port_layer.A_PHASES)
+    assert port_layer.gru_layer_bwd.launches_bf16 == 0
 
 
 def test_layer_backward_is_the_float32_transposition_not_autograd():

@@ -28,7 +28,7 @@ from midi_vae_tpu.training.classifier_trainer import ClassifierTrainer, load_cla
 from midi_vae_tpu_torch import bridge
 from midi_vae_tpu_torch.cli import transfer as transfer_cli
 from midi_vae_tpu_torch.models import classifier as port_clf
-from midi_vae_tpu_torch.ops.gru_layer import gru_layer
+from midi_vae_tpu_torch.ops import gru_layer as port_gru_layer
 from midi_vae_tpu_torch.ops import lstm_layer as port_lstm_layer
 from midi_vae_tpu_torch.training import checkpoint as port_ckpt
 
@@ -60,8 +60,9 @@ def test_predict_matches_jax(kind, cell_type):
     port = port_clf.StyleClassifier(pspec, jax.tree_util.tree_map(np.asarray, params))
     x = kind_inputs(kind, 5)
     want = np.asarray(jm.predict(params, jnp.asarray(x)))
-    counters = ([getattr(port_lstm_layer, f) for f in port_lstm_layer.L_PHASES]
-                if cell_type == "LSTM" else [gru_layer])
+    layer, phases = ((port_lstm_layer, port_lstm_layer.L_PHASES) if cell_type == "LSTM"
+                     else (port_gru_layer, port_gru_layer.A_PHASES))
+    counters = [getattr(layer, f) for f in phases]
     with torch.inference_mode():
         got = port.predict(torch.from_numpy(x)).numpy()
     assert got.shape == (5, pspec.num_classes)

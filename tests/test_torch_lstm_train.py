@@ -417,23 +417,25 @@ def test_lstm_route_at_256_and_512():
 
 @pytest.mark.parametrize("H", [256, 512])
 def test_layout_of_n_q_r_and_s(H):
-    """N, Q, R and S launch at the LSTM model's widths; S's tiles are what
-    the kernel allocates, N's and R's chain (their serial phase) and Q's
-    forward chain run on clusters whose plans fit a block's shared memory
+    """N, Q, R and S launch at the LSTM model's widths; S's tile ring is
+    what the kernel allocates (gemm_tc.cuh's four stages of A and B), N's
+    and R's chain (their serial phase) and Q's forward chain run on clusters
+    whose plans fit a block's shared memory
     (``tests/test_torch_lstm_bptt_phases.py`` and
-    ``tests/test_torch_lstm_fwd_chain.py`` hold the plans); S is
-    launch-bounded at 512 threads, R's and Q's bf16 chains do not fit at
-    1024."""
+    ``tests/test_torch_lstm_fwd_chain.py`` hold the plans); S stops at 512
+    (``STEP_MAX_H``), R's and Q's bf16 chains do not fit at 1024."""
     plan = _layout.fwd_plan("Q", H, B)
     assert plan.smem == _layout.fwd_chain_smem(H, plan.cluster, plan.rows, plan.splits,
                                                plan.stages, 4)
-    assert _layout.smem_bytes("S", H, 61) == 4 * 8 * (61 + 3 * H)
-    for kernel, smem in (("N", 0), ("Q", 0), ("R", 0), ("S", _layout.smem_bytes("S", H, H))):
-        assert _layout.launch_limit(kernel, H, smem) is None, kernel
+    step = _layout.step_plan(B, 61, H)
+    assert step.smem == 4 * 4 * (step.rows * 20 + 16 * (4 * step.units + 8)) <= 48 * 1024
+    assert step.threads == 8 * step.units and step.blocks == -(-B // step.rows) * (H // step.units)
+    for kernel in ("N", "Q", "R", "S", "S_bf16"):
+        assert _layout.launch_limit(kernel, H, 0) is None, kernel
     for kernel in ("N", "R"):
         assert _layout.bptt_plan(kernel, H, B).smem <= _layout.SMEM_PER_BLOCK
     assert plan.smem <= _layout.SMEM_PER_BLOCK
-    assert "__launch_bounds__" in _layout.launch_limit("S", 1024, 0)
+    assert "up to 512" in _layout.launch_limit("S", 1024, 0)
     assert "shared memory" in _layout.launch_limit("Q_bf16", 1024, 0)
     assert "shared memory" in _layout.launch_limit("R_bf16", 1024, 0)
 

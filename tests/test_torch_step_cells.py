@@ -114,21 +114,28 @@ def test_cells_refuse_what_the_kernels_do_not_take():
 
 @pytest.mark.parametrize("H", [256, 512, 1024])
 def test_layout_of_t_t_xp_and_s_xp(H):
-    """T, T xp and S xp launch at the models' widths (256, 512) under
-    __launch_bounds__(512), with their tiles of 8 rows; 1024 threads do
-    not launch."""
+    """T and T xp launch at the models' widths (256, 512) under
+    __launch_bounds__(512), with their tiles of 8 rows, and S xp on its
+    tile plan (no x segment: the same tiles as S); at 1024 T's threads do
+    not launch and S xp stops at ``STEP_MAX_H``."""
     assert _layout.smem_bytes("T", H, 61) == 4 * 8 * (61 + 2 * H)
     assert _layout.smem_bytes("T_xp", H) == 4 * 8 * 2 * H
-    assert _layout.smem_bytes("S_xp", H) == 4 * 8 * 3 * H
     for kernel, smem in (("T", _layout.smem_bytes("T", H, H)), ("T_xp", _layout.smem_bytes("T_xp", H)),
-                         ("S_xp", _layout.smem_bytes("S_xp", H))):
+                         ("S_xp", 0)):
         why = _layout.launch_limit(kernel, H, smem)
         if H <= 512:
             assert why is None, kernel
         else:
-            assert "__launch_bounds__(512)" in why
+            assert ("__launch_bounds__(512)" if kernel != "S_xp" else "up to 512") in why
             with pytest.raises(_layout.LaunchLimitError):
                 _layout.require(kernel, H, smem)
+    if H <= 512:
+        plan = _layout.step_plan(B, 0, H)
+        assert _layout.STEP_TILES[plan.tile] == (plan.rows, plan.units)
+        assert plan.smem == _layout.step_smem(plan.rows, plan.units) and plan.threads == 8 * plan.units
+    else:
+        with pytest.raises(_layout.LaunchLimitError, match="up to 512"):
+            _layout.step_plan(B, 0, H)
 
 
 # ---------------------------------------------------------------------------

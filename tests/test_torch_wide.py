@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from midi_vae_tpu.config import Config, small_test_config
@@ -371,11 +372,16 @@ def test_ptxas_report_is_parsed():
 
 def test_wide_params_bridge_bit_equal():
     """The wide model's parameters: the port's numpy init equals the JAX
-    package's at lstm_size = 512, and the bridge round-trips them."""
+    package's at lstm_size = 512, and the bridge round-trips them. Both
+    inits run numpy's QR (the orthogonal init) on one BLAS thread: OpenBLAS
+    starts one thread a core, and beside the suite's other busy workers
+    those threads wait on each other (1.1 s alone, 198 s beside five busy
+    processes on eight cores; 5 s there on one thread)."""
     cfg = Config(lstm_size=512)
     key = np.array([0, cfg.seed], np.uint32)
-    want = bridge.flatten(jax.tree_util.tree_map(np.asarray, JaxVAE(cfg).init_params(key)))
-    model = MidiVAE(cfg)
+    with threadpoolctl.threadpool_limits(limits=1, user_api="blas"):
+        want = bridge.flatten(jax.tree_util.tree_map(np.asarray, JaxVAE(cfg).init_params(key)))
+        model = MidiVAE(cfg)
     got = bridge.flatten(bridge.to_tree(model.params))
     assert sorted(got) == sorted(want)
     assert all(np.array_equal(got[k], want[k]) for k in want)
