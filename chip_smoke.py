@@ -22,7 +22,10 @@ result line):
      (csrc/gru_encoder_stack_bwd.cu), D's and E's bf16-residual builds and
      E wide's bf16 build with row 8's rounding; N and R as three phases
      each (csrc/lstm_cell_bwd.cuh: the gate pre-pass, the chain on
-     thread-block clusters, N's dx pass); A as two phases (the x @ W
+     thread-block clusters, N's dx pass); C and E as phases
+     (csrc/gru_cell_bwd_chain.cuh: the gate pre-pass, the chain on
+     clusters, C's dx pass), their plans at B = 256 with the card's active
+     clusters; A as two phases (the x @ W
      pre-pass of csrc/xproj.cuh, L's, and the GRU chain on clusters of
      csrc/gru_cell_fwd.cuh) beside its per-block route; S and S xp as one
      product on the tensor cores (csrc/gemm_tc.cuh) with the cell in its
@@ -55,8 +58,10 @@ result line):
      windows/s and note-steps/s on the card, and one song's latency;
   6. training kernels: C, D, E and W against their plain versions at the
      training step's shapes (B = 256) and at B = 5, with times (W beside
-     cuBLAS's a.t() @ b), and the gradients of the training ops against
-     autograd through the plain forward;
+     cuBLAS's a.t() @ b), C's and E's phases each against its plain version
+     on the same inputs (also in phases 9, 30, 33 and 39), and the
+     gradients of the training ops against autograd through the plain
+     forward;
   7. training slice: the train CLI (midi_vae_tpu_torch.cli.train.main) at
      the full default Config() width (batch 256) on an authored corpus for 2
      epochs, then --resume for a third, then the transfer CLI serves the
@@ -417,6 +422,26 @@ def report_clusters():
             fwd[f"{build} H={H}"] = {"cluster": C, "stream": stream, "max_active_clusters": active,
                                      "assumed": _layout.MAX_CLUSTERS_H100[C],
                                      "plan_B256": plan._asdict()}
+    bwd = {}
+    for build, H, heads in (("C_chain", 256, None), ("C_chain", 512, None),
+                            ("C_chain_bf16", 256, None), ("C_chain_bf16", 512, None),
+                            ("E_chain", 256, ((61, 2, 64), (1, 1, 64))),
+                            ("E_chain", 512, ((61, 2, 64),)), ("E_chain_bf16", 256, ((61, 2, 64),)),
+                            ("E_chain_bf16", 512, ((61, 2, 64),))):
+        lib = "gru_layer_bwd" if build[0] == "C" else "gru_decode_bwd"
+        plan = gl.gru_bptt_plan(build, H, B, heads)
+        active = gl._max_clusters(lib, build.endswith("_bf16"), plan.cluster)
+        bwd[f"{build} H={H}{' heads ' + str(heads) if heads else ''}"] = {
+            "cluster": plan.cluster, "stream": not plan.resident, "max_active_clusters": active,
+            "assumed": _layout.MAX_CLUSTERS_H100[plan.cluster], "plan_B256": plan._asdict()}
+    print("[build] GRU backward chain plans (ops/_layout.py::gru_bptt_plan at B = "
+          f"{B}; cudaOccupancyMaxActiveClusters at the plan's size): " + "; ".join(
+              f"{k}: cluster {v['cluster']}, active {v['max_active_clusters']} (assumed "
+              f"{v['assumed']}), rows {v['plan_B256']['rows']} x {v['plan_B256']['clusters']} "
+              f"clusters, {'streamed' if v['stream'] else 'resident'} ring of "
+              f"{v['plan_B256']['stages']}, nbuf {v['plan_B256']['nbuf']}, "
+              f"{v['plan_B256']['smem']:,} bytes, {v['plan_B256']['waves']} wave(s)"
+              for k, v in bwd.items()))
     print("[build] forward chain clusters (size, U streamed, cudaOccupancyMaxActiveClusters; "
           f"plan at B = {B}): " + "; ".join(
               f"{k}: {v['cluster']}, {v['stream']}, {v['max_active_clusters']}; rows "
@@ -430,7 +455,7 @@ def report_clusters():
               f"{v['plan_B256']['splits']}, nbuf {v['plan_B256']['nbuf']}, stages "
               f"{v['plan_B256']['stages']}, {v['plan_B256']['smem']:,} bytes"
               for k, v in found.items()))
-    return found | fwd
+    return found | fwd | bwd
 
 
 # the route chooser's build letter -> (library, kernel function name[, a
@@ -445,13 +470,22 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "A_xproj_bf16": ("gru_layer_fwd", "xproj_kernel", BF16_ONLY),
           "A_chain_bf16": ("gru_layer_fwd", "gru_fwd_chain_mma_kernel"),
           "B": ("gru_decode", "gru_decode_kernel"),
-          "C": ("gru_layer_bwd", "gru_layer_bwd_kernel", NOT_BF16),
+          # C's phases (csrc/gru_cell_bwd_chain.cuh): the gate pre-pass's two
+          # products (P1, P2), the chain, the dx pass; and E's: the same
+          # pre-pass, the chain through the head (its float instance serves
+          # E, E wide and E resid; bf16 with the streams unrounded, E bf16
+          # and E wide row8; with them rounded, E wide bf16)
+          "C_gates": ("gru_layer_bwd", "gru_gates_p1_kernel", NOT_BF16),
+          "C_gates_p2": ("gru_layer_bwd", "gru_gates_p2_kernel", NOT_BF16),
+          "C_chain": ("gru_layer_bwd", "gru_bwd_chain_kernel", NOT_BF16),
+          "C_dx": ("gru_layer_bwd", "gru_bwd_dx_kernel", NOT_BF16),
           "D": ("gru_decode_train", "gru_decode_train_kernel", NOT_BF16),
-          "E": ("gru_decode_bwd", "gru_decode_bwd_kernel", NOT_BF16),
+          "E_gates": ("gru_decode_bwd", "gru_gates_p1_kernel", NOT_BF16),
+          "E_gates_p2": ("gru_decode_bwd", "gru_gates_p2_kernel", NOT_BF16),
+          "E_chain": ("gru_decode_bwd", "gru_head_bwd_chain_kernel", NOT_BF16),
           "F": ("gru_layer_xp_fwd", "gru_layer_xp_fwd_kernel"),
           "G": ("gru_layer_xp_bwd", "gru_layer_xp_bwd_kernel", NOT_BF16),
           "D_wide": ("gru_decode_train", "gru_decode_train_wide_kernel", NOT_BF16),
-          "E_wide": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel", NOT_BF16),
           "W": ("grad_reduce", "grad_reduce", NOT_BF16),
           # W's instances: the tiles on the tensor cores, the small-I stream,
           # and the one-TF32-product control build
@@ -488,15 +522,21 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "T_bf16": ("gru_step", "gru_step_kernel", BF16_ONLY),
           "S_bf16": ("lstm_step", "lstm_step_kernel", BF16_ONLY),
           "A_bf16": ("gru_layer_fwd", "gru_layer_fwd_kernel", BF16_ONLY),
-          "C_bf16": ("gru_layer_bwd", "gru_layer_bwd_kernel", BF16_ONLY),
+          "C_gates_bf16": ("gru_layer_bwd", "gru_gates_p1_kernel", BF16_ONLY),
+          "C_gates_p2_bf16": ("gru_layer_bwd", "gru_gates_p2_kernel", BF16_ONLY),
+          "C_chain_bf16": ("gru_layer_bwd", "gru_bwd_chain_kernel", BF16_ONLY),
+          "C_dx_bf16": ("gru_layer_bwd", "gru_bwd_dx_kernel", BF16_ONLY),
           "D_bf16": ("gru_decode_train", "gru_decode_train_kernel", BF16_ONLY),
-          "E_bf16": ("gru_decode_bwd", "gru_decode_bwd_kernel", BF16_ONLY),
+          "E_gates_bf16": ("gru_decode_bwd", "gru_gates_p1_kernel", BF16_ONLY),
+          "E_gates_p2_bf16": ("gru_decode_bwd", "gru_gates_p2_kernel", BF16_ONLY),
+          "E_chain_bf16": ("gru_decode_bwd", "gru_head_bwd_chain_kernel", "nv_bfloat16fE"),
+          "E_chain_wide_bf16": ("gru_decode_bwd", "gru_head_bwd_chain_kernel",
+                                "nv_bfloat16S1_E"),
           "W_bf16": ("grad_reduce", "grad_reduce", BF16_ONLY),
           "W_tc_bf16": ("grad_reduce", "grad_reduce_tc_kernel", BF16_ONLY),
           "W_small_bf16": ("grad_reduce", "grad_reduce_small_kernel", BF16_ONLY),
           "G_bf16": ("gru_layer_xp_bwd", "gru_layer_xp_bwd_kernel", BF16_ONLY),
           "D_wide_bf16": ("gru_decode_train", "gru_decode_train_wide_kernel", BF16_ONLY),
-          "E_wide_bf16": ("gru_decode_bwd", "gru_decode_bwd_wide_kernel", BF16_ONLY),
           "L_bf16": ("lstm_layer_fwd", "lstm_layer_fwd_kernel", BF16_ONLY),
           "L_xproj_bf16": ("lstm_layer_fwd", "xproj_kernel", BF16_ONLY),
           "L_chain_bf16": ("lstm_layer_fwd", "lstm_fwd_chain_mma_kernel"),
@@ -506,18 +546,18 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "Q_bf16": ("lstm_layer_xp_fwd", "lstm_fwd_chain_mma_kernel"),
           "R_gates_bf16": ("lstm_layer_xp_bwd", "lstm_bwd_gates_mma_kernel"),
           "R_chain_bf16": ("lstm_layer_xp_bwd", "lstm_bwd_chain_kernel", BF16_ONLY),
-          # D's and E's bf16-residual builds (decode_residual_bf16) and E's
-          # wide bf16 build with row 8's rounding
-          "D_resid": ("gru_decode_train", "gru_decode_train_resid_kernel"),
-          "E_resid": ("gru_decode_bwd", "gru_decode_bwd_resid_kernel"),
-          "E_wide_row8_bf16": ("gru_decode_bwd", "gru_decode_bwd_wide_row8_kernel")}
+          # D's bf16-residual build (decode_residual_bf16)
+          "D_resid": ("gru_decode_train", "gru_decode_train_resid_kernel")}
 
 
-# the instances that must not spill: W's, L's, A's and S's of the
+# the instances that must not spill: W's, L's, A's, S's, C's and E's of the
 # tensor-core and chain designs
 NO_SPILLS = ("W_tc", "W_small", "W_tf32one", "W_tc_bf16", "W_small_bf16", "L_xproj", "L_chain",
              "L_xproj_bf16", "L_chain_bf16", "A_xproj", "A_chain", "A_xproj_bf16", "A_chain_bf16",
-             "S", "S_xp", "S_bf16")
+             "S", "S_xp", "S_bf16", *(f"{k}_{p}{s}" for k in "CE" for p in ("gates", "gates_p2")
+                                      for s in ("", "_bf16")),
+             "C_chain", "C_chain_bf16", "C_dx", "C_dx_bf16", "E_chain", "E_chain_bf16",
+             "E_chain_wide_bf16")
 
 
 def check_registers():
@@ -544,8 +584,13 @@ def check_registers():
         if found[letter]["registers"] * _layout.WIDE_THREADS > _layout.REGS_PER_SM:
             raise RuntimeError(f"kernel {letter}: {found[letter]} does not fit 512 threads")
     chains = {**_layout.BPTT_PHASE_THREADS,
-              **dict.fromkeys((*_layout.FWD_BUILDS, *_layout.GRU_FWD_BUILDS),
+              **dict.fromkeys((*_layout.FWD_BUILDS, *_layout.GRU_FWD_BUILDS,
+                               *_layout.GRU_BPTT_BUILDS, "E_chain_wide_bf16"),
                               _layout.CHAIN_THREADS),
+              # the GRU backward's pre-pass and dx pass: 256-thread blocks
+              **{f"{k}_{p}{s}": _layout.GEMM_THREADS for k in "CE"
+                 for p in ("gates", "gates_p2", "dx") for s in ("", "_bf16")
+                 if not (k == "E" and p == "dx")},
               # S's largest block (its instances: 64 or 128 threads)
               **dict.fromkeys(_layout.STEP_BUILDS,
                               max(p[1] for p in _layout.STEP_TILES) * 8)}
@@ -561,10 +606,11 @@ def check_registers():
 
 
 def check_launch_bounds(found):
-    """The C entry points of the 8-rows builds of D and E (and of their bf16
-    and bf16-residual builds where ptxas's registers allow fewer than 512
+    """The C entry points of D's 8-rows builds (and of its bf16 and
+    bf16-residual builds where ptxas's registers allow fewer than 512
     threads) refuse H = 512 before any launch
-    (cudaErrorLaunchOutOfResources), as the route chooser says."""
+    (cudaErrorLaunchOutOfResources), as the route chooser says. E runs as
+    phases, its chain on clusters at every width its plan takes."""
     import ctypes
 
     import torch
@@ -573,8 +619,8 @@ def check_launch_bounds(found):
 
     out_of_resources = 701  # cudaErrorLaunchOutOfResources
     refused = []
-    for letter in ("D", "E", "D_bf16", "E_bf16", "D_resid", "E_resid"):
-        struct = gru_decode._DecodeHead if letter[0] == "D" else gru_decode._DecodeHeadBwd
+    for letter in ("D", "D_bf16", "D_resid"):
+        struct = gru_decode._DecodeHead
         dtype = torch.bfloat16 if letter.endswith("_bf16") else torch.float32
         chooser = _layout.launch_limit(letter, 512, _layout.smem_bytes(letter, 512, 61, 2))
         if dtype == torch.float32 and chooser is None:
@@ -591,6 +637,9 @@ def check_launch_bounds(found):
                                f"not {out_of_resources} (cudaErrorLaunchOutOfResources)")
         refused.append(letter)
     print(f"[build] {', '.join(refused)} (8 rows) refuse H = 512 at their C entry points")
+    for letter in ("E", "E_bf16", "E_resid"):
+        if _layout.launch_limit(letter, 512, 0) is not None:
+            raise RuntimeError(f"the route chooser keeps E's chain build {letter} from H = 512")
 
 
 def random_batch(cfg, n, seed):
@@ -695,9 +744,62 @@ def decode_flops(T, B, cells, wo):
 
 
 def cell_bwd_flops(T, B, w, u, dx=True):
-    """BPTT of a GRU cell (C, E): x @ W again, dx = da @ W^T, and four
+    """BPTT of a GRU cell (V): x @ W again, dx = da @ W^T, and four
     products with U or U^T: 2G d_in + 2G H multiply-adds a row and step."""
     return 2 * T * B * (w.shape[1] * w.shape[0] * (2 if dx else 1) + 2 * u.shape[1] * u.shape[0])
+
+
+def gru_bwd_products(M, D, H):
+    """The products of one GRU layer's backward over M = T B rows (2 per
+    multiply-add): the gate pre-pass's P1 (x W and hprev U_zr) and P2 ((r h)
+    U_h), the chain's da U^T, the layer's dx (da W^T)."""
+    return 2 * M * (D * 3 * H + H * 2 * H), 2 * M * H * H, 2 * M * 3 * H * H, 2 * M * 3 * H * D
+
+
+def gru_bwd_work(bf16, prepass=(0.0, 0.0), chain=0.0, readout=0.0, dx=0.0):
+    """compare()'s work of kernel C's or E's phases, or of the whole op
+    (their sum): ``prepass`` the pre-pass's (P1, P2), ``chain`` the chain's
+    products with U^T and W^T, ``readout`` E's dlogits Wo^T (FFMA in both
+    builds), ``dx`` C's dx pass. float32: the pre-pass and the dx pass as
+    three TF32 products each, the chain at the FFMA rate; bf16: P1 one bf16
+    product (exact operands), P2 and the dx pass two (a float operand split
+    in two), the chain three (da split in three), at the bf16 rate."""
+    p1, p2 = prepass
+    if bf16:
+        return {"flops": p1 + 2 * p2 + 3 * chain + 2 * dx, "peak": PEAK_BF16_FLOPS,
+                "flops_f32": readout}
+    return {"flops": 3 * (p1 + p2 + dx), "peak": PEAK_TF32_FLOPS, "flops_f32": chain + readout}
+
+
+def c_work(x, u, need_dx, phase=None):
+    """gru_bwd_work of C on x (T, B, D) and U: the whole op, or one
+    ``phase`` ("gates", "chain", "dx")."""
+    import torch
+
+    T, rows, D = x.shape
+    p1, p2, chain, dx = gru_bwd_products(T * rows, D, u.shape[0])
+    parts = {"gates": {"prepass": (p1, p2)}, "chain": {"chain": chain},
+             "dx": {"dx": dx if need_dx else 0.0}}
+    kw = parts[phase] if phase else {k: v for p in parts.values() for k, v in p.items()}
+    return gru_bwd_work(x.dtype == torch.bfloat16, **kw)
+
+
+def e_work(heads, phase=None):
+    """gru_bwd_work of E on a call's heads (dicts with cells, out, start,
+    T): the whole op, or one ``phase`` ("gates", "chain"). The chain takes
+    each layer's da U^T and its dx (da W^T) and the readout's transpose."""
+    import torch
+
+    P1 = P2 = chain = readout = 0.0
+    for h in heads:
+        M = h["T"] * h["start"].shape[0]
+        for c in h["cells"]:
+            p1, p2, ch, dx = gru_bwd_products(M, c["w"].shape[0], c["u"].shape[0])
+            P1, P2, chain = P1 + p1, P2 + p2, chain + ch + dx
+        readout += 2 * M * h["out"]["w"].numel()
+    parts = {"gates": {"prepass": (P1, P2)}, "chain": {"chain": chain, "readout": readout}}
+    kw = parts[phase] if phase else {k: v for p in parts.values() for k, v in p.items()}
+    return gru_bwd_work(heads[0]["start"].dtype == torch.bfloat16, **kw)
 
 
 def check(name, kernel_fn, plain_fn, limits, **_timed_only):
@@ -1062,13 +1164,14 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
                   lambda h=heads: bwd_flat([gd.gru_decode_bwd_reference(
                       x["cells"], x["out"], x["init"], x["start"], x["probs"], x["h_seqs"],
                       x["g_probs"], x["g_logits"], x["out_activation"]) for x in h]), limits,
-                  flops=sum(2 * h["T"] * rows * h["out"]["w"].numel()
-                            + sum(cell_bwd_flops(h["T"], rows, c["w"], c["u"]) for c in h["cells"])
-                            for h in heads),
-                  inputs=[[h[k] for k in ("cells", "out", "init", "start", "probs", "h_seqs",
+                  **e_work(heads), inputs=[[h[k] for k in ("cells", "out", "init", "start", "probs", "h_seqs",
                                           "g_probs", "g_logits")] for h in heads])
         if timed:
             results[e_key][call] = out
+        for phase, res in e_phase_checks(run, f"{call} B={rows}", heads,
+                                         "E_wide" if wide else "E").items():
+            if timed:
+                results[phase + ("_wide" if wide else "")][call] = res
         # W over one head's products: dWo, dbo and each cell's dW, db, dU
         for k, h in enumerate(heads):
             g = gd.gru_decode_bwd_reference(h["cells"], h["out"], h["init"], h["start"], h["probs"],
@@ -1123,6 +1226,97 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
         check(f"{d_name}+{e_name}+W grads {call} B={rows}", lambda: got, lambda: want, [rel] * len(want))
 
 
+def c_phase_checks(run, tag, cargs):
+    """C's phases (csrc/gru_cell_bwd_chain.cuh) on the inputs ``cargs`` of
+    gru_layer_bwd, each against its plain version on the same inputs: the
+    gate pre-pass (gates and r * h from x and hprev = [h0, seq[:-1]]), the
+    chain over the plain pre-pass's gates, the dx pass over the plain
+    chain's gate grads where the layer's dx is wanted. ``run`` is compare
+    (timed, with bounds: ``c_work``) or check. Returns {counter name:
+    result}."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+
+    x, seq, h0, d_seq, d_final, w, b, u, need_dx = cargs
+    bf16 = x.dtype == torch.bfloat16
+    sfx, kind = ("_bf16", "C bf16") if bf16 else ("", "C")
+    out_lim = BF16_OUT if bf16 else rel
+    hprev = torch.cat([h0[None], seq[:-1]])
+    gargs = (x, hprev, w, b, u)
+    found = {"gru_layer_bwd_gates" + sfx: run(
+        f"{kind} gate pre-pass {tag}", lambda: gl.gru_layer_bwd_gates(*gargs),
+        lambda: gl.gru_bwd_gates_reference(*gargs), [H_ATOL, H_ATOL],
+        **c_work(x, u, need_dx, "gates"), inputs=gargs)}
+    with torch.no_grad():
+        gates = gl.gru_bwd_gates_reference(*gargs)[0]
+    chargs = (gates, hprev, d_seq, d_final, u)
+    found["gru_layer_bwd_chain" + sfx] = run(
+        f"{kind} chain {tag}", lambda: gl.gru_layer_bwd_chain(*chargs),
+        lambda: tuple(t if i == 0 else t.to(x.dtype)
+                      for i, t in enumerate(gl.gru_bwd_chain_reference(*chargs))),
+        [rel, out_lim], **c_work(x, u, need_dx, "chain"),
+        inputs=[t for t in chargs if t is not None])
+    if need_dx:
+        with torch.no_grad():
+            da = gl.gru_bwd_chain_reference(*chargs)[0]
+        found["gru_layer_bwd_dx" + sfx] = run(
+            f"{kind} dx pass {tag}", lambda: gl.gru_layer_bwd_dx(da, w),
+            lambda: gl.gru_bwd_dx_reference(da, w), [out_lim],
+            **c_work(x, u, need_dx, "dx"), inputs=(da, w),
+            library_fn=None if bf16 else (lambda: da @ w.t()))
+    return found
+
+
+def e_phase_checks(run, tag, heads, build):
+    """E's phases on a call's heads (the dicts of gru_decode_bwd, with their
+    forward's probs, h sequences and incoming grads) through ``build``, each
+    against its plain version on the same inputs: the gate pre-pass of every
+    layer, and the chain through the heads over the plain pre-pass's gates
+    (dlogits and the gate grads rounded as ``build`` rounds them: E wide's
+    streams hold bf16 values in bf16). Bounds: ``e_work``. Returns {counter
+    name: result}."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+
+    bf16 = heads[0]["start"].dtype == torch.bfloat16
+    sfx = "_bf16" if bf16 else ""
+    wide = build in ("E_wide", "E_wide_bf16")
+    inputs = [gd._layer_inputs(h) for h in heads]
+
+    def plain_gates():
+        return [[gl.gru_bwd_gates_reference(x, hp, c["w"], c["b"], c["u"])
+                 for (x, hp), c in zip(ins, h["cells"])] for h, ins in zip(heads, inputs)]
+
+    flat_g = lambda gs: tuple(t for hg in gs for pair in hg for t in pair)  # noqa: E731
+    found = {"gru_decode_bwd_gates" + sfx: run(
+        f"E gate pre-pass {tag}", lambda: flat_g(gd.gru_decode_bwd_gates(heads, inputs)),
+        lambda: flat_g(plain_gates()), [H_ATOL] * (2 * sum(len(h["cells"]) for h in heads)),
+        **e_work(heads, "gates"), inputs=[[h["cells"], h["start"], h["probs"], h["h_seqs"], h["init"]]
+                        for h in heads])}
+    with torch.no_grad():
+        gates = plain_gates()
+    hprevs = [[hp for _x, hp in ins] for ins in inputs]
+    flat_c = lambda outs: tuple(t for o in outs for t in (  # noqa: E731
+        o["dlogits"], *o["da"], *o["d_init"], o["d_start"]))
+    # E wide bf16's streams hold bf16 values: a flip where the float sums
+    # straddle a bf16 boundary; the other builds' are float32 sums
+    stream = (bf16_step_lim, STREAM_REL_L2) if build == "E_wide_bf16" else rel
+    limits = [lim for h in heads for lim in [stream] * (1 + len(h["cells"]))
+              + [BF16_OUT if bf16 else rel] * (1 + len(h["cells"]))]
+    found["gru_decode_bwd_chain" + sfx] = run(
+        f"E chain {tag} ({build})",
+        lambda: flat_c(gd.gru_decode_bwd_chain(heads, gates, build, hprevs)),
+        lambda: flat_c([gd.gru_decode_bwd_chain_reference(h, [g for g, _rh in gs], hps, wide)
+                        for h, gs, hps in zip(heads, gates, hprevs)]),
+        limits, **e_work(heads, "chain"),
+        inputs=[[gates, hprevs], [[h[k] for k in ("cells", "out", "probs", "g_probs", "g_logits")]
+                                  for h in heads]])
+    return found
+
+
 def phase_train_kernels():
     """Kernels C, D, E and W at the training path's shapes (B = 256: the four
     encoder layers, the notes + velocity multi-head, the instrument head) and
@@ -1142,8 +1336,8 @@ def phase_train_kernels():
     enc, dec = model.params["encoder"], model.params["decoder"]
     gen = torch.Generator(device=dev).manual_seed(0)
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
-    results = {"gru_layer_bwd": {}, "gru_decode_train": {}, "gru_decode_bwd": {},
-               "grad_reduce": {}}
+    results = {k: {} for k in ("gru_layer_bwd", "gru_decode_train", "gru_decode_bwd",
+                                "grad_reduce", *C_PHASES, *E_PHASES)}
     flat = lambda outs: [t for t in outs if t is not None]  # noqa: E731
 
     for rows in (B, RAGGED):
@@ -1171,9 +1365,12 @@ def phase_train_kernels():
             tag = f"C {name} x{tuple(x.shape)} rs={rs}"
             out = run(tag, lambda a=args: tuple(flat(gl.gru_layer_bwd(*a))),
                       lambda a=args: tuple(flat(gl.gru_layer_bwd_reference(*a))), limits,
-                      flops=cell_bwd_flops(x.shape[0], rows, w, u, need_dx), inputs=args[:8])
+                      **c_work(x, u, need_dx), inputs=args[:8])
             if timed:
                 results["gru_layer_bwd"][name] = out
+            for phase, res in c_phase_checks(run, f"{name} rs={rs} B={rows}", args).items():
+                if timed:
+                    results[phase][name] = res
             _dx, _dh0, da, rh = gl.gru_layer_bwd_reference(*args)
             wargs = (x, torch.cat([h0[None], seq[:-1]]), rh, da)
             out = run(f"W {name} dW, db, dU", lambda a=wargs: gru_weight_grads(*a),
@@ -1220,7 +1417,8 @@ def phase_wide_kernels():
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
     results = {k: {} for k in ("gru_layer_xp_fwd", "gru_layer_xp_bwd", "gru_decode_train_wide",
                                "gru_decode_bwd_wide", "grad_reduce_wide", "xp_h256_fwd",
-                               "xp_h256_bwd", "gru_layer_512", "gru_decode_512")}
+                               "xp_h256_bwd", "gru_layer_512", "gru_decode_512",
+                               *(f"{k}_wide" for k in E_PHASES))}
 
     def plain_u(hprev, rh, da):
         n, H = hprev.shape[0] * hprev.shape[1], hprev.shape[-1]
@@ -1809,9 +2007,49 @@ def fwd_phases(want):
     return out
 
 
-for _table in (*PER_TRAIN_STEP.values(), *PER_EVAL_BATCH.values(), *PER_ENCODE_BATCH.values(),
-               *PER_SONG_TRANSFER.values(), PER_TF_STEP):
-    _table.update(fwd_phases(_table))
+# the layers of a step's E calls (the notes head 2, every other head 1), by
+# the heads' dtype (float32, bf16): E's pre-pass launches twice a layer
+E_LAYERS = {"narrow": (4, 0), "wide": (4, 0), "merge": (1, 0), "bf16": (1, 3),
+            "merge_bf16": (0, 1), "wide_bf16": (1, 3), "wide_bf16_no_fused_encoder": (1, 3),
+            "residual_bf16": (4, 0), "held_residual_bf16": (5, 0), "held_notes": (5, 0),
+            "held_bf16": (2, 3), "bf16_128_512": (1, 3), "tf": (2, 0)}
+
+
+def bwd_phases(want, dx=1, e_layers=(0, 0)):
+    """``want`` with the phases of kernels C and E: each call of C
+    (``gru_layer_bwd``) runs its gate pre-pass (two launches: P1, P2) and
+    its chain once, its dx pass where the layer's dx is wanted (``dx``
+    layers: the notes stack's second, whose input is not the batch; none
+    where that layer runs elsewhere); each call of E, whatever its build,
+    runs its chain once and its pre-pass twice a layer of its heads
+    (``e_layers``: the layers of the calls, float32 and bf16), counted by
+    the heads' dtype."""
+    out = dict(want)
+    for sfx in ("", "_bf16"):
+        n = want.get(f"gru_layer_bwd{sfx}", 0)
+        if n:
+            out.update({f"gru_layer_bwd_gates{sfx}": 2 * n, f"gru_layer_bwd_chain{sfx}": n})
+            if dx:
+                out[f"gru_layer_bwd_dx{sfx}"] = dx
+    for sfx, builds, layers in (
+            ("", ("gru_decode_bwd", "gru_decode_bwd_resid", "gru_decode_bwd_wide"), e_layers[0]),
+            ("_bf16", ("gru_decode_bwd_bf16", "gru_decode_bwd_wide_bf16",
+                       "gru_decode_bwd_wide_row8_bf16"), e_layers[1])):
+        n = sum(want.get(k, 0) for k in builds)
+        if n:
+            if not layers:
+                raise RuntimeError(f"the launch tables give {n} E calls but no layers ({sfx})")
+            out.update({f"gru_decode_bwd_gates{sfx}": 2 * layers,
+                        f"gru_decode_bwd_chain{sfx}": n})
+    return out
+
+
+# the bf16 GRU(512) at B = 128 runs its notes layer 2 through X and G: its C
+# layers (notes layer 1, the branches) all take the batch
+for _key, _table in (*PER_TRAIN_STEP.items(), *PER_EVAL_BATCH.items(),
+                     *PER_ENCODE_BATCH.items(), *PER_SONG_TRANSFER.items(), ("tf", PER_TF_STEP)):
+    _table.update(bwd_phases(fwd_phases(_table), dx=0 if _key == "bf16_128_512" else 1,
+                             e_layers=E_LAYERS.get(_key, (0, 0))))
 
 
 # the counters of N's and R's phases (one launch each per op call; dx where
@@ -1821,6 +2059,9 @@ BPTT_PHASES = ("lstm_layer_bwd_gates", "lstm_layer_bwd_chain", "lstm_layer_bwd_d
 # L's and A's: the pre-pass and the chain, and the per-block route
 L_PHASES = ("lstm_layer_xproj", "lstm_layer_fwd_chain", "lstm_layer_block")
 A_PHASES = ("gru_layer_xproj", "gru_layer_fwd_chain", "gru_layer_block")
+# C's and E's: the gate pre-pass, the chain and C's dx pass
+C_PHASES = ("gru_layer_bwd_gates", "gru_layer_bwd_chain", "gru_layer_bwd_dx")
+E_PHASES = ("gru_decode_bwd_gates", "gru_decode_bwd_chain")
 
 
 def route_key(cfg, route):
@@ -1859,6 +2100,8 @@ def kernel_counters():
            "lstm_layer_xp_bwd_chain": ll.lstm_layer_xp_bwd_chain,
            **{name: getattr(ll, name) for name in L_PHASES},
            **{name: getattr(gl, name) for name in A_PHASES},
+           **{name: getattr(gl, name) for name in C_PHASES},
+           **{name: getattr(gd, name) for name in E_PHASES},
            "lstm_step_xp": ls.lstm_recurrent_step_fwd, "gru_step": gs.gru_cell_step_fwd,
            "gru_step_xp": gs.gru_recurrent_step_fwd,
            "gru_encoder_scan": es.gru_encoder_scan_fwd,
@@ -1869,7 +2112,8 @@ def kernel_counters():
     for name in ("gru_step", "lstm_step", "gru_layer_bwd", "gru_decode_train",
                  "gru_decode_bwd", "grad_reduce", "gru_layer_xp_bwd", "gru_decode_train_wide",
                  "gru_decode_bwd_wide", "lstm_layer_bwd", "lstm_layer_xp_fwd",
-                 "lstm_layer_xp_bwd", *BPTT_PHASES, *L_PHASES, *A_PHASES):
+                 "lstm_layer_xp_bwd", *BPTT_PHASES, *L_PHASES, *A_PHASES, *C_PHASES,
+                 *E_PHASES):
         counters[f"{name}_bf16"] = (counters[name][0], "launches_bf16")
     counters["gru_decode_train_resid"] = (gd.gru_decode_fwd_train, "launches_resid")
     counters["gru_decode_bwd_resid"] = (gd.gru_decode_bwd, "launches_resid")
@@ -2584,9 +2828,11 @@ def classify_launches(kind_sizes, cell_type, epochs):
     steps = sum(-(-n // 512) for n, _ in kind_sizes.values()) * epochs
     evals = sum(-(-n // 512) for _, n in kind_sizes.values()) * epochs
     want = {fwd: 2 * (steps + evals), bwd: 2 * steps, "grad_reduce": 2 * per_cell * steps}
-    if cell_type == "LSTM":  # N's phases; dx for layer 2 alone
-        want.update({"lstm_layer_bwd_gates": 2 * steps, "lstm_layer_bwd_chain": 2 * steps,
-                     "lstm_layer_bwd_dx": steps})
+    # N's and C's phases; dx for layer 2 alone
+    prefix = "lstm_layer_bwd" if cell_type == "LSTM" else "gru_layer_bwd"
+    # C's pre-pass launches twice a call (P1, P2), N's once
+    want.update({f"{prefix}_gates": (4 if cell_type == "GRU" else 2) * steps,
+                 f"{prefix}_chain": 2 * steps, f"{prefix}_dx": steps})
     return fwd_phases(want)
 
 
@@ -3541,21 +3787,6 @@ def decode_flops_bf16(T, B, cells, wo):
     return bf, f32
 
 
-def decode_bwd_flops_bf16(T, B, cells, wo):
-    """(bf16 x bf16, float32-rate) operations of E's bf16 builds (the
-    cell_bwd_flops of each cell and the readout's transpose, split by
-    operand type): the gate recompute's x @ W (the stored bf16 probs or h1)
-    and h_{t-1} @ U[:, :2H] (the stored bf16 h) are bf16 products;
-    (r * h) @ U[:, 2H:] (r * h in float32), da @ W^T, da @ U^T and
-    dlogits @ Wo^T take a float32 operand."""
-    bf, f32 = 0, 2 * T * B * wo.numel()
-    for c in cells:
-        H = c["u"].shape[0]
-        bf += 2 * T * B * (c["w"].numel() + 2 * H * H)
-        f32 += 2 * T * B * (H * H + c["w"].numel() + c["u"].numel())
-    return bf, f32
-
-
 def plain_layer_vjp(x, h0, w, b, u, rs, g):
     """The gradients of ``gru_layer_train_x`` through the plain versions of
     A, C and W (the CPU path's explicit float32 transposition), cast as the
@@ -3674,7 +3905,8 @@ def phase_bf16_fused_kernels():
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
     flat = lambda outs: tuple(t for t in outs if t is not None)  # noqa: E731
     keys = ("gru_layer_fwd_bf16", "gru_layer_bwd_bf16", "grad_reduce_bf16",
-            "gru_decode_train_bf16", "gru_decode_bwd_bf16", *(f"{k}_bf16" for k in A_PHASES))
+            "gru_decode_train_bf16", "gru_decode_bwd_bf16",
+            *(f"{k}_bf16" for k in (*A_PHASES, *C_PHASES, *E_PHASES)))
     results = {k: {} for k in keys}
     found = {}
 
@@ -3741,9 +3973,12 @@ def phase_bf16_fused_kernels():
             limits = ([BF16_OUT] if need_dx else []) + [BF16_OUT, rel, H_ATOL]
             out = run(f"C bf16 {name} rs={rs}", lambda a=cargs: flat(gl.gru_layer_bwd(*a)),
                       lambda a=cargs: flat(gl.gru_layer_bwd_reference(*a)), limits,
-                      flops=cell_bwd_flops(T, rows, w, u, need_dx), inputs=cargs[:8])
+                      **c_work(x, u, need_dx), inputs=cargs[:8])
             if timed:
                 results["gru_layer_bwd_bf16"][name] = out
+            for phase, res in c_phase_checks(run, f"{name} rs={rs} B={rows}", cargs).items():
+                if timed:
+                    results[phase][name] = res
             _dx, _dh0, da, rh = gl.gru_layer_bwd_reference(*cargs)
             wargs = (x, torch.cat([h0[None], seq[:-1]]), rh, da)
             wide = widened(*wargs)
@@ -3805,18 +4040,19 @@ def phase_bf16_fused_kernels():
             head.update(probs=probs, h_seqs=h_seqs, g_probs=cot(probs.shape),
                         g_logits=cot(probs.shape))
             bwd_flat = lambda o: (o["dlogits"], *o["da"], *o["rh"], *o["d_init"], o["d_start"])  # noqa: E731
-            eb, ef = decode_bwd_flops_bf16(T, rows, head["cells"], head["out"]["w"])
             out = run(f"E bf16 {tag}", lambda h_=head: bwd_flat(gd.gru_decode_bwd([h_])[0]),
                       lambda h_=head: bwd_flat(gd.gru_decode_bwd_reference(
                           h_["cells"], h_["out"], h_["init"], h_["start"], h_["probs"],
                           h_["h_seqs"], h_["g_probs"], h_["g_logits"], h_["out_activation"])),
                       [rel] * (1 + n) + [H_ATOL] * n + [BF16_OUT] * (n + 1),
-                      flops=eb, flops_f32=ef,
+                      **e_work([head]),
                       inputs=[head[k] for k in ("cells", "out", "init", "start", "probs",
-                                                "h_seqs", "g_probs", "g_logits")],
-                      peak=PEAK_BF16_FLOPS)
+                                                "h_seqs", "g_probs", "g_logits")])
             if timed:
                 results["gru_decode_bwd_bf16"][name] = out
+            for phase, res in e_phase_checks(run, f"{tag}", [head], "E_bf16").items():
+                if timed:
+                    results[phase][name] = res
             g = gd.gru_decode_bwd_reference(head["cells"], head["out"], head["init"], head["start"],
                                             probs, h_seqs, head["g_probs"], head["g_logits"],
                                             out_act)
@@ -3926,7 +4162,8 @@ def phase_bf16_wide_kernels():
     gen = torch.Generator(device=dev).manual_seed(33)
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
     keys = ("gru_encoder_scan_wide_bf16", "gru_layer_xp_bwd_bf16", "grad_reduce_wide_bf16",
-            "gru_decode_train_wide_bf16", "gru_decode_bwd_wide_bf16")
+            "gru_decode_train_wide_bf16", "gru_decode_bwd_wide_bf16",
+            *(f"{k}_wide_bf16" for k in E_PHASES))
     results = {k: {} for k in keys}
     found = {}
 
@@ -4070,16 +4307,17 @@ def phase_bf16_wide_kernels():
             bwd_flat = lambda o: (o["dlogits"], *o["da"], *o["rh"], *o["d_init"], o["d_start"])  # noqa: E731
             # dlogits and the gate grads leave as bf16 values: a flip of a
             # float32 sum's order moves an entry by one bf16 step (BF16_OUT)
-            eb, ef = decode_bwd_flops_bf16(T, rows, head["cells"], head["out"]["w"])
             out = run(f"E wide bf16 {tag}", lambda h_=head: bwd_flat(gd.gru_decode_bwd_wide([h_])[0]),
                       lambda h_=head: bwd_flat(plain_e(h_)),
                       [BF16_OUT] * (1 + n) + [H_ATOL] * n + [BF16_OUT] * (n + 1),
-                      flops=eb, flops_f32=ef,
+                      **e_work([head]),
                       inputs=[head[k] for k in ("cells", "out", "init", "start", "probs",
-                                                "h_seqs", "g_probs", "g_logits")],
-                      peak=PEAK_BF16_FLOPS)
+                                                "h_seqs", "g_probs", "g_logits")])
             if timed:
                 results["gru_decode_bwd_wide_bf16"][name] = out
+            for phase, res in e_phase_checks(run, tag, [head], "E_wide_bf16").items():
+                if timed:
+                    results[phase.removesuffix("_bf16") + "_wide_bf16"][name] = res
             # the streams pass 2 sums (row 14's rounding): each holds bf16
             # values and lies within STREAM_REL_L2 of the plain version's
             ke, pe, ue = gd.gru_decode_bwd_wide([head])[0], plain_e(head), plain_e(head, False)
@@ -4644,6 +4882,7 @@ def phase_residual_kernels():
     bf, dev = torch.bfloat16, torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(39)
     keys = ("gru_decode_train_resid", "gru_decode_bwd_resid", "grad_reduce_resid",
+            *(f"{k}_resid" for k in E_PHASES), *(f"{k}_rows78_bf16" for k in E_PHASES),
             "gru_decode_train_rows78", "gru_decode_bwd_wide_row8_bf16", "grad_reduce_rows78_bf16")
     results = {k: {} for k in keys}
     found = {}
@@ -4743,11 +4982,11 @@ def phase_residual_kernels():
                       + [grad] * (len(h["cells"]) + 1)]
             out = run(f"E resid {call}", lambda h=heads: bwd_flat(gd.gru_decode_bwd(h, "E_resid")),
                       lambda h=heads: bwd_flat([plain_e(x) for x in h]), limits,
-                      flops=sum(2 * h["T"] * rows * h["out"]["w"].numel()
-                                + sum(cell_bwd_flops(h["T"], rows, c["w"], c["u"])
-                                      for c in h["cells"]) for h in heads),
-                      inputs=[[h[k] for k in ("cells", "out", "init", "start", "probs", "h_seqs",
+                      **e_work(heads), inputs=[[h[k] for k in ("cells", "out", "init", "start", "probs", "h_seqs",
                                               "g_probs", "g_logits")] for h in heads])
+            for phase, res in e_phase_checks(run, f"{call} B={rows}", heads, "E_resid").items():
+                if timed:
+                    results[phase + "_resid"][call] = res
             if timed:
                 results["gru_decode_bwd_resid"][call] = out
                 # the control: E's float32 build fed the unrounded sequences
@@ -4800,17 +5039,18 @@ def phase_residual_kernels():
         if timed:
             results["gru_decode_train_rows78"]["instrument"] = out
         with_residuals([head], None)
-        eb, ef = decode_bwd_flops_bf16(T, rows, head["cells"], head["out"]["w"])
         out = run(f"E wide row8 bf16 {tag}",
                   lambda: bwd_flat(gd.gru_decode_bwd_wide([head], "E_wide_row8_bf16")),
                   lambda: bwd_flat([plain_e(head)]),
                   [BF16_OUT] * (1 + n) + [H_ATOL] * n + [BF16_OUT] * (n + 1),
-                  flops=eb, flops_f32=ef,
+                  **e_work([head]),
                   inputs=[head[k] for k in ("cells", "out", "init", "start", "probs", "h_seqs",
-                                            "g_probs", "g_logits")],
-                  peak=PEAK_BF16_FLOPS)
+                                            "g_probs", "g_logits")])
         if timed:
             results["gru_decode_bwd_wide_row8_bf16"]["instrument"] = out
+        for phase, res in e_phase_checks(run, tag, [head], "E_wide_row8_bf16").items():
+            if timed:
+                results[phase.removesuffix("_bf16") + "_rows78_bf16"]["instrument"] = res
         # the streams W sums: unrounded (row 8), within STREAM_REL_L2 of the
         # plain version's, where row 14's rounded build lands over it
         ke = gd.gru_decode_bwd_wide([head], "E_wide_row8_bf16")[0]
@@ -4951,6 +5191,21 @@ def kernel_registers(registers, letter):
     aliases = {"L_block": "L", "L_block_bf16": "L_bf16", "A_block": "A", "A_block_bf16": "A_bf16"}
     if key in aliases:
         return registers[aliases[key]]
+    # C's and E's builds run their phases' instances (E wide, E resid: the
+    # float chain; E wide row8: the bf16 chain with the streams unrounded)
+    gru_bwd = {"C": ("C", ""), "C_bf16": ("C", "_bf16"), "E": ("E", ""), "E_wide": ("E", ""),
+               "E_resid": ("E", ""), "E_bf16": ("E", "_bf16"), "E_wide_row8_bf16": ("E", "_bf16"),
+               "E_wide_bf16": ("E", "_bf16")}
+    if key in gru_bwd:
+        k, sfx = gru_bwd[key]
+        chain = "E_chain_wide_bf16" if key == "E_wide_bf16" else f"{k}_chain{sfx}"
+        out = {p: registers[f"{k}_{p}{sfx}"] for p in ("gates", "gates_p2")}
+        out["chain"] = registers[chain]
+        if k == "C":
+            out["dx"] = registers[f"C_dx{sfx}"]
+        return out
+    if key.startswith(("C_", "E_")) and key.split("_")[1] in ("gates", "chain", "dx"):
+        return registers[key]
     phases = {"N": ("gates", "chain", "dx"), "R": ("gates", "chain"), "L": ("xproj", "chain"),
               "A": ("xproj", "chain")}
     base, _, sfx = key.partition("_")
@@ -5278,6 +5533,17 @@ def main() -> int:
         "gru_decode_bwd_wide_row8_bf16": ("E wide row8 bf16", "gru_decode_bwd.cu",
                                           "fused_train.py:602",
                                           ["fused_train.py:533", "fused_train.py:650"]),
+        # the phases of C and E (csrc/gru_cell_bwd_chain.cuh), each a part of
+        # the TPU kernels above: the gate recompute, the serial chain, C's dx
+        **{f"gru_layer_bwd_{phase}{sfx}": (f"C {phase}{' bf16' if sfx else ''}",
+                                           "gru_layer_bwd.cu", "fused_train.py:2116",
+                                           ["fused_train.py:2201"])
+           for phase in ("gates", "chain", "dx") for sfx in ("", "_bf16")},
+        **{f"gru_decode_bwd_{phase}{sfx}": (f"E {phase}{' bf16' if sfx else ''}",
+                                            "gru_decode_bwd.cu", "fused_train.py:3145",
+                                            ["fused_train.py:533", "fused_train.py:602",
+                                             "fused_train.py:1080", "fused_train.py:1135"])
+           for phase in ("gates", "chain") for sfx in ("", "_bf16")},
     }
     # per kernel: the calls of one step or transfer at other shapes
     extra = {"gru_layer_fwd": [("ms_h512", "gru_layer_512")],
@@ -5301,6 +5567,14 @@ def main() -> int:
                                   ("ms_resid", "grad_reduce_resid"),
                                   ("ms_rows78", "grad_reduce_rows78_bf16")],
              "gru_decode_train_wide_bf16": [("ms_rows78", "gru_decode_train_rows78")],
+             # E's phases on the wide route, with bf16 residuals, in rows 13
+             # and 14 and in rows 7 and 8 at H = 512
+             **{f"gru_decode_bwd_{p}": [("ms_wide_step", f"gru_decode_bwd_{p}_wide"),
+                                        ("ms_resid", f"gru_decode_bwd_{p}_resid")]
+                for p in ("gates", "chain")},
+             **{f"gru_decode_bwd_{p}_bf16": [("ms_wide_bf16", f"gru_decode_bwd_{p}_wide_bf16"),
+                                             ("ms_rows78", f"gru_decode_bwd_{p}_rows78_bf16")]
+                for p in ("gates", "chain")},
              "lstm_encoder_scan": [("ms_h512", "lstm_encoder_scan_512")],
              "gru_encoder_stack_fwd": [("ms_stack2", "stack2_fwd"),
                                        ("ms_stack2_bf16", "stack2_bf16_fwd"),

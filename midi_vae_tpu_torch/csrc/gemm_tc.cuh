@@ -13,7 +13,8 @@
 // result lands near float32's rounding of a float32 FMA sum (2e-7 relative
 // L2 at W's shapes; one TF32 rounding of each operand, kOne on float data,
 // lands near 3e-4). A bf16 value is exact in TF32, so
-// a bf16 A needs no split (kTwo: a b_lo + a b_hi) and a product of two bf16
+// a bf16 A needs no split (kTwo: a b_lo + a b_hi; kTwoA, its mirror, splits
+// a float A beside an exact B: a_lo b + a_hi b) and a product of two bf16
 // operands is one exact TF32 product summed in float (kOne), the function of
 // jnp.dot(..., preferred_element_type=float32) on bf16 operands.
 // The tensor cores add a product into their accumulators with truncation,
@@ -68,8 +69,8 @@ constexpr int kStages = 4;
 constexpr int kPadMN = 8;
 constexpr int kPadK = 4;
 
-// the TF32 products a fragment pair takes
-enum Products : int { kOne = 1, kTwo = 2, kThree = 3 };
+// the TF32 products a fragment pair takes (kTwoA: A split, B exact)
+enum Products : int { kOne = 1, kTwo = 2, kThree = 3, kTwoA = 4 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -209,8 +210,8 @@ struct Seg {
 // segments of depth, run2): acc (the warp's kMT x 4 fragments of 16 x 8) +=
 // A(m0.., k) B(k, n0..), rows m < M and columns n < Nn valid, by kThr =
 // 2 kBNt threads (warps: 2 along M x kBNt / 32 along N). kProducts: kThree
-// (float A and B), kTwo (A exact in TF32), kOne (both exact, or the
-// one-product build). kGather: B's columns gathered (Stage, gstride).
+// (float A and B), kTwo (A exact in TF32), kTwoA (B exact in TF32), kOne
+// (both exact, or the one-product build). kGather: B's columns gathered (Stage, gstride).
 template <bool kAT, typename TA, typename TB, int kBM, int kProducts, int kBNt = kBN,
           bool kGather = false>
 struct Gemm {
@@ -298,8 +299,9 @@ struct Gemm {
         for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            split<kProducts != kOne>(bt[(8 * ks + tig + 4 * h) * kBS + wn + nt * 8 + gid],
-                                     bh[ks][nt][h], bl[ks][nt][h]);
+            split<kProducts == kThree || kProducts == kTwo>(
+                bt[(8 * ks + tig + 4 * h) * kBS + wn + nt * 8 + gid], bh[ks][nt][h],
+                bl[ks][nt][h]);
           }
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
@@ -321,16 +323,18 @@ struct Gemm {
             av[3] = at[(m + 8) * kAS + k + 4];
           }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) split<kProducts == kThree>(av[e], ah[ks][e], al[ks][e]);
+          for (int e = 0; e < 4; ++e) {
+            split<kProducts == kThree || kProducts == kTwoA>(av[e], ah[ks][e], al[ks][e]);
+          }
         }
         float t[kNT][4] = {};
 #pragma unroll
         for (int ks = 0; ks < 2; ++ks) {
-          if constexpr (kProducts == kThree) {
+          if constexpr (kProducts == kThree || kProducts == kTwoA) {
 #pragma unroll
             for (int nt = 0; nt < kNT; ++nt) mma_tf32(t[nt], al[ks], bh[ks][nt][0], bh[ks][nt][1]);
           }
-          if constexpr (kProducts != kOne) {
+          if constexpr (kProducts == kThree || kProducts == kTwo) {
 #pragma unroll
             for (int nt = 0; nt < kNT; ++nt) mma_tf32(t[nt], ah[ks], bl[ks][nt][0], bl[ks][nt][1]);
           }

@@ -1,6 +1,8 @@
-// Shared device code of the backward kernels (C: gru_layer_bwd.cu, E:
-// gru_decode_bwd.cu, G: gru_layer_xp_bwd.cu): one reverse step of the
+// Shared device code of the per-block backward kernels (G:
+// gru_layer_xp_bwd.cu, V: gru_encoder_stack_bwd.cu): one reverse step of the
 // reset-before GRU cell with a tanh candidate, over the block's R batch rows.
+// (C and E run as phases on clusters since their redesign:
+// gru_cell_bwd_chain.cuh.)
 //
 // Math (midi_vae_tpu/ops/fused_train.py::_gru_cell_bwd_core), h = h_{t-1}:
 //   recompute  z = sig(xz + h.Uz)  r = sig(xr + h.Ur)  hh = tanh(xh + (r*h).Uh)
@@ -16,8 +18,8 @@
 // j; tiles are feature-major in shared memory, a[k * R + row]. The
 // transposed products read UT = U^T (3H, H) and WT = W^T (3H, D), so that
 // neighbouring threads read neighbouring addresses there too. The weights
-// are of type TW: float, or bf16 in the bf16 builds of C and E, widened as
-// they are loaded (every product and gate grad stays float, as the Pallas
+// are of type TW: float, or bf16 in the bf16 builds, widened as they are
+// loaded (every product and gate grad stays float, as the Pallas
 // backward widens its operands to float32).
 #pragma once
 

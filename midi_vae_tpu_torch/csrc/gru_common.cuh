@@ -19,13 +19,14 @@
 // shared memory stays float. The float instantiations are the kernels'
 // original code (to_f32 and round_as<float> are the identity).
 //
-// R is kRows = 8 for kernels A to E at the widths where they launch, and for
-// F and G. The wide decode builds (D and E at H = 512) hold kWideRows = 2:
-// a thread keeps R values of every gate, carry and operand in registers, and
-// at 8 rows D and E take 160 and 168 registers a thread, so H = 512 threads
-// would need more than the 65,536 registers of an SM. Under
-// __launch_bounds__(512) they get at most 128; at 2 rows the grid has 128
-// blocks at B = 256 instead of 32, and E spills less than at 4 rows.
+// R is kRows = 8 for the per-block kernels (A's per-block route, B, D, F,
+// G) at the widths where they launch. D's wide build (H = 512) holds
+// kWideRows = 2: a thread keeps R values of every gate, carry and operand in
+// registers, and at 8 rows D takes 160 registers a thread, so H = 512
+// threads would need more than the 65,536 registers of an SM. Under
+// __launch_bounds__(512) it gets at most 128; at 2 rows the grid has 128
+// blocks at B = 256 instead of 32. (C and E run as phases on clusters:
+// gru_cell_bwd_chain.cuh.)
 #pragma once
 
 #include <cuda_bf16.h>
@@ -253,10 +254,8 @@ __device__ __forceinline__ void store_tile(
 // blocks that thread j owns (j, j + H, ...); rows past B are skipped. Only
 // thread j reads column j, so a thread may store the columns it wrote itself
 // without a barrier. Used for gate grads (3 or 4 blocks), r*h and c (1 block).
-// Each value is rounded as a TS holds it and stored as a TA: float/float
-// (the default) stores it as it is, TA = bf16 rounds it into a bf16 matrix,
-// TS = bf16 into a float one (the wide bf16 decode backward's streams).
-template <int R = kRows, typename TS = float, typename TA = float>
+// Each value is stored as a TA: float as it is, bf16 rounded once.
+template <int R = kRows, typename TA = float>
 __device__ __forceinline__ void store_columns(
     const float* a_s, TA* __restrict__ a, int row0, int B, int ld,
     int n_blocks, int H) {
@@ -265,8 +264,7 @@ __device__ __forceinline__ void store_columns(
     const int row = row0 + r;
     if (row >= B) break;
     for (int blk = 0; blk < n_blocks; ++blk) {
-      a[(size_t)row * ld + blk * H + j] =
-          from_f32<TA>(round_as<TS>(a_s[(blk * H + j) * R + r]));
+      a[(size_t)row * ld + blk * H + j] = from_f32<TA>(a_s[(blk * H + j) * R + r]);
     }
   }
 }

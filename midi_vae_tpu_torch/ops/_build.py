@@ -164,13 +164,13 @@ def load_builds(name: str, entry: str, argtypes) -> tuple:
     return load(name), fns
 
 
-def count_launch(fn, dtype: torch.dtype) -> None:
-    """One more launch of wrapper ``fn``'s build of ``dtype``:
+def count_launch(fn, dtype: torch.dtype, n: int = 1) -> None:
+    """``n`` more launches of wrapper ``fn``'s build of ``dtype``:
     ``fn.launches`` (float32) or ``fn.launches_bf16``."""
     if dtype == torch.bfloat16:
-        fn.launches_bf16 += 1
+        fn.launches_bf16 += n
     else:
-        fn.launches += 1
+        fn.launches += n
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -1,8 +1,8 @@
 """Which kernel builds a layer or decode head takes, from the card's limits.
 
-Every kernel of the port but N, R, Q, Y, the chains of L and A, and S
-(GRU: B to G, T, T xp, X, A's per-block route, and the encoder stacks' U
-and V; LSTM: L's per-block route, M) runs one
+Every kernel of the port but C, E, N, R, Q, Y, the chains of L and A, and
+S (GRU: B, D, F, G, T, T xp, X, A's per-block route, and the encoder
+stacks' U and V; LSTM: L's per-block route, M) runs one
 thread per hidden column (blockDim.x = H) and keeps a tile of batch rows per
 block, so whether a build launches at a width is a matter of two limits of
 the H100 (sm_90a):
@@ -11,7 +11,8 @@ the H100 (sm_90a):
 - shared memory: the block's tile must fit the 227 KB (232,448 bytes) a block
   may have.
 
-Kernels A to E, L, M, U and V are built without launch bounds; their register
+Kernels A (its per-block route), B, D, L, M, U and V are built without
+launch bounds; their register
 counts (``REGISTERS``, from ``nvcc -Xptxas -v`` on the card; ``chip_smoke.py``
 checks them against the build) decide how wide they go. F, G, the
 per-step cells T and T xp, the GRU's bf16 whole-scan encoder X and
@@ -30,16 +31,20 @@ is its plan (``fwd_plan``). L runs an x @ W pre-pass and then that chain
 (``lstm_fwd_route``). A runs the same pre-pass and then a GRU forward chain
 on clusters (builds ``A_chain``, ``A_chain_bf16``; ``gru_fwd_plan``); its
 per-block design (``A``, ``A_bf16``) is the route of widths that chain does
-not take (``gru_fwd_route``). S and S xp, the LSTM step, are one product on
-the tensor cores over tiles of batch rows x hidden units, whose plan
-(``step_plan``) launches at H a multiple of 32 up to ``STEP_MAX_H``.
+not take (``gru_fwd_route``). C and E, the GRU's backward through time,
+run as a gate pre-pass and a chain on clusters (C also a dx pass; the
+section "The GRU's backward through time"); whether they launch is the
+chain's plan (``gru_bptt_plan``), the same for the narrow and the wide
+builds of E. S and S xp, the LSTM step, are one product on the tensor cores
+over tiles of batch rows x hidden units, whose plan (``step_plan``)
+launches at H a multiple of 32 up to ``STEP_MAX_H``.
 
 The training step takes one route for all its layers and heads:
 - ``"narrow"``, the GRU(256) path: A + C per encoder layer (the x-projection
-  inside the kernels), D + E over 8 rows per block with the notes head's
-  T-length side heads in one launch;
+  inside them), D over 8 rows per block and E with the notes head's
+  T-length side heads in one launch each;
 - ``"wide"``, taken where a narrow build does not launch (from H = 512 on: D
-  and E at 160 and 168 registers a thread): xp = x @ W + b as one
+  at 160 registers a thread): xp = x @ W + b as one
   torch.matmul and F + G per encoder layer, and every head decoded on its
   own by the 2-rows-per-block builds of D and E, as the JAX package does at
   H = 512 (``fused_train.py:2282-2288``, ``models/vae.py:392-394``). A and
@@ -61,18 +66,17 @@ wide route took 19.6 / 21.2 ms (L1 / L2) against the narrow route's
 21.3 / 47.7 ms (NVIDIA H100 80GB HBM3, 700 W).
 In a bfloat16 model (``compute_dtype``) the parts take bf16 builds (their
 tiles stay float, as every bf16 build's): in-kernel projection layers A and
-C or L and N (``A_bf16``, ``C_bf16``, ``L_bf16``, ``N_bf16``, their own
-register counts), the GRU's xp layers X for the forward (kernel X computes
+C or L and N (``A_bf16``, ``C_bf16``, ``L_bf16``, ``N_bf16``), the GRU's xp layers X for the forward (kernel X computes
 what F would in bf16: the JAX package's ``_fwd_kernel`` in bf16 is its
 ``_encoder_kernel`` with the sequence emitted) and ``G_bf16``, the LSTM's
 ``Q_bf16`` and ``R_bf16``, heads D and E (``D_bf16``, ``E_bf16``; D's 144
 registers a thread keep it under 512 threads) or ``D_wide_bf16`` and
 ``E_wide_bf16``; a head narrower than 8 is promoted to float32 and takes
 D's and E's float32 builds. Where the TPU runs a bf16 head through rows 7
-and 8 at a width where D's and E's 8-row builds do not launch (H = 512:
-144 and 167 registers a thread), it takes ``D_wide_bf16`` (rows 7 and 13
-share their forward) and ``E_wide_row8_bf16`` (the 2-row layout with row
-8's rounding: the streams for W left unrounded), or for a head promoted to
+and 8 at a width where D's 8-row build does not launch (H = 512: 144
+registers a thread), it takes ``D_wide_bf16`` (rows 7 and 13 share their
+forward) and ``E_wide_row8_bf16`` (E's chain with row 8's rounding: the
+streams for W left unrounded), or for a head promoted to
 float32 the float32 wide builds, which compute rows 7 and 8's function
 (``head_builds``). A float32 model with ``decode_residual_bf16`` takes D's
 and E's bf16-residual builds (``D_resid``, ``E_resid``) in the multi-head
@@ -111,12 +115,11 @@ WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
 
 # registers per thread of the builds without launch bounds (the largest over
 # a build's template instances), from nvcc -Xptxas -v for sm_90a
-REGISTERS = {"A": 90, "B": 94, "C": 86, "D": 160, "E": 168, "L": 88, "M": 75,
-             "U": 78, "V": 172, "A_bf16": 94, "C_bf16": 96, "D_bf16": 144, "E_bf16": 167,
-             "L_bf16": 80, "D_resid": 160, "E_resid": 168}
+REGISTERS = {"A": 90, "B": 94, "D": 160, "L": 88, "M": 75,
+             "U": 78, "V": 172, "A_bf16": 94, "D_bf16": 144,
+             "L_bf16": 80, "D_resid": 160}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
-BOUNDED = ("F", "G", "D_wide", "E_wide", "T", "T_xp", "X",
-           "G_bf16", "D_wide_bf16", "E_wide_bf16", "E_wide_row8_bf16")
+BOUNDED = ("F", "G", "D_wide", "T", "T_xp", "X", "G_bf16", "D_wide_bf16")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
 LSTM_NARROW_MAX_H = 256
 
@@ -130,20 +133,20 @@ class LaunchLimitError(ValueError):
 def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
                dx: bool = False) -> int:
     """Dynamic shared memory of one block of ``kernel``: D is the layer's
-    input width (A, C, L, N; U and V: of the stack, ``n_layers`` = 2, or of
-    a branch, ``n_layers`` = 1), the head's output width (B, D, E, M) or the
-    cell's input width (T). The bf16 builds (X, those of A to E, G,
-    the wide D and E, and T, and U's and V's), D's and E's bf16-residual
-    builds and E's row-8 build hold the tiles of the builds they are twins
-    of, in float: a bf16 value is widened as it is loaded."""
-    kernel = kernel.removesuffix("_bf16").removesuffix("_resid").removesuffix("_row8")
+    input width (A, L; U and V: of the stack, ``n_layers`` = 2, or of a
+    branch, ``n_layers`` = 1), the head's output width (B, D, M) or the
+    cell's input width (T). The bf16 builds (X, those of A, B, D, G, the
+    wide D, and T, and U's and V's) and D's bf16-residual build hold the
+    tiles of the builds they are twins of, in float: a bf16 value is widened
+    as it is loaded. C and E run as phases (``gru_bptt_plan``: 0 here)."""
+    if kernel in C_BUILDS or kernel in E_BUILDS:
+        return 0
+    kernel = kernel.removesuffix("_bf16").removesuffix("_resid")
     rows = WIDE_ROWS if kernel.endswith("_wide") else ROWS
     floats = {
         "A": D + 2 * H,
         "B": 2 * D + (n_layers + 1) * H,
-        "C": D + 5 * H + (D if dx else 0),
         "D": 2 * D + (n_layers + 1) * H,
-        "E": 3 * D + 8 * H,
         "F": 2 * H,
         "G": 5 * H,
         "L": D + 3 * H,  # x, h twice (h_{t-1} and h_t), c
@@ -154,7 +157,7 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
         # the stack: x, h1, h2, r * h; a branch: as A
         "U": D + (n_layers + 1) * H,
         # the stack: x, h1_t, h1_{t-1}, h2_{t-1}, r * h, the gate grads (3H),
-        # layer 2's dx (H); a branch: as C
+        # layer 2's dx (H); a branch: x, h_{t-1}, r * h, the gate grads (3H)
         "V": D + (3 * n_layers + 2) * H + (D if dx else 0),
     }[kernel.removesuffix("_wide")]
     return 4 * rows * floats
@@ -165,9 +168,12 @@ def launch_limit(kernel: str, H: int, smem: int) -> str | None:
     memory cannot launch on the card, or None when it can. For the LSTM's
     backward (N, R and their bf16 builds: ``BPTT_BUILDS``), its forward
     over xp (Q, Q bf16, Y, L's chain: ``FWD_BUILDS``) and A's chain
-    (``GRU_FWD_BUILDS``) the chain's cluster plan decides, whatever
-    ``smem``: ``bptt_limit``, ``fwd_limit``, ``gru_fwd_limit``; for S and S
-    xp their tile plan: ``step_limit``."""
+    (``GRU_FWD_BUILDS``) and C's and E's builds (``C_BUILDS``, ``E_BUILDS``)
+    the chain's cluster plan decides, whatever ``smem``: ``bptt_limit``,
+    ``fwd_limit``, ``gru_fwd_limit``, ``gru_bptt_limit``; for S and S xp
+    their tile plan: ``step_limit``."""
+    if kernel in C_BUILDS or kernel in E_BUILDS:
+        return gru_bptt_limit(kernel, H)
     if kernel in BPTT_BUILDS:
         return bptt_limit(kernel, H)
     if kernel in FWD_BUILDS:
@@ -659,6 +665,271 @@ def a_limit(H: int, D: int, bf16: bool = False) -> str | None:
 
 
 # ---------------------------------------------------------------------------
+# The GRU's backward through time (kernels C and E,
+# csrc/gru_cell_bwd_chain.cuh): a gate pre-pass on the tensor cores (and C's
+# dx pass), then the serial chain on thread-block clusters of 512-thread
+# CTAs. A cluster owns ``rows`` batch rows of a part (C: the layer; E: each
+# head of a call, its clusters after the previous head's); its C CTAs split
+# the H units (Hc = H / C each) and read their 3 Hc gate rows of U^T (E:
+# also of W2^T and of W1^T, zero-padded to a multiple of 64 columns) through
+# a ring of chunks of GRU_BWD_CHUNK rows, in the weights' element type:
+# ``resident`` where the ring holds every chunk of a step (``stages`` = the
+# chunks of the widest part), else streamed from L2 through ``stages`` slots
+# (2 to 8). A stage's product writes a partial of ``pw`` columns (C: H; a
+# 2-layer head: 2H, layer 2's dx beside dh; a 1-layer head: H + the padded
+# D); ``nbuf`` partial buffers (2: one cluster barrier a stage). A warp owns
+# at most GRU_BWD_MAX_ITEMS product tiles of 8 rows x 64 units and a thread
+# at most GRU_BWD_MAX_PAIRS (row, unit) pairs, which bound a part's rows.
+# ``gru_bptt_plan`` picks the cluster size by a cost model: a part's waves
+# of clusters (the card's active clusters at that size) times the serial
+# work of its steps (each stage's product tiles a warp walks over the
+# stage's gate rows, a barrier and the peers' loads of its reductions, and
+# a streamed ring's waits), the longest part's or, where more, the whole
+# launch's work over the active clusters; smaller clusters first on a tie.
+# Timed on the H100 at every cluster size at the paths' 16 shapes
+# (tools/time_gru_bptt.py; PERF.md, Findings): no one size was within 10 %
+# of the fastest everywhere (8 lost 11-124 % to 16 at B = 5 and on E's
+# heads at H = 512, 16 lost 22-84 % to 8 where it takes more waves), and
+# the model's pick is within 10 % of the fastest at all 16
+# (tests/test_torch_gru_bwd_chain.py holds it there); without any one of
+# its four constants it is not. There is
+# no depth split: the product tiles over rows x units keep the warps busy.
+# ---------------------------------------------------------------------------
+
+GRU_BPTT_BUILDS = ("C_chain", "C_chain_bf16", "E_chain", "E_chain_bf16")
+# the route chooser's names of C's and E's builds, each run by a chain build
+C_BUILDS = ("C", "C_bf16")
+E_BUILDS = ("E", "E_bf16", "E_resid", "E_wide", "E_wide_bf16", "E_wide_row8_bf16")
+GRU_BWD_CHUNK = 16      # kBwdChunk: gate rows of a chunk of a slice
+GRU_BWD_MAX_ITEMS = 2   # kBwdMaxItems: product tiles a warp owns in a stage
+GRU_BWD_MAX_PAIRS = 3   # kBwdMaxPairs: (row, unit) pairs a thread owns
+GRU_BWD_TILE = 64       # kBwdTile: units of a float product tile (8 rows)
+GRU_BWD_TILE_MMA = 32   # kBwdTileMma: units of a bf16 product tile (16 rows, tensor cores)
+GRU_BWD_SLICE_PAD = 8   # kBwdSlicePad: a bf16 ring row holds H + 8 values
+GRU_BWD_MAX_STAGES = 8  # the most slots of a streamed ring (cp.async groups in flight)
+# dynamic shared memory a chain CTA may take: the block's less what its
+# static shared memory (the segments, E's head) may hold (kBwdStaticSmem)
+GRU_BWD_SMEM = SMEM_PER_BLOCK - 1024
+# the cost model's constants, in cycles of a scheduler (4 an SM): a warp's
+# FFMA product tile over one gate row (16 FMA and 3 loads a lane, 4 warps a
+# scheduler), a cluster barrier, one peer's load in a reduction, a streamed
+# chunk's wait
+_TILE_ROW_CYCLES = 4 * 19
+_BARRIER_CYCLES = 1500
+_PEER_CYCLES = 60
+_CHUNK_CYCLES = 300
+REGISTERS.update({"C_chain": 128, "C_chain_bf16": 128, "E_chain": 128, "E_chain_bf16": 128})
+
+
+class GruBpttPlan(NamedTuple):
+    """How the chain of C or E runs: ``cluster`` CTAs a cluster, ``rows``
+    batch rows a cluster of each part (C: one; E: per head of the call),
+    ``clusters`` per part, ``nbuf`` partial buffers, ``stages`` slots of the
+    ring, ``resident`` whether it holds every chunk of a step, ``smem``
+    bytes of dynamic shared memory a CTA, ``waves`` of clusters at the
+    card's active clusters."""
+
+    cluster: int
+    rows: tuple
+    clusters: tuple
+    nbuf: int
+    stages: int
+    resident: bool
+    smem: int
+    waves: int
+
+
+class _Part(NamedTuple):
+    """A part of a chain launch: its partial's width ``pw``, its layers,
+    whether its layers' dx feeds the chain (``head``), its steps ``T`` and
+    its output width ``D`` (0 for C)."""
+
+    pw: int
+    layers: int
+    head: bool
+    T: int
+    D: int
+
+    def chunks(self, Hc: int) -> int:
+        """Chunks of a step: a layer's 3 Hc gate rows of U^T, and of W^T in
+        a head."""
+        return self.layers * (6 if self.head else 3) * Hc // GRU_BWD_CHUNK
+
+
+def _round64(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+def gru_bptt_smem(H: int, C: int, rows_max: int, part_floats: int, nbuf: int, stages: int,
+                  elem: int, D_max: int = 0) -> int:
+    """``gru_bptt_smem`` of csrc/gru_cell_bwd_chain.cuh, in bytes: the ring
+    (its bf16 rows padded), the partial buffers, the da tile (rows rounded
+    to 16) and, for heads, Wo's own rows, the dlogits and the fed-back
+    probs' grad."""
+    Hc = H // C
+    head = (Hc * D_max + 2 * rows_max * D_max) * 4 if D_max else 0
+    ring = stages * GRU_BWD_CHUNK * (H + (GRU_BWD_SLICE_PAD if elem == 2 else 0)) * elem
+    return ring + nbuf * part_floats * 4 + _round16(rows_max) * 3 * Hc * 4 + head
+
+
+def _bptt_parts(build: str, H: int, heads) -> list[_Part]:
+    """C's layer, or E's heads ((D, n_layers[, T]) each; T 64 by default)."""
+    if build.startswith("C"):
+        return [_Part(H, 1, False, 64, 0)]
+    return [_Part(2 * H if h[1] == 2 else H + _round64(h[0]), h[1], True,
+                  h[2] if len(h) > 2 else 64, h[0]) for h in heads]
+
+
+def _items(rows: int, pw: int, elem: int) -> int:
+    """Product tiles of a stage: 8 rows x 64 units in float, 16 x 32 on the
+    tensor cores in bf16."""
+    if elem == 2:
+        return -(-rows // 16) * (pw // GRU_BWD_TILE_MMA)
+    return -(-rows // 8) * (pw // GRU_BWD_TILE)
+
+
+def _step_cycles(H: int, C: int, rows: int, part: _Part, streamed: bool, elem: int = 4) -> float:
+    """The cost model's cycles of one reverse step of a part (a bf16 tile's
+    gate row counted as a float tile's: its three products on the tensor
+    cores take about the float tile's FFMA issue slots)."""
+    Hc = H // C
+
+    def tiles(w):  # product tiles a warp walks in a stage
+        return -(-_items(rows, w, elem) // CHAIN_WARPS)
+
+    pairs = -(-rows * Hc // CHAIN_THREADS)
+    cyc = 0.0
+    for layer in range(part.layers):
+        # S1: the candidate's Hc gate rows; S2: U_zr's 2 Hc, and W's 3 Hc
+        # where the layer's dx feeds the chain
+        w2 = (part.pw if layer == part.layers - 1 else H) if part.head else H
+        k2 = 5 * Hc if part.head else 2 * Hc
+        cyc += (tiles(H) * Hc + tiles(w2) * k2) * 8 * _TILE_ROW_CYCLES
+        cyc += 2 * (_BARRIER_CYCLES + pairs * C * _PEER_CYCLES)
+    if streamed:
+        cyc += part.chunks(Hc) * _CHUNK_CYCLES
+    return cyc
+
+
+def _bptt_cluster_ok(H: int, C: int) -> bool:
+    return H % GRU_BWD_TILE == 0 and H % C == 0 and (H // C) % GRU_BWD_CHUNK == 0
+
+
+def _bptt_fit(H: int, C: int, rows, parts, elem: int):
+    """(nbuf, stages, resident, smem) of the first arrangement that fits at
+    these rows: resident with 2 or 1 partial buffers, else streamed with the
+    most slots (2 buffers first); None where none fits."""
+    Hc = H // C
+    part = max(r * p.pw for r, p in zip(rows, parts))
+    D_max, rows_max = max(p.D for p in parts), max(rows)
+    n_max = max(p.chunks(Hc) for p in parts)
+    for nbuf in (2, 1):
+        smem = gru_bptt_smem(H, C, rows_max, part, nbuf, n_max, elem, D_max)
+        if smem <= GRU_BWD_SMEM:
+            return nbuf, n_max, True, smem
+    for nbuf in (2, 1):
+        for stages in range(min(GRU_BWD_MAX_STAGES, n_max - 1), 1, -1):
+            smem = gru_bptt_smem(H, C, rows_max, part, nbuf, stages, elem, D_max)
+            if smem <= GRU_BWD_SMEM:
+                return nbuf, stages, False, smem
+    return None
+
+
+def _most_rows(H: int, C: int, part: _Part, elem: int) -> int:
+    """The most rows a cluster of a part takes: a thread's pairs and a
+    warp's product tiles."""
+    if elem == 2:
+        tile_rows = GRU_BWD_MAX_ITEMS * CHAIN_WARPS // (part.pw // GRU_BWD_TILE_MMA) * 16
+    else:
+        tile_rows = GRU_BWD_MAX_ITEMS * CHAIN_WARPS // (part.pw // GRU_BWD_TILE) * 8
+    return min(GRU_BWD_MAX_PAIRS * CHAIN_THREADS // (H // C), tile_rows)
+
+
+def _bptt_candidate(H: int, B: int, C: int, parts, M: int, elem: int):
+    """(plan, cost) at cluster size C with M clusters of it active at once,
+    or None where nothing fits: each part first takes the fewest clusters
+    its rows allow, the spare ones of a wave go to the part whose steps cost
+    most, and rows shrink where shared memory runs short."""
+    most = [_most_rows(H, C, p, elem) for p in parts]
+    if min(most) < 1:
+        return None
+    k = [-(-B // m) for m in most]
+
+    def cost(i, clusters):
+        return parts[i].T * _step_cycles(H, C, -(-B // clusters), parts[i], False, elem)
+
+    while sum(k) < M:
+        worst = max(range(len(parts)), key=lambda i: cost(i, k[i]) if k[i] < B else -1.0)
+        if k[worst] >= B:
+            break
+        k[worst] += 1
+    while True:
+        rows = [-(-B // ki) for ki in k]
+        fit = _bptt_fit(H, C, rows, parts, elem)
+        if fit is not None:
+            break
+        i = max(range(len(parts)), key=lambda j: rows[j] * parts[j].pw)
+        if rows[i] == 1:
+            return None
+        k[i] = -(-B // (rows[i] - 1))
+    nbuf, stages, resident, smem = fit
+    clusters = [-(-B // r) for r in rows]
+    Hc = H // C
+    costs = [p.T * _step_cycles(H, C, r, p, p.chunks(Hc) > stages, elem)
+             for r, p in zip(rows, parts)]
+    # the launch's span: each part's clusters in waves of their own (the card
+    # takes a part's clusters before the next part's), and at least the
+    # work of every cluster spread over the M the card runs at once
+    span = max(max(-(-k // M) * c for k, c in zip(clusters, costs)),
+               sum(k * c for k, c in zip(clusters, costs)) / M)
+    return GruBpttPlan(C, tuple(rows), tuple(clusters), nbuf, stages, resident, smem,
+                       -(-sum(clusters) // M)), span
+
+
+def gru_bptt_plan(build: str, H: int, B: int, heads=((61, 2),), active=None) -> GruBpttPlan:
+    """The chain's plan of build ``build`` (``GRU_BPTT_BUILDS``) at width H
+    and batch B: C's one layer, or E's ``heads`` ((D, n_layers[, T]) each,
+    in the call's order). ``active(C)`` gives the clusters of size C the
+    card runs at once (default: the H100's, ``MAX_CLUSTERS_H100``). Raises
+    LaunchLimitError where the chain does not launch."""
+    if build not in GRU_BPTT_BUILDS:
+        raise ValueError(f"{build!r} is not one of {GRU_BPTT_BUILDS}")
+    elem = 2 if build.endswith("_bf16") else 4
+    parts = _bptt_parts(build, H, heads)
+    if any(_round64(p.D) > H for p in parts):
+        raise LaunchLimitError(f"kernel {build}'s chain takes heads whose width padded to 64 "
+                               f"is at most H={H}")
+    best = None
+    for C in CLUSTER_SIZES:
+        if not _bptt_cluster_ok(H, C):
+            continue
+        M = (active or MAX_CLUSTERS_H100.__getitem__)(C)
+        got = _bptt_candidate(H, B, C, parts, M, elem)
+        if got is not None and (best is None or got[1] < best[1]):
+            best = got
+    if best is None:
+        raise LaunchLimitError(
+            f"kernel {build}'s chain takes H a multiple of {GRU_BWD_TILE} whose slices fit a CTA "
+            f"of a cluster of at most 16 ({GRU_BWD_CHUNK} units a CTA at least), got H={H}")
+    return best[0]
+
+
+def gru_bptt_limit(build: str, H: int, D: int = 61, n_layers: int = 2) -> str | None:
+    """Why C's or E's build ``build`` (a name of ``C_BUILDS``, ``E_BUILDS``
+    or ``GRU_BPTT_BUILDS``) cannot launch at width H (E: for a head of
+    width D and ``n_layers``), or None."""
+    if build in C_BUILDS:
+        build = "C_chain" + ("_bf16" if build.endswith("_bf16") else "")
+    elif build in E_BUILDS:
+        build = "E_chain" + ("_bf16" if build.endswith("_bf16") else "")
+    try:
+        gru_bptt_plan(build, H, 1, ((D, n_layers),))
+    except LaunchLimitError as e:
+        return str(e)
+    return None
+
+
+# ---------------------------------------------------------------------------
 # Kernels S and S xp (csrc/lstm_step.cu): one product [x | h] . [W ; U] on
 # the tensor cores a launch (S xp: h . U), with the cell math in its
 # epilogue. A block of 8 ``units`` threads owns ``rows`` batch rows x
@@ -739,13 +1010,15 @@ def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> 
     else:
         if route == "narrow":
             whys = [a_limit(H, d) for d, _dx in layers]
-            checks = [("C", smem_bytes("C", H, d, dx=dx)) for d, dx in layers]
+            whys += [gru_bptt_limit("C", H)] if layers else []
+            checks = []
         elif layers:  # the x-projection is outside: one tile for every layer
             checks = [(k, smem_bytes(k, H)) for k in ("F", "G")]
         else:
             checks = []
-        heads_k = ("D", "E") if route == "narrow" else ("D_wide", "E_wide")
-        checks += [(k, smem_bytes(k, H, d, n)) for d, n in heads for k in heads_k]
+        d_k = "D" if route == "narrow" else "D_wide"
+        checks += [(d_k, smem_bytes(d_k, H, d, n)) for d, n in heads]
+        whys += [gru_bptt_limit("E", H, d, n) for d, n in heads]
     whys += [launch_limit(k, H, smem) for k, smem in checks]
     return [why for why in whys if why is not None]
 
@@ -997,8 +1270,7 @@ def bf16_layer_mode(cell_type: str, B: int, D: int, H: int, on_card: bool = Fals
                 raise NotImplementedError(f"the JAX package runs this bf16 part through "
                                           f"{LAYER_ROWS[cell_type][mode]}; their port build "
                                           f"does not launch: {why}")
-            builds = ([("N_bf16", 0)] if lstm else
-                      [("C_bf16", smem_bytes("C", H, D, dx=dx))])
+            builds = [("N_bf16", 0)] if lstm else [("C_bf16", 0)]
         else:
             builds = ([("Q_bf16", 0), ("R_bf16", 0)] if lstm else
                       [(k, smem_bytes(k, H)) for k in ("X", "G_bf16")])
@@ -1026,7 +1298,7 @@ def bf16_head_mode(B: int, D: int, H: int, n_layers: int, on_card: bool = False)
     if on_card:
         builds = ([(k, smem_bytes(k, H, D, n_layers)) for k in head_builds(mode, D, H, n_layers)]
                   if mode != "scan" else [])
-        _require_bf16(HEAD_ROWS[mode], builds, H)
+        _require_bf16(HEAD_ROWS[mode], builds, H, D, n_layers)
     return mode
 
 
@@ -1037,28 +1309,36 @@ def head_builds(mode: str, D: int, H: int, n_layers: int) -> tuple[str, str]:
     and 8 take the 8-row builds where they launch, else the 2-row ones: D's
     wide build (``_dec_fwd1/2_kernel`` is the forward of rows 7 and 13
     alike) and E's with row 8's rounding (``E_wide_row8_bf16``; in float32
-    the wide E, whose streams are not rounded either)."""
+    the wide E, whose streams are not rounded either). E's builds other
+    than the wide bf16 one run one chain with one launch limit, so D's
+    builds decide."""
     sfx = "_bf16" if D >= 8 else ""
     if mode == "wide":
         return "D_wide" + sfx, "E_wide" + sfx
-    narrow = ("D" + sfx, "E" + sfx)
-    wide = ("D_wide" + sfx, "E_wide_row8_bf16" if sfx else "E_wide")
-
-    def launches(pair):
-        return all(launch_limit(k, H, smem_bytes(k, H, D, n_layers)) is None for k in pair)
-
-    return wide if launches(wide) and not launches(narrow) else narrow
+    if (_part_limit("D" + sfx, H, D, n_layers) is not None
+            and _part_limit("D_wide" + sfx, H, D, n_layers) is None):
+        return "D_wide" + sfx, "E_wide_row8_bf16" if sfx else "E_wide"
+    return "D" + sfx, "E" + sfx
 
 
-def _require_bf16(rows: str, builds, H: int) -> None:
+def _part_limit(build: str, H: int, D: int, n_layers: int) -> str | None:
+    """``launch_limit`` of a decode head's build: D's from its tile, E's
+    from its chain's plan for a head of width D and ``n_layers``."""
+    if build in E_BUILDS:
+        return gru_bptt_limit(build, H, D, n_layers)
+    return launch_limit(build, H, smem_bytes(build, H, D, n_layers))
+
+
+def _require_bf16(rows: str, builds, H: int, D: int = 61, n_layers: int = 2) -> None:
     """Raise NotImplementedError when the port has no build of the TPU's
     ``rows`` (``builds``: (build, shared memory) pairs) that launches at
-    width H on the card."""
+    width H on the card (E's builds for a head of width D and
+    ``n_layers``)."""
     if not builds:
         raise NotImplementedError(f"the JAX package runs this bf16 part through {rows}, which "
                                   "the port has no kernel build for")
     for k, smem in builds:
-        why = launch_limit(k, H, smem)
+        why = gru_bptt_limit(k, H, D, n_layers) if k in E_BUILDS else launch_limit(k, H, smem)
         if why is not None:
             raise NotImplementedError(f"the JAX package runs this bf16 part through {rows}; "
                                       f"their port build does not launch: {why}")

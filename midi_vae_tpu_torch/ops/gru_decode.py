@@ -20,12 +20,21 @@ its layers' h sequences. Its backward is kernel E
 (``csrc/gru_decode_bwd.cu``, replacing ``_dec_bwd1/2_kernel`` and
 ``_mh_bwd_kernel``) for the gate grads, d_init and d_start, then kernel W
 (``ops/grad_reduce.py``) for every weight grad. The plain versions are
-``gru_decode_train_reference`` and ``gru_decode_bwd_reference``.
+``gru_decode_train_reference`` and ``gru_decode_bwd_reference``. On the
+card E runs as two phases (``csrc/gru_cell_bwd_chain.cuh``), each with its
+plain version and its launch counts (``E_PHASES``): C's gate pre-pass for
+every layer of the call's heads (``gru_decode_bwd_gates``, from each
+layer's stored inputs, ``_layer_inputs``; two launches a layer), then one
+chain on thread-block clusters through every head (``gru_decode_bwd_chain``,
+``gru_decode_bwd_chain_reference``; its plan ``gru_bptt_plan``; one launch
+a call); the build (``_BUILDS``) picks the chain's entry point, and the
+chain's launch also counts on the build's counter.
 
-D and E each have a second build for the wide route (``ops/_layout.py``,
-H = 512): 2 batch rows per block under ``__launch_bounds__(512)``, replacing
-``_dec_fwd_wide_pallas`` and ``_dec_bwd_wide_pallas``. "D_wide", "E_wide" select
-it; ``gru_decode_fwd_train_wide`` and ``gru_decode_bwd_wide`` count its
+D has a second build for the wide route (``ops/_layout.py``, H = 512): 2
+batch rows per block under ``__launch_bounds__(512)``, replacing
+``_dec_fwd_wide_pallas``; E's wide builds replace ``_dec_bwd_wide_pallas``
+on the same chain. "D_wide", "E_wide" select them;
+``gru_decode_fwd_train_wide`` and ``gru_decode_bwd_wide`` count their
 launches. Every build has a name (``ops/_layout.py``: "D", "E_wide_bf16",
 ...); the wrappers and ``gru_decode_train`` take it as ``build`` /
 ``builds``, and ``_BUILDS`` gives each its entry point and its counter.
@@ -40,7 +49,9 @@ stores: the carried states, the h sequences, probs and logits, and the probs
 fed back as the next input; layer 2 takes layer 1's float32 h of the same
 step and the readout the float32 top h. The backward widens the stored
 sequences and probs to float32 and runs in float32 (it recomputes layer 2
-from the stored bf16 h1); d_init and d_start leave in bf16, the gate grads
+from the stored bf16 h1: the pre-pass takes the bf16 products exactly, the
+chain's products run on the tensor cores with the float da in three bf16
+terms); d_init and d_start leave in bf16, the gate grads
 and dlogits in float32 for W, and the weight grads are rounded to the params'
 dtype at the end (``_gdt_bwd``). A head narrower than 8 (velocity, held
 notes) is promoted whole to float32 and takes the float32 builds, as
@@ -58,20 +69,21 @@ wide's bf16 build emits them as bf16 values (in float32 tensors), and W sums
 them; the narrow route's bf16 E keeps them unrounded, as ``_dec_bwd1/2_kernel``
 sums its weight grads from the float32 values in VMEM. The carries, r * h,
 d_init and d_start are as in the narrow bf16 build. E's wide build has a
-second bf16 build with that narrow rounding (``mvt_gru_decode_bwd_wide_row8_bf16``,
-build "E_wide_row8_bf16"): where the TPU runs a bf16 head through rows 7 and
-8 at a width the 8-row builds do not launch at (``ops/_layout.py``,
-``head_builds``), the head takes D's wide bf16 build (rows 7 and 13 share
-``_dec_fwd1/2_kernel``) and this one (``.launches_row8_bf16``).
+second bf16 build with that narrow rounding (build "E_wide_row8_bf16", the
+narrow bf16 build's chain ``mvt_gru_decode_bwd_bf16``): where the TPU runs a
+bf16 head through rows 7 and 8 at a width the 8-row builds do not launch at
+(``ops/_layout.py``, ``head_builds``: D's narrow build), the head takes D's
+wide bf16 build (rows 7 and 13 share ``_dec_fwd1/2_kernel``) and this one
+(``.launches_row8_bf16``).
 
 A float32 model with ``decode_residual_bf16`` stores the multi-head call's
 h sequences in bfloat16 (``residual_dtype``, ``_mh_fwd_kernel``'s
 ``residual_dtype``): D's bf16-residual build ("D_resid",
 ``mvt_gru_decode_train_resid``) computes the float32 build's carries, probs
 and logits bit for bit and stores the sequences rounded; E's ("E_resid",
-``mvt_gru_decode_bwd_resid``) reads them and recomputes the gates from the
-rounded h, as ``_mh_bwd_kernel`` does (the
-initial states unrounded at t = 0, layer 1's x the float32 probs); W sums
+the float32 chain ``mvt_gru_decode_bwd``) reads them and recomputes the
+gates from the rounded h, as ``_mh_bwd_kernel`` does (the initial states
+unrounded at t = 0, layer 1's x the float32 probs); W sums
 dWo and layer 2's dW over the rounded sequences (its bf16 build) and every
 dU over h_{t-1} widened beside the unrounded initial state (its float32
 build). Launches: ``.launches_resid``.
@@ -86,7 +98,11 @@ import torch
 
 from . import _build, _layout
 from .grad_reduce import grad_reduce, gru_weight_grads
-from .gru_layer import CELL_ACTIVATIONS, _ptr, cell_activation, check_operands, gru_cell_bwd_core, gru_step
+from .gru_layer import (CELL_ACTIVATIONS, _ptr, _stream, bwd_gates, cell_activation,
+                        check_operands, gru_bptt_plan, gru_bwd_cell_reference,
+                        gru_bwd_gates_reference, gru_cell_bwd_core, gru_step)
+
+_BF16 = torch.bfloat16
 
 # output activations the kernel implements, with their codes in gru_common.cuh
 OUT_ACTIVATIONS = {"sigmoid": 1, "linear": 3, "softmax": 4}
@@ -276,10 +292,11 @@ def gru_decode_bwd_reference(cells, out_dense, init_states, start, probs, h_seqs
 
 _DECODE_PTRS = ("start", "h1_0", "h2_0", "w1", "u1", "b1", "w2", "u2", "b2", "wo", "bo",
                 "probs", "logits", "h1seq", "h2seq")
-_BWD_PTRS = ("probs", "h1seq", "h2seq", "g_probs", "g_logits", "start", "h1_0", "h2_0",
-             "w1", "u1", "b1", "u1t", "w1t", "w2", "u2", "b2", "u2t", "w2t", "wot",
-             "dlogits", "da1", "rh1", "da2", "rh2", "d_h1_0", "d_h2_0", "d_start")
 _INTS = ("D", "n_layers", "out_act", "T")
+_CHAIN_PTRS = ("gates1", "gates2", "hprev1", "hprev2", "probs", "g_probs", "g_logits",
+               "u1t", "w1t", "u2t", "w2t", "wo", "dlogits", "da1", "da2", "d_h1_0", "d_h2_0",
+               "d_start")
+_CHAIN_INTS = ("D", "Dp", "n_layers", "out_act", "T", "rows", "clusters")
 
 
 class _DecodeHead(ctypes.Structure):
@@ -287,9 +304,10 @@ class _DecodeHead(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _DECODE_PTRS] + [(n, ctypes.c_int) for n in _INTS]
 
 
-class _DecodeHeadBwd(ctypes.Structure):
-    """struct DecodeHeadBwd of csrc/gru_decode_bwd.cu."""
-    _fields_ = [(n, ctypes.c_void_p) for n in _BWD_PTRS] + [(n, ctypes.c_int) for n in _INTS]
+class _HeadBwdChain(ctypes.Structure):
+    """struct HeadBwdChain of csrc/gru_cell_bwd_chain.cuh."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in _CHAIN_PTRS]
+                + [(n, ctypes.c_int) for n in _CHAIN_INTS])
 
 
 def _check_heads(heads, build: str) -> tuple[int, int, torch.device, torch.dtype]:
@@ -329,8 +347,10 @@ def _check_heads(heads, build: str) -> tuple[int, int, torch.device, torch.dtype
         want = torch.bfloat16 if build.endswith("_bf16") else torch.float32
         if dtype != want:
             raise ValueError(f"build {build} of kernel {build[0]} takes {want} heads, not {dtype}")
-        _layout.require(build, H, max(_layout.smem_bytes(build, H, h["start"].shape[-1],
-                                                        len(h["cells"])) for h in heads))
+        for h in heads:
+            why = _layout._part_limit(build, H, h["start"].shape[-1], len(h["cells"]))
+            if why is not None:
+                raise _layout.LaunchLimitError(why)
     return B, H, device, dtype
 
 
@@ -403,8 +423,8 @@ def gru_decode_bwd(heads, build=None):
     ``g_logits`` (T, B, D). Returns per head the dict of
     ``gru_decode_bwd_reference``. ``build``: kernel E's build (default "E",
     or "E_bf16" for bf16 heads; "E_resid": float32 heads reading bf16 h
-    sequences). CPU tensors run that plain version; CUDA tensors launch
-    kernel E once."""
+    sequences). CPU tensors run that plain version; CUDA tensors run kernel
+    E's phases (``gru_decode_bwd_gates``, ``gru_decode_bwd_chain``)."""
     return _decode_bwd(heads, build or _named("E", heads))
 
 
@@ -437,33 +457,194 @@ _BUILDS = {
                "launches"),
     "D_wide_bf16": ("gru_decode_train", "mvt_gru_decode_train_wide_bf16",
                     gru_decode_fwd_train_wide, "launches_bf16"),
+    # E's six builds run three chain instances: float (the residual build's
+    # pre-pass reads the rounded h widened), bf16 with the streams
+    # unrounded, bf16 with them rounded (E wide bf16)
     "E": ("gru_decode_bwd", "mvt_gru_decode_bwd", gru_decode_bwd, "launches"),
+    "E_resid": ("gru_decode_bwd", "mvt_gru_decode_bwd", gru_decode_bwd, "launches_resid"),
+    "E_wide": ("gru_decode_bwd", "mvt_gru_decode_bwd", gru_decode_bwd_wide, "launches"),
     "E_bf16": ("gru_decode_bwd", "mvt_gru_decode_bwd_bf16", gru_decode_bwd, "launches_bf16"),
-    "E_resid": ("gru_decode_bwd", "mvt_gru_decode_bwd_resid", gru_decode_bwd, "launches_resid"),
-    "E_wide": ("gru_decode_bwd", "mvt_gru_decode_bwd_wide", gru_decode_bwd_wide, "launches"),
+    "E_wide_row8_bf16": ("gru_decode_bwd", "mvt_gru_decode_bwd_bf16", gru_decode_bwd_wide,
+                         "launches_row8_bf16"),
     "E_wide_bf16": ("gru_decode_bwd", "mvt_gru_decode_bwd_wide_bf16", gru_decode_bwd_wide,
                     "launches_bf16"),
-    "E_wide_row8_bf16": ("gru_decode_bwd", "mvt_gru_decode_bwd_wide_row8_bf16",
-                         gru_decode_bwd_wide, "launches_row8_bf16"),
 }
 
 
 @functools.cache
 def _entry(build: str) -> tuple:
-    """(library, entry point) of one of ``_BUILDS``."""
+    """(library, entry point) of one of ``_BUILDS``: D's take its heads'
+    structs, E's (the chain) its heads' chain structs and the plan."""
     name, entry, _fn, _counter = _BUILDS[build]
-    struct = _DecodeHead if build.startswith("D") else _DecodeHeadBwd
-    return _build.load_entry(name, entry, [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p])
+    if build.startswith("D"):
+        args = [ctypes.POINTER(_DecodeHead), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
+    else:
+        args = [ctypes.POINTER(_HeadBwdChain)] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return _build.load_entry(name, entry, args)
+
+
+def _count(build: str) -> None:
+    """One more launch of ``build`` on its wrapper's counter."""
+    _name, _e, wrapper, counter = _BUILDS[build]
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def _launch(build: str, structs, n_heads: int, B: int, H: int, device) -> None:
-    """Launch ``build`` on the current stream and count the launch."""
+    """Launch D's ``build`` on the current stream and count the launch."""
     lib, fn = _entry(build)
     rc = fn(structs, n_heads, B, H, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     _build.check(lib, rc, f"{_BUILDS[build][1]} launch")
-    _name, _e, wrapper, counter = _BUILDS[build]
-    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+    _count(build)
+
+
+# ---------------------------------------------------------------------------
+# E's phases (csrc/gru_cell_bwd_chain.cuh): the gate pre-pass of every layer
+# of the call's heads, then one chain on thread-block clusters through the
+# whole of each head; each has its plain version and its launch counts
+# (``.launches``, ``.launches_bf16``)
+# ---------------------------------------------------------------------------
+
+def _layer_inputs(head) -> list[tuple]:
+    """(x, hprev) of each layer of a head, time-major: layer 1's x the probs
+    fed back ([start, probs[:-1]]), layer 2's h1; hprev = [h_0, h[:-1]]. The
+    h sequences stored in bfloat16 beside float32 heads are widened beside
+    the unrounded initial states (torch.cat promotes; ``_mh_bwd_kernel``
+    recomputes the gates from the rounded h)."""
+    dtype = head["start"].dtype
+    out = []
+    for i, seq in enumerate(head["h_seqs"]):
+        x = (torch.cat([head["start"][None], head["probs"][:-1]]) if i == 0
+             else head["h_seqs"][i - 1].to(dtype))
+        out.append((x, torch.cat([head["init"][i][None], seq[:-1]]).to(dtype)))
+    return out
+
+
+def gru_decode_bwd_gates(heads, inputs=None):
+    """E's gate pre-pass for every layer of ``heads`` (the dicts of
+    ``gru_decode_bwd``): per head, per layer, (gates (T, B, 3H) = [z, r,
+    hh], rh (T, B, H)) float32, ``gru_bwd_gates_reference`` of the layer's
+    stored inputs (``inputs``: ``_layer_inputs`` of each head, where the
+    caller has them). CPU tensors run the plain version; CUDA tensors launch
+    its build of the heads' dtype, two products a layer (two launches, each
+    counted)."""
+    inputs = inputs or [_layer_inputs(h) for h in heads]
+    out = []
+    for h, ins in zip(heads, inputs):
+        cells = h["cells"]
+        if ins[0][0].device.type == "cpu":
+            out.append([gru_bwd_gates_reference(x, hp, c["w"], c["b"], c["u"])
+                        for (x, hp), c in zip(ins, cells)])
+            continue
+        layers = []
+        for (x, hp), c in zip(ins, cells):
+            check_operands({"x": x, "hprev": hp, "w": c["w"], "b": c["b"], "u": c["u"]}, x.device,
+                           _build.DTYPES)
+            layers.append(bwd_gates("gru_decode_bwd", gru_decode_bwd_gates, x, hp, c["w"], c["b"],
+                                    c["u"]))
+        out.append(layers)
+    return out
+
+
+def gru_decode_bwd_chain_reference(head, gates, hprevs, wide=False):
+    """Plain version of E's chain for one head: the reverse loop over the
+    pre-pass's gates of each layer and the layers' hprev, with the readout,
+    the fed-back probs and the layers' dx (``_dec_bwd1/2_kernel``,
+    ``_mh_bwd_kernel``). Returns {dlogits, da [per layer], d_init [per
+    layer], d_start}: float32, d_init and d_start in start's dtype; ``wide``
+    rounds dlogits and the gate grads to start's dtype (rows 13 and 14)."""
+    dtype = head["start"].dtype
+    cells = [{k: c[k].float() for k in ("w", "u")} for c in head["cells"]]
+    wo = head["out"]["w"].float()
+    probs, g_probs, g_logits = (head[k].float() for k in ("probs", "g_probs", "g_logits"))
+    hprevs = [h.float() for h in hprevs]
+    T, n = probs.shape[0], len(cells)
+    dh = [torch.zeros_like(h[0]) for h in hprevs]
+    dx_fed = torch.zeros_like(probs[0])
+    dlog, da = [None] * T, [[None] * T for _ in range(n)]
+    for t in reversed(range(T)):
+        dlog[t] = dlogits_from(probs[t], g_probs[t] + dx_fed, g_logits[t], head["out_activation"])
+        d = dlog[t] @ wo.t() + dh[n - 1]
+        for i in reversed(range(n)):
+            da[i][t], dh[i] = gru_bwd_cell_reference(gates[i][t], hprevs[i][t], cells[i]["u"], d)
+            dx = da[i][t] @ cells[i]["w"].t()
+            if i > 0:
+                d = dx + dh[i - 1]
+            else:
+                dx_fed = dx
+    stream = (lambda a: torch.stack(a).to(dtype).float()) if wide else torch.stack
+    return {"dlogits": stream(dlog), "da": [stream(a) for a in da],
+            "d_init": [d.to(dtype) for d in dh], "d_start": dx_fed.to(dtype)}
+
+
+def _chain_heads(heads) -> tuple:
+    """The plan's heads: (D, n_layers, T) each."""
+    return tuple((h["start"].shape[-1], len(h["cells"]), h["T"]) for h in heads)
+
+
+def gru_decode_bwd_chain(heads, gates, build=None, hprevs=None):
+    """E's chain over the pre-pass's ``gates`` (per head, per layer) of
+    ``heads`` (the dicts of ``gru_decode_bwd``), in one launch of
+    ``build`` (default "E", or "E_bf16" for bf16 heads): per head {dlogits,
+    da [per layer], d_init, d_start}, as ``gru_decode_bwd_chain_reference``
+    (``hprevs``: per head, per layer, where the caller has them). CPU
+    tensors run the plain version; CUDA tensors launch the build on clusters
+    (``gru_bptt_plan``), counted on this wrapper and, as one call of E, on
+    the build's counter (``_BUILDS``)."""
+    build = build or _named("E", heads)
+    wide = build in ("E_wide", "E_wide_bf16")
+    hprevs = hprevs or [[hp for _x, hp in _layer_inputs(h)] for h in heads]
+    if heads[0]["start"].device.type == "cpu":
+        return [gru_decode_bwd_chain_reference(h, [g for g, _rh in gs], hp, wide)
+                for h, gs, hp in zip(heads, gates, hprevs)]
+    B, H = heads[0]["start"].shape[0], heads[0]["init"][0].shape[-1]
+    device, dtype = heads[0]["start"].device, heads[0]["start"].dtype
+    chain = "E_chain_bf16" if dtype == _BF16 else "E_chain"
+    plan = gru_bptt_plan(chain, H, B, _chain_heads(heads))
+    kw = {"device": device, "dtype": torch.float32}
+    null = ctypes.c_void_p(None)
+    structs = (_HeadBwdChain * len(heads))()
+    outs, keep = [], []
+    for k, (h, gs, hps, st) in enumerate(zip(heads, gates, hprevs, structs)):
+        T, D, n_layers = h["T"], h["start"].shape[-1], len(h["cells"])
+        Dp = -(-D // 64) * 64
+        w1t = torch.zeros(3 * H, Dp, device=device, dtype=dtype)
+        w1t[:, :D] = h["cells"][0]["w"].t()
+        named = {"probs": h["probs"], "g_probs": h["g_probs"], "g_logits": h["g_logits"],
+                 "wo": h["out"]["w"], "u1t": h["cells"][0]["u"].t().contiguous(), "w1t": w1t,
+                 "hprev1": hps[0]}
+        if n_layers == 2:
+            named.update({"u2t": h["cells"][1]["u"].t().contiguous(),
+                          "w2t": h["cells"][1]["w"].t().contiguous(), "hprev2": hps[1]})
+        check_operands(named, device, (dtype,))
+        g = {"dlogits": torch.empty(T, B, D, **kw),
+             "da": [torch.empty(T, B, 3 * H, **kw) for _ in range(n_layers)],
+             "d_init": [torch.empty(B, H, device=device, dtype=dtype) for _ in range(n_layers)],
+             "d_start": torch.empty(B, D, device=device, dtype=dtype)}
+        named.update({"dlogits": g["dlogits"], "d_start": g["d_start"]})
+        for i in range(n_layers):
+            named.update({f"gates{i + 1}": gs[i][0], f"da{i + 1}": g["da"][i],
+                          f"d_h{i + 1}_0": g["d_init"][i]})
+        keep.append(named)  # the transposes must outlive the launch
+        for name in _CHAIN_PTRS:
+            setattr(st, name, named[name].data_ptr() if name in named else null.value)
+        st.D, st.Dp, st.n_layers, st.T = D, Dp, n_layers, T
+        st.out_act = OUT_ACTIVATIONS[h["out_activation"]]
+        st.rows, st.clusters = plan.rows[k], plan.clusters[k]
+        outs.append(g)
+    lib, fn = _entry(build)
+    rc = fn(structs, len(heads), B, H, plan.cluster, plan.nbuf, plan.stages, _stream(heads[0]["start"]))
+    _build.check(lib, rc, f"{_BUILDS[build][1]} launch")
+    _build.count_launch(gru_decode_bwd_chain, dtype)
+    _count(build)
+    return outs
+
+
+# the wrappers that launch E's phases, each counting its launches on
+# ``.launches`` and ``.launches_bf16``
+E_PHASES = ("gru_decode_bwd_gates", "gru_decode_bwd_chain")
+for _fn in (gru_decode_bwd_gates, gru_decode_bwd_chain):
+    _fn.launches = _fn.launches_bf16 = 0
 
 
 def _decode_bwd(heads, build: str):
@@ -481,43 +662,16 @@ def _decode_bwd(heads, build: str):
                 for h in heads]
     if device.type != "cuda":
         raise ValueError(f"gru_decode_bwd runs on cpu or cuda tensors, not {device}")
-    kw = {"device": device, "dtype": torch.float32}
-    null = ctypes.c_void_p(None)
-    structs = (_DecodeHeadBwd * len(heads))()
-    outs, keep = [], []
-    for h, st in zip(heads, structs):
-        T, D, n_layers = h["T"], h["start"].shape[-1], len(h["cells"])
-        named = {"probs": h["probs"], "g_probs": h["g_probs"],
-                 "g_logits": h["g_logits"], "start": h["start"], "h1_0": h["init"][0],
-                 "wot": h["out"]["w"].t().contiguous()}
-        for i, p in enumerate(h["cells"]):
-            # the transposed products read U^T and W^T row by row (see the source)
-            named.update({f"w{i + 1}": p["w"], f"u{i + 1}": p["u"], f"b{i + 1}": p["b"],
-                          f"u{i + 1}t": p["u"].t().contiguous(), f"w{i + 1}t": p["w"].t().contiguous()})
-        if n_layers == 2:
-            named["h2_0"] = h["init"][1]
-        check_operands(named, device, (dtype,))
+    for k, h in enumerate(heads):
         seqs = {f"h{i + 1}seq": t for i, t in enumerate(h["h_seqs"])}
         check_operands(seqs, device, (torch.bfloat16 if build == "E_resid" else dtype,))
-        named.update(seqs)
-        # dlogits, the gate grads and r*h in float32 (the wide bf16 build's
-        # dlogits and gate grads hold bf16 values); d_init, d_start in the
-        # heads' dtype
-        g = {"dlogits": torch.empty(T, B, D, **kw),
-             "da": [torch.empty(T, B, 3 * H, **kw) for _ in range(n_layers)],
-             "rh": [torch.empty(T, B, H, **kw) for _ in range(n_layers)],
-             "d_init": [torch.empty(B, H, device=device, dtype=dtype) for _ in range(n_layers)],
-             "d_start": torch.empty(B, D, device=device, dtype=dtype)}
-        named.update({"dlogits": g["dlogits"], "d_start": g["d_start"]})
-        for i in range(n_layers):
-            named.update({f"da{i + 1}": g["da"][i], f"rh{i + 1}": g["rh"][i],
-                          f"d_h{i + 1}_0": g["d_init"][i]})
-        keep.append(named)  # the transposes must outlive the launch
-        for name in _BWD_PTRS:
-            setattr(st, name, named[name].data_ptr() if name in named else null.value)
-        st.D, st.n_layers, st.out_act, st.T = D, n_layers, OUT_ACTIVATIONS[h["out_activation"]], T
-        outs.append(g)
-    _launch(build, structs, len(heads), B, H, device)
+    chain = "E_chain_bf16" if dtype == _BF16 else "E_chain"
+    gru_bptt_plan(chain, H, B, _chain_heads(heads))  # raises LaunchLimitError before any launch
+    inputs = [_layer_inputs(h) for h in heads]
+    gates = gru_decode_bwd_gates(heads, inputs)
+    outs = gru_decode_bwd_chain(heads, gates, build, [[hp for _x, hp in ins] for ins in inputs])
+    for g, gs in zip(outs, gates):
+        g["rh"] = [rh for _g, rh in gs]
     return outs
 
 

@@ -28,7 +28,16 @@ final h, as ``_glx_fwd`` does), its backward is kernel C
 (``ops/grad_reduce.py``) for dW, db and dU. ``gru_cell_bwd_core`` and
 ``gru_layer_bwd_reference`` are the plain versions of the backward: the
 CPU path and kernel C's oracle. The backward hard-codes tanh's derivative,
-as the TPU kernels do (:2269).
+as the TPU kernels do (:2269). On the card C runs as three phases
+(``csrc/gru_cell_bwd_chain.cuh``), each with its plain version and its
+launch counts (``C_PHASES``): the gate pre-pass (``gru_layer_bwd_gates``,
+``gru_bwd_gates_reference``: z, r, hh and r * h of every step from x and
+hprev = [h0, seq[:-1]] on the tensor cores), the chain on thread-block
+clusters (``gru_layer_bwd_chain``, ``gru_bwd_chain_reference``; its plan
+``gru_bptt_plan``, ``ops/_layout.py``) and the dx pass
+(``gru_layer_bwd_dx``, ``gru_bwd_dx_reference``); the chain's launch, one
+a call of C, also counts on ``gru_layer_bwd``. Kernel E (``ops/gru_decode.py``) runs the same
+pre-pass and cell stages.
 
 The wide route (``ops/_layout.py``, H = 512) trains a layer over a
 precomputed x-projection instead: ``gru_layer_train(xp, h0, u)``,
@@ -66,10 +75,11 @@ A and C have a bfloat16 build beside the float32 one (``mvt_gru_layer_fwd_bf16``
 ``gru_layer_train_x`` in bf16, as the JAX package runs ``_fwdx_kernel`` and
 ``_bwdx_kernel`` there. A takes x @ W and h @ U as bf16 products summed in
 float32, keeps r * h in float32 and rounds only the carried state and the
-stored sequence to bf16. C widens x, the stored sequence and h0 to float32
-and runs the whole transposition in float32 (the dh carry too); dx and dh0
-leave in bf16, the gate grads and r * h in float32, and W sums the weight
-grads in float32 (its bf16 build reads the bf16 activations); the layer's
+stored sequence to bf16. C takes the bf16 products exactly and runs the
+whole transposition in float32 (the dh carry too; the chain's da @ U^T on
+the tensor cores with da in three bf16 terms); dx and dh0 leave in bf16, the gate grads and r * h in float32,
+and W sums the weight grads in float32 (its bf16 build reads the bf16
+activations); the layer's
 weight grads are rounded to the params' dtype at the end, as ``_glx_bwd``
 casts them. The velocity layer (D < 8) is the JAX package's ``cast_x`` case:
 there x and W enter the products widened to float32, which gives the same
@@ -203,15 +213,17 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 @functools.cache
-def _max_clusters(lib_name, bf16, cluster, stream):
+def _max_clusters(lib_name, bf16, cluster, stream=None):
     """The card's cudaOccupancyMaxActiveClusters of the chain in library
     ``lib_name`` (A's forward chain; N's and R's backward chains, Q's and
-    Y's forward chain; one CTA an SM) at ``cluster`` CTAs a cluster."""
+    Y's forward chain, whose entries also take ``stream``, the streamed
+    instance; C's and E's chains, one instance a dtype; one CTA an SM) at
+    ``cluster`` CTAs a cluster."""
+    flags = [int(bf16), cluster] + ([] if stream is None else [int(stream)])
     lib, fn = _build.load_entry(lib_name, f"mvt_{lib_name}_max_clusters",
-                                [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+                                [ctypes.c_int] * len(flags) + [ctypes.POINTER(ctypes.c_int)])
     out = ctypes.c_int(0)
-    _build.check(lib, fn(int(bf16), cluster, int(stream), ctypes.byref(out)),
-                 f"{lib_name} cudaOccupancyMaxActiveClusters")
+    _build.check(lib, fn(*flags, ctypes.byref(out)), f"{lib_name} cudaOccupancyMaxActiveClusters")
     return out.value
 
 
@@ -408,16 +420,215 @@ def gru_layer_bwd_reference(x, seq, h0, d_seq, d_final, w, b, u, need_dx=True):
             torch.stack(rh))
 
 
+# ---------------------------------------------------------------------------
+# C's phases (csrc/gru_cell_bwd_chain.cuh): the gate pre-pass, the chain over
+# its gates on thread-block clusters, the dx pass; each has its plain version
+# and its launch counts (``.launches``, ``.launches_bf16``). E runs the same
+# pre-pass and cell stages (ops/gru_decode.py).
+# ---------------------------------------------------------------------------
+
+def _widened(*ts):
+    """Each tensor (None stays None) widened to float32: a no-op in a
+    float32 layer."""
+    return tuple(t.float() if t is not None else None for t in ts)
+
+
+def gru_bwd_gates_reference(x, hprev, w, b, u):
+    """Plain version of the gate pre-pass: (gates (T, B, 3H) = [z, r, hh],
+    rh (T, B, H) = r * h_{t-1}), both float32, from x (T, B, D), hprev =
+    [h0, hseq[:-1]] (T, B, H) and the weights, every operand widened to
+    float32 (``_bwdx_kernel`` :2154-2159: in bf16 the products of bf16
+    values summed in float32, r * h in float32)."""
+    T, B, D = x.shape
+    H = u.shape[0]
+    x, hprev, w, b, u = _widened(x, hprev, w, b, u)
+    hp = hprev.reshape(T * B, H)
+    xp = x.reshape(T * B, D) @ w + b
+    hu = hp @ u[:, : 2 * H]
+    z = torch.sigmoid(xp[:, :H] + hu[:, :H])
+    r = torch.sigmoid(xp[:, H : 2 * H] + hu[:, H:])
+    rh = r * hp
+    hh = torch.tanh(xp[:, 2 * H :] + rh @ u[:, 2 * H :])
+    return torch.cat([z, r, hh], dim=-1).reshape(T, B, 3 * H), rh.reshape(T, B, H)
+
+
+def gru_bwd_cell_reference(gates, hp, u, dh):
+    """One reverse step from the pre-pass's gates (B, 3H), h_{t-1} and
+    dL/dh_t (float32): (da_cat (B, 3H), dL/dh_{t-1}), as ``gru_cell_bwd_xp``
+    (``_bwdx_kernel`` :2166-2182)."""
+    H = hp.shape[-1]
+    z, r, hh = gates[:, :H], gates[:, H : 2 * H], gates[:, 2 * H :]
+    da = dh * (1.0 - z) * (1.0 - hh * hh)
+    drh = da @ u[:, 2 * H :].t()
+    da_zr = torch.cat([dh * (hp - hh) * z * (1.0 - z), drh * hp * r * (1.0 - r)], dim=-1)
+    return torch.cat([da_zr, da], dim=-1), dh * z + drh * r + da_zr @ u[:, : 2 * H].t()
+
+
+def gru_bwd_chain_reference(gates, hprev, d_seq, d_final, u):
+    """Plain version of C's chain: the reverse loop over the pre-pass's
+    gates (T, B, 3H). Returns (da_cat (T, B, 3H), dh0), float32, every
+    operand widened: da @ U^T takes the float32 da."""
+    hprev, d_seq, d_final, u = _widened(hprev, d_seq, d_final, u)
+    T = gates.shape[0]
+    dh = d_final if d_final is not None else torch.zeros_like(hprev[0])
+    da = [None] * T
+    for t in reversed(range(T)):
+        if d_seq is not None:
+            dh = dh + d_seq[t]
+        da[t], dh = gru_bwd_cell_reference(gates[t], hprev[t], u, dh)
+    return torch.stack(da), dh
+
+
+def gru_bwd_dx_reference(da, w):
+    """Plain version of C's dx pass: da (T, B, 3H) float32 @ W^T with W
+    widened, rounded once to W's dtype."""
+    return (da @ w.float().t()).to(w.dtype)
+
+
 @functools.cache
-def _bwd_kernel():
-    return _build.load_builds("gru_layer_bwd", "mvt_gru_layer_bwd",
-                              [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+def _bwd_phases(lib_name="gru_layer_bwd"):
+    """(library, {"gates" | "chain" | "dx": {dtype: entry}}) of kernel C's
+    library, or the gates of E's ("gru_decode_bwd")."""
+    entry = f"mvt_{lib_name}"
+    lib, gates = _build.load_builds(lib_name, f"{entry}_gates", [ctypes.c_void_p] * 7
+                                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fns = {"gates": gates}
+    if lib_name == "gru_layer_bwd":
+        fns["chain"] = _build.load_builds(lib_name, f"{entry}_chain", [ctypes.c_void_p] * 7
+                                          + [ctypes.c_int] * 7 + [ctypes.c_void_p])[1]
+        fns["dx"] = _build.load_builds(lib_name, f"{entry}_dx", [ctypes.c_void_p] * 3
+                                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])[1]
+    return lib, fns
+
+
+@functools.cache
+def gru_bptt_plan(build, H, B, heads=((61, 2),)):
+    """The chain's plan (``_layout.gru_bptt_plan``) of build ``build``
+    (``_layout.GRU_BPTT_BUILDS``) at (H, B) (E: its heads), at the card's
+    active clusters; raises LaunchLimitError where it does not launch."""
+    lib = "gru_layer_bwd" if build.startswith("C") else "gru_decode_bwd"
+    bf16 = build.endswith("_bf16")
+    return _layout.gru_bptt_plan(build, H, B, heads,
+                                 lambda C: _max_clusters(lib, bf16, C))
+
+
+def _check_bwd_phase(what, named, expected, floats=()):
+    """Shapes, and on the card device, dtype and contiguity (``floats``:
+    the float32 scratch among them); True on the card."""
+    for name, t in named.items():
+        if tuple(t.shape) != expected[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
+    first = next(iter(named.values()))
+    if first.device.type == "cpu":
+        return False
+    if first.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda tensors, not {first.device}")
+    check_operands({k: v for k, v in named.items() if k not in floats}, first.device,
+                   _build.DTYPES)
+    for k in floats:
+        if k in named:
+            check_operands({k: named[k]}, first.device, (torch.float32,))
+    return True
+
+
+def bwd_gates(lib_name, fn, x, hprev, w, b, u):
+    """The pre-pass of C's library or E's on the card: (gates, rh) float32;
+    counts its two launches (P1, P2) on ``fn``."""
+    T, B, D = x.shape
+    H = u.shape[0]
+    kw = {"device": x.device, "dtype": torch.float32}
+    gates, rh = torch.empty(T, B, 3 * H, **kw), torch.empty(T, B, H, **kw)
+    lib, fns = _bwd_phases(lib_name)
+    rc = fns["gates"][x.dtype](_ptr(x), _ptr(w), _ptr(b), _ptr(hprev), _ptr(u), _ptr(gates),
+                               _ptr(rh), T * B, D, H, _stream(x))
+    _build.check(lib, rc, f"{lib_name} gates launch")
+    _build.count_launch(fn, x.dtype, 2)
+    return gates, rh
+
+
+def _gates_expected(T, B, D, H):
+    return {"x": (T, B, D), "hprev": (T, B, H), "w": (D, 3 * H), "b": (3 * H,),
+            "u": (H, 3 * H)}
+
+
+def gru_layer_bwd_gates(x, hprev, w, b, u):
+    """Kernel C's gate pre-pass: ``gru_bwd_gates_reference``. CPU tensors run
+    the plain version; CUDA tensors (every operand float32 or every one
+    bfloat16) launch its build of their dtype."""
+    T, B, D = x.shape
+    H = u.shape[0]
+    if not _check_bwd_phase("gru_layer_bwd_gates", {"x": x, "hprev": hprev, "w": w, "b": b,
+                                                    "u": u}, _gates_expected(T, B, D, H)):
+        return gru_bwd_gates_reference(x, hprev, w, b, u)
+    return bwd_gates("gru_layer_bwd", gru_layer_bwd_gates, x, hprev, w, b, u)
+
+
+def gru_layer_bwd_chain(gates, hprev, d_seq, d_final, u, ut=None):
+    """Kernel C's chain over the pre-pass's gates: (da_cat float32, dh0 in
+    hprev's dtype). CPU tensors run ``gru_bwd_chain_reference`` (dh0
+    rounded to hprev's dtype); CUDA tensors launch its build of hprev's
+    dtype on clusters (``gru_bptt_plan``), counted on this wrapper and, as
+    one call of C, on ``gru_layer_bwd``; ``ut`` is U^T where the caller has
+    it."""
+    T, B, H = hprev.shape
+    named = {"gates": gates, "hprev": hprev, "u": u}
+    expected = {"gates": (T, B, 3 * H), "hprev": (T, B, H), "u": (H, 3 * H),
+                "d_seq": (T, B, H), "d_final": (B, H)}
+    for k, v in (("d_seq", d_seq), ("d_final", d_final)):
+        if v is not None:
+            named[k] = v
+    if not _check_bwd_phase("gru_layer_bwd_chain", named, expected, ("gates",)):
+        da, dh0 = gru_bwd_chain_reference(gates, hprev, d_seq, d_final, u)
+        return da, dh0.to(hprev.dtype)
+    dtype = hprev.dtype
+    plan = gru_bptt_plan("C_chain_bf16" if dtype == _BF16 else "C_chain", H, B, None)
+    da = torch.empty(T, B, 3 * H, device=hprev.device, dtype=torch.float32)
+    dh0 = torch.empty(B, H, device=hprev.device, dtype=dtype)
+    ut = u.t().contiguous() if ut is None else ut  # the CTAs copy their rows of U^T
+    null = ctypes.c_void_p(None)
+    opt = lambda t: _ptr(t) if t is not None else null  # noqa: E731
+    lib, fns = _bwd_phases()
+    rc = fns["chain"][dtype](_ptr(gates), _ptr(hprev), opt(d_seq), opt(d_final), _ptr(ut),
+                             _ptr(da), _ptr(dh0), T, B, H, plan.cluster, plan.rows[0],
+                             plan.nbuf, plan.stages, _stream(hprev))
+    _build.check(lib, rc, "gru_layer_bwd chain launch")
+    _build.count_launch(gru_layer_bwd_chain, dtype)
+    _build.count_launch(gru_layer_bwd, dtype)
+    return da, dh0
+
+
+def gru_layer_bwd_dx(da, w):
+    """Kernel C's dx pass: ``gru_bwd_dx_reference``. CPU tensors run the
+    plain version; CUDA tensors launch its build of W's dtype."""
+    T, B, G = da.shape
+    D = w.shape[0]
+    if not _check_bwd_phase("gru_layer_bwd_dx", {"da": da, "w": w},
+                            {"da": (T, B, G), "w": (D, G)}, ("da",)):
+        return gru_bwd_dx_reference(da, w)
+    dx = torch.empty(T, B, D, device=da.device, dtype=w.dtype)
+    wt = w.t().contiguous()  # (3H, D): the product's B operand row by row
+    lib, fns = _bwd_phases()
+    rc = fns["dx"][w.dtype](_ptr(da), _ptr(wt), _ptr(dx), T * B, D, G // 3, _stream(da))
+    _build.check(lib, rc, "gru_layer_bwd dx launch")
+    _build.count_launch(gru_layer_bwd_dx, w.dtype)
+    return dx
+
+
+# the wrappers that launch C's phases, each counting its launches on
+# ``.launches`` and ``.launches_bf16`` (the pre-pass two a call: P1, P2)
+C_PHASES = ("gru_layer_bwd_gates", "gru_layer_bwd_chain", "gru_layer_bwd_dx")
+for _fn in (gru_layer_bwd_gates, gru_layer_bwd_chain, gru_layer_bwd_dx):
+    _fn.launches = _fn.launches_bf16 = 0
 
 
 def gru_layer_bwd(x, seq, h0, d_seq, d_final, w, b, u, need_dx=True):
     """Backward of one GRU layer (tanh): see ``gru_layer_bwd_reference``.
     CPU tensors run the plain version; CUDA tensors (every operand float32
-    or every one bfloat16) launch kernel C's build of their dtype."""
+    or every one bfloat16) run kernel C's build of their dtype: its gate
+    pre-pass, its chain and, with ``need_dx``, its dx pass. It launches
+    nothing itself: each phase counts its launches on its own wrapper, and
+    the chain's launch, one a call, also on ``.launches`` or
+    ``.launches_bf16`` here."""
     T, B, D = x.shape
     H = u.shape[0]
     named = {"x": x, "seq": seq, "h0": h0, "w": w, "b": b, "u": u}
@@ -435,25 +646,13 @@ def gru_layer_bwd(x, seq, h0, d_seq, d_final, w, b, u, need_dx=True):
     if x.device.type != "cuda":
         raise ValueError(f"gru_layer_bwd runs on cpu or cuda tensors, not {x.device}")
     dtype = check_operands(named, x.device, _build.DTYPES)
-    build = "C_bf16" if dtype == _BF16 else "C"
-    _layout.require(build, H, _layout.smem_bytes(build, H, D, dx=need_dx))
-    kw = {"device": x.device, "dtype": torch.float32}
-    dx = torch.empty(T, B, D, device=x.device, dtype=dtype) if need_dx else None
-    dh0 = torch.empty(B, H, device=x.device, dtype=dtype)
-    da_cat = torch.empty(T, B, 3 * H, **kw)
-    rh = torch.empty(T, B, H, **kw)
-    # the transposed products read U^T and W^T row by row (see the source)
-    ut, wt = u.t().contiguous(), w.t().contiguous()
-    null = ctypes.c_void_p(None)
-    opt = lambda t: _ptr(t) if t is not None else null  # noqa: E731
-    lib, fns = _bwd_kernel()
-    rc = fns[dtype](
-        _ptr(x), _ptr(seq), _ptr(h0), opt(d_seq), opt(d_final), _ptr(w), _ptr(b), _ptr(u),
-        _ptr(ut), _ptr(wt), opt(dx), _ptr(dh0), _ptr(da_cat), _ptr(rh), T, B, D, H,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
-    _build.check(lib, rc, "gru_layer_bwd launch")
-    _build.count_launch(gru_layer_bwd, dtype)
+    if T < 1 or B < 1:
+        raise ValueError(f"kernel C takes T >= 1 and B >= 1; got T={T} B={B}")
+    gru_bptt_plan("C_chain_bf16" if dtype == _BF16 else "C_chain", H, B, None)  # raises first
+    hprev = torch.cat([h0[None], seq[:-1]])
+    gates, rh = gru_layer_bwd_gates(x, hprev, w, b, u)
+    da_cat, dh0 = gru_layer_bwd_chain(gates, hprev, d_seq, d_final, u)
+    dx = gru_layer_bwd_dx(da_cat, w) if need_dx else None
     return dx, dh0, da_cat, rh
 
 

@@ -10,12 +10,13 @@ cell type) on one random batch (default 512), and prints one JSON line: the
 card, the route of the step, the median wall time per step (host clock
 around work that ends in a synchronize), note-steps/s (B x 64 output steps
 per step; windows/s for a judge), and from a torch.profiler window of STEPS
-steps the device time per kernel name, per kernel of the port (A, C, D, E,
-F, G, the wide D and E, A's and L's pre-pass, A's chain, A's and L's
-per-block routes, N's and R's phases, the forward chain of Q and L, S, S
-xp, T, T xp, X, Y, W; the bf16 builds of A, C, D, E, G, the wide D and E,
-L, the phases, S, T and W apart, the bf16 chain of Q, Y and L together) and
-for
+steps the device time per kernel name, per kernel of the port (A, D, F,
+G, the wide D, A's and L's pre-pass, A's chain, A's and L's per-block
+routes, C's and E's phases (their shared gate pre-pass, C's chain and dx
+pass, E's chain: every E build, wide or not, runs it), N's and R's phases,
+the forward chain of Q and L, S, S xp, T, T xp, X, Y, W; the bf16 builds of
+A, D, G, the wide D, L, the phases, S, T and W apart, the bf16 chain of Q,
+Y and L together) and for
 everything else, per autograd node of the backward, and the device's idle
 share.
 
@@ -43,13 +44,17 @@ PORT_KERNELS = {
     "gru_fwd_chain_mma_kernel": "A chain bf16 gru_fwd_chain_mma",
     "gru_layer_fwd_kernel": "A block gru_layer_fwd",
     "gru_decode_kernel": "B gru_decode",
-    "gru_layer_bwd_kernel": "C gru_layer_bwd",
+    # C's and E's phases: the gate pre-pass's two products (one kernel
+    # name for both ops), C's chain and dx pass, E's chain through a head
+    "gru_gates_p1_kernel": "C/E gates gru_gates_p1",
+    "gru_gates_p2_kernel": "C/E gates gru_gates_p2",
+    "gru_bwd_chain_kernel": "C chain gru_bwd_chain",
+    "gru_bwd_dx_kernel": "C dx gru_bwd_dx",
     "gru_decode_train_kernel": "D gru_decode_train",
-    "gru_decode_bwd_kernel": "E gru_decode_bwd",
+    "gru_head_bwd_chain_kernel": "E chain gru_head_bwd_chain",
     "gru_layer_xp_fwd_kernel": "F gru_layer_xp_fwd",
     "gru_layer_xp_bwd_kernel": "G gru_layer_xp_bwd",
     "gru_decode_train_wide_kernel": "D wide gru_decode_train_wide",
-    "gru_decode_bwd_wide_kernel": "E wide gru_decode_bwd_wide",
     # L: its x @ W pre-pass is A's (above); its chain is the forward chain
     # below; its per-block route (no config at H <= 512 takes it)
     "lstm_layer_fwd_kernel": "L block lstm_layer_fwd",
@@ -71,9 +76,9 @@ PORT_KERNELS = {
 }
 # the groups whose kernels have a bf16 build, counted apart
 BF16_BUILDS = ("A/L xproj xproj", "A chain gru_fwd_chain", "A block gru_layer_fwd",
-               "C gru_layer_bwd", "D gru_decode_train", "E gru_decode_bwd",
-               "G gru_layer_xp_bwd", "D wide gru_decode_train_wide",
-               "E wide gru_decode_bwd_wide", "L block lstm_layer_fwd",
+               "C/E gates gru_gates_p1", "C/E gates gru_gates_p2", "C chain gru_bwd_chain",
+               "C dx gru_bwd_dx", "D gru_decode_train", "E chain gru_head_bwd_chain",
+               "G gru_layer_xp_bwd", "D wide gru_decode_train_wide", "L block lstm_layer_fwd",
                "N/R chain lstm_bwd_chain",
                "N dx lstm_bwd_dx", "S lstm_step", "T gru_step",
                "W grad_reduce")

@@ -442,7 +442,7 @@ def test_launch_limits_of_u_and_v(H):
     assert _layout.smem_bytes("U", H, D, 2) == 4 * 8 * (D + 3 * H)
     assert _layout.smem_bytes("U", H, 16, 1) == _layout.smem_bytes("A", H, 16)
     assert _layout.smem_bytes("V", H, D, 2, True) == 4 * 8 * (2 * D + 8 * H)
-    assert _layout.smem_bytes("V", H, 16, 1) == _layout.smem_bytes("C", H, 16)
+    assert _layout.smem_bytes("V", H, 16, 1) == 4 * 8 * (16 + 5 * H)  # x, h, r * h, da_cat
     for kernel in ("U", "V"):
         fits = -(-_layout.REGISTERS[kernel] // 8) * 8 * H <= _layout.REGS_PER_SM
         if H == 256:

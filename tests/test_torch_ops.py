@@ -128,6 +128,8 @@ def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
         "assert all(getattr(gl, f).launches == 0 for f in gl.A_PHASES) and gd.gru_decode.launches == 0\n"
         "assert gl.gru_layer_bwd.launches == gd.gru_decode_fwd_train.launches == 0\n"
         "assert gd.gru_decode_bwd.launches == gr.grad_reduce.launches == 0\n"
+        "assert all(getattr(gl, f).launches == 0 for f in gl.C_PHASES)\n"
+        "assert all(getattr(gd, f).launches == 0 for f in gd.E_PHASES)\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules)\n"
         "print('ok')\n"
     )

@@ -340,9 +340,13 @@ def test_non_tanh_cells_train_through_the_plain_scans(monkeypatch):
 def test_route_of_the_default_config_at_256_and_512():
     assert _layout.config_route(Config()) == "narrow"
     assert _layout.config_route(Config(lstm_size=512)) == "wide"
-    # the limit that sends 512 wide: kernel D's registers
+    # the limit that sends 512 wide: kernel D's registers; E runs as phases
+    # on both routes, its chain's plan launching at 512 (the notes head's
+    # slices streamed)
     assert "65,536" in _layout.launch_limit("D", 512, _layout.smem_bytes("D", 512, 61, 2))
-    assert _layout.launch_limit("E_wide", 512, _layout.smem_bytes("E_wide", 512, 61, 2)) is None
+    for build in ("E", "E_wide"):
+        assert _layout.launch_limit(build, 512, 0) is None
+    assert not _layout.gru_bptt_plan("E_chain", 512, 256, ((61, 2),)).resident
 
 
 def test_a_width_no_build_launches_raises_naming_the_limit():
