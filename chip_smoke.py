@@ -29,15 +29,19 @@ result line):
      pre-pass of csrc/xproj.cuh, L's, and the GRU chain on clusters of
      csrc/gru_cell_fwd.cuh) beside its per-block route; S and S xp as one
      product on the tensor cores (csrc/gemm_tc.cuh) with the cell in its
-     epilogue; every build's registers and
+     epilogue; T, T bf16 and T xp as one launch on clusters, both products
+     on the tensor cores; B as a decode chain on clusters
+     (csrc/gru_decode_chain.cuh) beside its per-block route; every build's
+     registers and
      spills from ptxas against the route chooser's table (the phase builds
      also against their threads a block); the 8-rows builds of D and E must
      refuse H = 512 at their C entry points; each chain build's cluster
      size, whether it streams U^T, the card's
      cudaOccupancyMaxActiveClusters and its plan at B = 256 (A's chain
-     builds too); the instances of W (the tiles on the tensor cores, the
-     small-I stream), of L and A (the x @ W pre-pass, the chain) and of S
-     must not spill; W's one-TF32-product control is built too
+     builds too, and B's chain on the notes head); the instances of W (the
+     tiles on the tensor cores, the small-I stream), of L and A (the x @ W
+     pre-pass, the chain), of S, of T and of B's chain must not spill; W's
+     one-TF32-product control is built too
      (csrc/grad_reduce.cu with -DMVT_W_TF32_ONE);
   2b. W: kernel W on the paths' reductions (W_CASES) against a float64 sum
      within W_REL_L2, two runs bit-equal, and the one-TF32-product control
@@ -48,7 +52,9 @@ result line):
      its operations over the card's f32 rate and its bytes over HBM's); A's
      phases (the pre-pass beside torch.addmm, the chain, the per-block
      route) each against its plain version, and A and its phases at B = 5
-     and one song's 16;
+     and one song's 16; B (its decode chain) at B = 16 and 5 too, and D's
+     probs and logits bit-equal to B's per-block route on the three heads
+     (D keeps the per-block body, csrc/gru_decode_body.cuh);
   4. slice: the transfer CLI (midi_vae_tpu_torch.cli.transfer.main) at the
      full default Config() width on 3 authored songs, with
      --write-reconstruction; the .mid files must parse back and the launch
@@ -125,7 +131,9 @@ result line):
      Config() (notes 1 and 2, velocity, instrument) and of lstm_size=512, T
      xp on each encoder layer's x-projection at 256 and 512, S xp
      (csrc/lstm_step.cu) on each LSTM(256) and LSTM(512) encoder layer's,
-     against their plain versions at B = 256 and B = 5; each cell's loop
+     against their plain versions at B = 256 and B = 5 (T, T bf16 and T xp
+     also at H = 192, 320, 384 and 448, B = 256, 16 and 5, where T's
+     clusters are 3, 5, 6 and 7 CTAs); each cell's loop
      (its head's or layer's launches, the state carried) timed in one
      CUDA-event window beside the plain version's loop and, for S xp,
      torch.lstm_cell's, with bounds; then S (float32 and bf16) and S xp
@@ -151,9 +159,10 @@ result line):
      T and S on each head cell of GRU(256) and LSTM(256); each against its
      plain bf16 version at B = 256 (timed; the cells' loops in one window,
      with bounds at the bf16 tensor-core rate, cuDNN's LSTM in bf16 with
-     w_ih = I beside Y and torch.lstm_cell in bf16 beside S) and at B = 5,
-     and the remat backward of X and Y against autograd through the plain
-     forward;
+     w_ih = I beside Y and torch.lstm_cell in bf16 beside S) and at B = 5
+     (T bf16 to BF16_STEP, beside a control that must land over it: its
+     plain phases with r * h rounded to bf16), and the remat backward of X
+     and Y against autograd through the plain forward;
  27. the train CLI on the two bf16 configs at full width, 2 epochs, --resume
      for a third, serving: --set compute_dtype=bfloat16 with both
      fused_train_* False (X 4 and T bf16 196 a step), and with cell_type=LSTM
@@ -369,8 +378,11 @@ def phase_build():
     from midi_vae_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build([*_build.LIBRARIES, *_build.VARIANTS])
-    for name in (*_build.LIBRARIES, *_build.VARIANTS):
+    # every library and W's control build (B's cycle-counting build is the
+    # timing tool's alone)
+    names = (*_build.LIBRARIES, "grad_reduce_tf32one")
+    _build.build(names)
+    for name in names:
         _build.load(name)
     secs = {k: round(v, 2) for k, v in _build.build_seconds.items()}
     print(f"[build] {time.perf_counter() - t0:.2f} s, in parallel; nvcc per library: {secs}")
@@ -422,6 +434,15 @@ def report_clusters():
             fwd[f"{build} H={H}"] = {"cluster": C, "stream": stream, "max_active_clusters": active,
                                      "assumed": _layout.MAX_CLUSTERS_H100[C],
                                      "plan_B256": plan._asdict()}
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+
+    # B's decode chain on the notes head (it streams every slice)
+    for H in (256, 512):
+        plan = gd.decode_plan(H, 61, 2, B)
+        fwd[f"B_chain H={H} notes"] = {
+            "cluster": plan.cluster, "stream": True,
+            "max_active_clusters": gd.chain_max_clusters(plan.cluster),
+            "assumed": _layout.MAX_CLUSTERS_H100[plan.cluster], "plan_B256": plan._asdict()}
     bwd = {}
     for build, H, heads in (("C_chain", 256, None), ("C_chain", 512, None),
                             ("C_chain_bf16", 256, None), ("C_chain_bf16", 512, None),
@@ -469,7 +490,10 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "A_chain": ("gru_layer_fwd", "gru_fwd_chain_kernel", NOT_BF16),
           "A_xproj_bf16": ("gru_layer_fwd", "xproj_kernel", BF16_ONLY),
           "A_chain_bf16": ("gru_layer_fwd", "gru_fwd_chain_mma_kernel"),
+          # B's decode chain on clusters (csrc/gru_decode_chain.cuh) and its
+          # per-block route (the body kernel D shares)
           "B": ("gru_decode", "gru_decode_kernel"),
+          "B_chain": ("gru_decode", "gru_decode_chain_kernel"),
           # C's phases (csrc/gru_cell_bwd_chain.cuh): the gate pre-pass's two
           # products (P1, P2), the chain, the dx pass; and E's: the same
           # pre-pass, the chain through the head (its float instance serves
@@ -512,14 +536,17 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           # the cell in its epilogue, three tile instances each
           "S": ("lstm_step", "lstm_step_kernel", NOT_BF16),
           "S_xp": ("lstm_step", "lstm_step_xp_kernel"),
-          "T": ("gru_step", "gru_step_kernel"), "T_xp": ("gru_step", "gru_step_xp_kernel"),
+          # T, T xp (and T bf16 below): one step on clusters and the tensor
+          # cores, six plan instances each (the template's bool: xp)
+          "T": ("gru_step", "gru_step_tc_kernel", NOT_BF16, "Lb0E"),
+          "T_xp": ("gru_step", "gru_step_tc_kernel", "Lb1E"),
           "X": ("gru_encoder_scan", "gru_encoder_scan_kernel"),
           "Y": ("lstm_encoder_scan", "lstm_fwd_chain_mma_kernel"),
           "U": ("gru_encoder_stack_fwd", "gru_encoder_stack_fwd_kernel"),
           "V": ("gru_encoder_stack_bwd", "gru_encoder_stack_bwd_kernel"),
           # the bf16 instances of T's, S's, A's, C's, D's, E's, G's, the wide
           # D's and E's, W's, L's, N's, Q's and R's kernels
-          "T_bf16": ("gru_step", "gru_step_kernel", BF16_ONLY),
+          "T_bf16": ("gru_step", "gru_step_tc_kernel", BF16_ONLY),
           "S_bf16": ("lstm_step", "lstm_step_kernel", BF16_ONLY),
           "A_bf16": ("gru_layer_fwd", "gru_layer_fwd_kernel", BF16_ONLY),
           "C_gates_bf16": ("gru_layer_bwd", "gru_gates_p1_kernel", BF16_ONLY),
@@ -550,9 +577,10 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "D_resid": ("gru_decode_train", "gru_decode_train_resid_kernel")}
 
 
-# the instances that must not spill: W's, L's, A's, S's, C's and E's of the
-# tensor-core and chain designs
-NO_SPILLS = ("W_tc", "W_small", "W_tf32one", "W_tc_bf16", "W_small_bf16", "L_xproj", "L_chain",
+# the instances that must not spill: W's, L's, A's, S's, C's, E's, T's and
+# B's of the tensor-core and chain designs
+NO_SPILLS = ("T", "T_xp", "T_bf16", "B_chain",
+             "W_tc", "W_small", "W_tf32one", "W_tc_bf16", "W_small_bf16", "L_xproj", "L_chain",
              "L_xproj_bf16", "L_chain_bf16", "A_xproj", "A_chain", "A_xproj_bf16", "A_chain_bf16",
              "S", "S_xp", "S_bf16", *(f"{k}_{p}{s}" for k in "CE" for p in ("gates", "gates_p2")
                                       for s in ("", "_bf16")),
@@ -580,7 +608,7 @@ def check_registers():
         if found[letter]["registers"] > regs:
             raise RuntimeError(f"kernel {letter} uses {found[letter]['registers']} registers, the "
                                f"route chooser counts {regs} (ops/_layout.py REGISTERS)")
-    for letter in (*_layout.BOUNDED, "T_bf16"):
+    for letter in _layout.BOUNDED:
         if found[letter]["registers"] * _layout.WIDE_THREADS > _layout.REGS_PER_SM:
             raise RuntimeError(f"kernel {letter}: {found[letter]} does not fit 512 threads")
     chains = {**_layout.BPTT_PHASE_THREADS,
@@ -593,7 +621,10 @@ def check_registers():
                  if not (k == "E" and p == "dx")},
               # S's largest block (its instances: 64 or 128 threads)
               **dict.fromkeys(_layout.STEP_BUILDS,
-                              max(p[1] for p in _layout.STEP_TILES) * 8)}
+                              max(p[1] for p in _layout.STEP_TILES) * 8),
+              # B's chain: 512-thread CTAs (T's instances are each compiled
+              # under __launch_bounds__ of their own block, 64 to 512)
+              "B_chain": _layout.CHAIN_THREADS}
     for letter, threads in chains.items():
         if found[letter]["registers"] * threads > _layout.REGS_PER_SM:
             raise RuntimeError(f"kernel {letter}: {found[letter]} does not fit {threads} threads")
@@ -997,6 +1028,7 @@ def phase_kernels():
     from midi_vae_tpu_torch.config import Config
     from midi_vae_tpu_torch.models.rnn import init_decoder_states
     from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.ops import gru_decode as gd
     from midi_vae_tpu_torch.ops.gru_decode import gru_decode, gru_decode_reference
     from midi_vae_tpu_torch.ops.gru_layer import gru_layer, gru_layer_reference
 
@@ -1049,11 +1081,25 @@ def phase_kernels():
                 f"B {name} layers={len(h['cells'])} D={d} T={T} {out_act}",
                 lambda a=args: gru_decode(*a), lambda a=args: gru_decode_reference(*a),
                 [H_ATOL, LOGITS_ATOL], decode_flops(T, B, h["cells"], h["out"]["w"]), args[:4])
-            args = (args[0], args[1], [s[:RAGGED] for s in states],
-                    torch.zeros(RAGGED, d, device=dev), T, "tanh", out_act)
-            check(f"B {name} B={RAGGED}", lambda a=args: gru_decode(*a),
-                  lambda a=args: gru_decode_reference(*a), [H_ATOL, LOGITS_ATOL])
-        print(f"[kernels] every kernel call (and A's phases) also agrees at B = {RAGGED}; A at 16")
+            # one song's bucket (one cluster's rows, or a few) and a ragged one
+            for rows in (16, RAGGED):
+                rargs = (args[0], args[1], [s[:rows] for s in states],
+                         torch.zeros(rows, d, device=dev), T, "tanh", out_act)
+                check(f"B {name} B={rows}", lambda a=rargs: gru_decode(*a),
+                      lambda a=rargs: gru_decode_reference(*a), [H_ATOL, LOGITS_ATOL])
+            # kernel D keeps the per-block body (gru_decode_body.cuh) of B's
+            # first design: its probs and logits bit-equal to B's per-block
+            # route on the same head
+            head = {"cells": list(h["cells"]), "out": h["out"], "init": states,
+                    "start": torch.zeros(B, d, device=dev), "T": T, "out_activation": out_act}
+            d_probs, d_logits, _ = gd.gru_decode_fwd_train([head], build="D")[0]
+            b_probs, b_logits = gd._decode_per_block(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(d_probs, b_probs) and torch.equal(d_logits, b_logits)):
+                raise RuntimeError(f"kernel D on the {name} head is not bit-equal to B's per-block "
+                                   f"route: max |diff| {(d_probs - b_probs).abs().max().item():.3e}")
+        print(f"[kernels] every kernel call (and A's phases) also agrees at B = {RAGGED}; A and B "
+              "at 16; D bit-equal to B's per-block route on the three heads")
     return results
 
 
@@ -1517,6 +1563,11 @@ def phase_wide_kernels():
                     out = run(f"B H={H} {name}", lambda a=args: gd.gru_decode(*a),
                               lambda a=args: gd.gru_decode_reference(*a), [H_ATOL, LOGITS_ATOL],
                               flops=decode_flops(T, rows, h["cells"], h["out"]["w"]), inputs=args[:4])
+                    if timed:  # one song's bucket too
+                        sargs = (args[0], args[1], [st[:16] for st in states],
+                                 torch.zeros(16, d, device=dev), T, "tanh", out_act)
+                        check(f"B H={H} {name} B=16", lambda a=sargs: gd.gru_decode(*a),
+                              lambda a=sargs: gd.gru_decode_reference(*a), [H_ATOL, LOGITS_ATOL])
                     if timed:
                         results["gru_decode_512"][name] = out
     print(f"[wide kernels] F, G, the wide D and E, W, A and B at H = 512 and F, G at H = 256 also "
@@ -1546,6 +1597,18 @@ def a_work(T, B, w, u):
     float32 rate (the chain's FFMA)."""
     return {"flops": 3 * 2 * T * B * w.numel(), "peak": PEAK_TF32_FLOPS,
             "flops_f32": 2 * T * B * u.numel()}
+
+
+def t_work(rows, d_in, H, bf16=False):
+    """compare()'s work of one launch of kernel T (d_in = 0: T xp): P1 =
+    [x | h] . [W ; U_zr] (2 rows (d_in 3H + 2H^2) operations), P2 = (r h) .
+    U_h (2 rows H^2), taken on the tensor cores: float32 three TF32 products
+    each; bf16 P1 one product of bf16 operands, P2 two (r h float), at the
+    bf16 rate."""
+    p1, p2 = 2 * rows * (d_in * 3 * H + 2 * H * H), 2 * rows * H * H
+    if bf16:
+        return {"flops": p1 + 2 * p2, "peak": PEAK_BF16_FLOPS}
+    return tf32_work(p1 + p2)
 
 
 def tf32_work(flops, products=3):
@@ -1905,8 +1968,10 @@ PER_TRAIN_STEP = {
                                    "gru_decode_train_wide": 1, "gru_decode_bwd_wide_bf16": 2,
                                    "gru_decode_bwd_wide": 1, "grad_reduce_bf16": 8,
                                    "grad_reduce": 7},
+    # (T at H = 512, B = 256 takes its two-launch route: two launches a
+    # cell and step)
     "wide_bf16_no_fused_decoder": {"gru_encoder_scan": 4, "gru_layer_xp_bwd_bf16": 4,
-                                   "gru_step_bf16": S_PER_STEP, "grad_reduce_bf16": 4,
+                                   "gru_step_bf16": 2 * S_PER_STEP, "grad_reduce_bf16": 4,
                                    "grad_reduce": 4},
     # the bf16 LSTM with the default flags (its fused_train_decoder=False
     # variant decodes the same way: S per head cell and step): LSTM(256) at
@@ -1996,8 +2061,12 @@ def fwd_phases(want):
     """``want`` with the phases of kernels L and A: at the paths' widths (H =
     256, 512) each call of L (``lstm_layer_fwd``, which ``read_counters``
     derives from its phases) or of A (``gru_layer_fwd``, derived the same
-    way) runs its pre-pass and its chain once; its per-block route none."""
+    way) runs its pre-pass and its chain once; its per-block route none.
+    Every launch of B (``gru_decode``) there is its chain's
+    (``gru_decode_chain``)."""
     out = dict(want)
+    if want.get("gru_decode"):
+        out["gru_decode_chain"] = want["gru_decode"]
     for sfx in ("", "_bf16"):
         for op, phases in (("lstm_layer_fwd", ("lstm_layer_xproj", "lstm_layer_fwd_chain")),
                            ("gru_layer_fwd", ("gru_layer_xproj", "gru_layer_fwd_chain"))):
@@ -2115,6 +2184,7 @@ def kernel_counters():
                  "lstm_layer_xp_bwd", *BPTT_PHASES, *L_PHASES, *A_PHASES, *C_PHASES,
                  *E_PHASES):
         counters[f"{name}_bf16"] = (counters[name][0], "launches_bf16")
+    counters["gru_decode_chain"] = (gd.gru_decode, "launches_chain")
     counters["gru_decode_train_resid"] = (gd.gru_decode_fwd_train, "launches_resid")
     counters["gru_decode_bwd_resid"] = (gd.gru_decode_bwd, "launches_resid")
     counters["gru_decode_bwd_wide_row8_bf16"] = (gd.gru_decode_bwd_wide, "launches_row8_bf16")
@@ -3068,8 +3138,7 @@ def phase_step_kernels():
                         out = run(f"T {tag} x{tuple(xin.shape)}",
                                   lambda a=args: gs.gru_cell_step_fwd(*a),
                                   lambda a=args: gs.gru_cell_step_reference(*a), [H_ATOL],
-                                  flops=2 * rows * (cell["w"].shape[0] + H) * 3 * H,
-                                  inputs=args)
+                                  **t_work(rows, cell["w"].shape[0], H), inputs=args)
                         if timed:
                             results["gru_step" + suffix][f"{head} cell {i + 1}"] = loop_times(
                                 f"T {tag}", out,
@@ -3093,7 +3162,7 @@ def phase_step_kernels():
                     out = run(f"T xp {tag} xp{tuple(xp.shape)}",
                               lambda a=args: gs.gru_recurrent_step_fwd(*a),
                               lambda a=args: gs.gru_recurrent_step_reference(*a), [H_ATOL],
-                              flops=2 * rows * p["u"].numel(), inputs=args)
+                              **t_work(rows, 0, H), inputs=args)
                     if timed:
                         results["gru_step_xp" + suffix][name] = loop_times(
                             f"T xp {tag}", out,
@@ -3144,8 +3213,27 @@ def phase_step_kernels():
                         with torch.enable_grad():
                             grads(f"S xp {tag}", lambda *a: ls.lstm_recurrent_step(*a),
                                   ls.lstm_recurrent_step_reference, args, rows)
+    # T takes H a multiple of 32 up to 512: its plans also at the widths
+    # whose clusters are not a power of two (3, 5, 6 and 7 CTAs of 64
+    # units), float32, bf16 and T xp, at B = 256, one song's 16 and 5
+    bf = torch.bfloat16
+    for H in (192, 320, 384, 448):
+        for rows in (B, 16, RAGGED):
+            x = torch.softmax(torch.randn(rows, 61, generator=gen, device=dev), -1)
+            h = 0.5 * torch.tanh(torch.randn(rows, H, generator=gen, device=dev))
+            w = torch.randn(61, 3 * H, generator=gen, device=dev) / 61 ** 0.5
+            b = 0.1 * torch.randn(3 * H, generator=gen, device=dev)
+            u = torch.randn(H, 3 * H, generator=gen, device=dev) / H ** 0.5
+            for dtype, limits in ((torch.float32, [H_ATOL]), (bf, [BF16_STEP])):
+                args = tuple(t.to(dtype) for t in (x, h, w, b, u))
+                check(f"T H={H} B={rows} {dtype}", lambda a=args: gs.gru_cell_step_fwd(*a),
+                      lambda a=args: gs.gru_cell_step_reference(*a), limits)
+            xp = torch.randn(rows, 3 * H, generator=gen, device=dev)
+            check(f"T xp H={H} B={rows}", lambda: gs.gru_recurrent_step_fwd(xp, h, u),
+                  lambda: gs.gru_recurrent_step_reference(xp, h, u), [H_ATOL])
     print(f"[step kernels] T, T xp and S xp at H = 256 and 512, and their gradients, also agree "
-          f"at B = {RAGGED}")
+          f"at B = {RAGGED}; T, T bf16 and T xp at H = 192, 320, 384 and 448 (B = {B}, 16, "
+          f"{RAGGED})")
     s_path_checks()
     return results
 
@@ -3211,9 +3299,11 @@ def phase_bf16_kernels():
     LSTM(512)'s B = 256 (row 33); T's and S's bf16 builds on each head cell
     of GRU(256) and LSTM(256) (each cell's loop in one window); all at
     B = 256 (timed, bound at the bf16 tensor-core rate) and B = 5, each
-    against its plain bf16 version (BF16: max |diff| and relative L2), with
-    two wrong scans on notes L1 as controls that must fail BF16's relative
-    L2 (``controls``); the remat backward of X, Y, T and S against autograd
+    against its plain bf16 version (BF16: max |diff| and relative L2; T bf16,
+    one step from the model's state, BF16_STEP), with two wrong scans on
+    notes L1 as controls that must fail BF16's relative L2 (``controls``)
+    and, on each T bf16 cell, its plain phases with r * h rounded to bf16,
+    which must fail BF16_STEP's (``rounded_rh``); the remat backward of X, Y, T and S against autograd
     through the JAX reference each differentiates."""
     import torch
 
@@ -3343,6 +3433,21 @@ def phase_bf16_kernels():
                                    f"scan, inside BF16_REL_L2 = {BF16_REL_L2:.1e}")
         return found
 
+    def rounded_rh(tag, args):
+        """A control: T bf16's plain phases with r * h rounded to bf16
+        before P2 (the Pallas dot takes it in float32) must land over
+        BF16_STEP_REL_L2 from the plain step, or the limit T bf16 is held to
+        does not catch that fault."""
+        with torch.no_grad():
+            z, rh, cand = gs.gru_step_p1_reference(*args)
+            ctl = gs.gru_step_p2_reference(z, rh.to(bf).float(), cand, args[1], args[4])
+            err = rel_l2(ctl, gs.gru_cell_step_reference(*args))
+        if not err > BF16_STEP_REL_L2:
+            raise RuntimeError(f"{tag}: r * h rounded to bf16 lands {err:.3e} from the plain "
+                               f"step, inside BF16_STEP_REL_L2 = {BF16_STEP_REL_L2:.1e}")
+        print(f"[bf16 kernels] control {tag}: r * h rounded to bf16 lands {err:.3e} from the "
+              f"plain step (must exceed {BF16_STEP_REL_L2:.1e})")
+
     def cells(key, cfg, rows, seed):
         """T's or S's bf16 build on each head cell of ``cfg``'s step: the input
         of a head's first cell its fed-back output (the start symbol's
@@ -3383,8 +3488,9 @@ def phase_bf16_kernels():
                 else:
                     args = (xin, st[0], w, b, u)
                     out = run(f"T bf16 {tag}", lambda a=args: gs.gru_cell_step_fwd(*a),
-                              lambda a=args: gs.gru_cell_step_reference(*a), [BF16],
-                              flops=flops, inputs=args, peak=PEAK_BF16_FLOPS)
+                              lambda a=args: gs.gru_cell_step_reference(*a), [BF16_STEP],
+                              **t_work(rows, w.shape[0], u.shape[0], True), inputs=args)
+                    rounded_rh(f"T bf16 {tag} B={rows}", args)
                     if timed:
                         results[key][f"{head} cell {i + 1}"] = loop_times(
                             f"T bf16 {tag}", out,
@@ -5191,6 +5297,8 @@ def kernel_registers(registers, letter):
     aliases = {"L_block": "L", "L_block_bf16": "L_bf16", "A_block": "A", "A_block_bf16": "A_bf16"}
     if key in aliases:
         return registers[aliases[key]]
+    if key == "B":  # its decode chain and its per-block route
+        return {"chain": registers["B_chain"], "block": registers["B"]}
     # C's and E's builds run their phases' instances (E wide, E resid: the
     # float chain; E wide row8: the bf16 chain with the streams unrounded)
     gru_bwd = {"C": ("C", ""), "C_bf16": ("C", "_bf16"), "E": ("E", ""), "E_wide": ("E", ""),

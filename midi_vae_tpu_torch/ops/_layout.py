@@ -105,6 +105,7 @@ limit. ``FORCE_ROUTE`` is a test hook (like the JAX package's
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 REGS_PER_SM = 65_536
@@ -119,7 +120,7 @@ REGISTERS = {"A": 90, "B": 94, "D": 160, "L": 88, "M": 75,
              "U": 78, "V": 172, "A_bf16": 94, "D_bf16": 144,
              "L_bf16": 80, "D_resid": 160}
 # the builds compiled under __launch_bounds__(WIDE_THREADS)
-BOUNDED = ("F", "G", "D_wide", "T", "T_xp", "X", "G_bf16", "D_wide_bf16")
+BOUNDED = ("F", "G", "D_wide", "X", "G_bf16", "D_wide_bf16")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
 LSTM_NARROW_MAX_H = 256
 
@@ -139,7 +140,7 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
     wide D, and T, and U's and V's) and D's bf16-residual build hold the
     tiles of the builds they are twins of, in float: a bf16 value is widened
     as it is loaded. C and E run as phases (``gru_bptt_plan``: 0 here)."""
-    if kernel in C_BUILDS or kernel in E_BUILDS:
+    if kernel in C_BUILDS or kernel in E_BUILDS or kernel in T_BUILDS:
         return 0
     kernel = kernel.removesuffix("_bf16").removesuffix("_resid")
     rows = WIDE_ROWS if kernel.endswith("_wide") else ROWS
@@ -151,8 +152,6 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
         "G": 5 * H,
         "L": D + 3 * H,  # x, h twice (h_{t-1} and h_t), c
         "M": 2 * D + (n_layers + 1) * H + n_layers * H,  # probs, logits, h tiles, c tiles
-        "T": D + 2 * H,  # x, h, r * h
-        "T_xp": 2 * H,  # h, r * h
         "X": 2 * H,  # as F
         # the stack: x, h1, h2, r * h; a branch: as A
         "U": D + (n_layers + 1) * H,
@@ -182,6 +181,8 @@ def launch_limit(kernel: str, H: int, smem: int) -> str | None:
         return gru_fwd_limit(kernel, H)
     if kernel in STEP_BUILDS:
         return step_limit(kernel, H)
+    if kernel in T_BUILDS:
+        return gru_step_limit(kernel, H)
     if H < 32 or H % 32:
         return f"kernel {kernel} takes H a multiple of 32 (one warp per 32 columns), got H={H}"
     if kernel in BOUNDED:
@@ -993,6 +994,291 @@ def step_plan(B: int, D: int, H: int, elem: int = 4) -> StepPlan:
     rows, units = STEP_TILES[tile]
     return StepPlan(tile, rows, units, 8 * units, -(-B // rows) * (H // units),
                     step_smem(rows, units))
+
+
+# ---------------------------------------------------------------------------
+# Kernel T (csrc/gru_step.cu: T, T bf16, T xp): one GRU step on
+# thread-block clusters and the tensor cores. A cluster of H / units CTAs
+# owns ``rows`` batch rows; each CTA owns ``units`` hidden units and their
+# gate columns, 32 (rows / 16) (units / 8) threads (a warp a fragment of 16
+# rows x 8 units). Its shared memory: [x | h] of its rows in float32 (x's
+# depth padded to STEP_T_KC, rows padded to 4 mod 32 floats), r * h in
+# float32, and a ring of STEP_T_STAGES stages of STEP_T_KC depth rows x the
+# gate columns of its units (3 units + 8 values; T xp 2 units + 8) in the
+# operands' type. The plan (rows, units) is the kernel's tile index in
+# STEP_T_PLANS; ``gru_step_plan`` picks it from the plans timed on the H100
+# at the paths' shapes (``tools/time_t_and_b.py``; PERF.md, Findings).
+# ---------------------------------------------------------------------------
+
+T_BUILDS = ("T", "T_bf16", "T_xp")
+# (rows, units); (16, 16) and (32, 16) were never within 10 % of the
+# fastest where another plan launched (PERF.md, Findings)
+STEP_T_PLANS = ((16, 32), (16, 64), (32, 32), (32, 64))
+STEP_T_KC = 32      # kStepKC: depth rows of a ring stage
+STEP_T_STAGES = 3   # kStepStages
+
+
+class GruStepPlan(NamedTuple):
+    """How T runs at (B, D, H): the plan's index in the kernel
+    (``STEP_T_PLANS``), ``rows`` a cluster, ``units`` a CTA, ``cluster``
+    CTAs a cluster (H / units), ``clusters``, ``threads`` a CTA, ``smem``
+    bytes of dynamic shared memory a CTA; ``split``: the two-launch route
+    (P1 and P2 as two launches, no clusters), taken where the plan's
+    clusters outnumber the H100's active clusters of its size
+    (``MAX_CLUSTERS_H100``)."""
+
+    plan: int
+    rows: int
+    units: int
+    cluster: int
+    clusters: int
+    threads: int
+    smem: int
+    split: bool = False
+
+
+def gru_step_smem(D: int, H: int, rows: int, units: int, elem: int, xp: bool) -> int:
+    """``gru_step_smem`` of csrc/gru_step.cu, in bytes (D is ignored for T
+    xp)."""
+    depth = H if xp else -(-D // STEP_T_KC) * STEP_T_KC + H
+    row = -(-depth // 32) * 32 + 4
+    return (rows * row * 4 + rows * (H + 4) * 4
+            + STEP_T_STAGES * STEP_T_KC * ((2 if xp else 3) * units + 8) * elem)
+
+
+def gru_step_limit(build: str, H: int) -> str | None:
+    """Why kernel T's ``build`` (``T_BUILDS``) cannot launch at width H, or
+    None."""
+    if build not in T_BUILDS:
+        raise ValueError(f"{build!r} is not one of {T_BUILDS}")
+    if H < 32 or H % 32 or H > STEP_MAX_H:
+        return (f"kernel {build} takes H a multiple of 32 (its plans' units) up to "
+                f"{STEP_MAX_H}, got H={H}")
+    return None
+
+
+def gru_step_plans(B: int, D: int, H: int, elem: int = 4, xp: bool = False) -> list[GruStepPlan]:
+    """Every plan of ``STEP_T_PLANS`` that launches at (B, D, H) (D ignored
+    for T xp), operands of ``elem`` bytes: the units divide H into at most
+    16 CTAs a cluster and the shared memory fits a CTA."""
+    out = []
+    for i, (rows, units) in enumerate(STEP_T_PLANS):
+        smem = gru_step_smem(D, H, rows, units, elem, xp)
+        if H % units or H // units > CLUSTER_SIZES[-1] or smem > SMEM_PER_BLOCK:
+            continue
+        out.append(GruStepPlan(i, rows, units, H // units, -(-B // rows),
+                               32 * (rows // 16) * (units // 8), smem))
+    return out
+
+
+def gru_step_plan(B: int, D: int, H: int, elem: int = 4, xp: bool = False) -> GruStepPlan:
+    """Kernel T's plan at batch B, input width D, width H (``xp``: T xp),
+    operands of ``elem`` bytes; raises LaunchLimitError where T does not
+    launch."""
+    why = gru_step_limit("T_xp" if xp else "T", H)
+    if why is not None:
+        raise LaunchLimitError(why)
+    plans = {(p.rows, p.units): p for p in gru_step_plans(B, D, H, elem, xp)}
+    # the rule the H100's timings give (tools/time_t_and_b.py --only tplans
+    # talt at the paths' 48 shapes; every pick within 10 % of the fastest
+    # there, tests/test_torch_gru_step_cluster.py): at a training batch
+    # above H = 256, 16 rows x 64 units, whose 16 clusters of 8 outnumber
+    # the card's 15, so T takes its two-launch route (``split``: 128 CTAs in
+    # one wave), 10-20 % faster than the best cluster plan and half the time
+    # of its own clusters' two waves (T xp: 32 x 64); else bf16 16 x 64, and
+    # float32 32 x 32 at a training batch, 16 x 32 at one song's or less
+    if B >= 128 and H > 256:
+        order = ((32, 64), (16, 64), (16, 32)) if xp else ((16, 64), (16, 32))
+    elif elem == 2:
+        order = ((16, 64), (16, 32))
+    elif B >= 128:
+        order = ((32, 32), (16, 32))
+    else:
+        order = ((16, 32), (16, 64))
+    for key in order:
+        if key in plans:
+            p = plans[key]
+            # the H100's active clusters were measured at the power-of-two
+            # sizes alone: a cluster of 3, 5, 6 or 7 (H = 192, 320, 384,
+            # 448) keeps the one launch
+            active = MAX_CLUSTERS_H100.get(p.cluster)
+            return p._replace(split=not xp and key == (16, 64) and active is not None
+                              and p.clusters > active)
+    raise LaunchLimitError(f"kernel T has no plan at (B={B}, D={D}, H={H})")
+
+
+# ---------------------------------------------------------------------------
+# Kernel B (csrc/gru_decode.cu): a serving decode head on thread-block
+# clusters (csrc/gru_decode_chain.cuh), 512-thread CTAs: a cluster of C
+# owns ``rows`` batch rows for every step, each CTA H / C units of each
+# layer. Shared memory: the ring of ``stages`` chunks of ``chunk`` (32 to 128)
+# depth rows x 3 H / C columns, x (D padded to a chunk), the logits, the h tiles
+# and r * h (rows rounded to 8), every CTA's partial logits (C x rows x D
+# padded to 4), Wo's rows of its units and the splits' partials. Its plan
+# (``gru_decode_plan``) is timed on the H100 at every serving head
+# (``tools/time_t_and_b.py``); the first, per-block design ("B") stays the route
+# of shapes the chain's plan refuses (``gru_decode_route``).
+# ---------------------------------------------------------------------------
+
+DEC_CHUNKS = (128, 64, 32)  # a chunk's depth rows, the largest that fits first
+DEC_MAX_SPLITS = 16  # kDecMaxSplits
+DEC_MAX_STAGES = 8   # kDecMaxStages
+DEC_SMEM = SMEM_PER_BLOCK - 1024  # kDecSmem: 1 KB left for the ring's mbarriers
+REGISTERS.update({"B_chain": 128})
+
+
+class GruDecodePlan(NamedTuple):
+    """How B's chain runs: ``cluster`` CTAs a cluster, ``rows`` batch rows a
+    cluster, ``clusters``, ``splits`` threads sharing a tile's depth,
+    ``stages`` chunks in the ring, ``smem`` bytes of dynamic shared memory a
+    CTA, ``chunk`` depth rows a chunk."""
+
+    cluster: int
+    rows: int
+    clusters: int
+    splits: int
+    stages: int
+    smem: int
+    chunk: int = 32
+
+
+def gru_decode_smem(n_layers: int, D: int, H: int, C: int, rows: int, splits: int,
+                    stages: int, chunk: int = 32) -> int:
+    """``gru_decode_chain_smem`` of csrc/gru_decode_chain.cuh, in bytes."""
+    Hc, R8, Dq = H // C, _round8(rows), -(-D // 4) * 4
+    Dp = -(-D // chunk) * chunk
+    return 4 * (stages * chunk * 3 * Hc + Dp * R8 + Dq * R8 + (n_layers + 1) * H * R8
+                + C * R8 * Dq + Hc * Dq + (splits - 1) * Hc * (R8 // 8) * TILE_STRIDE)
+
+
+def _dec_cluster_ok(H: int, C: int) -> bool:
+    return H >= 32 and H % DEC_CHUNKS[-1] == 0 and H % C == 0 and (H // C) % 4 == 0
+
+
+def gru_decode_fit(n_layers: int, D: int, H: int, C: int, rows: int, chunk: int = 32):
+    """(splits, stages) of the chain at C CTAs a cluster, ``rows`` rows a
+    cluster and chunks of ``chunk`` depth rows: the most splits (a power of
+    two up to DEC_MAX_SPLITS, within the CTA's threads) and then the most
+    stages (2 to DEC_MAX_STAGES) that fit its shared memory; None where none
+    fits."""
+    if not _dec_cluster_ok(H, C) or H % chunk:
+        return None
+    tiles = H // C * _round8(rows) // 8
+
+    def fits(splits, stages):
+        return gru_decode_smem(n_layers, D, H, C, rows, splits, stages, chunk) <= DEC_SMEM
+
+    if tiles > CHAIN_THREADS or not fits(1, 2):
+        return None
+    splits = 1
+    while 2 * splits <= DEC_MAX_SPLITS and tiles * 2 * splits <= CHAIN_THREADS and fits(
+            2 * splits, 2):
+        splits *= 2
+    stages = 2
+    while stages < DEC_MAX_STAGES and fits(splits, stages + 1):
+        stages += 1
+    return splits, stages
+
+
+@functools.cache
+def gru_decode_most_rows(n_layers: int, D: int, H: int, C: int) -> int:
+    """The most rows a cluster of C takes (0 where none fits)."""
+    rows = CHAIN_THREADS // (H // C) * 8 if _dec_cluster_ok(H, C) else 0
+    while rows > 0 and gru_decode_fit(n_layers, D, H, C, rows) is None:
+        rows -= 1
+    return rows
+
+
+# The serving heads' plans the H100 ran fastest, (cluster, rows, chunk) by
+# (H, D, n_layers, T, B): notes, velocity, instrument and held at H 256 and
+# 512 and B 256, 16 (one song) and 5, every (cluster, rows, chunk) timed in
+# one call (tools/time_t_and_b.py --only bplans; PERF.md, Findings); no
+# rule of cluster size and rows was within 10 % of the fastest at more than
+# 17 of the 24. Other shapes take the rule below.
+DEC_MEASURED = {
+    (256, 1, 1, 64, 5): (8, 4, 128), (256, 1, 1, 64, 16): (8, 8, 128),
+    (256, 1, 1, 64, 256): (16, 37, 128), (256, 2, 1, 64, 5): (8, 4, 128),
+    (256, 2, 1, 64, 16): (16, 4, 128), (256, 2, 1, 64, 256): (8, 18, 128),
+    (256, 16, 1, 4, 5): (8, 4, 128), (256, 16, 1, 4, 16): (8, 4, 128),
+    (256, 16, 1, 4, 256): (8, 32, 128), (256, 61, 2, 64, 5): (16, 1, 128),
+    (256, 61, 2, 64, 16): (8, 2, 128), (256, 61, 2, 64, 256): (8, 18, 64),
+    (512, 1, 1, 64, 5): (16, 4, 128), (512, 1, 1, 64, 16): (16, 8, 128),
+    (512, 1, 1, 64, 256): (8, 18, 64), (512, 2, 1, 64, 5): (16, 5, 128),
+    (512, 2, 1, 64, 16): (16, 3, 128), (512, 2, 1, 64, 256): (8, 18, 32),
+    (512, 16, 1, 4, 5): (16, 4, 64), (512, 16, 1, 4, 16): (16, 3, 128),
+    (512, 16, 1, 4, 256): (4, 9, 32), (512, 61, 2, 64, 5): (16, 4, 128),
+    (512, 61, 2, 64, 16): (16, 4, 128), (512, 61, 2, 64, 256): (8, 8, 64),
+}
+
+
+def gru_decode_cluster(B: int, T: int) -> int:
+    """The chain's cluster size for a head of T steps at batch B: the rule
+    the H100's timings give (tools/time_t_and_b.py --only bplans on every
+    serving head at H 256 and 512 and B 256, 16, 5: every pick within 10 %
+    of the fastest, tests/test_torch_gru_decode_chain.py). A training-size
+    batch takes clusters of 8 (4 for a head of a few steps, which the
+    launch's start dominates), one song or less clusters of 16 (8 for a few
+    steps of a few rows)."""
+    if B >= 128:
+        return 4 if T <= 8 else 8
+    return 16 if T > 8 or B > 8 else 8
+
+
+def gru_decode_plan(H: int, D: int, n_layers: int, B: int, cluster: int | None = None,
+                    rows: int | None = None, max_clusters: int | None = None,
+                    T: int = 64, chunk: int | None = None) -> GruDecodePlan:
+    """B's chain plan for a head of width D, ``n_layers`` and T steps at
+    (H, B): ``cluster`` CTAs a cluster, ``rows`` rows a cluster and
+    ``chunk`` depth rows a chunk, by default ``DEC_MEASURED``'s at the
+    shapes it has, else ``gru_decode_cluster``'s size, ceil(B / the card's
+    active clusters at that size, ``max_clusters`` or the H100's) rows (as
+    many as fit) and the deepest chunk that fits them; raises
+    LaunchLimitError where the chain does not launch."""
+    if n_layers not in (1, 2):
+        raise LaunchLimitError(f"kernel B's chain decodes 1- or 2-layer heads, got {n_layers}")
+    measured = DEC_MEASURED.get((H, D, n_layers, T, B))
+    if measured and cluster is None and rows is None and chunk is None:
+        cluster, rows, chunk = measured
+    if cluster is None:
+        # the rule's size, else the first of the others whose slices fit
+        first = gru_decode_cluster(B, T)
+        cluster = next((c for c in (first, 8, 16, 4)
+                        if gru_decode_most_rows(n_layers, D, H, c) >= 1), first)
+    most = gru_decode_most_rows(n_layers, D, H, cluster)
+    if most < 1:
+        raise LaunchLimitError(
+            f"kernel B's chain takes H a multiple of 32 whose slices fit a cluster of "
+            f"{cluster} CTAs, got H={H}, D={D}, {n_layers} layers")
+    if rows is None:
+        M = max_clusters or MAX_CLUSTERS_H100[cluster]
+        rows = -(-B // M)
+    rows = max(1, min(rows, most, B))
+    # the deepest chunk that fits beside the rows (a chunk costs about the
+    # same whatever its depth: tools/time_t_and_b.py; PERF.md, Findings)
+    if chunk is None or gru_decode_fit(n_layers, D, H, cluster, rows, chunk) is None:
+        chunk = next(c for c in DEC_CHUNKS if gru_decode_fit(n_layers, D, H, cluster, rows, c))
+    splits, stages = gru_decode_fit(n_layers, D, H, cluster, rows, chunk)
+    return GruDecodePlan(cluster, rows, -(-B // rows), splits, stages,
+                         gru_decode_smem(n_layers, D, H, cluster, rows, splits, stages, chunk),
+                         chunk)
+
+
+@functools.cache
+def gru_decode_route(H: int, D: int, n_layers: int) -> str:
+    """The route of kernel B at width H for a head of width D and
+    ``n_layers``: "chain" where the chain's plan launches, else "block"
+    where the per-block build does; raises LaunchLimitError where neither
+    does."""
+    try:
+        gru_decode_plan(H, D, n_layers, 1)
+        return "chain"
+    except LaunchLimitError as e:
+        chain_why = str(e)
+    block_why = launch_limit("B", H, smem_bytes("B", H, D, n_layers))
+    if block_why is None:
+        return "block"
+    raise LaunchLimitError(f"kernel B launches at H={H} neither on its chain ({chain_why}) "
+                           f"nor per block ({block_why})")
 
 
 def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> list[str]:

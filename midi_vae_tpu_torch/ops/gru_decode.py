@@ -7,7 +7,14 @@ layout and what bounds it. ``gru_decode_reference`` is the plain PyTorch
 version (``_decode_scan_reference``): the CPU path and the kernel's oracle.
 
 ``gru_decode`` takes the plain version only for CPU tensors; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. Kernel B has two designs, one a route chosen
+from the shape before any launch (``_layout.gru_decode_route``): the decode
+chain on thread-block clusters (``csrc/gru_decode_chain.cuh``; its plan
+``decode_plan``), which every serving head at H <= 512 takes, and the first,
+per-block design for shapes the chain's plan refuses. The chain's plain
+version phase by phase: ``decode_layer_p1_reference``,
+``decode_layer_p2_reference``, ``decode_readout_partials_reference``,
+``decode_readout_reference``, composed by ``gru_decode_chain_reference``.
 
 Training: ``gru_decode_train`` (one head, counterpart of
 ``midi_vae_tpu/ops/fused_train.py::gru_decode_train``) and
@@ -93,13 +100,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import torch
 
 from . import _build, _layout
 from .grad_reduce import grad_reduce, gru_weight_grads
-from .gru_layer import (CELL_ACTIVATIONS, _ptr, _stream, bwd_gates, cell_activation,
-                        check_operands, gru_bptt_plan, gru_bwd_cell_reference,
+from .gru_layer import (CELL_ACTIVATIONS, _ptr, _stream, bwd_gates,
+                        cell_activation, check_operands, gru_bptt_plan, gru_bwd_cell_reference,
                         gru_bwd_gates_reference, gru_cell_bwd_core, gru_step)
 
 _BF16 = torch.bfloat16
@@ -136,22 +144,153 @@ def gru_decode_reference(cells, out_dense, init_states, start, T, activation="ta
     return torch.stack(probs), torch.stack(logits)
 
 
+def decode_layer_p1_reference(x, h, p):
+    """Plain version of a layer's P1 in B's chain: x . W (z, r and the
+    candidate's x part) + h . U_zr, then z and r: returns (z, r * h, the
+    candidate's x W_h + b_h), float32 (B, H) each."""
+    H = h.shape[-1]
+    xw = x @ p["w"] + p["b"]
+    hu = h @ p["u"][:, :2 * H]
+    z = torch.sigmoid(xw[:, :H] + hu[:, :H])
+    r = torch.sigmoid(xw[:, H:2 * H] + hu[:, H:])
+    return z, r * h, xw[:, 2 * H:]
+
+
+def decode_layer_p2_reference(z, rh, cand, h, u, act):
+    """Plain version of a layer's P2 in B's chain: hh = act((r h) . U_h +
+    cand), h' = z h + (1 - z) hh."""
+    H = h.shape[-1]
+    return z * h + (1.0 - z) * act(cand + rh @ u[:, 2 * H:])
+
+
+def decode_readout_partials_reference(h, wo, cluster):
+    """Plain version of the chain's readout partials: CTA c's logits over its
+    own H / cluster units of h, (cluster, B, D)."""
+    return torch.stack([hc @ wc for hc, wc in zip(h.chunk(cluster, -1), wo.chunk(cluster, 0))])
+
+
+def decode_readout_reference(partials, bo, out_activation):
+    """Plain version of the readout's sum: the partials in cluster-rank
+    order, then bo; returns (probs, logits)."""
+    logits = partials[0]
+    for part in partials[1:]:
+        logits = logits + part
+    logits = logits + bo
+    return out_activation_fn(out_activation)(logits), logits
+
+
+def gru_decode_chain_reference(cells, out_dense, init_states, start, T, activation="tanh",
+                               out_activation="softmax", cluster=8):
+    """B's chain composed from its phases' plain versions: per step each
+    layer's P1 and P2, then the readout's partials over ``cluster`` slices
+    of the units and their sum. Returns (probs, logits), (T, B, D)."""
+    act = cell_activation(activation)
+    states = list(init_states)
+    x = start
+    probs, logits = [], []
+    for _ in range(T):
+        for i, p in enumerate(cells):
+            z, rh, cand = decode_layer_p1_reference(x, states[i], p)
+            x = states[i] = decode_layer_p2_reference(z, rh, cand, states[i], p["u"], act)
+        parts = decode_readout_partials_reference(x, out_dense["w"], cluster)
+        x, lg = decode_readout_reference(parts, out_dense["b"], out_activation)
+        probs.append(x)
+        logits.append(lg)
+    return torch.stack(probs), torch.stack(logits)
+
+
 @functools.cache
 def _kernel():
     lib = _build.load("gru_decode")
     fn = lib.mvt_gru_decode
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return lib, fn
+    chain = lib.mvt_gru_decode_chain
+    chain.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    chain.restype = ctypes.c_int
+    return lib, fn, chain
+
+
+def pack_slices(cells, cluster, chunk):
+    """The weights of a decode head's layers as B's chain reads them
+    (``csrc/gru_decode_chain.cuh``, ``GruDecodeChainArgs::slices``): per
+    layer its x segment (cluster, depth, 3, H / cluster: W's z, r and
+    candidate columns of each CTA's units; layer 1's depth D zero-padded to
+    whole chunks of ``chunk`` rows), its h segment (cluster, H,
+    2, H / cluster: U's z and r columns) and P2's (cluster, H, 1, H /
+    cluster: U's candidate columns), each contiguous, so that every chunk of
+    a CTA is one block of memory. Three tensor copies a layer."""
+    out = []
+    for p in cells:
+        w, u = p["w"], p["u"]
+        H = u.shape[0]
+        Hc, depth = H // cluster, -(-w.shape[0] // chunk) * chunk
+        if depth != w.shape[0]:
+            w = torch.cat([w, w.new_zeros(depth - w.shape[0], 3 * H)])
+        out.append(w.reshape(depth, 3, cluster, Hc).permute(2, 0, 1, 3).contiguous())
+        out.append(u[:, :2 * H].reshape(H, 2, cluster, Hc).permute(2, 0, 1, 3).contiguous())
+        out.append(u[:, 2 * H:].reshape(H, 1, cluster, Hc).permute(2, 0, 1, 3).contiguous())
+    return out
+
+
+# pack_slices' outputs of recent heads: (the weights' weak references, their
+# version counters, the packed tensors) by (the weights' ids, cluster size)
+_PACKED: dict = {}
+
+
+def _packed_slices(cells, cluster, chunk):
+    """``pack_slices`` of ``cells``, kept while the weights are the same
+    tensors and unchanged (their version counters: an in-place update, as
+    the optimizer's, repacks), so that serving the same heads again packs
+    nothing; inference tensors (no version counter) are packed every call."""
+    ts = [p[k] for p in cells for k in ("w", "u")]
+    try:
+        versions = tuple(t._version for t in ts)
+    except RuntimeError:
+        return pack_slices(cells, cluster, chunk)
+    key = (tuple(id(t) for t in ts), cluster, chunk)
+    hit = _PACKED.get(key)
+    if hit and hit[1] == versions and all(r() is t for r, t in zip(hit[0], ts)):
+        return hit[2]
+    packed = pack_slices(cells, cluster, chunk)
+    if len(_PACKED) >= 16:
+        _PACKED.clear()
+    _PACKED[key] = ([weakref.ref(t) for t in ts], versions, packed)
+    return packed
+
+
+@functools.cache
+def chain_max_clusters(cluster):
+    """The card's cudaOccupancyMaxActiveClusters of B's chain at ``cluster``
+    CTAs a cluster (one CTA an SM)."""
+    lib, fn = _build.load_entry("gru_decode", "mvt_gru_decode_max_clusters",
+                                [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    _build.check(lib, fn(cluster, ctypes.byref(out)), "gru_decode cudaOccupancyMaxActiveClusters")
+    return out.value
+
+
+@functools.cache
+def decode_plan(H, D, n_layers, B, T=64):
+    """B's chain plan (``_layout.gru_decode_plan``) for a head of width D,
+    ``n_layers`` and T steps at (H, B), at the card's active clusters;
+    raises LaunchLimitError where the chain does not launch."""
+    p = _layout.gru_decode_plan(H, D, n_layers, B, T=T)
+    if (H, D, n_layers, T, B) in _layout.DEC_MEASURED:
+        return p
+    return _layout.gru_decode_plan(H, D, n_layers, B, p.cluster, T=T,
+                                   max_clusters=chain_max_clusters(p.cluster))
 
 
 def gru_decode(cells, out_dense, init_states, start, T, activation="tanh",
-               out_activation="softmax"):
+               out_activation="softmax", plan=None):
     """Readout decode of one head: ``cells`` is a list of 1 or 2 GRU layer
     params {w, u, b}, ``out_dense`` {w, b}, ``init_states`` one (B, H) state
     per layer, ``start`` (B, D) the input of step 0. Returns (probs, logits),
     each (T, B, D). CPU tensors run ``gru_decode_reference``; CUDA tensors
-    launch kernel B."""
+    launch kernel B: its chain on clusters at ``plan`` (a
+    ``_layout.GruDecodePlan``; default ``decode_plan``'s) where
+    ``_layout.gru_decode_route`` says "chain", else its per-block build."""
     n_layers = len(cells)
     if n_layers not in (1, 2) or len(init_states) != n_layers:
         raise ValueError(f"kernel B decodes 1- or 2-layer heads with one state per layer, got {n_layers} layers and {len(init_states)} states")
@@ -179,27 +318,67 @@ def gru_decode(cells, out_dense, init_states, start, T, activation="tanh",
     check_operands(named, start.device)
     if T < 1:
         raise ValueError(f"kernel B takes T >= 1; got T={T}")
-    _layout.require("B", H, _layout.smem_bytes("B", H, D, n_layers))
-    probs = torch.empty((T, B, D), device=start.device, dtype=torch.float32)
-    logits = torch.empty_like(probs)
+    if _layout.gru_decode_route(H, D, n_layers) == "block":
+        if plan is not None:
+            raise ValueError(f"kernel B takes its per-block route at H={H}: no chain plan applies")
+        return _decode_per_block(cells, out_dense, init_states, start, T, activation,
+                                 out_activation)
+    plan = plan or decode_plan(H, D, n_layers, B, T)
+    probs, logits, states, tail, stream = _launch_operands(cells, out_dense, init_states, start,
+                                                           T, activation, out_activation)
     two = n_layers == 2
     null = ctypes.c_void_p(None)
-    lib, fn = _kernel()
-    rc = fn(
-        _ptr(start), _ptr(init_states[0]), _ptr(init_states[1]) if two else null,
-        _ptr(cells[0]["w"]), _ptr(cells[0]["u"]), _ptr(cells[0]["b"]),
-        _ptr(cells[1]["w"]) if two else null, _ptr(cells[1]["u"]) if two else null,
-        _ptr(cells[1]["b"]) if two else null,
-        _ptr(out_dense["w"]), _ptr(out_dense["b"]), _ptr(probs), _ptr(logits),
-        T, B, D, H, n_layers, CELL_ACTIVATIONS[activation], OUT_ACTIVATIONS[out_activation],
-        ctypes.c_void_p(torch.cuda.current_stream(start.device).cuda_stream),
-    )
+    lib, _, chain_fn = _kernel()
+    slices = list(_packed_slices(cells, plan.cluster, plan.chunk))
+    slices += [None] * (6 - len(slices))
+    rc = chain_fn(*states, *(_ptr(t) if t is not None else null for t in slices),
+                  _ptr(cells[0]["b"]), _ptr(cells[1]["b"]) if two else null, *tail,
+                  plan.cluster, plan.rows, plan.splits, plan.stages, plan.chunk, stream)
+    _build.check(lib, rc, "gru_decode chain launch")
+    gru_decode.launches += 1
+    gru_decode.launches_chain += 1
+    return probs, logits
+
+
+def _launch_operands(cells, out_dense, init_states, start, T, activation, out_activation):
+    """The outputs (probs, logits) of either route's launch, its first
+    pointers (start and the initial states), its tail (Wo, bo, the outputs,
+    the sizes and codes) and the caller's stream."""
+    B, D = start.shape
+    H = init_states[0].shape[-1]
+    probs = torch.empty((T, B, D), device=start.device, dtype=torch.float32)
+    logits = torch.empty_like(probs)
+    two = len(cells) == 2
+    states = (_ptr(start), _ptr(init_states[0]),
+              _ptr(init_states[1]) if two else ctypes.c_void_p(None))
+    tail = (_ptr(out_dense["w"]), _ptr(out_dense["b"]), _ptr(probs), _ptr(logits),
+            T, B, D, H, len(cells), CELL_ACTIVATIONS[activation], OUT_ACTIVATIONS[out_activation])
+    stream = ctypes.c_void_p(torch.cuda.current_stream(start.device).cuda_stream)
+    return probs, logits, states, tail, stream
+
+
+def _decode_per_block(cells, out_dense, init_states, start, T, activation="tanh",
+                      out_activation="softmax"):
+    """Kernel B's first, per-block design on operands ``gru_decode`` has
+    checked: its route for shapes the chain's plan refuses (chip_smoke.py
+    also holds kernel D, which keeps this design's body, bit-equal to it)."""
+    H, D = init_states[0].shape[-1], start.shape[1]
+    _layout.require("B", H, _layout.smem_bytes("B", H, D, len(cells)))
+    probs, logits, states, tail, stream = _launch_operands(cells, out_dense, init_states, start,
+                                                           T, activation, out_activation)
+    two = len(cells) == 2
+    null = ctypes.c_void_p(None)
+    lib, fn, _ = _kernel()
+    rc = fn(*states, _ptr(cells[0]["w"]), _ptr(cells[0]["u"]), _ptr(cells[0]["b"]),
+            _ptr(cells[1]["w"]) if two else null, _ptr(cells[1]["u"]) if two else null,
+            _ptr(cells[1]["b"]) if two else null, *tail, stream)
     _build.check(lib, rc, "gru_decode launch")
     gru_decode.launches += 1
     return probs, logits
 
 
-gru_decode.launches = 0
+gru_decode.launches = 0  # every launch of kernel B, either route
+gru_decode.launches_chain = 0  # the launches of its chain
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,10 @@ Counterpart of ``midi_vae_tpu/ops/fused_gru.py``: ``gru_cell_step`` is its
 ``gru_recurrent_step`` (:164) over a precomputed x-projection, whose
 ``_gru_recurrent_kernel`` (through ``_gru_recurrent_pallas``) kernel T xp
 replaces. Both live in ``csrc/gru_step.cu``, whose source note gives the
-layout and what bounds them. The plain versions ``gru_cell_step_reference``
+design (one launch on thread-block clusters, both products on the tensor
+cores) and what bounds it; the plan (rows a cluster, units a CTA) is
+``_layout.gru_step_plan``'s, cached per shape with the wrapper's other
+per-shape work. The plain versions ``gru_cell_step_reference``
 and ``gru_recurrent_step_reference`` compute as the Pallas kernels do: the
 CPU path and the kernels' oracles.
 
@@ -31,7 +34,9 @@ products and gates in float32 and h' stored in bf16; the plain versions
 compute the same way (``gru_layer.gru_step_xp``), while the backward rounds
 every op to bf16, as ``_gru_step_reference`` and the plain cell do.
 Launches are counted per build: ``gru_cell_step_fwd.launches`` (float32)
-and ``.launches_bf16``.
+and ``.launches_bf16``, two for a call on T's two-launch route (the plan's
+``split``: P1 and P2 as two launches where its clusters outnumber the
+card's).
 T xp has the float32 build only: the bf16 encoder with
 ``fused_train_encoder=False`` is the whole-scan kernel X
 (``ops/encoder_scan.py``), as in the JAX package.
@@ -48,13 +53,12 @@ from ..models.cells import GRUCell
 from . import _build, _layout
 from .gru_layer import (
     CELL_ACTIVATIONS,
-    _ptr,
     cell_activation,
     check_operands,
     gru_step,
     gru_step_xp,
 )
-from .lstm_layer import _check_shapes, _on, _stream
+from .lstm_layer import _check_shapes, _on
 
 
 class RematStep(torch.autograd.Function):
@@ -93,6 +97,30 @@ def gru_recurrent_step_reference(xp, h, u, activation="tanh"):
     return gru_step_xp(xp, h, u, cell_activation(activation))
 
 
+def gru_step_p1_reference(x, h, w, b, u, xp=None):
+    """Plain version of T's first phase, P1 = [x | h] . [W ; U_zr] (T xp:
+    h . U_zr, ``xp`` in place of x @ W + b; x, w, b are then ignored), in
+    float32 over the operands widened: returns (z, r * h, the candidate's
+    x part x W_h + b_h), each (B, H) float32. r * h is what the kernel's
+    exchange carries to every CTA of the cluster."""
+    H = h.shape[-1]
+    hf, uf = h.float(), u.float()
+    xw = x.float() @ w.float() + b.float() if xp is None else xp.float()
+    hu = hf @ uf[:, :2 * H]
+    z = torch.sigmoid(xw[:, :H] + hu[:, :H])
+    r = torch.sigmoid(xw[:, H:2 * H] + hu[:, H:])
+    return z, r * hf, xw[:, 2 * H:]
+
+
+def gru_step_p2_reference(z, rh, cand, h, u, activation="tanh"):
+    """Plain version of T's second phase: P2 = (r h) . U_h over the
+    candidate columns, then hh = act(P2 + cand) and h' = z h + (1 - z) hh,
+    rounded once to h's dtype."""
+    H = h.shape[-1]
+    hh = cell_activation(activation)(cand + rh @ u.float()[:, 2 * H:])
+    return (z * h.float() + (1.0 - z) * hh).to(h.dtype)
+
+
 def gru_cell_step_vjp_reference(x, h, w, b, u, activation="tanh"):
     """What T's backward differentiates: ``_gru_step_reference``, x @ W + b
     and every op after it in the operands' dtype, as the plain cell
@@ -105,15 +133,46 @@ def gru_recurrent_step_vjp_reference(xp, h, u, activation="tanh"):
     return GRUCell.step({"u": u}, xp, (h,), cell_activation(activation))[0]
 
 
+def _raw_stream(t):
+    """The handle of the current CUDA stream of t's device, as an int,
+    without building a torch.cuda.Stream object: a training step launches S
+    196 times on a host-bound path (on the H100's host the Stream object
+    took 12 us a call, the raw handle 0.2: PERF.md, Findings)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
 @functools.cache
 def _kernels():
     lib = _build.load("gru_step")
     step, step_bf16, step_xp = lib.mvt_gru_step, lib.mvt_gru_step_bf16, lib.mvt_gru_step_xp
-    step.argtypes = step_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    step.argtypes = step_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
-    step_xp.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    step.restype = step_bf16.restype = step_xp.restype = ctypes.c_int
-    return lib, {torch.float32: step, torch.bfloat16: step_bf16}, step_xp
+    step_xp.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    split, split_bf16 = lib.mvt_gru_step_split, lib.mvt_gru_step_split_bf16
+    split.argtypes = split_bf16.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    for fn in (step, step_bf16, step_xp, split, split_bf16):
+        fn.restype = ctypes.c_int
+    return (lib, {torch.float32: step, torch.bfloat16: step_bf16}, step_xp,
+            {torch.float32: split, torch.bfloat16: split_bf16})
+
+
+@functools.cache
+def _plan(B, D, H, elem, xp):
+    """(the kernel's plan index, whether it takes the two-launch route) of
+    ``_layout.gru_step_plan`` at (B, D, H) (``xp``: T xp) for operands of
+    ``elem`` bytes; raises LaunchLimitError where T does not launch."""
+    p = _layout.gru_step_plan(B, D, H, elem, xp)
+    return p.plan, p.split
+
+
+def _aligned(named, keys):
+    """T's ring copies 16 bytes at a time from the weights: W and U must
+    start on a 16-byte boundary (a fresh tensor always does)."""
+    for k in keys:
+        if named[k].data_ptr() % 16:
+            raise ValueError(f"kernel T reads {k} in 16-byte copies; its storage must start on a "
+                             "16-byte boundary")
 
 
 def gru_cell_step_fwd(x, h, w, b, u, activation="tanh"):
@@ -135,13 +194,20 @@ def gru_cell_step_fwd(x, h, w, b, u, activation="tanh"):
     dtype = check_operands(named, x.device, (torch.float32, torch.bfloat16))
     if B < 1:
         raise ValueError(f"kernel T takes B >= 1; got B={B}")
-    _layout.require("T", H, _layout.smem_bytes("T", H, D))
-    h_out = torch.empty(B, H, device=x.device, dtype=dtype)
-    lib, steps, _ = _kernels()
-    rc = steps[dtype](_ptr(x), _ptr(h), _ptr(w), _ptr(b), _ptr(u), _ptr(h_out), B, D, H,
-                      CELL_ACTIVATIONS[activation], _stream(x))
+    _aligned(named, ("w", "u"))
+    plan, split = _plan(B, D, H, x.element_size(), False)
+    h_out = torch.empty_like(h)
+    lib, steps, _, splits = _kernels()
+    ptrs = (x.data_ptr(), h.data_ptr(), w.data_ptr(), b.data_ptr(), u.data_ptr(),
+            h_out.data_ptr())
+    if split:  # the two-launch route: P1's gates and r * h through scratch
+        scratch = torch.empty(3 * B * H, device=x.device, dtype=torch.float32)
+        rc = splits[dtype](*ptrs, scratch.data_ptr(), B, D, H, CELL_ACTIVATIONS[activation],
+                           _raw_stream(x))
+    else:
+        rc = steps[dtype](*ptrs, B, D, H, CELL_ACTIVATIONS[activation], plan, _raw_stream(x))
     _build.check(lib, rc, "gru_step launch")
-    _build.count_launch(gru_cell_step_fwd, dtype)
+    _build.count_launch(gru_cell_step_fwd, dtype, 2 if split else 1)
     return h_out
 
 
@@ -165,11 +231,12 @@ def gru_recurrent_step_fwd(xp, h, u, activation="tanh"):
     check_operands(named, xp.device)
     if B < 1:
         raise ValueError(f"kernel T xp takes B >= 1; got B={B}")
-    _layout.require("T_xp", H, _layout.smem_bytes("T_xp", H))
-    h_out = torch.empty(B, H, device=xp.device, dtype=torch.float32)
-    lib, _, step_xp = _kernels()
-    rc = step_xp(_ptr(xp), _ptr(h), _ptr(u), _ptr(h_out), B, H, CELL_ACTIVATIONS[activation],
-                 _stream(xp))
+    _aligned(named, ("u",))
+    plan, _ = _plan(B, 0, H, 4, True)
+    h_out = torch.empty_like(h)
+    lib, _, step_xp, _ = _kernels()
+    rc = step_xp(xp.data_ptr(), h.data_ptr(), u.data_ptr(), h_out.data_ptr(), B, H,
+                 CELL_ACTIVATIONS[activation], plan, _raw_stream(xp))
     _build.check(lib, rc, "gru_step_xp launch")
     gru_recurrent_step_fwd.launches += 1
     return h_out

@@ -48,7 +48,7 @@ import torch
 
 from . import _build, _layout
 from .gru_layer import CELL_ACTIVATIONS, cell_activation, check_operands
-from .gru_step import RematStep
+from .gru_step import RematStep, _raw_stream
 from .lstm_layer import _check_shapes, _on, lstm_step
 
 
@@ -79,14 +79,6 @@ def _kernels():
     step_xp.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     step.restype = step_bf16.restype = step_xp.restype = ctypes.c_int
     return lib, {torch.float32: step, torch.bfloat16: step_bf16}, step_xp
-
-
-def _raw_stream(t):
-    """The handle of the current CUDA stream of t's device, as an int,
-    without building a torch.cuda.Stream object: a training step launches S
-    196 times on a host-bound path (on the H100's host the Stream object
-    took 12 us a call, the raw handle 0.2: PERF.md, Findings)."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 @functools.cache

@@ -14,7 +14,8 @@ steps the device time per kernel name, per kernel of the port (A, D, F,
 G, the wide D, A's and L's pre-pass, A's chain, A's and L's per-block
 routes, C's and E's phases (their shared gate pre-pass, C's chain and dx
 pass, E's chain: every E build, wide or not, runs it), N's and R's phases,
-the forward chain of Q and L, S, S xp, T, T xp, X, Y, W; the bf16 builds of
+the forward chain of Q and L, S, S xp, T, T xp, B's chain and per-block
+route, X, Y, W; the bf16 builds of
 A, D, G, the wide D, L, the phases, S, T and W apart, the bf16 chain of Q,
 Y and L together) and for
 everything else, per autograd node of the backward, and the device's idle
@@ -43,7 +44,9 @@ PORT_KERNELS = {
     "gru_fwd_chain_kernel": "A chain gru_fwd_chain",
     "gru_fwd_chain_mma_kernel": "A chain bf16 gru_fwd_chain_mma",
     "gru_layer_fwd_kernel": "A block gru_layer_fwd",
-    "gru_decode_kernel": "B gru_decode",
+    # B: its decode chain on clusters, its per-block route
+    "gru_decode_chain_kernel": "B chain gru_decode_chain",
+    "gru_decode_kernel": "B block gru_decode",
     # C's and E's phases: the gate pre-pass's two products (one kernel
     # name for both ops), C's chain and dx pass, E's chain through a head
     "gru_gates_p1_kernel": "C/E gates gru_gates_p1",
@@ -69,8 +72,8 @@ PORT_KERNELS = {
     "lstm_bwd_dx_kernel": "N dx lstm_bwd_dx",
     "lstm_step_kernel": "S lstm_step",
     "lstm_step_xp_kernel": "S xp lstm_step_xp",
-    "gru_step_kernel": "T gru_step",
-    "gru_step_xp_kernel": "T xp gru_step_xp",
+    # T's instances (T xp: those with kXp = true, counted apart below)
+    "gru_step_tc_kernel": "T gru_step_tc",
     "gru_encoder_scan_kernel": "X gru_encoder_scan",
     "grad_reduce": "W grad_reduce",
 }
@@ -80,7 +83,7 @@ BF16_BUILDS = ("A/L xproj xproj", "A chain gru_fwd_chain", "A block gru_layer_fw
                "C dx gru_bwd_dx", "D gru_decode_train", "E chain gru_head_bwd_chain",
                "G gru_layer_xp_bwd", "D wide gru_decode_train_wide", "L block lstm_layer_fwd",
                "N/R chain lstm_bwd_chain",
-               "N dx lstm_bwd_dx", "S lstm_step", "T gru_step",
+               "N dx lstm_bwd_dx", "S lstm_step", "T gru_step_tc",
                "W grad_reduce")
 
 
@@ -161,6 +164,8 @@ def _profile(step, steps: int) -> dict:
         group = next((g for prefix, g in PORT_KERNELS.items() if short == prefix
                       or short.startswith(prefix + "_")),
                      "other (ATen, cuBLAS, copies)")
+        if group == "T gru_step_tc" and ", true," in name:
+            group = "T xp gru_step_tc"
         if group in BF16_BUILDS and "bfloat16" in name:
             letter, library = group.rsplit(" ", 1)
             group = f"{letter} bf16 {library}"
