@@ -31,7 +31,9 @@ result line):
      product on the tensor cores (csrc/gemm_tc.cuh) with the cell in its
      epilogue; T, T bf16 and T xp as one launch on clusters, both products
      on the tensor cores; B as a decode chain on clusters
-     (csrc/gru_decode_chain.cuh) beside its per-block route; every build's
+     (csrc/gru_decode_chain.cuh) beside its per-block route; X as A's bf16
+     chain over a bf16 xp and G as an xp gate pre-pass and C's chain, each
+     beside its per-block route; every build's
      registers and
      spills from ptxas against the route chooser's table (the phase builds
      also against their threads a block); the 8-rows builds of D and E must
@@ -40,9 +42,11 @@ result line):
      cudaOccupancyMaxActiveClusters and its plan at B = 256 (A's chain
      builds too, and B's chain on the notes head); the instances of W (the
      tiles on the tensor cores, the small-I stream), of L and A (the x @ W
-     pre-pass, the chain), of S, of T and of B's chain must not spill; W's
-     one-TF32-product control is built too
-     (csrc/grad_reduce.cu with -DMVT_W_TF32_ONE);
+     pre-pass, the chain), of S, of T, of B's chain and of X's and G's
+     chains and G's pre-pass must not spill; W's one-TF32-product control
+     is built too (csrc/grad_reduce.cu with -DMVT_W_TF32_ONE);
+  2a. A's, C's and E's outputs on numpy-seeded inputs bit-equal to the
+     parent commit's (PARENT_DIGESTS): X and G share their device code;
   2b. W: kernel W on the paths' reductions (W_CASES) against a float64 sum
      within W_REL_L2, two runs bit-equal, and the one-TF32-product control
      over W_REL_L2 on the tiled cases;
@@ -84,8 +88,10 @@ result line):
      x-projections, the 2-rows-a-block builds of D and E on each decode head
      alone, and W over their gate grads, against their plain versions at
      B = 256 and B = 5, with times, and the training ops' gradients against
-     autograd; F and G also at a GRU(256) layer; A and B at H = 512 (the
-     serving path of a wide run);
+     autograd; G's phases (the xp gate pre-pass, the chain) each against its
+     plain version, G's per-block route beside them on notes L1, and at H =
+     96, where it is G's route; F and G also at a GRU(256) layer; A and B at
+     H = 512 (the serving path of a wide run);
  10. wide training slice: the train CLI at --set lstm_size=512 for 2 epochs,
      --resume for a third, then the transfer CLI serves the run, with every
      launch counter equal to the wide design;
@@ -162,7 +168,9 @@ result line):
      w_ih = I beside Y and torch.lstm_cell in bf16 beside S) and at B = 5
      (T bf16 to BF16_STEP, beside a control that must land over it: its
      plain phases with r * h rounded to bf16), and the remat backward of X
-     and Y against autograd through the plain forward;
+     and Y against autograd through the plain forward; X's per-block route
+     beside its chain on notes L1, X with every cell activation at H = 256
+     and 512, and at H = 160, where the per-block design is its route;
  27. the train CLI on the two bf16 configs at full width, 2 epochs, --resume
      for a third, serving: --set compute_dtype=bfloat16 with both
      fused_train_* False (X 4 and T bf16 196 a step), and with cell_type=LSTM
@@ -209,10 +217,11 @@ result line):
      (csrc/gru_decode_train.cu) and E (csrc/gru_decode_bwd.cu), whose
      dlogits and gate grads leave rounded to bf16, and W over them; each
      against its plain bf16 version at B = 256 (timed, with bounds, W beside
-     cuBLAS) and B = 5, the autograd ops' gradients against the plain
-     backward, and three controls: dU from the rounded dxp, the heads'
-     weight grads from the unrounded streams, one D step with layer 2 fed
-     the rounded h1;
+     cuBLAS) and B = 5, G bf16's phases each against its plain version (and
+     its per-block route beside them on notes L1), X and G bf16 at B = 128,
+     the autograd ops' gradients against the plain backward, and three
+     controls: dU from the rounded dxp, the heads' weight grads from the
+     unrounded streams, one D step with layer 2 fed the rounded h1;
  34. the train CLI with --set lstm_size=512 --set compute_dtype=bfloat16, 2
      epochs, --resume for a third, serving: X 4, G bf16 4, the wide D and E
      in bf16 2 and in float32 1 (velocity), W 12 in bf16 and 11 in float32
@@ -426,7 +435,7 @@ def report_clusters():
                                      "plan_B256": plan._asdict()}
     from midi_vae_tpu_torch.ops import gru_layer as gl
 
-    for build in _layout.GRU_FWD_BUILDS:
+    for build in ("A_chain", "A_chain_bf16"):
         for H in (256, 512):
             C, stream = _layout.gru_fwd_cluster(build, H)
             active = gl._max_clusters("gru_layer_fwd", build.endswith("_bf16"), C, stream)
@@ -434,6 +443,15 @@ def report_clusters():
             fwd[f"{build} H={H}"] = {"cluster": C, "stream": stream, "max_active_clusters": active,
                                      "assumed": _layout.MAX_CLUSTERS_H100[C],
                                      "plan_B256": plan._asdict()}
+    # X: A's bf16 chain in X's library (the instance over a bf16 xp)
+    from midi_vae_tpu_torch.ops import encoder_scan as es
+
+    for H in (256, 512):
+        plan = es.scan_chain_plan(H, B)
+        fwd[f"X_chain H={H}"] = {
+            "cluster": plan.cluster, "stream": False,
+            "max_active_clusters": gl._max_clusters("gru_encoder_scan", True, plan.cluster),
+            "assumed": _layout.MAX_CLUSTERS_H100[plan.cluster], "plan_B256": plan._asdict()}
     from midi_vae_tpu_torch.ops import gru_decode as gd
 
     # B's decode chain on the notes head (it streams every slice)
@@ -455,6 +473,14 @@ def report_clusters():
         bwd[f"{build} H={H}{' heads ' + str(heads) if heads else ''}"] = {
             "cluster": plan.cluster, "stream": not plan.resident, "max_active_clusters": active,
             "assumed": _layout.MAX_CLUSTERS_H100[plan.cluster], "plan_B256": plan._asdict()}
+    # G: C's chain in G's library
+    for bf16 in (False, True):
+        for H in (256, 512):
+            plan = gl.xp_bwd_plan(bf16, H, B)
+            bwd[f"G_chain{'_bf16' if bf16 else ''} H={H}"] = {
+                "cluster": plan.cluster, "stream": not plan.resident,
+                "max_active_clusters": gl._max_clusters("gru_layer_xp_bwd", bf16, plan.cluster),
+                "assumed": _layout.MAX_CLUSTERS_H100[plan.cluster], "plan_B256": plan._asdict()}
     print("[build] GRU backward chain plans (ops/_layout.py::gru_bptt_plan at B = "
           f"{B}; cudaOccupancyMaxActiveClusters at the plan's size): " + "; ".join(
               f"{k}: cluster {v['cluster']}, active {v['max_active_clusters']} (assumed "
@@ -508,7 +534,13 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "E_gates_p2": ("gru_decode_bwd", "gru_gates_p2_kernel", NOT_BF16),
           "E_chain": ("gru_decode_bwd", "gru_head_bwd_chain_kernel", NOT_BF16),
           "F": ("gru_layer_xp_fwd", "gru_layer_xp_fwd_kernel"),
+          # G: its per-block route (the first design), its xp gate pre-pass
+          # (P1, P2) and its chain (C's, in G's library; the bf16 instance
+          # also emits dxp)
           "G": ("gru_layer_xp_bwd", "gru_layer_xp_bwd_kernel", NOT_BF16),
+          "G_gates": ("gru_layer_xp_bwd", "gru_xp_gates_p1_kernel", NOT_BF16),
+          "G_gates_p2": ("gru_layer_xp_bwd", "gru_xp_gates_p2_kernel", NOT_BF16),
+          "G_chain": ("gru_layer_xp_bwd", "gru_bwd_chain_kernel", NOT_BF16),
           "D_wide": ("gru_decode_train", "gru_decode_train_wide_kernel", NOT_BF16),
           "W": ("grad_reduce", "grad_reduce", NOT_BF16),
           # W's instances: the tiles on the tensor cores, the small-I stream,
@@ -540,7 +572,10 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           # cores, six plan instances each (the template's bool: xp)
           "T": ("gru_step", "gru_step_tc_kernel", NOT_BF16, "Lb0E"),
           "T_xp": ("gru_step", "gru_step_tc_kernel", "Lb1E"),
+          # X: its per-block route (the first design) and its chain (A's
+          # bf16 chain, the instance that reads a bf16 xp)
           "X": ("gru_encoder_scan", "gru_encoder_scan_kernel"),
+          "X_chain": ("gru_encoder_scan", "gru_fwd_chain_mma_kernel"),
           "Y": ("lstm_encoder_scan", "lstm_fwd_chain_mma_kernel"),
           "U": ("gru_encoder_stack_fwd", "gru_encoder_stack_fwd_kernel"),
           "V": ("gru_encoder_stack_bwd", "gru_encoder_stack_bwd_kernel"),
@@ -563,6 +598,9 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "W_tc_bf16": ("grad_reduce", "grad_reduce_tc_kernel", BF16_ONLY),
           "W_small_bf16": ("grad_reduce", "grad_reduce_small_kernel", BF16_ONLY),
           "G_bf16": ("gru_layer_xp_bwd", "gru_layer_xp_bwd_kernel", BF16_ONLY),
+          "G_gates_bf16": ("gru_layer_xp_bwd", "gru_xp_gates_p1_kernel", BF16_ONLY),
+          "G_gates_p2_bf16": ("gru_layer_xp_bwd", "gru_xp_gates_p2_kernel", BF16_ONLY),
+          "G_chain_bf16": ("gru_layer_xp_bwd", "gru_bwd_chain_kernel", BF16_ONLY),
           "D_wide_bf16": ("gru_decode_train", "gru_decode_train_wide_kernel", BF16_ONLY),
           "L_bf16": ("lstm_layer_fwd", "lstm_layer_fwd_kernel", BF16_ONLY),
           "L_xproj_bf16": ("lstm_layer_fwd", "xproj_kernel", BF16_ONLY),
@@ -577,9 +615,10 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "D_resid": ("gru_decode_train", "gru_decode_train_resid_kernel")}
 
 
-# the instances that must not spill: W's, L's, A's, S's, C's, E's, T's and
-# B's of the tensor-core and chain designs
-NO_SPILLS = ("T", "T_xp", "T_bf16", "B_chain",
+# the instances that must not spill: W's, L's, A's, S's, C's, E's, T's,
+# B's, X's and G's of the tensor-core and chain designs
+NO_SPILLS = ("T", "T_xp", "T_bf16", "B_chain", "X_chain",
+             *(f"G_{p}{s}" for p in ("gates", "gates_p2", "chain") for s in ("", "_bf16")),
              "W_tc", "W_small", "W_tf32one", "W_tc_bf16", "W_small_bf16", "L_xproj", "L_chain",
              "L_xproj_bf16", "L_chain_bf16", "A_xproj", "A_chain", "A_xproj_bf16", "A_chain_bf16",
              "S", "S_xp", "S_bf16", *(f"{k}_{p}{s}" for k in "CE" for p in ("gates", "gates_p2")
@@ -615,10 +654,12 @@ def check_registers():
               **dict.fromkeys((*_layout.FWD_BUILDS, *_layout.GRU_FWD_BUILDS,
                                *_layout.GRU_BPTT_BUILDS, "E_chain_wide_bf16"),
                               _layout.CHAIN_THREADS),
-              # the GRU backward's pre-pass and dx pass: 256-thread blocks
-              **{f"{k}_{p}{s}": _layout.GEMM_THREADS for k in "CE"
+              # the GRU backward's pre-pass and dx pass (G: its xp
+              # pre-pass): 256-thread blocks; X's and G's chains
+              **{f"{k}_{p}{s}": _layout.GEMM_THREADS for k in "CEG"
                  for p in ("gates", "gates_p2", "dx") for s in ("", "_bf16")
-                 if not (k == "E" and p == "dx")},
+                 if not (k in "EG" and p == "dx")},
+              **dict.fromkeys(("X_chain", "G_chain", "G_chain_bf16"), _layout.CHAIN_THREADS),
               # S's largest block (its instances: 64 or 128 threads)
               **dict.fromkeys(_layout.STEP_BUILDS,
                               max(p[1] for p in _layout.STEP_TILES) * 8),
@@ -833,6 +874,35 @@ def e_work(heads, phase=None):
     return gru_bwd_work(heads[0]["start"].dtype == torch.bfloat16, **kw)
 
 
+def g_work(xp, u, phase=None):
+    """compare()'s work of G on xp (T, B, 3H) and U: the whole op, or one
+    ``phase`` ("gates", "chain"): C's products with no x segment and no dx
+    pass, each at the card's best rate for its operand types. float32:
+    every product (P1, P2, the chain's da U^T) as three TF32 products;
+    bf16: P1 one bf16 product (exact operands), P2 two (r h float against
+    bf16 U_h), the chain three (da in three terms, as the chain's carry
+    needs float accuracy)."""
+    import torch
+
+    T, rows, _ = xp.shape
+    p1, p2, chain, _dx = gru_bwd_products(T * rows, 0, u.shape[0])
+    if phase == "gates":
+        chain = 0.0
+    elif phase == "chain":
+        p1 = p2 = 0.0
+    if xp.dtype == torch.bfloat16:
+        return {"flops": p1 + 2 * p2 + 3 * chain, "peak": PEAK_BF16_FLOPS}
+    return tf32_work(p1 + p2 + chain)
+
+
+def x_work(T, rows, H):
+    """compare()'s work of X (a bf16 layer over xp), each product at the
+    card's best rate for its operand types: h @ U[:, :2H] one bf16 product
+    (both operands bf16), (r * h) @ U[:, 2H:] two (r * h float against bf16
+    U_h)."""
+    return {"flops": 4 * T * rows * H * H + 2 * (2 * T * rows * H * H), "peak": PEAK_BF16_FLOPS}
+
+
 def check(name, kernel_fn, plain_fn, limits, **_timed_only):
     """Kernel vs plain on the same inputs: max |diff| per output, within limits."""
     return _check(name, kernel_fn, plain_fn, limits)[0]
@@ -1019,6 +1089,58 @@ def phase_grad_reduce_checks():
               + f" (limit {W_REL_L2:.1e}; the one-product control must exceed it); two runs "
               "bit-equal; " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
     return found
+
+
+# sha256 prefixes of kernel A's outputs (its pre-pass, its chain with the
+# sequence and with the final h) and kernel C's (dx, dh0, the gate grads and
+# r * h; with the sequence's grad and with the final h's), float32 and bf16,
+# on numpy-seeded inputs at (T 64, B 256, H 256 and 512), and of kernel E's
+# (dlogits, the gate grads, r * h, the initial states' and start's grads) on
+# a numpy-seeded 2-layer notes head through each of its chain instances
+# (midi_vae_tpu_torch/tools/time_x_and_g.py --only digests), as the commit
+# before X and G moved onto A's and C's chains computed them on an NVIDIA
+# H100 80GB HBM3 at 700.00 W. X and G share A's, C's and E's device code
+# (E's chain runs C's layer step); A, C and E were not to change, so their
+# bits must not either.
+PARENT_DIGESTS = {
+    "A xproj H256 f32": "daad80aebbbfcabd",
+    "A chain seq H256 f32": "56be70eb18476de6",
+    "A chain last H256 f32": "80f18c78e5c6c6a1",
+    "C H256 f32": "94394c593067d95e",
+    "C last H256 f32": "a3236d9a9a4d7b50",
+    "A xproj H256 bf16": "e01775aab05c0ffd",
+    "A chain seq H256 bf16": "d5c9506ca9ef7e2b",
+    "A chain last H256 bf16": "9e781f3293e41b75",
+    "C H256 bf16": "be76a42e52165ac8",
+    "C last H256 bf16": "d6f0e3e942c2fafd",
+    "A xproj H512 f32": "ac833d3f251359f5",
+    "A chain seq H512 f32": "4487c385bd3ddf0b",
+    "A chain last H512 f32": "311d0c38c3d6e3e8",
+    "C H512 f32": "ef1028945439dcfa",
+    "C last H512 f32": "e9bc175f253f8e4b",
+    "A xproj H512 bf16": "edf5e25055392c82",
+    "A chain seq H512 bf16": "4ac845f0b158bdff",
+    "A chain last H512 bf16": "c42b766f47233bb5",
+    "C H512 bf16": "ff3f7f227227602e",
+    "C last H512 bf16": "4a265979565fc9e1",
+    "E H256 f32": "afc079a7a089ae8e",
+    "E H256 bf16": "5575b119a6137a8c",
+    "E wide H512 f32": "6d16b5e806551b02",
+    "E wide H512 bf16": "2d7faea2463e2359"}
+
+
+def phase_a_c_bits():
+    """A's, C's and E's outputs bit-equal to the parent commit's
+    (``PARENT_DIGESTS``)."""
+    from midi_vae_tpu_torch.tools.time_x_and_g import digests
+
+    got = digests()
+    wrong = {k: (got.get(k), v) for k, v in PARENT_DIGESTS.items() if got.get(k) != v}
+    if wrong or set(got) != set(PARENT_DIGESTS):
+        raise RuntimeError(f"A's, C's or E's outputs differ from the parent commit's (digest, "
+                           f"parent digest): {wrong}")
+    print(f"[bits] A's, C's and E's outputs bit-equal to the parent commit's ({len(got)} digests)")
+    return got
 
 
 def phase_kernels():
@@ -1314,6 +1436,49 @@ def c_phase_checks(run, tag, cargs):
     return found
 
 
+def g_phase_checks(run, tag, gargs, block=False):
+    """G's phases (C's chain in csrc/gru_layer_xp_bwd.cu) on the inputs
+    ``gargs`` of gru_layer_xp_bwd (xp, seq, h0, d_seq, d_final, u), each
+    against its plain version on the same inputs: the xp gate pre-pass
+    (gates and r * h from xp and hprev = [h0, seq[:-1]]), the chain over the
+    plain pre-pass's gates (dxp, dh0, the float32 gate grads), and with
+    ``block`` G's per-block route on the layer (its first design, the
+    parent's). ``run`` is compare (timed, with bounds: ``g_work``; the
+    per-block route's is the whole op's) or check. Returns {counter name:
+    result}."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+
+    xp, seq, h0, d_seq, d_final, u = gargs
+    bf16 = xp.dtype == torch.bfloat16
+    sfx, kind = ("_bf16", "G bf16") if bf16 else ("", "G")
+    out_lim = BF16_OUT if bf16 else rel
+    hprev = torch.cat([h0[None], seq[:-1]])
+    found = {"gru_layer_xp_bwd_gates" + sfx: run(
+        f"{kind} xp gate pre-pass {tag}", lambda: gl.gru_layer_xp_bwd_gates(xp, hprev, u),
+        lambda: gl.gru_bwd_gates_xp_reference(xp, hprev, u), [H_ATOL, H_ATOL],
+        **g_work(xp, u, "gates"), inputs=(xp, hprev, u))}
+    with torch.no_grad():
+        gates = gl.gru_bwd_gates_xp_reference(xp, hprev, u)[0]
+    chargs = (gates, hprev, d_seq, d_final, u)
+
+    def plain_chain():
+        da, dh0 = gl.gru_bwd_chain_reference(*chargs)
+        return da.to(xp.dtype), dh0.to(xp.dtype), da
+
+    found["gru_layer_xp_bwd_chain" + sfx] = run(
+        f"{kind} chain {tag}", lambda: gl.gru_layer_xp_bwd_chain(*chargs), plain_chain,
+        [out_lim, out_lim, rel], **g_work(xp, u, "chain"),
+        inputs=[t for t in chargs if t is not None])
+    if block:
+        found["gru_layer_xp_bwd_block" + sfx] = run(
+            f"{kind} per-block route {tag}", lambda: gl.gru_layer_xp_bwd_block(*gargs),
+            lambda: gl.gru_layer_xp_bwd_reference(*gargs), [out_lim, out_lim, rel, H_ATOL],
+            **g_work(xp, u), inputs=[t for t in gargs if t is not None])
+    return found
+
+
 def e_phase_checks(run, tag, heads, build):
     """E's phases on a call's heads (the dicts of gru_decode_bwd, with their
     forward's probs, h sequences and incoming grads) through ``build``, each
@@ -1464,7 +1629,7 @@ def phase_wide_kernels():
     results = {k: {} for k in ("gru_layer_xp_fwd", "gru_layer_xp_bwd", "gru_decode_train_wide",
                                "gru_decode_bwd_wide", "grad_reduce_wide", "xp_h256_fwd",
                                "xp_h256_bwd", "gru_layer_512", "gru_decode_512",
-                               *(f"{k}_wide" for k in E_PHASES))}
+                               *(f"{k}_wide" for k in E_PHASES), *G_PHASES)}
 
     def plain_u(hprev, rh, da):
         n, H = hprev.shape[0] * hprev.shape[1], hprev.shape[-1]
@@ -1490,9 +1655,15 @@ def phase_wide_kernels():
         # dxp, dh0, da_cat (dxp itself in float32): gradients; r*h a forward value
         out = run(f"G {tag} rs={rs}", lambda: gl.gru_layer_xp_bwd(*args)[1:],
                   lambda: gl.gru_layer_xp_bwd_reference(*args)[1:], [rel, rel, H_ATOL],
-                  flops=4 * T * rows * u.numel(), inputs=args)
+                  **g_work(xp, u), inputs=[t for t in args if t is not None])
         if bwd_key:
             results[bwd_key][tag] = out
+        # G's phases; the per-block route beside them on notes L1 (timed at H = 512)
+        main_path = bwd_key == "gru_layer_xp_bwd"
+        for phase, res in g_phase_checks(run if main_path else check, f"{tag} rs={rs}", args,
+                                         block=tag == "notes_l1").items():
+            if main_path:
+                results[phase][tag] = res
         _dxp, _dh0, da, rh = gl.gru_layer_xp_bwd_reference(*args)
         hprev = torch.cat([h0[None], seq[:-1]])
         n = T * rows
@@ -1570,9 +1741,50 @@ def phase_wide_kernels():
                               lambda a=sargs: gd.gru_decode_reference(*a), [H_ATOL, LOGITS_ATOL])
                     if timed:
                         results["gru_decode_512"][name] = out
+    g_block_widths()
     print(f"[wide kernels] F, G, the wide D and E, W, A and B at H = 512 and F, G at H = 256 also "
           f"agree at B = {RAGGED}")
     return results
+
+
+def g_block_widths():
+    """G's per-block route where the route chooser sends it (H = 96: C's
+    chain takes H a multiple of 64), float32 and bf16, the sequence's grad
+    and the final h's, against the plain version; and that the route ran
+    (G's per-block counter moved, its chain's did not)."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import _layout
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(96)
+    H, T = 96, 16
+    assert _layout.gru_xp_bwd_route(H) == _layout.gru_xp_bwd_route(H, True) == "block"
+    for dt in (torch.float32, torch.bfloat16):
+        before = {fn: (fn.launches, fn.launches_bf16)
+                  for fn in (gl.gru_layer_xp_bwd_block, gl.gru_layer_xp_bwd_chain)}
+        lim = BF16_OUT if dt == torch.bfloat16 else rel
+        for rows in (16, RAGGED):
+            for rs in (True, False):
+                randn = lambda *s_: torch.randn(*s_, generator=gen, device=dev)  # noqa: E731
+                xp = randn(T, rows, 3 * H).to(dt)
+                h0 = torch.tanh(randn(rows, H)).to(dt)
+                u = (randn(H, 3 * H) / H ** 0.5).to(dt)
+                seq = gl.gru_layer_xp_reference(xp, h0, u)
+                g = randn(*(seq.shape if rs else seq.shape[1:])).to(dt)
+                args = (xp, seq, h0, g if rs else None, None if rs else g, u)
+                check(f"G per-block route H={H} {dt} B={rows} rs={rs}",
+                      lambda a=args: gl.gru_layer_xp_bwd(*a),
+                      lambda a=args: gl.gru_layer_xp_bwd_reference(*a),
+                      [lim, lim, rel, H_ATOL])
+        after = {fn: (fn.launches, fn.launches_bf16) for fn in before}
+        i = int(dt == torch.bfloat16)
+        if (after[gl.gru_layer_xp_bwd_block][i] - before[gl.gru_layer_xp_bwd_block][i] != 4
+                or after[gl.gru_layer_xp_bwd_chain] != before[gl.gru_layer_xp_bwd_chain]):
+            raise RuntimeError(f"G at H = {H} ({dt}) did not take its per-block route alone")
+    print(f"[wide kernels] G's per-block route at H = {H} (f32, bf16) agrees with its plain "
+          "version")
 
 
 def cudnn_lstm(x, p, h0, c0):
@@ -2113,12 +2325,28 @@ def bwd_phases(want, dx=1, e_layers=(0, 0)):
     return out
 
 
+def xp_phases(want):
+    """``want`` with the phases of kernels X and G: at the paths' widths (H =
+    256, 512) every launch of X (``gru_encoder_scan``) is its chain's, and
+    each call of G (``gru_layer_xp_bwd``, per build) runs its xp gate
+    pre-pass (two launches: P1, P2) and its chain (C's) once; their
+    per-block routes none."""
+    out = dict(want)
+    if want.get("gru_encoder_scan"):
+        out["gru_encoder_scan_chain"] = want["gru_encoder_scan"]
+    for sfx in ("", "_bf16"):
+        n = want.get(f"gru_layer_xp_bwd{sfx}", 0)
+        if n:
+            out.update({f"gru_layer_xp_bwd_gates{sfx}": 2 * n, f"gru_layer_xp_bwd_chain{sfx}": n})
+    return out
+
+
 # the bf16 GRU(512) at B = 128 runs its notes layer 2 through X and G: its C
 # layers (notes layer 1, the branches) all take the batch
 for _key, _table in (*PER_TRAIN_STEP.items(), *PER_EVAL_BATCH.items(),
                      *PER_ENCODE_BATCH.items(), *PER_SONG_TRANSFER.items(), ("tf", PER_TF_STEP)):
-    _table.update(bwd_phases(fwd_phases(_table), dx=0 if _key == "bf16_128_512" else 1,
-                             e_layers=E_LAYERS.get(_key, (0, 0))))
+    _table.update(xp_phases(bwd_phases(fwd_phases(_table), dx=0 if _key == "bf16_128_512" else 1,
+                                       e_layers=E_LAYERS.get(_key, (0, 0)))))
 
 
 # the counters of N's and R's phases (one launch each per op call; dx where
@@ -2131,6 +2359,8 @@ A_PHASES = ("gru_layer_xproj", "gru_layer_fwd_chain", "gru_layer_block")
 # C's and E's: the gate pre-pass, the chain and C's dx pass
 C_PHASES = ("gru_layer_bwd_gates", "gru_layer_bwd_chain", "gru_layer_bwd_dx")
 E_PHASES = ("gru_decode_bwd_gates", "gru_decode_bwd_chain")
+# G's: the xp gate pre-pass, the chain (C's) and the per-block route
+G_PHASES = ("gru_layer_xp_bwd_gates", "gru_layer_xp_bwd_chain", "gru_layer_xp_bwd_block")
 
 
 def route_key(cfg, route):
@@ -2142,7 +2372,8 @@ def kernel_counters():
     """Kernel name -> (wrapper, its counter attribute): ``launches``, or
     ``launches_bf16`` for the bf16 builds of T, S, A, C, D, E, G, the wide D
     and E, W, L, N, Q and R, ``launches_resid`` for D's and E's
-    bf16-residual builds, ``launches_row8_bf16`` for E wide's row-8 build."""
+    bf16-residual builds, ``launches_row8_bf16`` for E wide's row-8 build,
+    ``launches_chain`` and ``launches_block`` for X's two routes."""
     from midi_vae_tpu_torch.ops import encoder_scan as es
     from midi_vae_tpu_torch.ops import encoder_stack as est
     from midi_vae_tpu_torch.ops import gru_decode as gd
@@ -2171,6 +2402,7 @@ def kernel_counters():
            **{name: getattr(gl, name) for name in A_PHASES},
            **{name: getattr(gl, name) for name in C_PHASES},
            **{name: getattr(gd, name) for name in E_PHASES},
+           **{name: getattr(gl, name) for name in G_PHASES},
            "lstm_step_xp": ls.lstm_recurrent_step_fwd, "gru_step": gs.gru_cell_step_fwd,
            "gru_step_xp": gs.gru_recurrent_step_fwd,
            "gru_encoder_scan": es.gru_encoder_scan_fwd,
@@ -2182,8 +2414,11 @@ def kernel_counters():
                  "gru_decode_bwd", "grad_reduce", "gru_layer_xp_bwd", "gru_decode_train_wide",
                  "gru_decode_bwd_wide", "lstm_layer_bwd", "lstm_layer_xp_fwd",
                  "lstm_layer_xp_bwd", *BPTT_PHASES, *L_PHASES, *A_PHASES, *C_PHASES,
-                 *E_PHASES):
+                 *E_PHASES, *G_PHASES):
         counters[f"{name}_bf16"] = (counters[name][0], "launches_bf16")
+    # X's chain and its per-block route (``launches``: either)
+    counters["gru_encoder_scan_chain"] = (es.gru_encoder_scan_fwd, "launches_chain")
+    counters["gru_encoder_scan_block"] = (es.gru_encoder_scan_fwd, "launches_block")
     counters["gru_decode_chain"] = (gd.gru_decode, "launches_chain")
     counters["gru_decode_train_resid"] = (gd.gru_decode_fwd_train, "launches_resid")
     counters["gru_decode_bwd_resid"] = (gd.gru_decode_bwd, "launches_resid")
@@ -3319,7 +3554,8 @@ def phase_bf16_kernels():
     gen = torch.Generator(device=dev).manual_seed(6)
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
     results = {k: {} for k in ("gru_encoder_scan", "gru_encoder_scan_row27", "lstm_encoder_scan",
-                               "lstm_encoder_scan_512", "gru_step_bf16", "lstm_step_bf16")}
+                               "lstm_encoder_scan_512", "gru_step_bf16", "lstm_step_bf16",
+                               "gru_encoder_scan_block")}
 
     def grads(tag, fn, plain, args):
         leaves = [t.detach().clone().requires_grad_() for t in args]
@@ -3388,13 +3624,20 @@ def phase_bf16_kernels():
                     lib = cudnn_lstm_layer(xp, {"u": u}, states[0], states[1], xp=True)[0]
                 except RuntimeError as err:
                     print(f"[bf16 kernels] cuDNN's LSTM refused bf16 ({err}): no library time")
+            # Y: its products on the tensor cores at the bf16 rate; X: x_work
+            work = (x_work(xp.shape[0], rows, cfg.lstm_size) if not lstm else
+                    {"flops": 2 * xp.shape[0] * rows * u.numel(), "peak": PEAK_BF16_FLOPS})
             if timed:
                 results[key][name] = compare(
-                    tag, lambda a=args: fwd(*a), lambda a=args: plain(*a), [BF16],
-                    flops=2 * xp.shape[0] * rows * u.numel(), inputs=args[:-2], library_fn=lib,
-                    peak=PEAK_BF16_FLOPS)
+                    tag, lambda a=args: fwd(*a), lambda a=args: plain(*a), [BF16], **work,
+                    inputs=args[:-2], library_fn=lib)
                 if name == "notes_l1":
                     results[key][name]["controls_rel_l2"] = controls(tag, args)
+                if name == "notes_l1" and key == "gru_encoder_scan":
+                    # X's per-block route (its first design, the parent's) beside it
+                    results["gru_encoder_scan_block"][name] = compare(
+                        f"X per-block route {tag}", lambda a=args: es.gru_encoder_scan_block(*a),
+                        lambda a=args: plain(*a), [BF16], **work, inputs=args[:-2])
             else:
                 check(f"{tag} B={rows}", lambda a=args: fwd(*a), lambda a=args: plain(*a),
                       [limits])
@@ -3530,10 +3773,50 @@ def phase_bf16_kernels():
         for activation in ("sigmoid", "relu"):
             scans("lstm_encoder_scan", "Y", cfg, B, 21, ("notes_l1", "notes_l2"), timed=False,
                   activation=activation, limits=BF16_OUT)
+    x_block_widths()
     print(f"[bf16 kernels] X, Y, T bf16 and S bf16 agree with their plain bf16 versions at "
           f"B = {B} and {RAGGED}, X at (64, 512, 512), Y at LSTM(512), at B = {2 * B} and with "
           f"sigmoid and relu cells; the remat backward too")
     return results
+
+
+def x_block_widths():
+    """X's chain with the other cell activations at B = 256 and row 27's B =
+    512 (H = 256 and 512), and X's per-block route where the route chooser
+    sends it (H = 160: A's bf16 chain takes H / C a multiple of 32 within
+    half a block's shared memory), the sequence and the final h, tanh,
+    sigmoid and relu, against the plain version; and that each ran on its
+    route (X's counters)."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import _layout
+    from midi_vae_tpu_torch.ops import encoder_scan as es
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(160)
+    fn = es.gru_encoder_scan_fwd
+    for H, rows_all, route in ((160, (16, RAGGED), "block"), (256, (B,), "chain"),
+                               (512, (2 * B,), "chain")):
+        assert _layout.gru_scan_route(H) == route
+        before = (fn.launches_chain, fn.launches_block)
+        n = 0
+        for rows in rows_all:
+            for act in ("tanh", "sigmoid", "relu"):
+                for rs in (True, False):
+                    randn = lambda *s_: torch.randn(*s_, generator=gen, device=dev)  # noqa: E731
+                    xp = (0.5 * randn(16, rows, 3 * H)).to(bf)
+                    h0 = torch.zeros(rows, H, device=dev, dtype=bf)
+                    u = (randn(H, 3 * H) / H ** 0.5).to(bf)
+                    args = (xp, h0, u, act, rs)
+                    check(f"X {route} H={H} B={rows} {act} rs={rs}", lambda a=args: fn(*a),
+                          lambda a=args: es.gru_encoder_scan_reference(*a), [BF16_OUT])
+                    n += 1
+        got = (fn.launches_chain - before[0], fn.launches_block - before[1])
+        if got != ((n, 0) if route == "chain" else (0, n)):
+            raise RuntimeError(f"X at H = {H} took its routes {got} times (chain, block), "
+                               f"expected {n} on its {route}")
+    print("[bf16 kernels] X's per-block route at H = 160 and its chain with every cell "
+          "activation agree with their plain versions")
 
 
 def flat_outputs(outs):
@@ -4269,7 +4552,7 @@ def phase_bf16_wide_kernels():
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
     keys = ("gru_encoder_scan_wide_bf16", "gru_layer_xp_bwd_bf16", "grad_reduce_wide_bf16",
             "gru_decode_train_wide_bf16", "gru_decode_bwd_wide_bf16",
-            *(f"{k}_wide_bf16" for k in E_PHASES))
+            *(f"{k}_wide_bf16" for k in E_PHASES), *(f"{k}_bf16" for k in G_PHASES))
     results = {k: {} for k in keys}
     found = {}
 
@@ -4331,8 +4614,7 @@ def phase_bf16_wide_kernels():
             out = run(f"X bf16 (row 9) {name} xp{tuple(xp.shape)}",
                       lambda a=fargs: gl.gru_layer_xp(*a),
                       lambda a=fargs: gl.gru_layer_xp_reference(*a), [BF16],
-                      flops=4 * T * rows * H * H, flops_f32=2 * T * rows * H * H, inputs=fargs,
-                      peak=PEAK_BF16_FLOPS)
+                      **x_work(T, rows, H), inputs=fargs)
             if timed:
                 results["gru_encoder_scan_wide_bf16"][name] = out
             with torch.no_grad():
@@ -4340,14 +4622,20 @@ def phase_bf16_wide_kernels():
             g = cot(seq.shape if rs else seq.shape[1:])
             gargs = (xp, seq, h0, g if rs else None, None if rs else g, u)
             # dxp, dh0 (bf16 grads), da_cat (float32 grads), r*h (a float32
-            # value); the recompute's h @ U[:, :2H] is the one bf16 x bf16
-            # product, the other three read the float32 r * h or gate grads
+            # value); the pre-pass's hprev @ U[:, :2H] is one bf16 product,
+            # (r * h) @ U[:, 2H:] two (r * h split), the chain's da @ U^T
+            # three (da split): g_work
             out = run(f"G bf16 {name} rs={rs}", lambda a=gargs: gl.gru_layer_xp_bwd(*a),
                       lambda a=gargs: gl.gru_layer_xp_bwd_reference(*a),
-                      [BF16_OUT, BF16_OUT, rel, H_ATOL], flops=4 * T * rows * H * H,
-                      flops_f32=8 * T * rows * H * H, inputs=gargs, peak=PEAK_BF16_FLOPS)
+                      [BF16_OUT, BF16_OUT, rel, H_ATOL], **g_work(xp, u),
+                      inputs=[t for t in gargs if t is not None])
             if timed:
                 results["gru_layer_xp_bwd_bf16"][name] = out
+            # G bf16's phases; its per-block route beside them on notes L1
+            for phase, res in g_phase_checks(run, f"{name} rs={rs}", gargs,
+                                             block=timed and name == "notes_l1").items():
+                if timed:
+                    results[phase][name] = res
             dxp, dh0_plain, da, rh = gl.gru_layer_xp_bwd_reference(*gargs)
             # dU's operand: G's gate grads unrounded, in float32
             err = rel_l2(gl.gru_layer_xp_bwd(*gargs)[2], da)
@@ -4485,9 +4773,29 @@ def phase_bf16_wide_kernels():
             want = plain_decode_vjp(head, head["g_probs"], head["g_logits"], wide=True)
             check(f"D+E+W wide bf16 grads {name} B={rows}", lambda: got, lambda: want,
                   [BF16_GRAD_OP] * len(want))
+    # X and G bf16 (and G's phases) at B = 128, the bf16 GRU(512)'s batch
+    # there (notes L2: rows 9 and 10)
+    rows = 128
+    batch = {k: torch.as_tensor(v, device=dev).to(bf) for k, v in random_batch(cfg, rows, 34).items()}
+    h0 = torch.zeros(rows, H, device=dev, dtype=bf)
+    with torch.no_grad():
+        x1, (p1, p2) = tm(batch["X"]), enc["notes_rnn"]
+        T1 = x1.shape[0]
+        seq = gl.gru_layer_xp_reference(
+            (x1.reshape(T1 * rows, -1) @ p1["w"] + p1["b"]).reshape(T1, rows, 3 * H), h0, p1["u"])
+        xp = (seq.reshape(T1 * rows, H) @ p2["w"] + p2["b"]).reshape(T1, rows, 3 * H)
+        u = p2["u"].detach()
+        seq2 = gl.gru_layer_xp_reference(xp, h0, u)
+    check(f"X bf16 (row 9) notes_l2 B={rows}", lambda: gl.gru_layer_xp(xp, h0, u),
+          lambda: gl.gru_layer_xp_reference(xp, h0, u), [BF16])
+    gargs = (xp, seq2, h0, None, cot(seq2.shape[1:]), u)
+    check(f"G bf16 notes_l2 B={rows}", lambda: gl.gru_layer_xp_bwd(*gargs),
+          lambda: gl.gru_layer_xp_bwd_reference(*gargs), [BF16_OUT, BF16_OUT, rel, H_ATOL])
+    g_phase_checks(check, f"notes_l2 B={rows}", gargs)
     check_wide_controls(found)
     print(f"[bf16 wide kernels] X, G, the wide D and E in bf16 and W agree with their plain "
-          f"versions at B = {B} and {RAGGED}; the autograd ops' gradients with the plain backward")
+          f"versions at B = {B}, 128 (X, G) and {RAGGED}; the autograd ops' gradients with the "
+          "plain backward")
     return results
 
 
@@ -5291,14 +5599,22 @@ def phase_gru_3layer_serving(work, smi):
 
 def kernel_registers(registers, letter):
     """ptxas's registers and spills of kernel ``letter``'s build; for N's,
-    R's, L's and A's ops those of each of their phases (L's and A's
-    per-block routes are builds "L" and "A" of the route chooser)."""
+    R's, L's, A's and G's ops those of each of their phases (the per-block
+    routes of L, A, X and G are builds "L", "A", "X" and "G" of the route
+    chooser)."""
     key = letter.replace(" ", "_")
-    aliases = {"L_block": "L", "L_block_bf16": "L_bf16", "A_block": "A", "A_block_bf16": "A_bf16"}
+    aliases = {"L_block": "L", "L_block_bf16": "L_bf16", "A_block": "A", "A_block_bf16": "A_bf16",
+               "X_block": "X", "G_block": "G", "G_block_bf16": "G_bf16"}
     if key in aliases:
         return registers[aliases[key]]
-    if key == "B":  # its decode chain and its per-block route
-        return {"chain": registers["B_chain"], "block": registers["B"]}
+    if key in ("B", "X"):  # the chain and the per-block route
+        return {"chain": registers[f"{key}_chain"], "block": registers[key]}
+    if key in ("G", "G_bf16"):  # the xp gate pre-pass, the chain, the per-block route
+        sfx = key[1:]
+        return {**{p: registers[f"G_{p}{sfx}"] for p in ("gates", "gates_p2", "chain")},
+                "block": registers[key]}
+    if key.startswith("G_") and key.split("_")[1] in ("gates", "chain"):
+        return registers[key]
     # C's and E's builds run their phases' instances (E wide, E resid: the
     # float chain; E wide row8: the bf16 chain with the streams unrounded)
     gru_bwd = {"C": ("C", ""), "C_bf16": ("C", "_bf16"), "E": ("E", ""), "E_wide": ("E", ""),
@@ -5332,6 +5648,7 @@ def main() -> int:
 
     use_exact_f32()
     registers = phase_build()
+    a_c_bits = phase_a_c_bits()
     w_checks = phase_grad_reduce_checks()
     results = phase_kernels()
     paths = {}
@@ -5521,6 +5838,15 @@ def main() -> int:
         # rows 12 and 10: _bwd_wide_kernel and _bwd_kernel
         "gru_layer_xp_bwd": ("G", "gru_layer_xp_bwd.cu", "fused_train.py:1720",
                              ["fused_train.py:1772", "fused_train.py:120", "fused_train.py:177"]),
+        # G's phases, each a part of those TPU kernels (in a bf16 model of
+        # _bwd_kernel): the xp gate pre-pass, the chain (C's, in G's
+        # library); and its per-block route, which no path at H <= 512 takes
+        **{f"gru_layer_xp_bwd_{phase}{sfx}": (
+            f"G {phase}{' bf16' if sfx else ''}", "gru_layer_xp_bwd.cu",
+            "fused_train.py:120" if sfx else "fused_train.py:1720",
+            ["fused_train.py:177"] if sfx else ["fused_train.py:1772", "fused_train.py:120",
+                                                "fused_train.py:177"])
+           for phase in ("gates", "chain", "block") for sfx in ("", "_bf16")},
         # row 13: _dec_fwd1/2_kernel through _dec_fwd_wide_pallas
         "gru_decode_train_wide": ("D wide", "gru_decode_train.cu", "fused_train.py:1010",
                                   ["fused_train.py:431", "fused_train.py:393"]),
@@ -5560,6 +5886,10 @@ def main() -> int:
         "gru_encoder_scan": ("X", "gru_encoder_scan.cu", "fused_decoder.py:288",
                              ["fused_decoder.py:347", "fused_decoder.py:416",
                               "fused_train.py:68", "fused_train.py:92"]),
+        # X's per-block route, which no path at H = 256 or 512 takes (X's
+        # launches there are its chain's)
+        "gru_encoder_scan_block": ("X block", "gru_encoder_scan.cu", "fused_decoder.py:288",
+                                   ["fused_decoder.py:347", "fused_decoder.py:416"]),
         # rows 32 and 33: the LSTM's _encoder_kernel through its two wrappers
         "lstm_encoder_scan": ("Y", "lstm_encoder_scan.cu", "fused_lstm.py:228",
                               ["fused_lstm.py:302", "fused_lstm.py:343"]),
@@ -5737,7 +6067,7 @@ def main() -> int:
                       "train_step_bf16": bf16_steps, "train_step_residual": residual_steps,
                       "lstm_fwd_bwd_vs_cudnn": results["lstm_fwd_bwd_vs_cudnn"],
                       "encoder_stack_vs_per_layer": results["encoder_route"],
-                      "grad_reduce_checks": w_checks, "power": smi,
+                      "grad_reduce_checks": w_checks, "a_c_digests": a_c_bits, "power": smi,
                       "wall_s": wall_s, "phase_seconds": PHASE_SECONDS}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

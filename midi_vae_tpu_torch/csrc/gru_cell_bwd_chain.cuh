@@ -605,20 +605,22 @@ struct BwdCta {
 
 // One layer's reverse step at time t for the CTA's pairs (E1, S1, R1, S2,
 // R2 of the note). gates (T, B, 3H), hprev (T, B, H); dacat (T, B, 3H)
-// float gets the gate grads rounded as TG; dh: the pairs' carries (d_seq
-// added by the caller), replaced by dh_{t-1}. Segments s0 (S1), s0 + 1 ..
+// float gets the gate grads rounded as TG, and with kDxp dxp (T, B, 3H)
+// the same grads rounded once to TV (kernel G's bf16 build: its dxp, from
+// the same stores); dh: the pairs' carries (d_seq added by the caller),
+// replaced by dh_{t-1}. Segments s0 (S1), s0 + 1 ..
 // s0 + nseg2 (S2, pw2 columns). kDxOwn: the own units' columns [H, 2H) of
 // S2 summed into dx_own (E's layer 2 into layer 1's dh); kDxFed: columns
 // [H, H + D) of S2 summed whole for the cluster's rows into dxf_s (rows, D)
 // (E's layer 1: the fed-back probs).
-template <typename TV, typename TG, bool kDxOwn, bool kDxFed>
+template <typename TV, typename TG, bool kDxOwn, bool kDxFed, bool kDxp = false>
 __device__ __forceinline__ void gru_layer_bwd_step(BwdCta<TV>& x, const float* __restrict__ gates,
                                                    const TV* __restrict__ hprev,
                                                    float* __restrict__ dacat, int t, int s0,
                                                    int nseg2, int pw2,
                                                    float (&dh)[kBwdMaxPairs],
                                                    float (&dx_own)[kBwdMaxPairs], float* dxf_s,
-                                                   int D) {
+                                                   int D, TV* __restrict__ dxp = nullptr) {
   const int H = x.H, Hc = x.Hc, c = x.c, G3 = 3 * H, DS = x.DS, npairs = x.npairs();
   const int real = x.real_rows();
   // what R1 needs of E1, per pair: r and h r (1 - r); dh is replaced by
@@ -643,6 +645,10 @@ __device__ __forceinline__ void gru_layer_bwd_step(BwdCta<TV>& x, const float* _
       dh[i] *= z;
       dacat[o] = round_as<TG>(da_z);
       dacat[o + 2 * H] = round_as<TG>(da);
+      if constexpr (kDxp) {
+        dxp[o] = from_f32<TV>(da_z);
+        dxp[o + 2 * H] = from_f32<TV>(da);
+      }
     }
     x.da_s[r * DS + u] = da_z;
     x.da_s[r * DS + 2 * Hc + u] = da;
@@ -659,7 +665,11 @@ __device__ __forceinline__ void gru_layer_bwd_step(BwdCta<TV>& x, const float* _
     const float drh = peer_sum(part, (size_t)r * H + c * Hc + u, x.C);
     const float da_r = drh * hr[i];
     x.da_s[r * DS + Hc + u] = da_r;
-    if (r < real) dacat[((size_t)t * x.B + row) * G3 + H + c * Hc + u] = round_as<TG>(da_r);
+    if (r < real) {
+      const size_t o = ((size_t)t * x.B + row) * G3 + H + c * Hc + u;
+      dacat[o] = round_as<TG>(da_r);
+      if constexpr (kDxp) dxp[o] = from_f32<TV>(da_r);
+    }
     dh[i] += drh * rv[i];
   }
   x.end_stage();
@@ -730,13 +740,15 @@ struct GruBwdChainArgs {
   float* dacat;        // (T, B, 3H)
   TV* dh0;             // (B, H)
   int T, B, H, rows, nbuf, stages;
+  TV* dxp = nullptr;   // (T, B, 3H): kernel G's bf16 instance (kDxp) alone
 };
 
 // chunks of a step: U_h^T's Hc rows, then U_zr^T's 2 Hc
 __host__ __device__ constexpr int layer_chunks(int Hc) { return 3 * Hc / kBwdChunk; }
 
-// Grid: clusters * C CTAs of kChainThreads, cluster dims (C, 1, 1).
-template <typename TV>
+// Grid: clusters * C CTAs of kChainThreads, cluster dims (C, 1, 1). kDxp:
+// also a.dxp, the gate grads rounded once to TV (kernel G's bf16 build).
+template <typename TV, bool kDxp = false>
 __global__ void __launch_bounds__(kChainThreads, 1) gru_bwd_chain_kernel(
     const GruBwdChainArgs<TV> a) {
   extern __shared__ __align__(16) unsigned char gru_bwd_smem[];
@@ -791,8 +803,8 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_bwd_chain_kernel(
         if (p < a.rows * Hc && row < a.B) dh[i] += to_f32(a.d_seq[((size_t)t * a.B + row) * H + unit]);
       }
     }
-    gru_layer_bwd_step<TV, float, false, false>(x, a.gates, a.hprev, a.dacat, t, 0, 1, H, dh, dh,
-                                                nullptr, 0);
+    gru_layer_bwd_step<TV, float, false, false, kDxp>(x, a.gates, a.hprev, a.dacat, t, 0, 1, H,
+                                                      dh, dh, nullptr, 0, a.dxp);
   }
   x.finish();
 #pragma unroll
@@ -821,17 +833,18 @@ int launch_cluster_kernel(Kernel kernel, const Args& a, int grid, int cluster, s
 
 // C's chain at the plan of ops/_layout.py::gru_bptt_plan (cluster size,
 // rows a cluster, partial buffers, ring slots); cudaErrorInvalidValue for a
-// plan the build does not run.
-template <typename TV>
+// plan the build does not run. kDxp: the instance that also emits a.dxp.
+template <typename TV, bool kDxp = false>
 int launch_gru_bwd_chain(const GruBwdChainArgs<TV>& a, int cluster, void* stream) {
-  if (a.T < 1 || a.B < 1 ||
+  if (a.T < 1 || a.B < 1 || (kDxp && a.dxp == nullptr) ||
       !chain_ok(a.H, cluster, a.rows, a.H, a.nbuf, a.stages, layer_chunks(a.H / cluster),
                 std::is_same_v<TV, bf16>)) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = gru_bptt_smem(a.H, cluster, a.rows, (size_t)a.rows * a.H, a.nbuf, a.stages,
                                     sizeof(TV), 0);
-  return launch_cluster_kernel(gru_bwd_chain_kernel<TV>, a, (a.B + a.rows - 1) / a.rows * cluster,
+  return launch_cluster_kernel(gru_bwd_chain_kernel<TV, kDxp>, a,
+                               (a.B + a.rows - 1) / a.rows * cluster,
                                cluster, smem, stream);
 }
 

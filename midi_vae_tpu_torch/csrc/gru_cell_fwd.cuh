@@ -49,7 +49,10 @@
 // runs on mma.sync with float accumulators over a bf16 h tile; r h is
 // float, so P2 stays FFMA over the bf16 candidate slice, widened as it is
 // read: both are _dot's products on the exact operands, summed in float in
-// another order). The slice is resident where it takes at most half of a
+// another order). The bf16 build reads a float32 xp (A's pre-pass) or, in
+// its bf16-xp instance (kernel X, gru_encoder_scan.cu: the model's own bf16
+// x @ W + b), a bf16 xp widened as it is added; the rest of the step is the
+// same. The slice is resident where it takes at most half of a
 // block's shared memory (float at H = 256: 96 KiB in clusters of 8; bf16 at
 // 256: 96 KiB in clusters of 4, at 512 in clusters of 16); float at H = 512
 // (192 KiB in clusters of 16) streams it from L2 at every step, in chunks of
@@ -73,9 +76,9 @@ constexpr int kGruChunk = 32;
 // the most threads that share a tile's depth (a power of two)
 constexpr int kGruMaxSplits = 16;
 
-template <typename TV>
+template <typename TV, typename TX = float>
 struct GruFwdArgs {
-  const float* xp;  // (T, B, 3H), x @ W + b
+  const TX* xp;     // (T, B, 3H), x @ W + b: float32, or bf16 (X)
   const TV* h0;     // (B, H)
   const TV* u;      // (H, 3H)
   TV* hseq;         // (T, B, H) or null
@@ -369,10 +372,14 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_kernel(
 // into the r h tile and z into z's tile. P2 takes float r h, so it stays
 // FFMA over the candidate slice (bf16, widened), owned by tiles of 8 rows
 // as in the float build, which read z back from its tile.
+// TX: xp's type. A float xp's z and r go into xz by 8-byte copies, the
+// candidate into xs by 4-byte ones; a bf16 xp's z and r by 4-byte copies
+// into the same bytes of xz (read as bf16), its candidate (2 bytes, below
+// cp.async's least) loaded into registers and stored widened into xs.
 // Grid: clusters * C CTAs of kChainThreads, cluster dims (C, 1, 1).
-template <int ACT>
+template <int ACT, typename TX = float>
 __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_mma_kernel(
-    const GruFwdArgs<bf16> a) {
+    const GruFwdArgs<bf16, TX> a) {
   extern __shared__ __align__(16) unsigned char gru_smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
@@ -389,15 +396,16 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_mma_kernel(
   const bool owner = split == 0;
   // shared memory: the z and r slice (H, 2 Hc), swizzled | the candidate
   // slice (H, Hc) | the h tile (16 mts, HP) | the r h tile (H, R8) | z's
-  // tile (R8, Hc) | P1's xp of z and r (rows, XZ) | the partials (S - 1,
-  // ntiles, kTileStride) | the owners' candidate xp (ntiles, kTileStride)
+  // tile (R8, Hc) | P1's xp of z and r (rows, XZ floats; a bf16 xp's at
+  // the front of each row) | the partials (S - 1, ntiles, kTileStride) |
+  // the owners' candidate xp (ntiles, kTileStride)
   bf16* slice_zr = reinterpret_cast<bf16*>(gru_smem_raw);
   bf16* slice_h = slice_zr + (size_t)H * G2;
   bf16* htile = slice_h + (size_t)H * Hc;
   float* rhbuf = reinterpret_cast<float*>(htile + (size_t)16 * mts * HP);
   float* ztile = rhbuf + (size_t)H * R8;
-  float* xz = ztile + (size_t)R8 * Hc;
-  float* part = xz + (size_t)rows * XZ;
+  TX* xz = reinterpret_cast<TX*>(ztile + (size_t)R8 * Hc);
+  float* part = ztile + (size_t)R8 * Hc + (size_t)rows * XZ;
   float* xs = part + (size_t)(S - 1) * ntiles * kTileStride + (size_t)tile * kTileStride;
 
   copy_slice_u(a.u, slice_zr, H, Hc, c, 2, 3);
@@ -433,34 +441,47 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_mma_kernel(
   // copy), the candidate of its P2 rows into xs; one copy group, waited for
   // by itself
   auto load_xp = [&](int t) {
-    const float* xt = a.xp + (size_t)t * B * 3 * H;
+    const TX* xt = a.xp + (size_t)t * B * 3 * H;
 #pragma unroll
     for (int i = 0; i < kFwdMaxItems; ++i) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         if (!pair_ok(i, half)) continue;
         const int rl = pair_row(i, half), lu = pair_ul(i);
-        float* dst = xz + (size_t)rl * XZ + lu;
-        const float* x = xt + (size_t)(row0 + rl) * 3 * H + c * Hc + lu;
+        TX* dst = xz + (size_t)rl * XZ + lu;
+        const TX* x = xt + (size_t)(row0 + rl) * 3 * H + c * Hc + lu;
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           if (row0 + rl < B) {
-            cp_async8(dst + q * Hc, x + q * H);
+            if constexpr (std::is_same_v<TX, float>) {
+              cp_async8(dst + q * Hc, x + q * H);
+            } else {
+              cp_async4(dst + q * Hc, x + q * H);
+            }
           } else {
-            dst[q * Hc] = dst[q * Hc + 1] = 0.0f;
+            dst[q * Hc] = dst[q * Hc + 1] = from_f32<TX>(0.0f);
           }
         }
       }
     }
     if (owner) {
-      const float* x = xt + (size_t)(row0 + 8 * ro) * 3 * H + 2 * H + unit;
+      const TX* x = xt + (size_t)(row0 + 8 * ro) * 3 * H + 2 * H + unit;
+      if constexpr (std::is_same_v<TX, float>) {
 #pragma unroll 1
-      for (int r = 0; r < 8; ++r, x += 3 * H) {
-        if (live(r)) {
-          cp_async4(xs + r, x);
-        } else {
-          xs[r] = 0.0f;
+        for (int r = 0; r < 8; ++r, x += 3 * H) {
+          if (live(r)) {
+            cp_async4(xs + r, x);
+          } else {
+            xs[r] = 0.0f;
+          }
         }
+      } else {
+        // the 8 loads in flight together, then widened into xs
+        float v[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) v[r] = live(r) ? to_f32(x[(size_t)r * 3 * H]) : 0.0f;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) xs[r] = v[r];
       }
     }
     cp_async_commit();
@@ -524,9 +545,9 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_mma_kernel(
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int lu = pair_ul(i) + e;
-          const float* x = xz + (size_t)rl * XZ + lu;
-          const float z = activate<kSigmoid>(acc[i][0][2 * half + e] + x[0]);
-          const float r = activate<kSigmoid>(acc[i][1][2 * half + e] + x[Hc]);
+          const TX* x = xz + (size_t)rl * XZ + lu;
+          const float z = activate<kSigmoid>(acc[i][0][2 * half + e] + to_f32(x[0]));
+          const float r = activate<kSigmoid>(acc[i][1][2 * half + e] + to_f32(x[Hc]));
           const float hp = __bfloat162float(htile[(size_t)rl * HP + c * Hc + lu]);
           rhbuf[(size_t)(c * Hc + lu) * R8 + rl] = r * hp;
           ztile[(size_t)rl * Hc + lu] = z;
@@ -583,9 +604,9 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_mma_kernel(
   }
 }
 
-template <typename TV>
-int launch_gru_instance(void (*kernel)(GruFwdArgs<TV>), const GruFwdArgs<TV>& a, int cluster,
-                        size_t smem, void* stream) {
+template <typename Args>
+int launch_gru_instance(void (*kernel)(Args), const Args& a, int cluster, size_t smem,
+                        void* stream) {
   cudaError_t err = cluster_config(kernel, cluster, smem);
   if (err != cudaSuccess) return (int)err;
   ClusterLaunch l((a.B + a.rows - 1) / a.rows * cluster, cluster, smem, stream);
@@ -596,10 +617,12 @@ int launch_gru_instance(void (*kernel)(GruFwdArgs<TV>), const GruFwdArgs<TV>& a,
 
 // The chain of one layer at the plan of ops/_layout.py::gru_fwd_plan
 // (cluster size, rows a cluster, splits, streamed ring); cudaErrorInvalidValue
-// for a plan the build does not run.
-template <typename TV, int ACT>
-int launch_gru_fwd_chain(const GruFwdArgs<TV>& a, int cluster, void* stream) {
+// for a plan the build does not run. TX: xp's type (bf16 only in the bf16
+// build).
+template <typename TV, int ACT, typename TX = float>
+int launch_gru_fwd_chain(const GruFwdArgs<TV, TX>& a, int cluster, void* stream) {
   constexpr bool kMma = std::is_same_v<TV, bf16>;
+  static_assert(kMma || std::is_same_v<TX, float>, "the float32 build reads a float32 xp");
   // units a 16-byte copy of the slice takes; in bf16, 2 Hc / 8 chunks a
   // multiple of 8 for the swizzle
   constexpr int kUnits = kMma ? 32 : 4;
@@ -608,7 +631,7 @@ int launch_gru_fwd_chain(const GruFwdArgs<TV>& a, int cluster, void* stream) {
       a.rows < 1 || S < 1 || (S & (S - 1)) != 0 || S > kGruMaxSplits ||
       (a.hseq == nullptr) == (a.hlast == nullptr) ||
       (reinterpret_cast<size_t>(a.u) & 15) != 0 ||
-      (reinterpret_cast<size_t>(a.xp) & (kMma ? 7 : 3)) != 0) {
+      (reinterpret_cast<size_t>(a.xp) & (kMma ? 2 * sizeof(TX) - 1 : 3)) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int Hc = H / cluster, tiles = Hc * (round8(a.rows) / 8);
@@ -627,7 +650,7 @@ int launch_gru_fwd_chain(const GruFwdArgs<TV>& a, int cluster, void* stream) {
   const size_t smem = gru_chain_smem(H, cluster, a.rows, S, a.stages, sizeof(TV));
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   if constexpr (kMma) {
-    return launch_gru_instance(gru_fwd_chain_mma_kernel<ACT>, a, cluster, smem, stream);
+    return launch_gru_instance(gru_fwd_chain_mma_kernel<ACT, TX>, a, cluster, smem, stream);
   } else {
     return launch_gru_instance(a.stages != 0 ? gru_fwd_chain_kernel<ACT, TV, true>
                                              : gru_fwd_chain_kernel<ACT, TV, false>,
@@ -636,15 +659,16 @@ int launch_gru_fwd_chain(const GruFwdArgs<TV>& a, int cluster, void* stream) {
 }
 
 // cudaOccupancyMaxActiveClusters of the chain's build (the resident or the
-// streamed slice) at `cluster` CTAs a cluster (one CTA an SM)
-template <typename TV>
+// streamed slice; TX: the bf16 build's xp type) at `cluster` CTAs a cluster
+// (one CTA an SM)
+template <typename TV, typename TX = float>
 int gru_fwd_max_clusters(int cluster, int stream_slice, int* out) {
   if constexpr (std::is_same_v<TV, float>) {
     return stream_slice ? max_active_clusters(gru_fwd_chain_kernel<kTanh, TV, true>, cluster, out)
                         : max_active_clusters(gru_fwd_chain_kernel<kTanh, TV, false>, cluster, out);
   } else {
     if (stream_slice) return (int)cudaErrorInvalidValue;
-    return max_active_clusters(gru_fwd_chain_mma_kernel<kTanh>, cluster, out);
+    return max_active_clusters(gru_fwd_chain_mma_kernel<kTanh, TX>, cluster, out);
   }
 }
 

@@ -5,36 +5,51 @@
 // (:288), reached through _encoder_scan_pallas (:347, grid over T) and
 // _encoder_scan_wide_pallas (:416, the batch-tiled grid taken where
 // _encoder_vmem_ok fails: GRU(512) at B = 512) from fused_encoder_scan
-// (:457). The JAX package runs it only for bf16 training with
-// fused_train_encoder=False (models/vae.py:255-260, models/rnn.py:165-182);
-// its backward is no kernel: _fes_bwd (:492) recomputes the plain scan under
-// jax.vjp, and the port's autograd Function does the same
-// (ops/encoder_scan.py).
+// (:457). The JAX package runs it for bf16 training with
+// fused_train_encoder=False (models/vae.py:255-260, models/rnn.py:165-182),
+// and its _fwd_kernel in bf16 computes the same function (row 9 in a bf16
+// model, gru_layer_xp); its backward is no kernel: _fes_bwd (:492)
+// recomputes the plain scan under jax.vjp, and the port's autograd Function
+// does the same (ops/encoder_scan.py).
 //
 // Numerics, as the Pallas kernel's: xp, h0, U and the output are bf16; the
 // products h @ U and (r * h) @ U_h and the gate math run in float (r * h
 // stays float, which is what the Pallas dot promotes it to), and h is
 // rounded to bf16 after every step (h_s[:] = new_h.astype(h_s.dtype), :311).
-// Templated on the cell activation (tanh, sigmoid or relu: _activation) and
-// on whether the h sequence is emitted.
+// The cell activation is tanh, sigmoid or relu (_activation); the h
+// sequence or the final h is emitted.
 //
-// Design: kernel F (gru_layer_xp_fwd.cu) over bf16 operands. One block owns
-// kRows = 8 batch rows and loops over all T steps; h (bf16 values held in
-// float) and r * h of its rows live in shared memory; thread j reads its
-// three gates of xp[t] straight from global memory and adds h @ U from the
-// L2-resident U (1.5 MB in bf16 at H = 512). Both TPU grids (untiled and
-// batch-tiled) map to the same grid here: blocks tile the batch, and each
-// carries its rows' h through the whole sequence. Compiled under
-// __launch_bounds__(kWideThreads), so a block of up to 512 threads (H <= 512)
-// always has the registers it needs.
+// Design: kernel A's bf16 GRU chain on thread-block clusters
+// (gru_cell_fwd.cuh, gru_fwd_chain_mma_kernel) in its bf16-xp instance: a
+// cluster owns a group of batch rows for all T steps, its CTAs split the H
+// units and keep their slice of U in shared memory; a step is P1 (h . U_zr
+// on the tensor cores over the bf16 h tile, xp's z and r columns widened
+// in the epilogue), r * h pushed to every peer, one cluster barrier, P2
+// ((r h) . U_h, FFMA over the slice, xp's candidate widened), h_t pushed to
+// every peer, one cluster barrier. The plan (cluster size, rows, splits) is
+// X's own (ops/_layout.py::gru_fwd_plan("X_chain", ...): A bf16's rules at
+// the largest cluster that holds the slice), passed in by the wrapper
+// (ops/encoder_scan.py).
 //
-// What bounds it: the serial chain of T steps, each an L2 read of U by each
-// of the B/8 blocks (32 SMs work at B = 256, 64 at B = 512), not the
-// tensor-core rate that bounds the same work in bf16.
-#include "gru_common.cuh"
+// The per-block route (mvt_gru_encoder_scan_block, the first design: kernel
+// F over bf16 operands, one block of H threads per kRows = 8 batch rows, U
+// read from L2 at every step) runs the widths the chain does not take
+// (its CTA's slice of U needs H / C a multiple of 32 within half a block's
+// shared memory: H = 160, 224, 288, ...), as ops/_layout.py::
+// gru_scan_route picks before launch. It is compiled under
+// __launch_bounds__(kWideThreads), so a block of up to 512 threads (H <=
+// 512) always has the registers it needs.
+//
+// What bounds the chain: T serial steps of two dependent products of rows x
+// H x (2 Hc, Hc) a CTA and two cluster barriers.
+#include "gru_cell_fwd.cuh"
 
 namespace mvt {
 
+// The per-block route: one block owns kRows = 8 batch rows for all T steps,
+// h (bf16 values held in float) and r * h of its rows in shared memory;
+// thread j reads its three gates of xp[t] from global memory and adds h @ U
+// from the L2-resident U.
 template <int ACT, bool SEQ>
 __global__ void __launch_bounds__(kWideThreads) gru_encoder_scan_kernel(
     const bf16* __restrict__ xp, const bf16* __restrict__ h0,
@@ -87,12 +102,32 @@ cudaError_t launch_act(const bf16* xp, const bf16* h0, const bf16* u,
 
 }  // namespace mvt
 
-// xp (T, B, 3H), h0 (B, H), u (H, 3H), all bf16 and contiguous; out is
-// (T, B, H) with return_sequences, else (B, H).
+// The chain: xp (T, B, 3H), h0 (B, H), u (H, 3H), all bf16 and contiguous;
+// out is (T, B, H) with return_sequences, else (B, H). cluster, rows,
+// splits and stages are the plan of ops/_layout.py::gru_fwd_plan for build
+// "X_chain".
 extern "C" int mvt_gru_encoder_scan(const mvt::bf16* xp, const mvt::bf16* h0,
                                     const mvt::bf16* u, mvt::bf16* out, int T,
-                                    int B, int H, int act,
-                                    int return_sequences, void* stream) {
+                                    int B, int H, int act, int return_sequences,
+                                    int cluster, int rows, int splits, int stages,
+                                    void* stream) {
+  using namespace mvt;
+  const GruFwdArgs<bf16, bf16> a{xp, h0, u, return_sequences ? out : nullptr,
+                                 return_sequences ? nullptr : out, T, B, H,
+                                 rows, splits, stages};
+  switch (act) {
+    case kTanh: return launch_gru_fwd_chain<bf16, kTanh, bf16>(a, cluster, stream);
+    case kSigmoid: return launch_gru_fwd_chain<bf16, kSigmoid, bf16>(a, cluster, stream);
+    case kRelu: return launch_gru_fwd_chain<bf16, kRelu, bf16>(a, cluster, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The per-block route, the same operands: H a multiple of 32 up to 512.
+extern "C" int mvt_gru_encoder_scan_block(const mvt::bf16* xp, const mvt::bf16* h0,
+                                          const mvt::bf16* u, mvt::bf16* out, int T,
+                                          int B, int H, int act,
+                                          int return_sequences, void* stream) {
   using namespace mvt;
   if (T < 1 || B < 1 || H < 32 || H % 32 != 0) {
     return (int)cudaErrorInvalidValue;
@@ -101,6 +136,13 @@ extern "C" int mvt_gru_encoder_scan(const mvt::bf16* xp, const mvt::bf16* h0,
   return (int)(return_sequences
                    ? launch_act<true>(xp, h0, u, out, T, B, H, act, s)
                    : launch_act<false>(xp, h0, u, out, T, B, H, act, s));
+}
+
+// cudaOccupancyMaxActiveClusters of the chain (the bf16 build's bf16-xp
+// instance; bf16 must be 1) at `cluster` CTAs a cluster
+extern "C" int mvt_gru_encoder_scan_max_clusters(int bf16, int cluster, int* out) {
+  if (!bf16) return (int)cudaErrorInvalidValue;
+  return mvt::gru_fwd_max_clusters<mvt::bf16, mvt::bf16>(cluster, 0, out);
 }
 
 extern "C" const char* mvt_error_string(int code) {

@@ -1,8 +1,9 @@
 """Which kernel builds a layer or decode head takes, from the card's limits.
 
-Every kernel of the port but C, E, N, R, Q, Y, the chains of L and A, and
-S (GRU: B, D, F, G, T, T xp, X, A's per-block route, and the encoder
-stacks' U and V; LSTM: L's per-block route, M) runs one
+Every kernel of the port but C, E, N, R, Q, Y, the chains of L and A, S,
+and the chains of X and G (GRU: B, D, F, T, T xp, the per-block routes of
+A, X and G, and the encoder stacks' U and V; LSTM: L's per-block route, M)
+runs one
 thread per hidden column (blockDim.x = H) and keeps a tile of batch rows per
 block, so whether a build launches at a width is a matter of two limits of
 the H100 (sm_90a):
@@ -14,9 +15,10 @@ the H100 (sm_90a):
 Kernels A (its per-block route), B, D, L, M, U and V are built without
 launch bounds; their register
 counts (``REGISTERS``, from ``nvcc -Xptxas -v`` on the card; ``chip_smoke.py``
-checks them against the build) decide how wide they go. F, G, the
-per-step cells T and T xp, the GRU's bf16 whole-scan encoder X and
-the wide decode builds are compiled under ``__launch_bounds__(WIDE_THREADS)``,
+checks them against the build) decide how wide they go. F, the per-block
+routes of G and of the GRU's bf16 whole-scan encoder X, the per-step cells
+T and T xp and the wide decode builds are compiled under
+``__launch_bounds__(WIDE_THREADS)``,
 so the compiler guarantees that up to 512 threads launch (``chip_smoke.py``
 checks their registers from ptxas against it). N and R, the LSTM's backward
 through time, run as phases of fixed block sizes whatever H: a gate
@@ -31,7 +33,10 @@ is its plan (``fwd_plan``). L runs an x @ W pre-pass and then that chain
 (``lstm_fwd_route``). A runs the same pre-pass and then a GRU forward chain
 on clusters (builds ``A_chain``, ``A_chain_bf16``; ``gru_fwd_plan``); its
 per-block design (``A``, ``A_bf16``) is the route of widths that chain does
-not take (``gru_fwd_route``). C and E, the GRU's backward through time,
+not take (``gru_fwd_route``). X runs A's bf16 chain over its bf16 xp and
+G an xp gate pre-pass and C's chain (the section "Kernels X and G");
+their per-block designs are the routes of the widths those chains do not
+take (``gru_scan_route``, ``gru_xp_bwd_route``). C and E, the GRU's backward through time,
 run as a gate pre-pass and a chain on clusters (C also a dx pass; the
 section "The GRU's backward through time"); whether they launch is the
 chain's plan (``gru_bptt_plan``), the same for the narrow and the wide
@@ -119,7 +124,8 @@ WIDE_THREADS = 512  # kWideThreads: the launch bound of F, G and the wide D, E
 REGISTERS = {"A": 90, "B": 94, "D": 160, "L": 88, "M": 75,
              "U": 78, "V": 172, "A_bf16": 94, "D_bf16": 144,
              "L_bf16": 80, "D_resid": 160}
-# the builds compiled under __launch_bounds__(WIDE_THREADS)
+# the builds compiled under __launch_bounds__(WIDE_THREADS) (X, G and G_bf16:
+# their per-block routes; their chains are X_chain, G_chain, G_chain_bf16)
 BOUNDED = ("F", "G", "D_wide", "X", "G_bf16", "D_wide_bf16")
 # the widest LSTM whose encoder takes the narrow route (L + N; see above)
 LSTM_NARROW_MAX_H = 256
@@ -139,7 +145,9 @@ def smem_bytes(kernel: str, H: int, D: int = 0, n_layers: int = 1,
     cell's input width (T). The bf16 builds (X, those of A, B, D, G, the
     wide D, and T, and U's and V's) and D's bf16-residual build hold the
     tiles of the builds they are twins of, in float: a bf16 value is widened
-    as it is loaded. C and E run as phases (``gru_bptt_plan``: 0 here)."""
+    as it is loaded. C and E run as phases (``gru_bptt_plan``: 0 here); X
+    and G here are their per-block routes (their chains' plans:
+    ``gru_fwd_plan``, ``gru_bptt_plan``)."""
     if kernel in C_BUILDS or kernel in E_BUILDS or kernel in T_BUILDS:
         return 0
     kernel = kernel.removesuffix("_bf16").removesuffix("_resid")
@@ -537,7 +545,7 @@ def l_limit(H: int, D: int, bf16: bool = False) -> str | None:
 # route of its own, picked here before any launch.
 # ---------------------------------------------------------------------------
 
-GRU_FWD_BUILDS = ("A_chain", "A_chain_bf16")
+GRU_FWD_BUILDS = ("A_chain", "A_chain_bf16", "X_chain")
 GRU_CHUNK = 32        # kGruChunk: depth rows of a streamed chunk of the float32 slice
 GRU_MAX_SPLITS = 16   # kGruMaxSplits
 REGISTERS.update({"A_chain": 128, "A_chain_bf16": 128})
@@ -577,18 +585,21 @@ def gru_chain_smem(H: int, C: int, rows: int, splits: int, stages: int, elem: in
 def _gru_elem(build: str) -> int:
     if build not in GRU_FWD_BUILDS:
         raise ValueError(f"{build!r} is not one of {GRU_FWD_BUILDS}")
-    return 2 if build.endswith("_bf16") else 4
+    return 4 if build == "A_chain" else 2
 
 
 def gru_fwd_cluster(build: str, H: int) -> tuple[int, bool]:
     """(cluster size, whether the slice streams) of A's chain build at
-    width H; raises LaunchLimitError where no cluster holds it."""
+    width H: the smallest size whose slice fits half a block's shared
+    memory; X's build (``X_chain``: A bf16's chain over a bf16 xp) the
+    largest, which the H100 ran fastest at X's shapes. Raises
+    LaunchLimitError where no cluster holds it."""
     elem = _gru_elem(build)
     # the units a CTA takes: whole 16-byte copies of the slice (float32), or
     # in bf16 whole groups of 32 (the z and r slice's 2 Hc / 8 chunks a row,
     # swizzled over 8)
     units = 4 if elem == 4 else 32
-    for C in CLUSTER_SIZES:
+    for C in (CLUSTER_SIZES[::-1] if plan_rule(build).largest_cluster else CLUSTER_SIZES):
         if H % C == 0 and (H // C) % units == 0 and 3 * (H // C) * H * elem <= SMEM_PER_BLOCK // 2:
             return C, False
     if elem == 4 and H % 64 == 0 and gru_chain_smem(H, 16, 1, 1, 2, elem) <= SMEM_PER_BLOCK:
@@ -604,9 +615,20 @@ def gru_fwd_plan(build: str, H: int, B: int, max_clusters: int | None = None) ->
     (default: the H100's, ``MAX_CLUSTERS_H100``). Raises LaunchLimitError
     where the chain does not launch."""
     C, stream = gru_fwd_cluster(build, H)
+    return gru_fwd_plan_at(build, H, B, C, stream, max_clusters or MAX_CLUSTERS_H100[C],
+                           balanced=plan_rule(build).balanced_rows)
+
+
+def gru_fwd_plan_at(build: str, H: int, B: int, C: int, stream: bool, M: int,
+                    max_splits: int = GRU_MAX_SPLITS, balanced: bool = False) -> GruFwdPlan:
+    """``gru_fwd_plan`` at cluster size C (the slice streamed or not) with M
+    clusters active at once, its splits at most ``max_splits``: the rows a
+    cluster takes (ceil(B / M), bounded by what fits beside the slice; with
+    ``balanced``, X's rule, the fewest rows that keep the least number of
+    waves of M clusters, so that every wave is full), the most splits that
+    fit, the most ring slots."""
     elem = _gru_elem(build)
     Hc = H // C
-    M = max_clusters or MAX_CLUSTERS_H100[C]
     least = 2 if stream else 0  # the ring's fewest chunks
     # the most rows a cluster takes: one tile of 8 rows a thread of split 0
     # (bf16: each warp at most FWD_MAX_ITEMS (m-tile, 8 units) items of P1),
@@ -617,10 +639,12 @@ def gru_fwd_plan(build: str, H: int, B: int, max_clusters: int | None = None) ->
     while gru_chain_smem(H, C, most, 1, least, elem) > SMEM_PER_BLOCK:
         most -= 1
     rows = max(1, min(-(-B // M), most))
+    if balanced:
+        rows = max(1, -(-B // (M * -(-B // (M * rows)))))
     tiles = Hc * _round8(rows) // 8
     depth = GRU_CHUNK if stream else H  # what the splits share
     splits = 1
-    while (splits < GRU_MAX_SPLITS and tiles * 2 * splits <= CHAIN_THREADS
+    while (splits < max_splits and tiles * 2 * splits <= CHAIN_THREADS
            and depth % (2 * splits) == 0
            and gru_chain_smem(H, C, rows, 2 * splits, least, elem) <= SMEM_PER_BLOCK):
         splits *= 2
@@ -630,6 +654,31 @@ def gru_fwd_plan(build: str, H: int, B: int, max_clusters: int | None = None) ->
         stages += 1
     return GruFwdPlan(C, rows, -(-B // rows), splits, stages,
                       gru_chain_smem(H, C, rows, splits, stages, elem))
+
+
+def gru_fwd_plans(build: str, H: int, B: int, active=None) -> list[GruFwdPlan]:
+    """Every plan of the chain build ``build`` at (H, B) that a timing may
+    force: each cluster size whose resident slice fits a CTA (its units a
+    multiple of the build's: 32 in bf16, 4 in float32), with A's rows and
+    X's balanced ones, at each split count up to the most that fit;
+    ``active(C)`` the clusters of size C active at once (default: the
+    H100's)."""
+    elem = _gru_elem(build)
+    units = 4 if elem == 4 else 32
+    out = []
+    for C in CLUSTER_SIZES:
+        if H % C or (H // C) % units or 3 * (H // C) * H * elem > SMEM_PER_BLOCK // 2:
+            continue
+        M = (active or MAX_CLUSTERS_H100.__getitem__)(C)
+        for balanced in (False, True):
+            top = gru_fwd_plan_at(build, H, B, C, False, M, balanced=balanced)
+            s = 1
+            while s <= top.splits:
+                plan = gru_fwd_plan_at(build, H, B, C, False, M, s, balanced)
+                if plan not in out:
+                    out.append(plan)
+                s *= 2
+    return out
 
 
 def gru_fwd_limit(build: str, H: int) -> str | None:
@@ -660,6 +709,107 @@ def a_limit(H: int, D: int, bf16: bool = False) -> str | None:
     """Why kernel A launches on no route at (H, D), or None."""
     try:
         gru_fwd_route(H, D, bf16)
+    except LaunchLimitError as e:
+        return str(e)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Kernels X and G, the GRU layer over a given xp = x @ W + b (forward in bf16,
+# and its backward in float32 and bf16). X runs A's bf16 chain
+# (csrc/gru_cell_fwd.cuh) in its instance that reads a bf16 xp, G an xp gate
+# pre-pass on the tensor cores and then C's chain
+# (csrc/gru_cell_bwd_chain.cuh). Timed at X's and G's shapes on the H100
+# (tools/time_x_and_g.py; PERF.md, Findings), A bf16's plan lost
+# 14 % (B 5) and 40 % (B 1024) to the fastest at H = 256, and C's 42 % at
+# (bf16, H 256, B 1024), so each has a build of its own: ``X_chain`` takes
+# the largest cluster whose slice fits (clusters of 8 at H = 256, 16 at
+# 512), the fewest rows that keep its number of waves (so that no wave runs
+# a few clusters alone: at H 512, B 256 14 clusters of 19 rows took 2.05 ms
+# where 8 of 32 took 2.51) and the most depth splits, ``G_chain`` and
+# ``G_chain_bf16`` C's cost model among the cluster sizes of the fewest
+# waves (a wave is a whole serial chain of T steps); each pick within 10 %
+# of the fastest legal plan at every X and G shape
+# (tests/test_torch_gru_xp_chains.py holds it). Their first, per-block
+# designs ("X", "G", "G_bf16": ``BOUNDED``, ``smem_bytes``) are the routes of
+# the widths the chains do not take: X's chain needs H / C a multiple of 32
+# with a CTA's slice of U within half a block's shared memory (of the
+# multiples of 32 up to 512, H = 160, 224 and 288 to 480 take the per-block
+# route), G's H a multiple of 64 (H = 32, 96, 160, ... per block). The route
+# is picked from the shape before launch.
+# ---------------------------------------------------------------------------
+
+X_CHAIN_BUILD = "X_chain"
+G_CHAIN_BUILDS = {False: "G_chain", True: "G_chain_bf16"}
+
+
+class PlanRule(NamedTuple):
+    """How a chain build's plan departs from A's and C's rules:
+    ``largest_cluster``, the largest cluster whose slice fits instead of the
+    smallest (``gru_fwd_cluster``); ``balanced_rows``, the fewest rows that
+    keep the waves (``gru_fwd_plan``); ``fewest_waves``, the cluster sizes of
+    the fewest waves before the cost model (``gru_bptt_plan``)."""
+
+    largest_cluster: bool = False
+    balanced_rows: bool = False
+    fewest_waves: bool = False
+
+
+# X's and G's rules; every other build of GRU_FWD_BUILDS and GRU_BPTT_BUILDS
+# keeps A's and C's (PlanRule())
+PLAN_RULES = {"X_chain": PlanRule(largest_cluster=True, balanced_rows=True),
+              "G_chain": PlanRule(fewest_waves=True),
+              "G_chain_bf16": PlanRule(fewest_waves=True)}
+
+
+def plan_rule(build: str) -> PlanRule:
+    return PLAN_RULES.get(build, PlanRule())
+
+# the route chooser's names of X's and G's builds (their per-block designs)
+XP_LAYER_BUILDS = ("X", "G", "G_bf16")
+# the chains' instances in X's and G's libraries, under __launch_bounds__ of
+# a 512-thread CTA (chip_smoke.py checks ptxas's count against them)
+REGISTERS.update({"X_chain": 128, "G_chain": 128, "G_chain_bf16": 128})
+
+
+def gru_scan_route(H: int) -> str:
+    """The route of kernel X at width H: "chain" (A's bf16 chain over the
+    bf16 xp) where it launches, else "block" where the per-block design
+    does; raises LaunchLimitError where neither does."""
+    chain_why = gru_fwd_limit(X_CHAIN_BUILD, H)
+    if chain_why is None:
+        return "chain"
+    block_why = launch_limit("X", H, smem_bytes("X", H))
+    if block_why is None:
+        return "block"
+    raise LaunchLimitError(f"kernel X launches at H={H} neither on its chain ({chain_why}) "
+                           f"nor per block ({block_why})")
+
+
+def gru_xp_bwd_route(H: int, bf16: bool = False) -> str:
+    """The route of kernel G (``bf16``: its bf16 build) at width H: "chain"
+    (the xp gate pre-pass and C's chain) where C's chain launches, else
+    "block" where the per-block design does; raises LaunchLimitError where
+    neither does."""
+    chain_why = gru_bptt_limit(G_CHAIN_BUILDS[bf16], H)
+    if chain_why is None:
+        return "chain"
+    build = "G_bf16" if bf16 else "G"
+    block_why = launch_limit(build, H, smem_bytes(build, H))
+    if block_why is None:
+        return "block"
+    raise LaunchLimitError(f"kernel {build} launches at H={H} neither on C's chain ({chain_why}) "
+                           f"nor per block ({block_why})")
+
+
+def xp_layer_limit(build: str, H: int) -> str | None:
+    """Why X or G (a name of ``XP_LAYER_BUILDS``) launches on no route at
+    width H, or None."""
+    try:
+        if build == "X":
+            gru_scan_route(H)
+        else:
+            gru_xp_bwd_route(H, build == "G_bf16")
     except LaunchLimitError as e:
         return str(e)
     return None
@@ -697,7 +847,8 @@ def a_limit(H: int, D: int, bf16: bool = False) -> str | None:
 # no depth split: the product tiles over rows x units keep the warps busy.
 # ---------------------------------------------------------------------------
 
-GRU_BPTT_BUILDS = ("C_chain", "C_chain_bf16", "E_chain", "E_chain_bf16")
+GRU_BPTT_BUILDS = ("C_chain", "C_chain_bf16", "E_chain", "E_chain_bf16", "G_chain",
+                   "G_chain_bf16")
 # the route chooser's names of C's and E's builds, each run by a chain build
 C_BUILDS = ("C", "C_bf16")
 E_BUILDS = ("E", "E_bf16", "E_resid", "E_wide", "E_wide_bf16", "E_wide_row8_bf16")
@@ -774,8 +925,9 @@ def gru_bptt_smem(H: int, C: int, rows_max: int, part_floats: int, nbuf: int, st
 
 
 def _bptt_parts(build: str, H: int, heads) -> list[_Part]:
-    """C's layer, or E's heads ((D, n_layers[, T]) each; T 64 by default)."""
-    if build.startswith("C"):
+    """C's (or G's) layer, or E's heads ((D, n_layers[, T]) each; T 64 by
+    default)."""
+    if build.startswith(("C", "G")):
         return [_Part(H, 1, False, 64, 0)]
     return [_Part(2 * H if h[1] == 2 else H + _round64(h[0]), h[1], True,
                   h[2] if len(h) > 2 else 64, h[0]) for h in heads]
@@ -906,8 +1058,11 @@ def gru_bptt_plan(build: str, H: int, B: int, heads=((61, 2),), active=None) -> 
             continue
         M = (active or MAX_CLUSTERS_H100.__getitem__)(C)
         got = _bptt_candidate(H, B, C, parts, M, elem)
-        if got is not None and (best is None or got[1] < best[1]):
-            best = got
+        if got is None:
+            continue
+        key = (got[0].waves if plan_rule(build).fewest_waves else 0, got[1])
+        if best is None or key < best[1]:
+            best = (got[0], key)
     if best is None:
         raise LaunchLimitError(
             f"kernel {build}'s chain takes H a multiple of {GRU_BWD_TILE} whose slices fit a CTA "
@@ -1299,7 +1454,8 @@ def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> 
             whys += [gru_bptt_limit("C", H)] if layers else []
             checks = []
         elif layers:  # the x-projection is outside: one tile for every layer
-            checks = [(k, smem_bytes(k, H)) for k in ("F", "G")]
+            checks = [("F", smem_bytes("F", H))]
+            whys.append(xp_layer_limit("G", H))
         else:
             checks = []
         d_k = "D" if route == "narrow" else "D_wide"
@@ -1624,7 +1780,12 @@ def _require_bf16(rows: str, builds, H: int, D: int = 61, n_layers: int = 2) -> 
         raise NotImplementedError(f"the JAX package runs this bf16 part through {rows}, which "
                                   "the port has no kernel build for")
     for k, smem in builds:
-        why = gru_bptt_limit(k, H, D, n_layers) if k in E_BUILDS else launch_limit(k, H, smem)
+        if k in E_BUILDS:
+            why = gru_bptt_limit(k, H, D, n_layers)
+        elif k in XP_LAYER_BUILDS:
+            why = xp_layer_limit(k, H)
+        else:
+            why = launch_limit(k, H, smem)
         if why is not None:
             raise NotImplementedError(f"the JAX package runs this bf16 part through {rows}; "
                                       f"their port build does not launch: {why}")

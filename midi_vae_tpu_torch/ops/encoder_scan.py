@@ -21,7 +21,12 @@ state (h; h and c) rounded to the compute dtype after every step
 the JAX references exactly.
 
 Y is the bf16 build of kernel Q's forward chain on thread-block clusters
-(``csrc/lstm_cell_fwd.cuh``; its plan ``lstm_layer.fwd_chain_plan``).
+(``csrc/lstm_cell_fwd.cuh``; its plan ``lstm_layer.fwd_chain_plan``). X is
+kernel A's bf16 GRU chain (``csrc/gru_cell_fwd.cuh``) in its instance that
+reads a bf16 xp, at X's own plan (``scan_chain_plan``); where that chain
+does not launch (``_layout.gru_scan_route``), X's first, per-block design
+takes the layer. ``gru_encoder_scan_fwd`` counts every launch of X on
+``.launches``, and each also on ``.launches_chain`` or ``.launches_block``.
 
 ``gru_encoder_scan`` and ``lstm_encoder_scan`` are whole-layer
 ``RematStep``s: the forward launches the kernel on CUDA tensors (bfloat16
@@ -75,37 +80,55 @@ def lstm_encoder_scan_reference(xp, h0, c0, u, activation="tanh", return_sequenc
 
 
 @functools.cache
-def _kernel(name):
-    lib = _build.load(name)
-    fn = getattr(lib, f"mvt_{name}")
-    # X: xp, h0, u, out; Y: xp, h0, c0, u, out and its plan's cluster, rows
-    n_ptrs, n_ints = (4, 5) if name == "gru_encoder_scan" else (5, 7)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+def _kernel(entry):
+    """(library, entry point) of X's chain (``gru_encoder_scan``) or its
+    per-block route (``gru_encoder_scan_block``), or of Y
+    (``lstm_encoder_scan``)."""
+    lib_name = entry.removesuffix("_block")
+    # X: xp, h0, u, out, then T, B, H, act, return_sequences and the chain's
+    # plan (cluster, rows, splits, stages); Y: xp, h0, c0, u, out and its
+    # plan's cluster, rows
+    n_ptrs, n_ints = {"gru_encoder_scan": (4, 9), "gru_encoder_scan_block": (4, 5),
+                      "lstm_encoder_scan": (5, 7)}[entry]
+    return _build.load_entry(lib_name, f"mvt_{entry}", [ctypes.c_void_p] * n_ptrs
+                             + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
 
 
-def _launch(name, letter, xp, states, u, activation, return_sequences):
+@functools.cache
+def scan_chain_plan(H, B):
+    """X's chain plan at (H, B) (``_layout.gru_fwd_plan`` of
+    ``_layout.X_CHAIN_BUILD``) at the card's active clusters of X's
+    instance; raises LaunchLimitError where it does not launch."""
+    C, _stream_slice = _layout.gru_fwd_cluster(_layout.X_CHAIN_BUILD, H)
+    return _layout.gru_fwd_plan(_layout.X_CHAIN_BUILD, H, B,
+                                gru_layer._max_clusters("gru_encoder_scan", True, C))
+
+
+def _launch(name, letter, xp, states, u, activation, return_sequences, route="chain"):
     """Checks and launches kernel X or Y over xp (T, B, G) with the initial
-    ``states`` (h0, or h0 and c0)."""
+    ``states`` (h0, or h0 and c0); X on ``route`` ("chain" or "block")."""
     T, B = xp.shape[:2]
     H = u.shape[0]
     check_operands({"xp": xp, **{f"state{i}": s for i, s in enumerate(states)}, "u": u},
                    xp.device, (torch.bfloat16,))
     if T < 1 or B < 1:
         raise ValueError(f"kernel {letter} takes T >= 1 and B >= 1; got T={T} B={B}")
+    entry = name
     if letter == "Y":
         plan = lstm_layer.fwd_chain_plan("Y", H, B)
-        chain = (plan.cluster, plan.rows)
+        extra = (plan.cluster, plan.rows)
+    elif route == "chain":
+        plan = scan_chain_plan(H, B)
+        extra = (plan.cluster, plan.rows, plan.splits, plan.stages)
     else:
         _layout.require(letter, H, _layout.smem_bytes(letter, H))
-        chain = ()
+        entry, extra = f"{name}_block", ()
     out = torch.empty((T, B, H) if return_sequences else (B, H), device=xp.device,
                       dtype=torch.bfloat16)
-    lib, fn = _kernel(name)
+    lib, fn = _kernel(entry)
     rc = fn(_ptr(xp), *map(_ptr, states), _ptr(u), _ptr(out), T, B, H,
-            CELL_ACTIVATIONS[activation], int(return_sequences), *chain, _stream(xp))
-    _build.check(lib, rc, f"{name} launch")
+            CELL_ACTIVATIONS[activation], int(return_sequences), *extra, _stream(xp))
+    _build.check(lib, rc, f"{entry} launch")
     return out
 
 
@@ -114,10 +137,7 @@ def _check_activation(activation):
         raise ValueError(f"unsupported encoder scan activation {activation!r}")
 
 
-def gru_encoder_scan_fwd(xp, h0, u, activation="tanh", return_sequences=False):
-    """The GRU layer over xp (T, B, 3H) time-major: the (T, B, H) h sequence
-    or the final h (B, H). CPU tensors run ``gru_encoder_scan_reference``;
-    CUDA tensors (bfloat16) launch kernel X."""
+def _check_gru_scan(xp, h0, u, activation):
     _check_activation(activation)
     if xp.dim() != 3:
         raise ValueError(f"xp must be (T, B, 3H), got {tuple(xp.shape)}")
@@ -125,14 +145,43 @@ def gru_encoder_scan_fwd(xp, h0, u, activation="tanh", return_sequences=False):
     H = u.shape[0]
     _check_shapes({"xp": xp, "h0": h0, "u": u},
                   {"xp": (T, B, 3 * H), "h0": (B, H), "u": (H, 3 * H)})
+    return H
+
+
+def gru_encoder_scan_fwd(xp, h0, u, activation="tanh", return_sequences=False):
+    """The GRU layer over xp (T, B, 3H) time-major: the (T, B, H) h sequence
+    or the final h (B, H). CPU tensors run ``gru_encoder_scan_reference``;
+    CUDA tensors (bfloat16) launch kernel X: its chain (also counted on
+    ``.launches_chain``) or, at widths the chain does not take, its
+    per-block route (``.launches_block``)."""
+    H = _check_gru_scan(xp, h0, u, activation)
     if not _on(xp, "gru_encoder_scan"):
         return gru_encoder_scan_reference(xp, h0, u, activation, return_sequences)
+    if _layout.gru_scan_route(H) == "block":
+        return gru_encoder_scan_block(xp, h0, u, activation, return_sequences)
     out = _launch("gru_encoder_scan", "X", xp, (h0,), u, activation, return_sequences)
     gru_encoder_scan_fwd.launches += 1
+    gru_encoder_scan_fwd.launches_chain += 1
+    return out
+
+
+def gru_encoder_scan_block(xp, h0, u, activation="tanh", return_sequences=False):
+    """Kernel X's per-block route (its first design), as
+    ``gru_encoder_scan_fwd``: CPU tensors run ``gru_encoder_scan_reference``;
+    CUDA tensors launch it where ``_layout`` lets it launch (H a multiple of
+    32 up to 512), counted on ``gru_encoder_scan_fwd``'s ``.launches`` and
+    ``.launches_block``."""
+    _check_gru_scan(xp, h0, u, activation)
+    if not _on(xp, "gru_encoder_scan"):
+        return gru_encoder_scan_reference(xp, h0, u, activation, return_sequences)
+    out = _launch("gru_encoder_scan", "X", xp, (h0,), u, activation, return_sequences, "block")
+    gru_encoder_scan_fwd.launches += 1
+    gru_encoder_scan_fwd.launches_block += 1
     return out
 
 
 gru_encoder_scan_fwd.launches = 0
+gru_encoder_scan_fwd.launches_chain = gru_encoder_scan_fwd.launches_block = 0
 
 
 def lstm_encoder_scan_fwd(xp, h0, c0, u, activation="tanh", return_sequences=False):

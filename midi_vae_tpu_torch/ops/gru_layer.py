@@ -49,6 +49,17 @@ in ``_fwd_pallas`` and ``_fwd_wide_pallas``) and whose backward is kernel G
 does in XLA. The caller computes xp = x @ W + b with torch.matmul, so dx, dW
 and db come from autograd, as the JAX package leaves them to XLA (:2287).
 Plain versions: ``gru_layer_xp_reference`` and ``gru_layer_xp_bwd_reference``.
+On the card G runs as C's phases without the x segment and the dx pass
+(``G_PHASES``): an xp gate pre-pass (``gru_layer_xp_bwd_gates``,
+``gru_bwd_gates_xp_reference``: z, r, hh and r * h of every step from xp
+and hprev on the tensor cores) and C's chain over those gates
+(``gru_layer_xp_bwd_chain``, ``gru_bwd_chain_reference``; its plan
+``xp_bwd_plan``: C's cost model among the fewest waves, ``G_chain``); where
+C's chain does not launch
+(``_layout.gru_xp_bwd_route``), G's first, per-block design
+(``gru_layer_xp_bwd_block``). Each phase counts its own launches; the
+chain's launch and the per-block route's, one a call of G, also count on
+``gru_layer_xp_bwd``, never on C's counters.
 
 In a bf16 model the wide route runs the JAX package's ``_fwd_kernel`` and
 ``_bwd_kernel`` in bf16 (GRU(512) at B = 256: ``_train_vmem_ok`` admits the
@@ -440,16 +451,8 @@ def gru_bwd_gates_reference(x, hprev, w, b, u):
     float32 (``_bwdx_kernel`` :2154-2159: in bf16 the products of bf16
     values summed in float32, r * h in float32)."""
     T, B, D = x.shape
-    H = u.shape[0]
-    x, hprev, w, b, u = _widened(x, hprev, w, b, u)
-    hp = hprev.reshape(T * B, H)
-    xp = x.reshape(T * B, D) @ w + b
-    hu = hp @ u[:, : 2 * H]
-    z = torch.sigmoid(xp[:, :H] + hu[:, :H])
-    r = torch.sigmoid(xp[:, H : 2 * H] + hu[:, H:])
-    rh = r * hp
-    hh = torch.tanh(xp[:, 2 * H :] + rh @ u[:, 2 * H :])
-    return torch.cat([z, r, hh], dim=-1).reshape(T, B, 3 * H), rh.reshape(T, B, H)
+    x, w, b = _widened(x, w, b)
+    return gru_bwd_gates_xp_reference((x.reshape(T * B, D) @ w + b).reshape(T, B, -1), hprev, u)
 
 
 def gru_bwd_cell_reference(gates, hp, u, dh):
@@ -782,19 +785,114 @@ def gru_layer_xp_bwd_reference(xp, seq, h0, d_seq, d_final, u):
     return da.to(dtype), dh.to(dtype), da, torch.stack(rh)
 
 
+def gru_bwd_gates_xp_reference(xp, hprev, u):
+    """Plain version of G's xp gate pre-pass: (gates (T, B, 3H) = [z, r,
+    hh], rh (T, B, H) = r * h_{t-1}), both float32, from xp (T, B, 3H),
+    hprev = [h0, hseq[:-1]] (T, B, H) and U, every operand widened to
+    float32 (``_bwd_kernel``'s recompute: in bf16 the products of bf16
+    values summed in float32, r * h in float32)."""
+    T, B, G3 = xp.shape
+    H = u.shape[0]
+    xp, hprev, u = _widened(xp, hprev, u)
+    hp, xp = hprev.reshape(T * B, H), xp.reshape(T * B, G3)
+    hu = hp @ u[:, : 2 * H]
+    z = torch.sigmoid(xp[:, :H] + hu[:, :H])
+    r = torch.sigmoid(xp[:, H : 2 * H] + hu[:, H:])
+    rh = r * hp
+    hh = torch.tanh(xp[:, 2 * H :] + rh @ u[:, 2 * H :])
+    return torch.cat([z, r, hh], dim=-1).reshape(T, B, 3 * H), rh.reshape(T, B, H)
+
+
 @functools.cache
-def _xp_bwd_kernel():
-    lib, fns = _build.load_builds("gru_layer_xp_bwd", "mvt_gru_layer_xp_bwd",
-                                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    # the float32 build has no dxp pointer: its dacat is its dxp
-    fns[torch.float32].argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    return lib, fns
+def _xp_bwd_phases():
+    """(library, {"gates" | "chain" | "block": {dtype: entry}}) of kernel G."""
+    lib, gates = _build.load_builds("gru_layer_xp_bwd", "mvt_gru_layer_xp_bwd_gates",
+                                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                                    + [ctypes.c_void_p])
+    chain = _build.load_builds("gru_layer_xp_bwd", "mvt_gru_layer_xp_bwd_chain",
+                               [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])[1]
+    block = _build.load_builds("gru_layer_xp_bwd", "mvt_gru_layer_xp_bwd_block",
+                               [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p])[1]
+    # the float32 builds have no dxp pointer: their dacat is their dxp
+    chain[torch.float32].argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                                     + [ctypes.c_void_p])
+    block[torch.float32].argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                                     + [ctypes.c_void_p])
+    return lib, {"gates": gates, "chain": chain, "block": block}
 
 
-def gru_layer_xp_bwd(xp, seq, h0, d_seq, d_final, u):
-    """Backward of ``gru_layer_xp``: see ``gru_layer_xp_bwd_reference``. CPU
+@functools.cache
+def xp_bwd_plan(bf16, H, B):
+    """G's chain plan at (H, B) (``_layout.gru_bptt_plan`` of
+    ``_layout.G_CHAIN_BUILDS[bf16]``) at the card's active clusters of G's
+    instance; raises LaunchLimitError where it does not launch."""
+    return _layout.gru_bptt_plan(_layout.G_CHAIN_BUILDS[bf16], H, B, None,
+                                 lambda C: _max_clusters("gru_layer_xp_bwd", bf16, C))
+
+
+def gru_layer_xp_bwd_gates(xp, hprev, u):
+    """Kernel G's xp gate pre-pass: ``gru_bwd_gates_xp_reference``. CPU
     tensors run the plain version; CUDA tensors (every operand float32 or
-    every one bfloat16) launch kernel G's build of their dtype."""
+    every one bfloat16) launch its build of their dtype (two launches: P1,
+    P2)."""
+    T, B, G3 = xp.shape
+    H = u.shape[0]
+    if not _check_bwd_phase("gru_layer_xp_bwd_gates", {"xp": xp, "hprev": hprev, "u": u},
+                            {"xp": (T, B, 3 * H), "hprev": (T, B, H), "u": (H, 3 * H)}):
+        return gru_bwd_gates_xp_reference(xp, hprev, u)
+    kw = {"device": xp.device, "dtype": torch.float32}
+    gates, rh = torch.empty(T, B, 3 * H, **kw), torch.empty(T, B, H, **kw)
+    lib, fns = _xp_bwd_phases()
+    rc = fns["gates"][xp.dtype](_ptr(xp), _ptr(hprev), _ptr(u), _ptr(gates), _ptr(rh), T * B, H,
+                                _stream(xp))
+    _build.check(lib, rc, "gru_layer_xp_bwd gates launch")
+    _build.count_launch(gru_layer_xp_bwd_gates, xp.dtype, 2)
+    return gates, rh
+
+
+def gru_layer_xp_bwd_chain(gates, hprev, d_seq, d_final, u):
+    """Kernel G's chain (C's) over the pre-pass's gates: (dxp in hprev's
+    dtype, dh0 in hprev's dtype, da_cat float32); in float32 dxp is da_cat.
+    CPU tensors run ``gru_bwd_chain_reference`` (dxp and dh0 rounded to
+    hprev's dtype); CUDA tensors launch its build of hprev's dtype on
+    clusters (``xp_bwd_plan``), the bf16 build rounding dxp from the chain's
+    own stores of da_cat; counted on this wrapper and, as one call of G, on
+    ``gru_layer_xp_bwd``."""
+    T, B, H = hprev.shape
+    named = {"gates": gates, "hprev": hprev, "u": u}
+    expected = {"gates": (T, B, 3 * H), "hprev": (T, B, H), "u": (H, 3 * H),
+                "d_seq": (T, B, H), "d_final": (B, H)}
+    for k, v in (("d_seq", d_seq), ("d_final", d_final)):
+        if v is not None:
+            named[k] = v
+    dtype = hprev.dtype
+    if not _check_bwd_phase("gru_layer_xp_bwd_chain", named, expected, ("gates",)):
+        da, dh0 = gru_bwd_chain_reference(gates, hprev, d_seq, d_final, u)
+        return da.to(dtype), dh0.to(dtype), da
+    plan = xp_bwd_plan(dtype == _BF16, H, B)
+    da = torch.empty(T, B, 3 * H, device=hprev.device, dtype=torch.float32)
+    dxp = torch.empty(T, B, 3 * H, device=hprev.device, dtype=dtype) if dtype == _BF16 else da
+    dh0 = torch.empty(B, H, device=hprev.device, dtype=dtype)
+    ut = u.t().contiguous()  # the CTAs copy their rows of U^T
+    null = ctypes.c_void_p(None)
+    opt = lambda t: _ptr(t) if t is not None else null  # noqa: E731
+    outs = (_ptr(da), _ptr(dxp), _ptr(dh0)) if dtype == _BF16 else (_ptr(da), _ptr(dh0))
+    lib, fns = _xp_bwd_phases()
+    rc = fns["chain"][dtype](_ptr(gates), _ptr(hprev), opt(d_seq), opt(d_final), _ptr(ut), *outs,
+                             T, B, H, plan.cluster, plan.rows[0], plan.nbuf, plan.stages,
+                             _stream(hprev))
+    _build.check(lib, rc, "gru_layer_xp_bwd chain launch")
+    _build.count_launch(gru_layer_xp_bwd_chain, dtype)
+    _build.count_launch(gru_layer_xp_bwd, dtype)
+    return dxp, dh0, da
+
+
+def gru_layer_xp_bwd_block(xp, seq, h0, d_seq, d_final, u):
+    """Kernel G's per-block route (its first design), as
+    ``gru_layer_xp_bwd``: CPU tensors run ``gru_layer_xp_bwd_reference``;
+    CUDA tensors launch its build of their dtype where ``_layout`` lets it
+    launch, counted on this wrapper and, as one call of G, on
+    ``gru_layer_xp_bwd``."""
     T, B, H = _check_xp(xp, h0, u, seq, d_seq, d_final)
     if xp.device.type == "cpu":
         return gru_layer_xp_bwd_reference(xp, seq, h0, d_seq, d_final, u)
@@ -809,18 +907,45 @@ def gru_layer_xp_bwd(xp, seq, h0, d_seq, d_final, u):
     ut = u.t().contiguous()  # the transposed products read U^T row by row
     null = ctypes.c_void_p(None)
     opt = lambda t: _ptr(t) if t is not None else null  # noqa: E731
-    lib, fns = _xp_bwd_kernel()
+    lib, fns = _xp_bwd_phases()
     outs = (_ptr(dacat), _ptr(dxp), _ptr(dh0)) if dtype == _BF16 else (_ptr(dacat), _ptr(dh0))
-    rc = fns[dtype](_ptr(xp), _ptr(seq), _ptr(h0), opt(d_seq), opt(d_final), _ptr(u), _ptr(ut),
-                    *outs, _ptr(rh), T, B, H,
-                    ctypes.c_void_p(torch.cuda.current_stream(xp.device).cuda_stream))
-    _build.check(lib, rc, "gru_layer_xp_bwd launch")
+    rc = fns["block"][dtype](_ptr(xp), _ptr(seq), _ptr(h0), opt(d_seq), opt(d_final), _ptr(u),
+                             _ptr(ut), *outs, _ptr(rh), T, B, H, _stream(xp))
+    _build.check(lib, rc, "gru_layer_xp_bwd per-block launch")
+    _build.count_launch(gru_layer_xp_bwd_block, dtype)
     _build.count_launch(gru_layer_xp_bwd, dtype)
     return dxp, dh0, dacat, rh
 
 
+def gru_layer_xp_bwd(xp, seq, h0, d_seq, d_final, u):
+    """Backward of ``gru_layer_xp``: see ``gru_layer_xp_bwd_reference``. CPU
+    tensors run the plain version; CUDA tensors (every operand float32 or
+    every one bfloat16) run kernel G's build of their dtype on the route
+    ``_layout.gru_xp_bwd_route`` picks: the xp gate pre-pass and C's chain,
+    or the per-block route. It launches nothing itself: each phase counts
+    its launches on its own wrapper, and the chain's launch (or the
+    per-block route's), one a call, also on ``.launches`` or
+    ``.launches_bf16`` here."""
+    T, B, H = _check_xp(xp, h0, u, seq, d_seq, d_final)
+    if xp.device.type == "cpu":
+        return gru_layer_xp_bwd_reference(xp, seq, h0, d_seq, d_final, u)
+    bf16 = xp.dtype == _BF16
+    if _layout.gru_xp_bwd_route(H, bf16) == "block":
+        return gru_layer_xp_bwd_block(xp, seq, h0, d_seq, d_final, u)
+    xp_bwd_plan(bf16, H, B)  # raises first
+    hprev = torch.cat([h0[None], seq[:-1]])
+    gates, rh = gru_layer_xp_bwd_gates(xp, hprev, u)
+    dxp, dh0, da_cat = gru_layer_xp_bwd_chain(gates, hprev, d_seq, d_final, u)
+    return dxp, dh0, da_cat, rh
+
+
 gru_layer_xp_bwd.launches = 0
 gru_layer_xp_bwd.launches_bf16 = 0
+# the wrappers that launch G's kernels, each counting its launches on
+# ``.launches`` and ``.launches_bf16`` (the pre-pass two a call: P1, P2)
+G_PHASES = ("gru_layer_xp_bwd_gates", "gru_layer_xp_bwd_chain", "gru_layer_xp_bwd_block")
+for _fn in (gru_layer_xp_bwd_gates, gru_layer_xp_bwd_chain, gru_layer_xp_bwd_block):
+    _fn.launches = _fn.launches_bf16 = 0
 
 
 class _GruLayerTrain(torch.autograd.Function):

@@ -11,8 +11,9 @@ card, the route of the step, the median wall time per step (host clock
 around work that ends in a synchronize), note-steps/s (B x 64 output steps
 per step; windows/s for a judge), and from a torch.profiler window of STEPS
 steps the device time per kernel name, per kernel of the port (A, D, F,
-G, the wide D, A's and L's pre-pass, A's chain, A's and L's per-block
-routes, C's and E's phases (their shared gate pre-pass, C's chain and dx
+G's phases (its xp gate pre-pass, its chain: C's, the bf16 build's
+apart, its per-block route), the wide D, A's and L's pre-pass, A's chain,
+A's and L's per-block routes, C's and E's phases (their shared gate pre-pass, C's chain and dx
 pass, E's chain: every E build, wide or not, runs it), N's and R's phases,
 the forward chain of Q and L, S, S xp, T, T xp, B's chain and per-block
 route, X, Y, W; the bf16 builds of
@@ -51,12 +52,16 @@ PORT_KERNELS = {
     # name for both ops), C's chain and dx pass, E's chain through a head
     "gru_gates_p1_kernel": "C/E gates gru_gates_p1",
     "gru_gates_p2_kernel": "C/E gates gru_gates_p2",
-    "gru_bwd_chain_kernel": "C chain gru_bwd_chain",
+    "gru_bwd_chain_kernel": "C/G chain gru_bwd_chain",
     "gru_bwd_dx_kernel": "C dx gru_bwd_dx",
     "gru_decode_train_kernel": "D gru_decode_train",
     "gru_head_bwd_chain_kernel": "E chain gru_head_bwd_chain",
     "gru_layer_xp_fwd_kernel": "F gru_layer_xp_fwd",
-    "gru_layer_xp_bwd_kernel": "G gru_layer_xp_bwd",
+    # G: its xp gate pre-pass (P1, P2), its chain (C's, above; the bf16
+    # build's instance with dxp counted apart), its per-block route
+    "gru_xp_gates_p1_kernel": "G gates gru_xp_gates_p1",
+    "gru_xp_gates_p2_kernel": "G gates gru_xp_gates_p2",
+    "gru_layer_xp_bwd_kernel": "G block gru_layer_xp_bwd",
     "gru_decode_train_wide_kernel": "D wide gru_decode_train_wide",
     # L: its x @ W pre-pass is A's (above); its chain is the forward chain
     # below; its per-block route (no config at H <= 512 takes it)
@@ -74,14 +79,17 @@ PORT_KERNELS = {
     "lstm_step_xp_kernel": "S xp lstm_step_xp",
     # T's instances (T xp: those with kXp = true, counted apart below)
     "gru_step_tc_kernel": "T gru_step_tc",
-    "gru_encoder_scan_kernel": "X gru_encoder_scan",
+    # X: A's bf16 chain over a bf16 xp (its instance counted apart below),
+    # its per-block route
+    "gru_encoder_scan_kernel": "X block gru_encoder_scan",
     "grad_reduce": "W grad_reduce",
 }
 # the groups whose kernels have a bf16 build, counted apart
 BF16_BUILDS = ("A/L xproj xproj", "A chain gru_fwd_chain", "A block gru_layer_fwd",
-               "C/E gates gru_gates_p1", "C/E gates gru_gates_p2", "C chain gru_bwd_chain",
+               "C/E gates gru_gates_p1", "C/E gates gru_gates_p2", "C/G chain gru_bwd_chain",
                "C dx gru_bwd_dx", "D gru_decode_train", "E chain gru_head_bwd_chain",
-               "G gru_layer_xp_bwd", "D wide gru_decode_train_wide", "L block lstm_layer_fwd",
+               "G gates gru_xp_gates_p1", "G gates gru_xp_gates_p2", "G block gru_layer_xp_bwd",
+               "D wide gru_decode_train_wide", "L block lstm_layer_fwd",
                "N/R chain lstm_bwd_chain",
                "N dx lstm_bwd_dx", "S lstm_step", "T gru_step_tc",
                "W grad_reduce")
@@ -166,6 +174,12 @@ def _profile(step, steps: int) -> dict:
                      "other (ATen, cuBLAS, copies)")
         if group == "T gru_step_tc" and ", true," in name:
             group = "T xp gru_step_tc"
+        # X's instance of A's bf16 chain reads a bf16 xp; G bf16's of C's
+        # chain also emits dxp
+        if group == "A chain bf16 gru_fwd_chain_mma" and ", __nv_bfloat16>" in name:
+            group = "X chain gru_fwd_chain_mma"
+        if group == "C/G chain gru_bwd_chain" and ", true>" in name:
+            group = "G chain bf16 gru_bwd_chain"
         if group in BF16_BUILDS and "bfloat16" in name:
             letter, library = group.rsplit(" ", 1)
             group = f"{letter} bf16 {library}"
