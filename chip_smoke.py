@@ -42,11 +42,15 @@ result line):
      cudaOccupancyMaxActiveClusters and its plan at B = 256 (A's chain
      builds too, and B's chain on the notes head); the instances of W (the
      tiles on the tensor cores, the small-I stream), of L and A (the x @ W
-     pre-pass, the chain), of S, of T, of B's chain and of X's and G's
-     chains and G's pre-pass must not spill; W's one-TF32-product control
-     is built too (csrc/grad_reduce.cu with -DMVT_W_TF32_ONE);
-  2a. A's, C's and E's outputs on numpy-seeded inputs bit-equal to the
-     parent commit's (PARENT_DIGESTS): X and G share their device code;
+     pre-pass, the chain), of S, of T, of B's chain, of F's chain (A's
+     instances and the tensor-core one), of the wide D's chain (B's
+     training instance and the tensor-core one, its 256-thread CTAs at up
+     to 255 registers) and of X's and G's chains and G's pre-pass must not
+     spill; W's one-TF32-product control is built too (csrc/grad_reduce.cu
+     with -DMVT_W_TF32_ONE);
+  2a. A's, B's, C's and E's outputs on numpy-seeded inputs bit-equal to the
+     parent commit's (PARENT_DIGESTS): X and G share A's and C's device
+     code, F A's and the wide D's chain B's;
   2b. W: kernel W on the paths' reductions (W_CASES) against a float64 sum
      within W_REL_L2, two runs bit-equal, and the one-TF32-product control
      over W_REL_L2 on the tiled cases;
@@ -85,13 +89,16 @@ result line):
      prints the card's step time and note-steps/s;
   9. wide kernels: the wide model (Config() with lstm_size=512) takes the
      wide route (ops/_layout.py): F and G over the four encoder layers'
-     x-projections, the 2-rows-a-block builds of D and E on each decode head
-     alone, and W over their gate grads, against their plain versions at
-     B = 256 and B = 5, with times, and the training ops' gradients against
-     autograd; G's phases (the xp gate pre-pass, the chain) each against its
-     plain version, G's per-block route beside them on notes L1, and at H =
-     96, where it is G's route; F and G also at a GRU(256) layer; A and B at
-     H = 512 (the serving path of a wide run);
+     x-projections, the wide builds of D (on B's decode chain) and E on each
+     decode head alone, and W over their gate grads, against their plain
+     versions at B = 256 and B = 5, with times and bounds (F's and the wide
+     D's priced by operand type: f_work, d_work), and the training ops'
+     gradients against autograd; F's chain (its tensor-core instance at H
+     = 512) and the wide D's chain each beside its per-block route on the
+     same calls; G's phases (the xp gate pre-pass, the chain) each against
+     its plain version, G's per-block route beside them on notes L1, and at
+     H = 96, where it is G's route; F and G also at a GRU(256) layer (F: A's
+     resident chain); A and B at H = 512 (the serving path of a wide run);
  10. wide training slice: the train CLI at --set lstm_size=512 for 2 epochs,
      --resume for a third, then the transfer CLI serves the run, with every
      launch counter equal to the wide design;
@@ -214,8 +221,9 @@ result line):
      (csrc/gru_encoder_scan.cu) as row 9 in bf16, G's bf16 build
      (csrc/gru_layer_xp_bwd.cu) and W for dU from G's float32 gate grads;
      on the notes and instrument heads the bf16 builds of the wide D
-     (csrc/gru_decode_train.cu) and E (csrc/gru_decode_bwd.cu), whose
-     dlogits and gate grads leave rounded to bf16, and W over them; each
+     (csrc/gru_decode_train.cu: B's decode chain in its bf16 training
+     instance, beside its per-block route) and E (csrc/gru_decode_bwd.cu),
+     whose dlogits and gate grads leave rounded to bf16, and W over them; each
      against its plain bf16 version at B = 256 (timed, with bounds, W beside
      cuBLAS) and B = 5, G bf16's phases each against its plain version (and
      its per-block route beside them on notes L1), X and G bf16 at B = 128,
@@ -533,7 +541,11 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "E_gates": ("gru_decode_bwd", "gru_gates_p1_kernel", NOT_BF16),
           "E_gates_p2": ("gru_decode_bwd", "gru_gates_p2_kernel", NOT_BF16),
           "E_chain": ("gru_decode_bwd", "gru_head_bwd_chain_kernel", NOT_BF16),
+          # F: its per-block route (the first design), its chain (A's float32
+          # instances in F's library; at H = 512 the tensor-core instance)
           "F": ("gru_layer_xp_fwd", "gru_layer_xp_fwd_kernel"),
+          "F_chain": ("gru_layer_xp_fwd", "gru_fwd_chain_kernel"),
+          "F_chain_tc": ("gru_layer_xp_fwd", "gru_fwd_chain_tc_kernel"),
           # G: its per-block route (the first design), its xp gate pre-pass
           # (P1, P2) and its chain (C's, in G's library; the bf16 instance
           # also emits dxp)
@@ -542,6 +554,12 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "G_gates_p2": ("gru_layer_xp_bwd", "gru_xp_gates_p2_kernel", NOT_BF16),
           "G_chain": ("gru_layer_xp_bwd", "gru_bwd_chain_kernel", NOT_BF16),
           "D_wide": ("gru_decode_train", "gru_decode_train_wide_kernel", NOT_BF16),
+          # the wide D's chain: B's decode chain in its training instance
+          # (FFMA) and its tensor-core instance, float32 and bf16
+          "D_wide_chain": ("gru_decode_train", "gru_decode_chain_kernel", NOT_BF16),
+          "D_wide_chain_bf16": ("gru_decode_train", "gru_decode_chain_kernel", BF16_ONLY),
+          "D_wide_tc": ("gru_decode_train", "gru_decode_chain_tc_kernel", NOT_BF16),
+          "D_wide_tc_bf16": ("gru_decode_train", "gru_decode_chain_tc_kernel", BF16_ONLY),
           "W": ("grad_reduce", "grad_reduce", NOT_BF16),
           # W's instances: the tiles on the tensor cores, the small-I stream,
           # and the one-TF32-product control build
@@ -616,8 +634,9 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
 
 
 # the instances that must not spill: W's, L's, A's, S's, C's, E's, T's,
-# B's, X's and G's of the tensor-core and chain designs
-NO_SPILLS = ("T", "T_xp", "T_bf16", "B_chain", "X_chain",
+# B's, F's, the wide D's, X's and G's of the tensor-core and chain designs
+NO_SPILLS = ("T", "T_xp", "T_bf16", "B_chain", "X_chain", "F_chain", "F_chain_tc",
+             "D_wide_chain", "D_wide_chain_bf16", "D_wide_tc", "D_wide_tc_bf16",
              *(f"G_{p}{s}" for p in ("gates", "gates_p2", "chain") for s in ("", "_bf16")),
              "W_tc", "W_small", "W_tf32one", "W_tc_bf16", "W_small_bf16", "L_xproj", "L_chain",
              "L_xproj_bf16", "L_chain_bf16", "A_xproj", "A_chain", "A_xproj_bf16", "A_chain_bf16",
@@ -659,7 +678,9 @@ def check_registers():
               **{f"{k}_{p}{s}": _layout.GEMM_THREADS for k in "CEG"
                  for p in ("gates", "gates_p2", "dx") for s in ("", "_bf16")
                  if not (k in "EG" and p == "dx")},
-              **dict.fromkeys(("X_chain", "G_chain", "G_chain_bf16"), _layout.CHAIN_THREADS),
+              **dict.fromkeys(("X_chain", "G_chain", "G_chain_bf16", "F_chain", "F_chain_tc",
+                               "D_wide_chain", "D_wide_chain_bf16"), _layout.CHAIN_THREADS),
+              **dict.fromkeys(("D_wide_tc", "D_wide_tc_bf16"), _layout.DEC_TC_THREADS),
               # S's largest block (its instances: 64 or 128 threads)
               **dict.fromkeys(_layout.STEP_BUILDS,
                               max(p[1] for p in _layout.STEP_TILES) * 8),
@@ -903,6 +924,40 @@ def x_work(T, rows, H):
     return {"flops": 4 * T * rows * H * H + 2 * (2 * T * rows * H * H), "peak": PEAK_BF16_FLOPS}
 
 
+def f_work(T, rows, H):
+    """compare()'s work of F (a float32 layer over xp), at the card's best
+    rate for its operand types: h @ U[:, :2H] and (r * h) @ U[:, 2H:], f32
+    x f32, each as three TF32 products."""
+    return tf32_work(2 * T * rows * H * 3 * H)
+
+
+def d_work(heads):
+    """compare()'s work of the wide D on a call's heads (dicts with cells,
+    out, start, T), each product at the card's best rate for its operand
+    types. float32: every product (the layers' x W and h U, the readout) as
+    three TF32 products. bf16: bf16 x bf16 (layer 1's x W over the fed-back
+    probs, every h @ U[:, :2H] over the carried h) one bf16 product; float x
+    bf16 (layer 2's x W over layer 1's float h, (r * h) @ U[:, 2H:], the
+    readout over the float top h) two."""
+    import torch
+
+    one = two = 0.0
+    for h in heads:
+        M = h["T"] * h["start"].shape[0]
+        two += 2 * M * h["out"]["w"].numel()
+        for i, c in enumerate(h["cells"]):
+            H = c["u"].shape[0]
+            one += 2 * M * 2 * H * H
+            two += 2 * M * H * H
+            if i == 0:
+                one += 2 * M * c["w"].numel()
+            else:
+                two += 2 * M * c["w"].numel()
+    if heads[0]["start"].dtype == torch.bfloat16:
+        return {"flops": one + 2 * two, "peak": PEAK_BF16_FLOPS}
+    return tf32_work(one + two)
+
+
 def check(name, kernel_fn, plain_fn, limits, **_timed_only):
     """Kernel vs plain on the same inputs: max |diff| per output, within limits."""
     return _check(name, kernel_fn, plain_fn, limits)[0]
@@ -1101,7 +1156,12 @@ def phase_grad_reduce_checks():
 # before X and G moved onto A's and C's chains computed them on an NVIDIA
 # H100 80GB HBM3 at 700.00 W. X and G share A's, C's and E's device code
 # (E's chain runs C's layer step); A, C and E were not to change, so their
-# bits must not either.
+# bits must not either. Then kernel B's chain outputs (probs and logits of
+# numpy-seeded notes, velocity and instrument heads at H 256 and 512, B 256;
+# midi_vae_tpu_torch/tools/time_f_and_d.py --only digests, the commit
+# before F and D wide moved onto A's and B's chains, from its git archive
+# copy on the same card in one call): F shares A's device code, D wide's
+# chain B's, and neither A nor B was to change.
 PARENT_DIGESTS = {
     "A xproj H256 f32": "daad80aebbbfcabd",
     "A chain seq H256 f32": "56be70eb18476de6",
@@ -1126,20 +1186,27 @@ PARENT_DIGESTS = {
     "E H256 f32": "afc079a7a089ae8e",
     "E H256 bf16": "5575b119a6137a8c",
     "E wide H512 f32": "6d16b5e806551b02",
-    "E wide H512 bf16": "2d7faea2463e2359"}
+    "E wide H512 bf16": "2d7faea2463e2359",
+    "B chain notes H256": "9d72ad991e876c0b",
+    "B chain velocity H256": "54ec7c11156d7178",
+    "B chain instrument H256": "1f29c2741c0f2e40",
+    "B chain notes H512": "29b6bea122835e3b",
+    "B chain velocity H512": "9fb0c4809ee1eb7c",
+    "B chain instrument H512": "9eb5435a77b36f49"}
 
 
 def phase_a_c_bits():
-    """A's, C's and E's outputs bit-equal to the parent commit's
+    """A's, B's, C's and E's outputs bit-equal to the parent commit's
     (``PARENT_DIGESTS``)."""
-    from midi_vae_tpu_torch.tools.time_x_and_g import digests
+    from midi_vae_tpu_torch.tools.time_f_and_d import digests
 
     got = digests()
     wrong = {k: (got.get(k), v) for k, v in PARENT_DIGESTS.items() if got.get(k) != v}
     if wrong or set(got) != set(PARENT_DIGESTS):
-        raise RuntimeError(f"A's, C's or E's outputs differ from the parent commit's (digest, "
-                           f"parent digest): {wrong}")
-    print(f"[bits] A's, C's and E's outputs bit-equal to the parent commit's ({len(got)} digests)")
+        raise RuntimeError(f"A's, B's, C's or E's outputs differ from the parent commit's "
+                           f"(digest, parent digest): {wrong}")
+    print(f"[bits] A's, B's, C's and E's outputs bit-equal to the parent commit's ({len(got)} "
+          "digests)")
     return got
 
 
@@ -1299,6 +1366,16 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
 
     fwd = gd.gru_decode_fwd_train_wide if wide else gd.gru_decode_fwd_train
     bwd = gd.gru_decode_bwd_wide if wide else gd.gru_decode_bwd
+
+    def wide_block(heads):
+        """The wide D's per-block route on ``heads`` (the route chooser told
+        to take it)."""
+        saved = gd._layout.dec_wide_route
+        gd._layout.dec_wide_route = lambda *_a: "block"
+        try:
+            return gd.gru_decode_fwd_train_wide(heads)
+        finally:
+            gd._layout.dec_wide_route = saved
     d_name, e_name = ("D wide", "E wide") if wide else ("D", "E")
     d_key, e_key, w_key = (("gru_decode_train_wide", "gru_decode_bwd_wide", "grad_reduce_wide")
                            if wide else ("gru_decode_train", "gru_decode_bwd", "grad_reduce"))
@@ -1309,14 +1386,24 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
                           for h in heads)
         limits = [lim for h in heads for lim in [H_ATOL, LOGITS_ATOL] + [H_ATOL] * len(h["cells"])]
         fwd_flat = lambda outs: tuple(t for p, l, hs in outs for t in (p, l, *hs))  # noqa: E731
-        out = run(f"{d_name} {call} ({desc})", lambda h=heads: fwd_flat(fwd(h)),
-                  lambda h=heads: fwd_flat([gd.gru_decode_train_reference(
-                      x["cells"], x["out"], x["init"], x["start"], x["T"], x["out_activation"])
-                      for x in h]), limits,
-                  flops=sum(decode_flops(h["T"], rows, h["cells"], h["out"]["w"]) for h in heads),
-                  inputs=[[h["cells"], h["out"], h["init"], h["start"]] for h in heads])
+        work = d_work(heads) if wide else {
+            "flops": sum(decode_flops(h["T"], rows, h["cells"], h["out"]["w"]) for h in heads)}
+        plain_d = lambda h=heads: fwd_flat([gd.gru_decode_train_reference(  # noqa: E731
+            x["cells"], x["out"], x["init"], x["start"], x["T"], x["out_activation"]) for x in h])
+        out = run(f"{d_name} {call} ({desc})", lambda h=heads: fwd_flat(fwd(h)), plain_d, limits,
+                  **work, inputs=[[h["cells"], h["out"], h["init"], h["start"]] for h in heads])
         if timed:
             results[d_key][call] = out
+        if wide:
+            # the chain (every head of these calls takes it) and the per-block
+            # route, the first design, on the same heads
+            if timed:
+                results["gru_decode_train_wide_chain"][call] = out
+            blk = run(f"D wide per-block route {call}", lambda h=heads: fwd_flat(
+                wide_block(h)), plain_d, limits, **work,
+                inputs=[[h["cells"], h["out"], h["init"], h["start"]] for h in heads])
+            if timed:
+                results["gru_decode_train_wide_block"][call] = blk
         with torch.no_grad():
             for h in heads:
                 h["probs"], _l, h["h_seqs"] = gd.gru_decode_train_reference(
@@ -1392,6 +1479,35 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
             h["cells"], h["out"], h["init"], h["start"], h["T"], h["out_activation"])[:2]
             for h in lheads]), wanted)
         check(f"{d_name}+{e_name}+W grads {call} B={rows}", lambda: got, lambda: want, [rel] * len(want))
+
+
+def dwide_tc_checks(heads, h_limit, logits_limit):
+    """The wide D's tensor-core instance (``csrc/gru_decode_chain.cuh``,
+    which no path takes: it lost to the FFMA chain at every path head, PERF.md
+    Findings) on ``heads``, each at its rule's plan, against the plain
+    version: probs and the h sequences within ``h_limit``, logits within
+    ``logits_limit``."""
+    import torch
+
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+
+    picked = gd.dec_wide_plan
+    for h in heads:
+        D, n, rows = h["start"].shape[1], len(h["cells"]), h["start"].shape[0]
+        bf16 = h["start"].dtype == torch.bfloat16
+        plan = gd._layout.dec_train_plan(512, D, n, rows, h["T"], bf16, tc=True)
+        gd.dec_wide_plan = lambda *_a, _p=plan: _p
+        try:
+            check(f"D wide tensor-core instance {n}L D={D} T={h['T']} B={rows}"
+                  f"{' bf16' if bf16 else ''} (cluster {plan.cluster} x {plan.rows} rows)",
+                  lambda h_=h: tuple(t for p, l, hs in gd.gru_decode_fwd_train_wide([h_])
+                                     for t in (p, l, *hs)),
+                  lambda h_=h: tuple(t for p, l, hs in [gd.gru_decode_train_reference(
+                      h_["cells"], h_["out"], h_["init"], h_["start"], h_["T"],
+                      h_["out_activation"])] for t in (p, l, *hs)),
+                  [h_limit, logits_limit] + [h_limit] * n)
+        finally:
+            gd.dec_wide_plan = picked
 
 
 def c_phase_checks(run, tag, cargs):
@@ -1629,6 +1745,9 @@ def phase_wide_kernels():
     results = {k: {} for k in ("gru_layer_xp_fwd", "gru_layer_xp_bwd", "gru_decode_train_wide",
                                "gru_decode_bwd_wide", "grad_reduce_wide", "xp_h256_fwd",
                                "xp_h256_bwd", "gru_layer_512", "gru_decode_512",
+                               "gru_layer_xp_fwd_chain", "gru_layer_xp_fwd_block",
+                               "xp_h256_fwd_chain", "xp_h256_fwd_block",
+                               "gru_decode_train_wide_chain", "gru_decode_train_wide_block",
                                *(f"{k}_wide" for k in E_PHASES), *G_PHASES)}
 
     def plain_u(hprev, rh, da):
@@ -1647,9 +1766,17 @@ def phase_wide_kernels():
             seq = gl.gru_layer_xp_reference(xp, h0, u)
         out = run(f"F {tag} xp{tuple(xp.shape)}", lambda: gl.gru_layer_xp(xp, h0, u),
                   lambda: gl.gru_layer_xp_reference(xp, h0, u), [H_ATOL],
-                  flops=2 * T * rows * u.numel(), inputs=[xp, h0, u])
+                  **f_work(T, rows, H), inputs=[xp, h0, u])
         if fwd_key:
             results[fwd_key][tag] = out
+        # F's chain (the route at these widths) and its per-block route on the
+        # same layer
+        blk = run(f"F per-block route {tag}", lambda: gl.gru_layer_xp_fwd_block(xp, h0, u),
+                  lambda: gl.gru_layer_xp_reference(xp, h0, u), [H_ATOL],
+                  **f_work(T, rows, H), inputs=[xp, h0, u])
+        if fwd_key:
+            results[f"{fwd_key}_chain"][tag] = out
+            results[f"{fwd_key}_block"][tag] = blk
         g = torch.randn(seq.shape if rs else seq.shape[1:], generator=gen, device=dev)
         args = (xp, seq, h0, g if rs else None, None if rs else g, u)
         # dxp, dh0, da_cat (dxp itself in float32): gradients; r*h a forward value
@@ -1706,8 +1833,9 @@ def phase_wide_kernels():
             with torch.no_grad():
                 z = model.encode(batch)
             new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
-            check_decode_calls(_decode_train_heads(cfg, dec, new_encoded, rows, dev, wide=True), gen,
-                               run, timed, results, wide=True)
+            calls = _decode_train_heads(cfg, dec, new_encoded, rows, dev, wide=True)
+            check_decode_calls(calls, gen, run, timed, results, wide=True)
+            dwide_tc_checks([h for heads in calls.values() for h in heads], H_ATOL, LOGITS_ATOL)
             # the serving kernels at H = 512: A on the encoder layers, B on the heads
             with torch.inference_mode():
                 h0 = torch.zeros(rows, H, device=dev)
@@ -2326,14 +2454,18 @@ def bwd_phases(want, dx=1, e_layers=(0, 0)):
 
 
 def xp_phases(want):
-    """``want`` with the phases of kernels X and G: at the paths' widths (H =
-    256, 512) every launch of X (``gru_encoder_scan``) is its chain's, and
+    """``want`` with the phases of kernels X and G and the routes of F and
+    the wide D: at the paths' widths (H = 256, 512) every launch of X
+    (``gru_encoder_scan``), of F (``gru_layer_xp_fwd``) and of the wide D
+    (``gru_decode_train_wide``, per build: one a head) is its chain's, and
     each call of G (``gru_layer_xp_bwd``, per build) runs its xp gate
     pre-pass (two launches: P1, P2) and its chain (C's) once; their
     per-block routes none."""
     out = dict(want)
-    if want.get("gru_encoder_scan"):
-        out["gru_encoder_scan_chain"] = want["gru_encoder_scan"]
+    for op in ("gru_encoder_scan", "gru_layer_xp_fwd", "gru_decode_train_wide",
+               "gru_decode_train_wide_bf16"):
+        if want.get(op):
+            out[op.replace("_bf16", "") + "_chain" + ("_bf16" if op.endswith("_bf16") else "")] = want[op]
     for sfx in ("", "_bf16"):
         n = want.get(f"gru_layer_xp_bwd{sfx}", 0)
         if n:
@@ -2373,7 +2505,8 @@ def kernel_counters():
     ``launches_bf16`` for the bf16 builds of T, S, A, C, D, E, G, the wide D
     and E, W, L, N, Q and R, ``launches_resid`` for D's and E's
     bf16-residual builds, ``launches_row8_bf16`` for E wide's row-8 build,
-    ``launches_chain`` and ``launches_block`` for X's two routes."""
+    ``launches_chain`` and ``launches_block`` for the two routes of X, F
+    and the wide D (its ``_bf16`` ones for D wide bf16)."""
     from midi_vae_tpu_torch.ops import encoder_scan as es
     from midi_vae_tpu_torch.ops import encoder_stack as est
     from midi_vae_tpu_torch.ops import gru_decode as gd
@@ -2416,9 +2549,15 @@ def kernel_counters():
                  "lstm_layer_xp_bwd", *BPTT_PHASES, *L_PHASES, *A_PHASES, *C_PHASES,
                  *E_PHASES, *G_PHASES):
         counters[f"{name}_bf16"] = (counters[name][0], "launches_bf16")
-    # X's chain and its per-block route (``launches``: either)
+    # X's, F's and the wide D's chains and per-block routes (``launches``:
+    # either; the wide D per build)
     counters["gru_encoder_scan_chain"] = (es.gru_encoder_scan_fwd, "launches_chain")
     counters["gru_encoder_scan_block"] = (es.gru_encoder_scan_fwd, "launches_block")
+    for route in ("chain", "block"):
+        counters[f"gru_layer_xp_fwd_{route}"] = (gl.gru_layer_xp, f"launches_{route}")
+        for sfx in ("", "_bf16"):
+            counters[f"gru_decode_train_wide_{route}{sfx}"] = (gd.gru_decode_fwd_train_wide,
+                                                               f"launches_{route}{sfx}")
     counters["gru_decode_chain"] = (gd.gru_decode, "launches_chain")
     counters["gru_decode_train_resid"] = (gd.gru_decode_fwd_train, "launches_resid")
     counters["gru_decode_bwd_resid"] = (gd.gru_decode_bwd, "launches_resid")
@@ -4552,6 +4691,7 @@ def phase_bf16_wide_kernels():
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
     keys = ("gru_encoder_scan_wide_bf16", "gru_layer_xp_bwd_bf16", "grad_reduce_wide_bf16",
             "gru_decode_train_wide_bf16", "gru_decode_bwd_wide_bf16",
+            "gru_decode_train_wide_chain_bf16", "gru_decode_train_wide_block_bf16",
             *(f"{k}_wide_bf16" for k in E_PHASES), *(f"{k}_bf16" for k in G_PHASES))
     results = {k: {} for k in keys}
     found = {}
@@ -4571,8 +4711,16 @@ def phase_bf16_wide_kernels():
         return torch.cat([hprev.reshape(n, H).t() @ da[:, : 2 * H],
                           rh.reshape(n, H).t() @ da[:, 2 * H :]], 1)
 
-    def kernel_d(head):
-        probs, logits, h_seqs = gd.gru_decode_fwd_train_wide([head])[0]
+    def kernel_d(head, block=False):
+        """The wide D on ``head``: its route's (the chain), or with ``block``
+        the per-block route's."""
+        saved = gd._layout.dec_wide_route
+        if block:
+            gd._layout.dec_wide_route = lambda *_a: "block"
+        try:
+            probs, logits, h_seqs = gd.gru_decode_fwd_train_wide([head])[0]
+        finally:
+            gd._layout.dec_wide_route = saved
         return probs, logits, *h_seqs
 
     def plain_d(head):
@@ -4679,13 +4827,20 @@ def phase_bf16_wide_kernels():
                     "out_activation": out_act}
             n = len(head["cells"])
             tag = f"{name} ({n}L D={d} T={T} {out_act})"
-            fb, ff = decode_flops_bf16(T, rows, head["cells"], head["out"]["w"])
+            dinputs = [head["cells"], head["out"], head["init"], head["start"]]
             out = run(f"D wide bf16 {tag}", lambda h_=head: kernel_d(h_),
-                      lambda h_=head: plain_d(h_), [BF16_OUT] * (2 + n), flops=fb, flops_f32=ff,
-                      inputs=[head["cells"], head["out"], head["init"], head["start"]],
-                      peak=PEAK_BF16_FLOPS)
+                      lambda h_=head: plain_d(h_), [BF16_OUT] * (2 + n), **d_work([head]),
+                      inputs=dinputs)
+            # the per-block route (the first design) on the same head, and
+            # the tensor-core instance of the chain
+            blk = run(f"D wide bf16 per-block route {tag}", lambda h_=head: kernel_d(h_, True),
+                      lambda h_=head: plain_d(h_), [BF16_OUT] * (2 + n), **d_work([head]),
+                      inputs=dinputs)
+            dwide_tc_checks([head], BF16_OUT, BF16_OUT)
             if timed:
                 results["gru_decode_train_wide_bf16"][name] = out
+                results["gru_decode_train_wide_chain_bf16"][name] = out
+                results["gru_decode_train_wide_block_bf16"][name] = blk
             if timed and n == 2:
                 # one step from the head's initial states: the control's ground
                 step1 = dict(head, T=1)
@@ -5442,16 +5597,22 @@ def phase_residual_kernels():
         (head,) = heads_of(cfg, dec, new_encoded, rows, ("instrument",), bf)
         n, T = len(head["cells"]), head["T"]
         tag = f"instrument (1L D={head['start'].shape[1]} T={T}) B={rows}"
-        fb, ff = decode_flops_bf16(T, rows, head["cells"], head["out"]["w"])
         out = run(f"D wide bf16 (row 7) {tag}",
                   lambda: fwd_flat(gd.gru_decode_fwd_train_wide([head])),
                   lambda: fwd_flat([gd.gru_decode_train_reference(
                       head["cells"], head["out"], head["init"], head["start"], T,
-                      head["out_activation"])]), [BF16_OUT] * (2 + n), flops=fb, flops_f32=ff,
-                  inputs=[head["cells"], head["out"], head["init"], head["start"]],
-                  peak=PEAK_BF16_FLOPS)
+                      head["out_activation"])]), [BF16_OUT] * (2 + n), **d_work([head]),
+                  inputs=[head["cells"], head["out"], head["init"], head["start"]])
         if timed:
             results["gru_decode_train_rows78"]["instrument"] = out
+        # the notes head of this step (row 13 in bf16: D wide bf16's chain) at
+        # the same batch
+        (notes,) = heads_of(cfg, dec, new_encoded, rows, ("notes",), bf)
+        check(f"D wide bf16 (row 13) notes B={rows}",
+              lambda: fwd_flat(gd.gru_decode_fwd_train_wide([notes])),
+              lambda: fwd_flat([gd.gru_decode_train_reference(
+                  notes["cells"], notes["out"], notes["init"], notes["start"], notes["T"],
+                  notes["out_activation"])]), [BF16_OUT] * (2 + len(notes["cells"])))
         with_residuals([head], None)
         out = run(f"E wide row8 bf16 {tag}",
                   lambda: bwd_flat(gd.gru_decode_bwd_wide([head], "E_wide_row8_bf16")),
@@ -5609,6 +5770,22 @@ def kernel_registers(registers, letter):
         return registers[aliases[key]]
     if key in ("B", "X"):  # the chain and the per-block route
         return {"chain": registers[f"{key}_chain"], "block": registers[key]}
+    # F's chain (A's instances in F's library, the tensor-core one) and the
+    # wide D's (B's FFMA training instance, the tensor-core one), each beside
+    # its per-block route
+    # (the op, its chain's name, its per-block route's name): chain instances
+    routes = {("F", "F_chain", "F_block"): ("F_chain", "F_chain_tc"),
+              ("D_wide", "D_wide_chain", "D_wide_block"): ("D_wide_chain", "D_wide_tc"),
+              ("D_wide_bf16", "D_wide_chain_bf16", "D_wide_block_bf16"): ("D_wide_chain_bf16",
+                                                                          "D_wide_tc_bf16")}
+    for (op, chain, block), (ffma, tc) in routes.items():
+        instances = {"chain": registers[ffma], "chain_tc": registers[tc]}
+        if key == op:
+            return {**instances, "block": registers[op]}
+        if key == chain:
+            return instances
+        if key == block:
+            return registers[op]
     if key in ("G", "G_bf16"):  # the xp gate pre-pass, the chain, the per-block route
         sfx = key[1:]
         return {**{p: registers[f"G_{p}{sfx}"] for p in ("gates", "gates_p2", "chain")},
@@ -5832,9 +6009,14 @@ def main() -> int:
                         ["fused_train.py:3184", "fused_train.py:567", "fused_train.py:628",
                          "fused_train.py:166", "fused_train.py:2458", "fused_train.py:1436",
                          "fused_train.py:2032"]),
-        # rows 11 and 9: _fwd_kernel through _fwd_wide_pallas and _fwd_pallas
+        # rows 11 and 9: _fwd_kernel through _fwd_wide_pallas and _fwd_pallas;
+        # its chain (the route at the paths' widths) and per-block route
         "gru_layer_xp_fwd": ("F", "gru_layer_xp_fwd.cu", "fused_train.py:1696",
                              ["fused_train.py:68", "fused_train.py:92"]),
+        **{f"gru_layer_xp_fwd_{route}": (f"F {route}", "gru_layer_xp_fwd.cu",
+                                         "fused_train.py:1696",
+                                         ["fused_train.py:68", "fused_train.py:92"])
+           for route in ("chain", "block")},
         # rows 12 and 10: _bwd_wide_kernel and _bwd_kernel
         "gru_layer_xp_bwd": ("G", "gru_layer_xp_bwd.cu", "fused_train.py:1720",
                              ["fused_train.py:1772", "fused_train.py:120", "fused_train.py:177"]),
@@ -5847,9 +6029,14 @@ def main() -> int:
             ["fused_train.py:177"] if sfx else ["fused_train.py:1772", "fused_train.py:120",
                                                 "fused_train.py:177"])
            for phase in ("gates", "chain", "block") for sfx in ("", "_bf16")},
-        # row 13: _dec_fwd1/2_kernel through _dec_fwd_wide_pallas
+        # row 13: _dec_fwd1/2_kernel through _dec_fwd_wide_pallas; its chain
+        # (the route at the paths' heads) and per-block route, float32 and bf16
         "gru_decode_train_wide": ("D wide", "gru_decode_train.cu", "fused_train.py:1010",
                                   ["fused_train.py:431", "fused_train.py:393"]),
+        **{f"gru_decode_train_wide_{route}{sfx}": (
+            f"D wide {route}{' bf16' if sfx else ''}", "gru_decode_train.cu",
+            "fused_train.py:1010", ["fused_train.py:431", "fused_train.py:393"])
+           for route in ("chain", "block") for sfx in ("", "_bf16")},
         # row 14: _dec_bwd2_wide_kernel, _dec_bwd1_wide_kernel
         "gru_decode_bwd_wide": ("E wide", "gru_decode_bwd.cu", "fused_train.py:1080",
                                 ["fused_train.py:1135", "fused_train.py:1176"]),
@@ -5990,6 +6177,8 @@ def main() -> int:
                              ("ms_lstm_step", "grad_reduce_lstm"),
                              ("ms_lstm_512_step", "grad_reduce_lstm_wide")],
              "gru_layer_xp_fwd": [("ms_h256", "xp_h256_fwd")],
+             "gru_layer_xp_fwd_chain": [("ms_h256", "xp_h256_fwd_chain")],
+             "gru_layer_xp_fwd_block": [("ms_h256", "xp_h256_fwd_block")],
              "gru_layer_xp_bwd": [("ms_h256", "xp_h256_bwd")],
              "lstm_layer_fwd": [("ms_train_step", "lstm_layer_train_fwd")],
              "lstm_layer_xproj": [("ms_train_step", "lstm_layer_xproj_train")],
@@ -6005,6 +6194,7 @@ def main() -> int:
                                   ("ms_resid", "grad_reduce_resid"),
                                   ("ms_rows78", "grad_reduce_rows78_bf16")],
              "gru_decode_train_wide_bf16": [("ms_rows78", "gru_decode_train_rows78")],
+             "gru_decode_train_wide_chain_bf16": [("ms_rows78", "gru_decode_train_rows78")],
              # E's phases on the wide route, with bf16 residuals, in rows 13
              # and 14 and in rows 7 and 8 at H = 512
              **{f"gru_decode_bwd_{p}": [("ms_wide_step", f"gru_decode_bwd_{p}_wide"),

@@ -60,6 +60,13 @@
 // phases and steps (P1's chunks hold the 2 Hc z and r columns, P2's the Hc
 // candidate columns: the STREAM instance).
 //
+// Kernel F (gru_layer_xp_fwd.cu) runs the float32 build over its given xp
+// where the slice is resident, and where it streams a tensor-core instance
+// of its own (gru_fwd_chain_tc_kernel, below: the slice packed in
+// B-fragment order and streamed by the Tensor Memory Accelerator, P1 and
+// P2 as three TF32 products; tc_segment, which D wide's tensor-core chain
+// of gru_decode_chain.cuh shares). A's instances are unchanged.
+//
 // What bounds it: the chain, T steps of two dependent products of rows x
 // H x (2 Hc, Hc) per CTA and two cluster barriers; ops/_layout.py::
 // gru_fwd_plan picks C, the rows a cluster takes (ceil(B / the card's
@@ -67,9 +74,50 @@
 // Every kernel launches on the caller's stream and allocates nothing.
 #pragma once
 
+#include "gemm_tc.cuh"
 #include "lstm_cluster.cuh"
 
 namespace mvt {
+
+// The Tensor Memory Accelerator's bulk copies into a ring of shared-memory
+// slots, each slot's completion counted on an mbarrier (kernel B's decode
+// chain, gru_decode_chain.cuh, and F's tensor-core instance below)
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// the calling thread arrives on bar and adds `bytes` to the transfers it
+// waits for
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from global memory
+// into this CTA's shared memory by the Tensor Memory Accelerator, counted
+// on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// wait for bar's phase of parity `parity` to complete; a wait far longer
+// than any transfer traps, so a fault surfaces as a launch error, not a hang
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  for (long long spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (spins > (1ll << 28)) __trap();
+  }
+}
 
 // depth rows of a streamed chunk of the float slice
 constexpr int kGruChunk = 32;
@@ -602,6 +650,355 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_mma_kernel(
     store_out(t, hv);
     cluster_wait();
   }
+}
+
+// ---------------------------------------------------------------------------
+// F's tensor-core instance: the float32 chain with the slice streamed by the
+// Tensor Memory Accelerator and both products on the tensor cores
+// ---------------------------------------------------------------------------
+
+// (m-tile, n-tile) items a warp owns in a phase
+constexpr int kTcMaxItems = 4;
+
+// The slice of U packed per CTA (ops/gru_layer.py::pack_tc_slices) in the
+// order mma.sync's B fragments are read: for each 8 depth rows (a k-step)
+// and each 8 columns (an n-tile) of a CTA's P1 slice (H, 2 Hc: z and r of
+// its units) or P2 slice (H, Hc: the candidate), 32 lanes x 2 floats, lane
+// 4 g + t holding depth rows t and t + 4 of column g. A chunk of `chunk`
+// depth rows of either is one contiguous block.
+struct GruFwdTcArgs {
+  const float* xp;   // (T, B, 3H)
+  const float* h0;   // (B, H)
+  const float* pzr;  // (C, H / 8, 2 Hc / 8, 64)
+  const float* ph;   // (C, H / 8, Hc / 8, 64)
+  float* hseq;       // (T, B, H)
+  int T, B, H;
+  int rows;    // batch rows per cluster
+  int stages;  // slots of the ring
+  int chunk;   // depth rows of a chunk (32, 64 or 128)
+};
+
+// the row stride of the tensor-core instance's h and r h tiles: the rows
+// rounded to 8, and 8 floats more where that is a multiple of 16, so that a
+// warp's A-fragment loads (rows g, depths t) hit 32 banks. An m-tile's rows
+// past the stride (rows rounded to 8 but not to 16) read the next depth
+// row's values (past the r h tile's last: the gate sums), whose products
+// land in gate rows no owner reads.
+__host__ __device__ constexpr int gru_tc_stride(int rows) {
+  return round8(rows) % 16 ? round8(rows) : round8(rows) + 8;
+}
+// depth splits of a phase of `items` (m-tile, n-tile) items over the CTA's
+// `warps`: the warps left idle by few items share each item's k-steps
+__host__ __device__ constexpr int gru_tc_splits(int items, int ksteps, int warps = kChainWarps) {
+  int s = 1;
+  while (2 * s * items <= warps && ksteps % (2 * s) == 0) s *= 2;
+  return s;
+}
+
+// Shared memory of the tensor-core instance, in bytes: the ring (stages x
+// chunk x 2 Hc floats) | the h and r h tiles (H x gru_tc_stride) | the
+// phases' gate sums (splits x rows in m-tiles x (columns + 8)) | the owners'
+// xp (8 rows x 3 gates a tile of 8 rows, kTileStride floats). ops/_layout.py's
+// gru_tc_smem computes the same.
+__host__ __device__ constexpr size_t gru_tc_smem(int H, int C, int rows, int stages, int chunk) {
+  const int Hc = H / C, mts = (rows + 15) / 16, RS = gru_tc_stride(rows);
+  const int s1 = gru_tc_splits(mts * 2 * Hc / 8, chunk / 8);
+  const int s2 = gru_tc_splits(mts * Hc / 8, chunk / 8);
+  const size_t g1 = (size_t)s1 * 16 * mts * (2 * Hc + 8), g2 = (size_t)s2 * 16 * mts * (Hc + 8);
+  return 4 * ((size_t)stages * chunk * 2 * Hc + 2 * (size_t)H * RS + (g1 > g2 ? g1 : g2) +
+              (size_t)Hc * (round8(rows) / 8) * kTileStride);
+}
+
+// B fragments of a packed slice: two float32 values (3 products: split), or
+// two bf16 values in one 32-bit word (exact in TF32)
+__device__ __forceinline__ void tc_b_frag(const float* p, unsigned (&hi)[2], unsigned (&lo)[2]) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  tc::split<true>(v.x, hi[0], lo[0]);
+  tc::split<true>(v.y, hi[1], lo[1]);
+}
+__device__ __forceinline__ void tc_b_frag(const bf16* p, unsigned (&hi)[2], unsigned (&lo)[2]) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(p);
+  hi[0] = w << 16;  // a bf16 value's bits are the top half of its float's
+  hi[1] = w & 0xffff0000u;
+  lo[0] = lo[1] = 0u;
+}
+
+// One segment of a chain's step on the tensor cores, shared by F's
+// instance and D wide's (gru_decode_chain.cuh): gate sums = a tile of
+// shared memory (depth rows of rows, row stride RS: h, r h or x) . `width`
+// columns of a slice packed in B-fragment order, streamed through the
+// ring in n chunks of ksteps k-steps of 8 depth rows. A warp owns the
+// (m-tile, n-tile) items it, it + stride, ... (stride = the warps of a
+// split) of one of `splits` shares of each chunk's k-steps; each chunk's
+// products go into zeroed accumulators that one float add joins to the
+// running sums (the tensor cores truncate as they add), and at the end
+// every split's sums land in its gate tile (16 mts x (width + 8) floats at
+// gsum + split x that). P products a k-step: 3 (both operands float32,
+// split), 2 (the tile's float32 values split, the weights exact), 1 (both
+// exact in TF32: bf16 values). Chunk seq (counted over the chain) sits in
+// slot seq % stages; next(j) asks for chunk j into its slot. Every thread of
+// the CTA (WARPS warps, each at most MI items) calls it; it ends with a
+// barrier.
+template <int P, int MI = kTcMaxItems, int WARPS = kChainWarps, typename TW, typename Next>
+__device__ __forceinline__ void tc_segment(const float* tile, int RS, int mts, int width, int items,
+                                           int splits, int ksteps, const TW* ring,
+                                           size_t slot_elems, int stages, int n, int total,
+                                           int& seq, unsigned long long* bars, Next next,
+                                           float* gsum) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gid = lane >> 2, tig = lane & 3;
+  const int nts = width / 8, per = ksteps / splits, stride = WARPS / splits;
+  const int split = warp / stride, first = warp % stride;
+  float run[MI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) run[i][e] = 0.0f;
+  }
+  for (int ch = 0; ch < n; ++ch) {
+    // every thread is done with the slot the next copy refills; then chunk
+    // seq has landed
+    __syncthreads();
+    if (tid == 0 && seq + stages - 1 < total) next(seq + stages - 1);
+    mbar_wait(&bars[seq % stages], (seq / stages) & 1);
+    const TW* slot = ring + (size_t)(seq % stages) * slot_elems;
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int it = first + i * stride;
+      if (it >= items) break;
+      const int mt = it / nts, nt = it % nts;
+      float st[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const int k0 = ch * 8 * ksteps + split * per * 8;
+      const float* arow = tile + (size_t)(k0 + tig) * RS + 16 * mt + gid;
+      const TW* brow = slot + (((size_t)split * per * nts + nt) * 32 + lane) * 2;
+#pragma unroll 2
+      for (int ks = 0; ks < per; ++ks) {
+        const float* ap = arow + (size_t)ks * 8 * RS;
+        unsigned ah[4], al[4], bh[2], bl[2];
+        tc::split<P >= 2>(ap[0], ah[0], al[0]);
+        tc::split<P >= 2>(ap[8], ah[1], al[1]);
+        tc::split<P >= 2>(ap[4 * RS], ah[2], al[2]);
+        tc::split<P >= 2>(ap[4 * RS + 8], ah[3], al[3]);
+        tc_b_frag(brow + (size_t)ks * nts * 64, bh, bl);
+        if constexpr (P >= 2) tc::mma_tf32(st, al, bh[0], bh[1]);
+        if constexpr (P == 3) tc::mma_tf32(st, ah, bl[0], bl[1]);
+        tc::mma_tf32(st, ah, bh[0], bh[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) run[i][e] += st[e];
+    }
+    ++seq;
+  }
+  // each split's sums into its gate tile: c0, c1 at (row g, columns 2 t,
+  // 2 t + 1), c2, c3 eight rows below
+  float* g = gsum + (size_t)split * 16 * mts * (width + 8);
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int it = first + i * stride;
+    if (it >= items) break;
+    const int mt = it / nts, nt = it % nts;
+    float* o = g + (size_t)(16 * mt + gid) * (width + 8) + 8 * nt + 2 * tig;
+    *reinterpret_cast<float2*>(o) = make_float2(run[i][0], run[i][1]);
+    *reinterpret_cast<float2*>(o + 8 * (width + 8)) = make_float2(run[i][2], run[i][3]);
+  }
+  __syncthreads();
+}
+
+// A gate column's sum over a segment's splits, in split order: row `row`,
+// column `col` of the gate tiles at gsum (16 mts x (width + 8) floats each)
+__device__ __forceinline__ float tc_gate(const float* gsum, int mts, int width, int splits,
+                                         int row, int col) {
+  float s = 0.0f;
+  for (int sp = 0; sp < splits; ++sp) s += gsum[((size_t)sp * 16 * mts + row) * (width + 8) + col];
+  return s;
+}
+
+// Grid: clusters * C CTAs of kChainThreads, cluster dims (C, 1, 1).
+//
+// A step is A's float chain's (P1, X1, P2, X2, two cluster barriers) with
+// its products on mma.sync m16n8k8 as three TF32 products (gemm_tc.cuh: the
+// operands split into a TF32 part and its remainder, a_lo b_hi + a_hi b_lo +
+// a_hi b_hi; tc_segment), the phase's sums in shared-memory gate tiles that
+// the owners (one thread a unit and 8 rows, as in A's chain) sum over the
+// splits in split order; they finish the gates, exchange r h and h_t and
+// store the sequence. The slice streams through a ring of
+// `stages` slots of `chunk` depth rows (P1's chunks 2 Hc columns wide,
+// P2's Hc) that runs on across the phases and steps; thread 0 asks the
+// Tensor Memory Accelerator for each chunk, one contiguous block of the
+// packed slice, its completion counted on the slot's mbarrier.
+template <int ACT>
+__global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_tc_kernel(const GruFwdTcArgs a) {
+  extern __shared__ __align__(16) unsigned char gru_smem_raw[];
+  __shared__ unsigned long long bars[8];  // a slot's transfer
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
+  const int H = a.H, B = a.B, T = a.T, rows = a.rows, K = a.chunk;
+  const int Hc = H / C, R8 = round8(rows), ntiles = Hc * (R8 / 8), RS = gru_tc_stride(rows);
+  const int mts = (rows + 15) / 16, ksteps = K / 8;
+  const int row0 = (blockIdx.x / C) * rows;
+  const int tid = threadIdx.x;
+  // owners: thread tid < ntiles owns unit ul of rows 8 ro ..
+  const bool owner = tid < ntiles;
+  const int ul = tid % Hc, ro = tid / Hc, unit = c * Hc + ul;
+  // the phases' items and depth splits
+  const int items1 = mts * 2 * Hc / 8, items2 = mts * Hc / 8;
+  const int s1 = gru_tc_splits(items1, ksteps), s2 = gru_tc_splits(items2, ksteps);
+  // shared memory: the ring | the h tile (H, RS) | the r h tile (H, RS) |
+  // the gate sums | the owners' xp
+  float* ring = reinterpret_cast<float*>(gru_smem_raw);
+  const size_t slot_floats = (size_t)K * 2 * Hc;
+  float* hbuf = ring + (size_t)a.stages * slot_floats;
+  float* rhbuf = hbuf + (size_t)H * RS;
+  float* gsum = rhbuf + (size_t)H * RS;
+  const size_t g1 = (size_t)s1 * 16 * mts * (2 * Hc + 8), g2 = (size_t)s2 * 16 * mts * (Hc + 8);
+  float* xs = gsum + (g1 > g2 ? g1 : g2) + (size_t)(owner ? tid : 0) * kTileStride;
+
+  const int n_chunks = H / K, total_chunks = T * 2 * n_chunks;
+  // chunk j of the sequence (thread 0 alone): step j / (2 n)'s P1 or P2
+  // chunk (j % n) into slot j % stages
+  auto copy_chunk = [&](int j) {
+    const int p2 = (j % (2 * n_chunks)) >= n_chunks, d = j % n_chunks;
+    const int w = p2 ? Hc : 2 * Hc;
+    const float* src = (p2 ? a.ph : a.pzr) + ((size_t)c * H + (size_t)d * K) * w;
+    const unsigned bytes = K * w * 4;
+    unsigned long long* bar = &bars[j % a.stages];
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(bar, bytes);
+    bulk_copy(ring + (size_t)(j % a.stages) * slot_floats, src, bytes, bar);
+  };
+  if (tid == 0) {
+    for (int j = 0; j < a.stages; ++j) mbar_init(&bars[j], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int j = 0; j < a.stages - 1 && j < total_chunks; ++j) copy_chunk(j);
+  }
+  for (size_t i = tid; i < 2 * (size_t)H * RS; i += blockDim.x) hbuf[i] = 0.0f;
+  __syncthreads();
+  for (int i = tid; i < rows * H; i += blockDim.x) {
+    const int r = i / H, k = i % H;
+    if (row0 + r < B) hbuf[(size_t)k * RS + r] = a.h0[(size_t)(row0 + r) * H + k];
+  }
+  auto live = [&](int r) { return owner && 8 * ro + r < rows && row0 + 8 * ro + r < B; };
+  // the owner copies xp of the step to come into xs (value (q, r) at
+  // 8 q + r): one copy group, waited for by itself
+  auto load_xp = [&](int t) {
+    if (!owner) return;
+    const float* x = a.xp + ((size_t)t * B + row0 + 8 * ro) * 3 * H + unit;
+#pragma unroll 1
+    for (int r = 0; r < 8; ++r, x += 3 * H) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        if (live(r)) {
+          cp_async4(xs + 8 * q + r, x + q * H);
+        } else {
+          xs[8 * q + r] = 0.0f;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // one phase's product: gate sums (16 mts, width + 8) of each split = the
+  // tile (h or r h) . the phase's width columns, streamed in n_chunks chunks
+  int chunk_seq = 0;
+  auto product = [&](const float* tile, int width, int items, int splits) {
+    tc_segment<3>(tile, RS, mts, width, items, splits, ksteps, ring, slot_floats, a.stages,
+                  n_chunks, total_chunks, chunk_seq, bars, copy_chunk, gsum);
+  };
+  auto gate = [&](int width, int splits, int col, int r) {
+    return tc_gate(gsum, mts, width, splits, 8 * ro + r, col);
+  };
+  load_xp(0);
+  // every CTA's tiles are set before a peer writes into them
+  cluster_arrive();
+  cluster_wait();
+
+  const size_t own = (size_t)c * Hc * RS;  // the CTA's columns of a tile, in floats
+  for (int t = 0; t < T; ++t) {
+    // P1
+    product(hbuf, 2 * Hc, items1, s1);
+    float hold[8], zv[8];
+    if (owner) {
+      cp_async_wait(0);  // the owner's xp of the step
+      const float* hr = hbuf + (size_t)unit * RS + 8 * ro;
+      float* rr = rhbuf + (size_t)unit * RS + 8 * ro;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        hold[r] = hr[r];
+        zv[r] = activate<kSigmoid>(gate(2 * Hc, s1, ul, r) + xs[r]);
+        rr[r] = activate<kSigmoid>(gate(2 * Hc, s1, Hc + ul, r) + xs[8 + r]) * hold[r];
+      }
+    }
+    __syncthreads();  // the CTA's columns of r h are in its tile
+    // X1: its units' rows are one run of Hc RS floats
+    push_columns(cluster, reinterpret_cast<char*>(rhbuf), Hc * RS / 4,
+                 [&](int j) { return own * 4 + (size_t)16 * j; }, C, c);
+    cluster_arrive();
+    cluster_wait();
+    // P2
+    product(rhbuf, Hc, items2, s2);
+    float hv[8] = {};
+    if (owner) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float hh = activate<ACT>(gate(Hc, s2, ul, r) + xs[16 + r]);
+        hv[r] = 8 * ro + r < rows ? zv[r] * hold[r] + (1.0f - zv[r]) * hh : 0.0f;
+      }
+    }
+    auto store_out = [&]() {
+      size_t o = ((size_t)t * B + row0 + 8 * ro) * H + unit;
+#pragma unroll
+      for (int r = 0; r < 8; ++r, o += H) {
+        if (live(r)) a.hseq[o] = hv[r];
+      }
+    };
+    if (t + 1 == T) {
+      store_out();
+      break;
+    }
+    if (owner) {
+      float* hr = hbuf + (size_t)unit * RS + 8 * ro;
+      *reinterpret_cast<float4*>(hr) = make_float4(hv[0], hv[1], hv[2], hv[3]);
+      *reinterpret_cast<float4*>(hr + 4) = make_float4(hv[4], hv[5], hv[6], hv[7]);
+    }
+    __syncthreads();  // the CTA's columns of h_t are in its tile
+    // X2, then the barrier; the step's outputs and the owner's next xp go to
+    // and come from device memory while it completes
+    push_columns(cluster, reinterpret_cast<char*>(hbuf), Hc * RS / 4,
+                 [&](int j) { return own * 4 + (size_t)16 * j; }, C, c);
+    cluster_arrive();
+    load_xp(t + 1);
+    store_out();
+    cluster_wait();
+  }
+}
+
+// F's tensor-core instance at its plan (ops/_layout.py::gru_tc_plan:
+// cluster size, rows a cluster, stages, chunk); cudaErrorInvalidValue for a
+// plan it does not run.
+template <int ACT>
+int launch_gru_fwd_tc(const GruFwdTcArgs& a, int cluster, void* stream) {
+  const int H = a.H, K = a.chunk;
+  if (a.T < 1 || a.B < 1 || cluster < 1 || cluster > kMaxCluster || H % cluster != 0 ||
+      a.rows < 1 || (K != 32 && K != 64 && K != 128) || H % K != 0 || a.stages < 2 ||
+      a.stages > 8 || a.hseq == nullptr || (reinterpret_cast<size_t>(a.pzr) & 15) != 0 ||
+      (reinterpret_cast<size_t>(a.ph) & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int Hc = H / cluster, mts = (a.rows + 15) / 16;
+  if (Hc % 8 != 0 || Hc * (round8(a.rows) / 8) > kChainThreads ||
+      (mts * 2 * Hc / 8 + kChainWarps - 1) / kChainWarps > kTcMaxItems) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = gru_tc_smem(H, cluster, a.rows, a.stages, K);
+  if (smem > 232448 - 1024) return (int)cudaErrorInvalidValue;
+  auto kernel = gru_fwd_chain_tc_kernel<ACT>;
+  cudaError_t err = cluster_config(kernel, cluster, smem);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch l((a.B + a.rows - 1) / a.rows * cluster, cluster, smem, stream);
+  err = cudaLaunchKernelEx(&l.cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <typename Args>

@@ -19,12 +19,20 @@
 // Two builds of the same body. The narrow one (mvt_gru_decode_train) holds
 // kRows = 8 batch rows per block and takes 160 registers a thread, so it
 // launches up to H = 384 (160 x 384 = 61,440 of an SM's 65,536). The wide
-// one (mvt_gru_decode_train_wide) holds kWideRows = 2 rows per block under
-// __launch_bounds__(kWideThreads): a quarter of the per-row accumulators,
-// capped by the compiler at 128 registers, so H = 512 threads launch; it
-// also runs four times the blocks (128 per head at B = 256, on 128 of the
-// 132 SMs), which at H = 512 beat 4 rows a block (notes head 11.1 against
-// 11.5 ms on the H100). ops/_layout.py picks the build.
+// one's first design (mvt_gru_decode_train_wide_block) holds kWideRows = 2
+// rows per block under __launch_bounds__(kWideThreads): a quarter of the
+// per-row accumulators, capped by the compiler at 128 registers, so H = 512
+// threads launch; it also runs four times the blocks (128 per head at B =
+// 256, on 128 of the 132 SMs), which at H = 512 beat 4 rows a block (notes
+// head 11.1 against 11.5 ms on the H100). ops/_layout.py picks the build.
+//
+// The wide builds' chain (mvt_gru_decode_train_wide, _bf16): kernel B's
+// decode chain on thread-block clusters in its training instance
+// (gru_decode_chain.cuh: the h sequences stored from the X2 exchange, the
+// bf16 roundings), one head a launch, with its products as B's FFMA or on
+// the tensor cores, at the plan ops/_layout.py::dec_train_plan gives; the
+// per-block design stays the route of shapes the chain's plan refuses
+// (ops/_layout.py::dec_wide_route).
 //
 // What bounds it: as kernel B, the serial chain of T steps per head; the
 // 1-layer side heads finish inside the 2-layer notes head's time.
@@ -45,6 +53,7 @@
 // to its; only h1seq, h2seq (and each side head's hkseq) are stored rounded
 // to bf16, which halves the bytes kernel E reads back.
 #include "gru_decode_body.cuh"
+#include "gru_decode_chain.cuh"
 
 namespace mvt {
 
@@ -139,6 +148,52 @@ int launch(Kernel kernel, const DecodeHeadT<TV, TS>* heads, int n_heads, int B,
   return (int)cudaGetLastError();
 }
 
+// The wide builds' chain: one head on kernel B's decode chain
+// (gru_decode_chain.cuh) in its training instance, at the plan of
+// ops/_layout.py::dec_train_plan
+template <typename TV, int NL, int OUT>
+int chain_head(const GruDecodeChainArgsT<TV>& a, int cluster, int tc, void* stream) {
+  return tc ? launch_gru_decode_chain_tc<NL, TV>(a, cluster, stream)
+            : launch_gru_decode_chain<NL, kTanh, OUT, TV, true>(a, cluster, stream);
+}
+
+template <typename TV>
+int launch_chain(const DecodeHeadT<TV>* head, const TV* const* slices, int B, int H,
+                 int cluster, int rows, int splits, int stages, int chunk, int tc, void* stream) {
+  const DecodeHeadT<TV>& h = *head;
+  if (B < 1 || (h.n_layers != 1 && h.n_layers != 2)) return (int)cudaErrorInvalidValue;
+  const bool two = h.n_layers == 2;
+  GruDecodeChainArgsT<TV> a{h.start, h.h1_0, two ? h.h2_0 : nullptr,
+                            {slices[0], slices[1], slices[2], two ? slices[3] : nullptr,
+                             two ? slices[4] : nullptr, two ? slices[5] : nullptr},
+                            h.b1, two ? h.b2 : nullptr, h.wo, h.bo, h.probs, h.logits,
+                            h.T, B, h.D, H, rows, splits, stages, chunk,
+                            {h.h1seq, two ? h.h2seq : nullptr}, h.out_act};
+  switch (h.out_act) {
+    case kSoftmax:
+      return two ? chain_head<TV, 2, kSoftmax>(a, cluster, tc, stream)
+                 : chain_head<TV, 1, kSoftmax>(a, cluster, tc, stream);
+    case kSigmoid:
+      return two ? chain_head<TV, 2, kSigmoid>(a, cluster, tc, stream)
+                 : chain_head<TV, 1, kSigmoid>(a, cluster, tc, stream);
+    case kLinear:
+      return two ? chain_head<TV, 2, kLinear>(a, cluster, tc, stream)
+                 : chain_head<TV, 1, kLinear>(a, cluster, tc, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// cudaOccupancyMaxActiveClusters of a decode chain instance with the whole
+// of a block's shared memory beside the ring's mbarriers
+template <typename Kernel>
+int chain_max_clusters(Kernel kernel, int cluster, int* out, int threads = kChainThreads) {
+  cudaError_t err = cluster_config(kernel, cluster, kDecSmem);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch l(cluster, cluster, kDecSmem, nullptr, threads);
+  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &l.cfg);
+}
+
 }  // namespace mvt
 
 extern "C" int mvt_gru_decode_train(const mvt::DecodeHeadT<float>* heads,
@@ -164,20 +219,60 @@ extern "C" int mvt_gru_decode_train_resid(
                        stream);
 }
 
-extern "C" int mvt_gru_decode_train_wide(const mvt::DecodeHeadT<float>* heads,
-                                         int n_heads, int B, int H,
-                                         void* stream) {
+// The wide builds' per-block route (the first design: 2 rows a block).
+extern "C" int mvt_gru_decode_train_wide_block(const mvt::DecodeHeadT<float>* heads,
+                                               int n_heads, int B, int H,
+                                               void* stream) {
   using namespace mvt;
   return launch<kWideRows>(gru_decode_train_wide_kernel<float>, heads, n_heads,
                            B, H, stream);
 }
 
-extern "C" int mvt_gru_decode_train_wide_bf16(
+extern "C" int mvt_gru_decode_train_wide_block_bf16(
     const mvt::DecodeHeadT<mvt::bf16>* heads, int n_heads, int B, int H,
     void* stream) {
   using namespace mvt;
   return launch<kWideRows>(gru_decode_train_wide_kernel<bf16>, heads, n_heads,
                            B, H, stream);
+}
+
+// The wide builds on the decode chain: one head a launch (its w1, u1, w2,
+// u2 unused: slices[0..5] are their slices packed per CTA at the plan's
+// cluster and chunk, of the build's type: ops/gru_decode.py::pack_slices
+// for B's FFMA instance, pack_tc_slices, in B-fragment order, for the
+// tensor-core one), at the plan of ops/_layout.py::dec_train_plan:
+// `cluster` CTAs a cluster, `rows` batch rows a cluster, `splits` (the FFMA
+// instance's), `stages`, `chunk` depth rows a chunk, `tc` the tensor-core
+// instance; cudaErrorInvalidValue for a plan the chain does not run.
+extern "C" int mvt_gru_decode_train_wide(const mvt::DecodeHeadT<float>* head,
+                                         const float* const* slices, int B, int H,
+                                         int cluster, int rows, int splits, int stages,
+                                         int chunk, int tc, void* stream) {
+  return mvt::launch_chain(head, slices, B, H, cluster, rows, splits, stages, chunk, tc, stream);
+}
+
+extern "C" int mvt_gru_decode_train_wide_bf16(const mvt::DecodeHeadT<mvt::bf16>* head,
+                                              const mvt::bf16* const* slices, int B, int H,
+                                              int cluster, int rows, int splits, int stages,
+                                              int chunk, int tc, void* stream) {
+  return mvt::launch_chain(head, slices, B, H, cluster, rows, splits, stages, chunk, tc, stream);
+}
+
+// cudaOccupancyMaxActiveClusters of the wide builds' chain (a 2-layer
+// softmax head's instance: float32 or bf16, the FFMA or the tensor-core
+// one) at `cluster` CTAs a cluster (one CTA an SM)
+extern "C" int mvt_gru_decode_train_max_clusters(int bf16, int tc, int cluster, int* out) {
+  using namespace mvt;
+  if (tc) {
+    return bf16 ? chain_max_clusters(gru_decode_chain_tc_kernel<2, mvt::bf16>, cluster, out,
+                                     kDecTcThreads)
+                : chain_max_clusters(gru_decode_chain_tc_kernel<2, float>, cluster, out,
+                                     kDecTcThreads);
+  }
+  return bf16 ? chain_max_clusters(gru_decode_chain_kernel<2, kTanh, kSoftmax, mvt::bf16, true>,
+                                   cluster, out)
+              : chain_max_clusters(gru_decode_chain_kernel<2, kTanh, kSoftmax, float, true>,
+                                   cluster, out);
 }
 
 extern "C" const char* mvt_error_string(int code) {

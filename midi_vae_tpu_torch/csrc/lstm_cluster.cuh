@@ -133,13 +133,14 @@ cudaError_t cluster_config(Kernel kernel, int cluster, size_t smem) {
   return err;
 }
 
-// a launch configuration of `grid` CTAs of a chain in clusters of `cluster`
+// a launch configuration of `grid` CTAs of a chain (of `threads` threads)
+// in clusters of `cluster`
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  ClusterLaunch(int grid, int cluster, size_t smem, void* stream) {
+  ClusterLaunch(int grid, int cluster, size_t smem, void* stream, int threads = kChainThreads) {
     cfg.gridDim = dim3(grid);
-    cfg.blockDim = dim3(kChainThreads);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = static_cast<cudaStream_t>(stream);
     attr[0].id = cudaLaunchAttributeClusterDimension;

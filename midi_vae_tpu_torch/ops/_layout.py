@@ -545,7 +545,7 @@ def l_limit(H: int, D: int, bf16: bool = False) -> str | None:
 # route of its own, picked here before any launch.
 # ---------------------------------------------------------------------------
 
-GRU_FWD_BUILDS = ("A_chain", "A_chain_bf16", "X_chain")
+GRU_FWD_BUILDS = ("A_chain", "A_chain_bf16", "X_chain", "F_chain")
 GRU_CHUNK = 32        # kGruChunk: depth rows of a streamed chunk of the float32 slice
 GRU_MAX_SPLITS = 16   # kGruMaxSplits
 REGISTERS.update({"A_chain": 128, "A_chain_bf16": 128})
@@ -555,7 +555,9 @@ class GruFwdPlan(NamedTuple):
     """How A's chain runs at (H, B): ``cluster`` CTAs a cluster, ``rows``
     batch rows a cluster, ``clusters`` clusters, ``splits`` threads sharing
     a tile's depth, ``stages`` chunks in the streamed ring (0 where the
-    slice is resident), ``smem`` bytes of dynamic shared memory a CTA."""
+    slice is resident), ``smem`` bytes of dynamic shared memory a CTA;
+    ``chunk`` 0, or the depth rows of a chunk in F's tensor-core instance
+    (``gru_tc_plan``: its splits are the phases' own)."""
 
     cluster: int
     rows: int
@@ -563,6 +565,7 @@ class GruFwdPlan(NamedTuple):
     splits: int
     stages: int
     smem: int
+    chunk: int = 0
 
 
 def gru_chain_smem(H: int, C: int, rows: int, splits: int, stages: int, elem: int) -> int:
@@ -585,7 +588,7 @@ def gru_chain_smem(H: int, C: int, rows: int, splits: int, stages: int, elem: in
 def _gru_elem(build: str) -> int:
     if build not in GRU_FWD_BUILDS:
         raise ValueError(f"{build!r} is not one of {GRU_FWD_BUILDS}")
-    return 4 if build == "A_chain" else 2
+    return 4 if build in ("A_chain", "F_chain") else 2
 
 
 def gru_fwd_cluster(build: str, H: int) -> tuple[int, bool]:
@@ -659,22 +662,25 @@ def gru_fwd_plan_at(build: str, H: int, B: int, C: int, stream: bool, M: int,
 def gru_fwd_plans(build: str, H: int, B: int, active=None) -> list[GruFwdPlan]:
     """Every plan of the chain build ``build`` at (H, B) that a timing may
     force: each cluster size whose resident slice fits a CTA (its units a
-    multiple of the build's: 32 in bf16, 4 in float32), with A's rows and
-    X's balanced ones, at each split count up to the most that fit;
-    ``active(C)`` the clusters of size C active at once (default: the
-    H100's)."""
+    multiple of the build's: 32 in bf16, 4 in float32) and, in float32
+    where no cluster of 8 or 16 holds the slice, the streamed slice at
+    clusters of 8 and 16, with A's rows and X's balanced ones, at each split
+    count up to the most that fit; ``active(C)`` the clusters of size C
+    active at once (default: the H100's)."""
     elem = _gru_elem(build)
     units = 4 if elem == 4 else 32
+    sizes = [(C, False) for C in CLUSTER_SIZES
+             if not (H % C or (H // C) % units or 3 * (H // C) * H * elem > SMEM_PER_BLOCK // 2)]
+    if elem == 4 and H % 64 == 0 and not any(C >= 8 for C, _ in sizes):
+        sizes += [(C, True) for C in (8, 16) if gru_chain_smem(H, C, 1, 1, 2, 4) <= SMEM_PER_BLOCK]
     out = []
-    for C in CLUSTER_SIZES:
-        if H % C or (H // C) % units or 3 * (H // C) * H * elem > SMEM_PER_BLOCK // 2:
-            continue
+    for C, stream in sizes:
         M = (active or MAX_CLUSTERS_H100.__getitem__)(C)
         for balanced in (False, True):
-            top = gru_fwd_plan_at(build, H, B, C, False, M, balanced=balanced)
+            top = gru_fwd_plan_at(build, H, B, C, stream, M, balanced=balanced)
             s = 1
             while s <= top.splits:
-                plan = gru_fwd_plan_at(build, H, B, C, False, M, s, balanced)
+                plan = gru_fwd_plan_at(build, H, B, C, stream, M, s, balanced)
                 if plan not in out:
                     out.append(plan)
                 s *= 2
@@ -755,9 +761,12 @@ class PlanRule(NamedTuple):
     fewest_waves: bool = False
 
 
-# X's and G's rules; every other build of GRU_FWD_BUILDS and GRU_BPTT_BUILDS
-# keeps A's and C's (PlanRule())
+# X's and G's rules; F's resident instance keeps A's, which the H100 ran
+# within 10 % of the fastest at F's shapes (its streamed widths take F's
+# tensor-core instance: gru_tc_plan); every other build of GRU_FWD_BUILDS
+# and GRU_BPTT_BUILDS keeps A's and C's (PlanRule())
 PLAN_RULES = {"X_chain": PlanRule(largest_cluster=True, balanced_rows=True),
+              "F_chain": PlanRule(),
               "G_chain": PlanRule(fewest_waves=True),
               "G_chain_bf16": PlanRule(fewest_waves=True)}
 
@@ -765,11 +774,26 @@ PLAN_RULES = {"X_chain": PlanRule(largest_cluster=True, balanced_rows=True),
 def plan_rule(build: str) -> PlanRule:
     return PLAN_RULES.get(build, PlanRule())
 
-# the route chooser's names of X's and G's builds (their per-block designs)
-XP_LAYER_BUILDS = ("X", "G", "G_bf16")
-# the chains' instances in X's and G's libraries, under __launch_bounds__ of
-# a 512-thread CTA (chip_smoke.py checks ptxas's count against them)
-REGISTERS.update({"X_chain": 128, "G_chain": 128, "G_chain_bf16": 128})
+# the route chooser's names of F's, X's and G's builds (their per-block designs)
+XP_LAYER_BUILDS = ("F", "X", "G", "G_bf16")
+# the chains' instances in F's, X's and G's libraries, under __launch_bounds__
+# of a 512-thread CTA (chip_smoke.py checks ptxas's count against them)
+REGISTERS.update({"F_chain": 128, "X_chain": 128, "G_chain": 128, "G_chain_bf16": 128})
+
+
+def gru_xp_fwd_route(H: int) -> str:
+    """The route of kernel F at width H: "chain" (A's float32 chain over
+    the given xp: the slice resident at H = 256, streamed at 512) where it
+    launches, else "block" where the per-block design does; raises
+    LaunchLimitError where neither does."""
+    chain_why = gru_fwd_limit("F_chain", H)
+    if chain_why is None:
+        return "chain"
+    block_why = launch_limit("F", H, smem_bytes("F", H))
+    if block_why is None:
+        return "block"
+    raise LaunchLimitError(f"kernel F launches at H={H} neither on its chain ({chain_why}) "
+                           f"nor per block ({block_why})")
 
 
 def gru_scan_route(H: int) -> str:
@@ -802,12 +826,121 @@ def gru_xp_bwd_route(H: int, bf16: bool = False) -> str:
                            f"nor per block ({block_why})")
 
 
+# ---------------------------------------------------------------------------
+# F's tensor-core instance (csrc/gru_cell_fwd.cuh, gru_fwd_chain_tc_kernel):
+# A's float32 chain where the slice of U does not fit a cluster (H = 512),
+# the slice packed per CTA in B-fragment order and streamed by the Tensor
+# Memory Accelerator through a ring of ``stages`` slots of ``chunk`` depth
+# rows, both products on the tensor cores as three TF32 products. Shared
+# memory: the ring, the h and r * h tiles (rows in m-tiles of 16, plus 8
+# floats a depth row), the phases' gate sums (their depth splits x the rows
+# x the columns plus 8) and the owners' xp. The plan is ``gru_tc_plan``'s.
+# ---------------------------------------------------------------------------
+
+GRU_TC_CHUNKS = (128, 64, 32)
+GRU_TC_MAX_ITEMS = 4    # kTcMaxItems: (m-tile, n-tile) items a warp owns in a phase
+GRU_TC_SMEM = SMEM_PER_BLOCK - 1024  # 1 KB left for the ring's mbarriers
+REGISTERS.update({"F_chain_tc": 128})
+
+
+def gru_tc_stride(rows: int) -> int:
+    """``gru_tc_stride``: the h and r * h tiles' row stride in floats."""
+    return _round8(rows) if _round8(rows) % 16 else _round8(rows) + 8
+
+
+def gru_tc_splits(items: int, ksteps: int, warps: int = CHAIN_WARPS) -> int:
+    """``gru_tc_splits``: the depth splits of a phase of ``items`` items
+    over ``warps`` warps."""
+    s = 1
+    while 2 * s * items <= warps and ksteps % (2 * s) == 0:
+        s *= 2
+    return s
+
+
+def gru_tc_smem(H: int, C: int, rows: int, stages: int, chunk: int) -> int:
+    """``gru_tc_smem`` of csrc/gru_cell_fwd.cuh, in bytes."""
+    Hc, mts, RS = H // C, -(-rows // 16), gru_tc_stride(rows)
+    s1 = gru_tc_splits(mts * 2 * Hc // 8, chunk // 8)
+    s2 = gru_tc_splits(mts * Hc // 8, chunk // 8)
+    gates = max(s1 * 16 * mts * (2 * Hc + 8), s2 * 16 * mts * (Hc + 8))
+    owners_xp = Hc * (_round8(rows) // 8) * TILE_STRIDE
+    return 4 * (stages * chunk * 2 * Hc + 2 * H * RS + gates + owners_xp)
+
+
+def gru_tc_stages(H: int, C: int, rows: int, chunk: int) -> int:
+    """The most ring slots (2 to 8, at most a phase's chunks) of F's
+    tensor-core instance at (C, rows, chunk), or 0 where it does not
+    launch."""
+    Hc = H // C
+    if (H % C or Hc % 8 or H % chunk or Hc * _round8(rows) // 8 > CHAIN_THREADS
+            or -(-(-(-rows // 16) * 2 * Hc // 8) // CHAIN_WARPS) > GRU_TC_MAX_ITEMS):
+        return 0
+    stages = 0
+    while (stages < min(8, 2 * H // chunk)
+           and gru_tc_smem(H, C, rows, stages + 1, chunk) <= GRU_TC_SMEM):
+        stages += 1
+    return stages if stages >= 2 else 0
+
+
+def gru_tc_plan_at(H: int, B: int, C: int, rows: int, chunk: int) -> GruFwdPlan | None:
+    """F's tensor-core plan at cluster size C, ``rows`` rows a cluster and
+    chunks of ``chunk`` depth rows (the most stages that fit), or None."""
+    stages = gru_tc_stages(H, C, rows, chunk)
+    if not stages:
+        return None
+    return GruFwdPlan(C, rows, -(-B // rows), 0, stages, gru_tc_smem(H, C, rows, stages, chunk),
+                      chunk)
+
+
+def gru_tc_plans(H: int, B: int, active=None) -> list[GruFwdPlan]:
+    """Every plan of F's tensor-core instance at (H, B) that a timing may
+    force: clusters of 8 and 16, the rows of one wave of the card's active
+    clusters (``active(C)``, default the H100's), of the balanced waves and
+    8, 16, 24, 32 and 48, every chunk depth that fits."""
+    out = []
+    for C in (8, 16):
+        M = (active or MAX_CLUSTERS_H100.__getitem__)(C)
+        wave = -(-B // M)
+        for rows in dict.fromkeys((wave, -(-B // (M * -(-B // (M * wave)))), 8, 16, 24, 32, 48)):
+            rows = max(1, min(rows, B))
+            for chunk in GRU_TC_CHUNKS:
+                p = gru_tc_plan_at(H, B, C, rows, chunk)
+                if p is not None and p not in out:
+                    out.append(p)
+    return out
+
+
+def gru_tc_cluster(B: int) -> int:
+    """F's tensor-core cluster size at batch B: 8 at a training batch, 16
+    at one song or less (the H100's timings at H = 512, B 256, 16 and 5:
+    tools/time_f_and_d.py --only fplans)."""
+    return 8 if B >= 128 else 16
+
+
+def gru_tc_plan(H: int, B: int, max_clusters=None) -> GruFwdPlan | None:
+    """F's tensor-core plan at (H, B), or None where it does not launch:
+    ``gru_tc_cluster``'s size, the rows of one wave of its active clusters
+    (``max_clusters(C)``, default the H100's), as many as fit, the deepest
+    chunk that fits two slots (a chunk's wait costs about the same whatever
+    its depth). Each pick within 10 % of the fastest legal plan at F's
+    shapes (tests/test_torch_f_dwide_chains.py holds it)."""
+    C = gru_tc_cluster(B)
+    M = (max_clusters or MAX_CLUSTERS_H100.__getitem__)(C)
+    rows = max(1, -(-B // M))
+    while rows > 1 and not gru_tc_stages(H, C, rows, GRU_TC_CHUNKS[-1]):
+        rows -= 1
+    fits = [c for c in GRU_TC_CHUNKS if gru_tc_stages(H, C, rows, c)]
+    return gru_tc_plan_at(H, B, C, rows, fits[0]) if fits else None
+
+
 def xp_layer_limit(build: str, H: int) -> str | None:
-    """Why X or G (a name of ``XP_LAYER_BUILDS``) launches on no route at
+    """Why F, X or G (a name of ``XP_LAYER_BUILDS``) launches on no route at
     width H, or None."""
     try:
         if build == "X":
             gru_scan_route(H)
+        elif build == "F":
+            gru_xp_fwd_route(H)
         else:
             gru_xp_bwd_route(H, build == "G_bf16")
     except LaunchLimitError as e:
@@ -1286,7 +1419,8 @@ class GruDecodePlan(NamedTuple):
     """How B's chain runs: ``cluster`` CTAs a cluster, ``rows`` batch rows a
     cluster, ``clusters``, ``splits`` threads sharing a tile's depth,
     ``stages`` chunks in the ring, ``smem`` bytes of dynamic shared memory a
-    CTA, ``chunk`` depth rows a chunk."""
+    CTA, ``chunk`` depth rows a chunk; ``tc``: D wide's tensor-core
+    instance (``dec_tc_plan``; its splits are its segments' own)."""
 
     cluster: int
     rows: int
@@ -1295,22 +1429,27 @@ class GruDecodePlan(NamedTuple):
     stages: int
     smem: int
     chunk: int = 32
+    tc: bool = False
 
 
 def gru_decode_smem(n_layers: int, D: int, H: int, C: int, rows: int, splits: int,
-                    stages: int, chunk: int = 32) -> int:
-    """``gru_decode_chain_smem`` of csrc/gru_decode_chain.cuh, in bytes."""
+                    stages: int, chunk: int = 32, elem: int = 4) -> int:
+    """``gru_decode_chain_smem`` of csrc/gru_decode_chain.cuh, in bytes
+    (``elem``: the bytes of a slice's value in the ring, 2 in D's bf16
+    instance)."""
     Hc, R8, Dq = H // C, _round8(rows), -(-D // 4) * 4
     Dp = -(-D // chunk) * chunk
-    return 4 * (stages * chunk * 3 * Hc + Dp * R8 + Dq * R8 + (n_layers + 1) * H * R8
-                + C * R8 * Dq + Hc * Dq + (splits - 1) * Hc * (R8 // 8) * TILE_STRIDE)
+    return elem * stages * chunk * 3 * Hc + 4 * (
+        Dp * R8 + Dq * R8 + (n_layers + 1) * H * R8 + C * R8 * Dq + Hc * Dq
+        + (splits - 1) * Hc * (R8 // 8) * TILE_STRIDE)
 
 
 def _dec_cluster_ok(H: int, C: int) -> bool:
     return H >= 32 and H % DEC_CHUNKS[-1] == 0 and H % C == 0 and (H // C) % 4 == 0
 
 
-def gru_decode_fit(n_layers: int, D: int, H: int, C: int, rows: int, chunk: int = 32):
+def gru_decode_fit(n_layers: int, D: int, H: int, C: int, rows: int, chunk: int = 32,
+                   elem: int = 4):
     """(splits, stages) of the chain at C CTAs a cluster, ``rows`` rows a
     cluster and chunks of ``chunk`` depth rows: the most splits (a power of
     two up to DEC_MAX_SPLITS, within the CTA's threads) and then the most
@@ -1321,7 +1460,7 @@ def gru_decode_fit(n_layers: int, D: int, H: int, C: int, rows: int, chunk: int 
     tiles = H // C * _round8(rows) // 8
 
     def fits(splits, stages):
-        return gru_decode_smem(n_layers, D, H, C, rows, splits, stages, chunk) <= DEC_SMEM
+        return gru_decode_smem(n_layers, D, H, C, rows, splits, stages, chunk, elem) <= DEC_SMEM
 
     if tiles > CHAIN_THREADS or not fits(1, 2):
         return None
@@ -1336,10 +1475,10 @@ def gru_decode_fit(n_layers: int, D: int, H: int, C: int, rows: int, chunk: int 
 
 
 @functools.cache
-def gru_decode_most_rows(n_layers: int, D: int, H: int, C: int) -> int:
+def gru_decode_most_rows(n_layers: int, D: int, H: int, C: int, elem: int = 4) -> int:
     """The most rows a cluster of C takes (0 where none fits)."""
     rows = CHAIN_THREADS // (H // C) * 8 if _dec_cluster_ok(H, C) else 0
-    while rows > 0 and gru_decode_fit(n_layers, D, H, C, rows) is None:
+    while rows > 0 and gru_decode_fit(n_layers, D, H, C, rows, elem=elem) is None:
         rows -= 1
     return rows
 
@@ -1381,25 +1520,26 @@ def gru_decode_cluster(B: int, T: int) -> int:
 
 def gru_decode_plan(H: int, D: int, n_layers: int, B: int, cluster: int | None = None,
                     rows: int | None = None, max_clusters: int | None = None,
-                    T: int = 64, chunk: int | None = None) -> GruDecodePlan:
+                    T: int = 64, chunk: int | None = None, elem: int = 4) -> GruDecodePlan:
     """B's chain plan for a head of width D, ``n_layers`` and T steps at
     (H, B): ``cluster`` CTAs a cluster, ``rows`` rows a cluster and
     ``chunk`` depth rows a chunk, by default ``DEC_MEASURED``'s at the
     shapes it has, else ``gru_decode_cluster``'s size, ceil(B / the card's
     active clusters at that size, ``max_clusters`` or the H100's) rows (as
     many as fit) and the deepest chunk that fits them; raises
-    LaunchLimitError where the chain does not launch."""
+    LaunchLimitError where the chain does not launch. ``elem``: the bytes
+    of a slice's value (2 in D's bf16 instance; B's table is float32's)."""
     if n_layers not in (1, 2):
         raise LaunchLimitError(f"kernel B's chain decodes 1- or 2-layer heads, got {n_layers}")
-    measured = DEC_MEASURED.get((H, D, n_layers, T, B))
+    measured = DEC_MEASURED.get((H, D, n_layers, T, B)) if elem == 4 else None
     if measured and cluster is None and rows is None and chunk is None:
         cluster, rows, chunk = measured
     if cluster is None:
         # the rule's size, else the first of the others whose slices fit
         first = gru_decode_cluster(B, T)
         cluster = next((c for c in (first, 8, 16, 4)
-                        if gru_decode_most_rows(n_layers, D, H, c) >= 1), first)
-    most = gru_decode_most_rows(n_layers, D, H, cluster)
+                        if gru_decode_most_rows(n_layers, D, H, c, elem) >= 1), first)
+    most = gru_decode_most_rows(n_layers, D, H, cluster, elem)
     if most < 1:
         raise LaunchLimitError(
             f"kernel B's chain takes H a multiple of 32 whose slices fit a cluster of "
@@ -1410,12 +1550,13 @@ def gru_decode_plan(H: int, D: int, n_layers: int, B: int, cluster: int | None =
     rows = max(1, min(rows, most, B))
     # the deepest chunk that fits beside the rows (a chunk costs about the
     # same whatever its depth: tools/time_t_and_b.py; PERF.md, Findings)
-    if chunk is None or gru_decode_fit(n_layers, D, H, cluster, rows, chunk) is None:
-        chunk = next(c for c in DEC_CHUNKS if gru_decode_fit(n_layers, D, H, cluster, rows, c))
-    splits, stages = gru_decode_fit(n_layers, D, H, cluster, rows, chunk)
+    if chunk is None or gru_decode_fit(n_layers, D, H, cluster, rows, chunk, elem) is None:
+        chunk = next(c for c in DEC_CHUNKS
+                     if gru_decode_fit(n_layers, D, H, cluster, rows, c, elem))
+    splits, stages = gru_decode_fit(n_layers, D, H, cluster, rows, chunk, elem)
     return GruDecodePlan(cluster, rows, -(-B // rows), splits, stages,
-                         gru_decode_smem(n_layers, D, H, cluster, rows, splits, stages, chunk),
-                         chunk)
+                         gru_decode_smem(n_layers, D, H, cluster, rows, splits, stages, chunk,
+                                         elem), chunk)
 
 
 @functools.cache
@@ -1436,6 +1577,172 @@ def gru_decode_route(H: int, D: int, n_layers: int) -> str:
                            f"nor per block ({block_why})")
 
 
+# ---------------------------------------------------------------------------
+# Kernel D's wide builds (csrc/gru_decode_train.cu: "D_wide", "D_wide_bf16")
+# run one head a launch on B's decode chain in its training instance
+# (csrc/gru_decode_chain.cuh: the same plan and shared memory as B's, each
+# layer's h sequence stored from the X2 exchange; bf16: the operands widened,
+# the carries, the fed-back probs and the outputs rounded). Its plan
+# (``dec_train_plan``) is ``DEC_TRAIN_MEASURED``'s at the paths' heads, timed
+# on the H100 (tools/time_f_and_d.py --only dplans), else B's
+# (``gru_decode_plan``). The first, per-block design (2 rows a block) stays
+# the route of shapes the chain's plan refuses (``dec_wide_route``).
+# ---------------------------------------------------------------------------
+
+DEC_WIDE_BUILDS = ("D_wide", "D_wide_bf16")
+# B's FFMA training instance under __launch_bounds__ of a 512-thread CTA,
+# the tensor-core one of a 256-thread CTA (DEC_TC_THREADS)
+REGISTERS.update({"D_wide_chain": 128, "D_wide_chain_bf16": 128, "D_wide_tc": 255,
+                  "D_wide_tc_bf16": 255})
+# The plans the H100 ran fastest, (cluster, rows, chunk) of B's FFMA
+# training instance by (H, D, n_layers, T, B, bf16): the notes, velocity and
+# instrument heads of the wide f32 step, wide512_bf16 and the bf16 GRU(512)
+# at B = 128, each at B = 5 too, every plan of both instances timed in one
+# call (tools/time_f_and_d.py --only dplans; PERF.md, Findings). The
+# tensor-core instance lost at every one of them (1.12-2.30x the fastest
+# FFMA plan), so no shape takes it by default.
+DEC_TRAIN_MEASURED = {
+    (512, 61, 2, 64, 256, False): (8, 8, 64), (512, 61, 2, 64, 128, False): (4, 5, 32),
+    (512, 61, 2, 64, 5, False): (16, 5, 128), (512, 1, 1, 64, 256, False): (8, 18, 32),
+    (512, 1, 1, 64, 128, False): (16, 19, 64), (512, 1, 1, 64, 5, False): (16, 4, 128),
+    (512, 16, 1, 4, 256, False): (8, 18, 64), (512, 16, 1, 4, 128, False): (16, 19, 64),
+    (512, 16, 1, 4, 5, False): (16, 5, 128), (512, 61, 2, 64, 256, True): (8, 8, 128),
+    (512, 61, 2, 64, 128, True): (4, 5, 64), (512, 61, 2, 64, 5, True): (16, 1, 128),
+    (512, 16, 1, 4, 256, True): (8, 18, 64), (512, 16, 1, 4, 128, True): (16, 19, 128),
+    (512, 16, 1, 4, 5, True): (16, 5, 128),
+}
+
+
+DEC_TC_THREADS = 256    # kDecTcThreads: the tensor-core instance's CTAs
+DEC_TC_WARPS = DEC_TC_THREADS // 32
+DEC_TC_MAX_ITEMS = 6    # kDecTcMaxItems
+
+
+def dec_tc_splits(rows: int, width: int, chunk: int) -> int:
+    """``dec_tc_splits``: a segment's depth splits in the tensor-core
+    instance."""
+    return gru_tc_splits(-(-rows // 16) * width // 8, chunk // 8, DEC_TC_WARPS)
+
+
+def dec_tc_smem(n_layers: int, D: int, H: int, C: int, rows: int, stages: int, chunk: int,
+                elem: int = 4) -> int:
+    """``dec_tc_smem`` of csrc/gru_decode_chain.cuh, in bytes: B's chain's
+    with the gate sums (P1's x and h segments side by side, P2's in the x
+    segment's place) in place of the splits' partials."""
+    Hc, m16 = H // C, _round16(rows)
+    gx = dec_tc_splits(rows, 3 * Hc, chunk) * m16 * (3 * Hc + 8)
+    gh = dec_tc_splits(rows, 2 * Hc, chunk) * m16 * (2 * Hc + 8)
+    g2 = dec_tc_splits(rows, Hc, chunk) * m16 * (Hc + 8)
+    return gru_decode_smem(n_layers, D, H, C, rows, 1, stages, chunk, elem) + 4 * max(gx + gh, g2)
+
+
+def dec_tc_stages(n_layers: int, D: int, H: int, C: int, rows: int, chunk: int,
+                  elem: int = 4) -> int:
+    """The most ring slots (2 to DEC_MAX_STAGES) of the tensor-core
+    instance at (C, rows, chunk), or 0 where it does not launch."""
+    Hc = H // C
+    if (H % C or Hc % 8 or H % chunk or Hc * _round8(rows) // 8 > DEC_TC_THREADS
+            or -(-(-(-rows // 16) * 3 * Hc // 8) // DEC_TC_WARPS) > DEC_TC_MAX_ITEMS):
+        return 0
+    stages = 1
+    while stages < DEC_MAX_STAGES and dec_tc_smem(n_layers, D, H, C, rows, stages + 1, chunk,
+                                                  elem) <= DEC_SMEM:
+        stages += 1
+    return stages if stages >= 2 else 0
+
+
+def dec_tc_plan_at(n_layers: int, D: int, H: int, B: int, C: int, rows: int, chunk: int,
+                   elem: int = 4) -> GruDecodePlan | None:
+    """The tensor-core instance's plan at (C, rows, chunk), the most stages
+    that fit, or None."""
+    stages = dec_tc_stages(n_layers, D, H, C, rows, chunk, elem)
+    if not stages:
+        return None
+    return GruDecodePlan(C, rows, -(-B // rows), 0, stages,
+                         dec_tc_smem(n_layers, D, H, C, rows, stages, chunk, elem), chunk, True)
+
+
+def dec_tc_plans(H: int, D: int, n_layers: int, B: int, bf16: bool = False,
+                 active=None) -> list[GruDecodePlan]:
+    """Every plan of the tensor-core instance a timing may force: clusters
+    of 4, 8 and 16, the rows of one wave of the card's active clusters
+    (``active(C)``, default the H100's) and 4, 8, 16, 24 and 32, every chunk
+    depth that fits."""
+    elem, out = (2 if bf16 else 4), []
+    for C in (4, 8, 16):
+        wave = -(-B // (active or MAX_CLUSTERS_H100.__getitem__)(C))
+        for rows in dict.fromkeys((wave, 4, 8, 16, 24, 32)):
+            rows = max(1, min(rows, B))
+            for chunk in DEC_CHUNKS:
+                p = dec_tc_plan_at(n_layers, D, H, B, C, rows, chunk, elem)
+                if p is not None and p not in out:
+                    out.append(p)
+    return out
+
+
+def dec_tc_plan(H: int, D: int, n_layers: int, B: int, T: int = 64, bf16: bool = False,
+                max_clusters: int | None = None) -> GruDecodePlan | None:
+    """The tensor-core instance's rule for a head at (H, B), or None where
+    it does not launch: B's cluster size (``gru_decode_cluster``), the rows
+    of one wave of its active clusters (``max_clusters``, default the
+    H100's), as many as fit, and the deepest chunk that fits two slots."""
+    elem = 2 if bf16 else 4
+    C = gru_decode_cluster(B, T)
+    rows = max(1, -(-B // (max_clusters or MAX_CLUSTERS_H100[C])))
+    while rows > 1 and not dec_tc_stages(n_layers, D, H, C, rows, DEC_CHUNKS[-1], elem):
+        rows -= 1
+    for chunk in DEC_CHUNKS:
+        p = dec_tc_plan_at(n_layers, D, H, B, C, rows, chunk, elem)
+        if p is not None:
+            return p
+    return None
+
+
+def dec_train_plan(H: int, D: int, n_layers: int, B: int, T: int = 64, bf16: bool = False,
+                   cluster: int | None = None, rows: int | None = None,
+                   chunk: int | None = None, max_clusters: int | None = None,
+                   tc: bool = False) -> GruDecodePlan:
+    """The wide builds' chain plan for a head of width D, ``n_layers`` and
+    T steps at (H, B) (``bf16``: D_wide_bf16's, its slices streamed in bf16,
+    two bytes a value in the ring): B's FFMA training instance at
+    ``DEC_TRAIN_MEASURED``'s plan where it has the shape, else at the given
+    ``cluster``, ``rows``, ``chunk`` or B's rule (``gru_decode_plan``);
+    with ``tc`` the tensor-core instance at the given plan or its rule
+    (``dec_tc_plan``). Raises LaunchLimitError where the chain does not
+    launch."""
+    elem = 2 if bf16 else 4
+    given = (cluster, rows, chunk) != (None, None, None)
+    if tc:
+        p = (dec_tc_plan_at(n_layers, D, H, B, cluster, rows, chunk, elem) if given
+             else dec_tc_plan(H, D, n_layers, B, T, bf16, max_clusters))
+        if p is None:
+            raise LaunchLimitError(f"D wide's tensor-core chain has no plan at cluster {cluster}, "
+                                   f"{rows} rows, chunks of {chunk}, H={H}, D={D}")
+        return p
+    measured = DEC_TRAIN_MEASURED.get((H, D, n_layers, T, B, bf16))
+    if measured and not given:
+        cluster, rows, chunk = measured
+    return gru_decode_plan(H, D, n_layers, B, cluster, rows, max_clusters, T, chunk, elem)
+
+
+@functools.cache
+def dec_wide_route(H: int, D: int, n_layers: int) -> str:
+    """The route of D's wide builds at width H for a head of width D and
+    ``n_layers``: "chain" where the chain's plan launches, else "block"
+    where the per-block build (2 rows a block) does; raises
+    LaunchLimitError where neither does."""
+    try:
+        gru_decode_plan(H, D, n_layers, 1)
+        return "chain"
+    except LaunchLimitError as e:
+        chain_why = str(e)
+    block_why = launch_limit("D_wide", H, smem_bytes("D_wide", H, D, n_layers))
+    if block_why is None:
+        return "block"
+    raise LaunchLimitError(f"kernel D's wide build launches at H={H} neither on the decode chain "
+                           f"({chain_why}) nor per block ({block_why})")
+
+
 def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> list[str]:
     """The limits the route's float32 builds hit: ``layers`` is (D_in, dx
     wanted) per encoder layer, ``heads`` (D, n_layers) per decode head."""
@@ -1454,6 +1761,9 @@ def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> 
             whys += [gru_bptt_limit("C", H)] if layers else []
             checks = []
         elif layers:  # the x-projection is outside: one tile for every layer
+            # (F's and the wide D's first designs' limits: their chains have
+            # plans at H = 1024, worked out and not run, so the wide route
+            # keeps the widths it took)
             checks = [("F", smem_bytes("F", H))]
             whys.append(xp_layer_limit("G", H))
         else:

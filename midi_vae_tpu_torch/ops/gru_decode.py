@@ -37,14 +37,26 @@ chain on thread-block clusters through every head (``gru_decode_bwd_chain``,
 a call); the build (``_BUILDS``) picks the chain's entry point, and the
 chain's launch also counts on the build's counter.
 
-D has a second build for the wide route (``ops/_layout.py``, H = 512): 2
-batch rows per block under ``__launch_bounds__(512)``, replacing
-``_dec_fwd_wide_pallas``; E's wide builds replace ``_dec_bwd_wide_pallas``
-on the same chain. "D_wide", "E_wide" select them;
-``gru_decode_fwd_train_wide`` and ``gru_decode_bwd_wide`` count their
-launches. Every build has a name (``ops/_layout.py``: "D", "E_wide_bf16",
-...); the wrappers and ``gru_decode_train`` take it as ``build`` /
-``builds``, and ``_BUILDS`` gives each its entry point and its counter.
+D has a second build for the wide route (``ops/_layout.py``, H = 512),
+replacing ``_dec_fwd_wide_pallas``: one head a launch on kernel B's decode
+chain in its training instance (``csrc/gru_decode_chain.cuh``: each layer's
+h sequence stored from the X2 exchange; in bf16 the slices streamed in bf16
+and the roundings below), at ``dec_wide_plan``'s plan (``_layout.
+dec_train_plan``: ``DEC_TRAIN_MEASURED`` at the paths' heads), the weights'
+slices packed once a step (``_packed_slices``: the optimizer's update
+repacks); its first design (2 batch rows per block under
+``__launch_bounds__(512)``) stays the route of shapes the chain's plan
+refuses (``_layout.dec_wide_route``). A tensor-core instance of the same
+chain (``pack_tc_slices``, ``GruDecodePlan.tc``) is built and timed, and no
+shape takes it: it lost to the FFMA chain everywhere the H100 ran it.
+``gru_decode_train_chain_reference`` is the chain's plain version phase by
+phase. E's wide builds replace ``_dec_bwd_wide_pallas`` on E's chain.
+"D_wide", "E_wide" select them; ``gru_decode_fwd_train_wide`` and
+``gru_decode_bwd_wide`` count their launches (the wide D also per route:
+``.launches_chain``, ``.launches_block``, and their ``_bf16`` counters).
+Every build has a name (``ops/_layout.py``: "D", "E_wide_bf16", ...); the
+wrappers and ``gru_decode_train`` take it as ``build`` / ``builds``, and
+``_BUILDS`` gives each its entry point and its counter.
 
 The narrow D and E also have a bfloat16 build (``mvt_gru_decode_train_bf16``,
 ``mvt_gru_decode_bwd_bf16``), picked by the operands' dtype: a bf16 model
@@ -219,7 +231,8 @@ def pack_slices(cells, cluster, chunk):
     whole chunks of ``chunk`` rows), its h segment (cluster, H,
     2, H / cluster: U's z and r columns) and P2's (cluster, H, 1, H /
     cluster: U's candidate columns), each contiguous, so that every chunk of
-    a CTA is one block of memory. Three tensor copies a layer."""
+    a CTA is one block of memory. Three tensor copies a layer, in the
+    weights' dtype."""
     out = []
     for p in cells:
         w, u = p["w"], p["u"]
@@ -233,26 +246,44 @@ def pack_slices(cells, cluster, chunk):
     return out
 
 
-# pack_slices' outputs of recent heads: (the weights' weak references, their
-# version counters, the packed tensors) by (the weights' ids, cluster size)
+def pack_tc_slices(cells, cluster, chunk):
+    """``pack_slices`` in the order D wide's tensor-core instance reads
+    them (``csrc/gru_decode_chain.cuh``): each segment (cluster, depth,
+    width) as B fragments (cluster, depth / 8, width / 8, 8, 4, 2), entry
+    (c, k, n, g, t, j) its depth row 8 k + 4 j + t of column 8 n + g; a
+    chunk of depth rows stays one contiguous block."""
+    out = []
+    for t in pack_slices(cells, cluster, chunk):
+        C, depth = t.shape[:2]
+        width = t.shape[2] * t.shape[3]
+        out.append(t.reshape(C, depth // 8, 2, 4, width // 8, 8).permute(0, 1, 4, 5, 3, 2)
+                   .contiguous())
+    return out
+
+
+# pack_slices' (pack_tc_slices') outputs of recent heads: (the weights' weak
+# references, their version counters, the packed tensors) by (the weights'
+# ids, cluster size, chunk, the tensor-core order)
 _PACKED: dict = {}
 
 
-def _packed_slices(cells, cluster, chunk):
-    """``pack_slices`` of ``cells``, kept while the weights are the same
-    tensors and unchanged (their version counters: an in-place update, as
-    the optimizer's, repacks), so that serving the same heads again packs
-    nothing; inference tensors (no version counter) are packed every call."""
+def _packed_slices(cells, cluster, chunk, tc=False):
+    """``pack_slices`` (``tc``: ``pack_tc_slices``) of ``cells``, kept while
+    the weights are the same tensors and unchanged (their version counters:
+    an in-place update, as the optimizer's at every step, repacks), so that
+    serving the same heads again packs nothing; inference tensors (no
+    version counter) are packed every call."""
+    pack = pack_tc_slices if tc else pack_slices
     ts = [p[k] for p in cells for k in ("w", "u")]
     try:
         versions = tuple(t._version for t in ts)
     except RuntimeError:
-        return pack_slices(cells, cluster, chunk)
-    key = (tuple(id(t) for t in ts), cluster, chunk)
+        return pack(cells, cluster, chunk)
+    key = (tuple(id(t) for t in ts), cluster, chunk, tc)
     hit = _PACKED.get(key)
     if hit and hit[1] == versions and all(r() is t for r, t in zip(hit[0], ts)):
         return hit[2]
-    packed = pack_slices(cells, cluster, chunk)
+    packed = pack(cells, cluster, chunk)
     if len(_PACKED) >= 16:
         _PACKED.clear()
     _PACKED[key] = ([weakref.ref(t) for t in ts], versions, packed)
@@ -425,6 +456,37 @@ def gru_decode_train_reference(cells, out_dense, init_states, start, T, out_acti
     return torch.stack(probs), torch.stack(logits), [torch.stack(h) for h in hs]
 
 
+def gru_decode_train_chain_reference(cells, out_dense, init_states, start, T,
+                                     out_activation="softmax", cluster=8):
+    """D wide's chain (B's decode chain in its training instance) composed
+    from the phases' plain versions: per step each layer's P1 and P2 in
+    float32 over the widened operands, the readout's partials over
+    ``cluster`` slices of the units summed in rank order, then the
+    roundings of a bf16 head (``csrc/gru_decode_body.cuh``): the carries
+    after the readout has read them, the fed-back probs, and probs, logits
+    and the h sequences as stored. Returns (probs, logits, [h sequence of
+    each layer]) in start's dtype, (T, B, .) each."""
+    dtype = start.dtype
+    cells = [{k: c[k].float() for k in ("w", "u", "b")} for c in cells]
+    out_dense = {k: out_dense[k].float() for k in ("w", "b")}
+    states = [s.float() for s in init_states]
+    x = start.float()
+    probs, logits, hs = [], [], [[] for _ in cells]
+    for _ in range(T):
+        for i, p in enumerate(cells):
+            z, rh, cand = decode_layer_p1_reference(x, states[i], p)
+            x = decode_layer_p2_reference(z, rh, cand, states[i], p["u"], torch.tanh)
+            hs[i].append(x.to(dtype))
+            states[i] = x  # layer i + 1 and the readout read it float
+        parts = decode_readout_partials_reference(x, out_dense["w"], cluster)
+        pr, lg = decode_readout_reference(parts, out_dense["b"], out_activation)
+        states = [s.to(dtype).float() for s in states]
+        x = pr.to(dtype).float()
+        probs.append(x.to(dtype))
+        logits.append(lg.to(dtype))
+    return torch.stack(probs), torch.stack(logits), [torch.stack(h) for h in hs]
+
+
 def gru_decode_bwd_reference(cells, out_dense, init_states, start, probs, h_seqs, g_probs,
                              g_logits, out_activation="softmax", wide=False):
     """Plain version of kernel E for one head: the reverse-time transpose of
@@ -555,13 +617,90 @@ gru_decode_fwd_train.launches_resid = 0
 
 
 def gru_decode_fwd_train_wide(heads, build=None):
-    """``gru_decode_fwd_train`` through kernel D's wide build (2 rows per
-    block, up to H = 512 threads): "D_wide" or "D_wide_bf16"."""
+    """``gru_decode_fwd_train`` through kernel D's wide build, "D_wide" or
+    "D_wide_bf16": each head on the route ``_layout.dec_wide_route`` picks,
+    B's decode chain in its training instance (one launch a head, at
+    ``dec_wide_plan``'s plan, the weights' slices packed for it) or the
+    per-block route (2 rows a block, the per-block heads of a call in one
+    launch). Every launch counts on the build's counter (``.launches``,
+    ``.launches_bf16``) and on its route's (``.launches_chain``,
+    ``.launches_block``, with ``_bf16`` for the bf16 build)."""
     return _decode_fwd(heads, build or _named("D_wide", heads))
 
 
-gru_decode_fwd_train_wide.launches = 0
-gru_decode_fwd_train_wide.launches_bf16 = 0
+for _attr in ("launches", "launches_chain", "launches_block"):
+    for _sfx in ("", "_bf16"):
+        setattr(gru_decode_fwd_train_wide, _attr + _sfx, 0)
+
+
+@functools.cache
+def dec_wide_max_clusters(bf16, tc, cluster):
+    """The card's cudaOccupancyMaxActiveClusters of D's wide chain instance
+    (``bf16``: its bf16 one; ``tc``: the tensor-core one) at ``cluster``
+    CTAs a cluster."""
+    lib, fn = _build.load_entry("gru_decode_train", "mvt_gru_decode_train_max_clusters",
+                                [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    _build.check(lib, fn(int(bf16), int(tc), cluster, ctypes.byref(out)),
+                 "gru_decode_train cudaOccupancyMaxActiveClusters")
+    return out.value
+
+
+@functools.cache
+def dec_wide_plan(H, D, n_layers, B, T=64, bf16=False):
+    """D's wide chain plan (``_layout.dec_train_plan``) for a head at (H,
+    B), at the card's active clusters where the plan is not a measured one;
+    raises LaunchLimitError where the chain does not launch."""
+    p = _layout.dec_train_plan(H, D, n_layers, B, T, bf16)
+    if (H, D, n_layers, T, B, bf16) in _layout.DEC_TRAIN_MEASURED:
+        return p
+    return _layout.dec_train_plan(H, D, n_layers, B, T, bf16, p.cluster,
+                                  max_clusters=dec_wide_max_clusters(bf16, False, p.cluster))
+
+
+@functools.cache
+def _wide_entries(build: str) -> tuple:
+    """(library, chain entry, per-block entry) of D's wide ``build``."""
+    name, entry, _fn, _counter = _BUILDS[build]
+    sfx = "_bf16" if build.endswith("_bf16") else ""
+    lib, chain = _build.load_entry(name, entry, [ctypes.POINTER(_DecodeHead),
+                                                 ctypes.POINTER(ctypes.c_void_p)]
+                                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    block = _build.load_entry(name, f"mvt_gru_decode_train_wide_block{sfx}",
+                              [ctypes.POINTER(_DecodeHead)] + [ctypes.c_int] * 3
+                              + [ctypes.c_void_p])[1]
+    return lib, chain, block
+
+
+def _launch_wide(build: str, heads, structs, B: int, H: int, device) -> None:
+    """Launch D's wide ``build`` on each head's route: the chain once a head
+    (at ``dec_wide_plan``'s plan), the per-block heads in one launch; count
+    every launch."""
+    lib, chain, block = _wide_entries(build)
+    bf16 = build.endswith("_bf16")
+    sfx = "_bf16" if bf16 else ""
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    fn = gru_decode_fwd_train_wide
+    per_block = []
+    for h, st in zip(heads, structs):
+        D, n_layers = h["start"].shape[-1], len(h["cells"])
+        if _layout.dec_wide_route(H, D, n_layers) == "block":
+            per_block.append(st)
+            continue
+        plan = dec_wide_plan(H, D, n_layers, B, h["T"], bf16)
+        slices = list(_packed_slices(h["cells"], plan.cluster, plan.chunk, plan.tc))
+        ptrs = (ctypes.c_void_p * 6)(*(t.data_ptr() for t in slices), *([None] * (6 - len(slices))))
+        rc = chain(ctypes.byref(st), ptrs, B, H, plan.cluster, plan.rows, plan.splits,
+                   plan.stages, plan.chunk, int(plan.tc), stream)
+        _build.check(lib, rc, f"{_BUILDS[build][1]} chain launch")
+        _count(build)
+        setattr(fn, "launches_chain" + sfx, getattr(fn, "launches_chain" + sfx) + 1)
+    if per_block:
+        arr = (_DecodeHead * len(per_block))(*per_block)
+        rc = block(arr, len(per_block), B, H, stream)
+        _build.check(lib, rc, f"{_BUILDS[build][1]} per-block launch")
+        _count(build)
+        setattr(fn, "launches_block" + sfx, getattr(fn, "launches_block" + sfx) + 1)
 
 
 def _decode_fwd(heads, build: str):
@@ -592,7 +731,10 @@ def _decode_fwd(heads, build: str):
             setattr(st, name, named[name].data_ptr() if name in named else null.value)
         st.D, st.n_layers, st.out_act, st.T = D, n_layers, OUT_ACTIVATIONS[h["out_activation"]], T
         outs.append((probs, logits, h_seqs))
-    _launch(build, structs, len(heads), B, H, device)
+    if build in _layout.DEC_WIDE_BUILDS:
+        _launch_wide(build, heads, structs, B, H, device)
+    else:
+        _launch(build, structs, len(heads), B, H, device)
     return outs
 
 
@@ -653,7 +795,8 @@ _BUILDS = {
 @functools.cache
 def _entry(build: str) -> tuple:
     """(library, entry point) of one of ``_BUILDS``: D's take its heads'
-    structs, E's (the chain) its heads' chain structs and the plan."""
+    structs, E's (the chain) its heads' chain structs and the plan; the
+    wide D's are ``_wide_entries``'."""
     name, entry, _fn, _counter = _BUILDS[build]
     if build.startswith("D"):
         args = [ctypes.POINTER(_DecodeHead), ctypes.c_int, ctypes.c_int, ctypes.c_int,

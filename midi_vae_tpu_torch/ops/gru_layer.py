@@ -43,7 +43,12 @@ The wide route (``ops/_layout.py``, H = 512) trains a layer over a
 precomputed x-projection instead: ``gru_layer_train(xp, h0, u)``,
 counterpart of ``midi_vae_tpu/ops/fused_train.py::gru_layer_train``, whose
 forward is kernel F (``csrc/gru_layer_xp_fwd.cu``, replacing ``_fwd_kernel``
-in ``_fwd_pallas`` and ``_fwd_wide_pallas``) and whose backward is kernel G
+in ``_fwd_pallas`` and ``_fwd_wide_pallas``: A's float32 chain over the
+given xp, ``gru_layer_xp_fwd_chain``, its plan ``xp_fwd_plan``, where the
+slice of U streams its tensor-core instance over U packed by
+``pack_tc_slices``; its first design ``gru_layer_xp_fwd_block`` the route of
+the widths the chain refuses, ``_layout.gru_xp_fwd_route``) and whose
+backward is kernel G
 (``csrc/gru_layer_xp_bwd.cu``, replacing ``_bwd_kernel`` and
 ``_bwd_wide_kernel``) then kernel W for dU, as ``_gru_wide_weight_grads``
 does in XLA. The caller computes xp = x @ W + b with torch.matmul, so dx, dW
@@ -104,6 +109,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import torch
 
@@ -731,18 +737,155 @@ def _check_xp(xp, h0, u, seq=None, d_seq=None, d_final=None) -> tuple[int, int, 
 
 @functools.cache
 def _xp_fwd_kernel():
-    lib = _build.load("gru_layer_xp_fwd")
-    fn = lib.mvt_gru_layer_xp_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    """(library, {"chain" | "tc" | "block": entry}) of kernel F."""
+    lib, chain = _build.load_entry("gru_layer_xp_fwd", "mvt_gru_layer_xp_fwd",
+                                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    tc = _build.load_entry("gru_layer_xp_fwd", "mvt_gru_layer_xp_fwd_tc",
+                           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])[1]
+    block = _build.load_entry("gru_layer_xp_fwd", "mvt_gru_layer_xp_fwd_block",
+                              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])[1]
+    return lib, {"chain": chain, "tc": tc, "block": block}
+
+
+@functools.cache
+def _tc_max_clusters(cluster):
+    """The card's cudaOccupancyMaxActiveClusters of F's tensor-core
+    instance at ``cluster`` CTAs a cluster."""
+    lib, fn = _build.load_entry("gru_layer_xp_fwd", "mvt_gru_layer_xp_fwd_tc_max_clusters",
+                                [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    _build.check(lib, fn(cluster, ctypes.byref(out)), "gru_layer_xp_fwd cudaOccupancyMaxActiveClusters")
+    return out.value
+
+
+@functools.cache
+def xp_fwd_plan(H, B):
+    """F's chain plan at (H, B), at the card's active clusters of the
+    instance it runs: where the slice of U streams (``_layout.
+    gru_fwd_cluster``), the tensor-core instance's (``_layout.gru_tc_plan``,
+    ``chunk`` > 0; it ran faster than A's streamed instance at every F shape
+    on the H100, PERF.md, Findings), else A's resident float32
+    instance's (``_layout.gru_fwd_plan("F_chain", ...)``, also A's streamed
+    one where the tensor-core instance has no plan); raises
+    LaunchLimitError where none launches."""
+    C, stream = _layout.gru_fwd_cluster("F_chain", H)
+    if stream:
+        plan = _layout.gru_tc_plan(H, B, _tc_max_clusters)
+        if plan is not None:
+            return plan
+    return _layout.gru_fwd_plan("F_chain", H, B, _max_clusters("gru_layer_xp_fwd", stream, C))
+
+
+def pack_tc_slices(u, cluster):
+    """U (H, 3H) as F's tensor-core instance reads it
+    (``csrc/gru_cell_fwd.cuh``, ``GruFwdTcArgs``): per CTA c of the cluster
+    its P1 slice (H, 2 Hc: the z and r columns of units [c Hc, (c+1) Hc))
+    and its P2 slice (H, Hc: their candidate columns), each in B-fragment
+    order (H / 8, columns / 8, 8, 4, 2): entry (k, n, g, t, j) is depth row
+    8 k + 4 j + t of column 8 n + g. Returns (pzr, ph), contiguous."""
+    H = u.shape[0]
+    Hc = H // cluster
+    by_cta = u.reshape(H, 3, cluster, Hc).permute(2, 0, 1, 3)  # (C, H, 3, Hc)
+
+    def frag(x):  # (C, H, W) -> (C, H / 8, W / 8, 8, 4, 2)
+        W = x.shape[-1]
+        return x.reshape(cluster, H // 8, 2, 4, W // 8, 8).permute(0, 1, 4, 5, 3, 2).contiguous()
+
+    return frag(by_cta[:, :, :2].reshape(cluster, H, 2 * Hc)), frag(by_cta[:, :, 2])
+
+
+# pack_tc_slices' outputs of recent weights: (a weak reference to U, its
+# version counter, the packed pair) by (id, cluster size)
+_TC_PACKED: dict = {}
+
+
+def _tc_slices(u, cluster):
+    """``pack_tc_slices``, kept while U is the same tensor and unchanged
+    (its version counter: an optimizer's in-place update repacks)."""
+    try:
+        version = u._version
+    except RuntimeError:  # an inference tensor
+        return pack_tc_slices(u, cluster)
+    key = (id(u), cluster)
+    hit = _TC_PACKED.get(key)
+    if hit and hit[0]() is u and hit[1] == version:
+        return hit[2]
+    packed = pack_tc_slices(u, cluster)
+    if len(_TC_PACKED) >= 16:
+        _TC_PACKED.clear()
+    _TC_PACKED[key] = (weakref.ref(u), version, packed)
+    return packed
+
+
+def _check_f(xp, h0, u, what):
+    """F's operands: (T, B, H), or None off the card (CPU tensors)."""
+    T, B, H = _check_xp(xp, h0, u)
+    if xp.device.type == "cpu":
+        return None
+    if xp.dtype != torch.float32:
+        raise ValueError(f"{what} takes float32 operands (a bf16 layer runs kernel X), not "
+                         f"{xp.dtype}")
+    return T, B, H
+
+
+def gru_layer_xp_fwd_chain(xp, h0, u):
+    """Kernel F's chain: A's float32 chain (``csrc/gru_cell_fwd.cuh``) over
+    the given xp (T, B, 3H), emitting the (T, B, H) sequence
+    (``gru_layer_xp_reference``). CPU tensors run the plain version; CUDA
+    tensors (float32) launch it on clusters at ``xp_fwd_plan``'s plan (the
+    resident slice, or F's tensor-core instance over U packed by
+    ``pack_tc_slices``), counted on this wrapper and, as one call of F, on
+    ``gru_layer_xp`` (``.launches`` and ``.launches_chain``)."""
+    shape = _check_f(xp, h0, u, "gru_layer_xp_fwd_chain")
+    if shape is None:
+        return gru_layer_xp_reference(xp, h0, u)
+    T, B, H = shape
+    plan = xp_fwd_plan(H, B)
+    seq = torch.empty(T, B, H, device=xp.device, dtype=torch.float32)
+    lib, fns = _xp_fwd_kernel()
+    if plan.chunk:
+        pzr, ph = _tc_slices(u, plan.cluster)
+        rc = fns["tc"](_ptr(xp), _ptr(h0), _ptr(pzr), _ptr(ph), _ptr(seq), T, B, H,
+                       plan.cluster, plan.rows, plan.stages, plan.chunk, _stream(xp))
+    else:
+        rc = fns["chain"](_ptr(xp), _ptr(h0), _ptr(u), _ptr(seq), T, B, H, plan.cluster,
+                          plan.rows, plan.splits, plan.stages, _stream(xp))
+    _build.check(lib, rc, "gru_layer_xp_fwd chain launch")
+    gru_layer_xp_fwd_chain.launches += 1
+    gru_layer_xp.launches += 1
+    gru_layer_xp.launches_chain += 1
+    return seq
+
+
+def gru_layer_xp_fwd_block(xp, h0, u):
+    """Kernel F's per-block route (its first design: one block of H threads
+    per 8 batch rows, U read from L2 at every step), as
+    ``gru_layer_xp_fwd_chain``: counted on this wrapper and, as one call of
+    F, on ``gru_layer_xp`` (``.launches`` and ``.launches_block``)."""
+    shape = _check_f(xp, h0, u, "gru_layer_xp_fwd_block")
+    if shape is None:
+        return gru_layer_xp_reference(xp, h0, u)
+    T, B, H = shape
+    _layout.require("F", H, _layout.smem_bytes("F", H))
+    seq = torch.empty(T, B, H, device=xp.device, dtype=torch.float32)
+    lib, fns = _xp_fwd_kernel()
+    rc = fns["block"](_ptr(xp), _ptr(h0), _ptr(u), _ptr(seq), T, B, H, _stream(xp))
+    _build.check(lib, rc, "gru_layer_xp_fwd per-block launch")
+    gru_layer_xp_fwd_block.launches += 1
+    gru_layer_xp.launches += 1
+    gru_layer_xp.launches_block += 1
+    return seq
 
 
 def gru_layer_xp(xp, h0, u):
     """The tanh GRU layer forward over xp (T, B, 3H) time-major, every
     operand float32 or every one bfloat16: the (T, B, H) h sequence in their
     dtype. CPU tensors run ``gru_layer_xp_reference``; CUDA tensors launch
-    kernel F (float32) or kernel X (bfloat16, see the module note)."""
+    kernel F (float32) on the route ``_layout.gru_xp_fwd_route`` picks
+    (``gru_layer_xp_fwd_chain`` or ``gru_layer_xp_fwd_block``) or kernel X
+    (bfloat16, see the module note). Every launch of F counts on
+    ``.launches``, its chain's also on ``.launches_chain``, its per-block
+    route's on ``.launches_block``."""
     T, B, H = _check_xp(xp, h0, u)
     if xp.device.type == "cpu":
         return gru_layer_xp_reference(xp, h0, u)
@@ -750,17 +893,16 @@ def gru_layer_xp(xp, h0, u):
         from . import encoder_scan  # it imports this module
 
         return encoder_scan.gru_encoder_scan_fwd(xp, h0, u, "tanh", True)
-    _layout.require("F", H, _layout.smem_bytes("F", H))
-    seq = torch.empty(T, B, H, device=xp.device, dtype=torch.float32)
-    lib, fn = _xp_fwd_kernel()
-    rc = fn(_ptr(xp), _ptr(h0), _ptr(u), _ptr(seq), T, B, H,
-            ctypes.c_void_p(torch.cuda.current_stream(xp.device).cuda_stream))
-    _build.check(lib, rc, "gru_layer_xp_fwd launch")
-    gru_layer_xp.launches += 1
-    return seq
+    if _layout.gru_xp_fwd_route(H) == "block":
+        return gru_layer_xp_fwd_block(xp, h0, u)
+    return gru_layer_xp_fwd_chain(xp, h0, u)
 
 
-gru_layer_xp.launches = 0
+gru_layer_xp.launches = gru_layer_xp.launches_chain = gru_layer_xp.launches_block = 0
+# F's two routes, each counting its launches on ``.launches``
+F_ROUTES = ("gru_layer_xp_fwd_chain", "gru_layer_xp_fwd_block")
+for _fn in (gru_layer_xp_fwd_chain, gru_layer_xp_fwd_block):
+    _fn.launches = 0
 
 
 def gru_layer_xp_bwd_reference(xp, seq, h0, d_seq, d_final, u):

@@ -10,9 +10,11 @@ cell type) on one random batch (default 512), and prints one JSON line: the
 card, the route of the step, the median wall time per step (host clock
 around work that ends in a synchronize), note-steps/s (B x 64 output steps
 per step; windows/s for a judge), and from a torch.profiler window of STEPS
-steps the device time per kernel name, per kernel of the port (A, D, F,
-G's phases (its xp gate pre-pass, its chain: C's, the bf16 build's
-apart, its per-block route), the wide D, A's and L's pre-pass, A's chain,
+steps the device time per kernel name, per kernel of the port (A, D, F's
+tensor-core chain and per-block route (its chain at H = 256 is A's
+instance), G's phases (its xp gate pre-pass, its chain: C's, the bf16
+build's apart, its per-block route), the wide D's chain (B's training
+instance) and per-block route, A's and L's pre-pass, A's chain,
 A's and L's per-block routes, C's and E's phases (their shared gate pre-pass, C's chain and dx
 pass, E's chain: every E build, wide or not, runs it), N's and R's phases,
 the forward chain of Q and L, S, S xp, T, T xp, B's chain and per-block
@@ -40,12 +42,17 @@ import numpy as np
 # kernel name prefixes of the port's hand-written kernels
 PORT_KERNELS = {
     # A: its x @ W pre-pass (xproj, L's: one config runs A or L), its
-    # chain, its per-block route (no config at H <= 512 takes it)
+    # chain (F's chain where the slice is resident runs the same instance:
+    # the float32 wide route at H = 256), its per-block route (no config at
+    # H <= 512 takes it)
     "xproj_kernel": "A/L xproj xproj",
     "gru_fwd_chain_kernel": "A chain gru_fwd_chain",
+    # F's tensor-core instance (the slice streamed: H = 512)
+    "gru_fwd_chain_tc_kernel": "F chain tc gru_fwd_chain_tc",
     "gru_fwd_chain_mma_kernel": "A chain bf16 gru_fwd_chain_mma",
     "gru_layer_fwd_kernel": "A block gru_layer_fwd",
-    # B: its decode chain on clusters, its per-block route
+    # B: its decode chain on clusters (the training instance, D wide's
+    # chain, counted apart below), its per-block route
     "gru_decode_chain_kernel": "B chain gru_decode_chain",
     "gru_decode_kernel": "B block gru_decode",
     # C's and E's phases: the gate pre-pass's two products (one kernel
@@ -56,13 +63,13 @@ PORT_KERNELS = {
     "gru_bwd_dx_kernel": "C dx gru_bwd_dx",
     "gru_decode_train_kernel": "D gru_decode_train",
     "gru_head_bwd_chain_kernel": "E chain gru_head_bwd_chain",
-    "gru_layer_xp_fwd_kernel": "F gru_layer_xp_fwd",
+    "gru_layer_xp_fwd_kernel": "F block gru_layer_xp_fwd",
     # G: its xp gate pre-pass (P1, P2), its chain (C's, above; the bf16
     # build's instance with dxp counted apart), its per-block route
     "gru_xp_gates_p1_kernel": "G gates gru_xp_gates_p1",
     "gru_xp_gates_p2_kernel": "G gates gru_xp_gates_p2",
     "gru_layer_xp_bwd_kernel": "G block gru_layer_xp_bwd",
-    "gru_decode_train_wide_kernel": "D wide gru_decode_train_wide",
+    "gru_decode_train_wide_kernel": "D wide block gru_decode_train_wide",
     # L: its x @ W pre-pass is A's (above); its chain is the forward chain
     # below; its per-block route (no config at H <= 512 takes it)
     "lstm_layer_fwd_kernel": "L block lstm_layer_fwd",
@@ -89,7 +96,7 @@ BF16_BUILDS = ("A/L xproj xproj", "A chain gru_fwd_chain", "A block gru_layer_fw
                "C/E gates gru_gates_p1", "C/E gates gru_gates_p2", "C/G chain gru_bwd_chain",
                "C dx gru_bwd_dx", "D gru_decode_train", "E chain gru_head_bwd_chain",
                "G gates gru_xp_gates_p1", "G gates gru_xp_gates_p2", "G block gru_layer_xp_bwd",
-               "D wide gru_decode_train_wide", "L block lstm_layer_fwd",
+               "D wide block gru_decode_train_wide", "L block lstm_layer_fwd",
                "N/R chain lstm_bwd_chain",
                "N dx lstm_bwd_dx", "S lstm_step", "T gru_step_tc",
                "W grad_reduce")
@@ -180,6 +187,11 @@ def _profile(step, steps: int) -> dict:
             group = "X chain gru_fwd_chain_mma"
         if group == "C/G chain gru_bwd_chain" and ", true>" in name:
             group = "G chain bf16 gru_bwd_chain"
+        # D wide's chain: B's decode chain in its training instance
+        if group == "B chain gru_decode_chain" and ", true>" in name:
+            group = "D wide chain gru_decode_chain"
+            if "bfloat16" in name:
+                group = "D wide chain bf16 gru_decode_chain"
         if group in BF16_BUILDS and "bfloat16" in name:
             letter, library = group.rsplit(" ", 1)
             group = f"{letter} bf16 {library}"
