@@ -48,7 +48,8 @@ result line):
      to 255 registers) and of X's and G's chains and G's pre-pass must not
      spill; W's one-TF32-product control is built too (csrc/grad_reduce.cu
      with -DMVT_W_TF32_ONE);
-  2a. A's, B's, C's and E's outputs on numpy-seeded inputs bit-equal to the
+  2a. A's, B's, C's, E's and the wide D's outputs on numpy-seeded inputs
+     (the wide D's: tools/time_d_and_m.py --only digests) bit-equal to the
      parent commit's (PARENT_DIGESTS): X and G share A's and C's device
      code, F A's and the wide D's chain B's;
   2b. W: kernel W on the paths' reductions (W_CASES) against a float64 sum
@@ -61,8 +62,9 @@ result line):
      phases (the pre-pass beside torch.addmm, the chain, the per-block
      route) each against its plain version, and A and its phases at B = 5
      and one song's 16; B (its decode chain) at B = 16 and 5 too, and D's
-     probs and logits bit-equal to B's per-block route on the three heads
-     (D keeps the per-block body, csrc/gru_decode_body.cuh);
+     probs and logits bit-equal to B's on the three heads: D's chain to B's
+     chain at D's plan (B's training instance), D's per-block route to B's
+     per-block route (csrc/gru_decode_body.cuh);
   4. slice: the transfer CLI (midi_vae_tpu_torch.cli.transfer.main) at the
      full default Config() width on 3 authored songs, with
      --write-reconstruction; the .mid files must parse back and the launch
@@ -70,8 +72,10 @@ result line):
   5. card against CPU: one 256-window transfer_argmax batch on the card and
      through the plain path on the CPU; z, probs and argmax must agree. Prints
      windows/s and note-steps/s on the card, and one song's latency;
-  6. training kernels: C, D, E and W against their plain versions at the
-     training step's shapes (B = 256) and at B = 5, with times (W beside
+  6. training kernels: C, D (its chain, one launch a head, and its
+     per-block route on the same calls), E and W against their plain
+     versions at the training step's shapes (B = 256) and at B = 5, with
+     times (D's bounds by operand type: d_work; W beside
      cuBLAS's a.t() @ b), C's and E's phases each against its plain version
      on the same inputs (also in phases 9, 30, 33 and 39), and the
      gradients of the training ops against autograd through the plain
@@ -105,7 +109,9 @@ result line):
  11. wide training step, card against CPU, as phase 8 at lstm_size=512;
  12. teacher forcing: one teacher-forced step of the default config, card
      against CPU (the notes head's plain scan, D and E for the other heads);
- 13. LSTM kernels: L and M against their plain versions at the shapes of
+ 13. LSTM kernels: L and M (its decode chain on clusters,
+     csrc/lstm_decode_chain.cuh, with both counts of h tiles a layer, and
+     its per-block route) against their plain versions at the shapes of
      Config(cell_type="LSTM")'s transfer (LSTM(256) x 2), at B = 256 with
      times, bounds and, for L, cuDNN's LSTM timed beside it, and at B = 5;
      L's phases (the pre-pass beside torch.addmm, the chain beside cuDNN's
@@ -205,7 +211,8 @@ result line):
      over each layer's and head's products), against their plain bf16
      versions at B = 256 (timed, bf16 x bf16 products at the bf16 rate and
      the rest at the float32 rate, W beside cuBLAS on the widened operands)
-     and B = 5, A's phases each against its plain version; A and D also one
+     and B = 5, A's phases each against its plain version, D bf16's
+     per-block route beside its chain; A and D also one
      step from a random state, where three wrong
      roundings (r * h in A, the gate grads before W, layer 2 fed the rounded
      h1 in D) must land over the limits; the autograd ops' gradients against
@@ -269,9 +276,11 @@ result line):
      velocity and notes + velocity + held multi-head calls through D's
      bf16-residual build (decode_residual_bf16: probs and logits equal to
      the float32 build's bit for bit, the stored h sequences equal to its
-     rounded to bf16) and E's, and W over the rounded sequences, against
-     their plain versions at the training kernels' limits (E fed the
-     float32 sequences must land over them); at
+     rounded to bf16; its per-block route on the same calls) and E's, and
+     W over the rounded sequences, against their plain versions at the
+     training kernels' limits (E fed the float32 sequences must land over
+     them); the same call at H = 448, B = 32, off the narrow route, where
+     D resid's chain and E resid's launch (``_multihead`` on the card); at
      Config(lstm_size=512, compute_dtype=bfloat16, batch_size=128)'s
      instrument head (B = 128 and 5), rows 7 and 8 through D's wide bf16
      build and E's wide bf16 build with row 8's rounding (its streams
@@ -286,7 +295,9 @@ result line):
      held_residual_bf16 and held_notes (float32 limits), held_bf16 and the
      bf16 GRU(512) at B = 128 (bf16 limits), each step's time beside
      Config()'s.
-Then one JSON line with the kernels, and the final line
+Then D's and M's route counters on the Config(), bf16 Config() and
+residual_bf16 training slices and the LSTM transfer (every launch their
+chains'), one JSON line with the kernels, and the final line
 {"ok": true, "device": {...}}.
 """
 
@@ -554,10 +565,13 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "G_gates_p2": ("gru_layer_xp_bwd", "gru_xp_gates_p2_kernel", NOT_BF16),
           "G_chain": ("gru_layer_xp_bwd", "gru_bwd_chain_kernel", NOT_BF16),
           "D_wide": ("gru_decode_train", "gru_decode_train_wide_kernel", NOT_BF16),
-          # the wide D's chain: B's decode chain in its training instance
-          # (FFMA) and its tensor-core instance, float32 and bf16
+          # D's chain (every build's): B's decode chain in its training
+          # instances (FFMA: float32, bf16, float32 with bf16 h sequences for
+          # D resid) and its tensor-core instance, float32 and bf16
           "D_wide_chain": ("gru_decode_train", "gru_decode_chain_kernel", NOT_BF16),
           "D_wide_chain_bf16": ("gru_decode_train", "gru_decode_chain_kernel", BF16_ONLY),
+          "D_chain_resid": ("gru_decode_train", "gru_decode_chain_kernel",
+                            "fLb1E13__nv_bfloat16"),
           "D_wide_tc": ("gru_decode_train", "gru_decode_chain_tc_kernel", NOT_BF16),
           "D_wide_tc_bf16": ("gru_decode_train", "gru_decode_chain_tc_kernel", BF16_ONLY),
           "W": ("grad_reduce", "grad_reduce", NOT_BF16),
@@ -572,6 +586,8 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "L_xproj": ("lstm_layer_fwd", "xproj_kernel", NOT_BF16),
           "L_chain": ("lstm_layer_fwd", "lstm_fwd_chain_kernel"),
           "M": ("lstm_decode", "lstm_decode_kernel"),
+          # M's decode chain on clusters (csrc/lstm_decode_chain.cuh)
+          "M_chain": ("lstm_decode", "lstm_decode_chain_kernel"),
           # N's and R's phases (csrc/lstm_cell_bwd.cuh): the gate pre-pass
           # (FFMA in float32, tensor cores in bf16), the chain, N's dx pass
           "N_gates": ("lstm_layer_bwd", "lstm_bwd_gates_kernel"),
@@ -634,9 +650,10 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
 
 
 # the instances that must not spill: W's, L's, A's, S's, C's, E's, T's,
-# B's, F's, the wide D's, X's and G's of the tensor-core and chain designs
+# B's, F's, D's, M's, X's and G's of the tensor-core and chain designs
 NO_SPILLS = ("T", "T_xp", "T_bf16", "B_chain", "X_chain", "F_chain", "F_chain_tc",
              "D_wide_chain", "D_wide_chain_bf16", "D_wide_tc", "D_wide_tc_bf16",
+             "D_chain_resid", "M_chain",
              *(f"G_{p}{s}" for p in ("gates", "gates_p2", "chain") for s in ("", "_bf16")),
              "W_tc", "W_small", "W_tf32one", "W_tc_bf16", "W_small_bf16", "L_xproj", "L_chain",
              "L_xproj_bf16", "L_chain_bf16", "A_xproj", "A_chain", "A_xproj_bf16", "A_chain_bf16",
@@ -679,7 +696,8 @@ def check_registers():
                  for p in ("gates", "gates_p2", "dx") for s in ("", "_bf16")
                  if not (k in "EG" and p == "dx")},
               **dict.fromkeys(("X_chain", "G_chain", "G_chain_bf16", "F_chain", "F_chain_tc",
-                               "D_wide_chain", "D_wide_chain_bf16"), _layout.CHAIN_THREADS),
+                               "D_wide_chain", "D_wide_chain_bf16", "D_chain_resid",
+                               "M_chain"), _layout.CHAIN_THREADS),
               **dict.fromkeys(("D_wide_tc", "D_wide_tc_bf16"), _layout.DEC_TC_THREADS),
               # S's largest block (its instances: 64 or 128 threads)
               **dict.fromkeys(_layout.STEP_BUILDS,
@@ -699,11 +717,12 @@ def check_registers():
 
 
 def check_launch_bounds(found):
-    """The C entry points of D's 8-rows builds (and of its bf16 and
-    bf16-residual builds where ptxas's registers allow fewer than 512
+    """The C entry points of D's 8-rows per-block builds (and of its bf16
+    and bf16-residual builds where ptxas's registers allow fewer than 512
     threads) refuse H = 512 before any launch
-    (cudaErrorLaunchOutOfResources), as the route chooser says. E runs as
-    phases, its chain on clusters at every width its plan takes."""
+    (cudaErrorLaunchOutOfResources), as the route chooser says (D's chain
+    takes every path's width). E runs as phases, its chain on clusters at
+    every width its plan takes."""
     import ctypes
 
     import torch
@@ -724,7 +743,7 @@ def check_launch_bounds(found):
             raise RuntimeError(f"the route chooser lets kernel {letter} launch at H = 512, "
                                f"its build uses {found[letter]['registers']} registers")
         head = struct(D=61, n_layers=2, out_act=gru_decode.OUT_ACTIVATIONS["softmax"], T=64)
-        rc = gru_decode._entry(letter)[1](ctypes.byref(head), 1, B, 512, None)
+        rc = gru_decode._d_entries(letter)[2](ctypes.byref(head), 1, B, 512, None)
         if rc != out_of_resources:
             raise RuntimeError(f"kernel {letter} (8 rows) at H = 512 returned {rc}, "
                                f"not {out_of_resources} (cudaErrorLaunchOutOfResources)")
@@ -932,7 +951,7 @@ def f_work(T, rows, H):
 
 
 def d_work(heads):
-    """compare()'s work of the wide D on a call's heads (dicts with cells,
+    """compare()'s work of D (every build) on a call's heads (dicts with cells,
     out, start, T), each product at the card's best rate for its operand
     types. float32: every product (the layers' x W and h U, the readout) as
     three TF32 products. bf16: bf16 x bf16 (layer 1's x W over the fed-back
@@ -1161,7 +1180,13 @@ def phase_grad_reduce_checks():
 # midi_vae_tpu_torch/tools/time_f_and_d.py --only digests, the commit
 # before F and D wide moved onto A's and B's chains, from its git archive
 # copy on the same card in one call): F shares A's device code, D wide's
-# chain B's, and neither A nor B was to change.
+# chain B's, and neither A nor B was to change. Then the wide D's outputs
+# (probs, logits, h sequences of numpy-seeded notes, velocity and
+# instrument heads at H 512, B 256, f32 and bf16;
+# midi_vae_tpu_torch/tools/time_d_and_m.py --only digests, the commit
+# before D's other builds and M moved onto chains, from its git archive copy
+# on the same card in one call): every D build now runs the wide D's chain,
+# whose instances were not to change.
 PARENT_DIGESTS = {
     "A xproj H256 f32": "daad80aebbbfcabd",
     "A chain seq H256 f32": "56be70eb18476de6",
@@ -1192,21 +1217,26 @@ PARENT_DIGESTS = {
     "B chain instrument H256": "1f29c2741c0f2e40",
     "B chain notes H512": "29b6bea122835e3b",
     "B chain velocity H512": "9fb0c4809ee1eb7c",
-    "B chain instrument H512": "9eb5435a77b36f49"}
+    "B chain instrument H512": "9eb5435a77b36f49",
+    "D wide notes H512 f32": "bad823b94781f4da",
+    "D wide velocity H512 f32": "0ab45dd8d3f758b3",
+    "D wide instrument H512 f32": "fa34040c2746be5f",
+    "D wide notes H512 bf16": "ffeab8e93f452cc0",
+    "D wide instrument H512 bf16": "018d3f07c6225d03"}
 
 
 def phase_a_c_bits():
-    """A's, B's, C's and E's outputs bit-equal to the parent commit's
-    (``PARENT_DIGESTS``)."""
-    from midi_vae_tpu_torch.tools.time_f_and_d import digests
+    """A's, B's, C's, E's and the wide D's outputs bit-equal to the parent
+    commit's (``PARENT_DIGESTS``)."""
+    from midi_vae_tpu_torch.tools import time_d_and_m, time_f_and_d
 
-    got = digests()
+    got = {**time_f_and_d.digests(), **time_d_and_m.digests()}
     wrong = {k: (got.get(k), v) for k, v in PARENT_DIGESTS.items() if got.get(k) != v}
     if wrong or set(got) != set(PARENT_DIGESTS):
-        raise RuntimeError(f"A's, B's, C's or E's outputs differ from the parent commit's "
-                           f"(digest, parent digest): {wrong}")
-    print(f"[bits] A's, B's, C's and E's outputs bit-equal to the parent commit's ({len(got)} "
-          "digests)")
+        raise RuntimeError(f"A's, B's, C's, E's or the wide D's outputs differ from the parent "
+                           f"commit's (digest, parent digest): {wrong}")
+    print(f"[bits] A's, B's, C's, E's and the wide D's outputs bit-equal to the parent commit's "
+          f"({len(got)} digests)")
     return got
 
 
@@ -1276,20 +1306,39 @@ def phase_kernels():
                          torch.zeros(rows, d, device=dev), T, "tanh", out_act)
                 check(f"B {name} B={rows}", lambda a=rargs: gru_decode(*a),
                       lambda a=rargs: gru_decode_reference(*a), [H_ATOL, LOGITS_ATOL])
-            # kernel D keeps the per-block body (gru_decode_body.cuh) of B's
-            # first design: its probs and logits bit-equal to B's per-block
-            # route on the same head
+            # kernel D runs B's decode chain in its training instance: its
+            # probs and logits bit-equal to B's chain at D's plan; its
+            # per-block route keeps the body (gru_decode_body.cuh) of B's
+            # first design: bit-equal to B's per-block route
             head = {"cells": list(h["cells"]), "out": h["out"], "init": states,
                     "start": torch.zeros(B, d, device=dev), "T": T, "out_activation": out_act}
-            d_probs, d_logits, _ = gd.gru_decode_fwd_train([head], build="D")[0]
-            b_probs, b_logits = gd._decode_per_block(*args)
+            plan = gd.dec_plan(cfg.lstm_size, d, len(h["cells"]), B, T)
+            pairs = {"chain": (gd.gru_decode_fwd_train([head], build="D")[0][:2],
+                               gru_decode(*args, plan=plan)),
+                     "per-block route": (d_block([head], "D")[0][:2], gd._decode_per_block(*args))}
             torch.cuda.synchronize()
-            if not (torch.equal(d_probs, b_probs) and torch.equal(d_logits, b_logits)):
-                raise RuntimeError(f"kernel D on the {name} head is not bit-equal to B's per-block "
-                                   f"route: max |diff| {(d_probs - b_probs).abs().max().item():.3e}")
+            for route, ((dp, dl), (bp, bl)) in pairs.items():
+                if not (torch.equal(dp, bp) and torch.equal(dl, bl)):
+                    raise RuntimeError(f"kernel D's {route} on the {name} head is not bit-equal to "
+                                       f"B's: max |diff| {(dp - bp).abs().max().item():.3e}")
         print(f"[kernels] every kernel call (and A's phases) also agrees at B = {RAGGED}; A and B "
-              "at 16; D bit-equal to B's per-block route on the three heads")
+              "at 16; D bit-equal to B on the three heads: its chain to B's chain at D's plan, its "
+              "per-block route to B's per-block route")
     return results
+
+
+def d_block(heads, build):
+    """D's ``build`` on ``heads`` through its per-block route (8 rows a
+    block, the wide builds 2; the route chooser told to take it)."""
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+
+    saved = gd._layout.dec_train_route
+    gd._layout.dec_train_route = lambda *_a: "block"
+    try:
+        fwd = gd.gru_decode_fwd_train_wide if build.startswith("D_wide") else gd.gru_decode_fwd_train
+        return fwd(heads, build)
+    finally:
+        gd._layout.dec_train_route = saved
 
 
 def _decode_train_heads(cfg, dec, new_encoded, rows, dev, wide=False):
@@ -1367,15 +1416,6 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
     fwd = gd.gru_decode_fwd_train_wide if wide else gd.gru_decode_fwd_train
     bwd = gd.gru_decode_bwd_wide if wide else gd.gru_decode_bwd
 
-    def wide_block(heads):
-        """The wide D's per-block route on ``heads`` (the route chooser told
-        to take it)."""
-        saved = gd._layout.dec_wide_route
-        gd._layout.dec_wide_route = lambda *_a: "block"
-        try:
-            return gd.gru_decode_fwd_train_wide(heads)
-        finally:
-            gd._layout.dec_wide_route = saved
     d_name, e_name = ("D wide", "E wide") if wide else ("D", "E")
     d_key, e_key, w_key = (("gru_decode_train_wide", "gru_decode_bwd_wide", "grad_reduce_wide")
                            if wide else ("gru_decode_train", "gru_decode_bwd", "grad_reduce"))
@@ -1386,24 +1426,22 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
                           for h in heads)
         limits = [lim for h in heads for lim in [H_ATOL, LOGITS_ATOL] + [H_ATOL] * len(h["cells"])]
         fwd_flat = lambda outs: tuple(t for p, l, hs in outs for t in (p, l, *hs))  # noqa: E731
-        work = d_work(heads) if wide else {
-            "flops": sum(decode_flops(h["T"], rows, h["cells"], h["out"]["w"]) for h in heads)}
+        work = d_work(heads)
         plain_d = lambda h=heads: fwd_flat([gd.gru_decode_train_reference(  # noqa: E731
             x["cells"], x["out"], x["init"], x["start"], x["T"], x["out_activation"]) for x in h])
         out = run(f"{d_name} {call} ({desc})", lambda h=heads: fwd_flat(fwd(h)), plain_d, limits,
                   **work, inputs=[[h["cells"], h["out"], h["init"], h["start"]] for h in heads])
         if timed:
             results[d_key][call] = out
-        if wide:
-            # the chain (every head of these calls takes it) and the per-block
-            # route, the first design, on the same heads
-            if timed:
-                results["gru_decode_train_wide_chain"][call] = out
-            blk = run(f"D wide per-block route {call}", lambda h=heads: fwd_flat(
-                wide_block(h)), plain_d, limits, **work,
-                inputs=[[h["cells"], h["out"], h["init"], h["start"]] for h in heads])
-            if timed:
-                results["gru_decode_train_wide_block"][call] = blk
+        # the chain (every head of these calls takes it) and the per-block
+        # route, the first design, on the same heads
+        if timed:
+            results[d_key + "_chain"][call] = out
+        blk = run(f"{d_name} per-block route {call}", lambda h=heads: fwd_flat(
+            d_block(h, "D_wide" if wide else "D")), plain_d, limits, **work,
+            inputs=[[h["cells"], h["out"], h["init"], h["start"]] for h in heads])
+        if timed:
+            results[d_key + "_block"][call] = blk
         with torch.no_grad():
             for h in heads:
                 h["probs"], _l, h["h_seqs"] = gd.gru_decode_train_reference(
@@ -1491,12 +1529,12 @@ def dwide_tc_checks(heads, h_limit, logits_limit):
 
     from midi_vae_tpu_torch.ops import gru_decode as gd
 
-    picked = gd.dec_wide_plan
+    picked = gd.dec_plan
     for h in heads:
         D, n, rows = h["start"].shape[1], len(h["cells"]), h["start"].shape[0]
         bf16 = h["start"].dtype == torch.bfloat16
         plan = gd._layout.dec_train_plan(512, D, n, rows, h["T"], bf16, tc=True)
-        gd.dec_wide_plan = lambda *_a, _p=plan: _p
+        gd.dec_plan = lambda *_a, _p=plan: _p
         try:
             check(f"D wide tensor-core instance {n}L D={D} T={h['T']} B={rows}"
                   f"{' bf16' if bf16 else ''} (cluster {plan.cluster} x {plan.rows} rows)",
@@ -1507,7 +1545,7 @@ def dwide_tc_checks(heads, h_limit, logits_limit):
                       h_["out_activation"])] for t in (p, l, *hs)),
                   [h_limit, logits_limit] + [h_limit] * n)
         finally:
-            gd.dec_wide_plan = picked
+            gd.dec_plan = picked
 
 
 def c_phase_checks(run, tag, cargs):
@@ -1663,8 +1701,9 @@ def phase_train_kernels():
     enc, dec = model.params["encoder"], model.params["decoder"]
     gen = torch.Generator(device=dev).manual_seed(0)
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
-    results = {k: {} for k in ("gru_layer_bwd", "gru_decode_train", "gru_decode_bwd",
-                                "grad_reduce", *C_PHASES, *E_PHASES)}
+    results = {k: {} for k in ("gru_layer_bwd", "gru_decode_train", "gru_decode_train_chain",
+                                "gru_decode_train_block", "gru_decode_bwd", "grad_reduce",
+                                *C_PHASES, *E_PHASES)}
     flat = lambda outs: [t for t in outs if t is not None]  # noqa: E731
 
     for rows in (B, RAGGED):
@@ -2068,15 +2107,28 @@ def phase_lstm_kernels():
     from midi_vae_tpu_torch.config import Config
     from midi_vae_tpu_torch.models.rnn import init_decoder_states
     from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.ops import _layout
+    from midi_vae_tpu_torch.ops import lstm_decode as ld
     from midi_vae_tpu_torch.ops.lstm_decode import lstm_decode, lstm_decode_reference
     from midi_vae_tpu_torch.ops.lstm_layer import lstm_layer, lstm_layer_block, lstm_layer_reference
+
+    def m_block(*args):
+        """M's per-block route (the first design) on ``args`` (the route
+        chooser told to take it)."""
+        saved = _layout.lstm_decode_route
+        _layout.lstm_decode_route = lambda *_a: "block"
+        try:
+            return lstm_decode(*args)
+        finally:
+            _layout.lstm_decode_route = saved
 
     cfg = Config(cell_type="LSTM")
     dev = torch.device("cuda")
     model = MidiVAE(cfg).to(dev)
     enc, dec = model.params["encoder"], model.params["decoder"]
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
-    results = {k: {} for k in ("lstm_layer_fwd", "lstm_decode", *L_PHASES)}
+    results = {k: {} for k in ("lstm_layer_fwd", "lstm_decode", "lstm_decode_chain",
+                                "lstm_decode_block", *L_PHASES)}
     for rows in (B, RAGGED):
         timed = rows == B
         run = compare if timed else check
@@ -2124,10 +2176,24 @@ def phase_lstm_kernels():
                                              cfg.lstm_state_activation)
                 args = (list(h["cells"]), h["out"], states, torch.zeros(rows, d, device=dev), T,
                         "tanh", out_act)
-                out = run(f"M {name} layers={len(h['cells'])} D={d} T={T} {out_act}",
-                          lambda a=args: lstm_decode(*a), lambda a=args: lstm_decode_reference(*a),
-                          [M_PROBS_ATOL, LOGITS_ATOL],
-                          flops=decode_flops(T, rows, h["cells"], h["out"]["w"]), inputs=args[:4])
+                # f32 x f32 products priced as three TF32 products
+                work = tf32_work(decode_flops(T, rows, h["cells"], h["out"]["w"]))
+                tag = f"{name} layers={len(h['cells'])} D={d} T={T} {out_act}"
+                out = run(f"M {tag}", lambda a=args: lstm_decode(*a),
+                          lambda a=args: lstm_decode_reference(*a), [M_PROBS_ATOL, LOGITS_ATOL],
+                          **work, inputs=args[:4])
+                # the per-block route (the first design) on the same head, and
+                # the chain's other build (the other count of h tiles a layer)
+                blk = run(f"M per-block route {tag}", lambda a=args: m_block(*a),
+                          lambda a=args: lstm_decode_reference(*a), [M_PROBS_ATOL, LOGITS_ATOL],
+                          **work, inputs=args[:4])
+                picked = ld.decode_plan(cfg.lstm_size, d, len(h["cells"]), rows, T)
+                other = _layout.lstm_decode_plan(cfg.lstm_size, d, len(h["cells"]), rows, T=T,
+                                                 nb=3 - picked.nb)
+                check(f"M chain {tag} B={rows} with {other.nb} h tiles a layer "
+                      f"(cluster {other.cluster} x {other.rows} rows)",
+                      lambda a=args, p_=other: ld.lstm_decode(*a, plan=p_),
+                      lambda a=args: lstm_decode_reference(*a), [M_PROBS_ATOL, LOGITS_ATOL])
                 if name == "notes":
                     got, want = lstm_decode(*args)[0], lstm_decode_reference(*args)[0]
                     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
@@ -2136,7 +2202,10 @@ def phase_lstm_kernels():
                                            f"{MIN_ARGMAX_AGREEMENT}")
                 if timed:
                     results["lstm_decode"][name] = out
-    print(f"[lstm kernels] L (its phases, its per-block route) and M also agree at B = {RAGGED}")
+                    results["lstm_decode_chain"][name] = out
+                    results["lstm_decode_block"][name] = blk
+    print(f"[lstm kernels] L (its phases, its per-block route) and M (its chain, both counts of h "
+          f"tiles, its per-block route) also agree at B = {RAGGED}")
     return results
 
 
@@ -2243,9 +2312,10 @@ def phase_slice(work, cell_type="GRU", judges=False):
 # (2 per layer) on the narrow route, dU (1) on the wide one
 S_PER_STEP = 2 * 64 + 64 + 4
 PER_TRAIN_STEP = {
-    # A + C per layer; notes + velocity multi-head and the instrument head;
-    # W: 3 x (4 encoder + 2 notes + 1 velocity + 1 instrument cells) + 3
-    "narrow": {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_decode_train": 2,
+    # A + C per layer; notes + velocity multi-head and the instrument head
+    # (D: one launch a head, E one a call); W: 3 x (4 encoder + 2 notes + 1
+    # velocity + 1 instrument cells) + 3
+    "narrow": {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_decode_train": 3,
                "gru_decode_bwd": 2, "grad_reduce": 27},
     # F + G per layer; each head alone; W: 2 x 4 + 3 x 4 decode cells + 3
     "wide": {"gru_layer_xp_fwd": 4, "gru_layer_xp_bwd": 4, "gru_decode_train_wide": 3,
@@ -2335,15 +2405,16 @@ PER_TRAIN_STEP = {
 # the multi-head cells' dU over h_{t-1} beside the unrounded initial state,
 # r * h and layer 1's dW over the float32 probs (5 + 3 per side head)
 PER_TRAIN_STEP.update({
-    "residual_bf16": {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_decode_train_resid": 1,
+    "residual_bf16": {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_decode_train_resid": 2,
                       "gru_decode_train": 1, "gru_decode_bwd_resid": 1, "gru_decode_bwd": 1,
                       "grad_reduce_bf16": 3, "grad_reduce": 24},
-    "held_residual_bf16": {"gru_layer_fwd": 5, "gru_layer_bwd": 5, "gru_decode_train_resid": 1,
+    "held_residual_bf16": {"gru_layer_fwd": 5, "gru_layer_bwd": 5, "gru_decode_train_resid": 3,
                            "gru_decode_train": 1, "gru_decode_bwd_resid": 1,
                            "gru_decode_bwd": 1, "grad_reduce_bf16": 4, "grad_reduce": 30},
     # meta_held_notes in float32: the held-notes branch (A + C, W 3) and the
-    # held head in the multi-head call (three heads in one D and E launch)
-    "held_notes": {"gru_layer_fwd": 5, "gru_layer_bwd": 5, "gru_decode_train": 2,
+    # held head in the multi-head call (three heads in one E launch, D one a
+    # head)
+    "held_notes": {"gru_layer_fwd": 5, "gru_layer_bwd": 5, "gru_decode_train": 4,
                    "gru_decode_bwd": 2, "grad_reduce": 34},
     # held_bf16: as "bf16" with the held branch (A, C bf16 and its W) and the
     # held head (D = 2 < 8: promoted to float32, as velocity)
@@ -2367,7 +2438,7 @@ PER_TRAIN_STEP.update({
 PER_TRAIN_STEP["lstm_bf16_no_fused_decoder"] = PER_TRAIN_STEP["lstm_bf16"]
 PER_TRAIN_STEP["lstm_512_bf16_no_fused_decoder"] = PER_TRAIN_STEP["lstm_512_bf16"]
 PER_EVAL_BATCH = {  # forward only
-    "narrow": {"gru_layer_fwd": 4, "gru_decode_train": 2},
+    "narrow": {"gru_layer_fwd": 4, "gru_decode_train": 3},
     "wide": {"gru_layer_xp_fwd": 4, "gru_decode_train_wide": 3},
     "lstm_narrow": {"lstm_layer_fwd": 4, "lstm_step": S_PER_STEP},
     "lstm_wide": {"lstm_layer_xp_fwd": 4, "lstm_step": S_PER_STEP},
@@ -2380,7 +2451,7 @@ PER_EVAL_BATCH = {  # forward only
     "wide_bf16": {"gru_encoder_scan": 4, "gru_decode_train_wide_bf16": 2,
                   "gru_decode_train_wide": 1},
     "lstm_bf16": {"lstm_layer_fwd_bf16": 4, "lstm_step_bf16": S_PER_STEP},
-    "residual_bf16": {"gru_layer_fwd": 4, "gru_decode_train_resid": 1, "gru_decode_train": 1},
+    "residual_bf16": {"gru_layer_fwd": 4, "gru_decode_train_resid": 2, "gru_decode_train": 1},
     "bf16_128_512": {"gru_layer_fwd_bf16": 3, "gru_encoder_scan": 1,
                      "gru_decode_train_wide_bf16": 2, "gru_decode_train_wide": 1},
 }
@@ -2395,6 +2466,8 @@ PER_TF_STEP = {"gru_layer_fwd": 4, "gru_layer_bwd": 4, "gru_decode_train": 2,
 # encode 4 layers, decode 3 heads
 PER_SONG_TRANSFER = {"GRU": {"gru_layer_fwd": 4, "gru_decode": 3},
                      "LSTM": {"lstm_layer_fwd": 4, "lstm_decode": 3}}
+# the builds of D, one launch a head, by their counters' names
+D_COUNTERS = ("gru_decode_train", "gru_decode_train_bf16", "gru_decode_train_resid")
 
 
 def fwd_phases(want):
@@ -2402,11 +2475,15 @@ def fwd_phases(want):
     256, 512) each call of L (``lstm_layer_fwd``, which ``read_counters``
     derives from its phases) or of A (``gru_layer_fwd``, derived the same
     way) runs its pre-pass and its chain once; its per-block route none.
-    Every launch of B (``gru_decode``) there is its chain's
-    (``gru_decode_chain``)."""
+    Every launch of B (``gru_decode``), of M (``lstm_decode``) and of D's
+    builds (D, D bf16, D resid: one a head) there is its chain's
+    (``gru_decode_chain``, ``lstm_decode_chain``,
+    ``gru_decode_train_chain`` and its ``_bf16``, ``_resid``)."""
     out = dict(want)
-    if want.get("gru_decode"):
-        out["gru_decode_chain"] = want["gru_decode"]
+    for op in ("gru_decode", "lstm_decode", *D_COUNTERS):
+        if want.get(op):
+            name = op.replace("_bf16", "").replace("_resid", "") + "_chain"
+            out[name + op[len(op.replace("_bf16", "").replace("_resid", "")):]] = want[op]
     for sfx in ("", "_bf16"):
         for op, phases in (("lstm_layer_fwd", ("lstm_layer_xproj", "lstm_layer_fwd_chain")),
                            ("gru_layer_fwd", ("gru_layer_xproj", "gru_layer_fwd_chain"))):
@@ -2505,8 +2582,9 @@ def kernel_counters():
     ``launches_bf16`` for the bf16 builds of T, S, A, C, D, E, G, the wide D
     and E, W, L, N, Q and R, ``launches_resid`` for D's and E's
     bf16-residual builds, ``launches_row8_bf16`` for E wide's row-8 build,
-    ``launches_chain`` and ``launches_block`` for the two routes of X, F
-    and the wide D (its ``_bf16`` ones for D wide bf16)."""
+    ``launches_chain`` and ``launches_block`` for the two routes of X, F,
+    M and every build of D (with the build's suffix: ``_bf16``,
+    ``_resid``)."""
     from midi_vae_tpu_torch.ops import encoder_scan as es
     from midi_vae_tpu_torch.ops import encoder_stack as est
     from midi_vae_tpu_torch.ops import gru_decode as gd
@@ -2560,6 +2638,12 @@ def kernel_counters():
                                                                f"launches_{route}{sfx}")
     counters["gru_decode_chain"] = (gd.gru_decode, "launches_chain")
     counters["gru_decode_train_resid"] = (gd.gru_decode_fwd_train, "launches_resid")
+    # D's and M's chains and per-block routes (D per build)
+    for route in ("chain", "block"):
+        for sfx in ("", "_bf16", "_resid"):
+            counters[f"gru_decode_train_{route}{sfx}"] = (gd.gru_decode_fwd_train,
+                                                          f"launches_{route}{sfx}")
+        counters[f"lstm_decode_{route}"] = (lstm_decode, f"launches_{route}")
     counters["gru_decode_bwd_resid"] = (gd.gru_decode_bwd, "launches_resid")
     counters["gru_decode_bwd_wide_row8_bf16"] = (gd.gru_decode_bwd_wide, "launches_row8_bf16")
     return counters
@@ -4298,23 +4382,6 @@ def layer_flops_bf16(T, B, w, u):
     return 2 * T * B * (w.shape[0] * 3 * H + H * 2 * H), 2 * T * B * H * H
 
 
-def decode_flops_bf16(T, B, cells, wo):
-    """(bf16 x bf16, float32-rate) operations of D's bf16 build: layer 1's
-    x @ W (the fed-back bf16 probs) and every layer's h @ U[:, :2H] are bf16
-    products; (r * h) @ U[:, 2H:], layer 2's h1 @ W (the float32 h1) and the
-    readout (the float32 top h) take a float32 operand."""
-    bf, f32 = 0, 2 * T * B * wo.numel()
-    for i, c in enumerate(cells):
-        H = c["u"].shape[0]
-        bf += 2 * T * B * 2 * H * H
-        f32 += 2 * T * B * H * H
-        if i == 0:
-            bf += 2 * T * B * c["w"].numel()
-        else:
-            f32 += 2 * T * B * c["w"].numel()
-    return bf, f32
-
-
 def plain_layer_vjp(x, h0, w, b, u, rs, g):
     """The gradients of ``gru_layer_train_x`` through the plain versions of
     A, C and W (the CPU path's explicit float32 transposition), cast as the
@@ -4433,7 +4500,8 @@ def phase_bf16_fused_kernels():
     tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
     flat = lambda outs: tuple(t for t in outs if t is not None)  # noqa: E731
     keys = ("gru_layer_fwd_bf16", "gru_layer_bwd_bf16", "grad_reduce_bf16",
-            "gru_decode_train_bf16", "gru_decode_bwd_bf16",
+            "gru_decode_train_bf16", "gru_decode_train_chain_bf16",
+            "gru_decode_train_block_bf16", "gru_decode_bwd_bf16",
             *(f"{k}_bf16" for k in (*A_PHASES, *C_PHASES, *E_PHASES)))
     results = {k: {} for k in keys}
     found = {}
@@ -4547,14 +4615,20 @@ def phase_bf16_fused_kernels():
                     "out_activation": out_act}
             n = len(head["cells"])
             tag = f"{name} ({n}L D={d} T={T} {out_act})"
-            fb, ff = decode_flops_bf16(T, rows, head["cells"], head["out"]["w"])
+            dinputs = [head["cells"], head["out"], head["init"], head["start"]]
             out = run(f"D bf16 {tag}", lambda h_=head: kernel_d(h_), lambda h_=head: plain_d(h_),
-                      [BF16_OUT] * (2 + n), flops=fb, flops_f32=ff,
-                      inputs=[head["cells"], head["out"], head["init"], head["start"]],
-                      peak=PEAK_BF16_FLOPS)
+                      [BF16_OUT] * (2 + n), **d_work([head]), inputs=dinputs)
+            # its per-block route (the first design, 8 rows a block) on the
+            # same head, a width it still serves
+            blk = run(f"D bf16 per-block route {tag}", lambda h_=head: tuple(
+                t for p_, l_, hs_ in d_block([h_], "D_bf16") for t in (p_, l_, *hs_)),
+                lambda h_=head: plain_d(h_), [BF16_OUT] * (2 + n), **d_work([head]),
+                inputs=dinputs)
             probs, _logits, *h_seqs = plain_d(head)
             if timed:
                 results["gru_decode_train_bf16"][name] = out
+                results["gru_decode_train_chain_bf16"][name] = out
+                results["gru_decode_train_block_bf16"][name] = blk
             if timed and n == 2:
                 # one step from the head's initial states: the control's ground
                 step1 = dict(head, T=1)
@@ -4714,13 +4788,8 @@ def phase_bf16_wide_kernels():
     def kernel_d(head, block=False):
         """The wide D on ``head``: its route's (the chain), or with ``block``
         the per-block route's."""
-        saved = gd._layout.dec_wide_route
-        if block:
-            gd._layout.dec_wide_route = lambda *_a: "block"
-        try:
-            probs, logits, h_seqs = gd.gru_decode_fwd_train_wide([head])[0]
-        finally:
-            gd._layout.dec_wide_route = saved
+        fwd = (lambda hs: d_block(hs, "D_wide_bf16")) if block else gd.gru_decode_fwd_train_wide
+        probs, logits, h_seqs = fwd([head])[0]
         return probs, logits, *h_seqs
 
     def plain_d(head):
@@ -5444,13 +5513,16 @@ def phase_residual_kernels():
     import torch
 
     from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.models import vae as port_vae
     from midi_vae_tpu_torch.models.rnn import init_decoder_states
     from midi_vae_tpu_torch.models.vae import MidiVAE, _cast_tree
+    from midi_vae_tpu_torch.ops import _layout
     from midi_vae_tpu_torch.ops import gru_decode as gd
 
     bf, dev = torch.bfloat16, torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(39)
-    keys = ("gru_decode_train_resid", "gru_decode_bwd_resid", "grad_reduce_resid",
+    keys = ("gru_decode_train_resid", "gru_decode_train_chain_resid",
+            "gru_decode_train_block_resid", "gru_decode_bwd_resid", "grad_reduce_resid",
             *(f"{k}_resid" for k in E_PHASES), *(f"{k}_rows78_bf16" for k in E_PHASES),
             "gru_decode_train_rows78", "gru_decode_bwd_wide_row8_bf16", "grad_reduce_rows78_bf16")
     results = {k: {} for k in keys}
@@ -5536,14 +5608,21 @@ def phase_residual_kernels():
                     raise RuntimeError(f"D resid {call} B={rows}: a stored h sequence is not the "
                                        "float32 build's rounded to bf16")
             limits = [lim for h in heads for lim in [H_ATOL, LOGITS_ATOL] + [BF16_OUT] * len(h["cells"])]
+            plain_d = lambda h=heads: fwd_flat([gd.gru_decode_train_reference(  # noqa: E731
+                x["cells"], x["out"], x["init"], x["start"], x["T"], x["out_activation"], bf)
+                for x in h])
+            dinputs = [[h["cells"], h["out"], h["init"], h["start"]] for h in heads]
             out = run(f"D resid {call} ({desc})", lambda h=heads: fwd_flat(gd.gru_decode_fwd_train(h, "D_resid")),
-                      lambda h=heads: fwd_flat([gd.gru_decode_train_reference(
-                          x["cells"], x["out"], x["init"], x["start"], x["T"], x["out_activation"], bf)
-                          for x in h]), limits,
-                      flops=sum(decode_flops(h["T"], rows, h["cells"], h["out"]["w"]) for h in heads),
-                      inputs=[[h["cells"], h["out"], h["init"], h["start"]] for h in heads])
+                      plain_d, limits, **d_work(heads), inputs=dinputs)
+            # its per-block route (the first design, 8 rows a block: every
+            # head of the call in one launch) on the same heads
+            blk = run(f"D resid per-block route {call} ({desc})",
+                      lambda h=heads: fwd_flat(d_block(h, "D_resid")), plain_d, limits,
+                      **d_work(heads), inputs=dinputs)
             if timed:
                 results["gru_decode_train_resid"][call] = out
+                results["gru_decode_train_chain_resid"][call] = out
+                results["gru_decode_train_block_resid"][call] = blk
             with_residuals(heads, bf)
             grad = (rel, RESID_REL_L2)
             limits = [lim for h in heads for lim in
@@ -5582,6 +5661,27 @@ def phase_residual_kernels():
                     results["grad_reduce_resid"][f"{call} head {k}"] = out
             autograd_check(f"D+E+W resid grads {call} B={rows}", heads, rel,
                            ("D_resid", "E_resid"))
+
+    # (1b) decode_residual_bf16 at H = 448, B = 32, off the narrow route: the
+    # multi-head call runs on the card (D resid's chain, E resid's chain)
+    cfg = Config(lstm_size=448, decode_residual_bf16=True, batch_size=32)
+    if not port_vae._multihead(cfg, _layout.config_route(cfg), 32, on_card=True):
+        raise RuntimeError("decode_residual_bf16 at H = 448, B = 32 does not take the multi-head "
+                           "call on the card")
+    model = MidiVAE(cfg).to(dev)
+    z = 0.5 * torch.randn(32, cfg.latent_dim, generator=gen, device=dev)
+    heads = heads_of(cfg, model.params["decoder"], torch.cat([z, torch.roll(z, 1, 0)], dim=-1), 32,
+                     ("notes", "velocity"))
+    limits = [lim for h in heads for lim in [H_ATOL, LOGITS_ATOL] + [BF16_OUT] * len(h["cells"])]
+    check("D resid notes+velocity H=448 B=32", lambda: fwd_flat(gd.gru_decode_fwd_train(
+        heads, "D_resid")), lambda: fwd_flat([gd.gru_decode_train_reference(
+            x["cells"], x["out"], x["init"], x["start"], x["T"], x["out_activation"], bf)
+            for x in heads]), limits)
+    with_residuals(heads, bf)
+    autograd_check("D+E+W resid grads notes+velocity H=448 B=32", heads, rel,
+                   ("D_resid", "E_resid"))
+    print("[residual kernels] decode_residual_bf16 at H = 448, B = 32 runs rows 5 and 6 on the "
+          "card (D resid's chain, E resid's chain), at the limits of B = 256")
 
     # (2) rows 7 and 8 in bf16 at H = 512: the instrument head at B = 128
     cfg = Config(lstm_size=512, compute_dtype="bfloat16", batch_size=128)
@@ -5765,21 +5865,26 @@ def kernel_registers(registers, letter):
     chooser)."""
     key = letter.replace(" ", "_")
     aliases = {"L_block": "L", "L_block_bf16": "L_bf16", "A_block": "A", "A_block_bf16": "A_bf16",
-               "X_block": "X", "G_block": "G", "G_block_bf16": "G_bf16"}
+               "X_block": "X", "G_block": "G", "G_block_bf16": "G_bf16", "M_block": "M"}
     if key in aliases:
         return registers[aliases[key]]
-    if key in ("B", "X"):  # the chain and the per-block route
+    if key in ("B", "X", "M"):  # the chain and the per-block route
         return {"chain": registers[f"{key}_chain"], "block": registers[key]}
-    # F's chain (A's instances in F's library, the tensor-core one) and the
-    # wide D's (B's FFMA training instance, the tensor-core one), each beside
-    # its per-block route
+    # F's chain (A's instances in F's library, the tensor-core one) and D's
+    # (B's FFMA training instances, the tensor-core one; D resid: its FFMA
+    # instance alone), each beside its per-block route
     # (the op, its chain's name, its per-block route's name): chain instances
     routes = {("F", "F_chain", "F_block"): ("F_chain", "F_chain_tc"),
               ("D_wide", "D_wide_chain", "D_wide_block"): ("D_wide_chain", "D_wide_tc"),
               ("D_wide_bf16", "D_wide_chain_bf16", "D_wide_block_bf16"): ("D_wide_chain_bf16",
-                                                                          "D_wide_tc_bf16")}
+                                                                          "D_wide_tc_bf16"),
+              ("D", "D_chain", "D_block"): ("D_wide_chain", "D_wide_tc"),
+              ("D_bf16", "D_chain_bf16", "D_block_bf16"): ("D_wide_chain_bf16", "D_wide_tc_bf16"),
+              ("D_resid", "D_chain_resid", "D_block_resid"): ("D_chain_resid", None)}
     for (op, chain, block), (ffma, tc) in routes.items():
-        instances = {"chain": registers[ffma], "chain_tc": registers[tc]}
+        instances = {"chain": registers[ffma]}
+        if tc:
+            instances["chain_tc"] = registers[tc]
         if key == op:
             return {**instances, "block": registers[op]}
         if key == chain:
@@ -6049,8 +6154,24 @@ def main() -> int:
                                      "fused_train.py:2352", ["fused_train.py:2992"])
            for op, part in (("xproj", "xproj"), ("fwd_chain", "chain"), ("block", "block"))
            for sfx in ("", "_bf16")},
-        # row 34: _decode_kernel_2layer, _decode_kernel_1layer
+        # row 34: _decode_kernel_2layer, _decode_kernel_1layer; its decode
+        # chain (the route at the paths' widths) and per-block route
         "lstm_decode": ("M", "lstm_decode.cu", "fused_lstm.py:478", ["fused_lstm.py:511"]),
+        "lstm_decode_chain": ("M chain", "lstm_decode_chain.cuh", "fused_lstm.py:478",
+                              ["fused_lstm.py:511"]),
+        "lstm_decode_block": ("M block", "lstm_decode.cu", "fused_lstm.py:478",
+                              ["fused_lstm.py:511"]),
+        # rows 5 and 7 (f32), 7 in a bf16 model, 5 with bf16 residuals: D's
+        # builds on B's decode chain in its training instances (the route
+        # at the paths' widths) and on their per-block route (8 rows)
+        **{f"gru_decode_train_{route}{sfx}": (
+            f"D {route}{' ' + sfx[1:] if sfx else ''}",
+            "gru_decode_chain.cuh" if route == "chain" else "gru_decode_train.cu",
+            "fused_train.py:393" if sfx == "_bf16" else "fused_train.py:3089",
+            ["fused_train.py:431", "fused_train.py:465"] if sfx == "_bf16" else
+            ["fused_train.py:3262"] if sfx == "_resid" else
+            ["fused_train.py:431", "fused_train.py:393"])
+           for route in ("chain", "block") for sfx in ("", "_bf16", "_resid")},
         # row 20: _lstm_bwdx_kernel (its weight-grad sums: W)
         "lstm_layer_bwd": ("N", "lstm_layer_bwd.cu", "fused_train.py:2405", []),
         # rows 15 and 17: _lstm_fwd_kernel through _lstm_fwd_pallas, _lstm_fwd_wide_pallas
@@ -6246,6 +6367,16 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], *(r["max_abs_err"] for r in calls.values()))
             entry["calls_" + key.removeprefix("ms_")] = calls
         kernels.append(entry)
+    # D's and M's route counters on the paths that run them: every launch
+    # their chains' (the launch tables hold each path to it)
+    routes = {f"{k}{sfx}": v for k, v in (("gru_decode_train_chain", 0),
+                                           ("gru_decode_train_block", 0)) for sfx in
+              ("", "_bf16", "_resid")} | {"lstm_decode_chain": 0, "lstm_decode_block": 0}
+    for path in ("train", "train_bf16", "train_residual_bf16", "transfer_lstm_judges"):
+        got = {k: paths[path].get(k, 0) for k in routes}
+        if not any(got.values()) or any(v for k, v in got.items() if "block" in k):
+            raise RuntimeError(f"the {path} path launched D or M off their chains: {got}")
+        print(f"[routes] {path}: " + ", ".join(f"{k} {v}" for k, v in got.items() if v))
     wall_s = time.perf_counter() - t_start
     print(f"[done] every phase passed in {wall_s:.1f} s")
     print(smi)

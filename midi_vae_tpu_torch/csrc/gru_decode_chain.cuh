@@ -64,19 +64,21 @@
 // splits and the ring's stages. Every kernel launches on the caller's stream
 // and allocates nothing.
 //
-// Kernel D's wide builds (gru_decode_train.cu) run this chain for training
-// (tanh cells), one head a launch, with each layer's h sequence stored
-// (T, B, H) as kernel E reads it back: each CTA stores its own Hc units of
-// every row, 4 units a store, while the X2 exchange's barrier completes.
-// In bf16 the operands, outputs and slices are bf16 (the slices widened as
-// the products read them) and the step rounds what the Pallas kernel
-// stores (gru_decode_body.cuh): the fed-back probs, the carries after the
-// readout has read them (layer 2 and the readout take layer 1's and the top
-// layer's float h of the step), the h sequences, probs and logits. Two
-// instances: B's FFMA body with the stores (gru_decode_chain_kernel<...,
-// TV, true>) and the tensor-core one (gru_decode_chain_tc_kernel, below),
-// each at the plan of ops/_layout.py::dec_train_plan. B's serving instance
-// (<float, false>) stores nothing and is unchanged.
+// Kernel D (gru_decode_train.cu: every build, D, D bf16, D resid and the
+// wide ones) runs this chain for training (tanh cells), one head a launch,
+// with each layer's h sequence stored (T, B, H) as kernel E reads it back:
+// each CTA stores its own Hc units of every row, 4 units a store, while the
+// X2 exchange's barrier completes. In bf16 the operands, outputs and slices
+// are bf16 (the slices widened as the products read them) and the step
+// rounds what the Pallas kernel stores (gru_decode_body.cuh): the fed-back
+// probs, the carries after the readout has read them (layer 2 and the
+// readout take layer 1's and the top layer's float h of the step), the h
+// sequences, probs and logits. D resid's instance is the float one with the
+// h sequences stored in bf16 (the store type TS). Two designs: B's FFMA
+// body with the stores (gru_decode_chain_kernel<..., TV, true, TS>) and the
+// tensor-core one (gru_decode_chain_tc_kernel, below), each at the plan of
+// ops/_layout.py::dec_train_plan. B's serving instance (<float, false>)
+// stores nothing and is unchanged.
 #pragma once
 
 #include "gru_cell_fwd.cuh"
@@ -94,7 +96,7 @@ constexpr int kDecMaxStages = 8;
 // 1 KB for the static (the ring's mbarriers)
 constexpr size_t kDecSmem = 232448 - 1024;
 
-template <typename TV = float>
+template <typename TV = float, typename TS = TV>
 struct GruDecodeChainArgsT {
   const TV* start;  // (B, D)
   const TV* h1_0;   // (B, H)
@@ -117,7 +119,10 @@ struct GruDecodeChainArgsT {
   int splits;  // threads sharing a tile's depth
   int stages;  // chunks in the ring
   int chunk;   // depth rows of a chunk
-  TV* hseq[2];  // D's training instance: each layer's h sequence (T, B, H); B's: null
+  // D's training instance: each layer's h sequence (T, B, H), of the store
+  // type TS (TV, or bf16 beside float operands in D resid's instance); B's:
+  // null
+  TS* hseq[2];
   int out_act;  // the tensor-core instance's output activation (B's: a template argument)
 };
 using GruDecodeChainArgs = GruDecodeChainArgsT<float>;
@@ -155,11 +160,14 @@ __host__ __device__ constexpr size_t gru_decode_chain_smem(int NL, int D, int H,
 
 // Grid: clusters * C CTAs of kChainThreads, cluster dims (C, 1, 1). TV and
 // TRAIN select D's training instance (gru_decode_train.cu): the operands and
-// outputs of type TV, each layer's h sequence stored; B's serving instance is
-// <float, false>.
-template <int NL, int ACT, int OUT, typename TV = float, bool TRAIN = false>
+// outputs of type TV, each layer's h sequence stored as TS; B's serving
+// instance is <float, false>. D resid's instance is <float, true, bf16>:
+// every value and rounding of D's float instance, only the stored h
+// sequences rounded to bf16, so its probs and logits are D's bit for bit at
+// the same plan.
+template <int NL, int ACT, int OUT, typename TV = float, bool TRAIN = false, typename TS = TV>
 __global__ void __launch_bounds__(kChainThreads, 1) gru_decode_chain_kernel(
-    const GruDecodeChainArgsT<TV> a) {
+    const GruDecodeChainArgsT<TV, TS> a) {
   extern __shared__ __align__(16) unsigned char dec_smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
@@ -354,7 +362,7 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_decode_chain_kernel(
         // (16 bytes of float, 8 of bf16) a store, while the barrier completes
         // (no peer writes these columns)
         const int per_row = Hc / 4;
-        TV* dst = a.hseq[l] + (size_t)t * B * H + c * Hc;
+        TS* dst = a.hseq[l] + (size_t)t * B * H + c * Hc;
         for (int i = tid; i < rows * per_row; i += blockDim.x) {
           const int r = i / per_row, g = 4 * (i % per_row);
           if (row0 + r >= B) continue;
@@ -762,8 +770,8 @@ int launch_gru_decode_chain_tc(const GruDecodeChainArgsT<TV>& a, int cluster, vo
 // The chain of one head at the plan of ops/_layout.py::gru_decode_plan
 // (cluster size, rows a cluster, splits, stages); cudaErrorInvalidValue for
 // a plan the build does not run.
-template <int NL, int ACT, int OUT, typename TV = float, bool TRAIN = false>
-int launch_gru_decode_chain(const GruDecodeChainArgsT<TV>& a, int cluster, void* stream) {
+template <int NL, int ACT, int OUT, typename TV = float, bool TRAIN = false, typename TS = TV>
+int launch_gru_decode_chain(const GruDecodeChainArgsT<TV, TS>& a, int cluster, void* stream) {
   const int H = a.H, S = a.splits;
   if (a.T < 1 || a.B < 1 || a.D < 1 || cluster < 1 || cluster > kMaxCluster || H < 32 ||
       (a.chunk != 32 && a.chunk != 64 && a.chunk != 128) || H % a.chunk != 0 ||
@@ -785,7 +793,7 @@ int launch_gru_decode_chain(const GruDecodeChainArgsT<TV>& a, int cluster, void*
   const size_t smem =
       gru_decode_chain_smem(NL, a.D, H, cluster, a.rows, S, a.stages, a.chunk, sizeof(TV));
   if (smem > kDecSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = gru_decode_chain_kernel<NL, ACT, OUT, TV, TRAIN>;
+  auto kernel = gru_decode_chain_kernel<NL, ACT, OUT, TV, TRAIN, TS>;
   static size_t configured = 0;  // the attributes once, again for more shared memory
   if (smem > configured) {
     cudaError_t err = cluster_config(kernel, kMaxCluster, smem);

@@ -1,57 +1,43 @@
-// Kernel D: the decode heads' training forward, several heads in one launch.
+// Kernel D: the decode heads' training forward.
 //
 // Replaces the TPU kernels midi_vae_tpu/ops/fused_train.py::_mh_fwd_kernel
 // (the 2-layer notes head and every 1-layer T-length side head in one
-// launch, multihead_decode_train_fwd) and ::_dec_fwd1_kernel /
-// ::_dec_fwd2_kernel (one head: _dec_fwd_pallas, and the batch-tiled
-// _dec_fwd_wide_pallas the JAX package takes at H = 512). Those compute what
-// the serving decode computes plus each layer's h sequence as the backward's
-// residual, and so does this kernel: its loop body is kernel B's
-// (decode_head in gru_decode_body.cuh) with the h-sequence outputs on.
+// launch, multihead_decode_train_fwd, also with residual_dtype=bf16) and
+// ::_dec_fwd1_kernel / ::_dec_fwd2_kernel (one head: _dec_fwd_pallas in
+// float32 and bf16, and the batch-tiled _dec_fwd_wide_pallas the JAX package
+// takes at H = 512). Those compute what the serving decode computes plus
+// each layer's h sequence as the backward's residual, and so does this
+// kernel; the cell activation is tanh, the one the backward (kernel E)
+// implements.
 //
-// The TPU kernel runs the heads one after the other inside each grid step;
-// here the grid's y dimension selects the head, so the heads of one launch
-// run on different SMs at the same time (the notes head's 32 blocks and the
-// velocity head's 32 blocks at B = 256). Each head keeps its own layer count,
-// output activation, width D and length T; the cell activation is tanh, the
-// one the backward (kernel E) implements.
+// The design (ops/_layout.py::dec_train_route picks a head's route): one
+// head a launch on kernel B's decode chain on thread-block clusters in its
+// training instance (gru_decode_chain.cuh: each CTA H / C units of every
+// layer, its weight slices streamed by the TMA, the h sequences stored from
+// the X2 exchange), at the plan ops/_layout.py::dec_train_plan gives. The
+// TPU kernel runs the heads of a multi-head call one after the other inside
+// each grid step; here they are launches in turn on the caller's stream (the
+// notes head's plan at B = 256 takes 120 of the 132 SMs, so the heads
+// cannot share the card at their best plans). Three chain instances:
+// mvt_gru_decode_train (float32: builds D and D wide), _bf16 (D bf16 and D
+// wide bf16: the slices streamed in bf16, the Pallas kernel's roundings) and
+// _resid (D resid, decode_residual_bf16 beside a float32 model: the float32
+// instance with only the h sequences stored rounded to bf16, which halves
+// the bytes kernel E reads back; its probs and logits are D's bit for bit
+// at the same plan).
 //
-// Two builds of the same body. The narrow one (mvt_gru_decode_train) holds
-// kRows = 8 batch rows per block and takes 160 registers a thread, so it
-// launches up to H = 384 (160 x 384 = 61,440 of an SM's 65,536). The wide
-// one's first design (mvt_gru_decode_train_wide_block) holds kWideRows = 2
-// rows per block under __launch_bounds__(kWideThreads): a quarter of the
-// per-row accumulators, capped by the compiler at 128 registers, so H = 512
-// threads launch; it also runs four times the blocks (128 per head at B =
-// 256, on 128 of the 132 SMs), which at H = 512 beat 4 rows a block (notes
-// head 11.1 against 11.5 ms on the H100). ops/_layout.py picks the build.
+// The first, per-block designs stay the route of shapes the chain's plan
+// refuses: 8 batch rows a block (mvt_gru_decode_train_block, _block_bf16,
+// _block_resid: 160 registers a thread, so H <= 384) and 2 rows a block
+// under __launch_bounds__(kWideThreads) for the wide builds
+// (mvt_gru_decode_train_wide_block, _wide_block_bf16); their loop body is
+// kernel B's first design's (decode_head in gru_decode_body.cuh) with the
+// h-sequence outputs on, every head of a call in one launch (the grid's y
+// dimension selects the head).
 //
-// The wide builds' chain (mvt_gru_decode_train_wide, _bf16): kernel B's
-// decode chain on thread-block clusters in its training instance
-// (gru_decode_chain.cuh: the h sequences stored from the X2 exchange, the
-// bf16 roundings), one head a launch, with its products as B's FFMA or on
-// the tensor cores, at the plan ops/_layout.py::dec_train_plan gives; the
-// per-block design stays the route of shapes the chain's plan refuses
-// (ops/_layout.py::dec_wide_route).
-//
-// What bounds it: as kernel B, the serial chain of T steps per head; the
-// 1-layer side heads finish inside the 2-layer notes head's time.
-//
-// Both builds have a bf16 twin (mvt_gru_decode_train_bf16,
-// mvt_gru_decode_train_wide_bf16) for a bf16 model, where the JAX package
-// decodes each head alone through _dec_fwd1/2_kernel in bf16 (the
-// multi-head kernel is float32 only), on the untiled grid (_dec_fwd_pallas)
-// or, at H = 512, the batch-tiled one (_dec_fwd_wide_pallas): its operands
-// and outputs are bf16, the rounding decode_head documents. Heads narrower
-// than 8 are promoted to float32 by the caller and take the float builds.
-//
-// The narrow build has a bf16-residual twin (mvt_gru_decode_train_resid) for
-// a float32 model with decode_residual_bf16, where the JAX package passes
-// residual_dtype=bfloat16 to the multi-head kernel (_mh_fwd_kernel,
-// multihead_decode_train_fwd): float operands, carries, probs and logits,
-// the same arithmetic as the float build, so probs and logits are bit-equal
-// to its; only h1seq, h2seq (and each side head's hkseq) are stored rounded
-// to bf16, which halves the bytes kernel E reads back.
+// What bounds it: as kernel B, the serial chain of T steps a head (two
+// dependent products a layer-step and their cluster barriers), and each
+// step's slices read from L2 by every cluster.
 #include "gru_decode_body.cuh"
 #include "gru_decode_chain.cuh"
 
@@ -148,37 +134,41 @@ int launch(Kernel kernel, const DecodeHeadT<TV, TS>* heads, int n_heads, int B,
   return (int)cudaGetLastError();
 }
 
-// The wide builds' chain: one head on kernel B's decode chain
-// (gru_decode_chain.cuh) in its training instance, at the plan of
-// ops/_layout.py::dec_train_plan
-template <typename TV, int NL, int OUT>
-int chain_head(const GruDecodeChainArgsT<TV>& a, int cluster, int tc, void* stream) {
-  return tc ? launch_gru_decode_chain_tc<NL, TV>(a, cluster, stream)
-            : launch_gru_decode_chain<NL, kTanh, OUT, TV, true>(a, cluster, stream);
+// One head on kernel B's decode chain (gru_decode_chain.cuh) in its
+// training instance, at the plan of ops/_layout.py::dec_train_plan; `tc`
+// takes the tensor-core instance (no bf16-residual one)
+template <typename TV, typename TS, int NL, int OUT>
+int chain_head(const GruDecodeChainArgsT<TV, TS>& a, int cluster, int tc, void* stream) {
+  if constexpr (std::is_same_v<TV, TS>) {
+    if (tc) return launch_gru_decode_chain_tc<NL, TV>(a, cluster, stream);
+  } else {
+    if (tc) return (int)cudaErrorInvalidValue;
+  }
+  return launch_gru_decode_chain<NL, kTanh, OUT, TV, true, TS>(a, cluster, stream);
 }
 
-template <typename TV>
-int launch_chain(const DecodeHeadT<TV>* head, const TV* const* slices, int B, int H,
+template <typename TV, typename TS>
+int launch_chain(const DecodeHeadT<TV, TS>* head, const TV* const* slices, int B, int H,
                  int cluster, int rows, int splits, int stages, int chunk, int tc, void* stream) {
-  const DecodeHeadT<TV>& h = *head;
+  const DecodeHeadT<TV, TS>& h = *head;
   if (B < 1 || (h.n_layers != 1 && h.n_layers != 2)) return (int)cudaErrorInvalidValue;
   const bool two = h.n_layers == 2;
-  GruDecodeChainArgsT<TV> a{h.start, h.h1_0, two ? h.h2_0 : nullptr,
-                            {slices[0], slices[1], slices[2], two ? slices[3] : nullptr,
-                             two ? slices[4] : nullptr, two ? slices[5] : nullptr},
-                            h.b1, two ? h.b2 : nullptr, h.wo, h.bo, h.probs, h.logits,
-                            h.T, B, h.D, H, rows, splits, stages, chunk,
-                            {h.h1seq, two ? h.h2seq : nullptr}, h.out_act};
+  GruDecodeChainArgsT<TV, TS> a{h.start, h.h1_0, two ? h.h2_0 : nullptr,
+                                {slices[0], slices[1], slices[2], two ? slices[3] : nullptr,
+                                 two ? slices[4] : nullptr, two ? slices[5] : nullptr},
+                                h.b1, two ? h.b2 : nullptr, h.wo, h.bo, h.probs, h.logits,
+                                h.T, B, h.D, H, rows, splits, stages, chunk,
+                                {h.h1seq, two ? h.h2seq : nullptr}, h.out_act};
   switch (h.out_act) {
     case kSoftmax:
-      return two ? chain_head<TV, 2, kSoftmax>(a, cluster, tc, stream)
-                 : chain_head<TV, 1, kSoftmax>(a, cluster, tc, stream);
+      return two ? chain_head<TV, TS, 2, kSoftmax>(a, cluster, tc, stream)
+                 : chain_head<TV, TS, 1, kSoftmax>(a, cluster, tc, stream);
     case kSigmoid:
-      return two ? chain_head<TV, 2, kSigmoid>(a, cluster, tc, stream)
-                 : chain_head<TV, 1, kSigmoid>(a, cluster, tc, stream);
+      return two ? chain_head<TV, TS, 2, kSigmoid>(a, cluster, tc, stream)
+                 : chain_head<TV, TS, 1, kSigmoid>(a, cluster, tc, stream);
     case kLinear:
-      return two ? chain_head<TV, 2, kLinear>(a, cluster, tc, stream)
-                 : chain_head<TV, 1, kLinear>(a, cluster, tc, stream);
+      return two ? chain_head<TV, TS, 2, kLinear>(a, cluster, tc, stream)
+                 : chain_head<TV, TS, 1, kLinear>(a, cluster, tc, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -196,30 +186,57 @@ int chain_max_clusters(Kernel kernel, int cluster, int* out, int threads = kChai
 
 }  // namespace mvt
 
-extern "C" int mvt_gru_decode_train(const mvt::DecodeHeadT<float>* heads,
-                                    int n_heads, int B, int H, void* stream) {
-  using namespace mvt;
-  return launch<kRows>(gru_decode_train_kernel<float>, heads, n_heads, B, H,
-                       stream);
+// The chain: one head a launch (its w1, u1, w2, u2 unused: slices[0..5] are
+// their slices packed per CTA at the plan's cluster and chunk, of the
+// build's operand type: ops/gru_decode.py::pack_slices for B's FFMA
+// instance, pack_tc_slices, in B-fragment order, for the tensor-core one),
+// at the plan of ops/_layout.py::dec_train_plan: `cluster` CTAs a cluster,
+// `rows` batch rows a cluster, `splits` (the FFMA instance's), `stages`,
+// `chunk` depth rows a chunk, `tc` the tensor-core instance;
+// cudaErrorInvalidValue for a plan the chain does not run. Float32: builds
+// D and D wide; bf16: D bf16 and D wide bf16; resid: D resid.
+extern "C" int mvt_gru_decode_train(const mvt::DecodeHeadT<float>* head,
+                                    const float* const* slices, int B, int H, int cluster,
+                                    int rows, int splits, int stages, int chunk, int tc,
+                                    void* stream) {
+  return mvt::launch_chain(head, slices, B, H, cluster, rows, splits, stages, chunk, tc, stream);
 }
 
-extern "C" int mvt_gru_decode_train_bf16(const mvt::DecodeHeadT<mvt::bf16>* heads,
-                                         int n_heads, int B, int H,
-                                         void* stream) {
-  using namespace mvt;
-  return launch<kRows>(gru_decode_train_kernel<bf16>, heads, n_heads, B, H,
-                       stream);
+extern "C" int mvt_gru_decode_train_bf16(const mvt::DecodeHeadT<mvt::bf16>* head,
+                                         const mvt::bf16* const* slices, int B, int H,
+                                         int cluster, int rows, int splits, int stages,
+                                         int chunk, int tc, void* stream) {
+  return mvt::launch_chain(head, slices, B, H, cluster, rows, splits, stages, chunk, tc, stream);
 }
 
-extern "C" int mvt_gru_decode_train_resid(
+extern "C" int mvt_gru_decode_train_resid(const mvt::DecodeHeadT<float, mvt::bf16>* head,
+                                          const float* const* slices, int B, int H, int cluster,
+                                          int rows, int splits, int stages, int chunk, int tc,
+                                          void* stream) {
+  return mvt::launch_chain(head, slices, B, H, cluster, rows, splits, stages, chunk, tc, stream);
+}
+
+// The per-block routes, every head of a call in one launch: 8 rows a block
+// (D, D bf16, D resid) and 2 rows a block (D wide, D wide bf16).
+extern "C" int mvt_gru_decode_train_block(const mvt::DecodeHeadT<float>* heads, int n_heads,
+                                          int B, int H, void* stream) {
+  using namespace mvt;
+  return launch<kRows>(gru_decode_train_kernel<float>, heads, n_heads, B, H, stream);
+}
+
+extern "C" int mvt_gru_decode_train_block_bf16(const mvt::DecodeHeadT<mvt::bf16>* heads,
+                                               int n_heads, int B, int H, void* stream) {
+  using namespace mvt;
+  return launch<kRows>(gru_decode_train_kernel<bf16>, heads, n_heads, B, H, stream);
+}
+
+extern "C" int mvt_gru_decode_train_block_resid(
     const mvt::DecodeHeadT<float, mvt::bf16>* heads, int n_heads, int B, int H,
     void* stream) {
   using namespace mvt;
-  return launch<kRows>(gru_decode_train_resid_kernel, heads, n_heads, B, H,
-                       stream);
+  return launch<kRows>(gru_decode_train_resid_kernel, heads, n_heads, B, H, stream);
 }
 
-// The wide builds' per-block route (the first design: 2 rows a block).
 extern "C" int mvt_gru_decode_train_wide_block(const mvt::DecodeHeadT<float>* heads,
                                                int n_heads, int B, int H,
                                                void* stream) {
@@ -236,29 +253,7 @@ extern "C" int mvt_gru_decode_train_wide_block_bf16(
                            B, H, stream);
 }
 
-// The wide builds on the decode chain: one head a launch (its w1, u1, w2,
-// u2 unused: slices[0..5] are their slices packed per CTA at the plan's
-// cluster and chunk, of the build's type: ops/gru_decode.py::pack_slices
-// for B's FFMA instance, pack_tc_slices, in B-fragment order, for the
-// tensor-core one), at the plan of ops/_layout.py::dec_train_plan:
-// `cluster` CTAs a cluster, `rows` batch rows a cluster, `splits` (the FFMA
-// instance's), `stages`, `chunk` depth rows a chunk, `tc` the tensor-core
-// instance; cudaErrorInvalidValue for a plan the chain does not run.
-extern "C" int mvt_gru_decode_train_wide(const mvt::DecodeHeadT<float>* head,
-                                         const float* const* slices, int B, int H,
-                                         int cluster, int rows, int splits, int stages,
-                                         int chunk, int tc, void* stream) {
-  return mvt::launch_chain(head, slices, B, H, cluster, rows, splits, stages, chunk, tc, stream);
-}
-
-extern "C" int mvt_gru_decode_train_wide_bf16(const mvt::DecodeHeadT<mvt::bf16>* head,
-                                              const mvt::bf16* const* slices, int B, int H,
-                                              int cluster, int rows, int splits, int stages,
-                                              int chunk, int tc, void* stream) {
-  return mvt::launch_chain(head, slices, B, H, cluster, rows, splits, stages, chunk, tc, stream);
-}
-
-// cudaOccupancyMaxActiveClusters of the wide builds' chain (a 2-layer
+// cudaOccupancyMaxActiveClusters of D's chain (a 2-layer
 // softmax head's instance: float32 or bf16, the FFMA or the tensor-core
 // one) at `cluster` CTAs a cluster (one CTA an SM)
 extern "C" int mvt_gru_decode_train_max_clusters(int bf16, int tc, int cluster, int* out) {

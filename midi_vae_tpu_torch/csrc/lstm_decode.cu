@@ -12,18 +12,27 @@
 // probs is fed back as the next input. probs and logits leave the kernel
 // time-major, (T, B, D) each.
 //
-// Design: as kernel B, one block owns kRows = 8 batch rows and runs the
-// whole time loop; the states (h and c per layer), the fed-back probs and
-// the logits of its rows live in shared memory, and the weights (W1, U1, W2,
-// U2, Wo) are re-read from L2 at every step. The h buffers rotate through
-// n_layers + 1 tiles: each cell writes its new h into the spare tile, which
-// then becomes the layer's, so one barrier ends a cell (lstm_common.cuh).
-// The output dense and the softmax over D (one warp per row) are inside the
-// loop, so nothing but the outputs touches device memory.
+// Two designs, one a route chosen from the shape before any launch
+// (ops/_layout.py::lstm_decode_route):
+// - the decode chain on thread-block clusters (mvt_lstm_decode_chain,
+//   lstm_decode_chain.cuh: each CTA H / C units of every layer, its slices
+//   of [W ; U] streamed by the TMA, one product and one cluster barrier a
+//   layer-step), which every serving head at H <= 512 takes;
+// - the first, per-block design (mvt_lstm_decode) for shapes the chain's
+//   plan refuses: one block owns kRows = 8 batch rows and runs the whole
+//   time loop; the states (h and c per layer), the fed-back probs and the
+//   logits of its rows live in shared memory, and the weights (W1, U1, W2,
+//   U2, Wo) are re-read from L2 at every step. The h buffers rotate through
+//   n_layers + 1 tiles: each cell writes its new h into the spare tile,
+//   which then becomes the layer's, so one barrier ends a cell
+//   (lstm_common.cuh). The output dense and the softmax over D (one warp per
+//   row) are inside the loop, so nothing but the outputs touches device
+//   memory.
 //
-// What bounds it: the serial chain of T steps (one barrier per layer and 2
-// for the readout), and per step an L2 read of every weight by every block.
+// What bounds it: the serial chain of T steps, and per step an L2 read of
+// every weight by every block (the chain: by every cluster).
 #include "lstm_common.cuh"
+#include "lstm_decode_chain.cuh"
 
 namespace mvt {
 
@@ -138,9 +147,40 @@ cudaError_t by_act(int act, int out_act, const DecodeArgs& a, cudaStream_t s) {
   }
 }
 
+// the chain's instances: every cell and output activation, with one or two
+// h tiles a layer (the plan names the count: ops/_layout.py::lstm_decode_plan)
+template <int NL, int ACT, int NB>
+int chain_by_out(int out_act, const LstmDecodeChainArgs& a, int cluster, void* s) {
+  switch (out_act) {
+    case kSoftmax: return launch_lstm_decode_chain<NL, ACT, kSoftmax, NB>(a, cluster, s);
+    case kSigmoid: return launch_lstm_decode_chain<NL, ACT, kSigmoid, NB>(a, cluster, s);
+    case kLinear: return launch_lstm_decode_chain<NL, ACT, kLinear, NB>(a, cluster, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int NL, int ACT>
+int chain_by_nb(int out_act, int nb, const LstmDecodeChainArgs& a, int cluster, void* s) {
+  if (nb == 1) return chain_by_out<NL, ACT, 1>(out_act, a, cluster, s);
+  if (nb == 2) return chain_by_out<NL, ACT, 2>(out_act, a, cluster, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int NL>
+int chain_by_act(int act, int out_act, int nb, const LstmDecodeChainArgs& a, int cluster,
+                 void* s) {
+  switch (act) {
+    case kTanh: return chain_by_nb<NL, kTanh>(out_act, nb, a, cluster, s);
+    case kSigmoid: return chain_by_nb<NL, kSigmoid>(out_act, nb, a, cluster, s);
+    case kRelu: return chain_by_nb<NL, kRelu>(out_act, nb, a, cluster, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace mvt
 
-// h2_0, c2_0, w2, u2 and b2 are ignored (and may be null) when n_layers == 1.
+// The per-block route (the first design). h2_0, c2_0, w2, u2 and b2 are
+// ignored (and may be null) when n_layers == 1.
 extern "C" int mvt_lstm_decode(
     const float* start, const float* h1_0, const float* c1_0,
     const float* h2_0, const float* c2_0,
@@ -159,6 +199,42 @@ extern "C" int mvt_lstm_decode(
   if (n_layers == 1) return (int)by_act<1>(act, out_act, a, s);
   if (n_layers == 2) return (int)by_act<2>(act, out_act, a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The chain at the plan of ops/_layout.py::lstm_decode_plan: `cluster` CTAs
+// a cluster, `rows` batch rows a cluster, `splits`, `stages`, `chunk` depth
+// rows a chunk (32, 64 or 128, dividing H), `nb` h tiles a layer (2, or 1
+// with a second cluster barrier a layer-step); every
+// operand contiguous float32; s1, s2 each layer's slices of [W ; U] packed
+// per CTA (LstmDecodeChainArgs::slices; ops/lstm_decode.py::
+// pack_lstm_slices), 16-byte aligned; h2_0, c2_0, s2 and b2 are ignored (and
+// may be null) when n_layers == 1.
+extern "C" int mvt_lstm_decode_chain(
+    const float* start, const float* h1_0, const float* c1_0, const float* h2_0,
+    const float* c2_0, const float* s1, const float* s2, const float* b1, const float* b2,
+    const float* wo, const float* bo, float* probs, float* logits,
+    int T, int B, int D, int H, int n_layers, int act, int out_act,
+    int cluster, int rows, int splits, int stages, int chunk, int nb, void* stream) {
+  using namespace mvt;
+  const bool two = n_layers == 2;
+  const LstmDecodeChainArgs a{start, {h1_0, two ? h2_0 : nullptr}, {c1_0, two ? c2_0 : nullptr},
+                              {s1, two ? s2 : nullptr}, {b1, two ? b2 : nullptr}, wo, bo, probs,
+                              logits, T, B, D, H, rows, splits, stages, chunk};
+  if (n_layers == 1) return chain_by_act<1>(act, out_act, nb, a, cluster, stream);
+  if (n_layers == 2) return chain_by_act<2>(act, out_act, nb, a, cluster, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// cudaOccupancyMaxActiveClusters of the chain at `cluster` CTAs a cluster
+// (one CTA an SM)
+extern "C" int mvt_lstm_decode_max_clusters(int cluster, int* out) {
+  using namespace mvt;
+  // the whole of a block's shared memory beside the ring's mbarriers
+  auto kernel = lstm_decode_chain_kernel<2, kTanh, kSoftmax, 2>;
+  cudaError_t err = cluster_config(kernel, cluster, kDecSmem);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch l(cluster, cluster, kDecSmem, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &l.cfg);
 }
 
 extern "C" const char* mvt_error_string(int code) {

@@ -104,8 +104,11 @@ def _multihead(cfg: Config, route: str | None, B: int, on_card: bool = False) ->
     narrow route (H = 416 to 480 at B <= 32) the per-head wide builds
     compute the same function in float32, but not with
     ``decode_residual_bf16``, whose sequences the TPU stores rounded: there
-    the CPU runs rows 5 and 6's plain versions, and ``on_card`` raises
-    NotImplementedError (no build of rows 5 and 6 launches at that width)."""
+    the call runs rows 5 and 6 through D's and E's bf16-residual builds, on
+    their chains (D's decode chain takes every multiple of 32; E's chain a
+    multiple of 64, so H = 448 runs), and ``on_card`` raises
+    NotImplementedError where one of them does not launch (H = 416, 480: E's
+    chain; the CPU runs their plain versions)."""
     side = _side_heads(cfg)
     if not (cfg.cell_type == "GRU" and cfg.lstm_activation == "tanh" and cfg.fused_train_decoder
             and not cfg.merge_decoder_scans and cfg.num_layers_decoder == 2
@@ -116,10 +119,16 @@ def _multihead(cfg: Config, route: str | None, B: int, on_card: bool = False) ->
     if route == "narrow" or not cfg.decode_residual_bf16:
         return route == "narrow"
     if on_card:
-        raise NotImplementedError(
-            f"the JAX package runs this decode through rows 5 and 6 with bf16 residuals "
-            f"(decode_residual_bf16) at B={B}, H={cfg.lstm_size}; their port builds (D_resid, "
-            f"E_resid, 8 rows a block) do not launch on the {route} route (ROADMAP Queue 1 item 9)")
+        H = cfg.lstm_size
+        heads = [(cfg.output_dim, 2)] + [(d, 1) for _, d, _ in side]
+        whys = [why for d, n in heads for why in (_layout.dec_train_limit("D_resid", H, d, n),
+                                                  _layout.gru_bptt_limit("E_resid", H, d, n))
+                if why is not None]
+        if whys:
+            raise NotImplementedError(
+                f"the JAX package runs this decode through rows 5 and 6 with bf16 residuals "
+                f"(decode_residual_bf16) at B={B}, H={H}; their port builds (D_resid, E_resid) "
+                f"do not launch on the {route} route: {whys[0]} (ROADMAP Queue 2 item 4)")
     return True
 
 

@@ -1,9 +1,8 @@
 """Which kernel builds a layer or decode head takes, from the card's limits.
 
-Every kernel of the port but C, E, N, R, Q, Y, the chains of L and A, S,
-and the chains of X and G (GRU: B, D, F, T, T xp, the per-block routes of
-A, X and G, and the encoder stacks' U and V; LSTM: L's per-block route, M)
-runs one
+The first, per-block designs of the port's kernels (GRU: the per-block
+routes of A, B, D, F, X and G, and the encoder stacks' U and V; LSTM: the
+per-block routes of L and M) run one
 thread per hidden column (blockDim.x = H) and keeps a tile of batch rows per
 block, so whether a build launches at a width is a matter of two limits of
 the H100 (sm_90a):
@@ -12,8 +11,8 @@ the H100 (sm_90a):
 - shared memory: the block's tile must fit the 227 KB (232,448 bytes) a block
   may have.
 
-Kernels A (its per-block route), B, D, L, M, U and V are built without
-launch bounds; their register
+Kernels A (its per-block route), B, D, L and M (their per-block routes), U
+and V are built without launch bounds; their register
 counts (``REGISTERS``, from ``nvcc -Xptxas -v`` on the card; ``chip_smoke.py``
 checks them against the build) decide how wide they go. F, the per-block
 routes of G and of the GRU's bf16 whole-scan encoder X, the per-step cells
@@ -46,13 +45,16 @@ launches at H a multiple of 32 up to ``STEP_MAX_H``.
 
 The training step takes one route for all its layers and heads:
 - ``"narrow"``, the GRU(256) path: A + C per encoder layer (the x-projection
-  inside them), D over 8 rows per block and E with the notes head's
-  T-length side heads in one launch each;
-- ``"wide"``, taken where a narrow build does not launch (from H = 512 on: D
-  at 160 registers a thread): xp = x @ W + b as one
-  torch.matmul and F + G per encoder layer, and every head decoded on its
-  own by the 2-rows-per-block builds of D and E, as the JAX package does at
-  H = 512 (``fused_train.py:2282-2288``, ``models/vae.py:392-394``). A and
+  inside them), D's narrow builds and E with the notes head's T-length side
+  heads in one call each;
+- ``"wide"``, taken where a narrow build does not launch (from H = 416 on:
+  D's 8-row per-block design at 160 registers a thread): xp = x @ W + b as
+  one torch.matmul and F + G per encoder layer, and every head decoded on
+  its own by the wide builds of D and E, as the JAX package does at H = 512
+  (``fused_train.py:2282-2288``, ``models/vae.py:392-394``).
+Every build of D runs B's decode chain since PR 21 (``dec_train_route``);
+the route chooser still reads the builds' per-block limits, so that every
+config keeps the route and the rows it took. A and
   C alone would launch at 512, but with x @ W outside the serial kernel one
   notes layer's forward + backward took 18.6 / 19.8 ms (L1 / L2) against
   21.4 / 34.7 ms for A + C on the H100, so the encoder goes wide too.
@@ -1578,29 +1580,39 @@ def gru_decode_route(H: int, D: int, n_layers: int) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Kernel D's wide builds (csrc/gru_decode_train.cu: "D_wide", "D_wide_bf16")
-# run one head a launch on B's decode chain in its training instance
-# (csrc/gru_decode_chain.cuh: the same plan and shared memory as B's, each
-# layer's h sequence stored from the X2 exchange; bf16: the operands widened,
-# the carries, the fed-back probs and the outputs rounded). Its plan
-# (``dec_train_plan``) is ``DEC_TRAIN_MEASURED``'s at the paths' heads, timed
-# on the H100 (tools/time_f_and_d.py --only dplans), else B's
-# (``gru_decode_plan``). The first, per-block design (2 rows a block) stays
-# the route of shapes the chain's plan refuses (``dec_wide_route``).
+# Kernel D (csrc/gru_decode_train.cu): every build ("D", "D_bf16", "D_resid",
+# "D_wide", "D_wide_bf16") runs one head a launch on B's decode chain in its
+# training instance (csrc/gru_decode_chain.cuh: the same plan and shared
+# memory as B's, each layer's h sequence stored from the X2 exchange; bf16:
+# the slices streamed in bf16, the carries, the fed-back probs and the
+# outputs rounded; D resid: the float32 instance with the h sequences stored
+# in bf16, at D's plan, so its probs and logits are D's bit for bit). Its
+# plan (``dec_train_plan``) is ``DEC_TRAIN_MEASURED``'s at the paths' heads,
+# timed on the H100 (tools/time_f_and_d.py --only dplans at H = 512,
+# tools/time_d_and_m.py --only dplans at 256), else B's (``gru_decode_plan``).
+# The first, per-block designs stay the route of shapes the chain's plan
+# refuses (``dec_train_route``): 8 rows a block for D, D bf16 and D resid, 2
+# rows a block for the wide builds. The builds keep their names, which the
+# route chooser reads as the first designs' launch limits (``launch_limit``:
+# the narrow route's 8-row D does not launch from H = 416 on), so that every
+# config takes the route and the rows it took before the chain.
 # ---------------------------------------------------------------------------
 
-DEC_WIDE_BUILDS = ("D_wide", "D_wide_bf16")
+# each D build's per-block design, by the build's name (its launch limit is
+# ``launch_limit``'s of that name)
+D_BUILDS = ("D", "D_bf16", "D_resid", "D_wide", "D_wide_bf16")
 # B's FFMA training instance under __launch_bounds__ of a 512-thread CTA,
 # the tensor-core one of a 256-thread CTA (DEC_TC_THREADS)
 REGISTERS.update({"D_wide_chain": 128, "D_wide_chain_bf16": 128, "D_wide_tc": 255,
                   "D_wide_tc_bf16": 255})
 # The plans the H100 ran fastest, (cluster, rows, chunk) of B's FFMA
-# training instance by (H, D, n_layers, T, B, bf16): the notes, velocity and
-# instrument heads of the wide f32 step, wide512_bf16 and the bf16 GRU(512)
-# at B = 128, each at B = 5 too, every plan of both instances timed in one
-# call (tools/time_f_and_d.py --only dplans; PERF.md, Findings). The
-# tensor-core instance lost at every one of them (1.12-2.30x the fastest
-# FFMA plan), so no shape takes it by default.
+# training instance by (H, D, n_layers, T, B, bf16): at H = 512 the notes,
+# velocity and instrument heads of the wide f32 step, wide512_bf16 and the
+# bf16 GRU(512) at B = 128, each at B = 5 too, every plan of both instances
+# timed in one call (tools/time_f_and_d.py --only dplans; PERF.md,
+# Findings). The tensor-core instance lost at every one of them (1.12-2.30x
+# the fastest FFMA plan), so no shape takes it by default. D resid takes
+# D's float32 plans.
 DEC_TRAIN_MEASURED = {
     (512, 61, 2, 64, 256, False): (8, 8, 64), (512, 61, 2, 64, 128, False): (4, 5, 32),
     (512, 61, 2, 64, 5, False): (16, 5, 128), (512, 1, 1, 64, 256, False): (8, 18, 32),
@@ -1610,6 +1622,18 @@ DEC_TRAIN_MEASURED = {
     (512, 61, 2, 64, 128, True): (4, 5, 64), (512, 61, 2, 64, 5, True): (16, 1, 128),
     (512, 16, 1, 4, 256, True): (8, 18, 64), (512, 16, 1, 4, 128, True): (16, 19, 128),
     (512, 16, 1, 4, 5, True): (16, 5, 128),
+    # H = 256: the notes, velocity, instrument and held heads of the
+    # `Config()` step (f32; bf16 for the heads of 8 or more outputs), at B
+    # 256, 16 and 5 (tools/time_d_and_m.py --only dplans)
+    (256, 61, 2, 64, 256, False): (8, 18, 64), (256, 61, 2, 64, 16, False): (16, 3, 128),
+    (256, 61, 2, 64, 5, False): (16, 5, 128), (256, 61, 2, 64, 256, True): (8, 18, 64),
+    (256, 61, 2, 64, 16, True): (16, 4, 128), (256, 61, 2, 64, 5, True): (16, 1, 128),
+    (256, 16, 1, 4, 256, False): (8, 18, 128), (256, 16, 1, 4, 16, False): (8, 8, 128),
+    (256, 16, 1, 4, 5, False): (16, 1, 128), (256, 16, 1, 4, 256, True): (8, 18, 128),
+    (256, 16, 1, 4, 16, True): (16, 3, 128), (256, 16, 1, 4, 5, True): (16, 4, 128),
+    (256, 2, 1, 64, 256, False): (8, 18, 128), (256, 2, 1, 64, 16, False): (16, 4, 128),
+    (256, 2, 1, 64, 5, False): (16, 4, 128), (256, 1, 1, 64, 256, False): (8, 18, 128),
+    (256, 1, 1, 64, 16, False): (16, 4, 128), (256, 1, 1, 64, 5, False): (16, 1, 128),
 }
 
 
@@ -1726,21 +1750,222 @@ def dec_train_plan(H: int, D: int, n_layers: int, B: int, T: int = 64, bf16: boo
 
 
 @functools.cache
-def dec_wide_route(H: int, D: int, n_layers: int) -> str:
-    """The route of D's wide builds at width H for a head of width D and
-    ``n_layers``: "chain" where the chain's plan launches, else "block"
-    where the per-block build (2 rows a block) does; raises
-    LaunchLimitError where neither does."""
+def dec_train_route(build: str, H: int, D: int, n_layers: int) -> str:
+    """The route of D's ``build`` (``D_BUILDS``) at width H for a head of
+    width D and ``n_layers``: "chain" where the chain's plan launches, else
+    "block" where the build's per-block design (8 rows a block, the wide
+    builds 2) does; raises LaunchLimitError where neither does."""
+    if build not in D_BUILDS:
+        raise ValueError(f"{build!r} is not one of kernel D's builds {D_BUILDS}")
     try:
         gru_decode_plan(H, D, n_layers, 1)
         return "chain"
     except LaunchLimitError as e:
         chain_why = str(e)
-    block_why = launch_limit("D_wide", H, smem_bytes("D_wide", H, D, n_layers))
+    block_why = launch_limit(build, H, smem_bytes(build, H, D, n_layers))
     if block_why is None:
         return "block"
-    raise LaunchLimitError(f"kernel D's wide build launches at H={H} neither on the decode chain "
-                           f"({chain_why}) nor per block ({block_why})")
+    raise LaunchLimitError(f"kernel D's build {build} launches at H={H} neither on the decode "
+                           f"chain ({chain_why}) nor per block ({block_why})")
+
+
+def dec_train_limit(build: str, H: int, D: int, n_layers: int) -> str | None:
+    """Why D's ``build`` launches at width H for a head of width D and
+    ``n_layers`` on neither of its routes, or None."""
+    try:
+        dec_train_route(build, H, D, n_layers)
+    except LaunchLimitError as e:
+        return str(e)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Kernel M (csrc/lstm_decode.cu): an LSTM serving decode head on thread-block
+# clusters (csrc/lstm_decode_chain.cuh), 512-thread CTAs: a cluster of C
+# owns ``rows`` batch rows for every step, each CTA H / C units of each
+# layer (their 4 gate columns of [W ; U]). Shared memory: the ring of
+# ``stages`` chunks of ``chunk`` depth rows x 4 H / C columns, x (D padded to
+# a chunk), the logits, ``nb`` h tiles a layer (rows rounded to 8), every
+# CTA's partial logits (two buffers in a 1-layer head with two h tiles),
+# Wo's rows of its units, c of its units and the splits' partials. Its plan
+# (``lstm_decode_plan``) is ``LSTM_DEC_MEASURED``'s at the serving heads,
+# timed on the H100 (tools/time_d_and_m.py --only mplans), else B's rule;
+# the first, per-block design ("M") stays the route of shapes the chain's
+# plan refuses (``lstm_decode_route``).
+# ---------------------------------------------------------------------------
+
+REGISTERS.update({"M_chain": 128})
+
+
+def lstm_decode_nb(n_layers: int) -> int:
+    """The h tiles a layer of M's chain where no plan was measured: 2,
+    alternating by step (one cluster barrier a layer-step), for a 1-layer
+    head; 1 with a second barrier for a 2-layer head, whose two tiles a
+    layer cost the ring its deep chunks (the H100: PERF.md, Findings)."""
+    return 1 if n_layers == 2 else 2
+
+
+class LstmDecodePlan(NamedTuple):
+    """How M's chain runs: ``cluster`` CTAs a cluster, ``rows`` batch rows a
+    cluster, ``clusters``, ``splits`` threads sharing a tile's depth,
+    ``stages`` chunks in the ring, ``smem`` bytes of dynamic shared memory a
+    CTA, ``chunk`` depth rows a chunk, ``nb`` h tiles a layer."""
+
+    cluster: int
+    rows: int
+    clusters: int
+    splits: int
+    stages: int
+    smem: int
+    chunk: int
+    nb: int
+
+
+def lstm_decode_smem(n_layers: int, D: int, H: int, C: int, rows: int, splits: int,
+                     stages: int, chunk: int, nb: int) -> int:
+    """``lstm_decode_chain_smem`` of csrc/lstm_decode_chain.cuh, in bytes."""
+    Hc, R8, Dq = H // C, _round8(rows), -(-D // 4) * 4
+    Dp = -(-D // chunk) * chunk
+    pbufs = 2 if n_layers == 1 and nb == 2 else 1
+    return 4 * (stages * chunk * 4 * Hc + Dp * R8 + Dq * R8 + n_layers * nb * H * R8
+                + pbufs * C * R8 * Dq + Hc * Dq + n_layers * Hc * R8
+                + (splits - 1) * Hc * (R8 // 8) * TILE_STRIDE)
+
+
+def lstm_decode_fit(n_layers: int, D: int, H: int, C: int, rows: int, chunk: int, nb: int):
+    """(splits, stages) of M's chain at C CTAs a cluster, ``rows`` rows a
+    cluster and chunks of ``chunk`` depth rows: the most splits (a power of
+    two up to DEC_MAX_SPLITS, within the CTA's threads) and then the most
+    stages (2 to DEC_MAX_STAGES) that fit its shared memory; None where none
+    fits."""
+    if not _dec_cluster_ok(H, C) or H % chunk:
+        return None
+    tiles = H // C * _round8(rows) // 8
+
+    def fits(splits, stages):
+        return lstm_decode_smem(n_layers, D, H, C, rows, splits, stages, chunk, nb) <= DEC_SMEM
+
+    if tiles > CHAIN_THREADS or not fits(1, 2):
+        return None
+    splits = 1
+    while 2 * splits <= DEC_MAX_SPLITS and tiles * 2 * splits <= CHAIN_THREADS and fits(
+            2 * splits, 2):
+        splits *= 2
+    stages = 2
+    while stages < DEC_MAX_STAGES and fits(splits, stages + 1):
+        stages += 1
+    return splits, stages
+
+
+@functools.cache
+def lstm_decode_most_rows(n_layers: int, D: int, H: int, C: int, nb: int) -> int:
+    """The most rows a cluster of C takes in M's chain (0 where none fits)."""
+    rows = CHAIN_THREADS // (H // C) * 8 if _dec_cluster_ok(H, C) else 0
+    while rows > 0 and lstm_decode_fit(n_layers, D, H, C, rows, DEC_CHUNKS[-1], nb) is None:
+        rows -= 1
+    return rows
+
+
+# The LSTM serving heads' plans the H100 ran fastest, (cluster, rows, chunk,
+# h tiles a layer) by (H, D, n_layers, T, B): notes, velocity, instrument and
+# held at H 256 and 512 and B 256, 16 (one song) and 5, every plan of both
+# counts of h tiles timed in one call (tools/time_d_and_m.py --only mplans;
+# PERF.md, Findings). Other shapes take B's rule and ``lstm_decode_nb``.
+LSTM_DEC_MEASURED = {
+    (256, 61, 2, 64, 256): (8, 18, 64, 1), (256, 61, 2, 64, 16): (16, 4, 128, 2),
+    (256, 61, 2, 64, 5): (16, 5, 128, 2), (256, 16, 1, 4, 256): (8, 18, 128, 1),
+    (256, 16, 1, 4, 16): (16, 8, 64, 1), (256, 16, 1, 4, 5): (16, 5, 128, 2),
+    (256, 2, 1, 64, 256): (8, 18, 64, 1), (256, 2, 1, 64, 16): (16, 3, 128, 2),
+    (256, 2, 1, 64, 5): (16, 4, 128, 2), (256, 1, 1, 64, 256): (8, 18, 64, 2),
+    (256, 1, 1, 64, 16): (16, 3, 128, 1), (256, 1, 1, 64, 5): (16, 1, 128, 2),
+    (512, 61, 2, 64, 256): (8, 8, 64, 1), (512, 61, 2, 64, 16): (16, 4, 128, 1),
+    (512, 61, 2, 64, 5): (16, 5, 128, 1), (512, 16, 1, 4, 256): (8, 18, 32, 2),
+    (512, 16, 1, 4, 16): (16, 3, 64, 1), (512, 16, 1, 4, 5): (16, 5, 128, 2),
+    (512, 2, 1, 64, 256): (8, 18, 64, 1), (512, 2, 1, 64, 16): (16, 4, 128, 2),
+    (512, 2, 1, 64, 5): (16, 5, 128, 2), (512, 1, 1, 64, 256): (8, 18, 64, 1),
+    (512, 1, 1, 64, 16): (16, 4, 128, 2), (512, 1, 1, 64, 5): (16, 5, 128, 2),
+}
+
+
+def lstm_decode_plan(H: int, D: int, n_layers: int, B: int, cluster: int | None = None,
+                     rows: int | None = None, max_clusters: int | None = None,
+                     T: int = 64, chunk: int | None = None,
+                     nb: int | None = None) -> LstmDecodePlan:
+    """M's chain plan for a head of width D, ``n_layers`` and T steps at
+    (H, B): ``cluster`` CTAs a cluster, ``rows`` rows a cluster, ``chunk``
+    depth rows a chunk and ``nb`` h tiles a layer, by default
+    ``LSTM_DEC_MEASURED``'s at the shapes it has, else B's rule
+    (``gru_decode_cluster``'s size, ceil(B / the card's active clusters at
+    that size, ``max_clusters`` or the H100's) rows, as many as fit, the
+    deepest chunk that fits them) and ``lstm_decode_nb``; raises
+    LaunchLimitError where the chain does not launch."""
+    if n_layers not in (1, 2):
+        raise LaunchLimitError(f"kernel M's chain decodes 1- or 2-layer heads, got {n_layers}")
+    measured = LSTM_DEC_MEASURED.get((H, D, n_layers, T, B))
+    if measured and (cluster, rows, chunk, nb) == (None, None, None, None):
+        cluster, rows, chunk, nb = measured
+    nb = nb or lstm_decode_nb(n_layers)
+    if cluster is None:
+        first = gru_decode_cluster(B, T)
+        cluster = next((c for c in (first, 8, 16, 4)
+                        if lstm_decode_most_rows(n_layers, D, H, c, nb) >= 1), first)
+    most = lstm_decode_most_rows(n_layers, D, H, cluster, nb)
+    if most < 1:
+        raise LaunchLimitError(
+            f"kernel M's chain takes H a multiple of 32 whose slices fit a cluster of "
+            f"{cluster} CTAs, got H={H}, D={D}, {n_layers} layers")
+    if rows is None:
+        M = max_clusters or MAX_CLUSTERS_H100[cluster]
+        rows = -(-B // M)
+    rows = max(1, min(rows, most, B))
+    if chunk is None or lstm_decode_fit(n_layers, D, H, cluster, rows, chunk, nb) is None:
+        chunk = next(c for c in DEC_CHUNKS
+                     if lstm_decode_fit(n_layers, D, H, cluster, rows, c, nb))
+    splits, stages = lstm_decode_fit(n_layers, D, H, cluster, rows, chunk, nb)
+    return LstmDecodePlan(cluster, rows, -(-B // rows), splits, stages,
+                          lstm_decode_smem(n_layers, D, H, cluster, rows, splits, stages, chunk,
+                                           nb), chunk, nb)
+
+
+def lstm_decode_plans(H: int, D: int, n_layers: int, B: int, T: int = 64, active=None,
+                      nbs=(2, 1)) -> list[LstmDecodePlan]:
+    """Every plan of M's chain a timing may force: clusters of 4, 8 and 16
+    x rows a cluster (one wave of the card's active clusters at that size,
+    ``active(C)``, default the H100's, and 4, 8, 16, 32, 64) x every chunk
+    depth that fits, for each count of h tiles in ``nbs``."""
+    out = []
+    for nb in nbs:
+        for C in (4, 8, 16):
+            if lstm_decode_most_rows(n_layers, D, H, C, nb) < 1:
+                continue
+            wave = -(-B // (active or MAX_CLUSTERS_H100.__getitem__)(C))
+            for rows in dict.fromkeys((wave, 4, 8, 16, 32, 64)):
+                for chunk in DEC_CHUNKS:
+                    if lstm_decode_fit(n_layers, D, H, C, max(1, min(rows, B)), chunk,
+                                       nb) is None:
+                        continue
+                    p = lstm_decode_plan(H, D, n_layers, B, C, rows, T=T, chunk=chunk, nb=nb)
+                    if p not in out:
+                        out.append(p)
+    return out
+
+
+@functools.cache
+def lstm_decode_route(H: int, D: int, n_layers: int) -> str:
+    """The route of kernel M at width H for a head of width D and
+    ``n_layers``: "chain" where the chain's plan launches, else "block"
+    where the per-block build does; raises LaunchLimitError where neither
+    does."""
+    try:
+        lstm_decode_plan(H, D, n_layers, 1)
+        return "chain"
+    except LaunchLimitError as e:
+        chain_why = str(e)
+    block_why = launch_limit("M", H, smem_bytes("M", H, D, n_layers))
+    if block_why is None:
+        return "block"
+    raise LaunchLimitError(f"kernel M launches at H={H} neither on its chain ({chain_why}) "
+                           f"nor per block ({block_why})")
 
 
 def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> list[str]:
@@ -2074,8 +2299,10 @@ def head_builds(mode: str, D: int, H: int, n_layers: int) -> tuple[str, str]:
 
 
 def _part_limit(build: str, H: int, D: int, n_layers: int) -> str | None:
-    """``launch_limit`` of a decode head's build: D's from its tile, E's
-    from its chain's plan for a head of width D and ``n_layers``."""
+    """``launch_limit`` of a decode head's build as the route chooser reads
+    it: D's from its per-block design's tile (its chain takes more widths:
+    ``dec_train_limit``), E's from its chain's plan for a head of width D
+    and ``n_layers``."""
     if build in E_BUILDS:
         return gru_bptt_limit(build, H, D, n_layers)
     return launch_limit(build, H, smem_bytes(build, H, D, n_layers))

@@ -22,8 +22,8 @@ Training: ``gru_decode_train`` (one head, counterpart of
 heads, counterpart of ``::gru_decode_multihead_train``) are one
 ``torch.autograd.Function``. Its forward is kernel D
 (``csrc/gru_decode_train.cu``, replacing ``_dec_fwd1/2_kernel`` and
-``_mh_fwd_kernel``): all heads of a call in one launch, each also emitting
-its layers' h sequences. Its backward is kernel E
+``_mh_fwd_kernel``): each head emitting its layers' h sequences beside its
+probs and logits. Its backward is kernel E
 (``csrc/gru_decode_bwd.cu``, replacing ``_dec_bwd1/2_kernel`` and
 ``_mh_bwd_kernel``) for the gate grads, d_init and d_start, then kernel W
 (``ops/grad_reduce.py``) for every weight grad. The plain versions are
@@ -37,26 +37,32 @@ chain on thread-block clusters through every head (``gru_decode_bwd_chain``,
 a call); the build (``_BUILDS``) picks the chain's entry point, and the
 chain's launch also counts on the build's counter.
 
-D has a second build for the wide route (``ops/_layout.py``, H = 512),
-replacing ``_dec_fwd_wide_pallas``: one head a launch on kernel B's decode
-chain in its training instance (``csrc/gru_decode_chain.cuh``: each layer's
-h sequence stored from the X2 exchange; in bf16 the slices streamed in bf16
-and the roundings below), at ``dec_wide_plan``'s plan (``_layout.
-dec_train_plan``: ``DEC_TRAIN_MEASURED`` at the paths' heads), the weights'
-slices packed once a step (``_packed_slices``: the optimizer's update
-repacks); its first design (2 batch rows per block under
-``__launch_bounds__(512)``) stays the route of shapes the chain's plan
-refuses (``_layout.dec_wide_route``). A tensor-core instance of the same
+Every build of D runs one head a launch on kernel B's decode chain in its
+training instance (``csrc/gru_decode_chain.cuh``: each layer's h sequence
+stored from the X2 exchange; in bf16 the slices streamed in bf16 and the
+roundings below; D resid's h sequences stored in bf16), at ``dec_plan``'s
+plan (``_layout.dec_train_plan``: ``DEC_TRAIN_MEASURED`` at the paths'
+heads), the weights' slices packed once a step (``_packed_slices``: the
+optimizer's in-place update repacks, in the step's time); the heads of a
+call are launches in turn on the current stream (``_launch_heads``). The
+first, per-block designs stay the route of shapes the chain's plan refuses
+(``_layout.dec_train_route``): 8 batch rows a block for D, D bf16 and D
+resid, 2 rows under ``__launch_bounds__(512)`` for the wide builds, the
+per-block heads of a call in one launch. A tensor-core instance of the same
 chain (``pack_tc_slices``, ``GruDecodePlan.tc``) is built and timed, and no
 shape takes it: it lost to the FFMA chain everywhere the H100 ran it.
 ``gru_decode_train_chain_reference`` is the chain's plain version phase by
-phase. E's wide builds replace ``_dec_bwd_wide_pallas`` on E's chain.
-"D_wide", "E_wide" select them; ``gru_decode_fwd_train_wide`` and
-``gru_decode_bwd_wide`` count their launches (the wide D also per route:
-``.launches_chain``, ``.launches_block``, and their ``_bf16`` counters).
-Every build has a name (``ops/_layout.py``: "D", "E_wide_bf16", ...); the
-wrappers and ``gru_decode_train`` take it as ``build`` / ``builds``, and
-``_BUILDS`` gives each its entry point and its counter.
+phase. The builds keep their names ("D", "D_bf16", "D_resid" for the
+narrow route, "D_wide", "D_wide_bf16" for the wide one; ``ops/_layout.py``
+reads them as their per-block designs' launch limits), and the wrappers
+``gru_decode_fwd_train`` and ``gru_decode_fwd_train_wide`` count each
+launch on the build's counter (``.launches``, ``.launches_bf16``,
+``.launches_resid``) and on its route's (``.launches_chain``,
+``.launches_block`` with the same suffixes). E's wide builds replace
+``_dec_bwd_wide_pallas`` on E's chain. Every build has a name
+(``ops/_layout.py``: "D", "E_wide_bf16", ...); the wrappers and
+``gru_decode_train`` take it as ``build`` / ``builds``, and ``_BUILDS``
+gives each its entry points and its counter.
 
 The narrow D and E also have a bfloat16 build (``mvt_gru_decode_train_bf16``,
 ``mvt_gru_decode_bwd_bf16``), picked by the operands' dtype: a bf16 model
@@ -75,13 +81,13 @@ and dlogits in float32 for W, and the weight grads are rounded to the params'
 dtype at the end (``_gdt_bwd``). A head narrower than 8 (velocity, held
 notes) is promoted whole to float32 and takes the float32 builds, as
 ``gru_decode_train`` does on the TPU (``fused_train.py:813-825``).
-Launches are counted per build (``.launches``, ``.launches_bf16``).
 
-The wide builds have bfloat16 builds too (``mvt_gru_decode_train_wide_bf16``,
+The wide builds have bfloat16 builds too (``D_wide_bf16``,
 ``mvt_gru_decode_bwd_wide_bf16``): a bf16 model at H = 512 runs
 ``_dec_fwd1/2_kernel`` and ``_dec_bwd1/2_wide_kernel`` in bf16 on the
 batch-tiled grid, then ``_dec_wide_weight_grads``. The forward rounds as the
-narrow bf16 build does. The backward differs in what it emits: the TPU
+narrow bf16 build does (one chain instance for both). The backward differs
+in what it emits: the TPU
 stores dlogits and the gate grads for its second pass rounded to bf16
 (``fused_train.py:1214-1244``) and sums the weight grads from those, so E
 wide's bf16 build emits them as bf16 values (in float32 tensors), and W sums
@@ -99,7 +105,8 @@ A float32 model with ``decode_residual_bf16`` stores the multi-head call's
 h sequences in bfloat16 (``residual_dtype``, ``_mh_fwd_kernel``'s
 ``residual_dtype``): D's bf16-residual build ("D_resid",
 ``mvt_gru_decode_train_resid``) computes the float32 build's carries, probs
-and logits bit for bit and stores the sequences rounded; E's ("E_resid",
+and logits bit for bit (the same chain arithmetic at the same plan) and
+stores the sequences rounded; E's ("E_resid",
 the float32 chain ``mvt_gru_decode_bwd``) reads them and recomputes the
 gates from the rounded h, as ``_mh_bwd_kernel`` does (the initial states
 unrounded at t = 0, layer 1's x the float32 probs); W sums
@@ -261,33 +268,38 @@ def pack_tc_slices(cells, cluster, chunk):
     return out
 
 
-# pack_slices' (pack_tc_slices') outputs of recent heads: (the weights' weak
-# references, their version counters, the packed tensors) by (the weights'
-# ids, cluster size, chunk, the tensor-core order)
+# packed slices of recent heads: (the weights' weak references, their version
+# counters, the packed tensors) by (the packing function, the weights' ids,
+# its arguments)
 _PACKED: dict = {}
 
 
-def _packed_slices(cells, cluster, chunk, tc=False):
-    """``pack_slices`` (``tc``: ``pack_tc_slices``) of ``cells``, kept while
-    the weights are the same tensors and unchanged (their version counters:
-    an in-place update, as the optimizer's at every step, repacks), so that
-    serving the same heads again packs nothing; inference tensors (no
-    version counter) are packed every call."""
-    pack = pack_tc_slices if tc else pack_slices
+def packed(cells, pack, *args):
+    """``pack(cells, *args)`` (``pack_slices``, ``pack_tc_slices`` or kernel
+    M's ``pack_lstm_slices``), kept while the weights are the same tensors
+    and unchanged (their version counters: an in-place update, as the
+    optimizer's at every step, repacks), so that serving the same heads
+    again packs nothing; inference tensors (no version counter) are packed
+    every call."""
     ts = [p[k] for p in cells for k in ("w", "u")]
     try:
         versions = tuple(t._version for t in ts)
     except RuntimeError:
-        return pack(cells, cluster, chunk)
-    key = (tuple(id(t) for t in ts), cluster, chunk, tc)
+        return pack(cells, *args)
+    key = (pack.__name__, tuple(id(t) for t in ts), *args)
     hit = _PACKED.get(key)
     if hit and hit[1] == versions and all(r() is t for r, t in zip(hit[0], ts)):
         return hit[2]
-    packed = pack(cells, cluster, chunk)
+    out = pack(cells, *args)
     if len(_PACKED) >= 16:
         _PACKED.clear()
-    _PACKED[key] = ([weakref.ref(t) for t in ts], versions, packed)
-    return packed
+    _PACKED[key] = ([weakref.ref(t) for t in ts], versions, out)
+    return out
+
+
+def _packed_slices(cells, cluster, chunk, tc=False):
+    """``packed`` ``pack_slices`` (``tc``: ``pack_tc_slices``) of ``cells``."""
+    return packed(cells, pack_tc_slices if tc else pack_slices, cluster, chunk)
 
 
 @functools.cache
@@ -457,16 +469,18 @@ def gru_decode_train_reference(cells, out_dense, init_states, start, T, out_acti
 
 
 def gru_decode_train_chain_reference(cells, out_dense, init_states, start, T,
-                                     out_activation="softmax", cluster=8):
-    """D wide's chain (B's decode chain in its training instance) composed
-    from the phases' plain versions: per step each layer's P1 and P2 in
-    float32 over the widened operands, the readout's partials over
-    ``cluster`` slices of the units summed in rank order, then the
-    roundings of a bf16 head (``csrc/gru_decode_body.cuh``): the carries
-    after the readout has read them, the fed-back probs, and probs, logits
-    and the h sequences as stored. Returns (probs, logits, [h sequence of
-    each layer]) in start's dtype, (T, B, .) each."""
+                                     out_activation="softmax", cluster=8, residual_dtype=None):
+    """D's chain (B's decode chain in its training instance) composed from
+    the phases' plain versions: per step each layer's P1 and P2 in float32
+    over the widened operands, the readout's partials over ``cluster``
+    slices of the units summed in rank order, then the roundings of a bf16
+    head (``csrc/gru_decode_body.cuh``): the carries after the readout has
+    read them, the fed-back probs, and probs, logits and the h sequences as
+    stored (in ``residual_dtype`` where given: D resid's instance). Returns
+    (probs, logits, [h sequence of each layer]) in start's dtype, (T, B, .)
+    each."""
     dtype = start.dtype
+    rdt = residual_dtype or dtype
     cells = [{k: c[k].float() for k in ("w", "u", "b")} for c in cells]
     out_dense = {k: out_dense[k].float() for k in ("w", "b")}
     states = [s.float() for s in init_states]
@@ -476,7 +490,7 @@ def gru_decode_train_chain_reference(cells, out_dense, init_states, start, T,
         for i, p in enumerate(cells):
             z, rh, cand = decode_layer_p1_reference(x, states[i], p)
             x = decode_layer_p2_reference(z, rh, cand, states[i], p["u"], torch.tanh)
-            hs[i].append(x.to(dtype))
+            hs[i].append(x.to(rdt))
             states[i] = x  # layer i + 1 and the readout read it float
         parts = decode_readout_partials_reference(x, out_dense["w"], cluster)
         pr, lg = decode_readout_reference(parts, out_dense["b"], out_activation)
@@ -589,7 +603,9 @@ def _check_heads(heads, build: str) -> tuple[int, int, torch.device, torch.dtype
         if dtype != want:
             raise ValueError(f"build {build} of kernel {build[0]} takes {want} heads, not {dtype}")
         for h in heads:
-            why = _layout._part_limit(build, H, h["start"].shape[-1], len(h["cells"]))
+            D, n_layers = h["start"].shape[-1], len(h["cells"])
+            why = (_layout.dec_train_limit(build, H, D, n_layers) if build in _layout.D_BUILDS
+                   else _layout._part_limit(build, H, D, n_layers))
             if why is not None:
                 raise _layout.LaunchLimitError(why)
     return B, H, device, dtype
@@ -607,35 +623,34 @@ def gru_decode_fwd_train(heads, build=None):
     its name in ``ops/_layout.py`` (default "D", or "D_bf16" for bf16
     heads; "D_resid": float32 heads whose h sequences are stored in
     bfloat16). CPU tensors run ``gru_decode_train_reference``; CUDA tensors
-    launch kernel D once."""
+    launch kernel D on each head's route (``_launch_heads``): the decode
+    chain once a head, or the per-block route (8 rows a block) once for the
+    call's per-block heads. Every launch counts on the build's counter
+    (``.launches``, ``.launches_bf16``, ``.launches_resid``) and on its
+    route's (``.launches_chain``, ``.launches_block``, with the build's
+    suffix)."""
     return _decode_fwd(heads, build or _named("D", heads))
-
-
-gru_decode_fwd_train.launches = 0
-gru_decode_fwd_train.launches_bf16 = 0
-gru_decode_fwd_train.launches_resid = 0
 
 
 def gru_decode_fwd_train_wide(heads, build=None):
     """``gru_decode_fwd_train`` through kernel D's wide build, "D_wide" or
-    "D_wide_bf16": each head on the route ``_layout.dec_wide_route`` picks,
-    B's decode chain in its training instance (one launch a head, at
-    ``dec_wide_plan``'s plan, the weights' slices packed for it) or the
-    per-block route (2 rows a block, the per-block heads of a call in one
-    launch). Every launch counts on the build's counter (``.launches``,
-    ``.launches_bf16``) and on its route's (``.launches_chain``,
-    ``.launches_block``, with ``_bf16`` for the bf16 build)."""
+    "D_wide_bf16": each head on the route ``_layout.dec_train_route`` picks,
+    the same decode chain as the narrow builds' or the wide per-block route
+    (2 rows a block). Counted as ``gru_decode_fwd_train`` counts, on this
+    wrapper."""
     return _decode_fwd(heads, build or _named("D_wide", heads))
 
 
-for _attr in ("launches", "launches_chain", "launches_block"):
-    for _sfx in ("", "_bf16"):
-        setattr(gru_decode_fwd_train_wide, _attr + _sfx, 0)
+for _fn, _sfxs in ((gru_decode_fwd_train, ("", "_bf16", "_resid")),
+                   (gru_decode_fwd_train_wide, ("", "_bf16"))):
+    for _attr in ("launches", "launches_chain", "launches_block"):
+        for _sfx in _sfxs:
+            setattr(_fn, _attr + _sfx, 0)
 
 
 @functools.cache
-def dec_wide_max_clusters(bf16, tc, cluster):
-    """The card's cudaOccupancyMaxActiveClusters of D's wide chain instance
+def dec_max_clusters(bf16, tc, cluster):
+    """The card's cudaOccupancyMaxActiveClusters of D's chain instance
     (``bf16``: its bf16 one; ``tc``: the tensor-core one) at ``cluster``
     CTAs a cluster."""
     lib, fn = _build.load_entry("gru_decode_train", "mvt_gru_decode_train_max_clusters",
@@ -647,60 +662,16 @@ def dec_wide_max_clusters(bf16, tc, cluster):
 
 
 @functools.cache
-def dec_wide_plan(H, D, n_layers, B, T=64, bf16=False):
-    """D's wide chain plan (``_layout.dec_train_plan``) for a head at (H,
-    B), at the card's active clusters where the plan is not a measured one;
-    raises LaunchLimitError where the chain does not launch."""
+def dec_plan(H, D, n_layers, B, T=64, bf16=False):
+    """D's chain plan (``_layout.dec_train_plan``) for a head at (H, B), at
+    the card's active clusters where the plan is not a measured one (D
+    resid takes D's float32 plan); raises LaunchLimitError where the chain
+    does not launch."""
     p = _layout.dec_train_plan(H, D, n_layers, B, T, bf16)
     if (H, D, n_layers, T, B, bf16) in _layout.DEC_TRAIN_MEASURED:
         return p
     return _layout.dec_train_plan(H, D, n_layers, B, T, bf16, p.cluster,
-                                  max_clusters=dec_wide_max_clusters(bf16, False, p.cluster))
-
-
-@functools.cache
-def _wide_entries(build: str) -> tuple:
-    """(library, chain entry, per-block entry) of D's wide ``build``."""
-    name, entry, _fn, _counter = _BUILDS[build]
-    sfx = "_bf16" if build.endswith("_bf16") else ""
-    lib, chain = _build.load_entry(name, entry, [ctypes.POINTER(_DecodeHead),
-                                                 ctypes.POINTER(ctypes.c_void_p)]
-                                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    block = _build.load_entry(name, f"mvt_gru_decode_train_wide_block{sfx}",
-                              [ctypes.POINTER(_DecodeHead)] + [ctypes.c_int] * 3
-                              + [ctypes.c_void_p])[1]
-    return lib, chain, block
-
-
-def _launch_wide(build: str, heads, structs, B: int, H: int, device) -> None:
-    """Launch D's wide ``build`` on each head's route: the chain once a head
-    (at ``dec_wide_plan``'s plan), the per-block heads in one launch; count
-    every launch."""
-    lib, chain, block = _wide_entries(build)
-    bf16 = build.endswith("_bf16")
-    sfx = "_bf16" if bf16 else ""
-    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-    fn = gru_decode_fwd_train_wide
-    per_block = []
-    for h, st in zip(heads, structs):
-        D, n_layers = h["start"].shape[-1], len(h["cells"])
-        if _layout.dec_wide_route(H, D, n_layers) == "block":
-            per_block.append(st)
-            continue
-        plan = dec_wide_plan(H, D, n_layers, B, h["T"], bf16)
-        slices = list(_packed_slices(h["cells"], plan.cluster, plan.chunk, plan.tc))
-        ptrs = (ctypes.c_void_p * 6)(*(t.data_ptr() for t in slices), *([None] * (6 - len(slices))))
-        rc = chain(ctypes.byref(st), ptrs, B, H, plan.cluster, plan.rows, plan.splits,
-                   plan.stages, plan.chunk, int(plan.tc), stream)
-        _build.check(lib, rc, f"{_BUILDS[build][1]} chain launch")
-        _count(build)
-        setattr(fn, "launches_chain" + sfx, getattr(fn, "launches_chain" + sfx) + 1)
-    if per_block:
-        arr = (_DecodeHead * len(per_block))(*per_block)
-        rc = block(arr, len(per_block), B, H, stream)
-        _build.check(lib, rc, f"{_BUILDS[build][1]} per-block launch")
-        _count(build)
-        setattr(fn, "launches_block" + sfx, getattr(fn, "launches_block" + sfx) + 1)
+                                  max_clusters=dec_max_clusters(bf16, False, p.cluster))
 
 
 def _decode_fwd(heads, build: str):
@@ -731,11 +702,53 @@ def _decode_fwd(heads, build: str):
             setattr(st, name, named[name].data_ptr() if name in named else null.value)
         st.D, st.n_layers, st.out_act, st.T = D, n_layers, OUT_ACTIVATIONS[h["out_activation"]], T
         outs.append((probs, logits, h_seqs))
-    if build in _layout.DEC_WIDE_BUILDS:
-        _launch_wide(build, heads, structs, B, H, device)
-    else:
-        _launch(build, structs, len(heads), B, H, device)
+    _launch_heads(build, heads, structs, B, H, device)
     return outs
+
+
+@functools.cache
+def _d_entries(build: str) -> tuple:
+    """(library, chain entry, per-block entry) of D's ``build``."""
+    name, (chain_entry, block_entry), _fn, _counter = _BUILDS[build]
+    lib, chain = _build.load_entry(name, chain_entry, [ctypes.POINTER(_DecodeHead),
+                                                       ctypes.POINTER(ctypes.c_void_p)]
+                                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    block = _build.load_entry(name, block_entry, [ctypes.POINTER(_DecodeHead)]
+                              + [ctypes.c_int] * 3 + [ctypes.c_void_p])[1]
+    return lib, chain, block
+
+
+def _launch_heads(build: str, heads, structs, B: int, H: int, device) -> None:
+    """Launch D's ``build`` on each head's route (``_layout.dec_train_route``):
+    the chain once a head, in the call's order on the current stream, at
+    ``dec_plan``'s plan (D resid at D's float32 plan) with the weights'
+    slices packed for it; the per-block heads in one launch. Every launch
+    counts on the build's counter and on its route's."""
+    lib, chain, block = _d_entries(build)
+    bf16 = build.endswith("_bf16")
+    _name, _entries, wrapper, counter = _BUILDS[build]
+    sfx = counter.removeprefix("launches")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    per_block = []
+    for h, st in zip(heads, structs):
+        D, n_layers = h["start"].shape[-1], len(h["cells"])
+        if _layout.dec_train_route(build, H, D, n_layers) == "block":
+            per_block.append(st)
+            continue
+        plan = dec_plan(H, D, n_layers, B, h["T"], bf16)
+        slices = list(_packed_slices(h["cells"], plan.cluster, plan.chunk, plan.tc))
+        ptrs = (ctypes.c_void_p * 6)(*(t.data_ptr() for t in slices), *([None] * (6 - len(slices))))
+        rc = chain(ctypes.byref(st), ptrs, B, H, plan.cluster, plan.rows, plan.splits,
+                   plan.stages, plan.chunk, int(plan.tc), stream)
+        _build.check(lib, rc, f"{_BUILDS[build][1][0]} chain launch")
+        _count(build)
+        setattr(wrapper, "launches_chain" + sfx, getattr(wrapper, "launches_chain" + sfx) + 1)
+    if per_block:
+        arr = (_DecodeHead * len(per_block))(*per_block)
+        rc = block(arr, len(per_block), B, H, stream)
+        _build.check(lib, rc, f"{_BUILDS[build][1][1]} per-block launch")
+        _count(build)
+        setattr(wrapper, "launches_block" + sfx, getattr(wrapper, "launches_block" + sfx) + 1)
 
 
 def gru_decode_bwd(heads, build=None):
@@ -767,16 +780,23 @@ gru_decode_bwd_wide.launches_bf16 = 0
 gru_decode_bwd_wide.launches_row8_bf16 = 0
 
 # kernel D's and E's builds by their names in ops/_layout.py: (library, entry
-# point, the wrapper whose counter a launch adds to, that counter)
+# point (D: its chain's and its per-block route's), the wrapper whose counter
+# a launch adds to, that counter)
 _BUILDS = {
-    "D": ("gru_decode_train", "mvt_gru_decode_train", gru_decode_fwd_train, "launches"),
-    "D_bf16": ("gru_decode_train", "mvt_gru_decode_train_bf16", gru_decode_fwd_train,
-               "launches_bf16"),
-    "D_resid": ("gru_decode_train", "mvt_gru_decode_train_resid", gru_decode_fwd_train,
-                "launches_resid"),
-    "D_wide": ("gru_decode_train", "mvt_gru_decode_train_wide", gru_decode_fwd_train_wide,
-               "launches"),
-    "D_wide_bf16": ("gru_decode_train", "mvt_gru_decode_train_wide_bf16",
+    "D": ("gru_decode_train", ("mvt_gru_decode_train", "mvt_gru_decode_train_block"),
+          gru_decode_fwd_train, "launches"),
+    "D_bf16": ("gru_decode_train", ("mvt_gru_decode_train_bf16",
+                                    "mvt_gru_decode_train_block_bf16"),
+               gru_decode_fwd_train, "launches_bf16"),
+    "D_resid": ("gru_decode_train", ("mvt_gru_decode_train_resid",
+                                     "mvt_gru_decode_train_block_resid"),
+                gru_decode_fwd_train, "launches_resid"),
+    # the wide builds: the narrow builds' chain instances, their own
+    # per-block design (2 rows a block)
+    "D_wide": ("gru_decode_train", ("mvt_gru_decode_train", "mvt_gru_decode_train_wide_block"),
+               gru_decode_fwd_train_wide, "launches"),
+    "D_wide_bf16": ("gru_decode_train", ("mvt_gru_decode_train_bf16",
+                                         "mvt_gru_decode_train_wide_block_bf16"),
                     gru_decode_fwd_train_wide, "launches_bf16"),
     # E's six builds run three chain instances: float (the residual build's
     # pre-pass reads the rounded h widened), bf16 with the streams
@@ -794,15 +814,10 @@ _BUILDS = {
 
 @functools.cache
 def _entry(build: str) -> tuple:
-    """(library, entry point) of one of ``_BUILDS``: D's take its heads'
-    structs, E's (the chain) its heads' chain structs and the plan; the
-    wide D's are ``_wide_entries``'."""
+    """(library, entry point) of E's ``build``, which takes its heads'
+    chain structs and the plan (D's are ``_d_entries``')."""
     name, entry, _fn, _counter = _BUILDS[build]
-    if build.startswith("D"):
-        args = [ctypes.POINTER(_DecodeHead), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
-    else:
-        args = [ctypes.POINTER(_HeadBwdChain)] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    args = [ctypes.POINTER(_HeadBwdChain)] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return _build.load_entry(name, entry, args)
 
 
@@ -810,14 +825,6 @@ def _count(build: str) -> None:
     """One more launch of ``build`` on its wrapper's counter."""
     _name, _e, wrapper, counter = _BUILDS[build]
     setattr(wrapper, counter, getattr(wrapper, counter) + 1)
-
-
-def _launch(build: str, structs, n_heads: int, B: int, H: int, device) -> None:
-    """Launch D's ``build`` on the current stream and count the launch."""
-    lib, fn = _entry(build)
-    rc = fn(structs, n_heads, B, H, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
-    _build.check(lib, rc, f"{_BUILDS[build][1]} launch")
-    _count(build)
 
 
 # ---------------------------------------------------------------------------

@@ -51,8 +51,8 @@ PORT_KERNELS = {
     "gru_fwd_chain_tc_kernel": "F chain tc gru_fwd_chain_tc",
     "gru_fwd_chain_mma_kernel": "A chain bf16 gru_fwd_chain_mma",
     "gru_layer_fwd_kernel": "A block gru_layer_fwd",
-    # B: its decode chain on clusters (the training instance, D wide's
-    # chain, counted apart below), its per-block route
+    # B: its decode chain on clusters (its training instances, D's chain,
+    # counted apart below), its per-block route
     "gru_decode_chain_kernel": "B chain gru_decode_chain",
     "gru_decode_kernel": "B block gru_decode",
     # C's and E's phases: the gate pre-pass's two products (one kernel
@@ -61,7 +61,9 @@ PORT_KERNELS = {
     "gru_gates_p2_kernel": "C/E gates gru_gates_p2",
     "gru_bwd_chain_kernel": "C/G chain gru_bwd_chain",
     "gru_bwd_dx_kernel": "C dx gru_bwd_dx",
-    "gru_decode_train_kernel": "D gru_decode_train",
+    # D's per-block routes (its chain is B's, above)
+    "gru_decode_train_kernel": "D block gru_decode_train",
+    "gru_decode_train_resid_kernel": "D resid block gru_decode_train_resid",
     "gru_head_bwd_chain_kernel": "E chain gru_head_bwd_chain",
     "gru_layer_xp_fwd_kernel": "F block gru_layer_xp_fwd",
     # G: its xp gate pre-pass (P1, P2), its chain (C's, above; the bf16
@@ -90,11 +92,14 @@ PORT_KERNELS = {
     # its per-block route
     "gru_encoder_scan_kernel": "X block gru_encoder_scan",
     "grad_reduce": "W grad_reduce",
+    # M: its decode chain on clusters, its per-block route
+    "lstm_decode_chain_kernel": "M chain lstm_decode_chain",
+    "lstm_decode_kernel": "M block lstm_decode",
 }
 # the groups whose kernels have a bf16 build, counted apart
 BF16_BUILDS = ("A/L xproj xproj", "A chain gru_fwd_chain", "A block gru_layer_fwd",
                "C/E gates gru_gates_p1", "C/E gates gru_gates_p2", "C/G chain gru_bwd_chain",
-               "C dx gru_bwd_dx", "D gru_decode_train", "E chain gru_head_bwd_chain",
+               "C dx gru_bwd_dx", "D block gru_decode_train", "E chain gru_head_bwd_chain",
                "G gates gru_xp_gates_p1", "G gates gru_xp_gates_p2", "G block gru_layer_xp_bwd",
                "D wide block gru_decode_train_wide", "L block lstm_layer_fwd",
                "N/R chain lstm_bwd_chain",
@@ -187,11 +192,13 @@ def _profile(step, steps: int) -> dict:
             group = "X chain gru_fwd_chain_mma"
         if group == "C/G chain gru_bwd_chain" and ", true>" in name:
             group = "G chain bf16 gru_bwd_chain"
-        # D wide's chain: B's decode chain in its training instance
-        if group == "B chain gru_decode_chain" and ", true>" in name:
-            group = "D wide chain gru_decode_chain"
-            if "bfloat16" in name:
-                group = "D wide chain bf16 gru_decode_chain"
+        # D's chain: B's decode chain in its training instances (<..., TV,
+        # true, TS>: float32, bf16, and float32 with bf16 h sequences)
+        if group == "B chain gru_decode_chain" and ", true," in name:
+            group = next((g for k, g in (
+                ("__nv_bfloat16, true, __nv_bfloat16>", "D chain bf16 gru_decode_chain"),
+                ("float, true, __nv_bfloat16>", "D resid chain gru_decode_chain"))
+                if k in name), "D chain gru_decode_chain")
         if group in BF16_BUILDS and "bfloat16" in name:
             letter, library = group.rsplit(" ", 1)
             group = f"{letter} bf16 {library}"

@@ -25,7 +25,7 @@ older checkouts have too):
 2. dplans: D wide's chain (one head a launch) at every (cluster, rows,
    chunk) of ``plans_of`` on D_CASES (the notes, velocity and instrument
    heads at H = 512; B 256, 128 and 5; float32, and bf16 for the heads of
-   8 or more outputs), beside ``gru_decode.dec_wide_plan``'s pick, timed as
+   8 or more outputs), beside ``gru_decode.dec_plan``'s pick, timed as
    above.
 3. phases: at F_CASES and D_CASES, F and D wide through their public
    wrappers beside their per-block routes (the first designs, run at the
@@ -151,7 +151,7 @@ def plans_of(H, D, n_layers, B, T_, bf16=False):
 
     elem = 2 if bf16 else 4
     found = {(p.cluster, p.rows, p.chunk, True): p for p in _layout.dec_tc_plans(
-        H, D, n_layers, B, bf16, lambda C: gd.dec_wide_max_clusters(bf16, True, C))}
+        H, D, n_layers, B, bf16, lambda C: gd.dec_max_clusters(bf16, True, C))}
     for C in (4, 8, 16):
         if _layout.gru_decode_most_rows(n_layers, D, H, C, elem) < 1:
             continue
@@ -201,7 +201,7 @@ def time_dplans(emit):
 
     from midi_vae_tpu_torch.ops import gru_decode as gd
 
-    picked_plan = gd.dec_wide_plan
+    picked_plan = gd.dec_plan
     key = lambda p: f"{'tc ' if p.tc else ''}{p.cluster}x{p.rows}/{p.chunk}"  # noqa: E731
     with torch.no_grad():
         for bf16, head, B in D_CASES:
@@ -214,13 +214,12 @@ def time_dplans(emit):
             err, fns = {}, {}
             try:
                 for p in plans:
-                    gd.dec_wide_plan = lambda *_a, _p=p: _p
+                    gd.dec_plan = lambda *_a, _p=p: _p
                     err[key(p)] = _max_diff(call(), want)
-                    fns[key(p)] = lambda _p=p: (setattr(gd, "dec_wide_plan", lambda *_a: _p),
-                                                call())
+                    fns[key(p)] = lambda _p=p: (setattr(gd, "dec_plan", lambda *_a: _p), call())
                 ms = in_turns(fns, reps=5)
             finally:
-                gd.dec_wide_plan = picked_plan
+                gd.dec_plan = picked_plan
             best = min(ms.values())
             emit({"what": "D wide plans", "bf16": bf16, "head": name, "H": 512, "B": B, "D": D,
                   "T": steps, "layers": n_layers, "picked": key(pick), "ms": ms,
@@ -252,28 +251,28 @@ def time_phases(emit):
             name, D, n_layers, steps, out_act = head
             h = _d_head(head, 512, B, bf16, 11 + D + B)
             sfx = "_bf16" if bf16 else ""
-            plan = gd.dec_wide_plan(512, D, n_layers, B, steps, bf16)
+            plan = gd.dec_plan(512, D, n_layers, B, steps, bf16)
 
             def run_block(h=h):
                 # the per-block route on the same head (the route chooser
                 # told to take it)
-                saved = gd._layout.dec_wide_route
-                gd._layout.dec_wide_route = lambda *_a: "block"
+                saved = gd._layout.dec_train_route
+                gd._layout.dec_train_route = lambda *_a: "block"
                 try:
                     return gd.gru_decode_fwd_train_wide([h])
                 finally:
-                    gd._layout.dec_wide_route = saved
+                    gd._layout.dec_train_route = saved
 
             tc = gd._layout.dec_train_plan(512, D, n_layers, B, steps, bf16, tc=True)
 
             def run_tc(h=h, p=tc):
                 # the tensor-core instance at its rule's plan
-                saved = gd.dec_wide_plan
-                gd.dec_wide_plan = lambda *_a: p
+                saved = gd.dec_plan
+                gd.dec_plan = lambda *_a: p
                 try:
                     return gd.gru_decode_fwd_train_wide([h])
                 finally:
-                    gd.dec_wide_plan = saved
+                    gd.dec_plan = saved
 
             fns = {"block": run_block, "chain": lambda h=h: gd.gru_decode_fwd_train_wide([h]),
                    "tc": run_tc}

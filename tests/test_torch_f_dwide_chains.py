@@ -344,7 +344,7 @@ def test_routes_at_every_width_f_and_d_launched_at_before(H_):
     assert _layout.gru_xp_fwd_route(H_) == ("block" if H_ in F_BLOCK_WIDTHS else "chain")
     assert _layout.xp_layer_limit("F", H_) is None
     for D, n in ((61, 2), (1, 1), (16, 1)):
-        assert _layout.dec_wide_route(H_, D, n) == "chain"
+        assert _layout.dec_train_route("D_wide", H_, D, n) == "chain"
         assert _layout._part_limit("D_wide", H_, D, n) is None
         if D >= 8:
             assert _layout._part_limit("D_wide_bf16", H_, D, n) is None
@@ -363,7 +363,7 @@ def test_routes_off_the_widths():
     assert _layout.gru_fwd_cluster("F_chain", 1024) == (16, True)
     assert _layout.gru_tc_plan(1024, 256) is not None
     assert "__launch_bounds__" in _layout.launch_limit("F", 1024, _layout.smem_bytes("F", 1024))
-    assert _layout.dec_wide_route(1024, 61, 2) == "chain"
+    assert _layout.dec_train_route("D_wide", 1024, 61, 2) == "chain"
     assert _layout.dec_train_plan(1024, 61, 2, 256).rows >= 1
     # the route chooser keeps the first designs' limits for a step at 1024
     assert "__launch_bounds__" in _layout._part_limit("D_wide", 1024, 61, 2)
@@ -483,13 +483,14 @@ def test_f_launches_count_by_route(monkeypatch):
 
 def test_d_wide_launches_count_by_route_and_build(monkeypatch):
     """D wide's chain (one launch a head) and per-block route (the call's
-    per-block heads in one launch), launched as on the card (the entries
-    stubbed), count on the build's counter and on the route's."""
+    per-block heads in one launch), launched as on the card by D's one
+    launch function (the entries stubbed), count on the build's counter and
+    on the route's."""
     calls = []
-    monkeypatch.setattr(port_dec, "_wide_entries", lambda build: (
+    monkeypatch.setattr(port_dec, "_d_entries", lambda build: (
         _fake_lib(), lambda *a: calls.append(("chain", build)) or 0,
         lambda *a: calls.append(("block", build)) or 0))
-    monkeypatch.setattr(port_dec, "dec_wide_plan", lambda H_, D, n, B_, T_, bf16: (
+    monkeypatch.setattr(port_dec, "dec_plan", lambda H_, D, n, B_, T_, bf16: (
         _layout.dec_train_plan(H_, D, n, B_, T_, bf16)))
     monkeypatch.setattr(port_dec, "_packed_slices", lambda cells, C, K, tc: [
         torch.zeros(1)] * 3 * len(cells))
@@ -505,10 +506,10 @@ def test_d_wide_launches_count_by_route_and_build(monkeypatch):
         head = {"cells": tc, "out": to, "init": ti, "start": ts, "T": T, "out_activation": "softmax"}
         heads.append(head)
     structs = [port_dec._DecodeHead(), port_dec._DecodeHead()]
-    port_dec._launch_wide("D_wide", [heads[0], heads[0]], structs, 5, H, "cuda")
-    port_dec._launch_wide("D_wide_bf16", [heads[1]], structs[:1], 5, H, "cuda")
-    monkeypatch.setattr(_layout, "dec_wide_route", lambda *a: "block")
-    port_dec._launch_wide("D_wide", [heads[0], heads[0]], structs, 5, H, "cuda")
+    port_dec._launch_heads("D_wide", [heads[0], heads[0]], structs, 5, H, "cuda")
+    port_dec._launch_heads("D_wide_bf16", [heads[1]], structs[:1], 5, H, "cuda")
+    monkeypatch.setattr(_layout, "dec_train_route", lambda *a: "block")
+    port_dec._launch_heads("D_wide", [heads[0], heads[0]], structs, 5, H, "cuda")
     assert calls == [("chain", "D_wide")] * 2 + [("chain", "D_wide_bf16"), ("block", "D_wide")]
     assert (fn.launches, fn.launches_chain, fn.launches_block) == (3, 2, 1)
     assert (fn.launches_bf16, fn.launches_chain_bf16, fn.launches_block_bf16) == (1, 1, 0)

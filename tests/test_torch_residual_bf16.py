@@ -248,22 +248,37 @@ def test_flag_is_a_noop_where_the_multihead_call_is_declined(monkeypatch):
 
 
 def test_flag_raises_on_the_card_off_the_narrow_route():
-    """At H = 448 the float32 route is wide (D's and E's 8-row builds do not
-    launch), while ``_mh_vmem_ok`` still admits the multi-head call at
-    B = 32 with the velocity head. Without the flag the per-head wide builds
-    compute its function; with ``decode_residual_bf16`` its sequences are
-    stored rounded, which no port build does at that width, so the card
-    raises NotImplementedError naming rows 5 and 6 and the CPU runs their
-    plain versions. Where the JAX package declines the call (B = 64; the
-    held head beside it at B = 32), the flag is a no-op and nothing raises."""
-    cfg = Config(lstm_size=448, decode_residual_bf16=True)
-    assert _layout.config_route(cfg) == "wide"
-    assert ft._mh_vmem_ok(32, cfg.output_dim, [1], 448)
-    with pytest.raises(NotImplementedError, match="rows 5 and 6"):
-        port_vae._multihead(cfg, "wide", 32, on_card=True)
-    assert port_vae._multihead(cfg, "wide", 32) is True
-    assert port_vae._multihead(Config(lstm_size=448), "wide", 32, on_card=True) is False
+    """At H = 416, 448 and 480 the float32 route is wide (D's and E's 8-row
+    builds do not launch), while ``_mh_vmem_ok`` still admits the multi-head
+    call with the velocity head (at B = 32; at 480, B = 16). Without the flag the per-head
+    wide builds compute its function; with ``decode_residual_bf16`` its
+    sequences are stored rounded, which D resid's build does on the decode
+    chain at every multiple of 32: at H = 448, where E resid's chain
+    launches too, the call runs rows 5 and 6 on the card. At 416 and 480
+    E's chain refuses H not a multiple of 64, so the card raises
+    NotImplementedError naming rows 5 and 6, that limit and ROADMAP Queue 2
+    item 4, and the CPU runs their plain versions (at 416 and 480 no whole
+    step runs on the card: C's chain refuses those widths too). Where the
+    JAX package declines the call at H = 448 (B = 64; the held head beside
+    it at B = 32), the flag is a no-op and nothing raises."""
+    # the batches at which the JAX package admits the call there
+    for H_, Bn in ((416, 32), (448, 32), (480, 16)):
+        cfg = Config(lstm_size=H_, decode_residual_bf16=True)
+        assert ft._mh_vmem_ok(Bn, cfg.output_dim, [1], H_)
+        if H_ == 448:
+            assert _layout.config_route(cfg) == "wide"
+            assert port_vae._multihead(cfg, "wide", Bn, on_card=True) is True
+        else:
+            # no route's every build launches there (C's and E's chains)
+            with pytest.raises(_layout.LaunchLimitError, match="multiple of 64"):
+                _layout.config_route(cfg)
+            with pytest.raises(NotImplementedError,
+                               match=r"rows 5 and 6.*multiple of 64.*Queue 2 item 4"):
+                port_vae._multihead(cfg, "wide", Bn, on_card=True)
+        assert port_vae._multihead(cfg, "wide", Bn) is True
+        assert port_vae._multihead(Config(lstm_size=H_), "wide", Bn, on_card=True) is False
     assert not ft._mh_vmem_ok(64, cfg.output_dim, [1], 448)
+    cfg = Config(lstm_size=448, decode_residual_bf16=True)
     assert port_vae._multihead(cfg, "wide", 64, on_card=True) is False
     held = Config(lstm_size=448, decode_residual_bf16=True, meta_held_notes=True)
     assert not ft._mh_vmem_ok(32, held.output_dim, [1, 2], 448)
