@@ -380,6 +380,7 @@ PLAIN_REPS = 10
 STEP_REPS = 5
 B = 256
 RAGGED = 5  # rows of a batch smaller than one block's tile
+H1024 = 1024  # the widest GRU the JAX package trains (tools/bench_width.py --sizes 512,1024)
 
 
 def rel(w):
@@ -610,6 +611,8 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           # bf16 chain, the instance that reads a bf16 xp)
           "X": ("gru_encoder_scan", "gru_encoder_scan_kernel"),
           "X_chain": ("gru_encoder_scan", "gru_fwd_chain_mma_kernel"),
+          # X's streamed instance at H = 1024: F's tensor-core chain over bf16
+          "X_chain_tc": ("gru_encoder_scan", "gru_fwd_chain_tc_kernel"),
           "Y": ("lstm_encoder_scan", "lstm_fwd_chain_mma_kernel"),
           "U": ("gru_encoder_stack_fwd", "gru_encoder_stack_fwd_kernel"),
           "V": ("gru_encoder_stack_bwd", "gru_encoder_stack_bwd_kernel"),
@@ -625,9 +628,14 @@ BUILDS = {"A": ("gru_layer_fwd", "gru_layer_fwd_kernel", NOT_BF16),
           "D_bf16": ("gru_decode_train", "gru_decode_train_kernel", BF16_ONLY),
           "E_gates_bf16": ("gru_decode_bwd", "gru_gates_p1_kernel", BF16_ONLY),
           "E_gates_p2_bf16": ("gru_decode_bwd", "gru_gates_p2_kernel", BF16_ONLY),
-          "E_chain_bf16": ("gru_decode_bwd", "gru_head_bwd_chain_kernel", "nv_bfloat16fE"),
+          "E_chain_bf16": ("gru_decode_bwd", "gru_head_bwd_chain_kernel", "nv_bfloat16fLb0E"),
           "E_chain_wide_bf16": ("gru_decode_bwd", "gru_head_bwd_chain_kernel",
-                                "nv_bfloat16S1_E"),
+                                "nv_bfloat16S1_Lb0E"),
+          # their per-segment instances (a head's partial wider than the
+          # CTA's warps hold: a 1-layer head at H = 1024)
+          "E_chain_bf16_seg": ("gru_decode_bwd", "gru_head_bwd_chain_kernel", "nv_bfloat16fLb1E"),
+          "E_chain_wide_bf16_seg": ("gru_decode_bwd", "gru_head_bwd_chain_kernel",
+                                    "nv_bfloat16S1_Lb1E"),
           "W_bf16": ("grad_reduce", "grad_reduce", BF16_ONLY),
           "W_tc_bf16": ("grad_reduce", "grad_reduce_tc_kernel", BF16_ONLY),
           "W_small_bf16": ("grad_reduce", "grad_reduce_small_kernel", BF16_ONLY),
@@ -660,7 +668,7 @@ NO_SPILLS = ("T", "T_xp", "T_bf16", "B_chain", "X_chain", "F_chain", "F_chain_tc
              "S", "S_xp", "S_bf16", *(f"{k}_{p}{s}" for k in "CE" for p in ("gates", "gates_p2")
                                       for s in ("", "_bf16")),
              "C_chain", "C_chain_bf16", "C_dx", "C_dx_bf16", "E_chain", "E_chain_bf16",
-             "E_chain_wide_bf16")
+             "E_chain_wide_bf16", "X_chain_tc", "E_chain_bf16_seg", "E_chain_wide_bf16_seg")
 
 
 def check_registers():
@@ -697,7 +705,8 @@ def check_registers():
                  if not (k in "EG" and p == "dx")},
               **dict.fromkeys(("X_chain", "G_chain", "G_chain_bf16", "F_chain", "F_chain_tc",
                                "D_wide_chain", "D_wide_chain_bf16", "D_chain_resid",
-                               "M_chain"), _layout.CHAIN_THREADS),
+                               "M_chain", "X_chain_tc", "E_chain_bf16_seg",
+                               "E_chain_wide_bf16_seg"), _layout.CHAIN_THREADS),
               **dict.fromkeys(("D_wide_tc", "D_wide_tc_bf16"), _layout.DEC_TC_THREADS),
               # S's largest block (its instances: 64 or 128 threads)
               **dict.fromkeys(_layout.STEP_BUILDS,
@@ -868,18 +877,27 @@ def gru_bwd_products(M, D, H):
     return 2 * M * (D * 3 * H + H * 2 * H), 2 * M * H * H, 2 * M * 3 * H * H, 2 * M * 3 * H * D
 
 
-def gru_bwd_work(bf16, prepass=(0.0, 0.0), chain=0.0, readout=0.0, dx=0.0):
+def gru_bwd_work(bf16, prepass=(0.0, 0.0), chain=0.0, readout=0.0, dx=0.0, best=False):
     """compare()'s work of kernel C's or E's phases, or of the whole op
     (their sum): ``prepass`` the pre-pass's (P1, P2), ``chain`` the chain's
     products with U^T and W^T, ``readout`` E's dlogits Wo^T (FFMA in both
     builds), ``dx`` C's dx pass. float32: the pre-pass and the dx pass as
     three TF32 products each, the chain at the FFMA rate; bf16: P1 one bf16
     product (exact operands), P2 and the dx pass two (a float operand split
-    in two), the chain three (da split in three), at the bf16 rate."""
+    in two), the chain three (da split in three), at the bf16 rate. With
+    ``best`` every product at the card's best rate for its operand types,
+    as f_work, g_work and d_work price theirs: float32's chain and readout
+    as three TF32 products, bf16's readout (float dlogits against bf16 Wo)
+    as two bf16 products."""
     p1, p2 = prepass
     if bf16:
+        if best:
+            return {"flops": p1 + 2 * p2 + 3 * chain + 2 * dx + 2 * readout,
+                    "peak": PEAK_BF16_FLOPS}
         return {"flops": p1 + 2 * p2 + 3 * chain + 2 * dx, "peak": PEAK_BF16_FLOPS,
                 "flops_f32": readout}
+    if best:
+        return tf32_work(p1 + p2 + dx + chain + readout)
     return {"flops": 3 * (p1 + p2 + dx), "peak": PEAK_TF32_FLOPS, "flops_f32": chain + readout}
 
 
@@ -896,10 +914,11 @@ def c_work(x, u, need_dx, phase=None):
     return gru_bwd_work(x.dtype == torch.bfloat16, **kw)
 
 
-def e_work(heads, phase=None):
+def e_work(heads, phase=None, best=False):
     """gru_bwd_work of E on a call's heads (dicts with cells, out, start,
-    T): the whole op, or one ``phase`` ("gates", "chain"). The chain takes
-    each layer's da U^T and its dx (da W^T) and the readout's transpose."""
+    T): the whole op, or one ``phase`` ("gates", "chain"), each product at
+    the card's best rate with ``best``. The chain takes each layer's da U^T
+    and its dx (da W^T) and the readout's transpose."""
     import torch
 
     P1 = P2 = chain = readout = 0.0
@@ -911,7 +930,7 @@ def e_work(heads, phase=None):
         readout += 2 * M * h["out"]["w"].numel()
     parts = {"gates": {"prepass": (P1, P2)}, "chain": {"chain": chain, "readout": readout}}
     kw = parts[phase] if phase else {k: v for p in parts.values() for k, v in p.items()}
-    return gru_bwd_work(heads[0]["start"].dtype == torch.bfloat16, **kw)
+    return gru_bwd_work(heads[0]["start"].dtype == torch.bfloat16, **kw, best=best)
 
 
 def g_work(xp, u, phase=None):
@@ -1026,19 +1045,20 @@ def _shown_limit(limit):
 
 
 def compare(name, kernel_fn, plain_fn, limits, flops, inputs, library_fn=None,
-            peak=PEAK_F32_FLOPS, flops_f32=0.0):
-    """check(), then both timed in turns (plain, kernel, kernel, plain), with
-    the bound of the call's work: ``flops`` operations at ``peak`` FLOP/s
-    (and ``flops_f32`` at the float32 rate), ``inputs`` (nested tensors) read
-    and the kernel's outputs written; ``library_fn``, one PyTorch call that
-    computes the same function, is timed beside them."""
+            peak=PEAK_F32_FLOPS, flops_f32=0.0, reps=REPS, plain_reps=PLAIN_REPS):
+    """check(), then both timed in turns (plain, kernel, kernel, plain; the
+    medians of ``reps`` and ``plain_reps`` runs), with the bound of the
+    call's work: ``flops`` operations at ``peak`` FLOP/s (and ``flops_f32``
+    at the float32 rate), ``inputs`` (nested tensors) read and the kernel's
+    outputs written; ``library_fn``, one PyTorch call that computes the same
+    function, is timed beside them."""
     errs, rels, got = _check(name, kernel_fn, plain_fn, limits)
-    plain_a, kernel_a = median_ms(plain_fn, PLAIN_REPS), median_ms(kernel_fn)
-    kernel_b, plain_b = median_ms(kernel_fn), median_ms(plain_fn, PLAIN_REPS)
+    plain_a, kernel_a = median_ms(plain_fn, plain_reps), median_ms(kernel_fn, reps)
+    kernel_b, plain_b = median_ms(kernel_fn, reps), median_ms(plain_fn, plain_reps)
     ms, plain_ms = (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
     moved = nbytes(inputs) + nbytes(got)
     bound_ms, bound_by = bound(flops, moved, peak, flops_f32)
-    library_ms = median_ms(library_fn) if library_fn is not None else None
+    library_ms = median_ms(library_fn, reps) if library_fn is not None else None
     shown = ", ".join(_shown_limit(x) for x in limits)
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
     rel = f", rel L2 {', '.join(f'{e:.3e}' for e in rels)}" if rels else ""
@@ -1400,10 +1420,12 @@ def weight_grad_flops(x, hprev):
     return 2 * n * (d_in * 3 * H + 3 * H * H)
 
 
-def check_decode_calls(calls, gen, run, timed, results, wide):
+def check_decode_calls(calls, gen, run, timed, results, wide, block=True, best=False):
     """Kernel D and E (their wide builds when ``wide``) on each call's list of
-    head dicts against their plain versions, W over each head's products, and
-    D + E + W against autograd through the plain decode."""
+    head dicts against their plain versions (D's per-block route too with
+    ``block``), W over each head's products, and D + E + W against autograd
+    through the plain decode; E's bounds at the card's best rates with
+    ``best`` (e_work)."""
     import torch
 
     from midi_vae_tpu_torch.ops import gru_decode as gd
@@ -1437,11 +1459,12 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
         # route, the first design, on the same heads
         if timed:
             results[d_key + "_chain"][call] = out
-        blk = run(f"{d_name} per-block route {call}", lambda h=heads: fwd_flat(
-            d_block(h, "D_wide" if wide else "D")), plain_d, limits, **work,
-            inputs=[[h["cells"], h["out"], h["init"], h["start"]] for h in heads])
-        if timed:
-            results[d_key + "_block"][call] = blk
+        if block:
+            blk = run(f"{d_name} per-block route {call}", lambda h=heads: fwd_flat(
+                d_block(h, "D_wide" if wide else "D")), plain_d, limits, **work,
+                inputs=[[h["cells"], h["out"], h["init"], h["start"]] for h in heads])
+            if timed:
+                results[d_key + "_block"][call] = blk
         with torch.no_grad():
             for h in heads:
                 h["probs"], _l, h["h_seqs"] = gd.gru_decode_train_reference(
@@ -1457,12 +1480,12 @@ def check_decode_calls(calls, gen, run, timed, results, wide):
                   lambda h=heads: bwd_flat([gd.gru_decode_bwd_reference(
                       x["cells"], x["out"], x["init"], x["start"], x["probs"], x["h_seqs"],
                       x["g_probs"], x["g_logits"], x["out_activation"]) for x in h]), limits,
-                  **e_work(heads), inputs=[[h[k] for k in ("cells", "out", "init", "start", "probs", "h_seqs",
+                  **e_work(heads, best=best), inputs=[[h[k] for k in ("cells", "out", "init", "start", "probs", "h_seqs",
                                           "g_probs", "g_logits")] for h in heads])
         if timed:
             results[e_key][call] = out
         for phase, res in e_phase_checks(run, f"{call} B={rows}", heads,
-                                         "E_wide" if wide else "E").items():
+                                         "E_wide" if wide else "E", best).items():
             if timed:
                 results[phase + ("_wide" if wide else "")][call] = res
         # W over one head's products: dWo, dbo and each cell's dW, db, dU
@@ -1633,14 +1656,14 @@ def g_phase_checks(run, tag, gargs, block=False):
     return found
 
 
-def e_phase_checks(run, tag, heads, build):
+def e_phase_checks(run, tag, heads, build, best=False):
     """E's phases on a call's heads (the dicts of gru_decode_bwd, with their
     forward's probs, h sequences and incoming grads) through ``build``, each
     against its plain version on the same inputs: the gate pre-pass of every
     layer, and the chain through the heads over the plain pre-pass's gates
     (dlogits and the gate grads rounded as ``build`` rounds them: E wide's
-    streams hold bf16 values in bf16). Bounds: ``e_work``. Returns {counter
-    name: result}."""
+    streams hold bf16 values in bf16). Bounds: ``e_work`` (``best``: at the
+    card's best rates). Returns {counter name: result}."""
     import torch
 
     from midi_vae_tpu_torch.ops import gru_decode as gd
@@ -1659,7 +1682,7 @@ def e_phase_checks(run, tag, heads, build):
     found = {"gru_decode_bwd_gates" + sfx: run(
         f"E gate pre-pass {tag}", lambda: flat_g(gd.gru_decode_bwd_gates(heads, inputs)),
         lambda: flat_g(plain_gates()), [H_ATOL] * (2 * sum(len(h["cells"]) for h in heads)),
-        **e_work(heads, "gates"), inputs=[[h["cells"], h["start"], h["probs"], h["h_seqs"], h["init"]]
+        **e_work(heads, "gates", best), inputs=[[h["cells"], h["start"], h["probs"], h["h_seqs"], h["init"]]
                         for h in heads])}
     with torch.no_grad():
         gates = plain_gates()
@@ -1676,7 +1699,7 @@ def e_phase_checks(run, tag, heads, build):
         lambda: flat_c(gd.gru_decode_bwd_chain(heads, gates, build, hprevs)),
         lambda: flat_c([gd.gru_decode_bwd_chain_reference(h, [g for g, _rh in gs], hps, wide)
                         for h, gs, hps in zip(heads, gates, hprevs)]),
-        limits, **e_work(heads, "chain"),
+        limits, **e_work(heads, "chain", best),
         inputs=[[gates, hprevs], [[h[k] for k in ("cells", "out", "probs", "g_probs", "g_logits")]
                                   for h in heads]])
     return found
@@ -1970,10 +1993,13 @@ def cudnn_lstm(x, p, h0, c0):
     return lambda: lstm(x, (h0[None], c0[None]))
 
 
-def a_work(T, B, w, u):
+def a_work(T, B, w, u, best=False):
     """compare()'s work of A's float32 build: x @ W as three TF32 products
     (the pre-pass on the tensor cores), the recurrent products at the
-    float32 rate (the chain's FFMA)."""
+    float32 rate (the chain's FFMA); with ``best`` the recurrent products
+    too as three TF32 products, as f_work prices F's."""
+    if best:
+        return tf32_work(layer_flops(T, B, w, u))
     return {"flops": 3 * 2 * T * B * w.numel(), "peak": PEAK_TF32_FLOPS,
             "flops_f32": 2 * T * B * u.numel()}
 
@@ -2435,6 +2461,18 @@ PER_TRAIN_STEP.update({
                      "gru_decode_bwd_wide_row8_bf16": 1, "gru_decode_bwd_wide": 1,
                      "grad_reduce_bf16": 15, "grad_reduce": 11},
 })
+# the bf16 GRU(1024) (the TPU's rows at this width, B 16 to 256): every
+# encoder layer through X and G bf16 (rows 11, 12), the notes head the plain
+# scan (the XLA scan there), the instrument head through the wide D and E in
+# bf16 (rows 13, 14), the velocity head (float32) through their float32
+# builds; W: 4 + 3 over bf16 activations (the layers' dU[:, :2H], the
+# instrument cell's dW and dU[:, :2H], its dWo), 4 + 1 + 4 over float32
+# operands (r * h of the 4 layers and the instrument cell, the velocity
+# head's dW, dU[:, :2H], dU[:, 2H:] and dWo)
+PER_TRAIN_STEP["wide1024_bf16"] = {"gru_encoder_scan": 4, "gru_layer_xp_bwd_bf16": 4,
+                                   "gru_decode_train_wide_bf16": 1, "gru_decode_train_wide": 1,
+                                   "gru_decode_bwd_wide_bf16": 1, "gru_decode_bwd_wide": 1,
+                                   "grad_reduce_bf16": 7, "grad_reduce": 9}
 PER_TRAIN_STEP["lstm_bf16_no_fused_decoder"] = PER_TRAIN_STEP["lstm_bf16"]
 PER_TRAIN_STEP["lstm_512_bf16_no_fused_decoder"] = PER_TRAIN_STEP["lstm_512_bf16"]
 PER_EVAL_BATCH = {  # forward only
@@ -2454,6 +2492,8 @@ PER_EVAL_BATCH = {  # forward only
     "residual_bf16": {"gru_layer_fwd": 4, "gru_decode_train_resid": 2, "gru_decode_train": 1},
     "bf16_128_512": {"gru_layer_fwd_bf16": 3, "gru_encoder_scan": 1,
                      "gru_decode_train_wide_bf16": 2, "gru_decode_train_wide": 1},
+    "wide1024_bf16": {"gru_encoder_scan": 4, "gru_decode_train_wide_bf16": 1,
+                      "gru_decode_train_wide": 1},
 }
 # an encode pass (the serving encoder in float32, kernel A or L, also for a
 # bf16 model: the JAX package's encode casts nothing): the test split's
@@ -2498,7 +2538,7 @@ def fwd_phases(want):
 E_LAYERS = {"narrow": (4, 0), "wide": (4, 0), "merge": (1, 0), "bf16": (1, 3),
             "merge_bf16": (0, 1), "wide_bf16": (1, 3), "wide_bf16_no_fused_encoder": (1, 3),
             "residual_bf16": (4, 0), "held_residual_bf16": (5, 0), "held_notes": (5, 0),
-            "held_bf16": (2, 3), "bf16_128_512": (1, 3), "tf": (2, 0)}
+            "held_bf16": (2, 3), "bf16_128_512": (1, 3), "wide1024_bf16": (1, 1), "tf": (2, 0)}
 
 
 def bwd_phases(want, dx=1, e_layers=(0, 0)):
@@ -2774,6 +2814,52 @@ def phase_train_slice(work, sets=(), key=None):
     return results["2 epochs"]
 
 
+def argmax_flips(cfg, params, batch, noise, label):
+    """Prints, for each categorical output of one training forward (the
+    heads' and the composer's logits) whose argmax differs between the card
+    and the CPU plain path on a valid row, each such row's two classes, the
+    margin by which each device prefers its own (the logit gap), the
+    largest |card - CPU| of that output's logits over the valid rows (the
+    rounding noise a flip is measured against) and the CPU's smallest
+    top-2 gap there; returns those records."""
+    import torch
+
+    from midi_vae_tpu_torch.training.trainer import VAETrainer
+
+    outs = {}
+    for name, device in (("card", "cuda"), ("cpu", "cpu")):
+        trainer = VAETrainer(cfg, device)
+        with torch.no_grad():
+            out = trainer.new_state(params).model.apply(trainer.to_device(batch),
+                                                        noise=torch.as_tensor(noise, device=device))
+        found = {f"{k} logits": lg for k, (_p, lg) in out["heads"].items()}
+        if "composer_logits" in out:
+            found["composer logits"] = out["composer_logits"]
+        outs[name] = {k: v.float().cpu() for k, v in found.items() if v.shape[-1] > 1}
+    valid = torch.as_tensor(batch["M"]).bool() if "M" in batch else None
+    records = []
+    for what, cpu in outs["cpu"].items():
+        card = outs["card"][what]
+        if valid is not None:
+            card, cpu = card[valid], cpu[valid]
+        card, cpu = card.reshape(-1, card.shape[-1]), cpu.reshape(-1, cpu.shape[-1])
+        a, b = cpu.argmax(-1), card.argmax(-1)
+        noise_ = (card - cpu).abs().max().item()
+        top2 = cpu.topk(2, -1).values
+        for r in torch.nonzero(a != b).flatten().tolist():
+            rec = {"output": what, "row": r, "cpu_class": a[r].item(), "card_class": b[r].item(),
+                   "cpu_margin": (cpu[r, a[r]] - cpu[r, b[r]]).item(),
+                   "card_margin": (card[r, b[r]] - card[r, a[r]]).item(),
+                   "max_abs_logit_diff": noise_,
+                   "cpu_min_top2_gap": (top2[:, 0] - top2[:, 1]).min().item()}
+            records.append(rec)
+            print(f"[{label} card vs cpu] argmax flip in the {what}, valid row {r}: the CPU "
+                  f"prefers class {rec['cpu_class']} by {rec['cpu_margin']:.4e}, the card class "
+                  f"{rec['card_class']} by {rec['card_margin']:.4e}; max |card - CPU| over the "
+                  f"output's logits {noise_:.4e}, the CPU's smallest top-2 gap {rec['cpu_min_top2_gap']:.4e}")
+    return records
+
+
 def phase_train_card_vs_cpu(smi, cfg, per_step, label):
     """One training step of ``cfg`` on a fixed batch of ``cfg.batch_size``
     windows with padding rows and numpy noise: loss, metrics and every
@@ -2809,6 +2895,8 @@ def phase_train_card_vs_cpu(smi, cfg, per_step, label):
     bf16 = cfg.compute_dtype == "bfloat16"
     loss_atol, acc_atol = (BF16_LOSS_ATOL, BF16_ACC_ATOL) if bf16 else (LOSS_ATOL, ACC_ATOL)
     errs = {"loss": abs(gl - cl)}
+    if any(gm[k] != v for k, v in cm.items() if k.endswith("_acc")):
+        argmax_flips(cfg, params, batch, noise, label)
     for k, v in cm.items():
         errs[k] = abs(gm[k] - v)
         limit = acc_atol if k.endswith("_acc") else loss_atol
@@ -2847,9 +2935,9 @@ def phase_train_card_vs_cpu(smi, cfg, per_step, label):
             "launches": launches}
 
 
-def phase_card_vs_cpu(smi, cell_type="GRU", overrides=None):
+def phase_card_vs_cpu(smi, cell_type="GRU", overrides=None, params=None):
     """One 256-window transfer_argmax batch of ``Config(cell_type=...,
-    **overrides)``: card
+    **overrides)`` (its seeded init, or ``params``: a trained run's): card
     against the CPU plain path; then the card's transfer rate at B = 256 and
     one song's latency at B = 16 (host clock around work that ends in a
     synchronize, median of REPS)."""
@@ -2862,7 +2950,7 @@ def phase_card_vs_cpu(smi, cell_type="GRU", overrides=None):
     from midi_vae_tpu_torch.models.vae import MidiVAE
 
     cfg = Config(cell_type=cell_type, **(overrides or {}))
-    params = bridge.to_tree(MidiVAE(cfg).params)
+    params = bridge.to_tree(MidiVAE(cfg).params) if params is None else params
     batch = random_batch(cfg, B, 2)
     results, timing = {}, {}
     for device in ("cuda", "cpu"):
@@ -5769,6 +5857,367 @@ def phase_residual_kernels():
     return results
 
 
+def phase_gru1024_kernels():
+    """GRU(1024): every kernel the step and the serving path run at
+    Config(lstm_size=1024) and its bf16 twin (T 64, H 1024), at B = 256
+    (timed, with bounds) and B = 5, each against its plain version, as the
+    phases at 512 hold them (TF32 off; phase_wide_kernels' and
+    phase_bf16_wide_kernels' limits). float32 (the wide route: rows 11 to
+    14, the JAX package's rows at this width; the notes head, which it scans
+    in XLA, on the same wide D and E): per encoder layer F (its tensor-core
+    instance, the slice streamed), G and its phases (the xp gate pre-pass,
+    C's chain with U^T streamed), W's dU; the wide D and E (and E's phases)
+    on each head alone, W over each head's products, D + E + W against
+    autograd; A on the four layers and B on the three heads, also at one
+    song (B = 16). bf16: per layer X (F's tensor-core instance in its bf16
+    build), G bf16 and its phases, W's dU from G's float32 gate grads; the
+    instrument head (the notes head is the XLA scan there, the velocity head
+    float32) through the wide D and E in bf16 (E's per-segment instance: its
+    H + 64 wide partial) and W over E's rounded streams. The layer ops'
+    gradients against the plain backward at B = 5. Every bound prices each
+    product at the card's best rate for its operand types (f_work, g_work,
+    d_work; A's recurrence, B's products and E's chain and readout too: a
+    float32 product as three TF32 products)."""
+    import collections
+
+    import torch
+
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.models.rnn import init_decoder_states
+    from midi_vae_tpu_torch.models.vae import MidiVAE, _cast_tree
+    from midi_vae_tpu_torch.ops import gru_decode as gd
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+    from midi_vae_tpu_torch.ops.grad_reduce import (
+        grad_reduce,
+        grad_reduce_reference,
+        gru_u_grad,
+        gru_weight_grads,
+    )
+
+    H = 1024
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(1024)
+    # timed at fewer runs than the phases at 512: the plain versions take up
+    # to 60 ms a call here
+    timed_run = functools.partial(compare, reps=7, plain_reps=3)
+    tm = lambda a: a.transpose(0, 1).contiguous()  # noqa: E731
+    results = collections.defaultdict(dict)
+
+    def plain_u(hprev, rh, da):
+        n = hprev.shape[0] * hprev.shape[1]
+        da = da.reshape(n, 3 * H)
+        return torch.cat([grad_reduce_reference(hprev.reshape(n, H), da[:, : 2 * H])[0],
+                          grad_reduce_reference(rh.reshape(n, H), da[:, 2 * H :])[0]], 1)
+
+    def cublas_u(hprev, rh, da):
+        n = hprev.shape[0] * hprev.shape[1]
+        da = da.reshape(n, 3 * H)
+        return torch.cat([hprev.reshape(n, H).t() @ da[:, : 2 * H],
+                          rh.reshape(n, H).t() @ da[:, 2 * H :]], 1)
+
+    def layers_of(batch, enc, rows, dtype):
+        """(name, x, params, return_sequences, xp) of the four encoder layers,
+        xp = x @ W + b in the model's dtype, notes L2 fed L1's plain sequence."""
+        h0 = torch.zeros(rows, H, device=dev, dtype=dtype)
+
+        def xp_of(x, p):
+            T = x.shape[0]
+            return (x.reshape(T * rows, -1) @ p["w"] + p["b"]).reshape(T, rows, 3 * H)
+
+        out = []
+        with torch.no_grad():
+            p1 = enc["notes_rnn"][0]
+            xp1 = xp_of(tm(batch["X"]), p1)
+            seq1 = gl.gru_layer_xp_reference(xp1, h0, p1["u"].detach())
+            for name, x, p, rs in (("notes_l1", tm(batch["X"]), p1, True),
+                                   ("notes_l2", seq1, enc["notes_rnn"][1], False),
+                                   ("instrument", tm(batch["I"]), enc["inst_rnn"][0], False),
+                                   ("velocity", tm(batch["V"]), enc["vel_rnn"][0], False)):
+                out.append((name, x, {k: p[k].detach() for k in "wbu"}, rs, xp_of(x, p)))
+        return h0, out
+
+    # ---- float32: F, G, W, the wide D and E, A and B
+    cfg = Config(lstm_size=H)
+    model = MidiVAE(cfg).to(dev)
+    enc, dec = model.params["encoder"], model.params["decoder"]
+    for rows in (B, RAGGED):
+        timed = rows == B
+        run = timed_run if timed else check
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in random_batch(cfg, rows, 10).items()}
+        h0, layers = layers_of(batch, enc, rows, torch.float32)
+        for name, x, p, rs, xp in layers:
+            u, T = p["u"], x.shape[0]
+            tag = f"H=1024 {name}"
+            out = run(f"F {tag} xp{tuple(xp.shape)}", lambda a=(xp, h0, u): gl.gru_layer_xp(*a),
+                      lambda a=(xp, h0, u): gl.gru_layer_xp_reference(*a), [H_ATOL],
+                      **f_work(T, rows, H), inputs=[xp, h0, u])
+            if timed:
+                results["gru1024_xp_fwd"][name] = out
+            with torch.no_grad():
+                seq = gl.gru_layer_xp_reference(xp, h0, u)
+            g = torch.randn(seq.shape if rs else seq.shape[1:], generator=gen, device=dev)
+            args = (xp, seq, h0, g if rs else None, None if rs else g, u)
+            out = run(f"G {tag} rs={rs}", lambda a=args: gl.gru_layer_xp_bwd(*a)[1:],
+                      lambda a=args: gl.gru_layer_xp_bwd_reference(*a)[1:], [rel, rel, H_ATOL],
+                      **g_work(xp, u), inputs=[t for t in args if t is not None])
+            if timed:
+                results["gru1024_xp_bwd"][name] = out
+            for phase, res in g_phase_checks(run, f"{tag} rs={rs}", args).items():
+                if timed:
+                    results[phase.replace("gru_", "gru1024_", 1)][name] = res
+            _dxp, _dh0, da, rh = gl.gru_layer_xp_bwd_reference(*args)
+            hprev = torch.cat([h0[None], seq[:-1]])
+            uargs = (hprev, rh, da)
+            out = run(f"W {tag} dU", lambda a=uargs: gru_u_grad(*a), lambda a=uargs: plain_u(*a),
+                      [rel], **tf32_work(2 * T * rows * u.numel()), inputs=uargs,
+                      library_fn=lambda a=uargs: cublas_u(*a))
+            if timed:
+                results["gru1024_grad_reduce"][f"encoder {name}"] = out
+            else:  # F + G + W against autograd through the plain forward
+                leaves = [t.clone().requires_grad_() for t in (xp, h0, u)]
+                got = torch.autograd.grad(gl.gru_layer_train(*leaves, rs), leaves, g)
+                plain = gl.gru_layer_xp_reference(*leaves)
+                want = torch.autograd.grad(plain if rs else plain[-1], leaves, g)
+                check(f"F+G+W grads {tag} B={rows}", lambda: got, lambda: want, [rel] * 3)
+        with torch.no_grad():
+            z = model.encode(batch)
+        new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
+        calls = _decode_train_heads(cfg, dec, new_encoded, rows, dev, wide=True)
+        sub = collections.defaultdict(dict)
+        check_decode_calls(calls, gen, run, timed, sub, wide=True, block=False, best=True)
+        for k, v in sub.items():
+            results[k.replace("gru_", "gru1024_", 1).replace("grad_reduce_wide",
+                                                             "gru1024_grad_reduce")].update(v)
+        # the serving kernels: A on the encoder layers, B on the heads
+        with torch.inference_mode():
+            for song in ((rows, 16) if timed else (rows,)):
+                for name, x, p, rs, _xp in layers:
+                    args = (x[:, :song].contiguous(), h0[:song], p["w"], p["b"], p["u"], "tanh", rs)
+                    out = (run if song == rows else check)(
+                        f"A H=1024 {name} rs={rs} B={song}", lambda a=args: gl.gru_layer(*a),
+                        lambda a=args: gl.gru_layer_reference(*a), [H_ATOL],
+                        **a_work(x.shape[0], song, p["w"], p["u"], best=True), inputs=args[:5])
+                    if timed and song == rows:
+                        results["gru1024_layer"][name] = out
+                for name, d, T, out_act in (
+                        ("notes", cfg.output_dim, cfg.output_length, cfg.activation),
+                        ("velocity", 1, cfg.meta_velocity_length, cfg.meta_velocity_activation),
+                        ("instrument", cfg.meta_instrument_dim, cfg.meta_instrument_length,
+                         cfg.meta_instrument_activation)):
+                    h = dec[name]
+                    states = [s_[0][:song] for s_ in init_decoder_states(
+                        h["init"], new_encoded, cfg.cell_type, cfg.lstm_state_activation)]
+                    args = (list(h["cells"]), h["out"], states, torch.zeros(song, d, device=dev),
+                            T, "tanh", out_act)
+                    out = (run if song == rows else check)(
+                        f"B H=1024 {name} B={song}", lambda a=args: gd.gru_decode(*a),
+                        lambda a=args: gd.gru_decode_reference(*a), [H_ATOL, LOGITS_ATOL],
+                        **tf32_work(decode_flops(T, song, h["cells"], h["out"]["w"])),
+                        inputs=args[:4])
+                    if timed and song == rows:
+                        results["gru1024_decode"][name] = out
+    del model, enc, dec
+    torch.cuda.empty_cache()
+
+    # ---- bf16: X, G bf16, W, the wide D and E in bf16 on the instrument head
+    cfg = Config(lstm_size=H, compute_dtype="bfloat16")
+    model = MidiVAE(cfg).to(dev)
+    params = _cast_tree(model.params, bf)
+    enc, dec = params["encoder"], params["decoder"]
+
+    def cot(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    for rows in (B, RAGGED):
+        timed = rows == B
+        run = timed_run if timed else check
+        batch = {k: torch.as_tensor(v, device=dev).to(bf)
+                 for k, v in random_batch(cfg, rows, 11).items()}
+        h0, layers = layers_of(batch, enc, rows, bf)
+        for name, x, p, rs, xp in layers:
+            u, T = p["u"], x.shape[0]
+            tag = f"H=1024 {name}"
+            fargs = (xp, h0, u)
+            out = run(f"X bf16 (row 11) {tag} xp{tuple(xp.shape)}",
+                      lambda a=fargs: gl.gru_layer_xp(*a),
+                      lambda a=fargs: gl.gru_layer_xp_reference(*a), [BF16],
+                      **x_work(T, rows, H), inputs=fargs)
+            if timed:
+                results["gru1024_encoder_scan"][name] = out
+            with torch.no_grad():
+                seq = gl.gru_layer_xp_reference(*fargs)
+            g = cot(seq.shape if rs else seq.shape[1:])
+            gargs = (xp, seq, h0, g if rs else None, None if rs else g, u)
+            out = run(f"G bf16 {tag} rs={rs}", lambda a=gargs: gl.gru_layer_xp_bwd(*a),
+                      lambda a=gargs: gl.gru_layer_xp_bwd_reference(*a),
+                      [BF16_OUT, BF16_OUT, rel, H_ATOL], **g_work(xp, u),
+                      inputs=[t for t in gargs if t is not None])
+            if timed:
+                results["gru1024_xp_bwd_bf16"][name] = out
+            for phase, res in g_phase_checks(run, f"{tag} rs={rs}", gargs).items():
+                if timed:
+                    results[phase.replace("gru_", "gru1024_", 1)][name] = res
+            dxp, dh0_plain, da, rh = gl.gru_layer_xp_bwd_reference(*gargs)
+            err = rel_l2(gl.gru_layer_xp_bwd(*gargs)[2], da)
+            if not err <= STREAM_REL_L2:
+                raise RuntimeError(f"G bf16 {tag}: the gate grads lie {err:.3e} from the plain "
+                                   f"version's, over {STREAM_REL_L2:.1e}")
+            hprev = torch.cat([h0[None], seq[:-1]])
+            uargs = (hprev, rh, da)
+            out = run(f"W bf16 {tag} dU", lambda a=uargs: gru_u_grad(*a),
+                      lambda a=uargs: plain_u(*a), [(rel, W_REL_L2)],
+                      **tf32_work(2 * T * rows * u.numel(), 2), inputs=uargs,
+                      library_fn=lambda a=uargs: cublas_u(a[0].float(), *a[1:]))
+            if timed:
+                results["gru1024_grad_reduce_bf16"][f"encoder {name}"] = out
+            else:
+                leaves = [t.clone().requires_grad_() for t in fargs]
+                got = torch.autograd.grad(gl.gru_layer_train(*leaves, rs), leaves, g)
+                check(f"X+G+W bf16 grads {tag} B={rows}", lambda: got,
+                      lambda: (dxp, dh0_plain, plain_u(*uargs).to(bf)), [BF16_GRAD_OP] * 3)
+        with torch.no_grad():
+            z = model.encode({k: v.float() for k, v in batch.items()}).to(bf)
+        new_encoded = torch.cat([z, torch.roll(z, 1, 0)], dim=-1)
+        name, d, T, out_act = ("instrument", cfg.meta_instrument_dim, cfg.meta_instrument_length,
+                               cfg.meta_instrument_activation)
+        h = dec[name]
+        with torch.no_grad():
+            states = init_decoder_states(h["init"], new_encoded, cfg.cell_type,
+                                         cfg.lstm_state_activation)
+        head = {"cells": [{k: c[k].detach() for k in "wub"} for c in h["cells"]],
+                "out": {k: h["out"][k].detach() for k in "wb"},
+                "init": [s_[0].detach() for s_ in states],
+                "start": torch.zeros(rows, d, device=dev, dtype=bf), "T": T,
+                "out_activation": out_act}
+        n = len(head["cells"])
+        tag = f"H=1024 {name} ({n}L D={d} T={T} {out_act})"
+
+        def kernel_d(h_=head):
+            probs, logits, h_seqs = gd.gru_decode_fwd_train_wide([h_])[0]
+            return probs, logits, *h_seqs
+
+        def plain_d(h_=head):
+            probs, logits, h_seqs = gd.gru_decode_train_reference(
+                h_["cells"], h_["out"], h_["init"], h_["start"], h_["T"], h_["out_activation"])
+            return probs, logits, *h_seqs
+
+        out = run(f"D wide bf16 {tag}", kernel_d, plain_d, [BF16_OUT] * (2 + n),
+                  **d_work([head]), inputs=[head["cells"], head["out"], head["init"],
+                                            head["start"]])
+        if timed:
+            results["gru1024_decode_train_wide_bf16"][name] = out
+        probs, _logits, *h_seqs = plain_d()
+        head.update(probs=probs, h_seqs=h_seqs, g_probs=cot(probs.shape), g_logits=cot(probs.shape))
+
+        def plain_e(wide=True):
+            return gd.gru_decode_bwd_reference(head["cells"], head["out"], head["init"],
+                                               head["start"], head["probs"], head["h_seqs"],
+                                               head["g_probs"], head["g_logits"],
+                                               head["out_activation"], wide)
+
+        bwd_flat = lambda o: (o["dlogits"], *o["da"], *o["rh"], *o["d_init"], o["d_start"])  # noqa: E731
+        out = run(f"E wide bf16 {tag}", lambda: bwd_flat(gd.gru_decode_bwd_wide([head])[0]),
+                  lambda: bwd_flat(plain_e()),
+                  [BF16_OUT] * (1 + n) + [H_ATOL] * n + [BF16_OUT] * (n + 1),
+                  **e_work([head], best=True),
+                  inputs=[head[k] for k in ("cells", "out", "init", "start", "probs", "h_seqs",
+                                            "g_probs", "g_logits")])
+        if timed:
+            results["gru1024_decode_bwd_wide_bf16"][name] = out
+        for phase, res in e_phase_checks(run, tag, [head], "E_wide_bf16", True).items():
+            if timed:
+                results[phase.replace("gru_", "gru1024_", 1)][name] = res
+        ke, pe = gd.gru_decode_bwd_wide([head])[0], plain_e()
+        for what, i in (("dlogits", None), *((f"da{k + 1}", k) for k in range(n))):
+            kt, pt = ((o["dlogits"] if i is None else o["da"][i]) for o in (ke, pe))
+            err = rel_l2(kt, pt)
+            if not (torch.equal(kt, kt.to(bf).float()) and err <= STREAM_REL_L2):
+                raise RuntimeError(f"E wide bf16 {tag}: its {what} lies {err:.3e} from the plain "
+                                   f"version's (limit {STREAM_REL_L2:.1e}) or is not bf16")
+        g_ = plain_e()
+        wset = (h_seqs[-1].reshape(T * rows, H), g_["dlogits"].reshape(T * rows, d),
+                [(h_seqs[i - 1] if i else torch.cat([head["start"][None], probs[:-1]]),
+                  torch.cat([head["init"][i][None], h_seqs[i][:-1]]), g_["rh"][i], g_["da"][i])
+                 for i in range(n)])
+
+        def kernel_w(ws=wset):
+            top, dl, cells = ws
+            dwo = torch.empty(H, dl.shape[1], device=dev)
+            dbo = torch.empty(dl.shape[1], device=dev)
+            grad_reduce(top, dl, dwo, dbo)
+            return (dwo, dbo, *(t for c in cells for t in gru_weight_grads(*c)))
+
+        def plain_w(ws=wset):
+            top, dl, cells = ws
+            return (*grad_reduce_reference(top, dl, True),
+                    *(t for c in cells for t in plain_weight_grads(*c)))
+
+        def library_w(ws=wset):
+            top, dl, cells = ws
+            top = top.float()
+            return (top.t() @ dl, dl.sum(0),
+                    *(t for c in cells for t in cublas_weight_grads(*(x.float() for x in c))))
+
+        out = run(f"W bf16 {tag} head (rounded streams)", kernel_w, plain_w,
+                  [(rel, W_REL_L2)] * (2 + 3 * n),
+                  **tf32_work(2 * T * rows * H * d + sum(weight_grad_flops(c[0], c[1])
+                                                         for c in wset[2]), 2),
+                  inputs=list(wset), library_fn=library_w)
+        if timed:
+            results["gru1024_grad_reduce_bf16"][f"decode {name}"] = out
+        else:  # D + E + W against the plain backward
+            leaves = [t.clone().requires_grad_() for t in gd._flatten_head(head)]
+            lhead = dict(head, **gd._unflatten_heads([(n, out_act, T)], leaves)[0])
+            got_p, got_l = gd._decode_heads_train([lhead], ("D_wide_bf16", "E_wide_bf16"))[0]
+            got = torch.autograd.grad((got_p, got_l), leaves, (head["g_probs"], head["g_logits"]))
+            want = plain_decode_vjp(head, head["g_probs"], head["g_logits"], wide=True)
+            check(f"D+E+W wide bf16 grads {tag} B={rows}", lambda: got, lambda: want,
+                  [BF16_GRAD_OP] * len(want))
+    del model, params, enc, dec
+    torch.cuda.empty_cache()
+    print(f"[gru1024 kernels] F, G, W, the wide D and E, A and B in float32 and X, G, W, the "
+          f"wide D and E in bf16 agree with their plain versions at H = 1024, B = {B} and "
+          f"{RAGGED} (A and B also at one song, B = 16); the layer and decode ops' gradients "
+          "with the plain backward")
+    return dict(results)
+
+
+def phase_gru1024_paths(smi):
+    """GRU(1024) through the entry points: the train CLI with --set
+    lstm_size=1024 (2 epochs and a resume) and the transfer CLI on its run,
+    then that run's transfer card against the CPU (argmax agreement); the
+    same CLI run in bf16; one f32 training step card against the CPU plain
+    path at B = 64 (the JAX package's rows at this width are the same from
+    B = 16 to 256) and one bf16 step at B = 256 (250 valid rows, as the
+    other bf16 steps: BF16_ACC_ATOL admits one flipped argmax there, not at
+    58 rows, where one composer near-tie flips: its margins lie under the
+    logits' card - CPU rounding differences, argmax_flips; PERF.md), their
+    launch counters exact: every part on its chain, none per block."""
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.training import checkpoint as ckpt
+
+    paths, steps = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        paths["train_1024"] = phase_train_slice(work, ["lstm_size=1024"])
+        serving = phase_card_vs_cpu(smi, "GRU", {"lstm_size": H1024},
+                                    params=ckpt.load_params(os.path.join(work, "train_run")))
+    with tempfile.TemporaryDirectory() as work:
+        paths["train_1024_bf16"] = phase_train_slice(
+            work, ["lstm_size=1024", "compute_dtype=bfloat16"], "wide1024_bf16")
+    for key, overrides in (("wide", {"batch_size": 64}),
+                           ("wide1024_bf16", {"compute_dtype": "bfloat16"})):
+        steps[key] = phase_train_card_vs_cpu(smi, Config(lstm_size=H1024, **overrides),
+                                             PER_TRAIN_STEP[key], f"GRU(1024) {key} train")
+        paths[f"step_1024_{key}"] = steps[key]["launches"]
+    for path, counts in paths.items():
+        off = {k: v for k, v in counts.items() if k.endswith(("_block", "_block_bf16"))}
+        if off:
+            raise RuntimeError(f"the {path} path took a per-block route: {off}")
+        print(f"[routes] {path}: every launch on a chain: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(counts.items()) if "chain" in k))
+    return paths, steps, serving
+
+
 def phase_train_step_card(smi, cfg, per_step, label):
     """One training step of ``cfg`` on the card (the batch and noise of
     ``phase_train_card_vs_cpu``): a finite loss and metrics, every gradient
@@ -6069,6 +6518,12 @@ def main() -> int:
           f"Config() {step['step_ms']:.3f} (B = {B}); " + ", ".join(
               f"{k} {v['step_ms']:.3f}" for k, v in residual_steps.items())
           + f" (bf16_128_512 at B = 128) on {smi}")
+    # GRU(1024): every kernel the JAX package runs at this width (rows 11
+    # to 14, f32 and bf16) and the serving kernels against their plain
+    # versions; the train and transfer CLIs; a step each, card vs CPU
+    results.update(phase_gru1024_kernels())
+    paths_1024, steps_1024, serving["GRU_1024"] = phase_gru1024_paths(smi)
+    paths.update(paths_1024)
     for path, counts in paths.items():
         for name in ("gru_encoder_stack_fwd", "gru_encoder_stack_bwd"):
             if counts.get(name, 0):
@@ -6331,6 +6786,30 @@ def main() -> int:
              "gru_encoder_stack_bwd": [("ms_stack2", "stack2_bwd"),
                                        ("ms_stack2_bf16", "stack2_bf16_bwd"),
                                        ("ms_h512", "stack2_512_bwd")]}
+    # GRU(1024) (phase_gru1024_kernels), B = 256: F, G (and its phases), W,
+    # the wide D and E (and E's phases), A and B over the four layers and
+    # three heads; X, G, W, the wide D and E in bf16 (the instrument head)
+    for name, res in (("gru_layer_fwd", "gru1024_layer"), ("gru_decode", "gru1024_decode"),
+                      ("gru_layer_xp_fwd", "gru1024_xp_fwd"),
+                      ("gru_layer_xp_fwd_chain", "gru1024_xp_fwd"),
+                      ("gru_layer_xp_bwd", "gru1024_xp_bwd"),
+                      ("grad_reduce", "gru1024_grad_reduce"),
+                      ("gru_decode_train_wide", "gru1024_decode_train_wide"),
+                      ("gru_decode_train_wide_chain", "gru1024_decode_train_wide"),
+                      ("gru_decode_bwd_wide", "gru1024_decode_bwd_wide"),
+                      ("gru_encoder_scan", "gru1024_encoder_scan"),
+                      ("gru_layer_xp_bwd_bf16", "gru1024_xp_bwd_bf16"),
+                      ("grad_reduce_bf16", "gru1024_grad_reduce_bf16"),
+                      ("gru_decode_train_wide_bf16", "gru1024_decode_train_wide_bf16"),
+                      ("gru_decode_train_wide_chain_bf16", "gru1024_decode_train_wide_bf16"),
+                      ("gru_decode_bwd_wide_bf16", "gru1024_decode_bwd_wide_bf16"),
+                      *((f"gru_layer_xp_bwd_{p}{s_}", f"gru1024_layer_xp_bwd_{p}{s_}")
+                        for p in ("gates", "chain") for s_ in ("", "_bf16")),
+                      *((f"gru_decode_bwd_{p}", f"gru1024_decode_bwd_{p}_wide")
+                        for p in ("gates", "chain")),
+                      *((f"gru_decode_bwd_{p}_bf16", f"gru1024_decode_bwd_{p}_bf16")
+                        for p in ("gates", "chain"))):
+        extra.setdefault(name, []).append(("ms_h1024", res))
     kernels = []
     for name, (letter, source, replaces, also) in meta.items():
         per_call = results[name]
@@ -6386,6 +6865,7 @@ def main() -> int:
                       "train_step_lstm_512": lstm_steps[512], "judge_train_step": judge_steps,
                       "train_step_per_step_cells": per_step_steps,
                       "train_step_bf16": bf16_steps, "train_step_residual": residual_steps,
+                      "train_step_1024": steps_1024,
                       "lstm_fwd_bwd_vs_cudnn": results["lstm_fwd_bwd_vs_cudnn"],
                       "encoder_stack_vs_per_layer": results["encoder_route"],
                       "grad_reduce_checks": w_checks, "a_c_digests": a_c_bits, "power": smi,

@@ -455,14 +455,64 @@ __device__ __forceinline__ void chunk_product_mma(const float* da_s, int DS, int
   }
 }
 
+// the bf16 product's sums of a warp's items into the partial (row stride
+// pw) at column tile it % ctiles (of 32 units) after column col0
+__device__ __forceinline__ void store_mma(const BwdAccMma& acc, float* part, int pw, int rows,
+                                          int items, int ctiles, int col0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int i = 0; i < kBwdMaxItems; ++i) {
+    const int it = warp + i * kChainWarps;
+    if (it < items) {
+      const int n0 = col0 + kBwdTileMma * (it % ctiles) + 2 * tig, r0 = 16 * (it / ctiles) + gid;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (r0 + 8 * h < rows) {
+            *reinterpret_cast<float2*>(part + (size_t)(r0 + 8 * h) * pw + n0 + 8 * nt) =
+                make_float2(acc[i][nt][2 * h], acc[i][nt][2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
 // One stage's product: part (rows, pw) = each segment's da gate rows . its
 // slice rows into its columns, the chunks taken from the ring in order.
-// Every thread calls it.
-template <typename TV>
+// Every thread calls it. A warp's items are product tiles over the whole
+// partial; with kSeg (the bf16 instance for partials of more tiles than a
+// CTA's warps hold, kBwdMaxItems each: a 1-layer head's H + Dp columns at H
+// = 1024) over one segment's columns at a time, each segment's sums stored
+// before the next one's chunks. The segments' columns do not overlap, so
+// every column is the same sum of the same products either way.
+template <typename TV, bool kSeg = false>
 __device__ __forceinline__ void stage_product(BwdRing<TV>& ring, int s0, int s1, const float* da_s,
                                               int DS, float* part, int pw, int rows) {
+  static_assert(!kSeg || std::is_same_v<TV, bf16>, "the per-segment items are bf16's");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if constexpr (std::is_same_v<TV, bf16>) {
+  if constexpr (kSeg) {
+    BwdAccMma acc;
+    for (int s = s0; s < s1; ++s) {
+      BwdSeg<TV> sg = ring.segs[s];
+      const int col0 = sg.col0, ctiles = sg.ld / kBwdTileMma, items = (rows + 15) / 16 * ctiles;
+      sg.col0 = 0;
+#pragma unroll
+      for (int i = 0; i < kBwdMaxItems; ++i) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.0f;
+        }
+      }
+      for (int g = sg.g0; g < sg.g1; g += kBwdChunk) {
+        const TV* chunk = ring.acquire();
+        chunk_product_mma(da_s, DS, g, chunk, ring.H, sg, items, ctiles, acc);
+      }
+      store_mma(acc, part, pw, rows, items, ctiles, col0);
+    }
+  } else if constexpr (std::is_same_v<TV, bf16>) {
     const int ctiles = pw / kBwdTileMma, items = (rows + 15) / 16 * ctiles;
     BwdAccMma acc;
 #pragma unroll
@@ -480,24 +530,7 @@ __device__ __forceinline__ void stage_product(BwdRing<TV>& ring, int s0, int s1,
         chunk_product_mma(da_s, DS, g, chunk, ring.H, sg, items, ctiles, acc);
       }
     }
-    const int gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-    for (int i = 0; i < kBwdMaxItems; ++i) {
-      const int it = warp + i * kChainWarps;
-      if (it < items) {
-        const int n0 = kBwdTileMma * (it % ctiles) + 2 * tig, r0 = 16 * (it / ctiles) + gid;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            if (r0 + 8 * h < rows) {
-              *reinterpret_cast<float2*>(part + (size_t)(r0 + 8 * h) * pw + n0 + 8 * nt) =
-                  make_float2(acc[i][nt][2 * h], acc[i][nt][2 * h + 1]);
-            }
-          }
-        }
-      }
-    }
+    store_mma(acc, part, pw, rows, items, ctiles, 0);
   } else {
     const int ctiles = pw / kBwdTile, items = (rows + 7) / 8 * ctiles;
     BwdAcc acc;
@@ -613,7 +646,7 @@ struct BwdCta {
 // S2 summed into dx_own (E's layer 2 into layer 1's dh); kDxFed: columns
 // [H, H + D) of S2 summed whole for the cluster's rows into dxf_s (rows, D)
 // (E's layer 1: the fed-back probs).
-template <typename TV, typename TG, bool kDxOwn, bool kDxFed, bool kDxp = false>
+template <typename TV, typename TG, bool kDxOwn, bool kDxFed, bool kDxp = false, bool kSeg = false>
 __device__ __forceinline__ void gru_layer_bwd_step(BwdCta<TV>& x, const float* __restrict__ gates,
                                                    const TV* __restrict__ hprev,
                                                    float* __restrict__ dacat, int t, int s0,
@@ -655,7 +688,7 @@ __device__ __forceinline__ void gru_layer_bwd_step(BwdCta<TV>& x, const float* _
   }
   // S1, R1
   float* part = x.begin_stage();
-  stage_product(x.ring, s0, s0 + 1, x.da_s, DS, part, H, x.rows);
+  stage_product<TV, kSeg>(x.ring, s0, s0 + 1, x.da_s, DS, part, H, x.rows);
   x.exchange();
 #pragma unroll
   for (int i = 0; i < kBwdMaxPairs; ++i) {
@@ -675,7 +708,7 @@ __device__ __forceinline__ void gru_layer_bwd_step(BwdCta<TV>& x, const float* _
   x.end_stage();
   // S2, R2
   part = x.begin_stage();
-  stage_product(x.ring, s0 + 1, s0 + 1 + nseg2, x.da_s, DS, part, pw2, x.rows);
+  stage_product<TV, kSeg>(x.ring, s0 + 1, s0 + 1 + nseg2, x.da_s, DS, part, pw2, x.rows);
   x.exchange();
 #pragma unroll
   for (int i = 0; i < kBwdMaxPairs; ++i) {
@@ -710,7 +743,8 @@ __host__ __device__ constexpr size_t gru_bptt_smem(int H, int C, int rows_max, s
 
 // the checks every chain launch shares: the width, the cluster, a CTA's
 // pairs and product tiles at rows and the widest partial pw (tiles of 8 rows
-// x 64 units in float, 16 x 32 on the tensor cores in bf16), the ring
+// x 64 units in float, 16 x 32 on the tensor cores in bf16; pw the widest
+// segment's columns in the per-segment instance), the ring
 inline bool chain_ok(int H, int cluster, int rows, int pw, int nbuf, int stages, int n,
                      bool mma) {
   if (H < kBwdTile || H % kBwdTile != 0 || cluster < 1 || cluster > kMaxCluster ||
@@ -887,7 +921,7 @@ __host__ __device__ constexpr int head_pw(int H, int Dp, int n_layers) {
 // Grid: the heads' clusters * C CTAs of kChainThreads, cluster dims (C, 1,
 // 1); head k's clusters follow head k-1's. TG: the type the emitted dlogits
 // and gate grads are rounded as (float, or bf16 in E wide's bf16 build).
-template <typename TV, typename TG>
+template <typename TV, typename TG, bool kSeg = false>
 __global__ void __launch_bounds__(kChainThreads, 1) gru_head_bwd_chain_kernel(
     const HeadsBwdChain<TV> hs) {
   extern __shared__ __align__(16) unsigned char gru_bwd_smem[];
@@ -1020,11 +1054,11 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_head_bwd_chain_kernel(
       }
     }
     if (two) {
-      gru_layer_bwd_step<TV, TG, true, false>(x, a.gates2, a.hprev2, a.da2, t, 0, 2, 2 * H, dh2,
-                                              dh1, nullptr, 0);
+      gru_layer_bwd_step<TV, TG, true, false, false, kSeg>(x, a.gates2, a.hprev2, a.da2, t, 0, 2,
+                                                           2 * H, dh2, dh1, nullptr, 0);
     }
-    gru_layer_bwd_step<TV, TG, false, true>(x, a.gates1, a.hprev1, a.da1, t, L1, 2, H + a.Dp, dh1,
-                                            dh1, dxf_s, D);
+    gru_layer_bwd_step<TV, TG, false, true, false, kSeg>(x, a.gates1, a.hprev1, a.da1, t, L1, 2,
+                                                         H + a.Dp, dh1, dh1, dxf_s, D);
   }
   x.finish();
   __syncthreads();  // dxf_s
@@ -1052,11 +1086,16 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_head_bwd_chain_kernel(
 
 // E's chain over `heads` at the plan of ops/_layout.py::gru_head_bwd_plan
 // (cluster size, each head's rows and clusters, partial buffers, ring
-// slots); cudaErrorInvalidValue for a plan the build does not run.
+// slots); cudaErrorInvalidValue for a plan the build does not run. The bf16
+// build takes its per-segment instance (kSeg) only where a head's partial
+// has more product tiles than the CTA's warps hold (ops/_layout.py::
+// _most_rows): every other launch keeps the instance it had.
 template <typename TV, typename TG>
 int launch_gru_head_bwd_chain(const HeadBwdChain<TV>* heads, int n_heads, int B, int H,
                               int cluster, int nbuf, int stages, void* stream) {
+  constexpr bool kMma = std::is_same_v<TV, bf16>;
   if (n_heads < 1 || n_heads > kMaxHeads || B < 1) return (int)cudaErrorInvalidValue;
+  bool seg = false;
   HeadsBwdChain<TV> hs{};
   hs.n_heads = n_heads;
   hs.B = B;
@@ -1070,11 +1109,16 @@ int launch_gru_head_bwd_chain(const HeadBwdChain<TV>* heads, int n_heads, int B,
     if (a.T < 1 || a.D < 1 || a.Dp < a.D || a.Dp % kBwdTile != 0 || a.Dp > H ||
         (a.n_layers != 1 && a.n_layers != 2) ||
         (a.out_act != kSoftmax && a.out_act != kSigmoid && a.out_act != kLinear) ||
-        a.clusters != (B + a.rows - 1) / a.rows ||
-        !chain_ok(H, cluster, a.rows, pw, nbuf, stages,
-                      H % cluster ? 0 : head_chunks(H / cluster, a.n_layers),
-                      std::is_same_v<TV, bf16>)) {
+        a.clusters != (B + a.rows - 1) / a.rows) {
       return (int)cudaErrorInvalidValue;
+    }
+    const int n = H % cluster ? 0 : head_chunks(H / cluster, a.n_layers);
+    if (!chain_ok(H, cluster, a.rows, pw, nbuf, stages, n, kMma)) {
+      // the widest segment: H columns (U^T's, and W2^T's), Dp <= H
+      if (!kMma || !chain_ok(H, cluster, a.rows, H, nbuf, stages, n, kMma)) {
+        return (int)cudaErrorInvalidValue;
+      }
+      seg = true;
     }
     hs.h[k] = a;
     clusters += a.clusters;
@@ -1084,6 +1128,12 @@ int launch_gru_head_bwd_chain(const HeadBwdChain<TV>* heads, int n_heads, int B,
   }
   const size_t smem = gru_bptt_smem(H, cluster, hs.rows_max, hs.part_floats, nbuf, stages,
                                     sizeof(TV), hs.D_max);
+  if constexpr (kMma) {
+    if (seg) {
+      return launch_cluster_kernel(gru_head_bwd_chain_kernel<TV, TG, true>, hs,
+                                   clusters * cluster, cluster, smem, stream);
+    }
+  }
   return launch_cluster_kernel(gru_head_bwd_chain_kernel<TV, TG>, hs, clusters * cluster, cluster,
                                smem, stream);
 }

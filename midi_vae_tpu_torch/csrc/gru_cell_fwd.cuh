@@ -663,15 +663,18 @@ constexpr int kTcMaxItems = 4;
 // The slice of U packed per CTA (ops/gru_layer.py::pack_tc_slices) in the
 // order mma.sync's B fragments are read: for each 8 depth rows (a k-step)
 // and each 8 columns (an n-tile) of a CTA's P1 slice (H, 2 Hc: z and r of
-// its units) or P2 slice (H, Hc: the candidate), 32 lanes x 2 floats, lane
+// its units) or P2 slice (H, Hc: the candidate), 32 lanes x 2 values, lane
 // 4 g + t holding depth rows t and t + 4 of column g. A chunk of `chunk`
-// depth rows of either is one contiguous block.
+// depth rows of either is one contiguous block. TV: float32 (kernel F) or
+// bf16 (kernel X's streamed instance, gru_encoder_scan.cu), the type of
+// every operand and output.
+template <typename TV = float>
 struct GruFwdTcArgs {
-  const float* xp;   // (T, B, 3H)
-  const float* h0;   // (B, H)
-  const float* pzr;  // (C, H / 8, 2 Hc / 8, 64)
-  const float* ph;   // (C, H / 8, Hc / 8, 64)
-  float* hseq;       // (T, B, H)
+  const TV* xp;   // (T, B, 3H)
+  const TV* h0;   // (B, H)
+  const TV* pzr;  // (C, H / 8, 2 Hc / 8, 64)
+  const TV* ph;   // (C, H / 8, Hc / 8, 64)
+  TV* hseq;       // (T, B, H)
   int T, B, H;
   int rows;    // batch rows per cluster
   int stages;  // slots of the ring
@@ -696,16 +699,18 @@ __host__ __device__ constexpr int gru_tc_splits(int items, int ksteps, int warps
 }
 
 // Shared memory of the tensor-core instance, in bytes: the ring (stages x
-// chunk x 2 Hc floats) | the h and r h tiles (H x gru_tc_stride) | the
-// phases' gate sums (splits x rows in m-tiles x (columns + 8)) | the owners'
-// xp (8 rows x 3 gates a tile of 8 rows, kTileStride floats). ops/_layout.py's
-// gru_tc_smem computes the same.
-__host__ __device__ constexpr size_t gru_tc_smem(int H, int C, int rows, int stages, int chunk) {
+// chunk x 2 Hc values of `elem` bytes) | the h and r h tiles (H x
+// gru_tc_stride floats) | the phases' gate sums (splits x rows in m-tiles x
+// (columns + 8)) | the owners' xp (8 rows x 3 gates a tile of 8 rows,
+// kTileStride floats). ops/_layout.py's gru_tc_smem computes the same.
+__host__ __device__ constexpr size_t gru_tc_smem(int H, int C, int rows, int stages, int chunk,
+                                                 int elem = 4) {
   const int Hc = H / C, mts = (rows + 15) / 16, RS = gru_tc_stride(rows);
   const int s1 = gru_tc_splits(mts * 2 * Hc / 8, chunk / 8);
   const int s2 = gru_tc_splits(mts * Hc / 8, chunk / 8);
   const size_t g1 = (size_t)s1 * 16 * mts * (2 * Hc + 8), g2 = (size_t)s2 * 16 * mts * (Hc + 8);
-  return 4 * ((size_t)stages * chunk * 2 * Hc + 2 * (size_t)H * RS + (g1 > g2 ? g1 : g2) +
+  return (size_t)elem * stages * chunk * 2 * Hc +
+         4 * (2 * (size_t)H * RS + (g1 > g2 ? g1 : g2) +
               (size_t)Hc * (round8(rows) / 8) * kTileStride);
 }
 
@@ -825,8 +830,22 @@ __device__ __forceinline__ float tc_gate(const float* gsum, int mts, int width, 
 // P2's Hc) that runs on across the phases and steps; thread 0 asks the
 // Tensor Memory Accelerator for each chunk, one contiguous block of the
 // packed slice, its completion counted on the slot's mbarrier.
-template <int ACT>
-__global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_tc_kernel(const GruFwdTcArgs a) {
+//
+// The bf16 instance (TV = bf16, kernel X where its slice does not fit a
+// CTA: H = 1024) streams the bf16 slice, half the bytes a chunk, and keeps
+// X's roundings: h and U are exactly bf16, so P1 is one TF32 product each
+// (bf16 values are exact in TF32: the Pallas dot's products, summed in
+// float); r h is float, so P2 splits it in two TF32 parts against the exact
+// U_h (2^-22 of r h left out, against X's FFMA over the float r h); xp and
+// h0 are bf16, widened as they are read, and h is rounded to bf16 once a
+// step (the carried state and the sequence; X's wrapper takes the final h
+// from the sequence).
+template <int ACT, typename TV = float>
+__global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_tc_kernel(
+    const GruFwdTcArgs<TV> a) {
+  constexpr bool kBf16 = std::is_same_v<TV, bf16>;
+  // TF32 products a k-step of P1 (h . U_zr) and P2 ((r h) . U_h)
+  constexpr int kP1 = kBf16 ? 1 : 3, kP2 = kBf16 ? 2 : 3;
   extern __shared__ __align__(16) unsigned char gru_smem_raw[];
   __shared__ unsigned long long bars[8];  // a slot's transfer
   cg::cluster_group cluster = cg::this_cluster();
@@ -844,9 +863,9 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_tc_kernel(cons
   const int s1 = gru_tc_splits(items1, ksteps), s2 = gru_tc_splits(items2, ksteps);
   // shared memory: the ring | the h tile (H, RS) | the r h tile (H, RS) |
   // the gate sums | the owners' xp
-  float* ring = reinterpret_cast<float*>(gru_smem_raw);
-  const size_t slot_floats = (size_t)K * 2 * Hc;
-  float* hbuf = ring + (size_t)a.stages * slot_floats;
+  TV* ring = reinterpret_cast<TV*>(gru_smem_raw);
+  const size_t slot_elems = (size_t)K * 2 * Hc;
+  float* hbuf = reinterpret_cast<float*>(ring + (size_t)a.stages * slot_elems);
   float* rhbuf = hbuf + (size_t)H * RS;
   float* gsum = rhbuf + (size_t)H * RS;
   const size_t g1 = (size_t)s1 * 16 * mts * (2 * Hc + 8), g2 = (size_t)s2 * 16 * mts * (Hc + 8);
@@ -858,12 +877,12 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_tc_kernel(cons
   auto copy_chunk = [&](int j) {
     const int p2 = (j % (2 * n_chunks)) >= n_chunks, d = j % n_chunks;
     const int w = p2 ? Hc : 2 * Hc;
-    const float* src = (p2 ? a.ph : a.pzr) + ((size_t)c * H + (size_t)d * K) * w;
-    const unsigned bytes = K * w * 4;
+    const TV* src = (p2 ? a.ph : a.pzr) + ((size_t)c * H + (size_t)d * K) * w;
+    const unsigned bytes = K * w * sizeof(TV);
     unsigned long long* bar = &bars[j % a.stages];
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_expect_tx(bar, bytes);
-    bulk_copy(ring + (size_t)(j % a.stages) * slot_floats, src, bytes, bar);
+    bulk_copy(ring + (size_t)(j % a.stages) * slot_elems, src, bytes, bar);
   };
   if (tid == 0) {
     for (int j = 0; j < a.stages; ++j) mbar_init(&bars[j], 1);
@@ -877,34 +896,43 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_tc_kernel(cons
   __syncthreads();
   for (int i = tid; i < rows * H; i += blockDim.x) {
     const int r = i / H, k = i % H;
-    if (row0 + r < B) hbuf[(size_t)k * RS + r] = a.h0[(size_t)(row0 + r) * H + k];
+    if (row0 + r < B) hbuf[(size_t)k * RS + r] = to_f32(a.h0[(size_t)(row0 + r) * H + k]);
   }
   auto live = [&](int r) { return owner && 8 * ro + r < rows && row0 + 8 * ro + r < B; };
   // the owner copies xp of the step to come into xs (value (q, r) at
-  // 8 q + r): one copy group, waited for by itself
+  // 8 q + r): float32 in one copy group, waited for by itself; bf16 (2
+  // bytes, below cp.async's least) loaded into registers, a gate's 8 rows
+  // in flight together, and stored widened
   auto load_xp = [&](int t) {
     if (!owner) return;
-    const float* x = a.xp + ((size_t)t * B + row0 + 8 * ro) * 3 * H + unit;
+    const TV* x = a.xp + ((size_t)t * B + row0 + 8 * ro) * 3 * H + unit;
+    if constexpr (kBf16) {
 #pragma unroll 1
-    for (int r = 0; r < 8; ++r, x += 3 * H) {
-#pragma unroll
       for (int q = 0; q < 3; ++q) {
-        if (live(r)) {
-          cp_async4(xs + 8 * q + r, x + q * H);
-        } else {
-          xs[8 * q + r] = 0.0f;
+        float v[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) v[r] = live(r) ? to_f32(x[(size_t)r * 3 * H + q * H]) : 0.0f;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) xs[8 * q + r] = v[r];
+      }
+    } else {
+#pragma unroll 1
+      for (int r = 0; r < 8; ++r, x += 3 * H) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          if (live(r)) {
+            cp_async4(xs + 8 * q + r, x + q * H);
+          } else {
+            xs[8 * q + r] = 0.0f;
+          }
         }
       }
+      cp_async_commit();
     }
-    cp_async_commit();
   };
   // one phase's product: gate sums (16 mts, width + 8) of each split = the
   // tile (h or r h) . the phase's width columns, streamed in n_chunks chunks
   int chunk_seq = 0;
-  auto product = [&](const float* tile, int width, int items, int splits) {
-    tc_segment<3>(tile, RS, mts, width, items, splits, ksteps, ring, slot_floats, a.stages,
-                  n_chunks, total_chunks, chunk_seq, bars, copy_chunk, gsum);
-  };
   auto gate = [&](int width, int splits, int col, int r) {
     return tc_gate(gsum, mts, width, splits, 8 * ro + r, col);
   };
@@ -916,10 +944,11 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_tc_kernel(cons
   const size_t own = (size_t)c * Hc * RS;  // the CTA's columns of a tile, in floats
   for (int t = 0; t < T; ++t) {
     // P1
-    product(hbuf, 2 * Hc, items1, s1);
+    tc_segment<kP1>(hbuf, RS, mts, 2 * Hc, items1, s1, ksteps, ring, slot_elems, a.stages,
+                    n_chunks, total_chunks, chunk_seq, bars, copy_chunk, gsum);
     float hold[8], zv[8];
     if (owner) {
-      cp_async_wait(0);  // the owner's xp of the step
+      if constexpr (!kBf16) cp_async_wait(0);  // the owner's xp of the step
       const float* hr = hbuf + (size_t)unit * RS + 8 * ro;
       float* rr = rhbuf + (size_t)unit * RS + 8 * ro;
 #pragma unroll
@@ -936,20 +965,21 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_tc_kernel(cons
     cluster_arrive();
     cluster_wait();
     // P2
-    product(rhbuf, Hc, items2, s2);
+    tc_segment<kP2>(rhbuf, RS, mts, Hc, items2, s2, ksteps, ring, slot_elems, a.stages, n_chunks,
+                    total_chunks, chunk_seq, bars, copy_chunk, gsum);
     float hv[8] = {};
     if (owner) {
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         const float hh = activate<ACT>(gate(Hc, s2, ul, r) + xs[16 + r]);
-        hv[r] = 8 * ro + r < rows ? zv[r] * hold[r] + (1.0f - zv[r]) * hh : 0.0f;
+        hv[r] = 8 * ro + r < rows ? round_as<TV>(zv[r] * hold[r] + (1.0f - zv[r]) * hh) : 0.0f;
       }
     }
     auto store_out = [&]() {
       size_t o = ((size_t)t * B + row0 + 8 * ro) * H + unit;
 #pragma unroll
       for (int r = 0; r < 8; ++r, o += H) {
-        if (live(r)) a.hseq[o] = hv[r];
+        if (live(r)) a.hseq[o] = from_f32<TV>(hv[r]);
       }
     };
     if (t + 1 == T) {
@@ -973,16 +1003,16 @@ __global__ void __launch_bounds__(kChainThreads, 1) gru_fwd_chain_tc_kernel(cons
   }
 }
 
-// F's tensor-core instance at its plan (ops/_layout.py::gru_tc_plan:
-// cluster size, rows a cluster, stages, chunk); cudaErrorInvalidValue for a
-// plan it does not run.
-template <int ACT>
-int launch_gru_fwd_tc(const GruFwdTcArgs& a, int cluster, void* stream) {
+// The tensor-core instance at its plan (ops/_layout.py::gru_tc_plan:
+// cluster size, rows a cluster, stages, chunk; the ring's values TV);
+// cudaErrorInvalidValue for a plan it does not run.
+template <int ACT, typename TV = float>
+int launch_gru_fwd_tc(const GruFwdTcArgs<TV>& a, int cluster, void* stream) {
   const int H = a.H, K = a.chunk;
   if (a.T < 1 || a.B < 1 || cluster < 1 || cluster > kMaxCluster || H % cluster != 0 ||
       a.rows < 1 || (K != 32 && K != 64 && K != 128) || H % K != 0 || a.stages < 2 ||
-      a.stages > 8 || a.hseq == nullptr || (reinterpret_cast<size_t>(a.pzr) & 15) != 0 ||
-      (reinterpret_cast<size_t>(a.ph) & 15) != 0) {
+      a.stages > 8 || a.hseq == nullptr ||
+      (reinterpret_cast<size_t>(a.pzr) & 15) != 0 || (reinterpret_cast<size_t>(a.ph) & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int Hc = H / cluster, mts = (a.rows + 15) / 16;
@@ -990,15 +1020,28 @@ int launch_gru_fwd_tc(const GruFwdTcArgs& a, int cluster, void* stream) {
       (mts * 2 * Hc / 8 + kChainWarps - 1) / kChainWarps > kTcMaxItems) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = gru_tc_smem(H, cluster, a.rows, a.stages, K);
+  const size_t smem = gru_tc_smem(H, cluster, a.rows, a.stages, K, sizeof(TV));
   if (smem > 232448 - 1024) return (int)cudaErrorInvalidValue;
-  auto kernel = gru_fwd_chain_tc_kernel<ACT>;
+  auto kernel = gru_fwd_chain_tc_kernel<ACT, TV>;
   cudaError_t err = cluster_config(kernel, cluster, smem);
   if (err != cudaSuccess) return (int)err;
   ClusterLaunch l((a.B + a.rows - 1) / a.rows * cluster, cluster, smem, stream);
   err = cudaLaunchKernelEx(&l.cfg, kernel, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// cudaOccupancyMaxActiveClusters of the tensor-core instance of values TV
+// at `cluster` CTAs a cluster (one CTA an SM: the whole of a block's shared
+// memory beside the ring's mbarriers)
+template <typename TV>
+int gru_fwd_tc_max_clusters(int cluster, int* out) {
+  const size_t smem = 232448 - 1024;
+  auto kernel = gru_fwd_chain_tc_kernel<kTanh, TV>;
+  cudaError_t err = cluster_config(kernel, cluster, smem);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch l(cluster, cluster, smem, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &l.cfg);
 }
 
 template <typename Args>

@@ -31,6 +31,15 @@
 // the largest cluster that holds the slice), passed in by the wrapper
 // (ops/encoder_scan.py).
 //
+// Where no cluster holds the bf16 slice in its CTAs' shared memory (H =
+// 1024: 384 KiB a CTA in clusters of 16), X runs F's tensor-core instance
+// in its bf16 build (gru_cell_fwd.cuh, gru_fwd_chain_tc_kernel<ACT, bf16>:
+// the slice packed per CTA in B-fragment order, ops/gru_layer.py::
+// pack_tc_slices, and streamed by the Tensor Memory Accelerator; P1 one
+// TF32 product of the exact bf16 operands, P2 two, r h split beside the
+// exact U_h; h rounded to bf16 once a step), at the plan of ops/_layout.py::
+// gru_tc_plan(..., elem=2) (mvt_gru_encoder_scan_tc).
+//
 // The per-block route (mvt_gru_encoder_scan_block, the first design: kernel
 // F over bf16 operands, one block of H threads per kRows = 8 batch rows, U
 // read from L2 at every step) runs the widths the chain does not take
@@ -121,6 +130,31 @@ extern "C" int mvt_gru_encoder_scan(const mvt::bf16* xp, const mvt::bf16* h0,
     case kRelu: return launch_gru_fwd_chain<bf16, kRelu, bf16>(a, cluster, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The streamed instance: xp and h0 as above, out the (T, B, H) sequence
+// (the wrapper takes the final h from it); pzr and ph U's slices packed per
+// CTA (GruFwdTcArgs; ops/gru_layer.py::pack_tc_slices), bf16 and 16-byte
+// aligned; cluster, rows, stages and chunk the plan of ops/_layout.py::
+// gru_tc_plan(..., elem=2).
+extern "C" int mvt_gru_encoder_scan_tc(const mvt::bf16* xp, const mvt::bf16* h0,
+                                       const mvt::bf16* pzr, const mvt::bf16* ph, mvt::bf16* out,
+                                       int T, int B, int H, int act, int cluster, int rows,
+                                       int stages, int chunk, void* stream) {
+  using namespace mvt;
+  const GruFwdTcArgs<bf16> a{xp, h0, pzr, ph, out, T, B, H, rows, stages, chunk};
+  switch (act) {
+    case kTanh: return launch_gru_fwd_tc<kTanh, bf16>(a, cluster, stream);
+    case kSigmoid: return launch_gru_fwd_tc<kSigmoid, bf16>(a, cluster, stream);
+    case kRelu: return launch_gru_fwd_tc<kRelu, bf16>(a, cluster, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// cudaOccupancyMaxActiveClusters of the streamed instance at `cluster` CTAs
+// a cluster
+extern "C" int mvt_gru_encoder_scan_tc_max_clusters(int cluster, int* out) {
+  return mvt::gru_fwd_tc_max_clusters<mvt::bf16>(cluster, out);
 }
 
 // The per-block route, the same operands: H a multiple of 32 up to 512.

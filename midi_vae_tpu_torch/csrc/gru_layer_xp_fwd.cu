@@ -14,7 +14,7 @@
 // its CTAs split the H units, a step is P1, r h exchanged, P2, h_t
 // exchanged). Where a CTA's slice of U fits half of its shared memory (H =
 // 256: clusters of 8) it is A's resident instance; where it does not (H =
-// 512) the tensor-core instance (gru_fwd_chain_tc_kernel): the slice packed
+// 512, 1024) the tensor-core instance (gru_fwd_chain_tc_kernel): the slice packed
 // per CTA in B-fragment order and streamed by the Tensor Memory Accelerator
 // through a ring of chunks of 32 to 128 depth rows, P1 and P2 on mma.sync as
 // three TF32 products. ops/_layout.py::gru_fwd_plan and gru_tc_plan give
@@ -80,21 +80,14 @@ extern "C" int mvt_gru_layer_xp_fwd_tc(const float* xp, const float* h0, const f
                                        int cluster, int rows, int stages, int chunk,
                                        void* stream) {
   using namespace mvt;
-  const GruFwdTcArgs a{xp, h0, pzr, ph, seq, T, B, H, rows, stages, chunk};
-  return launch_gru_fwd_tc<kTanh>(a, cluster, stream);
+  const GruFwdTcArgs<float> a{xp, h0, pzr, ph, seq, T, B, H, rows, stages, chunk};
+  return launch_gru_fwd_tc<kTanh, float>(a, cluster, stream);
 }
 
 // cudaOccupancyMaxActiveClusters of the tensor-core instance at `cluster`
 // CTAs a cluster (one CTA an SM)
 extern "C" int mvt_gru_layer_xp_fwd_tc_max_clusters(int cluster, int* out) {
-  using namespace mvt;
-  // the whole of a block's shared memory beside the ring's mbarriers
-  const size_t smem = 232448 - 1024;
-  auto kernel = gru_fwd_chain_tc_kernel<kTanh>;
-  cudaError_t err = cluster_config(kernel, cluster, smem);
-  if (err != cudaSuccess) return (int)err;
-  ClusterLaunch l(cluster, cluster, smem, nullptr);
-  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &l.cfg);
+  return mvt::gru_fwd_tc_max_clusters<float>(cluster, out);
 }
 
 // The per-block route (the first design), the same operands: H a multiple

@@ -103,8 +103,9 @@ GRU decode head's ("inplace": rows 7 and 8; "wide": rows 13 and 14;
 "scan"), both from the batch the part is called with, as the JAX dispatch
 reads shapes; ``head_builds`` names the builds of a head's rows. On the
 card both raise NotImplementedError, naming the rows, where their port
-builds do not launch at that width; no other row's rounding runs in their
-place.
+builds do not launch at that width (an encoder layer's "scan" too; a
+head's "scan" runs the plain scan, as the JAX package runs its XLA scan);
+no other row's rounding runs in their place.
 A width at which neither route launches raises ``LaunchLimitError`` naming the
 limit. ``FORCE_ROUTE`` is a test hook (like the JAX package's
 ``_FORCE_TRAIN_MODE``) that sends small widths down the wide route.
@@ -609,17 +610,28 @@ def gru_fwd_cluster(build: str, H: int) -> tuple[int, bool]:
             return C, False
     if elem == 4 and H % 64 == 0 and gru_chain_smem(H, 16, 1, 1, 2, elem) <= SMEM_PER_BLOCK:
         return CLUSTER_SIZES[-1], True
+    # above the widths X's per-block route takes (H > 512), X's bf16 slice
+    # streams through the tensor-core instance's ring (gru_tc_plan(...,
+    # elem=2): its plan's cluster is the batch's)
+    if (build == X_CHAIN_BUILD and H > WIDE_THREADS and H % 64 == 0
+            and gru_tc_stages(H, 16, 1, GRU_TC_CHUNKS[-1], 2)):
+        return CLUSTER_SIZES[-1], True
     raise LaunchLimitError(
         f"kernel {build}'s chain takes H whose slice of U fits a CTA of a cluster of at most 16 "
-        f"({units} units a CTA at least; float32 streams it at H a multiple of 64), got H={H}")
+        f"({units} units a CTA at least; float32, and X through the tensor-core instance, "
+        f"stream it at H a multiple of 64), got H={H}")
 
 
 def gru_fwd_plan(build: str, H: int, B: int, max_clusters: int | None = None) -> GruFwdPlan:
     """A's chain plan of build ``build`` (``GRU_FWD_BUILDS``) at width H and
     batch B, with ``max_clusters`` clusters of its size active at once
     (default: the H100's, ``MAX_CLUSTERS_H100``). Raises LaunchLimitError
-    where the chain does not launch."""
+    where the chain does not launch. X's streamed slice (H = 1024) takes
+    the tensor-core instance's plan (``gru_tc_plan(..., elem=2)``, at the
+    H100's active clusters of its size)."""
     C, stream = gru_fwd_cluster(build, H)
+    if stream and _gru_elem(build) == 2:
+        return gru_tc_plan(H, B, elem=2)
     return gru_fwd_plan_at(build, H, B, C, stream, max_clusters or MAX_CLUSTERS_H100[C],
                            balanced=plan_rule(build).balanced_rows)
 
@@ -842,7 +854,7 @@ def gru_xp_bwd_route(H: int, bf16: bool = False) -> str:
 GRU_TC_CHUNKS = (128, 64, 32)
 GRU_TC_MAX_ITEMS = 4    # kTcMaxItems: (m-tile, n-tile) items a warp owns in a phase
 GRU_TC_SMEM = SMEM_PER_BLOCK - 1024  # 1 KB left for the ring's mbarriers
-REGISTERS.update({"F_chain_tc": 128})
+REGISTERS.update({"F_chain_tc": 128, "X_chain_tc": 128})
 
 
 def gru_tc_stride(rows: int) -> int:
@@ -859,18 +871,19 @@ def gru_tc_splits(items: int, ksteps: int, warps: int = CHAIN_WARPS) -> int:
     return s
 
 
-def gru_tc_smem(H: int, C: int, rows: int, stages: int, chunk: int) -> int:
-    """``gru_tc_smem`` of csrc/gru_cell_fwd.cuh, in bytes."""
+def gru_tc_smem(H: int, C: int, rows: int, stages: int, chunk: int, elem: int = 4) -> int:
+    """``gru_tc_smem`` of csrc/gru_cell_fwd.cuh, in bytes (``elem``: the
+    bytes of a ring value, 2 in X's bf16 instance)."""
     Hc, mts, RS = H // C, -(-rows // 16), gru_tc_stride(rows)
     s1 = gru_tc_splits(mts * 2 * Hc // 8, chunk // 8)
     s2 = gru_tc_splits(mts * Hc // 8, chunk // 8)
     gates = max(s1 * 16 * mts * (2 * Hc + 8), s2 * 16 * mts * (Hc + 8))
     owners_xp = Hc * (_round8(rows) // 8) * TILE_STRIDE
-    return 4 * (stages * chunk * 2 * Hc + 2 * H * RS + gates + owners_xp)
+    return elem * stages * chunk * 2 * Hc + 4 * (2 * H * RS + gates + owners_xp)
 
 
-def gru_tc_stages(H: int, C: int, rows: int, chunk: int) -> int:
-    """The most ring slots (2 to 8, at most a phase's chunks) of F's
+def gru_tc_stages(H: int, C: int, rows: int, chunk: int, elem: int = 4) -> int:
+    """The most ring slots (2 to 8, at most a phase's chunks) of the
     tensor-core instance at (C, rows, chunk), or 0 where it does not
     launch."""
     Hc = H // C
@@ -879,23 +892,24 @@ def gru_tc_stages(H: int, C: int, rows: int, chunk: int) -> int:
         return 0
     stages = 0
     while (stages < min(8, 2 * H // chunk)
-           and gru_tc_smem(H, C, rows, stages + 1, chunk) <= GRU_TC_SMEM):
+           and gru_tc_smem(H, C, rows, stages + 1, chunk, elem) <= GRU_TC_SMEM):
         stages += 1
     return stages if stages >= 2 else 0
 
 
-def gru_tc_plan_at(H: int, B: int, C: int, rows: int, chunk: int) -> GruFwdPlan | None:
-    """F's tensor-core plan at cluster size C, ``rows`` rows a cluster and
+def gru_tc_plan_at(H: int, B: int, C: int, rows: int, chunk: int,
+                   elem: int = 4) -> GruFwdPlan | None:
+    """The tensor-core plan at cluster size C, ``rows`` rows a cluster and
     chunks of ``chunk`` depth rows (the most stages that fit), or None."""
-    stages = gru_tc_stages(H, C, rows, chunk)
+    stages = gru_tc_stages(H, C, rows, chunk, elem)
     if not stages:
         return None
-    return GruFwdPlan(C, rows, -(-B // rows), 0, stages, gru_tc_smem(H, C, rows, stages, chunk),
-                      chunk)
+    return GruFwdPlan(C, rows, -(-B // rows), 0, stages,
+                      gru_tc_smem(H, C, rows, stages, chunk, elem), chunk)
 
 
-def gru_tc_plans(H: int, B: int, active=None) -> list[GruFwdPlan]:
-    """Every plan of F's tensor-core instance at (H, B) that a timing may
+def gru_tc_plans(H: int, B: int, active=None, elem: int = 4) -> list[GruFwdPlan]:
+    """Every plan of the tensor-core instance at (H, B) that a timing may
     force: clusters of 8 and 16, the rows of one wave of the card's active
     clusters (``active(C)``, default the H100's), of the balanced waves and
     8, 16, 24, 32 and 48, every chunk depth that fits."""
@@ -906,7 +920,7 @@ def gru_tc_plans(H: int, B: int, active=None) -> list[GruFwdPlan]:
         for rows in dict.fromkeys((wave, -(-B // (M * -(-B // (M * wave)))), 8, 16, 24, 32, 48)):
             rows = max(1, min(rows, B))
             for chunk in GRU_TC_CHUNKS:
-                p = gru_tc_plan_at(H, B, C, rows, chunk)
+                p = gru_tc_plan_at(H, B, C, rows, chunk, elem)
                 if p is not None and p not in out:
                     out.append(p)
     return out
@@ -919,20 +933,33 @@ def gru_tc_cluster(B: int) -> int:
     return 8 if B >= 128 else 16
 
 
-def gru_tc_plan(H: int, B: int, max_clusters=None) -> GruFwdPlan | None:
-    """F's tensor-core plan at (H, B), or None where it does not launch:
-    ``gru_tc_cluster``'s size, the rows of one wave of its active clusters
-    (``max_clusters(C)``, default the H100's), as many as fit, the deepest
-    chunk that fits two slots (a chunk's wait costs about the same whatever
-    its depth). Each pick within 10 % of the fastest legal plan at F's
-    shapes (tests/test_torch_f_dwide_chains.py holds it)."""
+# The tensor-core plans the H100 ran fastest where the rule below missed
+# by more than 10 %, (cluster, rows, chunk) by (H, B, elem): F at H = 1024,
+# B = 256 (clusters of 16: 15.63 ms against the rule's 17.71) and X at B =
+# 64 (8 x 8 rows: 3.86 against 5.36), every plan timed in one call
+# (tools/time_f_and_d.py --H 1024 --only fplans, tools/time_x_and_g.py
+# --H 1024 --only xplans; PERF.md, Findings)
+GRU_TC_MEASURED = {(1024, 256, 4): (16, 8, 128), (1024, 64, 2): (8, 8, 128)}
+
+
+def gru_tc_plan(H: int, B: int, max_clusters=None, elem: int = 4) -> GruFwdPlan | None:
+    """The tensor-core plan at (H, B) (F's; ``elem`` 2: X's bf16 instance),
+    or None where it does not launch: ``GRU_TC_MEASURED``'s where it has the
+    shape, else ``gru_tc_cluster``'s size, the rows of one wave of its
+    active clusters (``max_clusters(C)``, default the H100's), as many as
+    fit, the deepest chunk that fits two slots (a chunk's wait costs about
+    the same whatever its depth). Each pick within 10 % of the fastest
+    legal plan at F's and X's shapes (tests/test_torch_f_dwide_chains.py
+    and tests/test_torch_gru1024.py hold it)."""
+    if (H, B, elem) in GRU_TC_MEASURED:
+        return gru_tc_plan_at(H, B, *GRU_TC_MEASURED[H, B, elem], elem)
     C = gru_tc_cluster(B)
     M = (max_clusters or MAX_CLUSTERS_H100.__getitem__)(C)
     rows = max(1, -(-B // M))
-    while rows > 1 and not gru_tc_stages(H, C, rows, GRU_TC_CHUNKS[-1]):
+    while rows > 1 and not gru_tc_stages(H, C, rows, GRU_TC_CHUNKS[-1], elem):
         rows -= 1
-    fits = [c for c in GRU_TC_CHUNKS if gru_tc_stages(H, C, rows, c)]
-    return gru_tc_plan_at(H, B, C, rows, fits[0]) if fits else None
+    fits = [c for c in GRU_TC_CHUNKS if gru_tc_stages(H, C, rows, c, elem)]
+    return gru_tc_plan_at(H, B, C, rows, fits[0], elem) if fits else None
 
 
 def xp_layer_limit(build: str, H: int) -> str | None:
@@ -1125,9 +1152,12 @@ def _bptt_fit(H: int, C: int, rows, parts, elem: int):
 
 def _most_rows(H: int, C: int, part: _Part, elem: int) -> int:
     """The most rows a cluster of a part takes: a thread's pairs and a
-    warp's product tiles."""
+    warp's product tiles (in bf16 over the partial, or where that holds no
+    m-tile, the per-segment instance's over its widest segment, H)."""
     if elem == 2:
         tile_rows = GRU_BWD_MAX_ITEMS * CHAIN_WARPS // (part.pw // GRU_BWD_TILE_MMA) * 16
+        if not tile_rows:
+            tile_rows = GRU_BWD_MAX_ITEMS * CHAIN_WARPS // (H // GRU_BWD_TILE_MMA) * 16
     else:
         tile_rows = GRU_BWD_MAX_ITEMS * CHAIN_WARPS // (part.pw // GRU_BWD_TILE) * 8
     return min(GRU_BWD_MAX_PAIRS * CHAIN_THREADS // (H // C), tile_rows)
@@ -1174,11 +1204,20 @@ def _bptt_candidate(H: int, B: int, C: int, parts, M: int, elem: int):
                        -(-sum(clusters) // M)), span
 
 
+# The cluster sizes the H100 ran fastest where the cost model (and G's
+# fewest waves) missed by more than 10 %, by (build, H, B): G's float32
+# chain at H = 1024, B = 256 (clusters of 16 in 3 waves: 12.73 ms against
+# 15.14 in clusters of 8, 2 waves; tools/time_x_and_g.py --H 1024 --only
+# gplans; PERF.md, Findings)
+BPTT_MEASURED = {("G_chain", 1024, 256): 16}
+
+
 def gru_bptt_plan(build: str, H: int, B: int, heads=((61, 2),), active=None) -> GruBpttPlan:
     """The chain's plan of build ``build`` (``GRU_BPTT_BUILDS``) at width H
     and batch B: C's one layer, or E's ``heads`` ((D, n_layers[, T]) each,
-    in the call's order). ``active(C)`` gives the clusters of size C the
-    card runs at once (default: the H100's, ``MAX_CLUSTERS_H100``). Raises
+    in the call's order), at ``BPTT_MEASURED``'s cluster size where it has
+    the shape. ``active(C)`` gives the clusters of size C the card runs at
+    once (default: the H100's, ``MAX_CLUSTERS_H100``). Raises
     LaunchLimitError where the chain does not launch."""
     if build not in GRU_BPTT_BUILDS:
         raise ValueError(f"{build!r} is not one of {GRU_BPTT_BUILDS}")
@@ -1187,9 +1226,10 @@ def gru_bptt_plan(build: str, H: int, B: int, heads=((61, 2),), active=None) -> 
     if any(_round64(p.D) > H for p in parts):
         raise LaunchLimitError(f"kernel {build}'s chain takes heads whose width padded to 64 "
                                f"is at most H={H}")
+    measured = BPTT_MEASURED.get((build, H, B))
     best = None
     for C in CLUSTER_SIZES:
-        if not _bptt_cluster_ok(H, C):
+        if not _bptt_cluster_ok(H, C) or measured not in (None, C):
             continue
         M = (active or MAX_CLUSTERS_H100.__getitem__)(C)
         got = _bptt_candidate(H, B, C, parts, M, elem)
@@ -1634,6 +1674,12 @@ DEC_TRAIN_MEASURED = {
     (256, 2, 1, 64, 256, False): (8, 18, 128), (256, 2, 1, 64, 16, False): (16, 4, 128),
     (256, 2, 1, 64, 5, False): (16, 4, 128), (256, 1, 1, 64, 256, False): (8, 18, 128),
     (256, 1, 1, 64, 16, False): (16, 4, 128), (256, 1, 1, 64, 5, False): (16, 1, 128),
+    # H = 1024: the instrument head where B's rule missed by more than 10 %
+    # (tools/time_f_and_d.py --H 1024 --only dplans: every plan of the notes,
+    # velocity and instrument heads at B 256 and 5; the others' picks were
+    # within 10 % of the fastest)
+    (1024, 16, 1, 4, 5, False): (16, 1, 64), (1024, 16, 1, 4, 256, True): (8, 8, 64),
+    (1024, 16, 1, 4, 5, True): (16, 1, 128),
 }
 
 
@@ -1985,16 +2031,15 @@ def _route_limits(route: str, H: int, layers, heads, cell_type: str = "GRU") -> 
             whys = [a_limit(H, d) for d, _dx in layers]
             whys += [gru_bptt_limit("C", H)] if layers else []
             checks = []
-        elif layers:  # the x-projection is outside: one tile for every layer
-            # (F's and the wide D's first designs' limits: their chains have
-            # plans at H = 1024, worked out and not run, so the wide route
-            # keeps the widths it took)
-            checks = [("F", smem_bytes("F", H))]
-            whys.append(xp_layer_limit("G", H))
+        elif layers:  # the x-projection is outside: F and G on their routes
+            whys += [xp_layer_limit("F", H), xp_layer_limit("G", H)]
+            checks = []
         else:
             checks = []
-        d_k = "D" if route == "narrow" else "D_wide"
-        checks += [(d_k, smem_bytes(d_k, H, d, n)) for d, n in heads]
+        if route == "narrow":
+            checks += [("D", smem_bytes("D", H, d, n)) for d, n in heads]
+        else:  # the wide D on its routes (the decode chain, or 2 rows a block)
+            whys += [dec_train_limit("D_wide", H, d, n) for d, n in heads]
         whys += [gru_bptt_limit("E", H, d, n) for d, n in heads]
     whys += [launch_limit(k, H, smem) for k, smem in checks]
     return [why for why in whys if why is not None]
@@ -2075,8 +2120,10 @@ def config_route(cfg, on_card: bool = True) -> str:
         modes |= {"narrow" if bf16_layer_mode(cfg.cell_type, B, d, H, on_card, dx) == "x"
                   else "wide" for d, dx in layers}
     if cfg.cell_type == "GRU" and cfg.fused_train_decoder and tanh:
-        modes |= {"wide" if head_builds(bf16_head_mode(B, d, H, n, on_card), d, H, n)[0]
-                  .startswith("D_wide") else "narrow" for d, n in heads if n in (1, 2)}
+        # a head the JAX package scans in XLA runs no build
+        hmodes = [(bf16_head_mode(B, d, H, n, on_card), d, n) for d, n in heads if n in (1, 2)]
+        modes |= {"wide" if head_builds(m, d, H, n)[0].startswith("D_wide") else "narrow"
+                  for m, d, n in hmodes if m != "scan"}
     if len(modes) > 1:
         return "per-part"
     return modes.pop() if modes else _route_order(H, cfg.cell_type)[0]
@@ -2263,7 +2310,9 @@ def bf16_head_mode(B: int, D: int, H: int, n_layers: int, on_card: bool = False)
     ``FORCE_ROUTE`` "narrow" gives "inplace", "wide" "wide" (as the JAX
     package's ``_FORCE_TRAIN_MODE``). ``on_card``: raise
     NotImplementedError where the port has no build of those rows that
-    launches (``head_builds``)."""
+    launches (``head_builds``); "scan" is plain torch ops, as the JAX
+    package's XLA scan is plain XLA ops (the bf16 notes head at H =
+    1024)."""
     if FORCE_ROUTE is not None:
         mode = "inplace" if FORCE_ROUTE == "narrow" else "wide"
     elif dec_train_vmem_ok(B, D, H, n_layers):
@@ -2272,9 +2321,8 @@ def bf16_head_mode(B: int, D: int, H: int, n_layers: int, on_card: bool = False)
         mode = "wide"
     else:
         mode = "scan"
-    if on_card:
-        builds = ([(k, smem_bytes(k, H, D, n_layers)) for k in head_builds(mode, D, H, n_layers)]
-                  if mode != "scan" else [])
+    if on_card and mode != "scan":  # the XLA scan is plain ops in both packages
+        builds = [(k, smem_bytes(k, H, D, n_layers)) for k in head_builds(mode, D, H, n_layers)]
         _require_bf16(HEAD_ROWS[mode], builds, H, D, n_layers)
     return mode
 
@@ -2311,7 +2359,7 @@ def _part_limit(build: str, H: int, D: int, n_layers: int) -> str | None:
 def _require_bf16(rows: str, builds, H: int, D: int = 61, n_layers: int = 2) -> None:
     """Raise NotImplementedError when the port has no build of the TPU's
     ``rows`` (``builds``: (build, shared memory) pairs) that launches at
-    width H on the card (E's builds for a head of width D and
+    width H on the card (D's and E's builds for a head of width D and
     ``n_layers``)."""
     if not builds:
         raise NotImplementedError(f"the JAX package runs this bf16 part through {rows}, which "
@@ -2319,6 +2367,8 @@ def _require_bf16(rows: str, builds, H: int, D: int = 61, n_layers: int = 2) -> 
     for k, smem in builds:
         if k in E_BUILDS:
             why = gru_bptt_limit(k, H, D, n_layers)
+        elif k in D_BUILDS:  # on its routes: the decode chain, or per block
+            why = dec_train_limit(k, H, D, n_layers)
         elif k in XP_LAYER_BUILDS:
             why = xp_layer_limit(k, H)
         else:

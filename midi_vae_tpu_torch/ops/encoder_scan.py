@@ -23,8 +23,10 @@ the JAX references exactly.
 Y is the bf16 build of kernel Q's forward chain on thread-block clusters
 (``csrc/lstm_cell_fwd.cuh``; its plan ``lstm_layer.fwd_chain_plan``). X is
 kernel A's bf16 GRU chain (``csrc/gru_cell_fwd.cuh``) in its instance that
-reads a bf16 xp, at X's own plan (``scan_chain_plan``); where that chain
-does not launch (``_layout.gru_scan_route``), X's first, per-block design
+reads a bf16 xp, at X's own plan (``scan_chain_plan``); at H = 1024, where
+no cluster holds the bf16 slice, F's tensor-core instance in its bf16 build
+(the slice packed by ``gru_layer.pack_tc_slices`` and streamed); where
+neither launches (``_layout.gru_scan_route``), X's first, per-block design
 takes the layer. ``gru_encoder_scan_fwd`` counts every launch of X on
 ``.launches``, and each also on ``.launches_chain`` or ``.launches_block``.
 
@@ -84,22 +86,43 @@ def _kernel(entry):
     """(library, entry point) of X's chain (``gru_encoder_scan``) or its
     per-block route (``gru_encoder_scan_block``), or of Y
     (``lstm_encoder_scan``)."""
-    lib_name = entry.removesuffix("_block")
+    lib_name = entry.removesuffix("_block").removesuffix("_tc")
     # X: xp, h0, u, out, then T, B, H, act, return_sequences and the chain's
     # plan (cluster, rows, splits, stages); Y: xp, h0, c0, u, out and its
     # plan's cluster, rows
     n_ptrs, n_ints = {"gru_encoder_scan": (4, 9), "gru_encoder_scan_block": (4, 5),
-                      "lstm_encoder_scan": (5, 7)}[entry]
+                      "gru_encoder_scan_tc": (5, 8), "lstm_encoder_scan": (5, 7)}[entry]
     return _build.load_entry(lib_name, f"mvt_{entry}", [ctypes.c_void_p] * n_ptrs
                              + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
 
 
 @functools.cache
+def _tc_max_clusters(cluster):
+    """The card's cudaOccupancyMaxActiveClusters of X's streamed instance
+    at ``cluster`` CTAs a cluster."""
+    lib, fn = _build.load_entry("gru_encoder_scan", "mvt_gru_encoder_scan_tc_max_clusters",
+                                [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    _build.check(lib, fn(cluster, ctypes.byref(out)),
+                 "gru_encoder_scan cudaOccupancyMaxActiveClusters")
+    return out.value
+
+
+@functools.cache
 def scan_chain_plan(H, B):
-    """X's chain plan at (H, B) (``_layout.gru_fwd_plan`` of
-    ``_layout.X_CHAIN_BUILD``) at the card's active clusters of X's
-    instance; raises LaunchLimitError where it does not launch."""
-    C, _stream_slice = _layout.gru_fwd_cluster(_layout.X_CHAIN_BUILD, H)
+    """X's chain plan at (H, B) at the card's active clusters of the
+    instance it runs: where a cluster holds the bf16 slice, A bf16's chain
+    in its bf16-xp instance (``_layout.gru_fwd_plan`` of
+    ``_layout.X_CHAIN_BUILD``), else (H = 1024) the tensor-core instance
+    with the bf16 slice streamed (``_layout.gru_tc_plan(..., elem=2)``,
+    ``chunk`` > 0); raises LaunchLimitError where neither launches."""
+    C, stream_slice = _layout.gru_fwd_cluster(_layout.X_CHAIN_BUILD, H)
+    if stream_slice:
+        plan = _layout.gru_tc_plan(H, B, _tc_max_clusters, elem=2)
+        if plan is None:
+            raise _layout.LaunchLimitError(f"kernel X's streamed instance has no plan at H={H}, "
+                                           f"B={B}")
+        return plan
     return _layout.gru_fwd_plan(_layout.X_CHAIN_BUILD, H, B,
                                 gru_layer._max_clusters("gru_encoder_scan", True, C))
 
@@ -119,13 +142,25 @@ def _launch(name, letter, xp, states, u, activation, return_sequences, route="ch
         extra = (plan.cluster, plan.rows)
     elif route == "chain":
         plan = scan_chain_plan(H, B)
-        extra = (plan.cluster, plan.rows, plan.splits, plan.stages)
+        if plan.chunk:  # the streamed instance over U's packed bf16 slices
+            entry, extra = f"{name}_tc", (plan.cluster, plan.rows, plan.stages, plan.chunk)
+            states = (*states, *gru_layer._tc_slices(u, plan.cluster))
+        else:
+            extra = (plan.cluster, plan.rows, plan.splits, plan.stages)
     else:
         _layout.require(letter, H, _layout.smem_bytes(letter, H))
         entry, extra = f"{name}_block", ()
+    lib, fn = _kernel(entry)
+    if entry.endswith("_tc"):
+        # the streamed instance reads the packed slices (after h0) in U's
+        # place and stores the sequence, whose last step is the final h
+        seq = torch.empty((T, B, H), device=xp.device, dtype=torch.bfloat16)
+        rc = fn(_ptr(xp), *map(_ptr, states), _ptr(seq), T, B, H, CELL_ACTIVATIONS[activation],
+                *extra, _stream(xp))
+        _build.check(lib, rc, f"{entry} launch")
+        return seq if return_sequences else seq[-1]
     out = torch.empty((T, B, H) if return_sequences else (B, H), device=xp.device,
                       dtype=torch.bfloat16)
-    lib, fn = _kernel(entry)
     rc = fn(_ptr(xp), *map(_ptr, states), _ptr(u), _ptr(out), T, B, H,
             CELL_ACTIVATIONS[activation], int(return_sequences), *extra, _stream(xp))
     _build.check(lib, rc, f"{entry} launch")

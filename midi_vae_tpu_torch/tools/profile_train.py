@@ -47,7 +47,8 @@ PORT_KERNELS = {
     # H <= 512 takes it)
     "xproj_kernel": "A/L xproj xproj",
     "gru_fwd_chain_kernel": "A chain gru_fwd_chain",
-    # F's tensor-core instance (the slice streamed: H = 512)
+    # F's tensor-core instance (the slice streamed: H = 512 and 1024; its
+    # bf16 build, X's at H = 1024, counted apart below)
     "gru_fwd_chain_tc_kernel": "F chain tc gru_fwd_chain_tc",
     "gru_fwd_chain_mma_kernel": "A chain bf16 gru_fwd_chain_mma",
     "gru_layer_fwd_kernel": "A block gru_layer_fwd",
@@ -190,6 +191,8 @@ def _profile(step, steps: int) -> dict:
         # chain also emits dxp
         if group == "A chain bf16 gru_fwd_chain_mma" and ", __nv_bfloat16>" in name:
             group = "X chain gru_fwd_chain_mma"
+        if group == "F chain tc gru_fwd_chain_tc" and "bfloat16" in name:
+            group = "X chain tc gru_fwd_chain_tc"
         if group == "C/G chain gru_bwd_chain" and ", true>" in name:
             group = "G chain bf16 gru_bwd_chain"
         # D's chain: B's decode chain in its training instances (<..., TV,

@@ -17,9 +17,9 @@ Sections:
    instrument and held heads; B 256, 16 and 5; float32, and bf16 for the
    heads of 8 or more outputs), beside ``gru_decode.dec_plan``'s pick. Each
    plan's time is the device's: one launch in a CUDA-event window, the
-   median of REPS, the plans once in order and once reversed, the two
-   medians averaged. ``near_best`` lists the plans within NEAR of the
-   fastest's time; tests/test_torch_d_chain.py holds the picks against
+   median of 5, the plans once in order and once reversed, the two medians
+   averaged (``_timing.sweep``). ``near_best`` lists the plans within
+   ``_timing.NEAR`` of the fastest's time; tests/test_torch_d_chain.py holds the picks against
    those sets (tests/data/d_m_near_best.json).
 3. mplans: M's chain at every plan of ``_layout.lstm_decode_plans`` (two h
    tiles a layer and one with a second barrier) on M_CASES (the LSTM
@@ -32,7 +32,7 @@ Sections:
    instrument); the LSTM(256) transfer's three heads; the notes and velocity
    heads alone and side by side on two streams, and their slices'
    repacking), each the median of
-   REPS CUDA-event windows. With ``--parent``, this file runs from the
+   ``_timing.REPS`` CUDA-event windows. With ``--parent``, this file runs from the
    parent's root and this one's in turns (parent, change, change, parent),
    a process each; it uses only wrappers the parent has.
 5. digests: D wide's outputs (probs, logits and h sequences of numpy-seeded
@@ -49,15 +49,18 @@ Prints one JSON line per measurement, with the card's name and power limit.
 
 from __future__ import annotations
 
-import argparse
 import hashlib
 import json
 import os
 import subprocess
 import sys
 
-REPS = 15
-NEAR = 0.10
+if __package__:
+    from midi_vae_tpu_torch.tools import _timing
+else:  # run as a file, perhaps beside another checkout's package
+    import _timing
+
+in_turns, median_ms, NEAR = _timing.in_turns, _timing.median_ms, _timing.NEAR
 H_ATOL, LOGITS_ATOL = 5e-5, 1e-4  # chip_smoke.py's limits for D's and B's outputs
 M_PROBS_ATOL = 1e-5  # chip_smoke.py's limit for M's probs
 # the relative L2 limit of a bf16 decode against its plain version
@@ -74,46 +77,6 @@ D_CASES = [(bf16, head, B) for bf16 in (False, True) for head in HEADS for B in 
 # (H, head, B) of M: the LSTM serving heads at H 256 and 512
 M_CASES = [(H, head, B) for H in (256, 512) for head in HEADS for B in (256, 16, 5)]
 STEP_CONFIGS = ("", "compute_dtype=bfloat16", "decode_residual_bf16=True")
-
-
-def median_ms(fn, reps=REPS):
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[reps // 2]
-
-
-def in_turns(fns, reps=REPS):
-    """{key: ms}: each fn's median, in order then reversed, averaged."""
-    keys = list(fns)
-    fwd, back = {}, {}
-    for order, into in ((keys, fwd), (list(reversed(keys)), back)):
-        for k in order:
-            fns[k]()
-            into[k] = median_ms(fns[k], reps)
-    return {k: (fwd[k] + back[k]) / 2 for k in keys}
-
-
-def _flat(out):
-    if isinstance(out, (tuple, list)):
-        return [t for o in out for t in _flat(o)]
-    return [out] if out is not None else []
-
-
-def _max_diff(got, want):
-    return max((g.float() - w.float()).abs().max().item() for g, w in zip(_flat(got), _flat(want)))
-
-
-def _rel_l2(got, want):
-    return max(((g.float() - w.float()).norm() / w.float().norm().clamp_min(1e-30)).item()
-               for g, w in zip(_flat(got), _flat(want)))
 
 
 def _arr(rng, dev):
@@ -182,10 +145,10 @@ def check(emit):
             got = gd.gru_decode_fwd_train(heads, build)
             torch.cuda.synchronize()
             want = _d_plain(heads, torch.bfloat16 if build == "D_resid" else None)
-            diff = _max_diff([g[:2] for g in got], [w[:2] for w in want])
+            diff = _timing.max_diff([g[:2] for g in got], [w[:2] for w in want])
             # D resid's h sequences: one bf16 step where a float h rounds the
             # other way
-            hdiff = _max_diff([g[2] for g in got], [w[2] for w in want])
+            hdiff = _timing.max_diff([g[2] for g in got], [w[2] for w in want])
             chains = (gd.gru_decode_fwd_train.launches_chain - before[0]
                       + gd.gru_decode_fwd_train.launches_chain_resid - before[1])
             ok = (diff <= LOGITS_ATOL and hdiff <= (4e-3 if build == "D_resid" else H_ATOL)
@@ -202,7 +165,7 @@ def check(emit):
             h = gru_head(head, 256, 256, True, 5)
             got = gd.gru_decode_fwd_train([h], "D_bf16")
             torch.cuda.synchronize()
-            err = _rel_l2(got, _d_plain([h]))
+            err = _timing.rel_l2(got, _d_plain([h]))
             emit({"what": f"check D_bf16 {name}", "rel_l2": err, "ok": err <= BF16_REL_L2})
             failures += [] if err <= BF16_REL_L2 else [f"D_bf16 {name}"]
         for H in (256, 512):
@@ -213,7 +176,7 @@ def check(emit):
                     plan = _layout.lstm_decode_plan(H, head[1], head[2], 256, T=head[3], nb=nb)
                     got = ld.lstm_decode(*args, plan=plan)
                     torch.cuda.synchronize()
-                    dp, dl = _max_diff(got[0], want[0]), _max_diff(got[1], want[1])
+                    dp, dl = _timing.max_diff(got[0], want[0]), _timing.max_diff(got[1], want[1])
                     ok = dp <= M_PROBS_ATOL and dl <= LOGITS_ATOL
                     emit({"what": f"check M chain H{H} {head[0]} nb={nb}", "probs": dp,
                           "logits": dl, "plan": plan._asdict(), "ok": ok})
@@ -231,31 +194,17 @@ def time_dplans(emit):
     from midi_vae_tpu_torch.ops import gru_decode as gd
     from midi_vae_tpu_torch.tools.time_f_and_d import plans_of
 
-    picked_plan = gd.dec_plan
-    key = lambda p: f"{'tc ' if p.tc else ''}{p.cluster}x{p.rows}/{p.chunk}"  # noqa: E731
+    key = lambda p: f"{p.cluster}x{p.rows}/{p.chunk}"  # noqa: E731
     with torch.no_grad():
         for bf16, head, B in D_CASES:
             name, D, n_layers, steps, _act = head
             h = gru_head(head, 256, B, bf16, 256 + D + B)
             build = "D_bf16" if bf16 else "D"
-            call = lambda h=h, b=build: gd.gru_decode_fwd_train([h], b)  # noqa: E731
-            want = [t.clone() for t in _flat(call())]
-            plans = [p for p in plans_of(256, D, n_layers, B, steps, bf16) if not p.tc]
-            pick = picked_plan(256, D, n_layers, B, steps, bf16)
-            err, fns = {}, {}
-            try:
-                for p in plans:
-                    gd.dec_plan = lambda *_a, _p=p: _p
-                    err[key(p)] = _max_diff(call(), want)
-                    fns[key(p)] = lambda _p=p: (setattr(gd, "dec_plan", lambda *_a: _p), call())
-                ms = in_turns(fns, reps=5)
-            finally:
-                gd.dec_plan = picked_plan
-            best = min(ms.values())
-            emit({"what": "D plans", "bf16": bf16, "head": name, "H": 256, "B": B, "D": D,
-                  "T": steps, "layers": n_layers, "picked": key(pick), "ms": ms,
-                  "near_best": [k for k in ms if ms[k] <= (1 + NEAR) * best],
-                  "max_abs_diff_from_pick": err})
+            _timing.sweep(emit, "D plans", plans_of(256, D, n_layers, B, steps, bf16, tc=False),
+                          _timing.patch("dec_plan", gd),
+                          lambda h=h, b=build: gd.gru_decode_fwd_train([h], b), key,
+                          gd.dec_plan(256, D, n_layers, B, steps, bf16), reps=5, bf16=bf16,
+                          head=name, H=256, B=B, D=D, T=steps, layers=n_layers)
 
 
 def time_mplans(emit):
@@ -272,7 +221,7 @@ def time_mplans(emit):
             pick = ld.decode_plan(H, D, n_layers, B, steps)
             plans = _layout.lstm_decode_plans(H, D, n_layers, B, steps, ld.chain_max_clusters)
             want = [t.clone() for t in ld.lstm_decode(*args, plan=pick)]
-            err = {key(p): _max_diff(ld.lstm_decode(*args, plan=p), want) for p in plans}
+            err = {key(p): _timing.max_diff(ld.lstm_decode(*args, plan=p), want) for p in plans}
             ms = in_turns({key(p): (lambda _p=p: ld.lstm_decode(*args, plan=_p)) for p in plans},
                           reps=5)
             best = min(ms.values())
@@ -346,7 +295,7 @@ def digests():
                 h = gru_head(head, 512, 256, bf16, 512 + head[1])
                 got = gd.gru_decode_fwd_train_wide([h])
                 hasher = hashlib.sha256()
-                for t in _flat(got):
+                for t in _timing.flat(got):
                     hasher.update(t.detach().contiguous().view(-1).cpu().view(torch.uint8)
                                   .numpy().tobytes())
                 out[f"D wide {head[0]} H512 {'bf16' if bf16 else 'f32'}"] = hasher.hexdigest()[:16]
@@ -371,7 +320,8 @@ def _in_turns_processes(parent, argv_of, what, order=("parent", "change", "chang
     return runs
 
 
-def time_kernels(emit, parent):
+def time_kernels(emit, args):
+    parent = args.parent
     if not parent:
         emit({"what": "kernels", "ms": kernel_times()})
         return
@@ -382,7 +332,8 @@ def time_kernels(emit, parent):
           "ms": {label: [r["ms"] for r in rs] for label, rs in runs.items()}})
 
 
-def time_digests(emit, parent):
+def time_digests(emit, args):
+    parent = args.parent
     if not parent:
         emit({"what": "digests of D wide", "digests": digests()})
         return
@@ -394,9 +345,12 @@ def time_digests(emit, parent):
           "equal": runs["parent"][0]["digests"] == runs["change"][0]["digests"]})
 
 
-def time_steps(emit, parent):
-    """The steps' and the LSTM transfer's device ms from ``parent`` and this
-    checkout in turns."""
+def time_steps(emit, args):
+    """The steps' and the LSTM transfer's device ms from ``--parent`` and
+    this checkout in turns."""
+    parent = args.parent
+    if not parent:
+        raise ValueError("section steps needs --parent")
     for spec in STEP_CONFIGS:
         sets = [a for kv in spec.split(",") if kv for a in ("--set", kv)]
         runs = _in_turns_processes(parent, lambda root: [
@@ -417,47 +371,13 @@ def time_steps(emit, parent):
           "kernels": {k: [r["device_ms_by_kernel"] for r in rs] for k, rs in runs.items()}})
 
 
+SECTIONS = {"check": lambda emit, _a: check(emit), "dplans": lambda emit, _a: time_dplans(emit),
+            "mplans": lambda emit, _a: time_mplans(emit), "kernels": time_kernels,
+            "digests": time_digests, "steps": time_steps}
+
+
 def main(argv=None) -> int:
-    sections = ("check", "dplans", "mplans", "kernels", "digests", "steps")
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", help="also write the JSON lines here")
-    ap.add_argument("--only", nargs="+", choices=sections, default=sections[:5])
-    ap.add_argument("--parent", help="the parent checkout's root (sections kernels, digests, "
-                                     "steps)")
-    args = ap.parse_args(argv)
-    import torch
-
-    from midi_vae_tpu_torch import use_exact_f32
-
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    use_exact_f32()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    out = open(args.out, "w") if args.out else None
-    parent = os.path.abspath(args.parent) if args.parent else None
-
-    def emit(rec):
-        line = json.dumps({**rec, "card": smi})
-        print(line, flush=True)
-        if out:
-            out.write(line + "\n")
-
-    for section in args.only:
-        if section == "kernels":
-            time_kernels(emit, parent)
-        elif section == "digests":
-            time_digests(emit, parent)
-        elif section == "steps":
-            if not parent:
-                ap.error("section steps needs --parent")
-            time_steps(emit, parent)
-        else:
-            {"check": check, "dplans": time_dplans, "mplans": time_mplans}[section](emit)
-    if out:
-        out.close()
-    return 0
+    return _timing.main(__doc__, SECTIONS, argv, default=list(SECTIONS)[:5])
 
 
 if __name__ == "__main__":

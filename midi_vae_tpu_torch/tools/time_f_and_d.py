@@ -1,11 +1,14 @@
 """Time kernels F and D wide on their chains (F: the float32 GRU layer over
 a given xp = x @ W + b, csrc/gru_layer_xp_fwd.cu; D wide: the decode heads'
-training forward at H = 512, csrc/gru_decode_train.cu, float32 and bf16) at
-the paths' shapes on the card.
+training forward at H = 512 and 1024, csrc/gru_decode_train.cu, float32
+and bf16) at the paths' shapes on the card.
 
 Run from the repo root on a CUDA card:
     python -m midi_vae_tpu_torch.tools.time_f_and_d [--out FILE] [--only SECTION ...]
-        [--parent DIR]
+        [--H H ...] [--B B ...] [--parent DIR]
+
+``--H`` and ``--B`` keep a section's cases at those widths and batches
+(``--H 1024 --only fplans dplans``: GRU(1024)'s plans).
 
 To compare two checkouts in one call, run the file from one with the
 other's root on PYTHONPATH (``--only digests`` uses public wrappers that
@@ -15,26 +18,31 @@ older checkouts have too):
 1. fplans: F's chain at every plan of ``_layout.gru_fwd_plans("F_chain",
    ...)`` (the resident slice at H = 256, the streamed one at 512, in
    clusters of 8 and 16, A's rows and X's balanced ones, each split count)
-   on F_CASES (T 64; H 256 and 512; B 256, 16 and 5), beside the plan
-   ``gru_layer.xp_fwd_plan`` picks. Each plan's time is the device's: one
-   launch in a CUDA-event window, the median of REPS, the plans once in
-   order and once reversed, the two medians averaged; its max |diff| from
-   the pick. ``near_best`` lists the plans within NEAR of the fastest's
-   time; tests/test_torch_f_dwide_chains.py holds the picks against those
-   sets.
+   and, where the slice streams, the tensor-core instance's
+   (``_layout.gru_tc_plans``) on F_CASES (T 64; H 256 and 512: B 256, 16
+   and 5; H 1024: B 256, 64, 16 and 5), beside the plan
+   ``gru_layer.xp_fwd_plan`` picks (``_timing.sweep``). Each plan's time is
+   the device's: one launch in a CUDA-event window, the median of
+   ``_timing.REPS``, the plans once in order and once reversed, the two
+   medians averaged; its max |diff| from the pick. ``near_best`` lists the
+   plans within ``_timing.NEAR`` of the fastest's time;
+   tests/test_torch_f_dwide_chains.py and tests/test_torch_gru1024.py hold
+   the picks against those sets.
 2. dplans: D wide's chain (one head a launch) at every (cluster, rows,
    chunk) of ``plans_of`` on D_CASES (the notes, velocity and instrument
-   heads at H = 512; B 256, 128 and 5; float32, and bf16 for the heads of
-   8 or more outputs), beside ``gru_decode.dec_plan``'s pick, timed as
-   above.
-3. phases: at F_CASES and D_CASES, F and D wide through their public
+   heads at H = 512: B 256, 128 and 5, float32, and bf16 for the heads of
+   8 or more outputs; at H = 1024: B 256 and 5, every head in float32, the
+   instrument head in bf16, B's FFMA instance alone), beside
+   ``gru_decode.dec_plan``'s pick, timed as above.
+3. phases: at F_CASES and D_CASES up to H = 512, F and D wide through their public
    wrappers beside their per-block routes (the first designs, run at the
    same shapes) and beside the plain chain each extends (F: A's chain over
    the same xp, at H = 512 its streamed FFMA instance; D wide, B's FFMA
    chain in its training instance: its tensor-core instance at that
    instance's rule, and in float32 B's serving chain on the same head at
    the same plan, which stores no h sequence); each in one CUDA-event
-   window, the median of REPS, in turns (block, chain, ..., chain, block).
+   window, the median of ``_timing.REPS``, in turns (block, chain, ...,
+   chain, block).
 4. digests: kernel A's, C's and E's outputs (``time_x_and_g.digests``) and
    kernel B's chain outputs (probs and logits of the notes, velocity and
    instrument heads at H 256 and 512, B 256, numpy-seeded): two checkouts
@@ -49,66 +57,40 @@ Prints one JSON line per measurement, with the card's name and power limit.
 
 from __future__ import annotations
 
-import argparse
 import hashlib
 import json
 import os
 import subprocess
 import sys
 
-REPS = 15
-NEAR = 0.10
+if __package__:
+    from midi_vae_tpu_torch.tools import _timing
+else:  # run as a file, perhaps beside another checkout's package
+    import _timing
+
+in_turns, max_diff, select, sweep = _timing.in_turns, _timing.max_diff, _timing.select, _timing.sweep
 T = 64
 # (H, B) of F: rows 9 (GRU(256), the wide route's test hook) and 11 (the
-# wide step), at a training batch, one song and B 5
-F_CASES = [(256, 256), (256, 16), (256, 5), (512, 256), (512, 16), (512, 5)]
-# the decode heads of the wide configs at H = 512: (name, D, layers, T,
-# output activation)
+# wide step), at a training batch, one song and B 5; GRU(1024)'s at B 256,
+# 64, 16 and 5 (fplans only: the per-block route launches up to H = 512)
+F_CASES = [(256, 256), (256, 16), (256, 5), (512, 256), (512, 16), (512, 5),
+           (1024, 256), (1024, 64), (1024, 16), (1024, 5)]
+# the decode heads of the wide configs: (name, D, layers, T, output
+# activation)
 HEADS = [("notes", 61, 2, 64, "softmax"), ("velocity", 1, 1, 64, "sigmoid"),
          ("instrument", 16, 1, 4, "softmax")]
-# (bf16, head, B) of D wide: the f32 wide step (B 256), the bf16 GRU(512)
-# at B = 128 (its velocity head in float32), wide512_bf16 (B 256; velocity
-# promoted to float32), and B 5
-D_CASES = [(bf16, head, B) for bf16 in (False, True) for head in HEADS for B in (256, 128, 5)
-           if not (bf16 and head[1] < 8)]
+# (H, bf16, head, B) of D wide: at H = 512 the f32 wide step (B 256), the
+# bf16 GRU(512) at B = 128 (its velocity head in float32), wide512_bf16 (B
+# 256; velocity promoted to float32), and B 5; at H = 1024 every head in
+# float32 and the instrument head in bf16 (the bf16 notes head is the plain
+# scan there), B 256 and 5 (dplans only)
+D_CASES = ([(512, bf16, head, B) for bf16 in (False, True) for head in HEADS for B in (256, 128, 5)
+            if not (bf16 and head[1] < 8)]
+           + [(1024, bf16, head, B) for bf16, head in [(False, h) for h in HEADS] + [(True, HEADS[2])]
+              for B in (256, 5)])
 # the steps of the wide configs: f32, wide512_bf16, the bf16 GRU(512) at B 128
 STEP_CONFIGS = ("lstm_size=512", "lstm_size=512,compute_dtype=bfloat16",
                 "lstm_size=512,compute_dtype=bfloat16,batch_size=128")
-
-
-def median_ms(fn, reps=REPS):
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[reps // 2]
-
-
-def in_turns(fns, reps=REPS):
-    """{key: ms}: each fn's median, in order then reversed, averaged."""
-    keys = list(fns)
-    fwd, back = {}, {}
-    for order, into in ((keys, fwd), (list(reversed(keys)), back)):
-        for k in order:
-            fns[k]()
-            into[k] = median_ms(fns[k], reps)
-    return {k: (fwd[k] + back[k]) / 2 for k in keys}
-
-
-def _flat(out):
-    if isinstance(out, (tuple, list)):
-        return [t for o in out for t in _flat(o)]
-    return [out] if out is not None else []
-
-
-def _max_diff(got, want):
-    return max((g.float() - w.float()).abs().max().item() for g, w in zip(_flat(got), _flat(want)))
 
 
 def _f_operands(H, B, seed):
@@ -139,19 +121,19 @@ def _d_head(head, H, B, bf16, seed):
             "out_activation": out_act}
 
 
-def plans_of(H, D, n_layers, B, T_, bf16=False):
+def plans_of(H, D, n_layers, B, T_, bf16=False, tc=True):
     """D wide's chain plans timed: the tensor-core instance's
-    (``_layout.dec_tc_plans``) and B's FFMA instance's: cluster sizes 4, 8,
-    16 x rows a cluster (one wave of the H100's active clusters at that
-    size, and 4, 8, 16, 32, 64) x every chunk depth that fits
-    (``_layout.DEC_CHUNKS``), as ``_layout.dec_train_plan`` fits them
+    (``_layout.dec_tc_plans``; with ``tc``) and B's FFMA instance's:
+    cluster sizes 4, 8, 16 x rows a cluster (one wave of the H100's active
+    clusters at that size, and 4, 8, 16, 32, 64) x every chunk depth that
+    fits (``_layout.DEC_CHUNKS``), as ``_layout.dec_train_plan`` fits them
     (duplicates dropped)."""
     from midi_vae_tpu_torch.ops import _layout
     from midi_vae_tpu_torch.ops import gru_decode as gd
 
     elem = 2 if bf16 else 4
-    found = {(p.cluster, p.rows, p.chunk, True): p for p in _layout.dec_tc_plans(
-        H, D, n_layers, B, bf16, lambda C: gd.dec_max_clusters(bf16, True, C))}
+    found = {(p.cluster, p.rows, p.chunk, True): p for p in (_layout.dec_tc_plans(
+        H, D, n_layers, B, bf16, lambda C: gd.dec_max_clusters(bf16, True, C)) if tc else [])}
     for C in (4, 8, 16):
         if _layout.gru_decode_most_rows(n_layers, D, H, C, elem) < 1:
             continue
@@ -164,94 +146,72 @@ def plans_of(H, D, n_layers, B, T_, bf16=False):
     return list(found.values())
 
 
-def time_fplans(emit):
+def time_fplans(emit, args):
+    """F's chain at every plan: A's float32 instance's and, where the slice
+    streams, the tensor-core instance's."""
+    import torch
+
     from midi_vae_tpu_torch.ops import _layout
     from midi_vae_tpu_torch.ops import gru_layer as gl
 
-    picked_plan = gl.xp_fwd_plan
-    for H, B in F_CASES:
+    key = lambda p: (f"tc {p.cluster}x{p.rows}/{p.chunk}/st{p.stages}" if p.chunk  # noqa: E731
+                     else f"{p.cluster}x{p.rows}/s{p.splits}/st{p.stages}")
+    for H, B in select(F_CASES, args):
         xp, h0, u = _f_operands(H, B, H + B)
         stream = _layout.gru_fwd_cluster("F_chain", H)[1]
         plans = _layout.gru_fwd_plans("F_chain", H, B,
                                       lambda C: gl._max_clusters("gru_layer_xp_fwd", stream, C))
         if stream:  # the tensor-core instance's plans beside A's streamed ones
             plans += _layout.gru_tc_plans(H, B, gl._tc_max_clusters)
-        pick = picked_plan(H, B)
-        call = lambda: gl.gru_layer_xp_fwd_chain(xp, h0, u)  # noqa: E731
-        want = call().clone()
-        key = lambda p: (f"tc {p.cluster}x{p.rows}/{p.chunk}/st{p.stages}" if p.chunk  # noqa: E731
-                         else f"{p.cluster}x{p.rows}/s{p.splits}/st{p.stages}")
-        err, fns = {}, {}
-        try:
-            for p in plans:
-                gl.xp_fwd_plan = lambda *_a, _p=p: _p
-                err[key(p)] = _max_diff(call(), want)
-                fns[key(p)] = lambda _p=p: (setattr(gl, "xp_fwd_plan", lambda *_a: _p), call())
-            ms = in_turns(fns)
-        finally:
-            gl.xp_fwd_plan = picked_plan
-        best = min(ms.values())
-        emit({"what": "F chain plans", "H": H, "B": B, "picked": key(pick), "ms": ms,
-              "near_best": [k for k in ms if ms[k] <= (1 + NEAR) * best],
-              "max_abs_diff_from_pick": err})
+        with torch.no_grad():
+            sweep(emit, "F chain plans", plans, _timing.patch("xp_fwd_plan", gl),
+                  lambda: gl.gru_layer_xp_fwd_chain(xp, h0, u), key, gl.xp_fwd_plan(H, B),
+                  H=H, B=B)
 
 
-def time_dplans(emit):
+def time_dplans(emit, args):
+    """D wide's chain on one head a launch at every plan of ``plans_of``
+    (the tensor-core instance, which no shape takes, up to H = 512)."""
     import torch
 
     from midi_vae_tpu_torch.ops import gru_decode as gd
 
-    picked_plan = gd.dec_plan
     key = lambda p: f"{'tc ' if p.tc else ''}{p.cluster}x{p.rows}/{p.chunk}"  # noqa: E731
     with torch.no_grad():
-        for bf16, head, B in D_CASES:
+        for H, bf16, head, B in select(D_CASES, args, B=lambda c: c[3]):
             name, D, n_layers, steps, _act = head
-            h = _d_head(head, 512, B, bf16, 512 + D + B)
-            call = lambda h=h: gd.gru_decode_fwd_train_wide([h])  # noqa: E731
-            want = [t.clone() for t in _flat(call())]
-            plans = plans_of(512, D, n_layers, B, steps, bf16)
-            pick = picked_plan(512, D, n_layers, B, steps, bf16)
-            err, fns = {}, {}
-            try:
-                for p in plans:
-                    gd.dec_plan = lambda *_a, _p=p: _p
-                    err[key(p)] = _max_diff(call(), want)
-                    fns[key(p)] = lambda _p=p: (setattr(gd, "dec_plan", lambda *_a: _p), call())
-                ms = in_turns(fns, reps=5)
-            finally:
-                gd.dec_plan = picked_plan
-            best = min(ms.values())
-            emit({"what": "D wide plans", "bf16": bf16, "head": name, "H": 512, "B": B, "D": D,
-                  "T": steps, "layers": n_layers, "picked": key(pick), "ms": ms,
-                  "near_best": [k for k in ms if ms[k] <= (1 + NEAR) * best],
-                  "max_abs_diff_from_pick": err,
-                  "plans": {key(p): p._asdict() for p in plans}})
+            h = _d_head(head, H, B, bf16, H + D + B)
+            sweep(emit, "D wide plans", plans_of(H, D, n_layers, B, steps, bf16, tc=H <= 512),
+                  _timing.patch("dec_plan", gd), lambda h=h: gd.gru_decode_fwd_train_wide([h]),
+                  key, gd.dec_plan(H, D, n_layers, B, steps, bf16), reps=5, bf16=bf16,
+                  head=name, H=H, B=B, D=D, T=steps, layers=n_layers)
 
 
-def time_phases(emit):
+def time_phases(emit, args):
     import torch
 
     from midi_vae_tpu_torch.ops import gru_decode as gd
     from midi_vae_tpu_torch.ops import gru_layer as gl
 
     with torch.no_grad():
-        for H, B in F_CASES:
+        for H, B in select([c for c in F_CASES if c[0] <= 512], args):
             xp, h0, u = _f_operands(H, B, 7 + H + B)
             fns = {"block": lambda: gl.gru_layer_xp_fwd_block(xp, h0, u),
                    "chain": lambda: gl.gru_layer_xp(xp, h0, u),
                    # A's float32 chain over the same xp (A's library)
                    "A_chain": lambda: gl.gru_layer_fwd_chain(xp, h0, u, "tanh", True)}
-            diff = _max_diff(fns["chain"](), gl.gru_layer_xp_reference(xp, h0, u))
+            diff = max_diff(fns["chain"](), gl.gru_layer_xp_reference(xp, h0, u))
             ms = in_turns(fns)
             emit({"what": "F", "H": H, "B": B, "T": T, "ms": ms["chain"],
                   "ms_block": ms["block"], "ms_a_chain": ms["A_chain"],
                   "plan": gl.xp_fwd_plan(H, B)._asdict(), "max_abs_diff_from_plain": diff,
-                  "max_abs_diff_block": _max_diff(fns["block"](), fns["chain"]())})
-        for bf16, head, B in D_CASES:
+                  "max_abs_diff_block": max_diff(fns["block"](), fns["chain"]())})
+        for H, bf16, head, B in select([c for c in D_CASES if c[0] <= 512], args,
+                                       B=lambda c: c[3]):
             name, D, n_layers, steps, out_act = head
-            h = _d_head(head, 512, B, bf16, 11 + D + B)
+            h = _d_head(head, H, B, bf16, 11 + D + B)
             sfx = "_bf16" if bf16 else ""
-            plan = gd.dec_plan(512, D, n_layers, B, steps, bf16)
+            plan = gd.dec_plan(H, D, n_layers, B, steps, bf16)
 
             def run_block(h=h):
                 # the per-block route on the same head (the route chooser
@@ -263,7 +223,7 @@ def time_phases(emit):
                 finally:
                     gd._layout.dec_train_route = saved
 
-            tc = gd._layout.dec_train_plan(512, D, n_layers, B, steps, bf16, tc=True)
+            tc = gd._layout.dec_train_plan(H, D, n_layers, B, steps, bf16, tc=True)
 
             def run_tc(h=h, p=tc):
                 # the tensor-core instance at its rule's plan
@@ -281,15 +241,15 @@ def time_phases(emit):
                 fns["B_chain"] = lambda a=args, p=plan: gd.gru_decode(*a, plan=p)
             plain = gd.gru_decode_train_reference(h["cells"], h["out"], h["init"], h["start"],
                                                   steps, out_act)
-            diff = _max_diff(fns["chain"](), [plain])
+            diff = max_diff(fns["chain"](), [plain])
             ms = in_turns(fns)
-            emit({"what": f"D wide{sfx}", "head": name, "H": 512, "B": B, "D": D, "T": steps,
+            emit({"what": f"D wide{sfx}", "head": name, "H": H, "B": B, "D": D, "T": steps,
                   "layers": n_layers, "ms": ms["chain"], "ms_block": ms["block"],
                   "ms_tc": ms["tc"], "ms_b_chain": ms.get("B_chain"),
                   "plan": plan._asdict(), "tc_plan": tc._asdict(),
                   "max_abs_diff_from_plain": diff,
-                  "max_abs_diff_block": _max_diff(fns["block"](), fns["chain"]()),
-                  "max_abs_diff_tc": _max_diff(fns["tc"](), fns["chain"]())})
+                  "max_abs_diff_block": max_diff(fns["block"](), fns["chain"]()),
+                  "max_abs_diff_tc": max_diff(fns["tc"](), fns["chain"]())})
 
 
 def _digest(ts):
@@ -336,9 +296,12 @@ def digests():
     return {**ace(), **b_digests()}
 
 
-def time_steps(emit, parent):
-    """The wide configs' step times from ``parent`` and this checkout in
+def time_steps(emit, args):
+    """The wide configs' step times from ``--parent`` and this checkout in
     turns (parent, change, change, parent), a process each."""
+    parent = args.parent
+    if not parent:
+        raise ValueError("section steps needs --parent")
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     tool = os.path.join(here, "midi_vae_tpu_torch", "tools", "time_train_step.py")
     runs = {"parent": [], "change": []}
@@ -355,43 +318,14 @@ def time_steps(emit, parent):
                  for label, rs in runs.items()}})
 
 
+SECTIONS = {"fplans": time_fplans, "dplans": time_dplans, "phases": time_phases,
+            "digests": lambda emit, _args: emit({"what": "digests of A, B, C and E",
+                                                 "digests": digests()}),
+            "steps": time_steps}
+
+
 def main(argv=None) -> int:
-    sections = ("fplans", "dplans", "phases", "digests", "steps")
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", help="also write the JSON lines here")
-    ap.add_argument("--only", nargs="+", choices=sections, default=sections[:4])
-    ap.add_argument("--parent", help="the parent checkout's root (section steps)")
-    args = ap.parse_args(argv)
-    import torch
-
-    from midi_vae_tpu_torch import use_exact_f32
-
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    use_exact_f32()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    out = open(args.out, "w") if args.out else None
-
-    def emit(rec):
-        line = json.dumps({**rec, "card": smi})
-        print(line, flush=True)
-        if out:
-            out.write(line + "\n")
-
-    for section in args.only:
-        if section == "digests":
-            emit({"what": "digests of A, B, C and E", "digests": digests()})
-        elif section == "steps":
-            if not args.parent:
-                ap.error("section steps needs --parent")
-            time_steps(emit, os.path.abspath(args.parent))
-        else:
-            {"fplans": time_fplans, "dplans": time_dplans, "phases": time_phases}[section](emit)
-    if out:
-        out.close()
-    return 0
+    return _timing.main(__doc__, SECTIONS, argv, default=list(SECTIONS)[:4])
 
 
 if __name__ == "__main__":

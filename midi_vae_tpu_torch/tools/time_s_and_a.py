@@ -4,6 +4,7 @@ step makes.
 
 Run from the repo root on a CUDA card:
     python -m midi_vae_tpu_torch.tools.time_s_and_a [--out FILE] [--only SECTION ...]
+        [--H H ...] [--B B ...]
 
 To compare two checkouts in one call, run the file from one with the
 other's root on PYTHONPATH (``--only loops`` uses the public wrappers
@@ -28,15 +29,26 @@ alone, which older checkouts have too):
    over its four encoder layers (196 launches); A over the Config()
    encoder's four layers (the h sequence, as training runs them) in
    float32 and bf16. Seeded random weights at the paths' shapes.
+3. aplans: A's float32 chain (the serving encoder's, ``gru_layer.
+   gru_chain_plan``; at H = 1024 its streamed instance) at every plan of
+   ``_layout.gru_fwd_plans("A_chain", ...)`` on A_CASES (T 64; H 1024, B
+   256 and 16; ``--H``, ``--B`` keep those cases), beside the pick
+   (``_timing.sweep``: one launch, the median of ``_timing.REPS``
+   CUDA-event windows, in order then reversed; ``near_best`` the plans
+   within ``_timing.NEAR`` of the fastest; tests/test_torch_gru1024.py
+   holds the picks against those sets).
 Prints one JSON line per measurement, with the card's name and power limit.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import subprocess
+import functools
 import sys
+
+if __package__:
+    from midi_vae_tpu_torch.tools import _timing
+else:  # run as a file, perhaps beside another checkout's package
+    import _timing
 
 # (B, D, H, dtype), D = 0 for S xp: the notes head's cell 1 (D 61) and
 # cell 2 (D = H), the velocity (D 1) and instrument (D 16) heads, at a
@@ -45,22 +57,12 @@ TILE_CASES = [(B, D, H, dtype) for B in (256, 16, 5) for H in (256, 512)
               for D, dtype in ((61, "float32"), (H, "float32"), (1, "float32"), (16, "float32"),
                                (61, "bfloat16"), (H, "bfloat16"), (1, "bfloat16"),
                                (16, "bfloat16"), (0, "float32"))]
+# (H, B) of A's serving chain plans: GRU(1024)'s encoder at a transfer
+# batch and one song
+A_CASES = [(1024, 256), (1024, 16)]
 REPS, LAUNCHES = 20, 64
-NEAR = 0.10
-
-
-def median_ms(fn, reps=REPS):
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[reps // 2]
+NEAR = _timing.NEAR
+median_ms = functools.partial(_timing.median_ms, reps=REPS)
 
 
 def time_tiles(emit):
@@ -192,38 +194,32 @@ def time_loops(emit):
             emit({"what": "A, the Config() encoder's four layers", "dtype": dtype, "ms": total})
 
 
-SECTIONS = {"tiles": time_tiles, "loops": time_loops}
+def time_aplans(emit, args):
+    import torch
+
+    from midi_vae_tpu_torch.ops import _layout
+    from midi_vae_tpu_torch.ops import gru_layer as gl
+
+    key = lambda p: f"{p.cluster}x{p.rows}/s{p.splits}/st{p.stages}"  # noqa: E731
+    for H, B in _timing.select(A_CASES, args):
+        gen = torch.Generator(device="cuda").manual_seed(B)
+        randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+        xp, h0, u = randn(64, B, 3 * H), torch.tanh(randn(B, H)), randn(H, 3 * H) / H ** 0.5
+        plans = _layout.gru_fwd_plans("A_chain", H, B,
+                                      lambda C: gl._max_clusters("gru_layer_fwd", False, C, True))
+        with torch.no_grad():
+            _timing.sweep(emit, "A chain plans (serving, float32)", plans,
+                          _timing.patch("gru_chain_plan", gl),
+                          lambda: gl.gru_layer_fwd_chain(xp, h0, u, "tanh", True), key,
+                          gl.gru_chain_plan("A_chain", H, B), H=H, B=B)
+
+
+SECTIONS = {"tiles": lambda emit, _a: time_tiles(emit), "loops": lambda emit, _a: time_loops(emit),
+            "aplans": time_aplans}
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", help="also write the JSON lines here")
-    ap.add_argument("--only", nargs="+", choices=sorted(SECTIONS), default=list(SECTIONS),
-                    help="the sections to run (default: all)")
-    args = ap.parse_args(argv)
-    import torch
-
-    from midi_vae_tpu_torch import use_exact_f32
-
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    use_exact_f32()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    out = open(args.out, "w") if args.out else None
-
-    def emit(rec):
-        line = json.dumps({**rec, "card": smi})
-        print(line, flush=True)
-        if out:
-            out.write(line + "\n")
-
-    for name in args.only:
-        SECTIONS[name](emit)
-    if out:
-        out.close()
-    return 0
+    return _timing.main(__doc__, SECTIONS, argv)
 
 
 if __name__ == "__main__":

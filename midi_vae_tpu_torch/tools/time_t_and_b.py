@@ -4,6 +4,10 @@ decode chain on clusters) at each of its plans on every serving head.
 
 Run from the repo root on a CUDA card:
     python -m midi_vae_tpu_torch.tools.time_t_and_b [--out FILE] [--only SECTION ...]
+        [--H H ...] [--B B ...]
+
+``--H`` and ``--B`` keep bplans' cases at those widths and batches
+(``--H 1024 --only bplans``: GRU(1024)'s serving heads).
 
 To compare two checkouts in one call, run the file from one with the
 other's root on PYTHONPATH (``--only loops heads`` use the public wrappers
@@ -27,12 +31,13 @@ alone, which older checkouts have too):
 3. bplans: B's chain at every plan of ``plans_of`` (cluster sizes 4, 8,
    16; rows a cluster: one wave of the card's active clusters, and 4, 8,
    16, 32, 64 where they fit; each chunk depth that fits: keys
-   "cluster x rows / chunk") on every serving head (notes, velocity,
-   instrument, held) at H 256 and 512 and B 256, 16, 5: one launch, the
-   median of REPS CUDA-event windows, in order then reversed; its max
-   |diff| from the plain decode. ``near_best`` as above;
-   tests/test_torch_gru_decode_chain.py holds ``gru_decode_plan``'s picks
-   against those sets.
+   "cluster x rows / chunk") on B_CASES: every serving head (notes,
+   velocity, instrument, held) at H 256 and 512 and B 256, 16, 5, and
+   GRU(1024)'s notes, velocity and instrument heads at B 256 and 16
+   (``_timing.sweep``): one launch, the median of 5 CUDA-event windows, in
+   order then reversed; its max |diff| from ``gru_decode.decode_plan``'s
+   pick. ``near_best`` as above; tests/test_torch_gru_decode_chain.py and
+   tests/test_torch_gru1024.py hold the picks against those sets.
 4. loops: T through the public wrapper as a GRU(256) training step with
    ``fused_train_decoder=False`` makes it (its four head cells: notes 1 and
    2, velocity, instrument: 64 + 64 + 64 + 4 = 196 launches, the state
@@ -51,14 +56,19 @@ Prints one JSON line per measurement, with the card's name and power limit.
 
 from __future__ import annotations
 
-import argparse
-import json
-import subprocess
+import functools
 import sys
 import time
 
+if __package__:
+    from midi_vae_tpu_torch.tools import _timing
+else:  # run as a file, perhaps beside another checkout's package
+    import _timing
+
 REPS, LAUNCHES = 20, 64
-NEAR = 0.10
+NEAR = _timing.NEAR
+median_ms = functools.partial(_timing.median_ms, reps=REPS)
+in_turns = functools.partial(_timing.in_turns, reps=REPS)
 BATCHES = (256, 16, 5)
 WIDTHS = (256, 512)
 # (B, D, H, dtype), D = 0 for T xp
@@ -69,28 +79,10 @@ T_CASES = [(B, D, H, dtype) for B in BATCHES for H in WIDTHS
 # (name, D, layers, T, output activation) of the serving heads
 HEADS = (("notes", 61, 2, 64, "softmax"), ("velocity", 1, 1, 64, "sigmoid"),
          ("instrument", 16, 1, 4, "softmax"), ("held", 2, 1, 64, "softmax"))
-
-
-def median_ms(fn, reps=REPS):
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[reps // 2]
-
-
-def in_turns(fns, reps=REPS):
-    """The median ms of each of ``fns`` (a dict), run once in order and once
-    reversed, the two medians averaged."""
-    fwd = {k: median_ms(f, reps) for k, f in fns.items()}
-    back = {k: median_ms(f, reps) for k, f in reversed(list(fns.items()))}
-    return {k: (fwd[k] + back[k]) / 2 for k in fns}
+# (H, head, B) of B's plans: every serving head at H 256 and 512, and
+# GRU(1024)'s three heads at a transfer batch and one song
+B_CASES = ([(H, head, B) for H in WIDTHS for head in HEADS for B in BATCHES]
+           + [(1024, head, B) for head in HEADS[:3] for B in (256, 16)])
 
 
 def _step_operands(B, D, H, dt, seed):
@@ -242,36 +234,25 @@ def plans_of(H, D, n_layers, B, T):
     return list(found.values())
 
 
-def time_bplans(emit):
+def time_bplans(emit, args):
     import torch
 
-    from midi_vae_tpu_torch.ops import _layout
     from midi_vae_tpu_torch.ops import gru_decode as gd
 
+    key = lambda p: f"{p.cluster}x{p.rows}/{p.chunk}"  # noqa: E731
     with torch.no_grad():
-        for H in WIDTHS:
-            for name, D, n_layers, T, out_act in HEADS:
-                for B in BATCHES:
-                    cells, out, init, start = _head(name, D, n_layers, H, B, H + D + B)
-                    args = (cells, out, init, start, T, "tanh", out_act)
-                    want = gd.gru_decode_reference(*args)
-                    plans = plans_of(H, D, n_layers, B, T)
-                    err = {}
-                    for p in plans:
-                        got = gd.gru_decode(*args, plan=p)
-                        torch.cuda.synchronize()
-                        err[p] = max((g - w).abs().max().item() for g, w in zip(got, want))
-                    ms = in_turns({p: (lambda p=p: gd.gru_decode(*args, plan=p)) for p in plans},
-                                  reps=5)
-                    best = min(ms.values())
-                    key = lambda p: f"{p.cluster}x{p.rows}/{p.chunk}"  # noqa: E731
-                    pick = gd.decode_plan(H, D, n_layers, B, T)
-                    emit({"what": "B plans", "head": name, "H": H, "B": B, "D": D, "T": T,
-                          "layers": n_layers, "pick": key(pick),
-                          "ms": {key(p): ms[p] for p in plans},
-                          "near_best": [key(p) for p in plans if ms[p] <= (1 + NEAR) * best],
-                          "max_abs_err": {key(p): err[p] for p in plans},
-                          "plans": {key(p): p._asdict() for p in plans}})
+        for H, (name, D, n_layers, T, out_act), B in _timing.select(B_CASES, args,
+                                                                    B=lambda c: c[2]):
+            cells, out, init, start = _head(name, D, n_layers, H, B, H + D + B)
+            args_ = (cells, out, init, start, T, "tanh", out_act)
+            plan = [None]
+
+            def force(p):
+                plan[0] = p
+            _timing.sweep(emit, "B plans", plans_of(H, D, n_layers, B, T), force,
+                          lambda: gd.gru_decode(*args_, plan=plan[0]), key,
+                          gd.decode_plan(H, D, n_layers, B, T), reps=5, head=name, H=H, B=B,
+                          D=D, T=T, layers=n_layers)
 
 
 def time_bsplits(emit):
@@ -408,39 +389,13 @@ def time_heads(emit):
                 emit({"what": "B, a transfer's three heads", "H": H, "B": B, "ms": total})
 
 
-SECTIONS = {"tplans": time_tplans, "talt": time_talt, "bplans": time_bplans,
-            "bsplits": time_bsplits, "loops": time_loops, "heads": time_heads}
+SECTIONS = {"tplans": lambda emit, _a: time_tplans(emit), "talt": lambda emit, _a: time_talt(emit),
+            "bplans": time_bplans, "bsplits": lambda emit, _a: time_bsplits(emit),
+            "loops": lambda emit, _a: time_loops(emit), "heads": lambda emit, _a: time_heads(emit)}
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", help="also write the JSON lines here")
-    ap.add_argument("--only", nargs="+", choices=sorted(SECTIONS), default=list(SECTIONS),
-                    help="the sections to run (default: all)")
-    args = ap.parse_args(argv)
-    import torch
-
-    from midi_vae_tpu_torch import use_exact_f32
-
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    use_exact_f32()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    out = open(args.out, "w") if args.out else None
-
-    def emit(rec):
-        line = json.dumps({**rec, "card": smi})
-        print(line, flush=True)
-        if out:
-            out.write(line + "\n")
-
-    for name in args.only:
-        SECTIONS[name](emit)
-    if out:
-        out.close()
-    return 0
+    return _timing.main(__doc__, SECTIONS, argv)
 
 
 if __name__ == "__main__":

@@ -4,6 +4,10 @@ csrc/gru_layer_xp_bwd.cu), at the paths' shapes on the card.
 
 Run from the repo root on a CUDA card:
     python -m midi_vae_tpu_torch.tools.time_x_and_g [--out FILE] [--only SECTION ...]
+        [--H H ...] [--B B ...]
+
+``--H`` and ``--B`` keep a section's cases at those widths and batches
+(``--H 1024 --only xplans gplans``: GRU(1024)'s plans).
 
 To compare two checkouts in one call, run the file from one with the
 other's root on PYTHONPATH (``--only digests`` uses public wrappers that
@@ -12,22 +16,25 @@ older checkouts have too):
 
 1. xplans: X's chain (A's bf16 chain over a bf16 xp) at every plan of
    ``_layout.gru_fwd_plans`` (each cluster size whose slice fits, each
-   split count) on X_CASES (T 64; H 256: B 256, 5 and 1024; H 512: B 256,
-   128 and 512, the sequence emitted), beside the plan
-   ``encoder_scan.scan_chain_plan`` picks. Each plan's time is
-   the device's: one launch in a CUDA-event window, the median of REPS,
-   the plans once in order and once reversed, the two medians averaged; its
-   max |diff| from the pick. ``near_best`` lists the plans within NEAR of
-   the fastest's time; tests/test_torch_gru_xp_chains.py holds the picks
-   against those sets.
+   split count), and above H = 512 its streamed instance at every plan of
+   ``_layout.gru_tc_plans(..., elem=2)``, on X_CASES (T 64; H 256: B 256,
+   5 and 1024; H 512: B 256, 128 and 512; H 1024: B 256, 64, 16 and 5; the
+   sequence emitted), beside the plan ``encoder_scan.scan_chain_plan``
+   picks (``_timing.sweep``). Each plan's time is the device's: one launch
+   in a CUDA-event window, the median of ``_timing.REPS``, the plans once
+   in order and once reversed, the two medians averaged; its max |diff|
+   from the pick. ``near_best`` lists the plans within ``_timing.NEAR`` of
+   the fastest's time; tests/test_torch_gru_xp_chains.py and
+   tests/test_torch_gru1024.py hold the picks against those sets.
 2. gplans: G's chain (C's, with the bf16 build's dxp) at every cluster
    size ``_layout._bptt_candidate`` gives a plan at, on G_CASES (T 64;
-   float32 at H 256 and 512, bf16 at H 512 and 256; B 256, 128, 1024, 5),
-   beside ``gru_layer.xp_bwd_plan``'s pick, timed as above.
-3. phases: at X_CASES and G_CASES, X and G through their public wrappers
+   float32 at H 256, 512 and 1024, bf16 at H 256, 512 and 1024; B 256,
+   128, 1024, 5), beside ``gru_layer.xp_bwd_plan``'s pick, timed as above
+   (keys: the cluster size).
+3. phases: at X_CASES and G_CASES up to H = 512, X and G through their public wrappers
    beside their per-block routes (the first designs, run at the same
    shapes), G's pre-pass and chain apart; each in one CUDA-event window,
-   the median of REPS, in turns (block, chain, chain, block).
+   the median of ``_timing.REPS``, in turns (block, chain, chain, block).
 4. digests: sha256 of kernel A's outputs (the pre-pass and the chain,
    float32 and bf16) and kernel C's (the pre-pass, the chain and the dx
    pass, float32 and bf16) on numpy-seeded inputs at (T 64, B 256, H 256
@@ -40,48 +47,28 @@ Prints one JSON line per measurement, with the card's name and power limit.
 
 from __future__ import annotations
 
-import argparse
 import hashlib
-import json
-import subprocess
 import sys
 
-REPS = 15
-NEAR = 0.10
+if __package__:
+    from midi_vae_tpu_torch.tools import _timing
+else:  # run as a file, perhaps beside another checkout's package
+    import _timing
+
+in_turns, max_diff, select, sweep = _timing.in_turns, _timing.max_diff, _timing.select, _timing.sweep
 T = 64
 # (H, B) of X: row 26 (GRU(256) at B 256 and 5), the bf16 GRU(256) at B
-# 1024, wide512_bf16 (B 256), GRU(512) bf16 at B 128, row 27 (B 512)
-X_CASES = [(256, 256), (256, 5), (256, 1024), (512, 256), (512, 128), (512, 512)]
+# 1024, wide512_bf16 (B 256), GRU(512) bf16 at B 128, row 27 (B 512);
+# GRU(1024) bf16 at B 256, 64, 16 and 5 (its streamed instance; xplans
+# only: the per-block route launches up to H = 512)
+X_CASES = [(256, 256), (256, 5), (256, 1024), (512, 256), (512, 128), (512, 512),
+           (1024, 256), (1024, 64), (1024, 16), (1024, 5)]
 # (bf16, H, B) of G: rows 10 and 12 in float32 (GRU(256) and the wide
 # step), row 10 in bf16 (wide512_bf16, GRU(512) at B 128, GRU(256) at B
-# 1024), and B 5
+# 1024), and B 5; GRU(1024)'s step in float32 and bf16 (gplans only)
 G_CASES = [(False, 256, 256), (False, 512, 256), (False, 512, 5), (True, 512, 256),
-           (True, 512, 128), (True, 256, 1024), (True, 512, 5)]
-
-
-def median_ms(fn, reps=REPS):
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[reps // 2]
-
-
-def in_turns(fns):
-    """{key: ms}: each fn's median, in order then reversed, averaged."""
-    keys = list(fns)
-    fwd, back = {}, {}
-    for order, into in ((keys, fwd), (list(reversed(keys)), back)):
-        for k in order:
-            fns[k]()
-            into[k] = median_ms(fns[k])
-    return {k: (fwd[k] + back[k]) / 2 for k in keys}
+           (True, 512, 128), (True, 256, 1024), (True, 512, 5), (False, 1024, 256),
+           (True, 1024, 256)]
 
 
 def _rand(gen, dev):
@@ -118,104 +105,67 @@ def _g_operands(bf16, H, B, seed):
     return xp, seq, h0, randn(T, B, H).to(dt), u
 
 
-def _flat(out):
-    return [t for t in (out if isinstance(out, (tuple, list)) else (out,)) if t is not None]
+def time_xplans(emit, args):
+    """X's chain at every plan: A's bf16 instance's where U's slice is
+    resident, the streamed (tensor-core) instance's above H = 512."""
+    import torch
 
-
-def _max_diff(got, want):
-    return max((g.float() - w.float()).abs().max().item() for g, w in zip(_flat(got), _flat(want)))
-
-
-def time_xplans(emit):
     from midi_vae_tpu_torch.ops import _layout
     from midi_vae_tpu_torch.ops import encoder_scan as es
     from midi_vae_tpu_torch.ops import gru_layer as gl
 
-    picked_plan = es.scan_chain_plan
-    for H, B in X_CASES:
+    key = lambda p: (f"tc {p.cluster}x{p.rows}/{p.chunk}/st{p.stages}" if p.chunk  # noqa: E731
+                     else f"{p.cluster}x{p.rows}/s{p.splits}")
+    for H, B in select(X_CASES, args):
         xp, h0, u = _x_operands(H, B, H + B)
-        plans = _layout.gru_fwd_plans(_layout.X_CHAIN_BUILD, H, B,
-                                      lambda C: gl._max_clusters("gru_encoder_scan", True, C))
-        pick = picked_plan(H, B)
-        call = lambda: es.gru_encoder_scan_fwd(xp, h0, u, "tanh", True)  # noqa: E731
-        want = call().clone()
-        key = lambda p: f"{p.cluster}x{p.rows}/s{p.splits}"  # noqa: E731
-        err, fns = {}, {}
-        try:
-            for p in plans:
-                es.scan_chain_plan = lambda *_a, _p=p: _p
-                err[key(p)] = _max_diff(call(), want)
-                fns[key(p)] = lambda _p=p: (setattr(es, "scan_chain_plan", lambda *_a: _p), call())
-            ms = in_turns(fns)
-        finally:
-            es.scan_chain_plan = picked_plan
-        best = min(ms.values())
-        emit({"what": "X chain plans", "H": H, "B": B, "picked": key(pick), "ms": ms,
-              "near_best": [k for k in ms if ms[k] <= (1 + NEAR) * best],
-              "max_abs_diff_from_pick": err})
+        if _layout.gru_fwd_cluster(_layout.X_CHAIN_BUILD, H)[1]:
+            what, plans = "X streamed plans", _layout.gru_tc_plans(H, B, es._tc_max_clusters,
+                                                                   elem=2)
+        else:
+            what, plans = "X chain plans", _layout.gru_fwd_plans(
+                _layout.X_CHAIN_BUILD, H, B, lambda C: gl._max_clusters("gru_encoder_scan", True, C))
+        with torch.no_grad():
+            sweep(emit, what, plans, _timing.patch("scan_chain_plan", es),
+                  lambda: es.gru_encoder_scan_fwd(xp, h0, u, "tanh", True), key,
+                  es.scan_chain_plan(H, B), H=H, B=B)
 
 
-def time_gplans(emit):
+def time_gplans(emit, args):
+    """G's chain at every cluster size its cost model gives a plan at."""
     import torch
 
     from midi_vae_tpu_torch.ops import _layout
     from midi_vae_tpu_torch.ops import gru_layer as gl
 
-    picked_plan = gl.xp_bwd_plan
-    for bf16, H, B in G_CASES:
+    for bf16, H, B in select(G_CASES, args, H=lambda c: c[1], B=lambda c: c[2]):
         xp, seq, h0, d_seq, u = _g_operands(bf16, H, B, H + B)
         hprev = torch.cat([h0[None], seq[:-1]])
         with torch.no_grad():
             gates = gl.gru_bwd_gates_xp_reference(xp, hprev, u)[0]
         build = _layout.G_CHAIN_BUILDS[bf16]
-        parts = _layout._bptt_parts(build, H, None)
-        elem = 2 if bf16 else 4
-        plans = {}
-        for C in _layout.CLUSTER_SIZES:
-            if not _layout._bptt_cluster_ok(H, C):
-                continue
-            got = _layout._bptt_candidate(H, B, C, parts,
-                                          gl._max_clusters("gru_layer_xp_bwd", bf16, C), elem)
-            if got is not None:
-                plans[C] = got[0]
-        pick = picked_plan(bf16, H, B)
-        call = lambda: gl.gru_layer_xp_bwd_chain(gates, hprev, d_seq, None, u)  # noqa: E731
-        want = [t.clone() for t in call()]
-        err, fns = {}, {}
-        try:
-            for C, p in plans.items():
-                gl.xp_bwd_plan = lambda *_a, _p=p: _p
-                err[C] = _max_diff(call(), want)
-                fns[C] = lambda _p=p: (setattr(gl, "xp_bwd_plan", lambda *_a: _p), call())
-            ms = in_turns(fns)
-        finally:
-            gl.xp_bwd_plan = picked_plan
-        best = min(ms.values())
-        emit({"what": f"{build} clusters at G's shapes", "bf16": bf16, "H": H, "B": B,
-              "picked": pick.cluster, "ms": {str(C): v for C, v in ms.items()},
-              "near_best": [C for C in ms if ms[C] <= (1 + NEAR) * best],
-              "plans": {str(C): {"rows": p.rows, "clusters": p.clusters, "waves": p.waves,
-                                 "resident": p.resident, "stages": p.stages, "nbuf": p.nbuf}
-                        for C, p in plans.items()},
-              "max_abs_diff_from_pick": {str(C): v for C, v in err.items()}})
+        sweep(emit, f"{build} clusters at G's shapes", _timing.bptt_plans(build, H, B),
+              _timing.patch("xp_bwd_plan", gl),
+              lambda: gl.gru_layer_xp_bwd_chain(gates, hprev, d_seq, None, u),
+              lambda p: p.cluster, gl.xp_bwd_plan(bf16, H, B), bf16=bf16, H=H, B=B)
 
 
-def time_phases(emit):
+def time_phases(emit, args):
     import torch
 
     from midi_vae_tpu_torch.ops import encoder_scan as es
     from midi_vae_tpu_torch.ops import gru_layer as gl
 
-    for H, B in X_CASES:
+    for H, B in select([c for c in X_CASES if c[0] <= 512], args):
         xp, h0, u = _x_operands(H, B, 7 + H + B)
         chain = lambda: es.gru_encoder_scan_fwd(xp, h0, u, "tanh", True)  # noqa: E731
         block = lambda: es.gru_encoder_scan_block(xp, h0, u, "tanh", True)  # noqa: E731
         with torch.no_grad():
-            diff = _max_diff(chain(), es.gru_encoder_scan_reference(xp, h0, u, "tanh", True))
+            diff = max_diff(chain(), es.gru_encoder_scan_reference(xp, h0, u, "tanh", True))
         ms = in_turns({"block": block, "chain": chain})
         emit({"what": "X", "H": H, "B": B, "T": T, "ms": ms["chain"], "ms_block": ms["block"],
-              "max_abs_diff_from_plain": diff, "max_abs_diff_block": _max_diff(block(), chain())})
-    for bf16, H, B in G_CASES:
+              "max_abs_diff_from_plain": diff, "max_abs_diff_block": max_diff(block(), chain())})
+    for bf16, H, B in select([c for c in G_CASES if c[1] <= 512], args, H=lambda c: c[1],
+                             B=lambda c: c[2]):
         xp, seq, h0, d_seq, u = _g_operands(bf16, H, B, 11 + H + B)
         args = (xp, seq, h0, d_seq, None, u)
         hprev = torch.cat([h0[None], seq[:-1]])
@@ -227,7 +177,7 @@ def time_phases(emit):
                "chain": lambda: gl.gru_layer_xp_bwd_chain(gates, hprev, d_seq, None, u)}
         with torch.no_grad():
             plain = gl.gru_layer_xp_bwd_reference(*args)
-        diff = _max_diff(fns["G"]()[1:3], plain[1:3])
+        diff = max_diff(fns["G"]()[1:3], plain[1:3])
         ms = in_turns(fns)
         emit({"what": "G", "bf16": bf16, "H": H, "B": B, "T": T, "ms": ms["G"],
               "ms_block": ms["block"], "ms_gates": ms["gates"], "ms_chain": ms["chain"],
@@ -316,38 +266,13 @@ def digests():
     return out
 
 
+SECTIONS = {"xplans": time_xplans, "gplans": time_gplans, "phases": time_phases,
+            "digests": lambda emit, _args: emit({"what": "digests of A, C and E",
+                                                 "digests": digests()})}
+
+
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", help="also write the JSON lines here")
-    ap.add_argument("--only", nargs="+", choices=("xplans", "gplans", "phases", "digests"),
-                    default=("xplans", "gplans", "phases", "digests"))
-    args = ap.parse_args(argv)
-    import torch
-
-    from midi_vae_tpu_torch import use_exact_f32
-
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    use_exact_f32()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    out = open(args.out, "w") if args.out else None
-
-    def emit(rec):
-        line = json.dumps({**rec, "card": smi})
-        print(line, flush=True)
-        if out:
-            out.write(line + "\n")
-
-    for section in args.only:
-        if section == "digests":
-            emit({"what": "digests of A, C and E", "digests": digests()})
-        else:
-            {"xplans": time_xplans, "gplans": time_gplans, "phases": time_phases}[section](emit)
-    if out:
-        out.close()
-    return 0
+    return _timing.main(__doc__, SECTIONS, argv)
 
 
 if __name__ == "__main__":

@@ -354,7 +354,9 @@ def test_routes_off_the_widths():
     """Off the multiples of 32 only F's chain launches, where one CTA holds
     the slice (H = 48); at H = 1024 F's streamed
     chain and D wide's chain have plans where their per-block designs do
-    not launch (H threads over 512), worked out and not run."""
+    not launch (H threads over 512), and the route chooser holds the wide
+    route to the chains' limits, so a step at 1024 takes it (on the card:
+    ``chip_smoke.py``'s GRU(1024) phases)."""
     assert "multiple of 32" in _layout.xp_layer_limit("F", 200)
     assert _layout.gru_xp_fwd_route(48) == "chain"  # A's chain: the whole slice in one CTA
     for H_ in (48, 200):
@@ -365,10 +367,11 @@ def test_routes_off_the_widths():
     assert "__launch_bounds__" in _layout.launch_limit("F", 1024, _layout.smem_bytes("F", 1024))
     assert _layout.dec_train_route("D_wide", 1024, 61, 2) == "chain"
     assert _layout.dec_train_plan(1024, 61, 2, 256).rows >= 1
-    # the route chooser keeps the first designs' limits for a step at 1024
+    # the first designs' limits stay the per-block routes' (``_part_limit``),
+    # and the route chooser reads the chains' (``dec_train_limit``)
     assert "__launch_bounds__" in _layout._part_limit("D_wide", 1024, 61, 2)
-    with pytest.raises(_layout.LaunchLimitError, match="__launch_bounds__"):
-        _layout.train_route(1024, [(61, False)], [(61, 2)])
+    assert _layout.dec_train_limit("D_wide", 1024, 61, 2) is None
+    assert _layout.train_route(1024, [(61, False)], [(61, 2)]) == "wide"
 
 
 def _bwd_chain_test_module():

@@ -275,15 +275,20 @@ def test_routes_at_every_width_x_and_g_launched_at_before(H_):
 
 
 def test_routes_off_the_widths():
-    """No route launches off the multiples of 32 or (X, and G's per-block
-    route) above 512 threads; G's chain has plans at H = 1024, X's does not
-    (its CTA slice of U does not fit), and the route raises before launch."""
+    """No route launches off the multiples of 32 or (X's and G's per-block
+    routes) above 512 threads; G's chain has plans at H = 1024, and so does
+    X's, whose CTA slice of U does not fit a CTA there: its bf16 slice
+    streams through F's tensor-core instance (``gru_tc_plan(..., elem=2)``),
+    not through A bf16's resident chain, and its per-block route does not
+    launch."""
     for H_ in (48, 200):
         assert "multiple of 32" in _layout.xp_layer_limit("X", H_)
         assert "multiple of 32" in _layout.xp_layer_limit("G_bf16", H_)
-    with pytest.raises(_layout.LaunchLimitError, match="neither on its chain"):
-        _layout.gru_scan_route(1024)
-    assert "__launch_bounds__" in _layout.xp_layer_limit("X", 1024)
+    assert _layout.gru_scan_route(1024) == "chain"
+    assert _layout.gru_fwd_cluster(_layout.X_CHAIN_BUILD, 1024) == (16, True)
+    assert _layout.gru_fwd_plan(_layout.X_CHAIN_BUILD, 1024, 256).chunk > 0
+    assert _layout.xp_layer_limit("X", 1024) is None
+    assert "__launch_bounds__" in _layout.launch_limit("X", 1024, _layout.smem_bytes("X", 1024))
     assert _layout.gru_xp_bwd_route(1024) == _layout.gru_xp_bwd_route(1024, True) == "chain"
 
 

@@ -350,18 +350,23 @@ def test_route_of_the_default_config_at_256_and_512():
 
 
 def test_a_width_no_build_launches_raises_naming_the_limit():
+    # H = 1056 (since the chains took H = 1024, the widest the configs run):
+    # A per block over its registers, F per block over its launch bounds,
+    # and no chain takes a width that is not a multiple of 64 there
     with pytest.raises(_layout.LaunchLimitError, match="registers.*__launch_bounds__"):
-        _layout.config_route(Config(lstm_size=1024))
+        _layout.config_route(Config(lstm_size=1056))
     # off the card both routes run the plain versions
-    assert _layout.config_route(Config(lstm_size=1024), on_card=False) == "narrow"
+    assert _layout.config_route(Config(lstm_size=1056), on_card=False) == "narrow"
     with pytest.raises(_layout.LaunchLimitError, match="multiple of 32"):
         _layout.require("F", 48, 0)
     assert "shared memory" in _layout.launch_limit("G", 512, 300_000)
     model = MidiVAE.__new__(MidiVAE)
-    model.cfg = Config(lstm_size=1024)
-    with pytest.raises(_layout.LaunchLimitError, match="H=1024"):
+    model.cfg = Config(lstm_size=1056)
+    with pytest.raises(_layout.LaunchLimitError, match="H=1056"):
         model.train_route(torch.device("cuda"))
     assert model.train_route(torch.device("cpu")) == "narrow"
+    model.cfg = Config(lstm_size=1024)
+    assert model.train_route(torch.device("cuda")) == "wide"
 
 
 def test_ptxas_report_is_parsed():
