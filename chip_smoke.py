@@ -295,6 +295,22 @@ result line):
      held_residual_bf16 and held_notes (float32 limits), held_bf16 and the
      bf16 GRU(512) at B = 128 (bf16 limits), each step's time beside
      Config()'s.
+ 42. generation (after the GRU(1024) phases): cli.generate --device cuda on
+     a seeded-init Config() run with an authored two-class corpus as
+     --source, each mode (random, style, interpolate, long) with the
+     default choice sampling and random with --sample-method argmax, then
+     an LSTM run in random mode; every .mid parses back, the launch
+     counters equal A 4 (L 4) per encode and B 3 (M 3) per decode call;
+ 43. evaluation: cli.evaluate --device cuda at Config() width with GRU
+     judges over all eleven sections at --num-songs 1: results.json's
+     numbers finite or null, a CSV row per evaluated song and the mean
+     row, every .mid parses back, A 4 per encode + A 2 per judge call and
+     B 3 per decode call; each section's wall seconds;
+ 44. the harness card against CPU: decode_batch's probabilities of every
+     head at each bucket size phases 42 and 43 reached (PROBS_ATOL), and
+     the autoencoding section over 3 songs with GRU judges (the rolls'
+     agreement at MIN_ARGMAX_AGREEMENT, the accuracies of the songs without
+     a flipped row within ACC_ATOL).
 Then D's and M's route counters on the Config(), bf16 Config() and
 residual_bf16 training slices and the LSTM transfer (every launch their
 chains'), one JSON line with the kernels, and the final line
@@ -2268,8 +2284,7 @@ def phase_slice(work, cell_type="GRU", judges=False):
     from midi_vae_tpu_torch.models.vae import MidiVAE
     from midi_vae_tpu_torch.training.checkpoint import save_run
 
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import make_demo_corpus as corpus
+    from midi_vae_tpu_torch.tools import make_demo_corpus as corpus
 
     cfg = Config(cell_type=cell_type)
     tag = f"{cell_type}{' + judges' if judges else ''}"
@@ -2752,8 +2767,7 @@ def phase_train_slice(work, sets=(), key=None):
     from midi_vae_tpu_torch.ops import _layout
     from midi_vae_tpu_torch.training import checkpoint as ckpt
 
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import make_demo_corpus as corpus
+    from midi_vae_tpu_torch.tools import make_demo_corpus as corpus
 
     rng = np.random.RandomState(1)
     source = os.path.join(work, "corpus")
@@ -3479,8 +3493,7 @@ def phase_judge_training(work, smi):
     from midi_vae_tpu_torch.training.checkpoint import save_run
     from midi_vae_tpu_torch.training.classifier_trainer import ClassifierTrainer, classifier_arrays
 
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import make_demo_corpus as corpus
+    from midi_vae_tpu_torch.tools import make_demo_corpus as corpus
 
     rng = np.random.RandomState(3)
     source, cache = os.path.join(work, "corpus"), os.path.join(work, "cache")
@@ -6272,8 +6285,7 @@ def phase_gru_3layer_serving(work, smi):
     from midi_vae_tpu_torch.models.vae import MidiVAE
     from midi_vae_tpu_torch.training.checkpoint import save_run
 
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import make_demo_corpus as corpus
+    from midi_vae_tpu_torch.tools import make_demo_corpus as corpus
 
     cfg = Config(num_layers_decoder=3)
     run = os.path.join(work, "run")
@@ -6305,6 +6317,464 @@ def phase_gru_3layer_serving(work, smi):
     print(f"[3-layer head] transfer CLI on {len(inputs)} songs in {secs:.2f} s; launches "
           f"{launches} (as designed)")
     return launches, phase_card_vs_cpu(smi, "GRU", {"num_layers_decoder": 3})
+
+
+# the sections of cli.evaluate, in the order Evaluator.run takes them
+EVAL_SECTIONS = ("stats", "harmonicity", "medleys", "random_interpolations", "latent_sweep",
+                 "chords", "sampling_regions", "pitches", "random_songs", "long_songs",
+                 "autoencoding")
+GEN_MODES = (("random", []), ("style", []), ("interpolate", []), ("long", []),
+             ("random_argmax", ["--sample-method", "argmax"]))
+
+
+def harness_corpus(work):
+    """The authored two-class corpus of the generation and evaluation slices:
+    10 songs a style (the seeded shuffle split keeps 2 for the test set)."""
+    import numpy as np
+
+    from midi_vae_tpu_torch.tools import make_demo_corpus as corpus
+
+    source = os.path.join(work, "corpus")
+    rng = np.random.RandomState(7)
+    for style in ("style1", "style2"):
+        os.makedirs(os.path.join(source, style))
+        for i in range(10):
+            corpus.make_song(corpus.STYLES[style], rng).write(
+                os.path.join(source, style, f"{style}_{i}.mid"))
+    return source
+
+
+class HarnessCalls:
+    """Counts the harness's device calls while it is entered:
+    ``GenerationContext.encode_song`` (one encode, kernel A 4 or L 4),
+    ``GenerationContext._decode_padded`` (one decode, B 3 or M 3) and each
+    judge made by ``make_judge`` (A 2 or L 2 a call), with the
+    ``bucket_pow2`` batch of each decode and judge call; with ``rolls``,
+    the rolls Y of each ``decode_and_process`` call and the probabilities
+    of each judge call, in order."""
+
+    def __init__(self, rolls=False):
+        self.encode = self.decode = self.judge = 0
+        self.decode_buckets, self.judge_buckets = set(), set()
+        self.rolls, self.judged = ([], []) if rolls else (None, None)
+
+    def __enter__(self):
+        import numpy as np
+
+        from midi_vae_tpu_torch.data.batching import bucket_pow2
+        from midi_vae_tpu_torch.evaluation.generation import GenerationContext
+        from midi_vae_tpu_torch.models import classifier
+
+        self._saved = [(GenerationContext, name, getattr(GenerationContext, name))
+                       for name in ("encode_song", "_decode_padded", "decode_and_process")]
+        self._saved.append((classifier, "make_judge", classifier.make_judge))
+        encode, decode, process = (fn for _, _, fn in self._saved[:3])
+        make_judge = classifier.make_judge
+
+        def encode_song(ctx, X, *args):
+            self.encode += 1
+            return encode(ctx, X, *args)
+
+        def decode_padded(ctx, fn, z, *args):
+            self.decode += 1
+            self.decode_buckets.add(bucket_pow2(np.atleast_2d(z).shape[0]))
+            return decode(ctx, fn, z, *args)
+
+        def decode_and_process(ctx, *args, **kwargs):
+            out = process(ctx, *args, **kwargs)
+            if self.rolls is not None:
+                self.rolls.append(out[0])
+            return out
+
+        def counted_judge(model):
+            predict = make_judge(model)
+
+            def judge(x):
+                self.judge += 1
+                self.judge_buckets.add(bucket_pow2(len(x)))
+                probs = predict(x)
+                if self.judged is not None:
+                    self.judged.append(probs)
+                return probs
+
+            return judge
+
+        GenerationContext.encode_song = encode_song
+        GenerationContext._decode_padded = decode_padded
+        GenerationContext.decode_and_process = decode_and_process
+        classifier.make_judge = counted_judge
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+    def want(self, cell_type="GRU"):
+        """The launches the design implies for the calls counted."""
+        layer, decode = SERVING_KERNELS[cell_type]
+        return fwd_phases({k: v for k, v in ((layer, 4 * self.encode + 2 * self.judge),
+                                             (decode, 3 * self.decode)) if v})
+
+
+def check_midis(folder, tag):
+    """Every .mid under ``folder`` parses back; returns how many."""
+    from midi_vae_tpu_torch.data import smf
+
+    n = 0
+    for dirpath, _, files in os.walk(folder):
+        for f in files:
+            if f.endswith(".mid"):
+                smf.read_midi(os.path.join(dirpath, f))
+                n += 1
+    if not n:
+        raise RuntimeError(f"{tag}: no .mid written under {folder}")
+    return n
+
+
+def seeded_run(work, name, cfg):
+    from midi_vae_tpu_torch import bridge
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.training.checkpoint import save_run
+
+    run = os.path.join(work, name)
+    save_run(run, cfg, bridge.to_tree(MidiVAE(cfg).params))
+    return run
+
+
+def phase_generation_slice(work, smi):
+    """``cli.generate --device cuda`` on a seeded-init ``Config()`` run with
+    the authored corpus as ``--source`` (the train split's latents give
+    z_std, the style means and the long songs' chain), at the CLI's
+    defaults (``--count 4``, ``--length 10``): each mode with the default
+    choice sampling, and ``random`` with ``--sample-method argmax``; then an LSTM run (``Config(cell_type="LSTM")``) in ``random``
+    mode. Every .mid parses back; the launch counters equal A 4 (L 4) per
+    encode and B 3 (M 3) per decode call, every launch on a chain. Returns
+    the paths' counters, the decode buckets reached by cell type, each
+    mode's wall seconds."""
+    import io
+    from contextlib import redirect_stdout
+
+    from midi_vae_tpu_torch.cli import generate
+    from midi_vae_tpu_torch.config import Config
+
+    source, cache = harness_corpus(work), os.path.join(work, "cache")
+    runs = {"GRU": seeded_run(work, "gru_run", Config()),
+            "LSTM": seeded_run(work, "lstm_run", Config(cell_type="LSTM"))}
+    paths, buckets, seconds = {}, {"GRU": set(), "LSTM": set()}, {}
+    for cell_type, (mode, extra) in [("GRU", m) for m in GEN_MODES] + [("LSTM", ("random", []))]:
+        tag = f"{mode}{' LSTM' if cell_type == 'LSTM' else ''}"
+        out = os.path.join(work, f"gen_{cell_type}_{mode}")
+        args = ["--model", runs[cell_type], "--output", out, "--mode", mode.split("_")[0],
+                "--source", source, "--cache", cache, "--device", "cuda", *extra]
+        reset_counters()
+        buf = io.StringIO()
+        with HarnessCalls() as calls, redirect_stdout(buf):
+            t0 = time.perf_counter()
+            rc = generate.main(args)
+            seconds[tag] = time.perf_counter() - t0
+        launches = read_counters()
+        if rc != 0:
+            raise RuntimeError(f"cli.generate {tag} returned {rc}\n{buf.getvalue()}")
+        n_mid = check_midis(out, f"cli.generate {tag}")
+        want = calls.want(cell_type)
+        if launches != want or not calls.decode:
+            raise RuntimeError(f"cli.generate {tag}: launch counters {launches}, expected {want} "
+                               f"({calls.encode} encodes, {calls.decode} decodes)")
+        buckets[cell_type] |= calls.decode_buckets
+        paths[f"generate_{cell_type.lower()}_{mode}"] = launches
+        print(f"[generate] {tag}: {n_mid} .mid that parse back, {calls.encode} encodes, "
+              f"{calls.decode} decodes (buckets {sorted(calls.decode_buckets)}), launches "
+              f"{launches} (as designed); {seconds[tag]:.2f} s on {smi}")
+    return paths, buckets, seconds
+
+
+def phase_evaluation_slice(work, smi):
+    """``cli.evaluate --device cuda`` at ``Config()`` width (seeded init) on
+    the authored corpus with GRU judges of all three kinds
+    (``write_judges``), over all eleven sections at ``--num-songs 1``:
+    results.json parses and its numbers are finite or null, the CSV has a
+    row per evaluated song (with its class and its switch pair's columns)
+    and the mean row, every .mid parses back, and the launch counters equal
+    A 4 per encode + A 2 per judge call and B 3 per decode call, every
+    launch on a chain. Prints each section's wall seconds. Returns the
+    counters, the decode buckets, the sections' seconds."""
+    import csv
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+
+    from midi_vae_tpu_torch.cli import evaluate
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.evaluation.harness import Evaluator
+
+    cfg = Config()
+    source = harness_corpus(work)
+    run = seeded_run(work, "run", cfg)
+    judges = os.path.join(work, "judges")
+    write_judges(judges, cfg)
+    out = os.path.join(work, "eval")
+    if tuple(evaluate.SECTIONS) != EVAL_SECTIONS:
+        raise RuntimeError(f"cli.evaluate's sections {evaluate.SECTIONS}")
+    # each section's wall seconds (Evaluator.run calls them in turn)
+    seconds = {}
+    saved = {}
+    for name in [n for n in vars(Evaluator) if n.startswith("section_")] + ["_cache_latents"]:
+        saved[name] = getattr(Evaluator, name)
+
+        def timed(self, *args, _fn=saved[name], _name=name, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(self, *args, **kwargs)
+            finally:
+                seconds[_name] = seconds.get(_name, 0.0) + time.perf_counter() - t0
+
+        setattr(Evaluator, name, timed)
+    reset_counters()
+    buf = io.StringIO()
+    try:
+        with HarnessCalls() as calls, redirect_stdout(buf):
+            t0 = time.perf_counter()
+            rc = evaluate.main(["--source", source, "--model", run, "--classifiers", judges,
+                                "--output", out, "--sections", ",".join(EVAL_SECTIONS),
+                                "--num-songs", "1", "--device", "cuda"])
+            wall = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(Evaluator, name, fn)
+    launches = read_counters()
+    log = buf.getvalue()
+    if rc != 0:
+        raise RuntimeError(f"cli.evaluate returned {rc}\n{log}")
+    with open(os.path.join(out, "results.json")) as f:
+        results = json.load(f)
+
+    def bad_numbers(tree, where=""):
+        if isinstance(tree, dict):
+            return [b for k, v in tree.items() for b in bad_numbers(v, f"{where}/{k}")]
+        if isinstance(tree, list):
+            return [b for i, v in enumerate(tree) for b in bad_numbers(v, f"{where}[{i}]")]
+        return [where] if isinstance(tree, float) and not np.isfinite(tree) else []
+
+    want_keys = {"dataset_counts", "program_switch_percentage", "z_mean_train", "z_std_train",
+                 "harmonicity", "latent_sweep_best_dims", "latent_sweep_best_peaks",
+                 "chord_latents", "sampling_region_scales", "sampling_region_locs",
+                 "pitch_latents", "harmonicity_autoencoded", "mean_reconstruction_accuracy",
+                 "autoencoding_metrics", "switch_matrix", "signature_mahalanobis"}
+    if set(results) != want_keys or bad_numbers(results):
+        raise RuntimeError(f"results.json: keys {sorted(set(results) ^ want_keys)} differ, "
+                           f"non-finite numbers at {bad_numbers(results)[:5]}")
+    with open(os.path.join(out, "evaluation_metrics.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    n_test = results["dataset_counts"]["test_songs_per_class"]
+    if len(rows) != sum(n_test) + 1 or rows[-1]["song_name"] != "Mean":
+        raise RuntimeError(f"the CSV has {len(rows)} rows for {sum(n_test)} test songs + the mean")
+    for row in rows[:-1]:
+        C = cfg.classes.index(row["class"])
+        pairs = [f"switched_pitch_classifier_accuracy_{C}to{o}" for o in range(cfg.num_classes)
+                 if o != C]
+        if not all(row.get(p) for p in pairs) or not row.get("original_ensemble_classifier_accuracy"):
+            raise RuntimeError(f"CSV row of {row['song_name']} lacks its judges' columns")
+    n_mid = check_midis(out, "cli.evaluate")
+    want = calls.want("GRU")
+    if launches != want:
+        raise RuntimeError(f"cli.evaluate: launch counters {launches}, expected {want} "
+                           f"({calls.encode} encodes, {calls.decode} decodes, {calls.judge} judge calls)")
+    for name in ("harmonicity", "latent_sweep", "chord_evaluation", "pitch_evaluation",
+                 "sampling_regions", "autoencoding"):
+        if f"section_{name}" not in seconds:
+            raise RuntimeError(f"section_{name} did not run")
+    print(f"[evaluate] all eleven sections at Config() width with GRU judges: results.json "
+          f"({len(results)} keys, every number finite or null), a CSV of {len(rows) - 1} songs + the "
+          f"mean, {n_mid} .mid that parse back; {calls.encode} encodes, {calls.decode} decodes "
+          f"(buckets {sorted(calls.decode_buckets)}), {calls.judge} judge calls (buckets "
+          f"{sorted(calls.judge_buckets)}); launches {launches} (as designed); plots: "
+          f"{log.count('plot failed')} failed (matplotlib missing or not), "
+          f"{len([f for f in os.listdir(out) if f.endswith('.png')])} written")
+    print(f"[evaluate] wall {wall:.2f} s on {smi}; per section (s): " + ", ".join(
+        f"{k.removeprefix('section_')} {v:.2f}" for k, v in seconds.items()))
+    return launches, calls.decode_buckets, {"wall": wall, **seconds}
+
+
+def phase_harness_card_vs_cpu(work, smi, buckets):
+    """The harness on the card against the CPU plain path: ``decode_batch``
+    probabilities of every head at each bucket size the generation and
+    evaluation slices reached (``buckets``: cell type -> sizes; seeded
+    ``Config()`` models, seeded latents and histories), max |card - CPU| <=
+    PROBS_ATOL; then the ``autoencoding`` section over 3 songs of the
+    authored corpus (two of class 0, one of class 1, the train split) with
+    GRU judges on both devices: the rolls of every decode agree on at least
+    MIN_ARGMAX_AGREEMENT of their rows, the probabilities of every judge
+    call on windows equal on both devices within JUDGE_ATOL of the CPU's,
+    and every accuracy of every row within ACC_ATOL of the CPU's plus the
+    share of its call's rows whose argmax differs card vs CPU (seeded judges
+    sit near 1 / num_classes, so a row can flip at a near-tie; one flipped
+    row moves an accuracy by one row and no more)."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+
+    from midi_vae_tpu_torch import bridge
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.data.dataset import import_midi_from_folder
+    from midi_vae_tpu_torch.evaluation import EvalSections, Evaluator
+    from midi_vae_tpu_torch.evaluation.generation import GenerationContext
+    from midi_vae_tpu_torch.models.classifier import ensemble_prediction
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.training.checkpoint import load_classifier
+
+    errs = {}
+    for cell_type, sizes in buckets.items():
+        cfg = Config(cell_type=cell_type)
+        params = bridge.to_tree(MidiVAE(cfg).params)
+        ctxs = {d: GenerationContext(cfg, MidiVAE(cfg, params), d) for d in ("cuda", "cpu")}
+        for n in sorted(sizes):
+            rng = np.random.RandomState(n)
+            z = rng.normal(0.0, 0.1, (n, cfg.latent_dim)).astype(np.float32)
+            H = rng.normal(0.0, 0.1, (n, cfg.latent_dim)).astype(np.float32)
+            card, cpu = (ctxs[d].decode_batch(z, history=H) for d in ("cuda", "cpu"))
+            for k in cpu:
+                if not np.isfinite(card[k]).all():
+                    raise RuntimeError(f"{cell_type} decode_batch at {n}: head {k} not finite")
+                errs[(cell_type, n, k)] = float(np.abs(card[k] - cpu[k]).max())
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    if worst[1] > PROBS_ATOL:
+        raise RuntimeError(f"decode_batch card vs CPU: max |dprobs| {worst[1]:.3e} at {worst[0]} > "
+                           f"{PROBS_ATOL:.0e}")
+    print(f"[harness card vs cpu] decode_batch at buckets " + "; ".join(
+        f"{c} {sorted(s)}" for c, s in buckets.items()) + f": max |dprobs| {worst[1]:.3e} "
+        f"({worst[0]}; limit {PROBS_ATOL:.0e})")
+
+    cfg = Config()
+    params = bridge.to_tree(MidiVAE(cfg).params)
+    source = harness_corpus(os.path.join(work, "autoencoding"))
+    judge_dir = os.path.join(work, "autoencoding", "judges")
+    write_judges(judge_dir, cfg)
+    ds = import_midi_from_folder(source, cfg)
+    keep = [i for i, c in enumerate(ds.C_train) if c == 0][:2] + \
+           [i for i, c in enumerate(ds.C_train) if c == 1][:1]
+    for name in ("X", "Y", "I", "V", "D", "T", "C"):
+        setattr(ds, f"{name}_train", [getattr(ds, f"{name}_train")[i] for i in keep])
+    ds.train_paths = [ds.train_paths[i] for i in keep]
+    sections = EvalSections(evaluate_autoencoding_and_stuff=True, save_anything=False)
+    metrics, recorded = {}, {}
+    for device in ("cuda", "cpu"):
+        judges = {k: load_classifier(os.path.join(judge_dir, k)) for k in ("pitch", "velocity",
+                                                                           "instrument")}
+        with HarnessCalls(rolls=True) as calls, redirect_stdout(io.StringIO()):
+            ev = Evaluator(cfg, params, ds, os.path.join(work, f"ae_{device}"), classifiers=judges,
+                           test_train_set=True, seed=0, device=device)
+            metrics[device] = ev.run(sections, log_fn=lambda s: None)["autoencoding_metrics"]
+        recorded[device] = calls
+    rolls = {d: calls.rolls for d, calls in recorded.items()}
+    judged = {d: calls.judged for d, calls in recorded.items()}
+    # per song the decodes in order: the autoencoding, the mix with the
+    # previous song (from the second song on), one switch per other class;
+    # the judge calls in order: the original, the autoencoded and each
+    # switch's windows, each through pitch, velocity, instrument
+    kinds = ("pitch", "velocity", "instrument")
+    n_stages = 2 + cfg.num_classes - 1
+    per_song = [1 + (i > 0) + (cfg.num_classes - 1) for i in range(len(keep))]
+    if len(rolls["cuda"]) != sum(per_song) or len(rolls["cpu"]) != sum(per_song):
+        raise RuntimeError(f"autoencoding made {len(rolls['cuda'])} and {len(rolls['cpu'])} decodes, "
+                           f"expected {sum(per_song)}")
+    if len(judged["cuda"]) != len(judged["cpu"]) or \
+            len(judged["cpu"]) != len(keep) * n_stages * len(kinds):
+        raise RuntimeError(f"autoencoding made {len(judged['cuda'])} and {len(judged['cpu'])} judge "
+                           f"calls over {len(keep)} songs")
+    roll_flips = [int(np.sum(np.any(a != b, axis=1))) for a, b in zip(rolls["cuda"], rolls["cpu"])]
+    total = sum(len(a) for a in rolls["cpu"])
+    agree = 1.0 - sum(roll_flips) / total
+    # Each accuracy is the share of its call's rows whose argmax is the
+    # song's class, so card and CPU differ by at most the share of that
+    # call's rows whose argmax differs (judge or ensemble rows; for the
+    # pitch reconstruction accuracy, the autoencoding's flipped roll rows
+    # over the song's notes): every accuracy is held within ACC_ATOL plus
+    # that share. A judge's probabilities are held within JUDGE_ATOL where
+    # its windows are equal on both devices (the original song's, and those
+    # of a decode whose rolls agree row for row).
+    allow = {}  # (row, key) -> the share of the accuracy's rows that flipped
+    judge_err, judge_held, judge_flips = 0.0, 0, []  # flips: the CPU's top-2 margin
+
+    def flipped_share(g, w):
+        rows = g.argmax(1) != w.argmax(1)
+        top2 = np.sort(w, axis=1)[:, -2:]
+        judge_flips.extend((top2[:, 1] - top2[:, 0])[rows].tolist())
+        return float(rows.mean())
+
+    at = 0
+    for song, n_decodes in enumerate(per_song):
+        row = metrics["cpu"][song]
+        C = cfg.classes.index(row["class"])
+        targets = [o for o in range(cfg.num_classes) if o != C]
+        decode_of = [None, at] + [at + n_decodes - len(targets) + t for t in range(len(targets))]
+        allow[(song, "pitch_reconstruction_accuracy")] = \
+            roll_flips[at] / max(row["total_original_notes"], 1)
+        pair_shares = {}
+        for t in range(n_stages):
+            j = (song * n_stages + t) * len(kinds)
+            calls = {d: judged[d][j:j + len(kinds)] for d in ("cuda", "cpu")}
+            if decode_of[t] is None or not roll_flips[decode_of[t]]:
+                judge_err = max([judge_err] + [float(np.abs(g - w).max())
+                                               for g, w in zip(calls["cuda"], calls["cpu"])])
+                judge_held += len(kinds)
+            shares = {kind: flipped_share(g, w) for kind, g, w in zip(kinds, *calls.values())}
+            # the original song's one instrument matrix judges every window
+            ens = [ensemble_prediction(p_, np.repeat(i_, len(p_) // len(i_), axis=0), v_)
+                   for p_, v_, i_ in calls.values()]
+            shares["ensemble"] = flipped_share(*ens)
+            for name, share in shares.items():
+                if t < 2:
+                    allow[(song, f"{('original', 'autoencoded')[t]}_{name}_classifier_accuracy")] = share
+                else:
+                    allow[(song, f"switched_{name}_classifier_accuracy_{C}to{targets[t - 2]}")] = share
+                    pair_shares.setdefault(name, []).append(share)
+        for name, shares in pair_shares.items():
+            allow[(song, f"switched_{name}_classifier_accuracy")] = float(np.mean(shares))
+        at += n_decodes
+    # the mean row averages each key over the songs that have it
+    mean = len(keep)
+    for key in metrics["cpu"][mean]:
+        if "accuracy" in key:
+            songs = [s_ for s_ in range(mean) if key in metrics["cpu"][s_]]
+            allow[(mean, key)] = float(np.mean([allow.get((s_, key), np.inf) for s_ in songs]))
+    diffs, unaccounted = {}, []
+    for r, (g, w) in enumerate(zip(metrics["cuda"], metrics["cpu"])):
+        if sorted(g) != sorted(w):
+            raise RuntimeError(f"autoencoding row {r}: columns differ card vs CPU")
+        for key, value in w.items():
+            if "accuracy" in key:
+                diffs[(r, key)] = abs(g[key] - value)
+                if not np.isfinite(allow.get((r, key), np.inf)):
+                    unaccounted.append((w["song_name"], key))
+    if unaccounted or len(metrics["cpu"]) != mean + 1:
+        raise RuntimeError(f"autoencoding: {len(metrics['cpu'])} rows for {len(keep)} songs; "
+                           f"accuracies no judge call or decode gives: {unaccounted[:5]}")
+    exact = [d for k, d in diffs.items() if allow[k] == 0.0]
+    over = {k: d for k, d in diffs.items() if d > ACC_ATOL + allow[k]}
+    worst_exact = max(exact, default=0.0)
+    worst_excess = max(d - allow[k] for k, d in diffs.items())
+    if agree < MIN_ARGMAX_AGREEMENT or judge_err > JUDGE_ATOL or over:
+        raise RuntimeError(f"autoencoding card vs CPU: rolls agree on {agree:.5f} of {total} rows "
+                           f"(limit {MIN_ARGMAX_AGREEMENT}), judge probs {judge_err:.3e} (limit "
+                           f"{JUDGE_ATOL:.0e}), accuracies over ACC_ATOL + their flipped share: "
+                           f"{ {k: (d, allow[k]) for k, d in list(over.items())[:5]} }")
+    print(f"[harness card vs cpu] autoencoding over {len(keep)} songs with GRU judges: rolls agree "
+          f"on {agree:.5f} of {total} rows (flipped per decode {roll_flips}); every one of "
+          f"{len(diffs)} accuracies held: {len(exact)} with no flipped row at max |d accuracy| "
+          f"{worst_exact:.3e} (limit {ACC_ATOL:.0e}), {len(diffs) - len(exact)} within ACC_ATOL + "
+          f"the share of their rows that flipped (largest share "
+          f"{max(allow[k] for k in diffs):.3e}, worst |d| - share {worst_excess:.3e}); "
+          f"{len(judged['cpu'])} judge calls, {judge_held} on equal windows within max |dprobs| "
+          f"{judge_err:.3e} (limit {JUDGE_ATOL:.0e}); {len(judge_flips)} argmax flips of judge and "
+          f"ensemble rows at CPU margins {[float(f'{m:.3e}') for m in judge_flips[:8]]}")
+    return {"max_abs_dprobs": worst[1], "autoencoding_rows_agreement": agree,
+            "accuracies": len(diffs), "accuracies_no_flip": len(exact),
+            "autoencoding_max_abs_dacc_no_flip": worst_exact,
+            "autoencoding_worst_dacc_minus_share": worst_excess,
+            "judges_max_abs_dprobs": judge_err, "judge_calls_held": judge_held,
+            "judge_argmax_flips": len(judge_flips)}
 
 
 def kernel_registers(registers, letter):
@@ -6524,6 +6994,16 @@ def main() -> int:
     results.update(phase_gru1024_kernels())
     paths_1024, steps_1024, serving["GRU_1024"] = phase_gru1024_paths(smi)
     paths.update(paths_1024)
+    # generation and the evaluation harness (kernels A and B, L and M),
+    # through cli.generate and cli.evaluate, and the harness card vs CPU
+    with tempfile.TemporaryDirectory() as work:
+        gen_paths, buckets, gen_seconds = phase_generation_slice(work, smi)
+    paths.update(gen_paths)
+    with tempfile.TemporaryDirectory() as work:
+        paths["evaluate"], eval_buckets, eval_seconds = phase_evaluation_slice(work, smi)
+    buckets["GRU"] |= eval_buckets
+    with tempfile.TemporaryDirectory() as work:
+        harness = phase_harness_card_vs_cpu(work, smi, buckets)
     for path, counts in paths.items():
         for name in ("gru_encoder_stack_fwd", "gru_encoder_stack_bwd"):
             if counts.get(name, 0):
@@ -6868,6 +7348,8 @@ def main() -> int:
                       "train_step_1024": steps_1024,
                       "lstm_fwd_bwd_vs_cudnn": results["lstm_fwd_bwd_vs_cudnn"],
                       "encoder_stack_vs_per_layer": results["encoder_route"],
+                      "generate_seconds": gen_seconds, "evaluate_seconds": eval_seconds,
+                      "harness_card_vs_cpu": harness,
                       "grad_reduce_checks": w_checks, "a_c_digests": a_c_bits, "power": smi,
                       "wall_s": wall_s, "phase_seconds": PHASE_SECONDS}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@
 Counterpart of ``midi_vae_tpu/cli/transfer.py``: tensorize a song, encode
 it, swap the style dimensions z[C] <-> z[C_switch], decode, and write the
 transferred MIDI. The run directory holds ``config.json`` and
-``params.npz`` (``tools/jax_run_to_torch.py`` converts a JAX run). With
+``params.npz`` (``tools/jax_run_to_torch.py`` converts a JAX run), and
+``epoch_N/`` checkpoints after training (``--epoch N`` serves one). With
 ``--classifiers DIR`` (one ``pitch/``, ``velocity/``, ``instrument/`` judge
 directory each, ``training/checkpoint.py::save_classifier``) the judges score
 the original and the transferred song: per judge, the mean confidence of its
@@ -56,6 +57,8 @@ def _source_class(cfg, path: str) -> int:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", default=None, help="run dir (config.json + params.npz)")
+    p.add_argument("--epoch", type=int, default=None,
+                   help="serve the epoch_N/ checkpoint (default: the run's params.npz)")
     p.add_argument("--bundle", default=None, help="sealed serving bundle (not yet ported)")
     p.add_argument("--input", required=True, nargs="+", help="MIDI file(s)")
     p.add_argument("--output", required=True, help="output folder")
@@ -98,7 +101,7 @@ def main(argv: list[str] | None = None) -> int:
 
     cfg = ckpt.load_config(args.model)
     # raises when --device cuda finds no card: no silent CPU run
-    ctx = GenerationContext(cfg, MidiVAE(cfg, ckpt.load_params(args.model)), args.device)
+    ctx = GenerationContext(cfg, MidiVAE(cfg, ckpt.load_run_params(args.model, args.epoch)), args.device)
     os.makedirs(args.output, exist_ok=True)
 
     judges = {}

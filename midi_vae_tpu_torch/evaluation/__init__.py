@@ -1,1 +1,5 @@
-"""Generation and post-processing of decoder outputs."""
+"""Generation, post-processing of decoder outputs, and the evaluation harness."""
+
+from . import generation, harness, probes, sampling, stats, sweep
+from .generation import GenerationContext
+from .harness import EvalSections, Evaluator

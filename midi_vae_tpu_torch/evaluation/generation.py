@@ -1,11 +1,12 @@
-"""Batched encode / decode / style transfer on a model (the serving path).
+"""Batched encode / decode / style transfer on a model, and the song
+generators: interpolations, medleys, random songs, long songs.
 
-Counterpart of ``midi_vae_tpu/evaluation/generation.py:28-343``:
-``additional_rows``, ``decode_argmax_graph``, ``transfer_argmax_graph``,
-``GenerationContext``, ``split_song_back_to_samples`` and
-``vote_for_programs``. Batches are padded to the
-``bucket_pow2`` sizes the JAX package uses; the parameters move to the
-device once, when the context is made. All IO is numpy.
+Counterpart of ``midi_vae_tpu/evaluation/generation.py``: where the
+reference calls ``decoder.predict`` once per latent vector, everything here
+decodes batches of latents in one call, padded to the ``bucket_pow2`` sizes
+the JAX package uses. The parameters move to the device once, when the
+context is made. All IO is numpy. The JAX context's ``mesh`` has no
+counterpart: the port serves on one device.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from ..config import Config
 from ..data.batching import bucket_pow2, held_to_categorical, prepare_velocity
 from ..data.tensorize import instrument_matrix_to_programs
 from ..models.vae import MidiVAE
+from ..utils import music
 from . import sampling
 
 
@@ -176,12 +178,36 @@ class GenerationContext:
         return sampling.process_argmax_outputs(idx, self.cfg), switched.cpu().numpy()[:n]
 
     def decode_and_process(self, z, history=None, additional=None, sample_method: str = "argmax",
-                           independent_windows: bool = False):
-        """Decode + argmax on the device, then post-process to rolls."""
-        if sample_method != "argmax":
-            raise NotImplementedError(f"sample_method {sample_method!r} not yet ported")
-        idx = self._decode_padded(self._decode_argmax, z, history, additional)
-        return sampling.process_argmax_outputs(idx, self.cfg, independent_windows=independent_windows)
+                           rng=None, independent_windows: bool = False):
+        """Decode, then post-process to rolls (Y, I, V, D, N). ``argmax``
+        takes the argmax on the device and fetches indices; ``choice`` fetches
+        the heads' probabilities and draws from them on the host with
+        ``rng`` (a ``np.random.RandomState``; None: numpy's global one).
+        ``independent_windows`` post-processes each window on its own (the
+        velocity override chain then resets at every window boundary, as in
+        the reference's per-window ``decoder.predict`` calls)."""
+        if sample_method == "argmax":
+            idx = self._decode_padded(self._decode_argmax, z, history, additional)
+            return sampling.process_argmax_outputs(idx, self.cfg, independent_windows=independent_windows)
+        outs = self.decode_batch(z, history, additional)
+        return sampling.process_decoder_outputs(outs, sample_method, self.cfg, rng,
+                                                independent_windows=independent_windows)
+
+
+# ---------------------------------------------------------------------------
+# Latent-space helpers (vae_evaluation.py:577-662)
+# ---------------------------------------------------------------------------
+
+def linear_interpolation(p0: np.ndarray, p1: np.ndarray, t: float) -> np.ndarray:
+    return p0 * (1.0 - t) + p1 * t
+
+
+def slerp(p0: np.ndarray, p1: np.ndarray, t: float) -> np.ndarray:
+    omega = np.arccos(np.clip(np.dot(p0 / np.linalg.norm(p0), p1 / np.linalg.norm(p1)), -1.0, 1.0))
+    so = np.sin(omega)
+    if so == 0:
+        return linear_interpolation(p0, p1, t)
+    return np.sin((1.0 - t) * omega) / so * p0 + np.sin(t * omega) / so * p1
 
 
 def split_song_back_to_samples(X: np.ndarray, length: int) -> list[np.ndarray]:
@@ -204,3 +230,183 @@ def vote_for_programs(I_pred: np.ndarray, cfg: Config) -> list[int]:
                 best, best_count = program, count
         result.append(best)
     return result
+
+
+def prepare_for_drawing(Y: np.ndarray, cfg: Config, V: np.ndarray | None = None) -> np.ndarray:
+    """Grey-scale notes by velocity for plots (vae_evaluation.py:619-642)."""
+    newY = np.copy(Y)
+    mv = cfg.max_voices
+    if V is not None:
+        thr = cfg.velocity_threshold
+        for step in range(V.shape[0]):
+            if V[step] > thr:
+                newY[step, :] *= (V[step] - thr) * cfg.max_velocity
+            else:
+                if step > mv:
+                    prev = np.argmax(newY[step - mv])
+                    cur = np.argmax(newY[step])
+                    if cur != prev:
+                        newY[step, :] = 0
+                    else:
+                        newY[step, :] = newY[step - mv, :]
+                else:
+                    newY[step, :] = 0
+        poly = music.monophonic_to_khot_pianoroll(newY, mv, set_all_nonzero_to_1=False)
+    else:
+        poly = music.monophonic_to_khot_pianoroll(newY, mv)
+    return np.transpose(poly)
+
+
+def restructure_song_to_fit_more_instruments(Y: np.ndarray, I_list, V: np.ndarray, D: np.ndarray,
+                                             cfg: Config):
+    """Give every window its own instrument set by widening the voice axis
+    (vae_evaluation.py:645-662)."""
+    T = cfg.output_length
+    mv = cfg.max_voices
+    num_samples = len(I_list)
+    Y_final = np.zeros((num_samples * T * num_samples, Y.shape[1]), Y.dtype)
+    V_final = np.zeros((num_samples * T * num_samples,))
+    D_final = np.zeros((num_samples * T * num_samples,))
+    final_programs: list[int] = []
+    for sample, I in enumerate(I_list):
+        final_programs.extend(instrument_matrix_to_programs(I, cfg.instrument_attach_method))
+        for step in range(T // mv):
+            for voice in range(mv):
+                src = sample * T + step * mv + voice
+                dst = sample * T * num_samples + step * num_samples * mv + sample * mv + voice
+                Y_final[dst, :] = Y[src, :]
+                V_final[dst] = V[src]
+                D_final[dst] = D[src]
+    return Y_final, final_programs, V_final, D_final
+
+
+# ---------------------------------------------------------------------------
+# Song generators
+# ---------------------------------------------------------------------------
+
+def generate_random_song(ctx: GenerationContext, z_std: float, rng: np.random.RandomState,
+                         sample_method: str = "choice", style_class: int | None = None,
+                         z: np.ndarray | None = None):
+    """One random-latent song; optional composer-knob forcing
+    (vae_evaluation.py:1771-1814): z[0:k] = -1, z[C] = 1. Pass ``z`` to
+    reuse one latent across classes (the reference flips the knob on a
+    shared random code, so per-class outputs differ only by the knob)."""
+    cfg = ctx.cfg
+    if z is None:
+        z = rng.normal(0.0, z_std, size=(1, cfg.latent_dim)).astype(np.float32)
+    z = np.copy(np.atleast_2d(z)).astype(np.float32)
+    if style_class is not None:
+        z[0, : cfg.num_classes] = -1
+        z[0, style_class] = 1
+    return ctx.decode_and_process(
+        z, additional=ctx.additional_for(style_class if style_class is not None else 0, None, len(z)),
+        sample_method=sample_method, rng=rng,
+    )
+
+
+def generate_interpolation_song(ctx: GenerationContext, z_a: np.ndarray, z_b: np.ndarray,
+                                steps: int, sample_method: str = "argmax", rng=None):
+    """Walk z_a -> z_b in ``steps + 1`` windows, history chained
+    (vae_evaluation.py:841-887). Returns (Y, I_list, V, D)."""
+    zs = np.stack([linear_interpolation(z_a, z_b, i / float(steps)) for i in range(steps + 1)])
+    history = np.zeros_like(zs)
+    history[1:] = zs[:-1]
+    # the reference decodes one window per predict call: window-independent
+    # post-processing
+    Y, I, V, D, _ = ctx.decode_and_process(zs, history=history, sample_method=sample_method,
+                                           rng=rng, independent_windows=True)
+    return Y, I, V, D
+
+
+def generate_medley(ctx: GenerationContext, songs: list[dict], interpolation_length: int,
+                    samples_per_song: int, sample_method: str = "argmax",
+                    rng: np.random.RandomState | None = None):
+    """Chosen-song interpolation medley (vae_evaluation.py:705-837).
+
+    ``songs``: list of {X, I, V, D} window dicts. For each consecutive pair,
+    bridge with ``interpolation_length`` interpolated windows, then decode
+    ``samples_per_song`` real windows. Returns (Y, I_list, V, D, info).
+    """
+    rng = rng or np.random.RandomState()
+    Y_out, I_out, V_out, D_out = [], [], [], []
+    info: dict[str, object] = {}
+    previous_medley_z = None
+    previous_rep = np.zeros((1, ctx.cfg.latent_dim), np.float32)
+
+    for idx, song in enumerate(songs):
+        X, I, V, D = song["X"], song["I"], song["V"], song["D"]
+        n = X.shape[0]
+        take = min(samples_per_song, n)
+        start = 0 if n <= take else int(rng.randint(0, n - take))
+        R = ctx.encode_song(X[start: start + take], I, V[start: start + take], D[start: start + take])
+        info[f"programs_{idx}"] = instrument_matrix_to_programs(I, ctx.cfg.instrument_attach_method)
+
+        if previous_medley_z is not None:
+            for i in range(interpolation_length):
+                z = linear_interpolation(previous_medley_z, R[0], i / float(interpolation_length))[None]
+                Y, Ip, Vp, Dp, _ = ctx.decode_and_process(z, history=previous_rep,
+                                                          sample_method=sample_method, rng=rng)
+                Y_out.append(Y)
+                I_out.extend(Ip)
+                V_out.append(Vp)
+                D_out.append(Dp)
+                # the reference records the decoded bridge instruments per
+                # interpolation step (vae_evaluation.py:810)
+                info[f"programs_{idx}_interpolation_{i}"] = instrument_matrix_to_programs(
+                    Ip[0], ctx.cfg.instrument_attach_method)
+                previous_rep = z
+        for i in range(R.shape[0]):
+            z = R[i][None]
+            Y, Ip, Vp, Dp, _ = ctx.decode_and_process(z, history=previous_rep,
+                                                      sample_method=sample_method, rng=rng)
+            Y_out.append(Y)
+            I_out.extend(Ip)
+            V_out.append(Vp)
+            D_out.append(Dp)
+            previous_rep = z
+        previous_medley_z = R[-1]
+
+    return (np.concatenate(Y_out, axis=0), np.asarray(I_out), np.concatenate(V_out),
+            np.concatenate(D_out), info)
+
+
+def generate_long_song(ctx: GenerationContext, all_z: np.ndarray, z_std: float, length: int,
+                       rng: np.random.RandomState, sample_method: str = "choice"):
+    """Decode -> re-encode -> blend with the nearest cached train z, chained
+    (vae_evaluation.py:1821-1896).
+
+    The nearest-z scan is the reference's (vae_evaluation.py:1847-1856): the
+    running minimum starts at index 0's distance whether or not 0 was
+    already picked, so when no unpicked z beats dist(all_z[0], R) the walk
+    picks index 0 again."""
+    cfg = ctx.cfg
+    R = rng.normal(0.0, z_std, size=(1, cfg.latent_dim))
+    previous_rep = np.zeros((1, cfg.latent_dim), np.float32)
+    picked: set[int] = set()
+    Y_out, I_out, V_out, D_out = [], [], [], []
+
+    for _ in range(length):
+        dists = np.linalg.norm(all_z - R, axis=1)
+        lowest = dists[0]
+        best = 0
+        for i in range(len(all_z)):
+            if dists[i] < lowest and i not in picked:
+                lowest = dists[i]
+                best = i
+        picked.add(best)
+        e = z_std
+        R = (R + all_z[best] * e) / (1 + e)
+
+        Y, I, V, D, _ = ctx.decode_and_process(R, history=previous_rep,
+                                               sample_method=sample_method, rng=rng)
+        Y_out.append(Y)
+        I_out.extend(I)
+        V_out.append(V)
+        D_out.append(D)
+
+        # feed the output back through the encoder
+        X = sampling.add_silent_column(Y, cfg)[None]
+        previous_rep = R
+        R = ctx.encode_song(X, I[0], V[None], D[None])
+
+    return np.concatenate(Y_out, axis=0), np.asarray(I_out), np.concatenate(V_out), np.concatenate(D_out)

@@ -68,6 +68,16 @@ def load_params(run_dir: str):
     return bridge.load_params(path)
 
 
+def load_run_params(run_dir: str, epoch: int | None = None):
+    """The params a serving CLI takes from a run: ``epoch_<epoch>/``'s
+    (``restore_checkpoint``) when ``epoch`` is given, else the run's
+    top-level ``params.npz`` (the latest checkpoint's after training, or a
+    converted or seeded run's)."""
+    if epoch is None:
+        return load_params(run_dir)
+    return restore_checkpoint(run_dir, epoch)["params"]
+
+
 def save_checkpoint(run_dir: str, epoch: int, params, opt_state: dict, rng: torch.Generator,
                     cfg: Config | None) -> str:
     """Write ``run_dir/epoch_<epoch>/`` (params: the numpy tree; opt_state:

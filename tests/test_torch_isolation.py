@@ -6,6 +6,12 @@ package, and its own copies of the JAX package's numpy-only layers
   (``pkgutil.walk_packages``), ``chip_smoke.py`` and
   ``tools/profile_transfer_torch.py`` behind a ``sys.meta_path`` finder that
   refuses ``jax`` and ``midi_vae_tpu``; neither may be in ``sys.modules``.
+  It then walks every ``import`` statement of the two scripts with ``ast``,
+  at top level and inside function bodies (the imports a phase makes when
+  it runs), and imports each module behind the same finder, with the
+  repo's ``tools/`` on ``sys.path`` as the scripts put it there.
+- ``midi_vae_tpu_torch/tools/make_demo_corpus.py`` writes the same bytes as
+  ``tools/make_demo_corpus.py`` for the same seed and options.
 - The port's ``Config`` against the JAX one: every field and every derived
   property, for the default, ``small_test_config``, each ``configs/*.json``
   and a few ``--set`` strings.
@@ -16,6 +22,7 @@ package, and its own copies of the JAX package's numpy-only layers
 """
 
 import dataclasses
+import filecmp
 import glob
 import inspect
 import os
@@ -55,13 +62,31 @@ names = ['midi_vae_tpu_torch']
 for info in pkgutil.walk_packages(midi_vae_tpu_torch.__path__, 'midi_vae_tpu_torch.'):
     importlib.import_module(info.name)
     names.append(info.name)
-for name, path in (('chip_smoke', {os.path.join(REPO, 'chip_smoke.py')!r}),
-                   ('profile_transfer_torch', {os.path.join(REPO, 'tools', 'profile_transfer_torch.py')!r})):
+scripts = (('chip_smoke', {os.path.join(REPO, 'chip_smoke.py')!r}),
+           ('profile_transfer_torch', {os.path.join(REPO, 'tools', 'profile_transfer_torch.py')!r}))
+for name, path in scripts:
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     names.append(name)
+import ast
+walked = set()
+for _, path in scripts:
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                importlib.import_module(alias.name)
+                walked.add(alias.name)
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, (path, node.module)
+            module = importlib.import_module(node.module)
+            walked.add(node.module)
+            for alias in node.names:
+                if alias.name != '*' and not hasattr(module, alias.name):
+                    importlib.import_module(node.module + '.' + alias.name)
+                    walked.add(node.module + '.' + alias.name)
 bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'midi_vae_tpu'))
 assert not bad, bad
+print(len(walked), 'imports walked')
 print(len(names), 'modules')
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -70,6 +95,8 @@ print(len(names), 'modules')
     assert res.returncode == 0, res.stdout + res.stderr
     count = int(res.stdout.split()[-2])
     assert count >= 30  # every module of the package, the two scripts
+    walked = int(res.stdout.splitlines()[-2].split()[0])
+    assert walked >= 20  # the scripts' imports, top level and lazy
 
 
 def _config_view(cfg) -> dict:
@@ -164,3 +191,21 @@ def test_corpus_import_gives_the_same_splits(tmp_path):
     assert got.C_train == want.C_train and got.C_test == want.C_test
     for name in ("X_train", "Y_train", "V_test", "D_test", "I_train"):
         assert all(np.array_equal(a, b) for a, b in zip(getattr(got, name), getattr(want, name)))
+
+
+@pytest.mark.parametrize("options", [[], ["--styles", "3"], ["--chords"], ["--hard", "--seed", "4"]],
+                         ids=["two_styles", "three_styles", "chords", "hard"])
+def test_corpus_twin_writes_the_same_bytes(tmp_path, options):
+    from midi_vae_tpu_torch.tools import make_demo_corpus as twin
+
+    jax_tool = tools_module("make_demo_corpus")
+    args = ["--songs-per-style", "3", *options]
+    assert jax_tool.main([str(tmp_path / "jax"), *args]) == 0
+    assert twin.main([str(tmp_path / "port"), *args]) == 0
+    files = sorted(os.path.relpath(p, tmp_path / "jax")
+                   for p in glob.glob(str(tmp_path / "jax" / "*" / "*.mid")))
+    assert len(files) == 3 * (3 if "3" in options else 2)
+    assert sorted(os.path.relpath(p, tmp_path / "port")
+                  for p in glob.glob(str(tmp_path / "port" / "*" / "*.mid"))) == files
+    for name in files:
+        assert filecmp.cmp(tmp_path / "jax" / name, tmp_path / "port" / name, shallow=False), name

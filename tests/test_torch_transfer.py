@@ -191,3 +191,34 @@ def test_converted_jax_run_serves_like_jax(tmp_path):
     song = load_rolls_from_path(write_songs(str(tmp_path), 1, seed=3)[0], cfg)
     port = GenerationContext(cfg, MidiVAE(cfg, port_ckpt.load_params(out)), "cpu")
     assert_same_transfer(cfg, jax_context(cfg, restored), port, song)
+
+
+def test_cli_epoch_serves_that_checkpoint(tmp_path):
+    """``--epoch N`` serves ``epoch_N/``'s params (``restore_checkpoint``),
+    the default the run's ``params.npz``: a run whose epoch 0 holds one
+    model and whose ``params.npz`` another transfers a song as a run of
+    each model alone does."""
+    import torch
+
+    cfg = small_test_config()
+    early = MidiVAE(cfg).init_params(np.array([0, 4], np.uint32))
+    late = MidiVAE(cfg).init_params(np.array([0, 9], np.uint32))
+    run = str(tmp_path / "run")
+    port_ckpt.save_checkpoint(run, 0, early, {}, torch.Generator(), cfg)
+    port_ckpt.save_run(run, cfg, late)
+    refs = {}
+    for tag, params in (("early", early), ("late", late)):
+        refs[tag] = str(tmp_path / f"ref_{tag}")
+        port_ckpt.save_run(refs[tag], cfg, params)
+    song = write_songs(str(tmp_path / "corpus"), 1, seed=2)[0]
+
+    def transfer(model, out, *extra):
+        out = str(tmp_path / out)
+        assert transfer_cli.main(["--model", model, "--input", song, "--to-class", "style2",
+                                  "--output", out, "--device", "cpu", *extra]) == 0
+        with open(os.path.join(out, "song0_style1_to_style2.mid"), "rb") as f:
+            return f.read()
+
+    assert transfer(run, "epoch0", "--epoch", "0") == transfer(refs["early"], "want_early")
+    assert transfer(run, "latest") == transfer(refs["late"], "want_late")
+    assert transfer(refs["early"], "early_again") != transfer(refs["late"], "late_again")
