@@ -311,6 +311,18 @@ result line):
      the autoencoding section over 3 songs with GRU judges (the rolls'
      agreement at MIN_ARGMAX_AGREEMENT, the accuracies of the songs without
      a flipped row within ACC_ATOL).
+ 45. serving bundles (midi_vae_tpu_torch/serving.py): the export tool
+     writes torch.export programs of a seeded Config() run at buckets 16
+     and 256 with seeded GRU judges, and of Config(cell_type="LSTM") at 16
+     (each program's export seconds and bytes printed); a fresh process
+     loads each bundle and holds it against the live GenerationContext:
+     every program at every bucket launches A and B (L and M) through their
+     registered operators (mvt::) as designed, twice, the second call
+     packing no weight slice; z within BUNDLE_Z_ATOL (bit-equality
+     printed), every argmax roll equal, the sealed judges within
+     JUDGE_ATOL; one transfer at each bucket timed through the bundle and
+     the live context in turns; cli.transfer --bundle writes a readable
+     MIDI; the bundle asked to load on the CPU raises.
 Then D's and M's route counters on the Config(), bf16 Config() and
 residual_bf16 training slices and the LSTM transfer (every launch their
 chains'), one JSON line with the kernels, and the final line
@@ -6777,6 +6789,256 @@ def phase_harness_card_vs_cpu(work, smi, buckets):
             "judge_argmax_flips": len(judge_flips)}
 
 
+# serving bundles (phase_serving_bundles): the buckets exported per cell
+# type, and the bundle's z against the live GenerationContext's (the same
+# operators and kernels on the same card; its dense layers are the same
+# cuBLAS calls at the same shapes)
+BUNDLE_BUCKETS = {"GRU": (16, 256), "LSTM": (16,)}
+BUNDLE_Z_ATOL = 1e-6
+# launches per call of each program (A or L per encoder layer, B or M per head)
+PER_PROGRAM = {"encode": (4, 0), "decode_argmax": (0, 3), "style_transfer": (4, 3)}
+
+
+def phase_serving_bundles(work, smi):
+    """Serving bundles: a seeded ``Config()`` run exported by
+    ``midi_vae_tpu_torch.tools.export_serving`` at buckets 16 and 256 with
+    seeded GRU judges (RNN(256) x 2, all three kinds), and a
+    ``Config(cell_type="LSTM")`` run at bucket 16; then a fresh process
+    (``python3 chip_smoke.py --serving-bundles SPEC``, ``bundle_checks``)
+    loads each bundle and holds it against the live GenerationContext on the
+    card. Prints each program's export seconds and bytes; returns the
+    child's result, with the launch counters of ``cli.transfer --bundle``
+    under ``paths``."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+
+    from midi_vae_tpu_torch.config import Config
+    from midi_vae_tpu_torch.tools import export_serving
+    from midi_vae_tpu_torch.tools import make_demo_corpus as corpus
+
+    t0 = time.perf_counter()
+    spec = {"bundles": {}, "song": os.path.join(work, "songs", "style1", "song.mid"),
+            "out": os.path.join(work, "out")}
+    os.makedirs(os.path.dirname(spec["song"]))
+    corpus.make_song(corpus.STYLES["style1"], np.random.RandomState(0)).write(spec["song"])
+    exports = {}
+    for cell_type, buckets in BUNDLE_BUCKETS.items():
+        cfg = Config(cell_type=cell_type)
+        run = seeded_run(work, f"run_{cell_type.lower()}", cfg)
+        bundle = os.path.join(work, f"bundle_{cell_type.lower()}")
+        args = ["--model", run, "--out", bundle, "--batch", *map(str, buckets)]
+        judges = None
+        if cell_type == "GRU":
+            judges = os.path.join(work, "judges_gru")
+            write_judges(judges, cfg)
+            args += ["--classifiers", judges]
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with redirect_stdout(buf):
+            rc = export_serving.main(args)
+        secs = time.perf_counter() - t1
+        if rc != 0:
+            raise RuntimeError(f"export_serving ({cell_type}) returned {rc}")
+        manifest = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if manifest["platforms"] != ["cuda"]:
+            raise RuntimeError(f"the {cell_type} bundle was exported for {manifest['platforms']}")
+        files = {**manifest["export_seconds"], **{
+            f: v for meta in manifest.get("judges", {}).values()
+            for f, v in meta["export_seconds"].items()}}
+        sizes = {**manifest["blob_bytes"], **{
+            f: v for meta in manifest.get("judges", {}).values()
+            for f, v in meta["blob_bytes"].items()}}
+        exports[cell_type] = {"export_seconds": files, "bytes": sizes,
+                              "bundle_bytes": sum(sizes.values()), "tool_seconds": secs}
+        print(f"[bundles] {cell_type}: exported {len(files)} programs in {secs:.2f} s (the tool); "
+              "per program s and bytes: " + ", ".join(
+                  f"{f} {files[f]:.2f} s {sizes[f]}" for f in sorted(files))
+              + f"; bundle {sum(sizes.values())} bytes")
+        spec["bundles"][cell_type] = {"run": run, "bundle": bundle, "judges": judges}
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--serving-bundles",
+                            json.dumps(spec)], capture_output=True, text=True, timeout=900)
+    lines = child.stdout.strip().splitlines()
+    print("\n".join(f"[bundles child] {line}" for line in lines[:-1]))
+    if child.returncode != 0:
+        raise RuntimeError(f"the bundle checks failed (rc {child.returncode}):\n"
+                           f"{child.stdout[-4000:]}\n{child.stderr[-8000:]}")
+    result = json.loads(lines[-1])
+    result["exports"] = exports
+    result["phase_s"] = time.perf_counter() - t0
+    print(f"[bundles] the phase took {result['phase_s']:.1f} s (exports, a fresh process's load, "
+          f"checks and timings) on {smi}")
+    return result
+
+
+def bundle_checks(spec_json):
+    """The fresh process of ``phase_serving_bundles``: each bundle loaded on
+    the card and held against the live GenerationContext of its run. Every
+    program at every bucket is called twice: the launch counters advance by
+    PER_PROGRAM each call (A and B, L and M, on their chains) and the second
+    call packs nothing (``ops/gru_decode.py::packed``). One song of 16
+    windows (and, at bucket 256, a 256-window transfer): z within
+    BUNDLE_Z_ATOL of the live context's (bit-equality printed), every argmax
+    roll equal; ``decode_argmax`` beside the live decode; the sealed judges'
+    probs within JUDGE_ATOL of the live judges'. Then the time of one
+    transfer at each bucket through the bundle and through the live context,
+    in turns (device-resident inputs, host clock to a synchronize, median of
+    REPS); ``cli.transfer --bundle`` on one song writes a readable MIDI (its
+    launch counters are the bundle path's); and the bundle asked to load on
+    the CPU raises. Prints one JSON line last."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from midi_vae_tpu_torch.cli import transfer
+    from midi_vae_tpu_torch.data.tensorize import load_rolls_from_path
+    from midi_vae_tpu_torch.evaluation.generation import GenerationContext
+    from midi_vae_tpu_torch.models.classifier import CLASSIFIER_KINDS, make_judge
+    from midi_vae_tpu_torch.models.vae import MidiVAE
+    from midi_vae_tpu_torch.ops.gru_decode import packed
+    from midi_vae_tpu_torch.serving import load_serving_bundle
+    from midi_vae_tpu_torch.training import checkpoint as ckpt
+
+    spec = json.loads(spec_json)
+    out = {"paths": {}}
+    for cell_type, s in spec["bundles"].items():
+        layer, decode = SERVING_KERNELS[cell_type]
+        t0 = time.perf_counter()
+        bundle = load_serving_bundle(s["bundle"])
+        load_s = time.perf_counter() - t0
+        cfg = bundle.cfg
+        ctx = GenerationContext(cfg, MidiVAE(cfg, ckpt.load_run_params(s["run"])), "cuda")
+        res = {"load_s": load_s, "programs": {}, "agreement": {}, "ms": {}}
+        # every program at every bucket, twice: launches and packs
+        perm = torch.arange(cfg.latent_dim, device="cuda")
+        perm[[0, 1]] = perm[[1, 0]]
+        staged = {}
+        for B in bundle.batch_sizes:
+            padded, _ = bundle.pad_batch(random_batch(cfg, B, B))
+            batch = bundle._device_batch(padded)
+            z = torch.randn(B, cfg.latent_dim, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(B))
+            A = torch.zeros(B, bundle.manifest["additional_dim"], device="cuda")
+            staged[B] = (batch, A)
+            calls = {"encode": (batch,), "decode_argmax": (z, torch.roll(z, 1, 0), A),
+                     "style_transfer": (batch, perm, A)}
+            for name, args in calls.items():
+                n_layer, n_decode = PER_PROGRAM[name]
+                want = fwd_phases({k: v for k, v in ((layer, n_layer), (decode, n_decode)) if v})
+                got = []
+                for _ in range(2):
+                    reset_counters()
+                    packs = packed.packs
+                    bundle.call(name, B, *args)
+                    torch.cuda.synchronize()
+                    got.append((read_counters(), packed.packs - packs))
+                if got[0][0] != want or got[1][0] != want or got[1][1]:
+                    raise RuntimeError(f"{cell_type} bundle {name}@{B}: launches and packs of two "
+                                       f"calls {got}, expected {want} each and no pack the second")
+                res["programs"][f"{name}@{B}"] = {"launches": got[1][0], "packs_first": got[0][1],
+                                                  "packs_second": got[1][1]}
+        # against the live context: one song of 16 windows, a 256-window transfer
+        for B in bundle.batch_sizes:
+            song = random_batch(cfg, B, 100 + B)
+            X, I = song["X"], song["I"][0]
+            V, D = song["V"][..., 0], song["D"][..., 1]
+            (rolls, z), (live, live_z) = (c.style_transfer_song(X, I, V, D, C=0, C_switch=1)
+                                          for c in (bundle, ctx))
+            enc, live_enc = bundle.encode_song(X, I, V, D), ctx.encode_song(X, I, V, D)
+            H = np.roll(enc, 1, axis=0)
+            idx = bundle.decode_argmax(enc, H)
+            live_idx = ctx._decode_padded(ctx._decode_argmax, enc, H, None)
+            dz = max(float(np.abs(z - live_z).max()), float(np.abs(enc - live_enc).max()))
+            bit = bool(np.array_equal(z, live_z) and np.array_equal(enc, live_enc))
+            dv = max(float(np.abs(rolls[2] - live[2]).max()) if live[2] is not None else 0.0,
+                     float(np.abs(idx["vel"] - live_idx["vel"]).max()))
+            rolls_equal = all(np.array_equal(a, b) for i, (a, b) in enumerate(zip(rolls, live))
+                              if i != 2)
+            idx_equal = all(np.array_equal(idx[k], live_idx[k]) for k in idx if k != "vel")
+            if not (dz <= BUNDLE_Z_ATOL and dv <= BUNDLE_Z_ATOL and rolls_equal and idx_equal
+                    and np.isfinite(z).all()):
+                raise RuntimeError(f"{cell_type} bundle against the live context at {B} windows: "
+                                   f"max|dz| {dz:.3e}, max|dvelocity| {dv:.3e} (limit "
+                                   f"{BUNDLE_Z_ATOL:.0e}), rolls equal {rolls_equal}, "
+                                   f"decode_argmax equal {idx_equal}")
+            res["agreement"][B] = {"max_abs_dz": dz, "z_bit_equal": bit, "max_abs_dvel": dv}
+            print(f"{cell_type} {B} windows: bundle vs live max|dz| {dz:.3e} (bit-equal {bit}), "
+                  f"max|dvelocity| {dv:.3e}, every argmax roll equal")
+        if s["judges"]:
+            judges, dp = bundle.judges, 0.0
+            inputs = {"pitch": random_batch(cfg, 20, 7)["X"], "velocity": random_batch(cfg, 20, 8)["V"],
+                      "instrument": random_batch(cfg, 20, 9)["I"]}
+            for kind in CLASSIFIER_KINDS:
+                reset_counters()
+                got = judges[kind](inputs[kind])
+                launches = read_counters()
+                if launches != fwd_phases({"gru_layer_fwd": 2}):
+                    raise RuntimeError(f"sealed judge {kind}: launches {launches}, expected A 2")
+                live = make_judge(ckpt.load_classifier(os.path.join(s["judges"], kind)).to("cuda"))
+                dp = max(dp, float(np.abs(got - live(inputs[kind])).max()))
+            if not dp <= JUDGE_ATOL:
+                raise RuntimeError(f"sealed judges against the live judges: max|dprobs| {dp:.3e} "
+                                   f"(limit {JUDGE_ATOL:.0e})")
+            res["judges_max_abs_dprobs"] = dp
+            print(f"{cell_type} sealed judges vs live (20 rows each kind): max|dprobs| {dp:.3e}, "
+                  "A 2 a call")
+        # one transfer at each bucket, bundle and live in turns (B L L B)
+        for B, (batch, A) in staged.items():
+            fns = {"bundle": lambda b=batch, a=A, n=B: bundle.call("style_transfer", n, b, perm, a),
+                   "live": lambda b=batch, a=A: ctx.transfer_argmax(b, perm, a)}
+            times = {k: [] for k in fns}
+            for order in [("bundle", "live"), ("live", "bundle")] * REPS:
+                for k in order:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    fns[k]()
+                    torch.cuda.synchronize()
+                    times[k].append(time.perf_counter() - t1)
+            res["ms"][B] = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in times.items()}
+            print(f"{cell_type} one transfer of {B} windows, device-resident inputs, host clock to "
+                  f"a synchronize (median of {2 * REPS}, in turns): bundle "
+                  f"{res['ms'][B]['bundle']:.3f} ms, live {res['ms'][B]['live']:.3f} ms")
+        # the user's entry point: cli.transfer --bundle on one song; a song
+        # longer than the top bucket composes encode and decode_argmax over
+        # chunks of it, and the judges chunk over their top bucket
+        n = load_rolls_from_path(spec["song"], cfg).X.shape[0]
+        chunks = -(-n // bundle.max_batch)
+        per_song = {layer: 4 * chunks, decode: 3 * chunks}
+        if s["judges"]:  # pitch and velocity on n windows, instrument on 1, twice
+            per_song[layer] += 2 * 2 * (2 * -(-n // bundle.judge_batch_sizes[-1]) + 1)
+        folder = os.path.join(spec["out"], cell_type.lower())
+        buf = io.StringIO()
+        reset_counters()
+        with redirect_stdout(buf):
+            rc = transfer.main(["--bundle", s["bundle"], "--input", spec["song"], "--to-class",
+                                "style2", "--output", folder])
+        launches = read_counters()
+        n_mid = check_midis(folder, f"cli.transfer --bundle ({cell_type})")
+        judged = [line for line in buf.getvalue().splitlines() if "judge confidence" in line]
+        if rc != 0 or launches != fwd_phases(per_song) or len(judged) != (2 if s["judges"] else 0):
+            raise RuntimeError(f"cli.transfer --bundle ({cell_type}): rc {rc}, launches "
+                               f"{launches} (expected {fwd_phases(per_song)}), output:\n"
+                               f"{buf.getvalue()}")
+        out["paths"][f"bundle_{cell_type.lower()}"] = launches
+        print(f"{cell_type} cli.transfer --bundle: a song of {n} windows "
+              f"({'one program' if chunks == 1 else f'composed over {chunks} chunks'}), {n_mid} "
+              f".mid that parse back, {len(judged)} judge lines, launches {launches}")
+        try:
+            load_serving_bundle(s["bundle"], "cpu")
+        except RuntimeError as e:
+            print(f"{cell_type} bundle asked to load on the CPU: refused ({e})")
+        else:
+            raise RuntimeError(f"the {cell_type} bundle (cuda) loaded on the CPU")
+        out[cell_type] = res
+    if "jax" in sys.modules:
+        raise RuntimeError("jax was imported")
+    print(json.dumps(out))
+    return 0
+
+
 def kernel_registers(registers, letter):
     """ptxas's registers and spills of kernel ``letter``'s build; for N's,
     R's, L's, A's and G's ops those of each of their phases (the per-block
@@ -7004,6 +7266,11 @@ def main() -> int:
     buckets["GRU"] |= eval_buckets
     with tempfile.TemporaryDirectory() as work:
         harness = phase_harness_card_vs_cpu(work, smi, buckets)
+    # serving bundles: exported programs of A and B, L and M loaded in a
+    # fresh process and held against the live context
+    with tempfile.TemporaryDirectory() as work:
+        bundles = phase_serving_bundles(work, smi)
+    paths.update(bundles.pop("paths"))
     for path, counts in paths.items():
         for name in ("gru_encoder_stack_fwd", "gru_encoder_stack_bwd"):
             if counts.get(name, 0):
@@ -7349,7 +7616,7 @@ def main() -> int:
                       "lstm_fwd_bwd_vs_cudnn": results["lstm_fwd_bwd_vs_cudnn"],
                       "encoder_stack_vs_per_layer": results["encoder_route"],
                       "generate_seconds": gen_seconds, "evaluate_seconds": eval_seconds,
-                      "harness_card_vs_cpu": harness,
+                      "harness_card_vs_cpu": harness, "serving_bundles": bundles,
                       "grad_reduce_checks": w_checks, "a_c_digests": a_c_bits, "power": smi,
                       "wall_s": wall_s, "phase_seconds": PHASE_SECONDS}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7379,4 +7646,6 @@ for _name in [n for n in globals() if n.startswith("phase_")]:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serving-bundles"]:  # phase_serving_bundles' fresh process
+        sys.exit(bundle_checks(sys.argv[2]))
     sys.exit(main())

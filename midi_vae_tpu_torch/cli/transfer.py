@@ -9,7 +9,10 @@ transferred MIDI. The run directory holds ``config.json`` and
 ``--classifiers DIR`` (one ``pitch/``, ``velocity/``, ``instrument/`` judge
 directory each, ``training/checkpoint.py::save_classifier``) the judges score
 the original and the transferred song: per judge, the mean confidence of its
-windows in the target class.
+windows in the target class. ``--bundle DIR`` serves from a serving bundle
+(``python -m midi_vae_tpu_torch.tools.export_serving``, ``serving.py``)
+instead of a run: its exported programs alone, no model build, and its
+sealed judges when it carries them and ``--classifiers`` is not given.
 
 Examples:
     python -m midi_vae_tpu_torch.cli.transfer --model runs/port \\
@@ -17,6 +20,8 @@ Examples:
     python -m midi_vae_tpu_torch.cli.transfer --model runs/port \\
         --input song.mid --from-class style1 --to-class style2 \\
         --output out/ --write-reconstruction --classifiers runs/judges --device cpu
+    python -m midi_vae_tpu_torch.cli.transfer --bundle bundles/port \\
+        --input song.mid --to-class style2 --output out/
 """
 
 from __future__ import annotations
@@ -59,7 +64,9 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--model", default=None, help="run dir (config.json + params.npz)")
     p.add_argument("--epoch", type=int, default=None,
                    help="serve the epoch_N/ checkpoint (default: the run's params.npz)")
-    p.add_argument("--bundle", default=None, help="sealed serving bundle (not yet ported)")
+    p.add_argument("--bundle", default=None,
+                   help="serving bundle dir (midi_vae_tpu_torch.tools.export_serving): run the "
+                        "transfer from its exported programs alone (exclusive with --model)")
     p.add_argument("--input", required=True, nargs="+", help="MIDI file(s)")
     p.add_argument("--output", required=True, help="output folder")
     p.add_argument("--to-class", required=True, help="target style: class name or index")
@@ -77,10 +84,10 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = p.parse_args(argv)
 
-    if args.bundle is not None:
-        raise SystemExit("--bundle: sealed serving bundles are not yet ported")
-    if args.model is None:
-        raise SystemExit("--model is required")
+    if (args.model is None) == (args.bundle is None):
+        raise SystemExit("pass exactly one of --model or --bundle")
+    if args.bundle is not None and args.epoch is not None:
+        raise SystemExit("--epoch applies to --model runs, not bundles")
 
     import numpy as np
 
@@ -96,12 +103,20 @@ def main(argv: list[str] | None = None) -> int:
     )
     from midi_vae_tpu_torch.evaluation.sampling import add_silent_column
     from midi_vae_tpu_torch.models.classifier import CLASSIFIER_KINDS, make_judge
-    from midi_vae_tpu_torch.models.vae import MidiVAE
     from midi_vae_tpu_torch.training import checkpoint as ckpt
 
-    cfg = ckpt.load_config(args.model)
-    # raises when --device cuda finds no card: no silent CPU run
-    ctx = GenerationContext(cfg, MidiVAE(cfg, ckpt.load_run_params(args.model, args.epoch)), args.device)
+    # either raises when --device cuda finds no card: no silent CPU run
+    if args.bundle is not None:
+        from midi_vae_tpu_torch.serving import load_serving_bundle
+
+        ctx = load_serving_bundle(args.bundle, args.device)
+        cfg, run_dir = ctx.cfg, args.bundle
+    else:
+        from midi_vae_tpu_torch.models.vae import MidiVAE
+
+        cfg, run_dir = ckpt.load_config(args.model), args.model
+        ctx = GenerationContext(cfg, MidiVAE(cfg, ckpt.load_run_params(args.model, args.epoch)),
+                                args.device)
     os.makedirs(args.output, exist_ok=True)
 
     judges = {}
@@ -110,6 +125,10 @@ def main(argv: list[str] | None = None) -> int:
             kind_dir = os.path.join(args.classifiers, kind)
             if os.path.isdir(kind_dir):
                 judges[kind] = make_judge(ckpt.load_classifier(kind_dir).to(ctx.device))
+    elif args.bundle is not None:
+        judges = ctx.judges  # the bundle's sealed judges, if it carries them
+        if judges:
+            print(f"judging with sealed programs: {sorted(judges)}")
 
     def judge_windows(Y_song, I_pred, V_flat, label, C_target):
         """Mean per-judge confidence that the windows are class C_target."""
@@ -133,7 +152,7 @@ def main(argv: list[str] | None = None) -> int:
     # signature-conditioned runs: normalize with the train-time stats
     sig_stats = None
     if cfg.append_signature_vector_to_latent:
-        stats_path = os.path.join(args.model, "signature_stats.npz")
+        stats_path = os.path.join(run_dir, "signature_stats.npz")
         if os.path.exists(stats_path):
             d = np.load(stats_path)
             sig_stats = (d["mean"], d["std"])

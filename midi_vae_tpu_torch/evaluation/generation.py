@@ -11,6 +11,8 @@ counterpart: the port serves on one device.
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 import torch
 
@@ -18,9 +20,11 @@ from .. import use_exact_f32
 from ..config import Config
 from ..data.batching import bucket_pow2, held_to_categorical, prepare_velocity
 from ..data.tensorize import instrument_matrix_to_programs
-from ..models.vae import MidiVAE
 from ..utils import music
 from . import sampling
+
+if TYPE_CHECKING:  # a serving bundle's loader imports this module and builds no model
+    from ..models.vae import MidiVAE
 
 
 def additional_rows(cfg: Config, C: int | None, S: np.ndarray | None, n: int) -> np.ndarray | None:

@@ -419,21 +419,25 @@ class MidiVAE(nn.Module):
                                          cfg.gate_activation,
                                          step=self.decode_step(self.kernels_enabled(z.device)))
 
-        outputs = {"notes": run_head("notes", cfg.output_dim, cfg.output_length, cfg.activation)}
+        return {name: run_head(name, dim, length, act)
+                for name, dim, length, act in self.serving_heads()}
+
+    def serving_heads(self) -> list[tuple[str, int, int, str]]:
+        """The heads ``decode`` runs at inference, in order: (name, width,
+        steps, output activation)."""
+        cfg = self.cfg
+        heads = [("notes", cfg.output_dim, cfg.output_length, cfg.activation)]
         if cfg.meta_velocity:
-            outputs["velocity"] = run_head("velocity", 1, cfg.meta_velocity_length,
-                                           cfg.meta_velocity_activation)
+            heads.append(("velocity", 1, cfg.meta_velocity_length, cfg.meta_velocity_activation))
         if cfg.meta_held_notes:
-            outputs["held"] = run_head("held", 2, cfg.meta_held_notes_length,
-                                       cfg.meta_held_notes_activation)
+            heads.append(("held", 2, cfg.meta_held_notes_length, cfg.meta_held_notes_activation))
         if cfg.meta_next_notes:
-            outputs["next"] = run_head("next", cfg.output_dim, cfg.meta_next_notes_output_length,
-                                       cfg.activation)
+            heads.append(("next", cfg.output_dim, cfg.meta_next_notes_output_length,
+                          cfg.activation))
         if cfg.meta_instrument:
-            outputs["instrument"] = run_head("instrument", cfg.meta_instrument_dim,
-                                             cfg.meta_instrument_length,
-                                             cfg.meta_instrument_activation)
-        return outputs
+            heads.append(("instrument", cfg.meta_instrument_dim, cfg.meta_instrument_length,
+                          cfg.meta_instrument_activation))
+        return heads
 
     def _decode_train(self, dec, new_encoded, z, ground_truth, next_ground_truth) -> dict:
         """The training decode (``MidiVAE.decode(inference=False)``,

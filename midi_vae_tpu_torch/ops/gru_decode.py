@@ -280,21 +280,26 @@ def packed(cells, pack, *args):
     and unchanged (their version counters: an in-place update, as the
     optimizer's at every step, repacks), so that serving the same heads
     again packs nothing; inference tensors (no version counter) are packed
-    every call."""
+    every call. ``packed.packs`` counts the calls that pack."""
     ts = [p[k] for p in cells for k in ("w", "u")]
     try:
         versions = tuple(t._version for t in ts)
     except RuntimeError:
+        packed.packs += 1
         return pack(cells, *args)
     key = (pack.__name__, tuple(id(t) for t in ts), *args)
     hit = _PACKED.get(key)
     if hit and hit[1] == versions and all(r() is t for r, t in zip(hit[0], ts)):
         return hit[2]
+    packed.packs += 1
     out = pack(cells, *args)
     if len(_PACKED) >= 16:
         _PACKED.clear()
     _PACKED[key] = ([weakref.ref(t) for t in ts], versions, out)
     return out
+
+
+packed.packs = 0
 
 
 def _packed_slices(cells, cluster, chunk, tc=False):
@@ -330,13 +335,57 @@ def gru_decode(cells, out_dense, init_states, start, T, activation="tanh",
     """Readout decode of one head: ``cells`` is a list of 1 or 2 GRU layer
     params {w, u, b}, ``out_dense`` {w, b}, ``init_states`` one (B, H) state
     per layer, ``start`` (B, D) the input of step 0. Returns (probs, logits),
-    each (T, B, D). CPU tensors run ``gru_decode_reference``; CUDA tensors
-    launch kernel B: its chain on clusters at ``plan`` (a
+    each (T, B, D). The call goes through the registered operator
+    ``mvt::gru_decode`` (``ops/_custom.py``; the head flattened by
+    ``decode_operands``) on either device: CPU tensors run
+    ``gru_decode_reference``; CUDA tensors launch kernel B
+    (``gru_decode_cuda``): its chain on clusters at ``plan`` (a
     ``_layout.GruDecodePlan``; default ``decode_plan``'s) where
     ``_layout.gru_decode_route`` says "chain", else its per-block build."""
+    return torch.ops.mvt.gru_decode(*decode_operands(cells, out_dense, init_states, start, "B"),
+                                    T, activation, out_activation,
+                                    None if plan is None else [int(v) for v in plan])
+
+
+def decode_operands(cells, out_dense, init_states, start, letter):
+    """A 1- or 2-layer head flattened into the operands of ``mvt::gru_decode``
+    (``letter`` "B": h a layer) or ``mvt::lstm_decode`` ("M": h and c):
+    start, layer 1's state, w, u and b, layer 2's (None for a 1-layer head),
+    wo, bo."""
     n_layers = len(cells)
     if n_layers not in (1, 2) or len(init_states) != n_layers:
-        raise ValueError(f"kernel B decodes 1- or 2-layer heads with one state per layer, got {n_layers} layers and {len(init_states)} states")
+        raise ValueError(f"kernel {letter} decodes 1- or 2-layer heads with one state per "
+                         f"layer, got {n_layers} layers and {len(init_states)} states")
+    ops = [start]
+    for i in range(2):
+        if i < n_layers:
+            state = list(init_states[i]) if letter == "M" else [init_states[i]]
+            ops += [*state, cells[i]["w"], cells[i]["u"], cells[i]["b"]]
+        else:
+            ops += [None] * (5 if letter == "M" else 4)
+    return (*ops, out_dense["w"], out_dense["b"])
+
+
+def decode_call(args, letter):
+    """The operator's arguments (``decode_operands``, then T, activation,
+    out_activation and the plan's fields or None) back as (cells,
+    out_dense, init_states, start, T, activation, out_activation, plan)."""
+    ops, (T, activation, out_activation, plan) = args[:-4], args[-4:]
+    start, rest, (wo, bo) = ops[0], ops[1:-2], ops[-2:]
+    per = len(rest) // 2
+    cells, states = [], []
+    for layer in (rest[:per], rest[per:]):
+        if layer[-1] is None:
+            continue
+        state, (w, u, b) = layer[:-3], layer[-3:]
+        cells.append({"w": w, "u": u, "b": b})
+        states.append(tuple(state) if letter == "M" else state[0])
+    return cells, {"w": wo, "b": bo}, states, start, T, activation, out_activation, plan
+
+
+def _check_decode(cells, out_dense, init_states, start, activation, out_activation):
+    """Shapes of kernel B's operands and, on the card, their device, dtype
+    and contiguity. Returns (B, D, H)."""
     if activation not in CELL_ACTIVATIONS:
         raise ValueError(f"unsupported GRU kernel activation {activation!r}")
     if out_activation not in OUT_ACTIVATIONS:
@@ -353,12 +402,39 @@ def gru_decode(cells, out_dense, init_states, start, T, activation="tanh",
     for name, t in named.items():
         if tuple(t.shape) != expected[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
-    if start.device.type == "cpu":
-        return gru_decode_reference(cells, out_dense, init_states, start, T, activation,
-                                    out_activation)
-    if start.device.type != "cuda":
+    if start.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gru_decode runs on cpu or cuda tensors, not {start.device}")
-    check_operands(named, start.device)
+    if start.device.type == "cuda":
+        check_operands(named, start.device)
+    return B, D, H
+
+
+def gru_decode_cpu(*args):
+    """``mvt::gru_decode``'s CPU implementation: the plain version."""
+    cells, out_dense, init_states, start, T, activation, out_activation, _ = decode_call(args, "B")
+    _check_decode(cells, out_dense, init_states, start, activation, out_activation)
+    return gru_decode_reference(cells, out_dense, init_states, start, T, activation,
+                                out_activation)
+
+
+def gru_decode_fake(*args):
+    """``mvt::gru_decode``'s fake implementation: (probs, logits), float32
+    (T, B, D), after the real ones' checks."""
+    cells, out_dense, init_states, start, T, activation, out_activation, _ = decode_call(args, "B")
+    B, D, _ = _check_decode(cells, out_dense, init_states, start, activation, out_activation)
+    return start.new_empty(T, B, D), start.new_empty(T, B, D)
+
+
+def gru_decode_cuda(*args):
+    """``mvt::gru_decode``'s CUDA implementation: kernel B, its chain at the
+    plan (its fields as ints; default ``decode_plan``'s) or its per-block
+    route."""
+    cells, out_dense, init_states, start, T, activation, out_activation, plan = decode_call(
+        args, "B")
+    n_layers = len(cells)
+    B, D, H = _check_decode(cells, out_dense, init_states, start, activation, out_activation)
+    if start.device.type != "cuda":
+        raise ValueError(f"gru_decode: start is on {start.device}, the other operands on the card")
     if T < 1:
         raise ValueError(f"kernel B takes T >= 1; got T={T}")
     if _layout.gru_decode_route(H, D, n_layers) == "block":
@@ -366,7 +442,8 @@ def gru_decode(cells, out_dense, init_states, start, T, activation="tanh",
             raise ValueError(f"kernel B takes its per-block route at H={H}: no chain plan applies")
         return _decode_per_block(cells, out_dense, init_states, start, T, activation,
                                  out_activation)
-    plan = plan or decode_plan(H, D, n_layers, B, T)
+    plan = (decode_plan(H, D, n_layers, B, T) if plan is None
+            else _layout.GruDecodePlan(*plan[:-1], bool(plan[-1])))
     probs, logits, states, tail, stream = _launch_operands(cells, out_dense, init_states, start,
                                                            T, activation, out_activation)
     two = n_layers == 2

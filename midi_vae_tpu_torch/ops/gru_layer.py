@@ -361,20 +361,40 @@ def gru_layer(x, h0, w, b, u, activation="tanh", return_sequences=False):
     every one bfloat16.
 
     Returns the (T, B, H) h sequence when ``return_sequences`` else the final
-    h (B, H), in the operands' dtype. CPU tensors run ``gru_layer_reference``;
-    CUDA tensors run kernel A's build of their dtype on the route
-    ``_layout.gru_fwd_route`` picks: the pre-pass and the chain, or the
-    per-block route (``gru_layer_block``). Each of those wrappers counts its
-    own launches (``A_PHASES``); this one launches nothing itself."""
+    h (B, H), in the operands' dtype. The call goes through the registered
+    operator ``mvt::gru_layer`` (``ops/_custom.py``) on either device, so an
+    exported program runs the same operator: CPU tensors run
+    ``gru_layer_reference``; CUDA tensors run ``gru_layer_cuda``."""
+    return torch.ops.mvt.gru_layer(x, h0, w, b, u, activation, return_sequences)
+
+
+def gru_layer_cpu(x, h0, w, b, u, activation, return_sequences):
+    """``mvt::gru_layer``'s CPU implementation: the plain version."""
+    _check_layer(x, h0, w, b, u, activation, "gru_layer")
+    return gru_layer_reference(x, h0, w, b, u, activation, return_sequences)
+
+
+def gru_layer_cuda(x, h0, w, b, u, activation, return_sequences):
+    """``mvt::gru_layer``'s CUDA implementation: kernel A's build of the
+    operands' dtype on the route ``_layout.gru_fwd_route`` picks, the
+    pre-pass and the chain, or the per-block route (``gru_layer_block``).
+    Each of those wrappers counts its own launches (``A_PHASES``); this one
+    launches nothing itself."""
     T, B, D, H, dtype = _check_layer(x, h0, w, b, u, activation, "gru_layer")
     if dtype is None:
-        return gru_layer_reference(x, h0, w, b, u, activation, return_sequences)
+        raise ValueError(f"gru_layer: x is on {x.device}, the other operands on the card")
     if _layout.gru_fwd_route(H, D, dtype == _BF16) == "block":
-        out = gru_layer_block(x, h0, w, b, u, activation, return_sequences)
-    else:
-        gru_chain_plan("A_chain_bf16" if dtype == _BF16 else "A_chain", H, B)  # raises first
-        out = gru_layer_fwd_chain(gru_layer_xproj(x, w, b), h0, u, activation, return_sequences)
-    return out
+        return gru_layer_block(x, h0, w, b, u, activation, return_sequences)
+    gru_chain_plan("A_chain_bf16" if dtype == _BF16 else "A_chain", H, B)  # raises first
+    return gru_layer_fwd_chain(gru_layer_xproj(x, w, b), h0, u, activation, return_sequences)
+
+
+def gru_layer_fake(x, h0, w, b, u, activation, return_sequences):
+    """``mvt::gru_layer``'s fake implementation: the output's shape and
+    dtype, after the shape checks (and on the card the device, dtype and
+    contiguity checks) of the real ones."""
+    T, B, _, H, _ = _check_layer(x, h0, w, b, u, activation, "gru_layer")
+    return h0.new_empty((T, B, H) if return_sequences else (B, H))
 
 
 # the wrappers that launch A's kernels, each counting on ``.launches`` and

@@ -27,8 +27,9 @@ import functools
 import torch
 
 from . import _build, _layout
-from .gru_decode import (OUT_ACTIVATIONS, decode_readout_partials_reference,
-                         decode_readout_reference, out_activation_fn, packed)
+from .gru_decode import (OUT_ACTIVATIONS, decode_call, decode_operands,
+                         decode_readout_partials_reference, decode_readout_reference,
+                         out_activation_fn, packed)
 from .gru_layer import CELL_ACTIVATIONS, _ptr, cell_activation, check_operands
 from .lstm_layer import lstm_step
 
@@ -148,15 +149,22 @@ def lstm_decode(cell_params, out_dense, init_states, start, T, activation="tanh"
     """Readout decode of one head: ``cell_params`` a list of 1 or 2 LSTM
     layer params {w, u, b}, ``out_dense`` {w, b}, ``init_states`` one (h, c)
     pair of (B, H) per layer, ``start`` (B, D) the input of step 0. Returns
-    (probs, logits), each (T, B, D). CPU tensors run
-    ``lstm_decode_reference``; CUDA tensors launch kernel M: its chain on
-    clusters at ``plan`` (a ``_layout.LstmDecodePlan``; default
-    ``decode_plan``'s) where ``_layout.lstm_decode_route`` says "chain",
-    else its per-block build."""
-    n_layers = len(cell_params)
-    if n_layers not in (1, 2) or len(init_states) != n_layers:
-        raise ValueError(f"kernel M decodes 1- or 2-layer heads with one (h, c) per layer, got "
-                         f"{n_layers} layers and {len(init_states)} states")
+    (probs, logits), each (T, B, D). The call goes through the registered
+    operator ``mvt::lstm_decode`` (``ops/_custom.py``; the head flattened by
+    ``decode_operands``) on either device: CPU tensors run
+    ``lstm_decode_reference``; CUDA tensors launch kernel M
+    (``lstm_decode_cuda``): its chain on clusters at ``plan`` (a
+    ``_layout.LstmDecodePlan``; default ``decode_plan``'s) where
+    ``_layout.lstm_decode_route`` says "chain", else its per-block build."""
+    return torch.ops.mvt.lstm_decode(*decode_operands(cell_params, out_dense, init_states, start,
+                                                      "M"),
+                                     T, activation, out_activation,
+                                     None if plan is None else [int(v) for v in plan])
+
+
+def _check_decode(cell_params, out_dense, init_states, start, activation, out_activation):
+    """Shapes of kernel M's operands and, on the card, their device, dtype
+    and contiguity. Returns (B, D, H, the operands by name)."""
     if activation not in CELL_ACTIVATIONS:
         raise ValueError(f"unsupported LSTM kernel activation {activation!r}")
     if out_activation not in OUT_ACTIVATIONS:
@@ -174,12 +182,40 @@ def lstm_decode(cell_params, out_dense, init_states, start, T, activation="tanh"
     for name, t in named.items():
         if tuple(t.shape) != expected[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
-    if start.device.type == "cpu":
-        return lstm_decode_reference(cell_params, out_dense, init_states, start, T, activation,
-                                     out_activation)
-    if start.device.type != "cuda":
+    if start.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm_decode runs on cpu or cuda tensors, not {start.device}")
-    check_operands(named, start.device)
+    if start.device.type == "cuda":
+        check_operands(named, start.device)
+    return B, D, H, named
+
+
+def lstm_decode_cpu(*args):
+    """``mvt::lstm_decode``'s CPU implementation: the plain version."""
+    cells, out_dense, init_states, start, T, activation, out_activation, _ = decode_call(args, "M")
+    _check_decode(cells, out_dense, init_states, start, activation, out_activation)
+    return lstm_decode_reference(cells, out_dense, init_states, start, T, activation,
+                                 out_activation)
+
+
+def lstm_decode_fake(*args):
+    """``mvt::lstm_decode``'s fake implementation: (probs, logits), float32
+    (T, B, D), after the real ones' checks."""
+    cells, out_dense, init_states, start, T, activation, out_activation, _ = decode_call(args, "M")
+    B, D, _, _ = _check_decode(cells, out_dense, init_states, start, activation, out_activation)
+    return start.new_empty(T, B, D), start.new_empty(T, B, D)
+
+
+def lstm_decode_cuda(*args):
+    """``mvt::lstm_decode``'s CUDA implementation: kernel M, its chain at
+    the plan (its fields as ints; default ``decode_plan``'s) or its
+    per-block route."""
+    cell_params, out_dense, init_states, start, T, activation, out_activation, plan = decode_call(
+        args, "M")
+    n_layers = len(cell_params)
+    B, D, H, named = _check_decode(cell_params, out_dense, init_states, start, activation,
+                                   out_activation)
+    if start.device.type != "cuda":
+        raise ValueError(f"lstm_decode: start is on {start.device}, the other operands on the card")
     if T < 1:
         raise ValueError(f"kernel M takes T >= 1; got T={T}")
     route = _layout.lstm_decode_route(H, D, n_layers)
@@ -200,7 +236,8 @@ def lstm_decode(cell_params, out_dense, init_states, start, T, activation="tanh"
         _build.check(lib, rc, "lstm_decode launch")
         lstm_decode.launches_block += 1
     else:
-        plan = plan or decode_plan(H, D, n_layers, B, T)
+        plan = (decode_plan(H, D, n_layers, B, T) if plan is None
+                else _layout.LstmDecodePlan(*plan))
         slices = packed(cell_params, pack_lstm_slices, plan.cluster, plan.chunk)
         rc = chain_fn(_ptr(start), opt("h1"), opt("c1"), opt("h2"), opt("c2"),
                       *(_ptr(t) for t in slices), *([null] * (2 - len(slices))),

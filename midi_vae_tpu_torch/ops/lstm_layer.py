@@ -297,23 +297,52 @@ def lstm_layer(x, h0, c0, w, b, u, activation="tanh", return_sequences=False, wi
 
     Returns the (T, B, H) h sequence when ``return_sequences`` else the final
     h (B, H); with ``with_c`` the (h sequence, c sequence) pair, the
-    training forward's residual; in the operands' dtype. CPU tensors run
-    ``lstm_layer_reference``; CUDA tensors run kernel L's build of their
-    dtype on the route ``_layout.lstm_fwd_route`` picks: the pre-pass and
-    the chain, or the per-block route (``lstm_layer_block``). Each of those
-    wrappers counts its own launches (``L_PHASES``); this one launches
-    nothing itself."""
+    training forward's residual; in the operands' dtype. The call goes
+    through the registered operator ``mvt::lstm_layer`` (``ops/_custom.py``)
+    on either device: CPU tensors run ``lstm_layer_reference``; CUDA
+    tensors run ``lstm_layer_cuda``."""
+    out = torch.ops.mvt.lstm_layer(x, h0, c0, w, b, u, activation, return_sequences, with_c)
+    return tuple(out) if with_c else out[0]
+
+
+def _as_list(out, with_c):
+    """An implementation's outputs as the operator returns them: [h] or [h
+    sequence, c sequence]."""
+    return list(out) if with_c else [out]
+
+
+def lstm_layer_cpu(x, h0, c0, w, b, u, activation, return_sequences, with_c):
+    """``mvt::lstm_layer``'s CPU implementation: the plain version."""
+    _check_layer(x, h0, c0, w, b, u, activation, "lstm_layer")
+    return _as_list(lstm_layer_reference(x, h0, c0, w, b, u, activation, return_sequences,
+                                         with_c), with_c)
+
+
+def lstm_layer_cuda(x, h0, c0, w, b, u, activation, return_sequences, with_c):
+    """``mvt::lstm_layer``'s CUDA implementation: kernel L's build of the
+    operands' dtype on the route ``_layout.lstm_fwd_route`` picks, the
+    pre-pass and the chain, or the per-block route (``lstm_layer_block``).
+    Each of those wrappers counts its own launches (``L_PHASES``); this one
+    launches nothing itself."""
     T, B, D, H, dtype = _check_layer(x, h0, c0, w, b, u, activation, "lstm_layer")
     if dtype is None:
-        return lstm_layer_reference(x, h0, c0, w, b, u, activation, return_sequences, with_c)
-    route = _layout.lstm_fwd_route(H, D, dtype == torch.bfloat16)
-    if route == "block":
+        raise ValueError(f"lstm_layer: x is on {x.device}, the other operands on the card")
+    if _layout.lstm_fwd_route(H, D, dtype == torch.bfloat16) == "block":
         out = lstm_layer_block(x, h0, c0, w, b, u, activation, return_sequences, with_c)
     else:
         fwd_chain_plan(_bf16_build("L_chain", dtype), H, B)  # raises before any launch
         xp = lstm_layer_xproj(x, w, b)
         out = lstm_layer_fwd_chain(xp, h0, c0, u, activation, return_sequences, with_c)
-    return out
+    return _as_list(out, with_c)
+
+
+def lstm_layer_fake(x, h0, c0, w, b, u, activation, return_sequences, with_c):
+    """``mvt::lstm_layer``'s fake implementation: the outputs' shapes and
+    dtype, after the real ones' checks."""
+    T, B, _, H, _ = _check_layer(x, h0, c0, w, b, u, activation, "lstm_layer")
+    if with_c:
+        return [h0.new_empty(T, B, H), c0.new_empty(T, B, H)]
+    return [h0.new_empty((T, B, H) if return_sequences else (B, H))]
 
 
 # the wrappers that launch L's kernels, each counting on ``.launches`` and

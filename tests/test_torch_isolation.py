@@ -6,10 +6,13 @@ package, and its own copies of the JAX package's numpy-only layers
   (``pkgutil.walk_packages``), ``chip_smoke.py`` and
   ``tools/profile_transfer_torch.py`` behind a ``sys.meta_path`` finder that
   refuses ``jax`` and ``midi_vae_tpu``; neither may be in ``sys.modules``.
-  It then walks every ``import`` statement of the two scripts with ``ast``,
-  at top level and inside function bodies (the imports a phase makes when
-  it runs), and imports each module behind the same finder, with the
-  repo's ``tools/`` on ``sys.path`` as the scripts put it there.
+  It then walks every ``import`` statement of the two scripts, of
+  ``midi_vae_tpu_torch/serving.py`` and of
+  ``midi_vae_tpu_torch/tools/export_serving.py`` with ``ast``, at top level
+  and inside function bodies (the imports a phase or a bundle's loader
+  makes when it runs; relative ones resolved in their package), and
+  imports each module behind the same finder, with the repo's ``tools/`` on
+  ``sys.path`` as the scripts put it there.
 - ``midi_vae_tpu_torch/tools/make_demo_corpus.py`` writes the same bytes as
   ``tools/make_demo_corpus.py`` for the same seed and options.
 - The port's ``Config`` against the JAX one: every field and every derived
@@ -70,20 +73,26 @@ for name, path in scripts:
     names.append(name)
 import ast
 walked = set()
-for _, path in scripts:
+port = {os.path.join(REPO, 'midi_vae_tpu_torch')!r}
+modules = (({os.path.join(REPO, 'chip_smoke.py')!r}, None),
+           ({os.path.join(REPO, 'tools', 'profile_transfer_torch.py')!r}, None),
+           (port + '/serving.py', 'midi_vae_tpu_torch'),
+           (port + '/tools/export_serving.py', 'midi_vae_tpu_torch.tools'))
+for path, package in modules:
     for node in ast.walk(ast.parse(open(path).read())):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 importlib.import_module(alias.name)
                 walked.add(alias.name)
         elif isinstance(node, ast.ImportFrom):
-            assert node.level == 0, (path, node.module)
-            module = importlib.import_module(node.module)
-            walked.add(node.module)
+            assert node.level == 0 or package, (path, node.module)
+            name = importlib.util.resolve_name('.' * node.level + (node.module or ''), package)
+            module = importlib.import_module(name)
+            walked.add(name)
             for alias in node.names:
                 if alias.name != '*' and not hasattr(module, alias.name):
-                    importlib.import_module(node.module + '.' + alias.name)
-                    walked.add(node.module + '.' + alias.name)
+                    importlib.import_module(name + '.' + alias.name)
+                    walked.add(name + '.' + alias.name)
 bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'midi_vae_tpu'))
 assert not bad, bad
 print(len(walked), 'imports walked')
@@ -96,7 +105,7 @@ print(len(names), 'modules')
     count = int(res.stdout.split()[-2])
     assert count >= 30  # every module of the package, the two scripts
     walked = int(res.stdout.splitlines()[-2].split()[0])
-    assert walked >= 20  # the scripts' imports, top level and lazy
+    assert walked >= 20  # the walked files' imports, top level and lazy
 
 
 def _config_view(cfg) -> dict:

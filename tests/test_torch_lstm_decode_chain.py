@@ -43,6 +43,7 @@ from midi_vae_tpu.models.cells import LSTMCell, dense_init
 from midi_vae_tpu.ops import fused_gru, fused_lstm
 from midi_vae_tpu_torch.ops import _layout
 from midi_vae_tpu_torch.ops import lstm_decode as port_lstm
+from midi_vae_tpu_torch.ops.gru_decode import decode_operands
 
 RTOL, ATOL = 2e-5, 2e-6
 T = 6
@@ -271,9 +272,12 @@ def test_launches_count_by_route(monkeypatch):
     start = start.as_subclass(OnCard)
     monkeypatch.setattr(torch, "empty", lambda *a, **k: torch.zeros(1))
     monkeypatch.setattr(torch, "empty_like", lambda *a, **k: torch.zeros(1))
-    port_lstm.lstm_decode(cells, out, states, start, T)
+    # the operator dispatches on the tensors' real device: call its CUDA
+    # implementation, as the dispatcher does for tensors on the card
+    args = (*decode_operands(cells, out, states, start, "M"), T, "tanh", "softmax", None)
+    port_lstm.lstm_decode_cuda(*args)
     monkeypatch.setattr(_layout, "lstm_decode_route", lambda *a: "block")
-    port_lstm.lstm_decode(cells, out, states, start, T)
+    port_lstm.lstm_decode_cuda(*args)
     p = _layout.lstm_decode_plan(64, 16, 2, 5, T=T)
     assert calls == [("chain", 27, (p.cluster, p.rows, p.splits, p.stages, p.chunk, p.nb)),
                      ("block", 23)]

@@ -119,10 +119,43 @@ def test_cli_cuda_without_a_card_is_an_error(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_unported_options(tmp_path):
-    # --classifiers is ported (tests/test_torch_judges.py); bundles are not
-    with pytest.raises(SystemExit, match="not yet ported"):
-        transfer_cli.main(["--model", "m", "--bundle", "x", "--input", "a.mid",
-                           "--to-class", "1", "--output", str(tmp_path)])
+    """Bundles are ported (tests/test_torch_serving.py): the CLI takes exactly
+    one of --model and --bundle, and --epoch only with --model."""
+    common = ["--input", "a.mid", "--to-class", "1", "--output", str(tmp_path)]
+    for source in (["--model", "m", "--bundle", "x"], []):
+        with pytest.raises(SystemExit, match="exactly one of --model or --bundle"):
+            transfer_cli.main([*source, *common])
+    with pytest.raises(SystemExit, match="--epoch applies to --model runs"):
+        transfer_cli.main(["--bundle", "x", "--epoch", "1", *common])
+
+
+def test_cli_bundle_writes_readable_midi(tmp_path):
+    """The export tool's bundle served by ``cli.transfer --bundle``: the
+    same MIDI files as the run served live, every one readable."""
+    from midi_vae_tpu_torch.tools import export_serving
+
+    cfg = small_test_config()
+    run, bundle = str(tmp_path / "run"), str(tmp_path / "bundle")
+    port_ckpt.save_run(run, cfg, MidiVAE(cfg).init_params(np.array([0, 4], np.uint32)))
+    assert export_serving.main(["--model", run, "--out", bundle, "--batch", "4", "8",
+                                "--device", "cpu"]) == 0
+    inputs = write_songs(str(tmp_path / "corpus"), 2, seed=1)
+    written = {}
+    for source in (["--bundle", bundle], ["--model", run]):
+        out = str(tmp_path / f"out_{source[0][2:]}")
+        assert transfer_cli.main([*source, "--input", *inputs, "--to-class", "style2",
+                                  "--output", out, "--device", "cpu",
+                                  "--write-reconstruction"]) == 0
+        written[source[0]] = {name: smf.read_midi(os.path.join(out, name))
+                              for name in sorted(os.listdir(out))}
+    assert sorted(written["--bundle"]) == ["song0_reconstruction.mid", "song0_style1_to_style2.mid",
+                                           "song1_reconstruction.mid", "song1_style1_to_style2.mid"]
+    assert sorted(written["--bundle"]) == sorted(written["--model"])
+    for name, mid in written["--bundle"].items():
+        assert mid.instruments, name
+        live = written["--model"][name]
+        assert [[(n.pitch, n.start, n.end, n.velocity) for n in i.notes] for i in mid.instruments] \
+            == [[(n.pitch, n.start, n.end, n.velocity) for n in i.notes] for i in live.instruments], name
 
 
 def test_transfer_runs_without_jax(tmp_path):
